@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's multistage solve goes, on one card.
+
+    python3 scripts/prof_torch_ms.py [--md 4 --nr 4 --nh 20] [--reps 10]
+
+Prints, for quadcopter(md, nr, nh) with the slice options of chip_smoke.py:
+
+* cold and warm solve times (host clock around synchronized solves;
+  median of --reps) and their iteration counts;
+* the cost of each step of one Newton iteration, timed alone (host clock,
+  synchronized): stage evaluation, residuals, dual value, factorize (the
+  chain and crown kernels with their operand assembly), one system solve,
+  one Hessian action;
+* a torch.profiler trace of one cold solve: the device-busy share
+  (summed device kernel time over wall time) and the kernels with the
+  most device time.
+
+Needs CUDA; imports nothing of JAX.
+"""
+
+import argparse
+import dataclasses
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def timed(torch, fn, reps):
+    """Median host milliseconds of fn(), synchronized, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--md", type=int, default=4)
+    ap.add_argument("--nr", type=int, default=4)
+    ap.add_argument("--nh", type=int, default=20)
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("prof_torch_ms: needs a CUDA device")
+    import treeqp_tpu_torch  # noqa: F401
+    from treeqp_tpu_torch.core.kkt import max_kkt_residual
+    from treeqp_tpu_torch.models import quadcopter
+    from treeqp_tpu_torch.solvers import tdunes as td
+    from treeqp_tpu_torch.solvers import tdunes_multistage as tm
+    from chip_smoke import SLICE_OPTS
+
+    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    dev = torch.device("cuda", 0)
+    opts = td.TdunesOpts(**SLICE_OPTS)
+    qp = quadcopter(args.md, args.nr, args.nh).qp.to(dev)
+    ms = tm.split_multistage(qp)
+    meta = ms.meta
+    print(f"quadcopter({args.md},{args.nr},{args.nh}): {meta.full_topo.Nn} nodes, "
+          f"S={meta.S}, crown {meta.crown_topo.Nn} nodes / "
+          f"{td._get_prep(meta.crown_topo).NpG} groups, on {card}")
+
+    cro, cho, info = tm.tdunes_ms_solve(ms, None, None, opts)
+    kkt = max_kkt_residual(qp, tm.merge_output(ms, cro, cho, info))
+    print(f"cold solve: iter {info['iter']} status {info['status']} kkt {kkt:.2e}")
+    lam_w = (cro["lam"], cho["lam"])
+    xmin, xmax = ms.crown.xmin.clone(), ms.crown.xmax.clone()
+    xmin[0] *= 1.01
+    xmax[0] *= 1.01
+    ms_p = dataclasses.replace(ms, crown=ms.crown.replace(xmin=xmin, xmax=xmax))
+    t_cold = timed(torch, lambda: tm.tdunes_ms_solve(ms, None, None, opts), args.reps)
+    t_warm = timed(torch, lambda: tm.tdunes_ms_solve(ms_p, *lam_w, opts), args.reps)
+    _, _, info_w = tm.tdunes_ms_solve(ms_p, *lam_w, opts)
+    print(f"cold solve {t_cold:.2f} ms ({info['iter']} iter), warm solve "
+          f"(x0 scaled by 1.01) {t_warm:.2f} ms ({info_w['iter']} iter) on {card}")
+
+    # one Newton iteration's steps, each timed alone
+    prep = td._get_prep(meta.crown_topo)
+    ctx = tm._solve_ctx(ms, prep)
+    data = td._stage_data(ms.crown, opts, prep)
+    lam_cr, lam_ch = 0.5 * cro["lam"], 0.5 * cho["lam"]
+    cr, ch = tm._ms_stage_solve(ms, data, lam_cr, lam_ch, opts, prep, ctx["rid"])
+    res_cr = td._dual_residual(ms.crown, cr, prep)
+    res_ch = tm._chain_residual(ms, ch, cr["x"], cr["u"], ctx["rid"])
+    fact = tm._ms_factorize(ms, cr["qtilde"], cr["rtilde"], ch["qt"], ch["rt"],
+                            opts, prep, ctx)
+    solve = tm._make_ms_solve(fact, meta, prep, ms.q.dtype, ctx["nrxm_cr"])
+    d_cr, d_ch = solve(res_cr, res_ch)
+    steps = {
+        "stage eval": lambda: tm._ms_stage_solve(ms, data, lam_cr, lam_ch, opts,
+                                                 prep, ctx["rid"]),
+        "residuals": lambda: (td._dual_residual(ms.crown, cr, prep),
+                              tm._chain_residual(ms, ch, cr["x"], cr["u"], ctx["rid"])),
+        "dual value": lambda: float(tm._ms_dual_value(ms, data, lam_cr, lam_ch,
+                                                      cr, ch, opts)),
+        "factorize": lambda: tm._ms_factorize(ms, cr["qtilde"], cr["rtilde"],
+                                              ch["qt"], ch["rt"], opts, prep, ctx),
+        "system solve": lambda: solve(res_cr, res_ch),
+        "Hessian action": lambda: tm._ms_apply_M(ms, cr, ch, d_cr, d_ch, prep,
+                                                 ctx["rid"]),
+    }
+    for name, fn in steps.items():
+        print(f"  step {name}: {timed(torch, fn, args.reps):.3f} ms")
+
+    # device-busy share and top kernels over one cold solve
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tm.tdunes_ms_solve(ms, None, None, opts)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_total = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    n_launch = len(kern)
+    by_name = {}
+    for e in kern:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    print(f"profiled cold solve: wall {wall:.2f} ms, device kernels "
+          f"{dev_total:.2f} ms in {n_launch} launches -> device busy "
+          f"{100 * dev_total / wall:.1f}% (profiler on) on {card}")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"  {t:8.3f} ms  x{c:<5d} {name[:90]}")
+
+
+if __name__ == "__main__":
+    main()

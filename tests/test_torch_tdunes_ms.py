@@ -1,0 +1,105 @@
+"""PyTorch port, the whole slice: ``tdunes_ms_solve`` of the port (plain
+twins on the CPU) against the JAX package's ``tdunes_ms_solve`` (Pallas
+kernels in interpret mode) with the same options on the same data."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from benchmarks import models as jmodels
+from treeqp_tpu.core.kkt import max_kkt_residual as jax_kkt
+from treeqp_tpu.solvers import tdunes as jtd
+from treeqp_tpu.solvers import tdunes_multistage as jtm
+
+from treeqp_tpu_torch import convert
+from treeqp_tpu_torch.core.kkt import max_kkt_residual
+from treeqp_tpu_torch.solvers import tdunes as td
+from treeqp_tpu_torch.solvers import tdunes_multistage as tm
+
+torch.set_num_threads(1)
+
+SLICE = dict(stage_solver="clipping", tol=1e-8, max_iter=120,
+             factor_dtype="float32", refine_steps=2, refine_safeguard=False,
+             chain_backend="pallas", reg_type="always", reg_value=1e-6,
+             f32_phase_tol=0.0, df64_phase=False)
+CASES = {
+    "quadcopter": lambda: jmodels.quadcopter(2, 2, 6).qp,
+    "spring_mass_chain": lambda: jmodels.spring_mass_chain(nm=2, md=3, Nr=2, Nh=8)[0],
+}
+# Both solvers stop at stationarity 1e-8 with f32-factored, refined
+# directions: the duals agree to ~1e-7 (the JAX slice sits 1.9e-7 in
+# lambda from the f64 reference on the full-size tree), primal to ~1e-9.
+X_TOL, U_TOL, LAM_TOL = 1e-7, 1e-7, 1e-6
+
+
+def port_ms(name):
+    qp_j = CASES[name]()
+    return tm.split_multistage(convert.qp_from_numpy(
+        convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo)))
+
+
+def solve_both(name, **overrides):
+    qp_j = CASES[name]()
+    ms_j = jtm.split_multistage(qp_j)
+    cro, cho, info_j = jtm.tdunes_ms_solve(
+        ms_j, None, None, jtd.TdunesOpts(**{**SLICE, **overrides}))
+    out_j = jtm.merge_output(ms_j, cro, cho, info_j)
+    qp = convert.qp_from_numpy(convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo))
+    ms = tm.split_multistage(qp)
+    cro, cho, info = tm.tdunes_ms_solve(ms, None, None,
+                                        td.TdunesOpts(**{**SLICE, **overrides}))
+    out = tm.merge_output(ms, cro, cho, info)
+    return qp_j, out_j, info_j, qp, out, info
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_slice_matches_jax(name):
+    qp_j, out_j, info_j, qp, out, info = solve_both(name)
+    assert int(info_j["status"]) == 0 and info["status"] == 0
+    assert abs(int(info_j["iter"]) - info["iter"]) <= 1
+    kkt_j = float(jax_kkt(qp_j, out_j))
+    kkt = max_kkt_residual(qp, out)
+    assert kkt_j < 1e-8 and kkt < 1e-8
+    # the two oracles agree on the same solution
+    out_jt = out.replace(**{f: torch.tensor(v) for f, v in
+                            convert.out_to_numpy(out_j).items()})
+    assert abs(max_kkt_residual(qp, out_jt) - kkt_j) <= 1e-12
+    a, b = convert.out_to_numpy(out), convert.out_to_numpy(out_j)
+    assert np.max(np.abs(a["x"] - b["x"])) <= X_TOL
+    assert np.max(np.abs(a["u"] - b["u"])) <= U_TOL
+    assert np.max(np.abs(a["lam"] - b["lam"])) <= LAM_TOL
+
+
+def test_safeguarded_refinement_matches_jax():
+    """The other refinement branch (keep the best of the refined
+    directions by Newton-system residual)."""
+    qp_j, out_j, info_j, qp, out, info = solve_both(
+        "spring_mass_chain", refine_safeguard=True)
+    assert int(info_j["status"]) == 0 and info["status"] == 0
+    assert abs(int(info_j["iter"]) - info["iter"]) <= 1
+    assert max_kkt_residual(qp, out) < 1e-8
+    a, b = convert.out_to_numpy(out), convert.out_to_numpy(out_j)
+    assert np.max(np.abs(a["lam"] - b["lam"])) <= LAM_TOL
+
+
+def test_warm_start_from_solution_takes_no_step():
+    ms = port_ms("quadcopter")
+    opts = td.TdunesOpts(**SLICE)
+    cro, cho, _ = tm.tdunes_ms_solve(ms, None, None, opts)
+    cro2, cho2, info2 = tm.tdunes_ms_solve(ms, cro["lam"], cho["lam"], opts)
+    assert info2["status"] == 0 and info2["iter"] == 0
+    assert torch.equal(cho2["lam"], cho["lam"])
+
+
+@pytest.mark.parametrize("override", [
+    dict(f32_phase_tol=1e-4), dict(df64_phase=True), dict(axis_name="scen"),
+    dict(chain_backend="xla"), dict(ls_batch=4), dict(factor_dtype="same"),
+    dict(reg_type="on_the_fly"), dict(stage_solver="qpgen")],
+    ids=lambda o: next(iter(o)))
+def test_options_outside_the_slice_raise(override):
+    ms = port_ms("quadcopter")
+    opts = dataclasses.replace(td.TdunesOpts(**SLICE), **override)
+    with pytest.raises(NotImplementedError):
+        tm.tdunes_ms_solve(ms, None, None, opts)

@@ -1,0 +1,146 @@
+"""Whole-system Newton solve for the multistage dual Hessian.
+
+Port of ``ms_sched`` and ``system_solve`` in
+``treeqp_tpu/ops/system_kernels.py``: chain backward sweeps -> crown tree
+solve -> chain forward sweeps, with the chain factors of
+``chain_kernels.chain_blocks_factor`` and the crown factors of
+``crown_kernels.crown_blocks_factor``. ``system_solve`` launches the CUDA
+kernel of ``csrc/system_solve.cu`` on CUDA tensors and runs the plain
+PyTorch twin ``system_solve_ref`` on CPU tensors; both are f32. The
+scenario <-> crown-group moves use index lists (``ms_sched``) instead of
+the TPU kernel's one-hot injection matrices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from treeqp_tpu_torch.ops import _build, _dense
+from treeqp_tpu_torch.ops.crown_kernels import _get_sched, crown_supported
+
+__all__ = ["ms_sched", "system_supported", "system_solve", "system_solve_ref"]
+
+
+def ms_sched(prep, root_ids, device) -> dict:
+    """Crown group and kid slot of each chain root (scenario order), as
+    int32 tensors on ``device``: chain s injects into / reads from
+    ``[g_of[s], slot[s]*n : (slot[s]+1)*n]`` of the group layout.
+    Cached on the prep object."""
+    cache = prep.__dict__.setdefault("_ms_sys_sched", {})
+    key = (tuple(root_ids), torch.device(device))
+    hit = cache.get(key)
+    if hit is None:
+        rid = np.asarray(root_ids)
+        hit = {k: torch.as_tensor(v[rid], dtype=torch.int32, device=device)
+               for k, v in (("g_of", prep.group_of_node),
+                            ("slot", prep.slot_of_node))}
+        cache[key] = hit
+    return hit
+
+
+def system_supported(prep, meta, opts) -> bool:
+    """The fused system solve applies on top of crown_supported: uniform
+    chain/crown state dims (split_multistage guarantees it)."""
+    return (crown_supported(prep, opts) and meta.nx == prep.nxm
+            and prep.G == prep.K * prep.nxm)
+
+
+def system_solve_ref(Ls, CUs, CholW, CholUt, rg, rch, prep, root_ids):
+    """Plain PyTorch twin of the kernel (see ``system_solve``)."""
+    sched = _get_sched(prep)
+    S, L, n, _ = Ls.shape
+    G, NpG = sched.G, sched.NpG
+    dev = Ls.device
+    ids = {k: v.long() for k, v in ms_sched(prep, root_ids, dev).items()}
+    rg = rg.to(Ls.dtype)
+    rch = rch.to(Ls.dtype)
+    # 1. chain backward sweeps
+    ys = torch.empty_like(rch)
+    radd = torch.zeros((S, n), dtype=Ls.dtype, device=dev)
+    for j in range(L - 1, -1, -1):
+        y = _dense.ltrsv(Ls[:, j], rch[:, j] - radd)
+        ys[:, j] = y
+        radd = _dense.mv(CUs[:, j], y)
+    # inject into the crown groups (one chain per (group, slot))
+    rv = rg.clone().view(NpG, sched.K, n)
+    rv[ids["g_of"], ids["slot"]] -= radd
+    rv = rv.view(NpG, G)
+    levels = []
+    for r in range(sched.n_lev):
+        sl = slice(int(sched.lev_ptr[r]), int(sched.lev_ptr[r + 1]))
+        levels.append(tuple(torch.as_tensor(a[sl], dtype=torch.long, device=dev)
+                            for a in (sched.lev_child, sched.lev_parent,
+                                      sched.lev_slot)))
+    # 2. crown backward
+    ycr = torch.zeros_like(rv)
+    for g, d, s in levels:
+        y = _dense.ltrsv(CholW[g], rv[g])
+        ycr[g] = y
+        rvv = rv.view(NpG, sched.K, n)
+        rvv[d, s] -= _dense.mv(CholUt[g], y)
+    # 3. root
+    dg = torch.zeros_like(rv)
+    dg[0] = _dense.uttrsv(CholW[0], _dense.ltrsv(CholW[0], rv[0]))
+    # 4. crown forward
+    for g, d, s in reversed(levels):
+        dp = dg.view(NpG, sched.K, n)[d, s]
+        dg[g] = _dense.uttrsv(CholW[g], ycr[g] - _dense.mv(CholUt[g], dp, trans=True))
+    # 5. chain forward
+    dp = dg.view(NpG, sched.K, n)[ids["g_of"], ids["slot"]]
+    dch = torch.empty_like(rch)
+    for j in range(L):
+        dl = _dense.uttrsv(Ls[:, j], ys[:, j] - _dense.mv(CUs[:, j], dp, trans=True))
+        dch[:, j] = dl
+        dp = dl
+    return dg, dch
+
+
+def system_solve(Ls, CUs, CholW, CholUt, rg, rch, prep, root_ids):
+    """Solve the full crown+chain Newton system with stored factors.
+
+    Ls/CUs [S, L, n, n] chain factors; CholW [NpG, G, G] / CholUt
+    [NpG, n, G] crown factors; rg [NpG, G] crown right-hand side (group
+    layout, equilibrated); rch [S, L, n] chain right-hand side
+    (equilibrated); root_ids the crown node ids of the chain roots in
+    scenario order. The right-hand sides are cast to f32. Returns
+    (dg [NpG, G], dch [S, L, n]) in f32.
+    """
+    if Ls.device.type == "cpu":
+        return system_solve_ref(Ls, CUs, CholW, CholUt, rg, rch, prep, root_ids)
+    name = "system_solve"
+    sched = _get_sched(prep)
+    S, L, n, _ = Ls.shape
+    NpG, G, K = sched.NpG, sched.G, sched.K
+    dev = Ls.device
+    rg = rg.to(torch.float32).contiguous()
+    rch = rch.to(torch.float32).contiguous()
+    for arg, t, shape in (("Ls", Ls, (S, L, n, n)), ("CUs", CUs, (S, L, n, n)),
+                          ("CholW", CholW, (NpG, G, G)),
+                          ("CholUt", CholUt, (NpG, n, G)),
+                          ("rg", rg, (NpG, G)), ("rch", rch, (S, L, n))):
+        _build.require(name, arg, t, shape, dev)
+    if not (n == sched.nxm and 0 < n <= 16 and S == len(root_ids) and S > 0):
+        raise ValueError(f"{name}: unsupported shapes S={S} n={n} nxm={sched.nxm}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    rv = torch.empty((NpG, G), **f32)
+    ycr = torch.empty((NpG, G), **f32)
+    dg = torch.empty((NpG, G), **f32)
+    dch = torch.empty((S, L, n), **f32)
+    t = sched.on(dev)
+    ids = ms_sched(prep, root_ids, dev)
+    threads = min(1024, max(32, -(-max(S, sched.width) // 32) * 32))
+    err = _build.lib().tq_system_solve(
+        Ls.data_ptr(), CUs.data_ptr(), CholW.data_ptr(), CholUt.data_ptr(),
+        rg.data_ptr(), rch.data_ptr(), t["lev_ptr"].data_ptr(),
+        t["lev_child"].data_ptr(), t["lev_parent"].data_ptr(),
+        t["lev_slot"].data_ptr(), ids["g_of"].data_ptr(),
+        ids["slot"].data_ptr(), rv.data_ptr(), ycr.data_ptr(), dg.data_ptr(),
+        dch.data_ptr(), S, L, n, NpG, K, sched.n_lev, threads,
+        _build.stream(dev))
+    _build.check(err, name)
+    system_solve.launches += 1
+    return dg, dch
+
+
+system_solve.launches = 0
