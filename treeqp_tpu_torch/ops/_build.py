@@ -109,15 +109,15 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def require(name: str, arg: str, t, shape, device, dtype=torch.float32):
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    the CUDA ``device`` — what the kernels take."""
+def require(name: str, arg: str, t, shape, device):
+    """Raise unless ``t`` is a contiguous f32 tensor of ``shape`` on the
+    CUDA ``device`` — what the kernels take."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: {arg} must be a tensor")
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: {arg} has dtype {t.dtype}, expected {dtype}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: {arg} has dtype {t.dtype}, expected float32")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")

@@ -397,9 +397,8 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
     prep_cr = td._get_prep(meta.crown_topo)
     dt = ms.q.dtype
     crown_data = td._stage_data(ms.crown, opts, prep_cr)
-    _, _, nrxm_cr = td._masks(ms.crown, prep_cr)
     ctx = _solve_ctx(ms, prep_cr)
-    rid = ctx["rid"]
+    rid, nrxm_cr = ctx["rid"], ctx["nrxm_cr"]
 
     def stage_solve(lam_cr, lam_ch):
         return _ms_stage_solve(ms, crown_data, lam_cr, lam_ch, opts, prep_cr, rid)
