@@ -7,18 +7,29 @@ Phases (any failure exits non-zero):
 
 1. device and build: requires CUDA, prints the card's name and power limit
    (nvidia-smi), builds the kernels of ``treeqp_tpu_torch/csrc/`` into
-   ``build/`` and prints the build time;
-2. kernels against their plain PyTorch twins on the card, on the operands
-   of the first factorization and Newton solve of the headline instance
-   (quadcopter, md=4, Nr=4, Nh=20: 256 scenarios, 4437 nodes), with each
-   one's median time from CUDA events;
-3. main path: ``tdunes_ms_solve`` on that instance on the card, certified by
-   the KKT oracle (< 1e-8) and compared with the same solve on the CPU;
-4. a few requests: 8 instances with perturbed initial state, solved cold and
-   then warm-started, each certified by the KKT oracle.
+   ``build/`` (one nvcc per source, in parallel) and prints the build time
+   and each kernel's registers and spills;
+2. all seven kernels against their plain PyTorch twins on the card, with
+   each one's median time from CUDA events: the factor and solve kernels
+   of the f64 phase on the operands of its first factorization and solve,
+   the coarse phase's kernels (chain_eval, crown_eval,
+   chain_blocks_factor_lanes, newton_iter in both modes) on the operands of
+   its first iteration, all on the headline instance (quadcopter, md=4,
+   Nr=4, Nh=20: 256 scenarios, 4437 nodes);
+3. the main paths on that instance, each certified by the KKT oracle
+   (< 1e-8) and compared with the same solve through the plain twins on
+   the CPU: the one-phase solve (slice 1) and the two-phase solve (coarse
+   f32 phase, then the f64 phase);
+4. requests: instances with a perturbed initial state, solved cold and then
+   warm-started under both options, plus two-phase requests with two-norm
+   termination (the coarse phase's per-kernel loop), each certified; and
+   the two-phase solve of the 1024-scenario tree quadcopter(4,5,20), whose
+   1365-node crown the TPU kernels could not hold.
 
-Prints the kernels' JSON summary, then the device JSON as the last line.
-Imports nothing of JAX.
+The kernel launch counts are set to 0 before each path (one-phase,
+two-phase, two-norm, 1024 scenarios) and read after it; every kernel must
+launch on a path that runs it. Prints the kernels' JSON summary, then the
+device JSON as the last line. Imports nothing of JAX.
 """
 
 import dataclasses
@@ -33,18 +44,29 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-8
 MD, NR, NH = 4, 4, 20
-N_REQUESTS = 8
+N_REQUESTS = 8          # two-phase cold and warm requests each
+N_REQUESTS_1P = 4       # one-phase (slice 1) cold and warm requests each
+N_REQUESTS_2N = 2       # two-phase two-norm requests, cold then warm
 PERT = 0.02
 SLICE_OPTS = dict(stage_solver="clipping", tol=TOL, max_iter=120,
                   factor_dtype="float32", refine_steps=2,
                   refine_safeguard=False, chain_backend="pallas",
                   reg_type="always", reg_value=1e-6, f32_phase_tol=0.0,
                   df64_phase=False)
+# the main path of bench.py without its df64 phase
+TWO_PHASE_OPTS = {**SLICE_OPTS, "f32_phase_tol": 1e-4, "f32_patience": 3}
 # f32 kernels against f32 plain twins that sum in another order: factors
 # to 1e-5 and solves to 1e-4 relative (tests/test_fused_eval.py,
-# tests/test_crown_kernels.py use the same bounds)
+# tests/test_crown_kernels.py use the same bounds); the evaluations sum in
+# the twins' order without FMA contraction, so 1e-5 is a loose bound there
+# and their active sets (Qinv or 0) must agree exactly
 FACTOR_RTOL = 1e-5
 SOLVE_RTOL = 1e-4
+EVAL_RTOL = 1e-5
+# at the trial point of newton_iter's "iter" mode the direction differs by
+# the solve's rounding, so an active-set bit is held equal only where the
+# twin's clipping input is this far from its bound (relative to max(1, |bound|))
+TRIAL_MARGIN = 1e-4
 
 
 def fail(msg):
@@ -85,6 +107,29 @@ def compare(torch, name, got, ref, rtol):
     return worst
 
 
+def compare_sets(torch, name, got, ref, keys, near=None):
+    """Active-set outputs (Qinv or 0) bit for bit; ``near`` maps a key to a
+    mask of components exempt from the check. Returns the count exempted."""
+    exempt = 0
+    for k in keys:
+        ok = got[k] == ref[k]
+        if near is not None:
+            exempt += int((~ok & near[k]).sum())
+            ok = ok | near[k]
+        if not bool(ok.all()):
+            fail(f"{name}: active set {k} differs from the twin's in "
+                 f"{int((~ok).sum())} components")
+    return exempt
+
+
+def near_bound(torch, vU, lo, hi, mask):
+    """Components whose clipping input lies within TRIAL_MARGIN of a bound."""
+    near = torch.zeros_like(vU, dtype=torch.bool)
+    for b in (lo, hi):
+        near |= (vU - b).abs() < TRIAL_MARGIN * b.abs().clamp(min=1.0)
+    return near & (mask > 0)
+
+
 def perturbed(qp, ms, fac):
     """Scale the pinned initial state (the root's bound rows) by ``fac``:
     the closed-loop MPC variation of bench.py."""
@@ -113,6 +158,7 @@ def main():
     from treeqp_tpu_torch.ops import _build
     from treeqp_tpu_torch.ops import chain_kernels as ck
     from treeqp_tpu_torch.ops import crown_kernels as ckr
+    from treeqp_tpu_torch.ops import iter_kernel as ik
     from treeqp_tpu_torch.ops import system_kernels as sk
     from treeqp_tpu_torch.solvers import tdunes as td
     from treeqp_tpu_torch.solvers import tdunes_multistage as tm
@@ -137,6 +183,7 @@ def main():
 
     # ---- 2. kernels against their plain twins, main-path shapes
     opts = td.TdunesOpts(**SLICE_OPTS)
+    opts2 = td.TdunesOpts(**TWO_PHASE_OPTS)
     qp_cpu = quadcopter(MD, NR, NH).qp
     ms_cpu = tm.split_multistage(qp_cpu)
     ms = ms_cpu.to(dev)
@@ -157,17 +204,21 @@ def main():
     reg = opts.reg_value
     results = []
 
+    def record(name, source, replaces, err, fn, ref_fn, shapes):
+        results.append(dict(
+            name=name, route="cuda", source=f"treeqp_tpu_torch/csrc/{source}",
+            replaces=replaces, max_abs_err=err, ms=cuda_ms(torch, fn, 50),
+            plain_ms=cuda_ms(torch, ref_fn, 5), shapes=shapes))
+
     c_ref = ck.chain_blocks_factor_ref(*inp["chain"])
     c_got = ck.chain_blocks_factor(*inp["chain"])
     torch.cuda.synchronize()
-    err = compare(torch, "chain_blocks_factor", c_got, c_ref, FACTOR_RTOL)
-    results.append(dict(
-        name="chain_blocks_factor", route="cuda",
-        source="treeqp_tpu_torch/csrc/chain_blocks_factor.cu",
-        replaces="treeqp_tpu/ops/chain_kernels.py:311", max_abs_err=err,
-        ms=cuda_ms(torch, lambda: ck.chain_blocks_factor(*inp["chain"]), 50),
-        plain_ms=cuda_ms(torch, lambda: ck.chain_blocks_factor_ref(*inp["chain"]), 5),
-        shapes=f"ABt {tuple(inp['chain'][0].shape)}"))
+    record("chain_blocks_factor", "chain_blocks_factor.cu",
+           "treeqp_tpu/ops/chain_kernels.py:311",
+           compare(torch, "chain_blocks_factor", c_got, c_ref, FACTOR_RTOL),
+           lambda: ck.chain_blocks_factor(*inp["chain"]),
+           lambda: ck.chain_blocks_factor_ref(*inp["chain"]),
+           f"ABt {tuple(inp['chain'][0].shape)}")
 
     Ls, CUs, schur0, sc = c_ref
     Wadd = -tm._schur_scatter(schur0, ctx["g_of"], ctx["slot"], prep, prep.nxm)
@@ -175,14 +226,12 @@ def main():
     w_ref = ckr.crown_blocks_factor_ref(*cargs, reg=reg)
     w_got = ckr.crown_blocks_factor(*cargs, reg=reg)
     torch.cuda.synchronize()
-    err = compare(torch, "crown_blocks_factor", w_got, w_ref, FACTOR_RTOL)
-    results.append(dict(
-        name="crown_blocks_factor", route="cuda",
-        source="treeqp_tpu_torch/csrc/crown_blocks_factor.cu",
-        replaces="treeqp_tpu/ops/crown_kernels.py:332", max_abs_err=err,
-        ms=cuda_ms(torch, lambda: ckr.crown_blocks_factor(*cargs, reg=reg), 50),
-        plain_ms=cuda_ms(torch, lambda: ckr.crown_blocks_factor_ref(*cargs, reg=reg), 5),
-        shapes=f"CholW {tuple(w_ref[0].shape)}"))
+    record("crown_blocks_factor", "crown_blocks_factor.cu",
+           "treeqp_tpu/ops/crown_kernels.py:332",
+           compare(torch, "crown_blocks_factor", w_got, w_ref, FACTOR_RTOL),
+           lambda: ckr.crown_blocks_factor(*cargs, reg=reg),
+           lambda: ckr.crown_blocks_factor_ref(*cargs, reg=reg),
+           f"CholW {tuple(w_ref[0].shape)}")
 
     CholW, CholUt = w_ref
     res_cr = td._dual_residual(ms.crown, cr, prep)
@@ -193,85 +242,239 @@ def main():
     s_ref = sk.system_solve_ref(*sargs)
     s_got = sk.system_solve(*sargs)
     torch.cuda.synchronize()
-    err = compare(torch, "system_solve", s_got, s_ref, SOLVE_RTOL)
-    results.append(dict(
-        name="system_solve", route="cuda",
-        source="treeqp_tpu_torch/csrc/system_solve.cu",
-        replaces="treeqp_tpu/ops/system_kernels.py:74", max_abs_err=err,
-        ms=cuda_ms(torch, lambda: sk.system_solve(*sargs), 50),
-        plain_ms=cuda_ms(torch, lambda: sk.system_solve_ref(*sargs), 5),
-        shapes=f"rch {tuple(rch.shape)}, rg {tuple(rg.shape)}"))
+    record("system_solve", "system_solve.cu", "treeqp_tpu/ops/system_kernels.py:74",
+           compare(torch, "system_solve", s_got, s_ref, SOLVE_RTOL),
+           lambda: sk.system_solve(*sargs), lambda: sk.system_solve_ref(*sargs),
+           f"rch {tuple(rch.shape)}, rg {tuple(rg.shape)}")
+
+    # the coarse phase's first iteration: f32 data, duals 0
+    ms32 = ms.to(dtype=torch.float32)
+    data_ch, data_cr = tm._eval_data(ms32, prep)
+    ctx32 = tm._solve_ctx(ms32, prep)
+    lam_cr32 = lam_cr.to(torch.float32)
+    lam_ch32 = lam_ch.to(torch.float32)
+    floats = lambda o, keys: [o[k] for k in keys]
+    e_ref = ck.chain_eval_ref(data_ch, lam_ch32)
+    e_got = ck.chain_eval(data_ch, lam_ch32)
+    torch.cuda.synchronize()
+    keys = ("x", "u", "xUnc", "uUnc", "res_part", "cqr", "fch")
+    err = compare(torch, "chain_eval", floats(e_got, keys), floats(e_ref, keys), EVAL_RTOL)
+    compare_sets(torch, "chain_eval", e_got, e_ref, ("qt", "rt"))
+    record("chain_eval", "chain_eval.cu", "treeqp_tpu/ops/chain_kernels.py:402", err,
+           lambda: ck.chain_eval(data_ch, lam_ch32),
+           lambda: ck.chain_eval_ref(data_ch, lam_ch32),
+           f"ABt {tuple(data_ch['ABt'].shape)}")
+
+    extra = torch.zeros_like(data_cr["ABt"][:, 0])
+    extra[ctx["rid"]] = e_ref["cqr"]
+    r_ref = ckr.crown_eval_ref(data_cr, lam_cr32, extra, prep)
+    r_got = ckr.crown_eval(data_cr, lam_cr32, extra, prep)
+    torch.cuda.synchronize()
+    keys = ("x", "u", "xUnc", "uUnc", "res", "fcr")
+    err = compare(torch, "crown_eval", floats(r_got, keys), floats(r_ref, keys), EVAL_RTOL)
+    compare_sets(torch, "crown_eval", r_got, r_ref, ("qtilde", "rtilde"))
+    record("crown_eval", "crown_eval.cu", "treeqp_tpu/ops/crown_kernels.py:466", err,
+           lambda: ckr.crown_eval(data_cr, lam_cr32, extra, prep),
+           lambda: ckr.crown_eval_ref(data_cr, lam_cr32, extra, prep),
+           f"ABt {tuple(data_cr['ABt'].shape)}")
+
+    largs = tm._factor_inputs(r_ref["qtilde"], r_ref["rtilde"], e_ref["qt"],
+                              e_ref["rt"], prep, ctx32, lanes=True)["chain"]
+    l_ref = ck.chain_blocks_factor_lanes_ref(*largs)
+    l_got = ck.chain_blocks_factor_lanes(*largs)
+    torch.cuda.synchronize()
+    record("chain_blocks_factor_lanes", "chain_blocks_factor.cu",
+           "treeqp_tpu/ops/chain_kernels.py:534",
+           compare(torch, "chain_blocks_factor_lanes", l_got, l_ref, FACTOR_RTOL),
+           lambda: ck.chain_blocks_factor_lanes(*largs),
+           lambda: ck.chain_blocks_factor_lanes_ref(*largs),
+           f"ABt {tuple(largs[0].shape)}")
+
+    iter_keys = ("dcr", "dch", "lam2_cr", "lam2_ch", "res2_cr", "res2_ch", "x",
+                 "u", "cx", "cu", "xUnc", "uUnc", "cxUnc", "cuUnc")
+    part_keys = ("f1p", "dotp", "errp")
+    set_keys = ("qt", "rt", "qtilde", "rtilde")
+
+    def iter_outputs(o):
+        return [o[k] for k in iter_keys] + [p for k in part_keys for p in o[k]]
+
+    state = dict(lam_cr=lam_cr32, lam_ch=lam_ch32)
+    iargs = (data_ch, data_cr, None, state, prep, meta.root_ids)
+    v_ref = ik.newton_iter_ref(*iargs, mode="eval")
+    v_got = ik.newton_iter(*iargs, mode="eval")
+    torch.cuda.synchronize()
+    err_eval = compare(torch, "newton_iter(eval)", iter_outputs(v_got),
+                       iter_outputs(v_ref), EVAL_RTOL)
+    compare_sets(torch, "newton_iter(eval)", v_got, v_ref, set_keys)
+    ms_eval = cuda_ms(torch, lambda: ik.newton_iter(*iargs, mode="eval"), 50)
+    fact = tm._ms_factorize(ms32, v_ref["qtilde"], v_ref["rtilde"], v_ref["qt"],
+                            v_ref["rt"], td.TdunesOpts(**TWO_PHASE_OPTS), prep,
+                            ctx32, lanes=True)
+    state = dict(state, res_cr=v_ref["res2_cr"], res_ch=v_ref["res2_ch"])
+    iargs = (data_ch, data_cr, fact, state, prep, meta.root_ids)
+    i_ref = ik.newton_iter_ref(*iargs, mode="iter")
+    i_got = ik.newton_iter(*iargs, mode="iter")
+    torch.cuda.synchronize()
+    err = compare(torch, "newton_iter(iter)", iter_outputs(i_got), iter_outputs(i_ref),
+                  SOLVE_RTOL)
+    near = dict(
+        qt=near_bound(torch, i_ref["xUnc"], data_ch["xmin"], data_ch["xmax"],
+                      torch.ones_like(data_ch["xmin"])),
+        rt=near_bound(torch, i_ref["uUnc"], data_ch["umin"], data_ch["umax"],
+                      torch.ones_like(data_ch["umin"])),
+        qtilde=near_bound(torch, i_ref["cxUnc"], data_cr["xmin"], data_cr["xmax"],
+                          data_cr["xm"]),
+        rtilde=near_bound(torch, i_ref["cuUnc"], data_cr["umin"], data_cr["umax"],
+                          data_cr["um"]))
+    exempt = compare_sets(torch, "newton_iter(iter)", i_got, i_ref, set_keys, near)
+    record("newton_iter", "newton_iter.cu", "treeqp_tpu/ops/iter_kernel.py:79",
+           max(err, err_eval), lambda: ik.newton_iter(*iargs, mode="iter"),
+           lambda: ik.newton_iter_ref(*iargs, mode="iter"),
+           f"S={meta.S} L={meta.L} crown {data_cr['ABt'].shape[0]} nodes; mode eval "
+           f"{ms_eval:.4f} ms, max |diff| {err_eval:.3e}; iter-mode active-set "
+           f"bits exempt near a bound: {exempt}")
     for r in results:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin "
               f"{r['plain_ms']:.4f} ms, max |diff| {r['max_abs_err']:.3e} "
               f"[{r['shapes']}] on {card}")
 
-    # ---- 3. main path on the card, certified
-    launched = (ck.chain_blocks_factor, ckr.crown_blocks_factor, sk.system_solve)
-    for fn in launched:
-        fn.launches = 0
+    # ---- 3. main paths on the card, certified and held against the CPU
+    kernels = (ck.chain_blocks_factor, ckr.crown_blocks_factor, sk.system_solve,
+               ck.chain_eval, ckr.crown_eval, ck.chain_blocks_factor_lanes,
+               ik.newton_iter)
+    paths = {}
+
+    def drive(path, needs, fn):
+        """Run one main path with every launch count set to 0 just before
+        it; read the counts just after. Each kernel in ``needs`` must have
+        launched."""
+        for fn_k in kernels:
+            fn_k.launches = 0
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        paths[path] = {fn_k.__name__: fn_k.launches for fn_k in kernels}
+        print(f"launches on the {path} path: {paths[path]}")
+        for k in needs:
+            if paths[path][k] <= 0:
+                fail(f"{k} was not launched by the {path} path")
+        return out
+
     qp = qp_cpu.to(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cro, cho, info = tm.tdunes_ms_solve(ms, None, None, opts)
-    torch.cuda.synchronize()
-    t_solve = time.perf_counter() - t0
-    out = tm.merge_output(ms, cro, cho, info)
-    kkt = max_kkt_residual(qp, out)
-    print(f"main path: iter {info['iter']} status {info['status']} error "
-          f"{info['error']:.3e} kkt {kkt:.3e} in {t_solve * 1e3:.1f} ms "
-          f"(first solve, includes warm-up) on {card}")
-    if info["status"] != td.TDUNES_OPTIMAL or not info["error"] < TOL:
-        fail(f"headline solve: status {info['status']} error {info['error']}")
-    if not kkt < TOL:
-        fail(f"headline solve: KKT residual {kkt}")
-    if tuple(out.x.shape) != (meta.full_topo.Nn, meta.full_topo.nxm) \
-            or not torch.isfinite(out.lam).all():
-        fail("headline solve: output of the wrong shape or not finite")
-    # the same solve through the plain twins on the CPU
-    cro_c, cho_c, info_c = tm.tdunes_ms_solve(ms_cpu, None, None, opts)
-    out_c = tm.merge_output(ms_cpu, cro_c, cho_c, info_c)
-    gaps = {f: float((getattr(out, f).cpu() - getattr(out_c, f)).abs().max())
-            for f in ("x", "u", "lam")}
-    print(f"card vs CPU plain path: iter {info['iter']} vs {info_c['iter']}, "
-          + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps.items()))
-    if abs(info["iter"] - info_c["iter"]) > 1 or gaps["x"] > 1e-7 \
-            or gaps["u"] > 1e-7 or gaps["lam"] > 1e-6:
-        fail(f"card and CPU solves disagree: {gaps}")
-
-    # ---- 4. a few requests: perturbed initial states, cold then warm
-    # bench.py's rule, seed 1: fac_k = 1 + 0.02 sin(seed + 1.7 (k + 1))
-    facs = [1.0 + PERT * math.sin(1.0 + 1.7 * (k + 1.0))
-            for k in range(N_REQUESTS)]
+    facs = [1.0 + PERT * math.sin(1.0 + 1.7 * (k + 1.0)) for k in range(N_REQUESTS)]
     insts = [perturbed(qp, ms, f) for f in facs]
-    rates = {}
-    for mode in ("cold", "warm"):
-        lam0 = (cro["lam"], cho["lam"])
-        iters = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for k, (qp_k, ms_k) in enumerate(insts):
-            start = lam0 if mode == "warm" else (None, None)
-            cro_k, cho_k, info_k = tm.tdunes_ms_solve(ms_k, *start, opts)
-            out_k = tm.merge_output(ms_k, cro_k, cho_k, info_k)
-            kkt_k = max_kkt_residual(qp_k, out_k)
-            if info_k["status"] != td.TDUNES_OPTIMAL or not kkt_k < TOL:
-                fail(f"{mode} request {k}: status {info_k['status']} kkt {kkt_k}")
-            iters.append(info_k["iter"])
-            lam0 = (cro_k["lam"], cho_k["lam"])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        rates[mode] = N_REQUESTS / dt
-        print(f"requests {mode}: iters {iters}, {rates[mode]:.2f} solves/s "
-              f"({dt / N_REQUESTS * 1e3:.1f} ms/solve incl. KKT check) on {card}")
 
-    counts = {fn.__name__: fn.launches for fn in launched}
-    print(f"launches in the main path: {counts}")
+    def certified(qp_k, ms_k, start, o, what):
+        cro_k, cho_k, info_k = tm.tdunes_ms_solve(ms_k, *start, o)
+        out_k = tm.merge_output(ms_k, cro_k, cho_k, info_k)
+        kkt_k = max_kkt_residual(qp_k, out_k)
+        if info_k["status"] != td.TDUNES_OPTIMAL or not info_k["error"] < TOL \
+                or not kkt_k < TOL:
+            fail(f"{what}: status {info_k['status']} error {info_k['error']} kkt {kkt_k}")
+        if tuple(out_k.x.shape) != (ms_k.meta.full_topo.Nn, ms_k.meta.full_topo.nxm) \
+                or not torch.isfinite(out_k.lam).all():
+            fail(f"{what}: output of the wrong shape or not finite")
+        return cro_k, cho_k, info_k, out_k, kkt_k
+
+    def requests(o, n, modes, lam0, what):
+        """Solve the first n perturbed instances in each mode (cold: zero
+        duals; warm: the previous request's), each certified; returns
+        {mode: (ms per solve, iterations, coarse iterations)}."""
+        timing = {}
+        for mode in modes:
+            iters, coarse = [], []
+            prev = lam0 or (None, None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k, (qp_k, ms_k) in enumerate(insts[:n]):
+                start = prev if mode == "warm" else (None, None)
+                cro_k, cho_k, info_k, _, _ = certified(qp_k, ms_k, start, o,
+                                                       f"{what} {mode} request {k}")
+                iters.append(info_k["iter"])
+                coarse.append(info_k["iter_f32"])
+                prev = (cro_k["lam"], cho_k["lam"])
+            torch.cuda.synchronize()
+            timing[mode] = ((time.perf_counter() - t0) / n * 1e3, iters, coarse)
+            print(f"requests {what} {mode}: iters {iters} (coarse {coarse}), "
+                  f"{timing[mode][0]:.1f} ms/solve incl. KKT check on {card}")
+        return timing
+
+    def headline(o, what):
+        t0 = time.perf_counter()
+        cro, cho, info, out, kkt = certified(qp, ms, (None, None), o, what)
+        t_solve = time.perf_counter() - t0
+        print(f"{what}: iter {info['iter']} (coarse {info['iter_f32']}) status "
+              f"{info['status']} error {info['error']:.3e} kkt {kkt:.3e} in "
+              f"{t_solve * 1e3:.1f} ms (first solve, includes warm-up) on {card}")
+        # the same solve through the plain twins on the CPU
+        cro_c, cho_c, info_c = tm.tdunes_ms_solve(ms_cpu, None, None, o)
+        out_c = tm.merge_output(ms_cpu, cro_c, cho_c, info_c)
+        gaps = {f: float((getattr(out, f).cpu() - getattr(out_c, f)).abs().max())
+                for f in ("x", "u", "lam")}
+        print(f"{what}, card vs CPU plain path: iter {info['iter']} vs "
+              f"{info_c['iter']}, coarse {info['iter_f32']} vs {info_c['iter_f32']}, "
+              + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps.items()))
+        if abs(info["iter"] - info_c["iter"]) > 1 \
+                or abs(info["iter_f32"] - info_c["iter_f32"]) > 1 \
+                or gaps["x"] > 1e-7 or gaps["u"] > 1e-7 or gaps["lam"] > 1e-6:
+            fail(f"{what}: card and CPU solves disagree: {gaps}")
+        return cro, cho, info
+
+    # one-phase (slice 1): f64 loop, f32 factors, two refinement steps
+    def one_phase():
+        cro, cho, _ = headline(opts, "one-phase headline solve")
+        return requests(opts, N_REQUESTS_1P, ("cold", "warm"),
+                        (cro["lam"], cho["lam"]), "one-phase")
+    t1 = drive("one-phase", ("chain_blocks_factor", "crown_blocks_factor",
+                             "system_solve"), one_phase)
+
+    # two-phase: coarse f32 phase on newton_iter, then the f64 loop
+    def two_phase():
+        cro, cho, info = headline(opts2, "two-phase headline solve")
+        if info["iter_f32"] < 1:
+            fail("two-phase headline solve ran no coarse iteration")
+        return requests(opts2, N_REQUESTS, ("cold", "warm"),
+                        (cro["lam"], cho["lam"]), "two-phase")
+    t2 = drive("two-phase", ("newton_iter", "chain_blocks_factor_lanes",
+                             "crown_blocks_factor", "system_solve",
+                             "chain_blocks_factor"), two_phase)
+
+    # ---- 4. more requests
+    # two-norm termination: the coarse phase's per-kernel loop
+    opts2n = td.TdunesOpts(**{**TWO_PHASE_OPTS, "termination": "twonorm"})
+    drive("two-phase two-norm", ("chain_eval", "crown_eval",
+                                 "chain_blocks_factor_lanes"),
+          lambda: requests(opts2n, N_REQUESTS_2N, ("cold", "warm"), None,
+                           "two-phase two-norm"))
+    print("per solve, one-phase vs two-phase (ms incl. KKT check; mean "
+          f"iterations, coarse share) on {card}:")
+    for mode in ("cold", "warm"):
+        (a, ia, _), (b, ib, cb) = t1[mode], t2[mode]
+        print(f"  {mode}: {a:.1f} ms ({statistics.mean(ia):.2f} iter) vs "
+              f"{b:.1f} ms ({statistics.mean(ib):.2f} iter, "
+              f"{statistics.mean(cb):.2f} coarse)")
+
+    # the 1024-scenario tree (1365-node crown): both coarse loops launch
+    qp5_cpu = quadcopter(MD, 5, NH).qp
+    qp5 = qp5_cpu.to(dev)
+    ms5 = tm.split_multistage(qp5)
+
+    def big():
+        for o, what in ((opts2, "infnorm"), (opts2n, "two-norm")):
+            t0 = time.perf_counter()
+            _, _, info5, _, kkt5 = certified(qp5, ms5, (None, None), o,
+                                             f"quadcopter({MD},5,{NH}) {what}")
+            print(f"quadcopter({MD},5,{NH}) two-phase {what}: S={ms5.meta.S}, "
+                  f"crown {ms5.meta.crown_topo.Nn} nodes, iter {info5['iter']} "
+                  f"(coarse {info5['iter_f32']}) kkt {kkt5:.3e} in "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first solve) on {card}")
+    drive("1024-scenario", ("newton_iter", "crown_eval", "chain_eval"), big)
+
     for r in results:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = sum(p[r["name"]] for p in paths.values())
         del r["shapes"]
         if r["launches"] <= 0:
-            fail(f"{r['name']} was not launched by the main path")
+            fail(f"{r['name']} was not launched by any main path")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

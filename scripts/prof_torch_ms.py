@@ -2,15 +2,18 @@
 """Where the time of the PyTorch port's multistage solve goes, on one card.
 
     python3 scripts/prof_torch_ms.py [--md 4 --nr 4 --nh 20] [--reps 10]
+                                     [--f32-phase-tol 1e-4] [--termination twonorm]
 
-Prints, for quadcopter(md, nr, nh) with the slice options of chip_smoke.py:
+Prints, for quadcopter(md, nr, nh) with the one-phase options of
+chip_smoke.py (or, with --f32-phase-tol > 0, its two-phase options):
 
 * cold and warm solve times (host clock around synchronized solves;
   median of --reps) and their iteration counts;
 * the cost of each step of one Newton iteration, timed alone (host clock,
   synchronized): stage evaluation, residuals, dual value, factorize (the
   chain and crown kernels with their operand assembly), one system solve,
-  one Hessian action;
+  one Hessian action; with the two-phase options also the coarse phase's
+  steps: one newton_iter launch in each mode and one f32 factorize;
 * a torch.profiler trace of one cold solve: the device-busy share
   (summed device kernel time over wall time) and the kernels with the
   most device time.
@@ -48,6 +51,8 @@ def main():
     ap.add_argument("--nr", type=int, default=4)
     ap.add_argument("--nh", type=int, default=20)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--f32-phase-tol", type=float, default=0.0)
+    ap.add_argument("--termination", default="infnorm")
     args = ap.parse_args()
 
     import torch
@@ -58,13 +63,16 @@ def main():
     from treeqp_tpu_torch.models import quadcopter
     from treeqp_tpu_torch.solvers import tdunes as td
     from treeqp_tpu_torch.solvers import tdunes_multistage as tm
-    from chip_smoke import SLICE_OPTS
+    from treeqp_tpu_torch.ops import iter_kernel as ik
+    from chip_smoke import SLICE_OPTS, TWO_PHASE_OPTS
 
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    opts = td.TdunesOpts(**SLICE_OPTS)
+    base = TWO_PHASE_OPTS if args.f32_phase_tol > 0 else SLICE_OPTS
+    opts = td.TdunesOpts(**{**base, "termination": args.termination,
+                            "f32_phase_tol": args.f32_phase_tol})
     qp = quadcopter(args.md, args.nr, args.nh).qp.to(dev)
     ms = tm.split_multistage(qp)
     meta = ms.meta
@@ -74,7 +82,9 @@ def main():
 
     cro, cho, info = tm.tdunes_ms_solve(ms, None, None, opts)
     kkt = max_kkt_residual(qp, tm.merge_output(ms, cro, cho, info))
-    print(f"cold solve: iter {info['iter']} status {info['status']} kkt {kkt:.2e}")
+    print(f"cold solve: iter {info['iter']} (coarse {info['iter_f32']}) status "
+          f"{info['status']} kkt {kkt:.2e}; options f32_phase_tol="
+          f"{opts.f32_phase_tol} termination={opts.termination}")
     lam_w = (cro["lam"], cho["lam"])
     xmin, xmax = ms.crown.xmin.clone(), ms.crown.xmax.clone()
     xmin[0] *= 1.01
@@ -83,8 +93,9 @@ def main():
     t_cold = timed(torch, lambda: tm.tdunes_ms_solve(ms, None, None, opts), args.reps)
     t_warm = timed(torch, lambda: tm.tdunes_ms_solve(ms_p, *lam_w, opts), args.reps)
     _, _, info_w = tm.tdunes_ms_solve(ms_p, *lam_w, opts)
-    print(f"cold solve {t_cold:.2f} ms ({info['iter']} iter), warm solve "
-          f"(x0 scaled by 1.01) {t_warm:.2f} ms ({info_w['iter']} iter) on {card}")
+    print(f"cold solve {t_cold:.2f} ms ({info['iter']} iter, {info['iter_f32']} "
+          f"coarse), warm solve (x0 scaled by 1.01) {t_warm:.2f} ms "
+          f"({info_w['iter']} iter, {info_w['iter_f32']} coarse) on {card}")
 
     # one Newton iteration's steps, each timed alone
     prep = td._get_prep(meta.crown_topo)
@@ -111,6 +122,23 @@ def main():
         "Hessian action": lambda: tm._ms_apply_M(ms, cr, ch, d_cr, d_ch, prep,
                                                  ctx["rid"]),
     }
+    if opts.f32_phase_tol > 0:
+        ms32 = ms.to(dtype=torch.float32)
+        ctx32 = tm._solve_ctx(ms32, prep)
+        data_ch, data_cr = tm._eval_data(ms32, prep)
+        state = dict(lam_cr=lam_cr.float() * ctx32["nrxm_cr"], lam_ch=lam_ch.float())
+        ev = ik.newton_iter(data_ch, data_cr, None, state, prep, meta.root_ids, "eval")
+        sets = (ev["qtilde"], ev["rtilde"], ev["qt"], ev["rt"])
+        fact32 = tm._ms_factorize(ms32, *sets, opts, prep, ctx32, lanes=True)
+        state.update(res_cr=ev["res2_cr"], res_ch=ev["res2_ch"])
+        steps.update({
+            "coarse newton_iter (iter)": lambda: ik.newton_iter(
+                data_ch, data_cr, fact32, state, prep, meta.root_ids, "iter"),
+            "coarse newton_iter (eval)": lambda: ik.newton_iter(
+                data_ch, data_cr, None, state, prep, meta.root_ids, "eval"),
+            "coarse factorize (f32)": lambda: tm._ms_factorize(
+                ms32, *sets, opts, prep, ctx32, lanes=True),
+        })
     for name, fn in steps.items():
         print(f"  step {name}: {timed(torch, fn, args.reps):.3f} ms")
 

@@ -3,6 +3,7 @@ twins on the CPU) against the JAX package's ``tdunes_ms_solve`` (Pallas
 kernels in interpret mode) with the same options on the same data."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -38,6 +39,13 @@ def port_ms(name):
     qp_j = CASES[name]()
     return tm.split_multistage(convert.qp_from_numpy(
         convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo)))
+
+
+@functools.lru_cache(maxsize=None)
+def solve_both_cached(name, **overrides):
+    """solve_both, once per file for each case (the JAX two-phase solve
+    takes ~45 s on the CPU with its Pallas kernels interpreted)."""
+    return solve_both(name, **overrides)
 
 
 def solve_both(name, **overrides):
@@ -93,10 +101,83 @@ def test_warm_start_from_solution_takes_no_step():
     assert torch.equal(cho2["lam"], cho["lam"])
 
 
+@pytest.mark.parametrize("termination", ["infnorm", "twonorm"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_two_phase_matches_jax(name, termination):
+    """The coarse f32 phase then the f64 phase: with inf-norm termination
+    the coarse phase runs on newton_iter, with two-norm on chain_eval /
+    crown_eval; both refactorize with chain_blocks_factor_lanes."""
+    over = dict(f32_phase_tol=1e-4, termination=termination)
+    qp_j, out_j, info_j, qp, out, info = solve_both_cached(name, **over)
+    opts32 = dataclasses.replace(td.TdunesOpts(**{**SLICE, **over}), refine_steps=0)
+    meta = tm.split_multistage(qp).meta
+    assert tm._mega_applicable(td._get_prep(meta.crown_topo), meta, opts32) == \
+        (termination == "infnorm")
+    assert int(info_j["status"]) == 0 and info["status"] == 0
+    assert info["iter_f32"] >= 1
+    assert abs(int(info_j["iter"]) - info["iter"]) <= 1
+    assert abs(int(info_j["iter_f32"]) - info["iter_f32"]) <= 1
+    kkt_j = float(jax_kkt(qp_j, out_j))
+    kkt = max_kkt_residual(qp, out)
+    assert kkt_j < 1e-8 and kkt < 1e-8
+    out_jt = out.replace(**{f: torch.tensor(v) for f, v in
+                            convert.out_to_numpy(out_j).items()})
+    assert abs(max_kkt_residual(qp, out_jt) - kkt_j) <= 1e-12
+    a, b = convert.out_to_numpy(out), convert.out_to_numpy(out_j)
+    assert np.max(np.abs(a["x"] - b["x"])) <= X_TOL
+    assert np.max(np.abs(a["u"] - b["u"])) <= U_TOL
+    assert np.max(np.abs(a["lam"] - b["lam"])) <= LAM_TOL
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_batched_line_search_on_the_one_phase_path(name):
+    """ls_batch = 4 on the f64 path takes the same steps as the sequential
+    search."""
+    ms = port_ms(name)
+    _, cho0, info0 = tm.tdunes_ms_solve(ms, None, None, td.TdunesOpts(**SLICE))
+    _, cho4, info4 = tm.tdunes_ms_solve(ms, None, None,
+                                        td.TdunesOpts(**{**SLICE, "ls_batch": 4}))
+    assert info4["status"] == 0 and info4["iter"] == info0["iter"]
+    assert torch.equal(cho4["lam"], cho0["lam"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("accept_at", [1.0, 0.6**3, 0.6**6, None])
+def test_armijo_batch_takes_the_first_accepted_step(accept_at, dtype):
+    """The batched search on a model dual f(tau) = -tau: candidates beta^k
+    (k = 1..4) as powers in the data dtype, then sequential steps from
+    beta^4 by repeated multiplication, as the JAX package's search."""
+    opts = td.TdunesOpts(ls_batch=4, ls_max_iter=8)
+    tried = []
+
+    def f_at(tau):
+        tried.append(tau)
+        ok = accept_at is not None and float(tau) <= accept_at * (1 + 1e-6)
+        return torch.full((), -1.0 if ok else 1.0, dtype=dtype), float(tau)
+
+    f0, dot = torch.zeros((), dtype=dtype), torch.full((), -1.0, dtype=dtype)
+    f1, rest1 = f_at(torch.ones((), dtype=dtype))
+    tau, _, rest, ls_it, acc = tm._armijo(f_at, f0, dot, f1, rest1, opts)
+    beta = torch.full((), 0.6, dtype=dtype)
+    taus = torch.pow(beta, torch.arange(1, 5, dtype=dtype))
+    if accept_at == 1.0:
+        assert (ls_it, acc, len(tried)) == (1, True, 1)
+    elif accept_at == 0.6**3:
+        assert (ls_it, acc, rest) == (4, True, float(taus[2]))
+        assert torch.equal(tau, taus[2])
+    elif accept_at == 0.6**6:
+        assert (ls_it, acc) == (7, True)
+        assert torch.equal(tau, 0.6 * (0.6 * taus[3]))
+    else:
+        assert (ls_it, acc, len(tried)) == (8, False, 8)
+
+
 @pytest.mark.parametrize("override", [
-    dict(f32_phase_tol=1e-4), dict(df64_phase=True), dict(axis_name="scen"),
-    dict(chain_backend="xla"), dict(ls_batch=4), dict(factor_dtype="same"),
-    dict(reg_type="on_the_fly"), dict(stage_solver="qpgen")],
+    dict(df64_phase=True), dict(axis_name="scen"), dict(chain_backend="xla"),
+    dict(factor_dtype="same"), dict(reg_type="on_the_fly"),
+    pytest.param(dict(stage_solver="qpgen"), id="stage_solver"),
+    pytest.param(dict(stage_solver="dense"), id="stage_solver_dense"),
+    pytest.param(dict(stage_solver="boxqp"), id="stage_solver_boxqp")],
     ids=lambda o: next(iter(o)))
 def test_options_outside_the_slice_raise(override):
     ms = port_ms("quadcopter")

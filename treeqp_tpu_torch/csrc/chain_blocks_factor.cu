@@ -1,11 +1,17 @@
 // Chain-side factorize of the multistage dual Hessian, one thread per chain.
 //
-// Replaces the Pallas kernel chain_blocks_factor of
-// treeqp_tpu/ops/chain_kernels.py (chain block build + Jacobi
-// equilibration + banded backward block Cholesky in one launch). The TPU
-// kernel put 128 chains on the vector lanes; here each thread owns one
-// chain and walks it sequentially, which is the natural mapping of this
-// dependent, tiny (nx <= 16) per-step work.
+// Replaces the Pallas kernels chain_blocks_factor and
+// chain_blocks_factor_lanes of treeqp_tpu/ops/chain_kernels.py (chain block
+// build + Jacobi equilibration + banded backward block Cholesky in one
+// launch). The TPU kernels put 128 chains on the vector lanes; here each
+// thread owns one chain and walks it sequentially, which is the natural
+// mapping of this dependent, tiny (nx <= 16) per-step work. The two kernels
+// share the body chain_factor_one and differ only in where the parent's
+// masked inverses ztp_j come from:
+//   chain_blocks_factor:       ztp [S, L, nz] given;
+//   chain_blocks_factor_lanes: ztp_0 = ztp_root[s] (the crown root's),
+//                              ztp_j = (qt, rt)_{j-1} of the chain evaluation
+//                              for j >= 1, read in place.
 //
 // Per chain node j (edge dynamics AB_j = [A_j B_j] into node j):
 //   W_j  = AB_j diag(ztp_j) AB_j' + diag(qtc_j)
@@ -29,14 +35,34 @@
 
 namespace {
 
-__global__ void chain_blocks_factor_kernel(
-    const float* __restrict__ ABt, const float* __restrict__ ztp,
+// ztp_j of chain s given as a stacked [S, L, nz] array.
+struct ZtpStacked {
+  const float* ztp;
+  int L, nz;
+  __device__ float operator()(int s, int j, int n) const {
+    return ztp[((size_t)s * L + j) * nz + n];
+  }
+};
+
+// ztp_j assembled from the chain evaluation's masked inverses.
+struct ZtpLanes {
+  const float* root;  // [S, nz]
+  const float* qt;    // [S, L, nx]
+  const float* rt;    // [S, L, nu]
+  int L, nx, nu;
+  __device__ float operator()(int s, int j, int n) const {
+    if (j == 0) return root[(size_t)s * (nx + nu) + n];
+    const size_t sp = (size_t)s * L + j - 1;
+    return n < nx ? qt[sp * nx + n] : rt[sp * nu + n - nx];
+  }
+};
+
+template <class Ztp>
+__device__ void chain_factor_one(
+    int s, const float* __restrict__ ABt, const Ztp& zt,
     const float* __restrict__ qtc, const float* __restrict__ s_root,
     float* __restrict__ Ls, float* __restrict__ CUs,
-    float* __restrict__ schur0, float* __restrict__ sc,
-    int S, int L, int nx, int nz) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
+    float* __restrict__ schur0, float* __restrict__ sc, int L, int nx, int nz) {
   const int nn = nx * nx;
 
   // pass 1 (forward): scaled blocks and scales
@@ -44,7 +70,6 @@ __global__ void chain_blocks_factor_kernel(
   for (int j = 0; j < L; ++j) {
     const size_t sj = (size_t)s * L + j;
     const float* AB = ABt + sj * nx * nz;
-    const float* zt = ztp + sj * nz;
     const float* qc = qtc + sj * nx;
     float* W = Ls + sj * nn;
     float* Ut = CUs + sj * nn;
@@ -52,7 +77,7 @@ __global__ void chain_blocks_factor_kernel(
     for (int i = 0; i < nx; ++i) {
       for (int c = 0; c < nx; ++c) {
         float w = 0.f;
-        for (int n = 0; n < nz; ++n) w += (AB[i * nz + n] * zt[n]) * AB[c * nz + n];
+        for (int n = 0; n < nz; ++n) w += (AB[i * nz + n] * zt(s, j, n)) * AB[c * nz + n];
         W[i * nx + c] = (i == c) ? w + qc[i] : w;
       }
     }
@@ -61,7 +86,7 @@ __global__ void chain_blocks_factor_kernel(
       for (int c = 0; c < nx; ++c) W[i * nx + c] = W[i * nx + c] * scj[i] * scj[c];
     for (int i = 0; i < nx; ++i)
       for (int c = 0; c < nx; ++c)
-        Ut[i * nx + c] = -(zt[i] * AB[c * nz + i]) * scp[i] * scj[c];
+        Ut[i * nx + c] = -(zt(s, j, i) * AB[c * nz + i]) * scp[i] * scj[c];
     scp = scj;
   }
 
@@ -85,15 +110,51 @@ __global__ void chain_blocks_factor_kernel(
   }
 }
 
+__global__ void chain_blocks_factor_kernel(
+    const float* __restrict__ ABt, const float* __restrict__ ztp,
+    const float* __restrict__ qtc, const float* __restrict__ s_root,
+    float* __restrict__ Ls, float* __restrict__ CUs,
+    float* __restrict__ schur0, float* __restrict__ sc,
+    int S, int L, int nx, int nz) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  chain_factor_one(s, ABt, ZtpStacked{ztp, L, nz}, qtc, s_root, Ls, CUs,
+                   schur0, sc, L, nx, nz);
+}
+
+__global__ void chain_blocks_factor_lanes_kernel(
+    const float* __restrict__ ABt, const float* __restrict__ qt,
+    const float* __restrict__ rt, const float* __restrict__ ztp_root,
+    const float* __restrict__ s_root,
+    float* __restrict__ Ls, float* __restrict__ CUs,
+    float* __restrict__ schur0, float* __restrict__ sc,
+    int S, int L, int nx, int nz) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  chain_factor_one(s, ABt, ZtpLanes{ztp_root, qt, rt, L, nx, nz - nx}, qt,
+                   s_root, Ls, CUs, schur0, sc, L, nx, nz);
+}
+
+constexpr int kThreads = 128;
+
 }  // namespace
 
 extern "C" int tq_chain_blocks_factor(
     const float* ABt, const float* ztp, const float* qtc, const float* s_root,
     float* Ls, float* CUs, float* schur0, float* sc,
     int S, int L, int nx, int nz, void* stream) {
-  const int threads = 128;
-  const int blocks = (S + threads - 1) / threads;
-  chain_blocks_factor_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (S + kThreads - 1) / kThreads;
+  chain_blocks_factor_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       ABt, ztp, qtc, s_root, Ls, CUs, schur0, sc, S, L, nx, nz);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tq_chain_blocks_factor_lanes(
+    const float* ABt, const float* qt, const float* rt, const float* ztp_root,
+    const float* s_root, float* Ls, float* CUs, float* schur0, float* sc,
+    int S, int L, int nx, int nz, void* stream) {
+  const int blocks = (S + kThreads - 1) / kThreads;
+  chain_blocks_factor_lanes_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      ABt, qt, rt, ztp_root, s_root, Ls, CUs, schur0, sc, S, L, nx, nz);
   return (int)cudaGetLastError();
 }

@@ -2,31 +2,19 @@
 // launch of one thread block.
 //
 // Replaces the Pallas kernel system_solve of treeqp_tpu/ops/system_kernels.py
-// (reference calculate_delta_lambda, dual_Newton_tree.c:641-775). Phases,
-// separated by __syncthreads():
-//   0. rv = rg (crown right-hand side, group layout [NpG, G]); dg = 0
-//   1. per chain (threads stride over scenarios): backward sweep
-//        y_j = Ls_j^-1 (rch_j - radd),  radd = CUs_j y_j   (j = L-1 .. 0)
-//      with y_j parked in dch, then rv[g_of[s], slot[s]] -= radd
-//   2. crown backward, deepest level first (threads over the level's
-//      groups): y_g = CholW_g^-1 rv_g, rv[parent][slot] -= CholUt_g y_g
-//   3. root: dg_0 = CholW_0^-T CholW_0^-1 rv_0
-//   4. crown forward, top level first: dg_g = CholW_g^-T (y_g - CholUt_g' dg[parent][slot])
-//   5. per chain: forward sweep from dp = dg[g_of[s]][slot[s]]:
-//        dch_j = Ls_j^-T (y_j - CUs_j' dp),  dp = dch_j   (j = 0 .. L-1)
-// Every (group, slot) has exactly one writer in phases 1 and 2 (one chain
-// root, or one child group), so no atomics are needed. The TPU kernel did
-// the scenario <-> group moves as one-hot matmuls; here they are indexed
-// reads and writes.
+// (reference calculate_delta_lambda, dual_Newton_tree.c:641-775). Phase 0
+// copies the crown right-hand side rg into the working vector rv and zeroes
+// dg; the five solve phases are tq::system_solve_core (tq_system.cuh), which
+// newton_iter.cu runs too.
 //
 // What bounds it on the card: latency. Each phase is a serial chain of
 // small triangular solves per thread (L * n^2 for a chain, G^2 per crown
 // level), the crown phases use one thread per group of a level, and the
-// whole solve is one block on one SM. It runs 3x per Newton iteration (one
-// solve + two refinement solves), so its latency adds directly to the
-// iteration time.
+// whole solve is one block on one SM. It runs 3x per Newton iteration of
+// the f64 phase (one solve + two refinement solves), so its latency adds
+// directly to the iteration time.
 
-#include "tq_dense.cuh"
+#include "tq_system.cuh"
 
 namespace {
 
@@ -41,100 +29,15 @@ __global__ void __launch_bounds__(1024) system_solve_kernel(
     float* __restrict__ dg, float* __restrict__ dch,
     int S, int L, int n, int NpG, int K, int n_lev) {
   const int G = K * n;
-  const size_t GG = (size_t)G * G;
-  const int nn = n * n;
-
   // 0. crown right-hand side
   for (int e = threadIdx.x; e < NpG * G; e += blockDim.x) {
     rv[e] = rg[e];
     dg[e] = 0.f;
   }
   __syncthreads();
-
-  // 1. chain backward sweeps + injection into the crown groups
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    float radd[tq::kMaxN];
-    for (int i = 0; i < n; ++i) radd[i] = 0.f;
-    for (int j = L - 1; j >= 0; --j) {
-      const size_t sj = (size_t)s * L + j;
-      const float* CU = CUs + sj * nn;
-      float* y = dch + sj * n;
-      for (int i = 0; i < n; ++i) y[i] = rch[sj * n + i] - radd[i];
-      tq::ltrsv_inplace(Ls + sj * nn, y, n);
-      for (int i = 0; i < n; ++i) {
-        float acc = 0.f;
-        for (int k = 0; k < n; ++k) acc += CU[i * n + k] * y[k];
-        radd[i] = acc;
-      }
-    }
-    float* r = rv + (size_t)g_of[s] * G + slot[s] * n;
-    for (int i = 0; i < n; ++i) r[i] -= radd[i];
-  }
-  __syncthreads();
-
-  // 2. crown backward sweep
-  for (int lv = 0; lv < n_lev; ++lv) {
-    for (int e = lev_ptr[lv] + threadIdx.x; e < lev_ptr[lv + 1]; e += blockDim.x) {
-      const int g = lev_child[e];
-      float* y = ycr + (size_t)g * G;
-      for (int i = 0; i < G; ++i) y[i] = rv[(size_t)g * G + i];
-      tq::ltrsv_inplace(CholW + g * GG, y, G);
-      const float* U = CholUt + (size_t)g * n * G;
-      float* rd = rv + (size_t)lev_parent[e] * G + lev_slot[e] * n;
-      for (int a = 0; a < n; ++a) {
-        float acc = 0.f;
-        for (int k = 0; k < G; ++k) acc += U[a * G + k] * y[k];
-        rd[a] -= acc;
-      }
-    }
-    __syncthreads();
-  }
-
-  // 3. root
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < G; ++i) ycr[i] = rv[i];
-    tq::ltrsv_inplace(CholW, ycr, G);
-    for (int i = 0; i < G; ++i) dg[i] = ycr[i];
-    tq::uttrsv_inplace(CholW, dg, G);
-  }
-  __syncthreads();
-
-  // 4. crown forward substitution
-  for (int lv = n_lev - 1; lv >= 0; --lv) {
-    for (int e = lev_ptr[lv] + threadIdx.x; e < lev_ptr[lv + 1]; e += blockDim.x) {
-      const int g = lev_child[e];
-      const float* dp = dg + (size_t)lev_parent[e] * G + lev_slot[e] * n;
-      const float* U = CholUt + (size_t)g * n * G;
-      const float* y = ycr + (size_t)g * G;
-      float* dl = dg + (size_t)g * G;
-      for (int j = 0; j < G; ++j) {
-        float acc = 0.f;
-        for (int i = 0; i < n; ++i) acc += U[i * G + j] * dp[i];
-        dl[j] = y[j] - acc;
-      }
-      tq::uttrsv_inplace(CholW + g * GG, dl, G);
-    }
-    __syncthreads();
-  }
-
-  // 5. chain forward sweeps
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    float dp[tq::kMaxN];
-    const float* src = dg + (size_t)g_of[s] * G + slot[s] * n;
-    for (int i = 0; i < n; ++i) dp[i] = src[i];
-    for (int j = 0; j < L; ++j) {
-      const size_t sj = (size_t)s * L + j;
-      const float* CU = CUs + sj * nn;
-      float* y = dch + sj * n;
-      for (int i = 0; i < n; ++i) {
-        float acc = 0.f;
-        for (int k = 0; k < n; ++k) acc += CU[k * n + i] * dp[k];
-        y[i] = y[i] - acc;
-      }
-      tq::uttrsv_inplace(Ls + sj * nn, y, n);
-      for (int i = 0; i < n; ++i) dp[i] = y[i];
-    }
-  }
+  tq::system_solve_core(Ls, CUs, CholW, CholUt, rch, lev_ptr, lev_child,
+                        lev_parent, lev_slot, g_of, slot, rv, ycr, dg, dch,
+                        S, L, n, K, n_lev);
 }
 
 }  // namespace

@@ -1,15 +1,17 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
-with a plain C interface, on first use, into ``build/treeqp_tpu_torch/``
-at the repository root, and bound with ``ctypes``. No PyTorch header is
-included, so a build takes seconds instead of the minutes of
-``torch.utils.cpp_extension.load``. The library's file name carries a hash
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` (all at once, in
+parallel) and linked into ONE shared library with a plain C interface, on
+first use, into ``build/treeqp_tpu_torch/`` at the repository root, and
+bound with ``ctypes``. No PyTorch header is included, so a build takes
+seconds instead of the minutes of ``torch.utils.cpp_extension.load``. The library's file name carries a hash
 of the sources and flags: an edited source gets a fresh build, an
 unchanged one is loaded as it is.
 
 Each exported function launches one kernel on the CUDA stream it is given
 and returns the ``cudaGetLastError()`` code of that launch (0 = launched).
+Kernels with many operands take them as one host array of device pointers
+(``ptr_array``), in the order their ``extern "C"`` comment lists.
 """
 
 from __future__ import annotations
@@ -23,12 +25,12 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["lib", "build", "check", "require", "stream"]
+__all__ = ["lib", "build", "check", "require", "stream", "ptr_array", "int_array"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "treeqp_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +40,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # ABt, ztp, qtc, s_root, Ls, CUs, schur0, sc, S, L, nx, nz, stream
     "tq_chain_blocks_factor": [_P] * 8 + [_I] * 4 + [_P],
+    # ABt, qt, rt, ztp_root, s_root, Ls, CUs, schur0, sc, S, L, nx, nz, stream
+    "tq_chain_blocks_factor_lanes": [_P] * 9 + [_I] * 4 + [_P],
+    # pointers, S, L, nx, nu, stream
+    "tq_chain_eval": [_P] + [_I] * 4 + [_P],
+    # pointers, Nn, nx, nu, threads, stream
+    "tq_crown_eval": [_P] + [_I] * 4 + [_P],
+    # pointers, dims, stream
+    "tq_newton_iter": [_P] * 3,
     # ABk, ztp, dvals, sW, sUt, Wadd, lev_ptr, lev_child, lev_parent,
     # lev_slot, committed, CholW, CholUt, NpG, K, nxm, nz, n_lev, reg,
     # threads, stream
@@ -79,13 +89,30 @@ def build() -> Path:
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-           *[str(p) for p in cus]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    out.with_name(out.name + ".ptxas.txt").write_text(res.stderr)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [_BUILD_DIR / f"{tag}.{p.stem}.o" for p in cus]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-I", str(_CSRC),
+                               "-o", str(o), str(p)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for p, o in zip(cus, objs)]
+    reports, failed = [], []
+    for p, proc in zip(cus, procs):
+        report = proc.communicate()[1]
+        reports.append(report)
+        if proc.returncode != 0:
+            failed.append(f"{p.name} ({proc.returncode}):\n{report}")
+    tmp = out.with_name(f"{tag}.tmp.so")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        res = subprocess.run([_nvcc(), *_ARCH, "-shared", "-o", str(tmp),
+                              *[str(o) for o in objs]], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    out.with_name(out.name + ".ptxas.txt").write_text("".join(reports))
     os.replace(tmp, out)
     return out
 
@@ -123,6 +150,19 @@ def require(name: str, arg: str, t, shape, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def ptr_array(tensors):
+    """Host array of the tensors' device pointers (None -> NULL), for the
+    kernels that take their operands as one pointer list. Keep it alive
+    until the launch returns."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+
+
+def int_array(values):
+    """Host array of C ints."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 def stream(device) -> int:

@@ -23,6 +23,14 @@ def outer_sum(X, Y, z=None):
     return out
 
 
+def sum_last(v):
+    """v summed over its last index, term by term in index order."""
+    out = 0
+    for i in range(v.shape[-1]):
+        out = out + v[..., i]
+    return out
+
+
 def mv(M, v, trans: bool = False):
     """M v (or M' v), summed over the contracted index in order."""
     out = 0

@@ -1,15 +1,18 @@
-"""Chain-side factorize of the multistage dual Hessian.
+"""Chain kernels of the multistage dual Newton: factorize and evaluation.
 
-Port of ``chain_blocks_factor`` in ``treeqp_tpu/ops/chain_kernels.py``
-(the Pallas kernel there). ``chain_blocks_factor`` launches the CUDA kernel
-of ``csrc/chain_blocks_factor.cu`` on CUDA tensors and runs the plain
-PyTorch twin ``chain_blocks_factor_ref`` on CPU tensors. Both are f32,
-like the Pallas kernel. The other chain kernels of that module (separate
-factor / sweeps, the lane-layout variant, the multi-RHS solve, the fused
-evaluation) are not ported yet.
+Port of ``chain_blocks_factor``, ``chain_blocks_factor_lanes``,
+``chain_eval`` and ``chain_eval_data`` in
+``treeqp_tpu/ops/chain_kernels.py``. Each kernel wrapper launches its CUDA
+kernel (``csrc/chain_blocks_factor.cu``, ``csrc/chain_eval.cu``) on CUDA
+tensors and runs its plain PyTorch twin (``*_ref``) on CPU tensors. All are
+f32, like the Pallas kernels. The other chain kernels of that module
+(separate factor / sweeps, the multi-RHS solve) are not ported yet.
 
-The factor handles ``Ls``/``CUs`` are laid out ``[S, L, nx, nx]`` (the
-JAX kernel's are ``[L, nx, nx, S_pad]``); only ``system_kernels`` reads
+Every chain tensor is laid out ``[S, L, ...]`` (scenario first); the JAX
+kernels' lane layout ``[L, ..., S_pad]`` is not carried over, so the
+"lanes" variant of the factorize differs from the plain one only in where
+it reads the parent's masked inverses. The factor handles ``Ls``/``CUs``
+are ``[S, L, nx, nx]``; only ``system_kernels`` and ``iter_kernel`` read
 them.
 """
 
@@ -19,7 +22,13 @@ import torch
 
 from treeqp_tpu_torch.ops import _build, _dense
 
-__all__ = ["chain_blocks_factor", "chain_blocks_factor_ref"]
+__all__ = ["chain_blocks_factor", "chain_blocks_factor_ref",
+           "chain_blocks_factor_lanes", "chain_blocks_factor_lanes_ref",
+           "CHAIN_DATA_KEYS", "chain_eval_data", "chain_eval", "chain_eval_ref"]
+
+# chain_eval_data's fields, in the order the CUDA kernels read them
+CHAIN_DATA_KEYS = ("ABt", "q", "r", "Qd", "Rd", "Qinv", "Rinv", "xmin", "xmax",
+                   "umin", "umax", "b")
 
 
 def chain_blocks_factor_ref(ABt, ztp, qtc, s_root):
@@ -43,6 +52,17 @@ def chain_blocks_factor_ref(ABt, ztp, qtc, s_root):
     return Ls, CUs, schur, sc.contiguous()
 
 
+def _factor_outputs(name, ABt):
+    """The factor kernels' outputs (Ls, CUs, schur0, sc), after the shape
+    check they share."""
+    S, L, nx, nz = ABt.shape
+    if not (0 < nx <= 16 and nx <= nz and S > 0 and L > 0):
+        raise ValueError(f"{name}: unsupported shape {tuple(ABt.shape)}")
+    f32 = dict(dtype=torch.float32, device=ABt.device)
+    return (torch.empty((S, L, nx, nx), **f32), torch.empty((S, L, nx, nx), **f32),
+            torch.empty((S, nx, nx), **f32), torch.empty((S, L, nx), **f32))
+
+
 def chain_blocks_factor(ABt, ztp, qtc, s_root):
     """Chain block build + Jacobi equilibration + banded backward
     factorization, per chain.
@@ -64,13 +84,7 @@ def chain_blocks_factor(ABt, ztp, qtc, s_root):
     for arg, t, shape in (("ABt", ABt, (S, L, nx, nz)), ("ztp", ztp, (S, L, nz)),
                           ("qtc", qtc, (S, L, nx)), ("s_root", s_root, (S, nx))):
         _build.require(name, arg, t, shape, dev)
-    if not (0 < nx <= 16 and nx <= nz and S > 0 and L > 0):
-        raise ValueError(f"{name}: unsupported shape {tuple(ABt.shape)}")
-    f32 = dict(dtype=torch.float32, device=dev)
-    Ls = torch.empty((S, L, nx, nx), **f32)
-    CUs = torch.empty((S, L, nx, nx), **f32)
-    schur0 = torch.empty((S, nx, nx), **f32)
-    sc = torch.empty((S, L, nx), **f32)
+    Ls, CUs, schur0, sc = _factor_outputs(name, ABt)
     err = _build.lib().tq_chain_blocks_factor(
         ABt.data_ptr(), ztp.data_ptr(), qtc.data_ptr(), s_root.data_ptr(),
         Ls.data_ptr(), CUs.data_ptr(), schur0.data_ptr(), sc.data_ptr(),
@@ -81,3 +95,135 @@ def chain_blocks_factor(ABt, ztp, qtc, s_root):
 
 
 chain_blocks_factor.launches = 0
+
+
+def chain_blocks_factor_lanes_ref(ABt, qt, rt, ztp_root, s_root):
+    """Plain PyTorch twin of the kernel (see ``chain_blocks_factor_lanes``)."""
+    ztp_ch = torch.cat([qt, rt], dim=-1)
+    ztp = torch.cat([ztp_root[:, None], ztp_ch[:, :-1]], dim=1)
+    return chain_blocks_factor_ref(ABt, ztp, qt, s_root)
+
+
+def chain_blocks_factor_lanes(ABt, qt, rt, ztp_root, s_root):
+    """``chain_blocks_factor`` fed straight from the chain evaluation: the
+    parent's masked inverses are the crown root's ``ztp_root`` at j = 0 and
+    ``(qt, rt)_{j-1}`` for j >= 1, read inside the kernel.
+
+    ABt [S, L, nx, nz] (``chain_eval_data``'s); qt [S, L, nx], rt [S, L, nu]
+    (``chain_eval``'s); ztp_root [S, nz] the crown-root masked inverses;
+    s_root [S, nx] the crown row scales. All f32. Returns (Ls, CUs, schur0,
+    sc) as ``chain_blocks_factor``.
+    """
+    if ABt.device.type == "cpu":
+        return chain_blocks_factor_lanes_ref(ABt, qt, rt, ztp_root, s_root)
+    name = "chain_blocks_factor_lanes"
+    S, L, nx, nz = ABt.shape
+    dev = ABt.device
+    for arg, t, shape in (("ABt", ABt, (S, L, nx, nz)), ("qt", qt, (S, L, nx)),
+                          ("rt", rt, (S, L, nz - nx)),
+                          ("ztp_root", ztp_root, (S, nz)),
+                          ("s_root", s_root, (S, nx))):
+        _build.require(name, arg, t, shape, dev)
+    Ls, CUs, schur0, sc = _factor_outputs(name, ABt)
+    err = _build.lib().tq_chain_blocks_factor_lanes(
+        ABt.data_ptr(), qt.data_ptr(), rt.data_ptr(), ztp_root.data_ptr(),
+        s_root.data_ptr(), Ls.data_ptr(), CUs.data_ptr(), schur0.data_ptr(),
+        sc.data_ptr(), S, L, nx, nz, _build.stream(dev))
+    _build.check(err, name)
+    chain_blocks_factor_lanes.launches += 1
+    return Ls, CUs, schur0, sc
+
+
+chain_blocks_factor_lanes.launches = 0
+
+
+def chain_eval_data(A, B, q, r, Qd, Rd, xmin, xmax, umin, umax, b):
+    """Loop-invariant f32 operands of ``chain_eval`` (and of the chain half
+    of ``iter_kernel.newton_iter``), from the [S, L, ...] chain tensors of
+    a ``MultistageQP``. The inverses are taken in the input dtype, then
+    cast, as the JAX package does."""
+    f32 = lambda v: v.to(torch.float32).contiguous()
+    return dict(ABt=f32(torch.cat([A, B], dim=3)), q=f32(q), r=f32(r),
+                Qd=f32(Qd), Rd=f32(Rd), Qinv=f32(1.0 / Qd), Rinv=f32(1.0 / Rd),
+                xmin=f32(xmin), xmax=f32(xmax), umin=f32(umin), umax=f32(umax),
+                b=f32(b))
+
+
+def chain_data_shapes(S, L, nx, nu) -> dict:
+    """The shape of each ``chain_eval_data`` field."""
+    wide = dict(ABt=(nx, nx + nu), r=(nu,), Rd=(nu,), Rinv=(nu,), umin=(nu,),
+                umax=(nu,))
+    return {k: (S, L, *wide.get(k, (nx,))) for k in CHAIN_DATA_KEYS}
+
+
+def chain_eval_ref(data, lam):
+    """Plain PyTorch twin of the kernel (see ``chain_eval``)."""
+    AB = data["ABt"]
+    nx = AB.shape[2]
+    lam = lam.to(torch.float32)
+    up = _dense.mv(AB[:, 1:], lam[:, 1:], trans=True)      # A_{j+1}' lam_{j+1}
+    qmod = -data["q"] + lam
+    qmod = torch.cat([qmod[:, :-1] - up[..., :nx], qmod[:, -1:]], dim=1)
+    rmod = -data["r"]
+    rmod = torch.cat([rmod[:, :-1] - up[..., nx:], rmod[:, -1:]], dim=1)
+    xU = data["Qinv"] * qmod
+    uU = data["Rinv"] * rmod
+    x = torch.minimum(torch.maximum(xU, data["xmin"]), data["xmax"])
+    u = torch.minimum(torch.maximum(uU, data["umin"]), data["umax"])
+    qt = torch.where((xU > data["xmax"]) | (xU < data["xmin"]), 0.0, data["Qinv"])
+    rt = torch.where((uU > data["umax"]) | (uU < data["umin"]), 0.0, data["Rinv"])
+    res = data["b"] - x
+    res = torch.cat([res[:, :1],
+                     res[:, 1:] + _dense.mv(AB[:, 1:, :, :nx], x[:, :-1])
+                     + _dense.mv(AB[:, 1:, :, nx:], u[:, :-1])], dim=1)
+    tx = x * (qmod - 0.5 * data["Qd"] * x) - data["b"] * lam
+    tu = u * (rmod - 0.5 * data["Rd"] * u)
+    sx, su = _dense.sum_last(tx), _dense.sum_last(tu)
+    f = torch.zeros_like(sx[:, 0])
+    for j in range(sx.shape[1]):
+        f = f + sx[:, j] + su[:, j]
+    return dict(x=x, u=u, qt=qt, rt=rt, xUnc=xU, uUnc=uU, res_part=res,
+                cqr=_dense.mv(AB[:, 0], lam[:, 0], trans=True), fch=f)
+
+
+def chain_eval(data, lam):
+    """Chain stage evaluation at the dual point ``lam`` [S, L, nx]:
+    clipping stage solve, active-set masked inverses, chain-edge dual
+    residuals, crown-root contributions and dual-value partials.
+
+    ``data`` from ``chain_eval_data``; ``lam`` is cast to f32. Returns
+    dict(x, u, qt, rt, xUnc, uUnc [S, L, ...]; res_part [S, L, nx] the
+    residuals A_j z_{j-1} + b_j - x_j, whose row j = 0 holds b_0 - x_0 only
+    (the caller adds A_0 z_crown); cqr [S, nz] = [A_0 B_0]' lam_0, the
+    crown-root contributions; fch [S] the per-chain dual-value partial
+    sums). All f32.
+    """
+    if lam.device.type == "cpu":
+        return chain_eval_ref(data, lam)
+    name = "chain_eval"
+    S, L, nx, nz = data["ABt"].shape
+    nu = nz - nx
+    dev = lam.device
+    lam = lam.to(torch.float32).contiguous()
+    _build.require(name, "lam", lam, (S, L, nx), dev)
+    for k, shape in chain_data_shapes(S, L, nx, nu).items():
+        _build.require(name, k, data[k], shape, dev)
+    if not (0 < nx <= 16 and nu > 0 and S > 0 and L > 0):
+        raise ValueError(f"{name}: unsupported shape {tuple(data['ABt'].shape)}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = dict(x=torch.empty((S, L, nx), **f32), u=torch.empty((S, L, nu), **f32),
+               qt=torch.empty((S, L, nx), **f32), rt=torch.empty((S, L, nu), **f32),
+               xUnc=torch.empty((S, L, nx), **f32), uUnc=torch.empty((S, L, nu), **f32),
+               res_part=torch.empty((S, L, nx), **f32), fch=torch.empty((S,), **f32),
+               cqr=torch.empty((S, nz), **f32))
+    ptrs = _build.ptr_array(
+        [data[k] for k in CHAIN_DATA_KEYS] + [lam]
+        + [out[k] for k in ("x", "u", "qt", "rt", "xUnc", "uUnc", "res_part", "fch")]
+        + [None, out["cqr"]])
+    err = _build.lib().tq_chain_eval(ptrs, S, L, nx, nu, _build.stream(dev))
+    _build.check(err, name)
+    chain_eval.launches += 1
+    return out
+
+
+chain_eval.launches = 0

@@ -1,16 +1,21 @@
-"""Crown (generic-tree) factorize of the multistage dual Hessian.
+"""Crown (generic-tree) kernels of the multistage dual Newton: factorize
+and evaluation.
 
-Port of ``_get_sched`` and ``crown_blocks_factor`` in
-``treeqp_tpu/ops/crown_kernels.py``. ``crown_blocks_factor`` launches the
-CUDA kernel of ``csrc/crown_blocks_factor.cu`` on CUDA tensors and runs
-the plain PyTorch twin ``crown_blocks_factor_ref`` on CPU tensors; both
-are f32, like the Pallas kernel. The level schedule is a list of (child
-group, parent group, slot) triples per level instead of the TPU kernel's
-one-hot lane-permutation matrices. ``crown_factor``, ``crown_solve`` and
-``crown_eval`` of that module are not ported yet.
+Port of ``_get_sched``, ``crown_blocks_factor``, ``crown_eval_data`` and
+``crown_eval`` in ``treeqp_tpu/ops/crown_kernels.py``. Each kernel wrapper
+launches its CUDA kernel (``csrc/crown_blocks_factor.cu``,
+``csrc/crown_eval.cu``) on CUDA tensors and runs its plain PyTorch twin
+(``*_ref``) on CPU tensors; all are f32, like the Pallas kernels. The level
+schedule is a list of (child group, parent group, slot) triples per level
+instead of the TPU kernel's one-hot lane-permutation matrices, and the
+evaluation's kid sum and parent gather read the kid lists and parents
+(``eval_sched``) instead of a one-hot [NPc, NPc] parent matrix, so the
+crown has no node cap. ``crown_factor`` and ``crown_solve`` of that module
+are not ported yet.
 
 Factors are group-major: CholW [NpG, G, G], CholUt [NpG, nxm, G] (the JAX
-kernel's are lane-major [G, G, NPg]).
+kernel's are lane-major [G, G, NPg]); evaluation data and results are
+node-major [Nn, ...] (the JAX kernel's are [rows, NPc]).
 """
 
 from __future__ import annotations
@@ -21,8 +26,15 @@ import numpy as np
 import torch
 
 from treeqp_tpu_torch.ops import _build, _dense
+from treeqp_tpu_torch.solvers.tdunes import _kid_sum
 
-__all__ = ["crown_supported", "crown_blocks_factor", "crown_blocks_factor_ref"]
+__all__ = ["crown_supported", "crown_blocks_factor", "crown_blocks_factor_ref",
+           "eval_sched", "CROWN_DATA_KEYS", "crown_eval_data", "crown_eval",
+           "crown_eval_ref"]
+
+# crown_eval_data's fields, in the order the CUDA kernels read them
+CROWN_DATA_KEYS = ("ABt", "q", "r", "b", "Qd", "Rd", "Qinv", "Rinv", "xmin",
+                   "xmax", "umin", "umax", "xm", "um", "nrxm")
 
 _MAX_G = 64  # block dim bound, as in the JAX crown_supported
 
@@ -175,3 +187,120 @@ def crown_blocks_factor(ABk, ztp, dvals, sW, sUt, Wadd, prep, reg=0.0):
 
 
 crown_blocks_factor.launches = 0
+
+
+def eval_sched(prep, device) -> dict:
+    """The crown's tree as int32 index tensors on ``device`` (cached on the
+    prep): par [Nn] (par[0] = 0, masked by nrxm); the kids of each node in
+    slot order, kid_idx[kid_ptr[n]:kid_ptr[n+1]] (the order of the kid sum
+    of ``tdunes._kid_sum``); kidsP [NpG, K] with -1 on empty slots; and
+    each node's group and slot (group_of_node, slot_of_node)."""
+    cache = prep.__dict__.setdefault("_eval_sched", {})
+    device = torch.device(device)
+    hit = cache.get(device)
+    if hit is None:
+        kids = [[] for _ in range(len(prep.par))]
+        for g, p in enumerate(prep.gnodes):
+            kids[p] = [int(c) for c, v in zip(prep.kidsP[g], prep.kvalid[g]) if v]
+        i32 = lambda a: torch.as_tensor(np.asarray(a, np.int64), dtype=torch.int32,
+                                        device=device)
+        hit = dict(par=i32(prep.par),
+                   kid_ptr=i32(np.cumsum([0] + [len(k) for k in kids])),
+                   kid_idx=i32([c for k in kids for c in k]),
+                   kidsP=i32(np.where(prep.kvalid > 0, prep.kidsP, -1)),
+                   group_of_node=i32(prep.group_of_node),
+                   slot_of_node=i32(prep.slot_of_node))
+        cache[device] = hit
+    return hit
+
+
+def crown_eval_data(qp, prep, xm, um, nrxm):
+    """Loop-invariant f32 operands of ``crown_eval`` (and of the crown half
+    of ``iter_kernel.newton_iter``), node-major, from the crown TreeQPIn and
+    its (x, u, nonroot-x) masks. Padding rows get identity weights."""
+    f32 = torch.float32
+    c = lambda v: v.to(f32).contiguous()
+    xmf, umf = xm.to(f32), um.to(f32)
+    Qd = torch.diagonal(qp.Q, dim1=1, dim2=2).to(f32) * xmf + (1.0 - xmf)
+    Rd = torch.diagonal(qp.R, dim1=1, dim2=2).to(f32) * umf + (1.0 - umf)
+    return dict(ABt=c(torch.cat([qp.A, qp.B], dim=2)), q=c(qp.q), r=c(qp.r),
+                b=c(qp.b), Qd=c(Qd), Rd=c(Rd), Qinv=c(1.0 / Qd), Rinv=c(1.0 / Rd),
+                xmin=c(qp.xmin), xmax=c(qp.xmax), umin=c(qp.umin),
+                umax=c(qp.umax), xm=c(xm), um=c(um), nrxm=c(nrxm))
+
+
+def crown_data_shapes(Nn, nx, nu) -> dict:
+    """The shape of each ``crown_eval_data`` field."""
+    wide = dict(ABt=(nx, nx + nu), r=(nu,), Rd=(nu,), Rinv=(nu,), umin=(nu,),
+                umax=(nu,), um=(nu,))
+    return {k: (Nn, *wide.get(k, (nx,))) for k in CROWN_DATA_KEYS}
+
+
+def crown_eval_ref(data, lam, extra, prep):
+    """Plain PyTorch twin of the kernel (see ``crown_eval``)."""
+    AB = data["ABt"]
+    nx = AB.shape[1]
+    lam = lam.to(torch.float32)
+    sum_AB = _kid_sum(_dense.mv(AB, lam, trans=True), prep) + extra
+    qmod = (-data["q"] + lam - sum_AB[:, :nx]) * data["xm"]
+    rmod = (-data["r"] - sum_AB[:, nx:]) * data["um"]
+    xU = data["Qinv"] * qmod
+    uU = data["Rinv"] * rmod
+    x = torch.minimum(torch.maximum(xU, data["xmin"]), data["xmax"]) * data["xm"]
+    u = torch.minimum(torch.maximum(uU, data["umin"]), data["umax"]) * data["um"]
+    qt = torch.where((xU > data["xmax"]) | (xU < data["xmin"]), 0.0, data["Qinv"])
+    rt = torch.where((uU > data["umax"]) | (uU < data["umin"]), 0.0, data["Rinv"])
+    par = prep.on(lam.device)["par"]
+    zp = torch.cat([x[par], u[par]], dim=1)
+    res = (_dense.mv(AB, zp) + data["b"] - x) * data["nrxm"]
+    tx = x * (qmod - 0.5 * data["Qd"] * x) - data["b"] * lam * data["nrxm"]
+    tu = u * (rmod - 0.5 * data["Rd"] * u)
+    return dict(x=x, u=u, qtilde=qt, rtilde=rt, xUnc=xU, uUnc=uU, res=res,
+                fcr=_dense.sum_last(tx) + _dense.sum_last(tu))
+
+
+def crown_eval(data, lam, extra, prep):
+    """Crown stage evaluation at the dual point ``lam`` [Nn, nxm] (masked
+    by nrxm): modified gradients with the chain-root contributions
+    ``extra`` [Nn, nz] added at their root nodes (zero elsewhere), the
+    clipping stage solve, the active-set masked inverses, the dual residual
+    and the dual-value partials.
+
+    ``data`` from ``crown_eval_data``; ``lam`` and ``extra`` are cast to
+    f32. Returns dict(x, u, qtilde, rtilde, xUnc, uUnc, res [Nn, ...]; fcr
+    [Nn] the per-node dual-value partial sums). All f32.
+    """
+    if lam.device.type == "cpu":
+        return crown_eval_ref(data, lam, extra, prep)
+    name = "crown_eval"
+    Nn, nx, nz = data["ABt"].shape
+    nu = nz - nx
+    dev = lam.device
+    lam = lam.to(torch.float32).contiguous()
+    extra = extra.to(torch.float32).contiguous()
+    _build.require(name, "lam", lam, (Nn, nx), dev)
+    _build.require(name, "extra", extra, (Nn, nz), dev)
+    for k, shape in crown_data_shapes(Nn, nx, nu).items():
+        _build.require(name, k, data[k], shape, dev)
+    if not (0 < nx <= 16 and nu > 0 and Nn == len(prep.par)):
+        raise ValueError(f"{name}: unsupported shape {tuple(data['ABt'].shape)}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = dict(x=torch.empty((Nn, nx), **f32), u=torch.empty((Nn, nu), **f32),
+               qtilde=torch.empty((Nn, nx), **f32), rtilde=torch.empty((Nn, nu), **f32),
+               xUnc=torch.empty((Nn, nx), **f32), uUnc=torch.empty((Nn, nu), **f32),
+               res=torch.empty((Nn, nx), **f32), fcr=torch.empty((Nn,), **f32))
+    t = eval_sched(prep, dev)
+    atb = torch.empty((Nn, nz), **f32)
+    ptrs = _build.ptr_array(
+        [data[k] for k in CROWN_DATA_KEYS]
+        + [t["par"], t["kid_ptr"], t["kid_idx"], lam, extra, atb]
+        + [out[k] for k in ("x", "u", "qtilde", "rtilde", "xUnc", "uUnc", "res", "fcr")]
+        + [None])
+    threads = min(1024, max(32, -(-Nn // 32) * 32))
+    err = _build.lib().tq_crown_eval(ptrs, Nn, nx, nu, threads, _build.stream(dev))
+    _build.check(err, name)
+    crown_eval.launches += 1
+    return out
+
+
+crown_eval.launches = 0

@@ -8,24 +8,34 @@ reference ``setup_multistage_tree`` tree.c:247-280) splits into:
 * ``S = md**Nr`` independent **chains** of length ``L = Nh - Nr``, stored as
   stacked ``[S, L, ...]`` tensors.
 
-One Newton iteration evaluates the stage QPs and the dual residual in the
-data dtype (f64), factorizes the dual Hessian in f32 (two kernels:
-``ops.chain_kernels.chain_blocks_factor`` and
+One Newton iteration of the f64 phase evaluates the stage QPs and the dual
+residual in the data dtype (f64), factorizes the dual Hessian in f32 (two
+kernels: ``ops.chain_kernels.chain_blocks_factor`` and
 ``ops.crown_kernels.crown_blocks_factor``), solves the Newton system in f32
 (``ops.system_kernels.system_solve``), restores an f64-quality direction
 by iterative refinement against the f64 Hessian action, and takes an
 Armijo step on the dual function.
 
+The two-phase solve (``f32_phase_tol > 0``) first runs a coarse phase with
+everything in f32: with inf-norm termination one launch of
+``ops.iter_kernel.newton_iter`` per common-path iteration; otherwise the
+per-kernel loop on ``ops.chain_kernels.chain_eval`` and
+``ops.crown_kernels.crown_eval``. Both refactorize with
+``chain_blocks_factor_lanes`` and ``crown_blocks_factor`` when the active
+set changes, and search with the batched Armijo rule. The f64 phase then
+finishes from the coarse duals.
+
 The JAX version is one jitted ``while_loop``; here the loop is Python
 control flow, so each termination test, Armijo acceptance and
 factorization-reuse comparison reads a scalar back to the host.
 
-Ported: the one-phase solve (``f32_phase_tol == 0``, ``df64_phase``
-False: f64 data, f32 factors) on one device, with the fused kernels
-(``chain_backend == "pallas"``, ``factor_dtype == "float32"``, a static
-regularization), the sequential Armijo search, the full-step restart, the
-reuse of the factorization on an unchanged active set, and both
-refinement variants. The other options raise ``NotImplementedError``.
+Ported: the one- and two-phase solves (``df64_phase`` False: f64 data, f32
+factors) on one device, with the fused kernels (``chain_backend ==
+"pallas"``, ``factor_dtype == "float32"``, a static regularization), the
+sequential and batched Armijo searches, the full-step restart, the
+coarse phase's stall exit, the reuse of the factorization on an unchanged
+active set, and both refinement variants. The other options raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,8 +50,10 @@ from treeqp_tpu_torch.utils.tree import TreeStructure
 from treeqp_tpu_torch.solvers import tdunes as td
 from treeqp_tpu_torch.solvers.tdunes import (
     TdunesOpts, TDUNES_OPTIMAL, TDUNES_MAX_ITER, TDUNES_NOT_DESCENT)
+from treeqp_tpu_torch.ops import _dense
 from treeqp_tpu_torch.ops import chain_kernels as ck
 from treeqp_tpu_torch.ops import crown_kernels as ckr
+from treeqp_tpu_torch.ops import iter_kernel as ik
 from treeqp_tpu_torch.ops import system_kernels as sk
 
 __all__ = ["MultistageQP", "split_multistage", "tdunes_ms_solve",
@@ -300,13 +312,24 @@ def _solve_ctx(ms: MultistageQP, prep_cr) -> dict:
                         crown_AB32[t["kidsP"]], 0.0).contiguous())
 
 
-def _factor_inputs(qtilde_cr, rtilde_cr, qt_ch, rt_ch, prep_cr, ctx):
+def _eval_data(ms: MultistageQP, prep_cr):
+    """The f32 operands of the evaluation kernels (chain_eval, crown_eval,
+    newton_iter): loop-invariant, made once per solve."""
+    data_ch = ck.chain_eval_data(ms.A, ms.B, ms.q, ms.r, ms.Qd, ms.Rd, ms.xmin,
+                                 ms.xmax, ms.umin, ms.umax, ms.b)
+    data_cr = ckr.crown_eval_data(ms.crown, prep_cr, *td._masks(ms.crown, prep_cr))
+    return data_ch, data_cr
+
+
+def _factor_inputs(qtilde_cr, rtilde_cr, qt_ch, rt_ch, prep_cr, ctx, lanes=False):
     """The f32 operands of the two factor kernels for one active set.
 
-    Returns dict(chain=(ABt, ztp, qtc, s_root) for chain_blocks_factor,
-    crown=(ABk, ztp, dvals, sW, sUt) for crown_blocks_factor (which also
-    takes the chain Schur term), s_node [Ncrown, nxm] the crown Jacobi
-    scales in node layout, in the data dtype)."""
+    Returns dict(chain=(ABt, ztp, qtc, s_root) for chain_blocks_factor, or
+    with ``lanes`` (ABt, qt, rt, ztp_root, s_root) for
+    chain_blocks_factor_lanes; crown=(ABk, ztp, dvals, sW, sUt) for
+    crown_blocks_factor (which also takes the chain Schur term); s_node
+    [Ncrown, nxm] the crown Jacobi scales in node layout, in the data
+    dtype)."""
     f32 = torch.float32
     prep = prep_cr
     rid, g_of, rows = ctx["rid"], ctx["g_of"], ctx["rows"]
@@ -327,18 +350,27 @@ def _factor_inputs(qtilde_cr, rtilde_cr, qt_ch, rt_ch, prep_cr, ctx):
     s_node = td._group_to_nodes_mm(sW, prep, ctx["dt"]) * ctx["nrxm_cr"]
 
     ztp_root = torch.cat([qtilde_cr[rid], rtilde_cr[rid]], dim=-1).to(f32)
-    ztp_ch = torch.cat([qt_ch, rt_ch], dim=-1).to(f32)
-    ztp_c = torch.cat([ztp_root[:, None], ztp_ch[:, :-1]], dim=1)
-    chain = (ctx["ABt"], ztp_c, qt_ch.to(f32).contiguous(), sW[g_of[:, None], rows])
+    s_root = sW[g_of[:, None], rows]
+    qt32 = qt_ch.to(f32).contiguous()
+    if lanes:
+        chain = (ctx["ABt"], qt32, rt_ch.to(f32).contiguous(), ztp_root, s_root)
+    else:
+        ztp_ch = torch.cat([qt_ch, rt_ch], dim=-1).to(f32)
+        ztp_c = torch.cat([ztp_root[:, None], ztp_ch[:, :-1]], dim=1)
+        chain = (ctx["ABt"], ztp_c, qt32, s_root)
     return dict(chain=chain, crown=(ABk, ztp, dvals, sW, sUt), s_node=s_node)
 
 
-def _ms_factorize(ms, qtilde_cr, rtilde_cr, qt_ch, rt_ch, opts, prep_cr, ctx):
+def _ms_factorize(ms, qtilde_cr, rtilde_cr, qt_ch, rt_ch, opts, prep_cr, ctx,
+                  lanes=False):
     """Factorize the crown+chains dual Hessian in f32: blocks + Jacobi
-    equilibration + chain factorization (one kernel), then the crown
-    blocks with the chain Schur term + crown factorization (one kernel)."""
-    inp = _factor_inputs(qtilde_cr, rtilde_cr, qt_ch, rt_ch, prep_cr, ctx)
-    Ls, CUs, schur0, sc = ck.chain_blocks_factor(*inp["chain"])
+    equilibration + chain factorization (one kernel; with ``lanes`` the
+    variant that reads the chain evaluation's qt/rt directly), then the
+    crown blocks with the chain Schur term + crown factorization (one
+    kernel)."""
+    inp = _factor_inputs(qtilde_cr, rtilde_cr, qt_ch, rt_ch, prep_cr, ctx, lanes)
+    chain_factor = ck.chain_blocks_factor_lanes if lanes else ck.chain_blocks_factor
+    Ls, CUs, schur0, sc = chain_factor(*inp["chain"])
     Wadd = -_schur_scatter(schur0, ctx["g_of"], ctx["slot"], prep_cr,
                            prep_cr.nxm)
     reg = opts.reg_value if opts.reg_type == "always" else 0.0
@@ -369,8 +401,6 @@ def _check_opts(ms: MultistageQP, opts: TdunesOpts):
     later = "is not ported yet (ROADMAP.md, port queue)"
     if opts.stage_solver != "clipping":
         raise NotImplementedError(f"stage_solver={opts.stage_solver!r} {later}")
-    if opts.f32_phase_tol > 0:
-        raise NotImplementedError(f"f32_phase_tol > 0 (coarse f32 phase) {later}")
     if opts.df64_phase:
         raise NotImplementedError(f"df64_phase {later}")
     if opts.axis_name is not None:
@@ -378,61 +408,134 @@ def _check_opts(ms: MultistageQP, opts: TdunesOpts):
     if opts.chain_backend != "pallas":
         raise NotImplementedError(
             f"chain_backend={opts.chain_backend!r} (unfused path) {later}")
-    if opts.ls_batch > 0:
-        raise NotImplementedError(f"ls_batch > 0 (batched Armijo) {later}")
     prep_cr = td._get_prep(ms.meta.crown_topo)
     if not sk.system_supported(prep_cr, ms.meta, opts):
         raise NotImplementedError(
             "the fused kernels need factor_dtype='float32', reg_type "
             f"'always' or 'none', and crown blocks of dim <= 64; other "
             f"settings {later}")
+    if opts.f32_phase_tol > 0 and not ik.iter_supported(prep_cr, ms.meta, opts):
+        raise NotImplementedError(
+            f"the coarse phase on chains whose [x, u] width differs from the crown's {later}")
+
+
+def _sets_equal(a, b) -> bool:
+    # With clipping, the masked inverses are Qinv-or-0: exact equality is
+    # active-set-pattern equality, and equal patterns give bitwise-identical
+    # factorization inputs.
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _armijo(f_at, f0, dot, f1, rest1, opts):
+    """Armijo backtracking on f = -g from the tau = 1 trial (f1, rest1)
+    (reference dual_Newton_tree.c:958-992), shared by both Newton loops.
+
+    ``f_at(tau)`` evaluates the trial point lam + tau d and returns (f,
+    rest). The scalars are 0-dim tensors of the data dtype, so an f32
+    phase takes its decisions in f32, as the JAX package does. With
+    ``opts.ls_batch`` = T > 0 a rejected full step tries the candidates
+    tau = beta^k, k = 1..T (powers in the data dtype), and takes the first
+    accepted one: the JAX package evaluates them as one vmapped batch; here
+    they are evaluated in order up to the first accepted, which gives the
+    same step. Beyond them, and when T = 0, the search backtracks
+    sequentially (tau <- beta tau) up to ``ls_max_iter`` trials.
+
+    Returns (tau, f, rest, ls_it, accepted): the accepted trial, or the
+    last one tried.
+    """
+    # noise-aware slack: the dual value carries ~sqrt(Nterms)*eps relative
+    # noise; near convergence exact comparisons stall
+    eta = 2.0 ** -45 * f0.abs()
+
+    def accepts(f, tau):
+        return bool(f <= f0 + opts.ls_gamma * tau * dot + eta)
+
+    one = torch.ones((), dtype=f0.dtype, device=f0.device)
+    if accepts(f1, one):
+        return one, f1, rest1, 1, True
+    tau, f, rest, ls_it = one, f1, rest1, 1
+    T = min(opts.ls_batch, opts.ls_max_iter)
+    if T > 0:
+        taus = torch.pow(torch.full((), opts.ls_beta, dtype=f0.dtype, device=f0.device),
+                         torch.arange(1, T + 1, dtype=f0.dtype, device=f0.device))
+        for k in range(T):
+            f, rest = f_at(taus[k])
+            if accepts(f, taus[k]):
+                return taus[k], f, rest, k + 2, True
+        tau, ls_it = taus[-1], T + 1
+    acc = False
+    while not acc and ls_it < opts.ls_max_iter:
+        tau = opts.ls_beta * tau
+        f, rest = f_at(tau)
+        ls_it += 1
+        acc = accepts(f, tau)
+    return tau, f, rest, ls_it, acc
 
 
 def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
-                    opts: TdunesOpts):
-    """The dual-Newton loop in the dtype of ``ms``'s data.
+                    opts: TdunesOpts, it0: int = 0, patience: int = 0):
+    """The dual-Newton loop in the dtype of ``ms``'s data, counting
+    iterations from ``it0``.
 
-    Returns (lam_cr, lam_ch, it, status, ls_it, cr, ch, err)."""
+    With f32 data (the coarse phase's per-kernel loop) the stage
+    evaluations are the chain_eval and crown_eval kernels and the
+    factorize reads their active sets directly (chain_blocks_factor_lanes).
+    ``patience > 0`` adds the coarse phase's stall exit: stop once the
+    error has not improved by 10% for ``patience`` consecutive iterations.
+
+    Returns (lam_cr, lam_ch, it, status, ls_it, cr, ch, err); err is a
+    0-dim tensor."""
     meta = ms.meta
     prep_cr = td._get_prep(meta.crown_topo)
     dt = ms.q.dtype
     crown_data = td._stage_data(ms.crown, opts, prep_cr)
     ctx = _solve_ctx(ms, prep_cr)
     rid, nrxm_cr = ctx["rid"], ctx["nrxm_cr"]
+    fused_eval = dt == torch.float32
+    if fused_eval:
+        data_ch, data_cr = _eval_data(ms, prep_cr)
 
     def stage_solve(lam_cr, lam_ch):
+        if fused_eval:
+            ch = ck.chain_eval(data_ch, lam_ch)
+            extra = torch.zeros_like(data_cr["ABt"][:, 0])
+            extra[rid] = ch["cqr"]
+            return ckr.crown_eval(data_cr, lam_cr, extra, prep_cr), ch
         return _ms_stage_solve(ms, crown_data, lam_cr, lam_ch, opts, prep_cr, rid)
 
     def dual_value(lam_cr, lam_ch, cr, ch):
-        return float(_ms_dual_value(ms, crown_data, lam_cr, lam_ch, cr, ch, opts))
+        if fused_eval:
+            return cr["fcr"].sum() + ch["fch"].sum()
+        return _ms_dual_value(ms, crown_data, lam_cr, lam_ch, cr, ch, opts)
 
     def residuals_of(cr, ch):
+        if fused_eval:
+            # chain rows j >= 1 come out of chain_eval; row 0 still needs
+            # A_0 z_crown from this crown solution
+            zr = torch.cat([cr["x"][rid], cr["u"][rid]], dim=1)
+            res_ch = ch["res_part"].clone()
+            res_ch[:, 0] = res_ch[:, 0] + _dense.mv(ctx["ABt"][:, 0], zr)
+            return cr["res"], res_ch
         return (td._dual_residual(ms.crown, cr, prep_cr),
                 _chain_residual(ms, ch, cr["x"], cr["u"], rid))
 
     def error_of(res_cr, res_ch):
         if opts.termination == "infnorm":
-            return float(torch.maximum(res_cr.abs().max(), res_ch.abs().max()))
-        sq = float(torch.sum(res_cr**2) + torch.sum(res_ch**2))
-        return sq**0.5 if opts.termination == "twonorm" else sq
+            return torch.maximum(res_cr.abs().max(), res_ch.abs().max())
+        sq = torch.sum(res_cr**2) + torch.sum(res_ch**2)
+        return torch.sqrt(sq) if opts.termination == "twonorm" else sq
 
     def factorize(cr, ch):
         return _ms_factorize(ms, cr["qtilde"], cr["rtilde"], ch["qt"],
-                             ch["rt"], opts, prep_cr, ctx)
+                             ch["rt"], opts, prep_cr, ctx, lanes=fused_eval)
 
     def active_sig(cr, ch):
-        # With clipping, qtilde/rtilde are Qinv-or-0: exact equality is
-        # active-set-pattern equality, and equal patterns give
-        # bitwise-identical factorization inputs.
         return (cr["qtilde"], cr["rtilde"], ch["qt"], ch["rt"])
-
-    def sig_equal(a, b):
-        return all(torch.equal(x, y) for x, y in zip(a, b))
 
     def newton_step(lam_cr, lam_ch, status, restart, f0, cr, ch, res_cr,
                     res_ch, fact_prev, sig_prev):
         sig = active_sig(cr, ch)
-        if opts.reuse_factorization and sig_equal(sig, sig_prev):
+        if opts.reuse_factorization and _sets_equal(sig, sig_prev):
             fact = fact_prev
         else:
             fact = factorize(cr, ch)
@@ -465,37 +568,25 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
             dlam_cr, dlam_ch = best_cr, best_ch
 
         # --- Armijo line search on f = -g over (crown, chain) jointly
-        dot = -float(torch.sum(res_cr * dlam_cr) + torch.sum(res_ch * dlam_ch))
-        descent_ok = dot < 1e-10  # the JAX package's documented < 0 deviation
+        dot = -(torch.sum(res_cr * dlam_cr) + torch.sum(res_ch * dlam_ch))
 
         def f_at(tau):
             lc = lam_cr + tau * dlam_cr
             lh = lam_ch + tau * dlam_ch
             cr2, ch2 = stage_solve(lc, lh)
-            return dual_value(lc, lh, cr2, ch2), cr2, ch2
+            return dual_value(lc, lh, cr2, ch2), (cr2, ch2)
 
-        # noise-aware Armijo slack: the dual value carries ~sqrt(Nterms)*eps
-        # relative noise; near convergence exact comparisons stall
-        eta = 2.0 ** -45 * abs(f0)
-
-        def accepts(f2, tau):
-            return f2 <= f0 + opts.ls_gamma * tau * dot + eta
-
-        # every path returns the accepted tau's stage solution and dual value
-        # too, so the next iteration reuses them
-        f1, cr1, ch1 = f_at(1.0)
-        tau, f_t, ls_it, acc, cr_t, ch_t = 1.0, f1, 1, accepts(f1, 1.0), cr1, ch1
-        while not acc and ls_it < opts.ls_max_iter:
-            tau = opts.ls_beta * tau
-            f_t, cr_t, ch_t = f_at(tau)
-            ls_it += 1
-            acc = accepts(f_t, tau)
+        # every path returns the accepted tau's stage solution and dual
+        # value too, so the next iteration reuses them
+        one = torch.ones((), dtype=dt, device=dot.device)
+        f1, rest1 = f_at(one)
+        tau, f_t, (cr_t, ch_t), ls_it, acc = _armijo(f_at, f0, dot, f1, rest1, opts)
         restart = restart + 1 if not acc else 0
         if opts.ls_restart_trigger > 0 and restart >= opts.ls_restart_trigger:
-            # full-step restart: tau forced to 1; f_at(1)'s solution is cr1/ch1
+            # full-step restart: tau forced to 1; f_at(1)'s solution is rest1
             restart = 0
-            tau, f_t, cr_t, ch_t = 1.0, f1, cr1, ch1
-        if descent_ok:
+            tau, f_t, (cr_t, ch_t) = one, f1, rest1
+        if bool(dot < 1e-10):  # the JAX package's documented < 0 deviation
             lam_cr = lam_cr + tau * dlam_cr
             lam_ch = lam_ch + tau * dlam_ch
         else:
@@ -514,15 +605,104 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
     # step's reuse-compare is a true hit and uses exactly this one
     fact = factorize(cr, ch)
     sig = active_sig(cr, ch)
-    it, status, restart, ls_it = 0, TDUNES_OPTIMAL, 0, 0
-    while err >= opts.tol and status == TDUNES_OPTIMAL and it < opts.max_iter:
+    it, status, restart, ls_it = it0, TDUNES_OPTIMAL, 0, 0
+    best, noimp = err, 0
+    while (bool(err >= opts.tol) and status == TDUNES_OPTIMAL
+           and it < opts.max_iter and (patience <= 0 or noimp < patience)):
         lam_cr, lam_ch, status, restart, ls_it, fact, sig, f0, cr, ch = \
             newton_step(lam_cr, lam_ch, status, restart, f0, cr, ch, res_cr,
                         res_ch, fact, sig)
         it += 1
         res_cr, res_ch = residuals_of(cr, ch)
         err = error_of(res_cr, res_ch)
+        noimp = 0 if bool(err < 0.9 * best) else noimp + 1
+        best = torch.minimum(best, err)
     return lam_cr, lam_ch, it, status, ls_it, cr, ch, err
+
+
+def _mega_applicable(prep_cr, meta, opts) -> bool:
+    """The coarse phase runs on the fused iteration kernel
+    (ops/iter_kernel.py): inf-norm termination, no refinement."""
+    return (opts.termination == "infnorm" and opts.refine_steps == 0
+            and ik.iter_supported(prep_cr, meta, opts))
+
+
+def _ms_newton_loop_mega(ms: MultistageQP, lam0_crown, lam0_chain,
+                         opts: TdunesOpts, it0: int, patience: int = 0):
+    """The f32 coarse-phase loop on the fused iteration kernel: the common
+    path of every iteration (system solve, tau = 1 trial, stage
+    evaluation, residuals, error and dual-value partials) is ONE
+    ``newton_iter`` launch; the acceptance bookkeeping, the reject-only
+    line search (``newton_iter(mode="eval")`` per candidate) and the
+    refactorization on an active-set change stay outside. Same Armijo rule,
+    restart and patience as ``_ms_newton_loop``.
+
+    Returns (lam_cr, lam_ch, it)."""
+    meta = ms.meta
+    prep_cr = td._get_prep(meta.crown_topo)
+    ctx = _solve_ctx(ms, prep_cr)
+    data_ch, data_cr = _eval_data(ms, prep_cr)
+
+    def kcall(fact, lam_cr, lam_ch, res_cr, res_ch, mode):
+        state = dict(lam_cr=lam_cr, lam_ch=lam_ch, res_cr=res_cr, res_ch=res_ch)
+        return ik.newton_iter(data_ch, data_cr, fact, state, prep_cr,
+                              meta.root_ids, mode=mode)
+
+    def scal(p):
+        return p[0].sum() + p[1].sum()
+
+    def errof(p):
+        return torch.maximum(p[0].max(), p[1].max())
+
+    def sets_of(out):
+        return (out["qtilde"], out["rtilde"], out["qt"], out["rt"])
+
+    def factorize(sets):
+        return _ms_factorize(ms, *sets, opts, prep_cr, ctx, lanes=True)
+
+    # initial evaluation (the factors are not read in eval mode)
+    lam_cr = lam0_crown.to(torch.float32) * ctx["nrxm_cr"]
+    lam_ch = lam0_chain.to(torch.float32)
+    out0 = kcall(None, lam_cr, lam_ch, None, None, "eval")
+    res_cr, res_ch = out0["res2_cr"], out0["res2_ch"]
+    f0, err = scal(out0["f1p"]), errof(out0["errp"])
+    sets = sets_of(out0)
+    fact = factorize(sets)
+    it, status, restart = it0, TDUNES_OPTIMAL, 0
+    best, noimp = err, 0
+    while (bool(err >= opts.tol) and status == TDUNES_OPTIMAL
+           and it < opts.max_iter and (patience <= 0 or noimp < patience)):
+        out = kcall(fact, lam_cr, lam_ch, res_cr, res_ch, "iter")
+        dot = scal(out["dotp"])
+        f1 = scal(out["f1p"])
+        rest1 = (out["lam2_cr"], out["lam2_ch"], out["res2_cr"], out["res2_ch"],
+                 sets_of(out), errof(out["errp"]))
+
+        def f_at(tau):
+            lc = lam_cr + tau * out["dcr"]
+            lh = lam_ch + tau * out["dch"]
+            oe = kcall(None, lc, lh, None, None, "eval")
+            return scal(oe["f1p"]), (lc, lh, oe["res2_cr"], oe["res2_ch"],
+                                     sets_of(oe), errof(oe["errp"]))
+
+        _, f_t, rest, _, acc = _armijo(f_at, f0, dot, f1, rest1, opts)
+        restart = restart + 1 if not acc else 0
+        if opts.ls_restart_trigger > 0 and restart >= opts.ls_restart_trigger:
+            restart = 0
+            f_t, rest = f1, rest1
+        if bool(dot < 1e-10):
+            lam_cr, lam_ch, res_cr, res_ch, sets2, err = rest
+            f0 = f_t
+        else:
+            sets2 = sets
+            status = TDUNES_NOT_DESCENT
+        if not (opts.reuse_factorization and _sets_equal(sets2, sets)):
+            fact = factorize(sets2)
+        sets = sets2
+        it += 1
+        noimp = 0 if bool(err < 0.9 * best) else noimp + 1
+        best = torch.minimum(best, err)
+    return lam_cr, lam_ch, it
 
 
 def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
@@ -532,7 +712,15 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
     Returns (crown_out dict, chain_out dict, info dict). Use
     ``merge_output`` for a full-tree TreeQPOut. Runs on the device of
     ``ms``'s tensors; ``lam0_crown`` [Ncrown, nxm] / ``lam0_chain``
-    [S, L, nx] warm-start the duals (zeros when None)."""
+    [S, L, nx] warm-start the duals (zeros when None).
+
+    With ``opts.f32_phase_tol > 0`` and f64 data the solve runs two phases:
+    a coarse phase with everything in f32 (the fused iteration kernel with
+    inf-norm termination, the per-kernel loop otherwise) down to
+    f32_phase_tol or a stall of ``f32_patience`` iterations, then the f64
+    phase with refinement to ``opts.tol`` from where it stopped.
+    ``info["iter_f32"]`` counts the coarse iterations, ``info["iter"]``
+    both phases."""
     _check_opts(ms, opts)
     meta = ms.meta
     prep_cr = td._get_prep(meta.crown_topo)
@@ -547,8 +735,28 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
         lam0_chain = torch.zeros_like(ms.q)
     lam0_crown = lam0_crown * nrxm_cr
 
+    it0 = 0
+    if opts.f32_phase_tol > 0 and dt == torch.float64:
+        f32 = torch.float32
+        ms32 = ms.to(dtype=f32)
+        opts32 = dataclasses.replace(
+            opts, refine_steps=0, tol=max(opts.f32_phase_tol, opts.tol),
+            ls_batch=opts.ls_batch if opts.ls_batch > 0 else 4)
+        if _mega_applicable(prep_cr, meta, opts32):
+            lam_cr32, lam_ch32, it0 = _ms_newton_loop_mega(
+                ms32, lam0_crown.to(f32), lam0_chain.to(f32), opts32, it0,
+                patience=opts.f32_patience)
+        else:
+            lam_cr32, lam_ch32, it0 = _ms_newton_loop(
+                ms32, lam0_crown.to(f32), lam0_chain.to(f32), opts32, it0,
+                patience=opts.f32_patience)[:3]
+        # the coarse phase's status is dropped: a not-descent there is
+        # expected noise near the f32 residual floor, not a failure
+        lam0_crown, lam0_chain = lam_cr32.to(dt), lam_ch32.to(dt)
+
     lam_cr, lam_ch, it, status, ls_it, cr, ch, err = _ms_newton_loop(
-        ms, lam0_crown, lam0_chain, opts)
+        ms, lam0_crown, lam0_chain, opts, it0)
+    err = float(err)
     if status == TDUNES_OPTIMAL and err >= opts.tol:
         status = TDUNES_MAX_ITER
 
@@ -558,7 +766,7 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
     chain_out = dict(x=ch["x"], u=ch["u"], lam=lam_ch,
                      mu_x=ms.Qd * (ch["xUnc"] - ch["x"]),
                      mu_u=ms.Rd * (ch["uUnc"] - ch["u"]))
-    info = dict(iter=it, status=status, error=err, ls_iter=ls_it, iter_f32=0)
+    info = dict(iter=it, status=status, error=err, ls_iter=ls_it, iter_f32=it0)
     return crown_out, chain_out, info
 
 
