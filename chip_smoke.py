@@ -9,27 +9,34 @@ Phases (any failure exits non-zero):
    (nvidia-smi), builds the kernels of ``treeqp_tpu_torch/csrc/`` into
    ``build/`` (one nvcc per source, in parallel) and prints the build time
    and each kernel's registers and spills;
-2. all seven kernels against their plain PyTorch twins on the card, with
+2. all twelve kernels against their plain PyTorch twins on the card, with
    each one's median time from CUDA events: the factor and solve kernels
    of the f64 phase on the operands of its first factorization and solve,
    the coarse phase's kernels (chain_eval, crown_eval,
    chain_blocks_factor_lanes, newton_iter in both modes) on the operands of
-   its first iteration, all on the headline instance (quadcopter, md=4,
+   its first iteration, the high-precision phase's f64 kernels
+   (chain_eval_df, crown_eval_df, chain_apply_df, crown_apply_df,
+   df_reduce_flat) at its first point on the bench path (the coarse
+   phase's last duals), all on the headline instance (quadcopter, md=4,
    Nr=4, Nh=20: 256 scenarios, 4437 nodes);
 3. the main paths on that instance, each certified by the KKT oracle
    (< 1e-8) and compared with the same solve through the plain twins on
-   the CPU: the one-phase solve (slice 1) and the two-phase solve (coarse
-   f32 phase, then the f64 phase);
-4. requests: instances with a perturbed initial state, solved cold and then
-   warm-started under both options, plus two-phase requests with two-norm
-   termination (the coarse phase's per-kernel loop), each certified; and
-   the two-phase solve of the 1024-scenario tree quadcopter(4,5,20), whose
-   1365-node crown the TPU kernels could not hold.
+   the CPU: the one-phase solve (slice 1), the two-phase solve (coarse f32
+   phase, then the f64 phase) and the bench path (bench.py's options: the
+   coarse f32 phase, then the high-precision phase of ms_df64), with cold
+   and warm requests of perturbed instances; and, on the bench path, the
+   factorizations of one cold solve and the handover of the coarse phase's
+   last factorization, counted;
+4. more requests: two-phase requests with two-norm termination (the coarse
+   phase's per-kernel loop), each certified; and the two-phase and bench
+   solves of the 1024-scenario tree quadcopter(4,5,20), whose 1365-node
+   crown the TPU kernels could not hold.
 
 The kernel launch counts are set to 0 before each path (one-phase,
-two-phase, two-norm, 1024 scenarios) and read after it; every kernel must
-launch on a path that runs it. Prints the kernels' JSON summary, then the
-device JSON as the last line. Imports nothing of JAX.
+two-phase, bench, bench handover, two-norm, 1024 scenarios) and read after
+it; every kernel must launch on a path that runs it. Prints the kernels'
+JSON summary, then the device JSON as the last line. Imports nothing of
+JAX.
 """
 
 import dataclasses
@@ -47,6 +54,7 @@ MD, NR, NH = 4, 4, 20
 N_REQUESTS = 8          # two-phase cold and warm requests each
 N_REQUESTS_1P = 4       # one-phase (slice 1) cold and warm requests each
 N_REQUESTS_2N = 2       # two-phase two-norm requests, cold then warm
+N_REQUESTS_B = 8        # bench-path cold and warm requests each
 PERT = 0.02
 SLICE_OPTS = dict(stage_solver="clipping", tol=TOL, max_iter=120,
                   factor_dtype="float32", refine_steps=2,
@@ -55,6 +63,9 @@ SLICE_OPTS = dict(stage_solver="clipping", tol=TOL, max_iter=120,
                   df64_phase=False)
 # the main path of bench.py without its df64 phase
 TWO_PHASE_OPTS = {**SLICE_OPTS, "f32_phase_tol": 1e-4, "f32_patience": 3}
+# bench.py's options (bench_opts(on_tpu=True)): the high-precision phase is
+# solvers/ms_df64.py's
+BENCH_OPTS = {**TWO_PHASE_OPTS, "df64_phase": True}
 # f32 kernels against f32 plain twins that sum in another order: factors
 # to 1e-5 and solves to 1e-4 relative (tests/test_fused_eval.py,
 # tests/test_crown_kernels.py use the same bounds); the evaluations sum in
@@ -67,6 +78,10 @@ EVAL_RTOL = 1e-5
 # the solve's rounding, so an active-set bit is held equal only where the
 # twin's clipping input is this far from its bound (relative to max(1, |bound|))
 TRIAL_MARGIN = 1e-4
+# the f64 evaluations and the reduction reproduce their twins bit for bit;
+# the f64 Hessian action to 1e-12 relative
+BIT_EXACT = 0.0
+DF_RTOL = 1e-12
 
 
 def fail(msg):
@@ -158,8 +173,11 @@ def main():
     from treeqp_tpu_torch.ops import _build
     from treeqp_tpu_torch.ops import chain_kernels as ck
     from treeqp_tpu_torch.ops import crown_kernels as ckr
+    from treeqp_tpu_torch.ops import df_eval_kernels as dek
+    from treeqp_tpu_torch.ops import df_reduce as dr
     from treeqp_tpu_torch.ops import iter_kernel as ik
     from treeqp_tpu_torch.ops import system_kernels as sk
+    from treeqp_tpu_torch.solvers import ms_df64 as md
     from treeqp_tpu_torch.solvers import tdunes as td
     from treeqp_tpu_torch.solvers import tdunes_multistage as tm
     assert "jax" not in sys.modules
@@ -184,6 +202,10 @@ def main():
     # ---- 2. kernels against their plain twins, main-path shapes
     opts = td.TdunesOpts(**SLICE_OPTS)
     opts2 = td.TdunesOpts(**TWO_PHASE_OPTS)
+    optsb = td.TdunesOpts(**BENCH_OPTS)
+    # the coarse phase's options inside the two-phase solve
+    opts_coarse = dataclasses.replace(optsb, refine_steps=0, tol=optsb.f32_phase_tol,
+                                      ls_batch=4)
     qp_cpu = quadcopter(MD, NR, NH).qp
     ms_cpu = tm.split_multistage(qp_cpu)
     ms = ms_cpu.to(dev)
@@ -333,6 +355,71 @@ def main():
            f"S={meta.S} L={meta.L} crown {data_cr['ABt'].shape[0]} nodes; mode eval "
            f"{ms_eval:.4f} ms, max |diff| {err_eval:.3e}; iter-mode active-set "
            f"bits exempt near a bound: {exempt}")
+
+    # the high-precision phase's kernels at its first point on the bench
+    # path: the duals the coarse phase ends with
+    lam_cr_h, lam_ch_h, it_h, _ = tm._ms_newton_loop_mega(
+        ms32, lam_cr32, lam_ch32, opts_coarse, 0, patience=optsb.f32_patience)
+    dd = md.make_dd(ms, prep)
+    lam_crd = lam_cr_h.double() * dd["cr"]["nrxm"]
+    lam_chd = lam_ch_h.double()
+    keys = ("x", "u", "qt", "rt", "xUnc", "uUnc", "res_part", "cqr", "fch")
+    ch_ref = dek.chain_eval_df_ref(dd["ch"], lam_chd)
+    ch_got = dek.chain_eval_df(dd["ch"], lam_chd)
+    torch.cuda.synchronize()
+    record("chain_eval_df", "chain_eval_df.cu", "treeqp_tpu/ops/df_eval_kernels.py:93",
+           compare(torch, "chain_eval_df", floats(ch_got, keys), floats(ch_ref, keys),
+                   BIT_EXACT),
+           lambda: dek.chain_eval_df(dd["ch"], lam_chd),
+           lambda: dek.chain_eval_df_ref(dd["ch"], lam_chd),
+           f"ABt {tuple(dd['ch']['ABt'].shape)} f64, after {it_h} coarse iterations")
+    extra = md._root_extra(dd, ch_ref["cqr"])
+    keys = ("x", "u", "qtilde", "rtilde", "xUnc", "uUnc", "res", "fcr")
+    cr_ref = dek.crown_eval_df_ref(dd["cr"], lam_crd, extra, prep)
+    cr_got = dek.crown_eval_df(dd["cr"], lam_crd, extra, prep)
+    torch.cuda.synchronize()
+    record("crown_eval_df", "crown_eval_df.cu", "treeqp_tpu/ops/df_eval_kernels.py:399",
+           compare(torch, "crown_eval_df", floats(cr_got, keys), floats(cr_ref, keys),
+                   BIT_EXACT),
+           lambda: dek.crown_eval_df(dd["cr"], lam_crd, extra, prep),
+           lambda: dek.crown_eval_df_ref(dd["cr"], lam_crd, extra, prep),
+           f"ABt {tuple(dd['cr']['ABt'].shape)} f64")
+    # an f32 direction on the path: the dual gradient there
+    res_crd, res_chd = md.df_residuals(dd, cr_ref, ch_ref)
+    dcr, dch = res_crd.float(), res_chd.float()
+    aargs = (dd["ch"], ch_ref["qt"], ch_ref["rt"], dch)
+    keys = ("xl", "ul", "res_part", "cqr")
+    a_ref = dek.chain_apply_df_ref(*aargs)
+    a_got = dek.chain_apply_df(*aargs)
+    torch.cuda.synchronize()
+    record("chain_apply_df", "chain_apply_df.cu", "treeqp_tpu/ops/df_eval_kernels.py:237",
+           compare(torch, "chain_apply_df", floats(a_got, keys), floats(a_ref, keys),
+                   DF_RTOL),
+           lambda: dek.chain_apply_df(*aargs), lambda: dek.chain_apply_df_ref(*aargs),
+           f"d {tuple(dch.shape)} f32")
+    cargs = (dd["cr"], cr_ref["qtilde"], cr_ref["rtilde"], dcr,
+             md._root_extra(dd, a_ref["cqr"]), prep)
+    keys = ("xl", "ul", "res")
+    c_ref = dek.crown_apply_df_ref(*cargs)
+    c_got = dek.crown_apply_df(*cargs)
+    torch.cuda.synchronize()
+    record("crown_apply_df", "crown_apply_df.cu", "treeqp_tpu/ops/df_eval_kernels.py:555",
+           compare(torch, "crown_apply_df", floats(c_got, keys), floats(c_ref, keys),
+                   DF_RTOL),
+           lambda: dek.crown_apply_df(*cargs), lambda: dek.crown_apply_df_ref(*cargs),
+           f"d {tuple(dcr.shape)} f32")
+    # the phase's two reductions: the dual value's partials and the
+    # directional derivative's terms
+    fx = torch.cat([cr_ref["fcr"], ch_ref["fch"]])
+    gx = torch.cat([(res_crd * dcr).reshape(-1), (res_chd * dch).reshape(-1)])
+    r_got = [dr.df_reduce_flat(fx), dr.df_reduce_flat(gx)]
+    r_ref = [dr.df_reduce_flat_ref(fx), dr.df_reduce_flat_ref(gx)]
+    torch.cuda.synchronize()
+    record("df_reduce_flat", "df_reduce.cu", "treeqp_tpu/ops/df_reduce.py:72",
+           compare(torch, "df_reduce_flat", r_got, r_ref, BIT_EXACT),
+           lambda: dr.df_reduce_flat(gx), lambda: dr.df_reduce_flat_ref(gx),
+           f"n {gx.numel()} (the dual value's: {fx.numel()}, "
+           f"{cuda_ms(torch, lambda: dr.df_reduce_flat(fx), 50):.4f} ms)")
     for r in results:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin "
               f"{r['plain_ms']:.4f} ms, max |diff| {r['max_abs_err']:.3e} "
@@ -341,7 +428,10 @@ def main():
     # ---- 3. main paths on the card, certified and held against the CPU
     kernels = (ck.chain_blocks_factor, ckr.crown_blocks_factor, sk.system_solve,
                ck.chain_eval, ckr.crown_eval, ck.chain_blocks_factor_lanes,
-               ik.newton_iter)
+               ik.newton_iter, dek.chain_eval_df, dek.crown_eval_df,
+               dek.chain_apply_df, dek.crown_apply_df, dr.df_reduce_flat)
+    df_kernels = ("chain_eval_df", "crown_eval_df", "chain_apply_df",
+                  "crown_apply_df", "df_reduce_flat")
     paths = {}
 
     def drive(path, needs, fn):
@@ -399,7 +489,11 @@ def main():
                   f"{timing[mode][0]:.1f} ms/solve incl. KKT check on {card}")
         return timing
 
-    def headline(o, what):
+    def headline(o, what, same_iters=False):
+        """The cold headline solve on the card, certified, and held against
+        the same solve through the plain twins on the CPU: iteration counts
+        within one (equal with ``same_iters``), the solutions within the
+        slice tolerances."""
         t0 = time.perf_counter()
         cro, cho, info, out, kkt = certified(qp, ms, (None, None), o, what)
         t_solve = time.perf_counter() - t0
@@ -414,8 +508,9 @@ def main():
         print(f"{what}, card vs CPU plain path: iter {info['iter']} vs "
               f"{info_c['iter']}, coarse {info['iter_f32']} vs {info_c['iter_f32']}, "
               + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps.items()))
-        if abs(info["iter"] - info_c["iter"]) > 1 \
-                or abs(info["iter_f32"] - info_c["iter_f32"]) > 1 \
+        slack = 0 if same_iters else 1
+        if abs(info["iter"] - info_c["iter"]) > slack \
+                or abs(info["iter_f32"] - info_c["iter_f32"]) > slack \
                 or gaps["x"] > 1e-7 or gaps["u"] > 1e-7 or gaps["lam"] > 1e-6:
             fail(f"{what}: card and CPU solves disagree: {gaps}")
         return cro, cho, info
@@ -439,6 +534,48 @@ def main():
                              "crown_blocks_factor", "system_solve",
                              "chain_blocks_factor"), two_phase)
 
+    # the bench path: bench.py's options, the coarse phase then ms_df64's
+    def bench_path():
+        cro, cho, info = headline(optsb, "bench-path headline solve", same_iters=True)
+        if info["iter_f32"] < 1 or info["iter"] <= info["iter_f32"]:
+            fail(f"bench-path headline solve: phases {info}")
+        return requests(optsb, N_REQUESTS_B, ("cold", "warm"),
+                        (cro["lam"], cho["lam"]), "bench-path")
+    tb = drive("bench", ("newton_iter", "chain_blocks_factor_lanes",
+                         "crown_blocks_factor", "system_solve") + df_kernels, bench_path)
+
+    # factorizations of one cold bench solve, and the handover: the
+    # high-precision phase from the coarse phase's last duals with and
+    # without the coarse phase's last factorization
+    def handover():
+        facs = (ck.chain_blocks_factor, ck.chain_blocks_factor_lanes)
+        count = lambda: sum(k.launches for k in facs)
+        _, _, info = tm.tdunes_ms_solve(ms, None, None, optsb)
+        n_solve = count()
+        z_cr = torch.zeros_like(lam_cr32)
+        lam_cr, lam_ch, it0, ho = tm._ms_newton_loop_mega(
+            ms32, z_cr, torch.zeros_like(lam_ch32), opts_coarse, 0,
+            patience=optsb.f32_patience)
+        n0 = count()
+        cr, ch = md.df_stage_solve(dd, prep, lam_cr.double() * dd["cr"]["nrxm"],
+                                   lam_ch.double())
+        same = tm._pattern_equal((cr["qtilde"], cr["rtilde"], ch["qt"], ch["rt"]), ho[1])
+        out_h = md.ms_newton_loop_df(ms, lam_cr.double(), lam_ch.double(), optsb, it0,
+                                     handover=ho)
+        n1 = count()
+        out_n = md.ms_newton_loop_df(ms, lam_cr.double(), lam_ch.double(), optsb, it0)
+        n2 = count()
+        print(f"bench cold solve: {n_solve} factorizations ({info['iter']} iter, "
+              f"{info['iter_f32']} coarse); the coarse phase {n0 - n_solve}, the "
+              f"high-precision phase {n1 - n0} with the handover vs {n2 - n1} "
+              f"without (patterns equal at the handover: {same}; iterations "
+              f"{out_h[2]} vs {out_n[2]})")
+        if same and n1 - n0 != n2 - n1 - 1:
+            fail("the handover did not save the phase's first factorization")
+        return dict(solve=n_solve, coarse=n0 - n_solve, df_handover=n1 - n0,
+                    df_without=n2 - n1, pattern_equal=same)
+    drive("bench handover", ("chain_blocks_factor_lanes",) + df_kernels, handover)
+
     # ---- 4. more requests
     # two-norm termination: the coarse phase's per-kernel loop
     opts2n = td.TdunesOpts(**{**TWO_PHASE_OPTS, "termination": "twonorm"})
@@ -446,13 +583,14 @@ def main():
                                  "chain_blocks_factor_lanes"),
           lambda: requests(opts2n, N_REQUESTS_2N, ("cold", "warm"), None,
                            "two-phase two-norm"))
-    print("per solve, one-phase vs two-phase (ms incl. KKT check; mean "
-          f"iterations, coarse share) on {card}:")
+    print("per solve, one-phase vs two-phase vs bench path (ms incl. KKT check; "
+          f"mean iterations, coarse share) on {card}:")
     for mode in ("cold", "warm"):
-        (a, ia, _), (b, ib, cb) = t1[mode], t2[mode]
+        (a, ia, _), (b, ib, cb), (c, ic, cc) = t1[mode], t2[mode], tb[mode]
         print(f"  {mode}: {a:.1f} ms ({statistics.mean(ia):.2f} iter) vs "
               f"{b:.1f} ms ({statistics.mean(ib):.2f} iter, "
-              f"{statistics.mean(cb):.2f} coarse)")
+              f"{statistics.mean(cb):.2f} coarse) vs {c:.1f} ms "
+              f"({statistics.mean(ic):.2f} iter, {statistics.mean(cc):.2f} coarse)")
 
     # the 1024-scenario tree (1365-node crown): both coarse loops launch
     qp5_cpu = quadcopter(MD, 5, NH).qp
@@ -460,7 +598,7 @@ def main():
     ms5 = tm.split_multistage(qp5)
 
     def big():
-        for o, what in ((opts2, "infnorm"), (opts2n, "two-norm")):
+        for o, what in ((opts2, "infnorm"), (opts2n, "two-norm"), (optsb, "bench")):
             t0 = time.perf_counter()
             _, _, info5, _, kkt5 = certified(qp5, ms5, (None, None), o,
                                              f"quadcopter({MD},5,{NH}) {what}")
@@ -468,7 +606,7 @@ def main():
                   f"crown {ms5.meta.crown_topo.Nn} nodes, iter {info5['iter']} "
                   f"(coarse {info5['iter_f32']}) kkt {kkt5:.3e} in "
                   f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first solve) on {card}")
-    drive("1024-scenario", ("newton_iter", "crown_eval", "chain_eval"), big)
+    drive("1024-scenario", ("newton_iter", "crown_eval", "chain_eval") + df_kernels, big)
 
     for r in results:
         r["launches"] = sum(p[r["name"]] for p in paths.values())

@@ -3,9 +3,12 @@
 
     python3 scripts/prof_torch_ms.py [--md 4 --nr 4 --nh 20] [--reps 10]
                                      [--f32-phase-tol 1e-4] [--termination twonorm]
+                                     [--df64-phase]
 
 Prints, for quadcopter(md, nr, nh) with the one-phase options of
-chip_smoke.py (or, with --f32-phase-tol > 0, its two-phase options):
+chip_smoke.py (or, with --f32-phase-tol > 0, its two-phase options; with
+--df64-phase the high-precision phase of ``solvers/ms_df64.py``, so that
+``--f32-phase-tol 1e-4 --df64-phase`` are bench.py's options):
 
 * cold and warm solve times (host clock around synchronized solves;
   median of --reps) and their iteration counts;
@@ -13,7 +16,10 @@ chip_smoke.py (or, with --f32-phase-tol > 0, its two-phase options):
   synchronized): stage evaluation, residuals, dual value, factorize (the
   chain and crown kernels with their operand assembly), one system solve,
   one Hessian action; with the two-phase options also the coarse phase's
-  steps: one newton_iter launch in each mode and one f32 factorize;
+  steps: one newton_iter launch in each mode and one f32 factorize; with
+  --df64-phase the high-precision phase's evaluation, residuals, dual value
+  and Hessian action instead of the f64 loop's;
+* the factorizations of one cold solve (factor kernel launches);
 * a torch.profiler trace of one cold solve: the device-busy share
   (summed device kernel time over wall time) and the kernels with the
   most device time.
@@ -53,6 +59,7 @@ def main():
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--f32-phase-tol", type=float, default=0.0)
     ap.add_argument("--termination", default="infnorm")
+    ap.add_argument("--df64-phase", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -62,7 +69,9 @@ def main():
     from treeqp_tpu_torch.core.kkt import max_kkt_residual
     from treeqp_tpu_torch.models import quadcopter
     from treeqp_tpu_torch.solvers import tdunes as td
+    from treeqp_tpu_torch.solvers import ms_df64 as md
     from treeqp_tpu_torch.solvers import tdunes_multistage as tm
+    from treeqp_tpu_torch.ops import chain_kernels as ck
     from treeqp_tpu_torch.ops import iter_kernel as ik
     from chip_smoke import SLICE_OPTS, TWO_PHASE_OPTS
 
@@ -72,7 +81,8 @@ def main():
     dev = torch.device("cuda", 0)
     base = TWO_PHASE_OPTS if args.f32_phase_tol > 0 else SLICE_OPTS
     opts = td.TdunesOpts(**{**base, "termination": args.termination,
-                            "f32_phase_tol": args.f32_phase_tol})
+                            "f32_phase_tol": args.f32_phase_tol,
+                            "df64_phase": args.df64_phase})
     qp = quadcopter(args.md, args.nr, args.nh).qp.to(dev)
     ms = tm.split_multistage(qp)
     meta = ms.meta
@@ -84,7 +94,8 @@ def main():
     kkt = max_kkt_residual(qp, tm.merge_output(ms, cro, cho, info))
     print(f"cold solve: iter {info['iter']} (coarse {info['iter_f32']}) status "
           f"{info['status']} kkt {kkt:.2e}; options f32_phase_tol="
-          f"{opts.f32_phase_tol} termination={opts.termination}")
+          f"{opts.f32_phase_tol} termination={opts.termination} "
+          f"df64_phase={opts.df64_phase}")
     lam_w = (cro["lam"], cho["lam"])
     xmin, xmax = ms.crown.xmin.clone(), ms.crown.xmax.clone()
     xmin[0] *= 1.01
@@ -96,6 +107,12 @@ def main():
     print(f"cold solve {t_cold:.2f} ms ({info['iter']} iter, {info['iter_f32']} "
           f"coarse), warm solve (x0 scaled by 1.01) {t_warm:.2f} ms "
           f"({info_w['iter']} iter, {info_w['iter_f32']} coarse) on {card}")
+    factors = (ck.chain_blocks_factor, ck.chain_blocks_factor_lanes)
+    for k in factors:
+        k.launches = 0
+    tm.tdunes_ms_solve(ms, None, None, opts)
+    print("factorizations in one cold solve: "
+          + ", ".join(f"{k.__name__} {k.launches}" for k in factors))
 
     # one Newton iteration's steps, each timed alone
     prep = td._get_prep(meta.crown_topo)
@@ -138,6 +155,18 @@ def main():
                 data_ch, data_cr, None, state, prep, meta.root_ids, "eval"),
             "coarse factorize (f32)": lambda: tm._ms_factorize(
                 ms32, *sets, opts, prep, ctx32, lanes=True),
+        })
+    if opts.df64_phase:
+        dd = md.make_dd(ms, prep)
+        crd, chd = md.df_stage_solve(dd, prep, lam_cr, lam_ch)
+        d32 = (d_cr.float(), d_ch.float())
+        for k in ("stage eval", "residuals", "dual value", "Hessian action"):
+            del steps[k]
+        steps.update({
+            "df stage eval": lambda: md.df_stage_solve(dd, prep, lam_cr, lam_ch),
+            "df residuals": lambda: md.df_residuals(dd, crd, chd),
+            "df dual value": lambda: float(md.df_dual_value(crd, chd)),
+            "df Hessian action": lambda: md.df_apply_M(dd, prep, crd, chd, *d32),
         })
     for name, fn in steps.items():
         print(f"  step {name}: {timed(torch, fn, args.reps):.3f} ms")

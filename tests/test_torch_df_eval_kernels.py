@@ -1,0 +1,218 @@
+"""PyTorch port, the high-precision phase's kernels: the plain twins of
+chain_eval_df, crown_eval_df, chain_apply_df and crown_apply_df (what their
+wrappers run on CPU tensors), and the phase functions of
+``solvers/ms_df64.py`` built on them, against the JAX package's plain
+double-float reference (``ms_df64.df_stage_solve``, ``df_residuals``,
+``df_dual_value``, ``df_apply_M``: what the JAX tests pin its Pallas
+kernels to), on the same inputs at dual points on the solver's path."""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from treeqp_tpu.ops import df64 as jdf
+from treeqp_tpu.ops import df_eval_kernels as jdek
+from treeqp_tpu.solvers import ms_df64 as jmd
+from treeqp_tpu.solvers import tdunes as jtd
+from treeqp_tpu.solvers import tdunes_multistage as jtm
+
+from test_torch_chain_kernels import CASES, POINTS
+from treeqp_tpu_torch import convert
+from treeqp_tpu_torch.ops import crown_kernels as ckr
+from treeqp_tpu_torch.ops import df_eval_kernels as dek
+from treeqp_tpu_torch.solvers import ms_df64 as md
+from treeqp_tpu_torch.solvers import tdunes as td
+from treeqp_tpu_torch.solvers import tdunes_multistage as tm
+
+torch.set_num_threads(1)
+
+# bench.py's options (bench_opts(on_tpu=True))
+BENCH = dict(stage_solver="clipping", tol=1e-8, max_iter=120, factor_dtype="float32",
+             refine_steps=2, refine_safeguard=False, chain_backend="pallas",
+             reg_type="always", reg_value=1e-6, f32_phase_tol=1e-4, f32_patience=3,
+             df64_phase=True)
+# native f64 against double-float (~48 bits): x, u, res and M d to
+# RTOL * max(1, max|ref|), the dual value to RTOL relative
+RTOL = 1e-12
+# an active-set bit is compared exactly only where no clipping input sits
+# this close to its bound (relative to max(1, |bound|)), unless both sides
+# computed it identically
+MARGIN = 1e-9
+f32, f64 = torch.float32, torch.float64
+
+
+def df_round(v):
+    """v rounded to the double-float values the JAX side carries."""
+    return torch.tensor(np.array(jdf.to_f64(jdf.from_f64(jnp.asarray(v.numpy())))))
+
+
+@functools.lru_cache(maxsize=None)
+def path_case(name, point):
+    """Both sides' phase data at the dual point w * (the bench-option
+    solution of the port), and an f32 direction: that solution's duals
+    scaled to a largest entry of 1."""
+    qp_j = CASES[name]()
+    ms = tm.split_multistage(convert.qp_from_numpy(convert.qp_arrays(qp_j),
+                                                   convert.topo_from(qp_j.topo)))
+    cro, cho, info = tm.tdunes_ms_solve(ms, None, None, td.TdunesOpts(**BENCH))
+    assert info["status"] == 0 and info["iter_f32"] >= 1
+    prep = td._get_prep(ms.meta.crown_topo)
+    dd = md.make_dd(ms, prep)
+    nrxm = dd["cr"]["nrxm"]
+    w = POINTS[point]
+    lam_cr = df_round(w * cro["lam"]) * nrxm
+    lam_ch = df_round(w * cho["lam"])
+    ms_j = jtm.split_multistage(qp_j)
+    jprep = jtd._get_prep(ms_j.meta.crown_topo)
+    jdd, jmeta = jmd.make_dd(ms_j, jtd.TdunesOpts(**BENCH), jprep)
+    jlam_cr = jmd._mask(jdf.from_f64(jnp.asarray(lam_cr.numpy())), jdd["nrxm"])
+    jlam_ch = jdf.from_f64(jnp.asarray(lam_ch.numpy()))
+    jcr, jch = jmd.df_stage_solve(jdd, jmeta, jprep, jlam_cr, jlam_ch)
+    scale = 1.0 / max(float(cro["lam"].abs().max()), float(cho["lam"].abs().max()))
+    return dict(ms=ms, prep=prep, dd=dd, lam_cr=lam_cr, lam_ch=lam_ch,
+                dcr=(scale * cro["lam"] * nrxm).to(f32), dch=(scale * cho["lam"]).to(f32),
+                jprep=jprep, jdd=jdd, jmeta=jmeta, jlam_cr=jlam_cr, jlam_ch=jlam_ch,
+                jcr=jcr, jch=jch)
+
+
+def j64(v):
+    """A double-float value of the JAX side as one f64 array."""
+    return np.asarray(jdf.to_f64(v))
+
+
+def assert_close(got, ref, what):
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape, what
+    assert np.isfinite(got).all() and np.isfinite(ref).all(), what
+    bound = RTOL * max(1.0, float(np.max(np.abs(ref))))
+    assert float(np.max(np.abs(got - ref))) <= bound, what
+
+
+def assert_sets(vU, vU_ref, lo, hi, mask, sets, sets_ref, what):
+    """The active sets (Qinv or 0) agree in pattern and value, after
+    asserting that no real clipping input lies within MARGIN of a bound
+    unless both sides computed it identically (the pinned initial state
+    gives exact ties)."""
+    vU_ref = torch.tensor(np.array(vU_ref))
+    for b in (lo, hi):
+        gap = (vU - b).abs()
+        near = (gap < MARGIN * b.abs().clamp(min=1.0)) & (mask > 0) & (vU != vU_ref)
+        assert not near.any(), f"{what}: {int(near.sum())} inputs on a bound"
+    np.testing.assert_array_equal(sets.numpy() != 0, np.asarray(sets_ref) != 0, what)
+    assert_close(sets, sets_ref, what)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("point", sorted(POINTS))
+def test_chain_eval_df_matches_jax(name, point):
+    c = path_case(name, point)
+    d, jch = c["dd"]["ch"], c["jch"]
+    ch = dek.chain_eval_df_ref(d, c["lam_ch"])
+    ones = torch.ones_like
+    assert_sets(ch["xUnc"], j64(jch["xUnc"]), d["xmin"], d["xmax"], ones(d["xmin"]),
+                ch["qt"], j64(jch["qt"]), "qt")
+    assert_sets(ch["uUnc"], j64(jch["uUnc"]), d["umin"], d["umax"], ones(d["umin"]),
+                ch["rt"], j64(jch["rt"]), "rt")
+    for k in ("x", "u", "xUnc", "uUnc"):
+        assert_close(ch[k], j64(jch[k]), k)
+    jcqr = jmd._contract(c["jdd"]["ABp"][:, 0], c["jlam_ch"][:, 0], axis=1)
+    assert_close(ch["cqr"], j64(jcqr), "cqr")
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("point", sorted(POINTS))
+def test_crown_eval_df_and_residuals_match_jax(name, point):
+    """crown_eval_df after chain_eval_df (the roots' contributions at their
+    crown nodes), the residuals with the chain row 0 completed, and the
+    dual value from the kernels' partials through df_reduce_flat."""
+    c = path_case(name, point)
+    d, jcr = c["dd"]["cr"], c["jcr"]
+    cr, ch = md.df_stage_solve(c["dd"], c["prep"], c["lam_cr"], c["lam_ch"])
+    assert_sets(cr["xUnc"], j64(jcr["xUnc"]), d["xmin"], d["xmax"], d["xm"],
+                cr["qtilde"], j64(jcr["qtilde"]), "qtilde")
+    assert_sets(cr["uUnc"], j64(jcr["uUnc"]), d["umin"], d["umax"], d["um"],
+                cr["rtilde"], j64(jcr["rtilde"]), "rtilde")
+    for k in ("x", "u", "xUnc", "uUnc"):
+        assert_close(cr[k], j64(jcr[k]), k)
+    res_cr, res_ch = md.df_residuals(c["dd"], cr, ch)
+    jres_cr, jres_ch = jmd.df_residuals(c["jdd"], c["jmeta"], c["jprep"], jcr, c["jch"])
+    assert_close(res_cr, j64(jres_cr), "res_cr")
+    assert_close(res_ch, j64(jres_ch), "res_ch")
+    f = float(md.df_dual_value(cr, ch))
+    jf = float(j64(jmd.df_dual_value(c["jdd"], c["jlam_cr"], c["jlam_ch"], jcr, c["jch"])))
+    assert abs(f - jf) <= RTOL * abs(jf), (f, jf)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("point", sorted(POINTS))
+def test_apply_df_matches_jax(name, point):
+    """M d from chain_apply_df + crown_apply_df (the chains' root
+    contributions of d at their crown nodes, row 0 completed) against the
+    JAX df_apply_M, for the same f32 direction."""
+    c = path_case(name, point)
+    cr, ch = md.df_stage_solve(c["dd"], c["prep"], c["lam_cr"], c["lam_ch"])
+    mcr, mch = md.df_apply_M(c["dd"], c["prep"], cr, ch, c["dcr"], c["dch"])
+    jmcr, jmch = jmd.df_apply_M(c["jdd"], c["jmeta"], c["jprep"], c["jcr"], c["jch"],
+                                jnp.asarray(c["dcr"].numpy()),
+                                jnp.asarray(c["dch"].numpy()))
+    assert float(np.max(np.abs(j64(jmcr)))) > 1e-3  # a direction that moves things
+    assert_close(mcr, j64(jmcr), "M d crown")
+    assert_close(mch, j64(jmch), "M d chains")
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_index_lists_match_one_hot_schedule(name):
+    """The kid lists and parents the crown kernels read against the JAX df
+    kernels' one-hot parent matrix P_par and per-slot kid matrices P_kid:
+    the same parent, and the same kid in each slot."""
+    c = path_case(name, "zero")
+    t = ckr.eval_sched(c["prep"], "cpu")
+    NPc, K, P_par, P_kid = jdek._get_df_sched(c["jprep"])
+    par, ptr, idx = (t[k].numpy() for k in ("par", "kid_ptr", "kid_idx"))
+    Nn = len(par)
+    assert par[0] == 0 and all(P_par[par[n], n] == 1.0 for n in range(1, Nn))
+    assert int(P_par.sum()) == Nn - 1
+    for n in range(Nn):
+        kids = idx[ptr[n]:ptr[n + 1]]
+        assert len(kids) <= K
+        for k in range(K):
+            col = np.nonzero(P_kid[k, :, n])[0]
+            np.testing.assert_array_equal(col, kids[k:k + 1], f"node {n} slot {k}")
+    assert int(P_kid.sum()) == len(idx) == Nn - 1
+
+
+def test_cpu_wrappers_run_plain_twins():
+    c = path_case("quadcopter", "half")
+    dd, prep = c["dd"], c["prep"]
+    ch = dek.chain_eval_df(dd["ch"], c["lam_ch"])
+    for k, v in dek.chain_eval_df_ref(dd["ch"], c["lam_ch"]).items():
+        assert v.dtype == f64 and torch.equal(ch[k], v), k
+    extra = torch.zeros_like(dd["cr"]["ABt"][:, 0])
+    extra[dd["rid"]] = ch["cqr"]
+    cr = dek.crown_eval_df(dd["cr"], c["lam_cr"], extra, prep)
+    for k, v in dek.crown_eval_df_ref(dd["cr"], c["lam_cr"], extra, prep).items():
+        assert v.dtype == f64 and torch.equal(cr[k], v), k
+    cha = dek.chain_apply_df(dd["ch"], ch["qt"], ch["rt"], c["dch"])
+    for k, v in dek.chain_apply_df_ref(dd["ch"], ch["qt"], ch["rt"], c["dch"]).items():
+        assert v.dtype == f64 and torch.equal(cha[k], v), k
+    cargs = (dd["cr"], cr["qtilde"], cr["rtilde"], c["dcr"], extra, prep)
+    cra = dek.crown_apply_df(*cargs)
+    for k, v in dek.crown_apply_df_ref(*cargs).items():
+        assert v.dtype == f64 and torch.equal(cra[k], v), k
+    assert (dek.chain_eval_df.launches, dek.crown_eval_df.launches,
+            dek.chain_apply_df.launches, dek.crown_apply_df.launches) == (0, 0, 0, 0)
+    meta = lambda d: {k: v.to("meta") for k, v in d.items()}
+    with pytest.raises(ValueError, match="expected"):
+        dek.chain_eval_df(meta(dd["ch"]), c["lam_ch"].to("meta"))
+    with pytest.raises(ValueError, match="expected"):
+        dek.crown_eval_df(meta(dd["cr"]), c["lam_cr"].to("meta"), extra.to("meta"), prep)
+    with pytest.raises(ValueError, match="expected"):
+        dek.chain_apply_df(meta(dd["ch"]), ch["qt"].to("meta"), ch["rt"].to("meta"),
+                           c["dch"].to("meta"))
+    with pytest.raises(ValueError, match="expected"):
+        dek.crown_apply_df(meta(dd["cr"]), cr["qtilde"].to("meta"),
+                           cr["rtilde"].to("meta"), c["dcr"].to("meta"),
+                           extra.to("meta"), prep)

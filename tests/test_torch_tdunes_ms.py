@@ -173,7 +173,7 @@ def test_armijo_batch_takes_the_first_accepted_step(accept_at, dtype):
 
 
 @pytest.mark.parametrize("override", [
-    dict(df64_phase=True), dict(axis_name="scen"), dict(chain_backend="xla"),
+    dict(axis_name="scen"), dict(chain_backend="xla"),
     dict(factor_dtype="same"), dict(reg_type="on_the_fly"),
     pytest.param(dict(stage_solver="qpgen"), id="stage_solver"),
     pytest.param(dict(stage_solver="dense"), id="stage_solver_dense"),

@@ -1,11 +1,12 @@
-// Chain stage evaluation at a dual point, one thread per chain.
+// Chain stage evaluation at a dual point, f32, one thread per chain.
 //
 // Replaces the Pallas kernel chain_eval of treeqp_tpu/ops/chain_kernels.py:
 // the clipping stage solve of every chain node, the active-set masked
 // inverses, the chain-edge dual residual rows (row j = 0 without the
 // A_0 z_crown term), the crown-root contributions cqr = [A_0 B_0]' lam_0 and
-// the per-chain dual-value partial sums, in one launch. The body is
-// tq::chain_eval_one (tq_eval.cuh), which newton_iter.cu runs too.
+// the per-chain dual-value partial sums, in one launch. The kernel is
+// tq::chain_eval_kernel<float> (tq_eval.cuh), whose body newton_iter.cu runs
+// too and whose double instance is chain_eval_df.cu.
 //
 // What bounds it on the card: latency and occupancy. Each thread walks its
 // chain's L nodes serially (~L (4 nx nz + 10 nz) flops, ~3k at the
@@ -16,29 +17,8 @@
 
 #include "tq_eval.cuh"
 
-namespace {
-
-__global__ void chain_eval_kernel(tq::ChainData d, const float* __restrict__ lam,
-                                  tq::EvalOut o, float* __restrict__ cqr) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= d.S) return;
-  const int nz = d.nx + d.nu;
-  tq::chain_eval_one(d, lam, o, cqr + (size_t)s * nz, s);
-}
-
-constexpr int kThreads = 128;
-
-}  // namespace
-
 // p: CHAIN_DATA_KEYS (12), lam, then x, u, qt, rt, xU, uU, res, f, err, cqr.
 extern "C" int tq_chain_eval(const void* const* p, int S, int L, int nx, int nu,
                              void* stream) {
-  tq::PtrCursor c{p};
-  const tq::ChainData d = tq::chain_data(c, S, L, nx, nu);
-  const float* lam = c.in();
-  const tq::EvalOut o = tq::eval_out(c);
-  float* cqr = c.out();
-  chain_eval_kernel<<<(S + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      d, lam, o, cqr);
-  return (int)cudaGetLastError();
+  return tq::launch_chain_eval<float>(p, S, L, nx, nu, stream);
 }

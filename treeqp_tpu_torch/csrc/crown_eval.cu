@@ -1,4 +1,5 @@
-// Crown stage evaluation at a dual point, in one launch of one thread block.
+// Crown stage evaluation at a dual point, f32, in one launch of one thread
+// block.
 //
 // Replaces the Pallas kernel crown_eval of treeqp_tpu/ops/crown_kernels.py:
 // modified gradients with the chain-root contributions injected, the
@@ -8,8 +9,9 @@
 // one-hot [NPc, NPc] parent matrix (which capped the crown at 2048 nodes of
 // VMEM); here they are indexed reads over the kid lists and par. Three
 // phases depend on each other across nodes, so threads stride over the
-// nodes with a barrier between them (bodies in tq_eval.cuh, shared with
-// newton_iter.cu):
+// nodes with a barrier between them (tq::crown_eval_kernel<float> in
+// tq_eval.cuh; its bodies run in newton_iter.cu too, its double instance is
+// crown_eval_df.cu):
 //   A. atb_n = [A_n B_n]' lam_n                   (scratch [Nn, nz])
 //   B. kid sum of atb + extra, clip, qt/rt, f_n    (needs A of the kids)
 //   C. res_n = [A_n B_n] z_par(n) + b_n - x_n      (needs B of the parent)
@@ -20,30 +22,9 @@
 
 #include "tq_eval.cuh"
 
-namespace {
-
-__global__ void __launch_bounds__(1024) crown_eval_kernel(
-    tq::CrownData d, const float* __restrict__ lam, const float* __restrict__ extra,
-    float* __restrict__ atb, tq::EvalOut o) {
-  for (int n = threadIdx.x; n < d.Nn; n += blockDim.x) tq::crown_atb(d, lam, atb, n);
-  __syncthreads();
-  for (int n = threadIdx.x; n < d.Nn; n += blockDim.x) tq::crown_clip(d, lam, atb, extra, o, n);
-  __syncthreads();
-  for (int n = threadIdx.x; n < d.Nn; n += blockDim.x) tq::crown_res(d, o, n);
-}
-
-}  // namespace
-
 // p: CROWN_DATA_KEYS (15), par, kid_ptr, kid_idx, lam, extra, atb (scratch),
 // then x, u, qt, rt, xU, uU, res, f, err.
 extern "C" int tq_crown_eval(const void* const* p, int Nn, int nx, int nu,
                              int threads, void* stream) {
-  tq::PtrCursor c{p};
-  const tq::CrownData d = tq::crown_data(c, Nn, nx, nu);
-  const float* lam = c.in();
-  const float* extra = c.in();
-  float* atb = c.out();
-  const tq::EvalOut o = tq::eval_out(c);
-  crown_eval_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(d, lam, extra, atb, o);
-  return (int)cudaGetLastError();
+  return tq::launch_crown_eval<float>(p, Nn, nx, nu, threads, stream);
 }

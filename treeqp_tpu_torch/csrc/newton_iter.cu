@@ -36,14 +36,14 @@
 namespace {
 
 struct IterArgs {
-  tq::ChainData ch;
-  tq::CrownData cr;
+  tq::ChainData<float> ch;
+  tq::CrownData<float> cr;
   const float *Ls, *CUs, *CholW, *CholUt, *s_node, *sc;
   const int *lev_ptr, *lev_child, *lev_parent, *lev_slot, *g_of, *slot, *rid,
       *kidsP, *gon, *son;
   const float *lam_cr, *lam_ch, *res_cr, *res_ch;
   float *dcr, *dch, *lam2_cr, *lam2_ch;
-  tq::EvalOut cho, cro;
+  tq::EvalOut<float> cho, cro;
   float *dots, *dotc;
   float *rv, *ycr, *dg, *rch_s, *dch_s, *extra, *atb;
   int NpG, K, n_lev, eval_only;
@@ -52,8 +52,8 @@ struct IterArgs {
 __global__ void __launch_bounds__(1024) newton_iter_kernel(const IterArgs a) {
   using tq::add;
   using tq::mul;
-  const tq::ChainData& ch = a.ch;
-  const tq::CrownData& cr = a.cr;
+  const tq::ChainData<float>& ch = a.ch;
+  const tq::CrownData<float>& cr = a.cr;
   const int S = ch.S, L = ch.L, n = ch.nx, nu = ch.nu, nz = n + nu;
   const int Nn = cr.Nn, K = a.K, G = K * n;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -156,8 +156,8 @@ extern "C" int tq_newton_iter(const void* const* p, const int* dims, void* strea
   const int S = dims[0], L = dims[1], nx = dims[2], nu = dims[3], Nn = dims[4];
   tq::PtrCursor c{p};
   IterArgs a;
-  a.ch = tq::chain_data(c, S, L, nx, nu);
-  a.cr = tq::crown_data(c, Nn, nx, nu);
+  a.ch = tq::chain_data<float>(c, S, L, nx, nu);
+  a.cr = tq::crown_data<float>(c, Nn, nx, nu);
   a.Ls = c.in(); a.CUs = c.in(); a.CholW = c.in(); a.CholUt = c.in();
   a.s_node = c.in(); a.sc = c.in();
   a.lev_ptr = c.idx(); a.lev_child = c.idx(); a.lev_parent = c.idx();
@@ -165,8 +165,8 @@ extern "C" int tq_newton_iter(const void* const* p, const int* dims, void* strea
   a.kidsP = c.idx(); a.gon = c.idx(); a.son = c.idx();
   a.lam_cr = c.in(); a.lam_ch = c.in(); a.res_cr = c.in(); a.res_ch = c.in();
   a.dcr = c.out(); a.dch = c.out(); a.lam2_cr = c.out(); a.lam2_ch = c.out();
-  a.cho = tq::eval_out(c);
-  a.cro = tq::eval_out(c);
+  a.cho = tq::eval_out<float>(c);
+  a.cro = tq::eval_out<float>(c);
   a.dots = c.out(); a.dotc = c.out();
   a.rv = c.out(); a.ycr = c.out(); a.dg = c.out(); a.rch_s = c.out();
   a.dch_s = c.out(); a.extra = c.out(); a.atb = c.out();

@@ -35,6 +35,7 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_long
 # C signatures: every pointer and the stream as c_void_p, or ctypes would
 # pass them as 32-bit ints and cut them
 _SIGNATURES = {
@@ -56,6 +57,17 @@ _SIGNATURES = {
     # lev_slot, g_of, slot, rv, ycr, dg, dch, S, L, n, NpG, K, n_lev,
     # threads, stream
     "tq_system_solve": [_P] * 16 + [_I] * 7 + [_P],
+    # the f64 kernels of the high-precision phase
+    # pointers, S, L, nx, nu, stream
+    "tq_chain_eval_df": [_P] + [_I] * 4 + [_P],
+    # pointers, Nn, nx, nu, threads, stream
+    "tq_crown_eval_df": [_P] + [_I] * 4 + [_P],
+    # ABt, qt, rt, d, xl, ul, res, cqr, S, L, nx, nu, stream
+    "tq_chain_apply_df": [_P] * 8 + [_I] * 4 + [_P],
+    # pointers, Nn, nx, nu, threads, stream
+    "tq_crown_apply_df": [_P] + [_I] * 4 + [_P],
+    # x, n, m, buf, out, stream
+    "tq_df_reduce": [_P, _L, _L, _P, _P, _P],
 }
 
 _LIB = None
@@ -136,15 +148,15 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def require(name: str, arg: str, t, shape, device):
-    """Raise unless ``t`` is a contiguous f32 tensor of ``shape`` on the
-    CUDA ``device`` — what the kernels take."""
+def require(name: str, arg: str, t, shape, device, dtype=torch.float32):
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``
+    on the CUDA ``device`` — what the kernels take."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: {arg} must be a tensor")
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: {arg} has dtype {t.dtype}, expected float32")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: {arg} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")

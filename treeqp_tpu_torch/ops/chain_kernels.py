@@ -137,16 +137,17 @@ def chain_blocks_factor_lanes(ABt, qt, rt, ztp_root, s_root):
 chain_blocks_factor_lanes.launches = 0
 
 
-def chain_eval_data(A, B, q, r, Qd, Rd, xmin, xmax, umin, umax, b):
-    """Loop-invariant f32 operands of ``chain_eval`` (and of the chain half
-    of ``iter_kernel.newton_iter``), from the [S, L, ...] chain tensors of
-    a ``MultistageQP``. The inverses are taken in the input dtype, then
+def chain_eval_data(A, B, q, r, Qd, Rd, xmin, xmax, umin, umax, b,
+                    dtype=torch.float32):
+    """Loop-invariant operands of ``chain_eval`` (and of the chain half of
+    ``iter_kernel.newton_iter``; with ``dtype=torch.float64``, of
+    ``df_eval_kernels.chain_eval_df``), from the [S, L, ...] chain tensors
+    of a ``MultistageQP``. The inverses are taken in the input dtype, then
     cast, as the JAX package does."""
-    f32 = lambda v: v.to(torch.float32).contiguous()
-    return dict(ABt=f32(torch.cat([A, B], dim=3)), q=f32(q), r=f32(r),
-                Qd=f32(Qd), Rd=f32(Rd), Qinv=f32(1.0 / Qd), Rinv=f32(1.0 / Rd),
-                xmin=f32(xmin), xmax=f32(xmax), umin=f32(umin), umax=f32(umax),
-                b=f32(b))
+    c = lambda v: v.to(dtype).contiguous()
+    return dict(ABt=c(torch.cat([A, B], dim=3)), q=c(q), r=c(r), Qd=c(Qd),
+                Rd=c(Rd), Qinv=c(1.0 / Qd), Rinv=c(1.0 / Rd), xmin=c(xmin),
+                xmax=c(xmax), umin=c(umin), umax=c(umax), b=c(b))
 
 
 def chain_data_shapes(S, L, nx, nu) -> dict:
@@ -160,7 +161,7 @@ def chain_eval_ref(data, lam):
     """Plain PyTorch twin of the kernel (see ``chain_eval``)."""
     AB = data["ABt"]
     nx = AB.shape[2]
-    lam = lam.to(torch.float32)
+    lam = lam.to(AB.dtype)
     up = _dense.mv(AB[:, 1:], lam[:, 1:], trans=True)      # A_{j+1}' lam_{j+1}
     qmod = -data["q"] + lam
     qmod = torch.cat([qmod[:, :-1] - up[..., :nx], qmod[:, -1:]], dim=1)
@@ -200,30 +201,38 @@ def chain_eval(data, lam):
     """
     if lam.device.type == "cpu":
         return chain_eval_ref(data, lam)
-    name = "chain_eval"
-    S, L, nx, nz = data["ABt"].shape
-    nu = nz - nx
-    dev = lam.device
-    lam = lam.to(torch.float32).contiguous()
-    _build.require(name, "lam", lam, (S, L, nx), dev)
-    for k, shape in chain_data_shapes(S, L, nx, nu).items():
-        _build.require(name, k, data[k], shape, dev)
-    if not (0 < nx <= 16 and nu > 0 and S > 0 and L > 0):
-        raise ValueError(f"{name}: unsupported shape {tuple(data['ABt'].shape)}")
-    f32 = dict(dtype=torch.float32, device=dev)
-    out = dict(x=torch.empty((S, L, nx), **f32), u=torch.empty((S, L, nu), **f32),
-               qt=torch.empty((S, L, nx), **f32), rt=torch.empty((S, L, nu), **f32),
-               xUnc=torch.empty((S, L, nx), **f32), uUnc=torch.empty((S, L, nu), **f32),
-               res_part=torch.empty((S, L, nx), **f32), fch=torch.empty((S,), **f32),
-               cqr=torch.empty((S, nz), **f32))
-    ptrs = _build.ptr_array(
-        [data[k] for k in CHAIN_DATA_KEYS] + [lam]
-        + [out[k] for k in ("x", "u", "qt", "rt", "xUnc", "uUnc", "res_part", "fch")]
-        + [None, out["cqr"]])
-    err = _build.lib().tq_chain_eval(ptrs, S, L, nx, nu, _build.stream(dev))
-    _build.check(err, name)
+    out = eval_launch("chain_eval", "tq_chain_eval", data, lam, torch.float32)
     chain_eval.launches += 1
     return out
 
 
 chain_eval.launches = 0
+
+
+def eval_launch(name, entry, data, lam, dtype):
+    """Check the operands of a chain evaluation kernel of ``dtype`` (f32
+    ``chain_eval`` or f64 ``chain_eval_df``) and launch it; returns its
+    outputs (see ``chain_eval``)."""
+    S, L, nx, nz = data["ABt"].shape
+    nu = nz - nx
+    dev = lam.device
+    lam = lam.to(dtype).contiguous()
+    _build.require(name, "lam", lam, (S, L, nx), dev, dtype)
+    for k, shape in chain_data_shapes(S, L, nx, nu).items():
+        _build.require(name, k, data[k], shape, dev, dtype)
+    if not (0 < nx <= 16 and nu > 0 and S > 0 and L > 0):
+        raise ValueError(f"{name}: unsupported shape {tuple(data['ABt'].shape)}")
+    kw = dict(dtype=dtype, device=dev)
+    out = dict(x=torch.empty((S, L, nx), **kw), u=torch.empty((S, L, nu), **kw),
+               qt=torch.empty((S, L, nx), **kw), rt=torch.empty((S, L, nu), **kw),
+               xUnc=torch.empty((S, L, nx), **kw), uUnc=torch.empty((S, L, nu), **kw),
+               res_part=torch.empty((S, L, nx), **kw), fch=torch.empty((S,), **kw),
+               cqr=torch.empty((S, nz), **kw))
+    ptrs = _build.ptr_array(
+        [data[k] for k in CHAIN_DATA_KEYS] + [lam]
+        + [out[k] for k in ("x", "u", "qt", "rt", "xUnc", "uUnc", "res_part", "fch")]
+        + [None, out["cqr"]])
+    err = getattr(_build.lib(), entry)(ptrs, S, L, nx, nu, _build.stream(dev))
+    _build.check(err, name)
+    return out
+

@@ -214,15 +214,16 @@ def eval_sched(prep, device) -> dict:
     return hit
 
 
-def crown_eval_data(qp, prep, xm, um, nrxm):
-    """Loop-invariant f32 operands of ``crown_eval`` (and of the crown half
-    of ``iter_kernel.newton_iter``), node-major, from the crown TreeQPIn and
-    its (x, u, nonroot-x) masks. Padding rows get identity weights."""
-    f32 = torch.float32
-    c = lambda v: v.to(f32).contiguous()
-    xmf, umf = xm.to(f32), um.to(f32)
-    Qd = torch.diagonal(qp.Q, dim1=1, dim2=2).to(f32) * xmf + (1.0 - xmf)
-    Rd = torch.diagonal(qp.R, dim1=1, dim2=2).to(f32) * umf + (1.0 - umf)
+def crown_eval_data(qp, prep, xm, um, nrxm, dtype=torch.float32):
+    """Loop-invariant operands of ``crown_eval`` (and of the crown half of
+    ``iter_kernel.newton_iter``; with ``dtype=torch.float64``, of
+    ``df_eval_kernels.crown_eval_df``), node-major, from the crown
+    TreeQPIn and its (x, u, nonroot-x) masks. Padding rows get identity
+    weights."""
+    c = lambda v: v.to(dtype).contiguous()
+    xmf, umf = xm.to(dtype), um.to(dtype)
+    Qd = torch.diagonal(qp.Q, dim1=1, dim2=2).to(dtype) * xmf + (1.0 - xmf)
+    Rd = torch.diagonal(qp.R, dim1=1, dim2=2).to(dtype) * umf + (1.0 - umf)
     return dict(ABt=c(torch.cat([qp.A, qp.B], dim=2)), q=c(qp.q), r=c(qp.r),
                 b=c(qp.b), Qd=c(Qd), Rd=c(Rd), Qinv=c(1.0 / Qd), Rinv=c(1.0 / Rd),
                 xmin=c(qp.xmin), xmax=c(qp.xmax), umin=c(qp.umin),
@@ -240,7 +241,7 @@ def crown_eval_ref(data, lam, extra, prep):
     """Plain PyTorch twin of the kernel (see ``crown_eval``)."""
     AB = data["ABt"]
     nx = AB.shape[1]
-    lam = lam.to(torch.float32)
+    lam = lam.to(AB.dtype)
     sum_AB = _kid_sum(_dense.mv(AB, lam, trans=True), prep) + extra
     qmod = (-data["q"] + lam - sum_AB[:, :nx]) * data["xm"]
     rmod = (-data["r"] - sum_AB[:, nx:]) * data["um"]
@@ -272,35 +273,56 @@ def crown_eval(data, lam, extra, prep):
     """
     if lam.device.type == "cpu":
         return crown_eval_ref(data, lam, extra, prep)
-    name = "crown_eval"
-    Nn, nx, nz = data["ABt"].shape
-    nu = nz - nx
-    dev = lam.device
-    lam = lam.to(torch.float32).contiguous()
-    extra = extra.to(torch.float32).contiguous()
-    _build.require(name, "lam", lam, (Nn, nx), dev)
-    _build.require(name, "extra", extra, (Nn, nz), dev)
-    for k, shape in crown_data_shapes(Nn, nx, nu).items():
-        _build.require(name, k, data[k], shape, dev)
-    if not (0 < nx <= 16 and nu > 0 and Nn == len(prep.par)):
-        raise ValueError(f"{name}: unsupported shape {tuple(data['ABt'].shape)}")
-    f32 = dict(dtype=torch.float32, device=dev)
-    out = dict(x=torch.empty((Nn, nx), **f32), u=torch.empty((Nn, nu), **f32),
-               qtilde=torch.empty((Nn, nx), **f32), rtilde=torch.empty((Nn, nu), **f32),
-               xUnc=torch.empty((Nn, nx), **f32), uUnc=torch.empty((Nn, nu), **f32),
-               res=torch.empty((Nn, nx), **f32), fcr=torch.empty((Nn,), **f32))
-    t = eval_sched(prep, dev)
-    atb = torch.empty((Nn, nz), **f32)
-    ptrs = _build.ptr_array(
-        [data[k] for k in CROWN_DATA_KEYS]
-        + [t["par"], t["kid_ptr"], t["kid_idx"], lam, extra, atb]
-        + [out[k] for k in ("x", "u", "qtilde", "rtilde", "xUnc", "uUnc", "res", "fcr")]
-        + [None])
-    threads = min(1024, max(32, -(-Nn // 32) * 32))
-    err = _build.lib().tq_crown_eval(ptrs, Nn, nx, nu, threads, _build.stream(dev))
-    _build.check(err, name)
+    out = eval_launch("crown_eval", "tq_crown_eval", data, lam, extra, prep,
+                      torch.float32)
     crown_eval.launches += 1
     return out
 
 
 crown_eval.launches = 0
+
+
+def eval_launch(name, entry, data, lam, extra, prep, dtype):
+    """Check the operands of a crown evaluation kernel of ``dtype`` (f32
+    ``crown_eval`` or f64 ``crown_eval_df``) and launch it; returns its
+    outputs (see ``crown_eval``)."""
+    Nn, nx, nz = data["ABt"].shape
+    nu = nz - nx
+    dev = lam.device
+    lam = lam.to(dtype).contiguous()
+    extra = extra.to(dtype).contiguous()
+    _build.require(name, "lam", lam, (Nn, nx), dev, dtype)
+    _build.require(name, "extra", extra, (Nn, nz), dev, dtype)
+    check_data(name, data, prep, dev, dtype)
+    kw = dict(dtype=dtype, device=dev)
+    out = dict(x=torch.empty((Nn, nx), **kw), u=torch.empty((Nn, nu), **kw),
+               qtilde=torch.empty((Nn, nx), **kw), rtilde=torch.empty((Nn, nu), **kw),
+               xUnc=torch.empty((Nn, nx), **kw), uUnc=torch.empty((Nn, nu), **kw),
+               res=torch.empty((Nn, nx), **kw), fcr=torch.empty((Nn,), **kw))
+    t = eval_sched(prep, dev)
+    atb = torch.empty((Nn, nz), **kw)
+    ptrs = _build.ptr_array(
+        [data[k] for k in CROWN_DATA_KEYS]
+        + [t["par"], t["kid_ptr"], t["kid_idx"], lam, extra, atb]
+        + [out[k] for k in ("x", "u", "qtilde", "rtilde", "xUnc", "uUnc", "res", "fcr")]
+        + [None])
+    err = getattr(_build.lib(), entry)(ptrs, Nn, nx, nu, block_threads(Nn),
+                                       _build.stream(dev))
+    _build.check(err, name)
+    return out
+
+
+def check_data(name, data, prep, dev, dtype):
+    """Raise unless ``data`` holds ``crown_eval_data``'s fields of
+    ``dtype`` on ``dev`` for the crown of ``prep``."""
+    Nn, nx, nz = data["ABt"].shape
+    for k, shape in crown_data_shapes(Nn, nx, nz - nx).items():
+        _build.require(name, k, data[k], shape, dev, dtype)
+    if not (0 < nx <= 16 and nz > nx and Nn == len(prep.par)):
+        raise ValueError(f"{name}: unsupported shape {tuple(data['ABt'].shape)}")
+
+
+def block_threads(Nn: int) -> int:
+    """Threads of the one-block crown kernels: one per node up to 1024."""
+    return min(1024, max(32, -(-Nn // 32) * 32))
+

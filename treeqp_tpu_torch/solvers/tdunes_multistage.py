@@ -22,15 +22,18 @@ everything in f32: with inf-norm termination one launch of
 per-kernel loop on ``ops.chain_kernels.chain_eval`` and
 ``ops.crown_kernels.crown_eval``. Both refactorize with
 ``chain_blocks_factor_lanes`` and ``crown_blocks_factor`` when the active
-set changes, and search with the batched Armijo rule. The f64 phase then
-finishes from the coarse duals.
+set changes, and search with the batched Armijo rule. The high-precision
+phase then finishes from the coarse duals: with ``df64_phase`` the loop of
+``solvers.ms_df64`` (its evaluations, Hessian action and dual values in
+native f64 kernels; it reuses the coarse phase's last factorization when
+the active-set pattern is unchanged), otherwise the f64 loop above.
 
 The JAX version is one jitted ``while_loop``; here the loop is Python
 control flow, so each termination test, Armijo acceptance and
 factorization-reuse comparison reads a scalar back to the host.
 
-Ported: the one- and two-phase solves (``df64_phase`` False: f64 data, f32
-factors) on one device, with the fused kernels (``chain_backend ==
+Ported: the one- and two-phase solves (f64 data, f32 factors, with or
+without ``df64_phase``) on one device, with the fused kernels (``chain_backend ==
 "pallas"``, ``factor_dtype == "float32"``, a static regularization), the
 sequential and batched Armijo searches, the full-step restart, the
 coarse phase's stall exit, the reuse of the factorization on an unchanged
@@ -401,8 +404,6 @@ def _check_opts(ms: MultistageQP, opts: TdunesOpts):
     later = "is not ported yet (ROADMAP.md, port queue)"
     if opts.stage_solver != "clipping":
         raise NotImplementedError(f"stage_solver={opts.stage_solver!r} {later}")
-    if opts.df64_phase:
-        raise NotImplementedError(f"df64_phase {later}")
     if opts.axis_name is not None:
         raise NotImplementedError(f"axis_name (multi-device) {later}")
     if opts.chain_backend != "pallas":
@@ -426,7 +427,23 @@ def _sets_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def _armijo(f_at, f0, dot, f1, rest1, opts):
+def _pattern_equal(a, b) -> bool:
+    """Active-set PATTERN equality across representations: the masked
+    inverses are value-or-0, so (x != 0) is the active-set pattern even when
+    the values came from different data (the coarse phase's f32 against the
+    high-precision phase's f64)."""
+    return all(torch.equal(x != 0, y != 0) for x, y in zip(a, b))
+
+
+def _error_of(opts, res_cr, res_ch):
+    """The termination measure of the dual residuals (0-dim tensor)."""
+    if opts.termination == "infnorm":
+        return torch.maximum(res_cr.abs().max(), res_ch.abs().max())
+    sq = torch.sum(res_cr**2) + torch.sum(res_ch**2)
+    return torch.sqrt(sq) if opts.termination == "twonorm" else sq
+
+
+def _armijo(f_at, f0, dot, f1, rest1, opts, slack=2.0 ** -45, tau_dtype=None):
     """Armijo backtracking on f = -g from the tau = 1 trial (f1, rest1)
     (reference dual_Newton_tree.c:958-992), shared by both Newton loops.
 
@@ -440,24 +457,30 @@ def _armijo(f_at, f0, dot, f1, rest1, opts):
     same step. Beyond them, and when T = 0, the search backtracks
     sequentially (tau <- beta tau) up to ``ls_max_iter`` trials.
 
+    A trial is accepted when f <= f0 + gamma tau dot + slack |f0|. The steps
+    tau are 0-dim tensors of ``tau_dtype`` (default: f0's dtype; the
+    high-precision phase takes f32 steps on f64 values, as the JAX
+    package's double-float phase does).
+
     Returns (tau, f, rest, ls_it, accepted): the accepted trial, or the
     last one tried.
     """
     # noise-aware slack: the dual value carries ~sqrt(Nterms)*eps relative
     # noise; near convergence exact comparisons stall
-    eta = 2.0 ** -45 * f0.abs()
+    eta = slack * f0.abs()
+    tdt = f0.dtype if tau_dtype is None else tau_dtype
 
     def accepts(f, tau):
         return bool(f <= f0 + opts.ls_gamma * tau * dot + eta)
 
-    one = torch.ones((), dtype=f0.dtype, device=f0.device)
+    one = torch.ones((), dtype=tdt, device=f0.device)
     if accepts(f1, one):
         return one, f1, rest1, 1, True
     tau, f, rest, ls_it = one, f1, rest1, 1
     T = min(opts.ls_batch, opts.ls_max_iter)
     if T > 0:
-        taus = torch.pow(torch.full((), opts.ls_beta, dtype=f0.dtype, device=f0.device),
-                         torch.arange(1, T + 1, dtype=f0.dtype, device=f0.device))
+        taus = torch.pow(torch.full((), opts.ls_beta, dtype=tdt, device=f0.device),
+                         torch.arange(1, T + 1, dtype=tdt, device=f0.device))
         for k in range(T):
             f, rest = f_at(taus[k])
             if accepts(f, taus[k]):
@@ -483,8 +506,9 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
     ``patience > 0`` adds the coarse phase's stall exit: stop once the
     error has not improved by 10% for ``patience`` consecutive iterations.
 
-    Returns (lam_cr, lam_ch, it, status, ls_it, cr, ch, err); err is a
-    0-dim tensor."""
+    Returns (lam_cr, lam_ch, it, status, ls_it, cr, ch, err, handover); err
+    is a 0-dim tensor, handover the (fact, sets) of the last step's
+    factorization, for a high-precision phase that follows."""
     meta = ms.meta
     prep_cr = td._get_prep(meta.crown_topo)
     dt = ms.q.dtype
@@ -518,12 +542,6 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
             return cr["res"], res_ch
         return (td._dual_residual(ms.crown, cr, prep_cr),
                 _chain_residual(ms, ch, cr["x"], cr["u"], rid))
-
-    def error_of(res_cr, res_ch):
-        if opts.termination == "infnorm":
-            return torch.maximum(res_cr.abs().max(), res_ch.abs().max())
-        sq = torch.sum(res_cr**2) + torch.sum(res_ch**2)
-        return torch.sqrt(sq) if opts.termination == "twonorm" else sq
 
     def factorize(cr, ch):
         return _ms_factorize(ms, cr["qtilde"], cr["rtilde"], ch["qt"],
@@ -599,7 +617,7 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
     lam_cr, lam_ch = lam0_crown, lam0_chain
     cr, ch = stage_solve(lam_cr, lam_ch)
     res_cr, res_ch = residuals_of(cr, ch)
-    err = error_of(res_cr, res_ch)
+    err = _error_of(opts, res_cr, res_ch)
     f0 = dual_value(lam_cr, lam_ch, cr, ch)
     # the initial factorization matches cr/ch's active set, so the first
     # step's reuse-compare is a true hit and uses exactly this one
@@ -614,10 +632,10 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
                         res_ch, fact, sig)
         it += 1
         res_cr, res_ch = residuals_of(cr, ch)
-        err = error_of(res_cr, res_ch)
+        err = _error_of(opts, res_cr, res_ch)
         noimp = 0 if bool(err < 0.9 * best) else noimp + 1
         best = torch.minimum(best, err)
-    return lam_cr, lam_ch, it, status, ls_it, cr, ch, err
+    return lam_cr, lam_ch, it, status, ls_it, cr, ch, err, (fact, sig)
 
 
 def _mega_applicable(prep_cr, meta, opts) -> bool:
@@ -637,7 +655,8 @@ def _ms_newton_loop_mega(ms: MultistageQP, lam0_crown, lam0_chain,
     refactorization on an active-set change stay outside. Same Armijo rule,
     restart and patience as ``_ms_newton_loop``.
 
-    Returns (lam_cr, lam_ch, it)."""
+    Returns (lam_cr, lam_ch, it, handover): handover is the (fact, sets) of
+    the last iterate's active set, for the high-precision phase."""
     meta = ms.meta
     prep_cr = td._get_prep(meta.crown_topo)
     ctx = _solve_ctx(ms, prep_cr)
@@ -702,7 +721,7 @@ def _ms_newton_loop_mega(ms: MultistageQP, lam0_crown, lam0_chain,
         it += 1
         noimp = 0 if bool(err < 0.9 * best) else noimp + 1
         best = torch.minimum(best, err)
-    return lam_cr, lam_ch, it
+    return lam_cr, lam_ch, it, (fact, sets)
 
 
 def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
@@ -717,10 +736,12 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
     With ``opts.f32_phase_tol > 0`` and f64 data the solve runs two phases:
     a coarse phase with everything in f32 (the fused iteration kernel with
     inf-norm termination, the per-kernel loop otherwise) down to
-    f32_phase_tol or a stall of ``f32_patience`` iterations, then the f64
-    phase with refinement to ``opts.tol`` from where it stopped.
-    ``info["iter_f32"]`` counts the coarse iterations, ``info["iter"]``
-    both phases."""
+    f32_phase_tol or a stall of ``f32_patience`` iterations, then the
+    high-precision phase with refinement to ``opts.tol`` from where it
+    stopped. With ``opts.df64_phase`` (f64 data, f32 factors, one device)
+    that phase is ``ms_df64.ms_newton_loop_df``, with or without a coarse
+    phase before it. ``info["iter_f32"]`` counts the coarse iterations,
+    ``info["iter"]`` both phases."""
     _check_opts(ms, opts)
     meta = ms.meta
     prep_cr = td._get_prep(meta.crown_topo)
@@ -736,6 +757,7 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
     lam0_crown = lam0_crown * nrxm_cr
 
     it0 = 0
+    handover = None  # (fact, sets) of the coarse phase's last factorization
     if opts.f32_phase_tol > 0 and dt == torch.float64:
         f32 = torch.float32
         ms32 = ms.to(dtype=f32)
@@ -743,19 +765,25 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
             opts, refine_steps=0, tol=max(opts.f32_phase_tol, opts.tol),
             ls_batch=opts.ls_batch if opts.ls_batch > 0 else 4)
         if _mega_applicable(prep_cr, meta, opts32):
-            lam_cr32, lam_ch32, it0 = _ms_newton_loop_mega(
+            lam_cr32, lam_ch32, it0, handover = _ms_newton_loop_mega(
                 ms32, lam0_crown.to(f32), lam0_chain.to(f32), opts32, it0,
                 patience=opts.f32_patience)
         else:
-            lam_cr32, lam_ch32, it0 = _ms_newton_loop(
+            lam_cr32, lam_ch32, it0, *_, handover = _ms_newton_loop(
                 ms32, lam0_crown.to(f32), lam0_chain.to(f32), opts32, it0,
-                patience=opts.f32_patience)[:3]
+                patience=opts.f32_patience)
         # the coarse phase's status is dropped: a not-descent there is
         # expected noise near the f32 residual floor, not a failure
         lam0_crown, lam0_chain = lam_cr32.to(dt), lam_ch32.to(dt)
 
-    lam_cr, lam_ch, it, status, ls_it, cr, ch, err = _ms_newton_loop(
-        ms, lam0_crown, lam0_chain, opts, it0)
+    if (opts.df64_phase and dt == torch.float64
+            and opts.factor_dtype == "float32" and opts.axis_name is None):
+        from treeqp_tpu_torch.solvers.ms_df64 import ms_newton_loop_df
+        lam_cr, lam_ch, it, status, ls_it, cr, ch, err = ms_newton_loop_df(
+            ms, lam0_crown, lam0_chain, opts, it0, handover=handover)
+    else:
+        lam_cr, lam_ch, it, status, ls_it, cr, ch, err, _ = _ms_newton_loop(
+            ms, lam0_crown, lam0_chain, opts, it0)
     err = float(err)
     if status == TDUNES_OPTIMAL and err >= opts.tol:
         status = TDUNES_MAX_ITER
