@@ -9,16 +9,23 @@ Phases (any failure exits non-zero):
    (nvidia-smi), builds the kernels of ``treeqp_tpu_torch/csrc/`` into
    ``build/`` (one nvcc per source, in parallel) and prints the build time
    and each kernel's registers and spills;
-2. all twelve kernels against their plain PyTorch twins on the card, with
-   each one's median time from CUDA events: the factor and solve kernels
-   of the f64 phase on the operands of its first factorization and solve,
-   the coarse phase's kernels (chain_eval, crown_eval,
-   chain_blocks_factor_lanes, newton_iter in both modes) on the operands of
-   its first iteration, the high-precision phase's f64 kernels
+2. all seventeen kernels against their plain PyTorch twins on the card,
+   with each one's median time from CUDA events, its bound (the least
+   time the card could take: the bytes it must move over the memory rate,
+   or its operations over the FP32 / FP64 peak, whichever is larger) and,
+   where one PyTorch call computes the same function, that call's time:
+   the factor and solve kernels of the f64 phase on the operands of its
+   first factorization and solve, the coarse phase's kernels (chain_eval,
+   crown_eval, chain_blocks_factor_lanes, newton_iter in both modes) on the
+   operands of its first iteration, the high-precision phase's f64 kernels
    (chain_eval_df, crown_eval_df, chain_apply_df, crown_apply_df,
    df_reduce_flat) at its first point on the bench path (the coarse
    phase's last duals), all on the headline instance (quadcopter, md=4,
-   Nr=4, Nh=20: 256 scenarios, 4437 nodes);
+   Nr=4, Nh=20: 256 scenarios, 4437 nodes); and the generic-tree solver's
+   tree-Cholesky kernels (chain_factor, chain_solve_bwd, chain_forward,
+   crown_factor, crown_solve) on each of the three instances of section 5
+   (the pruned tree's timed), at the cold start of the two headline trees
+   and two iterations into the asymmetric tree's solve;
 3. the main paths on that instance, each certified by the KKT oracle
    (< 1e-8) and compared with the same solve through the plain twins on
    the CPU: the one-phase solve (slice 1), the two-phase solve (coarse f32
@@ -30,13 +37,25 @@ Phases (any failure exits non-zero):
 4. more requests: two-phase requests with two-norm termination (the coarse
    phase's per-kernel loop), each certified; and the two-phase and bench
    solves of the 1024-scenario tree quadcopter(4,5,20), whose 1365-node
-   crown the TPU kernels could not hold.
+   crown the TPU kernels could not hold;
+5. the generic-tree solver ``tdunes_solve`` at generic_bench's speed
+   options (slice 4) on the headline tree pruned to 128 scenarios (the
+   fault-tolerance example's pruned controller: 2257 nodes, 2129
+   lambda-groups; the split path), cold and warm requests, each with
+   stationarity < 1e-8 and KKT < 1e-6, the first held against the CPU
+   plain path; the crown path on the asymmetric thesis-class tree of
+   benchmarks/generic_bench.py, also held against the CPU plain path; and
+   ``tdunes_solve`` on the unpruned headline tree (split path, 256 chains)
+   against ``tdunes_ms_solve`` at bench options.
 
 The kernel launch counts are set to 0 before each path (one-phase,
-two-phase, bench, bench handover, two-norm, 1024 scenarios) and read after
-it; every kernel must launch on a path that runs it. Prints the kernels'
-JSON summary, then the device JSON as the last line. Imports nothing of
-JAX.
+two-phase, bench, bench handover, two-norm, 1024 scenarios, generic split,
+generic crown, generic cross-check) and read after it; every kernel must
+launch on a path that runs it, the multistage paths launch none of the
+generic solver's kernels, the generic split path none of the multistage
+solver's, and the crown path only crown_factor and crown_solve. Prints the
+kernels' JSON summary, then the device JSON as the last line. Imports
+nothing of JAX.
 """
 
 import dataclasses
@@ -82,6 +101,15 @@ TRIAL_MARGIN = 1e-4
 # the f64 Hessian action to 1e-12 relative
 BIT_EXACT = 0.0
 DF_RTOL = 1e-12
+# the generic-tree solver (models.GENERIC_SPEED_OPTS) on the headline tree
+# pruned to GEN_SCEN scenarios; KKT bar of the reference's per-MPC-step check
+GEN_SCEN = 128
+N_REQUESTS_G = 4        # generic cold and warm requests each
+GENERIC_KKT = 1e-6
+# the bound of a kernel: H100 SXM data-sheet rates (FP32 outside the
+# tensor cores, FP64, HBM3)
+PEAK_FLOPS = {False: 67e12, True: 34e12}
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg):
@@ -145,6 +173,32 @@ def near_bound(torch, vU, lo, hi, mask):
     return near & (mask > 0)
 
 
+def nbytes(torch, *objs):
+    """Bytes of every tensor in ``objs`` (tuples, lists and dicts walked)."""
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            total += nbytes(torch, *o.values())
+        elif isinstance(o, (list, tuple)):
+            total += nbytes(torch, *o)
+    return total
+
+
+# operation counts of the dense block routines (an FMA counts two)
+def chol_ops(n):
+    return n ** 3 / 3
+
+
+def trsm_ops(m, n):
+    return m * n * n
+
+
+def syrk_ops(m, k):
+    return 2 * m * m * k
+
+
 def perturbed(qp, ms, fac):
     """Scale the pinned initial state (the root's bound rows) by ``fac``:
     the closed-loop MPC variation of bench.py."""
@@ -153,7 +207,7 @@ def perturbed(qp, ms, fac):
         xmin[0] *= fac
         xmax[0] *= fac
         return q.replace(xmin=xmin, xmax=xmax)
-    return scale(qp), dataclasses.replace(ms, crown=scale(ms.crown))
+    return scale(qp), None if ms is None else dataclasses.replace(ms, crown=scale(ms.crown))
 
 
 def main():
@@ -169,7 +223,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     import treeqp_tpu_torch  # noqa: F401  (pins full-precision f32)
     from treeqp_tpu_torch.core.kkt import max_kkt_residual
-    from treeqp_tpu_torch.models import quadcopter
+    from treeqp_tpu_torch.models import GENERIC_SPEED_OPTS, asym_tree, pruned, quadcopter
     from treeqp_tpu_torch.ops import _build
     from treeqp_tpu_torch.ops import chain_kernels as ck
     from treeqp_tpu_torch.ops import crown_kernels as ckr
@@ -206,7 +260,7 @@ def main():
     # the coarse phase's options inside the two-phase solve
     opts_coarse = dataclasses.replace(optsb, refine_steps=0, tol=optsb.f32_phase_tol,
                                       ls_batch=4)
-    qp_cpu = quadcopter(MD, NR, NH).qp
+    qp_cpu = quadcopter(MD, NR, NH, device="cpu").qp
     ms_cpu = tm.split_multistage(qp_cpu)
     ms = ms_cpu.to(dev)
     meta = ms.meta
@@ -226,11 +280,49 @@ def main():
     reg = opts.reg_value
     results = []
 
-    def record(name, source, replaces, err, fn, ref_fn, shapes):
+    def record(name, source, replaces, err, fn, ref_fn, shapes, inputs, ops,
+               fp64=False, lib_fn=None):
+        """One kernel's line: its times (kernel, plain twin, the library
+        call if any) and its bound from this run's operands: the bytes of
+        ``inputs`` and of fn()'s outputs, each moved once, and ``ops``
+        operations at the FP32 (FP64 with ``fp64``) peak."""
+        moved = nbytes(torch, inputs, fn())
+        t_bytes, t_ops = moved / PEAK_BYTES, ops / PEAK_FLOPS[fp64]
         results.append(dict(
             name=name, route="cuda", source=f"treeqp_tpu_torch/csrc/{source}",
             replaces=replaces, max_abs_err=err, ms=cuda_ms(torch, fn, 50),
-            plain_ms=cuda_ms(torch, ref_fn, 5), shapes=shapes))
+            plain_ms=cuda_ms(torch, ref_fn, 5), bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None if lib_fn is None else cuda_ms(torch, lib_fn, 50),
+            shapes=f"{shapes}; {moved} B, {ops:.4g} {'FP64' if fp64 else 'FP32'} ops"))
+
+    def crown_ops(sched, factor, nz=None):
+        """Operations of a crown factor (with the block build of each
+        group when ``nz`` is given) or solve on ``sched``."""
+        G, n, nlev = sched.G, sched.nxm, len(sched.lev_child)
+        if not factor:
+            return nlev * (2 * G * G + 4 * n * G) + 2 * G * G
+        ops = nlev * (chol_ops(G) + trsm_ops(n, G) + syrk_ops(n, G)) + chol_ops(G)
+        if nz is not None:
+            ops += sched.NpG * (2 * G * G * nz + 3 * G * G + 3 * n * G)
+        return ops
+
+    # operation counts of the multistage kernels at the headline shapes
+    S_, L_, nx_, nz_ = meta.S, meta.L, meta.nx, meta.nx + meta.nu
+    Nc_ = meta.crown_topo.Nn
+
+    def chain_factor_ops(shape, build=False):
+        S, L, nx = shape[:3]
+        per = nx * nx + chol_ops(nx) + trsm_ops(nx, nx) + syrk_ops(nx, nx)
+        if build:
+            per += 2 * nx * nx * shape[3] + 4 * nx * nx
+        return S * L * per
+
+    system_ops = S_ * L_ * 6 * nx_ * nx_ + crown_ops(ckr._get_sched(prep), False)
+    chain_eval_ops = S_ * L_ * (4 * nx_ * nz_ + 12 * nz_)
+    crown_eval_ops = Nc_ * (4 * nx_ * nz_ + 12 * nz_)
+    chain_apply_ops = S_ * L_ * (4 * nx_ * nz_ + 4 * nz_)
+    crown_apply_ops = Nc_ * (4 * nx_ * nz_ + 4 * nz_)
 
     c_ref = ck.chain_blocks_factor_ref(*inp["chain"])
     c_got = ck.chain_blocks_factor(*inp["chain"])
@@ -240,7 +332,8 @@ def main():
            compare(torch, "chain_blocks_factor", c_got, c_ref, FACTOR_RTOL),
            lambda: ck.chain_blocks_factor(*inp["chain"]),
            lambda: ck.chain_blocks_factor_ref(*inp["chain"]),
-           f"ABt {tuple(inp['chain'][0].shape)}")
+           f"ABt {tuple(inp['chain'][0].shape)}", inp["chain"],
+           chain_factor_ops(inp["chain"][0].shape, build=True))
 
     Ls, CUs, schur0, sc = c_ref
     Wadd = -tm._schur_scatter(schur0, ctx["g_of"], ctx["slot"], prep, prep.nxm)
@@ -253,7 +346,8 @@ def main():
            compare(torch, "crown_blocks_factor", w_got, w_ref, FACTOR_RTOL),
            lambda: ckr.crown_blocks_factor(*cargs, reg=reg),
            lambda: ckr.crown_blocks_factor_ref(*cargs, reg=reg),
-           f"CholW {tuple(w_ref[0].shape)}")
+           f"CholW {tuple(w_ref[0].shape)}", (cargs[:-1], ckr._get_sched(prep).on(dev)),
+           crown_ops(ckr._get_sched(prep), True, nz=inp["crown"][0].shape[-1]))
 
     CholW, CholUt = w_ref
     res_cr = td._dual_residual(ms.crown, cr, prep)
@@ -267,7 +361,9 @@ def main():
     record("system_solve", "system_solve.cu", "treeqp_tpu/ops/system_kernels.py:74",
            compare(torch, "system_solve", s_got, s_ref, SOLVE_RTOL),
            lambda: sk.system_solve(*sargs), lambda: sk.system_solve_ref(*sargs),
-           f"rch {tuple(rch.shape)}, rg {tuple(rg.shape)}")
+           f"rch {tuple(rch.shape)}, rg {tuple(rg.shape)}",
+           (sargs[:6], ckr._get_sched(prep).on(dev), sk.ms_sched(prep, meta.root_ids, dev)),
+           system_ops)
 
     # the coarse phase's first iteration: f32 data, duals 0
     ms32 = ms.to(dtype=torch.float32)
@@ -285,7 +381,7 @@ def main():
     record("chain_eval", "chain_eval.cu", "treeqp_tpu/ops/chain_kernels.py:402", err,
            lambda: ck.chain_eval(data_ch, lam_ch32),
            lambda: ck.chain_eval_ref(data_ch, lam_ch32),
-           f"ABt {tuple(data_ch['ABt'].shape)}")
+           f"ABt {tuple(data_ch['ABt'].shape)}", (data_ch, lam_ch32), chain_eval_ops)
 
     extra = torch.zeros_like(data_cr["ABt"][:, 0])
     extra[ctx["rid"]] = e_ref["cqr"]
@@ -298,7 +394,8 @@ def main():
     record("crown_eval", "crown_eval.cu", "treeqp_tpu/ops/crown_kernels.py:466", err,
            lambda: ckr.crown_eval(data_cr, lam_cr32, extra, prep),
            lambda: ckr.crown_eval_ref(data_cr, lam_cr32, extra, prep),
-           f"ABt {tuple(data_cr['ABt'].shape)}")
+           f"ABt {tuple(data_cr['ABt'].shape)}",
+           (data_cr, lam_cr32, extra, ckr.eval_sched(prep, dev)), crown_eval_ops)
 
     largs = tm._factor_inputs(r_ref["qtilde"], r_ref["rtilde"], e_ref["qt"],
                               e_ref["rt"], prep, ctx32, lanes=True)["chain"]
@@ -310,7 +407,8 @@ def main():
            compare(torch, "chain_blocks_factor_lanes", l_got, l_ref, FACTOR_RTOL),
            lambda: ck.chain_blocks_factor_lanes(*largs),
            lambda: ck.chain_blocks_factor_lanes_ref(*largs),
-           f"ABt {tuple(largs[0].shape)}")
+           f"ABt {tuple(largs[0].shape)}", largs,
+           chain_factor_ops(largs[0].shape, build=True))
 
     iter_keys = ("dcr", "dch", "lam2_cr", "lam2_ch", "res2_cr", "res2_ch", "x",
                  "u", "cx", "cu", "xUnc", "uUnc", "cxUnc", "cuUnc")
@@ -354,7 +452,9 @@ def main():
            lambda: ik.newton_iter_ref(*iargs, mode="iter"),
            f"S={meta.S} L={meta.L} crown {data_cr['ABt'].shape[0]} nodes; mode eval "
            f"{ms_eval:.4f} ms, max |diff| {err_eval:.3e}; iter-mode active-set "
-           f"bits exempt near a bound: {exempt}")
+           f"bits exempt near a bound: {exempt}",
+           (data_ch, data_cr, fact, state, ik.iter_sched(prep, meta.root_ids, dev)),
+           system_ops + chain_eval_ops + crown_eval_ops)
 
     # the high-precision phase's kernels at its first point on the bench
     # path: the duals the coarse phase ends with
@@ -372,7 +472,8 @@ def main():
                    BIT_EXACT),
            lambda: dek.chain_eval_df(dd["ch"], lam_chd),
            lambda: dek.chain_eval_df_ref(dd["ch"], lam_chd),
-           f"ABt {tuple(dd['ch']['ABt'].shape)} f64, after {it_h} coarse iterations")
+           f"ABt {tuple(dd['ch']['ABt'].shape)} f64, after {it_h} coarse iterations",
+           (dd["ch"], lam_chd), chain_eval_ops, fp64=True)
     extra = md._root_extra(dd, ch_ref["cqr"])
     keys = ("x", "u", "qtilde", "rtilde", "xUnc", "uUnc", "res", "fcr")
     cr_ref = dek.crown_eval_df_ref(dd["cr"], lam_crd, extra, prep)
@@ -383,7 +484,8 @@ def main():
                    BIT_EXACT),
            lambda: dek.crown_eval_df(dd["cr"], lam_crd, extra, prep),
            lambda: dek.crown_eval_df_ref(dd["cr"], lam_crd, extra, prep),
-           f"ABt {tuple(dd['cr']['ABt'].shape)} f64")
+           f"ABt {tuple(dd['cr']['ABt'].shape)} f64",
+           (dd["cr"], lam_crd, extra, ckr.eval_sched(prep, dev)), crown_eval_ops, fp64=True)
     # an f32 direction on the path: the dual gradient there
     res_crd, res_chd = md.df_residuals(dd, cr_ref, ch_ref)
     dcr, dch = res_crd.float(), res_chd.float()
@@ -396,7 +498,7 @@ def main():
            compare(torch, "chain_apply_df", floats(a_got, keys), floats(a_ref, keys),
                    DF_RTOL),
            lambda: dek.chain_apply_df(*aargs), lambda: dek.chain_apply_df_ref(*aargs),
-           f"d {tuple(dch.shape)} f32")
+           f"d {tuple(dch.shape)} f32", aargs, chain_apply_ops, fp64=True)
     cargs = (dd["cr"], cr_ref["qtilde"], cr_ref["rtilde"], dcr,
              md._root_extra(dd, a_ref["cqr"]), prep)
     keys = ("xl", "ul", "res")
@@ -407,7 +509,8 @@ def main():
            compare(torch, "crown_apply_df", floats(c_got, keys), floats(c_ref, keys),
                    DF_RTOL),
            lambda: dek.crown_apply_df(*cargs), lambda: dek.crown_apply_df_ref(*cargs),
-           f"d {tuple(dcr.shape)} f32")
+           f"d {tuple(dcr.shape)} f32", (cargs[:-1], ckr.eval_sched(prep, dev)),
+           crown_apply_ops, fp64=True)
     # the phase's two reductions: the dual value's partials and the
     # directional derivative's terms
     fx = torch.cat([cr_ref["fcr"], ch_ref["fch"]])
@@ -419,25 +522,138 @@ def main():
            compare(torch, "df_reduce_flat", r_got, r_ref, BIT_EXACT),
            lambda: dr.df_reduce_flat(gx), lambda: dr.df_reduce_flat_ref(gx),
            f"n {gx.numel()} (the dual value's: {fx.numel()}, "
-           f"{cuda_ms(torch, lambda: dr.df_reduce_flat(fx), 50):.4f} ms)")
+           f"{cuda_ms(torch, lambda: dr.df_reduce_flat(fx), 50):.4f} ms)",
+           gx, gx.numel(), fp64=True, lib_fn=lambda: torch.sum(gx))
+    # the generic-tree solver's tree-Cholesky kernels on each of its paths'
+    # instances: the headline tree pruned to GEN_SCEN scenarios (split path;
+    # timed) and the unpruned headline tree (split path, 256 chains) at their
+    # cold start (zero duals), the asymmetric tree (crown path) two
+    # iterations on
+    optsg = td.TdunesOpts(**GENERIC_SPEED_OPTS)
+    qg_cpu = pruned(qp_cpu, GEN_SCEN)
+    qg = qg_cpu.to(dev)
+    prepg = td._get_prep(qg.topo)
+    split = td._split_sched(prepg)
+    if split is None:
+        fail("the pruned instance has no split schedule")
+    print(f"generic instance: quadcopter({MD},{NR},{NH}) pruned to {GEN_SCEN} "
+          f"scenarios: {qg.topo.Nn} nodes, {prepg.NpG} lambda-groups of dim "
+          f"{prepg.G}, split into {len(split[0])} chain levels of {split[0][0][1]} "
+          f"chains and {len(split[1])} crown levels")
+    qa = asym_tree(device=dev)
+    if td._split_sched(td._get_prep(qa.topo)) is not None:
+        fail("the asymmetric tree has a split schedule")
+    qp = qp_cpu.to(dev)
+
+    def tree_chol_checks(q, tag, it):
+        """Each tree-Cholesky kernel tdunes_solve launches on q, held against
+        its twin on the operands at the dual point of the it-th iterate of
+        the one-phase solve (0: the cold start; run through the plain twins
+        on the CPU), in the order of _tree_chol_factor and _tree_chol_solve.
+        Returns record()'s arguments by kernel name."""
+        p = td._get_prep(q.topo)
+        regg = optsg.reg_value
+        lam = torch.zeros((q.topo.Nn, q.topo.nxm), dtype=torch.float64, device=dev)
+        if it:
+            o = td.TdunesOpts(**{**GENERIC_SPEED_OPTS, "f32_phase_tol": 0.0, "max_iter": it})
+            lam = td.tdunes_solve(q.to("cpu"), None, o).lam.to(dev)
+        sol = td._stage_solve(q, lam, td._stage_data(q, optsg, p), optsg, p)
+        sW, W, Ut = td._equilibrate(*td._build_dual_hessian(q, sol, p), p)
+        rg = (td._nodes_to_group_mm(td._dual_residual(q, sol, p), p) * sW).float()
+        out = {}
+
+        def check(name, source, replaces, fn, ref_fn, rtol, shapes, inputs, ops):
+            ref, got = ref_fn(), fn()
+            torch.cuda.synchronize()
+            many = isinstance(ref, tuple)
+            err = compare(torch, f"{name} ({tag})", got if many else [got],
+                          ref if many else [ref], rtol)
+            out[name] = (name, source, f"treeqp_tpu/ops/{replaces}", err, fn, ref_fn,
+                         shapes, inputs, ops)
+            return ref
+
+        split_q = td._split_sched(p)
+        levels, Wcr, Utcr, rcr = None, W, Ut, rg
+        if split_q is not None:
+            sp = td._split_index(p, split_q, dev)
+            n, K, Nc = p.nxm, p.K, sp["Nc"]
+            Wc = (W[sp["chain"], :n, :n]
+                  + regg * torch.eye(n, dtype=torch.float32, device=dev)).contiguous()
+            Utc = Ut[sp["chain"], :, :n].contiguous()
+            Ls, CUs, schur = check(
+                "chain_factor", "chain_factor.cu", "chain_kernels.py:127",
+                lambda: ck.chain_factor(Wc, Utc), lambda: ck.chain_factor_ref(Wc, Utc),
+                FACTOR_RTOL, f"Wc {tuple(Wc.shape)}", (Wc, Utc), chain_factor_ops(Wc.shape))
+            rch = rg[sp["chain"], :n].contiguous()
+            sweep_ops = Wc.shape[0] * Wc.shape[1] * (3 * n * n + n)
+            ys, radd = check(
+                "chain_solve_bwd", "chain_sweeps.cu", "chain_kernels.py:175",
+                lambda: ck.chain_solve_bwd(Ls, CUs, rch),
+                lambda: ck.chain_solve_bwd_ref(Ls, CUs, rch), SOLVE_RTOL,
+                f"res {tuple(rch.shape)}", (Ls, CUs, rch), sweep_ops)
+            # the crown: the groups 0..Nc-1, with the chains' Schur blocks and
+            # right-hand-side updates
+            levels, Wcr, Utcr, rcr = sp["crown"], W[:Nc].clone(), Ut[:Nc], rg[:Nc].clone()
+            Wcr.view(Nc, K, n, K, n)[sp["dad"], sp["slot"], :, sp["slot"], :] -= schur
+            rcr.view(Nc, K, n)[sp["dad"], sp["slot"]] -= radd
+        sched = ckr._get_sched(p, levels)
+        CholW, CholUt = check(
+            "crown_factor", "crown_factor.cu", "crown_kernels.py:241",
+            lambda: ckr.crown_factor(Wcr, Utcr, p, reg=regg, levels=levels),
+            lambda: ckr.crown_factor_ref(Wcr, Utcr, p, reg=regg, levels=levels),
+            FACTOR_RTOL, f"W {tuple(Wcr.shape)}, {sched.n_lev} levels",
+            (Wcr, Utcr, sched.on(dev)), crown_ops(sched, True))
+        dcr = check(
+            "crown_solve", "crown_solve.cu", "crown_kernels.py:280",
+            lambda: ckr.crown_solve(CholW, CholUt, rcr, p, levels=levels),
+            lambda: ckr.crown_solve_ref(CholW, CholUt, rcr, p, levels=levels),
+            SOLVE_RTOL, f"rg {tuple(rcr.shape)}", (CholW, CholUt, rcr, sched.on(dev)),
+            crown_ops(sched, False))
+        if split_q is not None:
+            droot = dcr.view(Nc, K, n)[sp["dad"], sp["slot"]].contiguous()
+            check("chain_forward", "chain_sweeps.cu", "chain_kernels.py:207",
+                  lambda: ck.chain_forward(Ls, CUs, ys, droot),
+                  lambda: ck.chain_forward_ref(Ls, CUs, ys, droot), SOLVE_RTOL,
+                  f"ys {tuple(ys.shape)}", (Ls, CUs, ys, droot), sweep_ops)
+        return out
+
+    # the asymmetric tree's cold start is ill-conditioned (its root block's
+    # Schur complement cancels: a 1-ulp rsqrt difference shows as ~1e-5 in
+    # its factor, tests/test_torch_generic_kernels.py), so its kernels are
+    # held against their twins two iterations on
+    checks = {tag: tree_chol_checks(q, tag, it) for tag, q, it in (
+        ("pruned", qg, 0), ("asymmetric", qa, 2), ("unpruned", qp, 0))}
+    for name, source, replaces, _, fn, ref_fn, shapes, inputs, ops in checks["pruned"].values():
+        errs = {tag: c[name][3] for tag, c in checks.items() if name in c}
+        record(name, source, replaces, max(errs.values()), fn, ref_fn,
+               f"{shapes}; max |diff| "
+               + ", ".join(f"{tag} {e:.3e}" for tag, e in errs.items()), inputs, ops)
+
     for r in results:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin "
-              f"{r['plain_ms']:.4f} ms, max |diff| {r['max_abs_err']:.3e} "
-              f"[{r['shapes']}] on {card}")
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}), library call "
+              f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
+              f"max |diff| {r['max_abs_err']:.3e} [{r['shapes']}] on {card}")
 
     # ---- 3. main paths on the card, certified and held against the CPU
-    kernels = (ck.chain_blocks_factor, ckr.crown_blocks_factor, sk.system_solve,
-               ck.chain_eval, ckr.crown_eval, ck.chain_blocks_factor_lanes,
-               ik.newton_iter, dek.chain_eval_df, dek.crown_eval_df,
-               dek.chain_apply_df, dek.crown_apply_df, dr.df_reduce_flat)
+    ms_kernels = (ck.chain_blocks_factor, ckr.crown_blocks_factor, sk.system_solve,
+                  ck.chain_eval, ckr.crown_eval, ck.chain_blocks_factor_lanes,
+                  ik.newton_iter, dek.chain_eval_df, dek.crown_eval_df,
+                  dek.chain_apply_df, dek.crown_apply_df, dr.df_reduce_flat)
+    generic_kernels = (ck.chain_factor, ck.chain_solve_bwd, ck.chain_forward,
+                       ckr.crown_factor, ckr.crown_solve)
+    kernels = ms_kernels + generic_kernels
+    ms_names = tuple(k.__name__ for k in ms_kernels)
+    generic_names = tuple(k.__name__ for k in generic_kernels)
     df_kernels = ("chain_eval_df", "crown_eval_df", "chain_apply_df",
                   "crown_apply_df", "df_reduce_flat")
     paths = {}
 
-    def drive(path, needs, fn):
+    def drive(path, needs, fn, forbid=generic_names):
         """Run one main path with every launch count set to 0 just before
         it; read the counts just after. Each kernel in ``needs`` must have
-        launched."""
+        launched, none in ``forbid``."""
         for fn_k in kernels:
             fn_k.launches = 0
         torch.cuda.synchronize()
@@ -448,9 +664,11 @@ def main():
         for k in needs:
             if paths[path][k] <= 0:
                 fail(f"{k} was not launched by the {path} path")
+        for k in forbid:
+            if paths[path][k] != 0:
+                fail(f"{k} was launched by the {path} path")
         return out
 
-    qp = qp_cpu.to(dev)
     facs = [1.0 + PERT * math.sin(1.0 + 1.7 * (k + 1.0)) for k in range(N_REQUESTS)]
     insts = [perturbed(qp, ms, f) for f in facs]
 
@@ -593,7 +811,7 @@ def main():
               f"({statistics.mean(ic):.2f} iter, {statistics.mean(cc):.2f} coarse)")
 
     # the 1024-scenario tree (1365-node crown): both coarse loops launch
-    qp5_cpu = quadcopter(MD, 5, NH).qp
+    qp5_cpu = quadcopter(MD, 5, NH, device="cpu").qp
     qp5 = qp5_cpu.to(dev)
     ms5 = tm.split_multistage(qp5)
 
@@ -607,6 +825,91 @@ def main():
                   f"(coarse {info5['iter_f32']}) kkt {kkt5:.3e} in "
                   f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first solve) on {card}")
     drive("1024-scenario", ("newton_iter", "crown_eval", "chain_eval") + df_kernels, big)
+
+    # ---- 5. the generic-tree solver (slice 4)
+    gfacs = [1.0 + PERT * math.sin(1.0 + 1.7 * (k + 1.0)) for k in range(N_REQUESTS_G)]
+    ginsts = [perturbed(qg, None, f)[0] for f in gfacs]
+
+    def g_certified(qp_k, lam0, what):
+        """One tdunes_solve request, certified: OPTIMAL, stationarity
+        < 1e-8, the port's KKT < GENERIC_KKT, finite output of the right
+        shape. Returns (out, kkt, ms, factorizations)."""
+        n0 = ckr.crown_factor.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_k = td.tdunes_solve(qp_k, lam0, optsg)
+        torch.cuda.synchronize()
+        t_ms = (time.perf_counter() - t0) * 1e3
+        kkt_k = max_kkt_residual(qp_k, out_k)
+        info_k = out_k.info
+        if info_k["status"] != td.TDUNES_OPTIMAL or not info_k["error"] < TOL \
+                or not kkt_k < GENERIC_KKT:
+            fail(f"{what}: status {info_k['status']} error {info_k['error']} kkt {kkt_k}")
+        if tuple(out_k.x.shape) != (qp_k.topo.Nn, qp_k.topo.nxm) \
+                or not torch.isfinite(out_k.lam).all():
+            fail(f"{what}: output of the wrong shape or not finite")
+        return out_k, kkt_k, t_ms, ckr.crown_factor.launches - n0
+
+    def g_headline(q, q_cpu, what):
+        """The first cold solve of q, certified, and held against the same
+        solve through the plain twins on the CPU: iterations within one,
+        x and u within 1e-7, lambda within 1e-6."""
+        out, kkt, t_ms, nf = g_certified(q, None, what)
+        info = out.info
+        out_c = td.tdunes_solve(q_cpu, None, optsg)
+        gaps = {f: float((getattr(out, f).cpu() - getattr(out_c, f)).abs().max())
+                for f in ("x", "u", "lam")}
+        print(f"{what} ({q.topo.Nn} nodes): iter {info['iter']} ({info['iter_f32']} "
+              f"coarse + {info['iter'] - info['iter_f32']} final), error "
+              f"{info['error']:.3e}, kkt {kkt:.3e}, {nf} factorizations, {t_ms:.1f} ms "
+              f"(first solve); card vs CPU plain path: iter {info['iter']} vs "
+              f"{out_c.info['iter']}, "
+              + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps.items()) + f" on {card}")
+        if abs(info["iter"] - out_c.info["iter"]) > 1 or gaps["x"] > 1e-7 \
+                or gaps["u"] > 1e-7 or gaps["lam"] > 1e-6:
+            fail(f"{what}: card and CPU solves disagree: {gaps}")
+        return out
+
+    def generic_split():
+        out = g_headline(qg, qg_cpu, "generic headline solve")
+        timing = {}
+        for mode in ("cold", "warm"):
+            prev, rows = out.lam, []
+            for k, qp_k in enumerate(ginsts):
+                o_k, kkt_k, t_k, nf_k = g_certified(
+                    qp_k, prev if mode == "warm" else None, f"generic {mode} request {k}")
+                rows.append((o_k.info["iter"], o_k.info["iter_f32"], t_k, nf_k, kkt_k))
+                prev = o_k.lam
+            timing[mode] = rows
+            print(f"requests generic {mode}: iters {[r[0] for r in rows]} (coarse "
+                  f"{[r[1] for r in rows]}), factorizations {[r[3] for r in rows]}, "
+                  f"{statistics.mean(r[2] for r in rows):.1f} ms/solve (median "
+                  f"{statistics.median(r[2] for r in rows):.1f}), max kkt "
+                  f"{max(r[4] for r in rows):.3e} on {card}")
+        return timing
+    drive("generic split", generic_names, generic_split, forbid=ms_names)
+
+    # the crown path: the asymmetric thesis-class tree has no split schedule
+    drive("generic crown", ("crown_factor", "crown_solve"),
+          lambda: g_headline(qa, asym_tree(device="cpu"), "asymmetric tree"),
+          forbid=ms_names + ("chain_factor", "chain_solve_bwd", "chain_forward"))
+
+    # tdunes_solve on the unpruned headline tree (split path, 256 chains)
+    # against tdunes_ms_solve at bench options, on the same card
+    def cross_check():
+        out_g, kkt_g, t_g, _ = g_certified(qp, None, "generic solve of the headline tree")
+        cro, cho, info = tm.tdunes_ms_solve(ms, None, None, optsb)
+        out_m = tm.merge_output(ms, cro, cho, info)
+        gaps = {f: float((getattr(out_g, f) - getattr(out_m, f)).abs().max())
+                for f in ("x", "u", "lam")}
+        print(f"headline tree, tdunes_solve vs tdunes_ms_solve (bench options): iter "
+              f"{out_g.info['iter']} vs {info['iter']}, kkt {kkt_g:.3e} vs "
+              f"{max_kkt_residual(qp, out_m):.3e}, "
+              + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps.items())
+              + f", {t_g:.1f} ms on {card}")
+        if gaps["x"] > 1e-7 or gaps["u"] > 1e-7:
+            fail(f"tdunes_solve and tdunes_ms_solve disagree on the headline tree: {gaps}")
+    drive("generic cross-check", generic_names + ("newton_iter",), cross_check, forbid=())
 
     for r in results:
         r["launches"] = sum(p[r["name"]] for p in paths.values())

@@ -29,26 +29,12 @@ Needs CUDA; imports nothing of JAX.
 
 import argparse
 import dataclasses
-import statistics
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-
-def timed(torch, fn, reps):
-    """Median host milliseconds of fn(), synchronized, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(out)
+from prof_common import card as card_name, profile_call, timed  # noqa: E402
 
 
 def main():
@@ -75,9 +61,7 @@ def main():
     from treeqp_tpu_torch.ops import iter_kernel as ik
     from chip_smoke import SLICE_OPTS, TWO_PHASE_OPTS
 
-    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = card_name()
     dev = torch.device("cuda", 0)
     base = TWO_PHASE_OPTS if args.f32_phase_tol > 0 else SLICE_OPTS
     opts = td.TdunesOpts(**{**base, "termination": args.termination,
@@ -172,27 +156,7 @@ def main():
         print(f"  step {name}: {timed(torch, fn, args.reps):.3f} ms")
 
     # device-busy share and top kernels over one cold solve
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tm.tdunes_ms_solve(ms, None, None, opts)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_total = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    n_launch = len(kern)
-    by_name = {}
-    for e in kern:
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
-    print(f"profiled cold solve: wall {wall:.2f} ms, device kernels "
-          f"{dev_total:.2f} ms in {n_launch} launches -> device busy "
-          f"{100 * dev_total / wall:.1f}% (profiler on) on {card}")
-    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"  {t:8.3f} ms  x{c:<5d} {name[:90]}")
-
+    profile_call(torch, lambda: tm.tdunes_ms_solve(ms, None, None, opts), card)
 
 if __name__ == "__main__":
     main()

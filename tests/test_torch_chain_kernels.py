@@ -38,7 +38,8 @@ POINTS = {"zero": 0.0, "half": 0.5, "solution": 1.0}
 def factor_inputs(name, point):
     """The factor kernels' operands at a dual point of a case."""
     qp_j = CASES[name]()
-    qp = convert.qp_from_numpy(convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo))
+    qp = convert.qp_from_numpy(convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo),
+                               device="cpu")
     ms = tm.split_multistage(qp)
     prep = td._get_prep(ms.meta.crown_topo)
     ctx = tm._solve_ctx(ms, prep)

@@ -77,7 +77,8 @@ def test_crown_schedule_matches_pallas(md, Nr, nx):
             assert jsched.P[s, g, d] == 1.0
     assert len(sched.lev_child) == int(jsched.P.sum())
     assert jsched.masks[sched.n_lev, 0, 0] == 1.0
-    assert sched.committed.all()
+    # every group but the root on one level
+    np.testing.assert_array_equal(np.sort(sched.lev_child), np.arange(1, sched.NpG))
 
 
 def test_crown_blocks_factor_cpu_wrapper_runs_plain_twin():

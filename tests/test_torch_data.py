@@ -62,7 +62,7 @@ def test_quadcopter_model_matches_jax():
     (torch.linalg.matrix_exp vs jax.scipy expm) and the LTI tree fill give
     the same QP data to 1e-12."""
     jm = jmodels.quadcopter(2, 2, 6)
-    tm_ = models.quadcopter(2, 2, 6)
+    tm_ = models.quadcopter(2, 2, 6, device="cpu")
     assert tm_.qp.topo == convert.topo_from(jm.qp.topo)
     ja, ta = convert.qp_arrays(jm.qp), convert.qp_arrays(tm_.qp)
     for f in QP_FIELDS:
@@ -99,7 +99,7 @@ def test_kkt_oracle_matches_jax():
                      (topo.Nn, topo.num), (topo.Nn, topo.ncm)])}
     qp_j = JTreeQPIn(**{f: jnp.asarray(v) for f, v in arrays.items()}, topo=topo_j)
     out_j = JTreeQPOut(**{f: jnp.asarray(v) for f, v in out.items()}, info={})
-    qp_t = convert.qp_from_numpy(arrays, topo)
+    qp_t = convert.qp_from_numpy(arrays, topo, device="cpu")
     out_t = TreeQPOut(**{f: torch.as_tensor(v) for f, v in out.items()}, info={})
     ref = jkkt.kkt_residuals(qp_j, out_j)
     got = kkt.kkt_residuals(qp_t, out_t)
@@ -118,7 +118,8 @@ def test_kkt_oracle_matches_jax():
 def test_split_multistage_matches_jax(make):
     qp_j = make()
     ms_j = jtm.split_multistage(qp_j)
-    qp_t = convert.qp_from_numpy(convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo))
+    qp_t = convert.qp_from_numpy(convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo),
+                                 device="cpu")
     ms_t = tm.split_multistage(qp_t)
     a_j, a_t = convert.ms_arrays(ms_j), convert.ms_arrays(ms_t)
     assert set(a_j) == set(a_t)
@@ -132,7 +133,7 @@ def test_split_multistage_matches_jax(make):
     assert mt.crown_topo == convert.topo_from(mj.crown_topo)
     np.testing.assert_array_equal(tm.chain_node_ids(mt), jtm.chain_node_ids(mj))
     # the round trip through numpy rebuilds the same split
-    ms_r = convert.ms_from_numpy(a_t, qp_t.topo)
+    ms_r = convert.ms_from_numpy(a_t, qp_t.topo, device="cpu")
     for f in tm.CHAIN_FIELDS:
         assert torch.equal(getattr(ms_r, f), getattr(ms_t, f)), f
     assert ms_r.meta == ms_t.meta

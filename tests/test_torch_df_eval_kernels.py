@@ -56,7 +56,8 @@ def path_case(name, point):
     scaled to a largest entry of 1."""
     qp_j = CASES[name]()
     ms = tm.split_multistage(convert.qp_from_numpy(convert.qp_arrays(qp_j),
-                                                   convert.topo_from(qp_j.topo)))
+                                                   convert.topo_from(qp_j.topo),
+                                                   device="cpu"))
     cro, cho, info = tm.tdunes_ms_solve(ms, None, None, td.TdunesOpts(**BENCH))
     assert info["status"] == 0 and info["iter_f32"] >= 1
     prep = td._get_prep(ms.meta.crown_topo)

@@ -45,7 +45,8 @@ def path_case(name, point):
     solution) of the port, masked as the solver carries it."""
     qp_j = CASES[name]()
     ms = tm.split_multistage(convert.qp_from_numpy(convert.qp_arrays(qp_j),
-                                                   convert.topo_from(qp_j.topo)))
+                                                   convert.topo_from(qp_j.topo),
+                                                   device="cpu"))
     cro, cho, info = tm.tdunes_ms_solve(ms, None, None, TWO_PHASE)
     assert info["status"] == 0 and info["iter_f32"] >= 1
     ms32 = ms.to(dtype=f32)

@@ -35,7 +35,8 @@ def test_two_phase_with_backtracking_matches_jax(scale, termination):
     ms_j = jtm.split_multistage(qp_j)
     cro, cho, info_j = jtm.tdunes_ms_solve(ms_j, None, None, jtd.TdunesOpts(**opts))
     out_j = jtm.merge_output(ms_j, cro, cho, info_j)
-    qp = convert.qp_from_numpy(convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo))
+    qp = convert.qp_from_numpy(convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo),
+                               device="cpu")
     ms = tm.split_multistage(qp)
     cro, cho, info = tm.tdunes_ms_solve(ms, None, None, td.TdunesOpts(**opts))
     out = tm.merge_output(ms, cro, cho, info)

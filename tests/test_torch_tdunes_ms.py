@@ -38,7 +38,7 @@ X_TOL, U_TOL, LAM_TOL = 1e-7, 1e-7, 1e-6
 def port_ms(name):
     qp_j = CASES[name]()
     return tm.split_multistage(convert.qp_from_numpy(
-        convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo)))
+        convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo), device="cpu"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,7 +54,8 @@ def solve_both(name, **overrides):
     cro, cho, info_j = jtm.tdunes_ms_solve(
         ms_j, None, None, jtd.TdunesOpts(**{**SLICE, **overrides}))
     out_j = jtm.merge_output(ms_j, cro, cho, info_j)
-    qp = convert.qp_from_numpy(convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo))
+    qp = convert.qp_from_numpy(convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo),
+                               device="cpu")
     ms = tm.split_multistage(qp)
     cro, cho, info = tm.tdunes_ms_solve(ms, None, None,
                                         td.TdunesOpts(**{**SLICE, **overrides}))

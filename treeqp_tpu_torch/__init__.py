@@ -22,7 +22,7 @@ torch.set_float32_matmul_precision("highest")
 from treeqp_tpu_torch.utils.tree import TreeStructure, number_of_nodes_multistage  # noqa: E402
 from treeqp_tpu_torch.core.qp_data import TreeQPIn, TreeQPOut, TREEQP_INF  # noqa: E402
 from treeqp_tpu_torch.core.kkt import kkt_residuals, max_kkt_residual  # noqa: E402
-from treeqp_tpu_torch.solvers.tdunes import TdunesOpts  # noqa: E402
+from treeqp_tpu_torch.solvers.tdunes import TdunesOpts, tdunes_solve  # noqa: E402
 from treeqp_tpu_torch.solvers.tdunes_multistage import (  # noqa: E402
     MultistageQP, split_multistage, tdunes_ms_solve, merge_output)
 
@@ -37,6 +37,7 @@ __all__ = [
     "kkt_residuals",
     "max_kkt_residual",
     "TdunesOpts",
+    "tdunes_solve",
     "MultistageQP",
     "split_multistage",
     "tdunes_ms_solve",

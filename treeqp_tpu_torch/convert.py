@@ -39,9 +39,10 @@ def qp_arrays(qp) -> dict:
     return {f: _np(getattr(qp, f)) for f in QP_FIELDS}
 
 
-def qp_from_numpy(arrays: dict, topo: TreeStructure, device="cpu",
+def qp_from_numpy(arrays: dict, topo: TreeStructure, device="cuda",
                   dtype=torch.float64) -> TreeQPIn:
-    """The port's TreeQPIn from ``qp_arrays``-style numpy arrays."""
+    """The port's TreeQPIn from ``qp_arrays``-style numpy arrays, on
+    ``device`` (the card unless the caller passes ``device="cpu"``)."""
     return TreeQPIn(**{f: torch.tensor(np.asarray(arrays[f]), dtype=dtype,
                                        device=device) for f in QP_FIELDS},
                     topo=topo)
@@ -55,10 +56,11 @@ def ms_arrays(ms) -> dict:
     return out
 
 
-def ms_from_numpy(arrays: dict, topo: TreeStructure, device="cpu",
+def ms_from_numpy(arrays: dict, topo: TreeStructure, device="cuda",
                   dtype=torch.float64) -> MultistageQP:
     """The port's MultistageQP from ``ms_arrays``-style numpy arrays of the
-    multistage tree with full topology ``topo``."""
+    multistage tree with full topology ``topo``, on ``device`` (the card
+    unless the caller passes ``device="cpu"``)."""
     meta = _ms_meta(topo)
     t = lambda v: torch.tensor(np.asarray(v), dtype=dtype, device=device)
     return MultistageQP(

@@ -31,7 +31,7 @@
 // arrays; every access hits L1/L2. Spreading one chain's block over a warp
 // is the next step, for a later change.
 
-#include "tq_dense.cuh"
+#include "tq_chain.cuh"
 
 namespace {
 
@@ -90,24 +90,9 @@ __device__ void chain_factor_one(
     scp = scj;
   }
 
-  // pass 2 (backward): banded block Cholesky
-  float* schur = schur0 + (size_t)s * nn;
-  for (int k = 0; k < nn; ++k) schur[k] = 0.f;
-  for (int j = L - 1; j >= 0; --j) {
-    const size_t sj = (size_t)s * L + j;
-    float* Lj = Ls + sj * nn;
-    float* CU = CUs + sj * nn;
-    for (int k = 0; k < nn; ++k) Lj[k] -= schur[k];
-    tq::chol_inplace<false>(Lj, nx, 0.f);
-    tq::rtrsm_t_inplace(Lj, CU, nx, nx);
-    for (int a = 0; a < nx; ++a) {
-      for (int c = 0; c < nx; ++c) {
-        float acc = 0.f;
-        for (int k = 0; k < nx; ++k) acc += CU[a * nx + k] * CU[c * nx + k];
-        schur[a * nx + c] = acc;
-      }
-    }
-  }
+  // pass 2 (backward): banded block Cholesky (shared with chain_factor.cu)
+  tq::chain_factor_bwd(Ls + (size_t)s * L * nn, CUs + (size_t)s * L * nn,
+                       schur0 + (size_t)s * nn, L, nx);
 }
 
 __global__ void chain_blocks_factor_kernel(

@@ -18,7 +18,7 @@
 //   Ut[i, k c] = -ztp[i] ABk[k, c, i],  Ut <- diag(sUt) Ut diag(sW)
 // then, deepest level first: CholW = chol(W + reg I) with pivot floor 1e-8,
 // CholUt = Ut CholW^-T, W[parent][slot, slot] -= CholUt CholUt'; the root
-// group (0) last. Groups that no level commits keep identity factors.
+// group (0) last.
 //
 // What bounds it on the card: latency. Each level is one serial G x G
 // Cholesky per thread (G = 24 at the quadcopter crown: ~4.6k dependent
@@ -28,7 +28,7 @@
 // output buffer in global memory (L1/L2 resident at these sizes), so no
 // per-thread local array limits G. A warp per group is the next step.
 
-#include "tq_dense.cuh"
+#include "tq_crown.cuh"
 
 namespace {
 
@@ -38,23 +38,17 @@ __global__ void __launch_bounds__(1024) crown_blocks_factor_kernel(
     const float* __restrict__ sUt, const float* __restrict__ Wadd,
     const int* __restrict__ lev_ptr, const int* __restrict__ lev_child,
     const int* __restrict__ lev_parent, const int* __restrict__ lev_slot,
-    const int* __restrict__ committed,
     float* __restrict__ CholW, float* __restrict__ CholUt,
     int NpG, int K, int nxm, int nz, int n_lev, float reg) {
   const int G = K * nxm;
   const size_t GG = (size_t)G * G;
 
-  // phase 1: every group's scaled blocks (identity where never committed)
+  // phase 1: every group's scaled blocks
   for (int g = threadIdx.x; g < NpG; g += blockDim.x) {
     float* W = CholW + g * GG;
     float* U = CholUt + (size_t)g * nxm * G;
-    if (!committed[g] || g == 0) {
+    if (g == 0) {
       for (int i = 0; i < nxm * G; ++i) U[i] = 0.f;
-    }
-    if (!committed[g]) {
-      for (int r = 0; r < G; ++r)
-        for (int c = 0; c < G; ++c) W[r * G + c] = (r == c) ? 1.f : 0.f;
-      continue;
     }
     const float* AB = ABk + (size_t)g * K * nxm * nz;  // [K][nxm][nz]
     const float* zt = ztp + (size_t)g * nz;
@@ -78,29 +72,10 @@ __global__ void __launch_bounds__(1024) crown_blocks_factor_kernel(
   }
   __syncthreads();
 
-  // phase 2: levels, deepest first; children update their parents
-  for (int lv = 0; lv < n_lev; ++lv) {
-    for (int e = lev_ptr[lv] + threadIdx.x; e < lev_ptr[lv + 1]; e += blockDim.x) {
-      const int g = lev_child[e];
-      float* W = CholW + g * GG;
-      float* U = CholUt + (size_t)g * nxm * G;
-      tq::chol_inplace<true>(W, G, reg);
-      tq::rtrsm_t_inplace(W, U, nxm, G);
-      float* Wd = CholW + lev_parent[e] * GG;
-      const int off = lev_slot[e] * nxm;
-      for (int a = 0; a < nxm; ++a) {
-        for (int c = 0; c < nxm; ++c) {
-          float acc = 0.f;
-          for (int k = 0; k < G; ++k) acc += U[a * G + k] * U[c * G + k];
-          Wd[(off + a) * G + off + c] -= acc;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // root group
-  if (threadIdx.x == 0 && committed[0]) tq::chol_inplace<true>(CholW, G, reg);
+  // phase 2: levels, deepest first; children update their parents; then
+  // the root group (tq_crown.cuh, shared with crown_factor.cu)
+  tq::crown_factor_levels(CholW, CholUt, lev_ptr, lev_child, lev_parent, lev_slot,
+                          n_lev, K, nxm, reg);
 }
 
 }  // namespace
@@ -109,11 +84,11 @@ extern "C" int tq_crown_blocks_factor(
     const float* ABk, const float* ztp, const float* dvals, const float* sW,
     const float* sUt, const float* Wadd, const int* lev_ptr,
     const int* lev_child, const int* lev_parent, const int* lev_slot,
-    const int* committed, float* CholW, float* CholUt,
+    float* CholW, float* CholUt,
     int NpG, int K, int nxm, int nz, int n_lev, float reg, int threads,
     void* stream) {
   crown_blocks_factor_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
       ABk, ztp, dvals, sW, sUt, Wadd, lev_ptr, lev_child, lev_parent,
-      lev_slot, committed, CholW, CholUt, NpG, K, nxm, nz, n_lev, reg);
+      lev_slot, CholW, CholUt, NpG, K, nxm, nz, n_lev, reg);
   return (int)cudaGetLastError();
 }

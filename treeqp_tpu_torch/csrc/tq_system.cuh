@@ -13,14 +13,17 @@
 //   4. crown forward, top level first: dg_g = CholW_g^-T (y_g - CholUt_g' dg[parent][slot])
 //   5. per chain: forward sweep from dp = dg[g_of[s]][slot[s]]:
 //        dch_j = Ls_j^-T (y_j - CUs_j' dp),  dp = dch_j   (j = 0 .. L-1)
-// and a final barrier, so dg and dch are complete on return.
+// and a final barrier, so dg and dch are complete on return. Phases 1 and 5
+// are tq_chain.cuh's chain sweeps (chain_sweeps.cu runs them on their own),
+// phases 2-4 tq_crown.cuh's crown_solve_core (crown_solve.cu's body).
 // Every (group, slot) has exactly one writer in phases 1 and 2 (one chain
 // root, or one child group), so no atomics are needed. The TPU kernels did
 // the scenario <-> group moves as one-hot matmuls; here they are indexed
 // reads and writes.
 #pragma once
 
-#include "tq_dense.cuh"
+#include "tq_chain.cuh"
+#include "tq_crown.cuh"
 
 namespace tq {
 
@@ -35,92 +38,29 @@ __device__ inline void system_solve_core(
     float* __restrict__ dg, float* __restrict__ dch,
     int S, int L, int n, int K, int n_lev) {
   const int G = K * n;
-  const size_t GG = (size_t)G * G;
-  const int nn = n * n;
+  const size_t chain = (size_t)L * n * n;
 
   // 1. chain backward sweeps + injection into the crown groups
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
     float radd[kMaxN];
-    for (int i = 0; i < n; ++i) radd[i] = 0.f;
-    for (int j = L - 1; j >= 0; --j) {
-      const size_t sj = (size_t)s * L + j;
-      const float* CU = CUs + sj * nn;
-      float* y = dch + sj * n;
-      for (int i = 0; i < n; ++i) y[i] = rch[sj * n + i] - radd[i];
-      ltrsv_inplace(Ls + sj * nn, y, n);
-      for (int i = 0; i < n; ++i) {
-        float acc = 0.f;
-        for (int k = 0; k < n; ++k) acc += CU[i * n + k] * y[k];
-        radd[i] = acc;
-      }
-    }
+    chain_solve_bwd_one(Ls + s * chain, CUs + s * chain, rch + (size_t)s * L * n,
+                        dch + (size_t)s * L * n, radd, L, n);
     float* r = rv + (size_t)g_of[s] * G + slot[s] * n;
     for (int i = 0; i < n; ++i) r[i] -= radd[i];
   }
   __syncthreads();
 
-  // 2. crown backward sweep
-  for (int lv = 0; lv < n_lev; ++lv) {
-    for (int e = lev_ptr[lv] + threadIdx.x; e < lev_ptr[lv + 1]; e += blockDim.x) {
-      const int g = lev_child[e];
-      float* y = ycr + (size_t)g * G;
-      for (int i = 0; i < G; ++i) y[i] = rv[(size_t)g * G + i];
-      ltrsv_inplace(CholW + g * GG, y, G);
-      const float* U = CholUt + (size_t)g * n * G;
-      float* rd = rv + (size_t)lev_parent[e] * G + lev_slot[e] * n;
-      for (int a = 0; a < n; ++a) {
-        float acc = 0.f;
-        for (int k = 0; k < G; ++k) acc += U[a * G + k] * y[k];
-        rd[a] -= acc;
-      }
-    }
-    __syncthreads();
-  }
-
-  // 3. root
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < G; ++i) ycr[i] = rv[i];
-    ltrsv_inplace(CholW, ycr, G);
-    for (int i = 0; i < G; ++i) dg[i] = ycr[i];
-    uttrsv_inplace(CholW, dg, G);
-  }
-  __syncthreads();
-
-  // 4. crown forward substitution
-  for (int lv = n_lev - 1; lv >= 0; --lv) {
-    for (int e = lev_ptr[lv] + threadIdx.x; e < lev_ptr[lv + 1]; e += blockDim.x) {
-      const int g = lev_child[e];
-      const float* dp = dg + (size_t)lev_parent[e] * G + lev_slot[e] * n;
-      const float* U = CholUt + (size_t)g * n * G;
-      const float* y = ycr + (size_t)g * G;
-      float* dl = dg + (size_t)g * G;
-      for (int j = 0; j < G; ++j) {
-        float acc = 0.f;
-        for (int i = 0; i < n; ++i) acc += U[i * G + j] * dp[i];
-        dl[j] = y[j] - acc;
-      }
-      uttrsv_inplace(CholW + g * GG, dl, G);
-    }
-    __syncthreads();
-  }
+  // 2.-4. crown backward sweep, root, crown forward substitution
+  crown_solve_core(CholW, CholUt, lev_ptr, lev_child, lev_parent, lev_slot,
+                   rv, ycr, dg, n, K, n_lev);
 
   // 5. chain forward sweeps
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
     float dp[kMaxN];
     const float* src = dg + (size_t)g_of[s] * G + slot[s] * n;
     for (int i = 0; i < n; ++i) dp[i] = src[i];
-    for (int j = 0; j < L; ++j) {
-      const size_t sj = (size_t)s * L + j;
-      const float* CU = CUs + sj * nn;
-      float* y = dch + sj * n;
-      for (int i = 0; i < n; ++i) {
-        float acc = 0.f;
-        for (int k = 0; k < n; ++k) acc += CU[k * n + i] * dp[k];
-        y[i] = y[i] - acc;
-      }
-      uttrsv_inplace(Ls + sj * nn, y, n);
-      for (int i = 0; i < n; ++i) dp[i] = y[i];
-    }
+    chain_forward_one(Ls + s * chain, CUs + s * chain, dch + (size_t)s * L * n, dp,
+                      L, n);
   }
   __syncthreads();
 }

@@ -1,4 +1,6 @@
-"""Benchmark problem generators (port of ``benchmarks/models.py``).
+"""Benchmark problem generators (port of ``benchmarks/models.py``), and the
+generic-tree solver's instances and options of ``benchmarks/generic_bench.py``
+and ``benchmarks/fault_tolerance.py``.
 
 Only the quadcopter family is ported: attitude model with uncertain mass
 (8-12 kg), Ts=0.05 (benchmark/quadcopter/dynamics_quadcopter_mpc.m +
@@ -20,7 +22,16 @@ import torch
 from treeqp_tpu_torch.core.qp_data import TreeQPIn
 from treeqp_tpu_torch.utils.tree import TreeStructure
 
-__all__ = ["BenchmarkModel", "quadcopter", "linearize", "discretize"]
+__all__ = ["BenchmarkModel", "quadcopter", "linearize", "discretize", "GENERIC_SPEED_OPTS",
+           "asym_tree", "pruned"]
+
+# the generic-tree solver's options, generic_bench.speed_opts(on_tpu=True),
+# as TdunesOpts fields
+GENERIC_SPEED_OPTS = dict(stage_solver="clipping", tol=1e-8, max_iter=120,
+                          factor_dtype="float32", refine_steps=1,
+                          refine_safeguard=False, chain_backend="pallas",
+                          reg_type="always", reg_value=1e-6, f32_phase_tol=1e-4,
+                          f32_patience=3, df64_phase=False)
 
 
 def linearize(rhs, xlin, ulin):
@@ -81,12 +92,14 @@ def _quadcopter_params(m=10.0):
                 L=0.5, L2=1.0, J1=0.25, J2=0.25, J3=1.0, Ts=0.05)
 
 
-def quadcopter(md=4, Nr=4, Nh=20, x0=None, seed=0, device="cpu"):
+def quadcopter(md=4, Nr=4, Nh=20, x0=None, seed=0, device="cuda"):
     """Quadcopter attitude robust-MPC tree QP, uncertain mass in [8, 12] kg
     (initialize_quadcopter.m; md realizations linspace over the range).
 
     nx=6 (quaternion vector part + body rates), nu=4 (rotor speed deltas).
     Same data as ``benchmarks.models.quadcopter`` for the same arguments.
+    The QP's tensors are made on ``device``: the card unless the caller
+    passes ``device="cpu"``.
     """
     nx, nu = 6, 4
     masses = np.linspace(8.0, 12.0, md) if md > 1 else np.array([10.0])
@@ -123,3 +136,44 @@ def quadcopter(md=4, Nr=4, Nh=20, x0=None, seed=0, device="cpu"):
     return BenchmarkModel(qp=qp, x0=np.asarray(x0), xref=np.zeros((1, nx)),
                           weights=dict(dQ=dQ, dR=dR, dP=dP),
                           Ts=_quadcopter_params()["Ts"])
+
+
+def pruned(qp, nscen, seed=0):
+    """The full scenario tree QP ``qp`` pruned to ``nscen`` scenarios with
+    leaf probabilities drawn from a flat Dirichlet (numpy, ``seed``): the
+    pruned controllers of ``benchmarks/fault_tolerance.py:84-107``. On
+    ``qp``'s device."""
+    from treeqp_tpu_torch.utils.pruning import prune_scenario_tree
+    n_leaves = int(np.sum(qp.topo.nkids == 0))
+    probs = np.random.default_rng(seed).dirichlet(np.ones(n_leaves))
+    return prune_scenario_tree(qp, leaf_probs=probs, nscenmax=nscen)[0]
+
+
+def asym_tree(device="cuda"):
+    """The asymmetric thesis-class tree of ``benchmarks/generic_bench.py``
+    (``build("asym_speed")``): the root branches three ways and the
+    branches chain to depths 2, 5 and 9 (20 nodes); nx=8, nu=3, diagonal
+    weights and box bounds, data from numpy's generator with seed 3. Made
+    on ``device``."""
+    rng = np.random.default_rng(3)
+    parent, tips = [-1, 0, 0, 0], [1, 2, 3]
+    for d, depth in zip((1, 2, 3), (2, 5, 9)):
+        for _ in range(depth):
+            parent.append(tips[d - 1])
+            tips[d - 1] = len(parent) - 1
+    Nn, nx, nu = len(parent), 8, 3
+    topo = TreeStructure.from_parent(parent, [nx] * Nn, [nu] * Nn, [0] * Nn)
+    Qd = 1.0 + rng.random((Nn, nx))
+    Rd = 1.0 + rng.random((Nn, nu))
+    data = dict(Q=np.einsum("ni,ij->nij", Qd, np.eye(nx)),
+                R=np.einsum("ni,ij->nij", Rd, np.eye(nu)),
+                q=rng.standard_normal((Nn, nx)), r=rng.standard_normal((Nn, nu)),
+                A=rng.standard_normal((Nn, nx, nx)) * 0.3,
+                B=rng.standard_normal((Nn, nx, nu)) * 0.3,
+                b=rng.standard_normal((Nn, nx)) * 0.1,
+                xmin=np.full((Nn, nx), -0.9), xmax=np.full((Nn, nx), 0.9),
+                umin=np.full((Nn, nu), -0.7), umax=np.full((Nn, nu), 0.7))
+    for k in ("A", "B", "b"):
+        data[k][0] = 0.0
+    return TreeQPIn.zeros(topo, device=device).replace(
+        **{k: torch.tensor(v, dtype=torch.float64, device=device) for k, v in data.items()})

@@ -50,9 +50,8 @@ _SIGNATURES = {
     # pointers, dims, stream
     "tq_newton_iter": [_P] * 3,
     # ABk, ztp, dvals, sW, sUt, Wadd, lev_ptr, lev_child, lev_parent,
-    # lev_slot, committed, CholW, CholUt, NpG, K, nxm, nz, n_lev, reg,
-    # threads, stream
-    "tq_crown_blocks_factor": [_P] * 13 + [_I] * 5 + [_F, _I, _P],
+    # lev_slot, CholW, CholUt, NpG, K, nxm, nz, n_lev, reg, threads, stream
+    "tq_crown_blocks_factor": [_P] * 12 + [_I] * 5 + [_F, _I, _P],
     # Ls, CUs, CholW, CholUt, rg, rch, lev_ptr, lev_child, lev_parent,
     # lev_slot, g_of, slot, rv, ycr, dg, dch, S, L, n, NpG, K, n_lev,
     # threads, stream
@@ -68,6 +67,19 @@ _SIGNATURES = {
     "tq_crown_apply_df": [_P] + [_I] * 4 + [_P],
     # x, n, m, buf, out, stream
     "tq_df_reduce": [_P, _L, _L, _P, _P, _P],
+    # the tree Cholesky of the generic-tree solver
+    # Wc, Utc, Ls, CUs, schur0, S, L, n, stream
+    "tq_chain_factor": [_P] * 5 + [_I] * 3 + [_P],
+    # Ls, CUs, res, ys, radd0, S, L, n, stream
+    "tq_chain_solve_bwd": [_P] * 5 + [_I] * 3 + [_P],
+    # Ls, CUs, ys, droot, dls, S, L, n, stream
+    "tq_chain_forward": [_P] * 5 + [_I] * 3 + [_P],
+    # W, Ut, lev_ptr, lev_child, lev_parent, lev_slot, CholW, CholUt, NpG,
+    # K, nxm, n_lev, reg, threads, stream
+    "tq_crown_factor": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+    # CholW, CholUt, rg, lev_ptr, lev_child, lev_parent, lev_slot, rv, ycr,
+    # dg, NpG, K, nxm, n_lev, threads, stream
+    "tq_crown_solve": [_P] * 10 + [_I] * 5 + [_P],
 }
 
 _LIB = None

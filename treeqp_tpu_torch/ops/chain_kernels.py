@@ -1,19 +1,22 @@
-"""Chain kernels of the multistage dual Newton: factorize and evaluation.
+"""Chain kernels of the dual Newton: factorize, solve sweeps and evaluation.
 
-Port of ``chain_blocks_factor``, ``chain_blocks_factor_lanes``,
-``chain_eval`` and ``chain_eval_data`` in
-``treeqp_tpu/ops/chain_kernels.py``. Each kernel wrapper launches its CUDA
-kernel (``csrc/chain_blocks_factor.cu``, ``csrc/chain_eval.cu``) on CUDA
-tensors and runs its plain PyTorch twin (``*_ref``) on CPU tensors. All are
-f32, like the Pallas kernels. The other chain kernels of that module
-(separate factor / sweeps, the multi-RHS solve) are not ported yet.
+Port of ``chain_factor``, ``chain_solve_bwd``, ``chain_forward``,
+``chain_blocks_factor``, ``chain_blocks_factor_lanes``, ``chain_eval`` and
+``chain_eval_data`` in ``treeqp_tpu/ops/chain_kernels.py``. Each kernel
+wrapper launches its CUDA kernel (``csrc/chain_factor.cu``,
+``csrc/chain_sweeps.cu``, ``csrc/chain_blocks_factor.cu``,
+``csrc/chain_eval.cu``) on CUDA tensors and runs its plain PyTorch twin
+(``*_ref``) on CPU tensors. All are f32, like the Pallas kernels. The
+multi-RHS solve of self-contained chains (``chain_full_solve_mat``, sdunes)
+is not ported yet.
 
 Every chain tensor is laid out ``[S, L, ...]`` (scenario first); the JAX
 kernels' lane layout ``[L, ..., S_pad]`` is not carried over, so the
 "lanes" variant of the factorize differs from the plain one only in where
 it reads the parent's masked inverses. The factor handles ``Ls``/``CUs``
-are ``[S, L, nx, nx]``; only ``system_kernels`` and ``iter_kernel`` read
-them.
+are ``[S, L, nx, nx]``; the multistage solver reads them through
+``system_kernels`` and ``iter_kernel``, the generic-tree solver's split
+path through ``chain_solve_bwd`` and ``chain_forward``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import torch
 
 from treeqp_tpu_torch.ops import _build, _dense
 
-__all__ = ["chain_blocks_factor", "chain_blocks_factor_ref",
+__all__ = ["chain_factor", "chain_factor_ref", "chain_solve_bwd",
+           "chain_solve_bwd_ref", "chain_forward", "chain_forward_ref",
+           "chain_blocks_factor", "chain_blocks_factor_ref",
            "chain_blocks_factor_lanes", "chain_blocks_factor_lanes_ref",
            "CHAIN_DATA_KEYS", "chain_eval_data", "chain_eval", "chain_eval_ref"]
 
@@ -31,9 +36,142 @@ CHAIN_DATA_KEYS = ("ABt", "q", "r", "Qd", "Rd", "Qinv", "Rinv", "xmin", "xmax",
                    "umin", "umax", "b")
 
 
+def chain_factor_ref(Wc, Utc):
+    """Plain PyTorch twin of the kernel (see ``chain_factor``)."""
+    S, L, nx, _ = Wc.shape
+    Ls = torch.empty((S, L, nx, nx), dtype=Wc.dtype, device=Wc.device)
+    CUs = torch.empty_like(Ls)
+    schur = torch.zeros((S, nx, nx), dtype=Wc.dtype, device=Wc.device)
+    for j in range(L - 1, -1, -1):
+        Lf = _dense.chol(Wc[:, j] - schur)
+        CU = _dense.rtrsm_t(Lf, Utc[:, j])
+        Ls[:, j], CUs[:, j] = Lf, CU
+        schur = _dense.outer_sum(CU, CU)
+    return Ls, CUs, schur
+
+
+def _chain_shape_check(name, S, L, n):
+    if not (0 < n <= 16 and S > 0 and L > 0):
+        raise ValueError(f"{name}: unsupported shape S={S} L={L} n={n}")
+
+
+def chain_factor(Wc, Utc):
+    """Banded backward block Cholesky of given chain blocks, per chain:
+    for j = L-1 .. 0, Ls_j = chol(Wc_j - CUs_{j+1} CUs_{j+1}') (pivot rule
+    a_kk rsqrt(max(a_kk, 1e-8)), no shift: the caller adds any LM shift to
+    Wc) and CUs_j = Utc_j Ls_j^-T.
+
+    Wc [S, L, n, n] the equilibrated chain blocks, j = 0 the node next to
+    the crown; Utc [S, L, n, n] their couplings to node j-1 (the crown
+    parent at j = 0). Both f32. Returns (Ls, CUs [S, L, n, n], schur0
+    [S, n, n] = CUs_0 CUs_0', the Schur block flowing into the crown).
+    """
+    if Wc.device.type == "cpu":
+        return chain_factor_ref(Wc, Utc)
+    name = "chain_factor"
+    S, L, n, _ = Wc.shape
+    dev = Wc.device
+    for arg, t in (("Wc", Wc), ("Utc", Utc)):
+        _build.require(name, arg, t, (S, L, n, n), dev)
+    _chain_shape_check(name, S, L, n)
+    f32 = dict(dtype=torch.float32, device=dev)
+    Ls = torch.empty((S, L, n, n), **f32)
+    CUs = torch.empty((S, L, n, n), **f32)
+    schur0 = torch.empty((S, n, n), **f32)
+    err = _build.lib().tq_chain_factor(
+        Wc.data_ptr(), Utc.data_ptr(), Ls.data_ptr(), CUs.data_ptr(),
+        schur0.data_ptr(), S, L, n, _build.stream(dev))
+    _build.check(err, name)
+    chain_factor.launches += 1
+    return Ls, CUs, schur0
+
+
+chain_factor.launches = 0
+
+
+def chain_solve_bwd_ref(Ls, CUs, res):
+    """Plain PyTorch twin of the kernel (see ``chain_solve_bwd``)."""
+    S, L, n, _ = Ls.shape
+    ys = torch.empty_like(res)
+    radd = torch.zeros((S, n), dtype=Ls.dtype, device=Ls.device)
+    for j in range(L - 1, -1, -1):
+        y = _dense.ltrsv(Ls[:, j], res[:, j] - radd)
+        ys[:, j] = y
+        radd = _dense.mv(CUs[:, j], y)
+    return ys, radd
+
+
+def chain_solve_bwd(Ls, CUs, res):
+    """Right-hand-side backward sweep with ``chain_factor``'s factors:
+    ys_j = Ls_j^-1 (res_j - CUs_{j+1} ys_{j+1}) for j = L-1 .. 0.
+
+    Ls, CUs [S, L, n, n]; res [S, L, n]. All f32. Returns (ys [S, L, n] —
+    feed it to ``chain_forward`` — and radd0 [S, n] = CUs_0 ys_0, the
+    update of each chain's crown-parent right-hand side)."""
+    if Ls.device.type == "cpu":
+        return chain_solve_bwd_ref(Ls, CUs, res)
+    name = "chain_solve_bwd"
+    S, L, n, _ = Ls.shape
+    dev = Ls.device
+    for arg, t, shape in (("Ls", Ls, (S, L, n, n)), ("CUs", CUs, (S, L, n, n)),
+                          ("res", res, (S, L, n))):
+        _build.require(name, arg, t, shape, dev)
+    _chain_shape_check(name, S, L, n)
+    ys = torch.empty((S, L, n), dtype=torch.float32, device=dev)
+    radd0 = torch.empty((S, n), dtype=torch.float32, device=dev)
+    err = _build.lib().tq_chain_solve_bwd(
+        Ls.data_ptr(), CUs.data_ptr(), res.data_ptr(), ys.data_ptr(),
+        radd0.data_ptr(), S, L, n, _build.stream(dev))
+    _build.check(err, name)
+    chain_solve_bwd.launches += 1
+    return ys, radd0
+
+
+chain_solve_bwd.launches = 0
+
+
+def chain_forward_ref(Ls, CUs, ys, droot):
+    """Plain PyTorch twin of the kernel (see ``chain_forward``)."""
+    L = Ls.shape[1]
+    dls = torch.empty_like(ys)
+    dp = droot
+    for j in range(L):
+        dp = _dense.uttrsv(Ls[:, j], ys[:, j] - _dense.mv(CUs[:, j], dp, trans=True))
+        dls[:, j] = dp
+    return dls
+
+
+def chain_forward(Ls, CUs, ys, droot):
+    """Forward substitution down each chain with ``chain_factor``'s
+    factors: dl_j = Ls_j^-T (ys_j - CUs_j' dl_{j-1}) for j = 0 .. L-1, from
+    dl_{-1} = droot, the crown's direction at the edge into the chain.
+
+    Ls, CUs [S, L, n, n]; ys [S, L, n] (``chain_solve_bwd``'s); droot
+    [S, n]. All f32. Returns dls [S, L, n]."""
+    if Ls.device.type == "cpu":
+        return chain_forward_ref(Ls, CUs, ys, droot)
+    name = "chain_forward"
+    S, L, n, _ = Ls.shape
+    dev = Ls.device
+    for arg, t, shape in (("Ls", Ls, (S, L, n, n)), ("CUs", CUs, (S, L, n, n)),
+                          ("ys", ys, (S, L, n)), ("droot", droot, (S, n))):
+        _build.require(name, arg, t, shape, dev)
+    _chain_shape_check(name, S, L, n)
+    dls = torch.empty((S, L, n), dtype=torch.float32, device=dev)
+    err = _build.lib().tq_chain_forward(
+        Ls.data_ptr(), CUs.data_ptr(), ys.data_ptr(), droot.data_ptr(),
+        dls.data_ptr(), S, L, n, _build.stream(dev))
+    _build.check(err, name)
+    chain_forward.launches += 1
+    return dls
+
+
+chain_forward.launches = 0
+
+
 def chain_blocks_factor_ref(ABt, ztp, qtc, s_root):
     """Plain PyTorch twin of the kernel (see ``chain_blocks_factor``)."""
-    S, L, nx, nz = ABt.shape
+    nx = ABt.shape[2]
     W = _dense.outer_sum(ABt, ABt, ztp) + torch.diag_embed(qtc)
     sc = torch.rsqrt(torch.clamp(torch.diagonal(W, dim1=2, dim2=3), min=1e-12))
     W = W * sc[..., :, None] * sc[..., None, :]
@@ -41,14 +179,7 @@ def chain_blocks_factor_ref(ABt, ztp, qtc, s_root):
     Ut = -(ztp[..., :nx, None] * ABt[..., :nx].transpose(2, 3))
     scp = torch.cat([s_root[:, None], sc[:, :-1]], dim=1)
     Ut = Ut * scp[..., :, None] * sc[..., None, :]
-    Ls = torch.empty((S, L, nx, nx), dtype=W.dtype, device=W.device)
-    CUs = torch.empty_like(Ls)
-    schur = torch.zeros((S, nx, nx), dtype=W.dtype, device=W.device)
-    for j in range(L - 1, -1, -1):
-        Lf = _dense.chol(W[:, j] - schur)
-        CU = _dense.rtrsm_t(Lf, Ut[:, j])
-        Ls[:, j], CUs[:, j] = Lf, CU
-        schur = _dense.outer_sum(CU, CU)
+    Ls, CUs, schur = chain_factor_ref(W, Ut)
     return Ls, CUs, schur, sc.contiguous()
 
 

@@ -1,17 +1,20 @@
-"""Crown (generic-tree) kernels of the multistage dual Newton: factorize
-and evaluation.
+"""Crown (generic-tree) kernels of the dual Newton: factorize, solve and
+evaluation.
 
-Port of ``_get_sched``, ``crown_blocks_factor``, ``crown_eval_data`` and
-``crown_eval`` in ``treeqp_tpu/ops/crown_kernels.py``. Each kernel wrapper
-launches its CUDA kernel (``csrc/crown_blocks_factor.cu``,
-``csrc/crown_eval.cu``) on CUDA tensors and runs its plain PyTorch twin
-(``*_ref``) on CPU tensors; all are f32, like the Pallas kernels. The level
-schedule is a list of (child group, parent group, slot) triples per level
-instead of the TPU kernel's one-hot lane-permutation matrices, and the
-evaluation's kid sum and parent gather read the kid lists and parents
-(``eval_sched``) instead of a one-hot [NPc, NPc] parent matrix, so the
-crown has no node cap. ``crown_factor`` and ``crown_solve`` of that module
-are not ported yet.
+Port of ``_get_sched``, ``crown_factor``, ``crown_solve``,
+``crown_blocks_factor``, ``crown_eval_data`` and ``crown_eval`` in
+``treeqp_tpu/ops/crown_kernels.py``. Each kernel wrapper launches its CUDA
+kernel (``csrc/crown_factor.cu``, ``csrc/crown_solve.cu``,
+``csrc/crown_blocks_factor.cu``, ``csrc/crown_eval.cu``) on CUDA tensors
+and runs its plain PyTorch twin (``*_ref``) on CPU tensors; all are f32,
+like the Pallas kernels. The level schedule is a list of (child group,
+parent group, slot) triples per level instead of the TPU kernel's one-hot
+lane-permutation matrices, and the evaluation's kid sum and parent gather
+read the kid lists and parents (``eval_sched``) instead of a one-hot
+[NPc, NPc] parent matrix, so the crown has no node cap. A schedule may
+cover only the shallow levels of a tree (the crown of the generic solver's
+split path); its kernels then take the crown's groups only, the group
+prefix those levels and the root form.
 
 Factors are group-major: CholW [NpG, G, G], CholUt [NpG, nxm, G] (the JAX
 kernel's are lane-major [G, G, NPg]); evaluation data and results are
@@ -28,7 +31,8 @@ import torch
 from treeqp_tpu_torch.ops import _build, _dense
 from treeqp_tpu_torch.solvers.tdunes import _kid_sum
 
-__all__ = ["crown_supported", "crown_blocks_factor", "crown_blocks_factor_ref",
+__all__ = ["crown_supported", "crown_factor", "crown_factor_ref", "crown_solve",
+           "crown_solve_ref", "crown_blocks_factor", "crown_blocks_factor_ref",
            "eval_sched", "CROWN_DATA_KEYS", "crown_eval_data", "crown_eval",
            "crown_eval_ref"]
 
@@ -53,7 +57,6 @@ class _CrownSched:
     lev_child: np.ndarray   # group factorized at this entry
     lev_parent: np.ndarray  # its parent group
     lev_slot: np.ndarray    # its slot in the parent group
-    committed: np.ndarray   # [NpG] 1 where a level or the root factorizes the group
     width: int              # most groups on one level
     _tensors: dict = dataclasses.field(default_factory=dict, compare=False)
 
@@ -65,35 +68,54 @@ class _CrownSched:
             hit = {k: torch.as_tensor(getattr(self, k), dtype=torch.int32,
                                       device=device)
                    for k in ("lev_ptr", "lev_child", "lev_parent",
-                             "lev_slot", "committed")}
+                             "lev_slot")}
             self._tensors[device] = hit
         return hit
 
 
-def _get_sched(prep) -> _CrownSched:
-    """Build / fetch the per-topology schedule from a tdunes ``_Prep``."""
-    sched = getattr(prep, "_crown_sched", None)
+def _get_sched(prep, levels=None) -> _CrownSched:
+    """Build / fetch the schedule from a tdunes ``_Prep``: of all its
+    levels (``prep.levels``), or of ``levels``, a deepest-first list of
+    group-id arrays (the crown levels of the split path). The levels and
+    the root group 0 must list each group of a prefix 0..NpG-1 of the
+    prep's groups once; that prefix is what the kernels take. Cached on the
+    prep."""
+    cache = prep.__dict__.setdefault("_crown_scheds", {})
+    key = None if levels is None else tuple(tuple(int(g) for g in lv) for lv in levels)
+    sched = cache.get(key)
     if sched is not None:
         return sched
     assert prep.NpG == 0 or prep.gdad[0] == -1, "group 0 must be the root group"
-    ptr, child, parent, slot = [0], [], [], []
-    committed = np.zeros(prep.NpG, np.int32)
-    if prep.NpG:
-        committed[0] = 1
-    for lev in prep.levels:
-        child.extend(lev)
-        parent.extend(prep.gdad[lev])
-        slot.extend(prep.gslot[lev])
-        committed[lev] = 1
-        ptr.append(len(child))
+    levels = prep.levels if levels is None else [np.asarray(lv) for lv in levels]
+    child = np.concatenate([np.zeros(0, np.int64)] + [np.asarray(lv) for lv in levels])
+    NpG = len(child) + 1 if prep.NpG else 0
+    if prep.NpG and not np.array_equal(np.sort(child), np.arange(1, NpG)):
+        raise ValueError("crown schedule: the levels must list each of the groups "
+                         f"1..{NpG - 1} once")
     i32 = lambda v: np.asarray(v, np.int32)
     sched = _CrownSched(
-        n_lev=len(prep.levels), K=prep.K, G=prep.G, nxm=prep.nxm,
-        NpG=prep.NpG, lev_ptr=i32(ptr), lev_child=i32(child),
-        lev_parent=i32(parent), lev_slot=i32(slot), committed=committed,
-        width=max([len(v) for v in prep.levels] + [1]))
-    prep._crown_sched = sched
+        n_lev=len(levels), K=prep.K, G=prep.G, nxm=prep.nxm, NpG=NpG,
+        lev_ptr=i32(np.cumsum([0] + [len(lv) for lv in levels])),
+        lev_child=i32(child), lev_parent=i32(prep.gdad[child]),
+        lev_slot=i32(prep.gslot[child]),
+        width=max([len(v) for v in levels] + [1]))
+    cache[key] = sched
     return sched
+
+
+def _level_index(sched, device):
+    """Per level, the (child, parent, slot) long tensors on ``device``."""
+    out = []
+    for r in range(sched.n_lev):
+        sl = slice(int(sched.lev_ptr[r]), int(sched.lev_ptr[r + 1]))
+        out.append(tuple(torch.as_tensor(a[sl], dtype=torch.long, device=device)
+                         for a in (sched.lev_child, sched.lev_parent, sched.lev_slot)))
+    return out
+
+
+def _sched_threads(sched) -> int:
+    """Threads of the one-block crown kernels: one per group up to 1024."""
+    return min(1024, max(32, -(-max(sched.NpG, sched.width) // 32) * 32))
 
 
 def crown_supported(prep, opts) -> bool:
@@ -117,30 +139,125 @@ def _crown_blocks(ABk, ztp, dvals, sW, sUt, Wadd):
     return W.contiguous(), Ut.contiguous()
 
 
-def crown_blocks_factor_ref(ABk, ztp, dvals, sW, sUt, Wadd, prep, reg=0.0):
-    """Plain PyTorch twin of the kernel (see ``crown_blocks_factor``)."""
-    sched = _get_sched(prep)
+def crown_factor_ref(W, Ut, prep, reg=0.0, levels=None):
+    """Plain PyTorch twin of the kernel (see ``crown_factor``)."""
+    sched = _get_sched(prep, levels)
     K, nxm = sched.K, sched.nxm
-    W, Ut = _crown_blocks(ABk, ztp, dvals, sW, sUt, Wadd)
-    NpG, G = W.shape[0], W.shape[1]
-    committed = torch.as_tensor(sched.committed > 0, device=W.device)
-    eye = torch.eye(G, dtype=W.dtype, device=W.device).expand(NpG, G, G)
-    CholW = torch.where(committed[:, None, None], W, eye).clone()
-    CholUt = torch.zeros_like(Ut)
-    Wv = W.view(NpG, K, nxm, K, nxm)
-    for r in range(sched.n_lev):
-        sl = slice(int(sched.lev_ptr[r]), int(sched.lev_ptr[r + 1]))
-        g = torch.as_tensor(sched.lev_child[sl], dtype=torch.long, device=W.device)
-        d = torch.as_tensor(sched.lev_parent[sl], dtype=torch.long, device=W.device)
-        s = torch.as_tensor(sched.lev_slot[sl], dtype=torch.long, device=W.device)
-        Lf = _dense.chol(W[g], reg=reg, clamp_diag=True)
+    # every group but the root is factorized on its level, after its kids
+    # have updated its block: the factors overwrite the blocks in place
+    CholW, CholUt = W.clone(), torch.zeros_like(Ut)
+    Wv = CholW.view(W.shape[0], K, nxm, K, nxm)
+    for g, d, s in _level_index(sched, W.device):
+        Lf = _dense.chol(CholW[g], reg=reg, clamp_diag=True)
         CU = _dense.rtrsm_t(Lf, Ut[g])
         CholW[g], CholUt[g] = Lf, CU
         # one child per (parent, slot): a plain indexed update
         Wv[d, s, :, s, :] -= _dense.outer_sum(CU, CU)
-    if sched.committed[0]:
-        CholW[0] = _dense.chol(W[0], reg=reg, clamp_diag=True)
+    CholW[0] = _dense.chol(CholW[0], reg=reg, clamp_diag=True)
     return CholW, CholUt
+
+
+def _crown_check(name, sched, nxm):
+    if not (0 < sched.NpG and 0 < nxm <= 16 and sched.G <= _MAX_G):
+        raise ValueError(f"{name}: unsupported shape NpG={sched.NpG} G={sched.G} "
+                         f"nxm={nxm}")
+
+
+def crown_factor(W, Ut, prep, reg=0.0, levels=None):
+    """Level-synchronous tree block Cholesky of given equilibrated blocks,
+    deepest level first: CholW_g = chol(W_g + reg I) (pivot floor 1e-8,
+    clamped diagonal), CholUt_g = Ut_g CholW_g^-T, and the Schur block
+    CholUt_g CholUt_g' subtracted from the parent's slot diagonal block;
+    then the root group.
+
+    W [NpG, G, G], Ut [NpG, nxm, G], f32. ``levels`` (default: every level
+    of ``prep``) is a deepest-first list of group-id arrays; with the root
+    they list the NpG groups of W (``_get_sched``). Returns CholW
+    [NpG, G, G], CholUt [NpG, nxm, G] for ``crown_solve``.
+    """
+    if W.device.type == "cpu":
+        return crown_factor_ref(W, Ut, prep, reg, levels)
+    name = "crown_factor"
+    sched = _get_sched(prep, levels)
+    NpG, K, nxm, G = sched.NpG, sched.K, sched.nxm, sched.G
+    dev = W.device
+    _build.require(name, "W", W, (NpG, G, G), dev)
+    _build.require(name, "Ut", Ut, (NpG, nxm, G), dev)
+    _crown_check(name, sched, nxm)
+    CholW = torch.empty((NpG, G, G), dtype=torch.float32, device=dev)
+    CholUt = torch.empty((NpG, nxm, G), dtype=torch.float32, device=dev)
+    t = sched.on(dev)
+    err = _build.lib().tq_crown_factor(
+        W.data_ptr(), Ut.data_ptr(), t["lev_ptr"].data_ptr(),
+        t["lev_child"].data_ptr(), t["lev_parent"].data_ptr(),
+        t["lev_slot"].data_ptr(), CholW.data_ptr(), CholUt.data_ptr(), NpG, K, nxm,
+        sched.n_lev, float(reg), _sched_threads(sched), _build.stream(dev))
+    _build.check(err, name)
+    crown_factor.launches += 1
+    return CholW, CholUt
+
+
+crown_factor.launches = 0
+
+
+def crown_solve_ref(CholW, CholUt, rg, prep, levels=None):
+    """Plain PyTorch twin of the kernel (see ``crown_solve``)."""
+    sched = _get_sched(prep, levels)
+    NpG, K, n = sched.NpG, sched.K, sched.nxm
+    idx = _level_index(sched, CholW.device)
+    rv = rg.clone()
+    rvv = rv.view(NpG, K, n)
+    ycr = torch.zeros_like(rv)
+    for g, d, s in idx:
+        y = _dense.ltrsv(CholW[g], rv[g])
+        ycr[g] = y
+        rvv[d, s] -= _dense.mv(CholUt[g], y)
+    dg = torch.zeros_like(rv)
+    dg[0] = _dense.uttrsv(CholW[0], _dense.ltrsv(CholW[0], rv[0]))
+    for g, d, s in reversed(idx):
+        dp = dg.view(NpG, K, n)[d, s]
+        dg[g] = _dense.uttrsv(CholW[g], ycr[g] - _dense.mv(CholUt[g], dp, trans=True))
+    return dg
+
+
+def crown_solve(CholW, CholUt, rg, prep, levels=None):
+    """Solve M dlam = rg with ``crown_factor``'s factors (the same
+    ``levels``): backward right-hand-side sweep, root solve, forward
+    substitution.
+
+    CholW [NpG, G, G], CholUt [NpG, nxm, G], rg [NpG, G], f32. Returns
+    dlam [NpG, G]."""
+    if CholW.device.type == "cpu":
+        return crown_solve_ref(CholW, CholUt, rg, prep, levels)
+    name = "crown_solve"
+    sched = _get_sched(prep, levels)
+    NpG, K, nxm, G = sched.NpG, sched.K, sched.nxm, sched.G
+    dev = CholW.device
+    for arg, t, shape in (("CholW", CholW, (NpG, G, G)),
+                          ("CholUt", CholUt, (NpG, nxm, G)), ("rg", rg, (NpG, G))):
+        _build.require(name, arg, t, shape, dev)
+    _crown_check(name, sched, nxm)
+    f32 = dict(dtype=torch.float32, device=dev)
+    rv, ycr, dg = (torch.empty((NpG, G), **f32) for _ in range(3))
+    t = sched.on(dev)
+    err = _build.lib().tq_crown_solve(
+        CholW.data_ptr(), CholUt.data_ptr(), rg.data_ptr(),
+        t["lev_ptr"].data_ptr(), t["lev_child"].data_ptr(),
+        t["lev_parent"].data_ptr(), t["lev_slot"].data_ptr(), rv.data_ptr(),
+        ycr.data_ptr(), dg.data_ptr(), NpG, K, nxm, sched.n_lev,
+        _sched_threads(sched), _build.stream(dev))
+    _build.check(err, name)
+    crown_solve.launches += 1
+    return dg
+
+
+crown_solve.launches = 0
+
+
+def crown_blocks_factor_ref(ABk, ztp, dvals, sW, sUt, Wadd, prep, reg=0.0):
+    """Plain PyTorch twin of the kernel (see ``crown_blocks_factor``)."""
+    W, Ut = _crown_blocks(ABk, ztp, dvals, sW, sUt, Wadd)
+    return crown_factor_ref(W, Ut, prep, reg)
 
 
 def crown_blocks_factor(ABk, ztp, dvals, sW, sUt, Wadd, prep, reg=0.0):
@@ -173,14 +290,12 @@ def crown_blocks_factor(ABk, ztp, dvals, sW, sUt, Wadd, prep, reg=0.0):
     CholW = torch.empty((NpG, G, G), **f32)
     CholUt = torch.empty((NpG, nxm, G), **f32)
     t = sched.on(dev)
-    threads = min(1024, max(32, -(-max(NpG, sched.width) // 32) * 32))
     err = _build.lib().tq_crown_blocks_factor(
         ABk.data_ptr(), ztp.data_ptr(), dvals.data_ptr(), sW.data_ptr(),
         sUt.data_ptr(), Wadd.data_ptr(), t["lev_ptr"].data_ptr(),
         t["lev_child"].data_ptr(), t["lev_parent"].data_ptr(),
-        t["lev_slot"].data_ptr(), t["committed"].data_ptr(),
-        CholW.data_ptr(), CholUt.data_ptr(), NpG, K, nxm, nz, sched.n_lev,
-        float(reg), threads, _build.stream(dev))
+        t["lev_slot"].data_ptr(), CholW.data_ptr(), CholUt.data_ptr(), NpG, K,
+        nxm, nz, sched.n_lev, float(reg), _sched_threads(sched), _build.stream(dev))
     _build.check(err, name)
     crown_blocks_factor.launches += 1
     return CholW, CholUt

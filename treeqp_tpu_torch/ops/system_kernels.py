@@ -16,8 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from treeqp_tpu_torch.ops import _build, _dense
-from treeqp_tpu_torch.ops.crown_kernels import _get_sched, crown_supported
+from treeqp_tpu_torch.ops import _build
+from treeqp_tpu_torch.ops.chain_kernels import chain_forward_ref, chain_solve_bwd_ref
+from treeqp_tpu_torch.ops.crown_kernels import _get_sched, crown_solve_ref, crown_supported
 
 __all__ = ["ms_sched", "system_supported", "system_solve", "system_solve_ref"]
 
@@ -47,53 +48,19 @@ def system_supported(prep, meta, opts) -> bool:
 
 
 def system_solve_ref(Ls, CUs, CholW, CholUt, rg, rch, prep, root_ids):
-    """Plain PyTorch twin of the kernel (see ``system_solve``)."""
+    """Plain PyTorch twin of the kernel (see ``system_solve``): the chain
+    backward sweeps, the crown solve and the chain forward sweeps of
+    ``chain_kernels`` / ``crown_kernels``, joined at the chain roots."""
     sched = _get_sched(prep)
-    S, L, n, _ = Ls.shape
-    G, NpG = sched.G, sched.NpG
-    dev = Ls.device
-    ids = {k: v.long() for k, v in ms_sched(prep, root_ids, dev).items()}
-    rg = rg.to(Ls.dtype)
-    rch = rch.to(Ls.dtype)
-    # 1. chain backward sweeps
-    ys = torch.empty_like(rch)
-    radd = torch.zeros((S, n), dtype=Ls.dtype, device=dev)
-    for j in range(L - 1, -1, -1):
-        y = _dense.ltrsv(Ls[:, j], rch[:, j] - radd)
-        ys[:, j] = y
-        radd = _dense.mv(CUs[:, j], y)
+    NpG, K, n = sched.NpG, sched.K, sched.nxm
+    ids = {k: v.long() for k, v in ms_sched(prep, root_ids, Ls.device).items()}
+    ys, radd = chain_solve_bwd_ref(Ls, CUs, rch.to(Ls.dtype))
     # inject into the crown groups (one chain per (group, slot))
-    rv = rg.clone().view(NpG, sched.K, n)
-    rv[ids["g_of"], ids["slot"]] -= radd
-    rv = rv.view(NpG, G)
-    levels = []
-    for r in range(sched.n_lev):
-        sl = slice(int(sched.lev_ptr[r]), int(sched.lev_ptr[r + 1]))
-        levels.append(tuple(torch.as_tensor(a[sl], dtype=torch.long, device=dev)
-                            for a in (sched.lev_child, sched.lev_parent,
-                                      sched.lev_slot)))
-    # 2. crown backward
-    ycr = torch.zeros_like(rv)
-    for g, d, s in levels:
-        y = _dense.ltrsv(CholW[g], rv[g])
-        ycr[g] = y
-        rvv = rv.view(NpG, sched.K, n)
-        rvv[d, s] -= _dense.mv(CholUt[g], y)
-    # 3. root
-    dg = torch.zeros_like(rv)
-    dg[0] = _dense.uttrsv(CholW[0], _dense.ltrsv(CholW[0], rv[0]))
-    # 4. crown forward
-    for g, d, s in reversed(levels):
-        dp = dg.view(NpG, sched.K, n)[d, s]
-        dg[g] = _dense.uttrsv(CholW[g], ycr[g] - _dense.mv(CholUt[g], dp, trans=True))
-    # 5. chain forward
-    dp = dg.view(NpG, sched.K, n)[ids["g_of"], ids["slot"]]
-    dch = torch.empty_like(rch)
-    for j in range(L):
-        dl = _dense.uttrsv(Ls[:, j], ys[:, j] - _dense.mv(CUs[:, j], dp, trans=True))
-        dch[:, j] = dl
-        dp = dl
-    return dg, dch
+    rv = rg.to(Ls.dtype).clone()
+    rv.view(NpG, K, n)[ids["g_of"], ids["slot"]] -= radd
+    dg = crown_solve_ref(CholW, CholUt, rv, prep)
+    dp = dg.view(NpG, K, n)[ids["g_of"], ids["slot"]]
+    return dg, chain_forward_ref(Ls, CUs, ys, dp)
 
 
 def system_solve(Ls, CUs, CholW, CholUt, rg, rch, prep, root_ids):

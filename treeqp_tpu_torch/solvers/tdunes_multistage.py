@@ -52,7 +52,7 @@ from treeqp_tpu_torch.core.qp_data import TreeQPIn, TreeQPOut, QP_FIELDS
 from treeqp_tpu_torch.utils.tree import TreeStructure
 from treeqp_tpu_torch.solvers import tdunes as td
 from treeqp_tpu_torch.solvers.tdunes import (
-    TdunesOpts, TDUNES_OPTIMAL, TDUNES_MAX_ITER, TDUNES_NOT_DESCENT)
+    TdunesOpts, TDUNES_OPTIMAL, TDUNES_MAX_ITER, TDUNES_NOT_DESCENT, _armijo)
 from treeqp_tpu_torch.ops import _dense
 from treeqp_tpu_torch.ops import chain_kernels as ck
 from treeqp_tpu_torch.ops import crown_kernels as ckr
@@ -441,58 +441,6 @@ def _error_of(opts, res_cr, res_ch):
         return torch.maximum(res_cr.abs().max(), res_ch.abs().max())
     sq = torch.sum(res_cr**2) + torch.sum(res_ch**2)
     return torch.sqrt(sq) if opts.termination == "twonorm" else sq
-
-
-def _armijo(f_at, f0, dot, f1, rest1, opts, slack=2.0 ** -45, tau_dtype=None):
-    """Armijo backtracking on f = -g from the tau = 1 trial (f1, rest1)
-    (reference dual_Newton_tree.c:958-992), shared by both Newton loops.
-
-    ``f_at(tau)`` evaluates the trial point lam + tau d and returns (f,
-    rest). The scalars are 0-dim tensors of the data dtype, so an f32
-    phase takes its decisions in f32, as the JAX package does. With
-    ``opts.ls_batch`` = T > 0 a rejected full step tries the candidates
-    tau = beta^k, k = 1..T (powers in the data dtype), and takes the first
-    accepted one: the JAX package evaluates them as one vmapped batch; here
-    they are evaluated in order up to the first accepted, which gives the
-    same step. Beyond them, and when T = 0, the search backtracks
-    sequentially (tau <- beta tau) up to ``ls_max_iter`` trials.
-
-    A trial is accepted when f <= f0 + gamma tau dot + slack |f0|. The steps
-    tau are 0-dim tensors of ``tau_dtype`` (default: f0's dtype; the
-    high-precision phase takes f32 steps on f64 values, as the JAX
-    package's double-float phase does).
-
-    Returns (tau, f, rest, ls_it, accepted): the accepted trial, or the
-    last one tried.
-    """
-    # noise-aware slack: the dual value carries ~sqrt(Nterms)*eps relative
-    # noise; near convergence exact comparisons stall
-    eta = slack * f0.abs()
-    tdt = f0.dtype if tau_dtype is None else tau_dtype
-
-    def accepts(f, tau):
-        return bool(f <= f0 + opts.ls_gamma * tau * dot + eta)
-
-    one = torch.ones((), dtype=tdt, device=f0.device)
-    if accepts(f1, one):
-        return one, f1, rest1, 1, True
-    tau, f, rest, ls_it = one, f1, rest1, 1
-    T = min(opts.ls_batch, opts.ls_max_iter)
-    if T > 0:
-        taus = torch.pow(torch.full((), opts.ls_beta, dtype=tdt, device=f0.device),
-                         torch.arange(1, T + 1, dtype=tdt, device=f0.device))
-        for k in range(T):
-            f, rest = f_at(taus[k])
-            if accepts(f, taus[k]):
-                return taus[k], f, rest, k + 2, True
-        tau, ls_it = taus[-1], T + 1
-    acc = False
-    while not acc and ls_it < opts.ls_max_iter:
-        tau = opts.ls_beta * tau
-        f, rest = f_at(tau)
-        ls_it += 1
-        acc = accepts(f, tau)
-    return tau, f, rest, ls_it, acc
 
 
 def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
