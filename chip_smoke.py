@@ -9,7 +9,7 @@ Phases (any failure exits non-zero):
    (nvidia-smi), builds the kernels of ``treeqp_tpu_torch/csrc/`` into
    ``build/`` (one nvcc per source, in parallel) and prints the build time
    and each kernel's registers and spills;
-2. all seventeen kernels against their plain PyTorch twins on the card,
+2. all eighteen kernels against their plain PyTorch twins on the card,
    with each one's median time from CUDA events, its bound (the least
    time the card could take: the bytes it must move over the memory rate,
    or its operations over the FP32 / FP64 peak, whichever is larger) and,
@@ -24,8 +24,12 @@ Phases (any failure exits non-zero):
    Nr=4, Nh=20: 256 scenarios, 4437 nodes); and the generic-tree solver's
    tree-Cholesky kernels (chain_factor, chain_solve_bwd, chain_forward,
    crown_factor, crown_solve) on each of the three instances of section 5
-   (the pruned tree's timed), at the cold start of the two headline trees
-   and two iterations into the asymmetric tree's solve;
+   and on the general C/D tree of section 6 (the pruned tree's timed), at
+   the cold start of the headline trees and two iterations into the
+   asymmetric tree's solve; and the general stage QPs' ADMM identification
+   (admm_identify) at the first cold stage solve of the general C/D
+   headline (all 4437 nodes; timed) and of its mixed instance (its 1478
+   general nodes), with the working sets it seeds held equal;
 3. the main paths on that instance, each certified by the KKT oracle
    (< 1e-8) and compared with the same solve through the plain twins on
    the CPU: the one-phase solve (slice 1), the two-phase solve (coarse f32
@@ -46,16 +50,30 @@ Phases (any failure exits non-zero):
    plain path; the crown path on the asymmetric thesis-class tree of
    benchmarks/generic_bench.py, also held against the CPU plain path; and
    ``tdunes_solve`` on the unpruned headline tree (split path, 256 chains)
-   against ``tdunes_ms_solve`` at bench options.
+   against ``tdunes_ms_solve`` at bench options;
+6. ``tdunes_solve`` on general C/D trees (slice 5) at general_cd_bench's
+   tdunes options (``models.GENERAL_CD_OPTS``), on the bench's tree
+   spring_mass_chain(4,4,4,20) (256 scenarios, 4437 nodes) with a row
+   -0.6 <= sum x + 0.5 u <= 0.6 on every node (stage solver qpgen): a cold
+   solve and a warm MPC chain of four requests (b + 1e-6 (k + 1), each from
+   the previous solve's duals and working sets), and with the row on every
+   third node (stage solver mixed) cold; each request with status 0 and
+   KKT < 1e-8, its iterations, ADMM launches and time printed; the cold
+   qpgen solve of the same plant at the depth Nr=2 (16 scenarios, 309
+   nodes: the full tree takes ~6 minutes on the CPU) held against the same
+   solve through the plain twins on the CPU (the same iterations, x and u
+   within 1e-9).
 
 The kernel launch counts are set to 0 before each path (one-phase,
 two-phase, bench, bench handover, two-norm, 1024 scenarios, generic split,
-generic crown, generic cross-check) and read after it; every kernel must
-launch on a path that runs it, the multistage paths launch none of the
-generic solver's kernels, the generic split path none of the multistage
-solver's, and the crown path only crown_factor and crown_solve. Prints the
-kernels' JSON summary, then the device JSON as the last line. Imports
-nothing of JAX.
+generic crown, generic cross-check, general C/D qpgen, general C/D mixed)
+and read after it; every kernel must launch on a path that runs it, the
+multistage paths launch none of the generic solver's kernels, the generic
+split path none of the multistage solver's, the crown path only
+crown_factor and crown_solve, no path before section 6 launches
+admm_identify, and the general C/D paths launch it and the five generic
+kernels and none of the multistage solver's. Prints the kernels' JSON
+summary, then the device JSON as the last line. Imports nothing of JAX.
 """
 
 import dataclasses
@@ -106,6 +124,17 @@ DF_RTOL = 1e-12
 GEN_SCEN = 128
 N_REQUESTS_G = 4        # generic cold and warm requests each
 GENERIC_KKT = 1e-6
+# the general C/D trees (models.GENERAL_CD_OPTS): warm MPC requests of the
+# qpgen chain, b + CD_DB (k + 1); the card and the CPU plain path agree on
+# x and u to CD_GAP with the same iterations
+N_REQUESTS_CD = 4
+CD_DB = 1e-6
+CD_GAP = 1e-9
+CD_CPU_NR = 2  # the depth of that comparison: 16 scenarios, 309 nodes
+# admm_identify repeats its twin's order of operations without FMA
+# contraction: held to 1e-6 x max(1, max|lm|), the seeded working sets
+# exactly
+ADMM_RTOL = 1e-6
 # the bound of a kernel: H100 SXM data-sheet rates (FP32 outside the
 # tensor cores, FP64, HBM3)
 PEAK_FLOPS = {False: 67e12, True: 34e12}
@@ -223,13 +252,15 @@ def main():
     sys.path.insert(0, str(ROOT))
     import treeqp_tpu_torch  # noqa: F401  (pins full-precision f32)
     from treeqp_tpu_torch.core.kkt import max_kkt_residual
-    from treeqp_tpu_torch.models import GENERIC_SPEED_OPTS, asym_tree, pruned, quadcopter
+    from treeqp_tpu_torch.models import (GENERAL_CD_OPTS, GENERIC_SPEED_OPTS, asym_tree,
+                                         general_cd, pruned, quadcopter)
     from treeqp_tpu_torch.ops import _build
     from treeqp_tpu_torch.ops import chain_kernels as ck
     from treeqp_tpu_torch.ops import crown_kernels as ckr
     from treeqp_tpu_torch.ops import df_eval_kernels as dek
     from treeqp_tpu_torch.ops import df_reduce as dr
     from treeqp_tpu_torch.ops import iter_kernel as ik
+    from treeqp_tpu_torch.ops import qpgen_lanes as ql
     from treeqp_tpu_torch.ops import system_kernels as sk
     from treeqp_tpu_torch.solvers import ms_df64 as md
     from treeqp_tpu_torch.solvers import tdunes as td
@@ -245,10 +276,11 @@ def main():
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     libpath = _build.build()
     _build.lib()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {libpath.relative_to(ROOT)}")
+    t_build = time.perf_counter() - t_start
+    print(f"build: {t_build:.1f} s -> {libpath.relative_to(ROOT)}")
     for line in Path(str(libpath) + ".ptxas.txt").read_text().splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -544,21 +576,37 @@ def main():
     if td._split_sched(td._get_prep(qa.topo)) is not None:
         fail("the asymmetric tree has a split schedule")
     qp = qp_cpu.to(dev)
+    # the general C/D trees of general_cd_bench (section 6)
+    qc_cpu = general_cd("qpgen", device="cpu")
+    qm_cpu = general_cd("mixed", device="cpu")
+    qc, qm = qc_cpu.to(dev), qm_cpu.to(dev)
+    optsc = td.TdunesOpts(**GENERAL_CD_OPTS)
+    optsm = dataclasses.replace(optsc, stage_solver="mixed")
+    # the options tdunes_solve derives from the data, for the calls below
+    # that skip it
+    optsc_d = dataclasses.replace(optsc, h_diag=True)
+    optsm_d = dataclasses.replace(optsm, h_diag=True,
+                                  node_solver=td.clipping_applicable_nodes(qm_cpu))
+    print(f"general C/D instance: spring_mass_chain(4,4,4,20) with rows: {qc.topo.Nn} "
+          f"nodes, nx={qc.topo.nxm} nu={qc.topo.num}, a row on every node (qpgen) or on "
+          f"{qm.topo.Nn - sum(optsm_d.node_solver)} nodes (mixed), "
+          f"{td._get_prep(qc.topo).NpG} lambda-groups of dim {td._get_prep(qc.topo).G}")
 
-    def tree_chol_checks(q, tag, it):
+    def tree_chol_checks(q, tag, it, o=optsg):
         """Each tree-Cholesky kernel tdunes_solve launches on q, held against
         its twin on the operands at the dual point of the it-th iterate of
         the one-phase solve (0: the cold start; run through the plain twins
         on the CPU), in the order of _tree_chol_factor and _tree_chol_solve.
         Returns record()'s arguments by kernel name."""
         p = td._get_prep(q.topo)
-        regg = optsg.reg_value
+        regg = o.reg_value
         lam = torch.zeros((q.topo.Nn, q.topo.nxm), dtype=torch.float64, device=dev)
         if it:
-            o = td.TdunesOpts(**{**GENERIC_SPEED_OPTS, "f32_phase_tol": 0.0, "max_iter": it})
-            lam = td.tdunes_solve(q.to("cpu"), None, o).lam.to(dev)
-        sol = td._stage_solve(q, lam, td._stage_data(q, optsg, p), optsg, p)
-        sW, W, Ut = td._equilibrate(*td._build_dual_hessian(q, sol, p), p)
+            o_it = dataclasses.replace(o, f32_phase_tol=0.0, max_iter=it)
+            lam = td.tdunes_solve(q.to("cpu"), None, o_it).lam.to(dev)
+        data = td._stage_data(q, o, p)
+        sol = td._stage_solve(q, lam, data, o, p)
+        sW, W, Ut = td._equilibrate(*td._build_dual_hessian(q, sol, data, o, p), p)
         rg = (td._nodes_to_group_mm(td._dual_residual(q, sol, p), p) * sW).float()
         out = {}
 
@@ -620,14 +668,76 @@ def main():
     # the asymmetric tree's cold start is ill-conditioned (its root block's
     # Schur complement cancels: a 1-ulp rsqrt difference shows as ~1e-5 in
     # its factor, tests/test_torch_generic_kernels.py), so its kernels are
-    # held against their twins two iterations on
-    checks = {tag: tree_chol_checks(q, tag, it) for tag, q, it in (
-        ("pruned", qg, 0), ("asymmetric", qa, 2), ("unpruned", qp, 0))}
+    # held against their twins two iterations on; the general C/D tree's
+    # blocks are the dense-P ones, W = Cf P Cf' (G = 32)
+    checks = {tag: tree_chol_checks(q, tag, it, o) for tag, q, it, o in (
+        ("pruned", qg, 0, optsg), ("asymmetric", qa, 2, optsg), ("unpruned", qp, 0, optsg),
+        ("general C/D", qc, 0, optsc_d))}
     for name, source, replaces, _, fn, ref_fn, shapes, inputs, ops in checks["pruned"].values():
         errs = {tag: c[name][3] for tag, c in checks.items() if name in c}
         record(name, source, replaces, max(errs.values()), fn, ref_fn,
                f"{shapes}; max |diff| "
                + ", ".join(f"{tag} {e:.3e}" for tag, e in errs.items()), inputs, ops)
+
+    def admm_check(q, o, tag, lam):
+        """admm_identify against its twin at a cold stage solve of q's
+        coarse phase (f32 data) at the duals lam, on the general nodes; the
+        working sets both seed must be equal. Returns (operands, max |diff|,
+        operations, description, active rows)."""
+        q = q.to(dtype=torch.float32)
+        p = td._get_prep(q.topo)
+        data = td._stage_data(q, o, p)
+        hmod = torch.cat(td._modified_gradient(q, lam.to(q.dtype), p), dim=1)
+        d = data.get("gen", data)
+        if "idx" in d:
+            hmod = hmod[d["idx"]]
+        lo_c, hi_c, m_eq = td._general_bounds(d["lo"], d["hi"], d["m_lo"], d["m_hi"])
+        args = td._admm_operands(hmod, d["Hinv"], d["G"], lo_c, hi_c, d["rho_row"],
+                                 d["L_admm"])
+        ref = ql.admm_identify_ref(*args, o.qpgen_iters)
+        got = ql.admm_identify(*args, o.qpgen_iters)
+        torch.cuda.synchronize()
+        err = compare(torch, f"admm_identify ({tag})", [got], [ref], ADMM_RTOL)
+        sets = [td._admm_working_sets(lm, d["rho_row"], d["m_lo"], d["m_hi"], m_eq)
+                for lm in (got, ref)]
+        for a, b in zip(*sets):
+            if not torch.equal(a, b):
+                fail(f"admm_identify ({tag}): the working sets it seeds differ from the "
+                     f"twin's in {int((a != b).sum())} rows")
+        N, ng, nz = args[0].shape
+        it = o.qpgen_iters
+        ops = N * (2 * ng * nz + 2 * ng + it * (4 * ng * nz + 2 * nz * nz + 6 * ng + nz))
+        n_act = int(sum(m.sum() for m in sets[1]))
+        bits = float((got == ref).float().mean())
+        return args, err, ops, (f"G {tuple(args[0].shape)} f32, {it} iterations, {n_act} "
+                                f"active rows, {100 * bits:.1f}% of lm bit-equal"), n_act
+
+    # the first cold stage solve (duals 0: nothing active yet; timed) and
+    # the cold stage solve at the end of the coarse phase (rows active)
+    it_a = optsc.qpgen_iters
+    checks_a = {}
+    for tag, q, o_solve, o in (("qpgen", qc, optsc, optsc_d), ("mixed", qm, optsm, optsm_d)):
+        zero = torch.zeros((q.topo.Nn, q.topo.nxm), dtype=torch.float64, device=dev)
+        lam_c = td.tdunes_solve(q, None, dataclasses.replace(o_solve, max_iter=5)).lam
+        checks_a[tag] = [admm_check(q, o, f"{tag}, {what}", lam)
+                         for what, lam in (("duals 0", zero), ("coarse end", lam_c))]
+        if checks_a[tag][1][4] <= 0:
+            fail(f"admm_identify ({tag}): no active row at the coarse phase's end")
+    ac, am = checks_a["qpgen"][0], checks_a["mixed"][0]
+    errs_a = {f"{tag} {i}": c[1] for tag, cs in checks_a.items() for i, c in enumerate(cs)}
+    # the f64 instantiation (qpgen_factor_dtype="same" on f64 data) on the
+    # same operands
+    a64 = [a.double() for a in checks_a["qpgen"][1][0]]
+    got64, ref64 = ql.admm_identify(*a64, it_a), ql.admm_identify_ref(*a64, it_a)
+    torch.cuda.synchronize()
+    errs_a["qpgen f64"] = compare(torch, "admm_identify (f64)", [got64], [ref64], ADMM_RTOL)
+    record("admm_identify", "admm_identify.cu", "treeqp_tpu/ops/qpgen_lanes.py:189",
+           max(errs_a.values()), lambda: ql.admm_identify(*ac[0], it_a),
+           lambda: ql.admm_identify_ref(*ac[0], it_a),
+           f"{ac[3]}; mixed subset {am[3]}, "
+           f"{cuda_ms(torch, lambda: ql.admm_identify(*am[0], it_a), 20):.4f} ms; at the "
+           f"coarse phase's end: qpgen {checks_a['qpgen'][1][3]}, mixed "
+           f"{checks_a['mixed'][1][3]}; max |diff| {max(errs_a.values()):.3e}", ac[0], ac[2])
 
     for r in results:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin "
@@ -643,14 +753,15 @@ def main():
                   dek.chain_apply_df, dek.crown_apply_df, dr.df_reduce_flat)
     generic_kernels = (ck.chain_factor, ck.chain_solve_bwd, ck.chain_forward,
                        ckr.crown_factor, ckr.crown_solve)
-    kernels = ms_kernels + generic_kernels
+    kernels = ms_kernels + generic_kernels + (ql.admm_identify,)
     ms_names = tuple(k.__name__ for k in ms_kernels)
     generic_names = tuple(k.__name__ for k in generic_kernels)
+    admm_name = ("admm_identify",)
     df_kernels = ("chain_eval_df", "crown_eval_df", "chain_apply_df",
                   "crown_apply_df", "df_reduce_flat")
     paths = {}
 
-    def drive(path, needs, fn, forbid=generic_names):
+    def drive(path, needs, fn, forbid=generic_names + admm_name):
         """Run one main path with every launch count set to 0 just before
         it; read the counts just after. Each kernel in ``needs`` must have
         launched, none in ``forbid``."""
@@ -887,12 +998,12 @@ def main():
                   f"{statistics.median(r[2] for r in rows):.1f}), max kkt "
                   f"{max(r[4] for r in rows):.3e} on {card}")
         return timing
-    drive("generic split", generic_names, generic_split, forbid=ms_names)
+    drive("generic split", generic_names, generic_split, forbid=ms_names + admm_name)
 
     # the crown path: the asymmetric thesis-class tree has no split schedule
     drive("generic crown", ("crown_factor", "crown_solve"),
           lambda: g_headline(qa, asym_tree(device="cpu"), "asymmetric tree"),
-          forbid=ms_names + ("chain_factor", "chain_solve_bwd", "chain_forward"))
+          forbid=ms_names + admm_name + ("chain_factor", "chain_solve_bwd", "chain_forward"))
 
     # tdunes_solve on the unpruned headline tree (split path, 256 chains)
     # against tdunes_ms_solve at bench options, on the same card
@@ -909,8 +1020,93 @@ def main():
               + f", {t_g:.1f} ms on {card}")
         if gaps["x"] > 1e-7 or gaps["u"] > 1e-7:
             fail(f"tdunes_solve and tdunes_ms_solve disagree on the headline tree: {gaps}")
-    drive("generic cross-check", generic_names + ("newton_iter",), cross_check, forbid=())
+    drive("generic cross-check", generic_names + ("newton_iter",), cross_check,
+          forbid=admm_name)
 
+    # ---- 6. general C/D trees (slice 5)
+    def c_certified(q, lam0, ws0, o, what):
+        """One general C/D request, certified: OPTIMAL, stationarity below
+        the options' tol, the port's KKT < 1e-8, finite output of the right
+        shape. Returns (out, kkt, ms, factorizations, ADMM launches)."""
+        nf0, na0 = ckr.crown_factor.launches, ql.admm_identify.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_k = td.tdunes_solve(q, lam0, o, stage_ws=ws0)
+        torch.cuda.synchronize()
+        t_ms = (time.perf_counter() - t0) * 1e3
+        kkt_k = max_kkt_residual(q, out_k)
+        info_k = out_k.info
+        if info_k["status"] != td.TDUNES_OPTIMAL or not info_k["error"] < o.tol \
+                or not kkt_k < TOL:
+            fail(f"{what}: status {info_k['status']} error {info_k['error']} kkt {kkt_k}")
+        if tuple(out_k.x.shape) != (q.topo.Nn, q.topo.nxm) \
+                or tuple(out_k.mu_d.shape) != (q.topo.Nn, q.topo.ncm) \
+                or not all(bool(torch.isfinite(v).all()) for v in
+                           (out_k.x, out_k.u, out_k.lam, out_k.mu_d)):
+            fail(f"{what}: output of the wrong shape or not finite")
+        return (out_k, kkt_k, t_ms, ckr.crown_factor.launches - nf0,
+                ql.admm_identify.launches - na0)
+
+    def c_line(what, out, kkt, t_ms, nf, na):
+        info = out.info
+        return (f"{what}: iter {info['iter']} ({info['iter_f32']} coarse + "
+                f"{info['iter'] - info['iter_f32']} final), error {info['error']:.3e}, kkt "
+                f"{kkt:.3e}, qpgen_res {info['qpgen_res']:.2e}, max |mu_d| "
+                f"{float(out.mu_d.abs().max()):.3e}, {nf} factorizations, {na} ADMM "
+                f"launches, {t_ms:.1f} ms")
+
+    def general_qpgen():
+        first = c_certified(qc, None, None, optsc, "general C/D qpgen cold solve")
+        print(c_line(f"general C/D qpgen cold solve ({qc.topo.Nn} nodes)", *first)
+              + f" (first solve, includes warm-up) on {card}")
+        again = c_certified(qc, None, None, optsc, "general C/D qpgen cold solve (again)")
+        print(c_line("general C/D qpgen cold solve (again)", *again) + f" on {card}")
+        prev, rows = first[0], []
+        for k in range(N_REQUESTS_CD):
+            q_k = qc.replace(b=qc.b + CD_DB * (k + 1))
+            r = c_certified(q_k, prev.lam, prev.info["qpgen_ws"], optsc,
+                            f"general C/D qpgen warm request {k}")
+            print(c_line(f"general C/D qpgen warm request {k} (b + {CD_DB * (k + 1):g})", *r)
+                  + f" on {card}")
+            rows.append(r)
+            prev = r[0]
+        print(f"requests general C/D qpgen warm: iters {[r[0].info['iter'] for r in rows]}, "
+              f"ADMM launches {[r[4] for r in rows]}, "
+              f"{statistics.mean(r[2] for r in rows):.1f} ms/solve (cold "
+              f"{again[2]:.1f} ms), max kkt {max(r[1] for r in rows):.3e} on {card}")
+        return first[0]
+    out_qc = drive("general C/D qpgen", generic_names + admm_name, general_qpgen,
+                   forbid=ms_names)
+
+    def general_mixed():
+        first = c_certified(qm, None, None, optsm, "general C/D mixed cold solve")
+        print(c_line(f"general C/D mixed cold solve ({qm.topo.Nn} nodes)", *first)
+              + f" (first solve) on {card}")
+        again = c_certified(qm, None, None, optsm, "general C/D mixed cold solve (again)")
+        print(c_line("general C/D mixed cold solve (again)", *again) + f" on {card}")
+        return first[0]
+    drive("general C/D mixed", generic_names + admm_name, general_mixed, forbid=ms_names)
+
+    # the cold qpgen solve through the plain twins on the CPU, at the depth
+    # CD_CPU_NR (the full tree takes ~6 minutes on the CPU)
+    qs_cpu = general_cd("qpgen", Nr=CD_CPU_NR, device="cpu")
+    out_s = c_certified(qs_cpu.to(dev), None, None, optsc, "general C/D qpgen, reduced")[0]
+    t0 = time.perf_counter()
+    out_cpu = td.tdunes_solve(qs_cpu, None, optsc)
+    t_cpu = time.perf_counter() - t0
+    gaps = {f: float((getattr(out_s, f).cpu() - getattr(out_cpu, f)).abs().max())
+            for f in ("x", "u", "lam", "mu_d")}
+    ic, ip = out_s.info, out_cpu.info
+    print(f"general C/D qpgen cold solve at Nr={CD_CPU_NR} ({qs_cpu.topo.Nn} nodes), card vs "
+          f"CPU plain path ({t_cpu:.1f} s on the CPU): iter {ic['iter']} vs {ip['iter']}, "
+          f"coarse {ic['iter_f32']} vs {ip['iter_f32']}, "
+          + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps.items()))
+    if ic["iter"] != ip["iter"] or ic["iter_f32"] != ip["iter_f32"] \
+            or gaps["x"] > CD_GAP or gaps["u"] > CD_GAP:
+        fail(f"general C/D qpgen: card and CPU solves disagree: {gaps}")
+
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
+          f"(build {t_build:.1f} s) on {card}")
     for r in results:
         r["launches"] = sum(p[r["name"]] for p in paths.values())
         del r["shapes"]

@@ -116,7 +116,7 @@ def check_blocks(name, it):
     opts = td.TdunesOpts(**SPEED)
     data = td._stage_data(qp, opts, prep)
     sol = td._stage_solve(qp, torch.tensor(b["lam"]), data, opts, prep)
-    W, Ut = td._build_dual_hessian(qp, sol, prep)
+    W, Ut = td._build_dual_hessian(qp, sol, data, opts, prep)
     assert W.dtype == torch.float32
     assert_close(W, b["W"], BLOCK_RTOL, "W")
     assert_close(Ut, b["Ut"], BLOCK_RTOL, "Ut")

@@ -159,15 +159,28 @@ def test_pruning_matches_jax(kw):
     dict(record_history=True), dict(axis_name="scen"),
     pytest.param(dict(stage_solver="qpgen"), id="stage_solver")])
 def test_options_outside_the_slice_raise(over):
+    """The options the port does not implement raise; stage_solver, outside
+    slice 4, is ported since slice 5 and now solves (the general stage
+    QPs on a tree with bounds only, certified by the oracle)."""
     qp = port_qp("pruned")
+    opts = td.TdunesOpts(**{**SPEED, **over})
+    if "stage_solver" in over:
+        out = tdunes_solve(qp, None, opts)
+        assert out.info["status"] == 0 and max_kkt_residual(qp, out) < 1e-8
+        return
     with pytest.raises(NotImplementedError):
-        tdunes_solve(qp, None, td.TdunesOpts(**{**SPEED, **over}))
+        tdunes_solve(qp, None, opts)
 
 
 def test_stage_ws_and_non_diagonal_weights_raise():
+    """stage_ws, outside slice 4, is accepted since slice 5: a qpgen solve
+    warm-started from a previous solve's duals and working sets takes no
+    step. Non-diagonal weights still rule out the clipping stage solver."""
     qp = port_qp("pruned")
-    with pytest.raises(NotImplementedError, match="stage_ws"):
-        tdunes_solve(qp, None, td.TdunesOpts(**SPEED), stage_ws=(None, None))
+    opts = td.TdunesOpts(**{**SPEED, **PHASES["one_phase"], "stage_solver": "qpgen"})
+    out = tdunes_solve(qp, None, opts)
+    out2 = tdunes_solve(qp, out.lam, opts, stage_ws=out.info["qpgen_ws"])
+    assert out2.info["status"] == 0 and out2.info["iter"] == 0
     Q = qp.Q.clone()
     Q[1, 0, 1] = Q[1, 1, 0] = 0.1
     with pytest.raises(ValueError, match="clipping"):

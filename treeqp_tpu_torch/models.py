@@ -1,15 +1,16 @@
 """Benchmark problem generators (port of ``benchmarks/models.py``), and the
-generic-tree solver's instances and options of ``benchmarks/generic_bench.py``
-and ``benchmarks/fault_tolerance.py``.
+generic-tree solver's instances and options of ``benchmarks/generic_bench.py``,
+``benchmarks/fault_tolerance.py`` and ``benchmarks/general_cd_bench.py``.
 
-Only the quadcopter family is ported: attitude model with uncertain mass
+Two families are ported. The quadcopter: attitude model with uncertain mass
 (8-12 kg), Ts=0.05 (benchmark/quadcopter/dynamics_quadcopter_mpc.m +
 default params), linearized around hover with ``torch.autograd`` (in place
 of jax.jacobian / CasADi, common/linearize_model.m) and exactly discretized
-with the augmented matrix exponential (common/discretize_model.m). Model
-construction is host-side work: it runs in f64 on the CPU, and the
-returned QP is moved to the requested device at the end. The nonlinear
-plant simulator of the JAX version is not ported yet.
+with the augmented matrix exponential (common/discretize_model.m). The
+spring-mass chain (numpy RK4), with the general constraint rows of the
+general C/D trees. Model construction is host-side work: it runs in f64 on
+the CPU, and the returned QP is moved to the requested device at the end.
+The nonlinear plant simulators of the JAX version are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from treeqp_tpu_torch.core.qp_data import TreeQPIn
 from treeqp_tpu_torch.utils.tree import TreeStructure
 
 __all__ = ["BenchmarkModel", "quadcopter", "linearize", "discretize", "GENERIC_SPEED_OPTS",
-           "asym_tree", "pruned"]
+           "asym_tree", "pruned", "spring_mass_dynamics", "spring_mass_chain",
+           "with_general_rows", "with_sparse_rows", "general_cd", "GENERAL_CD_OPTS"]
 
 # the generic-tree solver's options, generic_bench.speed_opts(on_tpu=True),
 # as TdunesOpts fields
@@ -32,6 +34,17 @@ GENERIC_SPEED_OPTS = dict(stage_solver="clipping", tol=1e-8, max_iter=120,
                           refine_safeguard=False, chain_backend="pallas",
                           reg_type="always", reg_value=1e-6, f32_phase_tol=1e-4,
                           f32_patience=3, df64_phase=False)
+
+# general_cd_bench's tdunes modes at their TPU options
+# (general_cd_bench.py:94-125), as TdunesOpts fields: a dual stationarity of
+# TOL/4 below the KKT bar TOL = 1e-8; stage_solver "mixed" for the mixed
+# mode. tdunes_solve sets h_diag and, in mixed mode, node_solver from the
+# data, as the bench does.
+GENERAL_CD_OPTS = dict(stage_solver="qpgen", tol=2.5e-9, max_iter=150,
+                       factor_dtype="float32", refine_steps=1, refine_safeguard=False,
+                       qpgen_factor_dtype="float32", qpgen_iters=100,
+                       chain_backend="pallas", reg_type="always", reg_value=1e-6,
+                       f32_phase_tol=1e-4, f32_patience=3)
 
 
 def linearize(rhs, xlin, ulin):
@@ -177,3 +190,133 @@ def asym_tree(device="cuda"):
         data[k][0] = 0.0
     return TreeQPIn.zeros(topo, device=device).replace(
         **{k: torch.tensor(v, dtype=torch.float64, device=device) for k, v in data.items()})
+
+
+def spring_mass_dynamics(nm: int, k: float, dt: float, substeps: int = 10):
+    """Discretized chain of ``nm`` masses coupled by springs of stiffness
+    ``k`` (wall-mass-...-mass-wall), control = force on the last mass.
+
+    States: [positions; velocities] (nx = 2 nm), RK4 with ``substeps``, in
+    numpy f64: the same matrices as ``benchmarks.models.spring_mass_dynamics``.
+    """
+    nx = 2 * nm
+    K = np.zeros((nm, nm))
+    for i in range(nm):
+        K[i, i] = -2.0 * k
+        if i > 0:
+            K[i, i - 1] = k
+        if i < nm - 1:
+            K[i, i + 1] = k
+    Ac = np.zeros((nx, nx))
+    Ac[:nm, nm:] = np.eye(nm)
+    Ac[nm:, :nm] = K
+    Bc = np.zeros((nx, 1))
+    Bc[-1, 0] = 1.0
+
+    def f(M, N):
+        return Ac @ M, Ac @ N + Bc
+
+    h = dt / substeps
+    Ad = np.eye(nx)
+    Bd = np.zeros((nx, 1))
+    for _ in range(substeps):
+        # one RK4 step of [x' = Ac x + Bc u] with u held constant
+        k1A, k1B = f(Ad, Bd)
+        k2A, k2B = f(Ad + h / 2 * k1A, Bd + h / 2 * k1B)
+        k3A, k3B = f(Ad + h / 2 * k2A, Bd + h / 2 * k2B)
+        k4A, k4B = f(Ad + h * k3A, Bd + h * k3B)
+        Ad = Ad + h / 6 * (k1A + 2 * k2A + 2 * k3A + k4A)
+        Bd = Bd + h / 6 * (k1B + 2 * k2B + 2 * k3B + k4B)
+    return Ad, Bd
+
+
+def spring_mass_chain(nm: int = 2, md: int = 3, Nr: int = 2, Nh: int = 10,
+                      dt: float = 0.1, k_nominal: float = 2.0, k_spread: float = 1.0,
+                      umax: float = 1.0, xmax_pos: float = 1.2, x0=None, device="cuda"):
+    """Robust-MPC scenario-tree QP over the spring-mass chain: ``md``
+    realizations of the spring constant in [k_nominal - k_spread,
+    k_nominal + k_spread], probability-scaled stage weights. The same data
+    as ``benchmarks.models.spring_mass_chain`` for the same arguments, made
+    on ``device`` (the card unless the caller passes ``device="cpu"``).
+    Returns (qp, x0)."""
+    nx, nu = 2 * nm, 1
+    ks = np.linspace(k_nominal - k_spread, k_nominal + k_spread, md)
+    AB = [spring_mass_dynamics(nm, k, dt) for k in ks]
+    A = np.stack([ab[0] for ab in AB])
+    B = np.stack([ab[1] for ab in AB])
+    b = np.zeros((md, nx))
+
+    if x0 is None:
+        rng = np.random.default_rng(42)
+        x0 = 0.5 * rng.standard_normal(nx)
+        x0[nm:] = 0.0
+
+    dQ = np.ones(nx)
+    dQ[:nm] = 10.0
+    dP = 10.0 * dQ
+    dR = 0.1 * np.ones(nu)
+    xmin = np.full(nx, -1e12)
+    xmax = np.full(nx, 1e12)
+    xmax[:nm] = xmax_pos
+
+    topo = TreeStructure.multistage(md=md, Nr=Nr, Nh=Nh, nx=nx, nu=nu)
+    qp = TreeQPIn.lti_diag_weights(
+        topo, A, B, b, dQ=dQ, dq=np.zeros(nx), dP=dP, dp=np.zeros(nx),
+        dR=dR, dr=np.zeros(nu), xmin=xmin, xmax=xmax,
+        umin=[-umax], umax=[umax], x0=x0, scale_by_stage=True, device=device)
+    return qp, x0
+
+
+def _with_rows(qp, rows, C_of, D_of, cmax):
+    """``qp`` with one general row dmin <= C x + D u <= dmax on each node
+    where ``rows`` is 1 (C_of(i), D_of(i): the node's row), +-cmax on those
+    rows and +-1e12 on the padding."""
+    t = qp.topo
+    topo = TreeStructure.from_parent(t.parent, t.nx, t.nu, rows)
+    Nn, ncm = topo.Nn, topo.ncm
+    C = np.zeros((Nn, ncm, topo.nxm))
+    D = np.zeros((Nn, ncm, topo.num))
+    dmin = np.full((Nn, ncm), -1e12)
+    dmax = np.full((Nn, ncm), 1e12)
+    for i in range(Nn):
+        if rows[i]:
+            C[i, 0], D[i, 0] = C_of(i), D_of(i)
+            dmin[i, 0], dmax[i, 0] = -cmax, cmax
+    kw = dict(dtype=qp.dtype, device=qp.device)
+    return qp.replace(C=torch.tensor(C, **kw), D=torch.tensor(D, **kw),
+                      dmin=torch.tensor(dmin, **kw), dmax=torch.tensor(dmax, **kw),
+                      topo=topo)
+
+
+def with_general_rows(qp, cmax=0.3):
+    """``qp`` with one general constraint row on every node,
+    -cmax <= sum_i x_i + 0.5 u_0 <= cmax (the C/D rows of
+    ``benchmarks.models.with_general_rows``), on ``qp``'s device."""
+    t = qp.topo
+    xm, um = t.x_mask, t.u_mask
+    return _with_rows(qp, [1] * t.Nn, lambda i: xm[i],
+                      lambda i: np.eye(t.num)[0] * 0.5 * um[i, 0], cmax)
+
+
+def with_sparse_rows(qp, cmax=0.6):
+    """``qp`` with a general row on every third non-root node only,
+    -cmax <= sum_i x_i + 0.5 sum_j u_j <= cmax: the instance of
+    general_cd_bench's mixed mode (``general_cd_bench.py:58-77``), whose
+    other nodes keep clipping stage QPs."""
+    t = qp.topo
+    rows = [1 if (i % 3 == 0 and i > 0) else 0 for i in range(t.Nn)]
+    return _with_rows(qp, rows, lambda i: t.x_mask[i], lambda i: 0.5 * t.u_mask[i], cmax)
+
+
+def general_cd(mode="qpgen", nm=4, md=4, Nr=4, Nh=20, device="cuda"):
+    """The tree of ``benchmarks/general_cd_bench.py``'s tdunes modes:
+    ``spring_mass_chain(nm, md, Nr, Nh)`` (by default the bench's 256
+    scenarios, 4437 nodes, nx=8, nu=1) with a row -0.6 <= sum x + 0.5 u <= 0.6
+    on every node (``mode="qpgen"``) or on every third non-root node
+    (``mode="mixed"``). Made on ``device``."""
+    qp, _ = spring_mass_chain(nm=nm, md=md, Nr=Nr, Nh=Nh, device=device)
+    if mode == "qpgen":
+        return with_general_rows(qp, cmax=0.6)
+    if mode == "mixed":
+        return with_sparse_rows(qp)
+    raise ValueError(f"general_cd: unknown mode {mode!r}")

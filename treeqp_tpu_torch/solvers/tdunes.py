@@ -1,26 +1,37 @@
 """tdunes — dual Newton on the tree formulation.
 
-Port of ``treeqp_tpu/solvers/tdunes.py`` with the clipping stage solver:
-the options, the status codes, the static topology prep with its level
-schedules, the clipping stage solve, the dual residual and dual value, the
-node <-> lambda-group layout converters (the pieces ``tdunes_multistage``
-calls), and the generic-tree solver ``tdunes_solve``. The other stage
-solvers (dense, boxqp, qpgen, mixed) are not ported yet.
+Port of ``treeqp_tpu/solvers/tdunes.py``: the options, the status codes,
+the static topology prep with its level schedules, the stage solvers, the
+dual residual and dual value, the node <-> lambda-group layout converters
+(the pieces ``tdunes_multistage`` calls), and the generic-tree solver
+``tdunes_solve``.
 
 Algorithm (reference ``treeqp/src/dual_Newton_tree.{h,c}``): dualize all
 parent->child dynamics constraints with multipliers lambda_c (one per
 non-root node); each node becomes an independent small QP parametric in
-lambda, solved in closed form by clipping for diagonal Q/R
-(dual_Newton_tree_clipping.c); a non-smooth Newton method runs on the
-concave dual, whose block-sparse Hessian is factorized by a
-tree-structured block Cholesky.
+lambda; a non-smooth Newton method runs on the concave dual, whose
+block-sparse Hessian M = J P J' is factorized by a tree-structured block
+Cholesky. The stage QPs (``stage_solver``):
 
-In ``tdunes_solve`` the Hessian blocks, the Jacobi equilibration, the
-refinement's Hessian action and the line search are eager PyTorch, as the
-JAX package leaves them to XLA; the tree Cholesky and its solves are the
-CUDA kernels of ``ops/crown_kernels.py`` (``crown_factor``,
-``crown_solve``) and, on multistage-shaped trees, ``ops/chain_kernels.py``
-(``chain_factor``, ``chain_solve_bwd``, ``chain_forward``).
+* clipping — closed form for diagonal Q/R, S = 0, no C/D rows
+  (dual_Newton_tree_clipping.c); P is diagonal;
+* dense — unconstrained general Hessians, P = H^-1;
+* boxqp — general Hessians with bounds, batched projected Newton;
+* qpgen — general stage QPs with C/D rows (the qpOASES capability,
+  dual_Newton_tree_qpoases.c): ADMM active-set identification on the
+  ``admm_identify`` kernel, PDAS with a keep-best guard, an exact polish
+  and the elimination matrix P = Z (Z'HZ)^-1 Z' (``_qpgen_batch``), with
+  the working-set hotstart carried across Newton iterations and solves;
+* mixed — clipping on the nodes where it applies, qpgen on the rest.
+
+In ``tdunes_solve`` the stage solves, the Hessian blocks, the Jacobi
+equilibration, the refinement's Hessian action and the line search are
+eager PyTorch, as the JAX package leaves them to XLA; the ADMM loop of the
+general stage QPs is the CUDA kernel of ``ops/qpgen_lanes.py``, the tree
+Cholesky and its solves the CUDA kernels of ``ops/crown_kernels.py``
+(``crown_factor``, ``crown_solve``) and, on multistage-shaped trees,
+``ops/chain_kernels.py`` (``chain_factor``, ``chain_solve_bwd``,
+``chain_forward``).
 """
 
 from __future__ import annotations
@@ -31,11 +42,15 @@ import math
 import numpy as np
 import torch
 
-from treeqp_tpu_torch.core.qp_data import TreeQPIn, TreeQPOut
+from treeqp_tpu_torch.core.qp_data import TREEQP_INF, TreeQPIn, TreeQPOut
+from treeqp_tpu_torch.solvers.ipm import _constraint_data
 from treeqp_tpu_torch.utils.tree import TreeStructure
 
-__all__ = ["TdunesOpts", "tdunes_solve", "clipping_applicable", "TDUNES_OPTIMAL",
+__all__ = ["TdunesOpts", "tdunes_solve", "clipping_applicable", "diag_weights_applicable",
+           "clipping_applicable_nodes", "STAGE_SOLVERS", "TDUNES_OPTIMAL",
            "TDUNES_MAX_ITER", "TDUNES_NOT_DESCENT"]
+
+STAGE_SOLVERS = ("clipping", "dense", "boxqp", "qpgen", "mixed")
 
 # status codes (cf. reference utils/types.h return_t)
 TDUNES_OPTIMAL = 0
@@ -92,7 +107,7 @@ class _Prep:
 
     def __init__(self, topo: TreeStructure):
         self.topo = topo
-        self.nxm = topo.nxm
+        self.nxm, self.num = topo.nxm, topo.num
         self.K = max(topo.Kmax, 1)
         self.G = self.K * topo.nxm
         self.NpG = topo.num_groups
@@ -246,17 +261,93 @@ def _masks(qp: TreeQPIn, prep: _Prep):
     return prep.masks(qp.dtype, qp.device)
 
 
-def _stage_data(qp: TreeQPIn, opts: TdunesOpts, prep: _Prep):
-    """Per-node clipping data: diag weights + inverses
-    (dual_Newton_tree_clipping.c:149-184)."""
-    if opts.stage_solver != "clipping":
-        raise NotImplementedError(
-            f"stage_solver={opts.stage_solver!r}: only the clipping stage "
-            "solver is ported (ROADMAP.md, port queue)")
+def _bmv(M, v):
+    """Batched M v: [..., m, k] x [..., k] -> [..., m]."""
+    return (M @ v[..., None])[..., 0]
+
+
+def _bmv_t(M, v):
+    """Batched M' v: [..., m, k] x [..., m] -> [..., k]."""
+    return (M.mT @ v[..., None])[..., 0]
+
+
+def _cholesky(M):
+    """Lower Cholesky factors of a batch of SPD matrices, NaN where a
+    factorization fails (XLA's convention, which the guards downstream read;
+    ``torch.linalg.cholesky`` would raise instead)."""
+    L, info = torch.linalg.cholesky_ex(M)
+    return torch.where(info[..., None, None] > 0, torch.nan, L)
+
+
+def _dense_H(qp: TreeQPIn, prep: _Prep):
+    """Per-node dense Hessian [[Q S'],[S R]], identity on padded dims."""
     xm, um, _ = _masks(qp, prep)
-    Qd = torch.diagonal(qp.Q, dim1=1, dim2=2) * xm + (1.0 - xm)
-    Rd = torch.diagonal(qp.R, dim1=1, dim2=2) * um + (1.0 - um)
-    return dict(Qd=Qd, Rd=Rd, Qinv=1.0 / Qd, Rinv=1.0 / Rd)
+    Sm = qp.S * um[:, :, None] * xm[:, None, :]
+    H = torch.cat([torch.cat([qp.Q * xm[:, :, None] * xm[:, None, :], Sm.mT], dim=2),
+                   torch.cat([Sm, qp.R * um[:, :, None] * um[:, None, :]], dim=2)], dim=1)
+    return H + torch.diag_embed(1.0 - torch.cat([xm, um], dim=1))
+
+
+def _batched_inverse_spd(H):
+    Linv = torch.linalg.solve_triangular(
+        _cholesky(H), torch.eye(H.shape[-1], dtype=H.dtype, device=H.device).expand_as(H),
+        upper=False)
+    return Linv.mT @ Linv
+
+
+def _stage_data(qp: TreeQPIn, opts: TdunesOpts, prep: _Prep):
+    """Per-node solver data: diag weights + inverses (clipping,
+    dual_Newton_tree_clipping.c:149-184), dense H and its bounds (boxqp),
+    the general-constraint machinery (qpgen/mixed: constraint stack G,
+    H^-1, the per-row ADMM penalty and the ADMM factor, the hoisted
+    products G H^-1 and G H^-1 G'), or dense H and P = H^-1 (dense). In
+    mixed mode, ``gen`` holds the general nodes' index and their rows of
+    the qpgen fields."""
+    xm, um, _ = _masks(qp, prep)
+    s = opts.stage_solver
+    data = {}
+    if s in ("clipping", "mixed"):
+        Qd = torch.diagonal(qp.Q, dim1=1, dim2=2) * xm + (1.0 - xm)
+        Rd = torch.diagonal(qp.R, dim1=1, dim2=2) * um + (1.0 - um)
+        data.update(Qd=Qd, Rd=Rd, Qinv=1.0 / Qd, Rinv=1.0 / Rd)
+    if s == "boxqp":
+        H = _dense_H(qp, prep)
+        data.update(H=H, Hd=torch.diagonal(H, dim1=1, dim2=2),
+                    lo=torch.cat([qp.xmin, qp.umin], dim=1),
+                    hi=torch.cat([qp.xmax, qp.umax], dim=1))
+    elif s in ("qpgen", "mixed"):
+        dt = qp.dtype
+        H = _dense_H(qp, prep)
+        G, lo, hi, m_lo, m_hi = _constraint_data(qp)
+        Hd = torch.diagonal(H, dim1=1, dim2=2)
+        Hinv = _batched_inverse_spd(H)
+        # per-row ADMM penalty: base = Hessian scale; equality rows
+        # (lo == hi) get a 1e3 stiffer penalty (OSQP convention)
+        eq = _general_bounds(lo, hi, m_lo, m_hi)[2]
+        rho_row = Hd.mean(dim=1, keepdim=True) * (1.0 + 999.0 * eq)
+        # the ADMM factor in the qpgen factor dtype: the identification
+        # only seeds the working set (PDAS and the polish recompute every
+        # final quantity in the data dtype)
+        adt = (torch.float32 if opts.qpgen_factor_dtype == "float32"
+               and dt == torch.float64 else dt)
+        L_admm = _cholesky((H + (G * rho_row[:, :, None]).mT @ G).to(adt))
+        GH = G @ Hinv
+        data.update(H=H, Hd=Hd, Hinv=Hinv, G=G, lo=lo, hi=hi, m_lo=m_lo, m_hi=m_hi,
+                    rho_row=rho_row, L_admm=L_admm, GH=GH, GHG=GH @ G.mT)
+        if s == "mixed":
+            idx = np.nonzero(np.asarray(opts.node_solver) == 0)[0]
+            if len(idx):
+                gi = torch.as_tensor(idx, dtype=torch.long, device=qp.device)
+                data["gen"] = {k: data[k][gi] for k in _QPGEN_KEYS + ("GH", "GHG")}
+                data["gen"]["idx"] = gi
+    elif s != "clipping":
+        H = _dense_H(qp, prep)
+        data.update(H=H, P=_batched_inverse_spd(H))
+    return data
+
+
+# _qpgen_batch's per-node operands, in its argument order
+_QPGEN_KEYS = ("H", "Hinv", "G", "lo", "hi", "m_lo", "m_hi", "rho_row", "L_admm")
 
 
 def _kid_sum(v, prep: _Prep):
@@ -296,23 +387,285 @@ def _modified_gradient(qp: TreeQPIn, lam, prep: _Prep, extra_q=None,
     return qmod, rmod
 
 
-def _stage_solve(qp: TreeQPIn, lam, data, opts: TdunesOpts, prep: _Prep,
-                 extra_q=None, extra_r=None):
-    """Batched clipping stage-QP solve over all nodes
-    (dual_Newton_tree_clipping.c:188-227): closed-form x = clip(Qinv qmod),
-    with active-set-masked inverses qtilde/rtilde. ``data`` comes from
-    ``_stage_data``, which rejects the other stage solvers."""
-    xm, um, _ = _masks(qp, prep)
-    qmod, rmod = _modified_gradient(qp, lam, prep, extra_q, extra_r)
+def _general_bounds(lo, hi, m_lo, m_hi):
+    """The general stage QPs' bounds with +-TREEQP_INF on the sides without
+    one (lo_c, hi_c), and the mask of the equality rows (lo == hi)."""
+    lo_c = torch.where(m_lo > 0, lo, -TREEQP_INF)
+    hi_c = torch.where(m_hi > 0, hi, TREEQP_INF)
+    return lo_c, hi_c, ((hi_c - lo_c <= 1e-14) & (m_lo > 0) & (m_hi > 0)).to(lo.dtype)
+
+
+def _admm_operands(hmod, Hinv, G, lo_c, hi_c, rho_row, L_admm):
+    """``admm_identify``'s operands at the cold start of ``_qpgen_batch``
+    (lo_c/hi_c: the bounds with +-TREEQP_INF on the sides without one), in
+    the ADMM factor's dtype: f32 under qpgen_factor_dtype="float32", as the
+    identification only seeds the working set."""
+    c = lambda v: v.to(L_admm.dtype).contiguous()
+    return (c(G), c(L_admm), c(rho_row), c(lo_c), c(hi_c), c(hmod), c(_bmv(Hinv, hmod)))
+
+
+def _admm_working_sets(lm, rho_row, m_lo, m_hi, m_eq):
+    """The working sets (m_up, m_dn) the ADMM output seeds: the rows whose
+    multiplier mu = rho lm exceeds the activity threshold, set at the
+    identification dtype's noise floor relative to the node's largest
+    multiplier; equality rows are left to m_eq."""
+    dt = rho_row.dtype
+    mu_admm = rho_row * lm.to(dt)
+    tol_act = (1e-9 if lm.dtype == torch.float64 else 1e-5) * torch.clamp(
+        mu_admm.abs().amax(dim=1, keepdim=True), min=1.0)
+    m_up = ((mu_admm > tol_act) & (m_hi > 0)).to(dt) * (1.0 - m_eq)
+    m_dn = ((mu_admm < -tol_act) & (m_lo > 0)).to(dt) * (1.0 - m_eq)
+    return m_up, m_dn
+
+
+def _qpgen_batch(hmod, H, Hinv, G, lo, hi, m_lo, m_hi, rho_row, L_admm,
+                 opts: TdunesOpts, ws=None, GH=None, GHG=None):
+    """Batched general stage QPs:  min 1/2 z'Hz - hmod'z,  lo <= G z <= hi.
+
+    The qpOASES capability (dual_Newton_tree_qpoases.c:153-214, :401-476),
+    node-major, in three phases:
+
+    1. scaled ADMM active-set identification (``qpgen_iters`` iterations,
+       per-row penalty with stiff equality rows), on the ``admm_identify``
+       kernel in the ADMM factor's dtype;
+    2. primal-dual active-set refinement steps with a per-node keep-best
+       safeguard (the working set with the smallest KKT residual);
+    3. one exact KKT polish on the selected set, and the elimination matrix
+       P = H^-1 - H^-1 G_A' (G_A H^-1 G_A')^-1 G_A H^-1.
+
+    With ``qpgen_factor_dtype="float32"`` and f64 data the working-set
+    systems are factored in f32 and refined 3 times against the f64
+    residual, and the inverse of phase 3 is the f32 inverse plus two
+    Newton-Schulz steps in f64, falling back to the f64 inverse when their
+    residual is not below 1e-6. The lane-major double-float pipeline the
+    JAX package runs on the TPU (``qpgen_solve_lanes``) is a TPU workaround
+    and is not ported: this is the JAX node-major path in native f64.
+
+    Equality rows (lo == hi) stay permanently active. ``ws``: optional
+    (m_up, m_dn) working-set hotstart (dual_Newton_tree_qpoases.c:312-356):
+    phases 2+3 run from the given set, and phase 1 runs only if the
+    hotstarted set fails the KKT guard (max residual < 1e-9; one host
+    decision). Returns (z, P, mu, res, (m_up, m_dn)): mu signed (positive =
+    upper active), res = the max over nodes of the violation/stationarity
+    guard (0-dim tensor), and the final working-set masks."""
+    from treeqp_tpu_torch.ops.qpgen_lanes import admm_identify
+    dt, dev = hmod.dtype, hmod.device
+    ng = G.shape[1]
+    factor32 = opts.qpgen_factor_dtype == "float32" and dt == torch.float64
+    fdt = torch.float32 if factor32 else dt
+    n_refine = 3 if factor32 else 1
+    mask = m_lo + m_hi - m_lo * m_hi  # any finite side
+    lo_c, hi_c, m_eq = _general_bounds(lo, hi, m_lo, m_hi)
+    eye = torch.eye(ng, dtype=dt, device=dev)
+    if GH is None:
+        GH = G @ Hinv
+    if GHG is None:
+        GHG = GH @ G.mT
+    w = _bmv(GH, hmod)  # G H^-1 hmod
+    dGHG = torch.diagonal(GHG, dim1=1, dim2=2)
+    c_pd = 1.0 / torch.clamp(dGHG, min=1e-12)
+    # relative working-set regularization (an absolute shift would bias the
+    # active rows' residuals by ~reg / scale(GHG))
+    regM = 1e-13 * torch.clamp(dGHG.mean(dim=1), min=1e-300)[:, None, None]
+
+    def working_set_matrix(m_act):
+        """The working-set system without (Mres) and with (Mfull) the shift."""
+        Mres = m_act[:, :, None] * GHG * m_act[:, None, :] + torch.diag_embed(1.0 - m_act)
+        return Mres, Mres + regM * eye
+
+    def polish(m_up, m_dn):
+        """Exact working-set solve + per-node KKT guard."""
+        m_act = torch.clamp(m_up + m_dn + m_eq, max=1.0)
+        d_act = (m_up * hi_c + m_dn * lo_c + m_eq * lo_c) * m_act
+        # the factor of the shifted system is only a preconditioner: the
+        # refinement targets the unshifted one, or active rows stay regM*mu
+        # off their bounds
+        Mres, Mfull = working_set_matrix(m_act)
+        rhs = m_act * (w - d_act)
+        Lm = _cholesky(Mfull.to(fdt))
+
+        def spd_solve(b):
+            y = torch.linalg.solve_triangular(Lm, b.to(fdt)[..., None], upper=False)
+            return torch.linalg.solve_triangular(Lm.mT, y, upper=True)[..., 0].to(dt)
+
+        mu = spd_solve(rhs)
+        for _ in range(n_refine):
+            mu = mu + spd_solve(rhs - _bmv(Mres, mu))
+        mu = m_act * mu
+        z = _bmv(Hinv, hmod - _bmv_t(G, mu))
+        t = _bmv(G, z)
+        viol = torch.clamp(torch.maximum(t - hi_c, lo_c - t), min=0.0) * mask
+        # wrong-sign working-set multipliers are KKT violations too, and
+        # active rows must sit on their bounds (two-sided)
+        bad_mu = torch.clamp(-mu * m_up, min=0.0) + torch.clamp(mu * m_dn, min=0.0)
+        slack = (t - d_act).abs() * m_act * mask
+        res_node = torch.maximum(viol.amax(dim=1),
+                                 torch.maximum(bad_mu.amax(dim=1), slack.amax(dim=1)))
+        # a non-finite factor (a numerically semidefinite working set in the
+        # factor dtype) counts as infinitely bad, not as a NaN that would
+        # poison the keep-best choice
+        res_node = torch.where(torch.isfinite(res_node), res_node, torch.inf)
+        return [z, mu, t, m_act, res_node]
+
+    def pdas_from(m_up, m_dn, n_sweeps):
+        """Exact working-set solve + PDAS refinement with keep-best."""
+        z, mu, t, m_act, res_node = polish(m_up, m_dn)
+        best = [z, mu, t, m_act, res_node, m_up, m_dn]
+        for _ in range(n_sweeps):
+            m_up = ((mu + c_pd * (t - hi_c) > 0) & (m_hi > 0)).to(dt) * (1.0 - m_eq)
+            m_dn = ((mu + c_pd * (t - lo_c) < 0) & (m_lo > 0)).to(dt) * (1.0 - m_eq)
+            new = polish(m_up, m_dn) + [m_up, m_dn]
+            z, mu, t, m_act, res_node = new[:5]
+            better = res_node < best[4]
+            best = [torch.where(better, n, b) if n.dim() == 1
+                    else torch.where(better[:, None], n, b) for n, b in zip(new, best)]
+        return best
+
+    def cold_start():
+        lm = admm_identify(*_admm_operands(hmod, Hinv, G, lo_c, hi_c, rho_row, L_admm),
+                           opts.qpgen_iters)
+        return pdas_from(*_admm_working_sets(lm, rho_row, m_lo, m_hi, m_eq), 3)
+
+    if ws is None:
+        best = cold_start()
+    else:
+        # working-set hotstart: PDAS from the previous set; the ADMM
+        # identification only if the hotstarted set fails the KKT guard
+        best = pdas_from(ws[0].to(dt) * (1.0 - m_eq), ws[1].to(dt) * (1.0 - m_eq), 2)
+        if not bool(best[4].max() < 1e-9):
+            best = cold_start()
+    z, mu, _, m_act, res_node, m_up, m_dn = best
+
+    # ---- phase 3: the elimination matrix on the selected set
+    _, Mfull = working_set_matrix(m_act)
+    if factor32:
+        # f32 inverse + two Newton-Schulz steps X <- X + X(I - M X) in f64;
+        # they diverge when kappa(Mfull) ~ 1/eps_f32 (near-dependent active
+        # rows), which the z/mu guard cannot see: check the inverse residual
+        # and fall back to the f64 inverse above 1e-6
+        Minv = _batched_inverse_spd(Mfull.to(torch.float32)).to(dt)
+        eyeb = eye.expand_as(Mfull)
+        for _ in range(2):
+            Minv = Minv + Minv @ (eyeb - Mfull @ Minv)
+        Minv = 0.5 * (Minv + Minv.mT)
+        ns_res = (eyeb - Mfull @ Minv).abs().max()
+        if not bool(torch.isfinite(ns_res) & (ns_res < 1e-6)):
+            Minv = _batched_inverse_spd(Mfull)
+    else:
+        Minv = _batched_inverse_spd(Mfull)
+    HG_act = (Hinv @ G.mT) * m_act[:, None, :]
+    P = Hinv - HG_act @ Minv @ HG_act.mT
+    stat = _bmv(H, z) - hmod + _bmv_t(G, mu)
+    res = torch.maximum(res_node.max(), stat.abs().max())
+    return z, P, mu, res, (m_up, m_dn)
+
+
+def _clip_solve(qp: TreeQPIn, qmod, rmod, data, xm, um):
+    """The clipping closed form: x = clip(Qinv qmod), u = clip(Rinv rmod),
+    with the active-set-masked inverses qtilde/rtilde."""
     xUnc = data["Qinv"] * qmod
     uUnc = data["Rinv"] * rmod
     x = torch.clamp(xUnc, qp.xmin, qp.xmax) * xm
     u = torch.clamp(uUnc, qp.umin, qp.umax) * um
     x_active = (xUnc > qp.xmax) | (xUnc < qp.xmin)
     u_active = (uUnc > qp.umax) | (uUnc < qp.umin)
-    return dict(qmod=qmod, rmod=rmod, x=x, u=u, xUnc=xUnc, uUnc=uUnc,
+    return dict(x=x, u=u, xUnc=xUnc, uUnc=uUnc,
                 qtilde=torch.where(x_active, 0.0, data["Qinv"]),
                 rtilde=torch.where(u_active, 0.0, data["Rinv"]))
+
+
+def _boxqp_solve(hmod, data, opts: TdunesOpts):
+    """General dense stage QPs with bounds as batched projected Newton:
+    ``boxqp_iters`` free-set Newton steps with clipping (finitely
+    convergent for strictly convex box QPs), then the final active set,
+    the signed multipliers and the null-space elimination matrix
+    P = Z (Z'HZ)^-1 Z' (QProblem_build_elimination_matrix semantics,
+    dual_Newton_tree_qpoases.c:153-214). Returns (z, P, mu, free mask,
+    boxqp_res: the max free-gradient residual, the convergence guard)."""
+    H, lo, hi = data["H"], data["lo"], data["hi"]
+    dt = hmod.dtype
+    clip = lambda v: torch.minimum(torch.maximum(v, lo), hi)
+
+    def free_set(z):
+        g = _bmv(H, z) - hmod
+        at_lo = (z <= lo + 1e-12) & (g > 0)
+        at_hi = (z >= hi - 1e-12) & (g < 0)
+        fm = (~(at_lo | at_hi)).to(dt)
+        return g, fm, _cholesky(H * fm[:, :, None] * fm[:, None, :]
+                                + torch.diag_embed(1.0 - fm))
+
+    z = clip(hmod / data["Hd"])
+    for _ in range(opts.boxqp_iters):
+        g, fm, L = free_set(z)
+        d = torch.linalg.solve_triangular(L, (-g * fm)[..., None], upper=False)
+        d = torch.linalg.solve_triangular(L.mT, d, upper=True)[..., 0]
+        z = clip(z + d)
+    g, fm, L = free_set(z)
+    Linv = torch.linalg.solve_triangular(
+        L, torch.eye(z.shape[1], dtype=dt, device=z.device).expand_as(L), upper=False)
+    P = (Linv.mT @ Linv) * fm[:, :, None] * fm[:, None, :]
+    return z, P, -g * (1.0 - fm), fm, (g * fm).abs().max()
+
+
+def _stage_solve(qp: TreeQPIn, lam, data, opts: TdunesOpts, prep: _Prep,
+                 extra_q=None, extra_r=None, inner_ws=None):
+    """Batched stage-QP solve over all nodes with the stage solver of
+    ``opts`` and the ``data`` of ``_stage_data``: clipping
+    (dual_Newton_tree_clipping.c:188-227), boxqp, qpgen, mixed (clipping on
+    the nodes of ``opts.node_solver`` = 1, qpgen on the rest, their results
+    written into the general nodes' rows) or dense (z = P hmod).
+    ``inner_ws``: the qpgen working-set hotstart (m_up, m_dn) of the
+    qpgen nodes; the solution carries the new set in sol["qpgen_ws"].
+    Returns the solution plus what the Hessian build needs (qtilde/rtilde
+    for clipping, the per-node elimination matrices P otherwise)."""
+    xm, um, _ = _masks(qp, prep)
+    qmod, rmod = _modified_gradient(qp, lam, prep, extra_q, extra_r)
+    sol = dict(qmod=qmod, rmod=rmod)
+    s, nxm = opts.stage_solver, prep.nxm
+    nz = nxm + prep.num
+    if s == "clipping":
+        sol.update(_clip_solve(qp, qmod, rmod, data, xm, um))
+        return sol
+    hmod = torch.cat([qmod, rmod], dim=1)  # minus sign built in
+    if s == "boxqp":
+        z, P, mu, fm, sol["boxqp_res"] = _boxqp_solve(hmod, data, opts)
+        sol.update(x=z[:, :nxm] * xm, u=z[:, nxm:] * um, P=P, mu=mu, free=fm)
+    elif s == "qpgen":
+        z, P, mu, res, ws_out = _qpgen_batch(
+            hmod, *(data[k] for k in _QPGEN_KEYS), opts, ws=inner_ws, GH=data["GH"],
+            GHG=data["GHG"])
+        sol.update(x=z[:, :nxm] * xm, u=z[:, nxm:] * um, P=P, mu_x=mu[:, :nxm],
+                   mu_u=mu[:, nxm:nz], mu_d=mu[:, nz:], qpgen_res=res, qpgen_ws=ws_out)
+    elif s == "mixed":
+        # the clipping closed form everywhere, the general nodes overwritten
+        c = _clip_solve(qp, qmod, rmod, data, xm, um)
+        x, u = c["x"], c["u"]
+        P = torch.diag_embed(torch.cat([c["qtilde"] * xm, c["rtilde"] * um], dim=1))
+        mu_x = data["Qd"] * (c["xUnc"] - x) * xm
+        mu_u = data["Rd"] * (c["uUnc"] - u) * um
+        ng = data["G"].shape[1]
+        mu_d = torch.zeros((prep.topo.Nn, ng - nz), dtype=qp.dtype, device=qp.device)
+        res = torch.zeros((), dtype=qp.dtype, device=qp.device)
+        gd = data.get("gen")
+        if gd is None:
+            sol["qpgen_ws"] = inner_ws if inner_ws is not None else tuple(
+                torch.zeros((0, ng), dtype=qp.dtype, device=qp.device) for _ in range(2))
+        else:
+            gi = gd["idx"]
+            z_g, P_g, mu_g, res, sol["qpgen_ws"] = _qpgen_batch(
+                hmod[gi], *(gd[k] for k in _QPGEN_KEYS), opts, ws=inner_ws,
+                GH=gd["GH"], GHG=gd["GHG"])
+            x[gi] = z_g[:, :nxm] * xm[gi]
+            u[gi] = z_g[:, nxm:] * um[gi]
+            P[gi] = P_g
+            mu_x[gi] = mu_g[:, :nxm]
+            mu_u[gi] = mu_g[:, nxm:nz]
+            mu_d[gi] = mu_g[:, nz:]
+        sol.update(x=x, u=u, P=P, mu_x=mu_x, mu_u=mu_u, mu_d=mu_d, qpgen_res=res)
+    else:
+        z = _bmv(data["P"], hmod)
+        sol.update(x=z[:, :nxm] * xm, u=z[:, nxm:] * um)
+    return sol
 
 
 def _dual_residual(qp: TreeQPIn, sol, prep: _Prep):
@@ -328,11 +681,21 @@ def _dual_residual(qp: TreeQPIn, sol, prep: _Prep):
 def _dual_value(qp: TreeQPIn, lam, sol, data, opts: TdunesOpts):
     """f(lambda) = -g(lambda), the quantity the reference minimizes
     (stage_qp_clipping_eval_dual_term, dual_Newton_tree_clipping.c:359-382):
-    per node -1/2 x'Qx + qmod'x - 1/2 u'Ru + rmod'u, minus sum_c b_c'lam_c."""
+    per node -1/2 z'Hz + qmod'x + rmod'u, minus sum_c b_c'lam_c. With
+    diagonal Hessians (``opts.h_diag``, set by ``tdunes_solve`` from the
+    data) the quadratic form is elementwise."""
     x, u = sol["x"], sol["u"]
-    tx = x * (sol["qmod"] - 0.5 * data["Qd"] * x) - qp.b * lam
-    tu = u * (sol["rmod"] - 0.5 * data["Rd"] * u)
-    return torch.sum(tx) + torch.sum(tu)
+    if opts.stage_solver == "clipping":
+        tx = x * (sol["qmod"] - 0.5 * data["Qd"] * x) - qp.b * lam
+        tu = u * (sol["rmod"] - 0.5 * data["Rd"] * u)
+        return torch.sum(tx) + torch.sum(tu)
+    z = torch.cat([x, u], dim=1)
+    if opts.h_diag and "Hd" in data:
+        quad = torch.sum(z * data["Hd"] * z)
+    else:
+        quad = torch.sum(z * _bmv(data["H"], z))
+    lin = torch.sum(sol["qmod"] * x) + torch.sum(sol["rmod"] * u)
+    return -0.5 * quad + lin - torch.sum(qp.b * lam)
 
 
 # layout converters between per-node rows [Nn, nxm] and the lambda-group
@@ -371,6 +734,17 @@ def clipping_applicable(qp: TreeQPIn, atol: float = 0.0) -> bool:
     (stage_qp_clipping_is_applicable, dual_Newton_tree_clipping.c:45-77).
     Host-side check on concrete data."""
     return diag_weights_applicable(qp, atol) and max(qp.topo.nc) == 0
+
+
+def clipping_applicable_nodes(qp: TreeQPIn, atol: float = 0.0) -> tuple:
+    """Per-node clipping applicability (diagonal Q/R, zero S, nc = 0): the
+    static node split of ``stage_solver="mixed"``, 1 = clipping, 0 = qpgen.
+    Host-side check on concrete data."""
+    def off_diag(M):
+        return (M - torch.diag_embed(torch.diagonal(M, dim1=1, dim2=2))).abs().amax(dim=(1, 2))
+    ok = ((off_diag(qp.Q) <= atol) & (off_diag(qp.R) <= atol)
+          & (qp.S.abs().amax(dim=(1, 2)) <= atol)).cpu().numpy()
+    return tuple(int(v) for v in ok & (qp.topo.nc_np == 0))
 
 
 # ---------------------------------------------------------------------------
@@ -438,18 +812,32 @@ def _residual_error(res, opts: TdunesOpts):
     return torch.sqrt(sq) if opts.termination == "twonorm" else sq
 
 
-def _build_dual_hessian(qp: TreeQPIn, sol, prep: _Prep):
+def _build_dual_hessian(qp: TreeQPIn, sol, data, opts: TdunesOpts, prep: _Prep):
     """The lambda-group blocks W [NpG, G, G] and parent couplings Ut
-    [NpG, nxm, G] of M = J P J' with the clipping stage solver
-    (build_dual_problem, dual_Newton_tree.c:551-615, clipping vtable
-    dual_Newton_tree_clipping.c:264-355), built directly in f32: they feed
-    only the f32 factorization."""
+    [NpG, nxm, G] of M = J P J' (build_dual_problem,
+    dual_Newton_tree.c:551-615, with the clipping vtable
+    dual_Newton_tree_clipping.c:264-355 or the dense elimination matrices
+    P of the other stage solvers, dual_Newton_tree_qpoases.c), built
+    directly in f32: they feed only the f32 factorization."""
     dt = torch.float32
     t = prep.on(qp.device)
-    NpG, G, nxm = prep.NpG, prep.G, prep.nxm
+    NpG, G, nxm, K = prep.NpG, prep.G, prep.nxm, prep.K
     kv = t["kvalid"].to(dt)[:, :, None, None]
     Ak = qp.A.to(dt)[t["kidsP"]] * kv                     # [NpG, K, nxm, nxm]
     Bk = qp.B.to(dt)[t["kidsP"]] * kv                     # [NpG, K, nxm, num]
+    if opts.stage_solver != "clipping":
+        # W = Cf P_p Cf' + the kids' E P_c E' blocks, Ut = -E P_p Cf'
+        Pmat = (sol["P"] if "P" in sol else data["P"]).to(dt)
+        Pp = Pmat[t["gnodes"]]                            # the parent's P
+        Cf = torch.cat([Ak, Bk], dim=-1).reshape(NpG, G, Pmat.shape[-1])
+        W = Cf @ Pp @ Cf.mT
+        eye = torch.eye(nxm, dtype=dt, device=qp.device)
+        Px = torch.where(t["kvalid"][:, :, None, None],
+                         Pmat[:, :nxm, :nxm][t["kidsP"]], eye)  # [NpG, K, nxm, nxm]
+        Wv = W.view(NpG, K, nxm, K, nxm)
+        for k in range(K):
+            Wv[:, k, :, k, :] += Px[:, k]
+        return W, -(Pp[:, :nxm, :] @ Cf.mT)
     qtp = sol["qtilde"].to(dt)[t["gnodes"]]               # parent's masked inverses
     rtp = sol["rtilde"].to(dt)[t["gnodes"]]
     Af = (Ak * torch.sqrt(qtp)[:, None, None, :]).reshape(NpG, G, nxm)
@@ -569,25 +957,31 @@ def _newton_solve(sW, fact, rg, prep: _Prep):
     return _tree_chol_solve(fact, rg * sW, prep) * sW
 
 
-def _apply_M_nodes(qp: TreeQPIn, sol, d_nodes, prep: _Prep):
+def _apply_M_nodes(qp: TreeQPIn, sol, data, d_nodes, opts: TdunesOpts, prep: _Prep):
     """Exact dual-Hessian action M d in the data dtype, via the J P J'
-    structure: the linearized clipping stage response to a dual
-    perturbation d, pushed through the linearized dynamics residual. Used
-    for iterative refinement of f32-factored Newton directions."""
+    structure: the linearized stage response to a dual perturbation d
+    (the clipping inverses, or z = P h with the stage solver's elimination
+    matrices), pushed through the linearized dynamics residual. Used for
+    iterative refinement of f32-factored Newton directions."""
     xm, um, nrxm = _masks(qp, prep)
     nxm = prep.nxm
     par = prep.on(qp.device)["par"]
     AtBt = torch.cat([torch.einsum("nji,nj->ni", qp.A, d_nodes),
                       torch.einsum("nji,nj->ni", qp.B, d_nodes)], dim=1)
     sums = _kid_sum(AtBt, prep)
-    xl = sol["qtilde"] * (d_nodes - sums[:, :nxm]) * xm
-    ul = sol["rtilde"] * (-sums[:, nxm:]) * um
+    ql = (d_nodes - sums[:, :nxm]) * xm
+    rl = -sums[:, nxm:] * um
+    if opts.stage_solver == "clipping":
+        xl, ul = sol["qtilde"] * ql, sol["rtilde"] * rl
+    else:
+        zl = _bmv(sol["P"] if "P" in sol else data["P"], torch.cat([ql, rl], dim=1))
+        xl, ul = zl[:, :nxm] * xm, zl[:, nxm:] * um
     res = (torch.einsum("nij,nj->ni", qp.A, xl[par])
            + torch.einsum("nij,nj->ni", qp.B, ul[par]) - xl) * nrxm
     return -res
 
 
-def _newton_direction(W, Ut, rg, opts: TdunesOpts, prep: _Prep, qp, sol):
+def _newton_direction(W, Ut, rg, opts: TdunesOpts, prep: _Prep, qp, sol, data):
     """Factor + solve (calculate_delta_lambda) with Jacobi equilibration;
     with ``refine_steps`` > 0, plain or safeguarded iterative refinement of
     the f32-factored direction against the exact data-dtype Hessian
@@ -600,7 +994,7 @@ def _newton_direction(W, Ut, rg, opts: TdunesOpts, prep: _Prep, qp, sol):
 
     def M_g(dg):
         d_nodes = _group_to_nodes_mm(dg, prep, qp.dtype) * nrxm
-        return _nodes_to_group_mm(_apply_M_nodes(qp, sol, d_nodes, prep), prep)
+        return _nodes_to_group_mm(_apply_M_nodes(qp, sol, data, d_nodes, opts, prep), prep)
 
     if not opts.refine_safeguard:
         for _ in range(opts.refine_steps):
@@ -619,7 +1013,7 @@ def _newton_direction(W, Ut, rg, opts: TdunesOpts, prep: _Prep, qp, sol):
 
 
 def _line_search(qp: TreeQPIn, lam, dlam_nodes, sol0, dlam_g, rg, data,
-                 opts: TdunesOpts, prep: _Prep, restart: int):
+                 opts: TdunesOpts, prep: _Prep, restart: int, inner_ws=None):
     """Armijo backtracking on f = -g (line_search,
     dual_Newton_tree.c:922-1019): accept tau when f(lam + tau d) <= f(lam)
     + gamma tau grad'd + slack |f(lam)|, grad'd = -sum res . dlam, with the
@@ -627,7 +1021,8 @@ def _line_search(qp: TreeQPIn, lam, dlam_nodes, sol0, dlam_g, rg, data,
     JAX package evaluates tau = beta^k, k = 0..T-1, as one batch and
     backtracks sequentially beyond; ``_armijo`` gives the same steps. The
     restart heuristic takes a full step after ``ls_restart_trigger``
-    consecutive maxed-out searches. Returns (new lam, ls iterations,
+    consecutive maxed-out searches. Every trial stage solve hotstarts the
+    qpgen working sets from ``inner_ws``. Returns (new lam, ls iterations,
     descent ok, restart count)."""
     dt = lam.dtype
     dot = -torch.sum(rg * dlam_g)
@@ -639,7 +1034,8 @@ def _line_search(qp: TreeQPIn, lam, dlam_nodes, sol0, dlam_g, rg, data,
 
     def f_at(tau):
         lt = lam + tau * dlam_nodes
-        return _dual_value(qp, lt, _stage_solve(qp, lt, data, opts, prep), data, opts), None
+        sol = _stage_solve(qp, lt, data, opts, prep, inner_ws=inner_ws)
+        return _dual_value(qp, lt, sol, data, opts), None
 
     one = torch.ones((), dtype=dt, device=lam.device)
     f1, _ = f_at(one)
@@ -655,46 +1051,64 @@ def _line_search(qp: TreeQPIn, lam, dlam_nodes, sol0, dlam_g, rg, data,
 
 
 def _td_newton_loop(qp: TreeQPIn, lam0, opts: TdunesOpts, it0: int,
-                    patience: int = 0):
+                    patience: int = 0, ws0=None, data=None):
     """One dual-Newton loop at the dtype of ``qp``'s data, counting
     iterations from ``it0``: per iteration the stage solve and the dual
     residual at lam, the termination test, then (unless converged) the
     Hessian blocks, the Newton direction and the line search.
     ``patience > 0`` adds the coarse phase's stall exit: stop once the
     error has not improved by 10% for ``patience`` consecutive iterations.
-    Returns (lam, it, err, status, ls_it); err is a 0-dim tensor."""
+    With the qpgen and mixed stage solvers the working sets (m_up, m_dn)
+    of the general nodes are carried across iterations and into the line
+    search's trial solves (the qpOASES hotstart,
+    dual_Newton_tree_qpoases.c:312-356), starting from ``ws0`` (default:
+    empty sets). ``data``: ``_stage_data`` of ``qp``, if the caller has
+    it. Returns (lam, it, err, status, ls_it, ws); err is a 0-dim tensor,
+    ws None for the other stage solvers."""
     prep = _get_prep(qp.topo)
     dt = qp.dtype
     nrxm = _masks(qp, prep)[2]
-    data = _stage_data(qp, opts, prep)
+    if data is None:
+        data = _stage_data(qp, opts, prep)
+    ws = None
+    if opts.stage_solver in ("qpgen", "mixed"):
+        ws = ws0
+        if ws is None:
+            n_ws = len(data["gen"]["idx"]) if "gen" in data else (
+                0 if opts.stage_solver == "mixed" else prep.topo.Nn)
+            ws = tuple(torch.zeros((n_ws, data["G"].shape[1]), dtype=dt, device=qp.device)
+                       for _ in range(2))
     lam, it, status, restart, ls_it = lam0, it0, TDUNES_OPTIMAL, 0, 0
     err = best = torch.full((), math.inf, dtype=dt, device=qp.device)
     noimp = 0
     while (bool(err >= opts.tol) and status == TDUNES_OPTIMAL
            and it < opts.max_iter and (patience <= 0 or noimp < patience)):
-        sol = _stage_solve(qp, lam, data, opts, prep)
+        sol = _stage_solve(qp, lam, data, opts, prep, inner_ws=ws)
+        ws = sol.get("qpgen_ws", ws)
         res = _dual_residual(qp, sol, prep)
         err = _residual_error(res, opts)
         noimp = 0 if bool(err < 0.9 * best) else noimp + 1
         best = torch.minimum(best, err)
         if bool(err < opts.tol):
             break
-        W, Ut = _build_dual_hessian(qp, sol, prep)
+        W, Ut = _build_dual_hessian(qp, sol, data, opts, prep)
         rg = _nodes_to_group_mm(res, prep)
-        dlam_g = _newton_direction(W, Ut, rg, opts, prep, qp, sol)
+        dlam_g = _newton_direction(W, Ut, rg, opts, prep, qp, sol, data)
         dlam_nodes = _group_to_nodes_mm(dlam_g, prep, dt) * nrxm
         lam_new, ls_it, descent_ok, restart = _line_search(
-            qp, lam, dlam_nodes, sol, dlam_g, rg, data, opts, prep, restart)
+            qp, lam, dlam_nodes, sol, dlam_g, rg, data, opts, prep, restart, inner_ws=ws)
         if descent_ok:
             lam = lam_new
         else:
             status = TDUNES_NOT_DESCENT
         it += 1
-    return lam, it, err, status, ls_it
+    return lam, it, err, status, ls_it, ws
 
 
-def _check_generic(qp: TreeQPIn, opts: TdunesOpts, stage_ws):
+def _check_generic(qp: TreeQPIn, opts: TdunesOpts):
     """Raise on options ``tdunes_solve`` does not implement yet."""
+    if opts.stage_solver not in STAGE_SOLVERS:
+        raise ValueError(f"stage_solver={opts.stage_solver!r} (one of {STAGE_SOLVERS})")
     if opts.stage_solver == "clipping" and not clipping_applicable(qp):
         raise ValueError(
             "clipping stage solver not applicable (needs diagonal Q/R, zero "
@@ -702,8 +1116,6 @@ def _check_generic(qp: TreeQPIn, opts: TdunesOpts, stage_ws):
     later = "is not ported yet (ROADMAP.md, port queue)"
     prep = _get_prep(qp.topo)
     for bad, what in (
-            (opts.stage_solver != "clipping", f"stage_solver={opts.stage_solver!r}"),
-            (stage_ws is not None, "stage_ws (the qpgen working-set hotstart)"),
             (opts.chain_backend != "pallas",
              f"chain_backend={opts.chain_backend!r} (the unfused tree Cholesky)"),
             (opts.factor_dtype != "float32", f"factor_dtype={opts.factor_dtype!r}"),
@@ -723,17 +1135,34 @@ def tdunes_solve(qp: TreeQPIn, lam0=None, opts: TdunesOpts = TdunesOpts(),
     topology, on the device of ``qp``'s tensors.
 
     ``lam0`` [Nn, nxm] warm-starts the duals (zeros when None). Ported:
-    the clipping stage solver with f32 factors on the tree-Cholesky
-    kernels (``factor_dtype="float32"``, ``chain_backend="pallas"``, a
-    static regularization), one- and two-phase (``f32_phase_tol > 0``
-    with f64 data: a coarse phase with everything in f32 down to
-    f32_phase_tol or a stall of ``f32_patience`` iterations, then the
-    data-dtype phase with refinement), plain or safeguarded refinement,
-    sequential or batched Armijo, all three terminations. The other
-    options raise ``NotImplementedError``. ``info["iter_f32"]`` counts the
-    coarse iterations, ``info["iter"]`` both phases.
+    every stage solver (clipping, dense, boxqp, qpgen, mixed) with f32
+    factors on the tree-Cholesky kernels (``factor_dtype="float32"``,
+    ``chain_backend="pallas"``, a static regularization), one- and
+    two-phase (``f32_phase_tol > 0`` with f64 data: a coarse phase with
+    everything in f32 down to f32_phase_tol or a stall of ``f32_patience``
+    iterations, then the data-dtype phase with refinement), plain or
+    safeguarded refinement, sequential or batched Armijo, all three
+    terminations. The other options raise ``NotImplementedError``.
+
+    ``stage_ws``: the qpgen working sets of a previous solve
+    (``info["qpgen_ws"]``), the qpOASES hotstart across MPC steps
+    (dual_Newton_tree_qpoases.c:335-342). As in the JAX package, the
+    coarse phase starts from empty sets and hands its own to the
+    data-dtype phase, so ``stage_ws`` reaches the one-phase solve only.
+    With stage solver mixed, ``opts.node_solver`` is derived from the data
+    when None, and ``h_diag`` is set when the Hessians are diagonal.
+
+    ``info["iter_f32"]`` counts the coarse iterations, ``info["iter"]``
+    both phases; qpgen and mixed add ``qpgen_res`` (the general stage QPs'
+    KKT guard at the solution) and ``qpgen_ws`` (their final working
+    sets), boxqp adds ``boxqp_res``.
     """
-    _check_generic(qp, opts, stage_ws)
+    s = opts.stage_solver
+    if s == "mixed" and opts.node_solver is None:
+        opts = dataclasses.replace(opts, node_solver=clipping_applicable_nodes(qp))
+    if s != "clipping" and not opts.h_diag and diag_weights_applicable(qp):
+        opts = dataclasses.replace(opts, h_diag=True)
+    _check_generic(qp, opts)
     topo = qp.topo
     prep = _get_prep(topo)
     dt = qp.dtype
@@ -741,30 +1170,45 @@ def tdunes_solve(qp: TreeQPIn, lam0=None, opts: TdunesOpts = TdunesOpts(),
     if lam0 is None:
         lam0 = torch.zeros((topo.Nn, topo.nxm), dtype=dt, device=qp.device)
     lam0 = lam0 * nrxm
+    ws_in = None if stage_ws is None else tuple(w.to(dt) for w in stage_ws)
 
     it0 = 0
     if opts.f32_phase_tol > 0 and dt == torch.float64:
         f32 = torch.float32
         optsA = dataclasses.replace(opts, refine_steps=0,
                                     tol=max(opts.f32_phase_tol, opts.tol))
-        lamA, it0, *_ = _td_newton_loop(qp.to(dtype=f32), lam0.to(f32), optsA, 0,
-                                        patience=opts.f32_patience)
+        lamA, it0, _, _, _, wsA = _td_newton_loop(qp.to(dtype=f32), lam0.to(f32), optsA, 0,
+                                                  patience=opts.f32_patience)
         # the coarse phase's status is dropped: a not-descent there is
         # expected noise near the f32 residual floor, not a failure
         lam0 = lamA.to(dt) * nrxm
+        if wsA is not None:
+            ws_in = tuple(w.to(dt) for w in wsA)
 
-    lam, it, _, status, ls_it = _td_newton_loop(qp, lam0, opts, it0)
-    # final stage solve + multiplier recovery (dual_Newton_tree.c:1235-1247)
     data = _stage_data(qp, opts, prep)
-    sol = _stage_solve(qp, lam, data, opts, prep)
+    lam, it, _, status, ls_it, ws_f = _td_newton_loop(qp, lam0, opts, it0, ws0=ws_in,
+                                                      data=data)
+    # final stage solve + multiplier recovery (dual_Newton_tree.c:1235-1247)
+    sol = _stage_solve(qp, lam, data, opts, prep, inner_ws=ws_f)
     err = float(_residual_error(_dual_residual(qp, sol, prep), opts))
     if status == TDUNES_OPTIMAL and err >= opts.tol:
         status = TDUNES_MAX_ITER
     info = dict(iter=it, status=status, error=err, ls_iter=ls_it, iter_f32=it0)
-    return TreeQPOut(
-        x=sol["x"], u=sol["u"], lam=lam * nrxm,
+    mu_d = torch.zeros((topo.Nn, topo.ncm), dtype=dt, device=qp.device)
+    if s == "clipping":
         # mu = Q .* (xUnc - x) (stage_qp_clipping_export_mu)
-        mu_x=data["Qd"] * (sol["xUnc"] - sol["x"]) * xm,
-        mu_u=data["Rd"] * (sol["uUnc"] - sol["u"]) * um,
-        mu_d=torch.zeros((topo.Nn, topo.ncm), dtype=dt, device=qp.device),
-        info=info)
+        mu_x = data["Qd"] * (sol["xUnc"] - sol["x"]) * xm
+        mu_u = data["Rd"] * (sol["uUnc"] - sol["u"]) * um
+    elif s == "boxqp":
+        mu_x, mu_u = sol["mu"][:, :topo.nxm] * xm, sol["mu"][:, topo.nxm:] * um
+        info["boxqp_res"] = float(sol["boxqp_res"])
+    elif s in ("qpgen", "mixed"):
+        mu_x, mu_u = sol["mu_x"] * xm, sol["mu_u"] * um
+        mu_d = sol["mu_d"][:, :topo.ncm] * torch.as_tensor(topo.c_mask, dtype=dt,
+                                                           device=qp.device)
+        info["qpgen_res"] = float(sol["qpgen_res"])
+        info["qpgen_ws"] = sol["qpgen_ws"]
+    else:
+        mu_x, mu_u = torch.zeros_like(sol["x"]), torch.zeros_like(sol["u"])
+    return TreeQPOut(x=sol["x"], u=sol["u"], lam=lam * nrxm, mu_x=mu_x, mu_u=mu_u,
+                     mu_d=mu_d, info=info)
