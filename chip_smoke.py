@@ -9,7 +9,7 @@ Phases (any failure exits non-zero):
    (nvidia-smi), builds the kernels of ``treeqp_tpu_torch/csrc/`` into
    ``build/`` (one nvcc per source, in parallel) and prints the build time
    and each kernel's registers and spills;
-2. all eighteen kernels against their plain PyTorch twins on the card,
+2. the first eighteen kernels against their plain PyTorch twins on the card,
    with each one's median time from CUDA events, its bound (the least
    time the card could take: the bytes it must move over the memory rate,
    or its operations over the FP32 / FP64 peak, whichever is larger) and,
@@ -62,18 +62,39 @@ Phases (any failure exits non-zero):
    qpgen solve of the same plant at the depth Nr=2 (16 scenarios, 309
    nodes: the full tree takes ~6 minutes on the CPU) held against the same
    solve through the plain twins on the CPU (the same iterations, x and u
-   within 1e-9).
+   within 1e-9);
+7. the interior-point engine (slice 6) at ``models.IPM_OPTS``: its five
+   Riccati kernels (ric_chain_factor, ric_chain_bwd, ric_chain_fwd,
+   crown_ric_factor, crown_ric_solve) held against their twins on the
+   operands of the first f32 iteration of each path (captured from a
+   one-iteration solve), timed on path A (chain kernels) and B (crown
+   kernels); then path A, ``ipm_ms_solve`` on general_cd_bench's ipm_ms
+   tree (spring_mass_chain(4,4,4,20) with a row on every node: dense chain
+   Riccati, the crown through the plain f32 recursion), and path B, the
+   same tree box-only (ipm_bench's ms_f32_pallas mode: the crown through
+   the crown kernels), each cold and through a warm chain of four requests
+   b + 1e-6 (k + 1) from the previous solve; path C, ``ipm_solve`` on the
+   box-only tree whole (4437 nodes, 21 stages) and on
+   spring_mass_chain(4,4,3,7) (341 nodes), the f32 phase through the crown
+   kernels; every request with status 0, max(res4) < tol and KKT < 1e-8,
+   its iterations (f32 + f64), Riccati launches and time printed; path
+   A's cold solve held against the same solve through the plain twins on
+   the CPU at full depth (iterations within one, x and u within 1e-7).
 
 The kernel launch counts are set to 0 before each path (one-phase,
 two-phase, bench, bench handover, two-norm, 1024 scenarios, generic split,
-generic crown, generic cross-check, general C/D qpgen, general C/D mixed)
+generic crown, generic cross-check, general C/D qpgen, general C/D mixed,
+IPM paths A, B and C)
 and read after it; every kernel must launch on a path that runs it, the
 multistage paths launch none of the generic solver's kernels, the generic
 split path none of the multistage solver's, the crown path only
 crown_factor and crown_solve, no path before section 6 launches
 admm_identify, and the general C/D paths launch it and the five generic
-kernels and none of the multistage solver's. Prints the kernels' JSON
-summary, then the device JSON as the last line. Imports nothing of JAX.
+kernels and none of the multistage solver's; no path before section 7
+launches an IPM kernel, the IPM paths launch none of the dual Newton's,
+path A no crown-Riccati kernel and path C no chain-Riccati kernel. Prints
+the JSON summary of all 23 kernels, then the device JSON as the last line.
+Imports nothing of JAX.
 """
 
 import dataclasses
@@ -203,16 +224,24 @@ def near_bound(torch, vU, lo, hi, mask):
 
 
 def nbytes(torch, *objs):
-    """Bytes of every tensor in ``objs`` (tuples, lists and dicts walked)."""
-    total = 0
-    for o in objs:
+    """Bytes of every tensor in ``objs`` (tuples, lists and dicts walked),
+    each counted once: a tensor met twice (an input that a kernel hands
+    back among its outputs) moves once."""
+    seen = {}
+
+    def walk(o):
         if isinstance(o, torch.Tensor):
-            total += o.numel() * o.element_size()
+            key = (o.data_ptr(), o.dtype, tuple(o.shape))
+            seen[key] = o.numel() * o.element_size()
         elif isinstance(o, dict):
-            total += nbytes(torch, *o.values())
+            for v in o.values():
+                walk(v)
         elif isinstance(o, (list, tuple)):
-            total += nbytes(torch, *o)
-    return total
+            for v in o:
+                walk(v)
+    for o in objs:
+        walk(o)
+    return sum(seen.values())
 
 
 # operation counts of the dense block routines (an FMA counts two)
@@ -252,16 +281,21 @@ def main():
     sys.path.insert(0, str(ROOT))
     import treeqp_tpu_torch  # noqa: F401  (pins full-precision f32)
     from treeqp_tpu_torch.core.kkt import max_kkt_residual
-    from treeqp_tpu_torch.models import (GENERAL_CD_OPTS, GENERIC_SPEED_OPTS, asym_tree,
-                                         general_cd, pruned, quadcopter)
+    from treeqp_tpu_torch.models import (GENERAL_CD_OPTS, GENERIC_SPEED_OPTS, IPM_OPTS,
+                                         asym_tree, general_cd, pruned, quadcopter,
+                                         spring_mass_chain)
     from treeqp_tpu_torch.ops import _build
     from treeqp_tpu_torch.ops import chain_kernels as ck
     from treeqp_tpu_torch.ops import crown_kernels as ckr
+    from treeqp_tpu_torch.ops import crown_riccati as crk
     from treeqp_tpu_torch.ops import df_eval_kernels as dek
     from treeqp_tpu_torch.ops import df_reduce as dr
     from treeqp_tpu_torch.ops import iter_kernel as ik
     from treeqp_tpu_torch.ops import qpgen_lanes as ql
+    from treeqp_tpu_torch.ops import riccati_kernels as rk
     from treeqp_tpu_torch.ops import system_kernels as sk
+    from treeqp_tpu_torch.solvers import ipm
+    from treeqp_tpu_torch.solvers import ipm_multistage as ims
     from treeqp_tpu_torch.solvers import ms_df64 as md
     from treeqp_tpu_torch.solvers import tdunes as td
     from treeqp_tpu_torch.solvers import tdunes_multistage as tm
@@ -753,18 +787,24 @@ def main():
                   dek.chain_apply_df, dek.crown_apply_df, dr.df_reduce_flat)
     generic_kernels = (ck.chain_factor, ck.chain_solve_bwd, ck.chain_forward,
                        ckr.crown_factor, ckr.crown_solve)
-    kernels = ms_kernels + generic_kernels + (ql.admm_identify,)
+    ipm_kernels = (rk.ric_chain_factor, rk.ric_chain_bwd, rk.ric_chain_fwd,
+                   crk.crown_ric_factor, crk.crown_ric_solve)
+    kernels = ms_kernels + generic_kernels + (ql.admm_identify,) + ipm_kernels
     ms_names = tuple(k.__name__ for k in ms_kernels)
     generic_names = tuple(k.__name__ for k in generic_kernels)
     admm_name = ("admm_identify",)
+    ipm_names = tuple(k.__name__ for k in ipm_kernels)
     df_kernels = ("chain_eval_df", "crown_eval_df", "chain_apply_df",
                   "crown_apply_df", "df_reduce_flat")
     paths = {}
 
-    def drive(path, needs, fn, forbid=generic_names + admm_name):
+    def drive(path, needs, fn, forbid=generic_names + admm_name, ipm_path=False):
         """Run one main path with every launch count set to 0 just before
         it; read the counts just after. Each kernel in ``needs`` must have
-        launched, none in ``forbid``."""
+        launched, none in ``forbid``, and none of the IPM's Riccati kernels
+        unless ``ipm_path``."""
+        if not ipm_path:
+            forbid = tuple(forbid) + ipm_names
         for fn_k in kernels:
             fn_k.launches = 0
         torch.cuda.synchronize()
@@ -1104,6 +1144,252 @@ def main():
     if ic["iter"] != ip["iter"] or ic["iter_f32"] != ip["iter_f32"] \
             or gaps["x"] > CD_GAP or gaps["u"] > CD_GAP:
         fail(f"general C/D qpgen: card and CPU solves disagree: {gaps}")
+
+    # ---- 7. the interior-point engine (slice 6)
+    f32 = torch.float32
+    opts_ipm = {k: ipm.IpmOpts(**v) for k, v in IPM_OPTS.items()}
+    qa_cpu = general_cd("qpgen", device="cpu")        # path A: a row on every node
+    qb_cpu = spring_mass_chain(4, 4, 4, 20, device="cpu")[0]  # B and C: box-only
+    qc2_cpu = spring_mass_chain(4, 4, 3, 7, device="cpu")[0]  # C within the TPU caps
+    msa_cpu, msb_cpu = tm.split_multistage(qa_cpu), tm.split_multistage(qb_cpu)
+    qa, qb, qc2 = qa_cpu.to(dev), qb_cpu.to(dev), qc2_cpu.to(dev)
+    msa, msb = msa_cpu.to(dev), msb_cpu.to(dev)
+    print(f"IPM instances: A general_cd qpgen ({qa.topo.Nn} nodes, S={msa.meta.S} "
+          f"L={msa.meta.L}, crown {msa.meta.crown_topo.Nn} nodes, nx={qa.topo.nxm} "
+          f"nu={qa.topo.num}); B box-only spring_mass_chain(4,4,4,20) ({qb.topo.Nn} nodes); "
+          f"C the same tree whole and spring_mass_chain(4,4,3,7) ({qc2.topo.Nn} nodes, "
+          f"{qc2.topo.Nh + 1} stages)")
+
+    def capture(mod, names, fn):
+        """Run fn() with the wrappers ``names`` of ``mod`` recording the
+        operands of their first call; returns {name: (args, kwargs)}. A
+        wrapper adds one to the count of the name its module binds, which
+        during the capture is the stand-in: so each stand-in carries a
+        count, and the kernels' own counts do not move (``drive`` sets them
+        to 0 before each main path in any case)."""
+        got, orig = {}, {n: getattr(mod, n) for n in names}
+
+        def stand_in(n):
+            def w(*a, **k):
+                got.setdefault(n, (a, k))
+                return orig[n](*a, **k)
+            w.launches = 0
+            return w
+        for n in names:
+            setattr(mod, n, stand_in(n))
+        try:
+            fn()
+        finally:
+            for n in names:
+                setattr(mod, n, orig[n])
+        return got
+
+    def first_iteration(fn, key):
+        """The operands each IPM kernel takes at the first f32 iteration of
+        the solve fn(opts) of path ``key``."""
+        one = ipm.IpmOpts(**{**IPM_OPTS[key], "max_iter": 1})
+        got = {}
+        for mod, names in ((rk, ipm_names[:3]), (crk, ipm_names[3:])):
+            got.update(capture(mod, names, lambda: fn(one)))
+        return got
+
+    def stage_ops(nx, nz, part):
+        """Operations of one Riccati stage (an FMA counts two)."""
+        nu = nz - nx
+        if part == "factor":
+            return (chol_ops(nu) + 2 * nu * nu * nx + 2 * nx * nu * nx + 2 * nx * nx * nz
+                    + 2 * nz * nz * nx + nz * nz)
+        if part == "bwd":
+            return 2 * nu * nu + 2 * nx * nu + 2 * nx * nx + 2 * nx * nz + nz
+        return 2 * nx * nz + 2 * nu * nx + 2 * nx * nx
+
+    ops_at = {
+        "A": first_iteration(lambda o: ims.ipm_ms_solve(msa, o), "cd"),
+        "B": first_iteration(lambda o: ims.ipm_ms_solve(msb, o), "box"),
+        "C4437": first_iteration(lambda o: ipm.ipm_solve(qb, o), "cd"),
+        f"C{qc2.topo.Nn}": first_iteration(lambda o: ipm.ipm_solve(qc2, o), "cd")}
+    ipm_checks = {}
+
+    def ipm_check(name, path, fn, ref_fn, rtol, shapes, inputs, ops):
+        ref, got = ref_fn(), fn()
+        torch.cuda.synchronize()
+        if isinstance(ref, tuple) and isinstance(ref[0], dict):
+            got = [got[0][k] for k in ("P", "Luu", "K", "Mxu")] + list(got[1:])
+            ref = [ref[0][k] for k in ("P", "Luu", "K", "Mxu")] + list(ref[1:])
+        elif isinstance(ref, dict):
+            got, ref = ([d[k] for k in ("P", "Luu", "K", "Mxu")] for d in (got, ref))
+        err = compare(torch, f"{name} (path {path})", got, ref, rtol)
+        ipm_checks.setdefault(name, {})[path] = (err, fn, ref_fn, shapes, inputs, ops)
+
+    for path, got in ops_at.items():
+        if "ric_chain_factor" in got:
+            (hbar, AB), kw = got["ric_chain_factor"]
+            S_, L_, nx_, nz_ = AB.shape
+            ipm_check("ric_chain_factor", path,
+                      lambda hbar=hbar, AB=AB, kw=kw: rk.ric_chain_factor(hbar, AB, **kw),
+                      lambda hbar=hbar, AB=AB, kw=kw: rk.ric_chain_factor_ref(hbar, AB, **kw),
+                      FACTOR_RTOL, f"hbar {tuple(hbar.shape)}", (hbar, AB),
+                      S_ * L_ * stage_ops(nx_, nz_, "factor"))
+            (fact, rg, rb), _ = got["ric_chain_bwd"]
+            rg, rb = rg.to(f32).contiguous(), rb.to(f32).contiguous()
+            ipm_check("ric_chain_bwd", path,
+                      lambda fact=fact, rg=rg, rb=rb: rk.ric_chain_bwd(fact, rg, rb),
+                      lambda fact=fact, rg=rg, rb=rb: rk.ric_chain_bwd_ref(fact, rg, rb),
+                      SOLVE_RTOL, f"rg {tuple(rg.shape)}",
+                      ([fact[k] for k in ("P", "Luu", "Mxu", "AB")], rg, rb),
+                      S_ * L_ * stage_ops(nx_, nz_, "bwd"))
+            (fact, p, k, rb, zr), _ = got["ric_chain_fwd"]
+            rb, zr = rb.to(f32).contiguous(), zr.to(f32).contiguous()
+            ipm_check("ric_chain_fwd", path,
+                      lambda a=(fact, p, k, rb, zr): rk.ric_chain_fwd(*a),
+                      lambda a=(fact, p, k, rb, zr): rk.ric_chain_fwd_ref(*a),
+                      SOLVE_RTOL, f"rb {tuple(rb.shape)}",
+                      ([fact[k] for k in ("P", "K", "AB")], p, k, rb, zr),
+                      S_ * L_ * stage_ops(nx_, nz_, "fwd"))
+        if "crown_ric_factor" in got:
+            (hbar, AB, W0, prep_c, nx_), kw = got["crown_ric_factor"]
+            Nc_c, nz_ = hbar.shape
+            sched_c = crk._get_sched(prep_c)
+            ipm_check("crown_ric_factor", path,
+                      lambda a=(hbar, AB, W0, prep_c, nx_), kw=kw: crk.crown_ric_factor(*a, **kw),
+                      lambda a=(hbar, AB, W0, prep_c, nx_), kw=kw:
+                      crk.crown_ric_factor_ref(*a, **kw),
+                      FACTOR_RTOL, f"hbar {tuple(hbar.shape)}, {sched_c.n_lev} levels",
+                      (hbar, AB, W0, [v for k, v in sched_c.on(dev).items()
+                                      if k != "par"]),  # the factor reads no parent
+                      Nc_c * (stage_ops(nx_, nz_, "factor") + nz_ * nz_))
+            (fact, rg, rb, w0, prep_c), _ = got["crown_ric_solve"]
+            rg, rb, w0 = (v.to(f32).contiguous() for v in (rg, rb, w0))
+            ipm_check("crown_ric_solve", path,
+                      lambda a=(fact, rg, rb, w0, prep_c): crk.crown_ric_solve(*a),
+                      lambda a=(fact, rg, rb, w0, prep_c): crk.crown_ric_solve_ref(*a),
+                      SOLVE_RTOL, f"rg {tuple(rg.shape)}",
+                      ([fact[k] for k in ("P", "Luu", "K", "Mxu", "AB")], rg, rb, w0,
+                       sched_c.on(dev)),
+                      Nc_c * (stage_ops(nx_, nz_, "bwd") + stage_ops(nx_, nz_, "fwd") + nz_)
+                      + chol_ops(nx_) + 4 * nx_ * nx_)
+    # timed at path A (the chain kernels: the dense headline) and path B
+    # (the crown kernels: the 341-node crown with the chains' terms); the
+    # other paths' differences and times go into the shapes note
+    for name, timed in (("ric_chain_factor", "A"), ("ric_chain_bwd", "A"),
+                        ("ric_chain_fwd", "A"), ("crown_ric_factor", "B"),
+                        ("crown_ric_solve", "B")):
+        runs = ipm_checks[name]
+        err, fn, ref_fn, shapes, inputs, ops = runs[timed]
+        others = ", ".join(
+            f"path {p} {r[3]}: |diff| {r[0]:.3e}, "
+            f"{cuda_ms(torch, r[1], 20):.4f} ms" for p, r in runs.items() if p != timed)
+        source = "ric_chain.cu" if name.startswith("ric") else "crown_ric.cu"
+        replaces = {"ric_chain_factor": "riccati_kernels.py:84",
+                    "ric_chain_bwd": "riccati_kernels.py:150",
+                    "ric_chain_fwd": "riccati_kernels.py:193",
+                    "crown_ric_factor": "crown_riccati.py:98",
+                    "crown_ric_solve": "crown_riccati.py:170"}[name]
+        record(name, source, f"treeqp_tpu/ops/{replaces}", max(r[0] for r in runs.values()),
+               fn, ref_fn, f"path {timed} {shapes}, |diff| {err:.3e}; {others}", inputs, ops)
+    for r in results[-5:]:
+        print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library call none, "
+              f"max |diff| {r['max_abs_err']:.3e} [{r['shapes']}] on {card}")
+
+    ipm_launches = lambda: sum(k.launches for k in ipm_kernels)
+
+    def i_certified(q, ms_q, o, ws, what):
+        """One IPM request, certified: status 0, max(res4) < tol, the port's
+        KKT < 1e-8, finite output of the right shape. Returns (out, the
+        (crown, chain) pair or None, kkt, ms, IPM kernel launches)."""
+        n0 = ipm_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if ms_q is None:
+            out, pair = ipm.ipm_solve(q, o, ws=ws), None
+        else:
+            pair = ims.ipm_ms_solve(ms_q, o, ws=ws)
+            out = tm.merge_output(ms_q, *pair)
+        torch.cuda.synchronize()
+        t_ms = (time.perf_counter() - t0) * 1e3
+        kkt = max_kkt_residual(q, out)
+        info = out.info
+        if info["status"] != ipm.IPM_OPTIMAL or not float(info["res4"].max()) < o.tol \
+                or not kkt < TOL:
+            fail(f"{what}: status {info['status']} res4 {info['res4'].tolist()} kkt {kkt}")
+        if tuple(out.x.shape) != (q.topo.Nn, q.topo.nxm) or not all(
+                bool(torch.isfinite(v).all()) for v in (out.x, out.u, out.lam, out.mu_d)):
+            fail(f"{what}: output of the wrong shape or not finite")
+        n = ipm_launches() - n0
+        print(f"{what} ({q.topo.Nn} nodes): iter {info['iter']} ({info['iter_f32']} f32 + "
+              f"{info['iter'] - info['iter_f32']} f64), max res4 "
+              f"{float(info['res4'].max()):.3e}, kkt {kkt:.3e}, max |mu_d| "
+              f"{float(out.mu_d.abs().max()):.3e}, {n} Riccati kernel launches, "
+              f"{t_ms:.1f} ms on {card}")
+        return out, pair, kkt, t_ms, n
+
+    def shifted(q, ms_q, db):
+        """The next MPC request: b + db on every edge, in both layouts."""
+        bump = lambda x: x.replace(b=x.b + db)
+        return bump(q), dataclasses.replace(ms_q, b=ms_q.b + db, crown=bump(ms_q.crown))
+
+    def ms_path(tag, q, ms_q, o):
+        first = i_certified(q, ms_q, o, None, f"IPM {tag} cold solve (first)")
+        again = i_certified(q, ms_q, o, None, f"IPM {tag} cold solve (again)")
+        prev, rows = first[1][:2], []
+        for k in range(N_REQUESTS_CD):
+            q_k, ms_k = shifted(q, ms_q, CD_DB * (k + 1))
+            r = i_certified(q_k, ms_k, o, prev, f"IPM {tag} warm request {k} "
+                            f"(b + {CD_DB * (k + 1):g})")
+            rows.append(r)
+            prev = r[1][:2]
+        print(f"requests IPM {tag} warm: iters {[r[0].info['iter'] for r in rows]}, "
+              f"{statistics.mean(r[3] for r in rows):.1f} ms/request (cold "
+              f"{again[3]:.1f} ms), max kkt {max(r[2] for r in rows):.3e} on {card}")
+        return first[0]
+
+    tdunes_names = ms_names + generic_names + admm_name
+    out_a = drive("IPM general C/D (A)", ipm_names[:3],
+                  lambda: ms_path("A general C/D", qa, msa, opts_ipm["cd"]),
+                  forbid=tdunes_names + ipm_names[3:], ipm_path=True)
+    drive("IPM box-only multistage (B)", ipm_names,
+          lambda: ms_path("B box-only", qb, msb, opts_ipm["box"]),
+          forbid=tdunes_names, ipm_path=True)
+
+    def generic_path():
+        for q in (qb, qc2):
+            for k in range(2):
+                i_certified(q, None, opts_ipm["cd"], None,
+                            f"IPM C generic tree cold solve ({'first' if k == 0 else 'again'})")
+    drive("IPM generic tree (C)", ipm_names[3:], generic_path,
+          forbid=tdunes_names + ipm_names[:3], ipm_path=True)
+
+    # path A's cold solve through the plain twins on the CPU, at full depth:
+    # iterations within one; x and u within 1e-7 at the same iteration
+    # count. (On this tree one iteration past tol still moves x by ~6e-6
+    # and u by ~8e-5, in JAX's solve too: tests/test_torch_ipm_ms.py::
+    # test_general_cd_headline_ends_one_step_apart. So when the counts
+    # differ by one, the longer solve is rerun stopped at the shorter one's
+    # count and the two are compared there.)
+    def solve_a(ms_q, **kw):
+        pair = ims.ipm_ms_solve(ms_q, dataclasses.replace(opts_ipm["cd"], **kw))
+        return tm.merge_output(ms_q, *pair)
+
+    t0 = time.perf_counter()
+    out_ac = solve_a(msa_cpu)
+    t_cpu = time.perf_counter() - t0
+    ia, ic = out_a.info, out_ac.info
+    gap = lambda a, b: {f: float((getattr(a, f).cpu() - getattr(b, f)).abs().max())
+                        for f in ("x", "u", "lam", "mu_d")}
+    gaps = gap(out_a, out_ac)
+    print(f"IPM A cold solve, card vs CPU plain path ({t_cpu:.1f} s on the CPU): iter "
+          f"{ia['iter']} vs {ic['iter']} (f32 {ia['iter_f32']} vs {ic['iter_f32']}), "
+          + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps.items()))
+    n_eq = min(ia["iter"], ic["iter"])
+    if ia["iter"] != ic["iter"]:
+        card_n = out_a if ia["iter"] == n_eq else solve_a(msa, max_iter=n_eq)
+        cpu_n = out_ac if ic["iter"] == n_eq else solve_a(msa_cpu, max_iter=n_eq)
+        gaps = gap(card_n, cpu_n)
+        print(f"IPM A, card vs CPU plain path, both stopped at {n_eq} iterations: "
+              + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps.items()))
+    if abs(ia["iter"] - ic["iter"]) > 1 or gaps["x"] > 1e-7 or gaps["u"] > 1e-7:
+        fail(f"IPM path A: card and CPU solves disagree at {n_eq} iterations: {gaps}")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"(build {t_build:.1f} s) on {card}")

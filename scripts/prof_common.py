@@ -1,5 +1,5 @@
 """Helpers of the port's profiling scripts (``prof_torch_ms.py``,
-``prof_torch_generic.py``): the card's name and power limit, host-clock
+``prof_torch_generic.py``, ``prof_torch_ipm.py``): the card's name and power limit, host-clock
 medians of synchronized calls, and a torch.profiler summary of one call.
 Needs CUDA; imports nothing of JAX."""
 

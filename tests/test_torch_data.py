@@ -140,16 +140,29 @@ def test_split_multistage_matches_jax(make):
 
 
 def test_split_multistage_rejects_general_rows():
+    """A tree with general C/D rows splits with the rows carried in stacked
+    chain tensors, as the JAX split does (the multistage IPM reads them);
+    the multistage dual Newton rejects the split."""
+    from treeqp_tpu_torch.solvers import tdunes as td
     topo = TreeStructure.multistage(2, 1, 3, 2, 1, nc=1)
-    with pytest.raises(NotImplementedError):
-        tm.split_multistage(TreeQPIn.zeros(topo))
+    qp = TreeQPIn.zeros(topo)
+    ms = tm.split_multistage(qp)
+    ms_j = jtm.split_multistage(JTreeQPIn.zeros(JTree.multistage(2, 1, 3, 2, 1, nc=1)))
+    assert ms.C.shape == (ms.meta.S, ms.meta.L, topo.ncm, topo.nxm)
+    for f in tm.GENERAL_FIELDS:
+        np.testing.assert_array_equal(getattr(ms, f).numpy(), np.asarray(getattr(ms_j, f)))
+    with pytest.raises(ValueError, match="ipm_ms_solve"):
+        tm.tdunes_ms_solve(ms, None, None, td.TdunesOpts(
+            factor_dtype="float32", chain_backend="pallas", reg_type="always"))
 
 
 def test_port_imports_no_jax():
     code = ("import sys; import treeqp_tpu_torch, treeqp_tpu_torch.convert, "
             "treeqp_tpu_torch.models, treeqp_tpu_torch.ops.chain_kernels, "
             "treeqp_tpu_torch.ops.crown_kernels, "
-            "treeqp_tpu_torch.ops.system_kernels; "
+            "treeqp_tpu_torch.ops.system_kernels, treeqp_tpu_torch.ops.riccati_kernels, "
+            "treeqp_tpu_torch.ops.crown_riccati, treeqp_tpu_torch.solvers.ipm_multistage, "
+            "treeqp_tpu_torch.core.soft; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'treeqp_tpu' not in sys.modules; "
             "import torch; assert not torch.backends.cuda.matmul.allow_tf32; "

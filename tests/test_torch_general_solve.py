@@ -213,3 +213,67 @@ def test_general_cd_opts_are_the_bench_tdunes_opts():
         f32_patience=3)
     assert td.TdunesOpts(**models.GENERAL_CD_OPTS) == td.TdunesOpts(
         **{f: getattr(bench, f) for f in bench.__dataclass_fields__})
+
+
+# ---------------------------------------------------------------------------
+# parity at an intermediate depth
+
+
+DEEP_DIMS = (2, 3, 3, 12)  # nm, md, Nr, Nh: 27 scenarios, 283 nodes
+DEEP_ITER_BAND = 0.25  # the port takes at most 25% more iterations than JAX
+DEEP_SAME_ITERS = 4  # final-phase iterations on the same trajectory
+DEEP_SAME_RTOL = 1e-3  # ... their dual residuals within this (f32 factors)
+
+
+@pytest.mark.slow
+def test_general_cd_depth_parity():
+    """The two-phase qpgen solve at general_cd_bench's options on a deeper
+    tree (283 nodes): port and JAX (``chain_backend="xla"``) both reach
+    status 0 with both KKT oracles below 1e-8, and the port takes at most
+    DEEP_ITER_BAND more iterations than JAX. The final phases follow one
+    trajectory (dual residuals within DEEP_SAME_RTOL of each other, the
+    same line-search counts) for their first DEEP_SAME_ITERS iterations
+    and part after line searches of 20 and more backtracks, where the f32
+    factors' rounding decides the accepted step: the port took 31
+    iterations and JAX 42 on the CPU, 26% apart, so the counts are held to
+    a one-sided band, not to one iteration."""
+    nm, md, Nr, Nh = DEEP_DIMS
+    with mock.patch.multiple(gcb, NM=nm, MD=md, NR=Nr, NH=Nh):
+        qp_j = gcb.build("tdunes_qpgen")
+    qp = models.general_cd("qpgen", *DEEP_DIMS, device="cpu")
+    opts = options("qpgen", "two_phase")
+    out_j = jtd.tdunes_solve(qp_j, None, jtd.TdunesOpts(
+        **{**opts, "chain_backend": "xla", "record_history": True}))
+    # the port's final-phase dual residuals and line-search counts
+    errs, lss = [], []
+    real_err, real_ls = td._residual_error, td._line_search
+
+    def rec_err(res, o):
+        e = real_err(res, o)
+        if res.dtype == torch.float64:
+            errs.append(float(e))
+        return e
+
+    def rec_ls(*a, **k):
+        out = real_ls(*a, **k)
+        if a[0].dtype == torch.float64:
+            lss.append(out[1])
+        return out
+    with mock.patch.object(td, "_residual_error", rec_err), \
+            mock.patch.object(td, "_line_search", rec_ls):
+        out = tdunes_solve(qp, None, td.TdunesOpts(**opts))
+    it_j, it = int(out_j.info["iter"]), out.info["iter"]
+    e_j = np.asarray(out_j.info["err_hist"])
+    ls_j = np.asarray(out_j.info["ls_hist"])[np.isfinite(e_j)]
+    e_j = e_j[np.isfinite(e_j)]
+    same = 0
+    while (same < min(len(lss), len(ls_j)) and lss[same] == ls_j[same]
+           and abs(errs[same] - e_j[same]) <= DEEP_SAME_RTOL * e_j[same]):
+        same += 1
+    print(f"depth parity ({qp.topo.Nn} nodes): iterations JAX {it_j}, port {it}; the final "
+          f"phases on one trajectory for {same} iterations; KKT JAX "
+          f"{float(jax_kkt(qp_j, out_j)):.3e}, port {max_kkt_residual(qp, out):.3e}")
+    assert int(out_j.info["status"]) == 0 and out.info["status"] == 0
+    assert float(jax_kkt(qp_j, out_j)) < 1e-8 and max_kkt_residual(qp, out) < 1e-8
+    assert same >= DEEP_SAME_ITERS
+    assert it <= (1.0 + DEEP_ITER_BAND) * it_j

@@ -25,6 +25,9 @@ from treeqp_tpu_torch.core.kkt import kkt_residuals, max_kkt_residual  # noqa: E
 from treeqp_tpu_torch.solvers.tdunes import TdunesOpts, tdunes_solve  # noqa: E402
 from treeqp_tpu_torch.solvers.tdunes_multistage import (  # noqa: E402
     MultistageQP, split_multistage, tdunes_ms_solve, merge_output)
+from treeqp_tpu_torch.solvers.ipm import IpmOpts, ipm_solve  # noqa: E402
+from treeqp_tpu_torch.solvers.ipm_multistage import ipm_ms_solve  # noqa: E402
+from treeqp_tpu_torch.core.soft import soften_bounds, recover_soft  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -42,4 +45,9 @@ __all__ = [
     "split_multistage",
     "tdunes_ms_solve",
     "merge_output",
+    "IpmOpts",
+    "ipm_solve",
+    "ipm_ms_solve",
+    "soften_bounds",
+    "recover_soft",
 ]

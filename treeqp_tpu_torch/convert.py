@@ -15,7 +15,7 @@ import torch
 
 from treeqp_tpu_torch.core.qp_data import QP_FIELDS, OUT_FIELDS, TreeQPIn
 from treeqp_tpu_torch.solvers.tdunes_multistage import (
-    CHAIN_FIELDS, MultistageQP, _ms_meta)
+    CHAIN_FIELDS, GENERAL_FIELDS, MultistageQP, _ms_meta)
 from treeqp_tpu_torch.utils.tree import TreeStructure
 
 __all__ = ["topo_from", "qp_arrays", "qp_from_numpy", "ms_arrays",
@@ -50,8 +50,11 @@ def qp_from_numpy(arrays: dict, topo: TreeStructure, device="cuda",
 
 def ms_arrays(ms) -> dict:
     """{field: numpy array} of a MultistageQP's chain tensors, plus
-    ``"crown"``: the crown's ``qp_arrays``."""
+    ``"crown"``: the crown's ``qp_arrays``. The general C/D rows (C, D,
+    dmin, dmax) are included when the container carries them."""
     out = {f: _np(getattr(ms, f)) for f in CHAIN_FIELDS}
+    out.update({f: _np(getattr(ms, f)) for f in GENERAL_FIELDS
+                if getattr(ms, f, None) is not None})
     out["crown"] = qp_arrays(ms.crown)
     return out
 
@@ -60,13 +63,15 @@ def ms_from_numpy(arrays: dict, topo: TreeStructure, device="cuda",
                   dtype=torch.float64) -> MultistageQP:
     """The port's MultistageQP from ``ms_arrays``-style numpy arrays of the
     multistage tree with full topology ``topo``, on ``device`` (the card
-    unless the caller passes ``device="cpu"``)."""
+    unless the caller passes ``device="cpu"``); the general C/D rows when
+    ``arrays`` has them."""
     meta = _ms_meta(topo)
     t = lambda v: torch.tensor(np.asarray(v), dtype=dtype, device=device)
     return MultistageQP(
         crown=qp_from_numpy(arrays["crown"], meta.crown_topo, device, dtype),
         meta=meta,
-        **{f: t(arrays[f]) for f in CHAIN_FIELDS})
+        **{f: t(arrays[f]) for f in CHAIN_FIELDS + GENERAL_FIELDS
+           if arrays.get(f) is not None})
 
 
 def out_to_numpy(out) -> dict:

@@ -25,7 +25,8 @@ from treeqp_tpu_torch.utils.tree import TreeStructure
 
 __all__ = ["BenchmarkModel", "quadcopter", "linearize", "discretize", "GENERIC_SPEED_OPTS",
            "asym_tree", "pruned", "spring_mass_dynamics", "spring_mass_chain",
-           "with_general_rows", "with_sparse_rows", "general_cd", "GENERAL_CD_OPTS"]
+           "with_general_rows", "with_sparse_rows", "general_cd", "GENERAL_CD_OPTS",
+           "IPM_OPTS"]
 
 # the generic-tree solver's options, generic_bench.speed_opts(on_tpu=True),
 # as TdunesOpts fields
@@ -45,6 +46,16 @@ GENERAL_CD_OPTS = dict(stage_solver="qpgen", tol=2.5e-9, max_iter=150,
                        qpgen_factor_dtype="float32", qpgen_iters=100,
                        chain_backend="pallas", reg_type="always", reg_value=1e-6,
                        f32_phase_tol=1e-4, f32_patience=3)
+
+# the IPM's main paths, as IpmOpts fields: "cd", general_cd_bench's ipm_ms
+# mode at its TPU options (general_cd_bench.py:137-140) on general_cd("qpgen"),
+# also ipm_solve's f32 path (one refinement step) on diagonal box-only trees;
+# "box", ipm_bench's ms_f32_pallas mode (ipm_bench.py:40-41, 74) on the
+# box-only spring_mass_chain(4, 4, 4, 20)
+IPM_OPTS = dict(
+    cd=dict(tol=1e-8, max_iter=60, factor_dtype="float32", refine_steps=1,
+            chain_backend="pallas"),
+    box=dict(tol=1e-8, max_iter=40, factor_dtype="float32", chain_backend="pallas"))
 
 
 def linearize(rhs, xlin, ulin):

@@ -84,6 +84,16 @@ _SIGNATURES = {
     # G, L, rho, lo, hi, h, z0, lm, N, ng, nz, iters, stream
     "tq_admm_identify_f32": [_P] * 8 + [_I] * 4 + [_P],
     "tq_admm_identify_f64": [_P] * 8 + [_I] * 4 + [_P],
+    # the IPM's Riccati recursions
+    # hbar, AB, P, Lu, K, Mxu, W0, S, L, nx, nz, dense, reg, stream
+    "tq_ric_chain_factor": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # pointers, S, L, nx, nz, stream
+    "tq_ric_chain_bwd": [_P] + [_I] * 4 + [_P],
+    "tq_ric_chain_fwd": [_P] + [_I] * 4 + [_P],
+    # pointers, Nc, nx, nz, n_lev, reg, threads, stream
+    "tq_crown_ric_factor": [_P] + [_I] * 4 + [_F, _I, _P],
+    # pointers, Nc, nx, nz, n_lev, threads, stream
+    "tq_crown_ric_solve": [_P] + [_I] * 5 + [_P],
 }
 
 _LIB = None

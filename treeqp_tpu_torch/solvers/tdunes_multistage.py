@@ -64,6 +64,8 @@ __all__ = ["MultistageQP", "split_multistage", "tdunes_ms_solve",
 
 CHAIN_FIELDS = ("Qd", "Rd", "q", "r", "xmin", "xmax", "umin", "umax",
                 "A", "B", "b")
+# the general C/D rows of the chain nodes: None on trees without rows
+GENERAL_FIELDS = ("C", "D", "dmin", "dmax")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,11 +101,18 @@ class MultistageQP:
     B: torch.Tensor  # [S, L, nx, nu]
     b: torch.Tensor  # [S, L, nx]
     meta: _MsMeta
+    # general C/D rows of the chain nodes ([S, L, ncm, nx/nu], [S, L, ncm]),
+    # None when the tree has none; the multistage IPM reads them, the
+    # multistage dual Newton refuses them
+    C: torch.Tensor = None
+    D: torch.Tensor = None
+    dmin: torch.Tensor = None
+    dmax: torch.Tensor = None
 
     def to(self, device=None, dtype=None) -> "MultistageQP":
         """Every tensor moved to ``device`` and/or cast to ``dtype``."""
         kw = {f: getattr(self, f).to(device=device, dtype=dtype)
-              for f in CHAIN_FIELDS}
+              for f in CHAIN_FIELDS + GENERAL_FIELDS if getattr(self, f) is not None}
         return dataclasses.replace(self, crown=self.crown.to(device, dtype), **kw)
 
 
@@ -147,15 +156,13 @@ def _ms_meta(topo: TreeStructure) -> _MsMeta:
 def split_multistage(qp: TreeQPIn) -> MultistageQP:
     """Split a multistage TreeQPIn into crown + stacked chains.
 
-    Layout requirement: diagonal Q/R, zero S, no general C/D rows (the JAX
-    package carries C/D rows for its multistage IPM, not ported yet)."""
+    Layout requirement: diagonal Q/R, zero S. General C/D rows are carried
+    in stacked chain tensors (the crown keeps its own): the multistage IPM
+    (``ipm_ms_solve``) handles them, ``tdunes_ms_solve`` refuses them."""
     if not td.diag_weights_applicable(qp):
-        raise ValueError("multistage solver requires diagonal Q/R and zero S")
+        raise ValueError("multistage solver requires diagonal Q/R and zero S "
+                         "(general C/D rows are allowed for the IPM)")
     topo = qp.topo
-    if max(topo.nc) > 0:
-        raise NotImplementedError(
-            "general C/D rows (the multistage IPM) are not ported yet "
-            "(ROADMAP.md, port queue)")
     meta = _ms_meta(topo)
     ids = torch.as_tensor(chain_node_ids(meta), device=qp.device)
     xm = torch.as_tensor(topo.x_mask, dtype=qp.dtype, device=qp.device)[ids]
@@ -165,10 +172,13 @@ def split_multistage(qp: TreeQPIn) -> MultistageQP:
     crown_nodes = meta.crown_topo.Nn
     crown = TreeQPIn(**{f: getattr(qp, f)[:crown_nodes] for f in QP_FIELDS},
                      topo=meta.crown_topo)
+    # ncm is padded to >= 1 even without rows: carry them only if present
+    general = ({f: getattr(qp, f)[ids] for f in GENERAL_FIELDS}
+               if max(topo.nc) > 0 else {})
     return MultistageQP(
         crown=crown, Qd=Qd, Rd=Rd,
         **{f: getattr(qp, f)[ids] for f in CHAIN_FIELDS if f not in ("Qd", "Rd")},
-        meta=meta)
+        meta=meta, **general)
 
 
 # ---------------------------------------------------------------------------
@@ -689,7 +699,12 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
     stopped. With ``opts.df64_phase`` (f64 data, f32 factors, one device)
     that phase is ``ms_df64.ms_newton_loop_df``, with or without a coarse
     phase before it. ``info["iter_f32"]`` counts the coarse iterations,
-    ``info["iter"]`` both phases."""
+    ``info["iter"]`` both phases. General C/D rows (``ms.C`` not None) are
+    refused: the multistage dual Newton needs clipping stage QPs; such
+    trees go to ``ipm_ms_solve``."""
+    if ms.C is not None:
+        raise ValueError("the multistage dual Newton needs nc = 0 (general C/D "
+                         "rows: use ipm_ms_solve)")
     _check_opts(ms, opts)
     meta = ms.meta
     prep_cr = td._get_prep(meta.crown_topo)
@@ -761,11 +776,13 @@ def merge_output(ms: MultistageQP, crown_out, chain_out, info) -> TreeQPOut:
 
     mask = lambda m: torch.as_tensor(m, dtype=dt, device=dev)
     xm, um = mask(topo.x_mask), mask(topo.u_mask)
+    mu_d = torch.zeros((topo.Nn, topo.ncm), dtype=dt, device=dev)
+    if "mu_d" in crown_out:  # the multistage IPM's general-row multipliers
+        mu_d = assemble(crown_out["mu_d"], chain_out["mu_d"], topo.ncm) * mask(topo.c_mask)
     return TreeQPOut(
         x=assemble(crown_out["x"], chain_out["x"], topo.nxm) * xm,
         u=assemble(crown_out["u"], chain_out["u"], topo.num) * um,
         lam=assemble(crown_out["lam"], chain_out["lam"], topo.nxm) * xm,
         mu_x=assemble(crown_out["mu_x"], chain_out["mu_x"], topo.nxm) * xm,
         mu_u=assemble(crown_out["mu_u"], chain_out["mu_u"], topo.num) * um,
-        mu_d=torch.zeros((topo.Nn, topo.ncm), dtype=dt, device=dev),
-        info=info)
+        mu_d=mu_d, info=info)
