@@ -79,12 +79,35 @@ Phases (any failure exits non-zero):
    kernels; every request with status 0, max(res4) < tol and KKT < 1e-8,
    its iterations (f32 + f64), Riccati launches and time printed; path
    A's cold solve held against the same solve through the plain twins on
-   the CPU at full depth (iterations within one, x and u within 1e-7).
+   the CPU at full depth (iterations within one, x and u within 1e-7);
+8. sdunes (slice 7) at ``models.SDUNES_OPTS`` on sdunes_bench's tree (B's
+   box-only spring_mass_chain(4,4,4,20): 256 scenarios, Jay P=255, b=4):
+   chain_full_solve_mat (m=5 and m=1) held against its twin, with
+   chain_factor, on the operands of the first final-phase iteration of
+   the cold solve (captured from it); jay_cr_solve against its twin at the
+   solve's first iteration, and at the first final-phase iteration (where
+   the Jay system is near singular) both f32 solves held to a backward
+   error below 1e-5, with their distances to the f64 solve printed; and
+   jay_cr_solve once more on a seeded system at P=1023, b=16 with the
+   on-the-fly shift and one exactly singular block; the cold
+   ``sdunes_solve``; the bench's
+   sdunes_boot requests (stage 0's state bounds scaled by 1 + 0.02
+   sin(1 + 1.7(k+1)); a ``tdunes_ms_solve`` bootstrap at
+   ``models.SDUNES_BOOT_OPTS``, ``merge_output``, ``scenario_duals_from_tree``
+   with the tree solution, then ``sdunes_solve``) and sdunes_boot_df64's
+   (the same with ``df64_phase=True``), each certified (status 0, error
+   < 1e-8, port-oracle KKT < 1e-8 through ``scenario_output``) with its
+   iterations, bootstrap iterations, launches and time printed; the
+   sdunes_f32 mode (f32 data, cold, tol 1e-3: finite iterates, its ms an
+   iteration beside ``tdunes_ms_solve``'s all-f32 loop's); and a cold solve
+   at Nr=3 held against the CPU plain path (iterations within one; x and
+   u within 1e-7, at the same iteration count when the counts differ).
 
 The kernel launch counts are set to 0 before each path (one-phase,
 two-phase, bench, bench handover, two-norm, 1024 scenarios, generic split,
 generic crown, generic cross-check, general C/D qpgen, general C/D mixed,
-IPM paths A, B and C)
+IPM paths A, B and C; the sdunes cold solve, each boot request's
+bootstrap and its sdunes solve apart, sdunes_f32, tdunes_ms_f32)
 and read after it; every kernel must launch on a path that runs it, the
 multistage paths launch none of the generic solver's kernels, the generic
 split path none of the multistage solver's, the crown path only
@@ -92,8 +115,12 @@ crown_factor and crown_solve, no path before section 6 launches
 admm_identify, and the general C/D paths launch it and the five generic
 kernels and none of the multistage solver's; no path before section 7
 launches an IPM kernel, the IPM paths launch none of the dual Newton's,
-path A no crown-Riccati kernel and path C no chain-Riccati kernel. Prints
-the JSON summary of all 23 kernels, then the device JSON as the last line.
+path A no crown-Riccati kernel and path C no chain-Riccati kernel; no path
+before section 8 launches chain_full_solve_mat or jay_cr_solve, and each
+sdunes solve launches chain_factor once an iteration and both of them once
+a coarse iteration and 1 + its refinement steps times a final iteration,
+and no other kernel. Prints the JSON summary of all 25 kernels, then the
+device JSON as the last line.
 Imports nothing of JAX.
 """
 
@@ -160,6 +187,19 @@ ADMM_RTOL = 1e-6
 # tensor cores, FP64, HBM3)
 PEAK_FLOPS = {False: 67e12, True: 34e12}
 PEAK_BYTES = 3.35e12
+# sdunes (models.SDUNES_OPTS, sdunes_bench's modes): boot requests, their
+# high-precision-phase twins, sdunes_f32 requests (its tol), the depth of
+# the card-vs-CPU comparison (64 scenarios: ~3 s on the CPU), and the Jay
+# system held beyond the TPU kernel's caps (P, b) with its seed
+N_REQUESTS_SD = 4
+N_REQUESTS_SD_DF = 2
+N_REQUESTS_F32 = 2
+SD_F32_TOL = 1e-3
+SD_CPU_NR = 3
+JAY_BIG = (1023, 16)
+JAY_SEED = 1039
+# an f32 solve that is backward stable: ||J x - r|| over (||J|| ||x|| + ||r||)
+JAY_BACKWARD = 1e-5
 
 
 def fail(msg):
@@ -269,6 +309,7 @@ def perturbed(qp, ms, fac):
 
 
 def main():
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -282,8 +323,8 @@ def main():
     import treeqp_tpu_torch  # noqa: F401  (pins full-precision f32)
     from treeqp_tpu_torch.core.kkt import max_kkt_residual
     from treeqp_tpu_torch.models import (GENERAL_CD_OPTS, GENERIC_SPEED_OPTS, IPM_OPTS,
-                                         asym_tree, general_cd, pruned, quadcopter,
-                                         spring_mass_chain)
+                                         SDUNES_BOOT_OPTS, SDUNES_OPTS, asym_tree,
+                                         general_cd, pruned, quadcopter, spring_mass_chain)
     from treeqp_tpu_torch.ops import _build
     from treeqp_tpu_torch.ops import chain_kernels as ck
     from treeqp_tpu_torch.ops import crown_kernels as ckr
@@ -291,12 +332,14 @@ def main():
     from treeqp_tpu_torch.ops import df_eval_kernels as dek
     from treeqp_tpu_torch.ops import df_reduce as dr
     from treeqp_tpu_torch.ops import iter_kernel as ik
+    from treeqp_tpu_torch.ops import jay_kernel as jk
     from treeqp_tpu_torch.ops import qpgen_lanes as ql
     from treeqp_tpu_torch.ops import riccati_kernels as rk
     from treeqp_tpu_torch.ops import system_kernels as sk
     from treeqp_tpu_torch.solvers import ipm
     from treeqp_tpu_torch.solvers import ipm_multistage as ims
     from treeqp_tpu_torch.solvers import ms_df64 as md
+    from treeqp_tpu_torch.solvers import sdunes as sd
     from treeqp_tpu_torch.solvers import tdunes as td
     from treeqp_tpu_torch.solvers import tdunes_multistage as tm
     assert "jax" not in sys.modules
@@ -789,22 +832,27 @@ def main():
                        ckr.crown_factor, ckr.crown_solve)
     ipm_kernels = (rk.ric_chain_factor, rk.ric_chain_bwd, rk.ric_chain_fwd,
                    crk.crown_ric_factor, crk.crown_ric_solve)
-    kernels = ms_kernels + generic_kernels + (ql.admm_identify,) + ipm_kernels
+    sd_kernels = (ck.chain_full_solve_mat, jk.jay_cr_solve)
+    kernels = ms_kernels + generic_kernels + (ql.admm_identify,) + ipm_kernels + sd_kernels
     ms_names = tuple(k.__name__ for k in ms_kernels)
     generic_names = tuple(k.__name__ for k in generic_kernels)
     admm_name = ("admm_identify",)
     ipm_names = tuple(k.__name__ for k in ipm_kernels)
+    sd_names = tuple(k.__name__ for k in sd_kernels)
     df_kernels = ("chain_eval_df", "crown_eval_df", "chain_apply_df",
                   "crown_apply_df", "df_reduce_flat")
     paths = {}
 
-    def drive(path, needs, fn, forbid=generic_names + admm_name, ipm_path=False):
+    def drive(path, needs, fn, forbid=generic_names + admm_name, ipm_path=False,
+              sd_path=False):
         """Run one main path with every launch count set to 0 just before
         it; read the counts just after. Each kernel in ``needs`` must have
-        launched, none in ``forbid``, and none of the IPM's Riccati kernels
-        unless ``ipm_path``."""
+        launched, none in ``forbid``, none of the IPM's Riccati kernels
+        unless ``ipm_path`` and none of sdunes' two unless ``sd_path``."""
         if not ipm_path:
             forbid = tuple(forbid) + ipm_names
+        if not sd_path:
+            forbid = tuple(forbid) + sd_names
         for fn_k in kernels:
             fn_k.launches = 0
         torch.cuda.synchronize()
@@ -1160,38 +1208,37 @@ def main():
           f"C the same tree whole and spring_mass_chain(4,4,3,7) ({qc2.topo.Nn} nodes, "
           f"{qc2.topo.Nh + 1} stages)")
 
-    def capture(mod, names, fn):
-        """Run fn() with the wrappers ``names`` of ``mod`` recording the
-        operands of their first call; returns {name: (args, kwargs)}. A
-        wrapper adds one to the count of the name its module binds, which
-        during the capture is the stand-in: so each stand-in carries a
-        count, and the kernels' own counts do not move (``drive`` sets them
-        to 0 before each main path in any case)."""
-        got, orig = {}, {n: getattr(mod, n) for n in names}
+    def capture(wrappers, fn):
+        """Run fn() with the wrappers ``names`` of each ``(mod, names)`` in
+        ``wrappers`` recording the operands of every call; returns ({name:
+        [(args, kwargs), ...]}, fn()'s result). A wrapper adds one to the
+        count of the name its module binds, which during the capture is the
+        stand-in: so each stand-in carries a count, and the kernels' own
+        counts do not move (``drive`` sets them to 0 before each main path
+        in any case)."""
+        got, orig = {}, {(mod, n): getattr(mod, n) for mod, names in wrappers for n in names}
 
-        def stand_in(n):
+        def stand_in(mod, n):
             def w(*a, **k):
-                got.setdefault(n, (a, k))
-                return orig[n](*a, **k)
+                got.setdefault(n, []).append((a, k))
+                return orig[mod, n](*a, **k)
             w.launches = 0
             return w
-        for n in names:
-            setattr(mod, n, stand_in(n))
+        for mod, n in orig:
+            setattr(mod, n, stand_in(mod, n))
         try:
-            fn()
+            res = fn()
         finally:
-            for n in names:
-                setattr(mod, n, orig[n])
-        return got
+            for (mod, n), f in orig.items():
+                setattr(mod, n, f)
+        return got, res
 
     def first_iteration(fn, key):
         """The operands each IPM kernel takes at the first f32 iteration of
         the solve fn(opts) of path ``key``."""
         one = ipm.IpmOpts(**{**IPM_OPTS[key], "max_iter": 1})
-        got = {}
-        for mod, names in ((rk, ipm_names[:3]), (crk, ipm_names[3:])):
-            got.update(capture(mod, names, lambda: fn(one)))
-        return got
+        got, _ = capture(((rk, ipm_names[:3]), (crk, ipm_names[3:])), lambda: fn(one))
+        return {n: calls[0] for n, calls in got.items()}
 
     def stage_ops(nx, nz, part):
         """Operations of one Riccati stage (an FMA counts two)."""
@@ -1390,6 +1437,295 @@ def main():
               + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps.items()))
     if abs(ia["iter"] - ic["iter"]) > 1 or gaps["x"] > 1e-7 or gaps["u"] > 1e-7:
         fail(f"IPM path A: card and CPU solves disagree at {n_eq} iterations: {gaps}")
+
+    # ---- 8. sdunes (slice 7): sdunes_bench's three modes on its tree, the
+    # box-only spring_mass_chain(4,4,4,20) of path B
+    opts_sd = sd.SdunesOpts(**SDUNES_OPTS)
+    opts_sd_df = dataclasses.replace(opts_sd, df64_phase=True)
+    opts_boot = td.TdunesOpts(**SDUNES_BOOT_OPTS)
+    opts_sd_f32 = dataclasses.replace(opts_sd, tol=SD_F32_TOL, max_iter=80, f32_phase_tol=0.0)
+    opts_ms_f32 = dataclasses.replace(opts_boot, tol=SD_F32_TOL, max_iter=80, f32_phase_tol=0.0,
+                                      df64_phase=False, refine_steps=0)
+    sqp = sd.scenario_data(qb)
+    sm = sqp.meta
+    nl = sm.Nr * sm.nu
+    print(f"sdunes instance: spring_mass_chain(4,4,4,20): {sm.Ns} scenarios, Nh={sm.Nh}, "
+          f"nx={sm.nx} nu={sm.nu}, {sum(sm.common) * sm.nu} coupling multipliers, Jay "
+          f"P={sm.Ns - 1} b={nl}")
+    sd_three = ("chain_factor",) + sd_names
+    sd_forbid = ms_names + tuple(n for n in generic_names if n != "chain_factor") + admm_name
+
+    def sd_counts():
+        return {k.__name__: k.launches for k in kernels if k.__name__ in sd_three}
+
+    def sd_launch_rule(info, o, what, got):
+        """Each Newton step factors once; the coarse phase solves once, the
+        final phase 1 + its refinement steps times, through both kernels."""
+        r = max(o.refine_steps, 1) if o.df64_phase else o.refine_steps
+        c, n = info["iter_f32"], info["iter"]
+        want = dict(chain_factor=n, chain_full_solve_mat=c + (n - c) * (1 + r))
+        want["jay_cr_solve"] = want["chain_full_solve_mat"]
+        if got != want:
+            fail(f"{what}: launches {got}, expected {want} ({c} coarse + {n - c} final "
+                 f"iterations)")
+        return got
+
+    def sd_solve(sq, lam0, mu0, o, q_tree, what, certify=True):
+        """One sdunes request: (TreeQPOut, info, kkt, ms), its kernel launches
+        held to the rule above. Certified unless ``certify`` is False: status
+        0, error < 1e-8, port-oracle KKT < 1e-8 through scenario_output;
+        finite iterates of the right shape always."""
+        n0 = sd_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol, lam, mu, info = sd.sdunes_solve(sq, lam0, mu0, o)
+        torch.cuda.synchronize()
+        t_ms = (time.perf_counter() - t0) * 1e3
+        n1 = sd_counts()
+        info["launches"] = sd_launch_rule(info, o, what, {k: n1[k] - n0[k] for k in n1})
+        if tuple(sol["x"].shape) != (sm.Ns, sm.Nh + 1, sm.nx) or not all(
+                bool(torch.isfinite(v).all()) for v in (sol["x"], sol["u"], lam, mu)):
+            fail(f"{what}: iterates of the wrong shape or not finite")
+        out, kkt = None, float("nan")
+        if certify:
+            out = sd.scenario_output(sq, sol, lam, mu, info)
+            kkt = max_kkt_residual(q_tree, out)
+            if info["status"] != td.TDUNES_OPTIMAL or not info["error"] < TOL \
+                    or not kkt < TOL:
+                fail(f"{what}: status {info['status']} error {info['error']} kkt {kkt}")
+        return out, info, kkt, t_ms
+
+    def sd_instance(fac):
+        """sdunes_bench's request: stage 0's state bounds scaled by ``fac``
+        in the scenario data, the crown and the tree (the KKT oracle's)."""
+        q_k, ms_k = perturbed(qb, msb, fac)
+        return sqp.replace(xmin=q_k.xmin[paths_t], xmax=q_k.xmax[paths_t]), q_k, ms_k
+
+    paths_t = torch.as_tensor(sm.paths, device=dev)
+
+    # the kernels against their twins on the operands of the first
+    # final-phase iteration of the cold headline solve
+    calls, (_, _, _, info_c0) = capture(((ck, sd_three[:2]), (jk, sd_names[1:])),
+                                        lambda: sd.sdunes_solve(sqp, None, None, opts_sd))
+    c0 = info_c0["iter_f32"]
+    if info_c0["iter"] <= c0:
+        fail(f"cold sdunes solve ran no final iteration: {info_c0}")
+    (Wc, Ut), _ = calls["chain_factor"][c0]
+    err_cf = compare(torch, "chain_factor (sdunes)", ck.chain_factor(Wc, Ut),
+                     ck.chain_factor_ref(Wc, Ut), FACTOR_RTOL)
+    (Ls5, CUs5, r5), _ = calls["chain_full_solve_mat"][c0]
+    (_, _, r1), _ = calls["chain_full_solve_mat"][c0 + 1]
+    if r5.shape[-1] != 1 + nl or r1.shape[-1] != 1:
+        fail(f"chain_full_solve_mat: right-hand sides {r5.shape[-1]} and {r1.shape[-1]}")
+    errs_fs = {m: compare(torch, f"chain_full_solve_mat (m={m})",
+                          [ck.chain_full_solve_mat(Ls5, CUs5, r)],
+                          [ck.chain_full_solve_mat_ref(Ls5, CUs5, r)], SOLVE_RTOL)
+               for m, r in ((1 + nl, r5), (1, r1))}
+    S_s, L_s, n_s, _ = Ls5.shape
+    record("chain_full_solve_mat", "chain_full_solve.cu", "treeqp_tpu/ops/chain_kernels.py:261",
+           max(errs_fs.values()), lambda: ck.chain_full_solve_mat(Ls5, CUs5, r5),
+           lambda: ck.chain_full_solve_mat_ref(Ls5, CUs5, r5),
+           f"Ls {tuple(Ls5.shape)}, m={1 + nl} (the iteration's first solve; after {c0} coarse "
+           f"iterations); m=1 {cuda_ms(torch, lambda: ck.chain_full_solve_mat(Ls5, CUs5, r1), 20):.4f}"
+           f" ms, |diff| {errs_fs[1]:.3e}; chain_factor there |diff| {err_cf:.3e}",
+           (Ls5, CUs5, r5), S_s * (1 + nl) * L_s * 6 * n_s * n_s)
+    # the Jay system: held to its twin at the cold start (the first coarse
+    # iteration); at the first final-phase iteration it is near singular
+    # (clipped couplings; only the 1e-6 shift holds it), where an f32
+    # solve's forward error is set by the conditioning and not by the
+    # kernel, so there both f32 solves are held to a backward error below
+    # JAY_BACKWARD against the system in f64, with their distances to the
+    # f64 solve printed
+    (dg0, of0, rj0), kw0 = calls["jay_cr_solve"][0]
+    err_j = compare(torch, "jay_cr_solve (cold start)", [jk.jay_cr_solve(dg0, of0, rj0, **kw0)],
+                    [jk.jay_cr_solve_ref(dg0, of0, rj0, **kw0)], SOLVE_RTOL)
+    (dg, of, rj), kw = calls["jay_cr_solve"][c0]
+
+    def jay_dense(dg_, of_, sh_):
+        """The shifted block-tridiagonal system as one dense f64 matrix."""
+        P_, b_ = dg_.shape[0], dg_.shape[-1]
+        M = torch.block_diag(*dg_.double()) + torch.diag(sh_.double().reshape(-1))
+        for i in range(P_ - 1):
+            M[(i + 1) * b_:(i + 2) * b_, i * b_:(i + 1) * b_] = of_[i].double()
+            M[i * b_:(i + 1) * b_, (i + 1) * b_:(i + 2) * b_] = of_[i].double().T
+        return M
+    M_j, r_j = jay_dense(dg, of, kw["shift"]), rj.double().reshape(-1)
+    x_j64 = torch.linalg.solve(M_j, r_j)
+    ev_j = torch.linalg.eigvalsh(M_j)
+    jay_fe = {}
+    for tag, x_ in (("kernel", jk.jay_cr_solve(dg, of, rj, **kw)),
+                    ("twin", jk.jay_cr_solve_ref(dg, of, rj, **kw))):
+        x_ = x_.double().reshape(-1)
+        eta = float((M_j @ x_ - r_j).abs().max()
+                    / (M_j.abs().sum(1).max() * x_.abs().max() + r_j.abs().max()))
+        jay_fe[tag] = f"{float((x_ - x_j64).abs().max()):.3e} (backward error {eta:.3e})"
+        if not torch.isfinite(x_).all() or not eta <= JAY_BACKWARD:
+            fail(f"jay_cr_solve ({tag}) at the first final-phase iteration: backward error "
+                 f"{eta:.3e} > {JAY_BACKWARD:g}")
+    print(f"jay_cr_solve at the first final-phase iteration: condition {float(ev_j[-1] / ev_j[0]):.3e}"
+          f" (f64 eigenvalues of the equilibrated, shifted system), max|x| "
+          f"{float(x_j64.abs().max()):.3e}; distance to the f64 solve: kernel "
+          f"{jay_fe['kernel']}, twin {jay_fe['twin']}")
+    # beyond the TPU kernel's caps: a seeded SPD system at P = 1023, b = 16
+    # with one exactly singular block (its pivot turns the shift on)
+    rng = np.random.default_rng(JAY_SEED)
+    P_b, b_b = JAY_BIG
+    A_ = rng.normal(size=(P_b, b_b, b_b))
+    dg_b = A_ @ A_.transpose(0, 2, 1) + 3.0 * b_b * np.eye(b_b)
+    of_b = 0.3 * rng.normal(size=(P_b - 1, b_b, b_b))
+    r_b = rng.normal(size=(P_b, b_b))
+    mid = P_b // 2
+    dg_b[mid, 0, :] = dg_b[mid, :, 0] = of_b[mid, :, 0] = of_b[mid - 1, 0, :] = 0.0
+    jb = [torch.tensor(v, dtype=f32, device=dev) for v in (dg_b, of_b, r_b)]
+    jb.append(torch.full((P_b, b_b), 1e-2, dtype=f32, device=dev))
+    x_b, x_bref = jk.jay_cr_solve(*jb, 1e-6), jk.jay_cr_solve_ref(*jb, 1e-6)
+    err_jb = compare(torch, f"jay_cr_solve (P={P_b}, b={b_b})", [x_b], [x_bref], SOLVE_RTOL)
+    if not float(x_b[mid].abs().max()) > 0.0:
+        fail("jay_cr_solve: the singular block's shift did not act")
+
+    def jay_ops(P, b):
+        """Operations of the cyclic reduction: per level each eliminated
+        block's factor and 2b + 1 solves, each updated block's three block
+        products and two block-vector products; the root; the back
+        substitution."""
+        ops, h = 0, 1
+        while h < P:
+            n_odd, n_even = len(range(h, P, 2 * h)), len(range(0, P, 2 * h))
+            ops += n_odd * (chol_ops(b) + (2 * b + 1) * 2 * b * b + 4 * b * b)
+            ops += n_even * (6 * b ** 3 + 4 * b * b)
+            h *= 2
+        return ops + chol_ops(b) + 2 * b * b
+
+    record("jay_cr_solve", "jay_cr.cu", "treeqp_tpu/ops/jay_kernel.py:89", max(err_j, err_jb),
+           lambda: jk.jay_cr_solve(dg, of, rj, **kw),
+           lambda: jk.jay_cr_solve_ref(dg, of, rj, **kw),
+           f"P={dg.shape[0]} b={dg.shape[-1]}, shift always, |diff| {err_j:.3e} at the cold "
+           f"start; P={P_b} "
+           f"b={b_b} on the fly with a singular block: "
+           f"{cuda_ms(torch, lambda: jk.jay_cr_solve(*jb, 1e-6), 20):.4f} ms, |diff| "
+           f"{err_jb:.3e}, bound {nbytes(torch, jb, x_b) / PEAK_BYTES * 1e3:.6f} ms",
+           (dg, of, rj, kw["shift"]), jay_ops(dg.shape[0], dg.shape[-1]))
+    for r in results[-2:]:
+        print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library call none, "
+              f"max |diff| {r['max_abs_err']:.3e} [{r['shapes']}] on {card}")
+
+    def sd_line(what, info, kkt, t_ms, launches, extra=""):
+        c = info["iter_f32"]
+        print(f"{what}: iter {info['iter']} ({c} coarse + {info['iter'] - c} final), status "
+              f"{info['status']}, error {info['error']:.3e}, kkt {kkt:.3e}, launches "
+              f"{launches}, {t_ms:.1f} ms{extra} on {card}")
+
+    # the cold headline solve (the card's first sdunes solve ran in the capture)
+    def sd_cold():
+        _, info, kkt, t_ms = sd_solve(sqp, None, None, opts_sd, qb, "sdunes cold solve")
+        sd_line("sdunes cold solve", info, kkt, t_ms, info["launches"],
+                f", {t_ms / info['iter']:.2f} ms an iteration")
+    drive("sdunes cold", sd_three, sd_cold, forbid=sd_forbid, sd_path=True)
+
+    # sdunes_boot (and _df64): each request bootstraps through
+    # tdunes_ms_solve at tol 1e-4, merge_output and the exact scenario duals
+    # of the tree solution, then sdunes_solve from them
+    def boot_request(mode, k, o):
+        sq_k, q_k, ms_k = sd_instance(facs[k])
+
+        def bootstrap():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cro, cho, binfo = tm.tdunes_ms_solve(ms_k, None, None, opts_boot)
+            lam0, mu0 = sd.scenario_duals_from_tree(
+                sq_k, None, tm.merge_output(ms_k, cro, cho, binfo))
+            torch.cuda.synchronize()
+            return lam0, mu0, binfo, (time.perf_counter() - t0) * 1e3
+        lam0, mu0, binfo, t_b = drive(f"{mode} request {k} bootstrap", ("newton_iter",),
+                                      bootstrap)
+        if binfo["status"] != td.TDUNES_OPTIMAL or not binfo["error"] < opts_boot.tol:
+            fail(f"{mode} request {k}: bootstrap {binfo}")
+
+        def solve():
+            _, info, kkt, t_ms = sd_solve(sq_k, lam0, mu0, o, q_k, f"{mode} request {k}")
+            sd_line(f"{mode} request {k} (fac {facs[k]:.6f})", info, kkt, t_ms,
+                    info["launches"],
+                    f"; bootstrap {binfo['iter']} iterations ({binfo['iter_f32']} coarse) "
+                    f"{t_b:.1f} ms, request {t_b + t_ms:.1f} ms")
+            return info, t_b + t_ms
+        return drive(f"{mode} request {k}", (), solve, forbid=sd_forbid, sd_path=True)
+
+    sd_modes = {}
+    for mode, o, n in (("sdunes_boot", opts_sd, N_REQUESTS_SD),
+                       ("sdunes_boot_df64", opts_sd_df, N_REQUESTS_SD_DF)):
+        sd_modes[mode] = [boot_request(mode, k, o) for k in range(n)]
+
+    # sdunes_f32: f32 data, cold, tol 1e-3, no coarse phase (the bench
+    # asserts nothing here); beside it tdunes_ms_solve's all-f32 loop
+    def f32_requests():
+        rows = []
+        for k in range(N_REQUESTS_F32):
+            sq_k = sd_instance(facs[k])[0].to(dtype=f32)
+            _, info, _, t_ms = sd_solve(sq_k, None, None, opts_sd_f32, None,
+                                        f"sdunes_f32 request {k}", certify=False)
+            sd_line(f"sdunes_f32 request {k}", info, float("nan"), t_ms, info["launches"],
+                    f", {t_ms / max(info['iter'], 1):.3f} ms an iteration")
+            rows.append((info["iter"], t_ms))
+        return rows
+    rows_sd32 = drive("sdunes_f32", sd_three, f32_requests, forbid=sd_forbid, sd_path=True)
+    ms32b = msb.to(dtype=f32)
+
+    def ms_f32_requests():
+        rows = []
+        for k in range(N_REQUESTS_F32):
+            ms_k = perturbed(qb, ms32b, facs[k])[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cro, _, info = tm.tdunes_ms_solve(ms_k, None, None, opts_ms_f32)
+            torch.cuda.synchronize()
+            t_ms = (time.perf_counter() - t0) * 1e3
+            if not bool(torch.isfinite(cro["lam"]).all()):
+                fail(f"tdunes_ms_f32 request {k}: not finite")
+            print(f"tdunes_ms_f32 request {k}: iter {info['iter']}, status {info['status']}, "
+                  f"error {info['error']:.3e}, {t_ms:.1f} ms, "
+                  f"{t_ms / max(info['iter'], 1):.3f} ms an iteration on {card}")
+            rows.append((info["iter"], t_ms))
+        return rows
+    rows_ms32 = drive("tdunes_ms_f32", ("chain_eval", "chain_blocks_factor_lanes", "system_solve"),
+                      ms_f32_requests)
+    per_it = lambda rows: sum(t for _, t in rows) / max(sum(i for i, _ in rows), 1)
+    print(f"f32 loop ms an iteration (sdunes_bench's f32_phase_ms_per_iter): sdunes "
+          f"{per_it(rows_sd32):.3f}, tdunes_ms {per_it(rows_ms32):.3f}, ratio "
+          f"{per_it(rows_sd32) / per_it(rows_ms32):.2f} on {card}")
+    for mode, rows in sd_modes.items():
+        print(f"requests {mode}: iters {[i['iter'] for i, _ in rows]}, "
+              f"{statistics.mean(t for _, t in rows):.1f} ms a request (bootstrap included) "
+              f"on {card}")
+
+    # the card against the CPU plain path: a cold solve at Nr = SD_CPU_NR
+    qs_cpu = spring_mass_chain(4, 4, SD_CPU_NR, 20, device="cpu")[0]
+    sqs_cpu = sd.scenario_data(qs_cpu)
+    sqs = sqs_cpu.to(device=dev)
+
+    def solve_at(sq, q, n=None):
+        o = opts_sd if n is None else dataclasses.replace(opts_sd, max_iter=n)
+        sol, lam, mu, info = sd.sdunes_solve(sq, None, None, o)
+        return sd.scenario_output(sq, sol, lam, mu, info), info
+    out_sg, info_sg = solve_at(sqs, qs_cpu)
+    t0 = time.perf_counter()
+    out_sc, info_sc = solve_at(sqs_cpu, qs_cpu)
+    t_cpu = time.perf_counter() - t0
+    gaps = gap(out_sg, out_sc)
+    print(f"sdunes cold solve at Nr={SD_CPU_NR} ({sqs.meta.Ns} scenarios), card vs CPU plain "
+          f"path ({t_cpu:.1f} s on the CPU): iter {info_sg['iter']} vs {info_sc['iter']} "
+          f"(coarse {info_sg['iter_f32']} vs {info_sc['iter_f32']}), "
+          + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps.items()))
+    n_eq = min(info_sg["iter"], info_sc["iter"])
+    if info_sg["iter"] != info_sc["iter"]:
+        card_n = out_sg if info_sg["iter"] == n_eq else solve_at(sqs, qs_cpu, n_eq)[0]
+        cpu_n = out_sc if info_sc["iter"] == n_eq else solve_at(sqs_cpu, qs_cpu, n_eq)[0]
+        gaps = gap(card_n, cpu_n)
+        print(f"sdunes at Nr={SD_CPU_NR}, card vs CPU plain path, both stopped at {n_eq} "
+              f"iterations: " + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps.items()))
+    if abs(info_sg["iter"] - info_sc["iter"]) > 1 or gaps["x"] > 1e-7 or gaps["u"] > 1e-7:
+        fail(f"sdunes at Nr={SD_CPU_NR}: card and CPU solves disagree at {n_eq} iterations: "
+             f"{gaps}")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"(build {t_build:.1f} s) on {card}")

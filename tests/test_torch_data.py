@@ -87,7 +87,7 @@ def test_kkt_oracle_matches_jax():
     topo_j = JTree.multistage(2, 2, 4, 3, 2, nc=2)
     topo = convert.topo_from(topo_j)
     zero = JTreeQPIn.zeros(topo_j)
-    zero_t = convert.qp_arrays(TreeQPIn.zeros(topo))
+    zero_t = convert.qp_arrays(TreeQPIn.zeros(topo, device="cpu"))
     for f in QP_FIELDS:
         np.testing.assert_array_equal(zero_t[f], np.asarray(getattr(zero, f)), err_msg=f)
     arrays = {f: rng.standard_normal(zero_t[f].shape) for f in QP_FIELDS}
@@ -145,7 +145,7 @@ def test_split_multistage_rejects_general_rows():
     the multistage dual Newton rejects the split."""
     from treeqp_tpu_torch.solvers import tdunes as td
     topo = TreeStructure.multistage(2, 1, 3, 2, 1, nc=1)
-    qp = TreeQPIn.zeros(topo)
+    qp = TreeQPIn.zeros(topo, device="cpu")
     ms = tm.split_multistage(qp)
     ms_j = jtm.split_multistage(JTreeQPIn.zeros(JTree.multistage(2, 1, 3, 2, 1, nc=1)))
     assert ms.C.shape == (ms.meta.S, ms.meta.L, topo.ncm, topo.nxm)

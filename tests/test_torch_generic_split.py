@@ -90,7 +90,7 @@ def test_chip_instance_shape():
     assert len(chain) == 16 and {lv[1] for lv in chain} == {128}
     assert len(crown) == 3
     topo = convert.topo_from(JTree.multistage(4, 4, 20, 6, 4))
-    qp = models.pruned(TreeQPIn.zeros(topo), 128)
+    qp = models.pruned(TreeQPIn.zeros(topo, device="cpu"), 128)
     assert qp.topo == convert.topo_from(jt)
 
 

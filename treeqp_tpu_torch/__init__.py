@@ -27,6 +27,8 @@ from treeqp_tpu_torch.solvers.tdunes_multistage import (  # noqa: E402
     MultistageQP, split_multistage, tdunes_ms_solve, merge_output)
 from treeqp_tpu_torch.solvers.ipm import IpmOpts, ipm_solve  # noqa: E402
 from treeqp_tpu_torch.solvers.ipm_multistage import ipm_ms_solve  # noqa: E402
+from treeqp_tpu_torch.solvers.sdunes import (  # noqa: E402
+    SdunesOpts, sdunes_solve, scenario_data, scenario_duals_from_tree, scenario_output)
 from treeqp_tpu_torch.core.soft import soften_bounds, recover_soft  # noqa: E402
 
 __version__ = "0.1.0"
@@ -48,6 +50,11 @@ __all__ = [
     "IpmOpts",
     "ipm_solve",
     "ipm_ms_solve",
+    "SdunesOpts",
+    "sdunes_solve",
+    "scenario_data",
+    "scenario_duals_from_tree",
+    "scenario_output",
     "soften_bounds",
     "recover_soft",
 ]

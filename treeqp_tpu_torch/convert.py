@@ -1,8 +1,8 @@
 """Carry problem data and solutions between numpy and the port.
 
-``qp_from_numpy`` / ``ms_from_numpy`` build the port's containers from
-numpy arrays, and ``qp_arrays`` / ``ms_arrays`` / ``out_to_numpy`` go the
-other way. Any container whose fields convert with ``np.asarray`` (the
+``qp_from_numpy`` / ``ms_from_numpy`` / ``sqp_from_numpy`` build the
+port's containers from numpy arrays, and ``qp_arrays`` / ``ms_arrays`` /
+``sqp_arrays`` / ``out_to_numpy`` go the other way. Any container whose fields convert with ``np.asarray`` (the
 JAX package's, or the port's on the CPU) can be read, so the same data
 can be handed to both packages without this module importing either
 framework's containers beyond the port's own.
@@ -14,12 +14,13 @@ import numpy as np
 import torch
 
 from treeqp_tpu_torch.core.qp_data import QP_FIELDS, OUT_FIELDS, TreeQPIn
+from treeqp_tpu_torch.solvers.sdunes import SQP_FIELDS, ScenarioQP, scenario_meta
 from treeqp_tpu_torch.solvers.tdunes_multistage import (
     CHAIN_FIELDS, GENERAL_FIELDS, MultistageQP, _ms_meta)
 from treeqp_tpu_torch.utils.tree import TreeStructure
 
 __all__ = ["topo_from", "qp_arrays", "qp_from_numpy", "ms_arrays",
-           "ms_from_numpy", "out_to_numpy"]
+           "ms_from_numpy", "sqp_arrays", "sqp_from_numpy", "out_to_numpy"]
 
 
 def _np(v) -> np.ndarray:
@@ -72,6 +73,20 @@ def ms_from_numpy(arrays: dict, topo: TreeStructure, device="cuda",
         meta=meta,
         **{f: t(arrays[f]) for f in CHAIN_FIELDS + GENERAL_FIELDS
            if arrays.get(f) is not None})
+
+
+def sqp_arrays(sqp) -> dict:
+    """{field: numpy array} of a ScenarioQP (JAX package's or the port's)."""
+    return {f: _np(getattr(sqp, f)) for f in SQP_FIELDS}
+
+
+def sqp_from_numpy(arrays: dict, topo: TreeStructure, device="cuda",
+                   dtype=torch.float64) -> ScenarioQP:
+    """The port's ScenarioQP from ``sqp_arrays``-style numpy arrays of the
+    scenario decomposition of the multistage tree ``topo``, on ``device``
+    (the card unless the caller passes ``device="cpu"``)."""
+    return ScenarioQP(**{f: torch.tensor(np.asarray(arrays[f]), dtype=dtype, device=device)
+                         for f in SQP_FIELDS}, meta=scenario_meta(topo))
 
 
 def out_to_numpy(out) -> dict:

@@ -76,7 +76,10 @@ class TreeQPIn:
 
     @classmethod
     def zeros(cls, topo: TreeStructure, dtype=torch.float64,
-              device="cpu") -> "TreeQPIn":
+              device="cuda") -> "TreeQPIn":
+        """The empty QP of ``topo`` (zero data, +-TREEQP_INF bounds), on
+        ``device``: the card unless the caller passes ``device="cpu"``, as
+        for every data constructor of the port."""
         Nn, nxm, num, ncm = topo.Nn, topo.nxm, topo.num, topo.ncm
         kw = dict(dtype=dtype, device=device)
         z = lambda *s: torch.zeros(s, **kw)
@@ -96,7 +99,7 @@ class TreeQPIn:
     @classmethod
     def from_node_edge_lists(cls, topo: TreeStructure, nodes: list,
                              edges_by_child: dict, dtype=torch.float64,
-                             device="cpu") -> "TreeQPIn":
+                             device="cuda") -> "TreeQPIn":
         """Build from per-node dicts of (unpadded) numpy arrays.
 
         ``nodes[i]`` may contain Q, R, S, q, r, xmin, xmax, umin, umax,
@@ -145,7 +148,7 @@ class TreeQPIn:
     @classmethod
     def lti_diag_weights(cls, topo: TreeStructure, A, B, b, dQ, dq, dP, dp, dR, dr,
                          xmin, xmax, umin, umax, x0=None, scale_by_stage=True,
-                         dtype=torch.float64, device="cpu") -> "TreeQPIn":
+                         dtype=torch.float64, device="cuda") -> "TreeQPIn":
         """LTI scenario-tree fill, mirroring ``tree_qp_in_fill_lti_data_diag_weights``
         (tree_qp_common.c:1837-1950).
 

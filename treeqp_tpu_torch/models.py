@@ -8,8 +8,9 @@ default params), linearized around hover with ``torch.autograd`` (in place
 of jax.jacobian / CasADi, common/linearize_model.m) and exactly discretized
 with the augmented matrix exponential (common/discretize_model.m). The
 spring-mass chain (numpy RK4), with the general constraint rows of the
-general C/D trees. Model construction is host-side work: it runs in f64 on
-the CPU, and the returned QP is moved to the requested device at the end.
+general C/D trees; the IPM's and sdunes' options of their benches. Model
+construction is host-side work: it runs in f64 on the CPU, and the
+returned QP is moved to the requested device at the end.
 The nonlinear plant simulators of the JAX version are not ported yet.
 """
 
@@ -26,7 +27,7 @@ from treeqp_tpu_torch.utils.tree import TreeStructure
 __all__ = ["BenchmarkModel", "quadcopter", "linearize", "discretize", "GENERIC_SPEED_OPTS",
            "asym_tree", "pruned", "spring_mass_dynamics", "spring_mass_chain",
            "with_general_rows", "with_sparse_rows", "general_cd", "GENERAL_CD_OPTS",
-           "IPM_OPTS"]
+           "IPM_OPTS", "SDUNES_OPTS", "SDUNES_BOOT_OPTS"]
 
 # the generic-tree solver's options, generic_bench.speed_opts(on_tpu=True),
 # as TdunesOpts fields
@@ -56,6 +57,18 @@ IPM_OPTS = dict(
     cd=dict(tol=1e-8, max_iter=60, factor_dtype="float32", refine_steps=1,
             chain_backend="pallas"),
     box=dict(tol=1e-8, max_iter=40, factor_dtype="float32", chain_backend="pallas"))
+
+# sdunes_bench's options on the card (sdunes_bench.py:55-78), as SdunesOpts
+# fields (SDUNES_OPTS: _sdunes_opts(on_tpu=True), the sdunes modes' solve)
+# and as TdunesOpts fields (SDUNES_BOOT_OPTS: _tdunes_opts(on_tpu=True,
+# tol=1e-4), the tdunes_ms_solve bootstrap of sdunes_boot)
+SDUNES_OPTS = dict(tol=1e-8, max_iter=150, factor_dtype="float32", refine_steps=2,
+                   f32_phase_tol=1e-4, chain_backend="pallas", reg_type="always",
+                   reg_value=1e-6)
+SDUNES_BOOT_OPTS = dict(stage_solver="clipping", tol=1e-4, max_iter=120,
+                        factor_dtype="float32", refine_steps=2, refine_safeguard=False,
+                        chain_backend="pallas", reg_type="always", reg_value=1e-6,
+                        f32_phase_tol=1e-4, df64_phase=True)
 
 
 def linearize(rhs, xlin, ulin):

@@ -94,6 +94,11 @@ _SIGNATURES = {
     "tq_crown_ric_factor": [_P] + [_I] * 4 + [_F, _I, _P],
     # pointers, Nc, nx, nz, n_lev, threads, stream
     "tq_crown_ric_solve": [_P] + [_I] * 5 + [_P],
+    # sdunes: the banded per-scenario solve and the Jay cyclic reduction
+    # Ls, CUs, rhs, z, S, L, n, m, stream
+    "tq_chain_full_solve_mat": [_P] * 4 + [_I] * 4 + [_P],
+    # diag, off, rhs, shift, x, D, C, r, Z1s, Z2s, zrs, P, b, reg_tol, stream
+    "tq_jay_cr_solve": [_P] * 11 + [_I] * 2 + [_F, _P],
 }
 
 _LIB = None

@@ -96,3 +96,37 @@ def uttrsv(Lf, d):
             acc = acc - Lf[..., m, i] * z[..., m]
         z[..., i] = acc / Lf[..., i, i]
     return z
+
+
+def mm(A, B, trans_a: bool = False):
+    """A B (or A' B) for [..., n, n] A and [..., n, m] B, summed over the
+    contracted index in order."""
+    out = 0
+    for k in range(A.shape[-1]):
+        col = A[..., k, :] if trans_a else A[..., :, k]
+        out = out + col[..., :, None] * B[..., k:k + 1, :]
+    return out
+
+
+def ltrsv_mat(Lf, R):
+    """Y with L Y = R, column by column; L [..., n, n], R [..., n, m]."""
+    n = Lf.shape[-1]
+    Y = torch.zeros_like(R)
+    for i in range(n):
+        acc = R[..., i, :]
+        for k in range(i):
+            acc = acc - Lf[..., i, k:k + 1] * Y[..., k, :]
+        Y[..., i, :] = acc / Lf[..., i, i:i + 1]
+    return Y
+
+
+def uttrsv_mat(Lf, D):
+    """Z with L' Z = D, column by column; L [..., n, n], D [..., n, m]."""
+    n = Lf.shape[-1]
+    Z = torch.zeros_like(D)
+    for i in range(n - 1, -1, -1):
+        acc = D[..., i, :]
+        for k in range(i + 1, n):
+            acc = acc - Lf[..., k, i:i + 1] * Z[..., k, :]
+        Z[..., i, :] = acc / Lf[..., i, i:i + 1]
+    return Z

@@ -2,13 +2,13 @@
 
 Port of ``chain_factor``, ``chain_solve_bwd``, ``chain_forward``,
 ``chain_blocks_factor``, ``chain_blocks_factor_lanes``, ``chain_eval`` and
-``chain_eval_data`` in ``treeqp_tpu/ops/chain_kernels.py``. Each kernel
-wrapper launches its CUDA kernel (``csrc/chain_factor.cu``,
+``chain_eval_data`` in ``treeqp_tpu/ops/chain_kernels.py``, and of the
+multi-RHS solve of self-contained chains ``chain_full_solve_mat`` (sdunes).
+Each kernel wrapper launches its CUDA kernel (``csrc/chain_factor.cu``,
 ``csrc/chain_sweeps.cu``, ``csrc/chain_blocks_factor.cu``,
-``csrc/chain_eval.cu``) on CUDA tensors and runs its plain PyTorch twin
-(``*_ref``) on CPU tensors. All are f32, like the Pallas kernels. The
-multi-RHS solve of self-contained chains (``chain_full_solve_mat``, sdunes)
-is not ported yet.
+``csrc/chain_eval.cu``, ``csrc/chain_full_solve.cu``) on CUDA tensors and
+runs its plain PyTorch twin (``*_ref``) on CPU tensors. All are f32, like
+the Pallas kernels.
 
 Every chain tensor is laid out ``[S, L, ...]`` (scenario first); the JAX
 kernels' lane layout ``[L, ..., S_pad]`` is not carried over, so the
@@ -27,6 +27,7 @@ from treeqp_tpu_torch.ops import _build, _dense
 
 __all__ = ["chain_factor", "chain_factor_ref", "chain_solve_bwd",
            "chain_solve_bwd_ref", "chain_forward", "chain_forward_ref",
+           "chain_full_solve_mat", "chain_full_solve_mat_ref",
            "chain_blocks_factor", "chain_blocks_factor_ref",
            "chain_blocks_factor_lanes", "chain_blocks_factor_lanes_ref",
            "CHAIN_DATA_KEYS", "chain_eval_data", "chain_eval", "chain_eval_ref"]
@@ -167,6 +168,55 @@ def chain_forward(Ls, CUs, ys, droot):
 
 
 chain_forward.launches = 0
+
+
+def chain_full_solve_mat_ref(Ls, CUs, rhs):
+    """Plain PyTorch twin of the kernel (see ``chain_full_solve_mat``)."""
+    L = Ls.shape[1]
+    z = torch.empty_like(rhs)
+    acc = torch.zeros_like(rhs[:, 0])
+    for j in range(L - 1, -1, -1):
+        y = _dense.ltrsv_mat(Ls[:, j], rhs[:, j] - acc)
+        z[:, j] = y
+        acc = _dense.mm(CUs[:, j], y)
+    zp = torch.zeros_like(rhs[:, 0])
+    for j in range(L):
+        zp = _dense.uttrsv_mat(Ls[:, j], z[:, j] - _dense.mm(CUs[:, j], zp, trans_a=True))
+        z[:, j] = zp
+    return z
+
+
+def chain_full_solve_mat(Ls, CUs, rhs):
+    """Full solve of self-contained chains for m right-hand sides at once,
+    with ``chain_factor``'s factors of chains whose node 0 has no parent
+    coupling (CUs_0 = 0): the backward sweep y_j = Ls_j^-1 (r_j - CUs_{j+1}
+    y_{j+1}) for j = L-1 .. 0, then the forward sweep z_j = Ls_j^-T (y_j -
+    CUs_j' z_{j-1}) for j = 0 .. L-1, in one launch.
+
+    Ls, CUs [S, L, n, n]; rhs [S, L, n, m], any m. All f32. Returns z
+    [S, L, n, m]."""
+    if Ls.device.type == "cpu":
+        return chain_full_solve_mat_ref(Ls, CUs, rhs)
+    name = "chain_full_solve_mat"
+    S, L, n, _ = Ls.shape
+    m = rhs.shape[-1]
+    dev = Ls.device
+    for arg, t, shape in (("Ls", Ls, (S, L, n, n)), ("CUs", CUs, (S, L, n, n)),
+                          ("rhs", rhs, (S, L, n, m))):
+        _build.require(name, arg, t, shape, dev)
+    _chain_shape_check(name, S, L, n)
+    if m < 1:
+        raise ValueError(f"{name}: no right-hand side (m={m})")
+    z = torch.empty((S, L, n, m), dtype=torch.float32, device=dev)
+    err = _build.lib().tq_chain_full_solve_mat(
+        Ls.data_ptr(), CUs.data_ptr(), rhs.data_ptr(), z.data_ptr(), S, L, n, m,
+        _build.stream(dev))
+    _build.check(err, name)
+    chain_full_solve_mat.launches += 1
+    return z
+
+
+chain_full_solve_mat.launches = 0
 
 
 def chain_blocks_factor_ref(ABt, ztp, qtc, s_root):
