@@ -101,13 +101,36 @@ Phases (any failure exits non-zero):
    sdunes_f32 mode (f32 data, cold, tol 1e-3: finite iterates, its ms an
    iteration beside ``tdunes_ms_solve``'s all-f32 loop's); and a cold solve
    at Nr=3 held against the CPU plain path (iterations within one; x and
-   u within 1e-7, at the same iteration count when the counts differ).
+   u within 1e-7, at the same iteration count when the counts differ);
+9. the cyclic-reduction chain sweeps (slice 8; no solver calls them):
+   chain_cr_precompute, chain_solve_bwd_cr and chain_forward_cr held
+   against their twins (factors 1e-5, solves 1e-4 relative) and the CR pair
+   against the serial kernels (2e-4 relative) at the three shapes of
+   scripts/prof_torch_chain_cr.py (S=256, L=16, n=8 from that script's
+   seed; the pruned tree's chain factors of section 5; sdunes' of section
+   8, S=256, L=20, n=8) and at S=4, L=130, n=16 (buffers beyond shared
+   memory), timed at the pruned tree's shape beside the
+   library call (batched ``torch.linalg.solve_triangular`` on each chain's
+   factor as one matrix, also timed beside chain_solve_bwd and
+   chain_forward), then that script's loop of CR and serial pairs as their
+   path;
+10. the MPC re-embedding path (slice 8) on section 5's pruned tree at
+   ``models.GENERIC_SPEED_OPTS``: ``set_x0`` then ``eliminate_x0`` keeping
+   the originals, a cold solve and four warm requests that re-embed x0 +
+   0.01 N(0, I) (numpy seed 0) through ``EliminatedTreeQP.set_x0`` and
+   start from the previous duals; each request's data equal to elimination
+   from scratch (the root's state bounds aside), status 0, KKT < 1e-8 on
+   the eliminated problem, x[1:] and u within 1e-6 of the solve without
+   elimination, its iterations, launches and time printed; and the
+   instance rebuilt through the three LTV setters from flat arrays, every
+   field equal.
 
 The kernel launch counts are set to 0 before each path (one-phase,
 two-phase, bench, bench handover, two-norm, 1024 scenarios, generic split,
 generic crown, generic cross-check, general C/D qpgen, general C/D mixed,
 IPM paths A, B and C; the sdunes cold solve, each boot request's
-bootstrap and its sdunes solve apart, sdunes_f32, tdunes_ms_f32)
+bootstrap and its sdunes solve apart, sdunes_f32, tdunes_ms_f32; the CR
+loop; the MPC re-embedding path)
 and read after it; every kernel must launch on a path that runs it, the
 multistage paths launch none of the generic solver's kernels, the generic
 split path none of the multistage solver's, the crown path only
@@ -119,8 +142,9 @@ path A no crown-Riccati kernel and path C no chain-Riccati kernel; no path
 before section 8 launches chain_full_solve_mat or jay_cr_solve, and each
 sdunes solve launches chain_factor once an iteration and both of them once
 a coarse iteration and 1 + its refinement steps times a final iteration,
-and no other kernel. Prints the JSON summary of all 25 kernels, then the
-device JSON as the last line.
+and no other kernel; no path but section 9's launches a CR kernel, and the
+MPC path launches the five generic kernels and no other. Prints the JSON
+summary of all 28 kernels, then the device JSON as the last line.
 Imports nothing of JAX.
 """
 
@@ -200,6 +224,23 @@ JAY_BIG = (1023, 16)
 JAY_SEED = 1039
 # an f32 solve that is backward stable: ||J x - r|| over (||J|| ||x|| + ||r||)
 JAY_BACKWARD = 1e-5
+# the cyclic-reduction chain sweeps (slice 8): the CR pair held against the
+# serial kernels to the 2e-4 of tests/test_chain_cr.py (absolute there, on
+# O(1) data: here times max(1, max|serial|)); the right-hand sides' seed;
+# solve pairs a shape on their path
+CR_PAIR_RTOL = 2e-4
+CR_SEED = 8
+CR_LOOP = 4
+# the MPC re-embedding path (slice 8) on the pruned headline tree: warm
+# requests re-embed x0 + MPC_SIGMA N(0, I) (numpy seed MPC_SEED); x[1:] and
+# u within MPC_GAP of the solve without the elimination. At MPC_SIGMA =
+# 0.05 the dual Newton stalls at max_iter on most such states, in the JAX
+# package too (tests/test_torch_qp_mpc.py): the attitude jumps saturate the
+# rate bounds over the horizon
+N_REQUESTS_MPC = 4
+MPC_SIGMA = 0.01
+MPC_SEED = 0
+MPC_GAP = 1e-6
 
 
 def fail(msg):
@@ -322,10 +363,12 @@ def main():
     sys.path.insert(0, str(ROOT))
     import treeqp_tpu_torch  # noqa: F401  (pins full-precision f32)
     from treeqp_tpu_torch.core.kkt import max_kkt_residual
+    from treeqp_tpu_torch.core.qp_data import QP_FIELDS
     from treeqp_tpu_torch.models import (GENERAL_CD_OPTS, GENERIC_SPEED_OPTS, IPM_OPTS,
                                          SDUNES_BOOT_OPTS, SDUNES_OPTS, asym_tree,
                                          general_cd, pruned, quadcopter, spring_mass_chain)
     from treeqp_tpu_torch.ops import _build
+    from treeqp_tpu_torch.ops import chain_cr as ccr
     from treeqp_tpu_torch.ops import chain_kernels as ck
     from treeqp_tpu_torch.ops import crown_kernels as ckr
     from treeqp_tpu_torch.ops import crown_riccati as crk
@@ -750,11 +793,53 @@ def main():
     checks = {tag: tree_chol_checks(q, tag, it, o) for tag, q, it, o in (
         ("pruned", qg, 0, optsg), ("asymmetric", qa, 2, optsg), ("unpruned", qp, 0, optsg),
         ("general C/D", qc, 0, optsc_d))}
+    def chain_matrix(Ls, CUs):
+        """Each chain's factor as one [L n, L n] matrix, lower triangular
+        with its blocks in reversed order: Ls_{L-1-k} on the diagonal, CUs_{L-k}
+        below it. The backward sweep solves it, the forward sweep its
+        transpose: the library call beside the sweep kernels."""
+        S, L, n, _ = Ls.shape
+        T = torch.zeros((S, L * n, L * n), dtype=Ls.dtype, device=Ls.device)
+        for k in range(L):
+            T[:, k * n:(k + 1) * n, k * n:(k + 1) * n] = Ls[:, L - 1 - k]
+            if k:
+                T[:, k * n:(k + 1) * n, (k - 1) * n:k * n] = CUs[:, L - k]
+        return T
+
+    rev = lambda v: v.flip(1).reshape(v.shape[0], -1, 1).contiguous()
+    _mv_t = lambda M, v: torch.einsum("sij,si->sj", M, v)  # M' v per chain
+
+    def sweep_library(Ls, CUs, res, ys, droot):
+        """The library calls of the backward and forward sweeps on these
+        operands (batched torch.linalg.solve_triangular on chain_matrix and
+        its transpose, the root term folded into the right-hand side
+        beforehand), and the larger of their distances to the serial
+        twins."""
+        T = chain_matrix(Ls, CUs)
+        Tt = T.mT.contiguous()
+        rb = rev(res)
+        rhs = ys.clone()
+        rhs[:, 0] -= _mv_t(CUs[:, 0], droot)
+        rf = rev(rhs)
+        bwd = lambda: torch.linalg.solve_triangular(T, rb, upper=False)
+        fwd = lambda: torch.linalg.solve_triangular(Tt, rf, upper=True)
+        unrev = lambda v: v.reshape(ys.shape).flip(1)
+        err = max(float((unrev(bwd()) - ck.chain_solve_bwd_ref(Ls, CUs, res)[0]).abs().max()),
+                  float((unrev(fwd()) - ck.chain_forward_ref(Ls, CUs, ys, droot)).abs().max()))
+        return bwd, fwd, err
+
+    Ls_g, CUs_g, rch_g = checks["pruned"]["chain_solve_bwd"][7]
+    ys_g, droot_g = checks["pruned"]["chain_forward"][7][2:]
+    lib_bwd, lib_fwd, lib_err = sweep_library(Ls_g, CUs_g, rch_g, ys_g, droot_g)
+    lib_fns = {"chain_solve_bwd": lib_bwd, "chain_forward": lib_fwd}
     for name, source, replaces, _, fn, ref_fn, shapes, inputs, ops in checks["pruned"].values():
         errs = {tag: c[name][3] for tag, c in checks.items() if name in c}
+        lib = (f"; the library call (solve_triangular) |diff| {lib_err:.3e}"
+               if name in lib_fns else "")
         record(name, source, replaces, max(errs.values()), fn, ref_fn,
                f"{shapes}; max |diff| "
-               + ", ".join(f"{tag} {e:.3e}" for tag, e in errs.items()), inputs, ops)
+               + ", ".join(f"{tag} {e:.3e}" for tag, e in errs.items()) + lib, inputs, ops,
+               lib_fn=lib_fns.get(name))
 
     def admm_check(q, o, tag, lam):
         """admm_identify against its twin at a cold stage solve of q's
@@ -833,26 +918,32 @@ def main():
     ipm_kernels = (rk.ric_chain_factor, rk.ric_chain_bwd, rk.ric_chain_fwd,
                    crk.crown_ric_factor, crk.crown_ric_solve)
     sd_kernels = (ck.chain_full_solve_mat, jk.jay_cr_solve)
-    kernels = ms_kernels + generic_kernels + (ql.admm_identify,) + ipm_kernels + sd_kernels
+    cr_kernels = (ccr.chain_cr_precompute, ccr.chain_solve_bwd_cr, ccr.chain_forward_cr)
+    kernels = (ms_kernels + generic_kernels + (ql.admm_identify,) + ipm_kernels + sd_kernels
+               + cr_kernels)
     ms_names = tuple(k.__name__ for k in ms_kernels)
     generic_names = tuple(k.__name__ for k in generic_kernels)
     admm_name = ("admm_identify",)
     ipm_names = tuple(k.__name__ for k in ipm_kernels)
     sd_names = tuple(k.__name__ for k in sd_kernels)
+    cr_names = tuple(k.__name__ for k in cr_kernels)
     df_kernels = ("chain_eval_df", "crown_eval_df", "chain_apply_df",
                   "crown_apply_df", "df_reduce_flat")
     paths = {}
 
     def drive(path, needs, fn, forbid=generic_names + admm_name, ipm_path=False,
-              sd_path=False):
+              sd_path=False, cr_path=False):
         """Run one main path with every launch count set to 0 just before
         it; read the counts just after. Each kernel in ``needs`` must have
         launched, none in ``forbid``, none of the IPM's Riccati kernels
-        unless ``ipm_path`` and none of sdunes' two unless ``sd_path``."""
+        unless ``ipm_path``, none of sdunes' two unless ``sd_path`` and none
+        of the CR sweeps unless ``cr_path`` (no solver calls them)."""
         if not ipm_path:
             forbid = tuple(forbid) + ipm_names
         if not sd_path:
             forbid = tuple(forbid) + sd_names
+        if not cr_path:
+            forbid = tuple(forbid) + cr_names
         for fn_k in kernels:
             fn_k.launches = 0
         torch.cuda.synchronize()
@@ -1726,6 +1817,219 @@ def main():
     if abs(info_sg["iter"] - info_sc["iter"]) > 1 or gaps["x"] > 1e-7 or gaps["u"] > 1e-7:
         fail(f"sdunes at Nr={SD_CPU_NR}: card and CPU solves disagree at {n_eq} iterations: "
              f"{gaps}")
+
+    t_slice8 = time.perf_counter()
+
+    # ---- 9. the cyclic-reduction chain sweeps (slice 8). No solver calls
+    # them: their path is the accept/reject loop of
+    # scripts/prof_torch_chain_cr.py, at its three shapes: the JAX script's
+    # factors (S=256, L=16, n=8, seed 0), the pruned tree's chain factors of
+    # section 5 and sdunes' of section 8 (S=256, L=20, n=8), each with a
+    # seeded right-hand side
+    rng = np.random.default_rng(0)
+    A_r = rng.standard_normal((256, 16, 8, 8))
+    Wc_r = torch.tensor(A_r @ A_r.transpose(0, 1, 3, 2) + 3.0 * np.eye(8), dtype=f32, device=dev)
+    Ut_r = torch.tensor(0.3 * rng.standard_normal((256, 16, 8, 8)), dtype=f32, device=dev)
+    # and a long chain of the widest blocks the kernels take, whose sweep
+    # buffers exceed a block's shared memory (the global-scratch path)
+    A_l = rng.standard_normal((4, 130, 16, 16))
+    Wc_l = torch.tensor(A_l @ A_l.transpose(0, 1, 3, 2) + 3.0 * np.eye(16), dtype=f32, device=dev)
+    Ut_l = torch.tensor(0.3 * rng.standard_normal((4, 130, 16, 16)), dtype=f32, device=dev)
+    rng = np.random.default_rng(CR_SEED)
+    cr_in = {}
+    for tag, (Ls_, CUs_) in (("random", ck.chain_factor_ref(Wc_r, Ut_r)[:2]),
+                             ("pruned", (Ls_g, CUs_g)), ("sdunes", (Ls5, CUs5)),
+                             ("long", ck.chain_factor_ref(Wc_l, Ut_l)[:2])):
+        S_, L_, n_ = Ls_.shape[:3]
+        cr_in[tag] = (Ls_, CUs_,
+                      torch.tensor(rng.standard_normal((S_, L_, n_)), dtype=f32, device=dev),
+                      torch.tensor(rng.standard_normal((S_, n_)), dtype=f32, device=dev))
+
+    def cr_ops(L, n, part):
+        """Operations of one chain: the precompute's 2 n triangular solves
+        a node, or a sweep's L triangular solves, the doubling levels (a
+        pair with its partner inside the chain: a matvec, and a product of
+        blocks below the last level) and the root term."""
+        if part == "pre":
+            return L * n * 2 * n * n
+        ops, h = L * n * n + 2 * n * n, 1
+        while h < L:
+            ops += (L - h) * n * (2 * n + (2 * n * n if 2 * h < L else 0))
+            h *= 2
+        return ops
+
+    cr_rows = {}
+    for tag, (Ls_, CUs_, res_, dr_) in cr_in.items():
+        S_, L_, n_ = Ls_.shape[:3]
+        Ab_ref, Bf_ref = ccr.chain_cr_precompute_ref(Ls_, CUs_)
+        ys_ref, radd_ref = ccr.chain_solve_bwd_cr_ref(Ls_, CUs_, Ab_ref, res_)
+        d_ref = ccr.chain_forward_cr_ref(Ls_, CUs_, Bf_ref, ys_ref, dr_)
+        cr_rows[tag] = dict(
+            pre=compare(torch, f"chain_cr_precompute ({tag})",
+                        ccr.chain_cr_precompute(Ls_, CUs_), (Ab_ref, Bf_ref), FACTOR_RTOL),
+            bwd=compare(torch, f"chain_solve_bwd_cr ({tag})",
+                        ccr.chain_solve_bwd_cr(Ls_, CUs_, Ab_ref, res_), (ys_ref, radd_ref),
+                        SOLVE_RTOL),
+            fwd=compare(torch, f"chain_forward_cr ({tag})",
+                        [ccr.chain_forward_cr(Ls_, CUs_, Bf_ref, ys_ref, dr_)], [d_ref],
+                        SOLVE_RTOL))
+        # the CR pair of kernels against the serial pair on the same factors
+        ys_s, radd_s = ck.chain_solve_bwd(Ls_, CUs_, res_)
+        Ab, Bf = ccr.chain_cr_precompute(Ls_, CUs_)
+        ys_c, radd_c = ccr.chain_solve_bwd_cr(Ls_, CUs_, Ab, res_)
+        got = [ys_c, radd_c, ccr.chain_forward_cr(Ls_, CUs_, Bf, ys_c, dr_)]
+        ref = [ys_s, radd_s, ck.chain_forward(Ls_, CUs_, ys_s, dr_)]
+        torch.cuda.synchronize()
+        cr_rows[tag]["pair"] = compare(torch, f"CR pair vs serial kernels ({tag})", got, ref,
+                                       CR_PAIR_RTOL)
+        cr_rows[tag]["ms"] = {
+            "pre": cuda_ms(torch, lambda: ccr.chain_cr_precompute(Ls_, CUs_), 20),
+            "bwd": cuda_ms(torch, lambda: ccr.chain_solve_bwd_cr(Ls_, CUs_, Ab, res_), 20),
+            "fwd": cuda_ms(torch, lambda: ccr.chain_forward_cr(Ls_, CUs_, Bf, ys_c, dr_), 20),
+            "serial": cuda_ms(torch, lambda: ck.chain_solve_bwd(Ls_, CUs_, res_), 20)
+            + cuda_ms(torch, lambda: ck.chain_forward(Ls_, CUs_, ys_s, dr_), 20)}
+        c = cr_rows[tag]
+        print(f"CR sweeps ({tag}: S={S_} L={L_} n={n_}): precompute {c['ms']['pre']:.4f} ms, "
+              f"bwd {c['ms']['bwd']:.4f}, fwd {c['ms']['fwd']:.4f} (serial pair "
+              f"{c['ms']['serial']:.4f}); |diff| to the twins {c['pre']:.3e} / {c['bwd']:.3e} / "
+              f"{c['fwd']:.3e}, CR pair vs serial kernels {c['pair']:.3e} (max |dl| "
+              f"{float(ref[2].abs().max()):.3e}) on {card}")
+
+    # the JSON rows at the pruned tree's shape (rows 2 and 3's), the other
+    # shapes in their descriptions
+    Ls_, CUs_, res_, dr_ = cr_in["pruned"]
+    S_, L_, n_ = Ls_.shape[:3]
+    Ab, Bf = ccr.chain_cr_precompute_ref(Ls_, CUs_)
+    ys_p = ccr.chain_solve_bwd_cr_ref(Ls_, CUs_, Ab, res_)[0]
+    lib_bwd, lib_fwd, lib_err = sweep_library(Ls_, CUs_, res_, ys_p, dr_)
+    others = lambda part: "; ".join(
+        f"{tag} {cr_rows[tag]['ms'][part]:.4f} ms (|diff| {cr_rows[tag][part]:.3e}, CR pair vs "
+        f"serial {cr_rows[tag]['pair']:.3e})" for tag in ("random", "sdunes", "long"))
+    record("chain_cr_precompute", "chain_cr.cu", "treeqp_tpu/ops/chain_cr.py:68",
+           max(r["pre"] for r in cr_rows.values()), lambda: ccr.chain_cr_precompute(Ls_, CUs_),
+           lambda: ccr.chain_cr_precompute_ref(Ls_, CUs_),
+           f"Ls {tuple(Ls_.shape)}; {others('pre')}", (Ls_, CUs_), S_ * cr_ops(L_, n_, "pre"))
+    record("chain_solve_bwd_cr", "chain_cr.cu", "treeqp_tpu/ops/chain_cr.py:132",
+           max(r["bwd"] for r in cr_rows.values()),
+           lambda: ccr.chain_solve_bwd_cr(Ls_, CUs_, Ab, res_),
+           lambda: ccr.chain_solve_bwd_cr_ref(Ls_, CUs_, Ab, res_),
+           f"res {tuple(res_.shape)}; {others('bwd')}; the library call |diff| {lib_err:.3e}",
+           (Ls_, Ab, res_, CUs_[:, 0]), S_ * cr_ops(L_, n_, "sweep"), lib_fn=lib_bwd)
+    record("chain_forward_cr", "chain_cr.cu", "treeqp_tpu/ops/chain_cr.py:168",
+           max(r["fwd"] for r in cr_rows.values()),
+           lambda: ccr.chain_forward_cr(Ls_, CUs_, Bf, ys_p, dr_),
+           lambda: ccr.chain_forward_cr_ref(Ls_, CUs_, Bf, ys_p, dr_),
+           f"ys {tuple(ys_p.shape)}; {others('fwd')}", (Ls_, Bf, ys_p, dr_),
+           S_ * cr_ops(L_, n_, "sweep"), lib_fn=lib_fwd)
+    for r in results[-3:]:
+        print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library call "
+              f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
+              f"max |diff| {r['max_abs_err']:.3e} [{r['shapes']}] on {card}")
+
+    def cr_loop():
+        """scripts/prof_torch_chain_cr.py's loop, CR_LOOP pairs a shape: the
+        CR operands once, then backward + forward pairs with the
+        right-hand side varied each step, CR and serial."""
+        for Ls_, CUs_, res_, dr_ in cr_in.values():
+            Ab, Bf = ccr.chain_cr_precompute(Ls_, CUs_)
+            for k in range(CR_LOOP):
+                r = res_ * (1.0 + 2e-4 * k)
+                ys, radd = ccr.chain_solve_bwd_cr(Ls_, CUs_, Ab, r)
+                d_c = ccr.chain_forward_cr(Ls_, CUs_, Bf, ys, dr_ + radd)
+                ys, radd = ck.chain_solve_bwd(Ls_, CUs_, r)
+                d_s = ck.chain_forward(Ls_, CUs_, ys, dr_ + radd)
+                compare(torch, "CR pair vs serial kernels (loop)", [d_c], [d_s], CR_PAIR_RTOL)
+    drive("CR sweeps", cr_names + ("chain_solve_bwd", "chain_forward"), cr_loop,
+          forbid=ms_names + admm_name + ("chain_factor", "crown_factor", "crown_solve"),
+          cr_path=True)
+
+    # ---- 10. the MPC re-embedding path (slice 8): the pruned headline tree
+    # of section 5 with its root state folded in once (set_x0, then
+    # eliminate_x0 keeping the originals), one cold solve and warm requests
+    # that re-embed a new state through EliminatedTreeQP.set_x0
+    x0_g = qg.xmin[0].cpu().numpy()
+    rng = np.random.default_rng(MPC_SEED)
+    x_reqs = [x0_g + MPC_SIGMA * rng.standard_normal(x0_g.shape) for _ in range(N_REQUESTS_MPC)]
+    root_x = torch.zeros_like(qg.xmin, dtype=torch.bool)
+    root_x[0] = True
+
+    def same_data(a, b):
+        """Every field equal, the root's state bounds aside (the nx[0] = 0
+        topology leaves them out; re-embedding keeps the first x0's)."""
+        bad = [f for f in QP_FIELDS if not torch.equal(
+            *(getattr(q, f).masked_fill(root_x, 0.0) if f in ("xmin", "xmax")
+              else getattr(q, f) for q in (a, b)))]
+        return a.topo == b.topo and not bad, bad
+
+    def mpc_request(el, x, lam0, what):
+        """One request: (re-embedding and) solve of the eliminated problem,
+        certified and held to the un-eliminated solve and to elimination
+        from scratch. Returns (the eliminated QP, out, ms, launches)."""
+        n0 = {k.__name__: k.launches for k in generic_kernels}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if lam0 is not None:
+            el = el.set_x0(x)
+        out = td.tdunes_solve(el.qp, lam0, optsg)
+        torch.cuda.synchronize()
+        t_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k.__name__: k.launches - n0[k.__name__] for k in generic_kernels}
+        ok, bad = same_data(el.qp, qg.set_x0(x).eliminate_x0())
+        if not ok:
+            fail(f"{what}: the re-embedded data differ from elimination from scratch in {bad}")
+        kkt = max_kkt_residual(el.qp, out)
+        if out.info["status"] != td.TDUNES_OPTIMAL or not kkt < TOL:
+            fail(f"{what}: status {out.info['status']} kkt {kkt}")
+        full = td.tdunes_solve(qg.set_x0(x), None, optsg)
+        gaps = {"x[1:]": float((out.x[1:] - full.x[1:]).abs().max()),
+                "u": float((out.u - full.u).abs().max())}
+        if max(gaps.values()) > MPC_GAP:
+            fail(f"{what}: the eliminated and the full solve differ: {gaps}")
+        print(f"{what}: iter {out.info['iter']} ({out.info['iter_f32']} coarse), kkt "
+              f"{kkt:.3e}, {t_ms:.1f} ms, launches {launches}; the solve without "
+              f"elimination: iter {full.info['iter']}, "
+              + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps.items()) + f" on {card}")
+        return el, out, t_ms, launches
+
+    def mpc_path():
+        el = qg.set_x0(x0_g).eliminate_x0(keep_originals=True)
+        if el.qp.topo.nx[0] != 0 or len(el.kids0) != len(qg.topo.kids[0]):
+            fail(f"eliminate_x0: root nx {el.qp.topo.nx[0]}, {len(el.kids0)} kids kept")
+        el, out, t_ms, _ = mpc_request(el, x0_g, None, "MPC cold request")
+        rows = [(out.info["iter"], t_ms)]
+        for k, x in enumerate(x_reqs):
+            el, out, t_ms, _ = mpc_request(el, x, out.lam, f"MPC warm request {k}")
+            rows.append((out.info["iter"], t_ms))
+        return rows
+    rows_mpc = drive("MPC re-embedding", generic_names, mpc_path, forbid=ms_names + admm_name)
+    print(f"MPC re-embedding on quadcopter({MD},{NR},{NH}) pruned to {GEN_SCEN} scenarios: "
+          f"iterations {[i for i, _ in rows_mpc]}, ms a request {[round(t, 2) for _, t in rows_mpc]}"
+          f" (re-embedding and solve) on {card}")
+    # the LTV setters rebuild the instance from flat arrays, bit for bit
+    nxg, nug = qg.topo.nx, qg.topo.nu
+    host = {f: getattr(qg, f).cpu().numpy() for f in QP_FIELDS}
+    par = qg.topo.parent
+    col = lambda M: M.T.ravel()  # column-major
+    cat = lambda parts: np.concatenate([np.ravel(p) for p in parts])
+    rebuilt = qg.set_ltv_dynamics(
+        cat(col(host["A"][c, :nxg[c], :nxg[par[c]]]) for c in range(1, qg.topo.Nn)),
+        cat(col(host["B"][c, :nxg[c], :nug[par[c]]]) for c in range(1, qg.topo.Nn)),
+        cat(host["b"][c, :nxg[c]] for c in range(1, qg.topo.Nn)))
+    nodes = range(qg.topo.Nn)
+    rebuilt = rebuilt.set_ltv_objective_diag(
+        cat(np.diag(host["Q"][i])[:nxg[i]] for i in nodes),
+        cat(np.diag(host["R"][i])[:nug[i]] for i in nodes),
+        cat(host["q"][i, :nxg[i]] for i in nodes), cat(host["r"][i, :nug[i]] for i in nodes))
+    rebuilt = rebuilt.set_ltv_bounds(*(
+        cat(host[f][i, :(nxg if f[0] == "x" else nug)[i]] for i in nodes)
+        for f in ("xmin", "xmax", "umin", "umax")))
+    bad = [f for f in QP_FIELDS if not torch.equal(getattr(rebuilt, f), getattr(qg, f))]
+    if bad:
+        fail(f"the LTV setters did not rebuild {bad}")
+    print(f"LTV setters: A, B, b, Q, R, q, r and the bounds of the {qg.topo.Nn}-node tree "
+          f"rebuilt from flat arrays, every field equal")
+    print(f"sections 9-10 (slice 8): {time.perf_counter() - t_slice8:.1f} s on {card}")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"(build {t_build:.1f} s) on {card}")

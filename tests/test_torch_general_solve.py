@@ -236,7 +236,10 @@ def test_general_cd_depth_parity():
     and part after line searches of 20 and more backtracks, where the f32
     factors' rounding decides the accepted step: the port took 31
     iterations and JAX 42 on the CPU, 26% apart, so the counts are held to
-    a one-sided band, not to one iteration."""
+    a one-sided band, not to one iteration. test_torch_depth_replay.py
+    replays those line searches from JAX's iterates through both packages
+    (the same decisions at every trial) and shows JAX's own step landing
+    on either side by f32 rounding."""
     nm, md, Nr, Nh = DEEP_DIMS
     with mock.patch.multiple(gcb, NM=nm, MD=md, NR=Nr, NH=Nh):
         qp_j = gcb.build("tdunes_qpgen")

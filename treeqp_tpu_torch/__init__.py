@@ -20,7 +20,8 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 from treeqp_tpu_torch.utils.tree import TreeStructure, number_of_nodes_multistage  # noqa: E402
-from treeqp_tpu_torch.core.qp_data import TreeQPIn, TreeQPOut, TREEQP_INF  # noqa: E402
+from treeqp_tpu_torch.core.qp_data import (  # noqa: E402
+    EliminatedTreeQP, TreeQPIn, TreeQPOut, TREEQP_INF)
 from treeqp_tpu_torch.core.kkt import kkt_residuals, max_kkt_residual  # noqa: E402
 from treeqp_tpu_torch.solvers.tdunes import TdunesOpts, tdunes_solve  # noqa: E402
 from treeqp_tpu_torch.solvers.tdunes_multistage import (  # noqa: E402
@@ -38,6 +39,7 @@ __all__ = [
     "number_of_nodes_multistage",
     "TreeQPIn",
     "TreeQPOut",
+    "EliminatedTreeQP",
     "TREEQP_INF",
     "kkt_residuals",
     "max_kkt_residual",

@@ -2,8 +2,9 @@
 
 Port of ``treeqp_tpu/core/qp_data.py``: the same stacked, zero-padded
 ``[Nn, nxm, ...]`` layout, one tensor per field, with the static topology
-(``TreeStructure``) carried beside the tensors. The LTV batch setters and
-``eliminate_x0`` are not ported yet.
+(``TreeStructure``) carried beside the tensors; with the LTV batch setters,
+``set_x0``, ``eliminate_x0`` and ``EliminatedTreeQP``, the MPC re-embedding
+of a new root state into the x0-eliminated problem.
 
 The QP solved (tree_qp_common.h:85-116)::
 
@@ -27,7 +28,8 @@ from treeqp_tpu_torch.utils.tree import TreeStructure
 # Infinity convention of the reference (utils/types.h:37)
 TREEQP_INF = 1e12
 
-__all__ = ["TreeQPIn", "TreeQPOut", "TREEQP_INF", "QP_FIELDS", "OUT_FIELDS"]
+__all__ = ["TreeQPIn", "TreeQPOut", "EliminatedTreeQP", "TREEQP_INF", "QP_FIELDS",
+           "OUT_FIELDS"]
 
 QP_FIELDS = ("Q", "R", "S", "q", "r", "xmin", "xmax", "umin", "umax",
              "C", "D", "dmin", "dmax", "A", "B", "b")
@@ -187,6 +189,177 @@ class TreeQPIn:
             edges[c] = dict(A=A[re], B=B[re], b=b[re])
         return cls.from_node_edge_lists(topo, nodes, edges, dtype=dtype,
                                         device=device)
+
+    # ----------------------------------------------------- LTV batch setters
+    # Reference tree_qp_in_set_ltv_* (tree_qp_common.c:1953-2153): flat
+    # concatenated per-edge / per-node arrays (variable dims), unpacked in
+    # node order. Each setter gathers the flat values into the padded layout
+    # by index arrays built on the host, with one scatter on the QP's device.
+
+    def _from_flat(self, shape, fill, pieces, flat):
+        """A [Nn, ...] tensor of ``shape`` holding ``fill`` except at the
+        flat destination indices of ``pieces`` ([(dst, src), ...]), which
+        take ``flat[src]``; in f64, then cast to the QP's dtype."""
+        flat = torch.as_tensor(flat, dtype=torch.float64, device=self.device).reshape(-1)
+        dst = np.concatenate([d.ravel() for d, _ in pieces] + [np.zeros(0, np.int64)])
+        src = np.concatenate([s.ravel() for _, s in pieces] + [np.zeros(0, np.int64)])
+        if src.size != flat.numel():
+            raise ValueError(f"flat input of length {flat.numel()}, the topology takes "
+                             f"{src.size}")
+        out = torch.full((int(np.prod(shape)),), fill, dtype=torch.float64,
+                         device=self.device)
+        idx = lambda a: torch.as_tensor(a, dtype=torch.long, device=self.device)
+        out[idx(dst)] = flat[idx(src)]
+        return out.reshape(shape).to(self.dtype)
+
+    def set_ltv_dynamics(self, A_flat, B_flat, b_flat) -> "TreeQPIn":
+        """``tree_qp_in_set_ltv_dynamics_colmajor``: A/B/b of every edge,
+        flat-concatenated in child-node order 1..Nn-1 (column-major per
+        matrix, matching the reference). Numpy arrays or tensors."""
+        topo = self.topo
+        Nn, nxm, num, nx, nu = topo.Nn, topo.nxm, topo.num, topo.nx, topo.nu
+        pa, pb, pv = [], [], []
+        ia = ib = iv = 0
+        for c in range(1, Nn):
+            p = topo.parent[c]
+            m = nx[c]
+            for pieces, off, ncol, ld in ((pa, ia, nx[p], nxm), (pb, ib, nu[p], num)):
+                i, k = np.meshgrid(np.arange(m), np.arange(ncol), indexing="ij")
+                pieces.append(((c * nxm + i) * ld + k, off + k * m + i))
+            pv.append((c * nxm + np.arange(m), iv + np.arange(m)))
+            ia, ib, iv = ia + m * nx[p], ib + m * nu[p], iv + m
+        return self.replace(A=self._from_flat((Nn, nxm, nxm), 0.0, pa, A_flat),
+                            B=self._from_flat((Nn, nxm, num), 0.0, pb, B_flat),
+                            b=self._from_flat((Nn, nxm), 0.0, pv, b_flat))
+
+    def set_ltv_objective_diag(self, Qd_flat, Rd_flat, q_flat, r_flat) -> "TreeQPIn":
+        """``tree_qp_in_set_ltv_objective_diag``: diagonal weights + linear
+        terms of every node, flat-concatenated in node order (S zeroed)."""
+        topo = self.topo
+        Nn, nxm, num = topo.Nn, topo.nxm, topo.num
+        dq, dr, vq, vr = [], [], [], []
+        iq = ir = 0
+        for i in range(Nn):
+            a, b = np.arange(topo.nx[i]), np.arange(topo.nu[i])
+            dq.append(((i * nxm + a) * nxm + a, iq + a))
+            vq.append((i * nxm + a, iq + a))
+            dr.append(((i * num + b) * num + b, ir + b))
+            vr.append((i * num + b, ir + b))
+            iq, ir = iq + a.size, ir + b.size
+        return self.replace(Q=self._from_flat((Nn, nxm, nxm), 0.0, dq, Qd_flat),
+                            R=self._from_flat((Nn, num, num), 0.0, dr, Rd_flat),
+                            S=torch.zeros_like(self.S),
+                            q=self._from_flat((Nn, nxm), 0.0, vq, q_flat),
+                            r=self._from_flat((Nn, num), 0.0, vr, r_flat))
+
+    def set_ltv_bounds(self, xmin_flat, xmax_flat, umin_flat, umax_flat) -> "TreeQPIn":
+        """Batch bound setter in node order (flat-concatenated, variable
+        dims), cf. tree_qp_in_set_node_bounds applied node by node; entries
+        past each node's dims are +-TREEQP_INF."""
+        topo = self.topo
+        Nn, nxm, num = topo.Nn, topo.nxm, topo.num
+        px, pu = [], []
+        ix = iu = 0
+        for i in range(Nn):
+            a, b = np.arange(topo.nx[i]), np.arange(topo.nu[i])
+            px.append((i * nxm + a, ix + a))
+            pu.append((i * num + b, iu + b))
+            ix, iu = ix + a.size, iu + b.size
+        inf = TREEQP_INF
+        return self.replace(xmin=self._from_flat((Nn, nxm), -inf, px, xmin_flat),
+                            xmax=self._from_flat((Nn, nxm), inf, px, xmax_flat),
+                            umin=self._from_flat((Nn, num), -inf, pu, umin_flat),
+                            umax=self._from_flat((Nn, num), inf, pu, umax_flat))
+
+    # --------------------------------------------------------- MPC utilities
+
+    def set_x0(self, x0) -> "TreeQPIn":
+        """Embed the current state as equality bounds on the root
+        (tree_qp_in_set_x0_* semantics, tree_qp_common.c:2154-2237)."""
+        x0 = torch.as_tensor(x0, dtype=self.dtype, device=self.device)
+        nx0 = self.topo.nx[0]
+        x0p = torch.zeros((self.topo.nxm,), dtype=self.dtype, device=self.device)
+        x0p[:nx0] = x0[:nx0]
+        mask = torch.as_tensor(self.topo.x_mask[0], dtype=self.dtype, device=self.device)
+        xmin, xmax = self.xmin.clone(), self.xmax.clone()
+        xmin[0] = x0p * mask - TREEQP_INF * (1 - mask)
+        xmax[0] = x0p * mask + TREEQP_INF * (1 - mask)
+        return self.replace(xmin=xmin, xmax=xmax)
+
+    def eliminate_x0(self, keep_originals: bool = False):
+        """Fold a fixed root state into the data, shrinking node 0 to nx=0.
+
+        Mirrors ``tree_qp_in_eliminate_x0`` (tree_qp_common.c:404-525): with
+        x0 fixed (xmin[0]==xmax[0]), fold A_c x0 into b_c for each child c of
+        the root, S_0 x0 into r_0, and C_0 x0 into the root's d bounds; zero
+        Q_0, q_0, S_0, C_0 and the A of the edges out of the root. Returns a
+        new TreeQPIn of the same padded shapes on a topology with nx[0] = 0
+        (the root's x bounds stay, outside that topology).
+
+        ``keep_originals=True`` instead returns an :class:`EliminatedTreeQP`
+        holding the pre-elimination data, so the eliminated problem takes a
+        NEW x0 every MPC step through ``.set_x0`` without rebuilding: the
+        reference's qp_internal_t pattern (tree_qp_common.c:2154-2237).
+        """
+        topo = self.topo
+        x0 = self.xmin[0] * torch.as_tensor(topo.x_mask[0], dtype=self.dtype,
+                                            device=self.device)
+        new_topo = TreeStructure.from_parent(topo.parent, (0,) + topo.nx[1:], topo.nu,
+                                             topo.nc)
+        kids0 = torch.as_tensor(topo.kids[0], dtype=torch.long, device=self.device)
+        A0, b0 = self.A[kids0], self.b[kids0]
+        S0, r0, C0 = self.S[0], self.r[0], self.C[0]
+        dmin0, dmax0 = self.dmin[0], self.dmax[0]
+        f = {k: getattr(self, k).clone() for k in ("A", "b", "r", "S", "C", "Q", "q",
+                                                  "dmin", "dmax")}
+        f["b"][kids0] = b0 + torch.einsum("kij,j->ki", A0, x0)
+        f["A"][kids0] = 0.0
+        f["r"][0] = r0 + S0 @ x0
+        cshift = C0 @ x0
+        f["dmin"][0] = dmin0 - cshift
+        f["dmax"][0] = dmax0 - cshift
+        for k in ("S", "C", "Q", "q"):
+            f[k][0] = 0.0
+        elim = self.replace(topo=new_topo, **f)
+        if not keep_originals:
+            return elim
+        return EliminatedTreeQP(qp=elim, A0=A0, b0=b0, S0=S0, r0=r0, C0=C0, dmin0=dmin0,
+                                dmax0=dmax0, kids0=tuple(int(k) for k in topo.kids[0]))
+
+
+@dataclasses.dataclass(frozen=True)
+class EliminatedTreeQP:
+    """An x0-eliminated tree QP that can be re-embedded with a new x0 every
+    MPC step (the reference's qp_internal_t pattern: originals are kept so
+    ``tree_qp_in_set_x0_strvec`` works on the eliminated problem,
+    tree_qp_common.h:58-80, tree_qp_common.c:2154-2237)."""
+
+    qp: TreeQPIn          # the eliminated problem (nx[0] = 0 topology)
+    A0: torch.Tensor      # original A of the edges out of the root [K0, nxm, nxm]
+    b0: torch.Tensor      # original b of those edges [K0, nxm]
+    S0: torch.Tensor      # original root S [num, nxm]
+    r0: torch.Tensor      # original root r [num]
+    C0: torch.Tensor      # original root C [ncm, nxm]
+    dmin0: torch.Tensor
+    dmax0: torch.Tensor
+    kids0: tuple          # the root's children
+
+    def set_x0(self, x0) -> "EliminatedTreeQP":
+        """Re-embed a new root state into the eliminated data: only the
+        folded fields (b of the root's children, r_0, the root's d bounds)
+        are rewritten, on the QP's device."""
+        qp = self.qp
+        x0 = torch.as_tensor(x0, dtype=qp.dtype, device=qp.device)
+        x0p = torch.zeros((qp.topo.nxm,), dtype=qp.dtype, device=qp.device)
+        x0p[:x0.shape[0]] = x0
+        kids0 = torch.as_tensor(self.kids0, dtype=torch.long, device=qp.device)
+        b, r, dmin, dmax = qp.b.clone(), qp.r.clone(), qp.dmin.clone(), qp.dmax.clone()
+        b[kids0] = self.b0 + torch.einsum("kij,j->ki", self.A0, x0p)
+        r[0] = self.r0 + self.S0 @ x0p
+        cshift = self.C0 @ x0p
+        dmin[0] = self.dmin0 - cshift
+        dmax[0] = self.dmax0 - cshift
+        return dataclasses.replace(self, qp=qp.replace(b=b, r=r, dmin=dmin, dmax=dmax))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -99,6 +99,13 @@ _SIGNATURES = {
     "tq_chain_full_solve_mat": [_P] * 4 + [_I] * 4 + [_P],
     # diag, off, rhs, shift, x, D, C, r, Z1s, Z2s, zrs, P, b, reg_tol, stream
     "tq_jay_cr_solve": [_P] * 11 + [_I] * 2 + [_F, _P],
+    # the cyclic-reduction variants of the chain sweeps
+    # Ls, CUs, Abwd, Bfwd, S, L, n, stream
+    "tq_chain_cr_precompute": [_P] * 4 + [_I] * 3 + [_P],
+    # Ls, CUs, Abwd, res, ys, radd0, scratch, S, L, n, stream
+    "tq_chain_solve_bwd_cr": [_P] * 7 + [_I] * 3 + [_P],
+    # Ls, Bfwd, ys, droot, dls, scratch, S, L, n, stream
+    "tq_chain_forward_cr": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 _LIB = None
