@@ -115,15 +115,19 @@ Phases (any failure exits non-zero):
    chain_forward), then that script's loop of CR and serial pairs as their
    path;
 10. the MPC re-embedding path (slice 8) on section 5's pruned tree at
-   ``models.GENERIC_SPEED_OPTS``: ``set_x0`` then ``eliminate_x0`` keeping
-   the originals, a cold solve and four warm requests that re-embed x0 +
-   0.01 N(0, I) (numpy seed 0) through ``EliminatedTreeQP.set_x0`` and
-   start from the previous duals; each request's data equal to elimination
-   from scratch (the root's state bounds aside), status 0, KKT < 1e-8 on
-   the eliminated problem, x[1:] and u within 1e-6 of the solve without
-   elimination, its iterations, launches and time printed; and the
-   instance rebuilt through the three LTV setters from flat arrays, every
-   field equal.
+   ``models.GENERIC_SPEED_OPTS``, along the closed loop of
+   ``benchmarks/closed_loop.py`` (``closed_loop_mpc`` with tdunes, warm
+   starts and no IPM bootstrap): ``set_x0`` then ``eliminate_x0`` keeping
+   the originals, a cold solve, then four steps, each applying the
+   solution's first control to the quadcopter's nonlinear plant
+   (``BenchmarkModel.simulate``, RK4 at the true mass) and re-embedding the
+   next state through ``EliminatedTreeQP.set_x0``, warm-started from the
+   previous duals; each request's data equal to elimination from scratch
+   (the root's state bounds aside), status 0 (the stalled steps counted),
+   KKT < 1e-8 on the eliminated problem, x[1:] and u within 1e-6 of the
+   solve without elimination, its iterations, launches and time printed;
+   and the instance rebuilt through the three LTV setters from flat
+   arrays, every field equal.
 
 The kernel launch counts are set to 0 before each path (one-phase,
 two-phase, bench, bench handover, two-norm, 1024 scenarios, generic split,
@@ -232,14 +236,9 @@ CR_PAIR_RTOL = 2e-4
 CR_SEED = 8
 CR_LOOP = 4
 # the MPC re-embedding path (slice 8) on the pruned headline tree: warm
-# requests re-embed x0 + MPC_SIGMA N(0, I) (numpy seed MPC_SEED); x[1:] and
-# u within MPC_GAP of the solve without the elimination. At MPC_SIGMA =
-# 0.05 the dual Newton stalls at max_iter on most such states, in the JAX
-# package too (tests/test_torch_qp_mpc.py): the attitude jumps saturate the
-# rate bounds over the horizon
+# requests follow the closed loop (the plant driven by each solution's first
+# control); x[1:] and u within MPC_GAP of the solve without the elimination
 N_REQUESTS_MPC = 4
-MPC_SIGMA = 0.01
-MPC_SEED = 0
 MPC_GAP = 1e-6
 
 
@@ -412,7 +411,8 @@ def main():
     # the coarse phase's options inside the two-phase solve
     opts_coarse = dataclasses.replace(optsb, refine_steps=0, tol=optsb.f32_phase_tol,
                                       ls_batch=4)
-    qp_cpu = quadcopter(MD, NR, NH, device="cpu").qp
+    quad = quadcopter(MD, NR, NH, device="cpu")
+    qp_cpu = quad.qp
     ms_cpu = tm.split_multistage(qp_cpu)
     ms = ms_cpu.to(dev)
     meta = ms.meta
@@ -1946,11 +1946,10 @@ def main():
 
     # ---- 10. the MPC re-embedding path (slice 8): the pruned headline tree
     # of section 5 with its root state folded in once (set_x0, then
-    # eliminate_x0 keeping the originals), one cold solve and warm requests
-    # that re-embed a new state through EliminatedTreeQP.set_x0
+    # eliminate_x0 keeping the originals), one cold solve and the closed
+    # loop's steps, each re-embedding the plant's next state through
+    # EliminatedTreeQP.set_x0
     x0_g = qg.xmin[0].cpu().numpy()
-    rng = np.random.default_rng(MPC_SEED)
-    x_reqs = [x0_g + MPC_SIGMA * rng.standard_normal(x0_g.shape) for _ in range(N_REQUESTS_MPC)]
     root_x = torch.zeros_like(qg.xmin, dtype=torch.bool)
     root_x[0] = True
 
@@ -1979,8 +1978,12 @@ def main():
         if not ok:
             fail(f"{what}: the re-embedded data differ from elimination from scratch in {bad}")
         kkt = max_kkt_residual(el.qp, out)
-        if out.info["status"] != td.TDUNES_OPTIMAL or not kkt < TOL:
-            fail(f"{what}: status {out.info['status']} kkt {kkt}")
+        if out.info["status"] != td.TDUNES_OPTIMAL:
+            print(f"{what}: stalled, status {out.info['status']} after "
+                  f"{out.info['iter']} iterations, kkt {kkt:.3e}, state {x}")
+            return el, out, t_ms, launches
+        if not kkt < TOL:
+            fail(f"{what}: status 0 but kkt {kkt}")
         full = td.tdunes_solve(qg.set_x0(x), None, optsg)
         gaps = {"x[1:]": float((out.x[1:] - full.x[1:]).abs().max()),
                 "u": float((out.u - full.u).abs().max())}
@@ -1996,16 +1999,23 @@ def main():
         el = qg.set_x0(x0_g).eliminate_x0(keep_originals=True)
         if el.qp.topo.nx[0] != 0 or len(el.kids0) != len(qg.topo.kids[0]):
             fail(f"eliminate_x0: root nx {el.qp.topo.nx[0]}, {len(el.kids0)} kids kept")
-        el, out, t_ms, _ = mpc_request(el, x0_g, None, "MPC cold request")
-        rows = [(out.info["iter"], t_ms)]
-        for k, x in enumerate(x_reqs):
-            el, out, t_ms, _ = mpc_request(el, x, out.lam, f"MPC warm request {k}")
-            rows.append((out.info["iter"], t_ms))
+        x, lam, rows, nu0 = x0_g, None, [], qg.topo.nu[0]
+        for k in range(N_REQUESTS_MPC + 1):
+            what = "MPC cold request" if lam is None else f"MPC warm request {k - 1}"
+            el, out, t_ms, _ = mpc_request(el, x, lam, what)
+            rows.append((out.info["iter"], t_ms, out.info["status"], x))
+            # closed_loop_mpc: the first control to the plant, the duals kept
+            x, lam = quad.simulate(x, out.u[0, :nu0].cpu().numpy()), out.lam
         return rows
     rows_mpc = drive("MPC re-embedding", generic_names, mpc_path, forbid=ms_names + admm_name)
-    print(f"MPC re-embedding on quadcopter({MD},{NR},{NH}) pruned to {GEN_SCEN} scenarios: "
-          f"iterations {[i for i, _ in rows_mpc]}, ms a request {[round(t, 2) for _, t in rows_mpc]}"
-          f" (re-embedding and solve) on {card}")
+    stalled = sum(st != td.TDUNES_OPTIMAL for _, _, st, _ in rows_mpc)
+    print(f"MPC re-embedding on quadcopter({MD},{NR},{NH}) pruned to {GEN_SCEN} scenarios, "
+          f"the closed loop's states {[np.round(x, 4).tolist() for *_, x in rows_mpc]}: "
+          f"iterations {[r[0] for r in rows_mpc]}, ms a request "
+          f"{[round(r[1], 2) for r in rows_mpc]} (re-embedding and solve), "
+          f"{stalled} of {len(rows_mpc)} stalled, on {card}")
+    if stalled:
+        fail(f"{stalled} MPC requests stalled")
     # the LTV setters rebuild the instance from flat arrays, bit for bit
     nxg, nug = qg.topo.nx, qg.topo.nu
     host = {f: getattr(qg, f).cpu().numpy() for f in QP_FIELDS}

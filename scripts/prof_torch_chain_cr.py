@@ -6,7 +6,7 @@ card: the accept/reject measurement of the CR lever, counterpart of
     python3 scripts/prof_torch_chain_cr.py [--loop 256] [--nrep 4]
 
 For each shape, times LOOP_N backward + forward solve pairs with the
-right-hand side varied each step (r_k = res0 (1 + 1e-4 k seed), the
+right-hand side varied each step (r_k = res0 (1 + 2e-4 k), the
 forward sweep from droot + radd0, the directions summed), once through
 the serial kernels (``chain_solve_bwd`` + ``chain_forward``) and once
 through the CR kernels (``chain_solve_bwd_cr`` + ``chain_forward_cr``,
@@ -149,7 +149,7 @@ def main():
 
         diff = float((serial(res0) - cr_pair(res0)).abs().max())
         top = float(serial(res0).abs().max())
-        # the right-hand side of step k: res0 (1 + 1e-4 k seed), seed 2
+        # the right-hand side of step k: res0 (1 + 2e-4 k)
         fac = 1.0 + 2e-4 * torch.arange(args.loop, dtype=torch.float32, device=dev)
         acc = torch.zeros((), dtype=torch.float32, device=dev)
         out = {}

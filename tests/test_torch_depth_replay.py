@@ -42,6 +42,7 @@ torch.set_num_threads(1)
 
 DIMS = (2, 3, 3, 12)  # nm, md, Nr, Nh: 27 scenarios, 283 nodes
 COARSE_ITERS = 5  # the coarse phase's iterations, in both packages
+FINAL_ITERS = 5  # the final-phase iterations the replays read
 # the port's trial dual values within this (relative to max(1, |f|)) of
 # JAX's, the stage solutions within X_TOL
 F_RTOL, X_TOL = 1e-10, 1e-9
@@ -63,9 +64,11 @@ def instances():
 
 @functools.lru_cache(maxsize=None)
 def jax_solve():
-    """JAX's two-phase solve, with the inputs of each final-phase line
-    search recorded: a list of dicts (lam, dn, dg, rg, ws, n_ls) of numpy
-    arrays, and the solve's err_hist / ls_hist."""
+    """JAX's two-phase solve, stopped after the fifth final-phase
+    iteration (the last one the replays read; max_iter counts both
+    phases), with the inputs of each final-phase line search recorded: a
+    list of dicts (lam, dn, dg, rg, ws, n_ls) of numpy arrays, and the
+    solve's err_hist."""
     qp_j = instances()[0]
     rec, real = [], jtd._line_search
 
@@ -85,9 +88,10 @@ def jax_solve():
     with mock.patch.object(jtd, "_line_search", recording):
         out = jtd.tdunes_solve(qp_j, None, jtd.TdunesOpts(**{
             **models.GENERAL_CD_OPTS, "stage_solver": "qpgen", "chain_backend": "xla",
-            "record_history": True}))
+            "max_iter": COARSE_ITERS + FINAL_ITERS, "record_history": True}))
     err, ls = np.asarray(out.info["err_hist"]), np.asarray(out.info["ls_hist"])
     assert int(np.argmax(np.isfinite(err))) == COARSE_ITERS
+    assert len(rec) == FINAL_ITERS
     assert [r["n_ls"] for r in rec] == list(ls[COARSE_ITERS:COARSE_ITERS + len(rec)])
     return rec, err
 

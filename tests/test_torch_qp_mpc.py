@@ -9,6 +9,7 @@ leaves have no controls): every field equal within 1e-15. The solves run
 default options), the JAX side on its XLA chain backend, and are held to
 the ROADMAP bars (iterations within one, x and u within 1e-7)."""
 
+import dataclasses
 import functools
 
 import jax.numpy as jnp
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from benchmarks import models as jmodels
+from benchmarks.closed_loop import closed_loop_mpc
 from treeqp_tpu.core.kkt import max_kkt_residual as jax_kkt
 from treeqp_tpu.solvers import tdunes as jtd
 from treeqp_tpu.utils.pruning import prune_scenario_tree as jprune
@@ -193,11 +195,11 @@ def test_eliminated_x0_reembedding():
 
 
 def test_large_attitude_jumps_stall_in_both_packages():
-    """Why the chip smoke's MPC requests move the state by 0.01 N(0, I) and
-    not 0.05: on the pruned quadcopter, x0 + 0.05 N(0, I) (seed 0, second
-    draw) saturates the rate bounds over the horizon and the generic dual
-    Newton stalls at max_iter in both packages alike, though the QP is
-    feasible (the port's IPM solves it)."""
+    """Why the chip smoke's MPC requests follow the closed loop and are not
+    random jumps of the state: on the pruned quadcopter, x0 + 0.05 N(0, I)
+    (seed 0, second draw) saturates the rate bounds over the horizon and
+    the generic dual Newton stalls at max_iter in both packages alike,
+    though the QP is feasible (the port's IPM solves it)."""
     qj, qp, x0 = quadcopter_pruned()
     rng = np.random.default_rng(0)
     x = [x0 + 0.05 * rng.standard_normal(x0.shape) for _ in range(2)][1]
@@ -207,3 +209,45 @@ def test_large_attitude_jumps_stall_in_both_packages():
     assert max_kkt_residual(qp.set_x0(x), out) > 1.0
     out_i = ipm_solve(qp.set_x0(x), ipm.IpmOpts(**{**models.IPM_OPTS["cd"], "max_iter": 100}))
     assert out_i.info["status"] == 0 and max_kkt_residual(qp.set_x0(x), out_i) < 1e-8
+
+
+def test_quadcopter_plant_matches_jax():
+    """The port's plant simulator (RK4 at the true mass) against JAX's, at
+    seeded states and controls: within 1e-12."""
+    sim, sim_j = models.quadcopter(2, 2, 6, device="cpu").simulate, \
+        jmodels.quadcopter(2, 2, 6).simulate
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        x = np.concatenate([0.05 * rng.standard_normal(3), 0.3 * rng.standard_normal(3)])
+        u = rng.uniform(-4.0, 4.0, 4)
+        np.testing.assert_allclose(sim(x, u), np.asarray(sim_j(x, u)), rtol=0, atol=1e-12)
+
+
+def test_closed_loop_reembedding_matches_jax():
+    """The chip smoke's MPC path, small: on the pruned quadcopter, the
+    port's closed loop through EliminatedTreeQP.set_x0 (each solution's
+    first control to the plant, the duals kept) against JAX's
+    closed_loop_mpc on the same tree without elimination (tdunes, warm
+    starts, no IPM bootstrap): every step status 0 with KKT < 1e-8 on the
+    eliminated problem, iterations within one, the applied controls within
+    U_TOL and the states within X_TOL."""
+    nsim = 5
+    qj, qp, _ = quadcopter_pruned()
+    model, model_j = models.quadcopter(2, 2, 6, device="cpu"), jmodels.quadcopter(2, 2, 6)
+    log = closed_loop_mpc(dataclasses.replace(model_j, qp=qj), "tdunes", nsim=nsim,
+                          opts=jtd.TdunesOpts(**{**OPTS, "chain_backend": "xla"}),
+                          ipm_bootstrap=False)
+    assert list(log.status) == [0] * nsim
+    opts, nu = td.TdunesOpts(**OPTS), qp.topo.nu[0]
+    x, lam = model.x0, None
+    el = qp.set_x0(x).eliminate_x0(keep_originals=True)
+    for k in range(nsim):
+        if k:
+            el = el.set_x0(x)
+        out = tdunes_solve(el.qp, lam, opts)
+        assert out.info["status"] == 0 and max_kkt_residual(el.qp, out) < 1e-8, k
+        assert abs(out.info["iter"] - int(log.iters[k])) <= 1, k
+        u0 = out.u[0, :nu].numpy()
+        assert np.max(np.abs(u0 - log.u[k])) <= U_TOL, k
+        x, lam = model.simulate(x, u0), out.lam
+        assert np.max(np.abs(x - log.x[k + 1])) <= X_TOL, k

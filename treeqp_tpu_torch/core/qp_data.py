@@ -306,25 +306,18 @@ class TreeQPIn:
                                             device=self.device)
         new_topo = TreeStructure.from_parent(topo.parent, (0,) + topo.nx[1:], topo.nu,
                                              topo.nc)
-        kids0 = torch.as_tensor(topo.kids[0], dtype=torch.long, device=self.device)
-        A0, b0 = self.A[kids0], self.b[kids0]
-        S0, r0, C0 = self.S[0], self.r[0], self.C[0]
-        dmin0, dmax0 = self.dmin[0], self.dmax[0]
-        f = {k: getattr(self, k).clone() for k in ("A", "b", "r", "S", "C", "Q", "q",
-                                                  "dmin", "dmax")}
-        f["b"][kids0] = b0 + torch.einsum("kij,j->ki", A0, x0)
-        f["A"][kids0] = 0.0
-        f["r"][0] = r0 + S0 @ x0
-        cshift = C0 @ x0
-        f["dmin"][0] = dmin0 - cshift
-        f["dmax"][0] = dmax0 - cshift
+        kids0 = tuple(int(k) for k in topo.kids[0])
+        idx = torch.as_tensor(kids0, dtype=torch.long, device=self.device)
+        # the originals of the folded fields; EliminatedTreeQP.set_x0 folds x0 in
+        f = {k: getattr(self, k).clone() for k in ("A", "S", "C", "Q", "q")}
+        f["A"][idx] = 0.0
         for k in ("S", "C", "Q", "q"):
             f[k][0] = 0.0
-        elim = self.replace(topo=new_topo, **f)
-        if not keep_originals:
-            return elim
-        return EliminatedTreeQP(qp=elim, A0=A0, b0=b0, S0=S0, r0=r0, C0=C0, dmin0=dmin0,
-                                dmax0=dmax0, kids0=tuple(int(k) for k in topo.kids[0]))
+        elim = EliminatedTreeQP(
+            qp=self.replace(topo=new_topo, **f), A0=self.A[idx], b0=self.b[idx],
+            S0=self.S[0], r0=self.r[0], C0=self.C[0], dmin0=self.dmin[0],
+            dmax0=self.dmax[0], kids0=kids0).set_x0(x0)
+        return elim if keep_originals else elim.qp
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,13 +10,15 @@ with the augmented matrix exponential (common/discretize_model.m). The
 spring-mass chain (numpy RK4), with the general constraint rows of the
 general C/D trees; the IPM's and sdunes' options of their benches. Model
 construction is host-side work: it runs in f64 on the CPU, and the
-returned QP is moved to the requested device at the end.
-The nonlinear plant simulators of the JAX version are not ported yet.
+returned QP is moved to the requested device at the end. The quadcopter
+comes with its nonlinear plant simulator (RK4, the true mass drawn from
+the seed); the crane and the linear chain are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -91,15 +93,28 @@ def discretize(A, B, Ts):
     return E[:nx, :nx], E[:nx, nx:]
 
 
+def rk4_step(rhs, x, u, Ts, substeps=1):
+    """RK4 integrator (common/integrate_RK4.m) for the plant simulator."""
+    h = Ts / substeps
+    for _ in range(substeps):
+        k1 = rhs(x, u)
+        k2 = rhs(x + h / 2 * k1, u)
+        k3 = rhs(x + h / 2 * k2, u)
+        k4 = rhs(x + h * k3, u)
+        x = x + h / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+    return x
+
+
 @dataclasses.dataclass
 class BenchmarkModel:
-    """A robust-MPC benchmark instance (the plant simulator is not ported)."""
+    """A robust-MPC benchmark instance: tree QP and nonlinear plant."""
 
     qp: TreeQPIn
     x0: np.ndarray
     xref: np.ndarray  # [NSIM, nx] reference trajectory
     weights: dict  # dQ, dR, dP diagonals (for online q/r updates)
     Ts: float
+    simulate: Callable  # (x, u) -> next x of the true plant (numpy, f64)
 
 
 def _quadcopter_rhs(par):
@@ -134,9 +149,11 @@ def quadcopter(md=4, Nr=4, Nh=20, x0=None, seed=0, device="cuda"):
     (initialize_quadcopter.m; md realizations linspace over the range).
 
     nx=6 (quaternion vector part + body rates), nu=4 (rotor speed deltas).
-    Same data as ``benchmarks.models.quadcopter`` for the same arguments.
-    The QP's tensors are made on ``device``: the card unless the caller
-    passes ``device="cpu"``.
+    Same data and plant as ``benchmarks.models.quadcopter`` for the same
+    arguments: ``simulate`` integrates the nonlinear model (RK4, 5 substeps,
+    f64 on the CPU) at the true mass, drawn from ``seed + 1``, with the
+    rotor speeds at hover plus the control. The QP's tensors are made on
+    ``device``: the card unless the caller passes ``device="cpu"``.
     """
     nx, nu = 6, 4
     masses = np.linspace(8.0, 12.0, md) if md > 1 else np.array([10.0])
@@ -170,9 +187,20 @@ def quadcopter(md=4, Nr=4, Nh=20, x0=None, seed=0, device="cuda"):
         topo, A, B, b, dQ=dQ, dq=np.zeros(nx), dP=dP, dp=np.zeros(nx),
         dR=dR, dr=np.zeros(nu), xmin=xmin, xmax=xmax,
         umin=-du * np.ones(nu), umax=du * np.ones(nu), x0=x0, device=device)
+
+    m_sim = float(np.random.default_rng(seed + 1).uniform(8.0, 12.0))
+    par_sim = _quadcopter_params(m_sim)
+    rhs_sim = _quadcopter_rhs(par_sim)
+    w_h = np.sqrt(2 * m_sim * par_sim["g"] / (par_sim["A"] * par_sim["Cl"] * par_sim["rho"]) / 4)
+
+    def simulate(x, u):
+        # plant input = hover speed + delta (MPC controls deltas around hover)
+        f64 = lambda v: torch.as_tensor(np.asarray(v, np.float64))
+        return rk4_step(rhs_sim, f64(x), f64(u) + w_h, par_sim["Ts"], 5).numpy()
+
     return BenchmarkModel(qp=qp, x0=np.asarray(x0), xref=np.zeros((1, nx)),
-                          weights=dict(dQ=dQ, dR=dR, dP=dP),
-                          Ts=_quadcopter_params()["Ts"])
+                          weights=dict(dQ=dQ, dR=dR, dP=dP), Ts=par_sim["Ts"],
+                          simulate=simulate)
 
 
 def pruned(qp, nscen, seed=0):
