@@ -26,8 +26,13 @@ Phases (any failure exits non-zero):
    crown_factor, crown_solve) on each of the three instances of section 5
    and on the general C/D tree of section 6 (the pruned tree's timed), at
    the cold start of the headline trees and two iterations into the
-   asymmetric tree's solve; and the general stage QPs' ADMM identification
-   (admm_identify) at the first cold stage solve of the general C/D
+   asymmetric tree's solve, with the two sweeps also timed (kernel, plain
+   twin, bound, library call, and kernel and library call in a CUDA graph)
+   on each split-path tree, chain_factor's library call
+   (``torch.linalg.cholesky_ex`` of each chain as one matrix), and the
+   sweeps held against their twins at the edges of their shared-memory
+   ring (S=5, L in 1, 2, 17, n in 1, 5, 6, 8, 16); and the general stage
+   QPs' ADMM identification (admm_identify) at the first cold stage solve of the general C/D
    headline (all 4437 nodes; timed) and of its mixed instance (its 1478
    general nodes), with the working sets it seeds held equal;
 3. the main paths on that instance, each certified by the KKT oracle
@@ -109,11 +114,12 @@ Phases (any failure exits non-zero):
    scripts/prof_torch_chain_cr.py (S=256, L=16, n=8 from that script's
    seed; the pruned tree's chain factors of section 5; sdunes' of section
    8, S=256, L=20, n=8) and at S=4, L=130, n=16 (buffers beyond shared
-   memory), timed at the pruned tree's shape beside the
-   library call (batched ``torch.linalg.solve_triangular`` on each chain's
-   factor as one matrix, also timed beside chain_solve_bwd and
-   chain_forward), then that script's loop of CR and serial pairs as their
-   path;
+   memory), with the serial sweeps timed at each as in section 2
+   (kernel, plain twin, bound, library call, and in a CUDA graph), timed at the pruned
+   tree's shape beside the library call (batched
+   ``torch.linalg.solve_triangular`` on each chain's factor as one matrix,
+   also timed beside chain_solve_bwd and chain_forward), then that
+   script's loop of CR and serial pairs as their path;
 10. the MPC re-embedding path (slice 8) on section 5's pruned tree at
    ``models.GENERIC_SPEED_OPTS``, along the closed loop of
    ``benchmarks/closed_loop.py`` (``closed_loop_mpc`` with tdunes, warm
@@ -261,6 +267,18 @@ def cuda_ms(torch, fn, reps):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, calls=20, reps=5):
+    """Median milliseconds a call of fn() takes on the card alone: ``calls``
+    calls captured in one CUDA graph, its replays timed by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(torch, g.replay, reps) / calls
 
 
 def compare(torch, name, got, ref, rtol):
@@ -432,20 +450,28 @@ def main():
     reg = opts.reg_value
     results = []
 
-    def record(name, source, replaces, err, fn, ref_fn, shapes, inputs, ops,
-               fp64=False, lib_fn=None):
-        """One kernel's line: its times (kernel, plain twin, the library
-        call if any) and its bound from this run's operands: the bytes of
-        ``inputs`` and of fn()'s outputs, each moved once, and ``ops``
-        operations at the FP32 (FP64 with ``fp64``) peak."""
+    def measure(fn, ref_fn, inputs, ops, fp64=False, lib_fn=None):
+        """A kernel's times (kernel, plain twin, the library call if any)
+        and its bound from this run's operands: the bytes of ``inputs`` and
+        of fn()'s outputs, each moved once, and ``ops`` operations at the
+        FP32 (FP64 with ``fp64``) peak."""
         moved = nbytes(torch, inputs, fn())
         t_bytes, t_ops = moved / PEAK_BYTES, ops / PEAK_FLOPS[fp64]
-        results.append(dict(
-            name=name, route="cuda", source=f"treeqp_tpu_torch/csrc/{source}",
-            replaces=replaces, max_abs_err=err, ms=cuda_ms(torch, fn, 50),
-            plain_ms=cuda_ms(torch, ref_fn, 5), bound_ms=max(t_bytes, t_ops) * 1e3,
+        return dict(
+            ms=cuda_ms(torch, fn, 50), plain_ms=cuda_ms(torch, ref_fn, 5),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None if lib_fn is None else cuda_ms(torch, lib_fn, 50),
+            moved=moved)
+
+    def record(name, source, replaces, err, fn, ref_fn, shapes, inputs, ops,
+               fp64=False, lib_fn=None):
+        """One kernel's line of the JSON summary (see ``measure``)."""
+        m = measure(fn, ref_fn, inputs, ops, fp64, lib_fn)
+        moved = m.pop("moved")
+        results.append(dict(
+            name=name, route="cuda", source=f"treeqp_tpu_torch/csrc/{source}",
+            replaces=replaces, max_abs_err=err, **m,
             shapes=f"{shapes}; {moved} B, {ops:.4g} {'FP64' if fp64 else 'FP32'} ops"))
 
     def crown_ops(sched, factor, nz=None):
@@ -828,18 +854,101 @@ def main():
                   float((unrev(fwd()) - ck.chain_forward_ref(Ls, CUs, ys, droot)).abs().max()))
         return bwd, fwd, err
 
-    Ls_g, CUs_g, rch_g = checks["pruned"]["chain_solve_bwd"][7]
-    ys_g, droot_g = checks["pruned"]["chain_forward"][7][2:]
-    lib_bwd, lib_fwd, lib_err = sweep_library(Ls_g, CUs_g, rch_g, ys_g, droot_g)
-    lib_fns = {"chain_solve_bwd": lib_bwd, "chain_forward": lib_fwd}
+    def factor_library(Wc, Utc):
+        """The library call of chain_factor on these operands:
+        torch.linalg.cholesky_ex of each chain's blocks as one [L n, L n]
+        matrix in chain_matrix's reversed block order (Wc_{L-1-k} on the
+        diagonal, Utc_{L-k} and its transpose beside it), whose factor holds
+        Ls and CUs_1 .. CUs_{L-1} (CUs_0 and schur0 couple the chain to the
+        crown, outside the matrix); and its distance to the twin's blocks."""
+        S, L, n, _ = Wc.shape
+        M = torch.zeros((S, L * n, L * n), dtype=Wc.dtype, device=Wc.device)
+        for k in range(L):
+            M[:, k * n:(k + 1) * n, k * n:(k + 1) * n] = Wc[:, L - 1 - k]
+            if k:
+                M[:, k * n:(k + 1) * n, (k - 1) * n:k * n] = Utc[:, L - k]
+                M[:, (k - 1) * n:k * n, k * n:(k + 1) * n] = Utc[:, L - k].mT
+        chol = lambda: torch.linalg.cholesky_ex(M).L
+        if int(torch.linalg.cholesky_ex(M).info.abs().max()):
+            fail("chain_factor's library call: the chain matrix is not positive definite")
+        Ls, CUs, _ = ck.chain_factor_ref(Wc, Utc)
+        return chol, float((chol() - chain_matrix(Ls, CUs)).abs().max())
+
+    # the sweeps on every tree they are held on: kernel, plain twin, bound
+    # and library call (the pruned tree's in the JSON summary)
+    sweep_times = {}
+    for tag, c in checks.items():
+        if "chain_solve_bwd" not in c:
+            continue
+        Ls_t, CUs_t, rch_t = c["chain_solve_bwd"][7]
+        ys_t, droot_t = c["chain_forward"][7][2:]
+        lb, lf, le = sweep_library(Ls_t, CUs_t, rch_t, ys_t, droot_t)
+        for name, lib_fn in (("chain_solve_bwd", lb), ("chain_forward", lf)):
+            _, _, _, err, fn, ref_fn, shapes, inputs, ops = c[name]
+            m = sweep_times[tag, name] = measure(fn, ref_fn, inputs, ops, lib_fn=lib_fn)
+            m["lib"], m["lib_err"] = lib_fn, le
+            print(f"sweep {name} ({tag}, {shapes}, Ls {tuple(Ls_t.shape)}): kernel "
+                  f"{m['ms']:.4f} ms, plain twin {m['plain_ms']:.4f} ms, bound "
+                  f"{m['bound_ms']:.6f} ms ({m['bound_by']}), library call (solve_triangular) "
+                  f"{m['library_ms']:.4f} ms (|diff| {le:.3e}); in a CUDA graph (the card's "
+                  f"time, no host launch) kernel {graph_ms(torch, fn):.4f} ms, library call "
+                  f"{graph_ms(torch, lib_fn):.4f} ms; |diff| to the twin {err:.3e} on {card}")
+
+    def sweep_others(name):
+        return "".join(
+            f"; {tag}: {m['ms']:.4f} / {m['plain_ms']:.4f} / {m['bound_ms']:.6f} / "
+            f"{m['library_ms']:.4f} ms"
+            for (tag, k), m in sweep_times.items() if k == name and tag != "pruned")
+
+    Ls_g, CUs_g = checks["pruned"]["chain_solve_bwd"][7][:2]
+    lib_fns = {"chain_solve_bwd": sweep_times["pruned", "chain_solve_bwd"],
+               "chain_forward": sweep_times["pruned", "chain_forward"]}
+    Wc_g, Utc_g = checks["pruned"]["chain_factor"][7]
+    chol_g, chol_err = factor_library(Wc_g, Utc_g)
     for name, source, replaces, _, fn, ref_fn, shapes, inputs, ops in checks["pruned"].values():
         errs = {tag: c[name][3] for tag, c in checks.items() if name in c}
-        lib = (f"; the library call (solve_triangular) |diff| {lib_err:.3e}"
-               if name in lib_fns else "")
+        lib, lib_fn = "", None
+        if name in lib_fns:
+            lib = (f"; the library call (solve_triangular) |diff| "
+                   f"{lib_fns[name]['lib_err']:.3e}; kernel / plain / bound / library on the "
+                   f"other trees{sweep_others(name)}")
+            lib_fn = lib_fns[name]["lib"]
+        elif name == "chain_factor":
+            lib = f"; the library call (cholesky_ex) |diff| to Ls, CUs_1.. {chol_err:.3e}"
+            lib_fn = chol_g
         record(name, source, replaces, max(errs.values()), fn, ref_fn,
                f"{shapes}; max |diff| "
-               + ", ".join(f"{tag} {e:.3e}" for tag, e in errs.items()) + lib, inputs, ops,
-               lib_fn=lib_fns.get(name))
+               + ", ".join(f"{tag} {e:.3e}" for tag, e in errs.items()) + lib,
+               inputs, ops, lib_fn=lib_fn)
+
+    # the ring of the sweep kernels at its edges: chains shorter than, as
+    # long as and longer than the ring, odd n (4-byte copies) and even n
+    # (16-byte copies), and a chain count that fills no group of chains a
+    # block, on seeded blocks built as tests/test_torch_chain_sweeps.py
+    # builds them
+    edge_rng = np.random.default_rng(0)
+    edge_err = 0.0
+    for L_e in (1, 2, 17):
+        for n_e in (1, 5, 6, 8, 16):
+            A_e = edge_rng.standard_normal((5, L_e, n_e, n_e))
+            Wc_e = torch.tensor(A_e @ A_e.transpose(0, 1, 3, 2) + 3.0 * np.eye(n_e),
+                                dtype=torch.float32, device=dev)
+            Ut_e = torch.tensor(0.3 * edge_rng.standard_normal((5, L_e, n_e, n_e)),
+                                dtype=torch.float32, device=dev)
+            Ls_e, CUs_e, _ = ck.chain_factor_ref(Wc_e, Ut_e)
+            r_e = torch.tensor(edge_rng.standard_normal((5, L_e, n_e)),
+                               dtype=torch.float32, device=dev)
+            d_e = torch.tensor(edge_rng.standard_normal((5, n_e)),
+                               dtype=torch.float32, device=dev)
+            ys_e, radd_e = ck.chain_solve_bwd_ref(Ls_e, CUs_e, r_e)
+            got = [*ck.chain_solve_bwd(Ls_e, CUs_e, r_e),
+                   ck.chain_forward(Ls_e, CUs_e, ys_e, d_e)]
+            torch.cuda.synchronize()
+            edge_err = max(edge_err, compare(
+                torch, f"serial sweeps at S=5, L={L_e}, n={n_e}", got,
+                [ys_e, radd_e, ck.chain_forward_ref(Ls_e, CUs_e, ys_e, d_e)], SOLVE_RTOL))
+    print(f"serial sweeps at the ring's edges (S=5, L in (1, 2, 17), n in (1, 5, 6, 8, 16)): "
+          f"max |diff| to the twins {edge_err:.3e}")
 
     def admm_check(q, o, tag, lam):
         """admm_identify against its twin at a cold stage solve of q's
@@ -1882,17 +1991,35 @@ def main():
         torch.cuda.synchronize()
         cr_rows[tag]["pair"] = compare(torch, f"CR pair vs serial kernels ({tag})", got, ref,
                                        CR_PAIR_RTOL)
+        # the serial sweeps at this shape: kernel, plain twin, bound, library
+        # call, and kernel and library call in a CUDA graph
+        lb, lf, le = sweep_library(Ls_, CUs_, res_, ys_s, dr_)
+        serial = {}
+        for name, fn, ref_fn, inputs, lib_fn in (
+                ("chain_solve_bwd", lambda: ck.chain_solve_bwd(Ls_, CUs_, res_),
+                 lambda: ck.chain_solve_bwd_ref(Ls_, CUs_, res_), (Ls_, CUs_, res_), lb),
+                ("chain_forward", lambda: ck.chain_forward(Ls_, CUs_, ys_s, dr_),
+                 lambda: ck.chain_forward_ref(Ls_, CUs_, ys_s, dr_), (Ls_, CUs_, ys_s, dr_),
+                 lf)):
+            m = serial[name] = measure(fn, ref_fn, inputs, S_ * L_ * (3 * n_ * n_ + n_),
+                                       lib_fn=lib_fn)
+            print(f"sweep {name} ({tag}: S={S_} L={L_} n={n_}): kernel {m['ms']:.4f} ms, "
+                  f"plain twin {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.6f} ms "
+                  f"({m['bound_by']}), library call (solve_triangular) {m['library_ms']:.4f} ms "
+                  f"(|diff| {le:.3e}); in a CUDA graph kernel {graph_ms(torch, fn):.4f} ms, "
+                  f"library call {graph_ms(torch, lib_fn):.4f} ms on {card}")
         cr_rows[tag]["ms"] = {
             "pre": cuda_ms(torch, lambda: ccr.chain_cr_precompute(Ls_, CUs_), 20),
             "bwd": cuda_ms(torch, lambda: ccr.chain_solve_bwd_cr(Ls_, CUs_, Ab, res_), 20),
             "fwd": cuda_ms(torch, lambda: ccr.chain_forward_cr(Ls_, CUs_, Bf, ys_c, dr_), 20),
-            "serial": cuda_ms(torch, lambda: ck.chain_solve_bwd(Ls_, CUs_, res_), 20)
-            + cuda_ms(torch, lambda: ck.chain_forward(Ls_, CUs_, ys_s, dr_), 20)}
+            "sbwd": serial["chain_solve_bwd"]["ms"], "sfwd": serial["chain_forward"]["ms"]}
         c = cr_rows[tag]
         print(f"CR sweeps ({tag}: S={S_} L={L_} n={n_}): precompute {c['ms']['pre']:.4f} ms, "
-              f"bwd {c['ms']['bwd']:.4f}, fwd {c['ms']['fwd']:.4f} (serial pair "
-              f"{c['ms']['serial']:.4f}); |diff| to the twins {c['pre']:.3e} / {c['bwd']:.3e} / "
-              f"{c['fwd']:.3e}, CR pair vs serial kernels {c['pair']:.3e} (max |dl| "
+              f"bwd {c['ms']['bwd']:.4f}, fwd {c['ms']['fwd']:.4f} (serial bwd "
+              f"{c['ms']['sbwd']:.4f}, fwd {c['ms']['sfwd']:.4f}, pair "
+              f"{c['ms']['sbwd'] + c['ms']['sfwd']:.4f}); |diff| to the twins "
+              f"{c['pre']:.3e} / {c['bwd']:.3e} / {c['fwd']:.3e}, CR pair vs serial kernels "
+              f"{c['pair']:.3e} (max |dl| "
               f"{float(ref[2].abs().max()):.3e}) on {card}")
 
     # the JSON rows at the pruned tree's shape (rows 2 and 3's), the other

@@ -1,5 +1,5 @@
-// The two solve sweeps of the chain factors, one thread per chain: the
-// chain half of the generic tree Cholesky's split-path solve.
+// The two solve sweeps of the chain factors, a group of lanes per chain:
+// the chain half of the generic tree Cholesky's split-path solve.
 //
 // Replaces the Pallas kernels chain_solve_bwd and chain_forward of
 // treeqp_tpu/ops/chain_kernels.py (reached through
@@ -11,47 +11,277 @@
 //     crown parent right-hand side;
 //   chain_forward: dl_j = Ls_j^-T (ys_j - CUs_j' dl_{j-1}) for j = 0 .. L-1,
 //     from dl_{-1} = droot, the crown's direction at the chain's edge.
-// Between the two the crown is solved (crown_solve.cu). The per-chain
-// bodies are tq_chain.cuh's, which system_solve.cu runs as its phases 1
-// and 5.
+// Between the two the crown is solved (crown_solve.cu).
 //
-// What bounds it on the card: latency. Each sweep is L dependent n x n
-// triangular solves and products per thread (~2 L n^2 flops, ~1.2k at the
-// quadcopter's L = 16, n = 6) on S threads, and each launch moves only
-// the factors once (S L n^2 f32 each, 0.3 MB at 128 chains). The vectors
-// stay in the output buffers and registers.
+// What bounds it on the card: latency. A sweep is L dependent steps, each
+// an n x n triangular solve and product (n <= 16); a launch moves only the
+// factors once (S L n^2 f32 each, 0.3 MB at 128 chains). Design:
+// - A group of G lanes takes a chain: G = 8 for n <= 8, 16 for n <= 16, so
+//   32 / G chains a warp and one warp a block (128 chains of n = 6 take 32
+//   SMs). Lane i owns row i of the step's vector, in a register.
+// - The chain's blocks Ls_j, CUs_j and the step's vector are streamed
+//   through a ring of kStages stages of shared memory per chain with
+//   cp.async (16-byte copies, coalesced over the group's lanes, when n is
+//   even and the factors 16-byte aligned; 4-byte copies otherwise), up to
+//   kStages steps ahead of the step computed. The ring's depth is fixed,
+//   so any L runs; no chain is staged whole.
+// - The dependent arithmetic stays in registers and shuffles. Ls_j^-1 t:
+//   for k = 0 .. n-1 lane k divides by its diagonal, __shfl_sync
+//   broadcasts y_k, lanes i > k subtract L_ik y_k and every lane i adds
+//   CU_ik y_k to its row of the next step's CUs_j y. Ls_j^-T t: every lane
+//   holds the whole previous direction, so CUs_j' dp needs no shuffle, and
+//   for k = n-1 .. 0 lane k folds in the entries solved so far, divides,
+//   and __shfl_sync broadcasts z_k to every lane. A step thus costs n
+//   rounds of a division and a shuffle (~0.75 us at n = 6 on an H100).
+// - Each step's n outputs are written once, lane i to row i: n contiguous
+//   floats a chain and step.
+// Every sum runs in the order of tq_dense.cuh's ltrsv_inplace /
+// uttrsv_inplace and of tq_chain.cuh's per-thread bodies (which
+// system_solve.cu and newton_iter.cu keep), each product folded in by one
+// FMA as nvcc contracts those bodies, and the divisions are true
+// divisions: the results equal the thread-per-chain kernels' bit for bit.
+// No tensor cores: a step is a dependent triangular solve of n <= 16 rows,
+// where wgmma needs 64-row tiles and mma.sync would pad n = 6 to 16 with no
+// batch dimension inside a chain.
+//
+// TQ_SWEEP_WARPS, TQ_SWEEP_STAGES and TQ_SWEEP_LANES (0: G by n as above,
+// else that many lanes a chain) set the launch shape at compile time;
+// scripts/prof_torch_chain_sweeps.py times the alternatives. On an H100
+// two warps a block and 2-4 stages ran as fast as the defaults, and a
+// chain a warp (32 lanes) 1.3-1.6x slower at n <= 8.
 
-#include "tq_chain.cuh"
+#include <cstdint>
+
+#include "tq_dense.cuh"
+
+#ifndef TQ_SWEEP_WARPS
+#define TQ_SWEEP_WARPS 1
+#endif
+#ifndef TQ_SWEEP_STAGES
+#define TQ_SWEEP_STAGES 3
+#endif
+#ifndef TQ_SWEEP_LANES
+#define TQ_SWEEP_LANES 0
+#endif
 
 namespace {
 
-__global__ void chain_solve_bwd_kernel(
+constexpr int kWarps = TQ_SWEEP_WARPS;
+constexpr int kStages = TQ_SWEEP_STAGES;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's newest copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x / d for the lane whose quotient is broadcast (``own``), rounded as the
+// division rounds; d is the lane's own diagonal (1 past row n-1). A zero
+// (or any special) dividend sends the whole warp's division down its slow
+// path, so the other lanes divide d by d, and a zero x over a finite
+// nonzero d is answered by its signed zero without dividing.
+__device__ __forceinline__ float quotient(float x, float d, bool own) {
+  const bool zero = x == 0.f && d != 0.f && isfinite(d);
+  const float q = (own && !zero ? x : d) / d;
+  return zero ? __int_as_float((__float_as_int(x) ^ __float_as_int(d)) & 0x80000000) : q;
+}
+
+// A stage holds [Ls_j (n n) | CUs_j (n n) | v_j (n)], its stride rounded up
+// to 4 floats so that every stage starts 16-byte aligned.
+__host__ __device__ inline int stage_floats(int n) { return (2 * n * n + n + 3) & ~3; }
+
+// A chain's group of G lanes and its ring; a group past the last chain
+// reads the last chain's data and stores nothing.
+template <int G>
+struct Group {
+  int lane;     // the row of the step's vector this lane owns
+  int s;        // the chain
+  bool live;    // s < S
+  size_t nn;
+  float* ring;
+  const float* Lc;  // the chain's Ls, CUs and vector slices
+  const float* Cc;
+  const float* vc;
+
+  __device__ Group(float* smem, const float* Ls, const float* CUs, const float* v,
+                   int S, int L, int n) {
+    lane = threadIdx.x % G;
+    const int g = threadIdx.x / G;
+    s = blockIdx.x * (blockDim.x / G) + g;
+    live = s < S;
+    const size_t sl = live ? s : S - 1;
+    nn = (size_t)n * n;
+    ring = smem + (size_t)g * kStages * stage_floats(n);
+    Lc = Ls + sl * L * nn;
+    Cc = CUs + sl * L * nn;
+    vc = v + sl * L * n;
+  }
+
+  __device__ float* stage(int t, int n) const {
+    return ring + (t % kStages) * stage_floats(n);
+  }
+
+  // Copy node j's blocks and vector into the stage of step t (none past the
+  // last step), then close the thread's copy group.
+  __device__ void fetch(int t, int j, int L, int n, bool vec16) const {
+    if (t < L) {
+      float* st = stage(t, n);
+      const float* Lj = Lc + j * nn;
+      const float* Cj = Cc + j * nn;
+      if (vec16) {
+        for (int q = 4 * lane; q < (int)nn; q += 4 * G) {
+          cp_async16(st + q, Lj + q);
+          cp_async16(st + nn + q, Cj + q);
+        }
+      } else {
+        for (int e = lane; e < (int)nn; e += G) {
+          cp_async4(st + e, Lj + e);
+          cp_async4(st + nn + e, Cj + e);
+        }
+      }
+      if (lane < n) cp_async4(st + 2 * nn + lane, vc + (size_t)j * n + lane);
+    }
+    cp_async_commit();
+  }
+
+  // Step t's stage has landed and every lane of the group sees it.
+  __device__ void arrive() const {
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+  }
+};
+
+template <int G>
+__global__ void __launch_bounds__(32 * kWarps) chain_solve_bwd_kernel(
     const float* __restrict__ Ls, const float* __restrict__ CUs,
     const float* __restrict__ res, float* __restrict__ ys,
-    float* __restrict__ radd0, int S, int L, int n) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const size_t chain = (size_t)L * n * n;
-  const size_t vec = (size_t)L * n;
-  tq::chain_solve_bwd_one(Ls + s * chain, CUs + s * chain, res + s * vec,
-                          ys + s * vec, radd0 + (size_t)s * n, L, n);
+    float* __restrict__ radd0, int S, int L, int n, int vec16) {
+  constexpr int N = G < tq::kMaxN ? G : tq::kMaxN;  // rows a lane may own
+  extern __shared__ __align__(16) float smem[];
+  const Group<G> g(smem, Ls, CUs, res, S, L, n);
+  const int i = g.lane;
+  // step t works on node j = L-1-t
+  for (int t = 0; t < kStages; ++t) g.fetch(t, L - 1 - t, L, n, vec16);
+  float radd = 0.f;  // row i of CUs_{j+1} y_{j+1}
+  for (int t = 0; t < L; ++t) {
+    g.arrive();
+    const float* st = g.stage(t, n);
+    float Lrow[N], Crow[N];
+    float diag = 1.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const bool in = k < n && i < n;
+      Lrow[k] = in ? st[i * n + k] : 0.f;
+      Crow[k] = in ? st[g.nn + i * n + k] : 0.f;
+      if (in && k == i) diag = Lrow[k];
+    }
+    float acc = i < n ? st[2 * g.nn + i] - radd : 0.f;
+    __syncwarp();  // the stage is read: refill it kStages steps ahead
+    g.fetch(t + kStages, L - 1 - t - kStages, L, n, vec16);
+    float racc = 0.f, y = 0.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (k < n) {
+        const float yk = __shfl_sync(kFull, quotient(acc, diag, i == k), k, G);
+        if (i > k) acc = __fmaf_rn(-Lrow[k], yk, acc);
+        racc = __fmaf_rn(Crow[k], yk, racc);
+        if (i == k) y = yk;
+      }
+    }
+    radd = racc;
+    if (g.live && i < n) ys[((size_t)g.s * L + (L - 1 - t)) * n + i] = y;
+  }
+  if (g.live && i < n) radd0[(size_t)g.s * n + i] = radd;
 }
 
-__global__ void chain_forward_kernel(
+template <int G>
+__global__ void __launch_bounds__(32 * kWarps) chain_forward_kernel(
     const float* __restrict__ Ls, const float* __restrict__ CUs,
     const float* __restrict__ ys, const float* __restrict__ droot,
-    float* __restrict__ dls, int S, int L, int n) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const size_t chain = (size_t)L * n * n;
-  const size_t vec = (size_t)L * n;
-  for (size_t k = 0; k < vec; ++k) dls[s * vec + k] = ys[s * vec + k];
-  float dp[tq::kMaxN];
-  for (int i = 0; i < n; ++i) dp[i] = droot[(size_t)s * n + i];
-  tq::chain_forward_one(Ls + s * chain, CUs + s * chain, dls + s * vec, dp, L, n);
+    float* __restrict__ dls, int S, int L, int n, int vec16) {
+  constexpr int N = G < tq::kMaxN ? G : tq::kMaxN;  // rows a lane may own
+  extern __shared__ __align__(16) float smem[];
+  const Group<G> g(smem, Ls, CUs, ys, S, L, n);
+  const int i = g.lane;
+  for (int t = 0; t < kStages; ++t) g.fetch(t, t, L, n, vec16);
+  // the previous node's direction, every entry in every lane
+  float z[N];
+  const size_t sl = g.live ? g.s : S - 1;
+#pragma unroll
+  for (int k = 0; k < N; ++k) z[k] = k < n ? droot[sl * n + k] : 0.f;
+  for (int j = 0; j < L; ++j) {
+    g.arrive();
+    const float* st = g.stage(j, n);
+    float Lcol[N], Ccol[N];  // column i of Ls_j and of CUs_j
+    float diag = 1.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const bool in = k < n && i < n;
+      Lcol[k] = in ? st[k * n + i] : 0.f;
+      Ccol[k] = in ? st[g.nn + k * n + i] : 0.f;
+      if (in && k == i) diag = Lcol[k];
+    }
+    const float v = i < n ? st[2 * g.nn + i] : 0.f;
+    __syncwarp();
+    g.fetch(j + kStages, j + kStages, L, n, vec16);
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (k < n) acc = __fmaf_rn(Ccol[k], z[k], acc);
+    acc = v - acc;
+    float dl = 0.f;
+#pragma unroll
+    for (int k = N - 1; k >= 0; --k) {
+      if (k < n) {
+        float a = acc;
+#pragma unroll
+        for (int m = k + 1; m < N; ++m)
+          if (m < n) a = __fmaf_rn(-Lcol[m], z[m], a);
+        z[k] = __shfl_sync(kFull, quotient(a, diag, i == k), k, G);
+        if (i == k) dl = z[k];
+      }
+    }
+    if (g.live && i < n) dls[((size_t)g.s * L + j) * n + i] = dl;
+  }
 }
 
-constexpr int kThreads = 128;
+int lanes(int n) {
+  if (TQ_SWEEP_LANES) return TQ_SWEEP_LANES;
+  return n <= 8 ? 8 : 16;
+}
+
+struct Launch {
+  int G, blocks;
+  size_t shmem;
+  int vec16;
+};
+
+Launch launch_shape(const float* Ls, const float* CUs, int S, int n) {
+  Launch c;
+  c.G = lanes(n);
+  const int chains = kWarps * 32 / c.G;
+  c.blocks = (S + chains - 1) / chains;
+  c.shmem = (size_t)chains * kStages * stage_floats(n) * sizeof(float);
+  c.vec16 = n % 2 == 0 && (((uintptr_t)Ls | (uintptr_t)CUs) & 15) == 0;
+  return c;
+}
 
 }  // namespace
 
@@ -59,9 +289,18 @@ constexpr int kThreads = 128;
 extern "C" int tq_chain_solve_bwd(const float* Ls, const float* CUs,
                                   const float* res, float* ys, float* radd0,
                                   int S, int L, int n, void* stream) {
-  const int blocks = (S + kThreads - 1) / kThreads;
-  chain_solve_bwd_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      Ls, CUs, res, ys, radd0, S, L, n);
+  const Launch c = launch_shape(Ls, CUs, S, n);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define TQ_BWD(G_)                                                              \
+  chain_solve_bwd_kernel<G_><<<c.blocks, 32 * kWarps, c.shmem, st>>>(           \
+      Ls, CUs, res, ys, radd0, S, L, n, c.vec16)
+  switch (c.G) {
+    case 8: TQ_BWD(8); break;
+    case 16: TQ_BWD(16); break;
+    case 32: TQ_BWD(32); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TQ_BWD
   return (int)cudaGetLastError();
 }
 
@@ -69,8 +308,17 @@ extern "C" int tq_chain_solve_bwd(const float* Ls, const float* CUs,
 extern "C" int tq_chain_forward(const float* Ls, const float* CUs,
                                 const float* ys, const float* droot, float* dls,
                                 int S, int L, int n, void* stream) {
-  const int blocks = (S + kThreads - 1) / kThreads;
-  chain_forward_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      Ls, CUs, ys, droot, dls, S, L, n);
+  const Launch c = launch_shape(Ls, CUs, S, n);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define TQ_FWD(G_)                                                              \
+  chain_forward_kernel<G_><<<c.blocks, 32 * kWarps, c.shmem, st>>>(             \
+      Ls, CUs, ys, droot, dls, S, L, n, c.vec16)
+  switch (c.G) {
+    case 8: TQ_FWD(8); break;
+    case 16: TQ_FWD(16); break;
+    case 32: TQ_FWD(32); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TQ_FWD
   return (int)cudaGetLastError();
 }
