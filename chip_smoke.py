@@ -465,9 +465,10 @@ def main():
             moved=moved)
 
     def record(name, source, replaces, err, fn, ref_fn, shapes, inputs, ops,
-               fp64=False, lib_fn=None):
-        """One kernel's line of the JSON summary (see ``measure``)."""
-        m = measure(fn, ref_fn, inputs, ops, fp64, lib_fn)
+               fp64=False, lib_fn=None, m=None):
+        """One kernel's line of the JSON summary (see ``measure``); ``m``
+        is a measurement already taken on these operands, if any."""
+        m = dict(m or measure(fn, ref_fn, inputs, ops, fp64, lib_fn))
         moved = m.pop("moved")
         results.append(dict(
             name=name, route="cuda", source=f"treeqp_tpu_torch/csrc/{source}",
@@ -876,7 +877,7 @@ def main():
 
     # the sweeps on every tree they are held on: kernel, plain twin, bound
     # and library call (the pruned tree's in the JSON summary)
-    sweep_times = {}
+    sweep_times, sweep_lib_errs = {}, {}
     for tag, c in checks.items():
         if "chain_solve_bwd" not in c:
             continue
@@ -886,7 +887,7 @@ def main():
         for name, lib_fn in (("chain_solve_bwd", lb), ("chain_forward", lf)):
             _, _, _, err, fn, ref_fn, shapes, inputs, ops = c[name]
             m = sweep_times[tag, name] = measure(fn, ref_fn, inputs, ops, lib_fn=lib_fn)
-            m["lib"], m["lib_err"] = lib_fn, le
+            sweep_lib_errs[tag, name] = le
             print(f"sweep {name} ({tag}, {shapes}, Ls {tuple(Ls_t.shape)}): kernel "
                   f"{m['ms']:.4f} ms, plain twin {m['plain_ms']:.4f} ms, bound "
                   f"{m['bound_ms']:.6f} ms ({m['bound_by']}), library call (solve_triangular) "
@@ -901,31 +902,28 @@ def main():
             for (tag, k), m in sweep_times.items() if k == name and tag != "pruned")
 
     Ls_g, CUs_g = checks["pruned"]["chain_solve_bwd"][7][:2]
-    lib_fns = {"chain_solve_bwd": sweep_times["pruned", "chain_solve_bwd"],
-               "chain_forward": sweep_times["pruned", "chain_forward"]}
     Wc_g, Utc_g = checks["pruned"]["chain_factor"][7]
     chol_g, chol_err = factor_library(Wc_g, Utc_g)
     for name, source, replaces, _, fn, ref_fn, shapes, inputs, ops in checks["pruned"].values():
         errs = {tag: c[name][3] for tag, c in checks.items() if name in c}
         lib, lib_fn = "", None
-        if name in lib_fns:
+        if ("pruned", name) in sweep_times:
             lib = (f"; the library call (solve_triangular) |diff| "
-                   f"{lib_fns[name]['lib_err']:.3e}; kernel / plain / bound / library on the "
-                   f"other trees{sweep_others(name)}")
-            lib_fn = lib_fns[name]["lib"]
+                   f"{sweep_lib_errs['pruned', name]:.3e}; kernel / plain / bound / library "
+                   f"on the other trees{sweep_others(name)}")
         elif name == "chain_factor":
             lib = f"; the library call (cholesky_ex) |diff| to Ls, CUs_1.. {chol_err:.3e}"
             lib_fn = chol_g
         record(name, source, replaces, max(errs.values()), fn, ref_fn,
                f"{shapes}; max |diff| "
                + ", ".join(f"{tag} {e:.3e}" for tag, e in errs.items()) + lib,
-               inputs, ops, lib_fn=lib_fn)
+               inputs, ops, lib_fn=lib_fn, m=sweep_times.get(("pruned", name)))
 
     # the ring of the sweep kernels at its edges: chains shorter than, as
     # long as and longer than the ring, odd n (4-byte copies) and even n
     # (16-byte copies), and a chain count that fills no group of chains a
-    # block, on seeded blocks built as tests/test_torch_chain_sweeps.py
-    # builds them
+    # block, on seeded blocks built as tests/test_torch_chain_cr.py's
+    # blocks() builds them
     edge_rng = np.random.default_rng(0)
     edge_err = 0.0
     for L_e in (1, 2, 17):

@@ -1,33 +1,29 @@
 #!/usr/bin/env python3
-"""Launch shapes of the serial chain sweep kernels (``csrc/chain_sweeps.cu``)
-timed against each other on one card.
+"""The serial chain sweep kernels (``csrc/chain_sweeps.cu``) against
+another checkout's, on one card.
 
-    python3 scripts/prof_torch_chain_sweeps.py [--parent DIR] [--reps 50]
+    python3 scripts/prof_torch_chain_sweeps.py --parent DIR [--reps 50]
 
-Compiles ``chain_sweeps.cu`` once for each launch shape below (one nvcc
-each, all at once, with ``TQ_SWEEP_LANES`` / ``TQ_SWEEP_WARPS`` /
-``TQ_SWEEP_STAGES`` set) into ``build/treeqp_tpu_torch/sweep_variants/``
-and binds each library's ``tq_chain_solve_bwd`` / ``tq_chain_forward`` with
-ctypes. With ``--parent DIR`` the ``chain_sweeps.cu`` of another checkout's
-``treeqp_tpu_torch/csrc`` (DIR) is built and timed beside them as
-``parent``. Shapes: ``scripts/prof_torch_chain_cr.py``'s three (random
-S=256, L=16, n=8; the pruned quadcopter's first chain factors, S=128,
-L=16, n=6; sdunes' S=256, L=20, n=8), a long chain of the widest blocks
-(S=4, L=130, n=16) and an odd one (S=5, L=17, n=5: the 4-byte copies).
+DIR is another checkout of the repository (for example a ``git archive``
+of the parent commit). Its own ``treeqp_tpu_torch/ops/_build.py`` builds
+its kernel library into DIR/build; this checkout's ``_build`` builds this
+one's. Shapes: ``scripts/prof_torch_chain_cr.py``'s three (random S=256,
+L=16, n=8; the pruned quadcopter's first chain factors, S=128, L=16, n=6;
+sdunes' S=256, L=20, n=8), a long chain of the widest blocks (S=4, L=130,
+n=16) and an odd one (S=5, L=17, n=5: the 4-byte copies).
 
-For every library and shape: the backward and forward sweeps' ms a launch
-on the card alone (20 launches captured in a CUDA graph, the median of 10
-replays by CUDA events) and of one launch timed alone (the median of REPS,
-host launch included), their largest difference from the plain twins
-(held to 1e-4 relative, as ``chip_smoke.py`` holds them) and whether they
-equal the package's own build (and ``parent``) bit for bit. Needs
-CUDA and nvcc; imports nothing of JAX.
+For both libraries and every shape: the backward and forward sweeps' ms a
+launch on the card alone (20 launches captured in a CUDA graph, by
+``chip_smoke.graph_ms``) and of one launch timed alone (the median of
+REPS, host launch included, by ``chip_smoke.cuda_ms``), their largest
+difference from the plain twins (held to ``chip_smoke.SOLVE_RTOL``), and
+whether the two libraries' outputs are equal bit for bit. Exits non-zero
+if a launch fails or a result leaves the twins' tolerance. Needs CUDA and
+nvcc; imports nothing of JAX.
 """
 
 import argparse
-import ctypes
-import statistics
-import subprocess
+import importlib.util
 import sys
 from pathlib import Path
 
@@ -35,60 +31,24 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
+from chip_smoke import SOLVE_RTOL, cuda_ms, graph_ms  # noqa: E402
 from prof_common import card as card_name  # noqa: E402
 
-SOLVE_RTOL = 1e-4
-# name: (lanes a chain (0: 8 for n <= 8, else 16), warps a block, ring stages)
-VARIANTS = {
-    "lanes-by-n 1w 3st": (0, 1, 3),
-    "lanes-by-n 2w 3st": (0, 2, 3),
-    "lanes-by-n 1w 2st": (0, 1, 2),
-    "lanes-by-n 1w 4st": (0, 1, 4),
-    "chain-a-warp 1w 3st": (32, 1, 3),
-}
 
-
-def build(variants, parent):
-    """One shared library per variant (and the parent's source), compiled
-    in parallel; returns {name: path}."""
-    from treeqp_tpu_torch.ops import _build
-    out_dir = ROOT / "build" / "treeqp_tpu_torch" / "sweep_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    csrc = ROOT / "treeqp_tpu_torch" / "csrc"
-    jobs = {}
-    for name, (g, w, st) in variants.items():
-        tag = name.replace(" ", "_")
-        jobs[name] = (csrc, [f"-DTQ_SWEEP_LANES={g}", f"-DTQ_SWEEP_WARPS={w}",
-                             f"-DTQ_SWEEP_STAGES={st}"], out_dir / f"lib_{tag}.so")
-    if parent is not None:
-        jobs["parent"] = (Path(parent), [], out_dir / "lib_parent.so")
-    procs = {name: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *defs, "-I", str(src),
-         "-o", str(lib), str(src / "chain_sweeps.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name, (src, defs, lib) in jobs.items()}
-    for name, p in procs.items():
-        err = p.communicate()[1]
-        if p.returncode != 0:
-            sys.exit(f"nvcc failed for {name}:\n{err}")
-        for line in err.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  ptxas ({name}): {line.strip()}")
-    return {name: lib for name, (_, _, lib) in jobs.items()}
-
-
-def bind(path):
-    lib = ctypes.CDLL(str(path))
-    for fn in (lib.tq_chain_solve_bwd, lib.tq_chain_forward):
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+def parent_lib(parent):
+    """The kernel library of the checkout at ``parent``, built and bound
+    by that checkout's own ``_build``."""
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", Path(parent) / "treeqp_tpu_torch" / "ops" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.lib()
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", default=None,
-                    help="another checkout's treeqp_tpu_torch/csrc to time beside")
+    ap.add_argument("--parent", required=True,
+                    help="another checkout of the repository to compare with")
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
 
@@ -103,8 +63,7 @@ def main():
     print(card)
     dev = torch.device("cuda", 0)
     f32 = dict(dtype=torch.float32, device=dev)
-    libs = {name: bind(p) for name, p in build(VARIANTS, args.parent).items()}
-    libs["package"] = _build.lib()
+    libs = {"package": _build.lib(), "parent": parent_lib(args.parent)}
 
     ops = cr_shapes(torch, dev)
     rng = np.random.default_rng(2)
@@ -116,34 +75,10 @@ def main():
         ops[tag] = (Ls, CUs, torch.tensor(rng.standard_normal((S, L, n)), **f32),
                     torch.tensor(rng.standard_normal((S, n)), **f32))
 
-    def event_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-    def graph_ms(fn, calls=20):
-        """ms a launch takes on the card alone: ``calls`` launches in one
-        CUDA graph, replays timed by CUDA events."""
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(calls):
-                fn()
-        return event_ms(g.replay, 10) / calls
-
     for tag, (Ls, CUs, res, droot) in ops.items():
         S, L, n, _ = Ls.shape
         ys_r, radd_r = ck.chain_solve_bwd_ref(Ls, CUs, res)
         dls_r = ck.chain_forward_ref(Ls, CUs, ys_r, droot)
-        stream = lambda: torch.cuda.current_stream(dev).cuda_stream
         outs = {}
         for name, lib in libs.items():
             ys = torch.empty((S, L, n), **f32)
@@ -153,12 +88,12 @@ def main():
             def bwd():
                 _build.check(lib.tq_chain_solve_bwd(
                     Ls.data_ptr(), CUs.data_ptr(), res.data_ptr(), ys.data_ptr(),
-                    radd.data_ptr(), S, L, n, stream()), f"{name} bwd")
+                    radd.data_ptr(), S, L, n, _build.stream(dev)), f"{name} bwd")
 
             def fwd():
                 _build.check(lib.tq_chain_forward(
                     Ls.data_ptr(), CUs.data_ptr(), ys_r.data_ptr(), droot.data_ptr(),
-                    dls.data_ptr(), S, L, n, stream()), f"{name} fwd")
+                    dls.data_ptr(), S, L, n, _build.stream(dev)), f"{name} fwd")
             bwd()
             fwd()
             torch.cuda.synchronize()
@@ -169,16 +104,13 @@ def main():
                     sys.exit(f"{name} ({tag}): differs from the twin by {e:.3e}")
                 err = max(err, e)
             outs[name] = (ys.clone(), radd.clone(), dls.clone())
-            t_b, t_f = event_ms(bwd, args.reps), event_ms(fwd, args.reps)
-            g_b, g_f = graph_ms(bwd), graph_ms(fwd)
+            t_b, t_f = cuda_ms(torch, bwd, args.reps), cuda_ms(torch, fwd, args.reps)
+            g_b, g_f = graph_ms(torch, bwd), graph_ms(torch, fwd)
             print(f"{tag} (S={S}, L={L}, n={n}) {name}: bwd {g_b:.4f} ms, fwd {g_f:.4f} ms in "
                   f"a CUDA graph (one launch timed alone: {t_b:.4f} / {t_f:.4f} ms), max |diff| "
                   f"to the twins {err:.3e} on {card}")
-        for ref in ("package", "parent"):
-            if ref in outs:
-                same = [name for name, o in outs.items() if name != ref and all(
-                    torch.equal(a, b) for a, b in zip(o, outs[ref]))]
-                print(f"{tag}: bit for bit equal to {ref}: {', '.join(same) or 'none'}")
+        same = all(torch.equal(a, b) for a, b in zip(outs["package"], outs["parent"]))
+        print(f"{tag}: package bit for bit equal to parent: {same}")
 
 
 if __name__ == "__main__":

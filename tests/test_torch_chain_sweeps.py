@@ -1,13 +1,11 @@
-"""PyTorch port, the serial chain solve sweeps at the edges of the card's
-kernels (csrc/chain_sweeps.cu: a group of lanes a chain, the factor blocks
-streamed through a shared-memory ring of fixed depth): the plain twins
-chain_solve_bwd_ref and chain_forward_ref against the JAX package's
-Pallas chain_solve_bwd and chain_forward (interpret mode) at chain lengths
-L shorter than, equal to and longer than the ring, state dims n from 1 to
-the largest the kernels take, odd n (the ring's 4-byte copies) and even n
-(its 16-byte copies), and a chain count S that is a multiple of no group
-of chains a block. On the card chip_smoke.py holds the kernels against
-these twins."""
+"""PyTorch port, the plain twins of the serial chain solve sweeps
+(chain_solve_bwd_ref, chain_forward_ref) against the JAX package's Pallas
+chain_solve_bwd and chain_forward (interpret mode) at new chain lengths
+and state dims: L in (1, 2, 17), n in (1, 6, 8, 16), on five chains.
+Both sides sweep the port's chain_factor twin's factors of
+tests/test_torch_chain_cr.py's seeded blocks. The twins have no shared-memory
+ring and no lane groups: chip_smoke.py holds the card's kernels against
+these twins at the ring's edges."""
 
 import functools
 
@@ -18,50 +16,35 @@ import torch
 
 from treeqp_tpu.ops import chain_kernels as jck
 
+from test_torch_chain_cr import blocks, rhs
 from test_torch_chain_kernels import assert_close
 from test_torch_generic_kernels import SOLVE_RTOL, lanes, t32
 from treeqp_tpu_torch.ops import chain_kernels as ck
 
-torch.set_num_threads(1)
-
-S = 5  # 8 or 16 lanes a chain: 4 or 2 chains a warp; 5 is a multiple of neither
-
-
-def factors(L, n, seed=0):
-    """Seeded chain blocks W = A A' + 3 I, Ut = 0.3 N (tests/test_chain_cr.py's)
-    through the port's chain_factor twin, as numpy f32 [S, L, n, n], and
-    the same factors in the Pallas kernels' lane layout [L, n, n, 128]
-    (identity blocks on the padded lanes, as jck.chain_factor pads)."""
-    rng = np.random.default_rng(seed)
-    A = rng.standard_normal((S, L, n, n))
-    Wc = (A @ A.transpose(0, 1, 3, 2) + 3.0 * np.eye(n)).astype(np.float32)
-    Utc = (0.3 * rng.standard_normal((S, L, n, n))).astype(np.float32)
-    Ls, CUs, _ = ck.chain_factor_ref(torch.tensor(Wc), torch.tensor(Utc))
-    Ls, CUs = Ls.numpy(), CUs.numpy()
-    pad = np.zeros((L, n, n, 128), np.float32)
-    pad[..., S:] = np.eye(n, dtype=np.float32)[None, :, :, None]
-    Lt = pad.copy()
-    Lt[..., :S] = Ls.transpose(1, 2, 3, 0)
-    CUt = np.zeros_like(pad)
-    CUt[..., :S] = CUs.transpose(1, 2, 3, 0)
-    return Ls, CUs, jnp.asarray(Lt), jnp.asarray(CUt)
-
-
-def rhs(L, n):
-    rng = np.random.default_rng(1)
-    return (rng.standard_normal((S, L, n)).astype(np.float32),
-            rng.standard_normal((S, n)).astype(np.float32))
-
+S = 5
 
 EDGES = [(L, n) for L in (1, 2, 17) for n in (1, 6, 8, 16)]
+
+
+def lane_layout(x):
+    """Port factors [S, L, n, n] -> the Pallas kernels' lane layout
+    [L, n, n, 128], identity blocks on the padded lanes as jck.chain_factor
+    pads them."""
+    n = x.shape[-1]
+    out = np.zeros((*x.shape[1:], 128), np.float32)
+    out[..., S:] = np.eye(n, dtype=np.float32)[None, :, :, None]
+    out[..., :S] = x.numpy().transpose(1, 2, 3, 0)
+    return jnp.asarray(out)
 
 
 @functools.lru_cache(maxsize=None)
 def pallas_bwd(L, n):
     """The operands at (L, n) and the Pallas backward sweep on them (both
     tests of a shape read it; interpreting the kernel dominates)."""
-    Ls, CUs, Lt, CUt = factors(L, n)
-    res, droot = rhs(L, n)
+    Wc, Utc = blocks(S, L, n)
+    Ls, CUs, _ = ck.chain_factor_ref(torch.tensor(Wc), torch.tensor(Utc))
+    Lt, CUt = lane_layout(Ls), lane_layout(CUs)
+    res, droot = rhs(S, L, n)
     jys, jradd0 = jck.chain_solve_bwd(Lt, CUt, jnp.asarray(res))
     return Ls, CUs, Lt, CUt, res, droot, jys, jradd0
 
@@ -69,7 +52,7 @@ def pallas_bwd(L, n):
 @pytest.mark.parametrize("L,n", EDGES)
 def test_chain_solve_bwd_twin_matches_pallas(L, n):
     Ls, CUs, _, _, res, _, jys, jradd0 = pallas_bwd(L, n)
-    ys, radd0 = ck.chain_solve_bwd_ref(t32(Ls), t32(CUs), t32(res))
+    ys, radd0 = ck.chain_solve_bwd_ref(Ls, CUs, t32(res))
     assert ys.shape == (S, L, n) and radd0.shape == (S, n)
     assert_close(ys, lanes(jys, S), SOLVE_RTOL, "ys")
     assert_close(radd0, jradd0, SOLVE_RTOL, "radd0")
@@ -80,6 +63,6 @@ def test_chain_forward_twin_matches_pallas(L, n):
     """The forward sweep from the Pallas backward sweep's ys, on both sides."""
     Ls, CUs, Lt, CUt, _, droot, jys, _ = pallas_bwd(L, n)
     jdls = jck.chain_forward(Lt, CUt, jys, jnp.asarray(droot))
-    dls = ck.chain_forward_ref(t32(Ls), t32(CUs), t32(lanes(jys, S)), t32(droot))
+    dls = ck.chain_forward_ref(Ls, CUs, t32(lanes(jys, S)), t32(droot))
     assert dls.shape == (S, L, n)
     assert_close(dls, jdls, SOLVE_RTOL, "dls")

@@ -44,30 +44,18 @@
 // where wgmma needs 64-row tiles and mma.sync would pad n = 6 to 16 with no
 // batch dimension inside a chain.
 //
-// TQ_SWEEP_WARPS, TQ_SWEEP_STAGES and TQ_SWEEP_LANES (0: G by n as above,
-// else that many lanes a chain) set the launch shape at compile time;
-// scripts/prof_torch_chain_sweeps.py times the alternatives. On an H100
-// two warps a block and 2-4 stages ran as fast as the defaults, and a
+// The launch shape is fixed: 8 or 16 lanes a chain, one warp a block, three
+// stages. On an H100 two warps a block and 2-4 stages ran as fast, and a
 // chain a warp (32 lanes) 1.3-1.6x slower at n <= 8.
 
 #include <cstdint>
 
 #include "tq_dense.cuh"
 
-#ifndef TQ_SWEEP_WARPS
-#define TQ_SWEEP_WARPS 1
-#endif
-#ifndef TQ_SWEEP_STAGES
-#define TQ_SWEEP_STAGES 3
-#endif
-#ifndef TQ_SWEEP_LANES
-#define TQ_SWEEP_LANES 0
-#endif
-
 namespace {
 
-constexpr int kWarps = TQ_SWEEP_WARPS;
-constexpr int kStages = TQ_SWEEP_STAGES;
+constexpr int kWarps = 1;
+constexpr int kStages = 3;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -262,11 +250,6 @@ __global__ void __launch_bounds__(32 * kWarps) chain_forward_kernel(
   }
 }
 
-int lanes(int n) {
-  if (TQ_SWEEP_LANES) return TQ_SWEEP_LANES;
-  return n <= 8 ? 8 : 16;
-}
-
 struct Launch {
   int G, blocks;
   size_t shmem;
@@ -275,7 +258,7 @@ struct Launch {
 
 Launch launch_shape(const float* Ls, const float* CUs, int S, int n) {
   Launch c;
-  c.G = lanes(n);
+  c.G = n <= 8 ? 8 : 16;
   const int chains = kWarps * 32 / c.G;
   c.blocks = (S + chains - 1) / chains;
   c.shmem = (size_t)chains * kStages * stage_floats(n) * sizeof(float);
@@ -294,12 +277,10 @@ extern "C" int tq_chain_solve_bwd(const float* Ls, const float* CUs,
 #define TQ_BWD(G_)                                                              \
   chain_solve_bwd_kernel<G_><<<c.blocks, 32 * kWarps, c.shmem, st>>>(           \
       Ls, CUs, res, ys, radd0, S, L, n, c.vec16)
-  switch (c.G) {
-    case 8: TQ_BWD(8); break;
-    case 16: TQ_BWD(16); break;
-    case 32: TQ_BWD(32); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (c.G == 8)
+    TQ_BWD(8);
+  else
+    TQ_BWD(16);
 #undef TQ_BWD
   return (int)cudaGetLastError();
 }
@@ -313,12 +294,10 @@ extern "C" int tq_chain_forward(const float* Ls, const float* CUs,
 #define TQ_FWD(G_)                                                              \
   chain_forward_kernel<G_><<<c.blocks, 32 * kWarps, c.shmem, st>>>(             \
       Ls, CUs, ys, droot, dls, S, L, n, c.vec16)
-  switch (c.G) {
-    case 8: TQ_FWD(8); break;
-    case 16: TQ_FWD(16); break;
-    case 32: TQ_FWD(32); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (c.G == 8)
+    TQ_FWD(8);
+  else
+    TQ_FWD(16);
 #undef TQ_FWD
   return (int)cudaGetLastError();
 }
