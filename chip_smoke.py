@@ -201,6 +201,10 @@ TRIAL_MARGIN = 1e-4
 # the f64 Hessian action to 1e-12 relative
 BIT_EXACT = 0.0
 DF_RTOL = 1e-12
+# df_reduce_flat's edges: the one-block form up to 4096 values (the
+# kernel's G), then columns of 2, 16 and 512 values; their data's seed
+REDUCE_EDGES = (0, 1, 2, 3, 4095, 4096, 4097, 50000, 2 ** 20 + 3)
+REDUCE_SEED = 18
 # the generic-tree solver (models.GENERIC_SPEED_OPTS) on the headline tree
 # pruned to GEN_SCEN scenarios; KKT bar of the reference's per-MPC-step check
 GEN_SCEN = 128
@@ -298,6 +302,16 @@ def compare(torch, name, got, ref, rtol):
     return worst
 
 
+def bit_exact(torch, name, got, ref):
+    """compare() at BIT_EXACT, and every output's bits (the sign of a zero
+    too) equal to the twin's."""
+    err = compare(torch, name, got, ref, BIT_EXACT)
+    for g, r in zip(got, ref):
+        if not torch.equal(g.view(torch.int64), r.view(torch.int64)):
+            fail(f"{name}: kernel differs from its plain twin in the bits")
+    return err
+
+
 def compare_sets(torch, name, got, ref, keys, near=None):
     """Active-set outputs (Qinv or 0) bit for bit; ``near`` maps a key to a
     mask of components exempt from the check. Returns the count exempted."""
@@ -353,6 +367,21 @@ def trsm_ops(m, n):
 
 def syrk_ops(m, k):
     return 2 * m * m * k
+
+
+def chain_blocks_matrix(torch, Wc, Utc):
+    """Each chain's blocks Wc, Utc [S, L, n, n] as one symmetric [L n, L n]
+    matrix with the block order reversed (Wc_{L-1-k} on the diagonal,
+    Utc_{L-k} below it and its transpose above): the matrix whose Cholesky
+    factor holds chain_factor's Ls and CUs_1 .. CUs_{L-1}."""
+    S, L, n, _ = Wc.shape
+    M = torch.zeros((S, L * n, L * n), dtype=Wc.dtype, device=Wc.device)
+    for k in range(L):
+        M[:, k * n:(k + 1) * n, k * n:(k + 1) * n] = Wc[:, L - 1 - k]
+        if k:
+            M[:, k * n:(k + 1) * n, (k - 1) * n:k * n] = Utc[:, L - k]
+            M[:, (k - 1) * n:k * n, k * n:(k + 1) * n] = Utc[:, L - k].mT
+    return M
 
 
 def perturbed(qp, ms, fac):
@@ -697,12 +726,33 @@ def main():
     r_got = [dr.df_reduce_flat(fx), dr.df_reduce_flat(gx)]
     r_ref = [dr.df_reduce_flat_ref(fx), dr.df_reduce_flat_ref(gx)]
     torch.cuda.synchronize()
-    record("df_reduce_flat", "df_reduce.cu", "treeqp_tpu/ops/df_reduce.py:72",
-           compare(torch, "df_reduce_flat", r_got, r_ref, BIT_EXACT),
-           lambda: dr.df_reduce_flat(gx), lambda: dr.df_reduce_flat_ref(gx),
-           f"n {gx.numel()} (the dual value's: {fx.numel()}, "
-           f"{cuda_ms(torch, lambda: dr.df_reduce_flat(fx), 50):.4f} ms)",
-           gx, gx.numel(), fp64=True, lib_fn=lambda: torch.sum(gx))
+    err_r = bit_exact(torch, "df_reduce_flat", r_got, r_ref)
+    # and at the edges of its two levels (one block up to REDUCE_G values,
+    # then columns of 2, 16 and 512 values), on seeded data
+    red_rng = np.random.default_rng(REDUCE_SEED)
+    for n_r in REDUCE_EDGES:
+        x_r = torch.tensor(red_rng.standard_normal(n_r) * 10.0 ** red_rng.integers(-3, 4, n_r),
+                           dtype=torch.float64, device=dev)
+        err_r = max(err_r, bit_exact(torch, f"df_reduce_flat (n={n_r})",
+                                     [dr.df_reduce_flat(x_r)], [dr.df_reduce_flat_ref(x_r)]))
+    red = lambda: dr.df_reduce_flat(gx)
+    red_lib = lambda: torch.sum(gx)
+    m_red = measure(red, lambda: dr.df_reduce_flat_ref(gx), gx, gx.numel(), True, red_lib)
+    m_red.update(graph_ms=graph_ms(torch, red), library_graph_ms=graph_ms(torch, red_lib))
+    fx_alone = cuda_ms(torch, lambda: dr.df_reduce_flat(fx), 50)
+    fx_graph = graph_ms(torch, lambda: dr.df_reduce_flat(fx))
+    fx_lib = cuda_ms(torch, lambda: torch.sum(fx), 50)
+    fx_lib_graph = graph_ms(torch, lambda: torch.sum(fx))
+    print(f"df_reduce_flat (gx, n={gx.numel()}): kernel {m_red['ms']:.4f} ms alone, "
+          f"{m_red['graph_ms']:.4f} ms in a CUDA graph; torch.sum {m_red['library_ms']:.4f} / "
+          f"{m_red['library_graph_ms']:.4f} ms; (fx, n={fx.numel()}): kernel {fx_alone:.4f} / "
+          f"{fx_graph:.4f} ms, torch.sum {fx_lib:.4f} / {fx_lib_graph:.4f} ms; bit for bit the "
+          f"twin at n in {REDUCE_EDGES} on {card}")
+    record("df_reduce_flat", "df_reduce.cu", "treeqp_tpu/ops/df_reduce.py:72", err_r,
+           red, lambda: dr.df_reduce_flat_ref(gx),
+           f"n {gx.numel()} (the dual value's: {fx.numel()}, {fx_alone:.4f} ms, "
+           f"{fx_graph:.4f} ms in a graph); edges n in {REDUCE_EDGES} bit for bit",
+           gx, gx.numel(), fp64=True, m=m_red)
     # the generic-tree solver's tree-Cholesky kernels on each of its paths'
     # instances: the headline tree pruned to GEN_SCEN scenarios (split path;
     # timed) and the unpruned headline tree (split path, 256 chains) at their
@@ -855,25 +905,38 @@ def main():
                   float((unrev(fwd()) - ck.chain_forward_ref(Ls, CUs, ys, droot)).abs().max()))
         return bwd, fwd, err
 
-    def factor_library(Wc, Utc):
+    def factor_library(Wc, Utc, need_pd=True):
         """The library call of chain_factor on these operands:
         torch.linalg.cholesky_ex of each chain's blocks as one [L n, L n]
         matrix in chain_matrix's reversed block order (Wc_{L-1-k} on the
         diagonal, Utc_{L-k} and its transpose beside it), whose factor holds
         Ls and CUs_1 .. CUs_{L-1} (CUs_0 and schur0 couple the chain to the
-        crown, outside the matrix); and its distance to the twin's blocks."""
-        S, L, n, _ = Wc.shape
-        M = torch.zeros((S, L * n, L * n), dtype=Wc.dtype, device=Wc.device)
-        for k in range(L):
-            M[:, k * n:(k + 1) * n, k * n:(k + 1) * n] = Wc[:, L - 1 - k]
-            if k:
-                M[:, k * n:(k + 1) * n, (k - 1) * n:k * n] = Utc[:, L - k]
-                M[:, (k - 1) * n:k * n, k * n:(k + 1) * n] = Utc[:, L - k].mT
+        crown, outside the matrix); its distance to the twin's blocks; and
+        the count of chain matrices that are not positive definite (a
+        failure when ``need_pd``)."""
+        M = chain_blocks_matrix(torch, Wc, Utc)
         chol = lambda: torch.linalg.cholesky_ex(M).L
-        if int(torch.linalg.cholesky_ex(M).info.abs().max()):
+        bad = int((torch.linalg.cholesky_ex(M).info != 0).sum())
+        if bad and need_pd:
             fail("chain_factor's library call: the chain matrix is not positive definite")
         Ls, CUs, _ = ck.chain_factor_ref(Wc, Utc)
-        return chol, float((chol() - chain_matrix(Ls, CUs)).abs().max())
+        return chol, float((chol() - chain_matrix(Ls, CUs)).abs().max()), bad
+
+    def factor_times(tag, Wc, Utc):
+        """chain_factor on these operands: measure() with cholesky_ex as the
+        library call, and kernel and library call in a CUDA graph; printed."""
+        fn = lambda: ck.chain_factor(Wc, Utc)
+        chol, lib_err, bad = factor_library(Wc, Utc, need_pd=tag == "pruned")
+        m = measure(fn, lambda: ck.chain_factor_ref(Wc, Utc), (Wc, Utc),
+                    chain_factor_ops(Wc.shape), lib_fn=chol)
+        m.update(graph_ms=graph_ms(torch, fn), library_graph_ms=graph_ms(torch, chol))
+        print(f"chain_factor ({tag}, Wc {tuple(Wc.shape)}): kernel {m['ms']:.4f} ms alone, "
+              f"{m['graph_ms']:.4f} ms in a CUDA graph; cholesky_ex {m['library_ms']:.4f} / "
+              f"{m['library_graph_ms']:.4f} ms (|diff| to the twin's blocks {lib_err:.3e}, "
+              f"{bad} of {Wc.shape[0]} chain matrices not positive definite); "
+              f"plain twin {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.6f} ms "
+              f"({m['bound_by']}) on {card}")
+        return m, lib_err
 
     # the sweeps on every tree they are held on: kernel, plain twin, bound
     # and library call (the pruned tree's in the JSON summary)
@@ -887,13 +950,14 @@ def main():
         for name, lib_fn in (("chain_solve_bwd", lb), ("chain_forward", lf)):
             _, _, _, err, fn, ref_fn, shapes, inputs, ops = c[name]
             m = sweep_times[tag, name] = measure(fn, ref_fn, inputs, ops, lib_fn=lib_fn)
+            m.update(graph_ms=graph_ms(torch, fn), library_graph_ms=graph_ms(torch, lib_fn))
             sweep_lib_errs[tag, name] = le
             print(f"sweep {name} ({tag}, {shapes}, Ls {tuple(Ls_t.shape)}): kernel "
                   f"{m['ms']:.4f} ms, plain twin {m['plain_ms']:.4f} ms, bound "
                   f"{m['bound_ms']:.6f} ms ({m['bound_by']}), library call (solve_triangular) "
                   f"{m['library_ms']:.4f} ms (|diff| {le:.3e}); in a CUDA graph (the card's "
-                  f"time, no host launch) kernel {graph_ms(torch, fn):.4f} ms, library call "
-                  f"{graph_ms(torch, lib_fn):.4f} ms; |diff| to the twin {err:.3e} on {card}")
+                  f"time, no host launch) kernel {m['graph_ms']:.4f} ms, library call "
+                  f"{m['library_graph_ms']:.4f} ms; |diff| to the twin {err:.3e} on {card}")
 
     def sweep_others(name):
         return "".join(
@@ -902,8 +966,10 @@ def main():
             for (tag, k), m in sweep_times.items() if k == name and tag != "pruned")
 
     Ls_g, CUs_g = checks["pruned"]["chain_solve_bwd"][7][:2]
-    Wc_g, Utc_g = checks["pruned"]["chain_factor"][7]
-    chol_g, chol_err = factor_library(Wc_g, Utc_g)
+    # chain_factor on every split-path tree (the pruned tree's in the JSON)
+    factor_m = {tag: factor_times(tag, *c["chain_factor"][7])
+                for tag, c in checks.items() if "chain_factor" in c}
+    chol_err = factor_m["pruned"][1]
     for name, source, replaces, _, fn, ref_fn, shapes, inputs, ops in checks["pruned"].values():
         errs = {tag: c[name][3] for tag, c in checks.items() if name in c}
         lib, lib_fn = "", None
@@ -913,11 +979,11 @@ def main():
                    f"on the other trees{sweep_others(name)}")
         elif name == "chain_factor":
             lib = f"; the library call (cholesky_ex) |diff| to Ls, CUs_1.. {chol_err:.3e}"
-            lib_fn = chol_g
+        m = factor_m["pruned"][0] if name == "chain_factor" else sweep_times.get(("pruned", name))
         record(name, source, replaces, max(errs.values()), fn, ref_fn,
                f"{shapes}; max |diff| "
                + ", ".join(f"{tag} {e:.3e}" for tag, e in errs.items()) + lib,
-               inputs, ops, lib_fn=lib_fn, m=sweep_times.get(("pruned", name)))
+               inputs, ops, lib_fn=lib_fn, m=m)
 
     # the ring of the sweep kernels at its edges: chains shorter than, as
     # long as and longer than the ring, odd n (4-byte copies) and even n
@@ -925,7 +991,7 @@ def main():
     # block, on seeded blocks built as tests/test_torch_chain_cr.py's
     # blocks() builds them
     edge_rng = np.random.default_rng(0)
-    edge_err = 0.0
+    edge_err = cf_err = 0.0
     for L_e in (1, 2, 17):
         for n_e in (1, 5, 6, 8, 16):
             A_e = edge_rng.standard_normal((5, L_e, n_e, n_e))
@@ -933,7 +999,10 @@ def main():
                                 dtype=torch.float32, device=dev)
             Ut_e = torch.tensor(0.3 * edge_rng.standard_normal((5, L_e, n_e, n_e)),
                                 dtype=torch.float32, device=dev)
-            Ls_e, CUs_e, _ = ck.chain_factor_ref(Wc_e, Ut_e)
+            Ls_e, CUs_e, schur_e = ck.chain_factor_ref(Wc_e, Ut_e)
+            cf_err = max(cf_err, compare(torch, f"chain_factor at S=5, L={L_e}, n={n_e}",
+                                         ck.chain_factor(Wc_e, Ut_e), (Ls_e, CUs_e, schur_e),
+                                         FACTOR_RTOL))
             r_e = torch.tensor(edge_rng.standard_normal((5, L_e, n_e)),
                                dtype=torch.float32, device=dev)
             d_e = torch.tensor(edge_rng.standard_normal((5, n_e)),
@@ -945,8 +1014,19 @@ def main():
             edge_err = max(edge_err, compare(
                 torch, f"serial sweeps at S=5, L={L_e}, n={n_e}", got,
                 [ys_e, radd_e, ck.chain_forward_ref(Ls_e, CUs_e, ys_e, d_e)], SOLVE_RTOL))
+    # and chain_factor on a chain much longer than its ring, of the widest
+    # blocks it takes
+    A_e = edge_rng.standard_normal((4, 130, 16, 16))
+    Wc_e = torch.tensor(A_e @ A_e.transpose(0, 1, 3, 2) + 3.0 * np.eye(16),
+                        dtype=torch.float32, device=dev)
+    Ut_e = torch.tensor(0.3 * edge_rng.standard_normal((4, 130, 16, 16)),
+                        dtype=torch.float32, device=dev)
+    cf_err = max(cf_err, compare(torch, "chain_factor at S=4, L=130, n=16",
+                                 ck.chain_factor(Wc_e, Ut_e), ck.chain_factor_ref(Wc_e, Ut_e),
+                                 FACTOR_RTOL))
     print(f"serial sweeps at the ring's edges (S=5, L in (1, 2, 17), n in (1, 5, 6, 8, 16)): "
-          f"max |diff| to the twins {edge_err:.3e}")
+          f"max |diff| to the twins {edge_err:.3e}; chain_factor there and at S=4, L=130, "
+          f"n=16: {cf_err:.3e}")
 
     def admm_check(q, o, tag, lam):
         """admm_identify against its twin at a cold stage solve of q's
@@ -1711,6 +1791,7 @@ def main():
     (Wc, Ut), _ = calls["chain_factor"][c0]
     err_cf = compare(torch, "chain_factor (sdunes)", ck.chain_factor(Wc, Ut),
                      ck.chain_factor_ref(Wc, Ut), FACTOR_RTOL)
+    factor_times("sdunes", Wc, Ut)
     (Ls5, CUs5, r5), _ = calls["chain_full_solve_mat"][c0]
     (_, _, r1), _ = calls["chain_full_solve_mat"][c0 + 1]
     if r5.shape[-1] != 1 + nl or r1.shape[-1] != 1:

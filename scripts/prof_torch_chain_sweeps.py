@@ -1,25 +1,36 @@
 #!/usr/bin/env python3
-"""The serial chain sweep kernels (``csrc/chain_sweeps.cu``) against
-another checkout's, on one card.
+"""The serial chain kernels (``chain_factor``, ``csrc/chain_factor.cu``;
+the sweeps ``chain_solve_bwd`` and ``chain_forward``,
+``csrc/chain_sweeps.cu``) and ``df_reduce_flat`` (``csrc/df_reduce.cu``)
+against other checkouts', on one card.
 
-    python3 scripts/prof_torch_chain_sweeps.py --parent DIR [--reps 50]
+    python3 scripts/prof_torch_chain_sweeps.py --parent DIR [--parent DIR2 ...] [--reps 50]
 
-DIR is another checkout of the repository (for example a ``git archive``
-of the parent commit). Its own ``treeqp_tpu_torch/ops/_build.py`` builds
-its kernel library into DIR/build; this checkout's ``_build`` builds this
-one's. Shapes: ``scripts/prof_torch_chain_cr.py``'s three (random S=256,
+Each DIR is another checkout of the repository (for example a ``git
+archive`` of the parent commit), named by its directory's name. Its own
+``treeqp_tpu_torch/ops/_build.py`` builds its kernel library into
+DIR/build; this checkout's ``_build`` builds this one's ("package").
+Chain shapes: ``scripts/prof_torch_chain_cr.py``'s three (random S=256,
 L=16, n=8; the pruned quadcopter's first chain factors, S=128, L=16, n=6;
 sdunes' S=256, L=20, n=8), a long chain of the widest blocks (S=4, L=130,
-n=16) and an odd one (S=5, L=17, n=5: the 4-byte copies).
+n=16) and an odd one (S=5, L=17, n=5: the 4-byte copies); chain_factor
+runs on the blocks those factors were made from.
 
-For both libraries and every shape: the backward and forward sweeps' ms a
+For every library and chain shape: chain_factor's and the two sweeps' ms a
 launch on the card alone (20 launches captured in a CUDA graph, by
 ``chip_smoke.graph_ms``) and of one launch timed alone (the median of
-REPS, host launch included, by ``chip_smoke.cuda_ms``), their largest
-difference from the plain twins (held to ``chip_smoke.SOLVE_RTOL``), and
-whether the two libraries' outputs are equal bit for bit. Exits non-zero
-if a launch fails or a result leaves the twins' tolerance. Needs CUDA and
-nvcc; imports nothing of JAX.
+REPS, host launch included, by ``chip_smoke.cuda_ms``; the C function
+called directly, outputs allocated beforehand), their largest difference
+from the plain twins (held to ``chip_smoke.FACTOR_RTOL`` /
+``SOLVE_RTOL``), and whether each library's outputs (Ls, CUs, schur0; ys,
+radd0, dls) equal the package's bit for bit (``torch.equal``); per shape
+also ``torch.linalg.cholesky_ex``'s ms on each chain as one matrix
+(``chip_smoke.chain_blocks_matrix``), alone and in a graph. Then
+df_reduce_flat at n = 26,624 (the bench path's directional derivative) and
+n = 2^20 + 3, seeded: each library's ms alone and in a graph beside
+``torch.sum``'s, each result held bit for bit to the twin. Exits non-zero
+if a launch fails or a result leaves its tolerance. Needs CUDA and nvcc;
+imports nothing of JAX.
 """
 
 import argparse
@@ -31,8 +42,11 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
-from chip_smoke import SOLVE_RTOL, cuda_ms, graph_ms  # noqa: E402
+from chip_smoke import (FACTOR_RTOL, SOLVE_RTOL, chain_blocks_matrix, cuda_ms,  # noqa: E402
+                        graph_ms)
 from prof_common import card as card_name  # noqa: E402
+
+REDUCE_SIZES = (26624, 2 ** 20 + 3)
 
 
 def parent_lib(parent):
@@ -47,8 +61,8 @@ def parent_lib(parent):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", required=True,
-                    help="another checkout of the repository to compare with")
+    ap.add_argument("--parent", required=True, action="append",
+                    help="another checkout of the repository to compare with (repeatable)")
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
 
@@ -56,61 +70,122 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("prof_torch_chain_sweeps: needs a CUDA device")
+    from prof_torch_chain_cr import capture_calls
     from prof_torch_chain_cr import shapes as cr_shapes
     from treeqp_tpu_torch.ops import _build
     from treeqp_tpu_torch.ops import chain_kernels as ck
+    from treeqp_tpu_torch.ops import df_reduce as dr
     card = card_name()
     print(card)
     dev = torch.device("cuda", 0)
     f32 = dict(dtype=torch.float32, device=dev)
-    libs = {"package": _build.lib(), "parent": parent_lib(args.parent)}
+    libs = {"package": _build.lib(), **{Path(p).name: parent_lib(p) for p in args.parent}}
+    st = _build.stream(dev)
 
-    ops = cr_shapes(torch, dev)
+    def check(name, what, got, ref, rtol):
+        err = 0.0
+        for g, r in zip(got, ref):
+            e = float((g - r).abs().max())
+            if not e <= rtol * max(1.0, float(r.abs().max())):
+                sys.exit(f"{name} ({what}): differs from the twin by {e:.3e}")
+            err = max(err, e)
+        return err
+
+    # the factors, each with the blocks chain_factor made it from
+    ops = {}
+    calls = capture_calls(ck, ("chain_factor",),
+                          lambda: ops.update(cr_shapes(torch, dev)))["chain_factor"]
+    blocks = {tag: next(a for a, out in calls if out[0] is ops[tag][0]) for tag in ops}
     rng = np.random.default_rng(2)
     for tag, (S, L, n) in (("long", (4, 130, 16)), ("odd", (5, 17, 5))):
         A = rng.standard_normal((S, L, n, n))
         Wc = torch.tensor(A @ A.transpose(0, 1, 3, 2) + 3.0 * np.eye(n), **f32)
         Utc = torch.tensor(0.3 * rng.standard_normal((S, L, n, n)), **f32)
+        blocks[tag] = (Wc, Utc)
         Ls, CUs, _ = ck.chain_factor_ref(Wc, Utc)
         ops[tag] = (Ls, CUs, torch.tensor(rng.standard_normal((S, L, n)), **f32),
                     torch.tensor(rng.standard_normal((S, n)), **f32))
 
+    def timed(fn):
+        return graph_ms(torch, fn), cuda_ms(torch, fn, args.reps)
+
     for tag, (Ls, CUs, res, droot) in ops.items():
         S, L, n, _ = Ls.shape
+        Wc, Utc = blocks[tag]
+        f_ref = ck.chain_factor_ref(Wc, Utc)
         ys_r, radd_r = ck.chain_solve_bwd_ref(Ls, CUs, res)
         dls_r = ck.chain_forward_ref(Ls, CUs, ys_r, droot)
         outs = {}
         for name, lib in libs.items():
+            fac = (torch.empty((S, L, n, n), **f32), torch.empty((S, L, n, n), **f32),
+                   torch.empty((S, n, n), **f32))
             ys = torch.empty((S, L, n), **f32)
             radd = torch.empty((S, n), **f32)
             dls = torch.empty((S, L, n), **f32)
 
+            def factor():
+                _build.check(lib.tq_chain_factor(
+                    Wc.data_ptr(), Utc.data_ptr(), *(t.data_ptr() for t in fac), S, L, n, st),
+                    f"{name} factor")
+
             def bwd():
                 _build.check(lib.tq_chain_solve_bwd(
                     Ls.data_ptr(), CUs.data_ptr(), res.data_ptr(), ys.data_ptr(),
-                    radd.data_ptr(), S, L, n, _build.stream(dev)), f"{name} bwd")
+                    radd.data_ptr(), S, L, n, st), f"{name} bwd")
 
             def fwd():
                 _build.check(lib.tq_chain_forward(
                     Ls.data_ptr(), CUs.data_ptr(), ys_r.data_ptr(), droot.data_ptr(),
-                    dls.data_ptr(), S, L, n, _build.stream(dev)), f"{name} fwd")
+                    dls.data_ptr(), S, L, n, st), f"{name} fwd")
+            factor()
             bwd()
             fwd()
             torch.cuda.synchronize()
-            err = 0.0
-            for g, r in ((ys, ys_r), (radd, radd_r), (dls, dls_r)):
-                e = float((g - r).abs().max())
-                if not e <= SOLVE_RTOL * max(1.0, float(r.abs().max())):
-                    sys.exit(f"{name} ({tag}): differs from the twin by {e:.3e}")
-                err = max(err, e)
-            outs[name] = (ys.clone(), radd.clone(), dls.clone())
-            t_b, t_f = cuda_ms(torch, bwd, args.reps), cuda_ms(torch, fwd, args.reps)
-            g_b, g_f = graph_ms(torch, bwd), graph_ms(torch, fwd)
-            print(f"{tag} (S={S}, L={L}, n={n}) {name}: bwd {g_b:.4f} ms, fwd {g_f:.4f} ms in "
-                  f"a CUDA graph (one launch timed alone: {t_b:.4f} / {t_f:.4f} ms), max |diff| "
-                  f"to the twins {err:.3e} on {card}")
-        same = all(torch.equal(a, b) for a, b in zip(outs["package"], outs["parent"]))
-        print(f"{tag}: package bit for bit equal to parent: {same}")
+            e_f = check(name, f"{tag} factor", fac, f_ref, FACTOR_RTOL)
+            e_s = check(name, f"{tag} sweeps", (ys, radd, dls), (ys_r, radd_r, dls_r), SOLVE_RTOL)
+            outs[name] = [t.clone() for t in (*fac, ys, radd, dls)]
+            t_c, t_b, t_f = timed(factor), timed(bwd), timed(fwd)
+            print(f"{tag} (S={S}, L={L}, n={n}) {name}: chain_factor {t_c[0]:.4f} ms, bwd "
+                  f"{t_b[0]:.4f} ms, fwd {t_f[0]:.4f} ms in a CUDA graph (one launch timed "
+                  f"alone: {t_c[1]:.4f} / {t_b[1]:.4f} / {t_f[1]:.4f} ms), max |diff| to the "
+                  f"twins {e_f:.3e} (factor) / {e_s:.3e} (sweeps) on {card}")
+        M = chain_blocks_matrix(torch, Wc, Utc)
+        t_l = timed(lambda: torch.linalg.cholesky_ex(M).L)
+        print(f"{tag} (S={S}, L={L}, n={n}) cholesky_ex of each chain's [L n, L n] matrix: "
+              f"{t_l[0]:.4f} ms in a CUDA graph, {t_l[1]:.4f} ms alone on {card}")
+        for name in libs:
+            if name != "package":
+                same = [torch.equal(a, b) for a, b in zip(outs["package"], outs[name])]
+                print(f"{tag}: package bit for bit equal to {name}: chain_factor "
+                      f"{all(same[:3])} (Ls, CUs, schur0 {same[:3]}), sweeps {all(same[3:])}")
+
+    rng = np.random.default_rng(18)
+    for n in REDUCE_SIZES:
+        x = torch.tensor(rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, n),
+                         dtype=torch.float64, device=dev)
+        m = dr._padded_size(n)
+        ref = dr.df_reduce_flat_ref(x)
+        for name, lib in libs.items():
+            # the package's workspace (zero, left zero) or an older
+            # library's scratch (m / 2 values, or the two-launch form's
+            # partials), each its own
+            work = torch.zeros((max(m // 2, dr._KG + 1),), dtype=torch.float64, device=dev)
+            out = torch.empty((), dtype=torch.float64, device=dev)
+
+            def red():
+                _build.check(lib.tq_df_reduce(x.data_ptr(), n, m, work.data_ptr(),
+                                              out.data_ptr(), st), f"{name} df_reduce")
+            red()
+            torch.cuda.synchronize()
+            if not torch.equal(out.view(torch.int64), ref.view(torch.int64)):
+                sys.exit(f"{name} df_reduce (n={n}): {float(out)!r} is not the twin's "
+                         f"{float(ref)!r} bit for bit")
+            t_r = timed(red)
+            print(f"df_reduce_flat (n={n}) {name}: {t_r[0]:.4f} ms in a CUDA graph, "
+                  f"{t_r[1]:.4f} ms alone; bit for bit the twin on {card}")
+        t_s = timed(lambda: torch.sum(x))
+        print(f"df_reduce_flat (n={n}) torch.sum: {t_s[0]:.4f} ms in a CUDA graph, "
+              f"{t_s[1]:.4f} ms alone on {card}")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
-"""PyTorch port, the plain twins of the serial chain solve sweeps
-(chain_solve_bwd_ref, chain_forward_ref) against the JAX package's Pallas
-chain_solve_bwd and chain_forward (interpret mode) at new chain lengths
-and state dims: L in (1, 2, 17), n in (1, 6, 8, 16), on five chains.
-Both sides sweep the port's chain_factor twin's factors of
-tests/test_torch_chain_cr.py's seeded blocks. The twins have no shared-memory
-ring and no lane groups: chip_smoke.py holds the card's kernels against
-these twins at the ring's edges."""
+"""PyTorch port, the plain twins of the serial chain kernels against the
+JAX package's Pallas kernels (interpret mode) at new chain lengths and
+state dims: L in (1, 2, 17), n in (1, 6, 8, 16), on five chains of
+tests/test_torch_chain_cr.py's seeded blocks. The factor twin
+(chain_factor_ref) is held against the Pallas chain_factor on the blocks;
+the sweep twins (chain_solve_bwd_ref, chain_forward_ref) against the Pallas
+chain_solve_bwd and chain_forward, both sides sweeping the factor twin's
+factors. The twins have no shared-memory ring and no lane groups:
+chip_smoke.py holds the card's kernels against these twins at the ring's
+edges."""
 
 import functools
 
@@ -18,7 +20,7 @@ from treeqp_tpu.ops import chain_kernels as jck
 
 from test_torch_chain_cr import blocks, rhs
 from test_torch_chain_kernels import assert_close
-from test_torch_generic_kernels import SOLVE_RTOL, lanes, t32
+from test_torch_generic_kernels import FACTOR_RTOL, SOLVE_RTOL, lanes, t32
 from treeqp_tpu_torch.ops import chain_kernels as ck
 
 S = 5
@@ -47,6 +49,19 @@ def pallas_bwd(L, n):
     res, droot = rhs(S, L, n)
     jys, jradd0 = jck.chain_solve_bwd(Lt, CUt, jnp.asarray(res))
     return Ls, CUs, Lt, CUt, res, droot, jys, jradd0
+
+
+@pytest.mark.parametrize("L,n", EDGES)
+def test_chain_factor_twin_matches_pallas(L, n):
+    """The factor twin against the Pallas chain_factor (its factors moved
+    out of the lane layout) at 1e-5 x max(1, max|ref|)."""
+    Wc, Utc = blocks(S, L, n)
+    Ls, CUs, schur0 = ck.chain_factor_ref(torch.tensor(Wc), torch.tensor(Utc))
+    jLs, jCUs, jschur0 = jck.chain_factor(jnp.asarray(Wc), jnp.asarray(Utc))
+    assert Ls.shape == CUs.shape == (S, L, n, n) and schur0.shape == (S, n, n)
+    assert_close(Ls, lanes(jLs, S), FACTOR_RTOL, "Ls")
+    assert_close(CUs, lanes(jCUs, S), FACTOR_RTOL, "CUs")
+    assert_close(schur0, jschur0, FACTOR_RTOL, "schur0")
 
 
 @pytest.mark.parametrize("L,n", EDGES)

@@ -2,7 +2,8 @@
 ``df_reduce_flat`` (what the wrapper runs on CPU tensors) against an exactly
 rounded sum (``math.fsum``) and against the JAX package's double-float
 ``df_reduce_flat`` (Pallas interpret mode), on the inputs of
-tests/test_df_reduce.py."""
+tests/test_df_reduce.py; and a numpy emulation of the CUDA kernel's
+two-level order (csrc/df_reduce.cu) against the twin, bit for bit."""
 
 import math
 
@@ -70,3 +71,66 @@ def test_cpu_wrapper_runs_plain_twin():
     assert dr.df_reduce_flat.launches == 0
     with pytest.raises(ValueError, match="expected"):
         dr.df_reduce_flat(a.to("meta"))
+
+
+# the CUDA kernel's shape: kThreads threads a block, kCol values a thread
+# folds in registers, G = kThreads kCol partials (csrc/df_reduce.cu)
+K_THREADS, K_COL, K_G = 256, 16, 4096
+
+
+def halving(v):
+    """The halving folds of v along axis 0 (a power of two long) to one row."""
+    while v.shape[0] > 1:
+        h = v.shape[0] // 2
+        v = v[:h] + v[h:]
+    return v[0]
+
+
+def brev(q, bits):
+    return int(format(q, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def kernel_order(a, G):
+    """The kernel's sum of ``a`` with G partials: zero-pad to m; m <= G:
+    one block (its columns of stride min(m, kThreads) folded in registers,
+    then those); else column r of x[r + k G] (c = m / G values) folded by
+    halving for c <= kCol, else as the pairwise sum over bit-reversed k
+    (chunks of kCol consecutive positions, a halving fold each, combined in
+    order by a binary-counter stack), then the G partials as one block."""
+    m = dr._padded_size(a.size)
+    x = np.concatenate([a, np.zeros(m - a.size)])
+
+    def block(v):
+        W = min(v.size, K_THREADS)
+        return halving(halving(v.reshape(-1, W)))
+    if m <= G:
+        return block(x)
+    X = x.reshape(-1, G)  # row k: x[k G .. (k + 1) G)
+    c = X.shape[0]
+    if c <= K_COL:
+        return block(halving(X))
+    lq = c.bit_length() - 1 - (K_COL.bit_length() - 1)
+    stack, res = {}, None
+    for q in range(1 << lq):
+        s = halving(X[brev(q, lq) + (1 << lq) * np.arange(K_COL)])
+        lvl = 0
+        while (q >> lvl) & 1:
+            s = stack[lvl] + s
+            lvl += 1
+        stack[lvl] = res = s
+    return block(res)
+
+
+TWO_LEVEL = [(G, n) for G in (K_G, 256)
+             for n in (0, 1, 2, 3, 1000, G - 1, G, G + 1, 26624, 3 * 2 ** 17 + 5)]
+
+
+@pytest.mark.parametrize("G,n", TWO_LEVEL)
+def test_kernel_two_level_order_matches_twin(G, n):
+    """The order the kernel relies on: the halving folds of the columns of
+    stride G (bit-reversed pairwise for long columns), then of the G
+    partials, give the twin's sum bit for bit."""
+    a = cancelling(n, seed=n + G)
+    got = np.float64(kernel_order(a, G))
+    ref = dr.df_reduce_flat_ref(torch.tensor(a)).numpy()
+    assert got.view(np.int64) == ref.view(np.int64), (float(got), float(ref))

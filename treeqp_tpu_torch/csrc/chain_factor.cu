@@ -1,47 +1,238 @@
-// Banded backward block Cholesky of given chain blocks, one thread per
-// chain: the chain half of the generic tree Cholesky's split path.
+// Banded backward block Cholesky of given chain blocks, a group of lanes per
+// chain: the chain half of the generic tree Cholesky's split path, and the
+// banded per-scenario factor of sdunes.
 //
 // Replaces the Pallas kernel chain_factor of treeqp_tpu/ops/chain_kernels.py
 // (reached through tdunes_multistage._chain_factor from
 // tdunes._tree_chol_factor_split). Input: the equilibrated chain blocks
 // Wc [S, L, n, n] (the caller has added the LM shift reg I) and couplings
 // Utc [S, L, n, n], j = 0 the chain node next to the crown. Output, per
-// chain: Ls_j = chol(W_j - schur), CUs_j = Ut_j Ls_j^-T for j = L-1 .. 0
-// (schur = CUs_{j+1} CUs_{j+1}', pivot rule a_kk rsqrt(max(a_kk, 1e-8)) as
-// the Pallas _chol, no shift), and schur0 [S, n, n] = CUs_0 CUs_0', the
-// Schur block that flows into the crown. The backward loop is
-// tq::chain_factor_bwd (tq_chain.cuh), which chain_blocks_factor.cu runs
-// after its block build.
+// chain, for j = L-1 .. 0:
+//   Ls_j = chol(Wc_j - schur)  (pivot d = max(a_kk, 1e-8), column
+//          a rsqrt(d), diagonal a_kk rsqrt(d): the Pallas _chol, no shift),
+//   CUs_j = Utc_j Ls_j^-T      (true divisions),
+//   schur = CUs_j CUs_j',
+// and schur0 [S, n, n], the last schur: the Schur block that flows into the
+// crown.
 //
-// What bounds it on the card: latency. Each thread walks its chain's L
-// dependent n x n factorizations (~L (n^3/3 + n^3) flops, ~6k at the
-// quadcopter's L = 16, n = 6), so a launch is a few thousand dependent f32
-// operations long on S threads (128 chains at the pruned quadcopter(4,4,20):
-// one SM). The TPU kernel put 128 chains on the vector lanes; one thread per
-// chain is the natural mapping of this serial work on a GPU. The blocks are
-// copied into the output buffers and factored there (L1/L2 resident), so the
-// kernel needs no local arrays. A warp per chain is the next step.
+// What bounds it on the card: latency. A chain is L dependent steps, each a
+// factorization, a triangular solve and a product of n x n blocks (n <= 16:
+// ~600 flops at n = 6); a launch moves each block once (0.3 MB at the
+// pruned quadcopter's 128 chains of L = 16, n = 6). Design:
+// - A group of G lanes takes a chain: G = 8 for n <= 8, 16 for n <= 16, so
+//   32 / G chains a warp and one warp a block (128 chains of n = 6 take 32
+//   SMs). Lane i owns row i of the step's working block, in registers.
+// - The chain's blocks Wc_j, Utc_j stream through a ring of kStages stages
+//   of shared memory per chain with cp.async (16-byte copies, coalesced over
+//   the group's lanes, when n is even and the buffers 16-byte aligned; 4-byte
+//   copies otherwise), up to kStages steps ahead of the step computed. The
+//   ring's depth is fixed, so any L runs.
+// - Cholesky, right-looking: for k = 0 .. n-1 lane k's pivot is broadcast by
+//   __shfl_sync, every lane takes its rsqrt, lanes i >= k scale their entry,
+//   column k is broadcast by __shfl_sync and lanes i > k fold
+//   a_ij -= L_ik L_jk into their row by one FMA a product. Each element
+//   meets its products in ascending k, the order of the left-looking
+//   chol_inplace<false> (tq_dense.cuh).
+// - CUs_j = Utc_j Ls_j^-T: lane r runs row r's n true divisions against
+//   Ls_j's rows, read from shared memory. A zero dividend (sdunes' Utc_0 is
+//   all zero) would send the warp's division down its slow path, so it
+//   gets its signed zero without dividing.
+// - schur = CU CU': lane a forms row a from CU's rows in shared memory, each
+//   element summed over k ascending from 0.
+// - Ls_j and CUs_j are written once from shared memory, coalesced over the
+//   group (16-byte stores when the copies are); schur0 lane i row i.
+// Every sum keeps the order of the thread-per-chain body tq::chain_factor_bwd
+// (tq_chain.cuh) that this kernel ran until it was redesigned, each product
+// folded in by one FMA as nvcc contracts that body, with rsqrtf and true
+// divisions: the results are that kernel's bit for bit.
+// No tensor cores: a step is a dependent factorization of one n <= 16 block,
+// where wgmma needs 64-row tiles and mma.sync would pad n = 6 to 16 with no
+// batch dimension inside a chain.
+//
+// The launch shape is fixed: 8 or 16 lanes a chain, one warp a block, three
+// stages (the sweeps' of chain_sweeps.cu).
 
-#include "tq_chain.cuh"
+#include <cstdint>
+
+#include "tq_dense.cuh"
 
 namespace {
 
-__global__ void chain_factor_kernel(
-    const float* __restrict__ Wc, const float* __restrict__ Utc,
-    float* __restrict__ Ls, float* __restrict__ CUs, float* __restrict__ schur0,
-    int S, int L, int n) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const size_t nn = (size_t)n * n;
-  const size_t off = (size_t)s * L * nn;
-  for (size_t k = 0; k < L * nn; ++k) {
-    Ls[off + k] = Wc[off + k];
-    CUs[off + k] = Utc[off + k];
-  }
-  tq::chain_factor_bwd(Ls + off, CUs + off, schur0 + s * nn, L, n);
+constexpr int kStages = 3;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
 }
 
-constexpr int kThreads = 128;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's newest copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x / d rounded as the division rounds; a zero x over a finite nonzero d is
+// answered by its signed zero without dividing (the lane divides d by d).
+__device__ __forceinline__ float quotient(float x, float d) {
+  const bool zero = x == 0.f && d != 0.f && isfinite(d);
+  const float q = (zero ? d : x) / d;
+  return zero ? __int_as_float((__float_as_int(x) ^ __float_as_int(d)) & 0x80000000) : q;
+}
+
+// n n floats rounded up to 4, so that every area starts 16-byte aligned.
+__host__ __device__ inline int block_floats(int n) { return (n * n + 3) & ~3; }
+
+// A chain's shared memory: the ring of kStages stages [Wc_j | Utc_j], then
+// the step's Ls_j and CUs_j.
+__host__ __device__ inline int chain_floats(int n) {
+  return (2 * kStages + 2) * block_floats(n);
+}
+
+template <int G>
+__global__ void __launch_bounds__(32) chain_factor_kernel(
+    const float* __restrict__ Wc, const float* __restrict__ Utc,
+    float* __restrict__ Ls, float* __restrict__ CUs, float* __restrict__ schur0,
+    int S, int L, int n, int vec16) {
+  constexpr int N = G < tq::kMaxN ? G : tq::kMaxN;  // rows a lane may own
+  extern __shared__ __align__(16) float smem[];
+  const int i = threadIdx.x % G;
+  const int g = threadIdx.x / G;
+  const int s = blockIdx.x * (32 / G) + g;
+  const bool live = s < S;
+  const size_t nn = (size_t)n * n;
+  const int bf = block_floats(n);
+  const size_t chain = (size_t)(live ? s : S - 1) * L * nn;
+  float* ring = smem + (size_t)g * chain_floats(n);
+  float* sL = ring + 2 * kStages * bf;
+  float* sC = sL + bf;
+
+  // copy node j's blocks into the stage of step t (none past the last
+  // step), then close the thread's copy group
+  auto fetch = [&](int t) {
+    if (t < L) {
+      float* st = ring + (t % kStages) * 2 * bf;
+      const size_t off = chain + (size_t)(L - 1 - t) * nn;
+      if (vec16) {
+        for (int q = 4 * i; q < (int)nn; q += 4 * G) {
+          cp_async16(st + q, Wc + off + q);
+          cp_async16(st + bf + q, Utc + off + q);
+        }
+      } else {
+        for (int e = i; e < (int)nn; e += G) {
+          cp_async4(st + e, Wc + off + e);
+          cp_async4(st + bf + e, Utc + off + e);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int t = 0; t < kStages; ++t) fetch(t);
+  float sch[N];  // row i of the previous step's schur
+#pragma unroll
+  for (int k = 0; k < N; ++k) sch[k] = 0.f;
+  for (int t = 0; t < L; ++t) {
+    const int j = L - 1 - t;
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const float* st = ring + (t % kStages) * 2 * bf;
+    float a[N], u[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const bool in = k < n && i < n;
+      a[k] = in ? __fsub_rn(st[i * n + k], sch[k]) : 0.f;
+      // the pivot a_kk + 0 of chol_inplace<false> (a zero shift; -0 -> +0)
+      if (k == i) a[k] = __fadd_rn(a[k], 0.f);
+      u[k] = in ? st[bf + i * n + k] : 0.f;
+    }
+    __syncwarp();  // the stage is read: refill it kStages steps ahead
+    fetch(t + kStages);
+
+    // Ls_j = chol(a), right-looking
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (k < n) {
+        const float akk = __shfl_sync(kFull, a[k], k, G);
+        const float dinv = rsqrtf(fmaxf(akk, tq::kPivotFloor));
+        const float lik = __fmul_rn(a[k], dinv);
+        if (i >= k) a[k] = lik;
+#pragma unroll
+        for (int c = k + 1; c < N; ++c) {
+          if (c < n) {
+            const float lck = __shfl_sync(kFull, lik, c, G);
+            if (i >= c) a[c] = __fmaf_rn(-lik, lck, a[c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (k < n && i < n) sL[i * n + k] = k > i ? 0.f : a[k];
+    }
+    __syncwarp();
+
+    // CU = Ut Ls_j^-T, row i
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      if (c < n) {
+        float acc = u[c];
+#pragma unroll
+        for (int m = 0; m < c; ++m) acc = __fmaf_rn(-u[m], sL[c * n + m], acc);
+        u[c] = quotient(acc, sL[c * n + c]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (k < n && i < n) sC[i * n + k] = u[k];
+    }
+    __syncwarp();
+
+    // schur = CU CU', row i
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      if (c < n) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < N; ++k)
+          if (k < n) acc = __fmaf_rn(u[k], sC[c * n + k], acc);
+        sch[c] = acc;
+      }
+    }
+
+    // this step's blocks, once, coalesced over the group
+    if (live) {
+      const size_t off = chain + (size_t)j * nn;
+      if (vec16) {
+        for (int q = 4 * i; q < (int)nn; q += 4 * G) {
+          *reinterpret_cast<float4*>(Ls + off + q) = *reinterpret_cast<const float4*>(sL + q);
+          *reinterpret_cast<float4*>(CUs + off + q) = *reinterpret_cast<const float4*>(sC + q);
+        }
+      } else {
+        for (int e = i; e < (int)nn; e += G) {
+          Ls[off + e] = sL[e];
+          CUs[off + e] = sC[e];
+        }
+      }
+    }
+  }
+  if (live && i < n) {
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (k < n) schur0[(size_t)s * nn + i * n + k] = sch[k];
+  }
+}
 
 }  // namespace
 
@@ -49,8 +240,18 @@ constexpr int kThreads = 128;
 extern "C" int tq_chain_factor(const float* Wc, const float* Utc, float* Ls,
                                float* CUs, float* schur0, int S, int L, int n,
                                void* stream) {
-  const int blocks = (S + kThreads - 1) / kThreads;
-  chain_factor_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      Wc, Utc, Ls, CUs, schur0, S, L, n);
+  const int G = n <= 8 ? 8 : 16;
+  const int chains = 32 / G;
+  const int blocks = (S + chains - 1) / chains;
+  const size_t shmem = (size_t)chains * chain_floats(n) * sizeof(float);
+  const int vec16 = n % 2 == 0 &&
+      (((uintptr_t)Wc | (uintptr_t)Utc | (uintptr_t)Ls | (uintptr_t)CUs) & 15) == 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (G == 8)
+    chain_factor_kernel<8><<<blocks, 32, shmem, st>>>(Wc, Utc, Ls, CUs, schur0, S, L, n,
+                                                      vec16);
+  else
+    chain_factor_kernel<16><<<blocks, 32, shmem, st>>>(Wc, Utc, Ls, CUs, schur0, S, L, n,
+                                                       vec16);
   return (int)cudaGetLastError();
 }

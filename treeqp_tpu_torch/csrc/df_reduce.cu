@@ -1,61 +1,150 @@
-// Fixed-order f64 sum of a vector, in one launch of one thread block.
+// Fixed-order f64 sum of a vector, in one launch over many SMs.
 //
 // Replaces the Pallas kernel df_reduce_flat of treeqp_tpu/ops/df_reduce.py,
 // an ordered two-sum tree over (hi, lo) f32 pairs: the dual values and the
 // directional derivative of the high-precision phase's Armijo test, which
 // compares values of O(1e3) that differ by ~1e-10. What carries over is the
-// fixed order: the sum is the same on every run (no atomics, no order that
-// depends on scheduling), and equals the plain twin's bit for bit.
+// fixed order: the sum is the same on every run (no atomics in the sum, no
+// order that depends on scheduling), and equals the plain twin's bit for
+// bit. The H100 has native FP64, so the values are doubles.
 //
 // The order: x zero-padded to m = the next power of two, then halving folds
-// x[i] <- x[i] + x[i + h] for i < h, h = m/2, m/4, ..., 1. The first fold
-// reads x (zeros past n); folds wider than kShared run in a global scratch
-// buffer [m/2], the rest in shared memory, with a barrier after each.
+// x[i] <- x[i] + x[i + h] for i < h, h = m/2, m/4, ..., 1. For any power of
+// two G <= m the partial at the fold that leaves G values is
+//   P_G[r] = the halving fold of the column x[r], x[r + G], x[r + 2G], ...
+// (c = m / G values), and the sum is the halving fold of P_G. Design:
+// - m <= kG: one block folds x itself (below).
+// - m > kG: kG / kThreads blocks of kThreads threads, thread r forming
+//   P_kG[r] from its column (loads coalesced over the threads for each
+//   column entry). A column of c <= kCol values is folded by halving in
+//   registers; a longer one as the pairwise sum of its values in
+//   bit-reversed order, which is the same tree: chunks of kCol consecutive
+//   bit-reversed positions (a halving fold of kCol values at stride c / kCol)
+//   combined in order by a binary-counter stack in registers. Each block
+//   writes its partials to a workspace, and a second launch of one block
+//   folds the kG partials.
+// - The final fold in one block: thread t folds the column of stride
+//   W = min(G, kThreads) in registers, then halving folds through shared
+//   memory down to 32 values and by warp shuffles to one.
+// The workspace (kG partials and the counter) is allocated once per device
+// by the wrapper; launches that share it must not overlap.
 //
-// What bounds it on the card: one SM's bandwidth for the first folds
-// (2 x 8 bytes per add) and log2(m) barriers; ~1e5 elements at the
-// headline's directional derivative.
+// What bounds it on the card: latency. 26,624 doubles (213 KB) at the bench
+// path's directional derivative are 0.06 us of HBM; a launch is a load per
+// column entry, a fence, the counter's atomic and the last block's fold of
+// the 4096 partials (12 levels, 3 with block barriers). No tensor cores: a
+// sum of a vector has no matrix product.
 
 #include "tq_eval.cuh"
 
 namespace {
 
-constexpr long kShared = 2048;
+constexpr int kThreads = 256;
+constexpr int kCol = 16;                 // values a thread folds in registers
+constexpr long kG = (long)kThreads * kCol;  // partials of the two-level form
+constexpr int kDepth = 28;               // binary-counter stack: c / kCol < 2^28
 
-__global__ void __launch_bounds__(1024) df_reduce_kernel(const double* __restrict__ x,
-                                                         long n, long m, double* buf,
-                                                         double* out) {
-  __shared__ double sh[kShared];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  if (m == 1) {
-    if (tid == 0) out[0] = n > 0 ? x[0] : 0.0;
+// The halving fold of v[0], v[stride], ..., v[(len-1) stride] (zeros at and
+// past n), len a power of two <= kCol. kLdcg reads through L2 only (the
+// partials other blocks wrote).
+template <bool kLdcg>
+__device__ __forceinline__ double fold_regs(const double* v, long n, long base, long stride,
+                                            int len) {
+  double q[kCol];
+#pragma unroll
+  for (int k = 0; k < kCol; ++k) {
+    const long i = base + k * stride;
+    q[k] = k < len && i < n ? (kLdcg ? __ldcg(v + i) : v[i]) : 0.0;
+  }
+#pragma unroll
+  for (int h = kCol / 2; h >= 1; h /= 2) {
+    if (h < len) {
+#pragma unroll
+      for (int k = 0; k < h; ++k) q[k] = tq::add(q[k], q[k + h]);
+    }
+  }
+  return q[0];
+}
+
+// P_G[r]: the halving fold of the column x[r + k G], k < 2^lc.
+__device__ double column(const double* __restrict__ x, long n, long r, long G, int lc) {
+  if (lc <= 4) return fold_regs<false>(x, n, r, G, 1 << lc);
+  // the pairwise sum over bit-reversed k: chunk q holds the positions
+  // kCol q .. kCol q + kCol - 1, i.e. the values at k = brev(q) + t c / kCol
+  const int lq = lc - 4;  // log2 of the chunk count
+  const long stride = G << lq;
+  double stk[kDepth], res = 0.0;
+  for (unsigned q = 0; q < (1u << lq); ++q) {
+    double s = fold_regs<false>(x, n, r + G * (long)(__brev(q) >> (32 - lq)), stride, kCol);
+#pragma unroll
+    for (int l = 0; l < kDepth; ++l) {
+      if ((q >> l) & 1u) {
+        s = tq::add(stk[l], s);
+      } else {
+        stk[l] = res = s;
+        break;
+      }
+    }
+  }
+  return res;
+}
+
+// The halving fold of v[0 .. G) (zeros at and past n) by the block, into
+// *out; G a power of two <= kG.
+template <bool kLdcg>
+__device__ void fold_block(const double* v, long n, long G, double* out) {
+  __shared__ double sh[kThreads];
+  const int t = threadIdx.x;
+  const int W = G < kThreads ? (int)G : kThreads;
+  double s = t < W ? fold_regs<kLdcg>(v, n, t, W, (int)(G / W)) : 0.0;
+  if (W > 32) {
+    sh[t] = s;
+    __syncthreads();
+    for (int h = W / 2; h >= 32; h /= 2) {
+      if (t < h) sh[t] = tq::add(sh[t], sh[t + h]);
+      __syncthreads();
+    }
+    s = t < 32 ? sh[t] : 0.0;
+  }
+  if (t < 32) {
+    for (int h = (W < 32 ? W : 32) / 2; h >= 1; h /= 2)
+      s = tq::add(s, __shfl_down_sync(0xffffffffu, s, h));
+    if (t == 0) out[0] = s;
+  }
+}
+
+// lc < 0: one block folds x (m <= kG); else thread r forms P_kG[r] from
+// its column of 2^lc values
+__global__ void __launch_bounds__(kThreads) df_reduce_kernel(
+    const double* __restrict__ x, long n, long m, int lc, double* part, double* out) {
+  if (lc < 0) {
+    fold_block<false>(x, n, m, out);
     return;
   }
-  long h = m / 2;
-  double* dst = h <= kShared ? sh : buf;
-  for (long i = tid; i < h; i += nt)
-    dst[i] = tq::add(i < n ? x[i] : 0.0, i + h < n ? x[i + h] : 0.0);
-  __syncthreads();
-  while (h > kShared) {
-    h /= 2;
-    double* to = h <= kShared ? sh : buf;
-    for (long i = tid; i < h; i += nt) to[i] = tq::add(buf[i], buf[i + h]);
-    __syncthreads();
-  }
-  while (h > 1) {
-    h /= 2;
-    for (long i = tid; i < h; i += nt) sh[i] = tq::add(sh[i], sh[i + h]);
-    __syncthreads();
-  }
-  if (tid == 0) out[0] = sh[0];
+  const long r = (long)blockIdx.x * kThreads + threadIdx.x;
+  part[r] = column(x, n, r, kG, lc);
+}
+
+// the second launch: one block folds the kG partials
+__global__ void __launch_bounds__(kThreads) df_fold_kernel(const double* part, double* out) {
+  fold_block<true>(part, kG, kG, out);
 }
 
 }  // namespace
 
-// x [n] f64; buf a scratch of max(m / 2, 1) f64 (m = the next power of two
-// >= n, m = 1 for n <= 1); out one f64.
-extern "C" int tq_df_reduce(const double* x, long n, long m, double* buf, double* out,
+// x [n] f64; m = the next power of two >= n (1 for n <= 1); work a
+// workspace of kG + 1 f64, zero on first use (kG partials, then the
+// counter), which every launch leaves as it found it; out one f64.
+extern "C" int tq_df_reduce(const double* x, long n, long m, double* work, double* out,
                             void* stream) {
-  df_reduce_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(x, n, m, buf, out);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (m <= kG) {
+    df_reduce_kernel<<<1, kThreads, 0, st>>>(x, n, m, -1, work, out);
+  } else {
+    int lc = 0;
+    while ((kG << lc) < m) ++lc;
+    df_reduce_kernel<<<kG / kThreads, kThreads, 0, st>>>(x, n, m, lc, work, out);
+    df_fold_kernel<<<1, kThreads, 0, st>>>(work, out);
+  }
   return (int)cudaGetLastError();
 }

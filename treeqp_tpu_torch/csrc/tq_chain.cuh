@@ -1,7 +1,8 @@
 // Per-chain banded block routines, one thread per chain: the backward
-// block Cholesky and the two solve sweeps of a chain of L nodes, shared by
-// chain_blocks_factor.cu, chain_factor.cu, chain_sweeps.cu and (through
-// tq_system.cuh) system_solve.cu and newton_iter.cu.
+// block Cholesky (chain_blocks_factor.cu) and the two solve sweeps of a
+// chain of L nodes (system_solve.cu and newton_iter.cu, through
+// tq_system.cuh). chain_factor.cu and chain_sweeps.cu run the same sums in
+// the same order with a lane group per chain, bit for bit these bodies.
 //
 // The pointers address chain s's slice: Ls, CUs [L, n, n], vectors [L, n],
 // row-major, j = 0 the node next to the crown. Same operation order as the

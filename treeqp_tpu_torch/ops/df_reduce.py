@@ -8,10 +8,12 @@ the fixed order: the Armijo test compares dual values of O(1e3) that differ
 by ~1e-10, so the sum must be the same on every run. The order is: pad with
 zeros to a power of two, then fold halves (``x = x[:h] + x[h:]``) down to
 one value. ``df_reduce_flat`` launches ``csrc/df_reduce.cu`` on a CUDA
-tensor, which performs the same folds in the same order and so matches the
-plain twin ``df_reduce_flat_ref`` (what it runs on a CPU tensor) bit for
-bit. Any size is allowed; the JAX kernel's chunking above ``MAX_ELEMS`` was
-a VMEM limit and is not carried over.
+tensor, which forms the same sum over many SMs in two levels (the halving
+folds of the columns x[r], x[r + G], ... for r < G = 4096, then of those G
+partials: the same additions) and so matches the plain twin
+``df_reduce_flat_ref`` (what it runs on a CPU tensor) bit for bit. Any
+size is allowed; the JAX kernel's chunking above ``MAX_ELEMS`` was a VMEM
+limit and is not carried over.
 """
 
 from __future__ import annotations
@@ -21,6 +23,10 @@ import torch
 from treeqp_tpu_torch.ops import _build
 
 __all__ = ["df_reduce_flat", "df_reduce_flat_ref"]
+
+# partials of the kernel's two-level form (csrc/df_reduce.cu's kG)
+_KG = 4096
+_WORK = {}
 
 
 def _padded_size(n: int) -> int:
@@ -38,22 +44,30 @@ def df_reduce_flat_ref(x):
     return x.reshape(())
 
 
+def _work(dev):
+    """The kernel's workspace on ``dev``: _KG partials and the counter of
+    the blocks that finished, zero; allocated once, and every launch leaves
+    it zero again."""
+    w = _WORK.get(dev)
+    if w is None:
+        w = _WORK[dev] = torch.zeros((_KG + 1,), dtype=torch.float64, device=dev)
+    return w
+
+
 def df_reduce_flat(x):
     """Sum of the f64 tensor ``x`` (any shape, flattened) as a 0-dim f64
-    tensor, in the fixed halving-fold order of ``df_reduce_flat_ref``."""
+    tensor, in the fixed halving-fold order of ``df_reduce_flat_ref``.
+    Launches on one stream at a time per device (they share the workspace)."""
     if x.device.type == "cpu":
         return df_reduce_flat_ref(x)
     name = "df_reduce_flat"
-    f64 = torch.float64
     dev = x.device
     x = x.reshape(-1).contiguous()
     n = x.numel()
-    _build.require(name, "x", x, (n,), dev, f64)
-    m = _padded_size(n)
-    buf = torch.empty((max(m // 2, 1),), dtype=f64, device=dev)
-    out = torch.empty((), dtype=f64, device=dev)
-    err = _build.lib().tq_df_reduce(x.data_ptr(), n, m, buf.data_ptr(), out.data_ptr(),
-                                    _build.stream(dev))
+    _build.require(name, "x", x, (n,), dev, torch.float64)
+    out = torch.empty((), dtype=torch.float64, device=dev)
+    err = _build.lib().tq_df_reduce(x.data_ptr(), n, _padded_size(n), _work(dev).data_ptr(),
+                                    out.data_ptr(), _build.stream(dev))
     _build.check(err, name)
     df_reduce_flat.launches += 1
     return out
