@@ -80,7 +80,7 @@ def main():
     dev = torch.device("cuda", 0)
     f32 = dict(dtype=torch.float32, device=dev)
     libs = {"package": _build.lib(), **{Path(p).name: parent_lib(p) for p in args.parent}}
-    st = _build.stream(dev)
+    st = lambda: _build.stream(dev)  # the current stream: a graph captures on its own
 
     def check(name, what, got, ref, rtol):
         err = 0.0
@@ -125,18 +125,18 @@ def main():
 
             def factor():
                 _build.check(lib.tq_chain_factor(
-                    Wc.data_ptr(), Utc.data_ptr(), *(t.data_ptr() for t in fac), S, L, n, st),
+                    Wc.data_ptr(), Utc.data_ptr(), *(t.data_ptr() for t in fac), S, L, n, st()),
                     f"{name} factor")
 
             def bwd():
                 _build.check(lib.tq_chain_solve_bwd(
                     Ls.data_ptr(), CUs.data_ptr(), res.data_ptr(), ys.data_ptr(),
-                    radd.data_ptr(), S, L, n, st), f"{name} bwd")
+                    radd.data_ptr(), S, L, n, st()), f"{name} bwd")
 
             def fwd():
                 _build.check(lib.tq_chain_forward(
                     Ls.data_ptr(), CUs.data_ptr(), ys_r.data_ptr(), droot.data_ptr(),
-                    dls.data_ptr(), S, L, n, st), f"{name} fwd")
+                    dls.data_ptr(), S, L, n, st()), f"{name} fwd")
             factor()
             bwd()
             fwd()
@@ -166,15 +166,14 @@ def main():
         m = dr._padded_size(n)
         ref = dr.df_reduce_flat_ref(x)
         for name, lib in libs.items():
-            # the package's workspace (zero, left zero) or an older
-            # library's scratch (m / 2 values, or the two-launch form's
-            # partials), each its own
-            work = torch.zeros((max(m // 2, dr._KG + 1),), dtype=torch.float64, device=dev)
+            # a zero buffer as large as any library's workspace or scratch
+            # (m / 2 values; 4097 for this work's first forms), each its own
+            work = torch.zeros((max(m // 2, 4097),), dtype=torch.float64, device=dev)
             out = torch.empty((), dtype=torch.float64, device=dev)
 
             def red():
                 _build.check(lib.tq_df_reduce(x.data_ptr(), n, m, work.data_ptr(),
-                                              out.data_ptr(), st), f"{name} df_reduce")
+                                              out.data_ptr(), st()), f"{name} df_reduce")
             red()
             torch.cuda.synchronize()
             if not torch.equal(out.view(torch.int64), ref.view(torch.int64)):

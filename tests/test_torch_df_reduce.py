@@ -73,9 +73,11 @@ def test_cpu_wrapper_runs_plain_twin():
         dr.df_reduce_flat(a.to("meta"))
 
 
-# the CUDA kernel's shape: kThreads threads a block, kCol values a thread
-# folds in registers, G = kThreads kCol partials (csrc/df_reduce.cu)
-K_THREADS, K_COL, K_G = 256, 16, 4096
+# the CUDA kernel's shape (csrc/df_reduce.cu): kThreads threads a block,
+# kCol values a thread folds in registers, one block up to K_SINGLE values,
+# else columns of kCol / 2 values over up to kMaxBlocks blocks
+K_THREADS, K_COL, K_MAX_BLOCKS = 256, 16, 128
+K_SINGLE = K_THREADS * K_COL
 
 
 def halving(v):
@@ -90,25 +92,37 @@ def brev(q, bits):
     return int(format(q, f"0{bits}b")[::-1], 2) if bits else 0
 
 
+def kernel_columns(m):
+    """The kernel's column count G for a padded size m > K_SINGLE."""
+    return min(m // (K_THREADS * K_COL // 2), K_MAX_BLOCKS) * K_THREADS
+
+
 def kernel_order(a, G):
-    """The kernel's sum of ``a`` with G partials: zero-pad to m; m <= G:
-    one block (its columns of stride min(m, kThreads) folded in registers,
-    then those); else column r of x[r + k G] (c = m / G values) folded by
-    halving for c <= kCol, else as the pairwise sum over bit-reversed k
-    (chunks of kCol consecutive positions, a halving fold each, combined in
-    order by a binary-counter stack), then the G partials as one block."""
+    """The kernel's sum of ``a`` with G columns (the kernel's own count for
+    G=None): zero-pad to m; m <= K_SINGLE (G=None) or m <= G: one block (its
+    columns of stride min(m, kThreads) folded in registers, then those);
+    else column r of x[r + k G] (c = m / G values) folded by halving for
+    c <= kCol, else as the pairwise sum over bit-reversed k (chunks of kCol
+    consecutive positions, a halving fold each, combined in order by a
+    binary-counter stack), then the G partials folded by halving (the
+    kernel's blocks fold them down to their residues, the last block the
+    rest: the same pairs)."""
     m = dr._padded_size(a.size)
     x = np.concatenate([a, np.zeros(m - a.size)])
 
     def block(v):
         W = min(v.size, K_THREADS)
         return halving(halving(v.reshape(-1, W)))
+    if G is None:
+        if m <= K_SINGLE:
+            return block(x)
+        G = kernel_columns(m)
     if m <= G:
         return block(x)
     X = x.reshape(-1, G)  # row k: x[k G .. (k + 1) G)
     c = X.shape[0]
     if c <= K_COL:
-        return block(halving(X))
+        return halving(halving(X))
     lq = c.bit_length() - 1 - (K_COL.bit_length() - 1)
     stack, res = {}, None
     for q in range(1 << lq):
@@ -118,19 +132,20 @@ def kernel_order(a, G):
             s = stack[lvl] + s
             lvl += 1
         stack[lvl] = res = s
-    return block(res)
+    return halving(res)
 
 
-TWO_LEVEL = [(G, n) for G in (K_G, 256)
-             for n in (0, 1, 2, 3, 1000, G - 1, G, G + 1, 26624, 3 * 2 ** 17 + 5)]
+SIZES_2L = (0, 1, 2, 3, 1000, K_SINGLE - 1, K_SINGLE, K_SINGLE + 1, 26624, 3 * 2 ** 17 + 5)
+TWO_LEVEL = [(G, n) for G in (None, 256) for n in SIZES_2L]
 
 
 @pytest.mark.parametrize("G,n", TWO_LEVEL)
 def test_kernel_two_level_order_matches_twin(G, n):
     """The order the kernel relies on: the halving folds of the columns of
     stride G (bit-reversed pairwise for long columns), then of the G
-    partials, give the twin's sum bit for bit."""
-    a = cancelling(n, seed=n + G)
+    partials, give the twin's sum bit for bit; G the kernel's own column
+    count (None) and 256."""
+    a = cancelling(n, seed=n + (G or 0))
     got = np.float64(kernel_order(a, G))
     ref = dr.df_reduce_flat_ref(torch.tensor(a)).numpy()
     assert got.view(np.int64) == ref.view(np.int64), (float(got), float(ref))

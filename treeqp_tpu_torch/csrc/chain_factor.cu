@@ -18,29 +18,36 @@
 // What bounds it on the card: latency. A chain is L dependent steps, each a
 // factorization, a triangular solve and a product of n x n blocks (n <= 16:
 // ~600 flops at n = 6); a launch moves each block once (0.3 MB at the
-// pruned quadcopter's 128 chains of L = 16, n = 6). Design:
+// pruned quadcopter's 128 chains of L = 16, n = 6). The thread-per-chain
+// kernel this replaces ran 128 chains on one SM, copied its blocks element
+// by element and factored them in global memory (1.68 ms there). Design:
 // - A group of G lanes takes a chain: G = 8 for n <= 8, 16 for n <= 16, so
 //   32 / G chains a warp and one warp a block (128 chains of n = 6 take 32
-//   SMs). Lane i owns row i of the step's working block, in registers.
+//   SMs).
 // - The chain's blocks Wc_j, Utc_j stream through a ring of kStages stages
 //   of shared memory per chain with cp.async (16-byte copies, coalesced over
 //   the group's lanes, when n is even and the buffers 16-byte aligned; 4-byte
 //   copies otherwise), up to kStages steps ahead of the step computed. The
 //   ring's depth is fixed, so any L runs.
-// - Cholesky, right-looking: for k = 0 .. n-1 lane k's pivot is broadcast by
-//   __shfl_sync, every lane takes its rsqrt, lanes i >= k scale their entry,
-//   column k is broadcast by __shfl_sync and lanes i > k fold
-//   a_ij -= L_ik L_jk into their row by one FMA a product. Each element
-//   meets its products in ascending k, the order of the left-looking
-//   chol_inplace<false> (tq_dense.cuh).
-// - CUs_j = Utc_j Ls_j^-T: lane r runs row r's n true divisions against
-//   Ls_j's rows, read from shared memory. A zero dividend (sdunes' Utc_0 is
-//   all zero) would send the warp's division down its slow path, so it
-//   gets its signed zero without dividing.
+// - n is a template parameter (one instantiation per n = 1 .. 16): with a
+//   runtime n every unrolled product sat behind its own branch and nothing
+//   overlapped (2x slower).
+// - n <= 8: every lane holds the step's whole lower block in registers and
+//   factors it itself, right-looking (a_rc -= L_rk L_ck, one FMA a product,
+//   each element meeting its products in ascending k, the order of the
+//   left-looking chol_inplace<false> of tq_dense.cuh): no shuffle, no
+//   shared memory on the Cholesky's path. n > 8 (16 x 16 floats do not fit
+//   a lane's registers): lane i owns row i; lane k's pivot and column k are
+//   broadcast by __shfl_sync.
+// - CUs_j = Utc_j Ls_j^-T: lane r runs row r's n true divisions, the step's
+//   critical path. A zero dividend (the lanes past row n-1, sdunes' Utc_0,
+//   the quadcopter's structural zeros) sends the warp's division down its
+//   slow path (1.5-1.8x the kernel's time), so it gets its signed zero and
+//   the lane divides d by d.
 // - schur = CU CU': lane a forms row a from CU's rows in shared memory, each
 //   element summed over k ascending from 0.
-// - Ls_j and CUs_j are written once from shared memory, coalesced over the
-//   group (16-byte stores when the copies are); schur0 lane i row i.
+// - Ls_j and CUs_j are written once, coalesced over the group (16-byte
+//   stores when the copies are); schur0 lane i row i.
 // Every sum keeps the order of the thread-per-chain body tq::chain_factor_bwd
 // (tq_chain.cuh) that this kernel ran until it was redesigned, each product
 // folded in by one FMA as nvcc contracts that body, with rsqrtf and true
@@ -83,155 +90,306 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// x / d rounded as the division rounds; a zero x over a finite nonzero d is
-// answered by its signed zero without dividing (the lane divides d by d).
+// x / d rounded as the division rounds. A zero x sends the warp's division
+// down its slow path, so a zero x over a finite nonzero d is answered by its
+// signed zero and the lane divides d by d; the empty asm keeps the compiler
+// from dividing x itself and selecting after.
 __device__ __forceinline__ float quotient(float x, float d) {
   const bool zero = x == 0.f && d != 0.f && isfinite(d);
-  const float q = (zero ? d : x) / d;
+  float y = zero ? d : x;
+  asm("" : "+f"(y));
+  const float q = y / d;
   return zero ? __int_as_float((__float_as_int(x) ^ __float_as_int(d)) & 0x80000000) : q;
 }
 
-// n n floats rounded up to 4, so that every area starts 16-byte aligned.
-__host__ __device__ inline int block_floats(int n) { return (n * n + 3) & ~3; }
+// N N floats rounded up to 4, so that every area starts 16-byte aligned.
+__host__ __device__ constexpr int block_floats(int N) { return (N * N + 3) & ~3; }
 
 // A chain's shared memory: the ring of kStages stages [Wc_j | Utc_j], then
-// the step's Ls_j and CUs_j.
-__host__ __device__ inline int chain_floats(int n) {
-  return (2 * kStages + 2) * block_floats(n);
+// two work blocks; 4 floats more, so that the chains of a warp start on
+// different banks.
+__host__ __device__ constexpr int chain_floats(int N) {
+  return (2 * kStages + 2) * block_floats(N) + 4;
 }
 
-template <int G>
-__global__ void __launch_bounds__(32) chain_factor_kernel(
-    const float* __restrict__ Wc, const float* __restrict__ Utc,
-    float* __restrict__ Ls, float* __restrict__ CUs, float* __restrict__ schur0,
-    int S, int L, int n, int vec16) {
-  constexpr int N = G < tq::kMaxN ? G : tq::kMaxN;  // rows a lane may own
-  extern __shared__ __align__(16) float smem[];
-  const int i = threadIdx.x % G;
-  const int g = threadIdx.x / G;
-  const int s = blockIdx.x * (32 / G) + g;
-  const bool live = s < S;
-  const size_t nn = (size_t)n * n;
-  const int bf = block_floats(n);
-  const size_t chain = (size_t)(live ? s : S - 1) * L * nn;
-  float* ring = smem + (size_t)g * chain_floats(n);
-  float* sL = ring + 2 * kStages * bf;
-  float* sC = sL + bf;
+// Lanes a chain: 8 for n <= 8, 16 for n <= 16.
+__host__ __device__ constexpr int lanes(int N) { return N <= 8 ? 8 : 16; }
 
-  // copy node j's blocks into the stage of step t (none past the last
-  // step), then close the thread's copy group
-  auto fetch = [&](int t) {
+// A chain's group of lanes(N) lanes and its ring, for blocks of N x N; a
+// group past the last chain reads the last chain's blocks and stores
+// nothing.
+template <int N>
+struct Chain {
+  static constexpr int G = lanes(N);
+  static constexpr int NN = N * N;
+  static constexpr int BF = block_floats(N);
+  int i;        // the lane in the group
+  int s;        // the chain
+  bool live;    // s < S
+  int L;
+  size_t base;  // the chain's offset in Wc, Utc, Ls, CUs
+  float* ring;
+  float* work;  // two blocks of BF floats after the ring
+
+  __device__ Chain(float* smem, int S, int L_) : L(L_) {
+    i = threadIdx.x % G;
+    const int g = threadIdx.x / G;
+    s = blockIdx.x * (32 / G) + g;
+    live = s < S;
+    base = (size_t)(live ? s : S - 1) * L * NN;
+    ring = smem + g * chain_floats(N);
+    work = ring + 2 * kStages * BF;
+  }
+
+  __device__ const float* stage(int t) const { return ring + (t % kStages) * 2 * BF; }
+
+  // Copy node L-1-t's blocks into the stage of step t (none past the last
+  // step), then close the thread's copy group.
+  __device__ void fetch(const float* Wc, const float* Utc, int t, bool vec16) const {
     if (t < L) {
-      float* st = ring + (t % kStages) * 2 * bf;
-      const size_t off = chain + (size_t)(L - 1 - t) * nn;
+      float* st = ring + (t % kStages) * 2 * BF;
+      const size_t off = base + (size_t)(L - 1 - t) * NN;
       if (vec16) {
-        for (int q = 4 * i; q < (int)nn; q += 4 * G) {
+#pragma unroll
+        for (int q = 4 * i; q < NN; q += 4 * G) {
           cp_async16(st + q, Wc + off + q);
-          cp_async16(st + bf + q, Utc + off + q);
+          cp_async16(st + BF + q, Utc + off + q);
         }
       } else {
-        for (int e = i; e < (int)nn; e += G) {
+#pragma unroll
+        for (int e = i; e < NN; e += G) {
           cp_async4(st + e, Wc + off + e);
-          cp_async4(st + bf + e, Utc + off + e);
+          cp_async4(st + BF + e, Utc + off + e);
         }
       }
     }
     cp_async_commit();
-  };
+  }
 
-  for (int t = 0; t < kStages; ++t) fetch(t);
+  // Step t's stage has landed and every lane of the group sees it.
+  __device__ void arrive() const {
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+  }
+
+  // Copy a block from shared memory to out (N N floats at off), coalesced
+  // over the group.
+  __device__ void store(float* out, size_t off, const float* blk, bool vec16) const {
+    if (vec16) {
+#pragma unroll
+      for (int q = 4 * i; q < NN; q += 4 * G)
+        *reinterpret_cast<float4*>(out + off + q) = *reinterpret_cast<const float4*>(blk + q);
+    } else {
+#pragma unroll
+      for (int e = i; e < NN; e += G) out[off + e] = blk[e];
+    }
+  }
+};
+
+// N <= 8: every lane of a group of 8 holds the step's whole lower block in
+// registers and factors it itself (the same operations in every lane), so
+// the Cholesky needs no shuffle and no shared memory; lane i then solves
+// row i of CU, writes it to shared memory, and forms row i of schur from
+// CU's rows there, which the next step's lanes read back whole.
+template <int N>
+__global__ void __launch_bounds__(32) chain_factor_whole_kernel(
+    const float* __restrict__ Wc, const float* __restrict__ Utc,
+    float* __restrict__ Ls, float* __restrict__ CUs, float* __restrict__ schur0,
+    int S, int L, int vec16) {
+  extern __shared__ __align__(16) float smem[];
+  using C = Chain<N>;
+  const C ch(smem, S, L);
+  const int i = ch.i;
+  const bool row = i < N;       // the lane owns a row of CU and schur
+  float* sC = ch.work;          // this step's CU
+  float* sS = ch.work + C::BF;  // the previous step's schur
+  for (int t = 0; t < kStages; ++t) ch.fetch(Wc, Utc, t, vec16);
+  float sch[N];  // row i of the previous step's schur
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    sch[k] = 0.f;
+    if (row) sS[i * N + k] = 0.f;
+  }
+  for (int t = 0; t < L; ++t) {
+    ch.arrive();
+    const float* st = ch.stage(t);
+    float a[N][N], u[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+#pragma unroll
+      for (int c = 0; c <= r; ++c) a[r][c] = __fsub_rn(st[r * N + c], sS[r * N + c]);
+      // the pivot a_kk + 0 of chol_inplace<false> (a zero shift; -0 -> +0)
+      a[r][r] = __fadd_rn(a[r][r], 0.f);
+      u[r] = row ? st[C::BF + i * N + r] : 0.f;
+    }
+    __syncwarp();  // the stage and sS are read: refill the stage kStages steps ahead
+    ch.fetch(Wc, Utc, t + kStages, vec16);
+
+    // Ls_j = chol(a), right-looking, in every lane
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float akk = a[k][k];
+      const float dinv = rsqrtf(fmaxf(akk, tq::kPivotFloor));
+#pragma unroll
+      for (int r = k + 1; r < N; ++r) a[r][k] = __fmul_rn(a[r][k], dinv);
+      a[k][k] = __fmul_rn(akk, dinv);
+#pragma unroll
+      for (int r = k + 1; r < N; ++r) {
+#pragma unroll
+        for (int c = k + 1; c <= r; ++c) a[r][c] = __fmaf_rn(-a[r][k], a[c][k], a[r][c]);
+      }
+    }
+
+    // CU = Ut Ls_j^-T, row i
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      float acc = u[c];
+#pragma unroll
+      for (int m = 0; m < c; ++m) acc = __fmaf_rn(-u[m], a[c][m], acc);
+      u[c] = quotient(acc, a[c][c]);
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (row) sC[i * N + k] = u[k];
+    }
+    __syncwarp();
+
+    // schur = CU CU', row i, for the next step
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < N; ++k) acc = __fmaf_rn(u[k], sC[c * N + k], acc);
+      sch[c] = acc;
+      if (row) sS[i * N + c] = acc;
+    }
+
+    // this step's blocks: Ls_j row i from the registers, CUs_j from shared
+    // memory, coalesced over the group
+    if (ch.live) {
+      const size_t off = ch.base + (size_t)(L - 1 - t) * C::NN;
+#pragma unroll
+      for (int r = 0; r < N; ++r) {
+        if (r == i) {
+#pragma unroll
+          for (int c = 0; c < N; ++c) Ls[off + r * N + c] = c <= r ? a[r][c] : 0.f;
+        }
+      }
+      ch.store(CUs, off, sC, vec16);
+    }
+  }
+  if (ch.live && row) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) schur0[(size_t)ch.s * C::NN + i * N + k] = sch[k];
+  }
+}
+
+// 8 < N <= 16: a group of 16 lanes, lane i owning row i of the step's
+// block. Cholesky: for k = 0 .. N-1 lane k's pivot is broadcast by
+// __shfl_sync, every lane takes its rsqrt, lanes i >= k scale their entry,
+// column k is broadcast by __shfl_sync and lanes i > k fold a_ij -= L_ik
+// L_jk into their row. Ls_j goes to shared memory for the solve.
+template <int N>
+__global__ void __launch_bounds__(32) chain_factor_rows_kernel(
+    const float* __restrict__ Wc, const float* __restrict__ Utc,
+    float* __restrict__ Ls, float* __restrict__ CUs, float* __restrict__ schur0,
+    int S, int L, int vec16) {
+  extern __shared__ __align__(16) float smem[];
+  using C = Chain<N>;
+  constexpr int G = C::G;
+  const C ch(smem, S, L);
+  const int i = ch.i;
+  const bool row = i < N;
+  float* sL = ch.work;
+  float* sC = ch.work + C::BF;
+  for (int t = 0; t < kStages; ++t) ch.fetch(Wc, Utc, t, vec16);
   float sch[N];  // row i of the previous step's schur
 #pragma unroll
   for (int k = 0; k < N; ++k) sch[k] = 0.f;
   for (int t = 0; t < L; ++t) {
-    const int j = L - 1 - t;
-    cp_async_wait<kStages - 1>();
-    __syncwarp();
-    const float* st = ring + (t % kStages) * 2 * bf;
+    ch.arrive();
+    const float* st = ch.stage(t);
     float a[N], u[N];
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      const bool in = k < n && i < n;
-      a[k] = in ? __fsub_rn(st[i * n + k], sch[k]) : 0.f;
+      a[k] = row ? __fsub_rn(st[i * N + k], sch[k]) : 0.f;
       // the pivot a_kk + 0 of chol_inplace<false> (a zero shift; -0 -> +0)
       if (k == i) a[k] = __fadd_rn(a[k], 0.f);
-      u[k] = in ? st[bf + i * n + k] : 0.f;
+      u[k] = row ? st[C::BF + i * N + k] : 0.f;
     }
     __syncwarp();  // the stage is read: refill it kStages steps ahead
-    fetch(t + kStages);
+    ch.fetch(Wc, Utc, t + kStages, vec16);
 
     // Ls_j = chol(a), right-looking
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      if (k < n) {
-        const float akk = __shfl_sync(kFull, a[k], k, G);
-        const float dinv = rsqrtf(fmaxf(akk, tq::kPivotFloor));
-        const float lik = __fmul_rn(a[k], dinv);
-        if (i >= k) a[k] = lik;
+      const float akk = __shfl_sync(kFull, a[k], k, G);
+      const float dinv = rsqrtf(fmaxf(akk, tq::kPivotFloor));
+      const float lik = __fmul_rn(a[k], dinv);
+      if (i >= k) a[k] = lik;
 #pragma unroll
-        for (int c = k + 1; c < N; ++c) {
-          if (c < n) {
-            const float lck = __shfl_sync(kFull, lik, c, G);
-            if (i >= c) a[c] = __fmaf_rn(-lik, lck, a[c]);
-          }
-        }
+      for (int c = k + 1; c < N; ++c) {
+        const float lck = __shfl_sync(kFull, lik, c, G);
+        if (i >= c) a[c] = __fmaf_rn(-lik, lck, a[c]);
       }
     }
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      if (k < n && i < n) sL[i * n + k] = k > i ? 0.f : a[k];
+      if (row) sL[i * N + k] = k > i ? 0.f : a[k];
     }
     __syncwarp();
 
     // CU = Ut Ls_j^-T, row i
 #pragma unroll
     for (int c = 0; c < N; ++c) {
-      if (c < n) {
-        float acc = u[c];
+      float acc = u[c];
 #pragma unroll
-        for (int m = 0; m < c; ++m) acc = __fmaf_rn(-u[m], sL[c * n + m], acc);
-        u[c] = quotient(acc, sL[c * n + c]);
-      }
+      for (int m = 0; m < c; ++m) acc = __fmaf_rn(-u[m], sL[c * N + m], acc);
+      u[c] = quotient(acc, sL[c * N + c]);
     }
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      if (k < n && i < n) sC[i * n + k] = u[k];
+      if (row) sC[i * N + k] = u[k];
     }
     __syncwarp();
 
     // schur = CU CU', row i
 #pragma unroll
     for (int c = 0; c < N; ++c) {
-      if (c < n) {
-        float acc = 0.f;
+      float acc = 0.f;
 #pragma unroll
-        for (int k = 0; k < N; ++k)
-          if (k < n) acc = __fmaf_rn(u[k], sC[c * n + k], acc);
-        sch[c] = acc;
-      }
+      for (int k = 0; k < N; ++k) acc = __fmaf_rn(u[k], sC[c * N + k], acc);
+      sch[c] = acc;
     }
 
     // this step's blocks, once, coalesced over the group
-    if (live) {
-      const size_t off = chain + (size_t)j * nn;
-      if (vec16) {
-        for (int q = 4 * i; q < (int)nn; q += 4 * G) {
-          *reinterpret_cast<float4*>(Ls + off + q) = *reinterpret_cast<const float4*>(sL + q);
-          *reinterpret_cast<float4*>(CUs + off + q) = *reinterpret_cast<const float4*>(sC + q);
-        }
-      } else {
-        for (int e = i; e < (int)nn; e += G) {
-          Ls[off + e] = sL[e];
-          CUs[off + e] = sC[e];
-        }
-      }
+    if (ch.live) {
+      const size_t off = ch.base + (size_t)(L - 1 - t) * C::NN;
+      ch.store(Ls, off, sL, vec16);
+      ch.store(CUs, off, sC, vec16);
     }
   }
-  if (live && i < n) {
+  if (ch.live && row) {
 #pragma unroll
-    for (int k = 0; k < N; ++k)
-      if (k < n) schur0[(size_t)s * nn + i * n + k] = sch[k];
+    for (int k = 0; k < N; ++k) schur0[(size_t)ch.s * C::NN + i * N + k] = sch[k];
   }
+}
+
+template <int N>
+int launch(const float* Wc, const float* Utc, float* Ls, float* CUs, float* schur0, int S,
+           int L, cudaStream_t st) {
+  constexpr int chains = 32 / lanes(N);
+  const int blocks = (S + chains - 1) / chains;
+  const size_t shmem = (size_t)chains * chain_floats(N) * sizeof(float);
+  const int vec16 = N % 2 == 0 &&
+      (((uintptr_t)Wc | (uintptr_t)Utc | (uintptr_t)Ls | (uintptr_t)CUs) & 15) == 0;
+  if constexpr (N <= 8)
+    chain_factor_whole_kernel<N><<<blocks, 32, shmem, st>>>(Wc, Utc, Ls, CUs, schur0, S, L,
+                                                            vec16);
+  else
+    chain_factor_rows_kernel<N><<<blocks, 32, shmem, st>>>(Wc, Utc, Ls, CUs, schur0, S, L,
+                                                           vec16);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -240,18 +398,15 @@ __global__ void __launch_bounds__(32) chain_factor_kernel(
 extern "C" int tq_chain_factor(const float* Wc, const float* Utc, float* Ls,
                                float* CUs, float* schur0, int S, int L, int n,
                                void* stream) {
-  const int G = n <= 8 ? 8 : 16;
-  const int chains = 32 / G;
-  const int blocks = (S + chains - 1) / chains;
-  const size_t shmem = (size_t)chains * chain_floats(n) * sizeof(float);
-  const int vec16 = n % 2 == 0 &&
-      (((uintptr_t)Wc | (uintptr_t)Utc | (uintptr_t)Ls | (uintptr_t)CUs) & 15) == 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (G == 8)
-    chain_factor_kernel<8><<<blocks, 32, shmem, st>>>(Wc, Utc, Ls, CUs, schur0, S, L, n,
-                                                      vec16);
-  else
-    chain_factor_kernel<16><<<blocks, 32, shmem, st>>>(Wc, Utc, Ls, CUs, schur0, S, L, n,
-                                                       vec16);
-  return (int)cudaGetLastError();
+  switch (n) {
+#define TQ_N(N_) \
+  case N_:       \
+    return launch<N_>(Wc, Utc, Ls, CUs, schur0, S, L, st);
+    TQ_N(1) TQ_N(2) TQ_N(3) TQ_N(4) TQ_N(5) TQ_N(6) TQ_N(7) TQ_N(8)
+    TQ_N(9) TQ_N(10) TQ_N(11) TQ_N(12) TQ_N(13) TQ_N(14) TQ_N(15) TQ_N(16)
+#undef TQ_N
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

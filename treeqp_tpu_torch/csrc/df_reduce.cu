@@ -12,37 +12,45 @@
 // x[i] <- x[i] + x[i + h] for i < h, h = m/2, m/4, ..., 1. For any power of
 // two G <= m the partial at the fold that leaves G values is
 //   P_G[r] = the halving fold of the column x[r], x[r + G], x[r + 2G], ...
-// (c = m / G values), and the sum is the halving fold of P_G. Design:
-// - m <= kG: one block folds x itself (below).
-// - m > kG: kG / kThreads blocks of kThreads threads, thread r forming
-//   P_kG[r] from its column (loads coalesced over the threads for each
-//   column entry). A column of c <= kCol values is folded by halving in
-//   registers; a longer one as the pairwise sum of its values in
-//   bit-reversed order, which is the same tree: chunks of kCol consecutive
-//   bit-reversed positions (a halving fold of kCol values at stride c / kCol)
-//   combined in order by a binary-counter stack in registers. Each block
-//   writes its partials to a workspace, and a second launch of one block
-//   folds the kG partials.
-// - The final fold in one block: thread t folds the column of stride
-//   W = min(G, kThreads) in registers, then halving folds through shared
-//   memory down to 32 values and by warp shuffles to one.
-// The workspace (kG partials and the counter) is allocated once per device
-// by the wrapper; launches that share it must not overlap.
+// (c = m / G values), and the sum is the halving fold of P_G; the folds of
+// P_G down to B values pair r with r + h for h a multiple of B. Design:
+// - m <= kG (4096): one block folds x itself.
+// - m > kG: up to kMaxBlocks blocks of kThreads threads, G = blocks
+//   kThreads columns of c >= 8 values (c = 8 at the bench path's
+//   directional derivative, 26,624 values on 16 blocks). Thread t of block
+//   b forms P_G[r] for r = b kKeep + t % kKeep + B (t / kKeep), B = blocks
+//   kKeep: kKeep neighbouring threads read a 32-byte run, and the block
+//   owns whole residues mod B, so its folds of its partials down to kKeep
+//   values (shared memory, then warp shuffles) give P_B at its residues
+//   with no other block's values. A column of c <= kCol values is folded
+//   by halving in registers; a longer one as the pairwise sum of its values
+//   in bit-reversed order, which is the same tree: chunks of kCol
+//   consecutive bit-reversed positions (a halving fold of kCol values at
+//   stride c / kCol) combined in order by a binary-counter stack in
+//   registers. The last block to finish (a __threadfence and a counter,
+//   which it resets) folds the B values of P_B.
+// - The workspace (the partials and the counter) is allocated once per
+//   device by the wrapper; launches that share it must not overlap.
+// A second launch for the last fold ran as fast in a CUDA graph and slower
+// alone, so the last block does it.
 //
 // What bounds it on the card: latency. 26,624 doubles (213 KB) at the bench
-// path's directional derivative are 0.06 us of HBM; a launch is a load per
-// column entry, a fence, the counter's atomic and the last block's fold of
-// the 4096 partials (12 levels, 3 with block barriers). No tensor cores: a
-// sum of a vector has no matrix product.
+// path's directional derivative are 0.06 us of HBM; a launch is one round
+// of loads per thread, a fence, the counter's atomic and the last fold.
+// Above ~2^20 values the 128 blocks stream the vector at a fraction of the
+// HBM rate (torch.sum is faster there; no path sums that many). No tensor
+// cores: a sum of a vector has no matrix product.
 
 #include "tq_eval.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCol = 16;                 // values a thread folds in registers
-constexpr long kG = (long)kThreads * kCol;  // partials of the two-level form
-constexpr int kDepth = 28;               // binary-counter stack: c / kCol < 2^28
+constexpr int kCol = 16;                    // values a thread folds in registers
+constexpr long kG = (long)kThreads * kCol;  // the most values one block folds
+constexpr int kKeep = 4;                    // residues a block owns: 32-byte runs
+constexpr long kMaxBlocks = 128;            // blocks of the two-level form
+constexpr int kDepth = 28;                  // binary-counter stack: c / kCol < 2^28
 
 // The halving fold of v[0], v[stride], ..., v[(len-1) stride] (zeros at and
 // past n), len a power of two <= kCol. kLdcg reads through L2 only (the
@@ -89,14 +97,12 @@ __device__ double column(const double* __restrict__ x, long n, long r, long G, i
   return res;
 }
 
-// The halving fold of v[0 .. G) (zeros at and past n) by the block, into
-// *out; G a power of two <= kG.
-template <bool kLdcg>
-__device__ void fold_block(const double* v, long n, long G, double* out) {
+// The halving folds of the block's values (thread t's s) from blockDim.x =
+// W values down to ``keep`` (1 or kKeep); thread t < keep returns the
+// value left at t.
+__device__ double fold_shared(double s, int W, int keep) {
   __shared__ double sh[kThreads];
   const int t = threadIdx.x;
-  const int W = G < kThreads ? (int)G : kThreads;
-  double s = t < W ? fold_regs<kLdcg>(v, n, t, W, (int)(G / W)) : 0.0;
   if (W > 32) {
     sh[t] = s;
     __syncthreads();
@@ -107,44 +113,74 @@ __device__ void fold_block(const double* v, long n, long G, double* out) {
     s = t < 32 ? sh[t] : 0.0;
   }
   if (t < 32) {
-    for (int h = (W < 32 ? W : 32) / 2; h >= 1; h /= 2)
+    for (int h = (W < 32 ? W : 32) / 2; h >= keep; h /= 2)
       s = tq::add(s, __shfl_down_sync(0xffffffffu, s, h));
-    if (t == 0) out[0] = s;
   }
+  return s;
 }
 
-// lc < 0: one block folds x (m <= kG); else thread r forms P_kG[r] from
-// its column of 2^lc values
+// The halving fold of v[0 .. G) (zeros at and past n) by one block, into
+// *out; G a power of two <= kG.
+template <bool kLdcg>
+__device__ void fold_block(const double* v, long n, long G, double* out) {
+  const int t = threadIdx.x;
+  const int W = G < kThreads ? (int)G : kThreads;
+  const double s = fold_shared(t < W ? fold_regs<kLdcg>(v, n, t, W, (int)(G / W)) : 0.0, W, 1);
+  if (t == 0) out[0] = s;
+}
+
+// lc < 0: one block folds x (m <= kG). Else the two-level form over
+// gridDim.x blocks: G = gridDim.x kThreads columns of 2^lc values, and
+// B = gridDim.x kKeep residues. Block b owns the residues b kKeep ..
+// b kKeep + kKeep - 1 (mod B): thread t forms P_G[r] for
+// r = b kKeep + t % kKeep + B (t / kKeep), kKeep neighbouring threads on
+// neighbouring addresses. The halving folds of P_G down to B values pair r
+// with r + h for h a multiple of B, so they stay inside the block: its
+// folds of its kThreads partials down to kKeep values give P_B at its
+// residues. The last block to finish folds the B values of P_B.
 __global__ void __launch_bounds__(kThreads) df_reduce_kernel(
-    const double* __restrict__ x, long n, long m, int lc, double* part, double* out) {
+    const double* __restrict__ x, long n, long m, int lc, double* part,
+    unsigned* count, double* out) {
   if (lc < 0) {
     fold_block<false>(x, n, m, out);
     return;
   }
-  const long r = (long)blockIdx.x * kThreads + threadIdx.x;
-  part[r] = column(x, n, r, kG, lc);
-}
-
-// the second launch: one block folds the kG partials
-__global__ void __launch_bounds__(kThreads) df_fold_kernel(const double* part, double* out) {
-  fold_block<true>(part, kG, kG, out);
+  const int t = threadIdx.x;
+  const long B = (long)gridDim.x * kKeep;
+  const long r = (long)blockIdx.x * kKeep + t % kKeep + B * (t / kKeep);
+  const double s = fold_shared(column(x, n, r, (long)gridDim.x * kThreads, lc), kThreads, kKeep);
+  if (t < kKeep) {
+    part[blockIdx.x * kKeep + t] = s;
+    __threadfence();  // the partials are visible before the count says so
+  }
+  __syncthreads();
+  __shared__ bool last;
+  if (t == 0) last = atomicAdd(count, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  fold_block<true>(part, B, B, out);
+  if (t == 0) *count = 0;
 }
 
 }  // namespace
 
 // x [n] f64; m = the next power of two >= n (1 for n <= 1); work a
-// workspace of kG + 1 f64, zero on first use (kG partials, then the
-// counter), which every launch leaves as it found it; out one f64.
+// workspace of kMaxBlocks kKeep + 1 f64, zero on first use (the partials,
+// then the counter), which every launch leaves as it found it; out one f64.
 extern "C" int tq_df_reduce(const double* x, long n, long m, double* work, double* out,
                             void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (m <= kG) {
-    df_reduce_kernel<<<1, kThreads, 0, st>>>(x, n, m, -1, work, out);
+    df_reduce_kernel<<<1, kThreads, 0, st>>>(x, n, m, -1, work, nullptr, out);
   } else {
+    // columns of kCol / 2 values while blocks last, longer ones beyond
+    long blocks = m / (kThreads * (kCol / 2));
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
     int lc = 0;
-    while ((kG << lc) < m) ++lc;
-    df_reduce_kernel<<<kG / kThreads, kThreads, 0, st>>>(x, n, m, lc, work, out);
-    df_fold_kernel<<<1, kThreads, 0, st>>>(work, out);
+    while ((blocks * kThreads << lc) < m) ++lc;
+    df_reduce_kernel<<<(int)blocks, kThreads, 0, st>>>(
+        x, n, m, lc, work, reinterpret_cast<unsigned*>(work + kMaxBlocks * kKeep), out);
   }
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,7 @@ by ~1e-10, so the sum must be the same on every run. The order is: pad with
 zeros to a power of two, then fold halves (``x = x[:h] + x[h:]``) down to
 one value. ``df_reduce_flat`` launches ``csrc/df_reduce.cu`` on a CUDA
 tensor, which forms the same sum over many SMs in two levels (the halving
-folds of the columns x[r], x[r + G], ... for r < G = 4096, then of those G
+folds of the columns x[r], x[r + G], ... for r < G, then of those G
 partials: the same additions) and so matches the plain twin
 ``df_reduce_flat_ref`` (what it runs on a CPU tensor) bit for bit. Any
 size is allowed; the JAX kernel's chunking above ``MAX_ELEMS`` was a VMEM
@@ -24,9 +24,14 @@ from treeqp_tpu_torch.ops import _build
 
 __all__ = ["df_reduce_flat", "df_reduce_flat_ref"]
 
-# partials of the kernel's two-level form (csrc/df_reduce.cu's kG)
-_KG = 4096
+# the kernel's workspace: kMaxBlocks kKeep partials and a counter
+# (csrc/df_reduce.cu)
+_WORK_DOUBLES = 128 * 4 + 1
 _WORK = {}
+# each device's pool of 0-dim outputs: views of one allocation, each handed
+# out once (an allocation a call cost a third of the wrapper's host time)
+_POOL = 1024
+_OUT = {}
 
 
 def _padded_size(n: int) -> int:
@@ -45,29 +50,42 @@ def df_reduce_flat_ref(x):
 
 
 def _work(dev):
-    """The kernel's workspace on ``dev``: _KG partials and the counter of
-    the blocks that finished, zero; allocated once, and every launch leaves
-    it zero again."""
+    """The kernel's workspace on ``dev``: the blocks' partials and the count
+    of the blocks that finished, zero; allocated once, and every launch
+    leaves the count zero again."""
     w = _WORK.get(dev)
     if w is None:
-        w = _WORK[dev] = torch.zeros((_KG + 1,), dtype=torch.float64, device=dev)
+        w = _WORK[dev] = torch.zeros((_WORK_DOUBLES,), dtype=torch.float64, device=dev)
     return w
+
+
+def _out(dev):
+    """A fresh 0-dim f64 tensor on ``dev`` from the device's pool."""
+    try:
+        return next(_OUT[dev])
+    except (KeyError, StopIteration):
+        _OUT[dev] = iter(torch.empty((_POOL,), dtype=torch.float64, device=dev).unbind())
+        return next(_OUT[dev])
 
 
 def df_reduce_flat(x):
     """Sum of the f64 tensor ``x`` (any shape, flattened) as a 0-dim f64
     tensor, in the fixed halving-fold order of ``df_reduce_flat_ref``.
-    Launches on one stream at a time per device (they share the workspace)."""
+    Launches on one stream at a time per device (they share the workspace).
+    The solvers read the result at once, so the host path is kept short:
+    the raw handle of the current stream, no reshape of a flat tensor, the
+    output from a pool."""
     if x.device.type == "cpu":
         return df_reduce_flat_ref(x)
     name = "df_reduce_flat"
     dev = x.device
-    x = x.reshape(-1).contiguous()
+    if x.dim() != 1 or not x.is_contiguous():
+        x = x.reshape(-1).contiguous()
     n = x.numel()
     _build.require(name, "x", x, (n,), dev, torch.float64)
-    out = torch.empty((), dtype=torch.float64, device=dev)
+    out = _out(dev)
     err = _build.lib().tq_df_reduce(x.data_ptr(), n, _padded_size(n), _work(dev).data_ptr(),
-                                    out.data_ptr(), _build.stream(dev))
+                                    out.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(err, name)
     df_reduce_flat.launches += 1
     return out
