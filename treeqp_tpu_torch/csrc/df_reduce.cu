@@ -27,7 +27,8 @@
 //   in bit-reversed order, which is the same tree: chunks of kCol
 //   consecutive bit-reversed positions (a halving fold of kCol values at
 //   stride c / kCol) combined in order by a binary-counter stack in
-//   registers. A second launch of one block folds the B values of P_B.
+//   registers. The last block to finish (a __threadfence and a counter,
+//   which it resets) folds the B values of P_B.
 // - The workspace (the partials and the counter) is allocated once per
 //   device by the wrapper; launches that share it must not overlap.
 // A second launch for the last fold ran as fast in a CUDA graph and slower
@@ -148,13 +149,18 @@ __global__ void __launch_bounds__(kThreads) df_reduce_kernel(
   const long B = (long)gridDim.x * kKeep;
   const long r = (long)blockIdx.x * kKeep + t % kKeep + B * (t / kKeep);
   const double s = fold_shared(column(x, n, r, (long)gridDim.x * kThreads, lc), kThreads, kKeep);
-  if (t < kKeep) part[blockIdx.x * kKeep + t] = s;
-}
-
-// the second launch: one block folds the B values of P_B
-__global__ void __launch_bounds__(kThreads) df_fold_kernel(const double* part, long B,
-                                                           double* out) {
+  if (t < kKeep) {
+    part[blockIdx.x * kKeep + t] = s;
+    __threadfence();  // the partials are visible before the count says so
+  }
+  __syncthreads();
+  __shared__ bool last;
+  if (t == 0) last = atomicAdd(count, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
   fold_block<true>(part, B, B, out);
+  if (t == 0) *count = 0;
 }
 
 }  // namespace
@@ -173,8 +179,8 @@ extern "C" int tq_df_reduce(const double* x, long n, long m, double* work, doubl
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
     int lc = 0;
     while ((blocks * kThreads << lc) < m) ++lc;
-    df_reduce_kernel<<<(int)blocks, kThreads, 0, st>>>(x, n, m, lc, work, nullptr, out);
-    df_fold_kernel<<<1, kThreads, 0, st>>>(work, blocks * kKeep, out);
+    df_reduce_kernel<<<(int)blocks, kThreads, 0, st>>>(
+        x, n, m, lc, work, reinterpret_cast<unsigned*>(work + kMaxBlocks * kKeep), out);
   }
   return (int)cudaGetLastError();
 }
