@@ -21,17 +21,22 @@ Phases (any failure exits non-zero):
    (chain_eval_df, crown_eval_df, chain_apply_df, crown_apply_df,
    df_reduce_flat) at its first point on the bench path (the coarse
    phase's last duals), all on the headline instance (quadcopter, md=4,
-   Nr=4, Nh=20: 256 scenarios, 4437 nodes); and the generic-tree solver's
+   Nr=4, Nh=20: 256 scenarios, 4437 nodes), with df_reduce_flat also held
+   bit for bit at the edges of its two levels (n in REDUCE_EDGES) and
+   timed, with ``torch.sum``, alone and in a CUDA graph on both vectors;
+   and the generic-tree solver's
    tree-Cholesky kernels (chain_factor, chain_solve_bwd, chain_forward,
    crown_factor, crown_solve) on each of the three instances of section 5
    and on the general C/D tree of section 6 (the pruned tree's timed), at
    the cold start of the headline trees and two iterations into the
    asymmetric tree's solve, with the two sweeps also timed (kernel, plain
    twin, bound, library call, and kernel and library call in a CUDA graph)
-   on each split-path tree, chain_factor's library call
-   (``torch.linalg.cholesky_ex`` of each chain as one matrix), and the
-   sweeps held against their twins at the edges of their shared-memory
-   ring (S=5, L in 1, 2, 17, n in 1, 5, 6, 8, 16); and the general stage
+   on each split-path tree, chain_factor timed the same way on each
+   split-path tree and on sdunes' operands (section 8) beside its library
+   call (``torch.linalg.cholesky_ex`` of each chain as one matrix), and
+   the sweeps and chain_factor held against their twins at the edges of
+   their shared-memory ring (S=5, L in 1, 2, 17, n in 1, 5, 6, 8, 16; and
+   chain_factor at S=4, L=130, n=16); and the general stage
    QPs' ADMM identification (admm_identify) at the first cold stage solve of the general C/D
    headline (all 4437 nodes; timed) and of its mixed instance (its 1478
    general nodes), with the working sets it seeds held equal;
@@ -154,7 +159,10 @@ sdunes solve launches chain_factor once an iteration and both of them once
 a coarse iteration and 1 + its refinement steps times a final iteration,
 and no other kernel; no path but section 9's launches a CR kernel, and the
 MPC path launches the five generic kernels and no other. Prints the JSON
-summary of all 28 kernels, then the device JSON as the last line.
+summary of all 28 kernels (rows chain_factor, chain_solve_bwd,
+chain_forward and df_reduce_flat also with ``graph_ms`` and
+``library_graph_ms``: kernel and library call in a CUDA graph), then the
+device JSON as the last line.
 Imports nothing of JAX.
 """
 
@@ -201,9 +209,10 @@ TRIAL_MARGIN = 1e-4
 # the f64 Hessian action to 1e-12 relative
 BIT_EXACT = 0.0
 DF_RTOL = 1e-12
-# df_reduce_flat's edges: the one-block form up to 4096 values (the
-# kernel's G), then columns of 2, 16 and 512 values; their data's seed
-REDUCE_EDGES = (0, 1, 2, 3, 4095, 4096, 4097, 50000, 2 ** 20 + 3)
+# df_reduce_flat's edges: the one-block form up to 4096 values, then one
+# cluster (columns of 4 and 32 values), then 64 and 128 blocks (columns of
+# 8 and 64 values); their data's seed
+REDUCE_EDGES = (0, 1, 2, 3, 4095, 4096, 4097, 50000, 65537, 2 ** 20 + 3)
 REDUCE_SEED = 18
 # the generic-tree solver (models.GENERIC_SPEED_OPTS) on the headline tree
 # pruned to GEN_SCEN scenarios; KKT bar of the reference's per-MPC-step check
@@ -972,7 +981,7 @@ def main():
     chol_err = factor_m["pruned"][1]
     for name, source, replaces, _, fn, ref_fn, shapes, inputs, ops in checks["pruned"].values():
         errs = {tag: c[name][3] for tag, c in checks.items() if name in c}
-        lib, lib_fn = "", None
+        lib = ""
         if ("pruned", name) in sweep_times:
             lib = (f"; the library call (solve_triangular) |diff| "
                    f"{sweep_lib_errs['pruned', name]:.3e}; kernel / plain / bound / library "
@@ -983,7 +992,7 @@ def main():
         record(name, source, replaces, max(errs.values()), fn, ref_fn,
                f"{shapes}; max |diff| "
                + ", ".join(f"{tag} {e:.3e}" for tag, e in errs.items()) + lib,
-               inputs, ops, lib_fn=lib_fn, m=m)
+               inputs, ops, m=m)
 
     # the ring of the sweep kernels at its edges: chains shorter than, as
     # long as and longer than the ring, odd n (4-byte copies) and even n

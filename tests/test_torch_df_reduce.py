@@ -75,9 +75,11 @@ def test_cpu_wrapper_runs_plain_twin():
 
 # the CUDA kernel's shape (csrc/df_reduce.cu): kThreads threads a block,
 # kCol values a thread folds in registers, one block up to K_SINGLE values,
-# else columns of kCol / 2 values over up to kMaxBlocks blocks
-K_THREADS, K_COL, K_MAX_BLOCKS = 256, 16, 128
+# one cluster of kCluster blocks up to K_CLUSTER_MAX, else columns of
+# kCol / 2 values over up to kMaxBlocks blocks
+K_THREADS, K_COL, K_CLUSTER, K_MAX_BLOCKS = 256, 16, 8, 128
 K_SINGLE = K_THREADS * K_COL
+K_CLUSTER_MAX = K_CLUSTER * K_THREADS * 2 * K_COL
 
 
 def halving(v):
@@ -94,6 +96,8 @@ def brev(q, bits):
 
 def kernel_columns(m):
     """The kernel's column count G for a padded size m > K_SINGLE."""
+    if m <= K_CLUSTER_MAX:
+        return K_CLUSTER * K_THREADS
     return min(m // (K_THREADS * K_COL // 2), K_MAX_BLOCKS) * K_THREADS
 
 
@@ -135,7 +139,8 @@ def kernel_order(a, G):
     return halving(res)
 
 
-SIZES_2L = (0, 1, 2, 3, 1000, K_SINGLE - 1, K_SINGLE, K_SINGLE + 1, 26624, 3 * 2 ** 17 + 5)
+SIZES_2L = (0, 1, 2, 3, 1000, K_SINGLE - 1, K_SINGLE, K_SINGLE + 1, 26624, 50000,
+            3 * 2 ** 17 + 5)
 TWO_LEVEL = [(G, n) for G in (None, 256) for n in SIZES_2L]
 
 

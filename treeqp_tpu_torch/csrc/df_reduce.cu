@@ -15,9 +15,10 @@
 // (c = m / G values), and the sum is the halving fold of P_G; the folds of
 // P_G down to B values pair r with r + h for h a multiple of B. Design:
 // - m <= kG (4096): one block folds x itself.
-// - m > kG: up to kMaxBlocks blocks of kThreads threads, G = blocks
-//   kThreads columns of c >= 8 values (c = 8 at the bench path's
-//   directional derivative, 26,624 values on 16 blocks). Thread t of block
+// - m > kG: blocks of kThreads threads, G = blocks kThreads columns of c
+//   values; up to kClusterMax (65,536) one cluster of 8 blocks (c = 16 at
+//   the bench path's directional derivative, 26,624 values), beyond that
+//   up to kMaxBlocks blocks with c >= 8. Thread t of block
 //   b forms P_G[r] for r = b kKeep + t % kKeep + B (t / kKeep), B = blocks
 //   kKeep: kKeep neighbouring threads read a 32-byte run, and the block
 //   owns whole residues mod B, so its folds of its partials down to kKeep
@@ -27,7 +28,9 @@
 //   in bit-reversed order, which is the same tree: chunks of kCol
 //   consecutive bit-reversed positions (a halving fold of kCol values at
 //   stride c / kCol) combined in order by a binary-counter stack in
-//   registers. The last block to finish (a __threadfence and a counter,
+//   registers. On one cluster the blocks hand their values of P_B to
+//   block 0's shared memory and it folds them after the cluster's barrier;
+//   on more blocks the last block to finish (a __threadfence and a counter,
 //   which it resets) folds the B values of P_B.
 // - The workspace (the partials and the counter) is allocated once per
 //   device by the wrapper; launches that share it must not overlap.
@@ -41,7 +44,11 @@
 // HBM rate (torch.sum is faster there; no path sums that many). No tensor
 // cores: a sum of a vector has no matrix product.
 
+#include <cooperative_groups.h>
+
 #include "tq_eval.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -50,6 +57,9 @@ constexpr int kCol = 16;                    // values a thread folds in register
 constexpr long kG = (long)kThreads * kCol;  // the most values one block folds
 constexpr int kKeep = 4;                    // residues a block owns: 32-byte runs
 constexpr long kMaxBlocks = 128;            // blocks of the two-level form
+constexpr int kCluster = 8;                 // blocks of the one-cluster form
+// the one-cluster form up to columns of 2 kCol values
+constexpr long kClusterMax = (long)kCluster * kThreads * 2 * kCol;
 constexpr int kDepth = 28;                  // binary-counter stack: c / kCol < 2^28
 
 // The halving fold of v[0], v[stride], ..., v[(len-1) stride] (zeros at and
@@ -163,6 +173,24 @@ __global__ void __launch_bounds__(kThreads) df_reduce_kernel(
   if (t == 0) *count = 0;
 }
 
+// kG < m <= kClusterMax: the two-level form on one cluster of kCluster
+// blocks (G = kCluster kThreads columns of 2^lc values); each block writes
+// its kKeep values of P_B into block 0's shared memory, and after the
+// cluster's barrier block 0 folds them: no workspace, fence or counter.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+    df_reduce_cluster_kernel(const double* __restrict__ x, long n, int lc, double* out) {
+  constexpr long B = (long)kCluster * kKeep;
+  __shared__ double pb[B];  // block 0's: P_B
+  cg::cluster_group cluster = cg::this_cluster();
+  const int t = threadIdx.x;
+  const int b = (int)cluster.block_rank();
+  const long r = (long)b * kKeep + t % kKeep + B * (t / kKeep);
+  const double s = fold_shared(column(x, n, r, (long)kCluster * kThreads, lc), kThreads, kKeep);
+  if (t < kKeep) *cluster.map_shared_rank(&pb[b * kKeep + t], 0) = s;
+  cluster.sync();
+  if (b == 0) fold_block<false>(pb, B, B, out);
+}
+
 }  // namespace
 
 // x [n] f64; m = the next power of two >= n (1 for n <= 1); work a
@@ -173,6 +201,10 @@ extern "C" int tq_df_reduce(const double* x, long n, long m, double* work, doubl
   const cudaStream_t st = (cudaStream_t)stream;
   if (m <= kG) {
     df_reduce_kernel<<<1, kThreads, 0, st>>>(x, n, m, -1, work, nullptr, out);
+  } else if (m <= kClusterMax) {
+    int lc = 0;
+    while (((long)kCluster * kThreads << lc) < m) ++lc;
+    df_reduce_cluster_kernel<<<kCluster, kThreads, 0, st>>>(x, n, lc, out);
   } else {
     // columns of kCol / 2 values while blocks last, longer ones beyond
     long blocks = m / (kThreads * (kCol / 2));
