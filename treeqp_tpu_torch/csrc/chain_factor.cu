@@ -31,18 +31,22 @@
 //   ring's depth is fixed, so any L runs.
 // - n is a template parameter (one instantiation per n = 1 .. 16): with a
 //   runtime n every unrolled product sat behind its own branch and nothing
-//   overlapped (2x slower).
-// - n <= 8: every lane holds the step's whole lower block in registers and
-//   factors it itself, right-looking (a_rc -= L_rk L_ck, one FMA a product,
-//   each element meeting its products in ascending k, the order of the
-//   left-looking chol_inplace<false> of tq_dense.cuh): no shuffle, no
-//   shared memory on the Cholesky's path. n > 8 (16 x 16 floats do not fit
-//   a lane's registers): lane i owns row i; lane k's pivot and column k are
-//   broadcast by __shfl_sync.
+//   overlapped (0.0483 against 0.0205 ms in a CUDA graph at S=256, L=16,
+//   n=8, where no lane idles).
+// - Lane i owns row i of the step's block in registers. Cholesky,
+//   right-looking: for k = 0 .. n-1 lane k's pivot is broadcast by
+//   __shfl_sync, every lane takes its rsqrt, lanes i >= k scale their
+//   entry, column k is broadcast by __shfl_sync and lanes i > k fold
+//   a_ij -= L_ik L_jk into their row by one FMA a product. Each element
+//   meets its products in ascending k, the order of the left-looking
+//   chol_inplace<false> (tq_dense.cuh). Ls_j goes to shared memory for
+//   the solve. (Every lane factoring the whole block in its registers, no
+//   shuffle, was 7-10% faster at n = 5, 6 and 2-5% slower at n = 8; not
+//   kept.)
 // - CUs_j = Utc_j Ls_j^-T: lane r runs row r's n true divisions, the step's
 //   critical path. A zero dividend (the lanes past row n-1, sdunes' Utc_0,
 //   the quadcopter's structural zeros) sends the warp's division down its
-//   slow path (1.5-1.8x the kernel's time), so it gets its signed zero and
+//   slow path (1.4-1.8x the kernel's time), so it gets its signed zero and
 //   the lane divides d by d.
 // - schur = CU CU': lane a forms row a from CU's rows in shared memory, each
 //   element summed over k ascending from 0.
@@ -186,111 +190,8 @@ struct Chain {
   }
 };
 
-// N <= 8: every lane of a group of 8 holds the step's whole lower block in
-// registers and factors it itself (the same operations in every lane), so
-// the Cholesky needs no shuffle and no shared memory; lane i then solves
-// row i of CU, writes it to shared memory, and forms row i of schur from
-// CU's rows there, which the next step's lanes read back whole.
 template <int N>
-__global__ void __launch_bounds__(32) chain_factor_whole_kernel(
-    const float* __restrict__ Wc, const float* __restrict__ Utc,
-    float* __restrict__ Ls, float* __restrict__ CUs, float* __restrict__ schur0,
-    int S, int L, int vec16) {
-  extern __shared__ __align__(16) float smem[];
-  using C = Chain<N>;
-  const C ch(smem, S, L);
-  const int i = ch.i;
-  const bool row = i < N;       // the lane owns a row of CU and schur
-  float* sC = ch.work;          // this step's CU
-  float* sS = ch.work + C::BF;  // the previous step's schur
-  for (int t = 0; t < kStages; ++t) ch.fetch(Wc, Utc, t, vec16);
-  float sch[N];  // row i of the previous step's schur
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    sch[k] = 0.f;
-    if (row) sS[i * N + k] = 0.f;
-  }
-  for (int t = 0; t < L; ++t) {
-    ch.arrive();
-    const float* st = ch.stage(t);
-    float a[N][N], u[N];
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-#pragma unroll
-      for (int c = 0; c <= r; ++c) a[r][c] = __fsub_rn(st[r * N + c], sS[r * N + c]);
-      // the pivot a_kk + 0 of chol_inplace<false> (a zero shift; -0 -> +0)
-      a[r][r] = __fadd_rn(a[r][r], 0.f);
-      u[r] = row ? st[C::BF + i * N + r] : 0.f;
-    }
-    __syncwarp();  // the stage and sS are read: refill the stage kStages steps ahead
-    ch.fetch(Wc, Utc, t + kStages, vec16);
-
-    // Ls_j = chol(a), right-looking, in every lane
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const float akk = a[k][k];
-      const float dinv = rsqrtf(fmaxf(akk, tq::kPivotFloor));
-#pragma unroll
-      for (int r = k + 1; r < N; ++r) a[r][k] = __fmul_rn(a[r][k], dinv);
-      a[k][k] = __fmul_rn(akk, dinv);
-#pragma unroll
-      for (int r = k + 1; r < N; ++r) {
-#pragma unroll
-        for (int c = k + 1; c <= r; ++c) a[r][c] = __fmaf_rn(-a[r][k], a[c][k], a[r][c]);
-      }
-    }
-
-    // CU = Ut Ls_j^-T, row i
-#pragma unroll
-    for (int c = 0; c < N; ++c) {
-      float acc = u[c];
-#pragma unroll
-      for (int m = 0; m < c; ++m) acc = __fmaf_rn(-u[m], a[c][m], acc);
-      u[c] = quotient(acc, a[c][c]);
-    }
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      if (row) sC[i * N + k] = u[k];
-    }
-    __syncwarp();
-
-    // schur = CU CU', row i, for the next step
-#pragma unroll
-    for (int c = 0; c < N; ++c) {
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < N; ++k) acc = __fmaf_rn(u[k], sC[c * N + k], acc);
-      sch[c] = acc;
-      if (row) sS[i * N + c] = acc;
-    }
-
-    // this step's blocks: Ls_j row i from the registers, CUs_j from shared
-    // memory, coalesced over the group
-    if (ch.live) {
-      const size_t off = ch.base + (size_t)(L - 1 - t) * C::NN;
-#pragma unroll
-      for (int r = 0; r < N; ++r) {
-        if (r == i) {
-#pragma unroll
-          for (int c = 0; c < N; ++c) Ls[off + r * N + c] = c <= r ? a[r][c] : 0.f;
-        }
-      }
-      ch.store(CUs, off, sC, vec16);
-    }
-  }
-  if (ch.live && row) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) schur0[(size_t)ch.s * C::NN + i * N + k] = sch[k];
-  }
-}
-
-// 8 < N <= 16: a group of 16 lanes, lane i owning row i of the step's
-// block. Cholesky: for k = 0 .. N-1 lane k's pivot is broadcast by
-// __shfl_sync, every lane takes its rsqrt, lanes i >= k scale their entry,
-// column k is broadcast by __shfl_sync and lanes i > k fold a_ij -= L_ik
-// L_jk into their row. Ls_j goes to shared memory for the solve.
-template <int N>
-__global__ void __launch_bounds__(32) chain_factor_rows_kernel(
+__global__ void __launch_bounds__(32) chain_factor_kernel(
     const float* __restrict__ Wc, const float* __restrict__ Utc,
     float* __restrict__ Ls, float* __restrict__ CUs, float* __restrict__ schur0,
     int S, int L, int vec16) {
@@ -383,12 +284,7 @@ int launch(const float* Wc, const float* Utc, float* Ls, float* CUs, float* schu
   const size_t shmem = (size_t)chains * chain_floats(N) * sizeof(float);
   const int vec16 = N % 2 == 0 &&
       (((uintptr_t)Wc | (uintptr_t)Utc | (uintptr_t)Ls | (uintptr_t)CUs) & 15) == 0;
-  if constexpr (N <= 8)
-    chain_factor_whole_kernel<N><<<blocks, 32, shmem, st>>>(Wc, Utc, Ls, CUs, schur0, S, L,
-                                                            vec16);
-  else
-    chain_factor_rows_kernel<N><<<blocks, 32, shmem, st>>>(Wc, Utc, Ls, CUs, schur0, S, L,
-                                                           vec16);
+  chain_factor_kernel<N><<<blocks, 32, shmem, st>>>(Wc, Utc, Ls, CUs, schur0, S, L, vec16);
   return (int)cudaGetLastError();
 }
 
