@@ -736,8 +736,7 @@ def main():
     r_ref = [dr.df_reduce_flat_ref(fx), dr.df_reduce_flat_ref(gx)]
     torch.cuda.synchronize()
     err_r = bit_exact(torch, "df_reduce_flat", r_got, r_ref)
-    # and at the edges of its two levels (one block up to REDUCE_G values,
-    # then columns of 2, 16 and 512 values), on seeded data
+    # and at the edges of its forms (REDUCE_EDGES), on seeded data
     red_rng = np.random.default_rng(REDUCE_SEED)
     for n_r in REDUCE_EDGES:
         x_r = torch.tensor(red_rng.standard_normal(n_r) * 10.0 ** red_rng.integers(-3, 4, n_r),

@@ -166,8 +166,8 @@ def main():
         m = dr._padded_size(n)
         ref = dr.df_reduce_flat_ref(x)
         for name, lib in libs.items():
-            # a zero buffer as large as any library's workspace or scratch
-            # (m / 2 values; 4097 for this work's first forms), each its own
+            # a zero buffer of its own, as large as any library's workspace
+            # or scratch (m / 2 values for the one-block kernel; 4097)
             work = torch.zeros((max(m // 2, 4097),), dtype=torch.float64, device=dev)
             out = torch.empty((), dtype=torch.float64, device=dev)
 

@@ -46,8 +46,8 @@
 // - CUs_j = Utc_j Ls_j^-T: lane r runs row r's n true divisions, the step's
 //   critical path. A zero dividend (the lanes past row n-1, sdunes' Utc_0,
 //   the quadcopter's structural zeros) sends the warp's division down its
-//   slow path (1.4-1.8x the kernel's time), so it gets its signed zero and
-//   the lane divides d by d.
+//   slow path (the pruned shape ran 1.65x slower), so it gets its signed
+//   zero and the lane divides d by d.
 // - schur = CU CU': lane a forms row a from CU's rows in shared memory, each
 //   element summed over k ascending from 0.
 // - Ls_j and CUs_j are written once, coalesced over the group (16-byte
