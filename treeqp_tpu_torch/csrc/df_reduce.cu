@@ -18,9 +18,9 @@
 // - m > kG: blocks of kThreads threads, G = blocks kThreads columns of c
 //   values; up to kClusterMax (65,536) one cluster of 8 blocks (c = 16 at
 //   the bench path's directional derivative, 26,624 values), beyond that
-//   up to kMaxBlocks blocks with c >= 8. Thread t of block
-//   b forms P_G[r] for r = b kKeep + t % kKeep + B (t / kKeep), B = blocks
-//   kKeep: kKeep neighbouring threads read a 32-byte run, and the block
+//   up to kMaxBlocks blocks with c >= 8. Thread t of block b forms P_G[r]
+//   for r = b kKeep + t % kKeep + B (t / kKeep), B = blocks kKeep:
+//   kKeep neighbouring threads read a 32-byte run, and the block
 //   owns whole residues mod B, so its folds of its partials down to kKeep
 //   values (shared memory, then warp shuffles) give P_B at its residues
 //   with no other block's values. A column of c <= kCol values is folded
@@ -39,7 +39,8 @@
 //
 // What bounds it on the card: latency. 26,624 doubles (213 KB) at the bench
 // path's directional derivative are 0.06 us of HBM; a launch is one round
-// of loads per thread, a fence, the counter's atomic and the last fold.
+// of loads per thread, the blocks' folds, the cluster's barrier and block
+// 0's fold.
 // Above ~2^20 values the 128 blocks stream the vector at a fraction of the
 // HBM rate (torch.sum is faster there; no path sums that many). No tensor
 // cores: a sum of a vector has no matrix product.
