@@ -210,8 +210,7 @@ TRIAL_MARGIN = 1e-4
 BIT_EXACT = 0.0
 DF_RTOL = 1e-12
 # df_reduce_flat's edges: the one-block form up to 4096 values, then one
-# cluster (columns of 4 and 32 values), then 64 and 128 blocks (columns of
-# 8 and 64 values); their data's seed
+# cluster (columns of 4, 32, 64 and 1024 values); their data's seed
 REDUCE_EDGES = (0, 1, 2, 3, 4095, 4096, 4097, 50000, 65537, 2 ** 20 + 3)
 REDUCE_SEED = 18
 # the generic-tree solver (models.GENERIC_SPEED_OPTS) on the headline tree

@@ -166,14 +166,15 @@ def main():
         m = dr._padded_size(n)
         ref = dr.df_reduce_flat_ref(x)
         for name, lib in libs.items():
-            # a zero buffer of its own, as large as any library's workspace
-            # or scratch (m / 2 values for the one-block kernel; 4097)
-            work = torch.zeros((max(m // 2, 4097),), dtype=torch.float64, device=dev)
+            # an older library takes a zero scratch of m / 2 values before out
             out = torch.empty((), dtype=torch.float64, device=dev)
+            c_args = [x.data_ptr(), n, m, out.data_ptr()]
+            if len(lib.tq_df_reduce.argtypes) == 6:
+                buf = torch.zeros((m // 2,), dtype=torch.float64, device=dev)
+                c_args.insert(3, buf.data_ptr())
 
             def red():
-                _build.check(lib.tq_df_reduce(x.data_ptr(), n, m, work.data_ptr(),
-                                              out.data_ptr(), st()), f"{name} df_reduce")
+                _build.check(lib.tq_df_reduce(*c_args, st()), f"{name} df_reduce")
             red()
             torch.cuda.synchronize()
             if not torch.equal(out.view(torch.int64), ref.view(torch.int64)):

@@ -75,11 +75,9 @@ def test_cpu_wrapper_runs_plain_twin():
 
 # the CUDA kernel's shape (csrc/df_reduce.cu): kThreads threads a block,
 # kCol values a thread folds in registers, one block up to K_SINGLE values,
-# one cluster of kCluster blocks up to K_CLUSTER_MAX, else columns of
-# kCol / 2 values over up to kMaxBlocks blocks
-K_THREADS, K_COL, K_CLUSTER, K_MAX_BLOCKS = 256, 16, 8, 128
+# else one cluster of kCluster blocks
+K_THREADS, K_COL, K_CLUSTER = 256, 16, 8
 K_SINGLE = K_THREADS * K_COL
-K_CLUSTER_MAX = K_CLUSTER * K_THREADS * 2 * K_COL
 
 
 def halving(v):
@@ -94,13 +92,6 @@ def brev(q, bits):
     return int(format(q, f"0{bits}b")[::-1], 2) if bits else 0
 
 
-def kernel_columns(m):
-    """The kernel's column count G for a padded size m > K_SINGLE."""
-    if m <= K_CLUSTER_MAX:
-        return K_CLUSTER * K_THREADS
-    return min(m // (K_THREADS * K_COL // 2), K_MAX_BLOCKS) * K_THREADS
-
-
 def kernel_order(a, G):
     """The kernel's sum of ``a`` with G columns (the kernel's own count for
     G=None): zero-pad to m; m <= K_SINGLE (G=None) or m <= G: one block (its
@@ -109,8 +100,8 @@ def kernel_order(a, G):
     c <= kCol, else as the pairwise sum over bit-reversed k (chunks of kCol
     consecutive positions, a halving fold each, combined in order by a
     binary-counter stack), then the G partials folded by halving (the
-    kernel's blocks fold them down to their residues, the last block the
-    rest: the same pairs)."""
+    kernel's blocks fold them down to their residues, block 0 the rest: the
+    same pairs)."""
     m = dr._padded_size(a.size)
     x = np.concatenate([a, np.zeros(m - a.size)])
 
@@ -120,7 +111,7 @@ def kernel_order(a, G):
     if G is None:
         if m <= K_SINGLE:
             return block(x)
-        G = kernel_columns(m)
+        G = K_CLUSTER * K_THREADS
     if m <= G:
         return block(x)
     X = x.reshape(-1, G)  # row k: x[k G .. (k + 1) G)

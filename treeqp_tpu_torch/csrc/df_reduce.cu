@@ -15,34 +15,31 @@
 // (c = m / G values), and the sum is the halving fold of P_G; the folds of
 // P_G down to B values pair r with r + h for h a multiple of B. Design:
 // - m <= kG (4096): one block folds x itself.
-// - m > kG: blocks of kThreads threads, G = blocks kThreads columns of c
-//   values; up to kClusterMax (65,536) one cluster of 8 blocks (c = 16 at
-//   the bench path's directional derivative, 26,624 values), beyond that
-//   up to kMaxBlocks blocks with c >= 8. Thread t of block b forms P_G[r]
-//   for r = b kKeep + t % kKeep + B (t / kKeep), B = blocks kKeep:
-//   kKeep neighbouring threads read a 32-byte run, and the block
-//   owns whole residues mod B, so its folds of its partials down to kKeep
+// - m > kG: one cluster of kCluster (8) blocks of kThreads threads, G =
+//   2048 columns of c = m / G values (c = 16 at the bench path's
+//   directional derivative, 26,624 values). Thread t of block b forms
+//   P_G[r] for r = b kKeep + t % kKeep + B (t / kKeep), B = kCluster kKeep:
+//   kKeep neighbouring threads read a 32-byte run, and the block owns
+//   whole residues mod B, so its folds of its partials down to kKeep
 //   values (shared memory, then warp shuffles) give P_B at its residues
 //   with no other block's values. A column of c <= kCol values is folded
 //   by halving in registers; a longer one as the pairwise sum of its values
 //   in bit-reversed order, which is the same tree: chunks of kCol
 //   consecutive bit-reversed positions (a halving fold of kCol values at
 //   stride c / kCol) combined in order by a binary-counter stack in
-//   registers. On one cluster the blocks hand their values of P_B to
-//   block 0's shared memory and it folds them after the cluster's barrier;
-//   on more blocks the last block to finish (a __threadfence and a counter,
-//   which it resets) folds the B values of P_B.
-// - The workspace (the partials and the counter) is allocated once per
-//   device by the wrapper; launches that share it must not overlap.
-// A second launch for the last fold ran as fast in a CUDA graph and slower
-// alone, so the last block does it.
+//   registers. The blocks hand their values of P_B to block 0's shared
+//   memory, and it folds them after the cluster's barrier: no workspace,
+//   fence or counter, and launches on any streams may overlap.
+// The last fold was also measured as a second launch and as the last block
+// to finish over 16 blocks (a fence and a counter); in a CUDA graph the
+// cluster was the fastest of the three (PERF.md), so only it is kept.
 //
 // What bounds it on the card: latency. 26,624 doubles (213 KB) at the bench
 // path's directional derivative are 0.06 us of HBM; a launch is one round
 // of loads per thread, the blocks' folds, the cluster's barrier and block
 // 0's fold.
-// Above ~2^20 values the 128 blocks stream the vector at a fraction of the
-// HBM rate (torch.sum is faster there; no path sums that many). No tensor
+// Above ~2^16 values the 8 SMs stream the vector at a fraction of the HBM
+// rate (torch.sum is faster there; no path sums that many). No tensor
 // cores: a sum of a vector has no matrix product.
 
 #include <cooperative_groups.h>
@@ -57,23 +54,18 @@ constexpr int kThreads = 256;
 constexpr int kCol = 16;                    // values a thread folds in registers
 constexpr long kG = (long)kThreads * kCol;  // the most values one block folds
 constexpr int kKeep = 4;                    // residues a block owns: 32-byte runs
-constexpr long kMaxBlocks = 128;            // blocks of the two-level form
-constexpr int kCluster = 8;                 // blocks of the one-cluster form
-// the one-cluster form up to columns of 2 kCol values
-constexpr long kClusterMax = (long)kCluster * kThreads * 2 * kCol;
+constexpr int kCluster = 8;                 // blocks of the cluster form
 constexpr int kDepth = 28;                  // binary-counter stack: c / kCol < 2^28
 
 // The halving fold of v[0], v[stride], ..., v[(len-1) stride] (zeros at and
-// past n), len a power of two <= kCol. kLdcg reads through L2 only (the
-// partials other blocks wrote).
-template <bool kLdcg>
+// past n), len a power of two <= kCol.
 __device__ __forceinline__ double fold_regs(const double* v, long n, long base, long stride,
                                             int len) {
   double q[kCol];
 #pragma unroll
   for (int k = 0; k < kCol; ++k) {
     const long i = base + k * stride;
-    q[k] = k < len && i < n ? (kLdcg ? __ldcg(v + i) : v[i]) : 0.0;
+    q[k] = k < len && i < n ? v[i] : 0.0;
   }
 #pragma unroll
   for (int h = kCol / 2; h >= 1; h /= 2) {
@@ -87,14 +79,14 @@ __device__ __forceinline__ double fold_regs(const double* v, long n, long base, 
 
 // P_G[r]: the halving fold of the column x[r + k G], k < 2^lc.
 __device__ double column(const double* __restrict__ x, long n, long r, long G, int lc) {
-  if (lc <= 4) return fold_regs<false>(x, n, r, G, 1 << lc);
+  if (lc <= 4) return fold_regs(x, n, r, G, 1 << lc);
   // the pairwise sum over bit-reversed k: chunk q holds the positions
   // kCol q .. kCol q + kCol - 1, i.e. the values at k = brev(q) + t c / kCol
   const int lq = lc - 4;  // log2 of the chunk count
   const long stride = G << lq;
   double stk[kDepth], res = 0.0;
   for (unsigned q = 0; q < (1u << lq); ++q) {
-    double s = fold_regs<false>(x, n, r + G * (long)(__brev(q) >> (32 - lq)), stride, kCol);
+    double s = fold_regs(x, n, r + G * (long)(__brev(q) >> (32 - lq)), stride, kCol);
 #pragma unroll
     for (int l = 0; l < kDepth; ++l) {
       if ((q >> l) & 1u) {
@@ -132,52 +124,23 @@ __device__ double fold_shared(double s, int W, int keep) {
 
 // The halving fold of v[0 .. G) (zeros at and past n) by one block, into
 // *out; G a power of two <= kG.
-template <bool kLdcg>
 __device__ void fold_block(const double* v, long n, long G, double* out) {
   const int t = threadIdx.x;
   const int W = G < kThreads ? (int)G : kThreads;
-  const double s = fold_shared(t < W ? fold_regs<kLdcg>(v, n, t, W, (int)(G / W)) : 0.0, W, 1);
+  const double s = fold_shared(t < W ? fold_regs(v, n, t, W, (int)(G / W)) : 0.0, W, 1);
   if (t == 0) out[0] = s;
 }
 
-// lc < 0: one block folds x (m <= kG). Else the two-level form over
-// gridDim.x blocks: G = gridDim.x kThreads columns of 2^lc values, and
-// B = gridDim.x kKeep residues. Block b owns the residues b kKeep ..
-// b kKeep + kKeep - 1 (mod B): thread t forms P_G[r] for
-// r = b kKeep + t % kKeep + B (t / kKeep), kKeep neighbouring threads on
-// neighbouring addresses. The halving folds of P_G down to B values pair r
-// with r + h for h a multiple of B, so they stay inside the block: its
-// folds of its kThreads partials down to kKeep values give P_B at its
-// residues. The last block to finish folds the B values of P_B.
-__global__ void __launch_bounds__(kThreads) df_reduce_kernel(
-    const double* __restrict__ x, long n, long m, int lc, double* part,
-    unsigned* count, double* out) {
-  if (lc < 0) {
-    fold_block<false>(x, n, m, out);
-    return;
-  }
-  const int t = threadIdx.x;
-  const long B = (long)gridDim.x * kKeep;
-  const long r = (long)blockIdx.x * kKeep + t % kKeep + B * (t / kKeep);
-  const double s = fold_shared(column(x, n, r, (long)gridDim.x * kThreads, lc), kThreads, kKeep);
-  if (t < kKeep) {
-    part[blockIdx.x * kKeep + t] = s;
-    __threadfence();  // the partials are visible before the count says so
-  }
-  __syncthreads();
-  __shared__ bool last;
-  if (t == 0) last = atomicAdd(count, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  fold_block<true>(part, B, B, out);
-  if (t == 0) *count = 0;
+// m <= kG: one block folds x.
+__global__ void __launch_bounds__(kThreads)
+    df_reduce_block_kernel(const double* __restrict__ x, long n, long m, double* out) {
+  fold_block(x, n, m, out);
 }
 
-// kG < m <= kClusterMax: the two-level form on one cluster of kCluster
-// blocks (G = kCluster kThreads columns of 2^lc values); each block writes
-// its kKeep values of P_B into block 0's shared memory, and after the
-// cluster's barrier block 0 folds them: no workspace, fence or counter.
+// m > kG: the two-level form on one cluster of kCluster blocks (G =
+// kCluster kThreads columns of 2^lc values); each block writes its kKeep
+// values of P_B into block 0's shared memory, and after the cluster's
+// barrier block 0 folds them.
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     df_reduce_cluster_kernel(const double* __restrict__ x, long n, int lc, double* out) {
   constexpr long B = (long)kCluster * kKeep;
@@ -189,31 +152,20 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   const double s = fold_shared(column(x, n, r, (long)kCluster * kThreads, lc), kThreads, kKeep);
   if (t < kKeep) *cluster.map_shared_rank(&pb[b * kKeep + t], 0) = s;
   cluster.sync();
-  if (b == 0) fold_block<false>(pb, B, B, out);
+  if (b == 0) fold_block(pb, B, B, out);
 }
 
 }  // namespace
 
-// x [n] f64; m = the next power of two >= n (1 for n <= 1); work a
-// workspace of kMaxBlocks kKeep + 1 f64, zero on first use (the partials,
-// then the counter), which every launch leaves as it found it; out one f64.
-extern "C" int tq_df_reduce(const double* x, long n, long m, double* work, double* out,
-                            void* stream) {
+// x [n] f64; m = the next power of two >= n (1 for n <= 1); out one f64.
+extern "C" int tq_df_reduce(const double* x, long n, long m, double* out, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (m <= kG) {
-    df_reduce_kernel<<<1, kThreads, 0, st>>>(x, n, m, -1, work, nullptr, out);
-  } else if (m <= kClusterMax) {
+    df_reduce_block_kernel<<<1, kThreads, 0, st>>>(x, n, m, out);
+  } else {
     int lc = 0;
     while (((long)kCluster * kThreads << lc) < m) ++lc;
     df_reduce_cluster_kernel<<<kCluster, kThreads, 0, st>>>(x, n, lc, out);
-  } else {
-    // columns of kCol / 2 values while blocks last, longer ones beyond
-    long blocks = m / (kThreads * (kCol / 2));
-    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    int lc = 0;
-    while ((blocks * kThreads << lc) < m) ++lc;
-    df_reduce_kernel<<<(int)blocks, kThreads, 0, st>>>(
-        x, n, m, lc, work, reinterpret_cast<unsigned*>(work + kMaxBlocks * kKeep), out);
   }
   return (int)cudaGetLastError();
 }

@@ -65,8 +65,8 @@ _SIGNATURES = {
     "tq_chain_apply_df": [_P] * 8 + [_I] * 4 + [_P],
     # pointers, Nn, nx, nu, threads, stream
     "tq_crown_apply_df": [_P] + [_I] * 4 + [_P],
-    # x, n, m, work, out, stream
-    "tq_df_reduce": [_P, _L, _L, _P, _P, _P],
+    # x, n, m, out, stream
+    "tq_df_reduce": [_P, _L, _L, _P, _P],
     # the tree Cholesky of the generic-tree solver
     # Wc, Utc, Ls, CUs, schur0, S, L, n, stream
     "tq_chain_factor": [_P] * 5 + [_I] * 3 + [_P],

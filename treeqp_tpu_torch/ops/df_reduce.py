@@ -24,15 +24,6 @@ from treeqp_tpu_torch.ops import _build
 
 __all__ = ["df_reduce_flat", "df_reduce_flat_ref"]
 
-# the kernel's workspace: kMaxBlocks kKeep partials and a counter
-# (csrc/df_reduce.cu)
-_WORK_DOUBLES = 128 * 4 + 1
-_WORK = {}
-# each device's pool of 0-dim outputs: views of one allocation, each handed
-# out once (an allocation a call cost a third of the wrapper's host time)
-_POOL = 1024
-_OUT = {}
-
 
 def _padded_size(n: int) -> int:
     """The next power of two >= n (1 for n <= 1)."""
@@ -49,43 +40,20 @@ def df_reduce_flat_ref(x):
     return x.reshape(())
 
 
-def _work(dev):
-    """The kernel's workspace on ``dev``: the blocks' partials and the count
-    of the blocks that finished, zero; allocated once, and every launch
-    leaves the count zero again."""
-    w = _WORK.get(dev)
-    if w is None:
-        w = _WORK[dev] = torch.zeros((_WORK_DOUBLES,), dtype=torch.float64, device=dev)
-    return w
-
-
-def _out(dev):
-    """A fresh 0-dim f64 tensor on ``dev`` from the device's pool."""
-    try:
-        return next(_OUT[dev])
-    except (KeyError, StopIteration):
-        _OUT[dev] = iter(torch.empty((_POOL,), dtype=torch.float64, device=dev).unbind())
-        return next(_OUT[dev])
-
-
 def df_reduce_flat(x):
     """Sum of the f64 tensor ``x`` (any shape, flattened) as a 0-dim f64
-    tensor, in the fixed halving-fold order of ``df_reduce_flat_ref``.
-    Launches on one stream at a time per device (they share the workspace).
-    The solvers read the result at once, so the host path is kept short:
-    the raw handle of the current stream, no reshape of a flat tensor, the
-    output from a pool."""
+    tensor, in the fixed halving-fold order of ``df_reduce_flat_ref``."""
     if x.device.type == "cpu":
         return df_reduce_flat_ref(x)
     name = "df_reduce_flat"
+    f64 = torch.float64
     dev = x.device
-    if x.dim() != 1 or not x.is_contiguous():
-        x = x.reshape(-1).contiguous()
+    x = x.reshape(-1).contiguous()
     n = x.numel()
-    _build.require(name, "x", x, (n,), dev, torch.float64)
-    out = _out(dev)
-    err = _build.lib().tq_df_reduce(x.data_ptr(), n, _padded_size(n), _work(dev).data_ptr(),
-                                    out.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index))
+    _build.require(name, "x", x, (n,), dev, f64)
+    out = torch.empty((), dtype=f64, device=dev)
+    err = _build.lib().tq_df_reduce(x.data_ptr(), n, _padded_size(n), out.data_ptr(),
+                                    _build.stream(dev))
     _build.check(err, name)
     df_reduce_flat.launches += 1
     return out
