@@ -39,7 +39,11 @@ Phases (any failure exits non-zero):
    chain_factor at S=4, L=130, n=16); and the general stage
    QPs' ADMM identification (admm_identify) at the first cold stage solve of the general C/D
    headline (all 4437 nodes; timed) and of its mixed instance (its 1478
-   general nodes), with the working sets it seeds held equal;
+   general nodes), with the working sets it seeds held equal; and
+   chain_blocks_factor, chain_blocks_factor_lanes and admm_identify at
+   their kernels' edges (BLOCK_EDGES, ADMM_EDGES: one step, chains past
+   the 4-stage ring, nx 1, 5, 16; nz 1 and 16, ng = nz, the 32-lane form,
+   f64) on seeded operands, and the three timed in a CUDA graph too;
 3. the main paths on that instance, each certified by the KKT oracle
    (< 1e-8) and compared with the same solve through the plain twins on
    the CPU: the one-phase solve (slice 1), the two-phase solve (coarse f32
@@ -161,7 +165,9 @@ and no other kernel; no path but section 9's launches a CR kernel, and the
 MPC path launches the five generic kernels and no other. Prints the JSON
 summary of all 28 kernels (rows chain_factor, chain_solve_bwd,
 chain_forward and df_reduce_flat also with ``graph_ms`` and
-``library_graph_ms``: kernel and library call in a CUDA graph), then the
+``library_graph_ms``: kernel and library call in a CUDA graph;
+chain_blocks_factor, chain_blocks_factor_lanes and admm_identify with
+``graph_ms``), then the
 device JSON as the last line.
 Imports nothing of JAX.
 """
@@ -229,6 +235,12 @@ CD_CPU_NR = 2  # the depth of that comparison: 16 scenarios, 309 nodes
 # contraction: held to 1e-6 x max(1, max|lm|), the seeded working sets
 # exactly
 ADMM_RTOL = 1e-6
+# the chain block factors' and admm_identify's kernel edges (one
+# instantiation per nx / nz, a 4-stage ring of the steps' sources, 16 or 32
+# lanes a node), held against the twins on seeded operands: (S, L, nx, nz)
+# and (N, ng, nz), the last one also in f64
+BLOCK_EDGES = ((5, 1, 6, 10), (5, 7, 1, 2), (5, 7, 5, 6), (5, 7, 16, 20), (4, 130, 16, 20))
+ADMM_EDGES = ((37, 1, 1), (37, 16, 16), (37, 9, 9), (37, 17, 9), (37, 32, 16))
 # the bound of a kernel: H100 SXM data-sheet rates (FP32 outside the
 # tensor cores, FP64, HBM3)
 PEAK_FLOPS = {False: 67e12, True: 34e12}
@@ -392,6 +404,45 @@ def chain_blocks_matrix(torch, Wc, Utc):
     return M
 
 
+def block_operands(torch, S, L, nx, nz, seed, dev):
+    """Seeded operands of both chain block factors, one chain system:
+    (ABt, ztp, qtc, s_root) and (ABt, qt, rt, ztp_root, s_root), with
+    ztp_j = (qt, rt)_{j-1} (the root's at j = 0) and qtc = qt as in a dual
+    Hessian. [A B] 0.3 N(0, 1), the x masked inverses in [1, 2], the u and
+    root ones in [0.1, 1.1] with a third zero (clipped bounds): f32 factors
+    within 1e-6 of f64 ones at every edge, so FACTOR_RTOL holds."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def masked(*shape):
+        v = rng.uniform(0.1, 1.1, shape)
+        v[rng.random(shape) < 1 / 3] = 0.0
+        return v
+    f32 = dict(dtype=torch.float32, device=dev)
+    ABt = torch.tensor(0.3 * rng.standard_normal((S, L, nx, nz)), **f32)
+    qt = torch.tensor(rng.uniform(1.0, 2.0, (S, L, nx)), **f32)
+    rt = torch.tensor(masked(S, L, nz - nx), **f32)
+    root = torch.tensor(masked(S, nz), **f32)
+    s_root = torch.tensor(rng.uniform(0.5, 2.0, (S, nx)), **f32)
+    ztp = torch.cat([root[:, None], torch.cat([qt, rt], dim=-1)[:, :-1]], dim=1).contiguous()
+    return (ABt, ztp, qt, s_root), (ABt, qt, rt, root, s_root)
+
+
+def admm_operands(torch, N, ng, nz, dtype, seed, dev):
+    """Seeded ADMM operands (G, L, rho, lo, hi, h, z0): L the f64 Cholesky
+    factor of H + G' diag(rho) G, bounds that clip."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((N, ng, nz))
+    M = rng.standard_normal((N, nz, nz))
+    rho = rng.uniform(0.5, 5.0, (N, ng))
+    K = M @ M.transpose(0, 2, 1) + nz * np.eye(nz) + G.transpose(0, 2, 1) @ (rho[..., None] * G)
+    ops = (G, np.linalg.cholesky(K), rho, -0.3 - rng.uniform(0.0, 1.0, (N, ng)),
+           0.3 + rng.uniform(0.0, 1.0, (N, ng)), 3.0 * rng.standard_normal((N, nz)),
+           rng.standard_normal((N, nz)))
+    return tuple(torch.tensor(a, dtype=dtype, device=dev) for a in ops)
+
+
 def perturbed(qp, ms, fac):
     """Scale the pinned initial state (the root's bound rows) by ``fac``:
     the closed-loop MPC variation of bench.py."""
@@ -540,16 +591,24 @@ def main():
     chain_apply_ops = S_ * L_ * (4 * nx_ * nz_ + 4 * nz_)
     crown_apply_ops = Nc_ * (4 * nx_ * nz_ + 4 * nz_)
 
+    def record_graph(name, source, replaces, err, fn, ref_fn, shapes, inputs, ops, fp64=False):
+        """record() with the kernel's time in a CUDA graph (``graph_ms``)."""
+        m = measure(fn, ref_fn, inputs, ops, fp64)
+        m.update(graph_ms=graph_ms(torch, fn))
+        print(f"{name} ({shapes}): kernel {m['ms']:.4f} ms alone, {m['graph_ms']:.4f} ms in a "
+              f"CUDA graph on {card}")
+        record(name, source, replaces, err, fn, ref_fn, shapes, inputs, ops, fp64, m=m)
+
     c_ref = ck.chain_blocks_factor_ref(*inp["chain"])
     c_got = ck.chain_blocks_factor(*inp["chain"])
     torch.cuda.synchronize()
-    record("chain_blocks_factor", "chain_blocks_factor.cu",
-           "treeqp_tpu/ops/chain_kernels.py:311",
-           compare(torch, "chain_blocks_factor", c_got, c_ref, FACTOR_RTOL),
-           lambda: ck.chain_blocks_factor(*inp["chain"]),
-           lambda: ck.chain_blocks_factor_ref(*inp["chain"]),
-           f"ABt {tuple(inp['chain'][0].shape)}", inp["chain"],
-           chain_factor_ops(inp["chain"][0].shape, build=True))
+    record_graph("chain_blocks_factor", "chain_blocks_factor.cu",
+                 "treeqp_tpu/ops/chain_kernels.py:311",
+                 compare(torch, "chain_blocks_factor", c_got, c_ref, FACTOR_RTOL),
+                 lambda: ck.chain_blocks_factor(*inp["chain"]),
+                 lambda: ck.chain_blocks_factor_ref(*inp["chain"]),
+                 f"ABt {tuple(inp['chain'][0].shape)}", inp["chain"],
+                 chain_factor_ops(inp["chain"][0].shape, build=True))
 
     Ls, CUs, schur0, sc = c_ref
     Wadd = -tm._schur_scatter(schur0, ctx["g_of"], ctx["slot"], prep, prep.nxm)
@@ -618,13 +677,26 @@ def main():
     l_ref = ck.chain_blocks_factor_lanes_ref(*largs)
     l_got = ck.chain_blocks_factor_lanes(*largs)
     torch.cuda.synchronize()
-    record("chain_blocks_factor_lanes", "chain_blocks_factor.cu",
-           "treeqp_tpu/ops/chain_kernels.py:534",
-           compare(torch, "chain_blocks_factor_lanes", l_got, l_ref, FACTOR_RTOL),
-           lambda: ck.chain_blocks_factor_lanes(*largs),
-           lambda: ck.chain_blocks_factor_lanes_ref(*largs),
-           f"ABt {tuple(largs[0].shape)}", largs,
-           chain_factor_ops(largs[0].shape, build=True))
+    record_graph("chain_blocks_factor_lanes", "chain_blocks_factor.cu",
+                 "treeqp_tpu/ops/chain_kernels.py:534",
+                 compare(torch, "chain_blocks_factor_lanes", l_got, l_ref, FACTOR_RTOL),
+                 lambda: ck.chain_blocks_factor_lanes(*largs),
+                 lambda: ck.chain_blocks_factor_lanes_ref(*largs),
+                 f"ABt {tuple(largs[0].shape)}", largs,
+                 chain_factor_ops(largs[0].shape, build=True))
+    # both forms at their kernel's edges, kernel against twin
+    edge_err = 0.0
+    for k, (S_e, L_e, nx_e, nz_e) in enumerate(BLOCK_EDGES):
+        st_e, la_e = block_operands(torch, S_e, L_e, nx_e, nz_e, k, dev)
+        what = f"at S={S_e}, L={L_e}, nx={nx_e}, nz={nz_e}"
+        edge_err = max(edge_err,
+                       compare(torch, f"chain_blocks_factor {what}", ck.chain_blocks_factor(*st_e),
+                               ck.chain_blocks_factor_ref(*st_e), FACTOR_RTOL),
+                       compare(torch, f"chain_blocks_factor_lanes {what}",
+                               ck.chain_blocks_factor_lanes(*la_e),
+                               ck.chain_blocks_factor_lanes_ref(*la_e), FACTOR_RTOL))
+    print(f"chain_blocks_factor(_lanes) at their kernel's edges {BLOCK_EDGES} (S, L, nx, nz): "
+          f"max |diff| to the twins {edge_err:.3e}")
 
     iter_keys = ("dcr", "dch", "lam2_cr", "lam2_ch", "res2_cr", "res2_ch", "x",
                  "u", "cx", "cu", "xUnc", "uUnc", "cxUnc", "cuUnc")
@@ -1087,13 +1159,25 @@ def main():
     got64, ref64 = ql.admm_identify(*a64, it_a), ql.admm_identify_ref(*a64, it_a)
     torch.cuda.synchronize()
     errs_a["qpgen f64"] = compare(torch, "admm_identify (f64)", [got64], [ref64], ADMM_RTOL)
-    record("admm_identify", "admm_identify.cu", "treeqp_tpu/ops/qpgen_lanes.py:189",
-           max(errs_a.values()), lambda: ql.admm_identify(*ac[0], it_a),
-           lambda: ql.admm_identify_ref(*ac[0], it_a),
-           f"{ac[3]}; mixed subset {am[3]}, "
-           f"{cuda_ms(torch, lambda: ql.admm_identify(*am[0], it_a), 20):.4f} ms; at the "
-           f"coarse phase's end: qpgen {checks_a['qpgen'][1][3]}, mixed "
-           f"{checks_a['mixed'][1][3]}; max |diff| {max(errs_a.values()):.3e}", ac[0], ac[2])
+    # at the kernel's edges, f32 and f64, on seeded operands
+    for k, (N_e, ng_e, nz_e) in enumerate(ADMM_EDGES):
+        f64_too = k >= len(ADMM_EDGES) - 2
+        for dt_e in (torch.float32, torch.float64) if f64_too else (torch.float32,):
+            a_e = admm_operands(torch, N_e, ng_e, nz_e, dt_e, k, dev)
+            errs_a[f"edge {k} {dt_e}"] = compare(
+                torch, f"admm_identify at N={N_e}, ng={ng_e}, nz={nz_e}, {dt_e}",
+                [ql.admm_identify(*a_e, it_a)], [ql.admm_identify_ref(*a_e, it_a)], ADMM_RTOL)
+    print(f"admm_identify at its kernel's edges {ADMM_EDGES} (N, ng, nz; the last two also "
+          f"in f64): max |diff| to the twin "
+          f"{max(v for t, v in errs_a.items() if t.startswith('edge')):.3e}")
+    record_graph("admm_identify", "admm_identify.cu", "treeqp_tpu/ops/qpgen_lanes.py:189",
+                 max(errs_a.values()), lambda: ql.admm_identify(*ac[0], it_a),
+                 lambda: ql.admm_identify_ref(*ac[0], it_a),
+                 f"{ac[3]}; mixed subset {am[3]}, "
+                 f"{cuda_ms(torch, lambda: ql.admm_identify(*am[0], it_a), 20):.4f} ms; at the "
+                 f"coarse phase's end: qpgen {checks_a['qpgen'][1][3]}, mixed "
+                 f"{checks_a['mixed'][1][3]}; max |diff| {max(errs_a.values()):.3e}",
+                 ac[0], ac[2])
 
     for r in results:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin "

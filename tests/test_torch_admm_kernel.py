@@ -17,11 +17,13 @@ stage solve hands to the kernel)."""
 import functools
 from unittest import mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from benchmarks import general_cd_bench as gcb
 from benchmarks import models as jmodels
 from treeqp_tpu.core.qp_data import TREEQP_INF
@@ -175,3 +177,56 @@ def test_wrapper_rejects_bad_operands(bad):
         args[1] = z(N, nz, nz + 1)
     with pytest.raises(ValueError, match="admm_identify"):
         ql.admm_identify(*args, iters)
+
+
+# The CUDA kernel's edges (csrc/admm_identify.cu: one instantiation per nz,
+# 16 lanes a node for ng <= 16, 32 beyond), the shapes and seeded operands
+# the smoke holds the kernel to its twin at: one column, sixteen, ng = nz,
+# the 32-lane form and the widest
+EDGES = {f"N{N}_ng{ng}_nz{nz}": (k, (N, ng, nz))
+         for k, (N, ng, nz) in enumerate(chip_smoke.ADMM_EDGES)}
+KEYS = ("G", "L", "rho", "lo", "hi", "h", "z0")
+
+
+@pytest.mark.parametrize("edge", sorted(EDGES))
+def test_admm_twin_matches_pallas_at_kernel_edges(edge):
+    """The f32 twin against the interpret-mode Pallas kernel at the CUDA
+    kernel's edge shapes, on ``chip_smoke.admm_operands``."""
+    k, shape = EDGES[edge]
+    args = chip_smoke.admm_operands(torch, *shape, torch.float32, k, torch.device("cpu"))
+    ref = pallas_lm(dict(zip(KEYS, (a.numpy() for a in args))))
+    got = ql.admm_identify_ref(*args, ITERS).numpy()
+    assert got.shape == ref.shape == tuple(args[2].shape)
+    assert np.isfinite(got).all() and (np.abs(ref) > 0).any()
+    assert float(np.abs(got - ref).max()) <= RTOL * max(1.0, float(np.abs(ref).max()))
+
+
+def test_admm_twin_f64_matches_jax_node_major_loop():
+    """The f64 twin (qpgen_factor_dtype="same" on f64 data) against the
+    JAX package's node-major ADMM loop of ``_qpgen_batch``'s cold start in
+    f64 (batched triangular solves and einsums: another order of
+    summation), at the widest edge (the 32-lane form)."""
+    k = len(chip_smoke.ADMM_EDGES) - 1
+    args = chip_smoke.admm_operands(torch, *chip_smoke.ADMM_EDGES[k], torch.float64, k,
+                                    torch.device("cpu"))
+    G, L, rho, lo, hi, h, z0 = (jnp.asarray(a.numpy()) for a in args)
+
+    def z_update(v):
+        return jax.lax.linalg.triangular_solve(
+            L, jax.lax.linalg.triangular_solve(L, v[..., None], left_side=True, lower=True),
+            left_side=True, lower=True, transpose_a=True)[..., 0]
+
+    def admm_step(_, carry):
+        z, y, lm = carry
+        z = z_update(h + jnp.einsum("ngz,ng->nz", G, rho * (y - lm)))
+        t = jnp.einsum("ngz,nz->ng", G, z) + lm
+        y = jnp.clip(t, lo, hi)
+        return (z, y, t - y)
+
+    y0 = jnp.clip(jnp.einsum("ngz,nz->ng", G, z0), lo, hi)
+    _, _, lm = jax.lax.fori_loop(0, ITERS, admm_step, (z0, y0, jnp.zeros_like(y0)))
+    ref = np.asarray(lm)
+    assert ref.dtype == np.float64
+    got = ql.admm_identify_ref(*args, ITERS).numpy()
+    assert got.dtype == np.float64 and np.isfinite(got).all()
+    assert float(np.abs(got - ref).max()) <= RTOL * max(1.0, float(np.abs(ref).max()))

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from benchmarks import models as jmodels
 from treeqp_tpu.ops import chain_kernels as jck
 
@@ -92,3 +93,43 @@ def test_chain_blocks_factor_rejects_non_cuda_device():
     _, _, _, inp = factor_inputs("quadcopter", "half")
     with pytest.raises(ValueError, match="expected"):
         ck.chain_blocks_factor(*(t.to("meta") for t in inp["chain"]))
+
+
+# The CUDA kernel's edges (csrc/chain_blocks_factor.cu: one instantiation
+# per nx, a 4-stage ring of the steps' sources), the shapes and seeded
+# operands the smoke holds the kernel to its twin at: one step, L past the
+# ring, nx = 1, an odd nx and the widest, nx = 16 (the L = 130 chain is
+# left to the card: the interpret-mode Pallas kernel unrolls its steps).
+EDGES = {f"S{S}_L{L}_nx{nx}_nz{nz}": (k, (S, L, nx, nz))
+         for k, (S, L, nx, nz) in enumerate(chip_smoke.BLOCK_EDGES) if L <= 7}
+
+
+@pytest.mark.parametrize("form", ["stacked", "lanes"])
+@pytest.mark.parametrize("edge", sorted(EDGES))
+def test_chain_blocks_factor_edges_match_pallas(edge, form):
+    """Both twins against the interpret-mode Pallas kernels at the CUDA
+    kernel's edge shapes (``chip_smoke.block_operands``: one chain system
+    in both forms; the lanes form's Pallas kernel takes the chain
+    evaluation's lane layout, padded to its 128 lanes)."""
+    k, (S, L, nx, nz) = EDGES[edge]
+    stacked, lanes = chip_smoke.block_operands(torch, S, L, nx, nz, k, torch.device("cpu"))
+    if form == "stacked":
+        got = ck.chain_blocks_factor_ref(*stacked)
+        ref = jck.chain_blocks_factor(*(jnp.asarray(t.numpy()) for t in stacked))
+    else:
+        got = ck.chain_blocks_factor_lanes_ref(*lanes)
+        ABt, qt, rt, root, s_root = (t.numpy() for t in lanes)
+        pad = lambda v, fill: np.concatenate(
+            [v, np.full(v.shape[:-1] + (128 - S,), fill, np.float32)], axis=-1)
+        ref = jck.chain_blocks_factor_lanes(
+            jnp.asarray(pad(np.transpose(ABt, (1, 2, 3, 0)), 0.0)),
+            jnp.asarray(pad(np.transpose(qt, (1, 2, 0)), 1.0)),
+            jnp.asarray(pad(np.transpose(rt, (1, 2, 0)), 0.0)),
+            jnp.asarray(root), jnp.asarray(s_root))
+    jLs, jCUs, jschur0, jsc = ref
+    lanes4 = lambda v: np.transpose(np.asarray(v)[..., :S], (3, 0, 1, 2))
+    Ls, CUs, schur0, sc = got
+    assert_close(Ls, lanes4(jLs), RTOL, "Ls")
+    assert_close(CUs, lanes4(jCUs), RTOL, "CUs")
+    assert_close(schur0, jschur0, RTOL, "schur0")
+    assert_close(sc, jsc, RTOL, "sc")

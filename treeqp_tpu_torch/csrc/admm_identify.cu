@@ -1,5 +1,5 @@
 // Scaled ADMM active-set identification of all general stage QPs, the
-// whole iteration loop in one launch, one thread per node.
+// whole iteration loop in one launch, a group of lanes per node.
 //
 // Replaces the Pallas kernel admm_identify of treeqp_tpu/ops/qpgen_lanes.py
 // (reached through the cold start of tdunes._qpgen_batch; it seeds the
@@ -22,71 +22,126 @@
 // therefore reproduces the kernel bit for bit, and the working sets derived
 // from lm agree exactly.
 //
-// What bounds it on the card: latency. Each thread runs iters x
-// (4 ng nz + 2 nz^2) dependent operations alone. G and L (171 values a node
-// at the general C/D trees' nz = 9, ng = 10) are read from global memory
-// through the read-only cache on every iteration, the iterates live in
-// local arrays, and 32-thread blocks spread the nodes over all SMs. The
-// bound (the operations at the FP32 peak) is a few microseconds; a warp per
-// node, or G and L staged in shared memory, is the redesign for speed.
+// What bounds it on the card: latency. An iteration is a chain of ~nz
+// dependent divisions in each triangular solve plus the sums around them
+// (~4 ng nz + 2 nz^2 operations a node); the operations at the FP32 peak
+// take a few microseconds for all nodes. The thread-per-node kernel this
+// replaces kept its iterates in a local-memory frame and read G and L
+// through L1 on every iteration (~20k cycles an iteration). Design:
+// - A group of GL lanes takes a node: GL = 16 when ng <= 16, else 32.
+//   Lane g owns row g of G with rho_g, lo_g, hi_g, y_g and lm_g; lane k
+//   owns column k of G, h_k and row k of L's solves. G and L are read into
+//   registers once per launch; the iterates stay in registers and move by
+//   __shfl_sync. nz is a template parameter (one instantiation per
+//   nz = 1 .. 16, as chain_factor.cu's per n), so every loop is unrolled
+//   and every array index constant.
+// - G'u: lane k folds G_gk u_g in over g ascending, u_g broadcast from
+//   lane g; h_k is added last.
+// - L w = rhs, right-looking: lane m divides once its row is complete and
+//   broadcasts w_m; lanes i > m fold in L_im w_m, so each row meets its
+//   products in ascending m, the twin's order.
+// - L' z = w, left-looking: for i = nz-1 .. 0 lane i folds in L_mi z_m over
+//   m ascending from i+1 (every lane holds the z_m solved so far) and
+//   divides; z_i is broadcast. This keeps the twin's ascending m.
+// - Only the lane whose quotient is broadcast divides its own dividend; the
+//   others divide d by d, and a zero dividend gets its signed zero without
+//   dividing (a zero or special dividend sends the whole warp's division
+//   down its slow path).
+// - t_g = G_g z + lm_g on lane g from the broadcast z; y_g, lm_g by the clip.
 
 #include "tq_eval.cuh"
+#include "tq_lanes.cuh"
 
 namespace {
 
 constexpr int kMaxNz = 16;  // stage dim nz = nxm + num the kernel takes
 constexpr int kMaxNg = 32;  // constraint rows ng = nz + ncm
-constexpr int kThreads = 32;
+constexpr int kThreads = 128;
 
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+template <typename T, int NZ>
+__device__ __forceinline__ T dot(const T (&a)[NZ], const T (&b)[NZ]) {
+  T acc = T(0);
+#pragma unroll
+  for (int c = 0; c < NZ; ++c) acc = tq::add(acc, tq::mul(a[c], b[c]));
+  return acc;
+}
 
-template <typename T>
+template <typename T, int NZ, int GL>
 __global__ void __launch_bounds__(kThreads) admm_identify_kernel(
     const T* __restrict__ G, const T* __restrict__ L, const T* __restrict__ rho,
     const T* __restrict__ lo, const T* __restrict__ hi, const T* __restrict__ h,
-    const T* __restrict__ z0, T* __restrict__ lm_out, int N, int ng, int nz,
-    int iters) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const T* Gn = G + (size_t)n * ng * nz;
-  const T* Ln = L + (size_t)n * nz * nz;
-  const T* rn = rho + (size_t)n * ng;
-  const T* lon = lo + (size_t)n * ng;
-  const T* hin = hi + (size_t)n * ng;
-  const T* hn = h + (size_t)n * nz;
-  T y[kMaxNg], lm[kMaxNg], z[kMaxNz];
-  for (int k = 0; k < nz; ++k) z[k] = z0[(size_t)n * nz + k];
-  for (int g = 0; g < ng; ++g) {
-    y[g] = tq::clip(tq::row_dot(Gn, z, g, nz, nz), lon[g], hin[g]);
-    lm[g] = T(0);
-  }
+    const T* __restrict__ z0, T* __restrict__ lm_out, int N, int ng, int iters) {
+  const int lane = threadIdx.x % GL;
+  const int node = (blockIdx.x * kThreads + threadIdx.x) / GL;
+  const bool live = node < N;  // a group past the last node stores nothing
+  const size_t n = live ? node : N - 1;
+  const bool grow = lane < ng;  // owns row g = lane of G
+  const bool kcol = lane < NZ;  // owns column k = lane of G and row k of L
+  const int g = grow ? lane : 0;
+  const int k = kcol ? lane : 0;
+  const T* Gn = G + n * ng * NZ;
+  const T* Ln = L + n * NZ * NZ;
+  T Gr[NZ], Gc[GL], Lx[NZ], z[NZ];
+#pragma unroll
+  for (int c = 0; c < NZ; ++c) Gr[c] = Gn[g * NZ + c];
+#pragma unroll
+  for (int r = 0; r < GL; ++r) Gc[r] = r < ng ? Gn[r * NZ + k] : T(0);
+  // L_km left of the diagonal (the forward solve), L_mk below it (the back
+  // solve)
+#pragma unroll
+  for (int m = 0; m < NZ; ++m) Lx[m] = m < k ? Ln[k * NZ + m] : Ln[m * NZ + k];
+  const T d = kcol ? Ln[k * NZ + k] : T(1);
+  const T rh = rho[n * ng + g], lo_g = lo[n * ng + g], hi_g = hi[n * ng + g];
+  const T hk = h[n * NZ + k];
+#pragma unroll
+  for (int c = 0; c < NZ; ++c) z[c] = z0[n * NZ + c];
+  T y = tq::clip(dot(Gr, z), lo_g, hi_g);
+  T lm = T(0);
   for (int it = 0; it < iters; ++it) {
     // right-hand side h + G'(rho (y - lm)): the sum over g first, h last
-    for (int k = 0; k < nz; ++k) z[k] = T(0);
-    for (int g = 0; g < ng; ++g) {
-      const T u = tq::mul(rn[g], tq::sub(y[g], lm[g]));
-      for (int k = 0; k < nz; ++k) z[k] = tq::add(z[k], tq::mul(Gn[g * nz + k], u));
+    const T u = tq::mul(rh, tq::sub(y, lm));
+    T w = T(0);
+#pragma unroll
+    for (int r = 0; r < GL; ++r) {
+      const T ur = __shfl_sync(tq::kFull, u, r, GL);
+      if (r < ng) w = tq::add(w, tq::mul(Gc[r], ur));
     }
-    for (int k = 0; k < nz; ++k) z[k] = tq::add(hn[k], z[k]);
-    // z = L'^-1 L^-1 rhs, in place
-    for (int i = 0; i < nz; ++i) {
-      T acc = z[i];
-      for (int m = 0; m < i; ++m) acc = tq::sub(acc, tq::mul(Ln[i * nz + m], z[m]));
-      z[i] = div_rn(acc, Ln[i * nz + i]);
+    w = tq::add(hk, w);
+    // L w = rhs
+#pragma unroll
+    for (int m = 0; m < NZ; ++m) {
+      const T wm = __shfl_sync(tq::kFull, tq::quotient(w, d, lane == m), m, GL);
+      if (lane > m) w = tq::sub(w, tq::mul(Lx[m], wm));
+      if (lane == m) w = wm;
     }
-    for (int i = nz - 1; i >= 0; --i) {
-      T acc = z[i];
-      for (int m = i + 1; m < nz; ++m) acc = tq::sub(acc, tq::mul(Ln[m * nz + i], z[m]));
-      z[i] = div_rn(acc, Ln[i * nz + i]);
+    // L' z = w
+#pragma unroll
+    for (int i = NZ - 1; i >= 0; --i) {
+      T a = w;
+#pragma unroll
+      for (int m = i + 1; m < NZ; ++m) a = tq::sub(a, tq::mul(Lx[m], z[m]));
+      z[i] = __shfl_sync(tq::kFull, tq::quotient(a, d, lane == i), i, GL);
     }
-    for (int g = 0; g < ng; ++g) {
-      const T t = tq::add(tq::row_dot(Gn, z, g, nz, nz), lm[g]);
-      y[g] = tq::clip(t, lon[g], hin[g]);
-      lm[g] = tq::sub(t, y[g]);
-    }
+    const T t = tq::add(dot(Gr, z), lm);
+    y = tq::clip(t, lo_g, hi_g);
+    lm = tq::sub(t, y);
   }
-  for (int g = 0; g < ng; ++g) lm_out[(size_t)n * ng + g] = lm[g];
+  if (live && grow) lm_out[n * ng + lane] = lm;
+}
+
+template <typename T, int NZ>
+int launch_nz(const T* G, const T* L, const T* rho, const T* lo, const T* hi, const T* h,
+              const T* z0, T* lm, int N, int ng, int iters, cudaStream_t st) {
+  const int GL = ng <= 16 ? 16 : 32;
+  const long long threads = (long long)N * GL;
+  const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  if (GL == 16)
+    admm_identify_kernel<T, NZ, 16><<<blocks, kThreads, 0, st>>>(G, L, rho, lo, hi, h, z0,
+                                                                 lm, N, ng, iters);
+  else
+    admm_identify_kernel<T, NZ, 32><<<blocks, kThreads, 0, st>>>(G, L, rho, lo, hi, h, z0,
+                                                                 lm, N, ng, iters);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -95,10 +150,17 @@ int launch(const T* G, const T* L, const T* rho, const T* lo, const T* hi,
            void* stream) {
   if (N <= 0 || nz <= 0 || nz > kMaxNz || ng < nz || ng > kMaxNg || iters < 0)
     return (int)cudaErrorInvalidValue;
-  admm_identify_kernel<T><<<(N + kThreads - 1) / kThreads, kThreads, 0,
-                            (cudaStream_t)stream>>>(G, L, rho, lo, hi, h, z0, lm, N,
-                                                    ng, nz, iters);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (nz) {
+#define TQ_NZ(NZ_) \
+  case NZ_:        \
+    return launch_nz<T, NZ_>(G, L, rho, lo, hi, h, z0, lm, N, ng, iters, st);
+    TQ_NZ(1) TQ_NZ(2) TQ_NZ(3) TQ_NZ(4) TQ_NZ(5) TQ_NZ(6) TQ_NZ(7) TQ_NZ(8)
+    TQ_NZ(9) TQ_NZ(10) TQ_NZ(11) TQ_NZ(12) TQ_NZ(13) TQ_NZ(14) TQ_NZ(15) TQ_NZ(16)
+#undef TQ_NZ
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

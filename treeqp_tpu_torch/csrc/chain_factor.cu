@@ -52,10 +52,11 @@
 //   element summed over k ascending from 0.
 // - Ls_j and CUs_j are written once, coalesced over the group (16-byte
 //   stores when the copies are); schur0 lane i row i.
-// Every sum keeps the order of the thread-per-chain body tq::chain_factor_bwd
-// (tq_chain.cuh) that this kernel ran until it was redesigned, each product
-// folded in by one FMA as nvcc contracts that body, with rsqrtf and true
-// divisions: the results are that kernel's bit for bit.
+// The step (tq_lanes.cuh's factor_step, shared with chain_blocks_factor.cu)
+// keeps the order of the thread-per-chain body both kernels ran until they
+// were redesigned (a left-looking Cholesky, then CU and schur element by
+// element), each product folded in by one FMA as nvcc contracted that body,
+// with rsqrtf and true divisions: the results are that kernel's bit for bit.
 // No tensor cores: a step is a dependent factorization of one n <= 16 block,
 // where wgmma needs 64-row tiles and mma.sync would pad n = 6 to 16 with no
 // batch dimension inside a chain.
@@ -65,49 +66,14 @@
 
 #include <cstdint>
 
-#include "tq_dense.cuh"
+#include "tq_lanes.cuh"
 
 namespace {
 
+using tq::block_floats;
+using tq::lanes;
+
 constexpr int kStages = 3;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's newest copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x / d rounded as the division rounds. A zero x sends the warp's division
-// down its slow path, so a zero x over a finite nonzero d is answered by its
-// signed zero and the lane divides d by d; the empty asm keeps the compiler
-// from dividing x itself and selecting after.
-__device__ __forceinline__ float quotient(float x, float d) {
-  const bool zero = x == 0.f && d != 0.f && isfinite(d);
-  float y = zero ? d : x;
-  asm("" : "+f"(y));
-  const float q = y / d;
-  return zero ? __int_as_float((__float_as_int(x) ^ __float_as_int(d)) & 0x80000000) : q;
-}
-
-// N N floats rounded up to 4, so that every area starts 16-byte aligned.
-__host__ __device__ constexpr int block_floats(int N) { return (N * N + 3) & ~3; }
 
 // A chain's shared memory: the ring of kStages stages [Wc_j | Utc_j], then
 // two work blocks; 4 floats more, so that the chains of a warp start on
@@ -115,9 +81,6 @@ __host__ __device__ constexpr int block_floats(int N) { return (N * N + 3) & ~3;
 __host__ __device__ constexpr int chain_floats(int N) {
   return (2 * kStages + 2) * block_floats(N) + 4;
 }
-
-// Lanes a chain: 8 for n <= 8, 16 for n <= 16.
-__host__ __device__ constexpr int lanes(int N) { return N <= 8 ? 8 : 16; }
 
 // A chain's group of lanes(N) lanes and its ring, for blocks of N x N; a
 // group past the last chain reads the last chain's blocks and stores
@@ -156,23 +119,23 @@ struct Chain {
       if (vec16) {
 #pragma unroll
         for (int q = 4 * i; q < NN; q += 4 * G) {
-          cp_async16(st + q, Wc + off + q);
-          cp_async16(st + BF + q, Utc + off + q);
+          tq::cp_async16(st + q, Wc + off + q);
+          tq::cp_async16(st + BF + q, Utc + off + q);
         }
       } else {
 #pragma unroll
         for (int e = i; e < NN; e += G) {
-          cp_async4(st + e, Wc + off + e);
-          cp_async4(st + BF + e, Utc + off + e);
+          tq::cp_async4(st + e, Wc + off + e);
+          tq::cp_async4(st + BF + e, Utc + off + e);
         }
       }
     }
-    cp_async_commit();
+    tq::cp_async_commit();
   }
 
   // Step t's stage has landed and every lane of the group sees it.
   __device__ void arrive() const {
-    cp_async_wait<kStages - 1>();
+    tq::cp_async_wait<kStages - 1>();
     __syncwarp();
   }
 
@@ -221,47 +184,7 @@ __global__ void __launch_bounds__(32) chain_factor_kernel(
     __syncwarp();  // the stage is read: refill it kStages steps ahead
     ch.fetch(Wc, Utc, t + kStages, vec16);
 
-    // Ls_j = chol(a), right-looking
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const float akk = __shfl_sync(kFull, a[k], k, G);
-      const float dinv = rsqrtf(fmaxf(akk, tq::kPivotFloor));
-      const float lik = __fmul_rn(a[k], dinv);
-      if (i >= k) a[k] = lik;
-#pragma unroll
-      for (int c = k + 1; c < N; ++c) {
-        const float lck = __shfl_sync(kFull, lik, c, G);
-        if (i >= c) a[c] = __fmaf_rn(-lik, lck, a[c]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      if (row) sL[i * N + k] = k > i ? 0.f : a[k];
-    }
-    __syncwarp();
-
-    // CU = Ut Ls_j^-T, row i
-#pragma unroll
-    for (int c = 0; c < N; ++c) {
-      float acc = u[c];
-#pragma unroll
-      for (int m = 0; m < c; ++m) acc = __fmaf_rn(-u[m], sL[c * N + m], acc);
-      u[c] = quotient(acc, sL[c * N + c]);
-    }
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      if (row) sC[i * N + k] = u[k];
-    }
-    __syncwarp();
-
-    // schur = CU CU', row i
-#pragma unroll
-    for (int c = 0; c < N; ++c) {
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < N; ++k) acc = __fmaf_rn(u[k], sC[c * N + k], acc);
-      sch[c] = acc;
-    }
+    tq::factor_step<N, G>(a, u, sch, sL, sC, i);
 
     // this step's blocks, once, coalesced over the group
     if (ch.live) {

@@ -50,46 +50,19 @@
 
 #include <cstdint>
 
-#include "tq_dense.cuh"
+#include "tq_lanes.cuh"
 
 namespace {
 
+using tq::cp_async16;
+using tq::cp_async4;
+using tq::cp_async_commit;
+using tq::cp_async_wait;
+using tq::kFull;
+using tq::quotient;
+
 constexpr int kWarps = 1;
 constexpr int kStages = 3;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's newest copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x / d for the lane whose quotient is broadcast (``own``), rounded as the
-// division rounds; d is the lane's own diagonal (1 past row n-1). A zero
-// (or any special) dividend sends the whole warp's division down its slow
-// path, so the other lanes divide d by d, and a zero x over a finite
-// nonzero d is answered by its signed zero without dividing.
-__device__ __forceinline__ float quotient(float x, float d, bool own) {
-  const bool zero = x == 0.f && d != 0.f && isfinite(d);
-  const float q = (own && !zero ? x : d) / d;
-  return zero ? __int_as_float((__float_as_int(x) ^ __float_as_int(d)) & 0x80000000) : q;
-}
 
 // A stage holds [Ls_j (n n) | CUs_j (n n) | v_j (n)], its stride rounded up
 // to 4 floats so that every stage starts 16-byte aligned.

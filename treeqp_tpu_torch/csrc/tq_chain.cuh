@@ -1,8 +1,7 @@
-// Per-chain banded block routines, one thread per chain: the backward
-// block Cholesky (chain_blocks_factor.cu) and the two solve sweeps of a
-// chain of L nodes (system_solve.cu and newton_iter.cu, through
-// tq_system.cuh). chain_factor.cu and chain_sweeps.cu run the same sums in
-// the same order with a lane group per chain, bit for bit these bodies.
+// Per-chain banded block routines, one thread per chain: the two solve
+// sweeps of a chain of L nodes (system_solve.cu and newton_iter.cu, through
+// tq_system.cuh). chain_sweeps.cu runs the same sums in the same order with
+// a lane group per chain, bit for bit these bodies.
 //
 // The pointers address chain s's slice: Ls, CUs [L, n, n], vectors [L, n],
 // row-major, j = 0 the node next to the crown. Same operation order as the
@@ -12,33 +11,6 @@
 #include "tq_dense.cuh"
 
 namespace tq {
-
-// Banded backward block Cholesky, in place: on entry Ls_j holds the block
-// W_j and CUs_j the coupling Ut_j to node j-1 (the crown parent at j = 0);
-// for j = L-1 .. 0:
-//   Ls_j = chol(W_j - schur) (pivot floor 1e-8, no shift),
-//   CUs_j = Ut_j Ls_j^-T,  schur = CUs_j CUs_j'.
-// schur [n, n] ends as the Schur block flowing into the crown.
-__device__ inline void chain_factor_bwd(float* __restrict__ Ls,
-                                        float* __restrict__ CUs,
-                                        float* __restrict__ schur, int L, int n) {
-  const int nn = n * n;
-  for (int k = 0; k < nn; ++k) schur[k] = 0.f;
-  for (int j = L - 1; j >= 0; --j) {
-    float* Lj = Ls + (size_t)j * nn;
-    float* CU = CUs + (size_t)j * nn;
-    for (int k = 0; k < nn; ++k) Lj[k] -= schur[k];
-    chol_inplace<false>(Lj, n, 0.f);
-    rtrsm_t_inplace(Lj, CU, n, n);
-    for (int a = 0; a < n; ++a) {
-      for (int c = 0; c < n; ++c) {
-        float acc = 0.f;
-        for (int k = 0; k < n; ++k) acc += CU[a * n + k] * CU[c * n + k];
-        schur[a * n + c] = acc;
-      }
-    }
-  }
-}
 
 // Right-hand-side backward sweep: for j = L-1 .. 0
 //   y_j = Ls_j^-1 (r_j - radd),  radd = CUs_j y_j

@@ -188,7 +188,12 @@ def check(err: int, name: str) -> None:
 
 def require(name: str, arg: str, t, shape, device, dtype=torch.float32):
     """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``
-    on the CUDA ``device`` — what the kernels take."""
+    on the CUDA ``device`` — what the kernels take. One test on the path
+    that passes (a kernel wrapper calls this for every operand of every
+    launch); the message is worked out only on the path that raises."""
+    if (isinstance(t, torch.Tensor) and t.dtype == dtype and t.shape == shape
+            and t.device == device and device.type == "cuda" and t.is_contiguous()):
+        return
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: {arg} must be a tensor")
     if t.device != device or t.device.type != "cuda":
@@ -216,5 +221,10 @@ def int_array(values):
 
 
 def stream(device) -> int:
-    """Handle of PyTorch's current CUDA stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """Raw handle of PyTorch's current CUDA stream on ``device``, the one
+    way every wrapper takes its stream. Read at every launch, not cached:
+    the current stream is per thread and changes under ``torch.cuda.stream``
+    and during CUDA graph capture. The raw read skips the ``torch.cuda.Stream``
+    object that ``torch.cuda.current_stream`` builds."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

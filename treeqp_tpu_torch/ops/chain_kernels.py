@@ -32,6 +32,9 @@ __all__ = ["chain_factor", "chain_factor_ref", "chain_solve_bwd",
            "chain_blocks_factor_lanes", "chain_blocks_factor_lanes_ref",
            "CHAIN_DATA_KEYS", "chain_eval_data", "chain_eval", "chain_eval_ref"]
 
+# the largest nz = nx + nu the chain block factor kernels take
+MAX_BLOCK_NZ = 64
+
 # chain_eval_data's fields, in the order the CUDA kernels read them
 CHAIN_DATA_KEYS = ("ABt", "q", "r", "Qd", "Rd", "Qinv", "Rinv", "xmin", "xmax",
                    "umin", "umax", "b")
@@ -235,9 +238,9 @@ def chain_blocks_factor_ref(ABt, ztp, qtc, s_root):
 
 def _factor_outputs(name, ABt):
     """The factor kernels' outputs (Ls, CUs, schur0, sc), after the shape
-    check they share."""
+    check they share (nx <= 16, nx <= nz <= 64: the kernels' ring)."""
     S, L, nx, nz = ABt.shape
-    if not (0 < nx <= 16 and nx <= nz and S > 0 and L > 0):
+    if not (0 < nx <= 16 and nx <= nz <= MAX_BLOCK_NZ and S > 0 and L > 0):
         raise ValueError(f"{name}: unsupported shape {tuple(ABt.shape)}")
     f32 = dict(dtype=torch.float32, device=ABt.device)
     return (torch.empty((S, L, nx, nx), **f32), torch.empty((S, L, nx, nx), **f32),
