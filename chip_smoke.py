@@ -241,6 +241,23 @@ ADMM_RTOL = 1e-6
 # and (N, ng, nz), the last one also in f64
 BLOCK_EDGES = ((5, 1, 6, 10), (5, 7, 1, 2), (5, 7, 5, 6), (5, 7, 16, 20), (4, 130, 16, 20))
 ADMM_EDGES = ((37, 1, 1), (37, 16, 16), (37, 9, 9), (37, 17, 9), (37, 32, 16))
+# newton_iter's kernel edges (one cluster of 8 blocks of 512 threads, 8 or
+# 16 lanes a chain), held against the twin in both modes at the coarse
+# phase's first iteration: (model, its arguments); more chains than the
+# cluster's sweep groups at a small depth (quadcopter: 1024 chains of L =
+# 3, a 1365-node crown), nx = 16 (the 16-lane sweeps, crown groups of 32
+# rows, a warp's), three chains of nx = 8, and crown groups of 48 rows
+# (nx = 16, 3 kids: the crown solved in one block)
+ITER_EDGES = (("quadcopter", (4, 5, 8)), ("spring_mass_chain", (8, 2, 2, 6)),
+              ("spring_mass_chain", (4, 3, 1, 5)), ("spring_mass_chain", (8, 3, 1, 4)))
+# ric_chain_factor's kernel edges (8 or 16 lanes a chain, one instantiation
+# per nz, a 3-stage ring), held against the twin on seeded operands with
+# diagonal and dense hbar: (S, L, nx, nz): one stage, nz 8 and 9 on either
+# side of the lane switch, nz = 16 with nx = 15, nz = 2, a long chain; S = 5
+# is no multiple of the chains a warp holds
+RIC_EDGES = ((5, 1, 8, 9), (5, 7, 7, 8), (5, 7, 8, 9), (5, 7, 15, 16), (5, 7, 1, 2),
+             (4, 40, 8, 9))
+RIC_REG = 1e-8  # the Levenberg-Marquardt shift of Muu at those edges
 # the bound of a kernel: H100 SXM data-sheet rates (FP32 outside the
 # tensor cores, FP64, HBM3)
 PEAK_FLOPS = {False: 67e12, True: 34e12}
@@ -404,6 +421,21 @@ def chain_blocks_matrix(torch, Wc, Utc):
     return M
 
 
+def chain_factor_matrix(torch, Ls, CUs):
+    """chain_factor's factors Ls, CUs [S, L, n, n] of chains without a
+    parent coupling (CUs_0 = 0) as each chain's lower [L n, L n] Cholesky
+    factor, the block order reversed (Ls_{L-1-k} on the diagonal, CUs_{L-k}
+    below it): chain_full_solve_mat(Ls, CUs, rhs) solves with its product,
+    as torch.cholesky_solve does."""
+    S, L, n, _ = Ls.shape
+    F = torch.zeros((S, L * n, L * n), dtype=Ls.dtype, device=Ls.device)
+    for k in range(L):
+        F[:, k * n:(k + 1) * n, k * n:(k + 1) * n] = Ls[:, L - 1 - k]
+        if k:
+            F[:, k * n:(k + 1) * n, (k - 1) * n:k * n] = CUs[:, L - k]
+    return F
+
+
 def block_operands(torch, S, L, nx, nz, seed, dev):
     """Seeded operands of both chain block factors, one chain system:
     (ABt, ztp, qtc, s_root) and (ABt, qt, rt, ztp_root, s_root), with
@@ -441,6 +473,54 @@ def admm_operands(torch, N, ng, nz, dtype, seed, dev):
            0.3 + rng.uniform(0.0, 1.0, (N, ng)), 3.0 * rng.standard_normal((N, nz)),
            rng.standard_normal((N, nz)))
     return tuple(torch.tensor(a, dtype=dtype, device=dev) for a in ops)
+
+
+def iter_edge_qp(name, args):
+    """The multistage QP of an ITER_EDGES entry, on the CPU."""
+    from treeqp_tpu_torch import models
+    m = getattr(models, name)(*args, device="cpu")
+    return m.qp if hasattr(m, "qp") else m[0]
+
+
+def iter_operands(torch, qp, dev):
+    """newton_iter's arguments in both modes at the coarse phase's first
+    iteration of the multistage QP ``qp`` (f32 data, duals 0): the eval
+    mode's, then the iter mode's, with the residuals and the active set of
+    the twin's evaluation there and ``_ms_factorize``'s factors of that set
+    (two-phase options)."""
+    from treeqp_tpu_torch.ops import iter_kernel as ik
+    from treeqp_tpu_torch.solvers import tdunes as td
+    from treeqp_tpu_torch.solvers import tdunes_multistage as tm
+    ms32 = tm.split_multistage(qp).to(dev).to(dtype=torch.float32)
+    meta = ms32.meta
+    prep = td._get_prep(meta.crown_topo)
+    data_ch, data_cr = tm._eval_data(ms32, prep)
+    state = dict(lam_cr=torch.zeros((meta.crown_topo.Nn, meta.crown_topo.nxm),
+                                    dtype=torch.float32, device=dev),
+                 lam_ch=torch.zeros_like(ms32.q))
+    ev = ik.newton_iter_ref(data_ch, data_cr, None, state, prep, meta.root_ids, mode="eval")
+    fact = tm._ms_factorize(ms32, ev["qtilde"], ev["rtilde"], ev["qt"], ev["rt"],
+                            td.TdunesOpts(**TWO_PHASE_OPTS), prep, tm._solve_ctx(ms32, prep),
+                            lanes=True)
+    istate = dict(state, res_cr=ev["res2_cr"], res_ch=ev["res2_ch"])
+    return ((data_ch, data_cr, None, state, prep, meta.root_ids),
+            (data_ch, data_cr, fact, istate, prep, meta.root_ids))
+
+
+def ric_operands(torch, S, L, nx, nz, dense, seed, dev):
+    """Seeded ric_chain_factor operands (hbar, AB): AB 0.5 N(0, 1) /
+    sqrt(nz), hbar diagonal in [1, 2], or dense B B' / nz plus that
+    diagonal (B N(0, 1)): every stage's Muu well conditioned and W bounded
+    along any L, so FACTOR_RTOL holds."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    AB = torch.tensor(0.5 * rng.standard_normal((S, L, nx, nz)) / np.sqrt(nz), **f32)
+    hb = rng.uniform(1.0, 2.0, (S, L, nz))
+    if dense:
+        B = rng.standard_normal((S, L, nz, nz))
+        hb = B @ np.swapaxes(B, -1, -2) / nz + hb[..., None] * np.eye(nz)
+    return torch.tensor(hb, **f32), AB
 
 
 def perturbed(qp, ms, fac):
@@ -735,14 +815,62 @@ def main():
         rtilde=near_bound(torch, i_ref["cuUnc"], data_cr["umin"], data_cr["umax"],
                           data_cr["um"]))
     exempt = compare_sets(torch, "newton_iter(iter)", i_got, i_ref, set_keys, near)
+
+    def check_iter(what, ev_args, it_args):
+        """newton_iter in both modes against its twin (eval to EVAL_RTOL
+        with the active sets equal, iter to SOLVE_RTOL with those bits held
+        away from a bound); returns (max |diff|, bits exempted)."""
+        e_got = ik.newton_iter(*ev_args, mode="eval")
+        e_ref = ik.newton_iter_ref(*ev_args, mode="eval")
+        torch.cuda.synchronize()
+        worst = compare(torch, f"newton_iter(eval) {what}", iter_outputs(e_got),
+                        iter_outputs(e_ref), EVAL_RTOL)
+        compare_sets(torch, f"newton_iter(eval) {what}", e_got, e_ref, set_keys)
+        t_got = ik.newton_iter(*it_args, mode="iter")
+        t_ref = ik.newton_iter_ref(*it_args, mode="iter")
+        torch.cuda.synchronize()
+        worst = max(worst, compare(torch, f"newton_iter(iter) {what}", iter_outputs(t_got),
+                                   iter_outputs(t_ref), SOLVE_RTOL))
+        dc, dr = it_args[0], it_args[1]
+        near_e = dict(
+            qt=near_bound(torch, t_ref["xUnc"], dc["xmin"], dc["xmax"],
+                          torch.ones_like(dc["xmin"])),
+            rt=near_bound(torch, t_ref["uUnc"], dc["umin"], dc["umax"],
+                          torch.ones_like(dc["umin"])),
+            qtilde=near_bound(torch, t_ref["cxUnc"], dr["xmin"], dr["xmax"], dr["xm"]),
+            rtilde=near_bound(torch, t_ref["cuUnc"], dr["umin"], dr["umax"], dr["um"]))
+        return worst, compare_sets(torch, f"newton_iter(iter) {what}", t_got, t_ref,
+                                   set_keys, near_e)
+
+    # the kernel's edges (ITER_EDGES), both modes
+    iter_edge_err, iter_edge_exempt = 0.0, 0
+    for model, margs in ITER_EDGES:
+        e, x = check_iter(f"{model}{margs}", *iter_operands(torch, iter_edge_qp(model, margs),
+                                                            dev))
+        iter_edge_err, iter_edge_exempt = max(iter_edge_err, e), iter_edge_exempt + x
+    print(f"newton_iter at its kernel's edges {ITER_EDGES} (both modes): max |diff| to the "
+          f"twin {iter_edge_err:.3e}, iter-mode active-set bits exempt near a bound "
+          f"{iter_edge_exempt}")
+    m_iter = measure(lambda: ik.newton_iter(*iargs, mode="iter"),
+                     lambda: ik.newton_iter_ref(*iargs, mode="iter"),
+                     (data_ch, data_cr, fact, state, ik.iter_sched(prep, meta.root_ids, dev)),
+                     system_ops + chain_eval_ops + crown_eval_ops)
+    m_iter.update(graph_ms=graph_ms(torch, lambda: ik.newton_iter(*iargs, mode="iter")))
+    g_eval = graph_ms(torch, lambda: ik.newton_iter(*iargs[:2], None,
+                                                    dict(lam_cr=lam_cr32, lam_ch=lam_ch32),
+                                                    *iargs[4:], mode="eval"))
+    print(f"newton_iter (S={meta.S}, L={meta.L}): iter {m_iter['ms']:.4f} ms alone, "
+          f"{m_iter['graph_ms']:.4f} ms in a CUDA graph; eval {ms_eval:.4f} ms alone, "
+          f"{g_eval:.4f} ms in a CUDA graph on {card}")
     record("newton_iter", "newton_iter.cu", "treeqp_tpu/ops/iter_kernel.py:79",
-           max(err, err_eval), lambda: ik.newton_iter(*iargs, mode="iter"),
+           max(err, err_eval, iter_edge_err), lambda: ik.newton_iter(*iargs, mode="iter"),
            lambda: ik.newton_iter_ref(*iargs, mode="iter"),
            f"S={meta.S} L={meta.L} crown {data_cr['ABt'].shape[0]} nodes; mode eval "
-           f"{ms_eval:.4f} ms, max |diff| {err_eval:.3e}; iter-mode active-set "
-           f"bits exempt near a bound: {exempt}",
+           f"{ms_eval:.4f} ms (graph {g_eval:.4f} ms), max |diff| {err_eval:.3e}; iter-mode "
+           f"active-set bits exempt near a bound: {exempt}; edges {ITER_EDGES} max |diff| "
+           f"{iter_edge_err:.3e}",
            (data_ch, data_cr, fact, state, ik.iter_sched(prep, meta.root_ids, dev)),
-           system_ops + chain_eval_ops + crown_eval_ops)
+           system_ops + chain_eval_ops + crown_eval_ops, m=m_iter)
 
     # the high-precision phase's kernels at its first point on the bench
     # path: the duals the coarse phase ends with
@@ -1684,6 +1812,21 @@ def main():
                        sched_c.on(dev)),
                       Nc_c * (stage_ops(nx_, nz_, "bwd") + stage_ops(nx_, nz_, "fwd") + nz_)
                       + chol_ops(nx_) + 4 * nx_ * nx_)
+    # ric_chain_factor at its kernel's edges (RIC_EDGES), both hbar forms
+    ric_edge_err = 0.0
+    for k, (S_e, L_e, nx_e, nz_e) in enumerate(RIC_EDGES):
+        for dense in (False, True):
+            hbar_e, AB_e = ric_operands(torch, S_e, L_e, nx_e, nz_e, dense, k, dev)
+            got_f, got_w = rk.ric_chain_factor(hbar_e, AB_e, reg=RIC_REG)
+            ref_f, ref_w = rk.ric_chain_factor_ref(hbar_e, AB_e, reg=RIC_REG)
+            torch.cuda.synchronize()
+            pick = lambda f, w: [f[q] for q in ("P", "Luu", "K", "Mxu")] + [w]
+            ric_edge_err = max(ric_edge_err, compare(
+                torch, f"ric_chain_factor at S={S_e}, L={L_e}, nx={nx_e}, nz={nz_e}, "
+                f"{'dense' if dense else 'diagonal'} hbar", pick(got_f, got_w),
+                pick(ref_f, ref_w), FACTOR_RTOL))
+    print(f"ric_chain_factor at its kernel's edges {RIC_EDGES} (S, L, nx, nz; diagonal and "
+          f"dense hbar): max |diff| to the twin {ric_edge_err:.3e}")
     # timed at path A (the chain kernels: the dense headline) and path B
     # (the crown kernels: the 341-node crown with the chains' terms); the
     # other paths' differences and times go into the shapes note
@@ -1701,8 +1844,20 @@ def main():
                     "ric_chain_fwd": "riccati_kernels.py:193",
                     "crown_ric_factor": "crown_riccati.py:98",
                     "crown_ric_solve": "crown_riccati.py:170"}[name]
-        record(name, source, f"treeqp_tpu/ops/{replaces}", max(r[0] for r in runs.values()),
-               fn, ref_fn, f"path {timed} {shapes}, |diff| {err:.3e}; {others}", inputs, ops)
+        m = None
+        note = ""
+        if name == "ric_chain_factor":
+            m = measure(fn, ref_fn, inputs, ops)
+            m.update(graph_ms=graph_ms(torch, fn))
+            note = (f"; {m['graph_ms']:.4f} ms in a CUDA graph; edges {RIC_EDGES} max |diff| "
+                    f"{ric_edge_err:.3e}")
+            err = max(err, ric_edge_err)
+            print(f"ric_chain_factor (path {timed} {shapes}): {m['ms']:.4f} ms alone, "
+                  f"{m['graph_ms']:.4f} ms in a CUDA graph on {card}")
+        record(name, source, f"treeqp_tpu/ops/{replaces}",
+               max([r[0] for r in runs.values()] + ([ric_edge_err] if m else [])),
+               fn, ref_fn, f"path {timed} {shapes}, |diff| {err:.3e}; {others}{note}", inputs,
+               ops, m=m)
     for r in results[-5:]:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library call none, "
@@ -1892,13 +2047,21 @@ def main():
                           [ck.chain_full_solve_mat_ref(Ls5, CUs5, r)], SOLVE_RTOL)
                for m, r in ((1 + nl, r5), (1, r1))}
     S_s, L_s, n_s, _ = Ls5.shape
+    # the library call: torch.cholesky_solve with each chain's factor as one
+    # lower [L n, L n] matrix, the right-hand sides in its block order
+    F5 = chain_factor_matrix(torch, Ls5, CUs5)
+    B5 = torch.flip(r5, (1,)).reshape(S_s, L_s * n_s, -1).contiguous()
+    lib_z = torch.flip(torch.cholesky_solve(B5, F5).reshape(r5.shape), (1,))
+    err_lib = float((lib_z - ck.chain_full_solve_mat(Ls5, CUs5, r5)).abs().max())
     record("chain_full_solve_mat", "chain_full_solve.cu", "treeqp_tpu/ops/chain_kernels.py:261",
            max(errs_fs.values()), lambda: ck.chain_full_solve_mat(Ls5, CUs5, r5),
            lambda: ck.chain_full_solve_mat_ref(Ls5, CUs5, r5),
            f"Ls {tuple(Ls5.shape)}, m={1 + nl} (the iteration's first solve; after {c0} coarse "
            f"iterations); m=1 {cuda_ms(torch, lambda: ck.chain_full_solve_mat(Ls5, CUs5, r1), 20):.4f}"
-           f" ms, |diff| {errs_fs[1]:.3e}; chain_factor there |diff| {err_cf:.3e}",
-           (Ls5, CUs5, r5), S_s * (1 + nl) * L_s * 6 * n_s * n_s)
+           f" ms, |diff| {errs_fs[1]:.3e}; chain_factor there |diff| {err_cf:.3e}; library "
+           f"call cholesky_solve of the [L n, L n] factor, |diff| to the kernel {err_lib:.3e}",
+           (Ls5, CUs5, r5), S_s * (1 + nl) * L_s * 6 * n_s * n_s,
+           lib_fn=lambda: torch.cholesky_solve(B5, F5))
     # the Jay system: held to its twin at the cold start (the first coarse
     # iteration); at the first final-phase iteration it is near singular
     # (clipped couplings; only the 1e-6 shift holds it), where an f32
@@ -1976,8 +2139,9 @@ def main():
            f"{err_jb:.3e}, bound {nbytes(torch, jb, x_b) / PEAK_BYTES * 1e3:.6f} ms",
            (dg, of, rj, kw["shift"]), jay_ops(dg.shape[0], dg.shape[-1]))
     for r in results[-2:]:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library call none, "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library call {lib}, "
               f"max |diff| {r['max_abs_err']:.3e} [{r['shapes']}] on {card}")
 
     def sd_line(what, info, kkt, t_ms, launches, extra=""):

@@ -39,22 +39,34 @@ MARGIN = 1e-6
 f32 = torch.float32
 
 
+def split_case(qp_j):
+    """The port's multistage split of the JAX package's tree QP ``qp_j``."""
+    return tm.split_multistage(convert.qp_from_numpy(convert.qp_arrays(qp_j),
+                                                     convert.topo_from(qp_j.topo),
+                                                     device="cpu"))
+
+
 @functools.lru_cache(maxsize=None)
 def path_case(name, point):
     """Both sides' f32 evaluation data, and a dual point w * (the two-phase
     solution) of the port, masked as the solver carries it."""
     qp_j = CASES[name]()
-    ms = tm.split_multistage(convert.qp_from_numpy(convert.qp_arrays(qp_j),
-                                                   convert.topo_from(qp_j.topo),
-                                                   device="cpu"))
+    ms = split_case(qp_j)
     cro, cho, info = tm.tdunes_ms_solve(ms, None, None, TWO_PHASE)
     assert info["status"] == 0 and info["iter_f32"] >= 1
+    w = POINTS[point]
+    return eval_case(qp_j, ms, w * cro["lam"], w * cho["lam"])
+
+
+def eval_case(qp_j, ms, lam_cr, lam_ch):
+    """Both sides' f32 evaluation data of ``qp_j`` (``ms`` the port's split
+    of it) and the dual point (lam_cr, lam_ch), masked as the solver
+    carries it."""
     ms32 = ms.to(dtype=f32)
     prep = td._get_prep(ms.meta.crown_topo)
     data_ch, data_cr = tm._eval_data(ms32, prep)
-    w = POINTS[point]
-    lam_cr = (w * cro["lam"]).to(f32) * data_cr["nrxm"]
-    lam_ch = (w * cho["lam"]).to(f32)
+    lam_cr = lam_cr.to(f32) * data_cr["nrxm"]
+    lam_ch = lam_ch.to(f32)
     ms_j = jtm._cast_ms(jtm.split_multistage(qp_j), jnp.float32)
     jprep = jtd._get_prep(ms_j.meta.crown_topo)
     jdata_ch = jck.chain_eval_data(ms_j.A, ms_j.B, ms_j.q, ms_j.r, ms_j.Qd, ms_j.Rd,

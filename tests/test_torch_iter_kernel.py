@@ -16,9 +16,10 @@ from treeqp_tpu.ops import chain_kernels as jck
 from treeqp_tpu.ops import crown_kernels as jckr
 from treeqp_tpu.ops import iter_kernel as jik
 
+from benchmarks import models as jmodels
 from test_torch_chain_kernels import CASES, POINTS, assert_close
-from test_torch_eval_kernels import (EVAL_RTOL, TWO_PHASE, assert_margin,
-                                     lanes_to_chains, path_case)
+from test_torch_eval_kernels import (EVAL_RTOL, TWO_PHASE, assert_margin, eval_case,
+                                     lanes_to_chains, path_case, split_case)
 from test_torch_system_kernels import jax_layout
 from treeqp_tpu_torch.ops import iter_kernel as ik
 from treeqp_tpu_torch.solvers import tdunes_multistage as tm
@@ -29,6 +30,26 @@ torch.set_num_threads(1)
 # solves on both sides with another summation order
 # (tests/test_torch_system_kernels.py)
 SOLVE_RTOL = 1e-4
+# the CUDA kernel's edges (chip_smoke.ITER_EDGES, within the TPU kernel's
+# caps), at the coarse phase's first iteration (duals 0): more chains than
+# one of its blocks' 512 threads at L = 1 (1024 chains, a 1365-node crown),
+# and nx = 16 (its 16-lane sweeps, crown groups of 32 rows) on a small tree
+EDGES = {"scen1024_L1": lambda: jmodels.quadcopter(4, 5, 6).qp,
+         "nx16": lambda: jmodels.spring_mass_chain(nm=8, md=2, Nr=1, Nh=3)[0]}
+CASE_POINTS = ([(p, n) for p in sorted(POINTS) for n in sorted(CASES)]
+               + [("zero", n) for n in sorted(EDGES)])
+
+
+def case_at(name, point):
+    """path_case's operands of a case at a path point, or of an edge tree at
+    duals 0."""
+    if name in CASES:
+        return path_case(name, point)
+    qp_j = EDGES[name]()
+    ms = split_case(qp_j)
+    return eval_case(qp_j, ms, torch.zeros((ms.meta.crown_topo.Nn, ms.meta.crown_topo.nxm),
+                                           dtype=torch.float64),
+                     torch.zeros_like(ms.q))
 
 
 def lanes(v, width):
@@ -44,7 +65,7 @@ def iter_case(name, point):
     """Both sides' operands of one fused iteration at a path point: the
     residuals and active set there (from the eval mode of the twin), and
     the factors of that active set."""
-    c = path_case(name, point)
+    c = case_at(name, point)
     ms, prep = c["ms"], c["prep"]
     root_ids = ms.meta.root_ids
     state = dict(lam_cr=c["lam_cr"], lam_ch=c["lam_ch"])
@@ -67,8 +88,7 @@ def iter_case(name, point):
 
 
 @pytest.mark.parametrize("mode", ["iter", "eval"])
-@pytest.mark.parametrize("name", sorted(CASES))
-@pytest.mark.parametrize("point", sorted(POINTS))
+@pytest.mark.parametrize("point,name", CASE_POINTS)
 def test_newton_iter_matches_pallas(mode, name, point):
     c, fact, state, jfact, jstate = iter_case(name, point)
     ms, Nn = c["ms"], c["data_cr"]["ABt"].shape[0]

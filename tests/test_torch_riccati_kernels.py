@@ -26,10 +26,15 @@ torch.set_num_threads(1)
 # f32 on both sides, the same per-element order, FMA-free on the CPU:
 # factors to 1e-5 x max(1, max|ref|), solves to 1e-4 (ROADMAP tolerances)
 FACTOR_RTOL, SOLVE_RTOL = 1e-5, 1e-4
-# (S, L, nx, nz, dense)
+# (S, L, nx, nz, dense); the last three at the CUDA kernel's edges
+# (chip_smoke.RIC_EDGES): nz 8 and 9 on either side of its 8 / 16-lane
+# switch, nz = 16 with nx = 15 in one stage, S = 5 no multiple of the
+# chains a warp holds, both hbar forms
 CHAIN_CASES = {"diag": (5, 4, 4, 5, False), "dense": (5, 4, 4, 5, True),
                "diag_two_controls": (3, 3, 3, 5, False),
-               "dense_S144": (144, 2, 2, 3, True)}
+               "dense_S144": (144, 2, 2, 3, True),
+               "diag_nz8": (5, 3, 7, 8, False), "dense_nz9": (5, 3, 8, 9, True),
+               "dense_nz16_nx15_L1": (5, 1, 15, 16, True)}
 
 
 def close(got, ref, rtol, what):

@@ -20,10 +20,10 @@
 //   32 / G chains a warp and one warp a block (128 chains of n = 6 take 32
 //   SMs). Lane i owns row i of the step's vector, in a register.
 // - The chain's blocks Ls_j, CUs_j and the step's vector are streamed
-//   through a ring of kStages stages of shared memory per chain with
+//   through a ring of kSweepStages stages of shared memory per chain with
 //   cp.async (16-byte copies, coalesced over the group's lanes, when n is
 //   even and the factors 16-byte aligned; 4-byte copies otherwise), up to
-//   kStages steps ahead of the step computed. The ring's depth is fixed,
+//   kSweepStages steps ahead of the step computed. The ring's depth is fixed,
 //   so any L runs; no chain is staged whole.
 // - The dependent arithmetic stays in registers and shuffles. Ls_j^-1 t:
 //   for k = 0 .. n-1 lane k divides by its diagonal, __shfl_sync
@@ -37,9 +37,10 @@
 //   floats a chain and step.
 // Every sum runs in the order of tq_dense.cuh's ltrsv_inplace /
 // uttrsv_inplace and of tq_chain.cuh's per-thread bodies (which
-// system_solve.cu and newton_iter.cu keep), each product folded in by one
-// FMA as nvcc contracts those bodies, and the divisions are true
-// divisions: the results equal the thread-per-chain kernels' bit for bit.
+// system_solve.cu keeps), each product folded in by one FMA as nvcc
+// contracts those bodies, and the divisions are true divisions: the
+// results equal the thread-per-chain kernels' bit for bit. The two steps
+// are tq_lanes.cuh's sweep_bwd / sweep_fwd, which newton_iter.cu runs too.
 // No tensor cores: a step is a dependent triangular solve of n <= 16 rows,
 // where wgmma needs 64-row tiles and mma.sync would pad n = 6 to 16 with no
 // batch dimension inside a chain.
@@ -54,121 +55,33 @@
 
 namespace {
 
-using tq::cp_async16;
-using tq::cp_async4;
-using tq::cp_async_commit;
-using tq::cp_async_wait;
-using tq::kFull;
-using tq::quotient;
+using tq::kSweepStages;
+using tq::sweep_stage_floats;
 
 constexpr int kWarps = 1;
-constexpr int kStages = 3;
 
-// A stage holds [Ls_j (n n) | CUs_j (n n) | v_j (n)], its stride rounded up
-// to 4 floats so that every stage starts 16-byte aligned.
-__host__ __device__ inline int stage_floats(int n) { return (2 * n * n + n + 3) & ~3; }
-
-// A chain's group of G lanes and its ring; a group past the last chain
-// reads the last chain's data and stores nothing.
+// Group g of the block takes chain blockIdx.x * (blockDim.x / G) + g, its
+// ring at g's place in the block's shared memory.
 template <int G>
-struct Group {
-  int lane;     // the row of the step's vector this lane owns
-  int s;        // the chain
-  bool live;    // s < S
-  size_t nn;
-  float* ring;
-  const float* Lc;  // the chain's Ls, CUs and vector slices
-  const float* Cc;
-  const float* vc;
-
-  __device__ Group(float* smem, const float* Ls, const float* CUs, const float* v,
-                   int S, int L, int n) {
-    lane = threadIdx.x % G;
-    const int g = threadIdx.x / G;
-    s = blockIdx.x * (blockDim.x / G) + g;
-    live = s < S;
-    const size_t sl = live ? s : S - 1;
-    nn = (size_t)n * n;
-    ring = smem + (size_t)g * kStages * stage_floats(n);
-    Lc = Ls + sl * L * nn;
-    Cc = CUs + sl * L * nn;
-    vc = v + sl * L * n;
-  }
-
-  __device__ float* stage(int t, int n) const {
-    return ring + (t % kStages) * stage_floats(n);
-  }
-
-  // Copy node j's blocks and vector into the stage of step t (none past the
-  // last step), then close the thread's copy group.
-  __device__ void fetch(int t, int j, int L, int n, bool vec16) const {
-    if (t < L) {
-      float* st = stage(t, n);
-      const float* Lj = Lc + j * nn;
-      const float* Cj = Cc + j * nn;
-      if (vec16) {
-        for (int q = 4 * lane; q < (int)nn; q += 4 * G) {
-          cp_async16(st + q, Lj + q);
-          cp_async16(st + nn + q, Cj + q);
-        }
-      } else {
-        for (int e = lane; e < (int)nn; e += G) {
-          cp_async4(st + e, Lj + e);
-          cp_async4(st + nn + e, Cj + e);
-        }
-      }
-      if (lane < n) cp_async4(st + 2 * nn + lane, vc + (size_t)j * n + lane);
-    }
-    cp_async_commit();
-  }
-
-  // Step t's stage has landed and every lane of the group sees it.
-  __device__ void arrive() const {
-    cp_async_wait<kStages - 1>();
-    __syncwarp();
-  }
-};
+__device__ tq::SweepGroup<G> group(float* smem, const float* Ls, const float* CUs,
+                                   const float* v, int S, int L, int n) {
+  const int g = threadIdx.x / G;
+  return tq::SweepGroup<G>(smem + (size_t)g * kSweepStages * sweep_stage_floats(n),
+                           threadIdx.x % G, blockIdx.x * (blockDim.x / G) + g, Ls, CUs,
+                           v, S, L, n);
+}
 
 template <int G>
 __global__ void __launch_bounds__(32 * kWarps) chain_solve_bwd_kernel(
     const float* __restrict__ Ls, const float* __restrict__ CUs,
     const float* __restrict__ res, float* __restrict__ ys,
     float* __restrict__ radd0, int S, int L, int n, int vec16) {
-  constexpr int N = G < tq::kMaxN ? G : tq::kMaxN;  // rows a lane may own
   extern __shared__ __align__(16) float smem[];
-  const Group<G> g(smem, Ls, CUs, res, S, L, n);
+  const tq::SweepGroup<G> g = group<G>(smem, Ls, CUs, res, S, L, n);
   const int i = g.lane;
-  // step t works on node j = L-1-t
-  for (int t = 0; t < kStages; ++t) g.fetch(t, L - 1 - t, L, n, vec16);
-  float radd = 0.f;  // row i of CUs_{j+1} y_{j+1}
-  for (int t = 0; t < L; ++t) {
-    g.arrive();
-    const float* st = g.stage(t, n);
-    float Lrow[N], Crow[N];
-    float diag = 1.f;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const bool in = k < n && i < n;
-      Lrow[k] = in ? st[i * n + k] : 0.f;
-      Crow[k] = in ? st[g.nn + i * n + k] : 0.f;
-      if (in && k == i) diag = Lrow[k];
-    }
-    float acc = i < n ? st[2 * g.nn + i] - radd : 0.f;
-    __syncwarp();  // the stage is read: refill it kStages steps ahead
-    g.fetch(t + kStages, L - 1 - t - kStages, L, n, vec16);
-    float racc = 0.f, y = 0.f;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      if (k < n) {
-        const float yk = __shfl_sync(kFull, quotient(acc, diag, i == k), k, G);
-        if (i > k) acc = __fmaf_rn(-Lrow[k], yk, acc);
-        racc = __fmaf_rn(Crow[k], yk, racc);
-        if (i == k) y = yk;
-      }
-    }
-    radd = racc;
-    if (g.live && i < n) ys[((size_t)g.s * L + (L - 1 - t)) * n + i] = y;
-  }
+  const float radd = tq::sweep_bwd(g, L, n, vec16, [&](int j, float y) {
+    if (g.live && i < n) ys[((size_t)g.s * L + j) * n + i] = y;
+  });
   if (g.live && i < n) radd0[(size_t)g.s * n + i] = radd;
 }
 
@@ -177,50 +90,13 @@ __global__ void __launch_bounds__(32 * kWarps) chain_forward_kernel(
     const float* __restrict__ Ls, const float* __restrict__ CUs,
     const float* __restrict__ ys, const float* __restrict__ droot,
     float* __restrict__ dls, int S, int L, int n, int vec16) {
-  constexpr int N = G < tq::kMaxN ? G : tq::kMaxN;  // rows a lane may own
   extern __shared__ __align__(16) float smem[];
-  const Group<G> g(smem, Ls, CUs, ys, S, L, n);
+  const tq::SweepGroup<G> g = group<G>(smem, Ls, CUs, ys, S, L, n);
   const int i = g.lane;
-  for (int t = 0; t < kStages; ++t) g.fetch(t, t, L, n, vec16);
-  // the previous node's direction, every entry in every lane
-  float z[N];
   const size_t sl = g.live ? g.s : S - 1;
-#pragma unroll
-  for (int k = 0; k < N; ++k) z[k] = k < n ? droot[sl * n + k] : 0.f;
-  for (int j = 0; j < L; ++j) {
-    g.arrive();
-    const float* st = g.stage(j, n);
-    float Lcol[N], Ccol[N];  // column i of Ls_j and of CUs_j
-    float diag = 1.f;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const bool in = k < n && i < n;
-      Lcol[k] = in ? st[k * n + i] : 0.f;
-      Ccol[k] = in ? st[g.nn + k * n + i] : 0.f;
-      if (in && k == i) diag = Lcol[k];
-    }
-    const float v = i < n ? st[2 * g.nn + i] : 0.f;
-    __syncwarp();
-    g.fetch(j + kStages, j + kStages, L, n, vec16);
-    float acc = 0.f;
-#pragma unroll
-    for (int k = 0; k < N; ++k)
-      if (k < n) acc = __fmaf_rn(Ccol[k], z[k], acc);
-    acc = v - acc;
-    float dl = 0.f;
-#pragma unroll
-    for (int k = N - 1; k >= 0; --k) {
-      if (k < n) {
-        float a = acc;
-#pragma unroll
-        for (int m = k + 1; m < N; ++m)
-          if (m < n) a = __fmaf_rn(-Lcol[m], z[m], a);
-        z[k] = __shfl_sync(kFull, quotient(a, diag, i == k), k, G);
-        if (i == k) dl = z[k];
-      }
-    }
+  tq::sweep_fwd(g, droot + sl * n, L, n, vec16, [](int) {}, [&](int j, float dl) {
     if (g.live && i < n) dls[((size_t)g.s * L + j) * n + i] = dl;
-  }
+  });
 }
 
 struct Launch {
@@ -234,7 +110,7 @@ Launch launch_shape(const float* Ls, const float* CUs, int S, int n) {
   c.G = n <= 8 ? 8 : 16;
   const int chains = kWarps * 32 / c.G;
   c.blocks = (S + chains - 1) / chains;
-  c.shmem = (size_t)chains * kStages * stage_floats(n) * sizeof(float);
+  c.shmem = (size_t)chains * kSweepStages * sweep_stage_floats(n) * sizeof(float);
   c.vec16 = n % 2 == 0 && (((uintptr_t)Ls | (uintptr_t)CUs) & 15) == 0;
   return c;
 }

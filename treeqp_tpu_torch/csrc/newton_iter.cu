@@ -1,22 +1,25 @@
 // One whole f32 Newton iteration of the coarse phase, in one launch of one
-// thread block.
+// thread-block cluster.
 //
 // Replaces the Pallas kernel newton_iter of treeqp_tpu/ops/iter_kernel.py.
 // mode "iter" (eval_only = 0):
 //   1. equilibrated right-hand sides: rv = res_cr * s_node in the crown
 //      group layout (each (group, slot) reads its kid node, 0 on empty
 //      slots), rch = res_ch * sc
-//   2. the Newton-system solve with the stored factors
-//      (tq::system_solve_core, the body of system_solve.cu)
+//   2. the Newton-system solve with the stored factors: the chains'
+//      backward sweeps (y_j parked in dch_s, each chain's CUs_0 y_0 taken
+//      from its crown slot of rv), the crown's level-synchronous solve
+//      (tq_crown.cuh's crown_solve_core), the chains' forward sweeps from
+//      their crown slot of dg
 //   3. direction dcr = dg at each node's (group, slot) * s_node (0 at the
 //      root), dch = dch_s * sc; the tau = 1 trial point lam2 = lam + d; the
 //      per-node / per-chain partials of the directional derivative
 //      dot = -res' d
-//   4. the evaluation at lam2: chain_eval_one per chain (which writes each
-//      chain's root contribution straight into the crown's extra term at
-//      its root node), then crown_atb / crown_clip / crown_res
-//      (tq_eval.cuh), and the chain residual row j = 0 completed with
-//      A_0 z_crown at the chain's root, with the error partials.
+//   4. the evaluation at lam2 (tq_eval.cuh): the chains' clips, the crown's
+//      [A B]' lam2, the chains' residual rows and the crown's clips (whose
+//      kid sums take each chain's [A_0 B_0]' lam2_0 at its root node), the
+//      crown's residuals and each chain's row j = 0 completed with
+//      A_0 z_crown at its root, with the dual-value and error partials.
 // mode "eval" (eval_only = 1): lam2 = lam is given, d = 0, and only step 4
 // runs; the factors and the residuals are not read (null pointers).
 // The TPU kernel moved values between the scenario, crown-node and
@@ -24,16 +27,60 @@
 // moves has one source per element, so the indexed reads and writes here
 // give the same values.
 //
-// What bounds it on the card: latency. It is system_solve (~0.85 ms a
-// launch at the headline shapes) plus one chain and one crown evaluation,
-// all on one SM, with a barrier between dependent phases. What it saves
-// is the host: one launch and one host read of three partial sums per
-// common-path iteration instead of ~20 launches and a read per decision.
+// What bounds it on the card: latency. The work is small (a launch moves
+// ~1.3 MB at the quadcopter headline, S = 256 chains of L = 16, n = 6, and
+// 341 crown nodes: ~0.4 us at the card's memory rate) and sits on a chain
+// of dependent phases. The one-block kernel this replaces ran all of it on
+// one SM (2.1 ms there): the chain sweeps one thread per chain with the
+// blocks in local memory, the evaluation one thread per chain walking its
+// 16 nodes. Design:
+// - One cluster of kCluster = 8 blocks (the portable maximum) of kThreads
+//   threads, on 8 SMs; the phases are separated by the cluster's barrier
+//   (release / acquire at cluster scope), and the data that crosses blocks
+//   goes through global memory, which stays in L2.
+// - The chain sweeps of step 2 are tq_lanes.cuh's sweep_bwd / sweep_fwd,
+//   the steps of chain_sweeps.cu: 8 or 16 lanes a chain, lane i owning row
+//   i, the blocks Ls_j, CUs_j streamed through a cp.async ring. A block
+//   gives as many warps to the sweeps as its shared memory holds rings
+//   (kRingBytes); the groups stride over the chains. The forward sweep
+//   writes dch and lam2_ch as it goes.
+// - The crown's solve (step 2) and its direction (step 3) run in block 0
+//   with its own barriers: a level holds at most a few dozen groups. With
+//   G = K n <= 32 rows a group (the headline's 24) a warp takes a group,
+//   lane i row i, its triangular solves G rounds of a division and a
+//   shuffle as in the chain sweeps (the per-thread bodies of tq_crown.cuh,
+//   which wider groups keep, walked each group's rows from global memory
+//   in one thread: 56% of the launch at the headline).
+// - The evaluation runs a thread a node: every chain node's clip depends
+//   only on lam2_j and lam2_{j+1}; its residual row, which needs x_{j-1}
+//   and u_{j-1}, follows after a barrier. Each chain's dual-value, error
+//   and directional-derivative partials are then summed in j order by one
+//   thread per chain, so the partials keep the one-thread-per-chain order.
+// Every element meets the operations of the one-block kernel in the same
+// order (the evaluations round each product and sum on its own, the sweeps
+// are bit for bit tq_chain.cuh's bodies), so every output equals that
+// kernel's bit for bit, and the active sets, the Armijo decisions and the
+// iteration counts stay as they were.
+// No tensor cores: every step is a dependent n <= 16 triangular solve or a
+// per-node clip; wgmma needs 64-row tiles, and a chain has no batch
+// dimension of its own.
 
+#include <cooperative_groups.h>
+
+#include <cstdint>
+
+#include "tq_crown.cuh"
 #include "tq_eval.cuh"
-#include "tq_system.cuh"
+#include "tq_lanes.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
+
+constexpr int kCluster = 8;
+constexpr int kThreads = 512;
+// shared memory a block gives to the sweeps' rings
+constexpr int kRingBytes = 96 * 1024;
 
 struct IterArgs {
   tq::ChainData<float> ch;
@@ -46,47 +93,222 @@ struct IterArgs {
   tq::EvalOut<float> cho, cro;
   float *dots, *dotc;
   float *rv, *ycr, *dg, *rch_s, *dch_s, *extra, *atb;
-  int NpG, K, n_lev, eval_only;
+  float *part;  // [4, S, L]: each chain node's sx, su, max |res|, res' d
+  unsigned long long* stamps;  // null, or kCluster kStamps timer reads (profiling)
+  int NpG, K, n_lev, eval_only, groups, vec16;
 };
 
-__global__ void __launch_bounds__(1024) newton_iter_kernel(const IterArgs a) {
+// With stamps, thread 0 of each block reads the global timer (ns) at the
+// start (slot 0), before and after each cluster barrier k (slots 1 + 2k,
+// 2 + 2k; k = 0 .. 6 in the order of the iter mode's barriers, 6 the extra
+// one that ends a stamped launch) and, in block 0, after the crown's
+// backward levels, its root and its forward levels (slots 15, 16, 17):
+// kStamps slots a block. Outputs are the same with or without.
+constexpr int kStamps = 20;
+
+__device__ __forceinline__ void stamp(const IterArgs& a, int b, int k) {
+  if (a.stamps != nullptr && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    a.stamps[b * kStamps + k] = t;
+  }
+}
+
+__device__ __forceinline__ void barrier(cg::cluster_group& cluster, const IterArgs& a, int b,
+                                        int k) {
+  stamp(a, b, 1 + 2 * k);
+  cluster.sync();
+  stamp(a, b, 2 + 2 * k);
+}
+
+// The lane groups of this block that take part in the sweeps (a.groups a
+// block, whole warps) stride over the chains: in round r, group q of block
+// b takes chain (r kCluster + b) groups + q. The same group takes the same
+// chain in both sweeps.
+template <int GL, typename Body>
+__device__ void for_each_chain(const IterArgs& a, float* smem, int b, Body body) {
+  const int q = threadIdx.x / GL;
+  if (q >= a.groups) return;  // whole warps
+  const int n = a.ch.nx, S = a.ch.S, total = kCluster * a.groups;
+  float* ring = smem + (size_t)q * tq::kSweepStages * tq::sweep_stage_floats(n);
+  for (int r = 0; r * total < S; ++r) body(ring, threadIdx.x % GL, r * total + b * a.groups + q);
+}
+
+// The crown's solve with one warp per group, lane i owning row i of the
+// group's G <= 32 rows (crown_solve_core's sums in its order): the triangular
+// solves as in the chain sweeps, G rounds of a division and a shuffle.
+constexpr int kW = 32;
+
+// y = Lg^-1 r for the G x G lower factor Lg, lane i holding r_i in acc;
+// every lane calls onk(k, y_k) as y_k is broadcast. Returns y_i.
+template <typename OnK>
+__device__ __forceinline__ float warp_ltrsv(const float* Lg, float acc, int G, int i,
+                                            OnK onk) {
+  float Lrow[kW];
+  float diag = 1.f;
+#pragma unroll
+  for (int m = 0; m < kW; ++m) {
+    Lrow[m] = m < G && i < G && m <= i ? Lg[i * G + m] : 0.f;
+    if (m == i && i < G) diag = Lrow[m];
+  }
+  float y = 0.f;
+#pragma unroll
+  for (int k = 0; k < kW; ++k) {
+    if (k < G) {
+      const float yk = __shfl_sync(tq::kFull, tq::quotient(acc, diag, i == k), k);
+      if (i > k) acc = __fmaf_rn(-Lrow[k], yk, acc);
+      if (i == k) y = yk;
+      onk(k, yk);
+    }
+  }
+  return y;
+}
+
+// z = Lg^-T v, lane i holding v_i in acc; returns z_i.
+__device__ __forceinline__ float warp_uttrsv(const float* Lg, float acc, int G, int i) {
+  float Lcol[kW], z[kW];
+  float diag = 1.f;
+#pragma unroll
+  for (int m = 0; m < kW; ++m) {
+    Lcol[m] = m < G && i < G && m >= i ? Lg[m * G + i] : 0.f;
+    if (m == i && i < G) diag = Lcol[m];
+    z[m] = 0.f;
+  }
+  float out = 0.f;
+#pragma unroll
+  for (int k = kW - 1; k >= 0; --k) {
+    if (k < G) {
+      float v = acc;
+#pragma unroll
+      for (int m = k + 1; m < kW; ++m)
+        if (m < G) v = __fmaf_rn(-Lcol[m], z[m], v);
+      z[k] = __shfl_sync(tq::kFull, tq::quotient(v, diag, i == k), k);
+      if (i == k) out = z[k];
+    }
+  }
+  return out;
+}
+
+// tq::crown_solve_core's three parts on the cluster's warps, a group a
+// warp, the cluster's barrier between levels: backward, deepest level
+// first, y_g = CholW_g^-1 rv_g and rv[parent][slot] -= CholUt_g y_g; the
+// root (block 0's warp 0); forward, top level first, dg_g = CholW_g^-T
+// (y_g - CholUt_g' dg[parent][slot]). Every sum in crown_solve_core's
+// order, each product one FMA as nvcc contracts it there: bit for bit that
+// body.
+__device__ void crown_solve_warps(cg::cluster_group& cluster, const IterArgs& a, int b, int n,
+                                  int G) {
+  const int i = threadIdx.x % kW, nwb = blockDim.x / kW;
+  const int w = b * nwb + threadIdx.x / kW, nw = kCluster * nwb;  // the cluster's warps
+  const size_t GG = (size_t)G * G;
+  for (int lv = 0; lv < a.n_lev; ++lv) {
+    for (int e = a.lev_ptr[lv] + w; e < a.lev_ptr[lv + 1]; e += nw) {
+      const int g = a.lev_child[e];
+      const float* U = a.CholUt + (size_t)g * n * G;
+      float Urow[kW];  // row i of CholUt_g (i < n)
+#pragma unroll
+      for (int k = 0; k < kW; ++k) Urow[k] = i < n && k < G ? U[i * G + k] : 0.f;
+      float racc = 0.f;
+      const float y = warp_ltrsv(a.CholW + g * GG, i < G ? a.rv[(size_t)g * G + i] : 0.f, G,
+                                 i, [&](int k, float yk) { racc = __fmaf_rn(Urow[k], yk, racc); });
+      if (i < G) a.ycr[(size_t)g * G + i] = y;
+      if (i < n) a.rv[(size_t)a.lev_parent[e] * G + a.lev_slot[e] * n + i] -= racc;
+    }
+    cluster.sync();
+  }
+  stamp(a, b, 15);
+  if (w == 0) {
+    const float y = warp_ltrsv(a.CholW, i < G ? a.rv[i] : 0.f, G, i, [](int, float) {});
+    if (i < G) a.ycr[i] = y;
+    const float z = warp_uttrsv(a.CholW, y, G, i);
+    if (i < G) a.dg[i] = z;
+  }
+  cluster.sync();
+  stamp(a, b, 16);
+  for (int lv = a.n_lev - 1; lv >= 0; --lv) {
+    for (int e = a.lev_ptr[lv] + w; e < a.lev_ptr[lv + 1]; e += nw) {
+      const int g = a.lev_child[e];
+      const float* dp = a.dg + (size_t)a.lev_parent[e] * G + a.lev_slot[e] * n;
+      const float* U = a.CholUt + (size_t)g * n * G;
+      float acc = 0.f;
+      for (int q = 0; q < n; ++q) acc = __fmaf_rn(i < G ? U[q * G + i] : 0.f, dp[q], acc);
+      const float v = i < G ? a.ycr[(size_t)g * G + i] - acc : 0.f;
+      const float z = warp_uttrsv(a.CholW + g * GG, v, G, i);
+      if (i < G) a.dg[(size_t)g * G + i] = z;
+    }
+    cluster.sync();
+  }
+  stamp(a, b, 17);
+}
+
+template <int GL>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+    newton_iter_kernel(const IterArgs a) {
   using tq::add;
   using tq::mul;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
   const tq::ChainData<float>& ch = a.ch;
   const tq::CrownData<float>& cr = a.cr;
   const int S = ch.S, L = ch.L, n = ch.nx, nu = ch.nu, nz = n + nu;
   const int Nn = cr.Nn, K = a.K, G = K * n;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int b = (int)cluster.block_rank();
+  // the cluster's threads: gt block by block, for the loops over chain
+  // nodes and elements (neighbouring threads on neighbouring nodes), and ix
+  // interleaved over the blocks, for the loops over fewer items than threads
+  // (chains, crown nodes), so that those spread over all eight
+  const int gt = b * blockDim.x + threadIdx.x, ix = threadIdx.x * kCluster + b;
+  const int gn = kCluster * blockDim.x;
+  const size_t SL = (size_t)S * L;
+  float* sxn = a.part;
+  float* sun = a.part + SL;
+  float* errn = a.part + 2 * SL;
+  float* dotn = a.part + 3 * SL;
 
-  for (int e = tid; e < Nn * nz; e += nt) a.extra[e] = 0.f;
+  stamp(a, b, 0);
+  for (int e = ix; e < Nn * nz; e += gn) a.extra[e] = 0.f;
   if (a.eval_only) {
-    for (int e = tid; e < Nn * n; e += nt) {
+    for (int e = ix; e < Nn * n; e += gn) {
       a.lam2_cr[e] = a.lam_cr[e];
       a.dcr[e] = 0.f;
     }
-    for (int e = tid; e < S * L * n; e += nt) {
+    for (size_t e = gt; e < SL * n; e += gn) {
       a.lam2_ch[e] = a.lam_ch[e];
       a.dch[e] = 0.f;
     }
-    for (int m = tid; m < Nn; m += nt) a.dotc[m] = 0.f;
-    for (int s = tid; s < S; s += nt) a.dots[s] = 0.f;
-    __syncthreads();
+    for (int m = ix; m < Nn; m += gn) a.dotc[m] = 0.f;
   } else {
     // 1. equilibrated right-hand sides
-    for (int e = tid; e < a.NpG * G; e += nt) {
+    for (int e = ix; e < a.NpG * G; e += gn) {
       const int g = e / G, k = (e % G) / n, i = e % n;
       const int kid = a.kidsP[g * K + k];
       a.rv[e] = kid >= 0 ? mul(a.res_cr[kid * n + i], a.s_node[kid * n + i]) : 0.f;
       a.dg[e] = 0.f;
     }
-    for (int e = tid; e < S * L * n; e += nt) a.rch_s[e] = mul(a.res_ch[e], a.sc[e]);
-    __syncthreads();
-    // 2. Newton-system solve (ends with a barrier)
-    tq::system_solve_core(a.Ls, a.CUs, a.CholW, a.CholUt, a.rch_s, a.lev_ptr,
-                          a.lev_child, a.lev_parent, a.lev_slot, a.g_of, a.slot,
-                          a.rv, a.ycr, a.dg, a.dch_s, S, L, n, K, a.n_lev);
-    // 3. direction, trial point, directional-derivative partials
-    for (int m = tid; m < Nn; m += nt) {
+    for (size_t e = gt; e < SL * n; e += gn) a.rch_s[e] = mul(a.res_ch[e], a.sc[e]);
+    barrier(cluster, a, b, 0);
+
+    // 2a. chain backward sweeps, y_j into dch_s, CUs_0 y_0 out of the crown slot
+    for_each_chain<GL>(a, smem, b, [&](float* ring, int i, int s) {
+      const tq::SweepGroup<GL> g(ring, i, s, a.Ls, a.CUs, a.rch_s, S, L, n);
+      const float radd = tq::sweep_bwd(g, L, n, a.vec16, [&](int j, float y) {
+        if (g.live && i < n) a.dch_s[((size_t)s * L + j) * n + i] = y;
+      });
+      if (g.live && i < n) a.rv[(size_t)a.g_of[s] * G + a.slot[s] * n + i] -= radd;
+    });
+    barrier(cluster, a, b, 1);
+
+    // 2b. the crown (on the cluster's warps, or in block 0 where a group
+    // is wider than a warp), and 3. its direction, trial point and partials
+    if (G <= kW) {
+      crown_solve_warps(cluster, a, b, n, G);
+    } else {
+      if (b == 0)
+        tq::crown_solve_core(a.CholW, a.CholUt, a.lev_ptr, a.lev_child, a.lev_parent,
+                             a.lev_slot, a.rv, a.ycr, a.dg, n, K, a.n_lev);
+      cluster.sync();
+    }
+    for (int m = ix; m < Nn; m += gn) {
       float acc = 0.f;
       for (int i = 0; i < n; ++i) {
         const int e = m * n + i;
@@ -98,49 +320,117 @@ __global__ void __launch_bounds__(1024) newton_iter_kernel(const IterArgs a) {
       }
       a.dotc[m] = -acc;
     }
-    for (int s = tid; s < S; s += nt) {
-      float acc = 0.f;
-      for (int j = 0; j < L; ++j) {
-        float sj = 0.f;
-        for (int i = 0; i < n; ++i) {
-          const size_t e = ((size_t)s * L + j) * n + i;
-          const float d = mul(a.dch_s[e], a.sc[e]);
-          a.dch[e] = d;
-          a.lam2_ch[e] = add(a.lam_ch[e], d);
-          sj = add(sj, mul(a.res_ch[e], d));
-        }
-        acc = add(acc, sj);
-      }
-      a.dots[s] = -acc;
-    }
-    __syncthreads();
-  }
+    barrier(cluster, a, b, 2);
 
-  // 4. evaluation at the trial point
-  for (int s = tid; s < S; s += nt)
-    tq::chain_eval_one(ch, a.lam2_ch, a.cho, a.extra + (size_t)a.rid[s] * nz, s);
-  for (int m = tid; m < Nn; m += nt) tq::crown_atb(cr, a.lam2_cr, a.atb, m);
-  __syncthreads();
-  for (int m = tid; m < Nn; m += nt) tq::crown_clip(cr, a.lam2_cr, a.atb, a.extra, a.cro, m);
-  __syncthreads();
-  for (int m = tid; m < Nn; m += nt) tq::crown_res(cr, a.cro, m);
-  // chain residual row j = 0: + [A_0 B_0] z_crown at the chain's root
-  for (int s = tid; s < S; s += nt) {
+    // 2c. chain forward sweeps from the crown slot's direction, and 3. the
+    // chains' direction and trial point
+    for_each_chain<GL>(a, smem, b, [&](float* ring, int i, int s) {
+      const tq::SweepGroup<GL> g(ring, i, s, a.Ls, a.CUs, a.dch_s, S, L, n);
+      const int sl = g.live ? s : S - 1;
+      const float* droot = a.dg + (size_t)a.g_of[sl] * G + a.slot[sl] * n;
+      float scv = 0.f, lmv = 0.f;  // step j's scale and dual, loaded as it starts
+      tq::sweep_fwd(
+          g, droot, L, n, a.vec16,
+          [&](int j) {
+            if (g.live && i < n) {
+              const size_t e = ((size_t)s * L + j) * n + i;
+              scv = a.sc[e];
+              lmv = a.lam_ch[e];
+            }
+          },
+          [&](int j, float dl) {
+            if (g.live && i < n) {
+              const size_t e = ((size_t)s * L + j) * n + i;
+              const float d = mul(dl, scv);
+              a.dch[e] = d;
+              a.lam2_ch[e] = add(lmv, d);
+            }
+          });
+    });
+  }
+  barrier(cluster, a, b, 3);
+
+  // 4. evaluation at the trial point. The chains' clips, their roots'
+  // [A_0 B_0]' lam2_0 into the crown's extra term, the crown's [A B]' lam2,
+  // and each chain node's part of res' d.
+  for (size_t e = gt; e < SL; e += gn) {
+    const int s = (int)(e / L), j = (int)(e % L);
+    float sx, su;
+    tq::chain_clip_node(ch, a.lam2_ch, a.cho, s, j, sx, su);
+    sxn[e] = sx;
+    sun[e] = su;
+    if (j == 0) tq::chain_root_cqr(ch, a.lam2_ch, a.extra + (size_t)a.rid[s] * nz, s);
+    if (!a.eval_only) {
+      float sj = 0.f;
+      for (int i = 0; i < n; ++i) sj = add(sj, mul(a.res_ch[e * n + i], a.dch[e * n + i]));
+      dotn[e] = sj;
+    }
+  }
+  for (int m = ix; m < Nn; m += gn) tq::crown_atb(cr, a.lam2_cr, a.atb, m);
+  barrier(cluster, a, b, 4);
+  // the chains' residual rows, the crown's clips
+  for (size_t e = gt; e < SL; e += gn)
+    errn[e] = tq::chain_res_node(ch, a.cho, (int)(e / L), (int)(e % L));
+  for (int m = ix; m < Nn; m += gn) tq::crown_clip(cr, a.lam2_cr, a.atb, a.extra, a.cro, m);
+  barrier(cluster, a, b, 5);
+  // the crown's residuals; per chain, row j = 0 + [A_0 B_0] z_crown at the
+  // chain's root, and the partials summed in j order
+  for (int m = ix; m < Nn; m += gn) tq::crown_res(cr, a.cro, m);
+  for (int s = ix; s < S; s += gn) {
     const int root = a.rid[s];
     const float* AB0 = ch.AB + (size_t)s * L * n * nz;
     const float* xr = a.cro.x + (size_t)root * n;
     const float* ur = a.cro.u + (size_t)root * nu;
-    float err = a.cho.err[s];
-    for (int i = 0; i < n; ++i) {
-      float acc = 0.f;
-      for (int c = 0; c < n; ++c) acc = add(acc, mul(AB0[i * nz + c], xr[c]));
-      for (int c = 0; c < nu; ++c) acc = add(acc, mul(AB0[i * nz + n + c], ur[c]));
-      float* r = a.cho.res + (size_t)s * L * n + i;
-      *r = add(*r, acc);
-      err = fmaxf(err, fabsf(*r));
+    float err = 0.f, facc = 0.f, dacc = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < L; ++j) {
+      const size_t e = (size_t)s * L + j;
+      err = fmaxf(err, errn[e]);
+      facc = add(add(facc, sxn[e]), sun[e]);
+      if (!a.eval_only) dacc = add(dacc, dotn[e]);
     }
+    float acc[tq::kRows], unused[tq::kRows];
+    tq::row_dots<float, false>(AB0, xr, ur, n, nu, nz, acc, unused);
+#pragma unroll
+    for (int i = 0; i < tq::kRows; ++i) {
+      if (i < n) {
+        float* r = a.cho.res + (size_t)s * L * n + i;
+        *r = add(*r, acc[i]);
+        err = fmaxf(err, fabsf(*r));
+      }
+    }
+    a.cho.f[s] = facc;
     a.cho.err[s] = err;
+    a.dots[s] = a.eval_only ? 0.f : -dacc;
   }
+  if (a.stamps != nullptr) barrier(cluster, a, b, 6);
+}
+
+// The sweep groups a block can hold rings for, in whole warps, and the
+// shared memory they take.
+void ring_shape(int n, int GL, int* groups, size_t* bytes) {
+  const size_t per = (size_t)tq::kSweepStages * tq::sweep_stage_floats(n) * sizeof(float);
+  const int warp_groups = 32 / GL;
+  int q = (int)(kRingBytes / per) / warp_groups * warp_groups;
+  if (q > kThreads / GL) q = kThreads / GL;
+  if (q < warp_groups) q = warp_groups;
+  *groups = q;
+  *bytes = q * per;
+}
+
+template <int GL>
+int launch(IterArgs& a, cudaStream_t st) {
+  size_t bytes;
+  ring_shape(a.ch.nx, GL, &a.groups, &bytes);
+  static size_t opted = 0;  // the dynamic shared memory this kernel may take
+  if (bytes > opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        newton_iter_kernel<GL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    opted = bytes;
+  }
+  newton_iter_kernel<GL><<<kCluster, kThreads, bytes, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -150,8 +440,9 @@ __global__ void __launch_bounds__(1024) newton_iter_kernel(const IterArgs a) {
 // lev_slot, g_of, slot, rid, kidsP, group_of_node, slot_of_node, lam_cr,
 // lam_ch, res_cr, res_ch, dcr, dch, lam2_cr, lam2_ch, chain x, u, qt, rt,
 // xU, uU, res, f, err, crown x, u, qt, rt, xU, uU, res, f, err, dots, dotc,
-// then the scratch rv, ycr, dg, rch_s, dch_s, extra, atb.
-// dims: S, L, nx, nu, Nn, NpG, K, n_lev, eval_only, threads.
+// then the scratch rv, ycr, dg, rch_s, dch_s, extra, atb, part, and
+// stamps (null, or kCluster kStamps u64).
+// dims: S, L, nx, nu, Nn, NpG, K, n_lev, eval_only.
 extern "C" int tq_newton_iter(const void* const* p, const int* dims, void* stream) {
   const int S = dims[0], L = dims[1], nx = dims[2], nu = dims[3], Nn = dims[4];
   tq::PtrCursor c{p};
@@ -169,8 +460,10 @@ extern "C" int tq_newton_iter(const void* const* p, const int* dims, void* strea
   a.cro = tq::eval_out<float>(c);
   a.dots = c.out(); a.dotc = c.out();
   a.rv = c.out(); a.ycr = c.out(); a.dg = c.out(); a.rch_s = c.out();
-  a.dch_s = c.out(); a.extra = c.out(); a.atb = c.out();
+  a.dch_s = c.out(); a.extra = c.out(); a.atb = c.out(); a.part = c.out();
+  a.stamps = (unsigned long long*)c.out();
   a.NpG = dims[5]; a.K = dims[6]; a.n_lev = dims[7]; a.eval_only = dims[8];
-  newton_iter_kernel<<<1, dims[9], 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  a.vec16 = nx % 2 == 0 && (((uintptr_t)a.Ls | (uintptr_t)a.CUs) & 15) == 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return nx <= 8 ? launch<8>(a, st) : launch<16>(a, st);
 }

@@ -1,6 +1,6 @@
-// The multistage IPM's chain Riccati sweeps, one thread per scenario chain
-// running the whole length-L sweep: factorize, backward right-hand side,
-// forward.
+// The multistage IPM's chain Riccati sweeps: factorize (a group of lanes
+// per scenario chain), backward right-hand side and forward (one thread per
+// chain running the whole length-L sweep).
 //
 // Replaces the Pallas kernels ric_chain_factor, ric_chain_bwd and
 // ric_chain_fwd of treeqp_tpu/ops/riccati_kernels.py (reached through
@@ -15,41 +15,264 @@
 //   forward, j = 0 .. L-1: from z_root (the crown's step at each chain
 //     root's parent), dx = AB_j z + rb_j, du = K dx + k, dlam = P dx + p.
 //
-// What bounds it on the card: latency. Each thread runs L dependent
-// stages of ~(nu^3/3 + 2 nu^2 nx + 2 nx^2 nu + 2 nx^2 nz + 2 nx nz^2)
-// flops (~2.7k at nx = 8, nz = 9) with its blocks in a local-memory frame;
-// S = 256 chains fill two blocks of 128 threads, two SMs. The TPU kernel
-// put 128 chains on the vector lanes; a thread per chain is that mapping
-// on a GPU, a warp per chain the next step.
+// What bounds them on the card: latency. A chain is L dependent stages of
+// ~(nu^3/3 + 2 nu^2 nx + 2 nx^2 nu + 2 nx^2 nz + 2 nx nz^2) flops (~2.7k at
+// nx = 8, nz = 9); a factor launch moves each stage's AB_j and hbar_j once
+// and writes its factors once (~1.2 MB at S = 256, L = 16, nx = 8, nz = 9).
+//
+// ric_chain_factor. The thread-per-chain kernel this replaces ran ~1300
+// dependent FMAs a stage in one thread with W and T in local memory (S = 256
+// chains on two SMs, 3.2 ms). Design:
+// - A group of G lanes takes a chain: G = 8 for nz <= 8, 16 for nz <= 16
+//   (tq::lanes), 32 / G chains a warp and one warp a block. nz is a
+//   template parameter (one instantiation per nz = 2 .. 16), nx is not.
+// - Lane i owns row i of the stage's M = hbar_j + W in registers.
+//   Lu = chol(Muu + reg I): the nu rows right-looking, lane nx + k's pivot
+//   broadcast by __shfl_sync, lanes r >= c folding a_rc -= L_rk L_ck by one
+//   FMA, so each element meets its products in ascending k, the order of
+//   the left-looking chol_inplace<true> (same pivot floor, clamped
+//   diagonal); M goes through shared memory so that the nu rows start at
+//   their own column 0. K = -Muu^-1 Mux: lane c < nx solves column c
+//   through Lu in shared memory. T = Mxx + Mxu K and P = (T + T') / 2 row by lane, the
+//   transpose through shared memory; P AB row x by lane x and W = AB' (P AB)
+//   row i by lane i, from shared memory: ~150 dependent FMAs a lane a stage
+//   at nz = 9.
+// - AB_j and hbar_j stream through a ring of kStages stages of shared
+//   memory per chain with cp.async, up to kStages - 1 stages ahead.
+// - Each lane writes its rows of P_j, Lu_j, Mxu_j and its column of K_j
+//   once; W0 row i by lane i.
+// Every sum runs in tq_riccati.cuh's loop order, each product folded in by
+// one FMA as nvcc contracted the per-thread body (written out here as
+// __fmaf_rn), and the sums and scalings that stand alone are rounded on
+// their own (__fadd_rn, __fmul_rn), with rsqrtf and true divisions: the
+// results are the thread-per-chain kernel's bit for bit, whatever the
+// compiler contracts. No tensor cores: a stage is a dependent factorization
+// and product chain of nz <= 16 blocks; wgmma needs 64-row tiles.
+//
+// ric_chain_bwd and ric_chain_fwd keep one thread per chain: S = 256
+// chains fill two blocks of 128 threads, two SMs.
 
+#include "tq_lanes.cuh"
 #include "tq_riccati.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
-__global__ void ric_chain_factor_kernel(
+// ---------------------------------------------------------------------------
+// ric_chain_factor: a group of lanes per chain
+
+constexpr int kStages = 3;
+
+// A stage of the ring: [AB_j (nx nz) | hbar_j (nz, or nz nz dense)], its
+// stride rounded up to 4 floats.
+__host__ __device__ inline int ric_stage_floats(int nx, int nz, int dense) {
+  return (nx * nz + (dense ? nz * nz : nz) + 3) & ~3;
+}
+
+// A chain's shared memory: the ring, then five NZ x NZ work areas
+// (M, Lu, K, T = Mxx + Mxu K, P AB).
+__host__ __device__ inline int ric_chain_floats(int NZ, int nx, int dense) {
+  return kStages * ric_stage_floats(nx, NZ, dense) + 5 * NZ * NZ;
+}
+
+template <int NZ>
+__global__ void __launch_bounds__(32) ric_chain_factor_kernel(
     const float* __restrict__ hbar, const float* __restrict__ AB, float* __restrict__ P,
     float* __restrict__ Lu, float* __restrict__ K, float* __restrict__ Mxu,
-    float* __restrict__ W0, int S, int L, int nx, int nz, int dense, float reg) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const int nu = nz - nx, nn = nz * nz;
-  float W[tq::kMaxN * tq::kMaxN];
-  for (int e = 0; e < nn; ++e) W[e] = 0.f;
-  for (int j = L - 1; j >= 0; --j) {
-    const size_t sj = (size_t)s * L + j;
-    if (dense) {
-      const float* hb = hbar + sj * nn;
-      for (int e = 0; e < nn; ++e) W[e] += hb[e];
-    } else {
-      const float* hb = hbar + sj * nz;
-      for (int i = 0; i < nz; ++i) W[i * nz + i] += hb[i];
+    float* __restrict__ W0, int S, int L, int nx, int dense, float reg) {
+  constexpr int G = tq::lanes(NZ);
+  constexpr int nz = NZ;
+  extern __shared__ __align__(16) float smem[];
+  const int nu = nz - nx;
+  const int i = threadIdx.x % G, q = threadIdx.x / G;
+  const int s = blockIdx.x * (32 / G) + q;
+  const bool live = s < S;
+  const size_t sl = live ? s : S - 1;  // a group past the last chain stores nothing
+  const int stf = ric_stage_floats(nx, nz, dense);
+  const int hbf = dense ? nz * nz : nz;
+  float* ring = smem + (size_t)q * ric_chain_floats(NZ, nx, dense);
+  float* sM = ring + kStages * stf;  // [nz, nz]: M
+  float* sLu = sM + NZ * NZ;         // [nu, nu]
+  float* sK = sLu + NZ * NZ;         // [nu, nx]
+  float* sT = sK + NZ * NZ;          // [nx, nx]: Mxx + Mxu K
+  float* sPA = sT + NZ * NZ;         // [nx, nz]: P AB
+  const float* ABc = AB + sl * L * nx * nz;
+  const float* hbc = hbar + sl * L * hbf;
+
+  // step t works on node j = L-1-t
+  auto fetch = [&](int t) {
+    if (t < L) {
+      const int j = L - 1 - t;
+      float* st = ring + (t % kStages) * stf;
+      for (int e = i; e < nx * nz; e += G) tq::cp_async4(st + e, ABc + (size_t)j * nx * nz + e);
+      for (int e = i; e < hbf; e += G) tq::cp_async4(st + nx * nz + e, hbc + (size_t)j * hbf + e);
     }
-    tq::ric_stage_factor(W, AB + sj * nx * nz, nx, nz, reg, P + sj * nx * nx,
-                         Lu + sj * nu * nu, K + sj * nu * nx, Mxu + sj * nx * nu, W);
+    tq::cp_async_commit();
+  };
+  for (int t = 0; t < kStages - 1; ++t) fetch(t);
+
+  float w[NZ];  // row i of W, the term of the stage below
+#pragma unroll
+  for (int c = 0; c < NZ; ++c) w[c] = 0.f;
+  const bool row = i < nz;
+  const int r = i - nx;  // row of Muu and Lu (0 .. nu-1 on lanes nx .. nz-1)
+  const bool urow = row && r >= 0;
+  for (int t = 0; t < L; ++t) {
+    const size_t sj = sl * L + (L - 1 - t);
+    fetch(t + kStages - 1);
+    tq::cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const float* ABj = ring + (t % kStages) * stf;
+    const float* hb = ABj + nx * nz;
+
+    // M row i = W row i + hbar_j row i
+    float a[NZ];
+#pragma unroll
+    for (int c = 0; c < NZ; ++c) {
+      if (!row) a[c] = 0.f;
+      else if (dense) a[c] = __fadd_rn(w[c], hb[i * nz + c]);
+      else a[c] = c == i ? __fadd_rn(w[c], hb[i]) : w[c];
+      if (row) sM[i * NZ + c] = a[c];
+    }
+    __syncwarp();
+
+    // Lu = chol(Muu + reg I), right-looking: lane nx + r holds row r of Muu
+    float u[NZ];
+#pragma unroll
+    for (int c = 0; c < NZ; ++c) {
+      u[c] = urow && c < nu ? sM[i * NZ + nx + c] : 0.f;
+      if (c == r) u[c] = __fadd_rn(u[c], reg);
+    }
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      if (k < nu) {
+        const float akk = __shfl_sync(tq::kFull, u[k], nx + k, G);
+        const float d = fmaxf(akk, tq::kPivotFloor);
+        const float dinv = rsqrtf(d);
+        const float lrk = r == k ? __fmul_rn(d, dinv) : __fmul_rn(u[k], dinv);
+        if (r >= k) u[k] = lrk;
+#pragma unroll
+        for (int c = k + 1; c < NZ; ++c) {
+          if (c < nu) {
+            const float lck = __shfl_sync(tq::kFull, lrk, nx + c, G);
+            if (r >= c) u[c] = __fmaf_rn(-lrk, lck, u[c]);
+          }
+        }
+      }
+    }
+    if (urow) {
+#pragma unroll
+      for (int c = 0; c < NZ; ++c) {
+        if (c < nu) {
+          const float v = c > r ? 0.f : u[c];
+          sLu[r * nu + c] = v;
+          if (live) Lu[sj * nu * nu + r * nu + c] = v;
+        }
+      }
+    }
+    __syncwarp();
+
+    // K = -Muu^-1 Mux: lane i < nx solves column i through Lu; Mxu row i
+    if (i < nx) {
+      float y[NZ];
+#pragma unroll
+      for (int k = 0; k < NZ; ++k) y[k] = k < nu ? sM[(nx + k) * NZ + i] : 0.f;
+#pragma unroll
+      for (int k = 0; k < NZ; ++k) {
+        if (k < nu) {
+          float acc = y[k];
+#pragma unroll
+          for (int m = 0; m < k; ++m) acc = __fmaf_rn(-sLu[k * nu + m], y[m], acc);
+          y[k] = __fdiv_rn(acc, sLu[k * nu + k]);
+        }
+      }
+#pragma unroll
+      for (int k = NZ - 1; k >= 0; --k) {
+        if (k < nu) {
+          float acc = y[k];
+#pragma unroll
+          for (int m = k + 1; m < NZ; ++m)
+            if (m < nu) acc = __fmaf_rn(-sLu[m * nu + k], y[m], acc);
+          y[k] = __fdiv_rn(acc, sLu[k * nu + k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < NZ; ++k) {
+        if (k < nu) {
+          sK[k * nx + i] = -y[k];
+          if (live) {
+            K[sj * nu * nx + k * nx + i] = -y[k];
+            Mxu[sj * nx * nu + i * nu + k] = sM[i * NZ + nx + k];
+          }
+        }
+      }
+    }
+    __syncwarp();
+
+    // T = Mxx + Mxu K, row i
+    if (i < nx) {
+#pragma unroll
+      for (int jj = 0; jj < NZ; ++jj) {
+        if (jj < nx) {
+          float acc = 0.f;
+#pragma unroll
+          for (int k = 0; k < NZ; ++k)
+            if (k < nu) acc = __fmaf_rn(sM[i * NZ + nx + k], sK[k * nx + jj], acc);
+          sT[i * nx + jj] = __fadd_rn(a[jj], acc);
+        }
+      }
+    }
+    __syncwarp();
+
+    // P = (T + T') / 2 and P AB, row i
+    if (i < nx) {
+      float p[NZ];
+#pragma unroll
+      for (int jj = 0; jj < NZ; ++jj) {
+        p[jj] = jj < nx ? __fmul_rn(0.5f, __fadd_rn(sT[i * nx + jj], sT[jj * nx + i])) : 0.f;
+        if (jj < nx && live) P[sj * nx * nx + i * nx + jj] = p[jj];
+      }
+#pragma unroll
+      for (int jj = 0; jj < NZ; ++jj) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < NZ; ++k)
+          if (k < nx) acc = __fmaf_rn(p[k], ABj[k * nz + jj], acc);
+        sPA[i * nz + jj] = acc;
+      }
+    }
+    __syncwarp();
+
+    // W = AB' (P AB), row i
+    if (row) {
+#pragma unroll
+      for (int jj = 0; jj < NZ; ++jj) {
+        float acc = 0.f;
+#pragma unroll
+        for (int x = 0; x < NZ; ++x)
+          if (x < nx) acc = __fmaf_rn(ABj[x * nz + i], sPA[x * nz + jj], acc);
+        w[jj] = acc;
+      }
+    }
+    __syncwarp();  // the stage and the work areas are read: refill
   }
-  for (int e = 0; e < nn; ++e) W0[(size_t)s * nn + e] = W[e];
+  tq::cp_async_wait<0>();
+  if (live && row) {
+#pragma unroll
+    for (int c = 0; c < NZ; ++c) W0[sl * nz * nz + i * nz + c] = w[c];
+  }
+}
+
+template <int NZ>
+int launch_factor(const float* hbar, const float* AB, float* P, float* Lu, float* K,
+                  float* Mxu, float* W0, int S, int L, int nx, int dense, float reg,
+                  cudaStream_t st) {
+  constexpr int chains = 32 / tq::lanes(NZ);
+  const size_t bytes = (size_t)chains * ric_chain_floats(NZ, nx, dense) * sizeof(float);
+  ric_chain_factor_kernel<NZ><<<(S + chains - 1) / chains, 32, bytes, st>>>(
+      hbar, AB, P, Lu, K, Mxu, W0, S, L, nx, dense, reg);
+  return (int)cudaGetLastError();
 }
 
 // The operand lists of the sweeps, passed by value (the host array of
@@ -121,10 +344,16 @@ extern "C" int tq_ric_chain_factor(const float* hbar, const float* AB, float* P,
                                    float* Lu, float* K, float* Mxu, float* W0, int S,
                                    int L, int nx, int nz, int dense, float reg,
                                    void* stream) {
-  const int blocks = (S + kThreads - 1) / kThreads;
-  ric_chain_factor_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      hbar, AB, P, Lu, K, Mxu, W0, S, L, nx, nz, dense, reg);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (nz) {
+#define TQ_RIC(NZ_) \
+  case NZ_:         \
+    return launch_factor<NZ_>(hbar, AB, P, Lu, K, Mxu, W0, S, L, nx, dense, reg, st);
+    TQ_RIC(2) TQ_RIC(3) TQ_RIC(4) TQ_RIC(5) TQ_RIC(6) TQ_RIC(7) TQ_RIC(8) TQ_RIC(9)
+    TQ_RIC(10) TQ_RIC(11) TQ_RIC(12) TQ_RIC(13) TQ_RIC(14) TQ_RIC(15) TQ_RIC(16)
+#undef TQ_RIC
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // pointers (P, Lu, Mxu, AB, rg, rb, p, k, w0), S, L, nx, nz, stream

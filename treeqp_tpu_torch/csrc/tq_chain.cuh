@@ -1,7 +1,8 @@
 // Per-chain banded block routines, one thread per chain: the two solve
-// sweeps of a chain of L nodes (system_solve.cu and newton_iter.cu, through
-// tq_system.cuh). chain_sweeps.cu runs the same sums in the same order with
-// a lane group per chain, bit for bit these bodies.
+// sweeps of a chain of L nodes (system_solve.cu, through tq_system.cuh).
+// tq_lanes.cuh's sweep_bwd / sweep_fwd (chain_sweeps.cu, newton_iter.cu)
+// run the same sums in the same order with a lane group per chain, bit for
+// bit these bodies.
 //
 // The pointers address chain s's slice: Ls, CUs [L, n, n], vectors [L, n],
 // row-major, j = 0 the node next to the crown. Same operation order as the

@@ -29,6 +29,8 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) { return fmin
 __device__ __forceinline__ double clip(double v, double lo, double hi) { return fmin(fmax(v, lo), hi); }
 __device__ __forceinline__ float absmax(float m, float v) { return fmaxf(m, fabsf(v)); }
 __device__ __forceinline__ double absmax(double m, double v) { return fmax(m, fabs(v)); }
+__device__ __forceinline__ float maxof(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double maxof(double a, double b) { return fmax(a, b); }
 
 // sum_r M[r * ld + c] v[r] over r = 0 .. rows-1, in order (v widened to T).
 template <typename T, typename V>
@@ -44,6 +46,56 @@ __device__ inline T row_dot(const T* M, const T* v, int i, int cols, int ld) {
   T acc = T(0);
   for (int c = 0; c < cols; ++c) acc = add(acc, mul(M[i * ld + c], v[c]));
   return acc;
+}
+
+// acc[c] = sum_r M[r * ld + c0 + c] v[r] over r = 0 .. rows-1, for the
+// kCols columns c0 + c < cols at once (each column in col_dot's order;
+// their loads and sums overlap).
+constexpr int kCols = 16;
+
+template <typename T, typename V>
+__device__ __forceinline__ void col_dots(const T* M, const V* v, int c0, int cols, int rows,
+                                         int ld, T (&acc)[kCols]) {
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) acc[c] = T(0);
+  for (int r = 0; r < rows; ++r) {
+    const T vr = T(v[r]);
+    const T* Mr = M + (size_t)r * ld + c0;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      if (c0 + c < cols) acc[c] = add(acc[c], mul(Mr[c], vr));
+  }
+}
+
+// The rows i < nx <= kRows of [A B] [x; u] (A the first nx columns of M, B
+// the next nu, row stride ld): acc[i] = sum_c M[i ld + c] x[c] over c < nx,
+// then + sum_c M[i ld + nx + c] u[c] over c < nu, in that order as one sum
+// (split = false) or as two (split = true: the u part in accu).
+constexpr int kRows = 16;
+
+template <typename T, bool kSplit>
+__device__ __forceinline__ void row_dots(const T* M, const T* x, const T* u, int nx, int nu,
+                                         int ld, T (&acc)[kRows], T (&accu)[kRows]) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) acc[i] = accu[i] = T(0);
+  for (int c = 0; c < nx; ++c) {
+    const T xc = x[c];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      if (i < nx) acc[i] = add(acc[i], mul(M[(size_t)i * ld + c], xc));
+  }
+  for (int c = 0; c < nu; ++c) {
+    const T uc = u[c];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (i < nx) {
+        if (kSplit)
+          accu[i] = add(accu[i], mul(M[(size_t)i * ld + nx + c], uc));
+        else
+          acc[i] = add(acc[i], mul(M[(size_t)i * ld + nx + c], uc));
+      }
+    }
+  }
 }
 
 struct PtrCursor {
@@ -98,58 +150,117 @@ inline EvalOut<T> eval_out(PtrCursor& c) {
 //   at j = 0 (the caller adds A_0 z_crown);
 //   f[s] = sum_j sum_i x (qmod - Qd x / 2) - b lam + sum_i u (rmod - Rd u / 2);
 //   err[s] = max |res_j| over j >= 1;  cqr = [A_0 B_0]' lam_0 (nz values).
+// chain_eval_one runs the chain node by node in one thread; newton_iter.cu
+// runs chain_clip_node for every node at once, then chain_res_node, then
+// the per-chain sums in j order: the same operations on every element.
+
+// Node j of chain s: the clipping solve, the masked inverses, and the
+// node's dual-value partials sx (the x rows) and su (the u rows).
 template <typename T>
-__device__ inline void chain_eval_one(const ChainData<T>& d, const T* __restrict__ lam,
-                                      const EvalOut<T>& o, T* cqr, int s) {
+__device__ inline void chain_clip_node(const ChainData<T>& d, const T* __restrict__ lam,
+                                       const EvalOut<T>& o, int s, int j, T& sx, T& su) {
   const int L = d.L, nx = d.nx, nu = d.nu, nz = nx + nu;
   const T half = T(0.5);
-  T facc = T(0), err = T(0);
-  for (int j = 0; j < L; ++j) {
-    const size_t sj = (size_t)s * L + j;
-    const T* lj = lam + sj * nx;
-    const bool kid = j < L - 1;
-    const T* ABn = d.AB + (sj + 1) * nx * nz;
-    const T* ln = lam + (sj + 1) * nx;
-    T sx = T(0), su = T(0);
-    for (int i = 0; i < nx; ++i) {
-      const size_t e = sj * nx + i;
-      T qm = add(-d.q[e], lj[i]);
-      if (kid) qm = sub(qm, col_dot(ABn, ln, i, nx, nz));
-      const T xu = mul(d.Qi[e], qm);
-      const T xv = clip(xu, d.xlo[e], d.xhi[e]);
-      o.x[e] = xv;
-      o.qt[e] = (xu > d.xhi[e] || xu < d.xlo[e]) ? T(0) : d.Qi[e];
-      if (o.xU) o.xU[e] = xu;
-      sx = add(sx, sub(mul(xv, sub(qm, mul(mul(half, d.Qd[e]), xv))), mul(d.b[e], lj[i])));
+  const size_t sj = (size_t)s * L + j;
+  const T* lj = lam + sj * nx;
+  const bool kid = j < L - 1;
+  const T* ABn = d.AB + (sj + 1) * nx * nz;
+  const T* ln = lam + (sj + 1) * nx;
+  sx = T(0);
+  su = T(0);
+  // the columns of [x; u] a chunk at a time: the kid terms col_dot(ABn, ln,
+  // c) of the chunk's columns, then their rows, x rows first, i ascending
+  for (int c0 = 0; c0 < nz; c0 += kCols) {
+    T kt[kCols];
+    if (kid) {
+      col_dots(ABn, ln, c0, nz, nx, nz, kt);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) kt[c] = T(0);
     }
-    for (int i = 0; i < nu; ++i) {
-      const size_t e = sj * nu + i;
-      T rm = -d.r[e];
-      if (kid) rm = sub(rm, col_dot(ABn, ln, nx + i, nx, nz));
-      const T uu = mul(d.Ri[e], rm);
-      const T uv = clip(uu, d.ulo[e], d.uhi[e]);
-      o.u[e] = uv;
-      o.rt[e] = (uu > d.uhi[e] || uu < d.ulo[e]) ? T(0) : d.Ri[e];
-      if (o.uU) o.uU[e] = uu;
-      su = add(su, mul(uv, sub(rm, mul(mul(half, d.Rd[e]), uv))));
-    }
-    facc = add(add(facc, sx), su);
-    const T* AB = d.AB + sj * nx * nz;
-    for (int i = 0; i < nx; ++i) {
-      const size_t e = sj * nx + i;
-      T rr = sub(d.b[e], o.x[e]);
-      if (j > 0) {
-        const T* xp = o.x + (sj - 1) * nx;
-        const T* up = o.u + (sj - 1) * nu;
-        rr = add(add(rr, row_dot(AB, xp, i, nx, nz)), row_dot(AB + nx, up, i, nu, nz));
-        err = absmax(err, rr);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int col = c0 + c;
+      if (col < nx) {
+        const int i = col;
+        const size_t e = sj * nx + i;
+        T qm = add(-d.q[e], lj[i]);
+        if (kid) qm = sub(qm, kt[c]);
+        const T xu = mul(d.Qi[e], qm);
+        const T xv = clip(xu, d.xlo[e], d.xhi[e]);
+        o.x[e] = xv;
+        o.qt[e] = (xu > d.xhi[e] || xu < d.xlo[e]) ? T(0) : d.Qi[e];
+        if (o.xU) o.xU[e] = xu;
+        sx = add(sx, sub(mul(xv, sub(qm, mul(mul(half, d.Qd[e]), xv))), mul(d.b[e], lj[i])));
+      } else if (col < nz) {
+        const size_t e = sj * nu + (col - nx);
+        T rm = -d.r[e];
+        if (kid) rm = sub(rm, kt[c]);
+        const T uu = mul(d.Ri[e], rm);
+        const T uv = clip(uu, d.ulo[e], d.uhi[e]);
+        o.u[e] = uv;
+        o.rt[e] = (uu > d.uhi[e] || uu < d.ulo[e]) ? T(0) : d.Ri[e];
+        if (o.uU) o.uU[e] = uu;
+        su = add(su, mul(uv, sub(rm, mul(mul(half, d.Rd[e]), uv))));
       }
+    }
+  }
+}
+
+// Node j of chain s, after the clip of nodes j-1 and j: the residual row
+// res_j, and max |res_j| (0 at j = 0, whose row the caller completes).
+template <typename T>
+__device__ inline T chain_res_node(const ChainData<T>& d, const EvalOut<T>& o, int s, int j) {
+  const int L = d.L, nx = d.nx, nu = d.nu, nz = nx + nu;
+  const size_t sj = (size_t)s * L + j;
+  T err = T(0);
+  if (j == 0) {
+    for (int i = 0; i < nx; ++i) o.res[sj * nx + i] = sub(d.b[sj * nx + i], o.x[sj * nx + i]);
+    return err;
+  }
+  // row_dot(AB, x_{j-1}, i) and row_dot(AB + nx, u_{j-1}, i) of every row
+  T ax[kRows], au[kRows];
+  row_dots<T, true>(d.AB + sj * nx * nz, o.x + (sj - 1) * nx, o.u + (sj - 1) * nu, nx, nu, nz,
+                    ax, au);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    if (i < nx) {
+      const size_t e = sj * nx + i;
+      const T rr = add(add(sub(d.b[e], o.x[e]), ax[i]), au[i]);
+      err = absmax(err, rr);
       o.res[e] = rr;
     }
   }
-  const T* AB0 = d.AB + (size_t)s * L * nx * nz;
-  const T* l0 = lam + (size_t)s * L * nx;
-  for (int c = 0; c < nz; ++c) cqr[c] = col_dot(AB0, l0, c, nx, nz);
+  return err;
+}
+
+// cqr = [A_0 B_0]' lam_0 of chain s (nz values).
+template <typename T>
+__device__ inline void chain_root_cqr(const ChainData<T>& d, const T* __restrict__ lam, T* cqr,
+                                      int s) {
+  const int nx = d.nx, nz = nx + d.nu;
+  const T* AB0 = d.AB + (size_t)s * d.L * nx * nz;
+  const T* l0 = lam + (size_t)s * d.L * nx;
+  for (int c0 = 0; c0 < nz; c0 += kCols) {
+    T acc[kCols];
+    col_dots(AB0, l0, c0, nz, nx, nz, acc);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      if (c0 + c < nz) cqr[c0 + c] = acc[c];
+  }
+}
+
+template <typename T>
+__device__ inline void chain_eval_one(const ChainData<T>& d, const T* __restrict__ lam,
+                                      const EvalOut<T>& o, T* cqr, int s) {
+  T facc = T(0), err = T(0);
+  for (int j = 0; j < d.L; ++j) {
+    T sx, su;
+    chain_clip_node(d, lam, o, s, j, sx, su);
+    facc = add(add(facc, sx), su);
+    err = maxof(err, chain_res_node(d, o, s, j));
+  }
+  chain_root_cqr(d, lam, cqr, s);
   o.f[s] = facc;
   if (o.err) o.err[s] = err;
 }
@@ -184,7 +295,13 @@ __device__ inline void crown_atb(const CrownData<T>& d, const V* __restrict__ v,
                                  T* __restrict__ atb, int n) {
   const int nx = d.nx, nz = nx + d.nu;
   const T* AB = d.AB + (size_t)n * nx * nz;
-  for (int c = 0; c < nz; ++c) atb[(size_t)n * nz + c] = col_dot(AB, v + (size_t)n * nx, c, nx, nz);
+  for (int c0 = 0; c0 < nz; c0 += kCols) {
+    T acc[kCols];
+    col_dots(AB, v + (size_t)n * nx, c0, nz, nx, nz, acc);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      if (c0 + c < nz) atb[(size_t)n * nz + c0 + c] = acc[c];
+  }
 }
 
 // The kid sum of atb column c at node n, in slot order, plus extra[n, c].
@@ -197,38 +314,63 @@ __device__ inline T crown_kid_sum(const CrownData<T>& d, const T* __restrict__ a
   return add(ks, extra[(size_t)n * nz + c]);
 }
 
+// ks[c] = crown_kid_sum of column c0 + c, for the kCols columns at once.
+template <typename T>
+__device__ __forceinline__ void crown_kid_sums(const CrownData<T>& d, const T* __restrict__ atb,
+                                               const T* __restrict__ extra, int n, int c0,
+                                               T (&ks)[kCols]) {
+  const int nz = d.nx + d.nu;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) ks[c] = T(0);
+  for (int k = d.kid_ptr[n]; k < d.kid_ptr[n + 1]; ++k) {
+    const T* row = atb + (size_t)d.kid_idx[k] * nz + c0;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      if (c0 + c < nz) ks[c] = add(ks[c], row[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < kCols; ++c)
+    if (c0 + c < nz) ks[c] = add(ks[c], extra[(size_t)n * nz + c0 + c]);
+}
+
 // Phase B, node n (after phase A of every node): the kid sum of atb plus
 // the chain contributions extra [Nn, nz], the clipping solve, the masked
-// inverses and the dual-value partial f[n].
+// inverses and the dual-value partial f[n]; the columns of [x; u] a chunk
+// at a time, x rows first, i ascending.
 template <typename T>
 __device__ inline void crown_clip(const CrownData<T>& d, const T* __restrict__ lam,
                                   const T* __restrict__ atb, const T* __restrict__ extra,
                                   const EvalOut<T>& o, int n) {
-  const int nx = d.nx, nu = d.nu;
+  const int nx = d.nx, nu = d.nu, nz = nx + nu;
   const T half = T(0.5);
   T sx = T(0), su = T(0);
-  for (int i = 0; i < nx; ++i) {
-    const size_t e = (size_t)n * nx + i;
-    const T sA = crown_kid_sum(d, atb, extra, n, i);
-    const T qm = mul(sub(add(-d.q[e], lam[e]), sA), d.xm[e]);
-    const T xu = mul(d.Qi[e], qm);
-    const T xv = mul(clip(xu, d.xlo[e], d.xhi[e]), d.xm[e]);
-    o.x[e] = xv;
-    o.qt[e] = (xu > d.xhi[e] || xu < d.xlo[e]) ? T(0) : d.Qi[e];
-    if (o.xU) o.xU[e] = xu;
-    sx = add(sx, sub(mul(xv, sub(qm, mul(mul(half, d.Qd[e]), xv))),
-                     mul(mul(d.b[e], lam[e]), d.nr[e])));
-  }
-  for (int i = 0; i < nu; ++i) {
-    const size_t e = (size_t)n * nu + i;
-    const T sB = crown_kid_sum(d, atb, extra, n, nx + i);
-    const T rm = mul(sub(-d.r[e], sB), d.um[e]);
-    const T uu = mul(d.Ri[e], rm);
-    const T uv = mul(clip(uu, d.ulo[e], d.uhi[e]), d.um[e]);
-    o.u[e] = uv;
-    o.rt[e] = (uu > d.uhi[e] || uu < d.ulo[e]) ? T(0) : d.Ri[e];
-    if (o.uU) o.uU[e] = uu;
-    su = add(su, mul(uv, sub(rm, mul(mul(half, d.Rd[e]), uv))));
+  for (int c0 = 0; c0 < nz; c0 += kCols) {
+    T ks[kCols];
+    crown_kid_sums(d, atb, extra, n, c0, ks);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int col = c0 + c;
+      if (col < nx) {
+        const size_t e = (size_t)n * nx + col;
+        const T qm = mul(sub(add(-d.q[e], lam[e]), ks[c]), d.xm[e]);
+        const T xu = mul(d.Qi[e], qm);
+        const T xv = mul(clip(xu, d.xlo[e], d.xhi[e]), d.xm[e]);
+        o.x[e] = xv;
+        o.qt[e] = (xu > d.xhi[e] || xu < d.xlo[e]) ? T(0) : d.Qi[e];
+        if (o.xU) o.xU[e] = xu;
+        sx = add(sx, sub(mul(xv, sub(qm, mul(mul(half, d.Qd[e]), xv))),
+                         mul(mul(d.b[e], lam[e]), d.nr[e])));
+      } else if (col < nz) {
+        const size_t e = (size_t)n * nu + (col - nx);
+        const T rm = mul(sub(-d.r[e], ks[c]), d.um[e]);
+        const T uu = mul(d.Ri[e], rm);
+        const T uv = mul(clip(uu, d.ulo[e], d.uhi[e]), d.um[e]);
+        o.u[e] = uv;
+        o.rt[e] = (uu > d.uhi[e] || uu < d.ulo[e]) ? T(0) : d.Ri[e];
+        if (o.uU) o.uU[e] = uu;
+        su = add(su, mul(uv, sub(rm, mul(mul(half, d.Rd[e]), uv))));
+      }
+    }
   }
   o.f[n] = add(sx, su);
 }
@@ -247,15 +389,17 @@ __device__ inline void crown_res(const CrownData<T>& d, const T* __restrict__ x,
   const T* xp = x + (size_t)p * nx;
   const T* up = u + (size_t)p * nu;
   T emax = T(0);
-  for (int i = 0; i < nx; ++i) {
-    const size_t e = (size_t)n * nx + i;
-    T acc = T(0);
-    for (int c = 0; c < nx; ++c) acc = add(acc, mul(AB[i * nz + c], xp[c]));
-    for (int c = 0; c < nu; ++c) acc = add(acc, mul(AB[i * nz + nx + c], up[c]));
-    if (b) acc = add(acc, b[e]);
-    const T rr = mul(sub(acc, x[e]), d.nr[e]);
-    res[e] = rr;
-    emax = absmax(emax, rr);
+  T acc[kRows], unused[kRows];
+  row_dots<T, false>(AB, xp, up, nx, nu, nz, acc, unused);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    if (i < nx) {
+      const size_t e = (size_t)n * nx + i;
+      const T a = b ? add(acc[i], b[e]) : acc[i];
+      const T rr = mul(sub(a, x[e]), d.nr[e]);
+      res[e] = rr;
+      emax = absmax(emax, rr);
+    }
   }
   if (err) err[n] = emax;
 }

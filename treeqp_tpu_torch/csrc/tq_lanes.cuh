@@ -1,9 +1,10 @@
 // Pieces of the lane-group kernels (chain_factor.cu, chain_blocks_factor.cu,
-// chain_sweeps.cu, admm_identify.cu): the cp.async copies of the chain
-// kernels' shared-memory rings, the broadcast lane's true division, and
-// the step of the banded backward block Cholesky that both chain factor
-// kernels run, a group of lanes per chain with lane i owning row i of the
-// step's n x n block.
+// chain_sweeps.cu, newton_iter.cu, admm_identify.cu, ric_chain.cu): the
+// cp.async copies of the chain kernels' shared-memory rings, the broadcast
+// lane's true division, the step of the banded backward block Cholesky
+// that both chain factor kernels run, a group of lanes per chain with lane
+// i owning row i of the step's n x n block, and the two solve sweeps of the
+// chain factors that chain_sweeps.cu and newton_iter.cu run.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -131,6 +132,174 @@ __device__ __forceinline__ void factor_step(float (&a)[N], float (&u)[N], float 
 #pragma unroll
     for (int k = 0; k < N; ++k) acc = __fmaf_rn(u[k], sC[c * N + k], acc);
     sch[c] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The two solve sweeps of the chain factors Ls, CUs [S, L, n, n], a group of
+// G lanes per chain (G = lanes(n)), lane i owning row i of the step's
+// vector in a register (see chain_sweeps.cu for the design):
+//   sweep_bwd: ys_j = Ls_j^-1 (r_j - CUs_{j+1} ys_{j+1}) for j = L-1 .. 0;
+//     returns row i of radd0 = CUs_0 ys_0;
+//   sweep_fwd: dl_j = Ls_j^-T (ys_j - CUs_j' dl_{j-1}) for j = 0 .. L-1,
+//     from dl_{-1} = droot.
+// Each step hands its row to ``emit(j, value)``; sweep_fwd calls ``pre(j)``
+// as step j starts (loads that emit needs can be in flight during the step). Every sum runs in the order
+// of tq_dense.cuh's ltrsv_inplace / uttrsv_inplace and of tq_chain.cuh's
+// per-thread bodies, each product folded in by one FMA as nvcc contracts
+// those bodies, and the divisions are true divisions: bit for bit those
+// bodies.
+
+constexpr int kSweepStages = 3;
+
+// A stage holds [Ls_j (n n) | CUs_j (n n) | v_j (n)], its stride rounded up
+// to 4 floats so that every stage starts 16-byte aligned.
+__host__ __device__ inline int sweep_stage_floats(int n) { return (2 * n * n + n + 3) & ~3; }
+
+// A chain's group of G lanes and its ring (kSweepStages stages at ``ring``);
+// a group past the last chain (s >= S) reads the last chain's data and is
+// not live: its emits store nothing.
+template <int G>
+struct SweepGroup {
+  int lane;     // the row of the step's vector this lane owns
+  int s;        // the chain
+  bool live;    // s < S
+  size_t nn;
+  float* ring;
+  const float* Lc;  // the chain's Ls, CUs and vector slices
+  const float* Cc;
+  const float* vc;
+
+  __device__ SweepGroup(float* ring_, int lane_, int s_, const float* Ls, const float* CUs,
+                        const float* v, int S, int L, int n) {
+    lane = lane_;
+    s = s_;
+    live = s < S;
+    const size_t sl = live ? s : S - 1;
+    nn = (size_t)n * n;
+    ring = ring_;
+    Lc = Ls + sl * L * nn;
+    Cc = CUs + sl * L * nn;
+    vc = v + sl * L * n;
+  }
+
+  __device__ float* stage(int t, int n) const {
+    return ring + (t % kSweepStages) * sweep_stage_floats(n);
+  }
+
+  // Copy node j's blocks and vector into the stage of step t (none past the
+  // last step), then close the thread's copy group.
+  __device__ void fetch(int t, int j, int L, int n, bool vec16) const {
+    if (t < L) {
+      float* st = stage(t, n);
+      const float* Lj = Lc + j * nn;
+      const float* Cj = Cc + j * nn;
+      if (vec16) {
+        for (int q = 4 * lane; q < (int)nn; q += 4 * G) {
+          cp_async16(st + q, Lj + q);
+          cp_async16(st + nn + q, Cj + q);
+        }
+      } else {
+        for (int e = lane; e < (int)nn; e += G) {
+          cp_async4(st + e, Lj + e);
+          cp_async4(st + nn + e, Cj + e);
+        }
+      }
+      if (lane < n) cp_async4(st + 2 * nn + lane, vc + (size_t)j * n + lane);
+    }
+    cp_async_commit();
+  }
+
+  // Step t's stage has landed and every lane of the group sees it.
+  __device__ void arrive() const {
+    cp_async_wait<kSweepStages - 1>();
+    __syncwarp();
+  }
+};
+
+template <int G, typename Emit>
+__device__ __forceinline__ float sweep_bwd(const SweepGroup<G>& g, int L, int n, bool vec16,
+                                           Emit emit) {
+  constexpr int N = G < kMaxN ? G : kMaxN;  // rows a lane may own
+  const int i = g.lane;
+  // step t works on node j = L-1-t
+  for (int t = 0; t < kSweepStages; ++t) g.fetch(t, L - 1 - t, L, n, vec16);
+  float radd = 0.f;  // row i of CUs_{j+1} y_{j+1}
+  for (int t = 0; t < L; ++t) {
+    g.arrive();
+    const float* st = g.stage(t, n);
+    float Lrow[N], Crow[N];
+    float diag = 1.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const bool in = k < n && i < n;
+      Lrow[k] = in ? st[i * n + k] : 0.f;
+      Crow[k] = in ? st[g.nn + i * n + k] : 0.f;
+      if (in && k == i) diag = Lrow[k];
+    }
+    float acc = i < n ? st[2 * g.nn + i] - radd : 0.f;
+    __syncwarp();  // the stage is read: refill it kSweepStages steps ahead
+    g.fetch(t + kSweepStages, L - 1 - t - kSweepStages, L, n, vec16);
+    float racc = 0.f, y = 0.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (k < n) {
+        const float yk = __shfl_sync(kFull, quotient(acc, diag, i == k), k, G);
+        if (i > k) acc = __fmaf_rn(-Lrow[k], yk, acc);
+        racc = __fmaf_rn(Crow[k], yk, racc);
+        if (i == k) y = yk;
+      }
+    }
+    radd = racc;
+    emit(L - 1 - t, y);
+  }
+  return radd;
+}
+
+template <int G, typename Pre, typename Emit>
+__device__ __forceinline__ void sweep_fwd(const SweepGroup<G>& g, const float* droot, int L,
+                                          int n, bool vec16, Pre pre, Emit emit) {
+  constexpr int N = G < kMaxN ? G : kMaxN;  // rows a lane may own
+  const int i = g.lane;
+  for (int t = 0; t < kSweepStages; ++t) g.fetch(t, t, L, n, vec16);
+  // the previous node's direction, every entry in every lane
+  float z[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) z[k] = k < n ? droot[k] : 0.f;
+  for (int j = 0; j < L; ++j) {
+    pre(j);
+    g.arrive();
+    const float* st = g.stage(j, n);
+    float Lcol[N], Ccol[N];  // column i of Ls_j and of CUs_j
+    float diag = 1.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const bool in = k < n && i < n;
+      Lcol[k] = in ? st[k * n + i] : 0.f;
+      Ccol[k] = in ? st[g.nn + k * n + i] : 0.f;
+      if (in && k == i) diag = Lcol[k];
+    }
+    const float v = i < n ? st[2 * g.nn + i] : 0.f;
+    __syncwarp();
+    g.fetch(j + kSweepStages, j + kSweepStages, L, n, vec16);
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (k < n) acc = __fmaf_rn(Ccol[k], z[k], acc);
+    acc = v - acc;
+    float dl = 0.f;
+#pragma unroll
+    for (int k = N - 1; k >= 0; --k) {
+      if (k < n) {
+        float a = acc;
+#pragma unroll
+        for (int m = k + 1; m < N; ++m)
+          if (m < n) a = __fmaf_rn(-Lcol[m], z[m], a);
+        z[k] = __shfl_sync(kFull, quotient(a, diag, i == k), k, G);
+        if (i == k) dl = z[k];
+      }
+    }
+    emit(j, dl);
   }
 }
 

@@ -1,5 +1,7 @@
 // Body of the whole crown + chains Newton-system solve with stored factors,
-// for one thread block: shared by system_solve.cu and newton_iter.cu.
+// for one thread block: system_solve.cu's. newton_iter.cu runs the same
+// phases on a thread-block cluster (lane-group sweeps, a warp per crown
+// group), bit for bit this body.
 //
 // The caller fills rv [NpG, G] with the crown right-hand side (group
 // layout, equilibrated), zeroes dg [NpG, G], and synchronizes the block.

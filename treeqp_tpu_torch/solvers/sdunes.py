@@ -416,113 +416,145 @@ def _armijo(f_at, f0, dot, tau0, f1, opts, slack):
     return tau, i, acc
 
 
-def _sd_newton_loop(sqp: ScenarioQP, lam0, mu0, opts: SdunesOpts, it0: int,
-                    patience: int = 0):
-    """The sdunes dual-Newton loop at the dtype of ``sqp``'s data, counting
-    Newton steps from ``it0``. Each step: blocks and factorization in f32,
-    one full solve of [r_mu | U], the Jay solve, ``refine_steps`` refinement
-    passes (each one full solve and one Jay solve) against the exact
-    Hessian, then the Armijo search (noise slack 2^-45 |f0| in f64, 2^-18
-    in f32) or the gradient fallback. ``patience > 0`` adds the coarse
-    phase's stall exit. Returns (lam, mu, it, err, status, ls_it)."""
+def _sd_consts(sqp: ScenarioQP):
+    """What every iteration of ``_sd_newton_loop`` reads besides its carry:
+    the coupling masks and the dynamics in f32 (the blocks) and transposed
+    (the refinement's Hessian action)."""
+    cmask = _coupling_masks(sqp.meta, sqp.b.dtype, sqp.b.device)
+    return dict(cmask=cmask, dm=_dmask(cmask, sqp.meta, sqp.r.shape[-1]),
+                A_b=sqp.A.to(torch.float32), B_b=sqp.B.to(torch.float32),
+                AT=sqp.A.transpose(2, 3), BT=sqp.B.transpose(2, 3))
+
+
+def _sd_newton_step(sqp: ScenarioQP, opts: SdunesOpts, c, lam, mu, status, sol, r_mu,
+                    r_lam, boost):
+    """One Newton step from (lam, mu) with the stage solution ``sol`` and
+    residuals there: blocks and factorization in f32 (``boost`` added to
+    every factorization), one full solve of [r_mu | U], the Jay solve,
+    ``refine_steps`` refinement passes (each one full solve and one Jay
+    solve) against the exact Hessian, then the Armijo search (noise slack
+    2^-45 |f0| in f64, 2^-18 in f32) or the gradient fallback. ``c`` is
+    ``_sd_consts(sqp)``. Returns (lam, mu, status, ls_it)."""
     meta = sqp.meta
     Ns, Nr = meta.Ns, meta.Nr
     nu = sqp.r.shape[-1]
     nl = Nr * nu
     dt, dev = sqp.b.dtype, sqp.b.device
     f32 = torch.float32
-    cmask = _coupling_masks(meta, dt, dev)
-    dm = _dmask(cmask, meta, nu)
-    A_b, B_b = sqp.A.to(f32), sqp.B.to(f32)
-    AT, BT = sqp.A.transpose(2, 3), sqp.B.transpose(2, 3)
+    cmask, dm = c["cmask"], c["dm"]
 
     def f_at(mu_t, lam_t):
         return _dual_value(sqp, _stage_solve(sqp, mu_t, lam_t, cmask), mu_t)
 
-    def newton_step(lam, mu, status, sol, r_mu, r_lam, boost):
-        qt_b, rt_b = sol["qt"].to(f32), sol["rt"].to(f32)
-        D, Ssub = _banded_blocks(A_b, B_b, qt_b, rt_b)
-        Uown = _coupling_columns(B_b, rt_b, meta)
-        fact = _sd_factor(D, Ssub, opts, extra_shift=boost)
-        # ONE multi-RHS full solve: [r_mu | U] -> [z_mu | Z_u]
-        Z = _sd_full_solve(fact, torch.cat([r_mu.to(f32)[..., None], Uown], dim=-1))
-        z_mu, Zu = Z[..., 0], Z[..., 1:]
-        Gram = torch.einsum("skxl,skxm->slm", Uown, Zu)
-        diag, off, _, _ = _jay_blocks(rt_b, Gram, cmask, meta)
-        rl_full = (r_lam.reshape(Ns - 1, nl) * dm if Ns > 1
-                   else torch.zeros((1, nl), dtype=dt, device=dev))
+    qt_b, rt_b = sol["qt"].to(f32), sol["rt"].to(f32)
+    D, Ssub = _banded_blocks(c["A_b"], c["B_b"], qt_b, rt_b)
+    Uown = _coupling_columns(c["B_b"], rt_b, meta)
+    fact = _sd_factor(D, Ssub, opts, extra_shift=boost)
+    # ONE multi-RHS full solve: [r_mu | U] -> [z_mu | Z_u]
+    Z = _sd_full_solve(fact, torch.cat([r_mu.to(f32)[..., None], Uown], dim=-1))
+    z_mu, Zu = Z[..., 0], Z[..., 1:]
+    Gram = torch.einsum("skxl,skxm->slm", Uown, Zu)
+    diag, off, _, _ = _jay_blocks(rt_b, Gram, cmask, meta)
+    rl_full = (r_lam.reshape(Ns - 1, nl) * dm if Ns > 1
+               else torch.zeros((1, nl), dtype=dt, device=dev))
 
-        def schur_solve(e_l, z_mu_):
-            """Direction from a mu-space solve z_mu_ = Mmm^-1 e_mu."""
+    def schur_solve(e_l, z_mu_):
+        """Direction from a mu-space solve z_mu_ = Mmm^-1 e_mu."""
+        if Ns > 1:
+            Kv = torch.einsum("skxl,skx->sl", Uown, z_mu_.to(f32))
+            rl = (e_l.to(f32) - (Kv[:-1] - Kv[1:])) * dm.to(f32)
+            dl = _jay_solve(diag, off, rl, opts, extra_shift=boost).to(dt) * dm
+        else:
+            dl = torch.zeros((1, nl), dtype=dt, device=dev)
+        dmu_ = z_mu_.to(dt) - torch.einsum(
+            "skxl,sl->skx", Zu, _coef_of(dl, Ns).to(f32)).to(dt)
+        return dmu_, dl
+
+    dmu, dlam_flat = schur_solve(rl_full, z_mu)
+    for _ in range(max(opts.refine_steps, 0)):
+        Amu, Al = _sd_apply_M(sqp, sol, cmask, dm, dmu, dlam_flat, c["AT"], c["BT"])
+        z2 = _sd_full_solve(fact, (r_mu - Amu)[..., None])[..., 0]
+        cmu, cl = schur_solve(rl_full - Al, z2)
+        dmu = dmu + cmu
+        dlam_flat = dlam_flat + cl
+    dlam = dlam_flat.reshape(max(Ns - 1, 1), Nr, nu) * cmask[..., None]
+
+    # Armijo on f = -g over (lam, mu) jointly, with the noise slack
+    dot = -(torch.sum(r_mu * dmu) + torch.sum(r_lam * dlam))
+    descent_ok = bool(dot < 1e-10)  # the JAX package's documented < 0 deviation
+    f0 = _dual_value(sqp, sol, mu)
+    eta = (2.0 ** -45 if dt == torch.float64 else 2.0 ** -18) * torch.abs(f0)
+    one = torch.ones((), dtype=dt, device=dev)
+    tau, ls_it, acc = _armijo(lambda t: f_at(mu + t * dmu, lam + t * dlam), f0, dot,
+                              one, f_at(mu + one * dmu, lam + one * dlam), opts, eta)
+    lam2, mu2 = (lam + tau * dlam, mu + tau * dmu) if descent_ok else (lam, mu)
+    if opts.grad_fallback:
+        if not descent_ok or not acc:
+            # a curvature-scaled gradient step: (r_lam, r_mu) is always
+            # an ascent direction of g
+            L_est = torch.diagonal(D, dim1=2, dim2=3).abs().max().to(dt)
             if Ns > 1:
-                Kv = torch.einsum("skxl,skx->sl", Uown, z_mu_.to(f32))
-                rl = (e_l.to(f32) - (Kv[:-1] - Kv[1:])) * dm.to(f32)
-                dl = _jay_solve(diag, off, rl, opts, extra_shift=boost).to(dt) * dm
-            else:
-                dl = torch.zeros((1, nl), dtype=dt, device=dev)
-            dmu_ = z_mu_.to(dt) - torch.einsum(
-                "skxl,sl->skx", Zu, _coef_of(dl, Ns).to(f32)).to(dt)
-            return dmu_, dl
+                L_est = torch.maximum(
+                    L_est, torch.diagonal(diag, dim1=1, dim2=2).abs().max().to(dt))
+            t0 = 1.0 / torch.clamp(L_est, min=1e-12)
+            dot_g = -(torch.sum(r_mu * r_mu) + torch.sum(r_lam * r_lam))
+            fg = lambda t: f_at(mu + t * r_mu, lam + t * r_lam)
+            tau_g, ls_g, _ = _armijo(fg, f0, dot_g, t0, fg(t0), opts, 0.0)
+            lam2, mu2 = lam + tau_g * r_lam, mu + tau_g * r_mu
+            ls_it += ls_g
+    elif not descent_ok:
+        status = TDUNES_NOT_DESCENT
+    return lam2, mu2, status, ls_it
 
-        dmu, dlam_flat = schur_solve(rl_full, z_mu)
-        for _ in range(max(opts.refine_steps, 0)):
-            Amu, Al = _sd_apply_M(sqp, sol, cmask, dm, dmu, dlam_flat, AT, BT)
-            z2 = _sd_full_solve(fact, (r_mu - Amu)[..., None])[..., 0]
-            cmu, cl = schur_solve(rl_full - Al, z2)
-            dmu = dmu + cmu
-            dlam_flat = dlam_flat + cl
-        dlam = dlam_flat.reshape(max(Ns - 1, 1), Nr, nu) * cmask[..., None]
 
-        # Armijo on f = -g over (lam, mu) jointly, with the noise slack
-        dot = -(torch.sum(r_mu * dmu) + torch.sum(r_lam * dlam))
-        descent_ok = bool(dot < 1e-10)  # the JAX package's documented < 0 deviation
-        f0 = _dual_value(sqp, sol, mu)
-        eta = (2.0 ** -45 if dt == torch.float64 else 2.0 ** -18) * torch.abs(f0)
-        one = torch.ones((), dtype=dt, device=dev)
-        tau, ls_it, acc = _armijo(lambda t: f_at(mu + t * dmu, lam + t * dlam), f0, dot,
-                                  one, f_at(mu + one * dmu, lam + one * dlam), opts, eta)
-        lam2, mu2 = (lam + tau * dlam, mu + tau * dmu) if descent_ok else (lam, mu)
-        if opts.grad_fallback:
-            if not descent_ok or not acc:
-                # a curvature-scaled gradient step: (r_lam, r_mu) is always
-                # an ascent direction of g
-                L_est = torch.diagonal(D, dim1=2, dim2=3).abs().max().to(dt)
-                if Ns > 1:
-                    L_est = torch.maximum(
-                        L_est, torch.diagonal(diag, dim1=1, dim2=2).abs().max().to(dt))
-                t0 = 1.0 / torch.clamp(L_est, min=1e-12)
-                dot_g = -(torch.sum(r_mu * r_mu) + torch.sum(r_lam * r_lam))
-                fg = lambda t: f_at(mu + t * r_mu, lam + t * r_lam)
-                tau_g, ls_g, _ = _armijo(fg, f0, dot_g, t0, fg(t0), opts, 0.0)
-                lam2, mu2 = lam + tau_g * r_lam, mu + tau_g * r_mu
-                ls_it += ls_g
-        elif not descent_ok:
-            status = TDUNES_NOT_DESCENT
-        return lam2, mu2, status, ls_it
+def _sd_iteration(sqp: ScenarioQP, opts: SdunesOpts, c, lam, mu, status, ls_it, best,
+                  noimp, boost):
+    """One pass of the loop body from its carry (the JAX loop's ``body``):
+    the stage solution and error at (lam, mu), the stall bookkeeping
+    (``best``, ``noimp``, the escalation ``boost``), then a Newton step
+    unless the error is below tol. Returns (lam, mu, err, status, ls_it,
+    best, noimp, boost, shift_now, stepped)."""
+    dt, dev = sqp.b.dtype, sqp.b.device
+    sol = _stage_solve(sqp, mu, lam, c["cmask"])
+    r_mu, r_lam = _residuals(sqp, sol, c["cmask"])
+    err = _error_of(opts, r_mu, r_lam)
+    noimp = 0 if bool(err < 0.9 * best) else noimp + 1
+    best = torch.minimum(best, err)
+    if opts.stall_boost_after > 0:
+        # the shift engages on the O(1) cold-start plateau only, and
+        # decays once Newton makes progress so that the tail is exact
+        if noimp >= opts.stall_boost_after and bool(err > 1e-2):
+            boost = torch.full((), opts.reg_value, dtype=dt, device=dev)
+        else:
+            boost = 0.1 * boost
+    # the shift scales with the residual (LM for nonlinear equations)
+    shift_now = boost * torch.clamp(err, max=1.0)
+    stepped = not bool(err < opts.tol)
+    if stepped:
+        lam, mu, status, ls_it = _sd_newton_step(sqp, opts, c, lam, mu, status, sol, r_mu,
+                                                 r_lam, shift_now)
+    return lam, mu, err, status, ls_it, best, noimp, boost, shift_now, stepped
 
+
+def _sd_newton_loop(sqp: ScenarioQP, lam0, mu0, opts: SdunesOpts, it0: int,
+                    patience: int = 0):
+    """The sdunes dual-Newton loop at the dtype of ``sqp``'s data, counting
+    Newton steps from ``it0``: ``_sd_iteration`` until the error is below
+    tol, the status is not optimal or max_iter is reached. ``patience > 0``
+    adds the coarse phase's stall exit. Returns (lam, mu, it, err, status,
+    ls_it)."""
+    dt, dev = sqp.b.dtype, sqp.b.device
+    c = _sd_consts(sqp)
     lam, mu, it = lam0, mu0, it0
     inf = torch.full((), float("inf"), dtype=dt, device=dev)
     err, best, boost = inf, inf, torch.zeros((), dtype=dt, device=dev)
     status, ls_it, noimp = TDUNES_OPTIMAL, 0, 0
     while (bool(err >= opts.tol) and status == TDUNES_OPTIMAL and it < opts.max_iter
            and (patience <= 0 or noimp < patience)):
-        sol = _stage_solve(sqp, mu, lam, cmask)
-        r_mu, r_lam = _residuals(sqp, sol, cmask)
-        err = _error_of(opts, r_mu, r_lam)
-        noimp = 0 if bool(err < 0.9 * best) else noimp + 1
-        best = torch.minimum(best, err)
-        if opts.stall_boost_after > 0:
-            # the shift engages on the O(1) cold-start plateau only, and
-            # decays once Newton makes progress so that the tail is exact
-            if noimp >= opts.stall_boost_after and bool(err > 1e-2):
-                boost = torch.full((), opts.reg_value, dtype=dt, device=dev)
-            else:
-                boost = 0.1 * boost
-        # the shift scales with the residual (LM for nonlinear equations)
-        shift_now = boost * torch.clamp(err, max=1.0)
-        if bool(err < opts.tol):
+        lam, mu, err, status, ls_it, best, noimp, boost, _, stepped = _sd_iteration(
+            sqp, opts, c, lam, mu, status, ls_it, best, noimp, boost)
+        if not stepped:
             break
-        lam, mu, status, ls_it = newton_step(lam, mu, status, sol, r_mu, r_lam, shift_now)
         it += 1
     return lam, mu, it, err, status, ls_it
 
