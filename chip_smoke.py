@@ -44,6 +44,16 @@ Phases (any failure exits non-zero):
    their kernels' edges (BLOCK_EDGES, ADMM_EDGES: one step, chains past
    the 4-stage ring, nx 1, 5, 16; nz 1 and 16, ng = nz, the 32-lane form,
    f64) on seeded operands, and the three timed in a CUDA graph too;
+   crown_blocks_factor and crown_factor on seeded operands at the
+   multistage crowns of the headline, of sdunes' bootstrap
+   (spring_mass_chain(4,4,4,20), G = 32) and of quadcopter(4,5,20) (timed
+   in a CUDA graph) and at their kernels' edges (CROWN_EDGES: G = 2, 48,
+   64, a zero block whose pivots floor, reg 0 and > 0); rows 8-10 beside
+   their library calls, ``torch.linalg.cholesky_ex`` of the crown as one
+   dense matrix (``crown_matrix``: the groups deepest level first, W_g on
+   the diagonal, Ut_g in the parent's slot rows) and
+   ``torch.cholesky_solve`` with the twin's factors as one dense lower
+   factor, kernel and library call also in a CUDA graph;
 3. the main paths on that instance, each certified by the KKT oracle
    (< 1e-8) and compared with the same solve through the plain twins on
    the CPU: the one-phase solve (slice 1), the two-phase solve (coarse f32
@@ -164,8 +174,9 @@ a coarse iteration and 1 + its refinement steps times a final iteration,
 and no other kernel; no path but section 9's launches a CR kernel, and the
 MPC path launches the five generic kernels and no other. Prints the JSON
 summary of all 28 kernels (rows chain_factor, chain_solve_bwd,
-chain_forward and df_reduce_flat also with ``graph_ms`` and
-``library_graph_ms``: kernel and library call in a CUDA graph;
+chain_forward, crown_factor, crown_solve, crown_blocks_factor and
+df_reduce_flat also with ``graph_ms`` and ``library_graph_ms``: kernel
+and library call in a CUDA graph;
 chain_blocks_factor, chain_blocks_factor_lanes and admm_identify with
 ``graph_ms``), then the
 device JSON as the last line.
@@ -258,6 +269,15 @@ ITER_EDGES = (("quadcopter", (4, 5, 8)), ("spring_mass_chain", (8, 2, 2, 6)),
 RIC_EDGES = ((5, 1, 8, 9), (5, 7, 7, 8), (5, 7, 8, 9), (5, 7, 15, 16), (5, 7, 1, 2),
              (4, 40, 8, 9))
 RIC_REG = 1e-8  # the Levenberg-Marquardt shift of Muu at those edges
+# crown_factor's and crown_blocks_factor's kernel edges (a warp a group, one
+# or two rows a lane), held against the twins on seeded operands on the
+# crown of the multistage tree (md, Nr) with nx states: (md, Nr, nx, reg,
+# zero): G = 2 (nxm 1, 2 kids), G = 48 and G = 64 (nxm 16; two rows a
+# lane), a zero block on the deepest level when ``zero`` (its pivots floor
+# at 1e-8: reg = 0), reg 0 and > 0
+CROWN_EDGES = ((2, 3, 1, 0.0, False), (3, 3, 16, 1e-6, False), (4, 3, 16, 0.0, False),
+               (4, 3, 16, 1e-6, False), (4, 3, 6, 0.0, True))
+CROWN_REG = 1e-6  # the shift of the seeded operands at the solvers' shapes
 # the bound of a kernel: H100 SXM data-sheet rates (FP32 outside the
 # tensor cores, FP64, HBM3)
 PEAK_FLOPS = {False: 67e12, True: 34e12}
@@ -523,6 +543,87 @@ def ric_operands(torch, S, L, nx, nz, dense, seed, dev):
     return torch.tensor(hb, **f32), AB
 
 
+def crown_prep(md, Nr, nx):
+    """The crown of the multistage tree (md, Nr) with nx states (its
+    tdunes prep, on the CPU): the groups of crown_blocks_factor."""
+    from treeqp_tpu_torch.solvers import tdunes as td
+    from treeqp_tpu_torch.solvers import tdunes_multistage as tm
+    from treeqp_tpu_torch.utils.tree import TreeStructure
+    return td._get_prep(tm._ms_meta(TreeStructure.multistage(md, Nr, Nr + 2, nx, 1)).crown_topo)
+
+
+def crown_operands(torch, sched, nz, seed, dev, zero=False):
+    """Seeded operands of both crown factor kernels on the schedule
+    ``sched``: crown_blocks_factor's (ABk, ztp, dvals, sW, sUt, Wadd), and
+    the blocks (W, Ut) its build makes of them (crown_kernels._crown_blocks)
+    for crown_factor. [A B] 0.3 N(0, 1), ztp in [0.1, 1.1] with a third
+    zero, dvals in [1, 2], sW in [0.8, 1.25], sUt in [0.05, 0.1], Wadd
+    -0.05 C C' / G (C N(0, 1)): every block and its Schur complement
+    positive definite with room, so FACTOR_RTOL holds. With ``zero`` the
+    first group of the deepest level has zero blocks (its pivots are the
+    shift, floored at 1e-8)."""
+    import numpy as np
+    from treeqp_tpu_torch.ops import crown_kernels as ckr
+    rng = np.random.default_rng(seed)
+    NpG, K, n, G = sched.NpG, sched.K, sched.nxm, sched.G
+    ABk = 0.3 * rng.standard_normal((NpG, K, n, nz))
+    ztp = rng.uniform(0.1, 1.1, (NpG, nz))
+    ztp[rng.random((NpG, nz)) < 1 / 3] = 0.0
+    dvals = rng.uniform(1.0, 2.0, (NpG, G))
+    sW = rng.uniform(0.8, 1.25, (NpG, G))
+    sUt = rng.uniform(0.05, 0.1, (NpG, n))
+    C = rng.standard_normal((NpG, G, G))
+    Wadd = -0.05 * C @ C.transpose(0, 2, 1) / G
+    if zero and sched.n_lev:
+        g = int(sched.lev_child[0])
+        ABk[g], dvals[g], Wadd[g] = 0.0, 0.0, 0.0
+    args = tuple(torch.tensor(a, dtype=torch.float32, device=dev)
+                 for a in (ABk, ztp, dvals, sW, sUt, Wadd))
+    return args, ckr._crown_blocks(*args)
+
+
+def crown_matrix(torch, W, Ut, sched, reg=0.0, factor=False):
+    """The crown's groups as one dense [NpG G, NpG G] matrix, the groups in
+    the schedule's order (the deepest level first, the root group last):
+    W_g + reg I on the diagonal, Ut_g in its parent's slot rows and the
+    columns of g, and its transpose beside it; with ``factor`` (CholW,
+    CholUt given) the lower factor alone. The Cholesky factor of the first
+    holds crown_factor's CholW_g on its diagonal and CholUt_g below it, and
+    torch.cholesky_solve with it solves as crown_solve does (``crown_vector``
+    orders the right-hand side)."""
+    NpG, K, n, G = sched.NpG, sched.K, sched.nxm, sched.G
+    pos = crown_order(torch, sched, W.device)
+    M = torch.zeros((NpG * G, NpG * G), dtype=W.dtype, device=W.device)
+    M.view(NpG, G, NpG, G)[pos, :, pos, :] = W
+    if reg:
+        M.diagonal().add_(reg)
+    g, d, s = (torch.as_tensor(a, dtype=torch.long, device=W.device)
+               for a in (sched.lev_child, sched.lev_parent, sched.lev_slot))
+    M.view(NpG, K, n, NpG, G)[pos[d], s, :, pos[g], :] = Ut[g]
+    if not factor:
+        M.view(NpG, G, NpG, K, n)[pos[g], :, pos[d], s, :] = Ut[g].transpose(1, 2)
+    return M
+
+
+def crown_order(torch, sched, dev):
+    """Each group's place in crown_matrix's order."""
+    import numpy as np
+    pos = np.empty(sched.NpG, np.int64)
+    pos[np.concatenate([sched.lev_child, [0]])] = np.arange(sched.NpG)
+    return torch.as_tensor(pos, device=dev)
+
+
+def crown_vector(torch, v, sched, back=False):
+    """A group-major [NpG, G] vector in crown_matrix's order as [NpG G, 1];
+    with ``back`` the reverse."""
+    pos = crown_order(torch, sched, v.device)
+    if back:
+        return v.view(sched.NpG, sched.G)[pos]
+    out = torch.empty_like(v)
+    out[pos] = v
+    return out.reshape(-1, 1)
+
+
 def perturbed(qp, ms, fac):
     """Scale the pinned initial state (the root's bound rows) by ``fac``:
     the closed-loop MPC variation of bench.py."""
@@ -696,13 +797,81 @@ def main():
     w_ref = ckr.crown_blocks_factor_ref(*cargs, reg=reg)
     w_got = ckr.crown_blocks_factor(*cargs, reg=reg)
     torch.cuda.synchronize()
+    sched_h = ckr._get_sched(prep)
+
+    def crown_library(W, Ut, sched, reg_, ref):
+        """The library call of the crown factor kernels: cholesky_ex of the
+        crown as one dense matrix (crown_matrix, W_g + reg_ I on its
+        diagonal); its distance to the twin's factors ``ref`` (placed as
+        the dense lower factor) and its info (0: positive definite)."""
+        M = crown_matrix(torch, W, Ut, sched, reg=reg_)
+        chol = lambda: torch.linalg.cholesky_ex(M).L
+        Lf, info = torch.linalg.cholesky_ex(M)
+        return chol, float((Lf - crown_matrix(torch, *ref, sched, factor=True)).abs().max()), \
+            int(info)
+
+    def crown_times(name, fn, ref_fn, inputs, ops, lib_fn, lib_err, shapes):
+        """measure() with the library call, and kernel and library call in a
+        CUDA graph; printed."""
+        m = measure(fn, ref_fn, inputs, ops, lib_fn=lib_fn)
+        m.update(graph_ms=graph_ms(torch, fn), library_graph_ms=graph_ms(torch, lib_fn))
+        print(f"{name} ({shapes}): kernel {m['ms']:.4f} ms alone, {m['graph_ms']:.4f} ms in a "
+              f"CUDA graph; library call {m['library_ms']:.4f} / {m['library_graph_ms']:.4f} ms "
+              f"({lib_err}); plain twin {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.6f} ms "
+              f"({m['bound_by']}) on {card}")
+        return m
+
+    chol_h, lib_err_h, info_h = crown_library(*ckr._crown_blocks(*cargs[:-1]), sched_h, reg, w_ref)
+    shapes_h = f"CholW {tuple(w_ref[0].shape)}"
+    m_cbf = crown_times(
+        "crown_blocks_factor", lambda: ckr.crown_blocks_factor(*cargs, reg=reg),
+        lambda: ckr.crown_blocks_factor_ref(*cargs, reg=reg), (cargs[:-1], sched_h.on(dev)),
+        crown_ops(sched_h, True, nz=inp["crown"][0].shape[-1]), chol_h,
+        f"cholesky_ex of the [{sched_h.NpG * sched_h.G}]^2 crown matrix, |diff| to the twin's "
+        f"factors {lib_err_h:.3e}, info {info_h}", shapes_h)
+    # both crown factor kernels against their twins at the multistage
+    # crowns of the solvers' paths (the headline, sdunes' bootstrap, 1024
+    # scenarios; timed) and at their kernels' edges, on seeded operands;
+    # the generic solver's crowns follow in its tree checks below
+    crown_errs = {}
+    for k, (what, tree, nz_e, reg_e, zero) in enumerate(
+            [("headline", (4, 4, 6), 10, CROWN_REG, False),
+             ("bootstrap", (4, 4, 8), 9, CROWN_REG, False),
+             ("1024 scenarios", (4, 5, 6), 10, CROWN_REG, False)]
+            + [(f"edge md={e[0]}, Nr={e[1]}, nx={e[2]}", e[:3], e[2] + 2, e[3], e[4])
+               for e in CROWN_EDGES]):
+        p_e = crown_prep(*tree)
+        s_e = ckr._get_sched(p_e)
+        bargs, (W_e, Ut_e) = crown_operands(torch, s_e, nz_e, 30 + k, dev, zero=zero)
+        fns = {"crown_factor": (lambda: ckr.crown_factor(W_e, Ut_e, p_e, reg=reg_e),
+                                lambda: ckr.crown_factor_ref(W_e, Ut_e, p_e, reg=reg_e)),
+               "crown_blocks_factor": (
+                   lambda: ckr.crown_blocks_factor(*bargs, p_e, reg=reg_e),
+                   lambda: ckr.crown_blocks_factor_ref(*bargs, p_e, reg=reg_e))}
+        times = []
+        for name, (fn, ref_fn) in fns.items():
+            got = fn()
+            torch.cuda.synchronize()
+            crown_errs[what, name] = compare(torch, f"{name} ({what}, G={s_e.G}, reg={reg_e:g})",
+                                             got, ref_fn(), FACTOR_RTOL)
+            if k < 3:
+                times.append(f"{name} {graph_ms(torch, fn):.4f}")
+        if times:
+            print(f"crown factor kernels ({what}: NpG={s_e.NpG}, G={s_e.G}; seeded): "
+                  f"{', '.join(times)} ms in a CUDA graph on {card}")
+    print(f"crown_factor, crown_blocks_factor at the multistage crowns and at their kernel's "
+          f"edges {CROWN_EDGES} (md, Nr, nx, reg, zero block): max |diff| to the twins "
+          f"{max(crown_errs.values()):.3e}")
     record("crown_blocks_factor", "crown_blocks_factor.cu",
            "treeqp_tpu/ops/crown_kernels.py:332",
            compare(torch, "crown_blocks_factor", w_got, w_ref, FACTOR_RTOL),
            lambda: ckr.crown_blocks_factor(*cargs, reg=reg),
            lambda: ckr.crown_blocks_factor_ref(*cargs, reg=reg),
-           f"CholW {tuple(w_ref[0].shape)}", (cargs[:-1], ckr._get_sched(prep).on(dev)),
-           crown_ops(ckr._get_sched(prep), True, nz=inp["crown"][0].shape[-1]))
+           f"{shapes_h}; cholesky_ex |diff| to the twin's factors {lib_err_h:.3e}; seeded at "
+           "the bootstrap's and the 1024-scenario crowns and the edges, max |diff| "
+           f"{max(v for (w, n), v in crown_errs.items() if n == 'crown_blocks_factor'):.3e}",
+           (cargs[:-1], sched_h.on(dev)),
+           crown_ops(sched_h, True, nz=inp["crown"][0].shape[-1]), m=m_cbf)
 
     CholW, CholUt = w_ref
     res_cr = td._dual_residual(ms.crown, cr, prep)
@@ -1049,6 +1218,7 @@ def main():
             Wcr.view(Nc, K, n, K, n)[sp["dad"], sp["slot"], :, sp["slot"], :] -= schur
             rcr.view(Nc, K, n)[sp["dad"], sp["slot"]] -= radd
         sched = ckr._get_sched(p, levels)
+        crown_meta[tag] = (sched, regg)
         CholW, CholUt = check(
             "crown_factor", "crown_factor.cu", "crown_kernels.py:241",
             lambda: ckr.crown_factor(Wcr, Utcr, p, reg=regg, levels=levels),
@@ -1074,6 +1244,7 @@ def main():
     # its factor, tests/test_torch_generic_kernels.py), so its kernels are
     # held against their twins two iterations on; the general C/D tree's
     # blocks are the dense-P ones, W = Cf P Cf' (G = 32)
+    crown_meta = {}  # the crown's schedule and shift of each tree
     checks = {tag: tree_chol_checks(q, tag, it, o) for tag, q, it, o in (
         ("pruned", qg, 0, optsg), ("asymmetric", qa, 2, optsg), ("unpruned", qp, 0, optsg),
         ("general C/D", qc, 0, optsc_d))}
@@ -1177,6 +1348,27 @@ def main():
     factor_m = {tag: factor_times(tag, *c["chain_factor"][7])
                 for tag, c in checks.items() if "chain_factor" in c}
     chol_err = factor_m["pruned"][1]
+    # crown_factor and crown_solve on the pruned tree's crown beside their
+    # library calls: cholesky_ex of the crown as one dense matrix, and
+    # cholesky_solve with the twin's factors as one dense lower factor
+    sched_p, reg_p = crown_meta["pruned"]
+    c_p = checks["pruned"]
+    chol_p, lib8_err, info8 = crown_library(*c_p["crown_factor"][7][:2], sched_p, reg_p,
+                                            c_p["crown_solve"][7][:2])
+    F_p = crown_matrix(torch, *c_p["crown_solve"][7][:2], sched_p, factor=True)
+    v_p = crown_vector(torch, c_p["crown_solve"][7][2], sched_p)
+    solve_p = lambda: torch.cholesky_solve(v_p, F_p)
+    lib9_err = float((crown_vector(torch, solve_p().view(-1), sched_p, back=True)
+                      - c_p["crown_solve"][5]()).abs().max())
+    crown_m, crown_lib = {}, {
+        "crown_factor": (chol_p, f"the library call (cholesky_ex of the crown matrix, info "
+                                 f"{info8}) |diff| to the twin's factors {lib8_err:.3e}"),
+        "crown_solve": (solve_p, f"the library call (cholesky_solve with the twin's factors as "
+                                 f"one matrix) |diff| to the twin {lib9_err:.3e}")}
+    for name, (lib_fn, note) in crown_lib.items():
+        _, _, _, _, fn, ref_fn, shapes, inputs, ops = c_p[name]
+        crown_m[name] = crown_times(name, fn, ref_fn, inputs, ops, lib_fn, note,
+                                    f"pruned, {shapes}")
     for name, source, replaces, _, fn, ref_fn, shapes, inputs, ops in checks["pruned"].values():
         errs = {tag: c[name][3] for tag, c in checks.items() if name in c}
         lib = ""
@@ -1186,7 +1378,10 @@ def main():
                    f"on the other trees{sweep_others(name)}")
         elif name == "chain_factor":
             lib = f"; the library call (cholesky_ex) |diff| to Ls, CUs_1.. {chol_err:.3e}"
-        m = factor_m["pruned"][0] if name == "chain_factor" else sweep_times.get(("pruned", name))
+        elif name in crown_lib:
+            lib = f"; {crown_lib[name][1]}"
+        m = (factor_m["pruned"][0] if name == "chain_factor"
+             else crown_m.get(name, sweep_times.get(("pruned", name))))
         record(name, source, replaces, max(errs.values()), fn, ref_fn,
                f"{shapes}; max |diff| "
                + ", ".join(f"{tag} {e:.3e}" for tag, e in errs.items()) + lib,

@@ -12,7 +12,9 @@ from treeqp_tpu.ops import crown_kernels as jckr
 from treeqp_tpu.solvers import tdunes as jtd
 from treeqp_tpu.utils.tree import TreeStructure as JTree
 
+import chip_smoke
 from test_torch_chain_kernels import assert_close, factor_inputs
+from treeqp_tpu_torch import models
 from treeqp_tpu_torch.ops import chain_kernels as ck
 from treeqp_tpu_torch.ops import crown_kernels as ckr
 from treeqp_tpu_torch.solvers import tdunes as td
@@ -89,3 +91,122 @@ def test_crown_blocks_factor_cpu_wrapper_runs_plain_twin():
     assert ckr.crown_blocks_factor.launches == 0
     with pytest.raises(ValueError, match="expected"):
         ckr.crown_blocks_factor(*(t.to("meta") for t in args), prep, reg=REG)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' redesign (a warp a group on one cluster): the dense
+# yardstick of the smoke's library call, the twin at the kernels' edges,
+# and the launch shape.
+
+FACTOR_RTOL = chip_smoke.FACTOR_RTOL
+SOLVE_RTOL = chip_smoke.SOLVE_RTOL
+CPU = torch.device("cpu")
+
+
+def asym_prep():
+    return td._get_prep(models.asym_tree(device="cpu").topo)
+
+
+YARDSTICK = {"headline": lambda: chip_smoke.crown_prep(4, 4, 6), "asymmetric": asym_prep}
+
+
+@pytest.mark.parametrize("name", sorted(YARDSTICK))
+def test_dense_crown_matrix_reproduces_the_twins(name):
+    """The smoke's library call: the Cholesky factor of the crown as one
+    dense matrix (``chip_smoke.crown_matrix``, the deepest level first)
+    holds crown_factor_ref's CholW / CholUt, and cholesky_solve with it
+    gives crown_solve_ref's solution, on seeded operands (the headline
+    crown: 85 groups of 24, a [2040, 2040] matrix; the asymmetric tree:
+    17 groups, 9 levels)."""
+    prep = YARDSTICK[name]()
+    sched = ckr._get_sched(prep)
+    _, (W, Ut) = chip_smoke.crown_operands(torch, sched, sched.nxm + 4, 5, CPU)
+    reg = chip_smoke.CROWN_REG
+    CholW, CholUt = ckr.crown_factor_ref(W, Ut, prep, reg=reg)
+    M = chip_smoke.crown_matrix(torch, W, Ut, sched, reg=reg)
+    assert M.shape == (sched.NpG * sched.G,) * 2
+    L, info = torch.linalg.cholesky_ex(M)
+    assert int(info) == 0
+    F = chip_smoke.crown_matrix(torch, CholW, CholUt, sched, factor=True)
+    assert_close(L, F, FACTOR_RTOL, "dense factor")
+    rg = torch.tensor(np.random.default_rng(6).standard_normal((sched.NpG, sched.G)),
+                      dtype=torch.float32)
+    x = torch.cholesky_solve(chip_smoke.crown_vector(torch, rg, sched), L)
+    assert_close(chip_smoke.crown_vector(torch, x.view(-1), sched, back=True),
+                 ckr.crown_solve_ref(CholW, CholUt, rg, prep), SOLVE_RTOL, "dense solve")
+
+
+# G = 48 and 64 (nxm 16: two rows a lane in the kernel) and crowns with a
+# zero block on their deepest level at reg = 0, whose pivots floor at 1e-8;
+# one level each (the interpret-mode Pallas factorization of G = 64 takes
+# ~40 s to compile)
+PALLAS_EDGES = {"G48": (3, 2, 16, 1e-6, False), "G64_floor": (4, 2, 16, 0.0, True),
+                "G24_floor": (4, 3, 6, 0.0, True)}
+
+
+@pytest.mark.parametrize("edge", sorted(PALLAS_EDGES))
+def test_crown_factor_twin_matches_pallas_at_edges(edge):
+    """crown_factor_ref against the interpret-mode Pallas crown_factor on
+    ``chip_smoke.crown_operands``, at the CUDA kernels' edges."""
+    md, Nr, nx, reg, zero = PALLAS_EDGES[edge]
+    crown = tm._ms_meta(TreeStructure.multistage(md, Nr, Nr + 2, nx, 1)).crown_topo
+    prep = td._get_prep(crown)
+    sched = ckr._get_sched(prep)
+    assert sched.G == md * nx
+    _, (W, Ut) = chip_smoke.crown_operands(torch, sched, nx + 2, 7, CPU, zero=zero)
+    CholW, CholUt = ckr.crown_factor_ref(W, Ut, prep, reg=reg)
+    jW, jU = jckr.crown_factor(jnp.asarray(W.numpy()), jnp.asarray(Ut.numpy()),
+                               jax_prep(crown), reg=reg)
+    lanes = lambda v: np.moveaxis(np.asarray(v)[..., :sched.NpG], -1, 0)
+    assert_close(CholW, lanes(jW), FACTOR_RTOL, "CholW")
+    assert_close(CholUt, lanes(jU), FACTOR_RTOL, "CholUt")
+    if zero:
+        # the floored pivots: 1e-8 * rsqrt(1e-8) on the diagonal, 0 below
+        g = int(sched.lev_child[0])
+        np.testing.assert_allclose(torch.diagonal(CholW[g]).numpy(), 1e-4, rtol=1e-6)
+        assert float(torch.tril(CholW[g], -1).abs().max()) == 0.0
+
+
+def launch_shapes():
+    """The crowns the kernels take on the solvers' paths (as in
+    scripts/prof_torch_crown_kernels.py) and at chip_smoke.CROWN_EDGES:
+    name -> (schedule, nz of crown_blocks_factor or 0)."""
+    q = models.quadcopter(4, 4, 20, device="cpu").qp
+    out = {name: (ckr._get_sched(chip_smoke.crown_prep(*tree)), nz)
+           for name, tree, nz in (("headline", (4, 4, 6), 10), ("bootstrap", (4, 4, 8), 9),
+                                  ("1024 scenarios", (4, 5, 6), 10))}
+    for name, qq in (("pruned", models.pruned(q, 128)),
+                     ("general C/D", models.general_cd("qpgen", device="cpu")),
+                     ("asymmetric", models.asym_tree(device="cpu"))):
+        p = td._get_prep(qq.topo)
+        split = td._split_sched(p)
+        levels = None if split is None else td._split_index(p, split, "cpu")["crown"]
+        out[name] = (ckr._get_sched(p, levels), 0)
+    for md, Nr, nx, _, _ in chip_smoke.CROWN_EDGES:
+        out[f"edge {md} {Nr} {nx}"] = (ckr._get_sched(chip_smoke.crown_prep(md, Nr, nx)), nx + 2)
+    return out
+
+
+def test_factor_launch_shape():
+    """_factor_launch: one round of warps where a block's threads and
+    shared memory allow, a warp's floats holding the group's factors with
+    odd rows (and the block build's operands)."""
+    shapes = launch_shapes()
+    got = {name: ckr._factor_launch(s, nz) for name, (s, nz) in shapes.items()}
+    # the solvers' crowns (G = 24 or 32, NpG 85 / 341 / 81 / 85 / 17)
+    assert got["headline"] == (11, 752)
+    assert got["bootstrap"] == (8, 1320)
+    assert got["1024 scenarios"] == (16, 752)
+    assert got["pruned"] == (11, 752)
+    assert got["general C/D"] == (8, 1320)
+    assert got["asymmetric"] == (3, 800)
+    for name, (s, nz) in shapes.items():
+        warps, floats = got[name]
+        rows = -(-(s.G + s.nxm) // 32)
+        assert 1 <= warps <= (16 if rows == 1 else 8), name
+        assert floats % 4 == 0 and floats >= (s.G + s.nxm) * (s.G + 1), name
+        assert floats >= 2 * nz * s.G + nz + s.G, name
+        assert warps * floats * 4 + 4 * (s.n_lev + 1 + 3 * (s.NpG - 1)) <= 227 * 1024, name
+        # a round of the cluster's warps covers the groups where the limit allows
+        assert 8 * warps >= min(s.NpG, 8 * (16 if rows == 1 else 8)), name
+    assert got["edge 4 3 16"] == (3, 5200)

@@ -36,17 +36,6 @@ __device__ inline void chol_inplace(float* W, int n, float reg) {
   }
 }
 
-// X L' = B for X, in place of B (m x n), L lower n x n.
-__device__ inline void rtrsm_t_inplace(const float* L, float* B, int m, int n) {
-  for (int r = 0; r < m; ++r) {
-    for (int j = 0; j < n; ++j) {
-      float acc = B[r * n + j];
-      for (int c = 0; c < j; ++c) acc -= B[r * n + c] * L[j * n + c];
-      B[r * n + j] = acc / L[j * n + j];
-    }
-  }
-}
-
 // L y = r, in place of r (length n).
 __device__ inline void ltrsv_inplace(const float* L, float* r, int n) {
   for (int i = 0; i < n; ++i) {

@@ -50,8 +50,9 @@ _SIGNATURES = {
     # pointers, dims, stream
     "tq_newton_iter": [_P] * 3,
     # ABk, ztp, dvals, sW, sUt, Wadd, lev_ptr, lev_child, lev_parent,
-    # lev_slot, CholW, CholUt, NpG, K, nxm, nz, n_lev, reg, threads, stream
-    "tq_crown_blocks_factor": [_P] * 12 + [_I] * 5 + [_F, _I, _P],
+    # lev_slot, CholW, CholUt, NpG, K, nxm, nz, n_lev, reg, warps,
+    # warp_floats, stream
+    "tq_crown_blocks_factor": [_P] * 12 + [_I] * 5 + [_F, _I, _I, _P],
     # Ls, CUs, CholW, CholUt, rg, rch, lev_ptr, lev_child, lev_parent,
     # lev_slot, g_of, slot, rv, ycr, dg, dch, S, L, n, NpG, K, n_lev,
     # threads, stream
@@ -75,8 +76,8 @@ _SIGNATURES = {
     # Ls, CUs, ys, droot, dls, S, L, n, stream
     "tq_chain_forward": [_P] * 5 + [_I] * 3 + [_P],
     # W, Ut, lev_ptr, lev_child, lev_parent, lev_slot, CholW, CholUt, NpG,
-    # K, nxm, n_lev, reg, threads, stream
-    "tq_crown_factor": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+    # K, nxm, n_lev, reg, warps, warp_floats, stream
+    "tq_crown_factor": [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P],
     # CholW, CholUt, rg, lev_ptr, lev_child, lev_parent, lev_slot, rv, ycr,
     # dg, NpG, K, nxm, n_lev, threads, stream
     "tq_crown_solve": [_P] * 10 + [_I] * 5 + [_P],

@@ -114,8 +114,33 @@ def _level_index(sched, device):
 
 
 def _sched_threads(sched) -> int:
-    """Threads of the one-block crown kernels: one per group up to 1024."""
+    """Threads of the one-block crown solve: one per group up to 1024."""
     return min(1024, max(32, -(-max(sched.NpG, sched.width) // 32) * 32))
+
+
+# the crown factor kernels' launch (csrc/tq_crown.cuh): one cluster of
+# _CLUSTER blocks, a warp a group; a lane holds R = ceil((G + nxm) / 32)
+# rows of the group's block and couplings, and a block takes at most 16
+# warps (R = 1) or 8
+_CLUSTER = 8
+_MAX_WARPS = {1: 16, 2: 8, 3: 8}
+_BLOCK_SMEM = 227 * 1024  # the shared memory a block can have on Hopper
+
+
+def _factor_launch(sched, nz=0) -> tuple[int, int]:
+    """(warps a block, shared-memory floats a warp) of ``crown_factor``
+    and, with the blocks' ``nz``, ``crown_blocks_factor``: a warp's
+    floats hold the group's factors with rows of G + 1 floats (and the
+    block build's [A B]', its products, ztp and sW), rounded up to 4; the
+    warps cover the groups in one round where a block's threads and shared
+    memory (less the level schedule's ints) allow."""
+    G, n = sched.G, sched.nxm
+    floats = max((G + n) * (G + 1), 2 * nz * G + nz + G)
+    floats = -(-floats // 4) * 4
+    sched_bytes = 4 * (sched.n_lev + 1 + 3 * (sched.NpG - 1))
+    warps = min(_MAX_WARPS[-(-(G + n) // 32)], (_BLOCK_SMEM - sched_bytes) // (4 * floats),
+                -(-sched.NpG // _CLUSTER))
+    return max(1, warps), floats
 
 
 def crown_supported(prep, opts) -> bool:
@@ -191,7 +216,7 @@ def crown_factor(W, Ut, prep, reg=0.0, levels=None):
         W.data_ptr(), Ut.data_ptr(), t["lev_ptr"].data_ptr(),
         t["lev_child"].data_ptr(), t["lev_parent"].data_ptr(),
         t["lev_slot"].data_ptr(), CholW.data_ptr(), CholUt.data_ptr(), NpG, K, nxm,
-        sched.n_lev, float(reg), _sched_threads(sched), _build.stream(dev))
+        sched.n_lev, float(reg), *_factor_launch(sched), _build.stream(dev))
     _build.check(err, name)
     crown_factor.launches += 1
     return CholW, CholUt
@@ -295,7 +320,7 @@ def crown_blocks_factor(ABk, ztp, dvals, sW, sUt, Wadd, prep, reg=0.0):
         sUt.data_ptr(), Wadd.data_ptr(), t["lev_ptr"].data_ptr(),
         t["lev_child"].data_ptr(), t["lev_parent"].data_ptr(),
         t["lev_slot"].data_ptr(), CholW.data_ptr(), CholUt.data_ptr(), NpG, K,
-        nxm, nz, sched.n_lev, float(reg), _sched_threads(sched), _build.stream(dev))
+        nxm, nz, sched.n_lev, float(reg), *_factor_launch(sched, nz), _build.stream(dev))
     _build.check(err, name)
     crown_blocks_factor.launches += 1
     return CholW, CholUt
