@@ -53,7 +53,14 @@ Phases (any failure exits non-zero):
    dense matrix (``crown_matrix``: the groups deepest level first, W_g on
    the diagonal, Ut_g in the parent's slot rows) and
    ``torch.cholesky_solve`` with the twin's factors as one dense lower
-   factor, kernel and library call also in a CUDA graph;
+   factor, kernel and library call also in a CUDA graph; system_solve
+   beside its library call, ``torch.cholesky_solve`` with the whole tree's
+   stored factors as one dense lower f32 factor (``system_matrix``:
+   [26616]^2 at the headline), and on seeded factors at SYSTEM_SHAPES
+   (``system_operands``; graph times printed); chain_blocks_factor and
+   chain_blocks_factor_lanes beside ``torch.linalg.cholesky_ex`` of each
+   chain's equilibrated blocks as one matrix (``ck.chain_blocks``,
+   ``chain_blocks_matrix``), kernel and library call in a CUDA graph;
 3. the main paths on that instance, each certified by the KKT oracle
    (< 1e-8) and compared with the same solve through the plain twins on
    the CPU: the one-phase solve (slice 1), the two-phase solve (coarse f32
@@ -104,6 +111,11 @@ Phases (any failure exits non-zero):
    its iterations (f32 + f64), Riccati launches and time printed; path
    A's cold solve held against the same solve through the plain twins on
    the CPU at full depth (iterations within one, x and u within 1e-7);
+   path B's crown kernels beside their library calls,
+   ``torch.linalg.ldl_factor_ex`` of the crown's dense KKT matrix
+   (``ric_crown_matrix``: the Hessians, the dynamics rows and their
+   transposes; indefinite, so no Cholesky applies) and ``ldl_solve`` with
+   its factors (its distance to the twin's dz, dlam printed);
 8. sdunes (slice 7) at ``models.SDUNES_OPTS`` on sdunes_bench's tree (B's
    box-only spring_mass_chain(4,4,4,20): 256 scenarios, Jay P=255, b=4):
    chain_full_solve_mat (m=5 and m=1) held against its twin, with
@@ -113,7 +125,12 @@ Phases (any failure exits non-zero):
    the Jay system is near singular) both f32 solves held to a backward
    error below 1e-5, with their distances to the f64 solve printed; and
    jay_cr_solve once more on a seeded system at P=1023, b=16 with the
-   on-the-fly shift and one exactly singular block; the cold
+   on-the-fly shift and one exactly singular block (``jay_operands``), and
+   at its kernel's edges (every P of JAY_PS, b of JAY_BS and shift mode of
+   JAY_MODES, with and without the singular block), against its twin;
+   both Jay shapes beside the library call, ``torch.linalg.solve_ex`` of
+   the dense f32 Jay matrix with the shift by the kernel's rule
+   (``jay_matrix``), kernel and library call also in a CUDA graph; the cold
    ``sdunes_solve``; the bench's
    sdunes_boot requests (stage 0's state bounds scaled by 1 + 0.02
    sin(1 + 1.7(k+1)); a ``tdunes_ms_solve`` bootstrap at
@@ -174,11 +191,11 @@ a coarse iteration and 1 + its refinement steps times a final iteration,
 and no other kernel; no path but section 9's launches a CR kernel, and the
 MPC path launches the five generic kernels and no other. Prints the JSON
 summary of all 28 kernels (rows chain_factor, chain_solve_bwd,
-chain_forward, crown_factor, crown_solve, crown_blocks_factor and
-df_reduce_flat also with ``graph_ms`` and ``library_graph_ms``: kernel
-and library call in a CUDA graph;
-chain_blocks_factor, chain_blocks_factor_lanes and admm_identify with
-``graph_ms``), then the
+chain_forward, crown_factor, crown_solve, crown_blocks_factor,
+df_reduce_flat, chain_blocks_factor, chain_blocks_factor_lanes,
+system_solve and jay_cr_solve also with ``graph_ms`` and
+``library_graph_ms``: kernel and library call in a CUDA graph;
+admm_identify with ``graph_ms``), then the
 device JSON as the last line.
 Imports nothing of JAX.
 """
@@ -293,6 +310,21 @@ SD_F32_TOL = 1e-3
 SD_CPU_NR = 3
 JAY_BIG = (1023, 16)
 JAY_SEED = 1039
+# jay_cr_solve's kernel edges (a group of 4, 8 or 16 lanes a block system,
+# the operands in shared memory or past it in global scratch), held against
+# the twin on seeded systems (jay_operands) in its three shift modes, none
+# (reg_tol None: no shift), always (-1) and on the fly (1e-6): P and b
+JAY_PS = (1, 2, 3, 7, 64, 65, 100, 255, 256, 300, 1023)
+JAY_BS = (1, 3, 4, 8, 16)
+JAY_MODES = (None, -1.0, 1e-6)
+# system_solve's shapes (one cluster: lane groups a chain, a warp a crown
+# group, block 0 past 32 rows), on seeded factors of the multistage tree
+# (md, Nr, Nh) with nx states (system_operands): the headline, sdunes'
+# bootstrap crown (G = 32), 1024 scenarios, crown groups of 48 rows, and
+# three chains of one node (fewer than a warp's lane groups)
+SYSTEM_SHAPES = (("headline", (4, 4, 20, 6)), ("bootstrap", (4, 4, 20, 8)),
+                 ("1024 scenarios", (4, 5, 20, 6)), ("G = 48", (3, 3, 6, 16)),
+                 ("S = 3, L = 1", (3, 1, 2, 5)))
 # an f32 solve that is backward stable: ||J x - r|| over (||J|| ||x|| + ||r||)
 JAY_BACKWARD = 1e-5
 # the cyclic-reduction chain sweeps (slice 8): the CR pair held against the
@@ -624,6 +656,158 @@ def crown_vector(torch, v, sched, back=False):
     return out.reshape(-1, 1)
 
 
+def system_operands(torch, md, Nr, Nh, nx, seed, dev):
+    """Seeded operands of system_solve on the multistage tree (md, Nr, Nh)
+    with nx states: (Ls, CUs, CholW, CholUt, rg, rch, prep, root_ids). The
+    factors are lower triangular with diagonals in [1, 2] and entries 0.3
+    N(0, 1) / sqrt(rows) below; the couplings 0.3 N(0, 1) / sqrt(rows); the
+    right-hand sides N(0, 1)."""
+    import numpy as np
+    from treeqp_tpu_torch.ops import crown_kernels as ckr
+    from treeqp_tpu_torch.solvers import tdunes as td
+    from treeqp_tpu_torch.solvers import tdunes_multistage as tm
+    from treeqp_tpu_torch.utils.tree import TreeStructure
+    meta = tm._ms_meta(TreeStructure.multistage(md, Nr, Nh, nx, 1))
+    prep = td._get_prep(meta.crown_topo)
+    sched = ckr._get_sched(prep)
+    rng = np.random.default_rng(seed)
+    S, L, n, NpG, G = meta.S, meta.L, nx, sched.NpG, sched.G
+
+    def lower(shape, m):
+        F = np.tril(0.3 * rng.standard_normal(shape + (m, m)) / np.sqrt(m), -1)
+        return F + np.eye(m) * rng.uniform(1.0, 2.0, shape + (m, 1))
+    ops = (lower((S, L), n), 0.3 * rng.standard_normal((S, L, n, n)) / np.sqrt(n),
+           lower((NpG,), G), 0.3 * rng.standard_normal((NpG, n, G)) / np.sqrt(G),
+           rng.standard_normal((NpG, G)), rng.standard_normal((S, L, n)))
+    return (*(torch.tensor(a, dtype=torch.float32, device=dev) for a in ops), prep,
+            meta.root_ids)
+
+
+def system_matrix(torch, Ls, CUs, CholW, CholUt, prep, root_ids):
+    """The Newton system's stored factors as one dense lower factor of the
+    whole tree, [S L n + NpG G]^2: each chain's factor in its reversed
+    block order (``chain_factor_matrix``), the chains one after another,
+    then the crown's (``crown_matrix``), with CUs_0 of chain s in the rows
+    of its root's (group, slot) and the columns of its node 0.
+    torch.cholesky_solve with it solves as system_solve does
+    (``system_vector`` orders the right-hand sides)."""
+    from treeqp_tpu_torch.ops import crown_kernels as ckr
+    from treeqp_tpu_torch.ops import system_kernels as sk
+    S, L, n, _ = Ls.shape
+    sched = ckr._get_sched(prep)
+    Ln, Nc, G = L * n, S * L * n, sched.G
+    dev = Ls.device
+    F = torch.zeros((Nc + sched.NpG * G,) * 2, dtype=Ls.dtype, device=dev)
+    s = torch.arange(S, device=dev)
+    F[:Nc, :Nc].view(S, Ln, S, Ln)[s, :, s, :] = chain_factor_matrix(torch, Ls, CUs)
+    F[Nc:, Nc:] = crown_matrix(torch, CholW, CholUt, sched, factor=True)
+    ids = {k: v.long() for k, v in sk.ms_sched(prep, root_ids, dev).items()}
+    r = torch.arange(n, device=dev)
+    rows = Nc + crown_order(torch, sched, dev)[ids["g_of"]] * G + ids["slot"] * n
+    cols = s * Ln + (L - 1) * n
+    F[(rows[:, None] + r)[:, :, None], (cols[:, None] + r)[:, None, :]] = CUs[:, 0]
+    return F
+
+
+def system_vector(torch, rg, rch, prep, x=None):
+    """The right-hand sides (rg [NpG, G], rch [S, L, n]) in system_matrix's
+    order as [N, 1]; with ``x`` [N, 1] given, its parts (dg, dch) back."""
+    from treeqp_tpu_torch.ops import crown_kernels as ckr
+    sched = ckr._get_sched(prep)
+    S, L, n = rch.shape
+    if x is None:
+        return torch.cat([rch.flip(1).reshape(-1, 1), crown_vector(torch, rg, sched)])
+    Nc = S * L * n
+    return (crown_vector(torch, x[Nc:].reshape(-1), sched, back=True),
+            x[:Nc].reshape(S, L, n).flip(1))
+
+
+def jay_operands(torch, P, b, seed, dev, singular=False):
+    """A seeded SPD Jay system [diag, off, rhs, shift]: diag A A' + 3 b I
+    (A N(0, 1)), off 0.3 N(0, 1), rhs N(0, 1), the shift 1e-2 on every
+    row; with ``singular`` the block of the first odd index past P / 2 (one
+    the first level eliminates, as it is given) has row and column 0 zero,
+    its couplings too, so that its pivot turns the shift on."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    A_ = rng.normal(size=(P, b, b))
+    dg = A_ @ A_.transpose(0, 2, 1) + 3.0 * b * np.eye(b)
+    of = 0.3 * rng.normal(size=(P - 1, b, b))
+    r = rng.normal(size=(P, b))
+    mid = P // 2 | 1
+    if singular and mid < P:
+        dg[mid, 0, :] = dg[mid, :, 0] = of[mid - 1, 0, :] = 0.0
+        if mid < P - 1:
+            of[mid, :, 0] = 0.0
+    out = [torch.tensor(v, dtype=torch.float32, device=dev) for v in (dg, of, r)]
+    return out + [torch.full((P, b), 1e-2, dtype=torch.float32, device=dev)]
+
+
+def jay_matrix(torch, diag, off, shift=None, reg_tol=-1.0, dtype=None):
+    """The Jay system as one dense [P b, P b] matrix (in ``dtype``, the
+    operands' by default), the shift on the diagonal by the kernel's rule:
+    on every block (reg_tol < 0), or on the fly on the blocks whose own
+    factor fails the pivot test, which is the kernel's rule where such a
+    block is eliminated as it is given (an odd index, as jay_operands'
+    singular block)."""
+    from treeqp_tpu_torch.ops import jay_kernel as jk
+    P, b = diag.shape[0], diag.shape[-1]
+    dtype = dtype or diag.dtype
+    M = torch.zeros((P * b, P * b), dtype=dtype, device=diag.device)
+    M4 = M.view(P, b, P, b)
+    i = torch.arange(P, device=diag.device)
+    M4[i, :, i, :] = diag.to(dtype)
+    if P > 1:
+        M4[i[1:], :, i[:-1], :] = off.to(dtype)
+        M4[i[:-1], :, i[1:], :] = off.to(dtype).transpose(1, 2)
+    if shift is not None:
+        add = shift.to(dtype)
+        if reg_tol >= 0:
+            on = (jk._chol(diag, shift, reg_tol) != jk._chol(diag, None, reg_tol)).flatten(1)
+            add = add * on.any(1, keepdim=True)
+        M.diagonal().add_(add.reshape(-1))
+    return M
+
+
+def ric_crown_matrix(torch, hbar, AB, Wsum0, prep, nx, reg=0.0):
+    """The system crown_ric_factor factors, as one dense symmetric KKT
+    matrix [Nc nz + (Nc - 1) nx]^2: node n's Hessian diag(hbar_n) + Wsum0_n
+    (+ reg on its inputs' block) on the diagonal of the primal block, and
+    for each node n > 0 the dynamics row x_n = AB_n z_parent + rb_n (-I at
+    x_n, AB_n at its parent's z) with its transpose. It is indefinite: its
+    symmetric factorization is torch.linalg.ldl_factor_ex, and ldl_solve
+    with ``ric_crown_vector``'s right-hand side gives crown_ric_solve's dz
+    and dlam (the dynamics multipliers; the root's is 0)."""
+    from treeqp_tpu_torch.ops import crown_riccati as crk
+    Nc, nz = hbar.shape
+    Nz = Nc * nz
+    dev = hbar.device
+    par = torch.as_tensor(crk._get_sched(prep).par, dtype=torch.long, device=dev)
+    M = torch.zeros((Nz + (Nc - 1) * nx,) * 2, dtype=hbar.dtype, device=dev)
+    H = Wsum0 + torch.diag_embed(hbar)
+    H[:, nx:, nx:] += reg * torch.eye(nz - nx, dtype=hbar.dtype, device=dev)
+    i = torch.arange(Nc, device=dev)
+    M[:Nz, :Nz].view(Nc, nz, Nc, nz)[i, :, i, :] = H
+    n, a = i[1:], torch.arange(nx, device=dev)
+    E = M[Nz:, :Nz].view(Nc - 1, nx, Nc, nz)
+    E[n - 1, :, par[n], :] = AB[1:]
+    E[(n - 1)[:, None], a, n[:, None], a] = -1.0
+    M[:Nz, Nz:] = M[Nz:, :Nz].T
+    return M
+
+
+def ric_crown_vector(torch, rg, rb, wsum0, x=None):
+    """crown_ric_solve's right-hand sides in ric_crown_matrix's order as
+    [N, 1] (-(rg + wsum0), then -rb of the nodes past the root); with ``x``
+    [N, 1] given, its parts (dz [Nc, nz], dlam [Nc, nx]) back."""
+    Nc, nz = rg.shape
+    if x is None:
+        return torch.cat([-(rg + wsum0).reshape(-1), -rb[1:].reshape(-1)])[:, None]
+    nx = rb.shape[1]
+    return (x[:Nc * nz].reshape(Nc, nz),
+            torch.cat([torch.zeros_like(rb[:1]), x[Nc * nz:].reshape(Nc - 1, nx)]))
+
+
 def perturbed(qp, ms, fac):
     """Scale the pinned initial state (the root's bound rows) by ``fac``:
     the closed-loop MPC variation of bench.py."""
@@ -772,24 +956,44 @@ def main():
     chain_apply_ops = S_ * L_ * (4 * nx_ * nz_ + 4 * nz_)
     crown_apply_ops = Nc_ * (4 * nx_ * nz_ + 4 * nz_)
 
-    def record_graph(name, source, replaces, err, fn, ref_fn, shapes, inputs, ops, fp64=False):
-        """record() with the kernel's time in a CUDA graph (``graph_ms``)."""
-        m = measure(fn, ref_fn, inputs, ops, fp64)
+    def record_graph(name, source, replaces, err, fn, ref_fn, shapes, inputs, ops, fp64=False,
+                     lib_fn=None, lib_note=""):
+        """record() with the kernel's time in a CUDA graph (``graph_ms``),
+        and the library call's (``library_graph_ms``) where there is one."""
+        m = measure(fn, ref_fn, inputs, ops, fp64, lib_fn)
         m.update(graph_ms=graph_ms(torch, fn))
+        lib = ""
+        if lib_fn is not None:
+            m.update(library_graph_ms=graph_ms(torch, lib_fn))
+            lib = (f"; library call {m['library_ms']:.4f} ms alone, {m['library_graph_ms']:.4f} "
+                   f"ms in a CUDA graph ({lib_note})")
         print(f"{name} ({shapes}): kernel {m['ms']:.4f} ms alone, {m['graph_ms']:.4f} ms in a "
-              f"CUDA graph on {card}")
+              f"CUDA graph{lib} on {card}")
         record(name, source, replaces, err, fn, ref_fn, shapes, inputs, ops, fp64, m=m)
+
+    def blocks_library(W, Ut):
+        """The library call of the chain block factors: cholesky_ex of each
+        chain's equilibrated blocks as one [L n, L n] matrix (the form of
+        chain_factor's), and its distance to the twin's factors."""
+        M = chain_blocks_matrix(torch, W, Ut)
+        chol = lambda: torch.linalg.cholesky_ex(M).L
+        Ls_t, CUs_t, _ = ck.chain_factor_ref(W, Ut)
+        err_ = float((chol() - chain_factor_matrix(torch, Ls_t, CUs_t)).abs().max())
+        return chol, (f"cholesky_ex of the [{M.shape[1]}]^2 chain matrices, |diff| to the "
+                      f"twin's factors {err_:.3e}")
 
     c_ref = ck.chain_blocks_factor_ref(*inp["chain"])
     c_got = ck.chain_blocks_factor(*inp["chain"])
     torch.cuda.synchronize()
+    lib_cbf, note_cbf = blocks_library(*ck.chain_blocks(*inp["chain"])[:2])
     record_graph("chain_blocks_factor", "chain_blocks_factor.cu",
                  "treeqp_tpu/ops/chain_kernels.py:311",
                  compare(torch, "chain_blocks_factor", c_got, c_ref, FACTOR_RTOL),
                  lambda: ck.chain_blocks_factor(*inp["chain"]),
                  lambda: ck.chain_blocks_factor_ref(*inp["chain"]),
                  f"ABt {tuple(inp['chain'][0].shape)}", inp["chain"],
-                 chain_factor_ops(inp["chain"][0].shape, build=True))
+                 chain_factor_ops(inp["chain"][0].shape, build=True), lib_fn=lib_cbf,
+                 lib_note=note_cbf)
 
     Ls, CUs, schur0, sc = c_ref
     Wadd = -tm._schur_scatter(schur0, ctx["g_of"], ctx["slot"], prep, prep.nxm)
@@ -882,12 +1086,35 @@ def main():
     s_ref = sk.system_solve_ref(*sargs)
     s_got = sk.system_solve(*sargs)
     torch.cuda.synchronize()
-    record("system_solve", "system_solve.cu", "treeqp_tpu/ops/system_kernels.py:74",
-           compare(torch, "system_solve", s_got, s_ref, SOLVE_RTOL),
-           lambda: sk.system_solve(*sargs), lambda: sk.system_solve_ref(*sargs),
-           f"rch {tuple(rch.shape)}, rg {tuple(rg.shape)}",
-           (sargs[:6], ckr._get_sched(prep).on(dev), sk.ms_sched(prep, meta.root_ids, dev)),
-           system_ops)
+    err_s = compare(torch, "system_solve", s_got, s_ref, SOLVE_RTOL)
+    # the library call: cholesky_solve with the whole tree's stored factors
+    # as one dense lower f32 factor (system_matrix, ~2.8 GB at the headline)
+    F_s = system_matrix(torch, Ls, CUs, CholW, CholUt, prep, meta.root_ids)
+    v_s = system_vector(torch, rg.float(), rch.float(), prep)
+    lib_s = lambda: torch.cholesky_solve(v_s, F_s)
+    err_ls = compare(torch, "system_solve's library call (cholesky_solve)",
+                     system_vector(torch, rg, rch, prep, x=lib_s()), s_ref, SOLVE_RTOL)
+    # system_solve at its kernel's shapes (seeded factors): the bootstrap's
+    # G = 32, 1024 scenarios, G = 48 (block 0's crown), three chains of one
+    # node; graph times printed
+    sys_errs = []
+    for k, (what, shape) in enumerate(SYSTEM_SHAPES):
+        so = system_operands(torch, *shape, k, dev)
+        fn_e = lambda: sk.system_solve(*so)
+        sys_errs.append(compare(torch, f"system_solve ({what})", fn_e(),
+                                sk.system_solve_ref(*so), SOLVE_RTOL))
+        print(f"system_solve ({what}, seeded): {graph_ms(torch, fn_e):.4f} ms in a CUDA graph, "
+              f"|diff| to the twin {sys_errs[-1]:.3e} on {card}")
+    record_graph("system_solve", "system_solve.cu", "treeqp_tpu/ops/system_kernels.py:74",
+                 err_s, lambda: sk.system_solve(*sargs), lambda: sk.system_solve_ref(*sargs),
+                 f"rch {tuple(rch.shape)}, rg {tuple(rg.shape)}; at {len(SYSTEM_SHAPES)} "
+                 f"seeded shapes max |diff| {max(sys_errs):.3e}",
+                 (sargs[:6], ckr._get_sched(prep).on(dev), sk.ms_sched(prep, meta.root_ids, dev)),
+                 system_ops, lib_fn=lib_s,
+                 lib_note=f"cholesky_solve with the [{F_s.shape[0]}]^2 dense factor, |diff| to "
+                          f"the twin {err_ls:.3e}")
+    del F_s, lib_s
+    torch.cuda.empty_cache()
 
     # the coarse phase's first iteration: f32 data, duals 0
     ms32 = ms.to(dtype=torch.float32)
@@ -926,13 +1153,17 @@ def main():
     l_ref = ck.chain_blocks_factor_lanes_ref(*largs)
     l_got = ck.chain_blocks_factor_lanes(*largs)
     torch.cuda.synchronize()
+    ABl, qtl, rtl, ztpl, sl = largs
+    lib_cbl, note_cbl = blocks_library(
+        *ck.chain_blocks(ABl, ck.lanes_ztp(qtl, rtl, ztpl), qtl, sl)[:2])
     record_graph("chain_blocks_factor_lanes", "chain_blocks_factor.cu",
                  "treeqp_tpu/ops/chain_kernels.py:534",
                  compare(torch, "chain_blocks_factor_lanes", l_got, l_ref, FACTOR_RTOL),
                  lambda: ck.chain_blocks_factor_lanes(*largs),
                  lambda: ck.chain_blocks_factor_lanes_ref(*largs),
                  f"ABt {tuple(largs[0].shape)}", largs,
-                 chain_factor_ops(largs[0].shape, build=True))
+                 chain_factor_ops(largs[0].shape, build=True), lib_fn=lib_cbl,
+                 lib_note=note_cbl)
     # both forms at their kernel's edges, kernel against twin
     edge_err = 0.0
     for k, (S_e, L_e, nx_e, nz_e) in enumerate(BLOCK_EDGES):
@@ -1947,7 +2178,7 @@ def main():
         "B": first_iteration(lambda o: ims.ipm_ms_solve(msb, o), "box"),
         "C4437": first_iteration(lambda o: ipm.ipm_solve(qb, o), "cd"),
         f"C{qc2.topo.Nn}": first_iteration(lambda o: ipm.ipm_solve(qc2, o), "cd")}
-    ipm_checks = {}
+    ipm_checks, ric_library = {}, {}
 
     def ipm_check(name, path, fn, ref_fn, rtol, shapes, inputs, ops):
         ref, got = ref_fn(), fn()
@@ -1999,6 +2230,25 @@ def main():
                       Nc_c * (stage_ops(nx_, nz_, "factor") + nz_ * nz_))
             (fact, rg, rb, w0, prep_c), _ = got["crown_ric_solve"]
             rg, rb, w0 = (v.to(f32).contiguous() for v in (rg, rb, w0))
+            if path == "B":
+                # the library calls: ldl_factor_ex of the crown's KKT matrix
+                # (ric_crown_matrix) and ldl_solve with its factors
+                M_r = ric_crown_matrix(torch, hbar, AB, W0, prep_c, nx_, kw.get("reg", 0.0))
+                LD_r, piv_r, info_r = torch.linalg.ldl_factor_ex(M_r)
+                v_r = ric_crown_vector(torch, rg, rb, w0)
+                lib_r = torch.linalg.ldl_solve(LD_r, piv_r, v_r)
+                ref_r = crk.crown_ric_solve_ref(crk.crown_ric_factor_ref(hbar, AB, W0, prep_c,
+                                                                         nx_, **kw),
+                                                rg, rb, w0, prep_c)
+                err_r = max(float((a - b_).abs().max()) for a, b_ in zip(
+                    ric_crown_vector(torch, rg, rb, w0, x=lib_r), ref_r))
+                ric_library = {
+                    "crown_ric_factor": (lambda: torch.linalg.ldl_factor_ex(M_r),
+                                         f"ldl_factor_ex of the [{M_r.shape[0]}]^2 KKT matrix, "
+                                         f"info {int(info_r)}"),
+                    "crown_ric_solve": (lambda: torch.linalg.ldl_solve(LD_r, piv_r, v_r),
+                                        f"ldl_solve with its factors, |diff| to the twin "
+                                        f"{err_r:.3e}")}
             ipm_check("crown_ric_solve", path,
                       lambda a=(fact, rg, rb, w0, prep_c): crk.crown_ric_solve(*a),
                       lambda a=(fact, rg, rb, w0, prep_c): crk.crown_ric_solve_ref(*a),
@@ -2041,6 +2291,12 @@ def main():
                     "crown_ric_solve": "crown_riccati.py:170"}[name]
         m = None
         note = ""
+        if name in ric_library:
+            lib_fn, lib_note = ric_library[name]
+            m = measure(fn, ref_fn, inputs, ops, lib_fn=lib_fn)
+            note = f"; library call {m['library_ms']:.4f} ms ({lib_note})"
+            print(f"{name} (path {timed} {shapes}): {m['ms']:.4f} ms alone; library call "
+                  f"{m['library_ms']:.4f} ms ({lib_note}) on {card}")
         if name == "ric_chain_factor":
             m = measure(fn, ref_fn, inputs, ops)
             m.update(graph_ms=graph_ms(torch, fn))
@@ -2054,8 +2310,9 @@ def main():
                fn, ref_fn, f"path {timed} {shapes}, |diff| {err:.3e}; {others}{note}", inputs,
                ops, m=m)
     for r in results[-5:]:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library call none, "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library call {lib}, "
               f"max |diff| {r['max_abs_err']:.3e} [{r['shapes']}] on {card}")
 
     ipm_launches = lambda: sum(k.launches for k in ipm_kernels)
@@ -2296,20 +2553,57 @@ def main():
           f"{jay_fe['kernel']}, twin {jay_fe['twin']}")
     # beyond the TPU kernel's caps: a seeded SPD system at P = 1023, b = 16
     # with one exactly singular block (its pivot turns the shift on)
-    rng = np.random.default_rng(JAY_SEED)
     P_b, b_b = JAY_BIG
-    A_ = rng.normal(size=(P_b, b_b, b_b))
-    dg_b = A_ @ A_.transpose(0, 2, 1) + 3.0 * b_b * np.eye(b_b)
-    of_b = 0.3 * rng.normal(size=(P_b - 1, b_b, b_b))
-    r_b = rng.normal(size=(P_b, b_b))
-    mid = P_b // 2
-    dg_b[mid, 0, :] = dg_b[mid, :, 0] = of_b[mid, :, 0] = of_b[mid - 1, 0, :] = 0.0
-    jb = [torch.tensor(v, dtype=f32, device=dev) for v in (dg_b, of_b, r_b)]
-    jb.append(torch.full((P_b, b_b), 1e-2, dtype=f32, device=dev))
+    jb = jay_operands(torch, P_b, b_b, JAY_SEED, dev, singular=True)
     x_b, x_bref = jk.jay_cr_solve(*jb, 1e-6), jk.jay_cr_solve_ref(*jb, 1e-6)
     err_jb = compare(torch, f"jay_cr_solve (P={P_b}, b={b_b})", [x_b], [x_bref], SOLVE_RTOL)
-    if not float(x_b[mid].abs().max()) > 0.0:
+    if not float(x_b[P_b // 2 | 1].abs().max()) > 0.0:
         fail("jay_cr_solve: the singular block's shift did not act")
+    # the kernel's edges (JAY_PS x JAY_BS, each shift mode, with and without
+    # the singular block; operands in shared memory or global scratch)
+    jay_edge_err, n_edges = 0.0, 0
+    for P_e in JAY_PS:
+        for b_e in JAY_BS:
+            for sing in (False, True):
+                for tol_e in JAY_MODES:
+                    if sing and (tol_e is None or P_e < 2):
+                        continue  # singular without a shift: no solution to hold
+                    je = jay_operands(torch, P_e, b_e, P_e * b_e, dev, singular=sing)
+                    if tol_e is None:
+                        je[3] = None
+                    tol_e = -1.0 if tol_e is None else tol_e
+                    jay_edge_err = max(jay_edge_err, compare(
+                        torch, f"jay_cr_solve (P={P_e}, b={b_e}, reg_tol={tol_e}, singular "
+                        f"{sing})", [jk.jay_cr_solve(*je, tol_e)],
+                        [jk.jay_cr_solve_ref(*je, tol_e)], SOLVE_RTOL))
+                    n_edges += 1
+    print(f"jay_cr_solve at {n_edges} edge systems (P in {JAY_PS}, b in {JAY_BS}, three shift "
+          f"modes, a singular block): max |diff| to the twin {jay_edge_err:.3e}")
+    # the library call: linalg.solve_ex (linalg.solve without its error
+    # check's host sync) of the dense f32 Jay matrix, the shift by the
+    # kernel's rule, at both shapes
+    M_j32 = jay_matrix(torch, dg, of, kw["shift"], kw["reg_tol"])
+    r_j32 = rj.reshape(-1, 1)
+    lib_j = lambda: torch.linalg.solve_ex(M_j32, r_j32)[0]
+    M_b32, r_b32 = jay_matrix(torch, jb[0], jb[1], jb[3], 1e-6), jb[2].reshape(-1, 1)
+    lib_jb = lambda: torch.linalg.solve_ex(M_b32, r_b32)[0]
+    err_lj0 = compare(torch, "jay_cr_solve's library call at the cold start",
+                      [torch.linalg.solve_ex(jay_matrix(torch, dg0, of0, kw0["shift"],
+                                                        kw0["reg_tol"]),
+                                             rj0.reshape(-1, 1))[0].reshape(rj0.shape)],
+                      [jk.jay_cr_solve_ref(dg0, of0, rj0, **kw0)], SOLVE_RTOL)
+    err_ljb = compare(torch, f"jay_cr_solve's library call (P={P_b}, b={b_b})",
+                      [lib_jb().reshape(P_b, b_b)], [x_bref], SOLVE_RTOL)
+    jay_big = dict(ms=cuda_ms(torch, lambda: jk.jay_cr_solve(*jb, 1e-6), 20),
+                   graph_ms=graph_ms(torch, lambda: jk.jay_cr_solve(*jb, 1e-6)),
+                   library_ms=cuda_ms(torch, lib_jb, 5), library_graph_ms=graph_ms(
+                       torch, lib_jb, calls=2, reps=3))
+    print(f"jay_cr_solve (P={P_b}, b={b_b}, on the fly, a singular block): kernel "
+          f"{jay_big['ms']:.4f} ms alone, {jay_big['graph_ms']:.4f} ms in a CUDA graph; library "
+          f"call (linalg.solve_ex of the [{P_b * b_b}]^2 matrix) {jay_big['library_ms']:.4f} ms "
+          f"alone, {jay_big['library_graph_ms']:.4f} ms in a CUDA graph (|diff| to the twin "
+          f"{err_ljb:.3e}) on {card}")
+    del M_b32, lib_jb
 
     def jay_ops(P, b):
         """Operations of the cyclic reduction: per level each eliminated
@@ -2324,15 +2618,20 @@ def main():
             h *= 2
         return ops + chol_ops(b) + 2 * b * b
 
-    record("jay_cr_solve", "jay_cr.cu", "treeqp_tpu/ops/jay_kernel.py:89", max(err_j, err_jb),
-           lambda: jk.jay_cr_solve(dg, of, rj, **kw),
-           lambda: jk.jay_cr_solve_ref(dg, of, rj, **kw),
-           f"P={dg.shape[0]} b={dg.shape[-1]}, shift always, |diff| {err_j:.3e} at the cold "
-           f"start; P={P_b} "
-           f"b={b_b} on the fly with a singular block: "
-           f"{cuda_ms(torch, lambda: jk.jay_cr_solve(*jb, 1e-6), 20):.4f} ms, |diff| "
-           f"{err_jb:.3e}, bound {nbytes(torch, jb, x_b) / PEAK_BYTES * 1e3:.6f} ms",
-           (dg, of, rj, kw["shift"]), jay_ops(dg.shape[0], dg.shape[-1]))
+    record_graph("jay_cr_solve", "jay_cr.cu", "treeqp_tpu/ops/jay_kernel.py:89",
+                 max(err_j, err_jb, jay_edge_err),
+                 lambda: jk.jay_cr_solve(dg, of, rj, **kw),
+                 lambda: jk.jay_cr_solve_ref(dg, of, rj, **kw),
+                 f"P={dg.shape[0]} b={dg.shape[-1]}, shift always, |diff| {err_j:.3e} at the "
+                 f"cold start; P={P_b} b={b_b} on the fly with a singular block: "
+                 f"{jay_big['ms']:.4f} ms alone, {jay_big['graph_ms']:.4f} ms in a CUDA graph, "
+                 f"library call {jay_big['library_ms']:.4f} / {jay_big['library_graph_ms']:.4f} "
+                 f"ms, |diff| {err_jb:.3e}, bound "
+                 f"{max(nbytes(torch, jb, x_b) / PEAK_BYTES, jay_ops(P_b, b_b) / PEAK_FLOPS[False]) * 1e3:.6f} ms; "
+                 f"{n_edges} edge systems max |diff| {jay_edge_err:.3e}",
+                 (dg, of, rj, kw["shift"]), jay_ops(dg.shape[0], dg.shape[-1]), lib_fn=lib_j,
+                 lib_note=f"linalg.solve_ex of the [{rj.numel()}]^2 matrix, |diff| to the twin "
+                          f"{err_lj0:.3e} at the cold start")
     for r in results[-2:]:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms, "

@@ -16,10 +16,12 @@ from treeqp_tpu.ops import riccati_kernels as jrk
 from treeqp_tpu.solvers import ipm as jipm
 from treeqp_tpu.utils.tree import TreeStructure as JTree
 
+import chip_smoke
 from treeqp_tpu_torch import convert
 from treeqp_tpu_torch.ops import crown_riccati as crk
 from treeqp_tpu_torch.ops import riccati_kernels as rk
 from treeqp_tpu_torch.solvers import ipm
+from treeqp_tpu_torch.utils.tree import TreeStructure
 
 torch.set_num_threads(1)
 
@@ -186,3 +188,43 @@ def test_crown_schedule_lists_each_node_once(crown_case):
         assert (topo.stage[nodes.numpy()] == topo.Nh - r).all()
         kids = kk[kk >= 0].numpy()
         assert np.array_equal(np.sort(kids), np.sort(nodes.numpy()[nodes.numpy() != 0]))
+
+
+def crown_kkt_operands(md, Nr, Nh, nx, nu, seed):
+    """Seeded operands of the crown Riccati kernels on the whole multistage
+    tree (md, Nr, Nh) with nx states and nu inputs: (hbar, AB, Wsum0, rg,
+    rb, wsum0, prep). hbar in [1, 2], AB 0.3 N(0, 1) / sqrt(nz), at the
+    leaves Wsum0 an SPD term B B' / (2 nz) and wsum0 N(0, 1) (zero
+    elsewhere, as the chains' terms are), rg and rb N(0, 1)."""
+    topo = TreeStructure.multistage(md, Nr, Nh, nx, nu)
+    prep = ipm._get_ipm_prep(topo)
+    rng = np.random.default_rng(seed)
+    Nc, nz = topo.Nn, nx + nu
+    leaf = (np.asarray(topo.nkids) == 0)[:, None, None]
+    B = rng.standard_normal((Nc, nz, nz))
+    ops = (rng.uniform(1.0, 2.0, (Nc, nz)), 0.3 * rng.standard_normal((Nc, nx, nz)) / np.sqrt(nz),
+           leaf * (B @ B.transpose(0, 2, 1)) / (2 * nz), rng.standard_normal((Nc, nz)),
+           rng.standard_normal((Nc, nx)), leaf[:, :, 0] * rng.standard_normal((Nc, nz)))
+    return (*(torch.tensor(a, dtype=torch.float32) for a in ops), prep)
+
+
+@pytest.mark.parametrize("shape,reg", [((2, 2, 4, 3, 2), 0.0), ((3, 2, 3, 8, 1), 1e-3)])
+def test_crown_ric_kkt_yardstick(shape, reg):
+    """chip_smoke's library calls of crown_ric_factor / crown_ric_solve:
+    torch.linalg.ldl_factor_ex of the crown's dense KKT matrix
+    (``chip_smoke.ric_crown_matrix``) and ldl_solve with its factors give
+    the twins' dz and dlam to SOLVE_RTOL on seeded operands of the whole
+    multistage tree (md, Nr, Nh) with nx states and nu inputs
+    (``crown_kkt_operands``)."""
+    hbar, AB, W0, rg, rb, w0, prep = crown_kkt_operands(*shape, 4)
+    nx = shape[3]
+    dz, dl = crk.crown_ric_solve_ref(crk.crown_ric_factor_ref(hbar, AB, W0, prep, nx, reg),
+                                     rg, rb, w0, prep)
+    M = chip_smoke.ric_crown_matrix(torch, hbar, AB, W0, prep, nx, reg)
+    assert torch.equal(M, M.T)
+    LD, piv, info = torch.linalg.ldl_factor_ex(M)
+    assert int(info) == 0
+    x = torch.linalg.ldl_solve(LD, piv, chip_smoke.ric_crown_vector(torch, rg, rb, w0))
+    lz, ll = chip_smoke.ric_crown_vector(torch, rg, rb, w0, x=x)
+    close(lz, dz, SOLVE_RTOL, "dz")
+    close(ll, dl, SOLVE_RTOL, "dlam")

@@ -14,6 +14,8 @@ from treeqp_tpu.ops import chain_kernels as jck
 from treeqp_tpu.ops import jay_kernel as jjk
 from treeqp_tpu.ops.tridiag import tridiag_cr_solve
 
+import chip_smoke
+
 from treeqp_tpu_torch.ops import chain_kernels as ck
 from treeqp_tpu_torch.ops import jay_kernel as jk
 
@@ -100,7 +102,15 @@ def jay_system(P, b, seed, singular=False):
 
 JAY_CASES = {"P7_b3_none": (7, 3, "none"), "P7_b4_always": (7, 4, "always"),
              "P7_b4_fly_singular": (7, 4, "fly"), "P100_b3_none": (100, 3, "none"),
-             "P100_b4_always": (100, 4, "always"), "P100_b3_fly_singular": (100, 3, "fly")}
+             "P100_b4_always": (100, 4, "always"), "P100_b3_fly_singular": (100, 3, "fly"),
+             # the CUDA kernel's edges within the Pallas kernel's b <= 8: the
+             # root alone, one and two levels, 64 and 65 blocks; b = 1 (a
+             # lane group of 4 with three idle rows) and b = 8 (a full group)
+             "P1_b1_none": (1, 1, "none"), "P1_b8_always": (1, 8, "always"),
+             "P2_b1_fly": (2, 1, "fly"), "P2_b8_always": (2, 8, "always"),
+             "P3_b1_fly_singular": (3, 1, "fly"), "P3_b8_none": (3, 8, "none"),
+             "P64_b1_none": (64, 1, "none"), "P64_b8_fly_singular": (64, 8, "fly"),
+             "P65_b1_always": (65, 1, "always"), "P65_b8_fly_singular": (65, 8, "fly")}
 
 
 @pytest.mark.parametrize("case", sorted(JAY_CASES))
@@ -120,10 +130,12 @@ def test_jay_cr_solve_matches_pallas(case):
     close(x, xj, SOLVE_RTOL, case)
 
 
-@pytest.mark.parametrize("P,b", [(300, 16), (1, 4), (2, 3)])
+@pytest.mark.parametrize("P,b", [(300, 16), (1, 4), (2, 3), (1, 16), (2, 16), (3, 16),
+                                 (64, 16), (65, 16)])
 def test_jay_cr_solve_matches_tridiag(P, b):
-    """Beyond the Pallas kernel's caps (P = 300, b = 16; and P = 1, the root
-    solve alone) against the JAX package's batched cyclic reduction on a
+    """Beyond the Pallas kernel's caps (b = 16, the CUDA kernel's lane
+    groups of 16, at P = 1, 2, 3, 64, 65 and 300; and P = 1, the root solve
+    alone) against the JAX package's batched cyclic reduction on a
     well-conditioned system, shift always on."""
     diag, off, rhs = jay_system(P, b, seed=P * b)
     shift = np.full((P, b), 1e-3, np.float32)
@@ -143,3 +155,22 @@ def test_jay_cr_solve_solves_the_system():
     r[1:] += np.einsum("pij,pj->pi", o, x[:-1])
     r[:-1] += np.einsum("pji,pj->pi", o, x[1:])
     assert np.abs(r - rhs).max() < 1e-4 * max(1.0, np.abs(rhs).max())
+
+
+@pytest.mark.parametrize("P,b,reg_tol,singular", [(7, 3, None, False), (64, 8, -1.0, True),
+                                                  (65, 4, 1e-6, True), (1, 16, -1.0, False)])
+def test_jay_matrix_yardstick(P, b, reg_tol, singular):
+    """chip_smoke's library call of jay_cr_solve: torch.linalg.solve of the
+    dense f32 Jay matrix (``chip_smoke.jay_matrix``, the shift by the
+    kernel's rule) equals the twin to SOLVE_RTOL on ``chip_smoke.jay_operands``
+    (no shift, always, on the fly with the singular block)."""
+    cpu = torch.device("cpu")
+    j = chip_smoke.jay_operands(torch, P, b, P + b, cpu, singular=singular)
+    if reg_tol is None:
+        j[3] = None
+    tol = -1.0 if reg_tol is None else reg_tol
+    x = jk.jay_cr_solve_ref(*j, tol)
+    M = chip_smoke.jay_matrix(torch, j[0], j[1], j[3], tol)
+    assert M.dtype == torch.float32 and M.shape == (P * b, P * b)
+    xl = torch.linalg.solve(M, j[2].reshape(-1)).reshape(P, b)
+    close(xl, x, chip_smoke.SOLVE_RTOL, (P, b, reg_tol))

@@ -11,6 +11,7 @@ import torch
 from treeqp_tpu.ops import crown_kernels as jckr
 from treeqp_tpu.ops import system_kernels as jsk
 
+import chip_smoke
 from test_torch_chain_kernels import CASES, POINTS, assert_close, factor_inputs
 from test_torch_crown_kernels import REG, jax_prep
 from treeqp_tpu_torch.ops import chain_kernels as ck
@@ -57,17 +58,31 @@ def jax_layout(Ls, CUs, CholW, CholUt, prep):
             _pad_lanes(tr(CholUt, (1, 2, 0)), NPg, False))
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+# seeded factors (chip_smoke.system_operands) on crowns the solver cases
+# do not reach, at small depth: the multistage tree (md, Nr, Nh) with nx
+# states of sdunes' bootstrap crown (spring_mass_chain's nx = 8, 4 kids:
+# G = 32, a warp's rows) and with crown groups of 48 rows (nx = 16, 3
+# kids: past a warp, the CUDA kernel's block-0 path); the point is the seed
+SEEDED = {"seeded_G32": (4, 2, 4, 8), "seeded_G48": (3, 2, 4, 16)}
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(SEEDED))
 @pytest.mark.parametrize("point", sorted(POINTS))
 def test_system_solve_matches_pallas(name, point):
-    ms, prep, args = system_case(name, point)
-    dg, dch = sk.system_solve_ref(*args, prep, ms.meta.root_ids)
-    jprep = jax_prep(ms.meta.crown_topo)
+    if name in SEEDED:
+        *args, prep, root_ids = chip_smoke.system_operands(
+            torch, *SEEDED[name], sorted(POINTS).index(point), torch.device("cpu"))
+        topo = prep.topo
+    else:
+        ms, prep, args = system_case(name, point)
+        root_ids, topo = ms.meta.root_ids, ms.meta.crown_topo
+    dg, dch = sk.system_solve_ref(*args, prep, root_ids)
+    jprep = jax_prep(topo)
     factors = jax_layout(*args[:4], jprep)
     jdg, jdch = jsk.system_solve(*(jnp.asarray(f) for f in factors),
                                  jnp.asarray(args[4].numpy()),
                                  jnp.asarray(args[5].numpy()), jprep,
-                                 ms.meta.root_ids)
+                                 root_ids)
     assert_close(dg, jdg, RTOL, "dg")
     assert_close(dch, jdch, RTOL, "dch")
 
@@ -90,3 +105,22 @@ def test_system_solve_cpu_wrapper_runs_plain_twin():
     assert sk.system_solve.launches == 0
     with pytest.raises(ValueError, match="expected"):
         sk.system_solve(*(t.to("meta") for t in args), prep, ms.meta.root_ids)
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 5, 3), (3, 1, 2, 5), (4, 2, 4, 8)])
+def test_system_matrix_yardstick(shape):
+    """chip_smoke's library call of system_solve: torch.cholesky_solve with
+    the whole tree's factor as one dense lower matrix
+    (``chip_smoke.system_matrix``, the right-hand sides ordered by
+    ``system_vector``) equals the twin to SOLVE_RTOL on seeded factors of
+    the multistage tree (md, Nr, Nh) with nx states."""
+    *args, prep, root_ids = chip_smoke.system_operands(torch, *shape, 3, torch.device("cpu"))
+    dg, dch = sk.system_solve_ref(*args, prep, root_ids)
+    F = chip_smoke.system_matrix(torch, *args[:4], prep, root_ids)
+    S, L, n, _ = args[0].shape
+    assert F.shape == (S * L * n + dg.numel(),) * 2 and bool((F.triu(1) == 0).all())
+    v = chip_smoke.system_vector(torch, args[4], args[5], prep)
+    ldg, ldch = chip_smoke.system_vector(torch, args[4], args[5], prep,
+                                         x=torch.cholesky_solve(v, F))
+    assert_close(ldg, dg, chip_smoke.SOLVE_RTOL, "dg")
+    assert_close(ldch, dch, chip_smoke.SOLVE_RTOL, "dch")

@@ -36,11 +36,12 @@
 // - Each step's n outputs are written once, lane i to row i: n contiguous
 //   floats a chain and step.
 // Every sum runs in the order of tq_dense.cuh's ltrsv_inplace /
-// uttrsv_inplace and of tq_chain.cuh's per-thread bodies (which
-// system_solve.cu keeps), each product folded in by one FMA as nvcc
+// uttrsv_inplace walked over a chain's blocks by one thread (the
+// thread-per-chain kernels), each product folded in by one FMA as nvcc
 // contracts those bodies, and the divisions are true divisions: the
 // results equal the thread-per-chain kernels' bit for bit. The two steps
-// are tq_lanes.cuh's sweep_bwd / sweep_fwd, which newton_iter.cu runs too.
+// are tq_lanes.cuh's sweep_bwd / sweep_fwd, which tq_system.cuh's
+// Newton-system solve (system_solve.cu, newton_iter.cu) runs too.
 // No tensor cores: a step is a dependent triangular solve of n <= 16 rows,
 // where wgmma needs 64-row tiles and mma.sync would pad n = 6 to 16 with no
 // batch dimension inside a chain.

@@ -6,11 +6,11 @@
 //   1. equilibrated right-hand sides: rv = res_cr * s_node in the crown
 //      group layout (each (group, slot) reads its kid node, 0 on empty
 //      slots), rch = res_ch * sc
-//   2. the Newton-system solve with the stored factors: the chains'
-//      backward sweeps (y_j parked in dch_s, each chain's CUs_0 y_0 taken
-//      from its crown slot of rv), the crown's level-synchronous solve
-//      (tq_crown.cuh's crown_solve_core), the chains' forward sweeps from
-//      their crown slot of dg
+//   2. the Newton-system solve with the stored factors, tq_system.cuh's
+//      body (system_solve.cu runs it alone): the chains' backward sweeps
+//      (y_j parked in dch_s, each chain's CUs_0 y_0 taken from its crown
+//      slot of rv), the crown's level-synchronous solve, the chains'
+//      forward sweeps from their crown slot of dg
 //   3. direction dcr = dg at each node's (group, slot) * s_node (0 at the
 //      root), dch = dch_s * sc; the tau = 1 trial point lam2 = lam + d; the
 //      per-node / per-chain partials of the directional derivative
@@ -42,15 +42,16 @@
 //   the steps of chain_sweeps.cu: 8 or 16 lanes a chain, lane i owning row
 //   i, the blocks Ls_j, CUs_j streamed through a cp.async ring. A block
 //   gives as many warps to the sweeps as its shared memory holds rings
-//   (kRingBytes); the groups stride over the chains. The forward sweep
-//   writes dch and lam2_ch as it goes.
-// - The crown's solve (step 2) and its direction (step 3) run in block 0
-//   with its own barriers: a level holds at most a few dozen groups. With
-//   G = K n <= 32 rows a group (the headline's 24) a warp takes a group,
-//   lane i row i, its triangular solves G rounds of a division and a
-//   shuffle as in the chain sweeps (the per-thread bodies of tq_crown.cuh,
-//   which wider groups keep, walked each group's rows from global memory
-//   in one thread: 56% of the launch at the headline).
+//   (tq_system.cuh's kSysRingBytes); the groups stride over the chains.
+//   The forward sweep writes dch and lam2_ch as it goes.
+// - The crown's solve (step 2) runs on the cluster's warps, the cluster's
+//   barrier between levels: with G = K n <= 32 rows a group (the
+//   headline's 24) a warp takes a group, lane i row i, its triangular
+//   solves G rounds of a division and a shuffle as in the chain sweeps (the
+//   per-thread bodies of tq_crown.cuh, which wider groups keep in block 0,
+//   walked each group's rows from global memory in one thread: 56% of the
+//   launch at the headline). Its direction (step 3) follows a thread a
+//   node.
 // - The evaluation runs a thread a node: every chain node's clip depends
 //   only on lam2_j and lam2_{j+1}; its residual row, which needs x_{j-1}
 //   and u_{j-1}, follows after a barrier. Each chain's dual-value, error
@@ -58,7 +59,7 @@
 //   thread per chain, so the partials keep the one-thread-per-chain order.
 // Every element meets the operations of the one-block kernel in the same
 // order (the evaluations round each product and sum on its own, the sweeps
-// are bit for bit tq_chain.cuh's bodies), so every output equals that
+// are bit for bit the thread-per-chain bodies), so every output equals that
 // kernel's bit for bit, and the active sets, the Armijo decisions and the
 // iteration counts stay as they were.
 // No tensor cores: every step is a dependent n <= 16 triangular solve or a
@@ -69,33 +70,30 @@
 
 #include <cstdint>
 
-#include "tq_crown.cuh"
 #include "tq_eval.cuh"
-#include "tq_lanes.cuh"
+#include "tq_system.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = 8;
-constexpr int kThreads = 512;
-// shared memory a block gives to the sweeps' rings
-constexpr int kRingBytes = 96 * 1024;
+constexpr int kCluster = tq::kSysCluster;
+constexpr int kThreads = tq::kSysThreads;
 
 struct IterArgs {
   tq::ChainData<float> ch;
   tq::CrownData<float> cr;
-  const float *Ls, *CUs, *CholW, *CholUt, *s_node, *sc;
-  const int *lev_ptr, *lev_child, *lev_parent, *lev_slot, *g_of, *slot, *rid,
-      *kidsP, *gon, *son;
+  tq::SystemArgs sys;  // step 2's factors, schedule and crown vectors rv, ycr, dg
+  const float *s_node, *sc;
+  const int *rid, *kidsP, *gon, *son;
   const float *lam_cr, *lam_ch, *res_cr, *res_ch;
   float *dcr, *dch, *lam2_cr, *lam2_ch;
   tq::EvalOut<float> cho, cro;
   float *dots, *dotc;
-  float *rv, *ycr, *dg, *rch_s, *dch_s, *extra, *atb;
+  float *rch_s, *dch_s, *extra, *atb;
   float *part;  // [4, S, L]: each chain node's sx, su, max |res|, res' d
   unsigned long long* stamps;  // null, or kCluster kStamps timer reads (profiling)
-  int NpG, K, n_lev, eval_only, groups, vec16;
+  int NpG, eval_only;
 };
 
 // With stamps, thread 0 of each block reads the global timer (ns) at the
@@ -121,126 +119,6 @@ __device__ __forceinline__ void barrier(cg::cluster_group& cluster, const IterAr
   stamp(a, b, 2 + 2 * k);
 }
 
-// The lane groups of this block that take part in the sweeps (a.groups a
-// block, whole warps) stride over the chains: in round r, group q of block
-// b takes chain (r kCluster + b) groups + q. The same group takes the same
-// chain in both sweeps.
-template <int GL, typename Body>
-__device__ void for_each_chain(const IterArgs& a, float* smem, int b, Body body) {
-  const int q = threadIdx.x / GL;
-  if (q >= a.groups) return;  // whole warps
-  const int n = a.ch.nx, S = a.ch.S, total = kCluster * a.groups;
-  float* ring = smem + (size_t)q * tq::kSweepStages * tq::sweep_stage_floats(n);
-  for (int r = 0; r * total < S; ++r) body(ring, threadIdx.x % GL, r * total + b * a.groups + q);
-}
-
-// The crown's solve with one warp per group, lane i owning row i of the
-// group's G <= 32 rows (crown_solve_core's sums in its order): the triangular
-// solves as in the chain sweeps, G rounds of a division and a shuffle.
-constexpr int kW = 32;
-
-// y = Lg^-1 r for the G x G lower factor Lg, lane i holding r_i in acc;
-// every lane calls onk(k, y_k) as y_k is broadcast. Returns y_i.
-template <typename OnK>
-__device__ __forceinline__ float warp_ltrsv(const float* Lg, float acc, int G, int i,
-                                            OnK onk) {
-  float Lrow[kW];
-  float diag = 1.f;
-#pragma unroll
-  for (int m = 0; m < kW; ++m) {
-    Lrow[m] = m < G && i < G && m <= i ? Lg[i * G + m] : 0.f;
-    if (m == i && i < G) diag = Lrow[m];
-  }
-  float y = 0.f;
-#pragma unroll
-  for (int k = 0; k < kW; ++k) {
-    if (k < G) {
-      const float yk = __shfl_sync(tq::kFull, tq::quotient(acc, diag, i == k), k);
-      if (i > k) acc = __fmaf_rn(-Lrow[k], yk, acc);
-      if (i == k) y = yk;
-      onk(k, yk);
-    }
-  }
-  return y;
-}
-
-// z = Lg^-T v, lane i holding v_i in acc; returns z_i.
-__device__ __forceinline__ float warp_uttrsv(const float* Lg, float acc, int G, int i) {
-  float Lcol[kW], z[kW];
-  float diag = 1.f;
-#pragma unroll
-  for (int m = 0; m < kW; ++m) {
-    Lcol[m] = m < G && i < G && m >= i ? Lg[m * G + i] : 0.f;
-    if (m == i && i < G) diag = Lcol[m];
-    z[m] = 0.f;
-  }
-  float out = 0.f;
-#pragma unroll
-  for (int k = kW - 1; k >= 0; --k) {
-    if (k < G) {
-      float v = acc;
-#pragma unroll
-      for (int m = k + 1; m < kW; ++m)
-        if (m < G) v = __fmaf_rn(-Lcol[m], z[m], v);
-      z[k] = __shfl_sync(tq::kFull, tq::quotient(v, diag, i == k), k);
-      if (i == k) out = z[k];
-    }
-  }
-  return out;
-}
-
-// tq::crown_solve_core's three parts on the cluster's warps, a group a
-// warp, the cluster's barrier between levels: backward, deepest level
-// first, y_g = CholW_g^-1 rv_g and rv[parent][slot] -= CholUt_g y_g; the
-// root (block 0's warp 0); forward, top level first, dg_g = CholW_g^-T
-// (y_g - CholUt_g' dg[parent][slot]). Every sum in crown_solve_core's
-// order, each product one FMA as nvcc contracts it there: bit for bit that
-// body.
-__device__ void crown_solve_warps(cg::cluster_group& cluster, const IterArgs& a, int b, int n,
-                                  int G) {
-  const int i = threadIdx.x % kW, nwb = blockDim.x / kW;
-  const int w = b * nwb + threadIdx.x / kW, nw = kCluster * nwb;  // the cluster's warps
-  const size_t GG = (size_t)G * G;
-  for (int lv = 0; lv < a.n_lev; ++lv) {
-    for (int e = a.lev_ptr[lv] + w; e < a.lev_ptr[lv + 1]; e += nw) {
-      const int g = a.lev_child[e];
-      const float* U = a.CholUt + (size_t)g * n * G;
-      float Urow[kW];  // row i of CholUt_g (i < n)
-#pragma unroll
-      for (int k = 0; k < kW; ++k) Urow[k] = i < n && k < G ? U[i * G + k] : 0.f;
-      float racc = 0.f;
-      const float y = warp_ltrsv(a.CholW + g * GG, i < G ? a.rv[(size_t)g * G + i] : 0.f, G,
-                                 i, [&](int k, float yk) { racc = __fmaf_rn(Urow[k], yk, racc); });
-      if (i < G) a.ycr[(size_t)g * G + i] = y;
-      if (i < n) a.rv[(size_t)a.lev_parent[e] * G + a.lev_slot[e] * n + i] -= racc;
-    }
-    cluster.sync();
-  }
-  stamp(a, b, 15);
-  if (w == 0) {
-    const float y = warp_ltrsv(a.CholW, i < G ? a.rv[i] : 0.f, G, i, [](int, float) {});
-    if (i < G) a.ycr[i] = y;
-    const float z = warp_uttrsv(a.CholW, y, G, i);
-    if (i < G) a.dg[i] = z;
-  }
-  cluster.sync();
-  stamp(a, b, 16);
-  for (int lv = a.n_lev - 1; lv >= 0; --lv) {
-    for (int e = a.lev_ptr[lv] + w; e < a.lev_ptr[lv + 1]; e += nw) {
-      const int g = a.lev_child[e];
-      const float* dp = a.dg + (size_t)a.lev_parent[e] * G + a.lev_slot[e] * n;
-      const float* U = a.CholUt + (size_t)g * n * G;
-      float acc = 0.f;
-      for (int q = 0; q < n; ++q) acc = __fmaf_rn(i < G ? U[q * G + i] : 0.f, dp[q], acc);
-      const float v = i < G ? a.ycr[(size_t)g * G + i] - acc : 0.f;
-      const float z = warp_uttrsv(a.CholW + g * GG, v, G, i);
-      if (i < G) a.dg[(size_t)g * G + i] = z;
-    }
-    cluster.sync();
-  }
-  stamp(a, b, 17);
-}
-
 template <int GL>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     newton_iter_kernel(const IterArgs a) {
@@ -251,7 +129,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   const tq::ChainData<float>& ch = a.ch;
   const tq::CrownData<float>& cr = a.cr;
   const int S = ch.S, L = ch.L, n = ch.nx, nu = ch.nu, nz = n + nu;
-  const int Nn = cr.Nn, K = a.K, G = K * n;
+  const int Nn = cr.Nn, K = a.sys.K, G = K * n;
   const int b = (int)cluster.block_rank();
   // the cluster's threads: gt block by block, for the loops over chain
   // nodes and elements (neighbouring threads on neighbouring nodes), and ix
@@ -282,37 +160,26 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     for (int e = ix; e < a.NpG * G; e += gn) {
       const int g = e / G, k = (e % G) / n, i = e % n;
       const int kid = a.kidsP[g * K + k];
-      a.rv[e] = kid >= 0 ? mul(a.res_cr[kid * n + i], a.s_node[kid * n + i]) : 0.f;
-      a.dg[e] = 0.f;
+      a.sys.rv[e] = kid >= 0 ? mul(a.res_cr[kid * n + i], a.s_node[kid * n + i]) : 0.f;
+      a.sys.dg[e] = 0.f;
     }
     for (size_t e = gt; e < SL * n; e += gn) a.rch_s[e] = mul(a.res_ch[e], a.sc[e]);
     barrier(cluster, a, b, 0);
 
     // 2a. chain backward sweeps, y_j into dch_s, CUs_0 y_0 out of the crown slot
-    for_each_chain<GL>(a, smem, b, [&](float* ring, int i, int s) {
-      const tq::SweepGroup<GL> g(ring, i, s, a.Ls, a.CUs, a.rch_s, S, L, n);
-      const float radd = tq::sweep_bwd(g, L, n, a.vec16, [&](int j, float y) {
-        if (g.live && i < n) a.dch_s[((size_t)s * L + j) * n + i] = y;
-      });
-      if (g.live && i < n) a.rv[(size_t)a.g_of[s] * G + a.slot[s] * n + i] -= radd;
+    tq::chain_bwd<GL>(a.sys, smem, b, a.rch_s, [&](int s, bool live, int i, int j, float y) {
+      if (live && i < n) a.dch_s[((size_t)s * L + j) * n + i] = y;
     });
     barrier(cluster, a, b, 1);
 
     // 2b. the crown (on the cluster's warps, or in block 0 where a group
     // is wider than a warp), and 3. its direction, trial point and partials
-    if (G <= kW) {
-      crown_solve_warps(cluster, a, b, n, G);
-    } else {
-      if (b == 0)
-        tq::crown_solve_core(a.CholW, a.CholUt, a.lev_ptr, a.lev_child, a.lev_parent,
-                             a.lev_slot, a.rv, a.ycr, a.dg, n, K, a.n_lev);
-      cluster.sync();
-    }
+    tq::crown(cluster, a.sys, b, [&](int k) { stamp(a, b, k); });
     for (int m = ix; m < Nn; m += gn) {
       float acc = 0.f;
       for (int i = 0; i < n; ++i) {
         const int e = m * n + i;
-        const float dn = m == 0 ? 0.f : a.dg[(size_t)a.gon[m] * G + a.son[m] * n + i];
+        const float dn = m == 0 ? 0.f : a.sys.dg[(size_t)a.gon[m] * G + a.son[m] * n + i];
         const float d = mul(dn, a.s_node[e]);
         a.dcr[e] = d;
         a.lam2_cr[e] = add(a.lam_cr[e], d);
@@ -324,29 +191,24 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 
     // 2c. chain forward sweeps from the crown slot's direction, and 3. the
     // chains' direction and trial point
-    for_each_chain<GL>(a, smem, b, [&](float* ring, int i, int s) {
-      const tq::SweepGroup<GL> g(ring, i, s, a.Ls, a.CUs, a.dch_s, S, L, n);
-      const int sl = g.live ? s : S - 1;
-      const float* droot = a.dg + (size_t)a.g_of[sl] * G + a.slot[sl] * n;
-      float scv = 0.f, lmv = 0.f;  // step j's scale and dual, loaded as it starts
-      tq::sweep_fwd(
-          g, droot, L, n, a.vec16,
-          [&](int j) {
-            if (g.live && i < n) {
-              const size_t e = ((size_t)s * L + j) * n + i;
-              scv = a.sc[e];
-              lmv = a.lam_ch[e];
-            }
-          },
-          [&](int j, float dl) {
-            if (g.live && i < n) {
-              const size_t e = ((size_t)s * L + j) * n + i;
-              const float d = mul(dl, scv);
-              a.dch[e] = d;
-              a.lam2_ch[e] = add(lmv, d);
-            }
-          });
-    });
+    float scv = 0.f, lmv = 0.f;  // step j's scale and dual, loaded as it starts
+    tq::chain_fwd<GL>(
+        a.sys, smem, b, a.dch_s,
+        [&](int s, bool live, int i, int j) {
+          if (live && i < n) {
+            const size_t e = ((size_t)s * L + j) * n + i;
+            scv = a.sc[e];
+            lmv = a.lam_ch[e];
+          }
+        },
+        [&](int s, bool live, int i, int j, float dl) {
+          if (live && i < n) {
+            const size_t e = ((size_t)s * L + j) * n + i;
+            const float d = mul(dl, scv);
+            a.dch[e] = d;
+            a.lam2_ch[e] = add(lmv, d);
+          }
+        });
   }
   barrier(cluster, a, b, 3);
 
@@ -406,22 +268,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   if (a.stamps != nullptr) barrier(cluster, a, b, 6);
 }
 
-// The sweep groups a block can hold rings for, in whole warps, and the
-// shared memory they take.
-void ring_shape(int n, int GL, int* groups, size_t* bytes) {
-  const size_t per = (size_t)tq::kSweepStages * tq::sweep_stage_floats(n) * sizeof(float);
-  const int warp_groups = 32 / GL;
-  int q = (int)(kRingBytes / per) / warp_groups * warp_groups;
-  if (q > kThreads / GL) q = kThreads / GL;
-  if (q < warp_groups) q = warp_groups;
-  *groups = q;
-  *bytes = q * per;
-}
-
 template <int GL>
 int launch(IterArgs& a, cudaStream_t st) {
   size_t bytes;
-  ring_shape(a.ch.nx, GL, &a.groups, &bytes);
+  tq::ring_shape(a.ch.nx, GL, &a.sys.groups, &bytes);
   static size_t opted = 0;  // the dynamic shared memory this kernel may take
   if (bytes > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -449,21 +299,23 @@ extern "C" int tq_newton_iter(const void* const* p, const int* dims, void* strea
   IterArgs a;
   a.ch = tq::chain_data<float>(c, S, L, nx, nu);
   a.cr = tq::crown_data<float>(c, Nn, nx, nu);
-  a.Ls = c.in(); a.CUs = c.in(); a.CholW = c.in(); a.CholUt = c.in();
+  tq::SystemArgs& y = a.sys;
+  y.Ls = c.in(); y.CUs = c.in(); y.CholW = c.in(); y.CholUt = c.in();
   a.s_node = c.in(); a.sc = c.in();
-  a.lev_ptr = c.idx(); a.lev_child = c.idx(); a.lev_parent = c.idx();
-  a.lev_slot = c.idx(); a.g_of = c.idx(); a.slot = c.idx(); a.rid = c.idx();
+  y.lev_ptr = c.idx(); y.lev_child = c.idx(); y.lev_parent = c.idx();
+  y.lev_slot = c.idx(); y.g_of = c.idx(); y.slot = c.idx(); a.rid = c.idx();
   a.kidsP = c.idx(); a.gon = c.idx(); a.son = c.idx();
   a.lam_cr = c.in(); a.lam_ch = c.in(); a.res_cr = c.in(); a.res_ch = c.in();
   a.dcr = c.out(); a.dch = c.out(); a.lam2_cr = c.out(); a.lam2_ch = c.out();
   a.cho = tq::eval_out<float>(c);
   a.cro = tq::eval_out<float>(c);
   a.dots = c.out(); a.dotc = c.out();
-  a.rv = c.out(); a.ycr = c.out(); a.dg = c.out(); a.rch_s = c.out();
+  y.rv = c.out(); y.ycr = c.out(); y.dg = c.out(); a.rch_s = c.out();
   a.dch_s = c.out(); a.extra = c.out(); a.atb = c.out(); a.part = c.out();
   a.stamps = (unsigned long long*)c.out();
-  a.NpG = dims[5]; a.K = dims[6]; a.n_lev = dims[7]; a.eval_only = dims[8];
-  a.vec16 = nx % 2 == 0 && (((uintptr_t)a.Ls | (uintptr_t)a.CUs) & 15) == 0;
+  a.NpG = dims[5]; y.K = dims[6]; y.n_lev = dims[7]; a.eval_only = dims[8];
+  y.S = S; y.L = L; y.n = nx;
+  y.vec16 = nx % 2 == 0 && (((uintptr_t)y.Ls | (uintptr_t)y.CUs) & 15) == 0;
   const cudaStream_t st = (cudaStream_t)stream;
   return nx <= 8 ? launch<8>(a, st) : launch<16>(a, st);
 }

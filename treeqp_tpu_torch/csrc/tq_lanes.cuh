@@ -145,10 +145,10 @@ __device__ __forceinline__ void factor_step(float (&a)[N], float (&u)[N], float 
 //     from dl_{-1} = droot.
 // Each step hands its row to ``emit(j, value)``; sweep_fwd calls ``pre(j)``
 // as step j starts (loads that emit needs can be in flight during the step). Every sum runs in the order
-// of tq_dense.cuh's ltrsv_inplace / uttrsv_inplace and of tq_chain.cuh's
-// per-thread bodies, each product folded in by one FMA as nvcc contracts
-// those bodies, and the divisions are true divisions: bit for bit those
-// bodies.
+// of tq_dense.cuh's ltrsv_inplace / uttrsv_inplace walked over a chain's
+// blocks by one thread, each product folded in by one FMA as nvcc
+// contracts those bodies, and the divisions are true divisions: bit for
+// bit the thread-per-chain kernels.
 
 constexpr int kSweepStages = 3;
 

@@ -54,9 +54,8 @@ _SIGNATURES = {
     # warp_floats, stream
     "tq_crown_blocks_factor": [_P] * 12 + [_I] * 5 + [_F, _I, _I, _P],
     # Ls, CUs, CholW, CholUt, rg, rch, lev_ptr, lev_child, lev_parent,
-    # lev_slot, g_of, slot, rv, ycr, dg, dch, S, L, n, NpG, K, n_lev,
-    # threads, stream
-    "tq_system_solve": [_P] * 16 + [_I] * 7 + [_P],
+    # lev_slot, g_of, slot, rv, ycr, dg, dch, S, L, n, NpG, K, n_lev, stream
+    "tq_system_solve": [_P] * 16 + [_I] * 6 + [_P],
     # the f64 kernels of the high-precision phase
     # pointers, S, L, nx, nu, stream
     "tq_chain_eval_df": [_P] + [_I] * 4 + [_P],
@@ -98,8 +97,10 @@ _SIGNATURES = {
     # sdunes: the banded per-scenario solve and the Jay cyclic reduction
     # Ls, CUs, rhs, z, S, L, n, m, stream
     "tq_chain_full_solve_mat": [_P] * 4 + [_I] * 4 + [_P],
-    # diag, off, rhs, shift, x, D, C, r, Z1s, Z2s, zrs, P, b, reg_tol, stream
-    "tq_jay_cr_solve": [_P] * 11 + [_I] * 2 + [_F, _P],
+    # diag, off, rhs, shift, x, scratch, P, b, reg_tol, stream
+    "tq_jay_cr_solve": [_P] * 6 + [_I] * 2 + [_F, _P],
+    # P, b -> floats of global scratch (returns a long)
+    "tq_jay_cr_scratch": [_I] * 2,
     # the cyclic-reduction variants of the chain sweeps
     # Ls, CUs, Abwd, Bfwd, S, L, n, stream
     "tq_chain_cr_precompute": [_P] * 4 + [_I] * 3 + [_P],
@@ -108,6 +109,9 @@ _SIGNATURES = {
     # Ls, Bfwd, ys, droot, dls, scratch, S, L, n, stream
     "tq_chain_forward_cr": [_P] * 6 + [_I] * 3 + [_P],
 }
+
+# functions that return something other than a launch's error code
+_RESTYPES = {"tq_jay_cr_scratch": _L}
 
 _LIB = None
 
@@ -176,7 +180,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _LIB = handle
     return _LIB
 

@@ -29,7 +29,8 @@ __all__ = ["chain_factor", "chain_factor_ref", "chain_solve_bwd",
            "chain_solve_bwd_ref", "chain_forward", "chain_forward_ref",
            "chain_full_solve_mat", "chain_full_solve_mat_ref",
            "chain_blocks_factor", "chain_blocks_factor_ref",
-           "chain_blocks_factor_lanes", "chain_blocks_factor_lanes_ref",
+           "chain_blocks_factor_lanes", "chain_blocks_factor_lanes_ref", "chain_blocks",
+           "lanes_ztp",
            "CHAIN_DATA_KEYS", "chain_eval_data", "chain_eval", "chain_eval_ref"]
 
 # the largest nz = nx + nu the chain block factor kernels take
@@ -222,8 +223,9 @@ def chain_full_solve_mat(Ls, CUs, rhs):
 chain_full_solve_mat.launches = 0
 
 
-def chain_blocks_factor_ref(ABt, ztp, qtc, s_root):
-    """Plain PyTorch twin of the kernel (see ``chain_blocks_factor``)."""
+def chain_blocks(ABt, ztp, qtc, s_root):
+    """The equilibrated blocks that ``chain_blocks_factor`` factors: (W
+    [S, L, nx, nx], Ut [S, L, nx, nx], sc [S, L, nx])."""
     nx = ABt.shape[2]
     W = _dense.outer_sum(ABt, ABt, ztp) + torch.diag_embed(qtc)
     sc = torch.rsqrt(torch.clamp(torch.diagonal(W, dim1=2, dim2=3), min=1e-12))
@@ -231,7 +233,12 @@ def chain_blocks_factor_ref(ABt, ztp, qtc, s_root):
     # Ut[i, c] = -ztp[i] A[c, i], rows in the parent's scale, cols in sc
     Ut = -(ztp[..., :nx, None] * ABt[..., :nx].transpose(2, 3))
     scp = torch.cat([s_root[:, None], sc[:, :-1]], dim=1)
-    Ut = Ut * scp[..., :, None] * sc[..., None, :]
+    return W, Ut * scp[..., :, None] * sc[..., None, :], sc
+
+
+def chain_blocks_factor_ref(ABt, ztp, qtc, s_root):
+    """Plain PyTorch twin of the kernel (see ``chain_blocks_factor``)."""
+    W, Ut, sc = chain_blocks(ABt, ztp, qtc, s_root)
     Ls, CUs, schur = chain_factor_ref(W, Ut)
     return Ls, CUs, schur, sc.contiguous()
 
@@ -281,11 +288,16 @@ def chain_blocks_factor(ABt, ztp, qtc, s_root):
 chain_blocks_factor.launches = 0
 
 
+def lanes_ztp(qt, rt, ztp_root):
+    """The stage weights ``chain_blocks_factor`` takes, from the lanes
+    form's operands: node j's ztp is node j-1's [qt | rt], ztp_root at j = 0."""
+    ztp_ch = torch.cat([qt, rt], dim=-1)
+    return torch.cat([ztp_root[:, None], ztp_ch[:, :-1]], dim=1)
+
+
 def chain_blocks_factor_lanes_ref(ABt, qt, rt, ztp_root, s_root):
     """Plain PyTorch twin of the kernel (see ``chain_blocks_factor_lanes``)."""
-    ztp_ch = torch.cat([qt, rt], dim=-1)
-    ztp = torch.cat([ztp_root[:, None], ztp_ch[:, :-1]], dim=1)
-    return chain_blocks_factor_ref(ABt, ztp, qt, s_root)
+    return chain_blocks_factor_ref(ABt, lanes_ztp(qt, rt, ztp_root), qt, s_root)
 
 
 def chain_blocks_factor_lanes(ABt, qt, rt, ztp_root, s_root):

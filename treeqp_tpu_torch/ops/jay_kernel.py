@@ -4,17 +4,24 @@ Port of ``jay_cr_solve`` in ``treeqp_tpu/ops/jay_kernel.py``: the Jay
 system (non-anticipativity couplings, block tridiagonal with P = Ns - 1
 blocks of size b = Nr nu) is solved by block cyclic reduction in
 ceil(log2 P) dependent levels. The wrapper launches the CUDA kernel
-(``csrc/jay_cr.cu``, one thread block) on CUDA tensors and runs the plain
-PyTorch twin ``jay_cr_solve_ref`` on CPU tensors. f32, like the Pallas
-kernel, whose semantics both keep: each block's Cholesky floors its pivots
-at 1e-12 and writes d rsqrt(d) on the diagonal; the per-row
-Levenberg-Marquardt shift is added always (reg_tol < 0) or on the fly to a
-block whose raw pivot a_kk rsqrt(max(a_kk, 1e-12)) is <= reg_tol or NaN.
-Level h eliminates the blocks with index % 2h == h and updates those with
-index % 2h == 0; block 0 is the root; back substitution runs deepest level
-first (the order of ``treeqp_tpu/ops/tridiag.py``). The Pallas kernel's
-lane layout, padding to 128 lanes, one-hot shift matmuls and its caps on P
-and b are not carried over: any P and b <= 16.
+(``csrc/jay_cr.cu``) on CUDA tensors and runs the plain PyTorch twin
+``jay_cr_solve_ref`` on CPU tensors. f32, like the Pallas kernel, whose
+semantics both keep: each block's Cholesky floors its pivots at 1e-12 and
+writes d rsqrt(d) on the diagonal; the per-row Levenberg-Marquardt shift is
+added always (reg_tol < 0) or on the fly to a block whose raw pivot
+a_kk rsqrt(max(a_kk, 1e-12)) is <= reg_tol or NaN. Level h eliminates the
+blocks with index % 2h == h and updates those with index % 2h == 0; block
+0 is the root; back substitution runs deepest level first (the order of
+``treeqp_tpu/ops/tridiag.py``). The Pallas kernel's lane layout, padding to
+128 lanes, one-hot shift matmuls and its caps on P and b are not carried
+over: any P and b <= 16.
+
+The kernel runs in one thread block, a group of 4, 8 or 16 lanes per block
+system (b <= 4, 8, 16): the Cholesky a lane a row with shuffles, the 2b + 1
+right-hand sides a lane a column, the updates a lane a row. It is bound by
+the latency of its dependent levels, not by its bytes. Its operands live in
+shared memory where they fit (P = 255, b = 4 does); beyond, in a global
+scratch this wrapper allocates (``tq_jay_cr_scratch`` says how much).
 """
 
 from __future__ import annotations
@@ -108,6 +115,18 @@ def jay_cr_solve_ref(diag, off, rhs, shift=None, reg_tol: float = -1.0):
     return x
 
 
+_SCRATCH = {}
+
+
+def _scratch_floats(P, b):
+    """Floats of global scratch the kernel needs at (P, b): 0 where its
+    operands fit shared memory (cached)."""
+    n = _SCRATCH.get((P, b))
+    if n is None:
+        n = _SCRATCH[P, b] = int(_build.lib().tq_jay_cr_scratch(P, b))
+    return n
+
+
 def jay_cr_solve(diag, off, rhs, shift=None, reg_tol: float = -1.0):
     """Solve the SPD block-tridiagonal system by cyclic reduction in one
     launch.
@@ -130,13 +149,13 @@ def jay_cr_solve(diag, off, rhs, shift=None, reg_tol: float = -1.0):
         _build.require(name, "shift", shift, (P, b), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     x = torch.empty((P, b), **f32)
-    D, C, Z1s, Z2s = (torch.empty((P, b, b), **f32) for _ in range(4))
-    r, zrs = torch.empty((P, b), **f32), torch.empty((P, b), **f32)
+    n_scratch = _scratch_floats(P, b)
+    scratch = torch.empty((n_scratch,), **f32) if n_scratch else None
     err = _build.lib().tq_jay_cr_solve(
         diag.data_ptr(), off.data_ptr(), rhs.data_ptr(),
-        None if shift is None else shift.data_ptr(), x.data_ptr(), D.data_ptr(),
-        C.data_ptr(), r.data_ptr(), Z1s.data_ptr(), Z2s.data_ptr(), zrs.data_ptr(),
-        P, b, float(reg_tol), _build.stream(dev))
+        None if shift is None else shift.data_ptr(), x.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), P, b, float(reg_tol),
+        _build.stream(dev))
     _build.check(err, name)
     jay_cr_solve.launches += 1
     return x

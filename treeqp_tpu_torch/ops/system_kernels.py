@@ -9,6 +9,15 @@ kernel of ``csrc/system_solve.cu`` on CUDA tensors and runs the plain
 PyTorch twin ``system_solve_ref`` on CPU tensors; both are f32. The
 scenario <-> crown-group moves use index lists (``ms_sched``) instead of
 the TPU kernel's one-hot injection matrices.
+
+The kernel runs on one cluster of 8 thread blocks (8 SMs), the body of
+``newton_iter``'s step 2 (``csrc/tq_system.cuh``): the chain sweeps on lane
+groups, 8 or 16 lanes a chain with the factor blocks streamed through a
+shared-memory ring, the crown's levels a warp a group (G <= 32; wider
+groups one thread a group in block 0), the cluster's barrier between
+phases and levels. It is bound by latency, the dependent steps of the
+sweeps and of the crown's levels, not by its ~1 MB of operands; it gives
+the one-block kernel's results bit for bit.
 """
 
 from __future__ import annotations
@@ -96,15 +105,13 @@ def system_solve(Ls, CUs, CholW, CholUt, rg, rch, prep, root_ids):
     dch = torch.empty((S, L, n), **f32)
     t = sched.on(dev)
     ids = ms_sched(prep, root_ids, dev)
-    threads = min(1024, max(32, -(-max(S, sched.width) // 32) * 32))
     err = _build.lib().tq_system_solve(
         Ls.data_ptr(), CUs.data_ptr(), CholW.data_ptr(), CholUt.data_ptr(),
         rg.data_ptr(), rch.data_ptr(), t["lev_ptr"].data_ptr(),
         t["lev_child"].data_ptr(), t["lev_parent"].data_ptr(),
         t["lev_slot"].data_ptr(), ids["g_of"].data_ptr(),
         ids["slot"].data_ptr(), rv.data_ptr(), ycr.data_ptr(), dg.data_ptr(),
-        dch.data_ptr(), S, L, n, NpG, K, sched.n_lev, threads,
-        _build.stream(dev))
+        dch.data_ptr(), S, L, n, NpG, K, sched.n_lev, _build.stream(dev))
     _build.check(err, name)
     system_solve.launches += 1
     return dg, dch
