@@ -115,12 +115,25 @@ Phases (any failure exits non-zero):
    ``torch.linalg.ldl_factor_ex`` of the crown's dense KKT matrix
    (``ric_crown_matrix``: the Hessians, the dynamics rows and their
    transposes; indefinite, so no Cholesky applies) and ``ldl_solve`` with
-   its factors (its distance to the twin's dz, dlam printed);
+   its factors (its distance to the twin's dz, dlam printed); ric_chain_bwd,
+   and ric_chain_fwd on its outputs, held against their twins at
+   RIC_EDGES (both hbar forms, seeded right-hand sides ``ric_rhs``); path
+   A's chain kernels beside theirs, ``ldl_factor_ex`` of each chain's KKT
+   matrix (``ric_chain_matrix``, batched [256, 272, 272]) for
+   ric_chain_factor and ``ldl_solve`` with its factors
+   (``ric_chain_vector``'s right-hand side) for ric_chain_bwd and
+   ric_chain_fwd together, beside the two kernels' sum; the three chain
+   kernels also in a CUDA graph (the LDL calls alone: cuSOLVER's sytrf
+   fails under graph capture);
 8. sdunes (slice 7) at ``models.SDUNES_OPTS`` on sdunes_bench's tree (B's
    box-only spring_mass_chain(4,4,4,20): 256 scenarios, Jay P=255, b=4):
    chain_full_solve_mat (m=5 and m=1) held against its twin, with
    chain_factor, on the operands of the first final-phase iteration of
-   the cold solve (captured from it); jay_cr_solve against its twin at the
+   the cold solve (captured from it), timed alone and in a CUDA graph
+   beside its library call (``torch.cholesky_solve`` with each chain's
+   factor as one lower matrix, alone: batched, it runs MAGMA, which aborts
+   under graph capture), and at its kernel's edges (FULL_EDGES, seeded
+   by ``full_operands``); jay_cr_solve against its twin at the
    solve's first iteration, and at the first final-phase iteration (where
    the Jay system is near singular) both f32 solves held to a backward
    error below 1e-5, with their distances to the f64 solve printed; and
@@ -195,7 +208,8 @@ chain_forward, crown_factor, crown_solve, crown_blocks_factor,
 df_reduce_flat, chain_blocks_factor, chain_blocks_factor_lanes,
 system_solve and jay_cr_solve also with ``graph_ms`` and
 ``library_graph_ms``: kernel and library call in a CUDA graph;
-admm_identify with ``graph_ms``), then the
+admm_identify, chain_full_solve_mat and the three chain Riccati kernels
+with ``graph_ms``), then the
 device JSON as the last line.
 Imports nothing of JAX.
 """
@@ -286,6 +300,13 @@ ITER_EDGES = (("quadcopter", (4, 5, 8)), ("spring_mass_chain", (8, 2, 2, 6)),
 RIC_EDGES = ((5, 1, 8, 9), (5, 7, 7, 8), (5, 7, 8, 9), (5, 7, 15, 16), (5, 7, 1, 2),
              (4, 40, 8, 9))
 RIC_REG = 1e-8  # the Levenberg-Marquardt shift of Muu at those edges
+# chain_full_solve_mat's kernel edges (a group of 8 or 16 lanes a chain and
+# column, a 3-stage ring), held against the twin on seeded factors
+# (full_operands): (S, L, n, m) with n 1, 8, 9, 16 (either side of the lane
+# switch), L 1, 2 (shorter than the ring), 20 and 40, m 1, 5, 17; S = 5 is
+# no multiple of the groups a warp holds
+FULL_EDGES = tuple((5, L, n, m) for n in (1, 8, 9, 16) for L in (1, 2, 20, 40)
+                   for m in (1, 5, 17))
 # crown_factor's and crown_blocks_factor's kernel edges (a warp a group, one
 # or two rows a lane), held against the twins on seeded operands on the
 # crown of the multistage tree (md, Nr) with nx states: (md, Nr, nx, reg,
@@ -575,6 +596,33 @@ def ric_operands(torch, S, L, nx, nz, dense, seed, dev):
     return torch.tensor(hb, **f32), AB
 
 
+def ric_rhs(torch, S, L, nx, nz, seed, dev):
+    """Seeded right-hand sides of the chain Riccati sweeps (rg [S, L, nz],
+    rb [S, L, nx], z_root [S, nz]), N(0, 1) f32."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return tuple(torch.tensor(rng.standard_normal(sh), **f32)
+                 for sh in ((S, L, nz), (S, L, nx), (S, nz)))
+
+
+def full_operands(torch, S, L, n, m, seed, dev):
+    """Seeded chain_full_solve_mat operands (Ls, CUs, rhs): the twin's
+    chain_factor of SPD blocks W = B B' / n + 4 I (B N(0, 1)) coupled by Ut
+    0.3 N(0, 1) with Ut_0 = 0 (self-contained chains, the form of
+    tests/test_torch_sdunes_kernels.py's), and rhs [S, L, n, m] N(0, 1)."""
+    import numpy as np
+    from treeqp_tpu_torch.ops import chain_kernels as ck
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    B = rng.standard_normal((S, L, n, n))
+    W = B @ np.swapaxes(B, -1, -2) / n + 4.0 * np.eye(n)
+    Ut = 0.3 * rng.standard_normal((S, L, n, n))
+    Ut[:, 0] = 0.0
+    Ls, CUs, _ = ck.chain_factor_ref(torch.tensor(W, **f32), torch.tensor(Ut, **f32))
+    return Ls, CUs, torch.tensor(rng.standard_normal((S, L, n, m)), **f32)
+
+
 def crown_prep(md, Nr, nx):
     """The crown of the multistage tree (md, Nr) with nx states (its
     tdunes prep, on the CPU): the groups of crown_blocks_factor."""
@@ -806,6 +854,67 @@ def ric_crown_vector(torch, rg, rb, wsum0, x=None):
     nx = rb.shape[1]
     return (x[:Nc * nz].reshape(Nc, nz),
             torch.cat([torch.zeros_like(rb[:1]), x[Nc * nz:].reshape(Nc - 1, nx)]))
+
+
+def ric_chain_matrix(torch, hbar, AB, reg=0.0):
+    """The systems ric_chain_factor factors, each chain's as one dense
+    symmetric KKT matrix, batched [S, L nz + L nx, L nz + L nx]: the stage
+    Hessians hbar_j (diagonal [S, L, nz] or dense [S, L, nz, nz]; + reg on
+    the inputs' block) on the diagonal of the primal block z_0 .. z_{L-1},
+    then for each stage the dynamics row x_j = AB_j z_{j-1} + rb_j (-I at
+    x_j, AB_j at z_{j-1}) and its transpose; stage 0's row couples to the
+    crown's z_root, which goes into the right-hand side
+    (``ric_chain_vector``). It is indefinite: its symmetric factorization is
+    torch.linalg.ldl_factor_ex, and ldl_solve with ric_chain_vector's
+    right-hand side gives ric_chain_bwd followed by ric_chain_fwd: dz and
+    dlam (the dynamics multipliers)."""
+    S, L, nx, nz = AB.shape
+    Nz, dev = L * nz, AB.device
+    H = hbar if hbar.dim() == 4 else torch.diag_embed(hbar)
+    H = H.clone()
+    H[..., nx:, nx:] += reg * torch.eye(nz - nx, dtype=AB.dtype, device=dev)
+    M = torch.zeros((S, Nz + L * nx, Nz + L * nx), dtype=AB.dtype, device=dev)
+    j = torch.arange(L, device=dev)
+    M[:, :Nz, :Nz].view(S, L, nz, L, nz)[:, j, :, j, :] = H.transpose(0, 1)
+    E = M[:, Nz:, :Nz].view(S, L, nx, L, nz)
+    E[:, j[1:], :, j[1:] - 1, :] = AB[:, 1:].transpose(0, 1)
+    a = torch.arange(nx, device=dev)
+    E[:, j[:, None], a, j[:, None], a] = -1.0
+    M[:, :Nz, Nz:] = M[:, Nz:, :Nz].mT
+    return M
+
+
+def ric_chain_vector(torch, rg, rb, z_root, AB, x=None):
+    """The chain sweeps' right-hand sides in ric_chain_matrix's order as
+    [S, N, 1] (-rg, then -rb with stage 0's AB_0 z_root added to its rb_0);
+    with ``x`` [S, N, 1] given, its parts (dz [S, L, nz], dlam [S, L, nx])
+    back."""
+    S, L, nz = rg.shape
+    nx = rb.shape[2]
+    if x is None:
+        rb0 = rb.clone()
+        rb0[:, 0] += (AB[:, 0] @ z_root[:, :, None])[..., 0]
+        return torch.cat([-rg.reshape(S, -1), -rb0.reshape(S, -1)], dim=1)[:, :, None]
+    return x[:, :L * nz].reshape(S, L, nz), x[:, L * nz:].reshape(S, L, nx)
+
+
+def ric_chain_ldl(torch, hbar, AB, reg, rg, rb, z_root):
+    """The library calls of rows 22-24 on one set of chain operands:
+    (ldl_factor_ex of ``ric_chain_matrix``, ldl_solve with its factors and
+    ``ric_chain_vector``'s right-hand side) as calls without arguments,
+    ldl_factor_ex's largest info, and the solve's largest distance to the
+    twins' ric_chain_fwd after ric_chain_bwd."""
+    from treeqp_tpu_torch.ops import riccati_kernels as rk
+    M = ric_chain_matrix(torch, hbar, AB, reg)
+    LD, piv, info = torch.linalg.ldl_factor_ex(M)
+    v = ric_chain_vector(torch, rg, rb, z_root, AB)
+    fact = rk.ric_chain_factor_ref(hbar, AB, reg)[0]
+    p, k, _ = rk.ric_chain_bwd_ref(fact, rg, rb)
+    got = ric_chain_vector(torch, rg, rb, z_root, AB, x=torch.linalg.ldl_solve(LD, piv, v))
+    err = max(float((a - b).abs().max())
+              for a, b in zip(got, rk.ric_chain_fwd_ref(fact, p, k, rb, z_root)))
+    return (lambda: torch.linalg.ldl_factor_ex(M), lambda: torch.linalg.ldl_solve(LD, piv, v),
+            int(info.abs().max()), err)
 
 
 def perturbed(qp, ms, fac):
@@ -2272,6 +2381,45 @@ def main():
                 pick(ref_f, ref_w), FACTOR_RTOL))
     print(f"ric_chain_factor at its kernel's edges {RIC_EDGES} (S, L, nx, nz; diagonal and "
           f"dense hbar): max |diff| to the twin {ric_edge_err:.3e}")
+    # ric_chain_bwd, and ric_chain_fwd on its outputs, at the same edges on
+    # the twin's factors and seeded right-hand sides (ric_rhs)
+    ric_sweep_err = {"ric_chain_bwd": 0.0, "ric_chain_fwd": 0.0}
+    for k, (S_e, L_e, nx_e, nz_e) in enumerate(RIC_EDGES):
+        for dense in (False, True):
+            hbar_e, AB_e = ric_operands(torch, S_e, L_e, nx_e, nz_e, dense, k, dev)
+            rg_e, rb_e, zr_e = ric_rhs(torch, S_e, L_e, nx_e, nz_e, 50 + k, dev)
+            fact_e, _ = rk.ric_chain_factor_ref(hbar_e, AB_e, reg=RIC_REG)
+            bwd_e = rk.ric_chain_bwd_ref(fact_e, rg_e, rb_e)
+            what = (f"at S={S_e}, L={L_e}, nx={nx_e}, nz={nz_e}, "
+                    f"{'dense' if dense else 'diagonal'} hbar")
+            got_b = rk.ric_chain_bwd(fact_e, rg_e, rb_e)
+            got_f = rk.ric_chain_fwd(fact_e, got_b[0], got_b[1], rb_e, zr_e)
+            torch.cuda.synchronize()
+            for name, got_, ref_ in (
+                    ("ric_chain_bwd", got_b, bwd_e),
+                    ("ric_chain_fwd", got_f, rk.ric_chain_fwd_ref(fact_e, *bwd_e[:2], rb_e,
+                                                                  zr_e))):
+                ric_sweep_err[name] = max(ric_sweep_err[name], compare(
+                    torch, f"{name} {what}", got_, ref_, SOLVE_RTOL))
+    print(f"ric_chain_bwd, ric_chain_fwd at {RIC_EDGES} (both hbar forms): max |diff| to the "
+          f"twins {ric_sweep_err['ric_chain_bwd']:.3e}, {ric_sweep_err['ric_chain_fwd']:.3e}")
+    # the library calls of rows 22-24 at path A: ldl_factor_ex of each
+    # chain's KKT matrix (ric_chain_matrix) for ric_chain_factor, and
+    # ldl_solve with its factors for ric_chain_bwd and ric_chain_fwd
+    # together (one solve computes what the two sweeps compute)
+    (hbar, AB), kw = ops_at["A"]["ric_chain_factor"]
+    (_, rg_a, rb_a), _ = ops_at["A"]["ric_chain_bwd"]
+    lib_fac, lib_sol, info_c, err_c = ric_chain_ldl(
+        torch, hbar, AB, kw.get("reg", 0.0), rg_a.to(f32).contiguous(),
+        rb_a.to(f32).contiguous(), ops_at["A"]["ric_chain_fwd"][0][4].to(f32).contiguous())
+    # (alone only: cuSOLVER's sytrf fails under CUDA graph capture)
+    ric_chain_lib = {"factor": cuda_ms(torch, lib_fac, 10), "solve": cuda_ms(torch, lib_sol, 10)}
+    print(f"rows 22-24's library calls (path A, {AB.shape[0]} chains' "
+          f"[{AB.shape[1] * (AB.shape[2] + AB.shape[3])}]^2 KKT matrices): ldl_factor_ex "
+          f"{ric_chain_lib['factor']:.4f} ms alone (info max {info_c}); ldl_solve (for bwd + "
+          f"fwd) {ric_chain_lib['solve']:.4f} ms alone, |diff| to "
+          f"ric_chain_fwd_ref(ric_chain_bwd_ref) {err_c:.3e} on {card}")
+    del lib_fac, lib_sol
     # timed at path A (the chain kernels: the dense headline) and path B
     # (the crown kernels: the 341-node crown with the chains' terms); the
     # other paths' differences and times go into the shapes note
@@ -2291,6 +2439,19 @@ def main():
                     "crown_ric_solve": "crown_riccati.py:170"}[name]
         m = None
         note = ""
+        if name.startswith("ric_chain"):
+            lib_t = ric_chain_lib["factor" if name == "ric_chain_factor" else "solve"]
+            m = measure(fn, ref_fn, inputs, ops)
+            m.update(graph_ms=graph_ms(torch, fn), library_ms=lib_t)
+            note = (f"; {m['graph_ms']:.4f} ms in a CUDA graph; library call "
+                    + ("ldl_factor_ex of the chains' KKT matrices" if name == "ric_chain_factor"
+                       else "ldl_solve with its factors, for bwd + fwd")
+                    + f" {lib_t:.4f} ms alone")
+            if name != "ric_chain_factor":
+                note += (f"; edges {RIC_EDGES} max |diff| {ric_sweep_err[name]:.3e}")
+                err = max(err, ric_sweep_err[name])
+            print(f"{name} (path {timed} {shapes}): {m['ms']:.4f} ms alone, "
+                  f"{m['graph_ms']:.4f} ms in a CUDA graph on {card}")
         if name in ric_library:
             lib_fn, lib_note = ric_library[name]
             m = measure(fn, ref_fn, inputs, ops, lib_fn=lib_fn)
@@ -2298,17 +2459,18 @@ def main():
             print(f"{name} (path {timed} {shapes}): {m['ms']:.4f} ms alone; library call "
                   f"{m['library_ms']:.4f} ms ({lib_note}) on {card}")
         if name == "ric_chain_factor":
-            m = measure(fn, ref_fn, inputs, ops)
-            m.update(graph_ms=graph_ms(torch, fn))
-            note = (f"; {m['graph_ms']:.4f} ms in a CUDA graph; edges {RIC_EDGES} max |diff| "
-                    f"{ric_edge_err:.3e}")
+            note += f"; edges {RIC_EDGES} max |diff| {ric_edge_err:.3e}"
             err = max(err, ric_edge_err)
-            print(f"ric_chain_factor (path {timed} {shapes}): {m['ms']:.4f} ms alone, "
-                  f"{m['graph_ms']:.4f} ms in a CUDA graph on {card}")
+        edge = {"ric_chain_factor": ric_edge_err, **ric_sweep_err}.get(name)
         record(name, source, f"treeqp_tpu/ops/{replaces}",
-               max([r[0] for r in runs.values()] + ([ric_edge_err] if m else [])),
+               max([r[0] for r in runs.values()] + ([] if edge is None else [edge])),
                fn, ref_fn, f"path {timed} {shapes}, |diff| {err:.3e}; {others}{note}", inputs,
                ops, m=m)
+    rb_, rf_ = (next(r for r in results if r["name"] == n)
+                for n in ("ric_chain_bwd", "ric_chain_fwd"))
+    print(f"ldl_solve (rows 23-24's library call) {ric_chain_lib['solve']:.4f} ms alone; "
+          f"ric_chain_bwd + ric_chain_fwd {rb_['ms'] + rf_['ms']:.4f} ms alone, "
+          f"{rb_['graph_ms'] + rf_['graph_ms']:.4f} ms in a CUDA graph on {card}")
     for r in results[-5:]:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms, "
@@ -2505,15 +2667,37 @@ def main():
     B5 = torch.flip(r5, (1,)).reshape(S_s, L_s * n_s, -1).contiguous()
     lib_z = torch.flip(torch.cholesky_solve(B5, F5).reshape(r5.shape), (1,))
     err_lib = float((lib_z - ck.chain_full_solve_mat(Ls5, CUs5, r5)).abs().max())
+    # the kernel's edges (FULL_EDGES) on seeded factors
+    err_fe = 0.0
+    for k, (S_e, L_e, n_e, m_e) in enumerate(FULL_EDGES):
+        Ls_e, CUs_e, r_e = full_operands(torch, S_e, L_e, n_e, m_e, 60 + k, dev)
+        err_fe = max(err_fe, compare(
+            torch, f"chain_full_solve_mat at S={S_e}, L={L_e}, n={n_e}, m={m_e}",
+            [ck.chain_full_solve_mat(Ls_e, CUs_e, r_e)],
+            [ck.chain_full_solve_mat_ref(Ls_e, CUs_e, r_e)], SOLVE_RTOL))
+    print(f"chain_full_solve_mat at its kernel's edges ({len(FULL_EDGES)} shapes (S, L, n, m): "
+          f"n 1, 8, 9, 16; L 1, 2, 20, 40; m 1, 5, 17; S = 5): max |diff| to the twin "
+          f"{err_fe:.3e}")
+    full1 = lambda: ck.chain_full_solve_mat(Ls5, CUs5, r1)
+    fs_lib = lambda: torch.cholesky_solve(B5, F5)
+    m_fs = measure(lambda: ck.chain_full_solve_mat(Ls5, CUs5, r5),
+                   lambda: ck.chain_full_solve_mat_ref(Ls5, CUs5, r5), (Ls5, CUs5, r5),
+                   S_s * (1 + nl) * L_s * 6 * n_s * n_s, lib_fn=fs_lib)
+    # (batched cholesky_solve runs MAGMA, which aborts under graph capture)
+    m_fs.update(graph_ms=graph_ms(torch, lambda: ck.chain_full_solve_mat(Ls5, CUs5, r5)))
+    ms1, g1 = cuda_ms(torch, full1, 20), graph_ms(torch, full1)
+    print(f"chain_full_solve_mat (Ls {tuple(Ls5.shape)}): m={1 + nl} {m_fs['ms']:.4f} ms alone, "
+          f"{m_fs['graph_ms']:.4f} ms in a CUDA graph; m=1 {ms1:.4f} ms alone, {g1:.4f} ms in a "
+          f"CUDA graph; library call cholesky_solve (m={1 + nl}) {m_fs['library_ms']:.4f} ms "
+          f"alone on {card}")
     record("chain_full_solve_mat", "chain_full_solve.cu", "treeqp_tpu/ops/chain_kernels.py:261",
-           max(errs_fs.values()), lambda: ck.chain_full_solve_mat(Ls5, CUs5, r5),
-           lambda: ck.chain_full_solve_mat_ref(Ls5, CUs5, r5),
+           max(*errs_fs.values(), err_fe), None, None,
            f"Ls {tuple(Ls5.shape)}, m={1 + nl} (the iteration's first solve; after {c0} coarse "
-           f"iterations); m=1 {cuda_ms(torch, lambda: ck.chain_full_solve_mat(Ls5, CUs5, r1), 20):.4f}"
-           f" ms, |diff| {errs_fs[1]:.3e}; chain_factor there |diff| {err_cf:.3e}; library "
+           f"iterations), {m_fs['graph_ms']:.4f} ms in a CUDA graph; m=1 {ms1:.4f} ms alone, "
+           f"{g1:.4f} ms in a CUDA graph, |diff| {errs_fs[1]:.3e}; edges FULL_EDGES max |diff| "
+           f"{err_fe:.3e}; chain_factor there |diff| {err_cf:.3e}; library "
            f"call cholesky_solve of the [L n, L n] factor, |diff| to the kernel {err_lib:.3e}",
-           (Ls5, CUs5, r5), S_s * (1 + nl) * L_s * 6 * n_s * n_s,
-           lib_fn=lambda: torch.cholesky_solve(B5, F5))
+           (Ls5, CUs5, r5), S_s * (1 + nl) * L_s * 6 * n_s * n_s, m=m_fs)
     # the Jay system: held to its twin at the cold start (the first coarse
     # iteration); at the first final-phase iteration it is near singular
     # (clipped couplings; only the 1e-6 shift holds it), where an f32

@@ -28,15 +28,17 @@ torch.set_num_threads(1)
 # f32 on both sides, the same per-element order, FMA-free on the CPU:
 # factors to 1e-5 x max(1, max|ref|), solves to 1e-4 (ROADMAP tolerances)
 FACTOR_RTOL, SOLVE_RTOL = 1e-5, 1e-4
-# (S, L, nx, nz, dense); the last three at the CUDA kernel's edges
-# (chip_smoke.RIC_EDGES): nz 8 and 9 on either side of its 8 / 16-lane
-# switch, nz = 16 with nx = 15 in one stage, S = 5 no multiple of the
-# chains a warp holds, both hbar forms
+# (S, L, nx, nz, dense); the last five at the CUDA kernels' edges
+# (chip_smoke.RIC_EDGES): nz 8 and 9 on either side of their 8 / 16-lane
+# switch, nz = 16 with nx = 15 in one stage and with nu = 2, two stages
+# (fewer than the rings hold), S = 5 no multiple of the chains a warp
+# holds, both hbar forms
 CHAIN_CASES = {"diag": (5, 4, 4, 5, False), "dense": (5, 4, 4, 5, True),
                "diag_two_controls": (3, 3, 3, 5, False),
                "dense_S144": (144, 2, 2, 3, True),
                "diag_nz8": (5, 3, 7, 8, False), "dense_nz9": (5, 3, 8, 9, True),
-               "dense_nz16_nx15_L1": (5, 1, 15, 16, True)}
+               "dense_nz16_nx15_L1": (5, 1, 15, 16, True),
+               "diag_L2": (5, 2, 4, 5, False), "dense_nz16_nu2": (5, 3, 14, 16, True)}
 
 
 def close(got, ref, rtol, what):
@@ -228,3 +230,32 @@ def test_crown_ric_kkt_yardstick(shape, reg):
     lz, ll = chip_smoke.ric_crown_vector(torch, rg, rb, w0, x=x)
     close(lz, dz, SOLVE_RTOL, "dz")
     close(ll, dl, SOLVE_RTOL, "dlam")
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["diag", "dense"])
+def test_ric_chain_kkt_yardstick(dense):
+    """chip_smoke's library calls of the chain Riccati kernels (rows 22-24):
+    torch.linalg.ldl_factor_ex of each chain's dense KKT matrix
+    (``chip_smoke.ric_chain_matrix``: the stage Hessians with reg on the
+    inputs' block, the dynamics rows and their transposes) and ldl_solve
+    with ``chip_smoke.ric_chain_vector``'s right-hand side give what
+    ric_chain_bwd followed by ric_chain_fwd gives (the twins), in f64 to
+    1e-10, on seeded operands (``chip_smoke.ric_operands`` / ``ric_rhs``)."""
+    S, L, nx, nz, reg = 3, 4, 3, 5, 1e-3
+    hb, AB = chip_smoke.ric_operands(torch, S, L, nx, nz, dense, 7, "cpu")
+    rg, rb, zr = chip_smoke.ric_rhs(torch, S, L, nx, nz, 8, "cpu")
+    hb, AB, rg, rb, zr = (t.double() for t in (hb, AB, rg, rb, zr))
+    fact, _ = rk.ric_chain_factor_ref(hb, AB, reg)
+    p, k, _ = rk.ric_chain_bwd_ref(fact, rg, rb)
+    dz, dl = rk.ric_chain_fwd_ref(fact, p, k, rb, zr)
+    M = chip_smoke.ric_chain_matrix(torch, hb, AB, reg)
+    assert M.shape == (S, L * (nz + nx), L * (nz + nx)) and torch.equal(M, M.mT)
+    LD, piv, info = torch.linalg.ldl_factor_ex(M)
+    assert int(info.abs().max()) == 0
+    x = torch.linalg.ldl_solve(LD, piv, chip_smoke.ric_chain_vector(torch, rg, rb, zr, AB))
+    lz, ll = chip_smoke.ric_chain_vector(torch, rg, rb, zr, AB, x=x)
+    close(lz, dz, 1e-10, "dz")
+    close(ll, dl, 1e-10, "dlam")
+    # the same through the smoke's timed form of the two calls
+    _, _, info_max, err = chip_smoke.ric_chain_ldl(torch, hb, AB, reg, rg, rb, zr)
+    assert info_max == 0 and err <= 1e-10

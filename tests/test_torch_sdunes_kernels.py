@@ -46,11 +46,13 @@ def chain_blocks(S, L, n, seed):
 
 
 @pytest.mark.parametrize("S,L,n,m", [(5, 6, 4, 5), (16, 8, 8, 1), (3, 1, 8, 5),
-                                     (16, 8, 4, 17)])
+                                     (16, 8, 4, 17), (5, 2, 9, 5), (3, 2, 16, 1)])
 def test_chain_full_solve_mat_matches_pallas(S, L, n, m):
     """The chains factored by the Pallas chain_factor (kernel layout), then
     solved by the Pallas full solve and by the twin on the same factors;
-    the twin's chain_factor against the Pallas one."""
+    the twin's chain_factor against the Pallas one. The last two at the
+    CUDA kernel's edges (chip_smoke.FULL_EDGES): n = 9 and 16 (16 lanes a
+    chain and column), two steps (fewer than its ring holds)."""
     W, Ut = chain_blocks(S, L, n, seed=S + L + n + m)
     rhs = np.random.default_rng(m).standard_normal((S, L, n, m)).astype(np.float32)
     Lt, CUt, _ = jck.chain_factor(jnp.asarray(W), jnp.asarray(Ut))

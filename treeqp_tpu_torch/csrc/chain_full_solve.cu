@@ -1,5 +1,6 @@
-// Multi-right-hand-side full solve of self-contained chains, one thread per
-// (chain, column): the banded per-scenario dual-Hessian solve of sdunes.
+// Multi-right-hand-side full solve of self-contained chains, a group of
+// lanes per (chain, column): the banded per-scenario dual-Hessian solve of
+// sdunes.
 //
 // Replaces the Pallas kernel chain_full_solve_mat of
 // treeqp_tpu/ops/chain_kernels.py (reached through sdunes._sd_full_solve),
@@ -7,76 +8,87 @@
 // has no parent coupling (CUs_0 = 0), and rhs [S, L, n, m]:
 //   backward  y_j = Ls_j^-1 (r_j - CUs_{j+1} y_{j+1})   for j = L-1 .. 0,
 //   forward   z_j = Ls_j^-T (y_j - CUs_j' z_{j-1})      for j = 0 .. L-1,
-// both sweeps in one launch, y kept in z between them. The m columns are
-// independent, so each thread sweeps one column of one chain; the column
-// stride in rhs and z is m. Same operation order as the Pallas kernel and
-// the plain twin (chain_kernels.chain_full_solve_mat_ref): every sum term
-// by term in index order.
+// both sweeps in one launch, y kept in z between them.
 //
-// What bounds it on the card: latency. Each thread runs 2L dependent n x n
-// triangular solves and products (~6 n^2 L flops, ~7.7k at sdunes' L = 20,
-// n = 8) and the launch moves the factors once (2 S L n^2 f32, 2.6 MB at
-// S = 256) plus rhs and z (0.8 MB at m = 5). The m threads of a chain read
-// the same factor rows, which the L1 cache serves.
+// What bounds it on the card: latency. A column of a chain is 2L dependent
+// n x n triangular solves and products (~6 n^2 L flops, ~7.7k at sdunes'
+// L = 20, n = 8); the launch moves the factors once (2 S L n^2 f32, 2.6 MB
+// at S = 256) plus rhs and z (0.8 MB at m = 5). The thread-per-(chain,
+// column) kernel this replaces ran the 2L steps in one thread with its
+// vectors in local memory and the factors read a float at a time (S m =
+// 1280 threads on ten SMs at m = 5, two at m = 1: 0.31 / 0.44 ms). Design:
+// - A group of G = tq::lanes(n) lanes (8 for n <= 8, 16 for n <= 16) takes
+//   one column of one chain, 32 / G groups a warp and one warp a block:
+//   S m groups, any m (1280 groups in 320 blocks at m = 5, 64 blocks at
+//   m = 1). The m groups of a chain read the same factors, which the L2
+//   cache keeps.
+// - The two sweeps are tq_lanes.cuh's sweep_bwd and sweep_fwd (the steps
+//   of chain_sweeps.cu): lane i owns row i of the step's vector in a
+//   register, Ls_j and CUs_j stream through a ring of kSweepStages stages
+//   of shared memory by cp.async, and a step is n rounds of a true
+//   division and a __shfl_sync. CUs_0 = 0 stands in for the crown: the
+//   backward sweep's CUs_0 y_0 is dropped and the forward sweep starts
+//   from z_{-1} = 0.
+// - The column's entries are m floats apart in rhs and z: the ring's
+//   vector slot takes them by 4-byte copies, a lane its own entry
+//   (SweepGroup's vector stride); rhs is not transposed.
+// - y goes to z and comes back through the forward sweep's ring. Lane i
+//   stores y_j's row i and later copies the same float back, so a fence
+//   between the sweeps orders its stores before its copies; the forward
+//   sweep overwrites z_j only after the stage holding y_j has landed.
+// Every sum runs in the order of the thread-per-(chain, column) kernel
+// (which is ltrsv_inplace / uttrsv_inplace's walked over the chain), each
+// product folded in by one FMA as nvcc contracted that body, and the
+// divisions are true divisions: bit for bit that kernel.
+// No tensor cores: a step is a dependent triangular solve of n <= 16 rows.
 
-#include "tq_dense.cuh"
+#include <cstdint>
+
+#include "tq_lanes.cuh"
 
 namespace {
 
-__global__ void chain_full_solve_mat_kernel(
+using tq::kSweepStages;
+using tq::sweep_stage_floats;
+
+// Group q of the block takes (chain, column) t = blockIdx.x (32 / G) + q,
+// chain t / m and column t % m; a group past the last chain stores nothing
+// and reads rhs in both sweeps.
+template <int G>
+__global__ void __launch_bounds__(32) chain_full_solve_mat_kernel(
     const float* __restrict__ Ls, const float* __restrict__ CUs,
-    const float* __restrict__ rhs, float* __restrict__ z, int S, int L, int n, int m) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= S * m) return;
-  const int s = t / m;
-  const int c = t % m;
-  const size_t nn = (size_t)n * n;
-  const float* Lc = Ls + (size_t)s * L * nn;
-  const float* CUc = CUs + (size_t)s * L * nn;
-  const float* rc = rhs + (size_t)s * L * n * m + c;
-  float* zc = z + (size_t)s * L * n * m + c;
-  float acc[tq::kMaxN];
-  float y[tq::kMaxN];
-  for (int i = 0; i < n; ++i) acc[i] = 0.f;
-  for (int j = L - 1; j >= 0; --j) {
-    const float* Lj = Lc + j * nn;
-    const float* CU = CUc + j * nn;
-    for (int i = 0; i < n; ++i) {
-      float a = rc[((size_t)j * n + i) * m] - acc[i];
-      for (int k = 0; k < i; ++k) a = a - Lj[i * n + k] * y[k];
-      y[i] = a / Lj[i * n + i];
-    }
-    for (int i = 0; i < n; ++i) {
-      zc[((size_t)j * n + i) * m] = y[i];
-      float a = 0.f;
-      for (int k = 0; k < n; ++k) a += CU[i * n + k] * y[k];
-      acc[i] = a;
-    }
-  }
-  // forward sweep from z_{-1} = 0, y_j read back from z
-  float* zp = acc;
-  for (int i = 0; i < n; ++i) zp[i] = 0.f;
-  for (int j = 0; j < L; ++j) {
-    const float* Lj = Lc + j * nn;
-    const float* CU = CUc + j * nn;
-    for (int i = 0; i < n; ++i) {
-      float a = 0.f;
-      for (int k = 0; k < n; ++k) a += CU[k * n + i] * zp[k];
-      y[i] = zc[((size_t)j * n + i) * m] - a;
-    }
-    for (int i = n - 1; i >= 0; --i) {
-      float a = y[i];
-      for (int k = i + 1; k < n; ++k) a = a - Lj[k * n + i] * y[k];
-      y[i] = a / Lj[i * n + i];
-    }
-    for (int i = 0; i < n; ++i) {
-      zc[((size_t)j * n + i) * m] = y[i];
-      zp[i] = y[i];
-    }
-  }
+    const float* __restrict__ rhs, float* __restrict__ z, int S, int L, int n, int m,
+    int vec16) {
+  extern __shared__ __align__(16) float smem[];
+  const int q = threadIdx.x / G, i = threadIdx.x % G;
+  const long t = (long)blockIdx.x * (32 / G) + q;
+  const int s = (int)(t / m), c = (int)(t % m);
+  float* ring = smem + (size_t)q * kSweepStages * sweep_stage_floats(n);
+  const tq::SweepGroup<G> bwd(ring, i, s, Ls, CUs, rhs + c, S, L, n, m);
+  const bool store = bwd.live && i < n;
+  float* zc = z + (size_t)(bwd.live ? s : 0) * L * n * m + c;
+  tq::sweep_bwd(bwd, L, n, vec16, [&](int j, float y) {
+    if (store) zc[((size_t)j * n + i) * m] = y;
+  });
+  __syncwarp();
+  __threadfence_block();  // y's stores before the forward sweep's copies of them
+  const tq::SweepGroup<G> fwd(ring, i, s, Ls, CUs, (bwd.live ? z : rhs) + c, S, L, n, m);
+  const float zero[tq::kMaxN] = {};
+  tq::sweep_fwd(fwd, zero, L, n, vec16, [](int) {}, [&](int j, float d) {
+    if (store) zc[((size_t)j * n + i) * m] = d;
+  });
 }
 
-constexpr int kThreads = 128;
+template <int G>
+int launch(const float* Ls, const float* CUs, const float* rhs, float* z, int S, int L, int n,
+           int m, int vec16, cudaStream_t st) {
+  constexpr int groups = 32 / G;
+  const long blocks = ((long)S * m + groups - 1) / groups;
+  const size_t shmem = (size_t)groups * kSweepStages * sweep_stage_floats(n) * sizeof(float);
+  chain_full_solve_mat_kernel<G><<<(unsigned)blocks, 32, shmem, st>>>(Ls, CUs, rhs, z, S, L,
+                                                                     n, m, vec16);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -84,8 +96,9 @@ constexpr int kThreads = 128;
 extern "C" int tq_chain_full_solve_mat(const float* Ls, const float* CUs, const float* rhs,
                                        float* z, int S, int L, int n, int m,
                                        void* stream) {
-  const int blocks = (S * m + kThreads - 1) / kThreads;
-  chain_full_solve_mat_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      Ls, CUs, rhs, z, S, L, n, m);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  // 16-byte ring copies of the factors: even n and 16-byte aligned factors
+  const int vec16 = n % 2 == 0 && (((uintptr_t)Ls | (uintptr_t)CUs) & 15) == 0;
+  if (n <= 8) return launch<8>(Ls, CUs, rhs, z, S, L, n, m, vec16, st);
+  return launch<16>(Ls, CUs, rhs, z, S, L, n, m, vec16, st);
 }

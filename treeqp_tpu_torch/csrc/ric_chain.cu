@@ -1,6 +1,6 @@
-// The multistage IPM's chain Riccati sweeps: factorize (a group of lanes
-// per scenario chain), backward right-hand side and forward (one thread per
-// chain running the whole length-L sweep).
+// The multistage IPM's chain Riccati sweeps: factorize and backward
+// right-hand side (a group of lanes per scenario chain) and forward (one
+// thread per chain running the whole length-L sweep).
 //
 // Replaces the Pallas kernels ric_chain_factor, ric_chain_bwd and
 // ric_chain_fwd of treeqp_tpu/ops/riccati_kernels.py (reached through
@@ -49,8 +49,28 @@
 // compiler contracts. No tensor cores: a stage is a dependent factorization
 // and product chain of nz <= 16 blocks; wgmma needs 64-row tiles.
 //
-// ric_chain_bwd and ric_chain_fwd keep one thread per chain: S = 256
-// chains fill two blocks of 128 threads, two SMs.
+// ric_chain_bwd. The thread-per-chain kernel this replaces ran ~150
+// dependent FMAs a stage at nz = 9 in one thread, its operands read from
+// global memory and v, y in local memory (S = 256 chains on two SMs, 0.38
+// ms). Design:
+// - The layout of ric_chain_factor: G = tq::lanes(nz) lanes a chain, 32 / G
+//   chains a warp, one warp a block, nz a template parameter (2 .. 16).
+// - Each stage's [P_j | Lu_j | Mxu_j | AB_j | rg_j | rb_j] (164 floats at
+//   nx = 8, nz = 9) streams through a ring of kBwdStages stages of shared
+//   memory per chain with cp.async, up to kBwdStages - 1 stages ahead.
+// - Lane i owns row i of m = rg_j + w; the stage is tq_riccati.cuh's
+//   ric_stage_bwd_lanes: nu rounds each way of a division and a shuffle
+//   for k, p by lane x, P rb_j (which does not depend on w) summed before
+//   the chain reaches it, and w by lane i from nx shuffles of v. About a
+//   dozen dependent rounds a stage at nz = 9, nu = 1.
+// - Lane x writes p_j row x, lane nx + c writes k_j row c, lane i writes
+//   w0 row i.
+// Bit for bit the thread-per-chain kernel (tq_riccati.cuh's ric_stage_bwd).
+// No tensor cores: a stage is a dependent solve and product chain of
+// nz <= 16 rows.
+//
+// ric_chain_fwd keeps one thread per chain: S = 256 chains fill two blocks
+// of 128 threads, two SMs.
 
 #include "tq_lanes.cuh"
 #include "tq_riccati.cuh"
@@ -281,10 +301,38 @@ struct Ops9 {
   const void* p[9];
 };
 
+// ---------------------------------------------------------------------------
+// ric_chain_bwd: a group of lanes per chain
+
+constexpr int kBwdStages = 8;
+
+// A stage of the ring: [P_j (nx nx) | Lu_j (nu nu) | Mxu_j (nx nu) | AB_j
+// (nx nz) | rg_j (nz) | rb_j (nx)], its stride rounded up to 4 floats.
+struct BwdStage {
+  int P, Lu, Mxu, AB, rg, rb, floats;
+  __host__ __device__ BwdStage(int nx, int nz) {
+    const int nu = nz - nx;
+    P = 0;
+    Lu = P + nx * nx;
+    Mxu = Lu + nu * nu;
+    AB = Mxu + nx * nu;
+    rg = AB + nx * nz;
+    rb = rg + nz;
+    floats = (rb + nx + 3) & ~3;
+  }
+};
+
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int count, int lane,
+                                           int G) {
+  for (int e = lane; e < count; e += G) tq::cp_async4(dst + e, src + e);
+}
+
 // operands: P, Lu, Mxu, AB, rg, rb, p, k, w0
-__global__ void ric_chain_bwd_kernel(Ops9 ops, int S, int L, int nx, int nz) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
+template <int NZ>
+__global__ void __launch_bounds__(32) ric_chain_bwd_kernel(Ops9 ops, int S, int L, int nx) {
+  constexpr int G = tq::lanes(NZ);
+  constexpr int nz = NZ;
+  extern __shared__ __align__(16) float smem[];
   const float* P = static_cast<const float*>(ops.p[0]);
   const float* Lu = static_cast<const float*>(ops.p[1]);
   const float* Mxu = static_cast<const float*>(ops.p[2]);
@@ -295,16 +343,56 @@ __global__ void ric_chain_bwd_kernel(Ops9 ops, int S, int L, int nx, int nz) {
   float* k = static_cast<float*>(const_cast<void*>(ops.p[7]));
   float* w0 = static_cast<float*>(const_cast<void*>(ops.p[8]));
   const int nu = nz - nx;
-  float w[tq::kMaxN];
-  for (int i = 0; i < nz; ++i) w[i] = 0.f;
-  for (int j = L - 1; j >= 0; --j) {
-    const size_t sj = (size_t)s * L + j;
-    for (int i = 0; i < nz; ++i) w[i] = rg[sj * nz + i] + w[i];
-    tq::ric_stage_bwd(w, P + sj * nx * nx, Lu + sj * nu * nu, Mxu + sj * nx * nu,
-                      AB + sj * nx * nz, rb + sj * nx, nx, nz, p + sj * nx, k + sj * nu,
-                      w);
+  const int i = threadIdx.x % G, q = threadIdx.x / G;
+  const int s = blockIdx.x * (32 / G) + q;
+  const bool live = s < S;
+  const size_t sl = live ? s : S - 1;  // a group past the last chain stores nothing
+  const BwdStage o(nx, nz);
+  float* ring = smem + (size_t)q * kBwdStages * o.floats;
+
+  // step t works on node j = L-1-t
+  auto fetch = [&](int t) {
+    if (t < L) {
+      const size_t sj = sl * L + (L - 1 - t);
+      float* st = ring + (t % kBwdStages) * o.floats;
+      copy_async(st + o.P, P + sj * nx * nx, nx * nx, i, G);
+      copy_async(st + o.Lu, Lu + sj * nu * nu, nu * nu, i, G);
+      copy_async(st + o.Mxu, Mxu + sj * nx * nu, nx * nu, i, G);
+      copy_async(st + o.AB, AB + sj * nx * nz, nx * nz, i, G);
+      copy_async(st + o.rg, rg + sj * nz, nz, i, G);
+      copy_async(st + o.rb, rb + sj * nx, nx, i, G);
+    }
+    tq::cp_async_commit();
+  };
+  for (int t = 0; t < kBwdStages - 1; ++t) fetch(t);
+
+  float w = 0.f;  // row i of w, the term of the stage below
+  for (int t = 0; t < L; ++t) {
+    const size_t sj = sl * L + (L - 1 - t);
+    fetch(t + kBwdStages - 1);
+    tq::cp_async_wait<kBwdStages - 1>();
+    __syncwarp();
+    const float* st = ring + (t % kBwdStages) * o.floats;
+    const float m = i < nz ? __fadd_rn(st[o.rg + i], w) : 0.f;
+    float pi = 0.f, ki = 0.f;
+    w = tq::ric_stage_bwd_lanes<NZ, G>(m, st + o.P, st + o.Lu, st + o.Mxu, st + o.AB,
+                                       st + o.rb, nx, i, pi, ki);
+    if (live) {
+      if (i < nx) p[sj * nx + i] = pi;
+      else if (i < nz) k[sj * nu + i - nx] = ki;
+    }
+    __syncwarp();  // the stage is read: refill it
   }
-  for (int i = 0; i < nz; ++i) w0[(size_t)s * nz + i] = w[i];
+  tq::cp_async_wait<0>();
+  if (live && i < nz) w0[sl * nz + i] = w;
+}
+
+template <int NZ>
+int launch_bwd(Ops9 ops, int S, int L, int nx, cudaStream_t st) {
+  constexpr int chains = 32 / tq::lanes(NZ);
+  const size_t bytes = (size_t)chains * kBwdStages * BwdStage(nx, NZ).floats * sizeof(float);
+  ric_chain_bwd_kernel<NZ><<<(S + chains - 1) / chains, 32, bytes, st>>>(ops, S, L, nx);
+  return (int)cudaGetLastError();
 }
 
 // operands: P, K, AB, rb, p, k, z_root, dz, dl
@@ -359,10 +447,17 @@ extern "C" int tq_ric_chain_factor(const float* hbar, const float* AB, float* P,
 // pointers (P, Lu, Mxu, AB, rg, rb, p, k, w0), S, L, nx, nz, stream
 extern "C" int tq_ric_chain_bwd(const void* const* p, int S, int L, int nx, int nz,
                                 void* stream) {
-  const int blocks = (S + kThreads - 1) / kThreads;
-  ric_chain_bwd_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(ops9(p), S, L, nx,
-                                                                       nz);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Ops9 ops = ops9(p);
+  switch (nz) {
+#define TQ_RIC(NZ_) \
+  case NZ_:         \
+    return launch_bwd<NZ_>(ops, S, L, nx, st);
+    TQ_RIC(2) TQ_RIC(3) TQ_RIC(4) TQ_RIC(5) TQ_RIC(6) TQ_RIC(7) TQ_RIC(8) TQ_RIC(9)
+    TQ_RIC(10) TQ_RIC(11) TQ_RIC(12) TQ_RIC(13) TQ_RIC(14) TQ_RIC(15) TQ_RIC(16)
+#undef TQ_RIC
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // pointers (P, K, AB, rb, p, k, z_root, dz, dl), S, L, nx, nz, stream

@@ -1,10 +1,12 @@
 // Pieces of the lane-group kernels (chain_factor.cu, chain_blocks_factor.cu,
-// chain_sweeps.cu, newton_iter.cu, admm_identify.cu, ric_chain.cu): the
+// chain_sweeps.cu, chain_full_solve.cu, newton_iter.cu, admm_identify.cu,
+// ric_chain.cu): the
 // cp.async copies of the chain kernels' shared-memory rings, the broadcast
 // lane's true division, the step of the banded backward block Cholesky
 // that both chain factor kernels run, a group of lanes per chain with lane
 // i owning row i of the step's n x n block, and the two solve sweeps of the
-// chain factors that chain_sweeps.cu and newton_iter.cu run.
+// chain factors that chain_sweeps.cu, chain_full_solve.cu and newton_iter.cu
+// run.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -158,29 +160,33 @@ __host__ __device__ inline int sweep_stage_floats(int n) { return (2 * n * n + n
 
 // A chain's group of G lanes and its ring (kSweepStages stages at ``ring``);
 // a group past the last chain (s >= S) reads the last chain's data and is
-// not live: its emits store nothing.
+// not live: its emits store nothing. The vector v is [S, L, n] with its
+// entries ``vstride`` floats apart (one column of [S, L, n, vstride], v
+// pointing at the column's first entry).
 template <int G>
 struct SweepGroup {
   int lane;     // the row of the step's vector this lane owns
   int s;        // the chain
   bool live;    // s < S
   size_t nn;
+  size_t vs;    // the vector's stride
   float* ring;
   const float* Lc;  // the chain's Ls, CUs and vector slices
   const float* Cc;
   const float* vc;
 
   __device__ SweepGroup(float* ring_, int lane_, int s_, const float* Ls, const float* CUs,
-                        const float* v, int S, int L, int n) {
+                        const float* v, int S, int L, int n, int vstride = 1) {
     lane = lane_;
     s = s_;
     live = s < S;
     const size_t sl = live ? s : S - 1;
     nn = (size_t)n * n;
+    vs = vstride;
     ring = ring_;
     Lc = Ls + sl * L * nn;
     Cc = CUs + sl * L * nn;
-    vc = v + sl * L * n;
+    vc = v + sl * L * n * vs;
   }
 
   __device__ float* stage(int t, int n) const {
@@ -205,7 +211,7 @@ struct SweepGroup {
           cp_async4(st + nn + e, Cj + e);
         }
       }
-      if (lane < n) cp_async4(st + 2 * nn + lane, vc + (size_t)j * n + lane);
+      if (lane < n) cp_async4(st + 2 * nn + lane, vc + ((size_t)j * n + lane) * vs);
     }
     cp_async_commit();
   }

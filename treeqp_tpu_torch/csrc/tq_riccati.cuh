@@ -1,6 +1,8 @@
 // One stage of the IPM's Riccati recursion, for one thread: shared by the
 // chain kernels (ric_chain.cu, a chain's stages in sequence) and the crown
-// kernels (crown_ric.cu, a tree level's nodes in parallel).
+// kernels (crown_ric.cu, a tree level's nodes in parallel); and the
+// backward right-hand-side stage on a group of lanes (ric_stage_bwd_lanes,
+// ric_chain.cu's ric_chain_bwd).
 //
 // Blocks are row-major. A stage has nx states and nu = nz - nx controls;
 // M is its [nz, nz] Hessian with the successors' terms added, AB [nx, nz]
@@ -11,6 +13,7 @@
 #pragma once
 
 #include "tq_dense.cuh"
+#include "tq_lanes.cuh"
 
 namespace tq {
 
@@ -92,6 +95,91 @@ __device__ inline void ric_stage_bwd(const float* m, const float* __restrict__ P
     for (int x = 0; x < nx; ++x) s += AB[x * nz + i] * v[x];
     w[i] = s;
   }
+}
+
+// ric_stage_bwd on a group of G lanes (G = lanes(NZ)), lane i owning row i
+// of m [NZ] (``m``; lanes past NZ - 1 hold 0). The stage's blocks are read
+// from shared memory: P [nx, nx], Lu [nu, nu], Mxu [nx, nu], AB [nx, NZ],
+// rb [nx]. Returns lane i's row of w = AB' (P rb + p); lane x < nx gets
+// p_x in ``p``, lane nx + c gets k_c in ``k``.
+// - P rb, row x by lane x, does not depend on m: it is summed first, off
+//   the dependent chain.
+// - Lu y = m_u: for c = 0 .. nu-1 lane nx + c divides by its diagonal and
+//   __shfl_sync broadcasts y_c, lanes nx + r > c fold -Lu_rc y_c in, so
+//   each row meets its terms in ascending c (ltrsv_inplace's order).
+// - Lu' z = y: every lane holds the z_c solved so far; for c = nu-1 .. 0
+//   lane nx + c folds -Lu_mc z_m in over m = c+1 .. nu-1 ascending
+//   (uttrsv_inplace's order), divides and broadcasts z_c; k = -z.
+// - p_x = m_x + sum_c Mxu_xc k_c and v_x = (P rb)_x + p_x by lane x; v is
+//   broadcast by nx shuffles and lane i sums w_i = sum_x AB_xi v_x.
+// Every sum starts from 0 and runs in ric_stage_bwd's loop order, each
+// product folded in by one FMA (__fmaf_rn, as nvcc contracts the
+// per-thread body), the adds that stand alone rounded on their own
+// (__fadd_rn) and the divisions true divisions (quotient): bit for bit
+// ric_stage_bwd.
+template <int NZ, int G>
+__device__ __forceinline__ float ric_stage_bwd_lanes(float m, const float* P, const float* Lu,
+                                                     const float* Mxu, const float* AB,
+                                                     const float* rb, int nx, int i, float& p,
+                                                     float& k) {
+  const int nu = NZ - nx;
+  const int r = i - nx;  // row of Lu on lanes nx .. NZ-1
+  const bool urow = r >= 0 && r < nu;
+  const bool xrow = i < nx;
+  float Lrow[NZ], Lcol[NZ], ABcol[NZ];
+  float diag = 1.f;
+#pragma unroll
+  for (int c = 0; c < NZ; ++c) {
+    Lrow[c] = urow && c < r ? Lu[r * nu + c] : 0.f;
+    Lcol[c] = urow && c > r && c < nu ? Lu[c * nu + r] : 0.f;
+    ABcol[c] = c < nx && i < NZ ? AB[c * NZ + i] : 0.f;
+  }
+  if (urow) diag = Lu[r * nu + r];
+  float prb = 0.f;  // (P rb)_x
+  if (xrow) {
+#pragma unroll
+    for (int c = 0; c < NZ; ++c)
+      if (c < nx) prb = __fmaf_rn(P[i * nx + c], rb[c], prb);
+  }
+
+  float acc = m, y = 0.f;
+#pragma unroll
+  for (int c = 0; c < NZ; ++c) {
+    if (c < nu) {
+      const float yc = __shfl_sync(kFull, quotient(acc, diag, r == c), nx + c, G);
+      if (r > c) acc = __fmaf_rn(-Lrow[c], yc, acc);
+      if (r == c) y = yc;
+    }
+  }
+  float z[NZ];
+#pragma unroll
+  for (int c = NZ - 1; c >= 0; --c) {
+    z[c] = 0.f;
+    if (c < nu) {
+      float a = y;
+#pragma unroll
+      for (int mm = c + 1; mm < NZ; ++mm)
+        if (mm < nu) a = __fmaf_rn(-Lcol[mm], z[mm], a);
+      z[c] = __shfl_sync(kFull, quotient(a, diag, r == c), nx + c, G);
+      if (r == c) k = -z[c];
+    }
+  }
+
+  float v = 0.f;
+  if (xrow) {
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < NZ; ++c)
+      if (c < nu) s = __fmaf_rn(Mxu[i * nu + c], -z[c], s);
+    p = __fadd_rn(m, s);
+    v = __fadd_rn(prb, p);
+  }
+  float w = 0.f;
+#pragma unroll
+  for (int x = 0; x < NZ; ++x) {
+    if (x < nx) w = __fmaf_rn(ABcol[x], __shfl_sync(kFull, v, x, G), w);
+  }
+  return i < NZ ? w : 0.f;
 }
 
 // Forward: from the parent's step zp [nz], dx = AB zp + rb, du = K dx + k,
