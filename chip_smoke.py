@@ -44,11 +44,13 @@ Phases (any failure exits non-zero):
    their kernels' edges (BLOCK_EDGES, ADMM_EDGES: one step, chains past
    the 4-stage ring, nx 1, 5, 16; nz 1 and 16, ng = nz, the 32-lane form,
    f64) on seeded operands, and the three timed in a CUDA graph too;
-   crown_blocks_factor and crown_factor on seeded operands at the
-   multistage crowns of the headline, of sdunes' bootstrap
-   (spring_mass_chain(4,4,4,20), G = 32) and of quadcopter(4,5,20) (timed
-   in a CUDA graph) and at their kernels' edges (CROWN_EDGES: G = 2, 48,
-   64, a zero block whose pivots floor, reg 0 and > 0); rows 8-10 beside
+   crown_blocks_factor and crown_factor on seeded operands, and
+   crown_solve on the twin's factors with a seeded right-hand side
+   (``crown_rhs``), at the multistage crowns of the headline, of sdunes'
+   bootstrap (spring_mass_chain(4,4,4,20), G = 32) and of
+   quadcopter(4,5,20) (timed in a CUDA graph) and at their kernels' edges
+   (CROWN_EDGES: G = 2, 48, 64, a zero block whose pivots floor, reg 0 and
+   > 0); rows 8-10 beside
    their library calls, ``torch.linalg.cholesky_ex`` of the crown as one
    dense matrix (``crown_matrix``: the groups deepest level first, W_g on
    the diagonal, Ut_g in the parent's slot rows) and
@@ -662,6 +664,14 @@ def crown_operands(torch, sched, nz, seed, dev, zero=False):
     return args, ckr._crown_blocks(*args)
 
 
+def crown_rhs(torch, sched, seed, dev):
+    """A seeded crown_solve right-hand side [NpG, G], N(0, 1) f32."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.standard_normal((sched.NpG, sched.G)), dtype=torch.float32,
+                        device=dev)
+
+
 def crown_matrix(torch, W, Ut, sched, reg=0.0, factor=False):
     """The crown's groups as one dense [NpG G, NpG G] matrix, the groups in
     the schedule's order (the deepest level first, the root group last):
@@ -1142,7 +1152,8 @@ def main():
         crown_ops(sched_h, True, nz=inp["crown"][0].shape[-1]), chol_h,
         f"cholesky_ex of the [{sched_h.NpG * sched_h.G}]^2 crown matrix, |diff| to the twin's "
         f"factors {lib_err_h:.3e}, info {info_h}", shapes_h)
-    # both crown factor kernels against their twins at the multistage
+    # both crown factor kernels, and crown_solve on the twin's factors with
+    # a seeded right-hand side, against their twins at the multistage
     # crowns of the solvers' paths (the headline, sdunes' bootstrap, 1024
     # scenarios; timed) and at their kernels' edges, on seeded operands;
     # the generic solver's crowns follow in its tree checks below
@@ -1169,12 +1180,24 @@ def main():
                                              got, ref_fn(), FACTOR_RTOL)
             if k < 3:
                 times.append(f"{name} {graph_ms(torch, fn):.4f}")
+        fac_e = ckr.crown_factor_ref(W_e, Ut_e, p_e, reg=reg_e)
+        rg_e = crown_rhs(torch, s_e, 60 + k, dev)
+        solve_e = lambda: ckr.crown_solve(*fac_e, rg_e, p_e)
+        got = solve_e()
+        torch.cuda.synchronize()
+        crown_errs[what, "crown_solve"] = compare(
+            torch, f"crown_solve ({what}, G={s_e.G}, launch {ckr._solve_launch(s_e)})", [got],
+            [ckr.crown_solve_ref(*fac_e, rg_e, p_e)], SOLVE_RTOL)
+        if k < 3:
+            times.append(f"crown_solve {graph_ms(torch, solve_e):.4f}")
         if times:
-            print(f"crown factor kernels ({what}: NpG={s_e.NpG}, G={s_e.G}; seeded): "
+            print(f"crown kernels ({what}: NpG={s_e.NpG}, G={s_e.G}; seeded): "
                   f"{', '.join(times)} ms in a CUDA graph on {card}")
-    print(f"crown_factor, crown_blocks_factor at the multistage crowns and at their kernel's "
-          f"edges {CROWN_EDGES} (md, Nr, nx, reg, zero block): max |diff| to the twins "
-          f"{max(crown_errs.values()):.3e}")
+    crown_solve_err = max(v for (w, n), v in crown_errs.items() if n == "crown_solve")
+    print(f"crown_factor, crown_blocks_factor, crown_solve at the multistage crowns and at their "
+          f"kernels' edges {CROWN_EDGES} (md, Nr, nx, reg, zero block): max |diff| to the twins "
+          f"{max(v for (w, n), v in crown_errs.items() if n != 'crown_solve'):.3e} (factors), "
+          f"{crown_solve_err:.3e} (crown_solve)")
     record("crown_blocks_factor", "crown_blocks_factor.cu",
            "treeqp_tpu/ops/crown_kernels.py:332",
            compare(torch, "crown_blocks_factor", w_got, w_ref, FACTOR_RTOL),
@@ -1709,6 +1732,12 @@ def main():
         _, _, _, _, fn, ref_fn, shapes, inputs, ops = c_p[name]
         crown_m[name] = crown_times(name, fn, ref_fn, inputs, ops, lib_fn, note,
                                     f"pruned, {shapes}")
+    # crown_solve on every generic crown, in a CUDA graph
+    for tag, c in checks.items():
+        sched_t = crown_meta[tag][0]
+        print(f"crown_solve ({tag}: NpG={sched_t.NpG}, G={sched_t.G}, {sched_t.n_lev} levels, "
+              f"launch {ckr._solve_launch(sched_t)}): {graph_ms(torch, c['crown_solve'][4]):.4f} "
+              f"ms in a CUDA graph on {card}")
     for name, source, replaces, _, fn, ref_fn, shapes, inputs, ops in checks["pruned"].values():
         errs = {tag: c[name][3] for tag, c in checks.items() if name in c}
         lib = ""
@@ -1720,6 +1749,8 @@ def main():
             lib = f"; the library call (cholesky_ex) |diff| to Ls, CUs_1.. {chol_err:.3e}"
         elif name in crown_lib:
             lib = f"; {crown_lib[name][1]}"
+        if name == "crown_solve":
+            errs["seeded multistage crowns and edges"] = crown_solve_err
         m = (factor_m["pruned"][0] if name == "chain_factor"
              else crown_m.get(name, sweep_times.get(("pruned", name))))
         record(name, source, replaces, max(errs.values()), fn, ref_fn,

@@ -167,6 +167,14 @@ def test_crown_factor_twin_matches_pallas_at_edges(edge):
         assert float(torch.tril(CholW[g], -1).abs().max()) == 0.0
 
 
+def _split_crown(qq):
+    """(prep, levels) of ``qq``'s crown: the split path's crown levels, or
+    every level without a split schedule."""
+    p = td._get_prep(qq.topo)
+    split = td._split_sched(p)
+    return p, None if split is None else td._split_index(p, split, "cpu")["crown"]
+
+
 def launch_shapes():
     """The crowns the kernels take on the solvers' paths (as in
     scripts/prof_torch_crown_kernels.py) and at chip_smoke.CROWN_EDGES:
@@ -178,10 +186,7 @@ def launch_shapes():
     for name, qq in (("pruned", models.pruned(q, 128)),
                      ("general C/D", models.general_cd("qpgen", device="cpu")),
                      ("asymmetric", models.asym_tree(device="cpu"))):
-        p = td._get_prep(qq.topo)
-        split = td._split_sched(p)
-        levels = None if split is None else td._split_index(p, split, "cpu")["crown"]
-        out[name] = (ckr._get_sched(p, levels), 0)
+        out[name] = (ckr._get_sched(*_split_crown(qq)), 0)
     for md, Nr, nx, _, _ in chip_smoke.CROWN_EDGES:
         out[f"edge {md} {Nr} {nx}"] = (ckr._get_sched(chip_smoke.crown_prep(md, Nr, nx)), nx + 2)
     return out
@@ -210,3 +215,34 @@ def test_factor_launch_shape():
         # a round of the cluster's warps covers the groups where the limit allows
         assert 8 * warps >= min(s.NpG, 8 * (16 if rows == 1 else 8)), name
     assert got["edge 4 3 16"] == (3, 5200)
+
+
+def test_solve_launch_shape():
+    """_solve_launch: a warp a group of the widest level in one round where
+    a block's threads allow, one block where the levels are narrow, one
+    cluster beyond, and the per-thread form in one block for G > 32."""
+    shapes = launch_shapes()
+    shapes["unpruned"] = (ckr._get_sched(*_split_crown(models.quadcopter(4, 4, 20,
+                                                                         device="cpu").qp)), 0)
+    got = {name: ckr._solve_launch(s) for name, (s, _) in shapes.items()}
+    # the solvers' crowns: widest levels 64 / 64 / 256 / 60 / 64 / 64 / 3
+    assert got["headline"] == (8, 8)
+    assert got["bootstrap"] == (8, 8)
+    assert got["1024 scenarios"] == (8, 16)
+    assert got["pruned"] == (8, 8)
+    assert got["unpruned"] == (8, 8)
+    assert got["general C/D"] == (8, 8)
+    assert got["asymmetric"] == (1, 3)
+    assert got["edge 2 3 1"] == (1, 4)
+    assert got["edge 3 3 16"] == (1, 1)  # G = 48: a thread a group
+    assert got["edge 4 3 16"] == (1, 1)  # G = 64
+    for name, (s, _) in shapes.items():
+        blocks, warps = got[name]
+        assert blocks in (1, 8) and 1 <= warps <= 16, name
+        if s.G > 32:
+            # the per-thread form: one block, a thread a group of the widest level
+            assert blocks == 1 and 32 * warps >= min(s.width, 512), name
+        else:
+            # a round of the warps covers the widest level where the limit allows
+            assert blocks * warps >= min(s.width, blocks * 16), name
+            assert blocks == 1 or s.width > 16, name

@@ -174,7 +174,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 
     // 2b. the crown (on the cluster's warps, or in block 0 where a group
     // is wider than a warp), and 3. its direction, trial point and partials
-    tq::crown(cluster, a.sys, b, [&](int k) { stamp(a, b, k); });
+    tq::crown(a.sys, [&](int k) { stamp(a, b, k); });
     for (int m = ix; m < Nn; m += gn) {
       float acc = 0.f;
       for (int i = 0; i < n; ++i) {

@@ -1,6 +1,5 @@
-// The multistage IPM's chain Riccati sweeps: factorize and backward
-// right-hand side (a group of lanes per scenario chain) and forward (one
-// thread per chain running the whole length-L sweep).
+// The multistage IPM's chain Riccati sweeps: factorize, backward
+// right-hand side and forward, each a group of lanes per scenario chain.
 //
 // Replaces the Pallas kernels ric_chain_factor, ric_chain_bwd and
 // ric_chain_fwd of treeqp_tpu/ops/riccati_kernels.py (reached through
@@ -69,15 +68,29 @@
 // No tensor cores: a stage is a dependent solve and product chain of
 // nz <= 16 rows.
 //
-// ric_chain_fwd keeps one thread per chain: S = 256 chains fill two blocks
-// of 128 threads, two SMs.
+// ric_chain_fwd. The thread-per-chain kernel this replaces ran ~150
+// dependent FMAs a stage at nz = 9 in one thread, P_j, K_j and AB_j read
+// from global memory and dx in local memory (S = 256 chains on two SMs,
+// 0.26 ms in a CUDA graph). Design:
+// - The layout of ric_chain_bwd: G = tq::lanes(nz) lanes a chain, 32 / G
+//   chains a warp, one warp a block, nz a template parameter (2 .. 16).
+// - Each stage's [P_j | K_j | AB_j | rb_j | p_j | k_j] (161 floats at
+//   nx = 8, nz = 9) streams through a ring of kBwdStages stages of shared
+//   memory per chain with cp.async, up to kBwdStages - 1 stages ahead.
+// - Lane i holds row i of the parent's step zp; the stage is
+//   tq_riccati.cuh's ric_stage_fwd_lanes: nz independent shuffles of zp,
+//   dx_x by lane x, nx shuffles of dx and one fold giving du by lanes
+//   nx .. nz-1 and dlam by lanes x; about nz + nx dependent FMA and
+//   shuffle rounds a stage, no division.
+// - Lane i writes dz_j row i and keeps it as the next stage's zp; lane x
+//   writes dl_j row x.
+// Bit for bit the thread-per-chain kernel (tq_riccati.cuh's ric_stage_fwd).
+// No tensor cores: a stage is a dependent product chain of nz <= 16 rows.
 
 #include "tq_lanes.cuh"
 #include "tq_riccati.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
 
 // ---------------------------------------------------------------------------
 // ric_chain_factor: a group of lanes per chain
@@ -395,10 +408,31 @@ int launch_bwd(Ops9 ops, int S, int L, int nx, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// ric_chain_fwd: a group of lanes per chain
+
+// A stage of the ring: [P_j (nx nx) | K_j (nu nx) | AB_j (nx nz) | rb_j (nx)
+// | p_j (nx) | k_j (nu)], its stride rounded up to 4 floats.
+struct FwdStage {
+  int P, K, AB, rb, p, k, floats;
+  __host__ __device__ FwdStage(int nx, int nz) {
+    const int nu = nz - nx;
+    P = 0;
+    K = P + nx * nx;
+    AB = K + nu * nx;
+    rb = AB + nx * nz;
+    p = rb + nx;
+    k = p + nx;
+    floats = (k + nu + 3) & ~3;
+  }
+};
+
 // operands: P, K, AB, rb, p, k, z_root, dz, dl
-__global__ void ric_chain_fwd_kernel(Ops9 ops, int S, int L, int nx, int nz) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
+template <int NZ>
+__global__ void __launch_bounds__(32) ric_chain_fwd_kernel(Ops9 ops, int S, int L, int nx) {
+  constexpr int G = tq::lanes(NZ);
+  constexpr int nz = NZ;
+  extern __shared__ __align__(16) float smem[];
   const float* P = static_cast<const float*>(ops.p[0]);
   const float* K = static_cast<const float*>(ops.p[1]);
   const float* AB = static_cast<const float*>(ops.p[2]);
@@ -409,14 +443,54 @@ __global__ void ric_chain_fwd_kernel(Ops9 ops, int S, int L, int nx, int nz) {
   float* dz = static_cast<float*>(const_cast<void*>(ops.p[7]));
   float* dl = static_cast<float*>(const_cast<void*>(ops.p[8]));
   const int nu = nz - nx;
-  const float* zp = zroot + (size_t)s * nz;
-  for (int j = 0; j < L; ++j) {
-    const size_t sj = (size_t)s * L + j;
-    tq::ric_stage_fwd(zp, P + sj * nx * nx, K + sj * nu * nx, AB + sj * nx * nz,
-                      rb + sj * nx, p + sj * nx, k + sj * nu, nx, nz, dz + sj * nz,
-                      dl + sj * nx);
-    zp = dz + sj * nz;
+  const int i = threadIdx.x % G, q = threadIdx.x / G;
+  const int s = blockIdx.x * (32 / G) + q;
+  const bool live = s < S;
+  const size_t sl = live ? s : S - 1;  // a group past the last chain stores nothing
+  const FwdStage o(nx, nz);
+  float* ring = smem + (size_t)q * kBwdStages * o.floats;
+
+  // step t works on node j = t
+  auto fetch = [&](int t) {
+    if (t < L) {
+      const size_t sj = sl * L + t;
+      float* st = ring + (t % kBwdStages) * o.floats;
+      copy_async(st + o.P, P + sj * nx * nx, nx * nx, i, G);
+      copy_async(st + o.K, K + sj * nu * nx, nu * nx, i, G);
+      copy_async(st + o.AB, AB + sj * nx * nz, nx * nz, i, G);
+      copy_async(st + o.rb, rb + sj * nx, nx, i, G);
+      copy_async(st + o.p, p + sj * nx, nx, i, G);
+      copy_async(st + o.k, k + sj * nu, nu, i, G);
+    }
+    tq::cp_async_commit();
+  };
+  for (int t = 0; t < kBwdStages - 1; ++t) fetch(t);
+
+  float z = i < nz ? zroot[sl * nz + i] : 0.f;  // row i of the parent's step
+  for (int t = 0; t < L; ++t) {
+    const size_t sj = sl * L + t;
+    fetch(t + kBwdStages - 1);
+    tq::cp_async_wait<kBwdStages - 1>();
+    __syncwarp();
+    const float* st = ring + (t % kBwdStages) * o.floats;
+    float dli;
+    z = tq::ric_stage_fwd_lanes<NZ, G>(z, st + o.P, st + o.K, st + o.AB, st + o.rb, st + o.p,
+                                       st + o.k, nx, i, dli);
+    if (live) {
+      if (i < nz) dz[sj * nz + i] = z;
+      if (i < nx) dl[sj * nx + i] = dli;
+    }
+    __syncwarp();  // the stage is read: refill it
   }
+  tq::cp_async_wait<0>();
+}
+
+template <int NZ>
+int launch_fwd(Ops9 ops, int S, int L, int nx, cudaStream_t st) {
+  constexpr int chains = 32 / tq::lanes(NZ);
+  const size_t bytes = (size_t)chains * kBwdStages * FwdStage(nx, NZ).floats * sizeof(float);
+  ric_chain_fwd_kernel<NZ><<<(S + chains - 1) / chains, 32, bytes, st>>>(ops, S, L, nx);
+  return (int)cudaGetLastError();
 }
 
 Ops9 ops9(const void* const* p) {
@@ -463,8 +537,15 @@ extern "C" int tq_ric_chain_bwd(const void* const* p, int S, int L, int nx, int 
 // pointers (P, K, AB, rb, p, k, z_root, dz, dl), S, L, nx, nz, stream
 extern "C" int tq_ric_chain_fwd(const void* const* p, int S, int L, int nx, int nz,
                                 void* stream) {
-  const int blocks = (S + kThreads - 1) / kThreads;
-  ric_chain_fwd_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(ops9(p), S, L, nx,
-                                                                       nz);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Ops9 ops = ops9(p);
+  switch (nz) {
+#define TQ_RIC(NZ_) \
+  case NZ_:         \
+    return launch_fwd<NZ_>(ops, S, L, nx, st);
+    TQ_RIC(2) TQ_RIC(3) TQ_RIC(4) TQ_RIC(5) TQ_RIC(6) TQ_RIC(7) TQ_RIC(8) TQ_RIC(9)
+    TQ_RIC(10) TQ_RIC(11) TQ_RIC(12) TQ_RIC(13) TQ_RIC(14) TQ_RIC(15) TQ_RIC(16)
+#undef TQ_RIC
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -68,7 +68,7 @@ __global__ void __cluster_dims__(tq::kSysCluster, 1, 1) __launch_bounds__(tq::kS
   });
   cluster.sync();
   // 2. the crown
-  tq::crown(cluster, a, b, [](int) {});
+  tq::crown(a, [](int) {});
   // 3. chain forward sweeps, dch_j over y_j
   tq::chain_fwd<GL>(
       a, smem, b, dch, [](int, bool, int, int) {},

@@ -1,7 +1,8 @@
 // Level-synchronous tree block Cholesky of the crown and its solve: the
 // factorization on the warps of one thread-block cluster, shared by
-// crown_blocks_factor.cu and crown_factor.cu, and the solve for one thread
-// block, shared by crown_solve.cu and tq_system.cuh.
+// crown_blocks_factor.cu and crown_factor.cu, and the solve on the warps of
+// one cluster or one block (a thread a group past G = 32), shared by
+// crown_solve.cu and tq_system.cuh (system_solve.cu, newton_iter.cu).
 //
 // The level schedule lists, deepest parent stage first, each level's
 // entries e in [lev_ptr[lv], lev_ptr[lv+1]): the group lev_child[e] that
@@ -433,6 +434,242 @@ __device__ inline void crown_solve_core(
       uttrsv_inplace(CholW + g * GG, dl, G);
     }
     __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The solve on warps: a warp a group, lane i owning row i of the group's
+// G <= kCrownW rows, every sum in crown_solve_core's order, each product
+// one FMA as nvcc contracts it there and the divisions true divisions
+// (quotient): bit for bit that body.
+
+constexpr int kCrownW = 32;  // rows a warp's group may have
+
+// The crown's operands of the solve: the factors, the level schedule
+// (crown_factor's) and the vectors rv (the right-hand side, updated in
+// place by the backward sweep), ycr (its y) and dg (the solution), each
+// [NpG, G] with G = K n.
+struct CrownArgs {
+  const float *CholW, *CholUt;
+  const int *lev_ptr, *lev_child, *lev_parent, *lev_slot;
+  float *rv, *ycr, *dg;
+  int n, K, n_lev;
+};
+
+// The blocks that share the solve's levels and the barrier between them:
+// one cluster of kCrownCluster blocks (the cluster's barrier, release /
+// acquire at cluster scope, in two halves so that loads which do not
+// depend on the other blocks' writes overlap it), or one block
+// (__syncthreads, whose wait is the whole barrier). rank: the block's place.
+struct ClusterTeam {
+  static constexpr int kBlocks = kCrownCluster;
+  int rank;
+  __device__ ClusterTeam() : rank((int)cg::this_cluster().block_rank()) {}
+  __device__ void arrive() const { cluster_arrive(); }
+  __device__ void wait() const { cluster_wait(); }
+  __device__ void sync() const {
+    arrive();
+    wait();
+  }
+};
+struct BlockTeam {
+  static constexpr int kBlocks = 1;
+  int rank = 0;
+  __device__ void arrive() const {}
+  __device__ void wait() const { __syncthreads(); }
+  __device__ void sync() const { __syncthreads(); }
+};
+
+// Lane i's row of the G x G lower factor Lg: the entries m <= i in Lrow
+// (0 past them), the diagonal in diag (1 on the lanes past row G-1).
+__device__ __forceinline__ void load_lrow(const float* Lg, int G, int i,
+                                          float (&Lrow)[kCrownW], float& diag) {
+  diag = 1.f;
+#pragma unroll
+  for (int m = 0; m < kCrownW; ++m) {
+    Lrow[m] = m < G && i < G && m <= i ? Lg[i * G + m] : 0.f;
+    if (m == i && i < G) diag = Lrow[m];
+  }
+}
+
+// Lane i's column of Lg: the entries m >= i in Lcol (0 past them) and the
+// diagonal, as load_lrow.
+__device__ __forceinline__ void load_lcol(const float* Lg, int G, int i,
+                                          float (&Lcol)[kCrownW], float& diag) {
+  diag = 1.f;
+#pragma unroll
+  for (int m = 0; m < kCrownW; ++m) {
+    Lcol[m] = m < G && i < G && m >= i ? Lg[m * G + i] : 0.f;
+    if (m == i && i < G) diag = Lcol[m];
+  }
+}
+
+// y = Lg^-1 r, lane i holding r_i in acc and its row of Lg (load_lrow);
+// every lane calls onk(k, y_k) as y_k is broadcast. G rounds of a division
+// and a shuffle. Returns y_i.
+template <typename OnK>
+__device__ __forceinline__ float warp_ltrsv(const float (&Lrow)[kCrownW], float diag,
+                                            float acc, int G, int i, OnK onk) {
+  float y = 0.f;
+#pragma unroll
+  for (int k = 0; k < kCrownW; ++k) {
+    if (k < G) {
+      const float yk = __shfl_sync(kFull, quotient(acc, diag, i == k), k);
+      if (i > k) acc = __fmaf_rn(-Lrow[k], yk, acc);
+      if (i == k) y = yk;
+      onk(k, yk);
+    }
+  }
+  return y;
+}
+
+// z = Lg^-T v, lane i holding v_i in acc and its column of Lg (load_lcol);
+// every lane keeps the z_m solved so far and lane k folds its sum over m
+// = k+1 .. G-1 ascending (uttrsv_inplace's order) before it divides.
+// Returns z_i.
+__device__ __forceinline__ float warp_uttrsv(const float (&Lcol)[kCrownW], float diag,
+                                             float acc, int G, int i) {
+  float z[kCrownW];
+#pragma unroll
+  for (int m = 0; m < kCrownW; ++m) z[m] = 0.f;
+  float out = 0.f;
+#pragma unroll
+  for (int k = kCrownW - 1; k >= 0; --k) {
+    if (k < G) {
+      float v = acc;
+#pragma unroll
+      for (int m = k + 1; m < kCrownW; ++m)
+        if (m < G) v = __fmaf_rn(-Lcol[m], z[m], v);
+      z[k] = __shfl_sync(kFull, quotient(v, diag, i == k), k);
+      if (i == k) out = z[k];
+    }
+  }
+  return out;
+}
+
+// crown_solve_core's three parts on the team's warps, a group a warp:
+// backward, deepest level first; the root (the team's warp 0); forward,
+// top level first; the team's barrier after each level and after the root,
+// so dg is complete on return. A level's entries go to the warps
+// interleaved over the blocks (warp q of block b is warp q kBlocks + b),
+// so a narrow level spreads over the blocks' SMs. The factors are not
+// written during the solve: a warp loads its first group's rows of the
+// next level (or the root's) between the barrier's two halves. rv, ycr
+// and dg cross blocks: plain loads after the barrier, never the read-only
+// path. The caller has written rv and dg and passed the team's barrier.
+// stamp(k) is called after the backward levels (k = 15), the root (16)
+// and the forward levels (17).
+template <typename Team, typename Stamp>
+__device__ void crown_solve_warps(const Team& team, const CrownArgs& a, Stamp stamp) {
+  const int n = a.n, G = a.K * a.n, L = a.n_lev;
+  const int i = threadIdx.x % kCrownW;
+  // the warp's number, read from lane 0 so that the compiler knows it is
+  // the same on every lane
+  const int w = __shfl_sync(kFull, (threadIdx.x / kCrownW) * Team::kBlocks + team.rank, 0);
+  const int nw = Team::kBlocks * (blockDim.x / kCrownW);
+  const size_t GG = (size_t)G * G;
+  // the warp's next group: backward, row i of CholW_g (F) and of CholUt_g
+  // (U); the root, row (F) and column (U) i of CholW_0; forward, column i
+  // of CholW_g (F) and of CholUt_g (U, n entries)
+  float F[kCrownW], U[kCrownW], diag;
+  const auto fetch_bwd = [&](int e) {
+    const int g = a.lev_child[e];
+    load_lrow(a.CholW + g * GG, G, i, F, diag);
+    const float* Ug = a.CholUt + (size_t)g * n * G;
+#pragma unroll
+    for (int k = 0; k < kCrownW; ++k) U[k] = i < n && k < G ? Ug[i * G + k] : 0.f;
+  };
+  const auto fetch_root = [&]() {
+    load_lrow(a.CholW, G, i, F, diag);
+    load_lcol(a.CholW, G, i, U, diag);
+  };
+  const auto fetch_fwd = [&](int e) {
+    const int g = a.lev_child[e];
+    load_lcol(a.CholW + g * GG, G, i, F, diag);
+    const float* Ug = a.CholUt + (size_t)g * n * G;
+#pragma unroll
+    for (int q = 0; q < kMaxN; ++q) U[q] = q < n && i < G ? Ug[q * G + i] : 0.f;
+  };
+  // the warp's first entry of level lv, fetched where it has one
+  const auto first_bwd = [&](int lv) {
+    const int e = a.lev_ptr[lv] + w;
+    if (e < a.lev_ptr[lv + 1]) fetch_bwd(e);
+    return e;
+  };
+  const auto first_fwd = [&](int lv) {
+    const int e = a.lev_ptr[lv] + w;
+    if (e < a.lev_ptr[lv + 1]) fetch_fwd(e);
+    return e;
+  };
+
+  // backward sweep
+  int e = 0;
+  if (L > 0)
+    e = first_bwd(0);
+  else if (w == 0)
+    fetch_root();
+  for (int lv = 0; lv < L; ++lv) {
+    for (const int e0 = e; e < a.lev_ptr[lv + 1]; e += nw) {
+      if (e != e0) fetch_bwd(e);
+      const int g = a.lev_child[e];
+      float racc = 0.f;
+      const float y = warp_ltrsv(F, diag, i < G ? a.rv[(size_t)g * G + i] : 0.f, G, i,
+                                 [&](int k, float yk) { racc = __fmaf_rn(U[k], yk, racc); });
+      if (i < G) a.ycr[(size_t)g * G + i] = y;
+      if (i < n) a.rv[(size_t)a.lev_parent[e] * G + a.lev_slot[e] * n + i] -= racc;
+    }
+    team.arrive();
+    if (lv + 1 < L)
+      e = first_bwd(lv + 1);
+    else if (w == 0)
+      fetch_root();
+    team.wait();
+  }
+  stamp(15);
+  // root
+  if (w == 0) {
+    const float y = warp_ltrsv(F, diag, i < G ? a.rv[i] : 0.f, G, i, [](int, float) {});
+    if (i < G) a.ycr[i] = y;
+    const float z = warp_uttrsv(U, diag, y, G, i);
+    if (i < G) a.dg[i] = z;
+  }
+  team.arrive();
+  if (L > 0) e = first_fwd(L - 1);
+  team.wait();
+  stamp(16);
+  // forward substitution
+  for (int lv = L - 1; lv >= 0; --lv) {
+    for (const int e0 = e; e < a.lev_ptr[lv + 1]; e += nw) {
+      if (e != e0) fetch_fwd(e);
+      const int g = a.lev_child[e];
+      const float* dp = a.dg + (size_t)a.lev_parent[e] * G + a.lev_slot[e] * n;
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < kMaxN; ++q)
+        if (q < n) acc = __fmaf_rn(U[q], dp[q], acc);
+      const float v = i < G ? a.ycr[(size_t)g * G + i] - acc : 0.f;
+      const float z = warp_uttrsv(F, diag, v, G, i);
+      if (i < G) a.dg[(size_t)g * G + i] = z;
+    }
+    team.arrive();
+    if (lv > 0) e = first_fwd(lv - 1);
+    team.wait();
+  }
+  stamp(17);
+}
+
+// The crown's solve on the team: on its warps for G <= kCrownW, else
+// crown_solve_core on the threads of the team's block 0 (a thread a
+// group); ends behind the team's barrier.
+template <typename Team, typename Stamp>
+__device__ __forceinline__ void crown(const Team& team, const CrownArgs& a, Stamp stamp) {
+  if (a.K * a.n <= kCrownW) {
+    crown_solve_warps(team, a, stamp);
+  } else {
+    if (team.rank == 0)
+      crown_solve_core(a.CholW, a.CholUt, a.lev_ptr, a.lev_child, a.lev_parent, a.lev_slot,
+                       a.rv, a.ycr, a.dg, a.n, a.K, a.n_lev);
+    team.sync();
   }
 }
 

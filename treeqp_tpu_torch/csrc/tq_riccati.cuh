@@ -1,8 +1,9 @@
 // One stage of the IPM's Riccati recursion, for one thread: shared by the
 // chain kernels (ric_chain.cu, a chain's stages in sequence) and the crown
 // kernels (crown_ric.cu, a tree level's nodes in parallel); and the
-// backward right-hand-side stage on a group of lanes (ric_stage_bwd_lanes,
-// ric_chain.cu's ric_chain_bwd).
+// backward right-hand-side and forward stages on a group of lanes
+// (ric_stage_bwd_lanes, ric_stage_fwd_lanes: ric_chain.cu's ric_chain_bwd
+// and ric_chain_fwd).
 //
 // Blocks are row-major. A stage has nx states and nu = nz - nx controls;
 // M is its [nz, nz] Hessian with the successors' terms added, AB [nx, nz]
@@ -209,6 +210,61 @@ __device__ inline void ric_stage_fwd(const float* zp, const float* __restrict__ 
     dl[x] = s + p[x];
     dz[x] = dx[x];
   }
+}
+
+
+// ric_stage_fwd on a group of G lanes (G = lanes(NZ)), lane i holding row i
+// of the parent's step zp [NZ] (``zp``; lanes past NZ - 1 hold 0). The
+// stage's blocks are read from shared memory: P [nx, nx], K [nu, nx], AB
+// [nx, NZ], rb [nx], p [nx], k [nu]. Returns lane i's row of dz = [dx; du]
+// (0 past NZ - 1); lane x < nx gets dlam_x in ``dl``.
+// - zp is broadcast by NZ __shfl_sync that do not depend on each other;
+//   lane x sums dx_x = sum_c AB_xc zp_c + rb_x.
+// - dx is broadcast by nx shuffles, and one fold over them gives lane
+//   nx + u du_u = sum_x K_ux dx_x + k_u and lane x dlam_x = sum_c P_xc dx_c
+//   + p_x (each lane its own row of K or P).
+// Every sum starts from 0 and runs in ric_stage_fwd's loop order, each
+// product folded in by one FMA (__fmaf_rn: nvcc contracts the per-thread
+// body's products, the first onto the 0 it starts from) and the three
+// adds rounded on their own (__fadd_rn): bit for bit ric_stage_fwd.
+template <int NZ, int G>
+__device__ __forceinline__ float ric_stage_fwd_lanes(float zp, const float* P, const float* K,
+                                                     const float* AB, const float* rb,
+                                                     const float* p, const float* k, int nx,
+                                                     int i, float& dl) {
+  const int nu = NZ - nx;
+  const int u = i - nx;  // row of K on lanes nx .. NZ-1
+  const bool xrow = i < nx;
+  const bool urow = u >= 0 && u < nu;
+  // the operands, off the dependent chain: lane x's row of AB and of P,
+  // lane nx + u's row of K, and what each adds
+  float ABrow[NZ], row[NZ];
+#pragma unroll
+  for (int c = 0; c < NZ; ++c) {
+    ABrow[c] = xrow ? AB[i * NZ + c] : 0.f;
+    row[c] = c >= nx ? 0.f : xrow ? P[i * nx + c] : urow ? K[u * nx + c] : 0.f;
+  }
+  const float add0 = xrow ? rb[i] : 0.f;
+  const float add1 = xrow ? p[i] : urow ? k[u] : 0.f;
+
+  float z[NZ];
+#pragma unroll
+  for (int c = 0; c < NZ; ++c) z[c] = __shfl_sync(kFull, zp, c, G);
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < NZ; ++c) s = __fmaf_rn(ABrow[c], z[c], s);
+  const float dx = xrow ? __fadd_rn(s, add0) : 0.f;
+
+  float d[NZ];
+#pragma unroll
+  for (int x = 0; x < NZ; ++x) d[x] = x < nx ? __shfl_sync(kFull, dx, x, G) : 0.f;
+  s = 0.f;
+#pragma unroll
+  for (int x = 0; x < NZ; ++x)
+    if (x < nx) s = __fmaf_rn(row[x], d[x], s);
+  const float out = __fadd_rn(s, add1);
+  dl = out;
+  return xrow ? dx : urow ? out : 0.f;
 }
 
 }  // namespace tq

@@ -24,12 +24,13 @@
 // Ls_j, CUs_j streamed through a cp.async ring; a block gives as many lane
 // groups to the sweeps as its shared memory holds rings (kSysRingBytes,
 // ring_shape), and the groups stride over the chains. The crown's levels
-// run a warp a group (lane i row i, G <= 32 rows) on the cluster's warps;
-// wider groups run tq_crown.cuh's per-thread crown_solve_core in block 0.
-// Every sum keeps the order of the per-thread bodies this replaced
-// (tq_dense.cuh's ltrsv_inplace / uttrsv_inplace and crown_solve_core),
-// each product one FMA as nvcc contracted them there and the divisions
-// true divisions: bit for bit the one-block kernel.
+// are tq_crown.cuh's crown solve, the one crown_solve.cu runs: a warp a
+// group (lane i row i, G <= 32 rows) on the cluster's warps; wider groups
+// run the per-thread crown_solve_core in block 0. Every sum keeps the
+// order of the per-thread bodies this replaced (tq_dense.cuh's
+// ltrsv_inplace / uttrsv_inplace and crown_solve_core), each product one
+// FMA as nvcc contracted them there and the divisions true divisions: bit
+// for bit the one-block kernel.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -96,127 +97,24 @@ __device__ __forceinline__ void chain_fwd(const SystemArgs& a, float* smem, int 
   });
 }
 
-// The crown's solve with one warp per group, lane i owning row i of the
-// group's G <= 32 rows (crown_solve_core's sums in its order): the triangular
-// solves as in the chain sweeps, G rounds of a division and a shuffle.
-constexpr int kSysW = 32;
-
-// y = Lg^-1 r for the G x G lower factor Lg, lane i holding r_i in acc;
-// every lane calls onk(k, y_k) as y_k is broadcast. Returns y_i.
-template <typename OnK>
-__device__ __forceinline__ float warp_ltrsv(const float* Lg, float acc, int G, int i,
-                                            OnK onk) {
-  float Lrow[kSysW];
-  float diag = 1.f;
-#pragma unroll
-  for (int m = 0; m < kSysW; ++m) {
-    Lrow[m] = m < G && i < G && m <= i ? Lg[i * G + m] : 0.f;
-    if (m == i && i < G) diag = Lrow[m];
-  }
-  float y = 0.f;
-#pragma unroll
-  for (int k = 0; k < kSysW; ++k) {
-    if (k < G) {
-      const float yk = __shfl_sync(kFull, quotient(acc, diag, i == k), k);
-      if (i > k) acc = __fmaf_rn(-Lrow[k], yk, acc);
-      if (i == k) y = yk;
-      onk(k, yk);
-    }
-  }
-  return y;
+// Phase 2's operands: the crown's part of a.
+__device__ __forceinline__ CrownArgs crown_args(const SystemArgs& a) {
+  CrownArgs c;
+  c.CholW = a.CholW; c.CholUt = a.CholUt;
+  c.lev_ptr = a.lev_ptr; c.lev_child = a.lev_child; c.lev_parent = a.lev_parent;
+  c.lev_slot = a.lev_slot;
+  c.rv = a.rv; c.ycr = a.ycr; c.dg = a.dg;
+  c.n = a.n; c.K = a.K; c.n_lev = a.n_lev;
+  return c;
 }
 
-// z = Lg^-T v, lane i holding v_i in acc; returns z_i.
-__device__ __forceinline__ float warp_uttrsv(const float* Lg, float acc, int G, int i) {
-  float Lcol[kSysW], z[kSysW];
-  float diag = 1.f;
-#pragma unroll
-  for (int m = 0; m < kSysW; ++m) {
-    Lcol[m] = m < G && i < G && m >= i ? Lg[m * G + i] : 0.f;
-    if (m == i && i < G) diag = Lcol[m];
-    z[m] = 0.f;
-  }
-  float out = 0.f;
-#pragma unroll
-  for (int k = kSysW - 1; k >= 0; --k) {
-    if (k < G) {
-      float v = acc;
-#pragma unroll
-      for (int m = k + 1; m < kSysW; ++m)
-        if (m < G) v = __fmaf_rn(-Lcol[m], z[m], v);
-      z[k] = __shfl_sync(kFull, quotient(v, diag, i == k), k);
-      if (i == k) out = z[k];
-    }
-  }
-  return out;
-}
-
-// crown_solve_core's three parts on the cluster's warps, a group a warp,
-// the cluster's barrier between levels: backward, deepest level first; the
-// root (block 0's warp 0); forward, top level first. Every sum in
-// crown_solve_core's order, each product one FMA as nvcc contracts it
-// there: bit for bit that body. stamp(k) is called after the backward
-// levels (k = 15), the root (16) and the forward levels (17).
+// Phase 2: tq_crown.cuh's crown solve on the cluster (its warps, or block
+// 0's threads where a group is wider than a warp); ends behind the
+// cluster's barrier. stamp(k): crown_solve_warps'.
 template <typename Stamp>
-__device__ void crown_solve_warps(cg::cluster_group& cluster, const SystemArgs& a, int b,
-                                  Stamp stamp) {
-  const int n = a.n, G = a.K * a.n;
-  const int i = threadIdx.x % kSysW, nwb = blockDim.x / kSysW;
-  const int w = b * nwb + threadIdx.x / kSysW, nw = kSysCluster * nwb;  // the cluster's warps
-  const size_t GG = (size_t)G * G;
-  for (int lv = 0; lv < a.n_lev; ++lv) {
-    for (int e = a.lev_ptr[lv] + w; e < a.lev_ptr[lv + 1]; e += nw) {
-      const int g = a.lev_child[e];
-      const float* U = a.CholUt + (size_t)g * n * G;
-      float Urow[kSysW];  // row i of CholUt_g (i < n)
-#pragma unroll
-      for (int k = 0; k < kSysW; ++k) Urow[k] = i < n && k < G ? U[i * G + k] : 0.f;
-      float racc = 0.f;
-      const float y = warp_ltrsv(a.CholW + g * GG, i < G ? a.rv[(size_t)g * G + i] : 0.f, G,
-                                 i, [&](int k, float yk) { racc = __fmaf_rn(Urow[k], yk, racc); });
-      if (i < G) a.ycr[(size_t)g * G + i] = y;
-      if (i < n) a.rv[(size_t)a.lev_parent[e] * G + a.lev_slot[e] * n + i] -= racc;
-    }
-    cluster.sync();
-  }
-  stamp(15);
-  if (w == 0) {
-    const float y = warp_ltrsv(a.CholW, i < G ? a.rv[i] : 0.f, G, i, [](int, float) {});
-    if (i < G) a.ycr[i] = y;
-    const float z = warp_uttrsv(a.CholW, y, G, i);
-    if (i < G) a.dg[i] = z;
-  }
-  cluster.sync();
-  stamp(16);
-  for (int lv = a.n_lev - 1; lv >= 0; --lv) {
-    for (int e = a.lev_ptr[lv] + w; e < a.lev_ptr[lv + 1]; e += nw) {
-      const int g = a.lev_child[e];
-      const float* dp = a.dg + (size_t)a.lev_parent[e] * G + a.lev_slot[e] * n;
-      const float* U = a.CholUt + (size_t)g * n * G;
-      float acc = 0.f;
-      for (int q = 0; q < n; ++q) acc = __fmaf_rn(i < G ? U[q * G + i] : 0.f, dp[q], acc);
-      const float v = i < G ? a.ycr[(size_t)g * G + i] - acc : 0.f;
-      const float z = warp_uttrsv(a.CholW + g * GG, v, G, i);
-      if (i < G) a.dg[(size_t)g * G + i] = z;
-    }
-    cluster.sync();
-  }
-  stamp(17);
-}
-
-// Phase 2: the crown on the cluster's warps, or in block 0 where a group
-// is wider than a warp; ends behind the cluster's barrier.
-template <typename Stamp>
-__device__ __forceinline__ void crown(cg::cluster_group& cluster, const SystemArgs& a,
-                                      int b, Stamp stamp) {
-  if (a.K * a.n <= kSysW) {
-    crown_solve_warps(cluster, a, b, stamp);
-  } else {
-    if (b == 0)
-      crown_solve_core(a.CholW, a.CholUt, a.lev_ptr, a.lev_child, a.lev_parent, a.lev_slot,
-                       a.rv, a.ycr, a.dg, a.n, a.K, a.n_lev);
-    cluster.sync();
-  }
+__device__ __forceinline__ void crown(const SystemArgs& a, Stamp stamp) {
+  static_assert(kSysCluster == ClusterTeam::kBlocks, "the crown runs on the whole cluster");
+  crown(ClusterTeam(), crown_args(a), stamp);
 }
 
 // The sweep groups a block can hold rings for, in whole warps, and the

@@ -78,8 +78,8 @@ _SIGNATURES = {
     # K, nxm, n_lev, reg, warps, warp_floats, stream
     "tq_crown_factor": [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P],
     # CholW, CholUt, rg, lev_ptr, lev_child, lev_parent, lev_slot, rv, ycr,
-    # dg, NpG, K, nxm, n_lev, threads, stream
-    "tq_crown_solve": [_P] * 10 + [_I] * 5 + [_P],
+    # dg, NpG, K, nxm, n_lev, blocks, warps, stream
+    "tq_crown_solve": [_P] * 10 + [_I] * 6 + [_P],
     # the general stage QPs' ADMM identification, f32 and f64
     # G, L, rho, lo, hi, h, z0, lm, N, ng, nz, iters, stream
     "tq_admm_identify_f32": [_P] * 8 + [_I] * 4 + [_P],

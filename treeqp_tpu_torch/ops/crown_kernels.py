@@ -113,11 +113,6 @@ def _level_index(sched, device):
     return out
 
 
-def _sched_threads(sched) -> int:
-    """Threads of the one-block crown solve: one per group up to 1024."""
-    return min(1024, max(32, -(-max(sched.NpG, sched.width) // 32) * 32))
-
-
 # the crown factor kernels' launch (csrc/tq_crown.cuh): one cluster of
 # _CLUSTER blocks, a warp a group; a lane holds R = ceil((G + nxm) / 32)
 # rows of the group's block and couplings, and a block takes at most 16
@@ -141,6 +136,27 @@ def _factor_launch(sched, nz=0) -> tuple[int, int]:
     warps = min(_MAX_WARPS[-(-(G + n) // 32)], (_BLOCK_SMEM - sched_bytes) // (4 * floats),
                 -(-sched.NpG // _CLUSTER))
     return max(1, warps), floats
+
+
+# the crown solve's launch (csrc/crown_solve.cu): blocks of at most
+# _SOLVE_WARPS warps, on one cluster of _CLUSTER blocks or in one block;
+# a warp a group for G <= 32, a thread a group in one block beyond
+_SOLVE_WARPS = 16
+_SOLVE_ONE_BLOCK = 16  # the widest level one block takes, a warp a group
+
+
+def _solve_launch(sched) -> tuple[int, int]:
+    """(blocks, warps a block) of ``crown_solve``: the warps cover the
+    widest level in one round where a block's threads allow. Levels of at
+    most _SOLVE_ONE_BLOCK groups take one block, whose barrier costs less
+    than the cluster's; wider ones a cluster, their warps interleaved over
+    its blocks. G > 32 takes the per-thread form: one block, a thread a
+    group."""
+    if sched.G > 32:
+        return 1, min(_SOLVE_WARPS, -(-sched.width // 32))
+    if sched.width <= _SOLVE_ONE_BLOCK:
+        return 1, sched.width
+    return _CLUSTER, min(_SOLVE_WARPS, -(-sched.width // _CLUSTER))
 
 
 def crown_supported(prep, opts) -> bool:
@@ -269,8 +285,8 @@ def crown_solve(CholW, CholUt, rg, prep, levels=None):
         CholW.data_ptr(), CholUt.data_ptr(), rg.data_ptr(),
         t["lev_ptr"].data_ptr(), t["lev_child"].data_ptr(),
         t["lev_parent"].data_ptr(), t["lev_slot"].data_ptr(), rv.data_ptr(),
-        ycr.data_ptr(), dg.data_ptr(), NpG, K, nxm, sched.n_lev,
-        _sched_threads(sched), _build.stream(dev))
+        ycr.data_ptr(), dg.data_ptr(), NpG, K, nxm, sched.n_lev, *_solve_launch(sched),
+        _build.stream(dev))
     _build.check(err, name)
     crown_solve.launches += 1
     return dg
