@@ -117,9 +117,13 @@ Phases (any failure exits non-zero):
    ``torch.linalg.ldl_factor_ex`` of the crown's dense KKT matrix
    (``ric_crown_matrix``: the Hessians, the dynamics rows and their
    transposes; indefinite, so no Cholesky applies) and ``ldl_solve`` with
-   its factors (its distance to the twin's dz, dlam printed); ric_chain_bwd,
-   and ric_chain_fwd on its outputs, held against their twins at
-   RIC_EDGES (both hbar forms, seeded right-hand sides ``ric_rhs``); path
+   its factors (its distance to the twin's dz, dlam printed), and both
+   crown kernels in a CUDA graph on paths B and C; crown_ric_factor, and
+   crown_ric_solve on the twin's factors, held against their twins at
+   CROWN_RIC_EDGES (seeded whole trees, ``ric_crown_operands``);
+   ric_chain_bwd, and ric_chain_fwd on its outputs, held against their
+   twins at RIC_EDGES (both hbar forms, seeded right-hand sides
+   ``ric_rhs``); path
    A's chain kernels beside theirs, ``ldl_factor_ex`` of each chain's KKT
    matrix (``ric_chain_matrix``, batched [256, 272, 272]) for
    ric_chain_factor and ``ldl_solve`` with its factors
@@ -210,8 +214,8 @@ chain_forward, crown_factor, crown_solve, crown_blocks_factor,
 df_reduce_flat, chain_blocks_factor, chain_blocks_factor_lanes,
 system_solve and jay_cr_solve also with ``graph_ms`` and
 ``library_graph_ms``: kernel and library call in a CUDA graph;
-admm_identify, chain_full_solve_mat and the three chain Riccati kernels
-with ``graph_ms``), then the
+admm_identify, chain_full_solve_mat and the five Riccati kernels with
+``graph_ms``), then the
 device JSON as the last line.
 Imports nothing of JAX.
 """
@@ -302,6 +306,16 @@ ITER_EDGES = (("quadcopter", (4, 5, 8)), ("spring_mass_chain", (8, 2, 2, 6)),
 RIC_EDGES = ((5, 1, 8, 9), (5, 7, 7, 8), (5, 7, 8, 9), (5, 7, 15, 16), (5, 7, 1, 2),
              (4, 40, 8, 9))
 RIC_REG = 1e-8  # the Levenberg-Marquardt shift of Muu at those edges
+# crown_ric_factor's and crown_ric_solve's kernel edges (a group of 8 or 16
+# lanes a single-kid run, one instantiation per nz, one block or one
+# cluster), held against the twins on seeded operands of whole multistage
+# trees (ric_crown_operands): (md, Nr, Nh, nx, nu, reg): nz = 2, nz = 16
+# with nx = 8 and with nx = 15, a 1024-node level (more runs than the
+# cluster's groups), a deep tree of single-kid runs, a chain (the root's
+# only kid), reg > 0
+CROWN_RIC_EDGES = ((3, 2, 3, 1, 1, 0.0), (3, 2, 3, 8, 8, 0.0), (3, 2, 3, 15, 1, 0.0),
+                   (4, 5, 5, 8, 1, 0.0), (2, 2, 12, 4, 2, 0.0), (2, 0, 6, 4, 1, 0.0),
+                   (3, 2, 4, 6, 3, 1e-3))
 # chain_full_solve_mat's kernel edges (a group of 8 or 16 lanes a chain and
 # column, a 3-stage ring), held against the twin on seeded factors
 # (full_operands): (S, L, n, m) with n 1, 8, 9, 16 (either side of the lane
@@ -852,6 +866,29 @@ def ric_crown_matrix(torch, hbar, AB, Wsum0, prep, nx, reg=0.0):
     E[(n - 1)[:, None], a, n[:, None], a] = -1.0
     M[:Nz, Nz:] = M[Nz:, :Nz].T
     return M
+
+
+def ric_crown_operands(torch, md, Nr, Nh, nx, nu, seed, dev):
+    """Seeded operands of the crown Riccati kernels on the whole multistage
+    tree (md, Nr, Nh) with nx states and nu inputs: (hbar, AB, Wsum0, rg,
+    rb, wsum0, prep). hbar in [1, 2], AB 0.3 N(0, 1) / sqrt(nz), at the
+    leaves Wsum0 an SPD term B B' / (2 nz) and wsum0 N(0, 1) (zero
+    elsewhere, as the chains' terms are), rg and rb N(0, 1): every stage's
+    Muu well conditioned and W bounded along any depth, so FACTOR_RTOL
+    holds."""
+    import numpy as np
+    from treeqp_tpu_torch.solvers import ipm
+    from treeqp_tpu_torch.utils.tree import TreeStructure
+    topo = TreeStructure.multistage(md, Nr, Nh, nx, nu)
+    prep = ipm._get_ipm_prep(topo)
+    rng = np.random.default_rng(seed)
+    Nc, nz = topo.Nn, nx + nu
+    leaf = (np.asarray(topo.nkids) == 0)[:, None, None]
+    B = rng.standard_normal((Nc, nz, nz))
+    ops = (rng.uniform(1.0, 2.0, (Nc, nz)), 0.3 * rng.standard_normal((Nc, nx, nz)) / np.sqrt(nz),
+           leaf * (B @ B.transpose(0, 2, 1)) / (2 * nz), rng.standard_normal((Nc, nz)),
+           rng.standard_normal((Nc, nx)), leaf[:, :, 0] * rng.standard_normal((Nc, nz)))
+    return (*(torch.tensor(a, dtype=torch.float32, device=dev) for a in ops), prep)
 
 
 def ric_crown_vector(torch, rg, rb, wsum0, x=None):
@@ -2364,9 +2401,10 @@ def main():
                       lambda a=(hbar, AB, W0, prep_c, nx_), kw=kw: crk.crown_ric_factor(*a, **kw),
                       lambda a=(hbar, AB, W0, prep_c, nx_), kw=kw:
                       crk.crown_ric_factor_ref(*a, **kw),
-                      FACTOR_RTOL, f"hbar {tuple(hbar.shape)}, {sched_c.n_lev} levels",
-                      (hbar, AB, W0, [v for k, v in sched_c.on(dev).items()
-                                      if k != "par"]),  # the factor reads no parent
+                      FACTOR_RTOL, f"hbar {tuple(hbar.shape)}, {sched_c.n_lev} levels, "
+                      f"{sched_c.n_ph} phases of runs",
+                      (hbar, AB, W0, [sched_c.on(dev)[k] for k in (
+                          "kid_ptr", "kid_idx", "ph_ptr", "run_ptr", "run_node")]),
                       Nc_c * (stage_ops(nx_, nz_, "factor") + nz_ * nz_))
             (fact, rg, rb, w0, prep_c), _ = got["crown_ric_solve"]
             rg, rb, w0 = (v.to(f32).contiguous() for v in (rg, rb, w0))
@@ -2394,7 +2432,8 @@ def main():
                       lambda a=(fact, rg, rb, w0, prep_c): crk.crown_ric_solve_ref(*a),
                       SOLVE_RTOL, f"rg {tuple(rg.shape)}",
                       ([fact[k] for k in ("P", "Luu", "K", "Mxu", "AB")], rg, rb, w0,
-                       sched_c.on(dev)),
+                       [sched_c.on(dev)[k] for k in ("kid_ptr", "kid_idx", "par", "ph_ptr",
+                                                     "run_ptr", "run_node")]),
                       Nc_c * (stage_ops(nx_, nz_, "bwd") + stage_ops(nx_, nz_, "fwd") + nz_)
                       + chol_ops(nx_) + 4 * nx_ * nx_)
     # ric_chain_factor at its kernel's edges (RIC_EDGES), both hbar forms
@@ -2434,6 +2473,29 @@ def main():
                     torch, f"{name} {what}", got_, ref_, SOLVE_RTOL))
     print(f"ric_chain_bwd, ric_chain_fwd at {RIC_EDGES} (both hbar forms): max |diff| to the "
           f"twins {ric_sweep_err['ric_chain_bwd']:.3e}, {ric_sweep_err['ric_chain_fwd']:.3e}")
+    # crown_ric_factor, and crown_ric_solve on the twin's factors, at their
+    # kernels' edges (CROWN_RIC_EDGES) on seeded whole trees
+    crown_edge_err = {"crown_ric_factor": 0.0, "crown_ric_solve": 0.0}
+    for k, (md_e, Nr_e, Nh_e, nx_e, nu_e, reg_e) in enumerate(CROWN_RIC_EDGES):
+        hb_e, AB_e, W0_e, rg_e, rb_e, w0_e, prep_e = ric_crown_operands(
+            torch, md_e, Nr_e, Nh_e, nx_e, nu_e, 60 + k, dev)
+        ref_f = crk.crown_ric_factor_ref(hb_e, AB_e, W0_e, prep_e, nx_e, reg_e)
+        got_f = crk.crown_ric_factor(hb_e, AB_e, W0_e, prep_e, nx_e, reg_e)
+        got_s = crk.crown_ric_solve(ref_f, rg_e, rb_e, w0_e, prep_e)
+        torch.cuda.synchronize()
+        what = (f"at md={md_e}, Nr={Nr_e}, Nh={Nh_e}, nx={nx_e}, nu={nu_e}, reg={reg_e} "
+                f"({prep_e.topo.Nn} nodes, launch "
+                f"{crk._ric_launch(crk._get_sched(prep_e), nx_e + nu_e)})")
+        pick = lambda f: [f[q] for q in ("P", "Luu", "K", "Mxu")]
+        for name, got_, ref_, rtol in (
+                ("crown_ric_factor", pick(got_f), pick(ref_f), FACTOR_RTOL),
+                ("crown_ric_solve", got_s, crk.crown_ric_solve_ref(ref_f, rg_e, rb_e, w0_e,
+                                                                   prep_e), SOLVE_RTOL)):
+            crown_edge_err[name] = max(crown_edge_err[name], compare(
+                torch, f"{name} {what}", got_, ref_, rtol))
+    print(f"crown_ric_factor, crown_ric_solve at their kernels' edges {CROWN_RIC_EDGES} (md, "
+          f"Nr, Nh, nx, nu, reg): max |diff| to the twins "
+          f"{crown_edge_err['crown_ric_factor']:.3e}, {crown_edge_err['crown_ric_solve']:.3e}")
     # the library calls of rows 22-24 at path A: ldl_factor_ex of each
     # chain's KKT matrix (ric_chain_matrix) for ric_chain_factor, and
     # ldl_solve with its factors for ric_chain_bwd and ric_chain_fwd
@@ -2460,8 +2522,9 @@ def main():
         runs = ipm_checks[name]
         err, fn, ref_fn, shapes, inputs, ops = runs[timed]
         others = ", ".join(
-            f"path {p} {r[3]}: |diff| {r[0]:.3e}, "
-            f"{cuda_ms(torch, r[1], 20):.4f} ms" for p, r in runs.items() if p != timed)
+            f"path {p} {r[3]}: |diff| {r[0]:.3e}, {cuda_ms(torch, r[1], 20):.4f} ms alone, "
+            f"{graph_ms(torch, r[1]):.4f} ms in a CUDA graph" for p, r in runs.items()
+            if p != timed)
         source = "ric_chain.cu" if name.startswith("ric") else "crown_ric.cu"
         replaces = {"ric_chain_factor": "riccati_kernels.py:84",
                     "ric_chain_bwd": "riccati_kernels.py:150",
@@ -2486,13 +2549,18 @@ def main():
         if name in ric_library:
             lib_fn, lib_note = ric_library[name]
             m = measure(fn, ref_fn, inputs, ops, lib_fn=lib_fn)
-            note = f"; library call {m['library_ms']:.4f} ms ({lib_note})"
-            print(f"{name} (path {timed} {shapes}): {m['ms']:.4f} ms alone; library call "
-                  f"{m['library_ms']:.4f} ms ({lib_note}) on {card}")
+            m.update(graph_ms=graph_ms(torch, fn))
+            note = (f"; {m['graph_ms']:.4f} ms in a CUDA graph; library call "
+                    f"{m['library_ms']:.4f} ms ({lib_note}); edges {CROWN_RIC_EDGES} max |diff| "
+                    f"{crown_edge_err[name]:.3e}")
+            err = max(err, crown_edge_err[name])
+            print(f"{name} (path {timed} {shapes}): {m['ms']:.4f} ms alone, {m['graph_ms']:.4f} "
+                  f"ms in a CUDA graph; library call {m['library_ms']:.4f} ms ({lib_note}); "
+                  f"{others} on {card}")
         if name == "ric_chain_factor":
             note += f"; edges {RIC_EDGES} max |diff| {ric_edge_err:.3e}"
             err = max(err, ric_edge_err)
-        edge = {"ric_chain_factor": ric_edge_err, **ric_sweep_err}.get(name)
+        edge = {"ric_chain_factor": ric_edge_err, **ric_sweep_err, **crown_edge_err}.get(name)
         record(name, source, f"treeqp_tpu/ops/{replaces}",
                max([r[0] for r in runs.values()] + ([] if edge is None else [edge])),
                fn, ref_fn, f"path {timed} {shapes}, |diff| {err:.3e}; {others}{note}", inputs,

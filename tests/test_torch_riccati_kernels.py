@@ -192,22 +192,109 @@ def test_crown_schedule_lists_each_node_once(crown_case):
         assert np.array_equal(np.sort(kids), np.sort(nodes.numpy()[nodes.numpy() != 0]))
 
 
+def _check_runs(prep):
+    """The run arrays of the crown kernels' schedule on ``prep``: every
+    node on exactly one level and in exactly one run; a run's nodes a
+    single-kid path, deepest first, that starts at the root, a leaf or a
+    node of two or more kids; every run's kids' runs on earlier phases and
+    its top feeding a parent that starts a run of a later phase; the last
+    phase the root's run alone."""
+    sched = crk._get_sched(prep)
+    topo = prep.topo
+    Nn = topo.Nn
+    par = np.asarray(topo.parent_np)
+    nk = np.bincount(par[1:], minlength=Nn)
+    assert np.array_equal(np.sort(sched.lev_node), np.arange(Nn))
+    assert np.array_equal(np.sort(sched.run_node), np.arange(Nn))
+    assert sched.ph_ptr[0] == 0 and sched.ph_ptr[-1] == len(sched.run_ptr) - 1
+    assert np.all(np.diff(sched.ph_ptr) >= 1) and np.all(np.diff(sched.run_ptr) >= 1)
+    assert sched.run_width == np.diff(sched.ph_ptr).max()
+    phase_of = np.empty(Nn, np.int64)
+    runs = []
+    for h in range(sched.n_ph):
+        for r in range(sched.ph_ptr[h], sched.ph_ptr[h + 1]):
+            run = sched.run_node[sched.run_ptr[r]:sched.run_ptr[r + 1]]
+            phase_of[run] = h
+            runs.append((h, run))
+    for h, run in runs:
+        first, top = run[0], run[-1]
+        assert first == 0 or nk[first] != 1
+        for below, above in zip(run[:-1], run[1:]):
+            assert par[below] == above and nk[above] == 1 and above != 0
+        for c in np.nonzero(par == first)[0]:
+            if c != 0:
+                assert phase_of[c] < h
+        if top != 0:
+            p = par[top]
+            assert phase_of[p] > h and (p == 0 or nk[p] != 1)
+            assert p in [r[0] for hh, r in runs if hh == phase_of[p]]
+    last = sched.run_node[sched.run_ptr[sched.ph_ptr[-2]]:]
+    assert sched.ph_ptr[-1] - sched.ph_ptr[-2] == 1 and list(last) == [0]
+    return sched
+
+
+def test_crown_schedule_runs(crown_case):
+    """_get_sched's runs on crown_case's whole tree (its stages 3 and 4
+    single-kid: 9 runs of three nodes), on multistage trees and on a
+    seeded tree of random kid counts."""
+    sched = _check_runs(crown_case["tree"]["prep"])
+    assert (sched.n_lev, sched.n_ph, sched.run_width) == (5, 3, 9)
+    assert list(np.diff(sched.run_ptr)[:9]) == [3] * 9
+    shapes = {(4, 4, 4): (5, 256), (4, 4, 20): (5, 256), (4, 3, 7): (4, 64),
+              (2, 2, 12): (3, 4), (2, 0, 6): (2, 1), (4, 5, 5): (6, 1024)}
+    for (md, Nr, Nh), (n_ph, width) in shapes.items():
+        s = _check_runs(ipm._get_ipm_prep(TreeStructure.multistage(md, Nr, Nh, 3, 1)))
+        assert (s.n_ph, s.run_width) == (n_ph, width), (md, Nr, Nh)
+    rng = np.random.default_rng(11)
+    nk = [3]  # kid counts, breadth first, until some 80 nodes
+    while len(nk) < 1 + sum(nk):
+        nk.append(int(rng.choice(4, p=[0.35, 0.4, 0.15, 0.1])) if sum(nk) < 80 else 0)
+    s = _check_runs(ipm._get_ipm_prep(TreeStructure.from_nkids(nk, [3] * len(nk),
+                                                                [1] * len(nk))))
+    assert s.n_ph < s.n_lev and max(np.diff(s.run_ptr)) > 1
+
+
+def test_ric_launch_shape():
+    """_ric_launch: a group a run of the widest phase in one round where a
+    block's threads (16 warps) and shared memory (227 KB) allow; one block
+    up to 32 runs, one cluster of 16 blocks beyond, striding over wider
+    phases."""
+    prep = lambda md, Nr, Nh, nx, nu: ipm._get_ipm_prep(
+        TreeStructure.multistage(md, Nr, Nh, nx, nu))
+    got = {key: crk._ric_launch(crk._get_sched(prep(*key)), key[3] + key[4])
+           for key in [(4, 4, 4, 8, 1), (4, 4, 20, 8, 1), (4, 3, 7, 8, 1)]
+           + [e[:5] for e in chip_smoke.CROWN_RIC_EDGES]}
+    # IPM path B's crown and path C's trees (nz = 9: 16 lanes a run)
+    assert got[(4, 4, 4, 8, 1)] == (16, 8)
+    assert got[(4, 4, 20, 8, 1)] == (16, 8)
+    assert got[(4, 3, 7, 8, 1)] == (16, 2)
+    # the edges: nz = 2 (8 lanes), nz = 16, 1024 runs (4 rounds), a deep
+    # tree of runs, a chain
+    assert got[(3, 2, 3, 1, 1)] == (1, 3)
+    assert got[(3, 2, 3, 8, 8)] == (1, 5)
+    assert got[(3, 2, 3, 15, 1)] == (1, 5)
+    assert got[(4, 5, 5, 8, 1)] == (16, 16)
+    assert got[(2, 2, 12, 4, 2)] == (1, 1)
+    assert got[(2, 0, 6, 4, 1)] == (1, 1)
+    assert got[(3, 2, 4, 6, 3)] == (1, 5)
+    for (md, Nr, Nh, nx, nu), (blocks, warps) in got.items():
+        nz = nx + nu
+        per_warp = 32 // (8 if nz <= 8 else 16)
+        width = crk._get_sched(prep(md, Nr, Nh, nx, nu)).run_width
+        assert blocks in (1, 16) and 1 <= warps <= 16
+        # the groups' shared memory (the most any nx < nz needs) fits a block
+        assert warps * per_warp * crk._ric_floats(nz) * 4 <= 227 * 1024
+        # one round where the limits allow, one block only up to 32 runs
+        assert blocks * warps * per_warp >= min(width, blocks * 16 * per_warp)
+        assert (blocks == 1) == (width <= 32)
+
+
 def crown_kkt_operands(md, Nr, Nh, nx, nu, seed):
     """Seeded operands of the crown Riccati kernels on the whole multistage
-    tree (md, Nr, Nh) with nx states and nu inputs: (hbar, AB, Wsum0, rg,
-    rb, wsum0, prep). hbar in [1, 2], AB 0.3 N(0, 1) / sqrt(nz), at the
-    leaves Wsum0 an SPD term B B' / (2 nz) and wsum0 N(0, 1) (zero
-    elsewhere, as the chains' terms are), rg and rb N(0, 1)."""
-    topo = TreeStructure.multistage(md, Nr, Nh, nx, nu)
-    prep = ipm._get_ipm_prep(topo)
-    rng = np.random.default_rng(seed)
-    Nc, nz = topo.Nn, nx + nu
-    leaf = (np.asarray(topo.nkids) == 0)[:, None, None]
-    B = rng.standard_normal((Nc, nz, nz))
-    ops = (rng.uniform(1.0, 2.0, (Nc, nz)), 0.3 * rng.standard_normal((Nc, nx, nz)) / np.sqrt(nz),
-           leaf * (B @ B.transpose(0, 2, 1)) / (2 * nz), rng.standard_normal((Nc, nz)),
-           rng.standard_normal((Nc, nx)), leaf[:, :, 0] * rng.standard_normal((Nc, nz)))
-    return (*(torch.tensor(a, dtype=torch.float32) for a in ops), prep)
+    tree (md, Nr, Nh) with nx states and nu inputs, on the CPU
+    (``chip_smoke.ric_crown_operands``): (hbar, AB, Wsum0, rg, rb, wsum0,
+    prep)."""
+    return chip_smoke.ric_crown_operands(torch, md, Nr, Nh, nx, nu, seed, "cpu")
 
 
 @pytest.mark.parametrize("shape,reg", [((2, 2, 4, 3, 2), 0.0), ((3, 2, 3, 8, 1), 1e-3)])

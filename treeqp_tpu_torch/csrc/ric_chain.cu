@@ -25,23 +25,17 @@
 // - A group of G lanes takes a chain: G = 8 for nz <= 8, 16 for nz <= 16
 //   (tq::lanes), 32 / G chains a warp and one warp a block. nz is a
 //   template parameter (one instantiation per nz = 2 .. 16), nx is not.
-// - Lane i owns row i of the stage's M = hbar_j + W in registers.
-//   Lu = chol(Muu + reg I): the nu rows right-looking, lane nx + k's pivot
-//   broadcast by __shfl_sync, lanes r >= c folding a_rc -= L_rk L_ck by one
-//   FMA, so each element meets its products in ascending k, the order of
-//   the left-looking chol_inplace<true> (same pivot floor, clamped
-//   diagonal); M goes through shared memory so that the nu rows start at
-//   their own column 0. K = -Muu^-1 Mux: lane c < nx solves column c
-//   through Lu in shared memory. T = Mxx + Mxu K and P = (T + T') / 2 row by lane, the
-//   transpose through shared memory; P AB row x by lane x and W = AB' (P AB)
-//   row i by lane i, from shared memory: ~150 dependent FMAs a lane a stage
-//   at nz = 9.
+// - Lane i owns row i of the stage's M = hbar_j + W in registers; the
+//   stage is tq_riccati.cuh's ric_stage_factor_lanes (the crown's
+//   crown_ric_factor runs it too): Lu right-looking by shuffles, K by
+//   columns through Lu in shared memory, T, P, P AB and W = AB' (P AB) row
+//   by lane: ~150 dependent FMAs a lane a stage at nz = 9.
 // - AB_j and hbar_j stream through a ring of kStages stages of shared
 //   memory per chain with cp.async, up to kStages - 1 stages ahead.
 // - Each lane writes its rows of P_j, Lu_j, Mxu_j and its column of K_j
 //   once; W0 row i by lane i.
-// Every sum runs in tq_riccati.cuh's loop order, each product folded in by
-// one FMA as nvcc contracted the per-thread body (written out here as
+// Every sum runs in the per-thread stage's loop order, each product folded
+// in by one FMA as nvcc contracted the per-thread body (written out as
 // __fmaf_rn), and the sums and scalings that stand alone are rounded on
 // their own (__fadd_rn, __fmul_rn), with rsqrtf and true divisions: the
 // results are the thread-per-chain kernel's bit for bit, whatever the
@@ -64,7 +58,7 @@
 //   dozen dependent rounds a stage at nz = 9, nu = 1.
 // - Lane x writes p_j row x, lane nx + c writes k_j row c, lane i writes
 //   w0 row i.
-// Bit for bit the thread-per-chain kernel (tq_riccati.cuh's ric_stage_bwd).
+// Bit for bit the thread-per-chain kernel.
 // No tensor cores: a stage is a dependent solve and product chain of
 // nz <= 16 rows.
 //
@@ -84,7 +78,7 @@
 //   shuffle rounds a stage, no division.
 // - Lane i writes dz_j row i and keeps it as the next stage's zp; lane x
 //   writes dl_j row x.
-// Bit for bit the thread-per-chain kernel (tq_riccati.cuh's ric_stage_fwd).
+// Bit for bit the thread-per-chain kernel.
 // No tensor cores: a stage is a dependent product chain of nz <= 16 rows.
 
 #include "tq_lanes.cuh"
@@ -125,11 +119,7 @@ __global__ void __launch_bounds__(32) ric_chain_factor_kernel(
   const int stf = ric_stage_floats(nx, nz, dense);
   const int hbf = dense ? nz * nz : nz;
   float* ring = smem + (size_t)q * ric_chain_floats(NZ, nx, dense);
-  float* sM = ring + kStages * stf;  // [nz, nz]: M
-  float* sLu = sM + NZ * NZ;         // [nu, nu]
-  float* sK = sLu + NZ * NZ;         // [nu, nx]
-  float* sT = sK + NZ * NZ;          // [nx, nx]: Mxx + Mxu K
-  float* sPA = sT + NZ * NZ;         // [nx, nz]: P AB
+  float* work = ring + kStages * stf;  // the stage's five work areas
   const float* ABc = AB + sl * L * nx * nz;
   const float* hbc = hbar + sl * L * hbf;
 
@@ -149,8 +139,6 @@ __global__ void __launch_bounds__(32) ric_chain_factor_kernel(
 #pragma unroll
   for (int c = 0; c < NZ; ++c) w[c] = 0.f;
   const bool row = i < nz;
-  const int r = i - nx;  // row of Muu and Lu (0 .. nu-1 on lanes nx .. nz-1)
-  const bool urow = row && r >= 0;
   for (int t = 0; t < L; ++t) {
     const size_t sj = sl * L + (L - 1 - t);
     fetch(t + kStages - 1);
@@ -166,128 +154,10 @@ __global__ void __launch_bounds__(32) ric_chain_factor_kernel(
       if (!row) a[c] = 0.f;
       else if (dense) a[c] = __fadd_rn(w[c], hb[i * nz + c]);
       else a[c] = c == i ? __fadd_rn(w[c], hb[i]) : w[c];
-      if (row) sM[i * NZ + c] = a[c];
     }
-    __syncwarp();
-
-    // Lu = chol(Muu + reg I), right-looking: lane nx + r holds row r of Muu
-    float u[NZ];
-#pragma unroll
-    for (int c = 0; c < NZ; ++c) {
-      u[c] = urow && c < nu ? sM[i * NZ + nx + c] : 0.f;
-      if (c == r) u[c] = __fadd_rn(u[c], reg);
-    }
-#pragma unroll
-    for (int k = 0; k < NZ; ++k) {
-      if (k < nu) {
-        const float akk = __shfl_sync(tq::kFull, u[k], nx + k, G);
-        const float d = fmaxf(akk, tq::kPivotFloor);
-        const float dinv = rsqrtf(d);
-        const float lrk = r == k ? __fmul_rn(d, dinv) : __fmul_rn(u[k], dinv);
-        if (r >= k) u[k] = lrk;
-#pragma unroll
-        for (int c = k + 1; c < NZ; ++c) {
-          if (c < nu) {
-            const float lck = __shfl_sync(tq::kFull, lrk, nx + c, G);
-            if (r >= c) u[c] = __fmaf_rn(-lrk, lck, u[c]);
-          }
-        }
-      }
-    }
-    if (urow) {
-#pragma unroll
-      for (int c = 0; c < NZ; ++c) {
-        if (c < nu) {
-          const float v = c > r ? 0.f : u[c];
-          sLu[r * nu + c] = v;
-          if (live) Lu[sj * nu * nu + r * nu + c] = v;
-        }
-      }
-    }
-    __syncwarp();
-
-    // K = -Muu^-1 Mux: lane i < nx solves column i through Lu; Mxu row i
-    if (i < nx) {
-      float y[NZ];
-#pragma unroll
-      for (int k = 0; k < NZ; ++k) y[k] = k < nu ? sM[(nx + k) * NZ + i] : 0.f;
-#pragma unroll
-      for (int k = 0; k < NZ; ++k) {
-        if (k < nu) {
-          float acc = y[k];
-#pragma unroll
-          for (int m = 0; m < k; ++m) acc = __fmaf_rn(-sLu[k * nu + m], y[m], acc);
-          y[k] = __fdiv_rn(acc, sLu[k * nu + k]);
-        }
-      }
-#pragma unroll
-      for (int k = NZ - 1; k >= 0; --k) {
-        if (k < nu) {
-          float acc = y[k];
-#pragma unroll
-          for (int m = k + 1; m < NZ; ++m)
-            if (m < nu) acc = __fmaf_rn(-sLu[m * nu + k], y[m], acc);
-          y[k] = __fdiv_rn(acc, sLu[k * nu + k]);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < NZ; ++k) {
-        if (k < nu) {
-          sK[k * nx + i] = -y[k];
-          if (live) {
-            K[sj * nu * nx + k * nx + i] = -y[k];
-            Mxu[sj * nx * nu + i * nu + k] = sM[i * NZ + nx + k];
-          }
-        }
-      }
-    }
-    __syncwarp();
-
-    // T = Mxx + Mxu K, row i
-    if (i < nx) {
-#pragma unroll
-      for (int jj = 0; jj < NZ; ++jj) {
-        if (jj < nx) {
-          float acc = 0.f;
-#pragma unroll
-          for (int k = 0; k < NZ; ++k)
-            if (k < nu) acc = __fmaf_rn(sM[i * NZ + nx + k], sK[k * nx + jj], acc);
-          sT[i * nx + jj] = __fadd_rn(a[jj], acc);
-        }
-      }
-    }
-    __syncwarp();
-
-    // P = (T + T') / 2 and P AB, row i
-    if (i < nx) {
-      float p[NZ];
-#pragma unroll
-      for (int jj = 0; jj < NZ; ++jj) {
-        p[jj] = jj < nx ? __fmul_rn(0.5f, __fadd_rn(sT[i * nx + jj], sT[jj * nx + i])) : 0.f;
-        if (jj < nx && live) P[sj * nx * nx + i * nx + jj] = p[jj];
-      }
-#pragma unroll
-      for (int jj = 0; jj < NZ; ++jj) {
-        float acc = 0.f;
-#pragma unroll
-        for (int k = 0; k < NZ; ++k)
-          if (k < nx) acc = __fmaf_rn(p[k], ABj[k * nz + jj], acc);
-        sPA[i * nz + jj] = acc;
-      }
-    }
-    __syncwarp();
-
-    // W = AB' (P AB), row i
-    if (row) {
-#pragma unroll
-      for (int jj = 0; jj < NZ; ++jj) {
-        float acc = 0.f;
-#pragma unroll
-        for (int x = 0; x < NZ; ++x)
-          if (x < nx) acc = __fmaf_rn(ABj[x * nz + i], sPA[x * nz + jj], acc);
-        w[jj] = acc;
-      }
-    }
+    tq::ric_stage_factor_lanes<NZ, G>(a, ABj, nx, i, reg, work, live, P + sj * nx * nx,
+                                      Lu + sj * nu * nu, K + sj * nu * nx, Mxu + sj * nx * nu,
+                                      w);
     __syncwarp();  // the stage and the work areas are read: refill
   }
   tq::cp_async_wait<0>();
@@ -335,11 +205,6 @@ struct BwdStage {
   }
 };
 
-__device__ __forceinline__ void copy_async(float* dst, const float* src, int count, int lane,
-                                           int G) {
-  for (int e = lane; e < count; e += G) tq::cp_async4(dst + e, src + e);
-}
-
 // operands: P, Lu, Mxu, AB, rg, rb, p, k, w0
 template <int NZ>
 __global__ void __launch_bounds__(32) ric_chain_bwd_kernel(Ops9 ops, int S, int L, int nx) {
@@ -368,12 +233,12 @@ __global__ void __launch_bounds__(32) ric_chain_bwd_kernel(Ops9 ops, int S, int 
     if (t < L) {
       const size_t sj = sl * L + (L - 1 - t);
       float* st = ring + (t % kBwdStages) * o.floats;
-      copy_async(st + o.P, P + sj * nx * nx, nx * nx, i, G);
-      copy_async(st + o.Lu, Lu + sj * nu * nu, nu * nu, i, G);
-      copy_async(st + o.Mxu, Mxu + sj * nx * nu, nx * nu, i, G);
-      copy_async(st + o.AB, AB + sj * nx * nz, nx * nz, i, G);
-      copy_async(st + o.rg, rg + sj * nz, nz, i, G);
-      copy_async(st + o.rb, rb + sj * nx, nx, i, G);
+      tq::copy_async(st + o.P, P + sj * nx * nx, nx * nx, i, G);
+      tq::copy_async(st + o.Lu, Lu + sj * nu * nu, nu * nu, i, G);
+      tq::copy_async(st + o.Mxu, Mxu + sj * nx * nu, nx * nu, i, G);
+      tq::copy_async(st + o.AB, AB + sj * nx * nz, nx * nz, i, G);
+      tq::copy_async(st + o.rg, rg + sj * nz, nz, i, G);
+      tq::copy_async(st + o.rb, rb + sj * nx, nx, i, G);
     }
     tq::cp_async_commit();
   };
@@ -455,12 +320,12 @@ __global__ void __launch_bounds__(32) ric_chain_fwd_kernel(Ops9 ops, int S, int 
     if (t < L) {
       const size_t sj = sl * L + t;
       float* st = ring + (t % kBwdStages) * o.floats;
-      copy_async(st + o.P, P + sj * nx * nx, nx * nx, i, G);
-      copy_async(st + o.K, K + sj * nu * nx, nu * nx, i, G);
-      copy_async(st + o.AB, AB + sj * nx * nz, nx * nz, i, G);
-      copy_async(st + o.rb, rb + sj * nx, nx, i, G);
-      copy_async(st + o.p, p + sj * nx, nx, i, G);
-      copy_async(st + o.k, k + sj * nu, nu, i, G);
+      tq::copy_async(st + o.P, P + sj * nx * nx, nx * nx, i, G);
+      tq::copy_async(st + o.K, K + sj * nu * nx, nu * nx, i, G);
+      tq::copy_async(st + o.AB, AB + sj * nx * nz, nx * nz, i, G);
+      tq::copy_async(st + o.rb, rb + sj * nx, nx, i, G);
+      tq::copy_async(st + o.p, p + sj * nx, nx, i, G);
+      tq::copy_async(st + o.k, k + sj * nu, nu, i, G);
     }
     tq::cp_async_commit();
   };

@@ -29,6 +29,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                : "memory");
 }
 
+// count floats from src to dst, lane ``lane`` of a group of G copying every
+// G-th
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int count, int lane,
+                                           int G) {
+  for (int e = lane; e < count; e += G) cp_async4(dst + e, src + e);
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

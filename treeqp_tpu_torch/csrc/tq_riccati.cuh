@@ -1,16 +1,21 @@
-// One stage of the IPM's Riccati recursion, for one thread: shared by the
-// chain kernels (ric_chain.cu, a chain's stages in sequence) and the crown
-// kernels (crown_ric.cu, a tree level's nodes in parallel); and the
-// backward right-hand-side and forward stages on a group of lanes
-// (ric_stage_bwd_lanes, ric_stage_fwd_lanes: ric_chain.cu's ric_chain_bwd
-// and ric_chain_fwd).
+// One stage of the IPM's Riccati recursion on a group of G = lanes(NZ)
+// lanes, lane i owning row i of the stage's blocks: the factorization
+// (ric_stage_factor_lanes), the backward right-hand side
+// (ric_stage_bwd_lanes) and the forward step (ric_stage_fwd_lanes). The
+// chain kernels (ric_chain.cu) run them along a chain, a group a chain; the
+// crown kernels (crown_ric.cu) along the single-kid runs of a tree, a group
+// a run.
 //
-// Blocks are row-major. A stage has nx states and nu = nz - nx controls;
-// M is its [nz, nz] Hessian with the successors' terms added, AB [nx, nz]
+// Blocks are row-major. A stage has nx states and nu = NZ - nx controls;
+// M is its [NZ, NZ] Hessian with the successors' terms added, AB [nx, NZ]
 // the edge into it. Every sum is accumulated term by term in the order of
 // the Pallas kernels of treeqp_tpu/ops/riccati_kernels.py and of the plain
-// twins (ops/riccati_kernels.stage_*), so kernel and twin differ only by
-// rounding and FMA contraction.
+// twins (ops/riccati_kernels.stage_*), each product folded in by one FMA
+// and every other add, scaling and division rounded on its own: the bits
+// of the per-thread stage the one-thread-a-node kernels ran (as nvcc
+// contracted it: each sum's first product an FFMA onto the 0 it starts
+// from), whatever the compiler contracts here. ``mask`` names the group's
+// lanes in the warp (all 32 where every group of the warp runs in step).
 #pragma once
 
 #include "tq_dense.cuh"
@@ -18,91 +23,170 @@
 
 namespace tq {
 
-// Factor: Lu = chol(Muu + reg I) (pivot floor 1e-8, clamped diagonal),
-// K = -Muu^-1 Mux (column by column), Mxu, P = sym(Mxx + Mxu K), written to
-// P [nx, nx], Lu [nu, nu], K [nu, nx], Mxu [nx, nu]; then the parent's
-// term W = AB' (P AB) into W [nz, nz], which may alias M (local).
-__device__ inline void ric_stage_factor(const float* M, const float* __restrict__ AB,
-                                        int nx, int nz, float reg, float* P, float* Lu,
-                                        float* K, float* Mxu, float* W) {
+// The factorization. Lane i holds row i of M in ``a`` (0 on the lanes past
+// NZ - 1); ABj [nx, NZ] is in shared memory; ``work`` is five NZ x NZ
+// shared-memory areas (M, Lu, K, T = Mxx + Mxu K, P AB). Writes, where
+// ``live``, lane nx + r row r of Lu = chol(Muu + reg I) (pivot floor 1e-8,
+// clamped diagonal), lane c < nx column c of K = -Muu^-1 Mux and row c of
+// Mxu and of P = sym(Mxx + Mxu K); returns in ``w`` lane i's row of the
+// parent's term W = AB' (P AB) (lanes past NZ - 1 keep theirs).
+// - Lu right-looking: lane nx + k's pivot broadcast by __shfl_sync, lanes
+//   r >= c folding a_rc -= L_rk L_ck by one FMA, so each element meets its
+//   products in ascending k, the order of the left-looking per-thread
+//   Cholesky; M goes through shared memory so that the nu rows start at
+//   their own column 0.
+// - K: lane c < nx solves column c through Lu in shared memory (true
+//   divisions). T and P = (T + T') / 2 row by lane, the transpose through
+//   shared memory; P AB row x by lane x and W row i by lane i, from shared
+//   memory: ~150 dependent FMAs a lane at NZ = 9.
+template <int NZ, int G>
+__device__ __forceinline__ void ric_stage_factor_lanes(const float (&a)[NZ], const float* ABj,
+                                                       int nx, int i, float reg, float* work,
+                                                       bool live, float* P, float* Lu, float* K,
+                                                       float* Mxu, float (&w)[NZ],
+                                                       unsigned mask = kFull) {
+  constexpr int nz = NZ;
   const int nu = nz - nx;
-  for (int i = 0; i < nu; ++i)
-    for (int j = 0; j < nu; ++j) Lu[i * nu + j] = M[(nx + i) * nz + nx + j];
-  chol_inplace<true>(Lu, nu, reg);
-  float y[kMaxN];
-  for (int c = 0; c < nx; ++c) {
-    for (int i = 0; i < nu; ++i) y[i] = M[(nx + i) * nz + c];
-    ltrsv_inplace(Lu, y, nu);
-    uttrsv_inplace(Lu, y, nu);
-    for (int i = 0; i < nu; ++i) K[i * nx + c] = -y[i];
+  float* sM = work;           // [nz, nz]: M
+  float* sLu = sM + NZ * NZ;  // [nu, nu]
+  float* sK = sLu + NZ * NZ;  // [nu, nx]
+  float* sT = sK + NZ * NZ;   // [nx, nx]: Mxx + Mxu K
+  float* sPA = sT + NZ * NZ;  // [nx, nz]: P AB
+  const bool row = i < nz;
+  const int r = i - nx;  // row of Muu and Lu (0 .. nu-1 on lanes nx .. nz-1)
+  const bool urow = row && r >= 0;
+  if (row) {
+#pragma unroll
+    for (int c = 0; c < NZ; ++c) sM[i * NZ + c] = a[c];
   }
-  for (int i = 0; i < nx; ++i)
-    for (int k = 0; k < nu; ++k) Mxu[i * nu + k] = M[i * nz + nx + k];
-  float T[kMaxN * kMaxN];
-  for (int i = 0; i < nx; ++i)
-    for (int j = 0; j < nx; ++j) {
-      float s = 0.f;
-      for (int k = 0; k < nu; ++k) s += Mxu[i * nu + k] * K[k * nx + j];
-      T[i * nx + j] = M[i * nz + j] + s;
+  __syncwarp(mask);
+
+  // Lu = chol(Muu + reg I), right-looking: lane nx + r holds row r of Muu
+  float u[NZ];
+#pragma unroll
+  for (int c = 0; c < NZ; ++c) {
+    u[c] = urow && c < nu ? sM[i * NZ + nx + c] : 0.f;
+    if (c == r) u[c] = __fadd_rn(u[c], reg);
+  }
+#pragma unroll
+  for (int k = 0; k < NZ; ++k) {
+    if (k < nu) {
+      const float akk = __shfl_sync(mask, u[k], nx + k, G);
+      const float d = fmaxf(akk, kPivotFloor);
+      const float dinv = rsqrtf(d);
+      const float lrk = r == k ? __fmul_rn(d, dinv) : __fmul_rn(u[k], dinv);
+      if (r >= k) u[k] = lrk;
+#pragma unroll
+      for (int c = k + 1; c < NZ; ++c) {
+        if (c < nu) {
+          const float lck = __shfl_sync(mask, lrk, nx + c, G);
+          if (r >= c) u[c] = __fmaf_rn(-lrk, lck, u[c]);
+        }
+      }
     }
-  for (int i = 0; i < nx; ++i)
-    for (int j = 0; j < nx; ++j) P[i * nx + j] = 0.5f * (T[i * nx + j] + T[j * nx + i]);
-  // T = P AB [nx, nz], then W = AB' T
-  for (int x = 0; x < nx; ++x)
-    for (int j = 0; j < nz; ++j) {
-      float s = 0.f;
-      for (int k = 0; k < nx; ++k) s += P[x * nx + k] * AB[k * nz + j];
-      T[x * nz + j] = s;
+  }
+  if (urow) {
+#pragma unroll
+    for (int c = 0; c < NZ; ++c) {
+      if (c < nu) {
+        const float v = c > r ? 0.f : u[c];
+        sLu[r * nu + c] = v;
+        if (live) Lu[r * nu + c] = v;
+      }
     }
-  for (int i = 0; i < nz; ++i)
-    for (int j = 0; j < nz; ++j) {
-      float s = 0.f;
-      for (int x = 0; x < nx; ++x) s += AB[x * nz + i] * T[x * nz + j];
-      W[i * nz + j] = s;
+  }
+  __syncwarp(mask);
+
+  // K = -Muu^-1 Mux: lane i < nx solves column i through Lu; Mxu row i
+  if (i < nx) {
+    float y[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) y[k] = k < nu ? sM[(nx + k) * NZ + i] : 0.f;
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      if (k < nu) {
+        float acc = y[k];
+#pragma unroll
+        for (int m = 0; m < k; ++m) acc = __fmaf_rn(-sLu[k * nu + m], y[m], acc);
+        y[k] = __fdiv_rn(acc, sLu[k * nu + k]);
+      }
     }
+#pragma unroll
+    for (int k = NZ - 1; k >= 0; --k) {
+      if (k < nu) {
+        float acc = y[k];
+#pragma unroll
+        for (int m = k + 1; m < NZ; ++m)
+          if (m < nu) acc = __fmaf_rn(-sLu[m * nu + k], y[m], acc);
+        y[k] = __fdiv_rn(acc, sLu[k * nu + k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      if (k < nu) {
+        sK[k * nx + i] = -y[k];
+        if (live) {
+          K[k * nx + i] = -y[k];
+          Mxu[i * nu + k] = sM[i * NZ + nx + k];
+        }
+      }
+    }
+  }
+  __syncwarp(mask);
+
+  // T = Mxx + Mxu K, row i
+  if (i < nx) {
+#pragma unroll
+    for (int jj = 0; jj < NZ; ++jj) {
+      if (jj < nx) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < NZ; ++k)
+          if (k < nu) acc = __fmaf_rn(sM[i * NZ + nx + k], sK[k * nx + jj], acc);
+        sT[i * nx + jj] = __fadd_rn(a[jj], acc);
+      }
+    }
+  }
+  __syncwarp(mask);
+
+  // P = (T + T') / 2 and P AB, row i
+  if (i < nx) {
+    float p[NZ];
+#pragma unroll
+    for (int jj = 0; jj < NZ; ++jj) {
+      p[jj] = jj < nx ? __fmul_rn(0.5f, __fadd_rn(sT[i * nx + jj], sT[jj * nx + i])) : 0.f;
+      if (jj < nx && live) P[i * nx + jj] = p[jj];
+    }
+#pragma unroll
+    for (int jj = 0; jj < NZ; ++jj) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < NZ; ++k)
+        if (k < nx) acc = __fmaf_rn(p[k], ABj[k * nz + jj], acc);
+      sPA[i * nz + jj] = acc;
+    }
+  }
+  __syncwarp(mask);
+
+  // W = AB' (P AB), row i
+  if (row) {
+#pragma unroll
+    for (int jj = 0; jj < NZ; ++jj) {
+      float acc = 0.f;
+#pragma unroll
+      for (int x = 0; x < NZ; ++x)
+        if (x < nx) acc = __fmaf_rn(ABj[x * nz + i], sPA[x * nz + jj], acc);
+      w[jj] = acc;
+    }
+  }
 }
 
-// Backward right-hand side: from m [nz] (local), k = -Muu^-1 m_u,
-// p = m_x + Mxu k (written to p [nx], k [nu]) and the parent's term
-// w = AB' (P rb + p) into w [nz], which may alias m.
-__device__ inline void ric_stage_bwd(const float* m, const float* __restrict__ P,
-                                     const float* __restrict__ Lu,
-                                     const float* __restrict__ Mxu,
-                                     const float* __restrict__ AB,
-                                     const float* __restrict__ rb, int nx, int nz,
-                                     float* p, float* k, float* w) {
-  const int nu = nz - nx;
-  float y[kMaxN], v[kMaxN];
-  for (int i = 0; i < nu; ++i) y[i] = m[nx + i];
-  ltrsv_inplace(Lu, y, nu);
-  uttrsv_inplace(Lu, y, nu);
-  for (int i = 0; i < nu; ++i) {
-    y[i] = -y[i];
-    k[i] = y[i];
-  }
-  for (int i = 0; i < nx; ++i) {
-    float s = 0.f;
-    for (int c = 0; c < nu; ++c) s += Mxu[i * nu + c] * y[c];
-    v[i] = m[i] + s;
-    p[i] = v[i];
-  }
-  for (int i = 0; i < nx; ++i) {
-    float s = 0.f;
-    for (int c = 0; c < nx; ++c) s += P[i * nx + c] * rb[c];
-    v[i] = s + v[i];
-  }
-  for (int i = 0; i < nz; ++i) {
-    float s = 0.f;
-    for (int x = 0; x < nx; ++x) s += AB[x * nz + i] * v[x];
-    w[i] = s;
-  }
-}
-
-// ric_stage_bwd on a group of G lanes (G = lanes(NZ)), lane i owning row i
-// of m [NZ] (``m``; lanes past NZ - 1 hold 0). The stage's blocks are read
-// from shared memory: P [nx, nx], Lu [nu, nu], Mxu [nx, nu], AB [nx, NZ],
-// rb [nx]. Returns lane i's row of w = AB' (P rb + p); lane x < nx gets
-// p_x in ``p``, lane nx + c gets k_c in ``k``.
+// The backward right-hand side on the group, lane i owning row i of m [NZ]
+// (``m``; lanes past NZ - 1 hold 0): k = -Muu^-1 m_u, p = m_x + Mxu k and
+// the parent's term w = AB' (P rb + p). The stage's blocks are read from
+// shared memory: P [nx, nx], Lu [nu, nu], Mxu [nx, nu], AB [nx, NZ], rb
+// [nx]. Returns lane i's row of w; lane x < nx gets p_x in ``p``, lane
+// nx + c gets k_c in ``k``.
 // - P rb, row x by lane x, does not depend on m: it is summed first, off
 //   the dependent chain.
 // - Lu y = m_u: for c = 0 .. nu-1 lane nx + c divides by its diagonal and
@@ -113,16 +197,16 @@ __device__ inline void ric_stage_bwd(const float* m, const float* __restrict__ P
 //   (uttrsv_inplace's order), divides and broadcasts z_c; k = -z.
 // - p_x = m_x + sum_c Mxu_xc k_c and v_x = (P rb)_x + p_x by lane x; v is
 //   broadcast by nx shuffles and lane i sums w_i = sum_x AB_xi v_x.
-// Every sum starts from 0 and runs in ric_stage_bwd's loop order, each
-// product folded in by one FMA (__fmaf_rn, as nvcc contracts the
-// per-thread body), the adds that stand alone rounded on their own
-// (__fadd_rn) and the divisions true divisions (quotient): bit for bit
-// ric_stage_bwd.
+// Every sum starts from 0 and runs in the per-thread stage's loop order
+// (Lu y = m_u, Lu' z = y, k = -z; p_x = m_x + sum_c Mxu_xc k_c; v_x = sum_c
+// P_xc rb_c + p_x; w_i = sum_x AB_xi v_x), each product folded in by one FMA
+// (__fmaf_rn), the adds that stand alone rounded on their own (__fadd_rn)
+// and the divisions true divisions (quotient).
 template <int NZ, int G>
 __device__ __forceinline__ float ric_stage_bwd_lanes(float m, const float* P, const float* Lu,
                                                      const float* Mxu, const float* AB,
                                                      const float* rb, int nx, int i, float& p,
-                                                     float& k) {
+                                                     float& k, unsigned mask = kFull) {
   const int nu = NZ - nx;
   const int r = i - nx;  // row of Lu on lanes nx .. NZ-1
   const bool urow = r >= 0 && r < nu;
@@ -147,7 +231,7 @@ __device__ __forceinline__ float ric_stage_bwd_lanes(float m, const float* P, co
 #pragma unroll
   for (int c = 0; c < NZ; ++c) {
     if (c < nu) {
-      const float yc = __shfl_sync(kFull, quotient(acc, diag, r == c), nx + c, G);
+      const float yc = __shfl_sync(mask, quotient(acc, diag, r == c), nx + c, G);
       if (r > c) acc = __fmaf_rn(-Lrow[c], yc, acc);
       if (r == c) y = yc;
     }
@@ -161,7 +245,7 @@ __device__ __forceinline__ float ric_stage_bwd_lanes(float m, const float* P, co
 #pragma unroll
       for (int mm = c + 1; mm < NZ; ++mm)
         if (mm < nu) a = __fmaf_rn(-Lcol[mm], z[mm], a);
-      z[c] = __shfl_sync(kFull, quotient(a, diag, r == c), nx + c, G);
+      z[c] = __shfl_sync(mask, quotient(a, diag, r == c), nx + c, G);
       if (r == c) k = -z[c];
     }
   }
@@ -178,60 +262,31 @@ __device__ __forceinline__ float ric_stage_bwd_lanes(float m, const float* P, co
   float w = 0.f;
 #pragma unroll
   for (int x = 0; x < NZ; ++x) {
-    if (x < nx) w = __fmaf_rn(ABcol[x], __shfl_sync(kFull, v, x, G), w);
+    if (x < nx) w = __fmaf_rn(ABcol[x], __shfl_sync(mask, v, x, G), w);
   }
   return i < NZ ? w : 0.f;
 }
 
-// Forward: from the parent's step zp [nz], dx = AB zp + rb, du = K dx + k,
-// dlam = P dx + p; writes dz = [dx; du] [nz] and dl [nx] (not aliasing zp).
-__device__ inline void ric_stage_fwd(const float* zp, const float* __restrict__ P,
-                                     const float* __restrict__ K,
-                                     const float* __restrict__ AB,
-                                     const float* __restrict__ rb,
-                                     const float* __restrict__ p,
-                                     const float* __restrict__ k, int nx, int nz,
-                                     float* dz, float* dl) {
-  const int nu = nz - nx;
-  float dx[kMaxN];
-  for (int x = 0; x < nx; ++x) {
-    float s = 0.f;
-    for (int c = 0; c < nz; ++c) s += AB[x * nz + c] * zp[c];
-    dx[x] = s + rb[x];
-  }
-  for (int u = 0; u < nu; ++u) {
-    float s = 0.f;
-    for (int x = 0; x < nx; ++x) s += K[u * nx + x] * dx[x];
-    dz[nx + u] = s + k[u];
-  }
-  for (int x = 0; x < nx; ++x) {
-    float s = 0.f;
-    for (int c = 0; c < nx; ++c) s += P[x * nx + c] * dx[c];
-    dl[x] = s + p[x];
-    dz[x] = dx[x];
-  }
-}
-
-
-// ric_stage_fwd on a group of G lanes (G = lanes(NZ)), lane i holding row i
-// of the parent's step zp [NZ] (``zp``; lanes past NZ - 1 hold 0). The
-// stage's blocks are read from shared memory: P [nx, nx], K [nu, nx], AB
-// [nx, NZ], rb [nx], p [nx], k [nu]. Returns lane i's row of dz = [dx; du]
-// (0 past NZ - 1); lane x < nx gets dlam_x in ``dl``.
+// The forward step on the group, lane i holding row i of the parent's step
+// zp [NZ] (``zp``; lanes past NZ - 1 hold 0): dx = AB zp + rb, du = K dx +
+// k, dlam = P dx + p. The stage's blocks are read from shared memory: P
+// [nx, nx], K [nu, nx], AB [nx, NZ], rb [nx], p [nx], k [nu]. Returns
+// lane i's row of dz = [dx; du] (0 past NZ - 1); lane x < nx gets dlam_x
+// in ``dl``.
 // - zp is broadcast by NZ __shfl_sync that do not depend on each other;
 //   lane x sums dx_x = sum_c AB_xc zp_c + rb_x.
 // - dx is broadcast by nx shuffles, and one fold over them gives lane
 //   nx + u du_u = sum_x K_ux dx_x + k_u and lane x dlam_x = sum_c P_xc dx_c
 //   + p_x (each lane its own row of K or P).
-// Every sum starts from 0 and runs in ric_stage_fwd's loop order, each
-// product folded in by one FMA (__fmaf_rn: nvcc contracts the per-thread
-// body's products, the first onto the 0 it starts from) and the three
-// adds rounded on their own (__fadd_rn): bit for bit ric_stage_fwd.
+// Every sum starts from 0 and runs in the per-thread stage's loop order
+// (dx_x = sum_c AB_xc zp_c + rb_x; du_u = sum_x K_ux dx_x + k_u; dlam_x =
+// sum_c P_xc dx_c + p_x), each product folded in by one FMA (__fmaf_rn) and
+// the three adds rounded on their own (__fadd_rn).
 template <int NZ, int G>
 __device__ __forceinline__ float ric_stage_fwd_lanes(float zp, const float* P, const float* K,
                                                      const float* AB, const float* rb,
                                                      const float* p, const float* k, int nx,
-                                                     int i, float& dl) {
+                                                     int i, float& dl, unsigned mask = kFull) {
   const int nu = NZ - nx;
   const int u = i - nx;  // row of K on lanes nx .. NZ-1
   const bool xrow = i < nx;
@@ -249,7 +304,7 @@ __device__ __forceinline__ float ric_stage_fwd_lanes(float zp, const float* P, c
 
   float z[NZ];
 #pragma unroll
-  for (int c = 0; c < NZ; ++c) z[c] = __shfl_sync(kFull, zp, c, G);
+  for (int c = 0; c < NZ; ++c) z[c] = __shfl_sync(mask, zp, c, G);
   float s = 0.f;
 #pragma unroll
   for (int c = 0; c < NZ; ++c) s = __fmaf_rn(ABrow[c], z[c], s);
@@ -257,7 +312,7 @@ __device__ __forceinline__ float ric_stage_fwd_lanes(float zp, const float* P, c
 
   float d[NZ];
 #pragma unroll
-  for (int x = 0; x < NZ; ++x) d[x] = x < nx ? __shfl_sync(kFull, dx, x, G) : 0.f;
+  for (int x = 0; x < NZ; ++x) d[x] = x < nx ? __shfl_sync(mask, dx, x, G) : 0.f;
   s = 0.f;
 #pragma unroll
   for (int x = 0; x < NZ; ++x)

@@ -90,10 +90,10 @@ _SIGNATURES = {
     # pointers, S, L, nx, nz, stream
     "tq_ric_chain_bwd": [_P] + [_I] * 4 + [_P],
     "tq_ric_chain_fwd": [_P] + [_I] * 4 + [_P],
-    # pointers, Nc, nx, nz, n_lev, reg, threads, stream
-    "tq_crown_ric_factor": [_P] + [_I] * 4 + [_F, _I, _P],
-    # pointers, Nc, nx, nz, n_lev, threads, stream
-    "tq_crown_ric_solve": [_P] + [_I] * 5 + [_P],
+    # pointers, Nc, nx, nz, n_ph, reg, blocks, warps, stream
+    "tq_crown_ric_factor": [_P] + [_I] * 4 + [_F, _I, _I, _P],
+    # pointers, Nc, nx, nz, n_ph, blocks, warps, stream
+    "tq_crown_ric_solve": [_P] + [_I] * 6 + [_P],
     # sdunes: the banded per-scenario solve and the Jay cyclic reduction
     # Ls, CUs, rhs, z, S, L, n, m, stream
     "tq_chain_full_solve_mat": [_P] * 4 + [_I] * 4 + [_P],

@@ -4,11 +4,11 @@ one launch each.
 
 Port of ``crown_ric_factor`` and ``crown_ric_solve`` in
 ``treeqp_tpu/ops/crown_riccati.py``. Each wrapper launches its CUDA kernel
-(``csrc/crown_ric.cu``, one thread block; the threads stride over one
-level's nodes, a barrier between levels) on CUDA tensors and runs its
-plain PyTorch twin (``*_ref``) on CPU tensors. Both are f32, like the
-Pallas kernels, and take diagonal stage Hessians only (box constraints:
-the barrier keeps them diagonal).
+(``csrc/crown_ric.cu``: one cluster or one block, a group of lanes per
+single-kid run of the tree, a barrier between phases of runs) on CUDA
+tensors and runs its plain PyTorch twin (``*_ref``) on CPU tensors. Both
+are f32, like the Pallas kernels, and take diagonal stage Hessians only
+(box constraints: the barrier keeps them diagonal).
 
 The recursion is the chain kernels' stage (``riccati_kernels.stage_*``)
 level by level, deepest stage first, over a node's kids instead of one
@@ -43,7 +43,12 @@ __all__ = ["crown_ric_factor", "crown_ric_factor_ref", "crown_ric_solve",
 @dataclasses.dataclass(frozen=True)
 class _CrownRicSched:
     """Level schedule of the crown recursion (deepest stage first; the
-    last level is the root)."""
+    last level is the root), and its runs for the kernels: a run starts at
+    the root, a leaf or a node with two or more kids and climbs through
+    every node that is its parent's only kid (the root excepted), deepest
+    first; a run's phase is one past the latest phase of its first node's
+    kids' runs (0 at a leaf), and the last phase holds the root's run
+    alone."""
 
     n_lev: int
     lev_ptr: np.ndarray    # [n_lev + 1] offsets into lev_node
@@ -54,6 +59,11 @@ class _CrownRicSched:
     kid_idx: np.ndarray    # each node's kids, ascending
     par: np.ndarray        # [Nc] parent (0 at the root)
     width: int             # most nodes or parents on one level
+    n_ph: int              # phases of runs
+    ph_ptr: np.ndarray     # [n_ph + 1] offsets into the runs
+    run_ptr: np.ndarray    # [runs + 1] offsets into run_node
+    run_node: np.ndarray   # each run's nodes, deepest first
+    run_width: int         # most runs in one phase
     _tensors: dict = dataclasses.field(default_factory=dict, compare=False)
 
     def on(self, device) -> dict:
@@ -63,7 +73,7 @@ class _CrownRicSched:
         if hit is None:
             hit = {k: torch.as_tensor(getattr(self, k), dtype=torch.int32, device=device)
                    for k in ("lev_ptr", "lev_node", "acc_ptr", "acc_node", "kid_ptr",
-                             "kid_idx", "par")}
+                             "kid_idx", "par", "ph_ptr", "run_ptr", "run_node")}
             self._tensors[device] = hit
         return hit
 
@@ -104,6 +114,22 @@ def _get_sched(prep) -> _CrownRicSched:
     for n in range(1, Nn):
         kids[par[n]].append(n)
     accs = [np.unique(par[lv[lv != 0]]) for lv in levels]
+    # runs, their first nodes deepest first, each climbing while the node
+    # is its parent's only kid; a run's phase after its first node's kids'
+    phase = np.zeros(Nn, np.int64)  # of each node's run
+    runs = []
+    for start in np.concatenate(levels):
+        if len(kids[start]) == 1 and start != 0:
+            continue  # on its kid's run
+        ph = 1 + max((phase[c] for c in kids[start]), default=-1)
+        run = [int(start)]
+        while run[-1] != 0 and len(kids[par[run[-1]]]) == 1 and par[run[-1]] != 0:
+            run.append(int(par[run[-1]]))
+        phase[run] = ph
+        runs.append((ph, run))
+    runs.sort(key=lambda pr: pr[0])  # stable: within a phase, deepest start first
+    n_ph = runs[-1][0] + 1
+    per_ph = np.bincount([ph for ph, _ in runs], minlength=n_ph)
     i32 = lambda v: np.asarray(v, np.int32)
     sched = _CrownRicSched(
         n_lev=len(levels),
@@ -114,7 +140,12 @@ def _get_sched(prep) -> _CrownRicSched:
         kid_ptr=i32(np.cumsum([0] + [len(k) for k in kids])),
         kid_idx=i32([c for k in kids for c in k]),
         par=i32(par),
-        width=max([len(v) for v in levels + accs] + [1]))
+        width=max([len(v) for v in levels + accs] + [1]),
+        n_ph=n_ph,
+        ph_ptr=i32(np.cumsum([0] + list(per_ph))),
+        run_ptr=i32(np.cumsum([0] + [len(r) for _, r in runs])),
+        run_node=i32([n for _, r in runs for n in r]),
+        run_width=int(per_ph.max()))
     prep._crown_ric_sched = sched
     return sched
 
@@ -151,10 +182,43 @@ def _check(name, sched, Nc, nx, nz):
         raise ValueError(f"{name}: unsupported shape Nc={Nc} nx={nx} nz={nz}")
 
 
-def _threads(sched) -> int:
-    """Threads of the one-block kernels: one per node of the widest level,
-    up to 1024."""
-    return min(1024, max(32, -(-sched.width // 32) * 32))
+# the kernels' launch (csrc/crown_ric.cu): a group of 8 (nz <= 8) or 16
+# lanes a run, blocks of at most _RIC_WARPS warps (128 registers a thread)
+# whose groups' shared memory fits _BLOCK_SMEM, on one cluster of
+# _RIC_CLUSTER blocks (Hopper's largest, not portable) or in one block
+_RIC_WARPS = 16
+_RIC_CLUSTER = 16
+_BLOCK_SMEM = 227 * 1024
+_RIC_ONE_BLOCK = 32  # the widest phase one block takes
+
+
+def _ric_floats(nz) -> int:
+    """Shared-memory floats a group of either kernel needs at nz, with nx =
+    nz - 1 (the most): the factor's 3-stage ring of [AB | hbar | Wsum0] and
+    its five nz x nz work areas, the solve's 4-stage ring of its backward
+    [P | Lu | Mxu | AB | rg | rb | wsum0] or forward [P | K | AB | rb | p |
+    k] stage, each stage rounded up to 4 floats."""
+    nx, nu = nz - 1, 1
+    up4 = lambda f: -(-f // 4) * 4
+    factor = 3 * up4(nx * nz + nz + nz * nz) + 5 * nz * nz
+    bwd = up4(nx * nx + nu * nu + nx * nu + nx * nz + 2 * nz + nx)
+    fwd = up4(nx * nx + nu * nx + nx * nz + 2 * nx + nu)
+    return max(factor, 4 * max(bwd, fwd))
+
+
+def _ric_launch(sched, nz) -> tuple[int, int]:
+    """(blocks, warps a block) of both kernels: a group a run of the widest
+    phase in one round where the blocks' threads and shared memory allow;
+    one block where that phase has at most _RIC_ONE_BLOCK runs (its
+    barrier costs less than the cluster's), else one cluster whose groups
+    the phases' runs take interleaved over its blocks (16 blocks rather
+    than 8 spread a 256-run phase's stages over twice the SMs)."""
+    per_warp = 32 // (8 if nz <= 8 else 16)
+    cap = min(_RIC_WARPS, _BLOCK_SMEM // (4 * _ric_floats(nz) * per_warp))
+    width = sched.run_width
+    if width <= min(_RIC_ONE_BLOCK, cap * per_warp):
+        return 1, -(-width // per_warp)
+    return _RIC_CLUSTER, min(cap, -(-width // (per_warp * _RIC_CLUSTER)))
 
 
 def crown_ric_factor(hbar, AB, Wsum0, prep, nx, reg=0.0):
@@ -181,14 +245,14 @@ def crown_ric_factor(hbar, AB, Wsum0, prep, nx, reg=0.0):
     f32 = dict(dtype=torch.float32, device=dev)
     P, Lu = torch.empty((Nc, nx, nx), **f32), torch.empty((Nc, nu, nu), **f32)
     K, Mxu = torch.empty((Nc, nu, nx), **f32), torch.empty((Nc, nx, nu), **f32)
-    Wsum, Wc = torch.empty((Nc, nz, nz), **f32), torch.empty((Nc, nz, nz), **f32)
+    Wc = torch.empty((Nc, nz, nz), **f32)  # the run tops' W
     t = sched.on(dev)
     ptrs = _build.ptr_array(
         [hbar, AB, Wsum0] + [t[k] for k in ("lev_ptr", "lev_node", "acc_ptr", "acc_node",
                                             "kid_ptr", "kid_idx")]
-        + [P, Lu, K, Mxu, Wsum, Wc])
-    err = _build.lib().tq_crown_ric_factor(ptrs, Nc, nx, nz, sched.n_lev, float(reg),
-                                           _threads(sched), _build.stream(dev))
+        + [P, Lu, K, Mxu, None, Wc] + [t[k] for k in ("ph_ptr", "run_ptr", "run_node")])
+    err = _build.lib().tq_crown_ric_factor(ptrs, Nc, nx, nz, sched.n_ph, float(reg),
+                                           *_ric_launch(sched, nz), _build.stream(dev))
     _build.check(err, name)
     crown_ric_factor.launches += 1
     return dict(P=P, Luu=Lu, K=K, Mxu=Mxu, AB=AB)
@@ -250,16 +314,16 @@ def crown_ric_solve(fact, rg, rb, wsum0, prep):
         _build.require(name, arg, t, shape, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     p, k = torch.empty((Nc, nx), **f32), torch.empty((Nc, nu), **f32)
-    wsum, wv = torch.empty((Nc, nz), **f32), torch.empty((Nc, nz), **f32)
+    wv = torch.empty((Nc, nz), **f32)  # the run tops' w
     dz, dl = torch.empty((Nc, nz), **f32), torch.empty((Nc, nx), **f32)
     t = sched.on(dev)
     ptrs = _build.ptr_array(
         [P, fact["Luu"], fact["K"], fact["Mxu"], fact["AB"], rg, rb, wsum0]
         + [t[k_] for k_ in ("lev_ptr", "lev_node", "acc_ptr", "acc_node", "kid_ptr",
                             "kid_idx", "par")]
-        + [p, k, wsum, wv, dz, dl])
-    err = _build.lib().tq_crown_ric_solve(ptrs, Nc, nx, nz, sched.n_lev,
-                                          _threads(sched), _build.stream(dev))
+        + [p, k, None, wv, dz, dl] + [t[k_] for k_ in ("ph_ptr", "run_ptr", "run_node")])
+    err = _build.lib().tq_crown_ric_solve(ptrs, Nc, nx, nz, sched.n_ph,
+                                          *_ric_launch(sched, nz), _build.stream(dev))
     _build.check(err, name)
     crown_ric_solve.launches += 1
     return dz, dl
