@@ -266,6 +266,14 @@ DF_RTOL = 1e-12
 # df_reduce_flat's edges: the one-block form up to 4096 values, then one
 # cluster (columns of 4, 32, 64 and 1024 values); their data's seed
 REDUCE_EDGES = (0, 1, 2, 3, 4095, 4096, 4097, 50000, 65537, 2 ** 20 + 3)
+# chain_eval_df / chain_apply_df's edges (S, L, nx, nu): chains of one node
+# (no kid term, row 0 only), nx = nu = 1, the spring-mass df64 shape, nz =
+# 32 (two column chunks), a chain longer than a block, S no multiple of 8
+# chains, quadcopter(4,5,20)'s chains, and a long chain at nz = 32 whose
+# tiles exceed a block's shared memory (read from global memory)
+EVAL_DF_EDGES = ((5, 1, 6, 4), (5, 7, 1, 1), (5, 7, 8, 1), (5, 7, 16, 16), (3, 130, 6, 4),
+                 (257, 16, 6, 4), (1024, 15, 6, 4), (2, 130, 16, 16))
+EVAL_DF_SEED = 180
 REDUCE_SEED = 18
 # the generic-tree solver (models.GENERIC_SPEED_OPTS) on the headline tree
 # pruned to GEN_SCEN scenarios; KKT bar of the reference's per-MPC-step check
@@ -562,6 +570,32 @@ def admm_operands(torch, N, ng, nz, dtype, seed, dev):
            0.3 + rng.uniform(0.0, 1.0, (N, ng)), 3.0 * rng.standard_normal((N, nz)),
            rng.standard_normal((N, nz)))
     return tuple(torch.tensor(a, dtype=dtype, device=dev) for a in ops)
+
+
+def eval_df_operands(torch, S, L, nx, nu, seed, dev):
+    """Seeded operands of chain_eval_df and chain_apply_df at (S, L, nx,
+    nu): ``chain_eval_df_data`` of random A, B, q, r, b, positive Qd, Rd and
+    bounds that clip about a third of the clipping inputs at the dual point
+    lam (f64), and an f32 direction d."""
+    import numpy as np
+    from treeqp_tpu_torch.ops import df_eval_kernels as dek
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    g = lambda *sh: torch.tensor(rng.standard_normal((S, L) + sh), **f64)
+    pos = lambda n: torch.tensor(0.5 + rng.random((S, L, n)), **f64)
+    A, B = g(nx, nx) / math.sqrt(nx), g(nx, nu) / math.sqrt(nu)
+    q, r, b, Qd, Rd, lam = g(nx), g(nu), g(nx), pos(nx), pos(nu), g(nx)
+    wide = lambda n: torch.full((S, L, n), 1e30, **f64)
+    unc = dek.chain_eval_df_ref(dek.chain_eval_df_data(
+        A, B, q, r, Qd, Rd, -wide(nx), wide(nx), -wide(nu), wide(nu), b), lam)
+    # each bound |v| (0.5 + 1.5 U) on either side: v clips where its side's
+    # factor is below 1, a third of the time
+    side = lambda v: v.abs() * torch.tensor(0.5 + 1.5 * rng.random(v.shape), **f64)
+    xU, uU = unc["xUnc"], unc["uUnc"]
+    data = dek.chain_eval_df_data(A, B, q, r, Qd, Rd, -side(xU), side(xU), -side(uU),
+                                  side(uU), b)
+    d = torch.tensor(rng.standard_normal((S, L, nx)), dtype=torch.float32, device=dev)
+    return data, lam, d
 
 
 def iter_edge_qp(name, args):
@@ -1449,16 +1483,36 @@ def main():
     lam_crd = lam_cr_h.double() * dd["cr"]["nrxm"]
     lam_chd = lam_ch_h.double()
     keys = ("x", "u", "qt", "rt", "xUnc", "uUnc", "res_part", "cqr", "fch")
+    akeys = ("xl", "ul", "res_part", "cqr")
+    # both chain kernels at their edges (EVAL_DF_EDGES), on seeded data:
+    # chain_eval_df bit for bit, chain_apply_df to DF_RTOL
+    ev_edge_err = ap_edge_err = 0.0
+    for k, (S_e, L_e, nx_e, nu_e) in enumerate(EVAL_DF_EDGES):
+        de, lam_e, d_e = eval_df_operands(torch, S_e, L_e, nx_e, nu_e, EVAL_DF_SEED + k, dev)
+        what = f"(S={S_e}, L={L_e}, nx={nx_e}, nu={nu_e})"
+        e_ref = dek.chain_eval_df_ref(de, lam_e)
+        e_got = dek.chain_eval_df(de, lam_e)
+        a_ref = dek.chain_apply_df_ref(de, e_ref["qt"], e_ref["rt"], d_e)
+        a_got = dek.chain_apply_df(de, e_ref["qt"], e_ref["rt"], d_e)
+        torch.cuda.synchronize()
+        ev_edge_err = max(ev_edge_err, bit_exact(torch, f"chain_eval_df {what}",
+                                                 floats(e_got, keys), floats(e_ref, keys)))
+        ap_edge_err = max(ap_edge_err, compare(torch, f"chain_apply_df {what}",
+                                               floats(a_got, akeys), floats(a_ref, akeys),
+                                               DF_RTOL))
+    print(f"chain_eval_df, chain_apply_df at their kernels' edges {EVAL_DF_EDGES} (S, L, nx, "
+          f"nu): max |diff| to the twins {ev_edge_err:.3e} (bit for bit) / {ap_edge_err:.3e}")
     ch_ref = dek.chain_eval_df_ref(dd["ch"], lam_chd)
     ch_got = dek.chain_eval_df(dd["ch"], lam_chd)
     torch.cuda.synchronize()
-    record("chain_eval_df", "chain_eval_df.cu", "treeqp_tpu/ops/df_eval_kernels.py:93",
-           compare(torch, "chain_eval_df", floats(ch_got, keys), floats(ch_ref, keys),
-                   BIT_EXACT),
-           lambda: dek.chain_eval_df(dd["ch"], lam_chd),
-           lambda: dek.chain_eval_df_ref(dd["ch"], lam_chd),
-           f"ABt {tuple(dd['ch']['ABt'].shape)} f64, after {it_h} coarse iterations",
-           (dd["ch"], lam_chd), chain_eval_ops, fp64=True)
+    record_graph("chain_eval_df", "chain_eval_df.cu", "treeqp_tpu/ops/df_eval_kernels.py:93",
+                 max(bit_exact(torch, "chain_eval_df", floats(ch_got, keys),
+                               floats(ch_ref, keys)), ev_edge_err),
+                 lambda: dek.chain_eval_df(dd["ch"], lam_chd),
+                 lambda: dek.chain_eval_df_ref(dd["ch"], lam_chd),
+                 f"ABt {tuple(dd['ch']['ABt'].shape)} f64, after {it_h} coarse iterations, "
+                 f"launch {dek.chain_df_launch(S_, L_, nx_, nz_ - nx_)}; edges {EVAL_DF_EDGES} "
+                 f"bit for bit", (dd["ch"], lam_chd), chain_eval_ops, fp64=True)
     extra = md._root_extra(dd, ch_ref["cqr"])
     keys = ("x", "u", "qtilde", "rtilde", "xUnc", "uUnc", "res", "fcr")
     cr_ref = dek.crown_eval_df_ref(dd["cr"], lam_crd, extra, prep)
@@ -1475,15 +1529,17 @@ def main():
     res_crd, res_chd = md.df_residuals(dd, cr_ref, ch_ref)
     dcr, dch = res_crd.float(), res_chd.float()
     aargs = (dd["ch"], ch_ref["qt"], ch_ref["rt"], dch)
-    keys = ("xl", "ul", "res_part", "cqr")
     a_ref = dek.chain_apply_df_ref(*aargs)
     a_got = dek.chain_apply_df(*aargs)
     torch.cuda.synchronize()
-    record("chain_apply_df", "chain_apply_df.cu", "treeqp_tpu/ops/df_eval_kernels.py:237",
-           compare(torch, "chain_apply_df", floats(a_got, keys), floats(a_ref, keys),
-                   DF_RTOL),
-           lambda: dek.chain_apply_df(*aargs), lambda: dek.chain_apply_df_ref(*aargs),
-           f"d {tuple(dch.shape)} f32", aargs, chain_apply_ops, fp64=True)
+    record_graph("chain_apply_df", "chain_apply_df.cu", "treeqp_tpu/ops/df_eval_kernels.py:237",
+                 max(compare(torch, "chain_apply_df", floats(a_got, akeys),
+                             floats(a_ref, akeys), DF_RTOL), ap_edge_err),
+                 lambda: dek.chain_apply_df(*aargs), lambda: dek.chain_apply_df_ref(*aargs),
+                 f"d {tuple(dch.shape)} f32, launch "
+                 f"{dek.chain_df_launch(S_, L_, nx_, nz_ - nx_, apply=True)}; edges "
+                 f"{EVAL_DF_EDGES} max |diff| {ap_edge_err:.3e}", aargs, chain_apply_ops,
+                 fp64=True)
     cargs = (dd["cr"], cr_ref["qtilde"], cr_ref["rtilde"], dcr,
              md._root_extra(dd, a_ref["cqr"]), prep)
     keys = ("xl", "ul", "res")

@@ -1,6 +1,7 @@
 """Helpers of the port's profiling scripts (``prof_torch_ms.py``,
-``prof_torch_generic.py``, ``prof_torch_ipm.py``): the card's name and power limit, host-clock
-medians of synchronized calls, and a torch.profiler summary of one call.
+``prof_torch_generic.py``, ``prof_torch_ipm.py``, ...): the card's name and power limit, host-clock
+medians of synchronized calls, a torch.profiler summary of one call, and
+the operands of a solve's kernel calls (``capture``).
 Needs CUDA; imports nothing of JAX."""
 
 import statistics
@@ -52,3 +53,24 @@ def profile_call(torch, fn, card_name, what="cold solve", top=10):
           f"{100 * dev_total / wall:.1f}% (profiler on) on {card_name}")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {t:8.3f} ms  x{c:<5d} {name[:90]}")
+
+
+def capture(mod, names, fn):
+    """Run fn() with each ``mod.<name>`` of ``names`` recording the operands
+    of every call; returns ({name: [(args, kwargs), ...]}, fn()'s result)."""
+    got, orig = {n: [] for n in names}, {n: getattr(mod, n) for n in names}
+
+    def stand_in(n):
+        def w(*a, **k):
+            got[n].append((a, k))
+            return orig[n](*a, **k)
+        w.launches = 0  # the wrapper counts through its module's name
+        return w
+    for n in names:
+        setattr(mod, n, stand_in(n))
+    try:
+        res = fn()
+    finally:
+        for n, f in orig.items():
+            setattr(mod, n, f)
+    return got, res

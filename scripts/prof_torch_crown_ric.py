@@ -108,27 +108,6 @@ def wrapper_times(parent):
                       f"included) on {card()}", flush=True)
 
 
-def capture(mod, names, fn):
-    """Run fn() with each ``mod.<name>`` of ``names`` recording the operands
-    of every call; returns ({name: [(args, kwargs), ...]}, fn()'s result)."""
-    got, orig = {n: [] for n in names}, {n: getattr(mod, n) for n in names}
-
-    def stand_in(n):
-        def w(*a, **k):
-            got[n].append((a, k))
-            return orig[n](*a, **k)
-        w.launches = 0  # the wrapper counts through its module's name
-        return w
-    for n in names:
-        setattr(mod, n, stand_in(n))
-    try:
-        res = fn()
-    finally:
-        for n, f in orig.items():
-            setattr(mod, n, f)
-    return got, res
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", action="append", default=[],
@@ -149,7 +128,7 @@ def main():
         sys.exit("prof_torch_crown_ric: needs a CUDA device")
     from chip_smoke import (CROWN_RIC_EDGES, FACTOR_RTOL, RIC_EDGES, RIC_REG, SOLVE_RTOL,
                             cuda_ms, graph_ms, ric_crown_operands, ric_operands)
-    from prof_common import card as card_name
+    from prof_common import capture, card as card_name
     import treeqp_tpu_torch  # noqa: F401  (pins full-precision f32)
     from treeqp_tpu_torch.models import IPM_OPTS, general_cd, spring_mass_chain
     from treeqp_tpu_torch.ops import _build

@@ -133,27 +133,6 @@ def wrapper_times(parent):
                       f"included) on {card()}", flush=True)
 
 
-def capture(mod, names, fn):
-    """Run fn() with each ``mod.<name>`` of ``names`` recording the operands
-    of every call; returns ({name: [(args, kwargs), ...]}, fn()'s result)."""
-    got, orig = {n: [] for n in names}, {n: getattr(mod, n) for n in names}
-
-    def stand_in(n):
-        def w(*a, **k):
-            got[n].append((a, k))
-            return orig[n](*a, **k)
-        w.launches = 0  # the wrapper counts through its module's name
-        return w
-    for n in names:
-        setattr(mod, n, stand_in(n))
-    try:
-        res = fn()
-    finally:
-        for n, f in orig.items():
-            setattr(mod, n, f)
-    return got, res
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", action="append", default=[],
@@ -177,7 +156,7 @@ def main():
                             crown_prep, crown_rhs, crown_vector, cuda_ms, graph_ms,
                             iter_edge_qp, iter_operands, ric_chain_ldl, ric_operands, ric_rhs,
                             system_operands)
-    from prof_common import card as card_name
+    from prof_common import capture, card as card_name
     import treeqp_tpu_torch  # noqa: F401  (pins full-precision f32)
     from treeqp_tpu_torch.models import (GENERAL_CD_OPTS, GENERIC_SPEED_OPTS, IPM_OPTS,
                                          asym_tree, general_cd, pruned, quadcopter,

@@ -20,9 +20,10 @@ chip_smoke.py (or, with --f32-phase-tol > 0, its two-phase options; with
   --df64-phase the high-precision phase's evaluation, residuals, dual value
   and Hessian action instead of the f64 loop's;
 * the factorizations of one cold solve (factor kernel launches);
-* a torch.profiler trace of one cold solve: the device-busy share
-  (summed device kernel time over wall time) and the kernels with the
-  most device time.
+* a torch.profiler trace of one cold solve and of one warm solve (the
+  cold solve's duals, x0 scaled by 1.01): the device-busy share (summed
+  device kernel time over wall time) and the kernels with the most
+  device time.
 
 Needs CUDA; imports nothing of JAX.
 """
@@ -155,8 +156,9 @@ def main():
     for name, fn in steps.items():
         print(f"  step {name}: {timed(torch, fn, args.reps):.3f} ms")
 
-    # device-busy share and top kernels over one cold solve
+    # device-busy share and top kernels over one cold solve and one warm one
     profile_call(torch, lambda: tm.tdunes_ms_solve(ms, None, None, opts), card)
+    profile_call(torch, lambda: tm.tdunes_ms_solve(ms_p, *lam_w, opts), card, "warm solve")
 
 if __name__ == "__main__":
     main()

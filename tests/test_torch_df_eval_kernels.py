@@ -19,6 +19,7 @@ from treeqp_tpu.solvers import ms_df64 as jmd
 from treeqp_tpu.solvers import tdunes as jtd
 from treeqp_tpu.solvers import tdunes_multistage as jtm
 
+import chip_smoke
 from test_torch_chain_kernels import CASES, POINTS
 from treeqp_tpu_torch import convert
 from treeqp_tpu_torch.ops import crown_kernels as ckr
@@ -84,11 +85,11 @@ def j64(v):
     return np.asarray(jdf.to_f64(v))
 
 
-def assert_close(got, ref, what):
+def assert_close(got, ref, what, rtol=RTOL):
     got, ref = np.asarray(got), np.asarray(ref)
     assert got.shape == ref.shape, what
     assert np.isfinite(got).all() and np.isfinite(ref).all(), what
-    bound = RTOL * max(1.0, float(np.max(np.abs(ref))))
+    bound = rtol * max(1.0, float(np.max(np.abs(ref))))
     assert float(np.max(np.abs(got - ref))) <= bound, what
 
 
@@ -217,3 +218,61 @@ def test_cpu_wrappers_run_plain_twins():
         dek.crown_apply_df(meta(dd["cr"]), cr["qtilde"].to("meta"),
                            cr["rtilde"].to("meta"), c["dcr"].to("meta"),
                            extra.to("meta"), prep)
+
+
+def test_chain_df_launch():
+    """The chain kernels' launch (csrc/chain_eval_df.cu, chain_apply_df.cu):
+    at the bench path's S = 256 chains of L = 16, one chain a block in 256
+    blocks of 16 threads, staged; at every edge of the card's smoke, every
+    chain whole in one block, S covered, and the staged tiles within a
+    block's 227 KB or the shape read from global memory."""
+    assert dek.chain_df_launch(256, 16, 6, 4) == (1, 256, 16, True, 8736)
+    assert dek.chain_df_launch(256, 16, 6, 4, apply=True) == (1, 256, 16, True, 8096)
+    assert dek.chain_df_launch(256, 16, 6, 4, chains=8) == (8, 32, 128, True, 69664)
+    for S, L, nx, nu in chip_smoke.EVAL_DF_EDGES:
+        for apply in (False, True):
+            C, blocks, threads, staged, smem = dek.chain_df_launch(S, L, nx, nu, apply)
+            assert C >= 1 and (C * L <= dek._NODE_THREADS or C == 1)
+            assert (blocks - 1) * C < S <= blocks * C
+            assert threads == min(C * L, dek._NODE_THREADS)
+            assert smem <= dek._BLOCK_SMEM
+            assert staged == (dek._df_smem(C, L, nx, nu, apply, True) <= dek._BLOCK_SMEM)
+    # nz = 32 (4 KB a node): 7 nodes are staged, 130 read from global memory
+    assert dek.chain_df_launch(5, 7, 16, 16)[3]
+    assert not dek.chain_df_launch(2, 130, 16, 16)[3]
+    assert not dek.chain_df_launch(5, 7, 16, 16, chains=8)[3]
+    assert dek.chain_df_launch(3, 130, 6, 4)[:3] == (1, 3, 128)
+
+
+# Pallas interpret mode on the CPU contracts the double-float error-free
+# transforms (tests/test_df_eval_kernels.py): its kernels agree with native
+# f64 to ~f32 ulps there
+INTERPRET_TOL = 1e-6
+
+
+def test_chain_twins_match_jax_kernels():
+    """The plain twins of chain_eval_df and chain_apply_df against the JAX
+    Pallas kernels (interpret mode) on seeded data at a tree of one-node
+    chains with nu = 1 (one case: interpret mode takes seconds a shape):
+    the same outputs to INTERPRET_TOL, the same active sets."""
+    S, L, nx, nu = 3, 1, 3, 1
+    data, lam, d = chip_smoke.eval_df_operands(torch, S, L, nx, nu, 7, "cpu")
+    AB = data["ABt"].numpy()
+    jdata = jdek.chain_eval_df_data(*(jnp.asarray(v) for v in (
+        AB[..., :nx], AB[..., nx:], *(data[k].numpy() for k in (
+            "q", "r", "Qd", "Rd", "xmin", "xmax", "umin", "umax", "b")))))
+    jch = jdek.chain_eval_df(jdata, jdf.from_f64(jnp.asarray(lam.numpy())))
+    ch = dek.chain_eval_df_ref(data, lam)
+    nodes = lambda v: np.transpose(j64(v)[..., :S], (2, 0, 1))  # lane layout -> [S, L, n]
+    for k in ("x", "u", "res_part", "cqr", "fch"):
+        assert_close(ch[k], j64(jch[k]), k, INTERPRET_TOL)
+    for k in ("xUnc", "uUnc", "qt", "rt"):
+        assert_close(ch[k], nodes(jch[k]), k, INTERPRET_TOL)
+    for k in ("qt", "rt"):
+        np.testing.assert_array_equal(ch[k].numpy() != 0, nodes(jch[k]) != 0, k)
+    ja = jdek.chain_apply_df(jdata, jch["qt"], jch["rt"], jnp.asarray(d.numpy()))
+    a = dek.chain_apply_df_ref(data, ch["qt"], ch["rt"], d)
+    for k in ("res_part", "cqr"):
+        assert_close(a[k], j64(ja[k]), k, INTERPRET_TOL)
+    for k in ("xl", "ul"):
+        assert_close(a[k], nodes(ja[k]), k, INTERPRET_TOL)

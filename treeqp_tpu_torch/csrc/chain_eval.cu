@@ -6,7 +6,7 @@
 // A_0 z_crown term), the crown-root contributions cqr = [A_0 B_0]' lam_0 and
 // the per-chain dual-value partial sums, in one launch. The kernel is
 // tq::chain_eval_kernel<float> (tq_eval.cuh), whose body newton_iter.cu runs
-// too and whose double instance is chain_eval_df.cu.
+// too, a thread a node, as chain_eval_df.cu runs it in double.
 //
 // What bounds it on the card: latency and occupancy. Each thread walks its
 // chain's L nodes serially (~L (4 nx nz + 10 nz) flops, ~3k at the

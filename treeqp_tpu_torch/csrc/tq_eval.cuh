@@ -151,21 +151,21 @@ inline EvalOut<T> eval_out(PtrCursor& c) {
 //   f[s] = sum_j sum_i x (qmod - Qd x / 2) - b lam + sum_i u (rmod - Rd u / 2);
 //   err[s] = max |res_j| over j >= 1;  cqr = [A_0 B_0]' lam_0 (nz values).
 // chain_eval_one runs the chain node by node in one thread; newton_iter.cu
-// runs chain_clip_node for every node at once, then chain_res_node, then
-// the per-chain sums in j order: the same operations on every element.
+// and chain_eval_df.cu run chain_clip_node (chain_clip_at) for every node
+// at once, then chain_res_node (chain_res_at), then the per-chain sums in j
+// order: the same operations on every element.
 
-// Node j of chain s: the clipping solve, the masked inverses, and the
-// node's dual-value partials sx (the x rows) and su (the u rows).
+// Node sj = s L + j: the clipping solve, the masked inverses, and the
+// node's dual-value partials sx (the x rows) and su (the u rows), with its
+// dual row lj, and (kid = j < L-1) the kid's block ABn and dual row ln read
+// from wherever the caller keeps them (global memory, or a block's tile in
+// shared memory: chain_eval_df.cu).
 template <typename T>
-__device__ inline void chain_clip_node(const ChainData<T>& d, const T* __restrict__ lam,
-                                       const EvalOut<T>& o, int s, int j, T& sx, T& su) {
-  const int L = d.L, nx = d.nx, nu = d.nu, nz = nx + nu;
+__device__ inline void chain_clip_at(const ChainData<T>& d, const T* __restrict__ lj,
+                                     const T* ABn, const T* __restrict__ ln,
+                                     const EvalOut<T>& o, size_t sj, bool kid, T& sx, T& su) {
+  const int nx = d.nx, nu = d.nu, nz = nx + nu;
   const T half = T(0.5);
-  const size_t sj = (size_t)s * L + j;
-  const T* lj = lam + sj * nx;
-  const bool kid = j < L - 1;
-  const T* ABn = d.AB + (sj + 1) * nx * nz;
-  const T* ln = lam + (sj + 1) * nx;
   sx = T(0);
   su = T(0);
   // the columns of [x; u] a chunk at a time: the kid terms col_dot(ABn, ln,
@@ -207,12 +207,14 @@ __device__ inline void chain_clip_node(const ChainData<T>& d, const T* __restric
   }
 }
 
-// Node j of chain s, after the clip of nodes j-1 and j: the residual row
-// res_j, and max |res_j| (0 at j = 0, whose row the caller completes).
+// Node j of chain s (sj = s L + j), after the clip of nodes j-1 and j:
+// the residual row res_j, and max |res_j| (0 at j = 0, whose row the
+// caller completes); the node's block ABj read from wherever the caller
+// keeps it.
 template <typename T>
-__device__ inline T chain_res_node(const ChainData<T>& d, const EvalOut<T>& o, int s, int j) {
-  const int L = d.L, nx = d.nx, nu = d.nu, nz = nx + nu;
-  const size_t sj = (size_t)s * L + j;
+__device__ inline T chain_res_at(const ChainData<T>& d, const T* ABj, const EvalOut<T>& o,
+                                 size_t sj, int j) {
+  const int nx = d.nx, nu = d.nu, nz = nx + nu;
   T err = T(0);
   if (j == 0) {
     for (int i = 0; i < nx; ++i) o.res[sj * nx + i] = sub(d.b[sj * nx + i], o.x[sj * nx + i]);
@@ -220,8 +222,7 @@ __device__ inline T chain_res_node(const ChainData<T>& d, const EvalOut<T>& o, i
   }
   // row_dot(AB, x_{j-1}, i) and row_dot(AB + nx, u_{j-1}, i) of every row
   T ax[kRows], au[kRows];
-  row_dots<T, true>(d.AB + sj * nx * nz, o.x + (sj - 1) * nx, o.u + (sj - 1) * nu, nx, nu, nz,
-                    ax, au);
+  row_dots<T, true>(ABj, o.x + (sj - 1) * nx, o.u + (sj - 1) * nu, nx, nu, nz, ax, au);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     if (i < nx) {
@@ -234,20 +235,43 @@ __device__ inline T chain_res_node(const ChainData<T>& d, const EvalOut<T>& o, i
   return err;
 }
 
+// Node j of chain s, after the clip of nodes j-1 and j (chain_res_at with
+// the block in global memory).
+template <typename T>
+__device__ inline T chain_res_node(const ChainData<T>& d, const EvalOut<T>& o, int s, int j) {
+  const size_t sj = (size_t)s * d.L + j;
+  return chain_res_at(d, d.AB + sj * d.nx * (d.nx + d.nu), o, sj, j);
+}
+
+// Node j of chain s (chain_clip_at with its operands in global memory).
+template <typename T>
+__device__ inline void chain_clip_node(const ChainData<T>& d, const T* __restrict__ lam,
+                                       const EvalOut<T>& o, int s, int j, T& sx, T& su) {
+  const int nx = d.nx, nz = nx + d.nu;
+  const size_t sj = (size_t)s * d.L + j;
+  chain_clip_at(d, lam + sj * nx, d.AB + (sj + 1) * nx * nz, lam + (sj + 1) * nx, o, sj,
+                j < d.L - 1, sx, su);
+}
+
+// cqr = [A_0 B_0]' v_0 (nz values) of a chain's root block AB0 and row v0
+// (v widened to T).
+template <typename T, typename V>
+__device__ inline void chain_root_cqr_at(const T* AB0, const V* v0, int nx, int nz, T* cqr) {
+  for (int c0 = 0; c0 < nz; c0 += kCols) {
+    T acc[kCols];
+    col_dots(AB0, v0, c0, nz, nx, nz, acc);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      if (c0 + c < nz) cqr[c0 + c] = acc[c];
+  }
+}
+
 // cqr = [A_0 B_0]' lam_0 of chain s (nz values).
 template <typename T>
 __device__ inline void chain_root_cqr(const ChainData<T>& d, const T* __restrict__ lam, T* cqr,
                                       int s) {
   const int nx = d.nx, nz = nx + d.nu;
-  const T* AB0 = d.AB + (size_t)s * d.L * nx * nz;
-  const T* l0 = lam + (size_t)s * d.L * nx;
-  for (int c0 = 0; c0 < nz; c0 += kCols) {
-    T acc[kCols];
-    col_dots(AB0, l0, c0, nz, nx, nz, acc);
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      if (c0 + c < nz) cqr[c0 + c] = acc[c];
-  }
+  chain_root_cqr_at(d.AB + (size_t)s * d.L * nx * nz, lam + (size_t)s * d.L * nx, nx, nz, cqr);
 }
 
 template <typename T>
@@ -412,7 +436,7 @@ __device__ inline void crown_res(const CrownData<T>& d, const EvalOut<T>& o, int
 // ---------------------------------------------------------------------------
 // the two evaluation kernels and their launchers, for either scalar type
 
-// One thread per chain (chain_eval.cu, chain_eval_df.cu).
+// One thread per chain (chain_eval.cu).
 template <typename T>
 __global__ void chain_eval_kernel(ChainData<T> d, const T* __restrict__ lam, EvalOut<T> o,
                                   T* __restrict__ cqr) {
@@ -434,6 +458,28 @@ inline int launch_chain_eval(const void* const* p, int S, int L, int nx, int nu,
   chain_eval_kernel<T><<<(S + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
       d, lam, o, cqr);
   return (int)cudaGetLastError();
+}
+
+// The high-precision phase's chain kernels (chain_eval_df.cu,
+// chain_apply_df.cu) run a thread a chain node, ``chains`` whole chains a
+// block of at most kNodeThreads threads (a longer chain's block strides
+// over its nodes). tile_bytes: the shared memory of a tile of count
+// elements of elem bytes that stage_async fills (tq_lanes.cuh).
+constexpr int kNodeThreads = 128;
+
+__host__ __device__ inline size_t tile_bytes(size_t count, size_t elem) {
+  return (count * elem + 15) / 16 * 16 + 16;
+}
+
+// Opt the kernel in to ``bytes`` of dynamic shared memory, once for each
+// new high-water mark (``opted``, the kernel's own).
+template <typename K>
+inline cudaError_t opt_in_smem(K kernel, size_t bytes, size_t& opted) {
+  if (bytes <= opted) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) opted = bytes;
+  return e;
 }
 
 // One block; threads stride over the nodes with a barrier between the

@@ -1,7 +1,7 @@
 // Pieces of the lane-group kernels (chain_factor.cu, chain_blocks_factor.cu,
 // chain_sweeps.cu, chain_full_solve.cu, newton_iter.cu, admm_identify.cu,
-// ric_chain.cu): the
-// cp.async copies of the chain kernels' shared-memory rings, the broadcast
+// ric_chain.cu, chain_eval_df.cu, chain_apply_df.cu): the
+// cp.async copies of the chain kernels' shared-memory rings and tiles, the broadcast
 // lane's true division, the step of the banded backward block Cholesky
 // that both chain factor kernels run, a group of lanes per chain with lane
 // i owning row i of the step's n x n block, and the two solve sweeps of the
@@ -34,6 +34,30 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 __device__ __forceinline__ void copy_async(float* dst, const float* src, int count, int lane,
                                            int G) {
   for (int e = lane; e < count; e += G) cp_async4(dst + e, src + e);
+}
+
+// Start copying count T's (4-byte aligned, sizeof(T) a multiple of 4) from
+// src to shared memory, by the block's threads: 16-byte copies (a warp's
+// lanes on neighbouring addresses) where src and the copy share their
+// offset within 16 bytes, 4-byte ones at the ragged ends. buf is 16-byte
+// aligned and holds count T's + 16 bytes; returns where src's copy begins.
+// The caller commits, waits and synchronizes the block.
+template <typename T>
+__device__ inline const T* stage_async(void* buf, const T* src, size_t count) {
+  const size_t bytes = count * sizeof(T);
+  const size_t off = (size_t)src & 15;
+  char* dst = static_cast<char*>(buf) + off;
+  const char* from = reinterpret_cast<const char*>(src);
+  const size_t head = bytes < ((16 - off) & 15) ? bytes : (16 - off) & 15;
+  const size_t body = head + ((bytes - head) & ~(size_t)15);
+  const size_t t = threadIdx.x, nt = blockDim.x;
+  for (size_t b = 4 * t; b < head; b += 4 * nt)
+    cp_async4(reinterpret_cast<float*>(dst + b), reinterpret_cast<const float*>(from + b));
+  for (size_t b = head + 16 * t; b < body; b += 16 * nt)
+    cp_async16(reinterpret_cast<float*>(dst + b), reinterpret_cast<const float*>(from + b));
+  for (size_t b = body + 4 * t; b < bytes; b += 4 * nt)
+    cp_async4(reinterpret_cast<float*>(dst + b), reinterpret_cast<const float*>(from + b));
+  return reinterpret_cast<const T*>(dst);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -57,12 +57,12 @@ _SIGNATURES = {
     # lev_slot, g_of, slot, rv, ycr, dg, dch, S, L, n, NpG, K, n_lev, stream
     "tq_system_solve": [_P] * 16 + [_I] * 6 + [_P],
     # the f64 kernels of the high-precision phase
-    # pointers, S, L, nx, nu, stream
-    "tq_chain_eval_df": [_P] + [_I] * 4 + [_P],
+    # pointers, S, L, nx, nu, chains, staged, stream
+    "tq_chain_eval_df": [_P] + [_I] * 6 + [_P],
     # pointers, Nn, nx, nu, threads, stream
     "tq_crown_eval_df": [_P] + [_I] * 4 + [_P],
-    # ABt, qt, rt, d, xl, ul, res, cqr, S, L, nx, nu, stream
-    "tq_chain_apply_df": [_P] * 8 + [_I] * 4 + [_P],
+    # ABt, qt, rt, d, xl, ul, res, cqr, S, L, nx, nu, chains, staged, stream
+    "tq_chain_apply_df": [_P] * 8 + [_I] * 6 + [_P],
     # pointers, Nn, nx, nu, threads, stream
     "tq_crown_apply_df": [_P] + [_I] * 4 + [_P],
     # x, n, m, out, stream

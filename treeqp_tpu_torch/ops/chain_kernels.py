@@ -405,10 +405,10 @@ def chain_eval(data, lam):
 chain_eval.launches = 0
 
 
-def eval_launch(name, entry, data, lam, dtype):
+def eval_launch(name, entry, data, lam, dtype, launch=()):
     """Check the operands of a chain evaluation kernel of ``dtype`` (f32
-    ``chain_eval`` or f64 ``chain_eval_df``) and launch it; returns its
-    outputs (see ``chain_eval``)."""
+    ``chain_eval`` or f64 ``chain_eval_df``, whose entry also takes the ints
+    ``launch``) and launch it; returns its outputs (see ``chain_eval``)."""
     S, L, nx, nz = data["ABt"].shape
     nu = nz - nx
     dev = lam.device
@@ -428,7 +428,7 @@ def eval_launch(name, entry, data, lam, dtype):
         [data[k] for k in CHAIN_DATA_KEYS] + [lam]
         + [out[k] for k in ("x", "u", "qt", "rt", "xUnc", "uUnc", "res_part", "fch")]
         + [None, out["cqr"]])
-    err = getattr(_build.lib(), entry)(ptrs, S, L, nx, nu, _build.stream(dev))
+    err = getattr(_build.lib(), entry)(ptrs, S, L, nx, nu, *launch, _build.stream(dev))
     _build.check(err, name)
     return out
 
