@@ -23,7 +23,12 @@ Phases (any failure exits non-zero):
    phase's last duals), all on the headline instance (quadcopter, md=4,
    Nr=4, Nh=20: 256 scenarios, 4437 nodes), with df_reduce_flat also held
    bit for bit at the edges of its two levels (n in REDUCE_EDGES) and
-   timed, with ``torch.sum``, alone and in a CUDA graph on both vectors;
+   timed, with ``torch.sum``, alone and in a CUDA graph on both vectors,
+   chain_eval also held against its twin at the chain evaluation kernel's
+   edges (EVAL_DF_EDGES, the seeded data in f32; EVAL_RTOL, the active sets
+   equal) and crown_eval_df bit for bit at its kernel's edges
+   (CROWN_EVAL_EDGES: seeded crowns, ``crown_eval_operands``), both timed
+   in a CUDA graph too;
    and the generic-tree solver's
    tree-Cholesky kernels (chain_factor, chain_solve_bwd, chain_forward,
    crown_factor, crown_solve) on each of the three instances of section 5
@@ -214,8 +219,8 @@ chain_forward, crown_factor, crown_solve, crown_blocks_factor,
 df_reduce_flat, chain_blocks_factor, chain_blocks_factor_lanes,
 system_solve and jay_cr_solve also with ``graph_ms`` and
 ``library_graph_ms``: kernel and library call in a CUDA graph;
-admm_identify, chain_full_solve_mat and the five Riccati kernels with
-``graph_ms``), then the
+admm_identify, chain_full_solve_mat, the five Riccati kernels, chain_eval,
+chain_eval_df, chain_apply_df and crown_eval_df with ``graph_ms``), then the
 device JSON as the last line.
 Imports nothing of JAX.
 """
@@ -274,6 +279,15 @@ REDUCE_EDGES = (0, 1, 2, 3, 4095, 4096, 4097, 50000, 65537, 2 ** 20 + 3)
 EVAL_DF_EDGES = ((5, 1, 6, 4), (5, 7, 1, 1), (5, 7, 8, 1), (5, 7, 16, 16), (3, 130, 6, 4),
                  (257, 16, 6, 4), (1024, 15, 6, 4), (2, 130, 16, 16))
 EVAL_DF_SEED = 180
+# crown_eval_df's edges (a group of 8 or 16 lanes a node, one block or one
+# cluster), held bit for bit against the twin on seeded crowns of the
+# multistage tree (md, Nr) with nx states and nu inputs
+# (crown_eval_operands): a root-only crown, nx = nu = 1 (8 lanes), nz = 32
+# (two columns a lane), one node with 40 kids, a deep crown of two kids a
+# node (511 nodes) and quadcopter(4,5,20)'s 1365-node crown
+CROWN_EVAL_EDGES = ((4, 0, 6, 4), (3, 3, 1, 1), (3, 2, 16, 16), (40, 1, 6, 4), (2, 8, 6, 4),
+                    (4, 5, 6, 4))
+CROWN_EVAL_SEED = 190
 REDUCE_SEED = 18
 # the generic-tree solver (models.GENERIC_SPEED_OPTS) on the headline tree
 # pruned to GEN_SCEN scenarios; KKT bar of the reference's per-MPC-step check
@@ -596,6 +610,38 @@ def eval_df_operands(torch, S, L, nx, nu, seed, dev):
                                   side(uU), b)
     d = torch.tensor(rng.standard_normal((S, L, nx)), dtype=torch.float32, device=dev)
     return data, lam, d
+
+
+def crown_eval_operands(torch, md, Nr, nx, nu, seed, dev):
+    """Seeded operands of crown_eval_df on the crown of the multistage tree
+    (md, Nr) with nx states and nu inputs: (data, lam, extra, prep), data
+    ``crown_eval_df_data`` of random A, B, q, r, b, positive diagonal Q, R
+    and bounds that clip about a third of the clipping inputs at the dual
+    point lam, extra N(0, 1) on every node (f64)."""
+    import numpy as np
+    from types import SimpleNamespace
+    from treeqp_tpu_torch.ops import df_eval_kernels as dek
+    from treeqp_tpu_torch.solvers import tdunes as td
+    from treeqp_tpu_torch.solvers import tdunes_multistage as tm
+    from treeqp_tpu_torch.utils.tree import TreeStructure
+    prep = td._get_prep(tm._ms_meta(TreeStructure.multistage(md, Nr, Nr + 2, nx, nu)).crown_topo)
+    Nn = len(prep.par)
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    g = lambda *sh: torch.tensor(rng.standard_normal((Nn,) + sh), **f64)
+    diag = lambda n: torch.diag_embed(torch.tensor(0.5 + rng.random((Nn, n)), **f64))
+    qp = SimpleNamespace(A=g(nx, nx) / math.sqrt(nx), B=g(nx, nu) / math.sqrt(nu), q=g(nx),
+                         r=g(nu), b=g(nx), Q=diag(nx), R=diag(nu))
+    lam, extra = g(nx), g(nx + nu)
+    masks = prep.masks(torch.float64, dev)
+    wide = lambda n: torch.full((Nn, n), 1e30, **f64)
+    qp.xmin, qp.xmax, qp.umin, qp.umax = -wide(nx), wide(nx), -wide(nu), wide(nu)
+    unc = dek.crown_eval_df_ref(dek.crown_eval_df_data(qp, prep, *masks), lam, extra, prep)
+    # each bound |v| (0.5 + 1.5 U) on either side, as eval_df_operands
+    side = lambda v: v.abs() * torch.tensor(0.5 + 1.5 * rng.random(v.shape), **f64)
+    qp.xmin, qp.xmax = -side(unc["xUnc"]), side(unc["xUnc"])
+    qp.umin, qp.umax = -side(unc["uUnc"]), side(unc["uUnc"])
+    return dek.crown_eval_df_data(qp, prep, *masks), lam, extra, prep
 
 
 def iter_edge_qp(name, args):
@@ -1332,10 +1378,27 @@ def main():
     keys = ("x", "u", "xUnc", "uUnc", "res_part", "cqr", "fch")
     err = compare(torch, "chain_eval", floats(e_got, keys), floats(e_ref, keys), EVAL_RTOL)
     compare_sets(torch, "chain_eval", e_got, e_ref, ("qt", "rt"))
-    record("chain_eval", "chain_eval.cu", "treeqp_tpu/ops/chain_kernels.py:402", err,
-           lambda: ck.chain_eval(data_ch, lam_ch32),
-           lambda: ck.chain_eval_ref(data_ch, lam_ch32),
-           f"ABt {tuple(data_ch['ABt'].shape)}", (data_ch, lam_ch32), chain_eval_ops)
+    # and at the chain evaluation kernel's edges (EVAL_DF_EDGES), on the
+    # seeded data in f32
+    ce_edge_err = 0.0
+    for k, shape in enumerate(EVAL_DF_EDGES):
+        de, lam_e, _ = eval_df_operands(torch, *shape, EVAL_DF_SEED + k, dev)
+        de = {key: v.float() for key, v in de.items()}
+        ce_ref = ck.chain_eval_ref(de, lam_e.float())
+        ce_got = ck.chain_eval(de, lam_e.float())
+        torch.cuda.synchronize()
+        what = f"chain_eval (S, L, nx, nu = {shape})"
+        ce_edge_err = max(ce_edge_err, compare(torch, what, floats(ce_got, keys),
+                                               floats(ce_ref, keys), EVAL_RTOL))
+        compare_sets(torch, what, ce_got, ce_ref, ("qt", "rt"))
+    print(f"chain_eval at its kernel's edges {EVAL_DF_EDGES} (S, L, nx, nu; f32): max |diff| "
+          f"to the twin {ce_edge_err:.3e}, active sets equal")
+    record_graph("chain_eval", "chain_eval.cu", "treeqp_tpu/ops/chain_kernels.py:402",
+                 max(err, ce_edge_err), lambda: ck.chain_eval(data_ch, lam_ch32),
+                 lambda: ck.chain_eval_ref(data_ch, lam_ch32),
+                 f"ABt {tuple(data_ch['ABt'].shape)}, launch "
+                 f"{ck.chain_node_launch(S_, L_, nx_, nz_ - nx_, 4)}; edges {EVAL_DF_EDGES} max "
+                 f"|diff| {ce_edge_err:.3e}", (data_ch, lam_ch32), chain_eval_ops)
 
     extra = torch.zeros_like(data_cr["ABt"][:, 0])
     extra[ctx["rid"]] = e_ref["cqr"]
@@ -1511,20 +1574,33 @@ def main():
                  lambda: dek.chain_eval_df(dd["ch"], lam_chd),
                  lambda: dek.chain_eval_df_ref(dd["ch"], lam_chd),
                  f"ABt {tuple(dd['ch']['ABt'].shape)} f64, after {it_h} coarse iterations, "
-                 f"launch {dek.chain_df_launch(S_, L_, nx_, nz_ - nx_)}; edges {EVAL_DF_EDGES} "
+                 f"launch {ck.chain_node_launch(S_, L_, nx_, nz_ - nx_, 8)}; edges {EVAL_DF_EDGES} "
                  f"bit for bit", (dd["ch"], lam_chd), chain_eval_ops, fp64=True)
     extra = md._root_extra(dd, ch_ref["cqr"])
     keys = ("x", "u", "qtilde", "rtilde", "xUnc", "uUnc", "res", "fcr")
     cr_ref = dek.crown_eval_df_ref(dd["cr"], lam_crd, extra, prep)
     cr_got = dek.crown_eval_df(dd["cr"], lam_crd, extra, prep)
     torch.cuda.synchronize()
-    record("crown_eval_df", "crown_eval_df.cu", "treeqp_tpu/ops/df_eval_kernels.py:399",
-           compare(torch, "crown_eval_df", floats(cr_got, keys), floats(cr_ref, keys),
-                   BIT_EXACT),
-           lambda: dek.crown_eval_df(dd["cr"], lam_crd, extra, prep),
-           lambda: dek.crown_eval_df_ref(dd["cr"], lam_crd, extra, prep),
-           f"ABt {tuple(dd['cr']['ABt'].shape)} f64",
-           (dd["cr"], lam_crd, extra, ckr.eval_sched(prep, dev)), crown_eval_ops, fp64=True)
+    cr_err = bit_exact(torch, "crown_eval_df", floats(cr_got, keys), floats(cr_ref, keys))
+    # and at its kernel's edges (CROWN_EVAL_EDGES), on seeded crowns
+    for k, edge in enumerate(CROWN_EVAL_EDGES):
+        ce_args = crown_eval_operands(torch, *edge, CROWN_EVAL_SEED + k, dev)
+        Nn_e = ce_args[0]["ABt"].shape[0]
+        cr_err = max(cr_err, bit_exact(
+            torch, f"crown_eval_df (md, Nr, nx, nu = {edge}: {Nn_e} nodes, launch "
+                   f"{ckr._crown_eval_launch(Nn_e, *edge[2:])})",
+            floats(dek.crown_eval_df(*ce_args), keys),
+            floats(dek.crown_eval_df_ref(*ce_args), keys)))
+    print(f"crown_eval_df at its kernel's edges {CROWN_EVAL_EDGES} (md, Nr, nx, nu): bit for "
+          "bit the twin")
+    Nc_d = dd["cr"]["ABt"].shape[0]
+    record_graph("crown_eval_df", "crown_eval_df.cu", "treeqp_tpu/ops/df_eval_kernels.py:399",
+                 cr_err, lambda: dek.crown_eval_df(dd["cr"], lam_crd, extra, prep),
+                 lambda: dek.crown_eval_df_ref(dd["cr"], lam_crd, extra, prep),
+                 f"ABt {tuple(dd['cr']['ABt'].shape)} f64, launch "
+                 f"{ckr._crown_eval_launch(Nc_d, nx_, nz_ - nx_)}; edges {CROWN_EVAL_EDGES} "
+                 "bit for bit", (dd["cr"], lam_crd, extra, ckr.eval_sched(prep, dev)),
+                 crown_eval_ops, fp64=True)
     # an f32 direction on the path: the dual gradient there
     res_crd, res_chd = md.df_residuals(dd, cr_ref, ch_ref)
     dcr, dch = res_crd.float(), res_chd.float()
@@ -1537,7 +1613,7 @@ def main():
                              floats(a_ref, akeys), DF_RTOL), ap_edge_err),
                  lambda: dek.chain_apply_df(*aargs), lambda: dek.chain_apply_df_ref(*aargs),
                  f"d {tuple(dch.shape)} f32, launch "
-                 f"{dek.chain_df_launch(S_, L_, nx_, nz_ - nx_, apply=True)}; edges "
+                 f"{ck.chain_node_launch(S_, L_, nx_, nz_ - nx_, 8, apply=True)}; edges "
                  f"{EVAL_DF_EDGES} max |diff| {ap_edge_err:.3e}", aargs, chain_apply_ops,
                  fp64=True)
     cargs = (dd["cr"], cr_ref["qtilde"], cr_ref["rtilde"], dcr,

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The high-precision phase's chain kernels ``chain_eval_df`` and
-``chain_apply_df`` (``csrc/chain_eval_df.cu``, ``csrc/chain_apply_df.cu``)
-against other checkouts', on one card.
+"""The evaluation kernels ``chain_eval`` (f32), ``chain_eval_df``,
+``chain_apply_df`` and ``crown_eval_df`` (``csrc/chain_eval.cu``,
+``csrc/chain_eval_df.cu``, ``csrc/chain_apply_df.cu``,
+``csrc/crown_eval_df.cu``) against other checkouts', on one card.
 
     python3 scripts/prof_torch_eval_df.py --parent DIR [--parent DIR2 ...] [--reps 50]
 
@@ -10,34 +11,46 @@ archive`` of the parent commit), named by its directory's name; its own
 ``treeqp_tpu_torch/ops/_build.py`` builds its kernel library into
 DIR/build, this checkout's ``_build`` this one's ("package"). A library
 whose chain kernels take no (chains, staged) pair runs them as its wrapper
-did (one thread a chain). The operands:
-- every call of both kernels in a cold solve of the quadcopter headline
-  (quadcopter(4,4,20): S = 256 chains of L = 16, nx = 6, nu = 4) at
-  ``chip_smoke.BENCH_OPTS`` (bench.py's path: its high-precision phase's
-  trial points and refinement directions), captured from the wrappers;
-- the first call of each in a cold solve of quadcopter(4,5,20) (S = 1024,
-  L = 15);
-- seeded ones (``chip_smoke.eval_df_operands``) at
-  ``chip_smoke.EVAL_DF_EDGES``.
+did (one thread a chain), one whose crown_eval_df takes a thread count as
+its wrapper did (one block, ``crown_kernels.block_threads``). The operands:
+- chain_eval_df and chain_apply_df: every call of both in a cold solve of
+  the quadcopter headline (quadcopter(4,4,20): S = 256 chains of L = 16,
+  nx = 6, nu = 4) at ``chip_smoke.BENCH_OPTS`` (bench.py's path: its
+  high-precision phase's trial points and refinement directions), captured
+  from the wrappers; the first call of each in a cold solve of
+  quadcopter(4,5,20) (S = 1024, L = 15); seeded ones
+  (``chip_smoke.eval_df_operands``) at ``chip_smoke.EVAL_DF_EDGES``;
+- chain_eval (f32): the first call of the coarse loop's per-kernel path
+  on the two-norm path (quadcopter(4,4,20) at TWO_PHASE_OPTS with
+  two-norm termination), on tdunes_ms_f32 (the box-only
+  spring_mass_chain(4,4,4,20) in f32: S = 256, L = 16, nx = 8, nu = 1)
+  and on the 1024-scenario path's two-norm solve; the seeded
+  ``EVAL_DF_EDGES`` operands in f32;
+- crown_eval_df: its first call in the cold bench solve (the 341-node
+  crown) and in quadcopter(4,5,20)'s (1365 nodes); seeded crowns
+  (``chip_smoke.crown_eval_operands``) at ``chip_smoke.CROWN_EVAL_EDGES``.
 
-For every shape: the package's launch (``df_eval_kernels.chain_df_launch``)
-and every form of the sweep, 1, 2, 4 and 8 chains a block, each with the
-block's tiles staged in shared memory (where they fit) and read from
-global memory; whether every form's and every other library's outputs equal
-the package's launch bit for bit (``torch.equal``, every output), and the
-package's launch against the plain twin (chain_eval_df bit for bit,
-chain_apply_df to ``chip_smoke.DF_RTOL``). At the bench path's first point
-and quadcopter(4,5,20)'s, every form and library is timed in a CUDA graph
-(20 launches, ``chip_smoke.graph_ms``) and one C call alone (the median of
-REPS, ``chip_smoke.cuda_ms``; outputs allocated beforehand). Also: both
-kernels' launches in a cold and a warm bench solve; the FP64 opcodes of
-each library's kernels (``scripts/sass_opcodes.py``: the package's must
-hold no DFMA); and, through each checkout's own Python wrappers (the other
-checkouts' in a child process that imports their package), one call of each
-kernel timed alone and in a graph on seeded operands at S = 256, L = 16 and
-S = 1024, L = 15. Exits non-zero if a launch fails, a result leaves its
-tolerance, a bit differs or the package's SASS holds a DFMA. Needs CUDA and
-nvcc; imports nothing of JAX.
+For every shape: the package's launch (``chain_kernels.chain_node_launch``,
+``crown_kernels._crown_eval_launch``) and every form of the sweep (the
+chain kernels 1, 2, 4 and 8 chains a block, each with the block's tiles
+staged in shared memory, where they fit, and read from global memory;
+crown_eval_df on one block, one cluster of 8 and one of 16); whether every form's and every other library's outputs equal the
+package's launch bit for bit (``torch.equal``, every output), and the
+package's launch against the plain twin (the evaluations bit for bit,
+chain_apply_df to ``chip_smoke.DF_RTOL``). At the captured points every
+form and library is timed in a CUDA graph (20 launches,
+``chip_smoke.graph_ms``) and one C call alone (the median of REPS,
+``chip_smoke.cuda_ms``; outputs allocated beforehand). Also: the kernels'
+launches in a cold and a warm bench solve and in the two-norm solve;
+crown_eval (f32) and crown_apply_df, unchanged, in a graph at the bench
+path's first points; the FP32 / FP64 opcodes of each library's
+evaluation kernels (``scripts/sass_opcodes.py``: the package's may hold no
+FFMA or DFMA); and, through each checkout's own Python wrappers (the other
+checkouts' in a child process that imports their package), one call of
+each kernel timed alone and in a graph on seeded operands. Exits non-zero
+if a launch fails, a result leaves its tolerance, a bit differs or the
+package's SASS holds an FFMA or DFMA. Needs CUDA and nvcc; imports nothing
+of JAX.
 """
 
 import argparse
@@ -50,35 +63,53 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 SWEEP = (1, 2, 4, 8)
-# the wrappers' seeded shapes (S, L, nx, nu): the bench path's, quadcopter(4,5,20)'s
+TEAMS = (1, 8, 16)
+# the wrappers' seeded shapes: the chain kernels' (S, L, nx, nu) in f64
+# (the bench path's, quadcopter(4,5,20)'s) and in f32 (those and
+# tdunes_ms_f32's), crown_eval_df's crowns (md, Nr, nx, nu)
 WRAPPER_SHAPES = ((256, 16, 6, 4), (1024, 15, 6, 4))
+WRAPPER_SHAPES_F32 = ((256, 16, 6, 4), (256, 16, 8, 1), (1024, 15, 6, 4))
+WRAPPER_CROWNS = ((4, 4, 6, 4), (4, 5, 6, 4))
 EVAL_KEYS = ("x", "u", "qt", "rt", "xUnc", "uUnc", "res_part", "fch", "cqr")
 APPLY_KEYS = ("xl", "ul", "res_part", "cqr")
-KERNEL_NAMES = ("chain_eval_df_kernel", "chain_apply_df_kernel", "chain_eval_kernelId")
+CROWN_KEYS = ("x", "u", "qtilde", "rtilde", "xUnc", "uUnc", "res", "fcr")
+# the evaluation kernels of either checkout: the package's chain_eval_nodes
+# (f32 and f64) and crown_eval_df_kernel, the parents' chain_eval_kernel
+# (f32), chain_eval_df_kernel and crown_eval_kernel<double>; and
+# chain_apply_df_kernel
+KERNEL_NAMES = ("chain_eval_nodes", "crown_eval_df_kernel", "chain_eval_kernelIf",
+                "chain_eval_df_kernel", "crown_eval_kernelId", "chain_apply_df_kernel")
 
 
 def parent_lib(parent):
     """The kernel library of the checkout at ``parent``, built and bound by
-    that checkout's own ``_build``; whether its chain kernels take (chains,
-    staged); the library's path."""
+    that checkout's own ``_build``; which of its entries take the new
+    launch ints ({entry: bool}); the library's path."""
     spec = importlib.util.spec_from_file_location(
         "parent_build", Path(parent) / "treeqp_tpu_torch" / "ops" / "_build.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.lib(), len(mod._SIGNATURES["tq_chain_eval_df"]) == 8, mod.build()
+    sig = mod._SIGNATURES
+    new = {"tq_chain_eval": len(sig["tq_chain_eval"]) == 8,
+           "tq_chain_eval_df": len(sig["tq_chain_eval_df"]) == 8,
+           "tq_chain_apply_df": len(sig["tq_chain_apply_df"]) == 15,
+           "tq_crown_eval_df": len(sig["tq_crown_eval_df"]) == 7}
+    return mod.lib(), new, mod.build()
 
 
 def wrapper_times(parent):
     """One call of each kernel through the wrappers of the package imported
     from ``parent`` (this checkout when None), timed alone and in a CUDA
-    graph on seeded operands at WRAPPER_SHAPES; printed, one line each."""
+    graph on seeded operands at WRAPPER_SHAPES, WRAPPER_SHAPES_F32 and
+    WRAPPER_CROWNS; printed, one line each."""
     if parent is not None:
         sys.path.insert(0, str(Path(parent).resolve()))
     import torch
+    from treeqp_tpu_torch.ops import chain_kernels as ck
     from treeqp_tpu_torch.ops import df_eval_kernels as dek
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "scripts"))
-    from chip_smoke import cuda_ms, eval_df_operands, graph_ms
+    from chip_smoke import crown_eval_operands, cuda_ms, eval_df_operands, graph_ms
     from prof_common import card
     name = "package" if parent is None else Path(parent).resolve().name
     dev = torch.device("cuda", 0)
@@ -89,6 +120,15 @@ def wrapper_times(parent):
         rows += [(f"chain_eval_df (S={S}, L={L})", lambda a=(data, lam): dek.chain_eval_df(*a)),
                  (f"chain_apply_df (S={S}, L={L})",
                   lambda a=(data, ev["qt"], ev["rt"], d): dek.chain_apply_df(*a))]
+    for S, L, nx, nu in WRAPPER_SHAPES_F32:
+        data, lam, _ = eval_df_operands(torch, S, L, nx, nu, 3, dev)
+        a = ({k: v.float() for k, v in data.items()}, lam.float())
+        rows.append((f"chain_eval (S={S}, L={L}, nx={nx}, nu={nu})",
+                     lambda a=a: ck.chain_eval(*a)))
+    for md, Nr, nx, nu in WRAPPER_CROWNS:
+        a = crown_eval_operands(torch, md, Nr, nx, nu, 3, dev)
+        rows.append((f"crown_eval_df ({a[0]['ABt'].shape[0]} nodes)",
+                     lambda a=a: dek.crown_eval_df(*a)))
     for timed_pass in (False, True):  # the first pass warms the card and the host path
         for what, fn in rows:
             t, g = cuda_ms(torch, fn, 50), graph_ms(torch, fn)
@@ -115,64 +155,72 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("prof_torch_eval_df: needs a CUDA device")
-    from chip_smoke import (BENCH_OPTS, DF_RTOL, EVAL_DF_EDGES, cuda_ms, eval_df_operands,
+    from chip_smoke import (BENCH_OPTS, CROWN_EVAL_EDGES, DF_RTOL, EVAL_DF_EDGES,
+                            TWO_PHASE_OPTS, crown_eval_operands, cuda_ms, eval_df_operands,
                             graph_ms)
     from prof_common import capture, card as card_name
     from sass_opcodes import opcode_counts
     import treeqp_tpu_torch  # noqa: F401  (pins full-precision f32)
-    from treeqp_tpu_torch.models import quadcopter
+    from treeqp_tpu_torch.models import SDUNES_BOOT_OPTS, quadcopter, spring_mass_chain
     from treeqp_tpu_torch.ops import _build
     from treeqp_tpu_torch.ops import chain_kernels as ck
+    from treeqp_tpu_torch.ops import crown_kernels as ckr
     from treeqp_tpu_torch.ops import df_eval_kernels as dek
     from treeqp_tpu_torch.solvers import tdunes as td
     from treeqp_tpu_torch.solvers import tdunes_multistage as tm
     card = card_name()
     print(card)
     dev = torch.device("cuda", 0)
-    libs = {"package": (_build.lib(), True, _build.build()),
+    every = dict.fromkeys(("tq_chain_eval", "tq_chain_eval_df", "tq_chain_apply_df",
+                           "tq_crown_eval_df"), True)
+    libs = {"package": (_build.lib(), every, _build.build()),
             **{Path(p).name: parent_lib(p) for p in args.parent}}
     st = lambda: _build.stream(dev)  # the current stream: a graph captures on its own
-    f64 = dict(dtype=torch.float64, device=dev)
     failed = []
 
-    def forms(S, L, nx, nu, apply):
+    def chain_forms(entry, S, L, nx, nu, elem, apply):
         """(name, lib, launch ints) of every library's launch, then the
         package's sweep: each chain count of SWEEP, staged (where the tiles
         fit) and direct."""
         out = []
         for name, (lib, new, _) in libs.items():
-            C, _, _, staged, _ = dek.chain_df_launch(S, L, nx, nu, apply)
-            out.append((name, lib, (C, int(staged)) if new else ()))
+            C, _, _, staged, _ = ck.chain_node_launch(S, L, nx, nu, elem, apply)
+            out.append((name, lib, (C, int(staged)) if new[entry] else ()))
         pk = libs["package"][0]
         for chains in SWEEP:
             for staged in (True, False):
-                C, _, _, _, smem = dek.chain_df_launch(S, L, nx, nu, apply, chains, staged)
-                if C == chains and smem <= dek._BLOCK_SMEM:
+                C, _, _, _, smem = ck.chain_node_launch(S, L, nx, nu, elem, apply, chains, staged)
+                if C == chains and smem <= ck._BLOCK_SMEM:
                     out.append((f"package C={C} {'staged' if staged else 'direct'}", pk,
                                 (C, int(staged))))
         return out
 
     def eval_makes(data, lam):
+        """chain_eval (f32 data) or chain_eval_df (f64) of every form."""
         S, L, nx, nz = data["ABt"].shape
+        dt = data["ABt"].dtype
+        entry = "tq_chain_eval" if dt == torch.float32 else "tq_chain_eval_df"
+        kw = dict(dtype=dt, device=dev)
 
         def make_with(lib, launch):
             def make():
-                o = {k: torch.empty(sh, **f64) for k, sh in (
+                o = {k: torch.empty(sh, **kw) for k, sh in (
                     ("x", (S, L, nx)), ("u", (S, L, nz - nx)), ("qt", (S, L, nx)),
                     ("rt", (S, L, nz - nx)), ("xUnc", (S, L, nx)), ("uUnc", (S, L, nz - nx)),
                     ("res_part", (S, L, nx)), ("fch", (S,)), ("cqr", (S, nz)))}
                 ptrs = _build.ptr_array([data[k] for k in ck.CHAIN_DATA_KEYS] + [lam]
                                         + [o[k] for k in EVAL_KEYS[:-1]] + [None, o["cqr"]])
-                fn = lambda: _build.check(lib.tq_chain_eval_df(
-                    ptrs, S, L, nx, nz - nx, *launch, st()), "tq_chain_eval_df")
-                fn.keep = ptrs
+                fn = lambda: _build.check(getattr(lib, entry)(
+                    ptrs, S, L, nx, nz - nx, *launch, st()), entry)
+                fn.keep = (ptrs, o)  # the launch's outputs live as long as it
                 return fn, [o[k] for k in EVAL_KEYS]
             return make
-        return {name: make_with(lib, launch)
-                for name, lib, launch in forms(S, L, nx, nz - nx, False)}
+        return {name: make_with(lib, launch) for name, lib, launch in
+                chain_forms(entry, S, L, nx, nz - nx, dt.itemsize, False)}
 
     def apply_makes(data, qt, rt, d):
         S, L, nx, nz = data["ABt"].shape
+        f64 = dict(dtype=torch.float64, device=dev)
 
         def make_with(lib, launch):
             def make():
@@ -184,8 +232,42 @@ def main():
                     "tq_chain_apply_df")
                 return fn, o
             return make
-        return {name: make_with(lib, launch)
-                for name, lib, launch in forms(S, L, nx, nz - nx, True)}
+        return {name: make_with(lib, launch) for name, lib, launch in
+                chain_forms("tq_chain_apply_df", S, L, nx, nz - nx, 8, True)}
+
+    def crown_makes(data, lam, extra, prep):
+        """crown_eval_df of every library's launch, then the package's
+        teams of TEAMS."""
+        Nn, nx, nz = data["ABt"].shape
+        f64 = dict(dtype=torch.float64, device=dev)
+        t = ckr.eval_sched(prep, dev)
+        forms = []
+        for name, (lib, new, _) in libs.items():
+            blocks, _, threads = ckr._crown_eval_launch(Nn, nx, nz - nx)
+            forms.append((name, lib, (blocks, threads)
+                          if new["tq_crown_eval_df"] else (ckr.block_threads(Nn),)))
+        for blocks in TEAMS:
+            _, _, threads = ckr._crown_eval_launch(Nn, nx, nz - nx, blocks)
+            forms.append((f"package {blocks} block{'s' if blocks > 1 else ''}",
+                           libs["package"][0], (blocks, threads)))
+
+        def make_with(lib, launch):
+            def make():
+                o = {k: torch.empty(sh, **f64) for k, sh in (
+                    ("x", (Nn, nx)), ("u", (Nn, nz - nx)), ("qtilde", (Nn, nx)),
+                    ("rtilde", (Nn, nz - nx)), ("xUnc", (Nn, nx)), ("uUnc", (Nn, nz - nx)),
+                    ("res", (Nn, nx)), ("fcr", (Nn,)))}
+                atb = torch.empty((Nn, nz), **f64)
+                ptrs = _build.ptr_array(
+                    [data[k] for k in ckr.CROWN_DATA_KEYS]
+                    + [t["par"], t["kid_ptr"], t["kid_idx"], lam, extra, atb]
+                    + [o[k] for k in CROWN_KEYS] + [None])
+                fn = lambda: _build.check(lib.tq_crown_eval_df(
+                    ptrs, Nn, nx, nz - nx, *launch, st()), "tq_crown_eval_df")
+                fn.keep = (ptrs, atb, o)
+                return fn, [o[k] for k in CROWN_KEYS]
+            return make
+        return {name: make_with(lib, launch) for name, lib, launch in forms}
 
     def compare_forms(what, makes, ref, rtol, timed):
         """Run every form of ``makes``; each bit for bit the package's
@@ -195,9 +277,16 @@ def main():
         outs, fns = {}, {}
         for name, make in makes.items():
             fn, o = make()
-            fn()
-            torch.cuda.synchronize()
+            try:
+                fn()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                print(f"{what} {name}: FAILED to launch: {e}")
+                failed.append(f"{what}: {name} launch")
+                continue
             outs[name], fns[name] = [t.clone() for t in o], fn
+        if "package" not in outs:
+            return
         err = 0.0
         for g, r in zip(outs["package"], ref):
             e = float((g - r).abs().max()) if g.numel() else 0.0
@@ -208,10 +297,10 @@ def main():
                 print(f"{what}: differs from the twin by {e:.3e}")
                 failed.append(f"{what} vs the twin")
             err = max(err, e)
-        differ = [name for name in makes if name != "package"
+        differ = [name for name in outs if name != "package"
                   and not all(torch.equal(a, b) for a, b in zip(outs["package"], outs[name]))]
         failed.extend(f"{what}: {name}" for name in differ)
-        print(f"{what}: package max |diff| to the twin {err:.3e}; {len(makes) - 1} other forms "
+        print(f"{what}: package max |diff| to the twin {err:.3e}; {len(outs) - 1} other forms "
               f"and libraries bit for bit: {'all' if not differ else 'NOT ' + ', '.join(differ)}",
               flush=True)
         if timed:
@@ -221,15 +310,17 @@ def main():
                       f"timed alone on {card}", flush=True)
 
     def case(what, data, lam, d, timed, qt_rt=None):
-        """Both kernels: chain_eval_df at ``lam``, chain_apply_df on the
-        direction ``d`` with the masked inverses qt_rt (default: the eval
-        twin's)."""
+        """The chain kernels: chain_eval (f32 data) or chain_eval_df at
+        ``lam``, chain_apply_df on the direction ``d`` with the masked
+        inverses qt_rt (default: the eval twin's)."""
         S, L, nx, nz = data["ABt"].shape
+        elem = data["ABt"].dtype.itemsize
+        kernel = "chain_eval" if elem == 4 else "chain_eval_df"
         tag = (f"({what}: S={S}, L={L}, nx={nx}, nu={nz - nx}; launch "
-               f"{dek.chain_df_launch(S, L, nx, nz - nx)[:4]})")
+               f"{ck.chain_node_launch(S, L, nx, nz - nx, elem)[:4]})")
         if lam is not None:
-            ev = dek.chain_eval_df_ref(data, lam)
-            compare_forms(f"chain_eval_df {tag}", eval_makes(data, lam),
+            ev = ck.chain_eval_ref(data, lam)
+            compare_forms(f"{kernel} {tag}", eval_makes(data, lam),
                           [ev[k] for k in EVAL_KEYS], 0.0, timed)
             qt_rt = qt_rt or (ev["qt"], ev["rt"])
         if d is not None:
@@ -237,9 +328,17 @@ def main():
             compare_forms(f"chain_apply_df {tag}", apply_makes(data, *qt_rt, d),
                           [ap_ref[k] for k in APPLY_KEYS], DF_RTOL, timed)
 
+    def crown_case(what, data, lam, extra, prep, timed):
+        Nn, nx, nz = data["ABt"].shape
+        ref = dek.crown_eval_df_ref(data, lam, extra, prep)
+        compare_forms(f"crown_eval_df ({what}: {Nn} nodes, nx={nx}, nu={nz - nx}; launch "
+                      f"{ckr._crown_eval_launch(Nn, nx, nz - nx)})",
+                      crown_makes(data, lam, extra, prep), [ref[k] for k in CROWN_KEYS], 0.0,
+                      timed)
+
     # ---- every call of a cold bench solve, and the launches of a warm one
     opts = td.TdunesOpts(**BENCH_OPTS)
-    names = ("chain_eval_df", "chain_apply_df")
+    names = ("chain_eval_df", "chain_apply_df", "crown_eval_df", "crown_apply_df")
     qp = quadcopter(4, 4, 20, device=dev).qp
     ms = tm.split_multistage(qp)
     got, (cro, cho, info) = capture(dek, names, lambda: tm.tdunes_ms_solve(ms, None, None, opts))
@@ -249,16 +348,23 @@ def main():
     ms_p = dataclasses.replace(ms, crown=ms.crown.replace(xmin=xmin, xmax=xmax))
     got_w, (_, _, info_w) = capture(dek, names,
                                     lambda: tm.tdunes_ms_solve(ms_p, cro["lam"], cho["lam"], opts))
+    counts = lambda g: ", ".join(f"{n} x{len(g[n])}" for n in names)
     print(f"bench path (quadcopter(4,4,20), bench options): cold solve {info['iter']} iterations "
-          f"({info['iter_f32']} coarse): chain_eval_df x{len(got['chain_eval_df'])}, "
-          f"chain_apply_df x{len(got['chain_apply_df'])}; warm solve (x0 scaled by 1.01) "
-          f"{info_w['iter']} ({info_w['iter_f32']} coarse): chain_eval_df "
-          f"x{len(got_w['chain_eval_df'])}, chain_apply_df x{len(got_w['chain_apply_df'])}",
-          flush=True)
+          f"({info['iter_f32']} coarse): {counts(got)}; warm solve (x0 scaled by 1.01) "
+          f"{info_w['iter']} ({info_w['iter_f32']} coarse): {counts(got_w)}", flush=True)
     for k, ((data, lam), _) in enumerate(got["chain_eval_df"]):
         case(f"bench path eval {k}", data, lam.double().contiguous(), None, k == 0)
     for k, ((data, qt, rt, d), _) in enumerate(got["chain_apply_df"]):
         case(f"bench path apply {k}", data, None, d.contiguous(), k == 0, (qt, rt))
+    for k, ((data, lam, extra, prep), _) in enumerate(got["crown_eval_df"]):
+        crown_case(f"bench path {k}", data, lam.double().contiguous(),
+                   extra.double().contiguous(), prep, k == 0)
+    # rows 11 and 17, unchanged: crown_apply_df at the bench path's first
+    # direction, crown_eval (f32) at the two-norm path's first point below
+    (ca_args, _) = got["crown_apply_df"][0]
+    print(f"crown_apply_df (bench path's first direction, {ca_args[0]['ABt'].shape[0]} nodes; "
+          f"unchanged): {graph_ms(torch, lambda: dek.crown_apply_df(*ca_args)):.4f} ms in a "
+          f"CUDA graph on {card}", flush=True)
     # ---- quadcopter(4,5,20)'s first f64 point
     ms5 = tm.split_multistage(quadcopter(4, 5, 20, device=dev).qp)
     got5, _ = capture(dek, names, lambda: tm.tdunes_ms_solve(ms5, None, None, opts))
@@ -266,17 +372,47 @@ def main():
     case("quadcopter(4,5,20) eval 0", data, lam.double().contiguous(), None, True)
     (data, qt, rt, d), _ = got5["chain_apply_df"][0]
     case("quadcopter(4,5,20) apply 0", data, None, d.contiguous(), True, (qt, rt))
+    (data, lam, extra, prep), _ = got5["crown_eval_df"][0]
+    crown_case("quadcopter(4,5,20) 0", data, lam.double().contiguous(),
+               extra.double().contiguous(), prep, True)
+    # ---- chain_eval (f32): the first point of the coarse per-kernel loop
+    opts2n = td.TdunesOpts(**{**TWO_PHASE_OPTS, "termination": "twonorm"})
+    opts_ms_f32 = dataclasses.replace(td.TdunesOpts(**SDUNES_BOOT_OPTS), tol=1e-3, max_iter=80,
+                                      f32_phase_tol=0.0, df64_phase=False, refine_steps=0)
+    ms_sm32 = tm.split_multistage(spring_mass_chain(4, 4, 4, 20, device=dev)[0]).to(
+        dtype=torch.float32)
+    for what, ms_c, o in (("two-norm path", ms, opts2n), ("tdunes_ms_f32", ms_sm32, opts_ms_f32),
+                          ("1024-scenario two-norm", ms5, opts2n)):
+        g32, (_, _, info_c) = capture(ck, ("chain_eval",),
+                                      lambda: tm.tdunes_ms_solve(ms_c, None, None, o))
+        print(f"{what}: cold solve {info_c['iter']} iterations ({info_c['iter_f32']} coarse), "
+              f"chain_eval x{len(g32['chain_eval'])}", flush=True)
+        (data, lam), _ = g32["chain_eval"][0]
+        case(f"{what} eval 0", data, lam.float().contiguous(), None, True)
+        if what == "two-norm path":
+            g11, _ = capture(ckr, ("crown_eval",),
+                             lambda: tm.tdunes_ms_solve(ms, None, None, opts2n))
+            ce_args, _ = g11["crown_eval"][0]
+            print(f"crown_eval (two-norm path's first point, {ce_args[0]['ABt'].shape[0]} "
+                  f"nodes; unchanged): {graph_ms(torch, lambda: ckr.crown_eval(*ce_args)):.4f} "
+                  f"ms in a CUDA graph, x{len(g11['crown_eval'])} in a cold solve on {card}",
+                  flush=True)
     # ---- the smoke's edges
     for k, (S, L, nx, nu) in enumerate(EVAL_DF_EDGES):
         data, lam, d = eval_df_operands(torch, S, L, nx, nu, 40 + k, dev)
         case("edge", data, lam, d, False)
+        case("edge", {key: v.float() for key, v in data.items()}, lam.float(), None, False)
+    for k, edge in enumerate(CROWN_EVAL_EDGES):
+        crown_case(f"edge (md, Nr, nx, nu) = {edge}",
+                   *crown_eval_operands(torch, *edge, 50 + k, dev), False)
 
-    # ---- SASS: no DFMA in the package's two kernels
+    # ---- SASS: no FFMA or DFMA in the package's evaluation kernels
     for name, (_, _, path) in libs.items():
         for kernel, (ops, _) in opcode_counts(path, KERNEL_NAMES).items():
             print(f"SASS {name} {kernel}: {ops}")
-            if name == "package" and "df_kernel" in kernel and ops.get("DFMA", 0):
-                failed.append(f"DFMA in the package's {kernel}")
+            if name == "package" and (ops.get("DFMA", 0) or (
+                    "chain_eval_nodesIf" in kernel and ops.get("FFMA", 0))):
+                failed.append(f"FFMA / DFMA in the package's {kernel}")
 
     sys.stdout.flush()
     wrapper_times(None)

@@ -246,3 +246,47 @@ def test_solve_launch_shape():
             # a round of the warps covers the widest level where the limit allows
             assert blocks * warps >= min(s.width, blocks * 16), name
             assert blocks == 1 or s.width > 16, name
+
+
+def test_crown_eval_launch():
+    """_crown_eval_launch (crown_eval_df): one cluster of _EVAL_CLUSTER
+    blocks (or the team asked for); a block's groups of tq::lanes(nz) lanes
+    cover the crown in one round where a block's threads allow. Pinned at
+    the bench path's 341-node crown, quadcopter(4,5,20)'s 1365 and the
+    smoke's edges (chip_smoke.CROWN_EVAL_EDGES)."""
+    assert ckr._crown_eval_launch(341, 6, 4) == (16, 22, 352)
+    assert ckr._crown_eval_launch(1365, 6, 4) == (16, 64, 1024)
+    assert ckr._crown_eval_launch(341, 6, 4, blocks=1) == (1, 64, 1024)
+    assert ckr._crown_eval_launch(1365, 6, 4, blocks=8) == (8, 64, 1024)
+    nodes = {}
+    for md, Nr, nx, nu in chip_smoke.CROWN_EVAL_EDGES:
+        topo = TreeStructure.multistage(md, Nr, Nr + 2, nx, nu)
+        Nn = tm._ms_meta(topo).crown_topo.Nn
+        nodes[md, Nr, nx, nu] = Nn
+        blocks, groups, threads = ckr._crown_eval_launch(Nn, nx, nu)
+        G = 8 if nx + nu <= 8 else 16
+        assert blocks == ckr._EVAL_CLUSTER
+        assert threads % 32 == 0 and threads <= ckr._EVAL_THREADS and groups == threads // G
+        rounds = -(-Nn // (blocks * groups))
+        assert rounds == 1 or threads == ckr._EVAL_THREADS
+    assert nodes == {(4, 0, 6, 4): 1, (3, 3, 1, 1): 40, (3, 2, 16, 16): 13,
+                     (40, 1, 6, 4): 41, (2, 8, 6, 4): 511, (4, 5, 6, 4): 1365}
+    assert ckr._crown_eval_launch(1, 6, 4) == (16, 2, 32)
+    assert ckr._crown_eval_launch(40, 1, 1) == (16, 4, 32)
+    assert ckr._crown_eval_launch(13, 16, 16) == (16, 2, 32)
+
+
+def test_crown_eval_twin_on_a_root_only_crown():
+    """The crown of one node (chip_smoke.CROWN_EVAL_EDGES' first edge) has
+    no kid slots: the kid sum is zero, so the twin's stage solve is the
+    root's own clip of Qinv (-q + lam - extra_x), Rinv (-r - extra_u), and
+    its residual is masked to zero."""
+    data, lam, extra, prep = chip_smoke.crown_eval_operands(torch, 4, 0, 6, 4, 3, "cpu")
+    assert len(prep.par) == 1
+    assert torch.equal(td._kid_sum(extra, prep), torch.zeros_like(extra))
+    out = ckr.crown_eval_ref(data, lam, extra, prep)
+    xU = data["Qinv"] * ((-data["q"] + lam - extra[:, :6]) * data["xm"])
+    uU = data["Rinv"] * ((-data["r"] - extra[:, 6:]) * data["um"])
+    assert torch.equal(out["xUnc"], xU) and torch.equal(out["uUnc"], uU)
+    assert torch.equal(out["x"], torch.clamp(xU, data["xmin"], data["xmax"]) * data["xm"])
+    assert torch.equal(out["res"], torch.zeros_like(out["res"]))

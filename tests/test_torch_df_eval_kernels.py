@@ -22,6 +22,7 @@ from treeqp_tpu.solvers import tdunes_multistage as jtm
 import chip_smoke
 from test_torch_chain_kernels import CASES, POINTS
 from treeqp_tpu_torch import convert
+from treeqp_tpu_torch.ops import chain_kernels as ck
 from treeqp_tpu_torch.ops import crown_kernels as ckr
 from treeqp_tpu_torch.ops import df_eval_kernels as dek
 from treeqp_tpu_torch.solvers import ms_df64 as md
@@ -221,27 +222,37 @@ def test_cpu_wrappers_run_plain_twins():
 
 
 def test_chain_df_launch():
-    """The chain kernels' launch (csrc/chain_eval_df.cu, chain_apply_df.cu):
-    at the bench path's S = 256 chains of L = 16, one chain a block in 256
-    blocks of 16 threads, staged; at every edge of the card's smoke, every
-    chain whole in one block, S covered, and the staged tiles within a
-    block's 227 KB or the shape read from global memory."""
-    assert dek.chain_df_launch(256, 16, 6, 4) == (1, 256, 16, True, 8736)
-    assert dek.chain_df_launch(256, 16, 6, 4, apply=True) == (1, 256, 16, True, 8096)
-    assert dek.chain_df_launch(256, 16, 6, 4, chains=8) == (8, 32, 128, True, 69664)
+    """The chain evaluation kernels' and chain_apply_df's launch
+    (``chain_kernels.chain_node_launch``): at the bench path's S = 256
+    chains of L = 16, one chain a block in 256 blocks of 16 threads, staged,
+    in f64 and f32 (half the bytes), and at the f32 paths' captured shapes;
+    at every edge of the card's smoke, in both element sizes, every chain
+    whole in one block, S covered, and the staged tiles within a block's 227
+    KB or the shape read from global memory."""
+    launch = ck.chain_node_launch
+    assert launch(256, 16, 6, 4, 8) == (1, 256, 16, True, 8736)
+    assert launch(256, 16, 6, 4, 8, apply=True) == (1, 256, 16, True, 8096)
+    assert launch(256, 16, 6, 4, 8, chains=8) == (8, 32, 128, True, 69664)
+    # f32: the two-norm path's, tdunes_ms_f32's and the 1024-scenario path's
+    assert launch(256, 16, 6, 4, 4) == (1, 256, 16, True, 4384)
+    assert launch(256, 16, 8, 1, 4) == (1, 256, 16, True, 5280)
+    assert launch(1024, 15, 6, 4, 4) == (1, 1024, 15, True, 4128)
+    assert launch(256, 16, 6, 4, 4, chains=8) == (8, 32, 128, True, 34848)
     for S, L, nx, nu in chip_smoke.EVAL_DF_EDGES:
-        for apply in (False, True):
-            C, blocks, threads, staged, smem = dek.chain_df_launch(S, L, nx, nu, apply)
-            assert C >= 1 and (C * L <= dek._NODE_THREADS or C == 1)
+        for elem, apply in ((8, False), (8, True), (4, False)):
+            C, blocks, threads, staged, smem = launch(S, L, nx, nu, elem, apply)
+            assert C >= 1 and (C * L <= ck._NODE_THREADS or C == 1)
             assert (blocks - 1) * C < S <= blocks * C
-            assert threads == min(C * L, dek._NODE_THREADS)
-            assert smem <= dek._BLOCK_SMEM
-            assert staged == (dek._df_smem(C, L, nx, nu, apply, True) <= dek._BLOCK_SMEM)
-    # nz = 32 (4 KB a node): 7 nodes are staged, 130 read from global memory
-    assert dek.chain_df_launch(5, 7, 16, 16)[3]
-    assert not dek.chain_df_launch(2, 130, 16, 16)[3]
-    assert not dek.chain_df_launch(5, 7, 16, 16, chains=8)[3]
-    assert dek.chain_df_launch(3, 130, 6, 4)[:3] == (1, 3, 128)
+            assert threads == min(C * L, ck._NODE_THREADS)
+            assert smem <= ck._BLOCK_SMEM and smem % 16 == 0
+            assert staged == (ck._node_smem(C, L, nx, nu, elem, apply, True) <= ck._BLOCK_SMEM)
+    # nz = 32 (4 KB a node in f64, 2 KB in f32): 7 nodes are staged, 130
+    # read from global memory in either
+    assert launch(5, 7, 16, 16, 8)[3]
+    assert not launch(2, 130, 16, 16, 8)[3]
+    assert not launch(2, 130, 16, 16, 4)[3]
+    assert not launch(5, 7, 16, 16, 8, chains=8)[3]
+    assert launch(3, 130, 6, 4, 8)[:3] == (1, 3, 128)
 
 
 # Pallas interpret mode on the CPU contracts the double-float error-free

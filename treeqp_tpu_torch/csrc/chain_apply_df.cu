@@ -126,7 +126,7 @@ int launch(const ApplyArgs& a, int chains, cudaStream_t st) {
 }  // namespace
 
 // chains: whole chains a block; staged: 1 to copy the block's [A B] and d
-// to shared memory first (both from chain_df_launch).
+// to shared memory first (both from chain_kernels.chain_node_launch).
 extern "C" int tq_chain_apply_df(const double* AB, const double* qt, const double* rt,
                                  const float* d, double* xl, double* ul, double* res,
                                  double* cqr, int S, int L, int nx, int nu, int chains,

@@ -79,8 +79,6 @@
 namespace {
 
 constexpr int kMaxThreads = 512;  // 128 registers a thread
-constexpr int kMaxSmem = 227 * 1024;  // the shared memory a block can have
-constexpr int kMaxCluster = 16;  // blocks a cluster can have (8 portably)
 constexpr int kFactorStages = 3;  // the factor's ring
 constexpr int kSolveStages = 4;   // the solve's rings
 
@@ -160,26 +158,9 @@ __device__ __forceinline__ unsigned group_mask() {
 }
 
 // The blocks that share the phases and the barrier between them: one
-// cluster of ``blocks`` blocks (the cluster's barrier, release / acquire at
-// cluster scope, in two halves so that loads which do not depend on the
-// other blocks' writes overlap it), or one block (__syncthreads). The size
-// is chosen at launch, so one kernel serves both; rank: the block's place.
-struct Team {
-  int blocks, rank;
-  __device__ explicit Team(int blocks_)
-      : blocks(blocks_), rank(blocks_ > 1 ? (int)tq::cg::this_cluster().block_rank() : 0) {}
-  __device__ void arrive() const {
-    if (blocks > 1) tq::cluster_arrive();
-  }
-  __device__ void wait() const {
-    if (blocks > 1) tq::cluster_wait();
-    else __syncthreads();
-  }
-  __device__ void sync() const {
-    arrive();
-    wait();
-  }
-};
+// cluster of ``blocks`` blocks or one block, chosen at launch
+// (tq_crown.cuh).
+using Team = tq::SizedTeam;
 
 // A group's walk over its nodes: the runs r of phase ph with (r -
 // ph_ptr[ph]) % groups == g, phases from ph to end (exclusive) in steps of
@@ -570,57 +551,33 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // Launch ``kernel`` on one cluster of ``blocks`` blocks (one block: no
-// cluster) of 32 warps threads with ``bytes`` of dynamic shared memory,
-// first raising the kernel's limits where this launch needs more than it
-// was allowed (``opted``: the shared memory; clusters of more than 8
-// blocks are not portable).
+// cluster) of 32 warps threads with ``bytes`` of dynamic shared memory
+// (tq::launch_team).
 template <typename... Args>
 int launch(void (*kernel)(Args...), int nx, int nz, int n_ph, int blocks, int warps,
-           size_t bytes, size_t& opted, cudaStream_t st, Args... args) {
-  if (nx < 1 || nx >= nz || n_ph < 1 || warps < 1 || 32 * warps > kMaxThreads ||
-      blocks < 1 || blocks > kMaxCluster || bytes > (size_t)kMaxSmem)
+           size_t bytes, tq::TeamLimits& lim, cudaStream_t st, Args... args) {
+  if (nx < 1 || nx >= nz || n_ph < 1 || warps < 1 || 32 * warps > kMaxThreads)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSuccess;
-  if (bytes > opted) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e == cudaSuccess && opted == 0)
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-    opted = bytes;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(32 * warps);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = st;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = blocks;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
-  cfg.attrs = cluster;
-  cfg.numAttrs = blocks > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return e == cudaSuccess ? (int)cudaGetLastError() : (int)e;
+  return tq::launch_team(kernel, blocks, 32 * warps, bytes, lim, st, args...);
 }
 
 template <int NZ>
 int launch_factor(const FactorOps& ops, int nx, int n_ph, float reg, int blocks, int warps,
                   cudaStream_t st) {
-  static size_t opted = 0;
+  static tq::TeamLimits lim;
   const size_t bytes =
       (size_t)warps * (32 / tq::lanes(NZ)) * factor_group_floats(nx, NZ) * sizeof(float);
-  return launch(crown_ric_factor_kernel<NZ>, nx, NZ, n_ph, blocks, warps, bytes, opted, st, ops,
+  return launch(crown_ric_factor_kernel<NZ>, nx, NZ, n_ph, blocks, warps, bytes, lim, st, ops,
                 nx, n_ph, reg, blocks);
 }
 
 template <int NZ>
 int launch_solve(const SolveOps& ops, int nx, int n_ph, int blocks, int warps,
                  cudaStream_t st) {
-  static size_t opted = 0;
+  static tq::TeamLimits lim;
   const size_t bytes =
       (size_t)warps * (32 / tq::lanes(NZ)) * solve_group_floats(nx, NZ) * sizeof(float);
-  return launch(crown_ric_solve_kernel<NZ>, nx, NZ, n_ph, blocks, warps, bytes, opted, st, ops,
+  return launch(crown_ric_solve_kernel<NZ>, nx, NZ, n_ph, blocks, warps, bytes, lim, st, ops,
                 nx, n_ph, blocks);
 }
 

@@ -479,6 +479,70 @@ struct BlockTeam {
   __device__ void wait() const { __syncthreads(); }
   __device__ void sync() const { __syncthreads(); }
 };
+// One of the two, its size chosen at launch (launch_team), so that one
+// kernel serves both: one cluster of ``blocks`` blocks, or one block.
+struct SizedTeam {
+  int blocks, rank;
+  __device__ explicit SizedTeam(int blocks_)
+      : blocks(blocks_), rank(blocks_ > 1 ? (int)cg::this_cluster().block_rank() : 0) {}
+  __device__ void arrive() const {
+    if (blocks > 1) cluster_arrive();
+  }
+  __device__ void wait() const {
+    if (blocks > 1) cluster_wait();
+    else __syncthreads();
+  }
+  __device__ void sync() const {
+    arrive();
+    wait();
+  }
+};
+
+constexpr int kMaxTeamBlocks = 16;  // blocks a cluster can have (8 portably)
+constexpr size_t kMaxBlockSmem = 227 * 1024;  // the shared memory a block can have
+
+// What a kernel launched by launch_team has been allowed so far: clusters
+// of more than 8 blocks (not portable) and its dynamic shared memory.
+struct TeamLimits {
+  bool wide = false;
+  size_t smem = 0;
+};
+
+// Launch ``kernel`` on one cluster of ``blocks`` blocks (one block: no
+// cluster) of ``threads`` threads with ``bytes`` of dynamic shared memory,
+// first raising the kernel's limits where this launch needs more than
+// ``lim`` records.
+template <typename... Params, typename... Args>
+inline int launch_team(void (*kernel)(Params...), int blocks, int threads, size_t bytes,
+                       TeamLimits& lim, cudaStream_t st, Args... args) {
+  if (blocks < 1 || blocks > kMaxTeamBlocks || bytes > kMaxBlockSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+  if (!lim.wide) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+    lim.wide = true;
+  }
+  if (bytes > lim.smem) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    lim.smem = bytes;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = blocks;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = blocks > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e == cudaSuccess ? (int)cudaGetLastError() : (int)e;
+}
 
 // Lane i's row of the G x G lower factor Lg: the entries m <= i in Lrow
 // (0 past them), the diagonal in diag (1 on the lanes past row G-1).

@@ -2,7 +2,10 @@
 // inverses, dual residuals, dual-value partials) for the chains and the
 // crown, templated on the scalar type: float for the coarse phase
 // (chain_eval.cu, crown_eval.cu, newton_iter.cu), double for the
-// high-precision phase (chain_eval_df.cu, crown_eval_df.cu).
+// high-precision phase (chain_eval_df.cu, crown_eval_df.cu); and the two
+// evaluation kernels' layouts that run them: the chains a thread a node
+// (chain_eval_nodes, chain_eval.cu and chain_eval_df.cu) and the crown a
+// lane group a node (crown_eval_lanes, crown_eval_df.cu).
 //
 // Every product and sum is rounded on its own (__fmul_rn / __fadd_rn /
 // __fsub_rn, __dmul_rn / __dadd_rn / __dsub_rn: no FMA contraction) and
@@ -16,6 +19,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "tq_lanes.cuh"
 
 namespace tq {
 
@@ -150,10 +155,10 @@ inline EvalOut<T> eval_out(PtrCursor& c) {
 //   at j = 0 (the caller adds A_0 z_crown);
 //   f[s] = sum_j sum_i x (qmod - Qd x / 2) - b lam + sum_i u (rmod - Rd u / 2);
 //   err[s] = max |res_j| over j >= 1;  cqr = [A_0 B_0]' lam_0 (nz values).
-// chain_eval_one runs the chain node by node in one thread; newton_iter.cu
-// and chain_eval_df.cu run chain_clip_node (chain_clip_at) for every node
-// at once, then chain_res_node (chain_res_at), then the per-chain sums in j
-// order: the same operations on every element.
+// newton_iter.cu and chain_eval_nodes run chain_clip_node (chain_clip_at)
+// for every node at once, then chain_res_node (chain_res_at), then the
+// per-chain sums in j order, facc = (facc + sx_j) + su_j from 0: the same
+// operations on every element as a walk of the chain node by node.
 
 // Node sj = s L + j: the clipping solve, the masked inverses, and the
 // node's dual-value partials sx (the x rows) and su (the u rows), with its
@@ -272,21 +277,6 @@ __device__ inline void chain_root_cqr(const ChainData<T>& d, const T* __restrict
                                       int s) {
   const int nx = d.nx, nz = nx + d.nu;
   chain_root_cqr_at(d.AB + (size_t)s * d.L * nx * nz, lam + (size_t)s * d.L * nx, nx, nz, cqr);
-}
-
-template <typename T>
-__device__ inline void chain_eval_one(const ChainData<T>& d, const T* __restrict__ lam,
-                                      const EvalOut<T>& o, T* cqr, int s) {
-  T facc = T(0), err = T(0);
-  for (int j = 0; j < d.L; ++j) {
-    T sx, su;
-    chain_clip_node(d, lam, o, s, j, sx, su);
-    facc = add(add(facc, sx), su);
-    err = maxof(err, chain_res_node(d, o, s, j));
-  }
-  chain_root_cqr(d, lam, cqr, s);
-  o.f[s] = facc;
-  if (o.err) o.err[s] = err;
 }
 
 // ---------------------------------------------------------------------------
@@ -434,34 +424,10 @@ __device__ inline void crown_res(const CrownData<T>& d, const EvalOut<T>& o, int
 }
 
 // ---------------------------------------------------------------------------
-// the two evaluation kernels and their launchers, for either scalar type
+// the evaluation kernels and their launchers, for either scalar type
 
-// One thread per chain (chain_eval.cu).
-template <typename T>
-__global__ void chain_eval_kernel(ChainData<T> d, const T* __restrict__ lam, EvalOut<T> o,
-                                  T* __restrict__ cqr) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= d.S) return;
-  const int nz = d.nx + d.nu;
-  chain_eval_one(d, lam, o, cqr + (size_t)s * nz, s);
-}
-
-// p: CHAIN_DATA_KEYS (12), lam, then x, u, qt, rt, xU, uU, res, f, err, cqr.
-template <typename T>
-inline int launch_chain_eval(const void* const* p, int S, int L, int nx, int nu, void* stream) {
-  constexpr int kThreads = 128;
-  PtrCursor c{p};
-  const ChainData<T> d = chain_data<T>(c, S, L, nx, nu);
-  const T* lam = c.in<T>();
-  const EvalOut<T> o = eval_out<T>(c);
-  T* cqr = c.out<T>();
-  chain_eval_kernel<T><<<(S + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      d, lam, o, cqr);
-  return (int)cudaGetLastError();
-}
-
-// The high-precision phase's chain kernels (chain_eval_df.cu,
-// chain_apply_df.cu) run a thread a chain node, ``chains`` whole chains a
+// The chain evaluation kernels (chain_eval.cu, chain_eval_df.cu) and
+// chain_apply_df.cu run a thread a chain node, ``chains`` whole chains a
 // block of at most kNodeThreads threads (a longer chain's block strides
 // over its nodes). tile_bytes: the shared memory of a tile of count
 // elements of elem bytes that stage_async fills (tq_lanes.cuh).
@@ -480,6 +446,105 @@ inline cudaError_t opt_in_smem(K kernel, size_t bytes, size_t& opted) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e == cudaSuccess) opted = bytes;
   return e;
+}
+
+// The chain evaluation a thread a node (chain_eval.cu in float,
+// chain_eval_df.cu in double): ``chains`` whole chains a block; with
+// kStaged the block's [A B] blocks and lam rows are first copied to shared
+// memory (one contiguous tile each, stage_async), where each node's block
+// is read by its own thread (the residual row) and its parent's (the kid
+// term). 1. every node's clip (chain_clip_at), its dual-value partials
+// parked in shared memory, and each chain's cqr by its node j = 0; 2. after
+// the barrier, every node's residual row, which needs x_{j-1}, u_{j-1}
+// (chain_res_at); 3. each chain's partials summed in j order by one
+// thread. err is not written.
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(kNodeThreads) chain_eval_nodes(
+    const ChainData<T> d, const T* __restrict__ lam, const EvalOut<T> o, T* __restrict__ cqr,
+    int chains) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int L = d.L, nx = d.nx, nz = nx + d.nu;
+  const int s0 = blockIdx.x * chains;
+  const int nn = min(chains, d.S - s0) * L;  // this block's nodes
+  const size_t e0 = (size_t)s0 * L;
+  T* sx = reinterpret_cast<T*>(smem);  // [chains L] each
+  T* su = sx + (size_t)chains * L;
+  const T* AB = d.AB + e0 * nx * nz;
+  const T* lm = lam + e0 * nx;
+  if (kStaged) {
+    unsigned char* buf = smem + tile_bytes(2 * (size_t)chains * L, sizeof(T)) - 16;
+    AB = stage_async(buf, AB, (size_t)nn * nx * nz);
+    buf += tile_bytes((size_t)chains * L * nx * nz, sizeof(T));
+    lm = stage_async(buf, lm, (size_t)nn * nx);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  // 1. the clips, the partials, the roots' cqr
+  for (int k = threadIdx.x; k < nn; k += blockDim.x) {
+    const int j = k % L;
+    T a, b;
+    chain_clip_at(d, lm + (size_t)k * nx, AB + (size_t)(k + 1) * nx * nz,
+                  lm + (size_t)(k + 1) * nx, o, e0 + k, j < L - 1, a, b);
+    sx[k] = a;
+    su[k] = b;
+    if (j == 0)
+      chain_root_cqr_at(AB + (size_t)k * nx * nz, lm + (size_t)k * nx, nx, nz,
+                        cqr + (size_t)(s0 + k / L) * nz);
+  }
+  __syncthreads();
+  // 2. the residual rows
+  for (int k = threadIdx.x; k < nn; k += blockDim.x)
+    chain_res_at(d, AB + (size_t)k * nx * nz, o, e0 + k, k % L);
+  // 3. each chain's dual-value partial (sx, su complete since the barrier)
+  for (int c = threadIdx.x; c * L < nn; c += blockDim.x) {
+    T facc = T(0);
+    for (int j = 0; j < L; ++j) facc = add(add(facc, sx[c * L + j]), su[c * L + j]);
+    o.f[s0 + c] = facc;
+  }
+}
+
+// The dynamic shared memory of chain_eval_nodes' block: the partials (two
+// T a node), then, staged, the [A B] and lam tiles.
+template <typename T>
+__host__ inline size_t chain_eval_smem(int chains, int L, int nx, int nu, bool staged) {
+  const size_t nodes = (size_t)chains * L;
+  size_t bytes = tile_bytes(2 * nodes, sizeof(T)) - 16;
+  if (staged)
+    bytes += tile_bytes(nodes * nx * (nx + nu), sizeof(T)) + tile_bytes(nodes * nx, sizeof(T));
+  return bytes;
+}
+
+template <typename T, bool kStaged>
+inline int chain_eval_nodes_launch(const ChainData<T>& d, const T* lam, const EvalOut<T>& o,
+                                   T* cqr, int chains, cudaStream_t st) {
+  const size_t nodes = (size_t)chains * d.L;
+  const size_t bytes = chain_eval_smem<T>(chains, d.L, d.nx, d.nu, kStaged);
+  static size_t opted = 48 * 1024;
+  const cudaError_t e = opt_in_smem(chain_eval_nodes<T, kStaged>, bytes, opted);
+  if (e != cudaSuccess) return (int)e;
+  const int threads = (int)(nodes < kNodeThreads ? nodes : kNodeThreads);
+  chain_eval_nodes<T, kStaged><<<(d.S + chains - 1) / chains, threads, bytes, st>>>(
+      d, lam, o, cqr, chains);
+  return (int)cudaGetLastError();
+}
+
+// p: CHAIN_DATA_KEYS (12), lam, then x, u, qt, rt, xU, uU, res, f, err
+// (null: not written), cqr; all T. chains: whole chains a block; staged: 1
+// to copy the block's [A B] and lam to shared memory first (both from
+// chain_kernels.chain_node_launch).
+template <typename T>
+inline int launch_chain_eval_nodes(const void* const* p, int S, int L, int nx, int nu,
+                                   int chains, int staged, void* stream) {
+  if (chains < 1 || S < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  PtrCursor c{p};
+  const ChainData<T> d = chain_data<T>(c, S, L, nx, nu);
+  const T* lam = c.in<T>();
+  const EvalOut<T> o = eval_out<T>(c);
+  T* cqr = c.out<T>();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return staged ? chain_eval_nodes_launch<T, true>(d, lam, o, cqr, chains, st)
+                : chain_eval_nodes_launch<T, false>(d, lam, o, cqr, chains, st);
 }
 
 // One block; threads stride over the nodes with a barrier between the
@@ -508,6 +573,176 @@ inline int launch_crown_eval(const void* const* p, int Nn, int nx, int nu, int t
   const EvalOut<T> o = eval_out<T>(c);
   crown_eval_kernel<T><<<1, threads, 0, (cudaStream_t)stream>>>(d, lam, extra, atb, o);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The crown evaluation a lane group a node (crown_eval_df.cu): the phases
+// of crown_atb, crown_clip and crown_res with a node's columns, elements
+// and rows split over a group of G = lanes(nz) lanes, lane c taking column
+// (element, row) c, c + G, ... Each element meets the same operations in
+// the same order as in those bodies:
+//   A. lane c: atb_n[c] = sum_r [A_n B_n][r, c] lam_n[r], r ascending (col_dots);
+//   B. lane c: the kid sum of atb column c in slot order from 0, + extra,
+//      the clip, qt / rt, xU / uU and its term of the dual-value partial;
+//      the group then folds the terms in column order through shuffles, sx
+//      over the x elements and su over the u elements, f = sx + su
+//      (crown_clip's chunks of kCols columns keep the same order);
+//   C. lane i < nx: residual row i, the x part then the u part of
+//      [A_n B_n] [x; u]_par(n) in one sum, + b, - x, * nr (row_dots<T,
+//      false>); err, where given, the group's max |row|.
+// A team (tq_crown.cuh's ClusterTeam, BlockTeam or SizedTeam: the launch's
+// grid, one block or one cluster) runs the phases with its barrier between
+// them. Group g of the team (block rank's groups rank GB .. rank GB + GB -
+// 1) takes nodes g, g + NG, ... (NG groups in all) in every phase, and
+// reads their [A B] blocks from global memory (staged in shared memory,
+// they were no faster on the H100: PERF.md). atb (kids to parent) and x, u
+// (parent to kids) cross groups and blocks through global memory behind
+// the team's barrier, read by plain loads (never the read-only path: the
+// same launch writes them). Each phase's loads that do not depend on the
+// other groups' writes are issued between the barrier's two halves for
+// the group's first node.
+constexpr int kEvalThreads = 1024;  // the most threads a block of the lane-group kernel has
+
+// A lane's operands of phase B for column c of node n: its kid list, the
+// chains' extra term and, for an x element, q, lam, Qinv, the bounds, the
+// mask, Qd, b and nr; for a u element r, Rinv, the bounds, the mask and Rd
+// in the fields of q, Qi, lo, hi, m and Qd.
+template <typename T>
+struct ClipIn {
+  T extra, q, lam, Qi, lo, hi, m, Qd, b, nr;
+  int k0, k1;
+};
+
+template <typename T>
+__device__ __forceinline__ ClipIn<T> clip_in(const CrownData<T>& d, const T* __restrict__ lam,
+                                             const T* __restrict__ extra, int n, int c) {
+  const int nx = d.nx, nu = d.nu, nz = nx + nu;
+  ClipIn<T> in;
+  in.k0 = d.kid_ptr[n];
+  in.k1 = d.kid_ptr[n + 1];
+  in.extra = in.q = in.lam = in.Qi = in.lo = in.hi = in.m = in.Qd = in.b = in.nr = T(0);
+  if (c < nx) {
+    const size_t e = (size_t)n * nx + c;
+    in.q = d.q[e]; in.lam = lam[e]; in.Qi = d.Qi[e]; in.lo = d.xlo[e]; in.hi = d.xhi[e];
+    in.m = d.xm[e]; in.Qd = d.Qd[e]; in.b = d.b[e]; in.nr = d.nr[e];
+  } else if (c < nz) {
+    const size_t e = (size_t)n * nu + (c - nx);
+    in.q = d.r[e]; in.Qi = d.Ri[e]; in.lo = d.ulo[e]; in.hi = d.uhi[e]; in.m = d.um[e];
+    in.Qd = d.Rd[e];
+  }
+  if (c < nz) in.extra = extra[(size_t)n * nz + c];
+  return in;
+}
+
+template <typename T, int G, typename Team>
+__device__ inline void crown_eval_lanes(const Team& team, const CrownData<T>& d,
+                                        const T* __restrict__ lam, const T* __restrict__ extra,
+                                        T* atb, const EvalOut<T>& o) {
+  const int nx = d.nx, nu = d.nu, nz = nx + nu, Nn = d.Nn;
+  const int lane = threadIdx.x % G;
+  const unsigned mask = ((1u << G) - 1) << (threadIdx.x % 32 / G * G);
+  const int GB = blockDim.x / G, NG = GB * gridDim.x;
+  const int g = team.rank * GB + (int)threadIdx.x / G;
+  const size_t blk = (size_t)nx * nz;
+
+  // A. atb_n = [A_n B_n]' lam_n, lane c its columns
+  for (int n = g; n < Nn; n += NG) {
+    const T* AB = d.AB + (size_t)n * blk;
+    const T* ln = lam + (size_t)n * nx;
+    for (int c = lane; c < nz; c += G) {
+      T acc = T(0);
+      for (int r = 0; r < nx; ++r) acc = add(acc, mul(AB[(size_t)r * nz + c], ln[r]));
+      atb[(size_t)n * nz + c] = acc;
+    }
+  }
+  team.arrive();
+  ClipIn<T> in{};  // the first node's first columns' operands load across the barrier
+  if (g < Nn) in = clip_in(d, lam, extra, g, lane);
+  team.wait();
+
+  // B. the kid sums, the clips and the dual-value partials, lane c its
+  // elements; the terms folded in column order
+  const T half = T(0.5);
+  for (int n = g; n < Nn; n += NG) {
+    T sx = T(0), su = T(0);
+    for (int c0 = 0; c0 < nz; c0 += G) {
+      const int c = c0 + lane;
+      if (n != g || c0 != 0) in = clip_in(d, lam, extra, n, c);
+      T term = T(0);
+      if (c < nz) {
+        T ks = T(0);
+        for (int k = in.k0; k < in.k1; ++k) ks = add(ks, atb[(size_t)d.kid_idx[k] * nz + c]);
+        ks = add(ks, in.extra);
+        if (c < nx) {
+          const size_t e = (size_t)n * nx + c;
+          const T qm = mul(sub(add(-in.q, in.lam), ks), in.m);
+          const T xu = mul(in.Qi, qm);
+          const T xv = mul(clip(xu, in.lo, in.hi), in.m);
+          o.x[e] = xv;
+          o.qt[e] = (xu > in.hi || xu < in.lo) ? T(0) : in.Qi;
+          if (o.xU) o.xU[e] = xu;
+          term = sub(mul(xv, sub(qm, mul(mul(half, in.Qd), xv))), mul(mul(in.b, in.lam), in.nr));
+        } else {
+          const size_t e = (size_t)n * nu + (c - nx);
+          const T rm = mul(sub(-in.q, ks), in.m);
+          const T uu = mul(in.Qi, rm);
+          const T uv = mul(clip(uu, in.lo, in.hi), in.m);
+          o.u[e] = uv;
+          o.rt[e] = (uu > in.hi || uu < in.lo) ? T(0) : in.Qi;
+          if (o.uU) o.uU[e] = uu;
+          term = mul(uv, sub(rm, mul(mul(half, in.Qd), uv)));
+        }
+      }
+      for (int k = 0; k < G && c0 + k < nz; ++k) {
+        const T t = __shfl_sync(mask, term, k, G);
+        if (c0 + k < nx)
+          sx = add(sx, t);
+        else
+          su = add(su, t);
+      }
+    }
+    if (lane == 0) o.f[n] = add(sx, su);
+  }
+  team.arrive();
+  // the first node's loop-invariant operands of phase C
+  int p = 0;
+  T bi = T(0), nri = T(0), xi = T(0);
+  if (g < Nn && lane < nx) {
+    const size_t e = (size_t)g * nx + lane;
+    p = d.par[g];
+    bi = d.b[e];
+    nri = d.nr[e];
+    xi = o.x[e];
+  }
+  team.wait();
+
+  // C. the residual rows, lane i row i
+  for (int n = g; n < Nn; n += NG) {
+    T emax = T(0);
+    if (lane < nx) {
+      const size_t e = (size_t)n * nx + lane;
+      if (n != g) {
+        p = d.par[n];
+        bi = d.b[e];
+        nri = d.nr[e];
+        xi = o.x[e];
+      }
+      const T* AB = d.AB + (size_t)n * blk + (size_t)lane * nz;
+      const T* xp = o.x + (size_t)p * nx;
+      const T* up = o.u + (size_t)p * nu;
+      T acc = T(0);
+      for (int c = 0; c < nx; ++c) acc = add(acc, mul(AB[c], xp[c]));
+      for (int c = 0; c < nu; ++c) acc = add(acc, mul(AB[nx + c], up[c]));
+      const T rr = mul(sub(add(acc, bi), xi), nri);
+      o.res[e] = rr;
+      emax = absmax(emax, rr);
+    }
+    if (o.err) {
+      for (int off = G / 2; off > 0; off /= 2)
+        emax = maxof(emax, __shfl_xor_sync(mask, emax, off, G));
+      if (lane == 0) o.err[n] = emax;
+    }
+  }
 }
 
 }  // namespace tq

@@ -43,8 +43,8 @@ _SIGNATURES = {
     "tq_chain_blocks_factor": [_P] * 8 + [_I] * 4 + [_P],
     # ABt, qt, rt, ztp_root, s_root, Ls, CUs, schur0, sc, S, L, nx, nz, stream
     "tq_chain_blocks_factor_lanes": [_P] * 9 + [_I] * 4 + [_P],
-    # pointers, S, L, nx, nu, stream
-    "tq_chain_eval": [_P] + [_I] * 4 + [_P],
+    # pointers, S, L, nx, nu, chains, staged, stream
+    "tq_chain_eval": [_P] + [_I] * 6 + [_P],
     # pointers, Nn, nx, nu, threads, stream
     "tq_crown_eval": [_P] + [_I] * 4 + [_P],
     # pointers, dims, stream
@@ -59,8 +59,8 @@ _SIGNATURES = {
     # the f64 kernels of the high-precision phase
     # pointers, S, L, nx, nu, chains, staged, stream
     "tq_chain_eval_df": [_P] + [_I] * 6 + [_P],
-    # pointers, Nn, nx, nu, threads, stream
-    "tq_crown_eval_df": [_P] + [_I] * 4 + [_P],
+    # pointers, Nn, nx, nu, blocks, threads, stream
+    "tq_crown_eval_df": [_P] + [_I] * 5 + [_P],
     # ABt, qt, rt, d, xl, ul, res, cqr, S, L, nx, nu, chains, staged, stream
     "tq_chain_apply_df": [_P] * 8 + [_I] * 6 + [_P],
     # pointers, Nn, nx, nu, threads, stream

@@ -31,7 +31,8 @@ __all__ = ["chain_factor", "chain_factor_ref", "chain_solve_bwd",
            "chain_blocks_factor", "chain_blocks_factor_ref",
            "chain_blocks_factor_lanes", "chain_blocks_factor_lanes_ref", "chain_blocks",
            "lanes_ztp",
-           "CHAIN_DATA_KEYS", "chain_eval_data", "chain_eval", "chain_eval_ref"]
+           "CHAIN_DATA_KEYS", "chain_eval_data", "chain_eval", "chain_eval_ref",
+           "chain_node_launch"]
 
 # the largest nz = nx + nu the chain block factor kernels take
 MAX_BLOCK_NZ = 64
@@ -333,6 +334,54 @@ def chain_blocks_factor_lanes(ABt, qt, rt, ztp_root, s_root):
 chain_blocks_factor_lanes.launches = 0
 
 
+# the chain evaluation kernels' and chain_apply_df's launch (tq_eval.cuh's
+# chain_eval_nodes, csrc/chain_apply_df.cu): a thread a chain node, whole
+# chains a block, at most _NODE_THREADS threads a block (tq::kNodeThreads;
+# a longer chain's block strides over its nodes), the block's [A B] and lam
+# / d rows staged in shared memory where they fit in _BLOCK_SMEM (the H100's
+# 227 KB a block). _NODE_CHAINS: the chains a block, the fastest of 1, 2,
+# 4, 8 on the H100 in either element size (f64: at the bench path's S =
+# 256, L = 16, tying 8 at S = 1024; f32: at S = 256, L = 16 with nx = 6,
+# nu = 4 and nx = 8, nu = 1, and at S = 1024, L = 15)
+_NODE_CHAINS = 1
+_NODE_THREADS = 128
+_BLOCK_SMEM = 232448
+
+
+def _tile_bytes(count, elem):
+    """tq::tile_bytes: a staged tile of count elements of elem bytes."""
+    return -(-count * elem // 16) * 16 + 16
+
+
+def _node_smem(chains, L, nx, nu, elem, apply, staged):
+    """The dynamic shared memory of one block, as the C launchers size it:
+    the evaluation's per-node partials (two of elem bytes a node, rounded
+    up to 16 bytes), then, staged, the [A B] tile and the lam (elem) or d
+    (f32) tile."""
+    nodes = chains * L
+    out = 0 if apply else _tile_bytes(2 * nodes, elem) - 16
+    if staged:
+        out += (_tile_bytes(nodes * nx * (nx + nu), elem)
+                + _tile_bytes(nodes * nx, 4 if apply else elem))
+    return out
+
+
+def chain_node_launch(S, L, nx, nu, elem, apply=False, chains=None, staged=None):
+    """The launch of ``chain_eval`` (``elem`` 4) and ``chain_eval_df`` (8),
+    with ``apply`` of ``chain_apply_df`` (8), on S chains of L nodes:
+    (chains a block, blocks, threads a block, staged, shared bytes a
+    block). ``chains`` (default _NODE_CHAINS) is cut to as many
+    whole chains as _NODE_THREADS threads take, at least one (the last
+    block may hold fewer); ``staged`` (default: where the tiles fit
+    _BLOCK_SMEM) stages the block's [A B] and lam / d rows in shared
+    memory."""
+    C = max(1, min(chains or _NODE_CHAINS, _NODE_THREADS // L))
+    if staged is None:
+        staged = _node_smem(C, L, nx, nu, elem, apply, True) <= _BLOCK_SMEM
+    return (C, -(-S // C), min(C * L, _NODE_THREADS), staged,
+            _node_smem(C, L, nx, nu, elem, apply, staged))
+
+
 def chain_eval_data(A, B, q, r, Qd, Rd, xmin, xmax, umin, umax, b,
                     dtype=torch.float32):
     """Loop-invariant operands of ``chain_eval`` (and of the chain half of
@@ -397,7 +446,10 @@ def chain_eval(data, lam):
     """
     if lam.device.type == "cpu":
         return chain_eval_ref(data, lam)
-    out = eval_launch("chain_eval", "tq_chain_eval", data, lam, torch.float32)
+    S, L, nx, nz = data["ABt"].shape
+    C, _, _, staged, _ = chain_node_launch(S, L, nx, nz - nx, 4)
+    out = eval_launch("chain_eval", "tq_chain_eval", data, lam, torch.float32,
+                      (C, int(staged)))
     chain_eval.launches += 1
     return out
 
@@ -405,10 +457,11 @@ def chain_eval(data, lam):
 chain_eval.launches = 0
 
 
-def eval_launch(name, entry, data, lam, dtype, launch=()):
+def eval_launch(name, entry, data, lam, dtype, launch):
     """Check the operands of a chain evaluation kernel of ``dtype`` (f32
-    ``chain_eval`` or f64 ``chain_eval_df``, whose entry also takes the ints
-    ``launch``) and launch it; returns its outputs (see ``chain_eval``)."""
+    ``chain_eval`` or f64 ``chain_eval_df``) and launch it with the ints
+    ``launch`` (chains a block, staged; ``chain_node_launch``); returns its
+    outputs (see ``chain_eval``)."""
     S, L, nx, nz = data["ABt"].shape
     nu = nz - nx
     dev = lam.device

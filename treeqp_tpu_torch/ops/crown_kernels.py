@@ -159,6 +159,25 @@ def _solve_launch(sched) -> tuple[int, int]:
     return _CLUSTER, min(_SOLVE_WARPS, -(-sched.width // _CLUSTER))
 
 
+# crown_eval_df's launch (tq_eval.cuh's crown_eval_lanes): a group of
+# tq::lanes(nz) lanes a node, at most _EVAL_THREADS threads a block, on one
+# cluster of _EVAL_CLUSTER blocks
+_EVAL_THREADS = 1024
+_EVAL_CLUSTER = 16
+
+
+def _crown_eval_launch(Nn, nx, nu, blocks=_EVAL_CLUSTER):
+    """(blocks, groups a block, threads a block) of ``crown_eval_df`` on a
+    crown of Nn nodes: ``blocks`` is the team, one cluster or one block; a
+    block takes the groups that cover the crown in one round where
+    _EVAL_THREADS allow (group g of the team takes nodes g, g + groups *
+    blocks, ...)."""
+    G = 8 if nx + nu <= 8 else 16  # tq::lanes(nz)
+    per_block = -(-Nn // blocks)  # the groups a block takes in one round
+    threads = min(_EVAL_THREADS, -(-per_block * G // 32) * 32)
+    return blocks, threads // G, threads
+
+
 def crown_supported(prep, opts) -> bool:
     """The fused crown path applies: moderate block dim, f32 factors, a
     static regularization (the kernel's LM shift)."""
@@ -438,10 +457,11 @@ def crown_eval(data, lam, extra, prep):
 crown_eval.launches = 0
 
 
-def eval_launch(name, entry, data, lam, extra, prep, dtype):
+def eval_launch(name, entry, data, lam, extra, prep, dtype, launch=None):
     """Check the operands of a crown evaluation kernel of ``dtype`` (f32
-    ``crown_eval`` or f64 ``crown_eval_df``) and launch it; returns its
-    outputs (see ``crown_eval``)."""
+    ``crown_eval``, one block of ``block_threads``, or f64 ``crown_eval_df``
+    with the ints ``launch``: blocks, threads from ``_crown_eval_launch``) and launch it; returns its outputs (see
+    ``crown_eval``)."""
     Nn, nx, nz = data["ABt"].shape
     nu = nz - nx
     dev = lam.device
@@ -462,7 +482,7 @@ def eval_launch(name, entry, data, lam, extra, prep, dtype):
         + [t["par"], t["kid_ptr"], t["kid_idx"], lam, extra, atb]
         + [out[k] for k in ("x", "u", "qtilde", "rtilde", "xUnc", "uUnc", "res", "fcr")]
         + [None])
-    err = getattr(_build.lib(), entry)(ptrs, Nn, nx, nu, block_threads(Nn),
+    err = getattr(_build.lib(), entry)(ptrs, Nn, nx, nu, *(launch or (block_threads(Nn),)),
                                        _build.stream(dev))
     _build.check(err, name)
     return out

@@ -11,12 +11,14 @@ CPU tensors:
 
 * ``chain_eval_df`` (``csrc/chain_eval_df.cu``) — the chain evaluation:
   clipping stage solve, masked inverses, residual rows, root contributions
-  and dual-value partials; the f32 ``chain_eval`` body in double, a thread
-  a chain node (``chain_df_launch``);
+  and dual-value partials; the f32 ``chain_eval`` kernel in double, a
+  thread a chain node (``chain_kernels.chain_node_launch``);
 * ``crown_eval_df`` (``csrc/crown_eval_df.cu``) — the crown evaluation, the
-  f32 ``crown_eval`` body in double; the kid sums and the parent gather read
-  ``crown_kernels.eval_sched``'s index lists instead of the TPU kernel's
-  one-hot ``P_par``/``P_kid`` matrices, so the crown has no node cap;
+  f32 ``crown_eval`` bodies in double on a lane group a node
+  (``crown_kernels._crown_eval_launch``); the kid sums and the parent gather
+  read ``crown_kernels.eval_sched``'s index lists instead of the TPU
+  kernel's one-hot ``P_par``/``P_kid`` matrices, so the crown has no node
+  cap;
 * ``chain_apply_df`` / ``crown_apply_df`` (``csrc/chain_apply_df.cu``,
   ``csrc/crown_apply_df.cu``) — the two halves of the dual-Hessian action
   M d for iterative refinement, with the direction ``d`` in f32; the chain
@@ -38,7 +40,7 @@ from treeqp_tpu_torch.ops import crown_kernels as ckr
 from treeqp_tpu_torch.solvers.tdunes import _kid_sum
 
 __all__ = ["chain_eval_df_data", "chain_eval_df", "chain_eval_df_ref",
-           "chain_apply_df", "chain_apply_df_ref", "chain_df_launch",
+           "chain_apply_df", "chain_apply_df_ref",
            "crown_eval_df_data", "crown_eval_df", "crown_eval_df_ref",
            "crown_apply_df", "crown_apply_df_ref"]
 
@@ -47,51 +49,6 @@ f64 = torch.float64
 
 # ---------------------------------------------------------------------------
 # chain side
-
-# the chain kernels' launch (csrc/chain_eval_df.cu, chain_apply_df.cu): a
-# thread a chain node, _CHAINS whole chains a block (the fastest of 1, 2,
-# 4, 8 at the bench path's S = 256, L = 16 on the H100: one, 256 blocks,
-# tying 8 at S = 1024), at most _NODE_THREADS threads a block
-# (tq::kNodeThreads; a longer chain's block strides over its nodes), the
-# block's [A B] and lam / d rows staged in shared memory (faster than
-# direct loads at every chain count there) where they fit in _BLOCK_SMEM
-# (the H100's 227 KB a block)
-_CHAINS = 1
-_NODE_THREADS = 128
-_BLOCK_SMEM = 232448
-
-
-def _tile_bytes(count, elem):
-    """tq::tile_bytes: a staged tile of count elements of elem bytes."""
-    return -(-count * elem // 16) * 16 + 16
-
-
-def _df_smem(chains, L, nx, nu, apply, staged):
-    """The dynamic shared memory of one block, as the C launchers size it:
-    chain_eval_df's per-node partials (two f64 a node), then, staged, the
-    [A B] tile (f64) and the lam (f64) or d (f32) tile."""
-    nodes = chains * L
-    out = 0 if apply else 16 * nodes
-    if staged:
-        out += (_tile_bytes(nodes * nx * (nx + nu), 8)
-                + _tile_bytes(nodes * nx, 4 if apply else 8))
-    return out
-
-
-def chain_df_launch(S, L, nx, nu, apply=False, chains=None, staged=None):
-    """The launch of ``chain_eval_df`` (``apply``: ``chain_apply_df``) on
-    S chains of L nodes: (chains a block, blocks, threads a block, staged,
-    shared bytes a block). ``chains`` (default _CHAINS) is cut to as many
-    whole chains as _NODE_THREADS threads take, at least one (the last
-    block may hold fewer); ``staged`` (default: where the tiles fit
-    _BLOCK_SMEM) stages the block's [A B] and lam / d rows in shared
-    memory."""
-    C = max(1, min(chains or _CHAINS, _NODE_THREADS // L))
-    if staged is None:
-        staged = _df_smem(C, L, nx, nu, apply, True) <= _BLOCK_SMEM
-    return (C, -(-S // C), min(C * L, _NODE_THREADS), staged,
-            _df_smem(C, L, nx, nu, apply, staged))
-
 
 def chain_eval_df_data(A, B, q, r, Qd, Rd, xmin, xmax, umin, umax, b):
     """Loop-invariant f64 operands of ``chain_eval_df`` and
@@ -118,7 +75,7 @@ def chain_eval_df(data, lam):
     if lam.device.type == "cpu":
         return chain_eval_df_ref(data, lam)
     S, L, nx, nz = data["ABt"].shape
-    C, _, _, staged, _ = chain_df_launch(S, L, nx, nz - nx)
+    C, _, _, staged, _ = ck.chain_node_launch(S, L, nx, nz - nx, 8)
     out = ck.eval_launch("chain_eval_df", "tq_chain_eval_df", data, lam, f64,
                          (C, int(staged)))
     chain_eval_df.launches += 1
@@ -173,7 +130,7 @@ def chain_apply_df(data, qt, rt, d):
     kw = dict(dtype=f64, device=dev)
     out = dict(xl=torch.empty((S, L, nx), **kw), ul=torch.empty((S, L, nu), **kw),
                res_part=torch.empty((S, L, nx), **kw), cqr=torch.empty((S, nz), **kw))
-    C, _, _, staged, _ = chain_df_launch(S, L, nx, nu, apply=True)
+    C, _, _, staged, _ = ck.chain_node_launch(S, L, nx, nu, 8, apply=True)
     err = _build.lib().tq_chain_apply_df(
         data["ABt"].data_ptr(), qt.data_ptr(), rt.data_ptr(), d.data_ptr(),
         out["xl"].data_ptr(), out["ul"].data_ptr(), out["res_part"].data_ptr(),
@@ -214,8 +171,10 @@ def crown_eval_df(data, lam, extra, prep):
     """
     if lam.device.type == "cpu":
         return crown_eval_df_ref(data, lam, extra, prep)
+    Nn, nx, nz = data["ABt"].shape
+    blocks, _, threads = ckr._crown_eval_launch(Nn, nx, nz - nx)
     out = ckr.eval_launch("crown_eval_df", "tq_crown_eval_df", data, lam, extra,
-                          prep, f64)
+                          prep, f64, (blocks, threads))
     crown_eval_df.launches += 1
     return out
 

@@ -358,6 +358,8 @@ def _kid_sum(v, prep: _Prep):
     the GPU (an ``index_add_`` there adds with atomics in no fixed order)."""
     t = prep.on(v.device)
     kids, kv = t["kidsP"], t["kvalid"]
+    if kids.shape[1] == 0:  # a tree of one node: no kid slots
+        return torch.zeros_like(v)
     acc = torch.where(kv[:, 0, None], v[kids[:, 0]], 0.0)
     for k in range(1, kids.shape[1]):
         acc = acc + torch.where(kv[:, k, None], v[kids[:, k]], 0.0)
