@@ -26,9 +26,11 @@ Phases (any failure exits non-zero):
    timed, with ``torch.sum``, alone and in a CUDA graph on both vectors,
    chain_eval also held against its twin at the chain evaluation kernel's
    edges (EVAL_DF_EDGES, the seeded data in f32; EVAL_RTOL, the active sets
-   equal) and crown_eval_df bit for bit at its kernel's edges
-   (CROWN_EVAL_EDGES: seeded crowns, ``crown_eval_operands``), both timed
-   in a CUDA graph too;
+   equal), crown_eval_df and crown_apply_df bit for bit and crown_eval
+   (f32, EVAL_RTOL, the active sets equal) at the crown kernels'
+   edges (CROWN_EVAL_EDGES: seeded crowns, ``crown_eval_operands``, and
+   seeded directions, ``crown_apply_operands``), all five timed in a CUDA
+   graph too;
    and the generic-tree solver's
    tree-Cholesky kernels (chain_factor, chain_solve_bwd, chain_forward,
    crown_factor, crown_solve) on each of the three instances of section 5
@@ -264,8 +266,9 @@ EVAL_RTOL = 1e-5
 # the solve's rounding, so an active-set bit is held equal only where the
 # twin's clipping input is this far from its bound (relative to max(1, |bound|))
 TRIAL_MARGIN = 1e-4
-# the f64 evaluations and the reduction reproduce their twins bit for bit;
-# the f64 Hessian action to 1e-12 relative
+# the f64 evaluations, the crown's Hessian action and the reduction
+# reproduce their twins bit for bit; the chains' Hessian action to 1e-12
+# relative
 BIT_EXACT = 0.0
 DF_RTOL = 1e-12
 # df_reduce_flat's edges: the one-block form up to 4096 values, then one
@@ -279,9 +282,10 @@ REDUCE_EDGES = (0, 1, 2, 3, 4095, 4096, 4097, 50000, 65537, 2 ** 20 + 3)
 EVAL_DF_EDGES = ((5, 1, 6, 4), (5, 7, 1, 1), (5, 7, 8, 1), (5, 7, 16, 16), (3, 130, 6, 4),
                  (257, 16, 6, 4), (1024, 15, 6, 4), (2, 130, 16, 16))
 EVAL_DF_SEED = 180
-# crown_eval_df's edges (a group of 8 or 16 lanes a node, one block or one
-# cluster), held bit for bit against the twin on seeded crowns of the
-# multistage tree (md, Nr) with nx states and nu inputs
+# the lane-group crown kernels' edges (a group of 8 or 16 lanes a node, one
+# cluster): crown_eval_df and crown_apply_df held bit for bit, crown_eval
+# (f32) to EVAL_RTOL against the twins on seeded crowns of
+# the multistage tree (md, Nr) with nx states and nu inputs
 # (crown_eval_operands): a root-only crown, nx = nu = 1 (8 lanes), nz = 32
 # (two columns a lane), one node with 40 kids, a deep crown of two kids a
 # node (511 nodes) and quadcopter(4,5,20)'s 1365-node crown
@@ -642,6 +646,21 @@ def crown_eval_operands(torch, md, Nr, nx, nu, seed, dev):
     qp.xmin, qp.xmax = -side(unc["xUnc"]), side(unc["xUnc"])
     qp.umin, qp.umax = -side(unc["uUnc"]), side(unc["uUnc"])
     return dek.crown_eval_df_data(qp, prep, *masks), lam, extra, prep
+
+
+def crown_apply_operands(torch, md, Nr, nx, nu, seed, dev):
+    """Seeded operands of crown_apply_df on crown_eval_operands' crown:
+    (data, qtilde, rtilde, d, extra, prep), the masked inverses those of the
+    twin's evaluation at that dual point, d an f32 N(0, 1) direction masked
+    by nrxm, extra (f64, N(0, 1) on every node) the chains' contribution."""
+    import numpy as np
+    from treeqp_tpu_torch.ops import df_eval_kernels as dek
+    data, lam, extra, prep = crown_eval_operands(torch, md, Nr, nx, nu, seed, dev)
+    ev = dek.crown_eval_df_ref(data, lam, extra, prep)
+    rng = np.random.default_rng([seed, 1])
+    d = (torch.tensor(rng.standard_normal(lam.shape), dtype=torch.float32, device=dev)
+         * data["nrxm"].float())
+    return data, ev["qtilde"], ev["rtilde"], d, extra, prep
 
 
 def iter_edge_qp(name, args):
@@ -1408,11 +1427,29 @@ def main():
     keys = ("x", "u", "xUnc", "uUnc", "res", "fcr")
     err = compare(torch, "crown_eval", floats(r_got, keys), floats(r_ref, keys), EVAL_RTOL)
     compare_sets(torch, "crown_eval", r_got, r_ref, ("qtilde", "rtilde"))
-    record("crown_eval", "crown_eval.cu", "treeqp_tpu/ops/crown_kernels.py:466", err,
-           lambda: ckr.crown_eval(data_cr, lam_cr32, extra, prep),
-           lambda: ckr.crown_eval_ref(data_cr, lam_cr32, extra, prep),
-           f"ABt {tuple(data_cr['ABt'].shape)}",
-           (data_cr, lam_cr32, extra, ckr.eval_sched(prep, dev)), crown_eval_ops)
+    # and at its kernel's edges (CROWN_EVAL_EDGES), the seeded crowns in f32
+    cr_edge_err = 0.0
+    for k, edge in enumerate(CROWN_EVAL_EDGES):
+        de, lam_e, extra_e, prep_e = crown_eval_operands(torch, *edge, CROWN_EVAL_SEED + k, dev)
+        ce_args = ({key: v.float() for key, v in de.items()}, lam_e.float(), extra_e.float(),
+                   prep_e)
+        Nn_e = de["ABt"].shape[0]
+        what = (f"crown_eval (md, Nr, nx, nu = {edge}: {Nn_e} nodes, launch "
+                f"{ckr._crown_eval_launch(Nn_e, *edge[2:])})")
+        ce_got, ce_ref = ckr.crown_eval(*ce_args), ckr.crown_eval_ref(*ce_args)
+        cr_edge_err = max(cr_edge_err, compare(torch, what, floats(ce_got, keys),
+                                               floats(ce_ref, keys), EVAL_RTOL))
+        compare_sets(torch, what, ce_got, ce_ref, ("qtilde", "rtilde"))
+    print(f"crown_eval at its kernel's edges {CROWN_EVAL_EDGES} (md, Nr, nx, nu; f32): max "
+          f"|diff| to the twin {cr_edge_err:.3e}, active sets equal")
+    Nc_e = data_cr["ABt"].shape[0]
+    record_graph("crown_eval", "crown_eval.cu", "treeqp_tpu/ops/crown_kernels.py:466",
+                 max(err, cr_edge_err), lambda: ckr.crown_eval(data_cr, lam_cr32, extra, prep),
+                 lambda: ckr.crown_eval_ref(data_cr, lam_cr32, extra, prep),
+                 f"ABt {tuple(data_cr['ABt'].shape)}, launch "
+                 f"{ckr._crown_eval_launch(Nc_e, nx_, nz_ - nx_)}; edges {CROWN_EVAL_EDGES} max "
+                 f"|diff| {cr_edge_err:.3e}",
+                 (data_cr, lam_cr32, extra, ckr.eval_sched(prep, dev)), crown_eval_ops)
 
     largs = tm._factor_inputs(r_ref["qtilde"], r_ref["rtilde"], e_ref["qt"],
                               e_ref["rt"], prep, ctx32, lanes=True)["chain"]
@@ -1622,12 +1659,27 @@ def main():
     c_ref = dek.crown_apply_df_ref(*cargs)
     c_got = dek.crown_apply_df(*cargs)
     torch.cuda.synchronize()
-    record("crown_apply_df", "crown_apply_df.cu", "treeqp_tpu/ops/df_eval_kernels.py:555",
-           compare(torch, "crown_apply_df", floats(c_got, keys), floats(c_ref, keys),
-                   DF_RTOL),
-           lambda: dek.crown_apply_df(*cargs), lambda: dek.crown_apply_df_ref(*cargs),
-           f"d {tuple(dcr.shape)} f32", (cargs[:-1], ckr.eval_sched(prep, dev)),
-           crown_apply_ops, fp64=True)
+    ca_err = bit_exact(torch, "crown_apply_df", floats(c_got, keys), floats(c_ref, keys))
+    # and at its kernel's edges (CROWN_EVAL_EDGES), on seeded crowns and
+    # directions
+    ca_edge_err = 0.0
+    for k, edge in enumerate(CROWN_EVAL_EDGES):
+        ca_args = crown_apply_operands(torch, *edge, CROWN_EVAL_SEED + k, dev)
+        Nn_e = ca_args[0]["ABt"].shape[0]
+        ca_edge_err = max(ca_edge_err, bit_exact(
+            torch, f"crown_apply_df (md, Nr, nx, nu = {edge}: {Nn_e} nodes, launch "
+                   f"{ckr._crown_eval_launch(Nn_e, *edge[2:])})",
+            floats(dek.crown_apply_df(*ca_args), keys),
+            floats(dek.crown_apply_df_ref(*ca_args), keys)))
+    print(f"crown_apply_df at its kernel's edges {CROWN_EVAL_EDGES} (md, Nr, nx, nu): bit for "
+          "bit the twin")
+    record_graph("crown_apply_df", "crown_apply_df.cu", "treeqp_tpu/ops/df_eval_kernels.py:555",
+                 max(ca_err, ca_edge_err), lambda: dek.crown_apply_df(*cargs),
+                 lambda: dek.crown_apply_df_ref(*cargs),
+                 f"d {tuple(dcr.shape)} f32, launch "
+                 f"{ckr._crown_eval_launch(Nc_d, nx_, nz_ - nx_)}; edges {CROWN_EVAL_EDGES} "
+                 "bit for bit", (cargs[:-1], ckr.eval_sched(prep, dev)),
+                 crown_apply_ops, fp64=True)
     # the phase's two reductions: the dual value's partials and the
     # directional derivative's terms
     fx = torch.cat([cr_ref["fcr"], ch_ref["fch"]])

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""The evaluation kernels ``chain_eval`` (f32), ``chain_eval_df``,
-``chain_apply_df`` and ``crown_eval_df`` (``csrc/chain_eval.cu``,
+"""The evaluation kernels ``chain_eval`` and ``crown_eval`` (f32),
+``chain_eval_df``, ``chain_apply_df``, ``crown_eval_df`` and
+``crown_apply_df`` (``csrc/chain_eval.cu``, ``csrc/crown_eval.cu``,
 ``csrc/chain_eval_df.cu``, ``csrc/chain_apply_df.cu``,
-``csrc/crown_eval_df.cu``) against other checkouts', on one card.
+``csrc/crown_eval_df.cu``, ``csrc/crown_apply_df.cu``) against other
+checkouts', on one card.
 
     python3 scripts/prof_torch_eval_df.py --parent DIR [--parent DIR2 ...] [--reps 50]
 
@@ -11,8 +13,9 @@ archive`` of the parent commit), named by its directory's name; its own
 ``treeqp_tpu_torch/ops/_build.py`` builds its kernel library into
 DIR/build, this checkout's ``_build`` this one's ("package"). A library
 whose chain kernels take no (chains, staged) pair runs them as its wrapper
-did (one thread a chain), one whose crown_eval_df takes a thread count as
-its wrapper did (one block, ``crown_kernels.block_threads``). The operands:
+did (one thread a chain), one whose crown kernels take a thread count as
+its wrapper did (one block, a thread a node: ``one_block_threads``). The
+operands:
 - chain_eval_df and chain_apply_df: every call of both in a cold solve of
   the quadcopter headline (quadcopter(4,4,20): S = 256 chains of L = 16,
   nx = 6, nu = 4) at ``chip_smoke.BENCH_OPTS`` (bench.py's path: its
@@ -26,26 +29,32 @@ its wrapper did (one block, ``crown_kernels.block_threads``). The operands:
   spring_mass_chain(4,4,4,20) in f32: S = 256, L = 16, nx = 8, nu = 1)
   and on the 1024-scenario path's two-norm solve; the seeded
   ``EVAL_DF_EDGES`` operands in f32;
-- crown_eval_df: its first call in the cold bench solve (the 341-node
-  crown) and in quadcopter(4,5,20)'s (1365 nodes); seeded crowns
-  (``chip_smoke.crown_eval_operands``) at ``chip_smoke.CROWN_EVAL_EDGES``.
+- crown_eval_df and crown_apply_df: every call of both in the cold bench
+  solve (the 341-node crown) and the first in quadcopter(4,5,20)'s (1365
+  nodes), captured; seeded crowns (``chip_smoke.crown_eval_operands``,
+  ``chip_smoke.crown_apply_operands``) at ``chip_smoke.CROWN_EVAL_EDGES``;
+- crown_eval (f32): every call on the two-norm path, tdunes_ms_f32 (the
+  341-node crown with nx = 8, nu = 1) and the 1024-scenario two-norm path,
+  captured; the seeded ``CROWN_EVAL_EDGES`` crowns in f32.
 
 For every shape: the package's launch (``chain_kernels.chain_node_launch``,
 ``crown_kernels._crown_eval_launch``) and every form of the sweep (the
 chain kernels 1, 2, 4 and 8 chains a block, each with the block's tiles
 staged in shared memory, where they fit, and read from global memory;
-crown_eval_df on one block, one cluster of 8 and one of 16); whether every form's and every other library's outputs equal the
-package's launch bit for bit (``torch.equal``, every output), and the
-package's launch against the plain twin (the evaluations bit for bit,
-chain_apply_df to ``chip_smoke.DF_RTOL``). At the captured points every
-form and library is timed in a CUDA graph (20 launches,
-``chip_smoke.graph_ms``) and one C call alone (the median of REPS,
-``chip_smoke.cuda_ms``; outputs allocated beforehand). Also: the kernels'
-launches in a cold and a warm bench solve and in the two-norm solve;
-crown_eval (f32) and crown_apply_df, unchanged, in a graph at the bench
-path's first points; the FP32 / FP64 opcodes of each library's
+the crown kernels on one block, one cluster of 8 and one of 16); whether
+every form's and every other library's outputs equal the package's launch
+bit for bit (``torch.equal``, every output), and the package's launch
+against the plain twin (the f64 evaluations and crown_apply_df bit for
+bit, the f32 ones to ``chip_smoke.EVAL_RTOL``, chain_apply_df to
+``chip_smoke.DF_RTOL``; whether each is bit for bit the twin is printed).
+At the first captured point of each path every form and library is timed
+in a CUDA graph (20 launches, ``chip_smoke.graph_ms``) and one C call
+alone (the median of REPS, ``chip_smoke.cuda_ms``; outputs allocated
+beforehand). Also: the kernels' launches in a cold and a warm bench solve
+and in the f32 paths' solves; the FP32 / FP64 opcodes of each library's
 evaluation kernels (``scripts/sass_opcodes.py``: the package's may hold no
-FFMA or DFMA); and, through each checkout's own Python wrappers (the other
+DFMA, and its f32 ones no FFMA); and, through each checkout's own Python
+wrappers (the other
 checkouts' in a child process that imports their package), one call of
 each kernel timed alone and in a graph on seeded operands. Exits non-zero
 if a launch fails, a result leaves its tolerance, a bit differs or the
@@ -70,15 +79,25 @@ TEAMS = (1, 8, 16)
 WRAPPER_SHAPES = ((256, 16, 6, 4), (1024, 15, 6, 4))
 WRAPPER_SHAPES_F32 = ((256, 16, 6, 4), (256, 16, 8, 1), (1024, 15, 6, 4))
 WRAPPER_CROWNS = ((4, 4, 6, 4), (4, 5, 6, 4))
+WRAPPER_CROWNS_F32 = ((4, 4, 6, 4), (4, 4, 8, 1), (4, 5, 6, 4))
 EVAL_KEYS = ("x", "u", "qt", "rt", "xUnc", "uUnc", "res_part", "fch", "cqr")
 APPLY_KEYS = ("xl", "ul", "res_part", "cqr")
 CROWN_KEYS = ("x", "u", "qtilde", "rtilde", "xUnc", "uUnc", "res", "fcr")
+CROWN_APPLY_KEYS = ("xl", "ul", "res")
 # the evaluation kernels of either checkout: the package's chain_eval_nodes
-# (f32 and f64) and crown_eval_df_kernel, the parents' chain_eval_kernel
-# (f32), chain_eval_df_kernel and crown_eval_kernel<double>; and
-# chain_apply_df_kernel
-KERNEL_NAMES = ("chain_eval_nodes", "crown_eval_df_kernel", "chain_eval_kernelIf",
-                "chain_eval_df_kernel", "crown_eval_kernelId", "chain_apply_df_kernel")
+# and crown_eval_lanes_kernel (f32 and f64) and crown_apply_df_kernel; the
+# parents' chain_eval_kernel (f32), chain_eval_df_kernel, crown_eval_df_kernel,
+# crown_eval_kernel (f32, f64) and crown_apply_df_kernel; chain_apply_df_kernel
+KERNEL_NAMES = ("chain_eval_nodes", "crown_eval_lanes_kernel", "crown_eval_df_kernel",
+                "chain_eval_kernelIf", "chain_eval_df_kernel", "crown_eval_kernelI",
+                "chain_apply_df_kernel", "crown_apply_df_kernel")
+# the package's kernels whose SASS may hold no FFMA (the f32 ones)
+F32_KERNELS = ("chain_eval_nodesIf", "crown_eval_lanes_kernelIf")
+
+
+def one_block_threads(Nn):
+    """The one-block crown kernels' threads: one a node up to 1024."""
+    return min(1024, max(32, -(-Nn // 32) * 32))
 
 
 def parent_lib(parent):
@@ -93,7 +112,9 @@ def parent_lib(parent):
     new = {"tq_chain_eval": len(sig["tq_chain_eval"]) == 8,
            "tq_chain_eval_df": len(sig["tq_chain_eval_df"]) == 8,
            "tq_chain_apply_df": len(sig["tq_chain_apply_df"]) == 15,
-           "tq_crown_eval_df": len(sig["tq_crown_eval_df"]) == 7}
+           "tq_crown_eval_df": len(sig["tq_crown_eval_df"]) == 7,
+           "tq_crown_eval": len(sig["tq_crown_eval"]) == 7,
+           "tq_crown_apply_df": len(sig["tq_crown_apply_df"]) == 7}
     return mod.lib(), new, mod.build()
 
 
@@ -106,10 +127,12 @@ def wrapper_times(parent):
         sys.path.insert(0, str(Path(parent).resolve()))
     import torch
     from treeqp_tpu_torch.ops import chain_kernels as ck
+    from treeqp_tpu_torch.ops import crown_kernels as ckr
     from treeqp_tpu_torch.ops import df_eval_kernels as dek
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "scripts"))
-    from chip_smoke import crown_eval_operands, cuda_ms, eval_df_operands, graph_ms
+    from chip_smoke import (crown_apply_operands, crown_eval_operands, cuda_ms,
+                            eval_df_operands, graph_ms)
     from prof_common import card
     name = "package" if parent is None else Path(parent).resolve().name
     dev = torch.device("cuda", 0)
@@ -129,6 +152,14 @@ def wrapper_times(parent):
         a = crown_eval_operands(torch, md, Nr, nx, nu, 3, dev)
         rows.append((f"crown_eval_df ({a[0]['ABt'].shape[0]} nodes)",
                      lambda a=a: dek.crown_eval_df(*a)))
+        a = crown_apply_operands(torch, md, Nr, nx, nu, 3, dev)
+        rows.append((f"crown_apply_df ({a[0]['ABt'].shape[0]} nodes)",
+                     lambda a=a: dek.crown_apply_df(*a)))
+    for md, Nr, nx, nu in WRAPPER_CROWNS_F32:
+        data, lam, extra, prep = crown_eval_operands(torch, md, Nr, nx, nu, 3, dev)
+        a = ({k: v.float() for k, v in data.items()}, lam.float(), extra.float(), prep)
+        rows.append((f"crown_eval ({data['ABt'].shape[0]} nodes, nx={nx}, nu={nu})",
+                     lambda a=a: ckr.crown_eval(*a)))
     for timed_pass in (False, True):  # the first pass warms the card and the host path
         for what, fn in rows:
             t, g = cuda_ms(torch, fn, 50), graph_ms(torch, fn)
@@ -155,9 +186,9 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("prof_torch_eval_df: needs a CUDA device")
-    from chip_smoke import (BENCH_OPTS, CROWN_EVAL_EDGES, DF_RTOL, EVAL_DF_EDGES,
-                            TWO_PHASE_OPTS, crown_eval_operands, cuda_ms, eval_df_operands,
-                            graph_ms)
+    from chip_smoke import (BENCH_OPTS, CROWN_EVAL_EDGES, DF_RTOL, EVAL_DF_EDGES, EVAL_RTOL,
+                            TWO_PHASE_OPTS, crown_apply_operands, crown_eval_operands,
+                            cuda_ms, eval_df_operands, graph_ms)
     from prof_common import capture, card as card_name
     from sass_opcodes import opcode_counts
     import treeqp_tpu_torch  # noqa: F401  (pins full-precision f32)
@@ -172,7 +203,7 @@ def main():
     print(card)
     dev = torch.device("cuda", 0)
     every = dict.fromkeys(("tq_chain_eval", "tq_chain_eval_df", "tq_chain_apply_df",
-                           "tq_crown_eval_df"), True)
+                           "tq_crown_eval_df", "tq_crown_eval", "tq_crown_apply_df"), True)
     libs = {"package": (_build.lib(), every, _build.build()),
             **{Path(p).name: parent_lib(p) for p in args.parent}}
     st = lambda: _build.stream(dev)  # the current stream: a graph captures on its own
@@ -235,39 +266,69 @@ def main():
         return {name: make_with(lib, launch) for name, lib, launch in
                 chain_forms("tq_chain_apply_df", S, L, nx, nz - nx, 8, True)}
 
-    def crown_makes(data, lam, extra, prep):
-        """crown_eval_df of every library's launch, then the package's
-        teams of TEAMS."""
-        Nn, nx, nz = data["ABt"].shape
-        f64 = dict(dtype=torch.float64, device=dev)
-        t = ckr.eval_sched(prep, dev)
+    def crown_forms(entry, Nn, nx, nu):
+        """(name, lib, launch ints) of every library's launch of the crown
+        kernel ``entry``, then the package's teams of TEAMS."""
         forms = []
         for name, (lib, new, _) in libs.items():
-            blocks, _, threads = ckr._crown_eval_launch(Nn, nx, nz - nx)
-            forms.append((name, lib, (blocks, threads)
-                          if new["tq_crown_eval_df"] else (ckr.block_threads(Nn),)))
+            blocks, _, threads = ckr._crown_eval_launch(Nn, nx, nu)
+            forms.append((name, lib, (blocks, threads) if new[entry]
+                          else (one_block_threads(Nn),)))
         for blocks in TEAMS:
-            _, _, threads = ckr._crown_eval_launch(Nn, nx, nz - nx, blocks)
+            _, _, threads = ckr._crown_eval_launch(Nn, nx, nu, blocks)
             forms.append((f"package {blocks} block{'s' if blocks > 1 else ''}",
-                           libs["package"][0], (blocks, threads)))
+                          libs["package"][0], (blocks, threads)))
+        return forms
+
+    def crown_makes(data, lam, extra, prep):
+        """crown_eval (f32 data) or crown_eval_df (f64) of every form."""
+        Nn, nx, nz = data["ABt"].shape
+        dt = data["ABt"].dtype
+        entry = "tq_crown_eval" if dt == torch.float32 else "tq_crown_eval_df"
+        kw = dict(dtype=dt, device=dev)
+        t = ckr.eval_sched(prep, dev)
 
         def make_with(lib, launch):
             def make():
-                o = {k: torch.empty(sh, **f64) for k, sh in (
+                o = {k: torch.empty(sh, **kw) for k, sh in (
                     ("x", (Nn, nx)), ("u", (Nn, nz - nx)), ("qtilde", (Nn, nx)),
                     ("rtilde", (Nn, nz - nx)), ("xUnc", (Nn, nx)), ("uUnc", (Nn, nz - nx)),
                     ("res", (Nn, nx)), ("fcr", (Nn,)))}
-                atb = torch.empty((Nn, nz), **f64)
+                atb = torch.empty((Nn, nz), **kw)
                 ptrs = _build.ptr_array(
                     [data[k] for k in ckr.CROWN_DATA_KEYS]
                     + [t["par"], t["kid_ptr"], t["kid_idx"], lam, extra, atb]
                     + [o[k] for k in CROWN_KEYS] + [None])
-                fn = lambda: _build.check(lib.tq_crown_eval_df(
-                    ptrs, Nn, nx, nz - nx, *launch, st()), "tq_crown_eval_df")
+                fn = lambda: _build.check(getattr(lib, entry)(
+                    ptrs, Nn, nx, nz - nx, *launch, st()), entry)
                 fn.keep = (ptrs, atb, o)
                 return fn, [o[k] for k in CROWN_KEYS]
             return make
-        return {name: make_with(lib, launch) for name, lib, launch in forms}
+        return {name: make_with(lib, launch)
+                for name, lib, launch in crown_forms(entry, Nn, nx, nz - nx)}
+
+    def crown_apply_makes(data, qt, rt, d, extra, prep):
+        """crown_apply_df of every form."""
+        Nn, nx, nz = data["ABt"].shape
+        f64 = dict(dtype=torch.float64, device=dev)
+        t = ckr.eval_sched(prep, dev)
+
+        def make_with(lib, launch):
+            def make():
+                o = {k: torch.empty(sh, **f64) for k, sh in (
+                    ("xl", (Nn, nx)), ("ul", (Nn, nz - nx)), ("res", (Nn, nx)))}
+                atb = torch.empty((Nn, nz), **f64)
+                ptrs = _build.ptr_array(
+                    [data[k] for k in ckr.CROWN_DATA_KEYS]
+                    + [t["par"], t["kid_ptr"], t["kid_idx"], qt, rt, d, extra, atb]
+                    + [o[k] for k in CROWN_APPLY_KEYS])
+                fn = lambda: _build.check(lib.tq_crown_apply_df(
+                    ptrs, Nn, nx, nz - nx, *launch, st()), "tq_crown_apply_df")
+                fn.keep = (ptrs, atb, o)
+                return fn, [o[k] for k in CROWN_APPLY_KEYS]
+            return make
+        return {name: make_with(lib, launch) for name, lib, launch in
+                crown_forms("tq_crown_apply_df", Nn, nx, nz - nx)}
 
     def compare_forms(what, makes, ref, rtol, timed):
         """Run every form of ``makes``; each bit for bit the package's
@@ -300,9 +361,10 @@ def main():
         differ = [name for name in outs if name != "package"
                   and not all(torch.equal(a, b) for a, b in zip(outs["package"], outs[name]))]
         failed.extend(f"{what}: {name}" for name in differ)
-        print(f"{what}: package max |diff| to the twin {err:.3e}; {len(outs) - 1} other forms "
-              f"and libraries bit for bit: {'all' if not differ else 'NOT ' + ', '.join(differ)}",
-              flush=True)
+        twin_bits = all(torch.equal(g, r) for g, r in zip(outs["package"], ref))
+        print(f"{what}: package max |diff| to the twin {err:.3e} (bit for bit the twin: "
+              f"{'yes' if twin_bits else 'no'}); {len(outs) - 1} other forms and libraries bit "
+              f"for bit: {'all' if not differ else 'NOT ' + ', '.join(differ)}", flush=True)
         if timed:
             for name, fn in fns.items():
                 g, a = graph_ms(torch, fn), cuda_ms(torch, fn, args.reps)
@@ -329,12 +391,23 @@ def main():
                           [ap_ref[k] for k in APPLY_KEYS], DF_RTOL, timed)
 
     def crown_case(what, data, lam, extra, prep, timed):
+        """crown_eval (f32 data, to EVAL_RTOL of the twin) or crown_eval_df
+        (f64, bit for bit the twin) at ``lam``."""
         Nn, nx, nz = data["ABt"].shape
-        ref = dek.crown_eval_df_ref(data, lam, extra, prep)
-        compare_forms(f"crown_eval_df ({what}: {Nn} nodes, nx={nx}, nu={nz - nx}; launch "
+        f32 = data["ABt"].dtype == torch.float32
+        ref = ckr.crown_eval_ref(data, lam, extra, prep)
+        compare_forms(f"{'crown_eval' if f32 else 'crown_eval_df'} ({what}: {Nn} nodes, "
+                      f"nx={nx}, nu={nz - nx}; launch {ckr._crown_eval_launch(Nn, nx, nz - nx)})",
+                      crown_makes(data, lam, extra, prep), [ref[k] for k in CROWN_KEYS],
+                      EVAL_RTOL if f32 else 0.0, timed)
+
+    def crown_apply_case(what, data, qt, rt, d, extra, prep, timed):
+        Nn, nx, nz = data["ABt"].shape
+        ref = dek.crown_apply_df_ref(data, qt, rt, d, extra, prep)
+        compare_forms(f"crown_apply_df ({what}: {Nn} nodes, nx={nx}, nu={nz - nx}; launch "
                       f"{ckr._crown_eval_launch(Nn, nx, nz - nx)})",
-                      crown_makes(data, lam, extra, prep), [ref[k] for k in CROWN_KEYS], 0.0,
-                      timed)
+                      crown_apply_makes(data, qt, rt, d, extra, prep),
+                      [ref[k] for k in CROWN_APPLY_KEYS], 0.0, timed)
 
     # ---- every call of a cold bench solve, and the launches of a warm one
     opts = td.TdunesOpts(**BENCH_OPTS)
@@ -359,12 +432,9 @@ def main():
     for k, ((data, lam, extra, prep), _) in enumerate(got["crown_eval_df"]):
         crown_case(f"bench path {k}", data, lam.double().contiguous(),
                    extra.double().contiguous(), prep, k == 0)
-    # rows 11 and 17, unchanged: crown_apply_df at the bench path's first
-    # direction, crown_eval (f32) at the two-norm path's first point below
-    (ca_args, _) = got["crown_apply_df"][0]
-    print(f"crown_apply_df (bench path's first direction, {ca_args[0]['ABt'].shape[0]} nodes; "
-          f"unchanged): {graph_ms(torch, lambda: dek.crown_apply_df(*ca_args)):.4f} ms in a "
-          f"CUDA graph on {card}", flush=True)
+    for k, ((data, qt, rt, d, extra, prep), _) in enumerate(got["crown_apply_df"]):
+        crown_apply_case(f"bench path apply {k}", data, qt, rt, d.contiguous(), extra, prep,
+                         k == 0)
     # ---- quadcopter(4,5,20)'s first f64 point
     ms5 = tm.split_multistage(quadcopter(4, 5, 20, device=dev).qp)
     got5, _ = capture(dek, names, lambda: tm.tdunes_ms_solve(ms5, None, None, opts))
@@ -375,7 +445,10 @@ def main():
     (data, lam, extra, prep), _ = got5["crown_eval_df"][0]
     crown_case("quadcopter(4,5,20) 0", data, lam.double().contiguous(),
                extra.double().contiguous(), prep, True)
-    # ---- chain_eval (f32): the first point of the coarse per-kernel loop
+    (data, qt, rt, d, extra, prep), _ = got5["crown_apply_df"][0]
+    crown_apply_case("quadcopter(4,5,20) apply 0", data, qt, rt, d.contiguous(), extra, prep,
+                     True)
+    # ---- chain_eval and crown_eval (f32): the coarse per-kernel loop's points
     opts2n = td.TdunesOpts(**{**TWO_PHASE_OPTS, "termination": "twonorm"})
     opts_ms_f32 = dataclasses.replace(td.TdunesOpts(**SDUNES_BOOT_OPTS), tol=1e-3, max_iter=80,
                                       f32_phase_tol=0.0, df64_phase=False, refine_steps=0)
@@ -383,35 +456,36 @@ def main():
         dtype=torch.float32)
     for what, ms_c, o in (("two-norm path", ms, opts2n), ("tdunes_ms_f32", ms_sm32, opts_ms_f32),
                           ("1024-scenario two-norm", ms5, opts2n)):
-        g32, (_, _, info_c) = capture(ck, ("chain_eval",),
-                                      lambda: tm.tdunes_ms_solve(ms_c, None, None, o))
+        g32, (g11, (_, _, info_c)) = capture(ck, ("chain_eval",), lambda: capture(
+            ckr, ("crown_eval",), lambda: tm.tdunes_ms_solve(ms_c, None, None, o)))
         print(f"{what}: cold solve {info_c['iter']} iterations ({info_c['iter_f32']} coarse), "
-              f"chain_eval x{len(g32['chain_eval'])}", flush=True)
+              f"chain_eval x{len(g32['chain_eval'])}, crown_eval x{len(g11['crown_eval'])}",
+              flush=True)
         (data, lam), _ = g32["chain_eval"][0]
         case(f"{what} eval 0", data, lam.float().contiguous(), None, True)
-        if what == "two-norm path":
-            g11, _ = capture(ckr, ("crown_eval",),
-                             lambda: tm.tdunes_ms_solve(ms, None, None, opts2n))
-            ce_args, _ = g11["crown_eval"][0]
-            print(f"crown_eval (two-norm path's first point, {ce_args[0]['ABt'].shape[0]} "
-                  f"nodes; unchanged): {graph_ms(torch, lambda: ckr.crown_eval(*ce_args)):.4f} "
-                  f"ms in a CUDA graph, x{len(g11['crown_eval'])} in a cold solve on {card}",
-                  flush=True)
+        for k, ((data, lam, extra, prep), _) in enumerate(g11["crown_eval"]):
+            crown_case(f"{what} {k}", data, lam.float().contiguous(),
+                       extra.float().contiguous(), prep, k == 0)
     # ---- the smoke's edges
     for k, (S, L, nx, nu) in enumerate(EVAL_DF_EDGES):
         data, lam, d = eval_df_operands(torch, S, L, nx, nu, 40 + k, dev)
         case("edge", data, lam, d, False)
         case("edge", {key: v.float() for key, v in data.items()}, lam.float(), None, False)
     for k, edge in enumerate(CROWN_EVAL_EDGES):
-        crown_case(f"edge (md, Nr, nx, nu) = {edge}",
-                   *crown_eval_operands(torch, *edge, 50 + k, dev), False)
+        what = f"edge (md, Nr, nx, nu) = {edge}"
+        data, lam, extra, prep = crown_eval_operands(torch, *edge, 50 + k, dev)
+        crown_case(what, data, lam, extra, prep, False)
+        crown_case(what, {key: v.float() for key, v in data.items()}, lam.float(),
+                   extra.float(), prep, False)
+        crown_apply_case(what, *crown_apply_operands(torch, *edge, 50 + k, dev), False)
 
-    # ---- SASS: no FFMA or DFMA in the package's evaluation kernels
+    # ---- SASS: no DFMA in the package's evaluation kernels, no FFMA in its
+    # f32 ones
     for name, (_, _, path) in libs.items():
         for kernel, (ops, _) in opcode_counts(path, KERNEL_NAMES).items():
             print(f"SASS {name} {kernel}: {ops}")
             if name == "package" and (ops.get("DFMA", 0) or (
-                    "chain_eval_nodesIf" in kernel and ops.get("FFMA", 0))):
+                    any(k in kernel for k in F32_KERNELS) and ops.get("FFMA", 0))):
                 failed.append(f"FFMA / DFMA in the package's {kernel}")
 
     sys.stdout.flush()

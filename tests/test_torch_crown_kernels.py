@@ -249,12 +249,15 @@ def test_solve_launch_shape():
 
 
 def test_crown_eval_launch():
-    """_crown_eval_launch (crown_eval_df): one cluster of _EVAL_CLUSTER
-    blocks (or the team asked for); a block's groups of tq::lanes(nz) lanes
-    cover the crown in one round where a block's threads allow. Pinned at
-    the bench path's 341-node crown, quadcopter(4,5,20)'s 1365 and the
-    smoke's edges (chip_smoke.CROWN_EVAL_EDGES)."""
+    """_crown_eval_launch (the launch of crown_eval, crown_eval_df and
+    crown_apply_df): one cluster of _EVAL_CLUSTER blocks (or the team asked
+    for); a block's groups of tq::lanes(nz) lanes cover the crown in one
+    round where a block's threads allow. Pinned at the bench and two-norm
+    paths' 341-node crown, tdunes_ms_f32's (341 nodes, nx = 8, nu = 1: 16
+    lanes a node), quadcopter(4,5,20)'s 1365 and the smoke's edges
+    (chip_smoke.CROWN_EVAL_EDGES)."""
     assert ckr._crown_eval_launch(341, 6, 4) == (16, 22, 352)
+    assert ckr._crown_eval_launch(341, 8, 1) == (16, 22, 352)
     assert ckr._crown_eval_launch(1365, 6, 4) == (16, 64, 1024)
     assert ckr._crown_eval_launch(341, 6, 4, blocks=1) == (1, 64, 1024)
     assert ckr._crown_eval_launch(1365, 6, 4, blocks=8) == (8, 64, 1024)

@@ -7,12 +7,14 @@ double-float reference (``ms_df64.df_stage_solve``, ``df_residuals``,
 kernels to), on the same inputs at dual points on the solver's path."""
 
 import functools
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from treeqp_tpu.ops import crown_kernels as jckr
 from treeqp_tpu.ops import df64 as jdf
 from treeqp_tpu.ops import df_eval_kernels as jdek
 from treeqp_tpu.solvers import ms_df64 as jmd
@@ -21,6 +23,7 @@ from treeqp_tpu.solvers import tdunes_multistage as jtm
 
 import chip_smoke
 from test_torch_chain_kernels import CASES, POINTS
+from test_torch_eval_kernels import EVAL_RTOL, assert_margin
 from treeqp_tpu_torch import convert
 from treeqp_tpu_torch.ops import chain_kernels as ck
 from treeqp_tpu_torch.ops import crown_kernels as ckr
@@ -287,3 +290,57 @@ def test_chain_twins_match_jax_kernels():
         assert_close(a[k], j64(ja[k]), k, INTERPRET_TOL)
     for k in ("xl", "ul"):
         assert_close(a[k], nodes(ja[k]), k, INTERPRET_TOL)
+
+
+# interpret mode on the CPU takes ~3 / ~6 s for crown_eval and ~11 / ~63 s
+# for crown_apply_df at these two crowns, so crown_apply_df runs at the first
+@pytest.mark.parametrize("edge, apply", [((40, 1, 6, 4), True), ((3, 2, 16, 16), False)])
+def test_crown_twins_match_jax_kernels(edge, apply):
+    """The plain twins of crown_eval (f32) and crown_apply_df against the
+    JAX Pallas kernels (interpret mode) on two seeded crowns of
+    chip_smoke.CROWN_EVAL_EDGES that the path cases lack: one node with 40
+    kids, and nz = 32 (two columns a lane of the card's kernels).
+    crown_eval to EVAL_RTOL with the same active sets, crown_apply_df to
+    RTOL."""
+    nx, nu = edge[2:]
+    data, lam, extra, prep = chip_smoke.crown_eval_operands(torch, *edge, 11, "cpu")
+    _, qt, rt, d, _, _ = chip_smoke.crown_apply_operands(torch, *edge, 11, "cpu")
+    Nn = len(prep.par)
+    AB = data["ABt"]
+    qp = SimpleNamespace(A=AB[..., :nx], B=AB[..., nx:], Q=torch.diag_embed(data["Qd"]),
+                         R=torch.diag_embed(data["Rd"]),
+                         **{k: data[k] for k in ("q", "r", "b", "xmin", "xmax", "umin", "umax")})
+    masks = (data["xm"], data["um"], data["nrxm"])
+    jqp = SimpleNamespace(**{k: jnp.asarray(v.numpy()) for k, v in vars(qp).items()})
+    jmasks = [jnp.asarray(m.numpy()) for m in masks]
+    jprep = SimpleNamespace(Nn=Nn, par=np.asarray(prep.par))
+    # crown_eval in f32, as the coarse phase runs it
+    d32 = ckr.crown_eval_data(qp, prep, *masks)
+    lam32, extra32 = lam.float(), extra.float()
+    out = ckr.crown_eval_ref(d32, lam32, extra32, prep)
+    jdata = jckr.crown_eval_data(jqp, jprep, *jmasks)
+    NPc = jdata["ABt"].shape[-1]
+    jextra = np.zeros((nx + nu, NPc), np.float32)
+    jextra[:, :Nn] = extra32.numpy().T
+    jout = jckr.crown_eval(jdata, jnp.asarray(lam32.numpy()), jnp.asarray(jextra))
+    node = lambda v: np.asarray(v)[:, :Nn].T
+    assert_margin(out["xUnc"], node(jout["xUnc"]), d32["xmin"], d32["xmax"], d32["xm"], "x")
+    assert_margin(out["uUnc"], node(jout["uUnc"]), d32["umin"], d32["umax"], d32["um"], "u")
+    for k in ("x", "u", "res"):
+        assert_close(out[k], jout[k], k, EVAL_RTOL)
+    for k in ("xUnc", "uUnc"):
+        assert_close(out[k], node(jout[k]), k, EVAL_RTOL)
+    for k in ("qtilde", "rtilde"):
+        np.testing.assert_array_equal(out[k].numpy(), np.asarray(jout[k]), k)
+    assert_close(out["fcr"].sum().reshape(1), np.asarray(jout["fcr"]).reshape(1), "fcr",
+                 EVAL_RTOL)
+    if not apply:
+        return
+    # crown_apply_df: the f64 masked inverses and extra as double-float lanes
+    jdd = jdek.crown_eval_df_data(jqp, jprep, *jmasks)
+    lanes = lambda v: jdf.from_f64(jnp.asarray(np.pad(v.numpy().T, ((0, 0), (0, NPc - Nn)))))
+    ja = jdek.crown_apply_df(jdd, lanes(qt), lanes(rt), jnp.asarray(d.numpy()), lanes(extra))
+    a = dek.crown_apply_df_ref(data, qt, rt, d, extra, prep)
+    assert float(a["res"].abs().max()) > 1e-3  # a direction that moves things
+    for k in ("xl", "ul", "res"):
+        assert_close(a[k], j64(ja[k]), k)

@@ -17,11 +17,11 @@
 // What bounds it on the card: latency. A launch moves ~0.5 MB at the bench
 // path's 341-node crown (nx = 6, nu = 4), ~0.15 us at the card's memory
 // rate; each phase is a chain of dependent FP64 operations a node (nx
-// products, a kid sum, a fold of nz terms) between two barriers. The
-// one-block kernel it replaces (tq::crown_eval_kernel<double>, which
-// crown_eval.cu still runs in float) took a thread a node on one SM, each
-// thread reading its own 480-byte [A B] block twice, so no warp's loads
-// were coalesced. Design (tq::crown_eval_lanes, tq_eval.cuh):
+// products, a kid sum, a fold of nz terms) between two barriers. It
+// replaced a one-block kernel, a thread a node on one SM, each thread
+// reading its own 480-byte [A B] block twice, so no warp's loads were
+// coalesced. Design (tq::crown_eval_lanes_kernel<double, G>, tq_eval.cuh;
+// crown_eval.cu runs it in float, crown_apply_df.cu its phases A and C):
 // - a group of G = tq::lanes(nz) lanes a node (8 for nz <= 8, 16 beyond;
 //   a template parameter), lane c its column c of phase A, its element c
 //   of phase B and its row c of phase C (c, c + G, ... where nz > G), so
@@ -36,6 +36,8 @@
 // - atb and x, u cross blocks through global memory behind the barrier
 //   (plain loads); each group's first node's loop-invariant operands load
 //   between the barrier's two halves.
+// What holds it back: the three phases' dependent FP64 operations and the
+// two cluster barriers, each with its release's memory fence.
 // Every operation is rounded on its own (__dmul_rn, __dadd_rn, __dsub_rn:
 // no DFMA) in the one-thread body's order, the phase-B fold included, so
 // the outputs and active sets equal the plain twin's, and the old
@@ -43,48 +45,14 @@
 // a dot of at most nz terms, and FP64 mma fuses each product into its sum
 // where the active sets rest on separately rounded bits.
 
-#include "tq_crown.cuh"
 #include "tq_eval.cuh"
-
-namespace {
-
-using tq::CrownData;
-using tq::EvalOut;
-
-template <int G>
-__global__ void __launch_bounds__(tq::kEvalThreads) crown_eval_df_kernel(
-    const CrownData<double> d, const double* __restrict__ lam, const double* __restrict__ extra,
-    double* atb, const EvalOut<double> o, int blocks) {
-  tq::crown_eval_lanes<double, G>(tq::SizedTeam(blocks), d, lam, extra, atb, o);
-}
-
-template <int G>
-int launch(const CrownData<double>& d, const double* lam, const double* extra, double* atb,
-           const EvalOut<double>& o, int blocks, int threads, cudaStream_t st) {
-  static tq::TeamLimits lim;
-  return tq::launch_team(crown_eval_df_kernel<G>, blocks, threads, 0, lim, st, d, lam, extra,
-                         atb, o, blocks);
-}
-
-}  // namespace
 
 // p: CROWN_DATA_KEYS (15, f64), par, kid_ptr, kid_idx, lam, extra, atb
 // (scratch), then x, u, qt, rt, xU, uU, res, f, err (null: not written);
-// all f64. blocks: one cluster of 2 .. 16 blocks, or one block; threads a
-// block (a multiple of 32, at most 1024; both from
+// all f64 but the indices. blocks: one cluster of 2 .. 16 blocks, or one
+// block; threads a block (a multiple of 32, at most 1024; both from
 // crown_kernels._crown_eval_launch).
 extern "C" int tq_crown_eval_df(const void* const* p, int Nn, int nx, int nu, int blocks,
                                 int threads, void* stream) {
-  if (Nn < 1 || nx < 1 || nu < 1 || threads < 32 || threads % 32 ||
-      threads > tq::kEvalThreads)
-    return (int)cudaErrorInvalidValue;
-  tq::PtrCursor c{p};
-  const CrownData<double> d = tq::crown_data<double>(c, Nn, nx, nu);
-  const double* lam = c.in<double>();
-  const double* extra = c.in<double>();
-  double* atb = c.out<double>();
-  const EvalOut<double> o = tq::eval_out<double>(c);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (tq::lanes(nx + nu) == 8) return launch<8>(d, lam, extra, atb, o, blocks, threads, st);
-  return launch<16>(d, lam, extra, atb, o, blocks, threads, st);
+  return tq::launch_crown_eval_lanes<double>(p, Nn, nx, nu, blocks, threads, stream);
 }

@@ -3,9 +3,10 @@
 // crown, templated on the scalar type: float for the coarse phase
 // (chain_eval.cu, crown_eval.cu, newton_iter.cu), double for the
 // high-precision phase (chain_eval_df.cu, crown_eval_df.cu); and the two
-// evaluation kernels' layouts that run them: the chains a thread a node
-// (chain_eval_nodes, chain_eval.cu and chain_eval_df.cu) and the crown a
-// lane group a node (crown_eval_lanes, crown_eval_df.cu).
+// layouts of the evaluation kernels: the chains a thread a node
+// (chain_eval_nodes: chain_eval.cu, chain_eval_df.cu) and the crown a lane
+// group a node (crown_eval_lanes: crown_eval.cu, crown_eval_df.cu; and
+// crown_apply_lanes, the Hessian action's: crown_apply_df.cu).
 //
 // Every product and sum is rounded on its own (__fmul_rn / __fadd_rn /
 // __fsub_rn, __dmul_rn / __dadd_rn / __dsub_rn: no FMA contraction) and
@@ -20,6 +21,7 @@
 
 #include <cuda_runtime.h>
 
+#include "tq_crown.cuh"
 #include "tq_lanes.cuh"
 
 namespace tq {
@@ -318,17 +320,8 @@ __device__ inline void crown_atb(const CrownData<T>& d, const V* __restrict__ v,
   }
 }
 
-// The kid sum of atb column c at node n, in slot order, plus extra[n, c].
-template <typename T>
-__device__ inline T crown_kid_sum(const CrownData<T>& d, const T* __restrict__ atb,
-                                  const T* __restrict__ extra, int n, int c) {
-  const int nz = d.nx + d.nu;
-  T ks = T(0);
-  for (int k = d.kid_ptr[n]; k < d.kid_ptr[n + 1]; ++k) ks = add(ks, atb[(size_t)d.kid_idx[k] * nz + c]);
-  return add(ks, extra[(size_t)n * nz + c]);
-}
-
-// ks[c] = crown_kid_sum of column c0 + c, for the kCols columns at once.
+// ks[c] = the kid sum of atb column c0 + c at node n, in slot order, plus
+// extra[n, c0 + c], for the kCols columns at once.
 template <typename T>
 __device__ __forceinline__ void crown_kid_sums(const CrownData<T>& d, const T* __restrict__ atb,
                                                const T* __restrict__ extra, int n, int c0,
@@ -515,9 +508,16 @@ __host__ inline size_t chain_eval_smem(int chains, int L, int nx, int nu, bool s
   return bytes;
 }
 
+// The launchers keep their kernel's limits (opt-in shared memory, cluster
+// size) in function-local statics. They are static (internal linkage): as
+// inline templates with external linkage those statics would be one
+// process-wide (GNU unique) symbol, shared by two builds of these kernels
+// loaded into one process (a parent comparison), and the second build's
+// kernel would launch without its own opt-in.
 template <typename T, bool kStaged>
-inline int chain_eval_nodes_launch(const ChainData<T>& d, const T* lam, const EvalOut<T>& o,
-                                   T* cqr, int chains, cudaStream_t st) {
+static inline int chain_eval_nodes_launch(const ChainData<T>& d, const T* lam,
+                                          const EvalOut<T>& o, T* cqr, int chains,
+                                          cudaStream_t st) {
   const size_t nodes = (size_t)chains * d.L;
   const size_t bytes = chain_eval_smem<T>(chains, d.L, d.nx, d.nu, kStaged);
   static size_t opted = 48 * 1024;
@@ -547,66 +547,133 @@ inline int launch_chain_eval_nodes(const void* const* p, int S, int L, int nx, i
                 : chain_eval_nodes_launch<T, false>(d, lam, o, cqr, chains, st);
 }
 
-// One block; threads stride over the nodes with a barrier between the
-// phases A, B, C (crown_eval.cu, crown_eval_df.cu).
-template <typename T>
-__global__ void __launch_bounds__(1024) crown_eval_kernel(
-    CrownData<T> d, const T* __restrict__ lam, const T* __restrict__ extra,
-    T* __restrict__ atb, EvalOut<T> o) {
-  for (int n = threadIdx.x; n < d.Nn; n += blockDim.x) crown_atb(d, lam, atb, n);
-  __syncthreads();
-  for (int n = threadIdx.x; n < d.Nn; n += blockDim.x) crown_clip(d, lam, atb, extra, o, n);
-  __syncthreads();
-  for (int n = threadIdx.x; n < d.Nn; n += blockDim.x) crown_res(d, o, n);
-}
-
-// p: CROWN_DATA_KEYS (15), par, kid_ptr, kid_idx, lam, extra, atb (scratch),
-// then x, u, qt, rt, xU, uU, res, f, err.
-template <typename T>
-inline int launch_crown_eval(const void* const* p, int Nn, int nx, int nu, int threads,
-                             void* stream) {
-  PtrCursor c{p};
-  const CrownData<T> d = crown_data<T>(c, Nn, nx, nu);
-  const T* lam = c.in<T>();
-  const T* extra = c.in<T>();
-  T* atb = c.out<T>();
-  const EvalOut<T> o = eval_out<T>(c);
-  crown_eval_kernel<T><<<1, threads, 0, (cudaStream_t)stream>>>(d, lam, extra, atb, o);
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// The crown evaluation a lane group a node (crown_eval_df.cu): the phases
-// of crown_atb, crown_clip and crown_res with a node's columns, elements
-// and rows split over a group of G = lanes(nz) lanes, lane c taking column
-// (element, row) c, c + G, ... Each element meets the same operations in
-// the same order as in those bodies:
-//   A. lane c: atb_n[c] = sum_r [A_n B_n][r, c] lam_n[r], r ascending (col_dots);
+// The crown kernels a lane group a node (crown_eval.cu, crown_eval_df.cu,
+// crown_apply_df.cu): the phases of crown_atb, crown_clip and crown_res
+// with a node's columns, elements and rows split over a group of G =
+// lanes(nz) lanes, lane c taking column (element, row) c, c + G, ... Each
+// element meets the same operations in the same order as in those bodies:
+//   A. lane c: atb_n[c] = sum_r [A_n B_n][r, c] v_n[r], r ascending
+//      (col_dots; crown_atb_lanes);
 //   B. lane c: the kid sum of atb column c in slot order from 0, + extra,
-//      the clip, qt / rt, xU / uU and its term of the dual-value partial;
-//      the group then folds the terms in column order through shuffles, sx
-//      over the x elements and su over the u elements, f = sx + su
-//      (crown_clip's chunks of kCols columns keep the same order);
+//      then the evaluation's clip (crown_eval_lanes) or the Hessian
+//      action's masked products (crown_apply_lanes);
 //   C. lane i < nx: residual row i, the x part then the u part of
-//      [A_n B_n] [x; u]_par(n) in one sum, + b, - x, * nr (row_dots<T,
-//      false>); err, where given, the group's max |row|.
-// A team (tq_crown.cuh's ClusterTeam, BlockTeam or SizedTeam: the launch's
-// grid, one block or one cluster) runs the phases with its barrier between
-// them. Group g of the team (block rank's groups rank GB .. rank GB + GB -
-// 1) takes nodes g, g + NG, ... (NG groups in all) in every phase, and
-// reads their [A B] blocks from global memory (staged in shared memory,
-// they were no faster on the H100: PERF.md). atb (kids to parent) and x, u
-// (parent to kids) cross groups and blocks through global memory behind
-// the team's barrier, read by plain loads (never the read-only path: the
-// same launch writes them). Each phase's loads that do not depend on the
-// other groups' writes are issued between the barrier's two halves for
-// the group's first node.
-constexpr int kEvalThreads = 1024;  // the most threads a block of the lane-group kernel has
+//      [A_n B_n] [x; u]_par(n) in one sum, + b where given, - x, * nr
+//      (row_dots<T, false>); err, where given, the group's max |row|
+//      (crown_res_lanes).
+// A team (tq_crown.cuh's SizedTeam: one block or one cluster) runs the
+// phases with its barrier between them. Group g of the team (block rank's
+// groups rank GB .. rank GB + GB - 1) takes nodes g, g + NG, ... (NG
+// groups in all) in every phase, and reads their [A B] blocks from global
+// memory (staged in shared memory, they were no faster on the H100:
+// PERF.md). atb (kids to parent) and x, u (parent to kids) cross groups
+// and blocks through global memory behind the team's barrier, read by
+// plain loads (never the read-only path: the same launch writes them).
+// Each phase's loads that do not depend on the other groups' writes are
+// issued between the barrier's two halves for the group's first node.
+constexpr int kEvalThreads = 1024;  // the most threads a block of the lane-group kernels has
 
-// A lane's operands of phase B for column c of node n: its kid list, the
-// chains' extra term and, for an x element, q, lam, Qinv, the bounds, the
-// mask, Qd, b and nr; for a u element r, Rinv, the bounds, the mask and Rd
-// in the fields of q, Qi, lo, hi, m and Qd.
+// A thread's place in the team: its lane c of its group g, the team's NG
+// groups, and the shuffle mask of its group's lanes.
+template <int G>
+struct NodeGroup {
+  int lane, g, NG;
+  unsigned mask;
+  template <typename Team>
+  __device__ explicit NodeGroup(const Team& team)
+      : lane((int)threadIdx.x % G),
+        g(team.rank * (int)(blockDim.x / G) + (int)threadIdx.x / G),
+        NG((int)(blockDim.x / G * gridDim.x)),
+        mask(((1u << G) - 1) << (threadIdx.x % 32 / G * G)) {}
+};
+
+// Phase A: atb_n = [A_n B_n]' v_n for the group's nodes, lane c its
+// columns (v widened to T one element at a time, as crown_atb).
+template <typename T, int G, typename V>
+__device__ inline void crown_atb_lanes(const CrownData<T>& d, const NodeGroup<G>& grp,
+                                       const V* __restrict__ v, T* atb) {
+  const int nx = d.nx, nz = nx + d.nu;
+  for (int n = grp.g; n < d.Nn; n += grp.NG) {
+    const T* AB = d.AB + (size_t)n * nx * nz;
+    const V* vn = v + (size_t)n * nx;
+    for (int c = grp.lane; c < nz; c += G) {
+      T acc = T(0);
+      for (int r = 0; r < nx; ++r) acc = add(acc, mul(AB[(size_t)r * nz + c], T(vn[r])));
+      atb[(size_t)n * nz + c] = acc;
+    }
+  }
+}
+
+// The kid sum of atb column c at node n (kids k0 .. k1 - 1 of kid_idx), in
+// slot order from 0, plus the node's extra term.
+template <typename T>
+__device__ __forceinline__ T kid_sum_lane(const CrownData<T>& d, const T* atb, int k0, int k1,
+                                          T extra, int c) {
+  const int nz = d.nx + d.nu;
+  T ks = T(0);
+  for (int k = k0; k < k1; ++k) ks = add(ks, atb[(size_t)d.kid_idx[k] * nz + c]);
+  return add(ks, extra);
+}
+
+// A lane's operands of phase C for row i of node n: the parent, b (0 where
+// b is null), nr and x_n[i] (written by this lane in phase B).
+template <typename T>
+struct ResIn {
+  int p;
+  T b, nr, x;
+};
+
+template <typename T>
+__device__ __forceinline__ ResIn<T> res_in(const CrownData<T>& d, const T* x, const T* b, int n,
+                                           int i) {
+  ResIn<T> in{0, T(0), T(0), T(0)};
+  if (n < d.Nn && i < d.nx) {
+    const size_t e = (size_t)n * d.nx + i;
+    in.p = d.par[n];
+    in.nr = d.nr[e];
+    in.x = x[e];
+    if (b) in.b = b[e];
+  }
+  return in;
+}
+
+// Phase C: res_n = ([A_n B_n] [x; u]_par(n) (+ b_n) - x_n) * nonroot for
+// the group's nodes, lane i row i (nx <= G), and err[n] = max |res_n|
+// where err is given; ``in`` holds the group's first node's operands
+// (res_in), loaded across the barrier.
+template <typename T, int G>
+__device__ inline void crown_res_lanes(const CrownData<T>& d, const NodeGroup<G>& grp,
+                                       const T* x, const T* u, const T* b, T* res, T* err,
+                                       ResIn<T> in) {
+  const int nx = d.nx, nu = d.nu, nz = nx + nu, lane = grp.lane;
+  for (int n = grp.g; n < d.Nn; n += grp.NG) {
+    T emax = T(0);
+    if (lane < nx) {
+      if (n != grp.g) in = res_in(d, x, b, n, lane);
+      const T* AB = d.AB + ((size_t)n * nx + lane) * nz;
+      const T* xp = x + (size_t)in.p * nx;
+      const T* up = u + (size_t)in.p * nu;
+      T acc = T(0);
+      for (int c = 0; c < nx; ++c) acc = add(acc, mul(AB[c], xp[c]));
+      for (int c = 0; c < nu; ++c) acc = add(acc, mul(AB[nx + c], up[c]));
+      const T a = b ? add(acc, in.b) : acc;
+      const T rr = mul(sub(a, in.x), in.nr);
+      res[(size_t)n * nx + lane] = rr;
+      emax = absmax(emax, rr);
+    }
+    if (err) {
+      for (int off = G / 2; off > 0; off /= 2)
+        emax = maxof(emax, __shfl_xor_sync(grp.mask, emax, off, G));
+      if (lane == 0) err[n] = emax;
+    }
+  }
+}
+
+// A lane's operands of the evaluation's phase B for column c of node n:
+// its kid list, the chains' extra term and, for an x element, q, lam,
+// Qinv, the bounds, the mask, Qd, b and nr; for a u element r, Rinv, the
+// bounds, the mask and Rd in the fields of q, Qi, lo, hi, m and Qd.
 template <typename T>
 struct ClipIn {
   T extra, q, lam, Qi, lo, hi, m, Qd, b, nr;
@@ -634,27 +701,21 @@ __device__ __forceinline__ ClipIn<T> clip_in(const CrownData<T>& d, const T* __r
   return in;
 }
 
+// The crown evaluation (crown_eval.cu in float, crown_eval_df.cu in
+// double) at the dual point lam: phase A of lam; phase B lane c's clip,
+// qt / rt, xU / uU and its term of the dual-value partial, the group then
+// folding the terms in column order through shuffles, sx over the x
+// elements and su over the u elements, f = sx + su (crown_clip's chunks of
+// kCols columns keep the same order); phase C with b.
 template <typename T, int G, typename Team>
 __device__ inline void crown_eval_lanes(const Team& team, const CrownData<T>& d,
                                         const T* __restrict__ lam, const T* __restrict__ extra,
                                         T* atb, const EvalOut<T>& o) {
   const int nx = d.nx, nu = d.nu, nz = nx + nu, Nn = d.Nn;
-  const int lane = threadIdx.x % G;
-  const unsigned mask = ((1u << G) - 1) << (threadIdx.x % 32 / G * G);
-  const int GB = blockDim.x / G, NG = GB * gridDim.x;
-  const int g = team.rank * GB + (int)threadIdx.x / G;
-  const size_t blk = (size_t)nx * nz;
+  const NodeGroup<G> grp(team);
+  const int lane = grp.lane, g = grp.g;
 
-  // A. atb_n = [A_n B_n]' lam_n, lane c its columns
-  for (int n = g; n < Nn; n += NG) {
-    const T* AB = d.AB + (size_t)n * blk;
-    const T* ln = lam + (size_t)n * nx;
-    for (int c = lane; c < nz; c += G) {
-      T acc = T(0);
-      for (int r = 0; r < nx; ++r) acc = add(acc, mul(AB[(size_t)r * nz + c], ln[r]));
-      atb[(size_t)n * nz + c] = acc;
-    }
-  }
+  crown_atb_lanes(d, grp, lam, atb);
   team.arrive();
   ClipIn<T> in{};  // the first node's first columns' operands load across the barrier
   if (g < Nn) in = clip_in(d, lam, extra, g, lane);
@@ -663,16 +724,14 @@ __device__ inline void crown_eval_lanes(const Team& team, const CrownData<T>& d,
   // B. the kid sums, the clips and the dual-value partials, lane c its
   // elements; the terms folded in column order
   const T half = T(0.5);
-  for (int n = g; n < Nn; n += NG) {
+  for (int n = g; n < Nn; n += grp.NG) {
     T sx = T(0), su = T(0);
     for (int c0 = 0; c0 < nz; c0 += G) {
       const int c = c0 + lane;
       if (n != g || c0 != 0) in = clip_in(d, lam, extra, n, c);
       T term = T(0);
       if (c < nz) {
-        T ks = T(0);
-        for (int k = in.k0; k < in.k1; ++k) ks = add(ks, atb[(size_t)d.kid_idx[k] * nz + c]);
-        ks = add(ks, in.extra);
+        const T ks = kid_sum_lane(d, atb, in.k0, in.k1, in.extra, c);
         if (c < nx) {
           const size_t e = (size_t)n * nx + c;
           const T qm = mul(sub(add(-in.q, in.lam), ks), in.m);
@@ -694,7 +753,7 @@ __device__ inline void crown_eval_lanes(const Team& team, const CrownData<T>& d,
         }
       }
       for (int k = 0; k < G && c0 + k < nz; ++k) {
-        const T t = __shfl_sync(mask, term, k, G);
+        const T t = __shfl_sync(grp.mask, term, k, G);
         if (c0 + k < nx)
           sx = add(sx, t);
         else
@@ -704,45 +763,121 @@ __device__ inline void crown_eval_lanes(const Team& team, const CrownData<T>& d,
     if (lane == 0) o.f[n] = add(sx, su);
   }
   team.arrive();
-  // the first node's loop-invariant operands of phase C
-  int p = 0;
-  T bi = T(0), nri = T(0), xi = T(0);
-  if (g < Nn && lane < nx) {
-    const size_t e = (size_t)g * nx + lane;
-    p = d.par[g];
-    bi = d.b[e];
-    nri = d.nr[e];
-    xi = o.x[e];
-  }
+  const ResIn<T> rin = res_in(d, o.x, d.b, g, lane);
   team.wait();
 
-  // C. the residual rows, lane i row i
-  for (int n = g; n < Nn; n += NG) {
-    T emax = T(0);
-    if (lane < nx) {
-      const size_t e = (size_t)n * nx + lane;
-      if (n != g) {
-        p = d.par[n];
-        bi = d.b[e];
-        nri = d.nr[e];
-        xi = o.x[e];
+  crown_res_lanes(d, grp, o.x, o.u, d.b, o.res, o.err, rin);
+}
+
+// A lane's operands of the Hessian action's phase B for column c of node
+// n: its kid list, the extra term and, for an x element, qtilde, the
+// direction d (widened to double) and xm; for a u element rtilde and um
+// in the fields of t and m (dv 0).
+struct ApplyIn {
+  double extra, t, dv, m;
+  int k0, k1;
+};
+
+__device__ __forceinline__ ApplyIn apply_in(const CrownData<double>& cd,
+                                            const double* __restrict__ qt,
+                                            const double* __restrict__ rt,
+                                            const float* __restrict__ dv,
+                                            const double* __restrict__ extra, int n, int c) {
+  const int nx = cd.nx, nu = cd.nu, nz = nx + nu;
+  ApplyIn in;
+  in.k0 = cd.kid_ptr[n];
+  in.k1 = cd.kid_ptr[n + 1];
+  in.extra = in.t = in.dv = in.m = 0.0;
+  if (c < nx) {
+    const size_t e = (size_t)n * nx + c;
+    in.t = qt[e]; in.dv = (double)dv[e]; in.m = cd.xm[e];
+  } else if (c < nz) {
+    const size_t e = (size_t)n * nu + (c - nx);
+    in.t = rt[e]; in.m = cd.um[e];
+  }
+  if (c < nz) in.extra = extra[(size_t)n * nz + c];
+  return in;
+}
+
+// The crown half of the high-precision phase's Hessian action
+// (crown_apply_df.cu) on the f32 direction dv, with the masked inverses
+// qt / rt: phase A of dv; phase B lane c's
+//   xl = (qtilde (dv - s_A)) xm,  ul = (rtilde (-s_B)) um
+// (s the kid sum plus extra; each operation rounded on its own, in the
+// one-thread kernel's order); phase C without b or err.
+template <int G, typename Team>
+__device__ inline void crown_apply_lanes(const Team& team, const CrownData<double>& cd,
+                                         const double* __restrict__ qt,
+                                         const double* __restrict__ rt,
+                                         const float* __restrict__ dv,
+                                         const double* __restrict__ extra, double* atb,
+                                         double* xl, double* ul, double* res) {
+  const int nx = cd.nx, nu = cd.nu, nz = nx + nu, Nn = cd.Nn;
+  const NodeGroup<G> grp(team);
+  const int lane = grp.lane, g = grp.g;
+
+  crown_atb_lanes(cd, grp, dv, atb);
+  team.arrive();
+  ApplyIn in{};  // the first node's first columns' operands load across the barrier
+  if (g < Nn) in = apply_in(cd, qt, rt, dv, extra, g, lane);
+  team.wait();
+
+  // B. the kid sums and the masked products, lane c its elements
+  for (int n = g; n < Nn; n += grp.NG) {
+    for (int c0 = 0; c0 < nz; c0 += G) {
+      const int c = c0 + lane;
+      if (n != g || c0 != 0) in = apply_in(cd, qt, rt, dv, extra, n, c);
+      if (c < nz) {
+        const double s = kid_sum_lane(cd, atb, in.k0, in.k1, in.extra, c);
+        if (c < nx)
+          xl[(size_t)n * nx + c] = mul(mul(in.t, sub(in.dv, s)), in.m);
+        else
+          ul[(size_t)n * nu + (c - nx)] = mul(mul(in.t, -s), in.m);
       }
-      const T* AB = d.AB + (size_t)n * blk + (size_t)lane * nz;
-      const T* xp = o.x + (size_t)p * nx;
-      const T* up = o.u + (size_t)p * nu;
-      T acc = T(0);
-      for (int c = 0; c < nx; ++c) acc = add(acc, mul(AB[c], xp[c]));
-      for (int c = 0; c < nu; ++c) acc = add(acc, mul(AB[nx + c], up[c]));
-      const T rr = mul(sub(add(acc, bi), xi), nri);
-      o.res[e] = rr;
-      emax = absmax(emax, rr);
-    }
-    if (o.err) {
-      for (int off = G / 2; off > 0; off /= 2)
-        emax = maxof(emax, __shfl_xor_sync(mask, emax, off, G));
-      if (lane == 0) o.err[n] = emax;
     }
   }
+  team.arrive();
+  const ResIn<double> rin = res_in<double>(cd, xl, nullptr, g, lane);
+  team.wait();
+
+  crown_res_lanes<double, G>(cd, grp, xl, ul, nullptr, res, nullptr, rin);
+}
+
+// The lane-group evaluation kernel of crown_eval.cu (float) and
+// crown_eval_df.cu (double), its team one cluster of ``blocks`` blocks or
+// one block (SizedTeam).
+template <typename T, int G>
+__global__ void __launch_bounds__(kEvalThreads) crown_eval_lanes_kernel(
+    const CrownData<T> d, const T* __restrict__ lam, const T* __restrict__ extra, T* atb,
+    const EvalOut<T> o, int blocks) {
+  crown_eval_lanes<T, G>(SizedTeam(blocks), d, lam, extra, atb, o);
+}
+
+// p: CROWN_DATA_KEYS (15), par, kid_ptr, kid_idx, lam, extra, atb
+// (scratch), then x, u, qt, rt, xU, uU, res, f, err (null: not written);
+// all T but the indices. blocks: one cluster of 2 .. 16 blocks, or one
+// block; threads a block (a multiple of 32, at most kEvalThreads; both
+// from crown_kernels._crown_eval_launch).
+template <typename T>
+static inline int launch_crown_eval_lanes(const void* const* p, int Nn, int nx, int nu,
+                                          int blocks, int threads, void* stream) {
+  if (Nn < 1 || nx < 1 || nu < 1 || threads < 32 || threads % 32 || threads > kEvalThreads)
+    return (int)cudaErrorInvalidValue;
+  PtrCursor c{p};
+  const CrownData<T> d = crown_data<T>(c, Nn, nx, nu);
+  const T* lam = c.in<T>();
+  const T* extra = c.in<T>();
+  T* atb = c.out<T>();
+  const EvalOut<T> o = eval_out<T>(c);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (lanes(nx + nu) == 8) {
+    static TeamLimits lim;
+    return launch_team(crown_eval_lanes_kernel<T, 8>, blocks, threads, 0, lim, st, d, lam, extra,
+                       atb, o, blocks);
+  }
+  static TeamLimits lim;
+  return launch_team(crown_eval_lanes_kernel<T, 16>, blocks, threads, 0, lim, st, d, lam, extra,
+                     atb, o, blocks);
 }
 
 }  // namespace tq

@@ -45,8 +45,8 @@ _SIGNATURES = {
     "tq_chain_blocks_factor_lanes": [_P] * 9 + [_I] * 4 + [_P],
     # pointers, S, L, nx, nu, chains, staged, stream
     "tq_chain_eval": [_P] + [_I] * 6 + [_P],
-    # pointers, Nn, nx, nu, threads, stream
-    "tq_crown_eval": [_P] + [_I] * 4 + [_P],
+    # pointers, Nn, nx, nu, blocks, threads, stream
+    "tq_crown_eval": [_P] + [_I] * 5 + [_P],
     # pointers, dims, stream
     "tq_newton_iter": [_P] * 3,
     # ABk, ztp, dvals, sW, sUt, Wadd, lev_ptr, lev_child, lev_parent,
@@ -63,8 +63,8 @@ _SIGNATURES = {
     "tq_crown_eval_df": [_P] + [_I] * 5 + [_P],
     # ABt, qt, rt, d, xl, ul, res, cqr, S, L, nx, nu, chains, staged, stream
     "tq_chain_apply_df": [_P] * 8 + [_I] * 6 + [_P],
-    # pointers, Nn, nx, nu, threads, stream
-    "tq_crown_apply_df": [_P] + [_I] * 4 + [_P],
+    # pointers, Nn, nx, nu, blocks, threads, stream
+    "tq_crown_apply_df": [_P] + [_I] * 5 + [_P],
     # x, n, m, out, stream
     "tq_df_reduce": [_P, _L, _L, _P, _P],
     # the tree Cholesky of the generic-tree solver

@@ -11,10 +11,11 @@ like the Pallas kernels. The level schedule is a list of (child group,
 parent group, slot) triples per level instead of the TPU kernel's one-hot
 lane-permutation matrices, and the evaluation's kid sum and parent gather
 read the kid lists and parents (``eval_sched``) instead of a one-hot
-[NPc, NPc] parent matrix, so the crown has no node cap. A schedule may
-cover only the shallow levels of a tree (the crown of the generic solver's
-split path); its kernels then take the crown's groups only, the group
-prefix those levels and the root form.
+[NPc, NPc] parent matrix, so the crown has no node cap; the evaluation runs
+a lane group a crown node on one cluster (``_crown_eval_launch``). A
+schedule may cover only the shallow levels of a tree (the crown of the
+generic solver's split path); its kernels then take the crown's groups
+only, the group prefix those levels and the root form.
 
 Factors are group-major: CholW [NpG, G, G], CholUt [NpG, nxm, G] (the JAX
 kernel's are lane-major [G, G, NPg]); evaluation data and results are
@@ -159,19 +160,20 @@ def _solve_launch(sched) -> tuple[int, int]:
     return _CLUSTER, min(_SOLVE_WARPS, -(-sched.width // _CLUSTER))
 
 
-# crown_eval_df's launch (tq_eval.cuh's crown_eval_lanes): a group of
-# tq::lanes(nz) lanes a node, at most _EVAL_THREADS threads a block, on one
-# cluster of _EVAL_CLUSTER blocks
+# the lane-group crown kernels' launch (crown_eval, crown_eval_df,
+# crown_apply_df: tq_eval.cuh's crown_eval_lanes, crown_apply_lanes): a
+# group of tq::lanes(nz) lanes a node, at most _EVAL_THREADS threads a
+# block, on one cluster of _EVAL_CLUSTER blocks
 _EVAL_THREADS = 1024
 _EVAL_CLUSTER = 16
 
 
 def _crown_eval_launch(Nn, nx, nu, blocks=_EVAL_CLUSTER):
-    """(blocks, groups a block, threads a block) of ``crown_eval_df`` on a
-    crown of Nn nodes: ``blocks`` is the team, one cluster or one block; a
-    block takes the groups that cover the crown in one round where
-    _EVAL_THREADS allow (group g of the team takes nodes g, g + groups *
-    blocks, ...)."""
+    """(blocks, groups a block, threads a block) of the lane-group crown
+    kernels on a crown of Nn nodes: ``blocks`` is the team, one cluster or
+    one block; a block takes the groups that cover the crown in one round
+    where _EVAL_THREADS allow (group g of the team takes nodes g, g +
+    groups * blocks, ...)."""
     G = 8 if nx + nu <= 8 else 16  # tq::lanes(nz)
     per_block = -(-Nn // blocks)  # the groups a block takes in one round
     threads = min(_EVAL_THREADS, -(-per_block * G // 32) * 32)
@@ -457,10 +459,10 @@ def crown_eval(data, lam, extra, prep):
 crown_eval.launches = 0
 
 
-def eval_launch(name, entry, data, lam, extra, prep, dtype, launch=None):
+def eval_launch(name, entry, data, lam, extra, prep, dtype):
     """Check the operands of a crown evaluation kernel of ``dtype`` (f32
-    ``crown_eval``, one block of ``block_threads``, or f64 ``crown_eval_df``
-    with the ints ``launch``: blocks, threads from ``_crown_eval_launch``) and launch it; returns its outputs (see
+    ``crown_eval`` or f64 ``crown_eval_df``) and launch it on
+    ``_crown_eval_launch``'s team; returns its outputs (see
     ``crown_eval``)."""
     Nn, nx, nz = data["ABt"].shape
     nu = nz - nx
@@ -482,8 +484,8 @@ def eval_launch(name, entry, data, lam, extra, prep, dtype, launch=None):
         + [t["par"], t["kid_ptr"], t["kid_idx"], lam, extra, atb]
         + [out[k] for k in ("x", "u", "qtilde", "rtilde", "xUnc", "uUnc", "res", "fcr")]
         + [None])
-    err = getattr(_build.lib(), entry)(ptrs, Nn, nx, nu, *(launch or (block_threads(Nn),)),
-                                       _build.stream(dev))
+    blocks, _, threads = _crown_eval_launch(Nn, nx, nu)
+    err = getattr(_build.lib(), entry)(ptrs, Nn, nx, nu, blocks, threads, _build.stream(dev))
     _build.check(err, name)
     return out
 
@@ -496,9 +498,3 @@ def check_data(name, data, prep, dev, dtype):
         _build.require(name, k, data[k], shape, dev, dtype)
     if not (0 < nx <= 16 and nz > nx and Nn == len(prep.par)):
         raise ValueError(f"{name}: unsupported shape {tuple(data['ABt'].shape)}")
-
-
-def block_threads(Nn: int) -> int:
-    """Threads of the one-block crown kernels: one per node up to 1024."""
-    return min(1024, max(32, -(-Nn // 32) * 32))
-

@@ -22,7 +22,8 @@ CPU tensors:
 * ``chain_apply_df`` / ``crown_apply_df`` (``csrc/chain_apply_df.cu``,
   ``csrc/crown_apply_df.cu``) — the two halves of the dual-Hessian action
   M d for iterative refinement, with the direction ``d`` in f32; the chain
-  half a thread a chain node, as ``chain_eval_df``.
+  half a thread a chain node, as ``chain_eval_df``, the crown half a lane
+  group a node, as ``crown_eval_df``.
 
 Every product and sum is rounded on its own in the twins' order (no FMA
 contraction), so a kernel reproduces its twin bit for bit on the card.
@@ -171,10 +172,8 @@ def crown_eval_df(data, lam, extra, prep):
     """
     if lam.device.type == "cpu":
         return crown_eval_df_ref(data, lam, extra, prep)
-    Nn, nx, nz = data["ABt"].shape
-    blocks, _, threads = ckr._crown_eval_launch(Nn, nx, nz - nx)
     out = ckr.eval_launch("crown_eval_df", "tq_crown_eval_df", data, lam, extra,
-                          prep, f64, (blocks, threads))
+                          prep, f64)
     crown_eval_df.launches += 1
     return out
 
@@ -229,8 +228,8 @@ def crown_apply_df(data, qtilde, rtilde, d, extra, prep):
         [data[k] for k in ckr.CROWN_DATA_KEYS]
         + [t["par"], t["kid_ptr"], t["kid_idx"], qtilde, rtilde, d, extra, atb]
         + [out[k] for k in ("xl", "ul", "res")])
-    err = _build.lib().tq_crown_apply_df(ptrs, Nn, nx, nu, ckr.block_threads(Nn),
-                                         _build.stream(dev))
+    blocks, _, threads = ckr._crown_eval_launch(Nn, nx, nu)
+    err = _build.lib().tq_crown_apply_df(ptrs, Nn, nx, nu, blocks, threads, _build.stream(dev))
     _build.check(err, name)
     crown_apply_df.launches += 1
     return out
