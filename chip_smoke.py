@@ -175,13 +175,18 @@ Phases (any failure exits non-zero):
    against the serial kernels (2e-4 relative) at the three shapes of
    scripts/prof_torch_chain_cr.py (S=256, L=16, n=8 from that script's
    seed; the pruned tree's chain factors of section 5; sdunes' of section
-   8, S=256, L=20, n=8) and at S=4, L=130, n=16 (buffers beyond shared
-   memory), with the serial sweeps timed at each as in section 2
-   (kernel, plain twin, bound, library call, and in a CUDA graph), timed at the pruned
-   tree's shape beside the library call (batched
-   ``torch.linalg.solve_triangular`` on each chain's factor as one matrix,
-   also timed beside chain_solve_bwd and chain_forward), then that
-   script's loop of CR and serial pairs as their path;
+   8, S=256, L=20, n=8) and at S=4, L=130, n=16 (a chain of three rounds
+   of lane groups, in shared memory), with the serial sweeps timed at each
+   as in section 2 (kernel, plain twin, bound, library call, and in a CUDA
+   graph); both CR sweeps also held to their twins and the CR pair to the
+   serial kernels at ``CR_EDGES`` (seeded by ``cr_operands``; S=2, L=240,
+   n=16 the global-scratch path), every shape's launch (threads, shared
+   memory) held to ``chain_cr.sweep_launch``; the three timed at the
+   pruned tree's shape, the two sweeps also in a CUDA graph, beside the
+   library call (batched ``torch.linalg.solve_triangular`` on each
+   chain's factor as one matrix, also timed beside chain_solve_bwd and
+   chain_forward), then that script's loop of CR and serial pairs as their
+   path;
 10. the MPC re-embedding path (slice 8) on section 5's pruned tree at
    ``models.GENERIC_SPEED_OPTS``, along the closed loop of
    ``benchmarks/closed_loop.py`` (``closed_loop_mpc`` with tdunes, warm
@@ -219,8 +224,9 @@ MPC path launches the five generic kernels and no other. Prints the JSON
 summary of all 28 kernels (rows chain_factor, chain_solve_bwd,
 chain_forward, crown_factor, crown_solve, crown_blocks_factor,
 df_reduce_flat, chain_blocks_factor, chain_blocks_factor_lanes,
-system_solve and jay_cr_solve also with ``graph_ms`` and
-``library_graph_ms``: kernel and library call in a CUDA graph;
+system_solve, jay_cr_solve, chain_solve_bwd_cr and chain_forward_cr also
+with ``graph_ms`` and ``library_graph_ms``: kernel and library call in a
+CUDA graph; chain_cr_precompute,
 admm_identify, chain_full_solve_mat, the five Riccati kernels, chain_eval,
 chain_eval_df, chain_apply_df and crown_eval_df with ``graph_ms``), then the
 device JSON as the last line.
@@ -397,6 +403,13 @@ JAY_BACKWARD = 1e-5
 CR_PAIR_RTOL = 2e-4
 CR_SEED = 8
 CR_LOOP = 4
+# the CR sweeps' kernel edges (S, L, n), seeded by cr_operands: one node;
+# two nodes of one row; an odd n, whose chains start off 16 bytes (4-byte
+# copies), and L no power of two; 16 lanes a node and L no power of two;
+# a chain past the 227 KB of shared memory one block may take (the global
+# scratch). Held to the twins (SOLVE_RTOL) and the serial kernels
+# (CR_PAIR_RTOL)
+CR_EDGES = ((3, 1, 6), (5, 2, 1), (5, 17, 5), (3, 33, 16), (2, 240, 16))
 # the MPC re-embedding path (slice 8) on the pruned headline tree: warm
 # requests follow the closed loop (the plant driven by each solution's first
 # control); x[1:] and u within MPC_GAP of the solve without the elimination
@@ -573,6 +586,22 @@ def block_operands(torch, S, L, nx, nz, seed, dev):
     s_root = torch.tensor(rng.uniform(0.5, 2.0, (S, nx)), **f32)
     ztp = torch.cat([root[:, None], torch.cat([qt, rt], dim=-1)[:, :-1]], dim=1).contiguous()
     return (ABt, ztp, qt, s_root), (ABt, qt, rt, root, s_root)
+
+
+def cr_operands(torch, S, L, n, seed, dev):
+    """Seeded chain factors and right-hand sides of the CR sweeps, (Ls,
+    CUs, res, droot): the blocks W = A A' + 3 I, Ut = 0.3 N of
+    tests/test_torch_chain_cr.py, factored by chain_factor's twin."""
+    import numpy as np
+    from treeqp_tpu_torch.ops import chain_kernels as ck
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    A = rng.standard_normal((S, L, n, n))
+    Wc = torch.tensor(A @ A.transpose(0, 1, 3, 2) + 3.0 * np.eye(n), **f32)
+    Utc = torch.tensor(0.3 * rng.standard_normal((S, L, n, n)), **f32)
+    Ls, CUs, _ = ck.chain_factor_ref(Wc, Utc)
+    return (Ls, CUs, torch.tensor(rng.standard_normal((S, L, n)), **f32),
+            torch.tensor(rng.standard_normal((S, n)), **f32))
 
 
 def admm_operands(torch, N, ng, nz, dtype, seed, dev):
@@ -3317,6 +3346,42 @@ def main():
               f"{c['pair']:.3e} (max |dl| "
               f"{float(ref[2].abs().max()):.3e}) on {card}")
 
+    # the sweeps at their kernel edges: against their twins, the CR pair
+    # against the serial kernels; and the launch of every shape here
+    # (threads, shared memory) against ops/chain_cr.py's sweep_launch, which
+    # sizes the scratch
+    edge_err = dict(bwd=0.0, fwd=0.0, pair=0.0)
+    for k, (S_, L_, n_) in enumerate(CR_EDGES):
+        Ls_, CUs_, res_, dr_ = cr_operands(torch, S_, L_, n_, CR_SEED + k, dev)
+        what = f"S={S_} L={L_} n={n_}"
+        Ab, Bf = ccr.chain_cr_precompute(Ls_, CUs_)
+        ys_r, radd_r = ccr.chain_solve_bwd_cr_ref(Ls_, CUs_, Ab, res_)
+        ys_c, radd_c = ccr.chain_solve_bwd_cr(Ls_, CUs_, Ab, res_)
+        d_c = ccr.chain_forward_cr(Ls_, CUs_, Bf, ys_c, dr_)
+        e_b = compare(torch, f"chain_solve_bwd_cr ({what})", [ys_c, radd_c], [ys_r, radd_r],
+                      SOLVE_RTOL)
+        e_f = compare(torch, f"chain_forward_cr ({what})",
+                      [ccr.chain_forward_cr(Ls_, CUs_, Bf, ys_r, dr_)],
+                      [ccr.chain_forward_cr_ref(Ls_, CUs_, Bf, ys_r, dr_)], SOLVE_RTOL)
+        ys_s, radd_s = ck.chain_solve_bwd(Ls_, CUs_, res_)
+        d_s = ck.chain_forward(Ls_, CUs_, ys_s, dr_)
+        torch.cuda.synchronize()
+        e_p = compare(torch, f"CR pair vs serial kernels ({what})", [ys_c, radd_c, d_c],
+                      [ys_s, radd_s, d_s], CR_PAIR_RTOL)
+        for key, e in (("bwd", e_b), ("fwd", e_f), ("pair", e_p)):
+            edge_err[key] = max(edge_err[key], e)
+        print(f"CR sweeps ({what}, {ccr.sweep_launch(L_, n_)}): |diff| to the twins {e_b:.3e} / "
+              f"{e_f:.3e}, CR pair vs serial kernels {e_p:.3e}")
+    for L_, n_ in sorted({(L_, n_) for _, L_, n_ in CR_EDGES}
+                         | {tuple(v[0].shape[1:3]) for v in cr_in.values()}):
+        threads, smem, scratch = ccr.sweep_launch(L_, n_)
+        got = _build.int_array((0, 0))
+        _build.lib().tq_chain_cr_sweep_launch(L_, n_, got)
+        if got[0] != threads or (got[1] != smem if smem else got[1] <= 227 * 1024):
+            fail(f"CR sweeps (L={L_}, n={n_}): the kernel launches {got[0]} threads with "
+                 f"{got[1]} B of shared memory, sweep_launch says {threads}, {smem} B, "
+                 f"scratch {scratch}")
+
     # the JSON rows at the pruned tree's shape (rows 2 and 3's), the other
     # shapes in their descriptions
     Ls_, CUs_, res_, dr_ = cr_in["pruned"]
@@ -3327,22 +3392,30 @@ def main():
     others = lambda part: "; ".join(
         f"{tag} {cr_rows[tag]['ms'][part]:.4f} ms (|diff| {cr_rows[tag][part]:.3e}, CR pair vs "
         f"serial {cr_rows[tag]['pair']:.3e})" for tag in ("random", "sdunes", "long"))
-    record("chain_cr_precompute", "chain_cr.cu", "treeqp_tpu/ops/chain_cr.py:68",
-           max(r["pre"] for r in cr_rows.values()), lambda: ccr.chain_cr_precompute(Ls_, CUs_),
-           lambda: ccr.chain_cr_precompute_ref(Ls_, CUs_),
-           f"Ls {tuple(Ls_.shape)}; {others('pre')}", (Ls_, CUs_), S_ * cr_ops(L_, n_, "pre"))
-    record("chain_solve_bwd_cr", "chain_cr.cu", "treeqp_tpu/ops/chain_cr.py:132",
-           max(r["bwd"] for r in cr_rows.values()),
-           lambda: ccr.chain_solve_bwd_cr(Ls_, CUs_, Ab, res_),
-           lambda: ccr.chain_solve_bwd_cr_ref(Ls_, CUs_, Ab, res_),
-           f"res {tuple(res_.shape)}; {others('bwd')}; the library call |diff| {lib_err:.3e}",
-           (Ls_, Ab, res_, CUs_[:, 0]), S_ * cr_ops(L_, n_, "sweep"), lib_fn=lib_bwd)
-    record("chain_forward_cr", "chain_cr.cu", "treeqp_tpu/ops/chain_cr.py:168",
-           max(r["fwd"] for r in cr_rows.values()),
-           lambda: ccr.chain_forward_cr(Ls_, CUs_, Bf, ys_p, dr_),
-           lambda: ccr.chain_forward_cr_ref(Ls_, CUs_, Bf, ys_p, dr_),
-           f"ys {tuple(ys_p.shape)}; {others('fwd')}", (Ls_, Bf, ys_p, dr_),
-           S_ * cr_ops(L_, n_, "sweep"), lib_fn=lib_fwd)
+    record_graph("chain_cr_precompute", "chain_cr.cu", "treeqp_tpu/ops/chain_cr.py:68",
+                 max(r["pre"] for r in cr_rows.values()),
+                 lambda: ccr.chain_cr_precompute(Ls_, CUs_),
+                 lambda: ccr.chain_cr_precompute_ref(Ls_, CUs_),
+                 f"Ls {tuple(Ls_.shape)}; {others('pre')}", (Ls_, CUs_),
+                 S_ * cr_ops(L_, n_, "pre"))
+    edges = lambda part: (f"CR_EDGES |diff| {edge_err[part]:.3e} (CR pair vs serial "
+                          f"{edge_err['pair']:.3e})")
+    lib_note = "batched solve_triangular on each chain's [L n]^2 factor"
+    record_graph("chain_solve_bwd_cr", "chain_cr.cu", "treeqp_tpu/ops/chain_cr.py:132",
+                 max([r["bwd"] for r in cr_rows.values()] + [edge_err["bwd"]]),
+                 lambda: ccr.chain_solve_bwd_cr(Ls_, CUs_, Ab, res_),
+                 lambda: ccr.chain_solve_bwd_cr_ref(Ls_, CUs_, Ab, res_),
+                 f"res {tuple(res_.shape)}; {others('bwd')}; {edges('bwd')}; the library call "
+                 f"|diff| {lib_err:.3e}",
+                 (Ls_, Ab, res_, CUs_[:, 0]), S_ * cr_ops(L_, n_, "sweep"), lib_fn=lib_bwd,
+                 lib_note=lib_note)
+    record_graph("chain_forward_cr", "chain_cr.cu", "treeqp_tpu/ops/chain_cr.py:168",
+                 max([r["fwd"] for r in cr_rows.values()] + [edge_err["fwd"]]),
+                 lambda: ccr.chain_forward_cr(Ls_, CUs_, Bf, ys_p, dr_),
+                 lambda: ccr.chain_forward_cr_ref(Ls_, CUs_, Bf, ys_p, dr_),
+                 f"ys {tuple(ys_p.shape)}; {others('fwd')}; {edges('fwd')}",
+                 (Ls_, Bf, ys_p, dr_), S_ * cr_ops(L_, n_, "sweep"), lib_fn=lib_fwd,
+                 lib_note=lib_note)
     for r in results[-3:]:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library call "

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """The serial chain kernels (``chain_factor``, ``csrc/chain_factor.cu``;
 the sweeps ``chain_solve_bwd`` and ``chain_forward``,
-``csrc/chain_sweeps.cu``) and ``df_reduce_flat`` (``csrc/df_reduce.cu``)
-against other checkouts', on one card.
+``csrc/chain_sweeps.cu``), the cyclic-reduction sweeps
+(``chain_solve_bwd_cr`` and ``chain_forward_cr``, ``csrc/chain_cr.cu``)
+and ``df_reduce_flat`` (``csrc/df_reduce.cu``) against other checkouts',
+on one card.
 
     python3 scripts/prof_torch_chain_sweeps.py --parent DIR [--parent DIR2 ...] [--reps 50]
 
@@ -25,7 +27,17 @@ from the plain twins (held to ``chip_smoke.FACTOR_RTOL`` /
 ``SOLVE_RTOL``), and whether each library's outputs (Ls, CUs, schur0; ys,
 radd0, dls) equal the package's bit for bit (``torch.equal``); per shape
 also ``torch.linalg.cholesky_ex``'s ms on each chain as one matrix
-(``chip_smoke.chain_blocks_matrix``), alone and in a graph. Then
+(``chip_smoke.chain_blocks_matrix``), alone and in a graph. Then the CR
+sweeps on ``chain_cr_precompute``'s operands (the package's kernel) at
+those five shapes and at ``chip_smoke.CR_EDGES`` (``cr_operands``): each
+library's ms alone and in a graph (the scratch as each library's own rule
+sizes it: ``tq_chain_cr_sweep_launch`` where the library has it, else
+double buffers of 2 L (n^2 + n) floats a chain past 227 KB), the largest
+difference from the twins (``SOLVE_RTOL``) and whether ys, radd0 and dls
+equal the package's bit for bit, beside batched
+``torch.linalg.solve_triangular`` on each chain's factor as one matrix
+(``chip_smoke.chain_factor_matrix``), and each library's FFMA / FMUL /
+FADD counts of the two kernels (``sass_opcodes.opcode_counts``). Then
 df_reduce_flat at n = 26,624 (the bench path's directional derivative) and
 n = 2^20 + 3, seeded: each library's ms alone and in a graph beside
 ``torch.sum``'s, each result held bit for bit to the twin. Exits non-zero
@@ -34,6 +46,7 @@ imports nothing of JAX.
 """
 
 import argparse
+import ctypes
 import importlib.util
 import sys
 from pathlib import Path
@@ -42,21 +55,34 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
-from chip_smoke import (FACTOR_RTOL, SOLVE_RTOL, chain_blocks_matrix, cuda_ms,  # noqa: E402
+from chip_smoke import (CR_EDGES, CR_SEED, FACTOR_RTOL, SOLVE_RTOL,  # noqa: E402
+                        chain_blocks_matrix, chain_factor_matrix, cr_operands, cuda_ms,
                         graph_ms)
 from prof_common import card as card_name  # noqa: E402
+from sass_opcodes import opcode_counts  # noqa: E402
 
 REDUCE_SIZES = (26624, 2 ** 20 + 3)
 
 
 def parent_lib(parent):
     """The kernel library of the checkout at ``parent``, built and bound
-    by that checkout's own ``_build``."""
+    by that checkout's own ``_build``, and its path."""
     spec = importlib.util.spec_from_file_location(
         "parent_build", Path(parent) / "treeqp_tpu_torch" / "ops" / "_build.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.lib()
+    return mod.lib(), mod.build()
+
+
+def cr_scratch(lib, L, n):
+    """Floats of global scratch a chain that ``lib``'s CR sweeps take at
+    (L, n), by the library's own rule; 0 for none."""
+    if hasattr(lib, "tq_chain_cr_sweep_launch"):
+        out = (ctypes.c_int * 2)()
+        lib.tq_chain_cr_sweep_launch(L, n, out)
+        return L * (n * n + n) if out[1] > 227 * 1024 else 0
+    floats = 2 * (L * n * n + L * n)
+    return floats if floats * 4 > 227 * 1024 else 0
 
 
 def main():
@@ -73,13 +99,16 @@ def main():
     from prof_torch_chain_cr import capture_calls
     from prof_torch_chain_cr import shapes as cr_shapes
     from treeqp_tpu_torch.ops import _build
+    from treeqp_tpu_torch.ops import chain_cr as ccr
     from treeqp_tpu_torch.ops import chain_kernels as ck
     from treeqp_tpu_torch.ops import df_reduce as dr
     card = card_name()
     print(card)
     dev = torch.device("cuda", 0)
     f32 = dict(dtype=torch.float32, device=dev)
-    libs = {"package": _build.lib(), **{Path(p).name: parent_lib(p) for p in args.parent}}
+    built = {"package": (_build.lib(), _build.build()),
+             **{Path(p).name: parent_lib(p) for p in args.parent}}
+    libs = {name: lib for name, (lib, _) in built.items()}
     st = lambda: _build.stream(dev)  # the current stream: a graph captures on its own
 
     def check(name, what, got, ref, rtol):
@@ -158,6 +187,66 @@ def main():
                 same = [torch.equal(a, b) for a, b in zip(outs["package"], outs[name])]
                 print(f"{tag}: package bit for bit equal to {name}: chain_factor "
                       f"{all(same[:3])} (Ls, CUs, schur0 {same[:3]}), sweeps {all(same[3:])}")
+
+    # the CR sweeps at the five shapes and CR_EDGES
+    cr_ops = dict(ops)
+    for k, (S, L, n) in enumerate(CR_EDGES):
+        cr_ops[f"edge S={S} L={L} n={n}"] = cr_operands(torch, S, L, n, CR_SEED + k, dev)
+    all_equal = True
+    for tag, (Ls, CUs, res, droot) in cr_ops.items():
+        S, L, n, _ = Ls.shape
+        Ab, Bf = ccr.chain_cr_precompute(Ls, CUs)
+        ys_r, radd_r = ccr.chain_solve_bwd_cr_ref(Ls, CUs, Ab, res)
+        dls_r = ccr.chain_forward_cr_ref(Ls, CUs, Bf, ys_r, droot)
+        outs = {}
+        for name, lib in libs.items():
+            ys = torch.empty((S, L, n), **f32)
+            radd = torch.empty((S, n), **f32)
+            dls = torch.empty((S, L, n), **f32)
+            floats = cr_scratch(lib, L, n)
+            scratch = torch.empty((S, floats), **f32) if floats else None
+            sp = None if scratch is None else scratch.data_ptr()
+
+            def bwd():
+                _build.check(lib.tq_chain_solve_bwd_cr(
+                    Ls.data_ptr(), CUs.data_ptr(), Ab.data_ptr(), res.data_ptr(), ys.data_ptr(),
+                    radd.data_ptr(), sp, S, L, n, st()), f"{name} bwd_cr")
+
+            def fwd():
+                _build.check(lib.tq_chain_forward_cr(
+                    Ls.data_ptr(), Bf.data_ptr(), ys_r.data_ptr(), droot.data_ptr(),
+                    dls.data_ptr(), sp, S, L, n, st()), f"{name} fwd_cr")
+            bwd()
+            fwd()
+            torch.cuda.synchronize()
+            e_s = check(name, f"{tag} CR sweeps", (ys, radd, dls), (ys_r, radd_r, dls_r),
+                        SOLVE_RTOL)
+            outs[name] = [t.clone() for t in (ys, radd, dls)]
+            t_b, t_f = timed(bwd), timed(fwd)
+            print(f"{tag} (S={S}, L={L}, n={n}) {name}: chain_solve_bwd_cr {t_b[0]:.4f} ms, "
+                  f"chain_forward_cr {t_f[0]:.4f} ms in a CUDA graph (one launch timed alone: "
+                  f"{t_b[1]:.4f} / {t_f[1]:.4f} ms; scratch {'yes' if floats else 'no'}), max "
+                  f"|diff| to the twins {e_s:.3e} on {card}")
+        T = chain_factor_matrix(torch, Ls, CUs)
+        Tt = T.mT.contiguous()
+        rhs = res.flip(1).reshape(S, -1, 1).contiguous()
+        t_l = timed(lambda: torch.linalg.solve_triangular(T, rhs, upper=False))
+        t_u = timed(lambda: torch.linalg.solve_triangular(Tt, rhs, upper=True))
+        print(f"{tag} (S={S}, L={L}, n={n}) solve_triangular on each chain's [L n, L n] "
+              f"factor / its transpose: {t_l[0]:.4f} / {t_u[0]:.4f} ms in a CUDA graph, "
+              f"{t_l[1]:.4f} / {t_u[1]:.4f} ms alone on {card}")
+        for name in libs:
+            if name != "package":
+                same = [torch.equal(a, b) for a, b in zip(outs["package"], outs[name])]
+                all_equal = all_equal and all(same)
+                print(f"{tag}: package CR sweeps bit for bit equal to {name}: {all(same)} "
+                      f"(ys, radd0, dls {same})")
+    print(f"CR sweeps: package bit for bit equal to every other library at every shape: "
+          f"{all_equal}")
+    for name, (_, path) in built.items():
+        for kernel, (counts, _) in opcode_counts(path, ("chain_solve_bwd_cr",
+                                                        "chain_forward_cr")).items():
+            print(f"SASS {name} {kernel}: {counts}")
 
     rng = np.random.default_rng(18)
     for n in REDUCE_SIZES:

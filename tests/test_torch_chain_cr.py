@@ -7,7 +7,8 @@ them) on the factors of the JAX ``chain_factor``, moved from its lane
 layout [L, n, n, S_pad] to the port's [S, L, n, n]; and, torch only, the
 CR twins against the serial twins (chain_solve_bwd_ref, chain_forward_ref)
 and the operators against their definition in f64, over chain lengths
-that are and are not powers of two."""
+that are and are not powers of two; and the sweeps' launch shape
+(``sweep_launch``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -75,8 +76,8 @@ def port_factors(S, L, n):
     return ck.chain_factor_ref(torch.tensor(Wc), torch.tensor(Utc))[:2]
 
 
-@pytest.mark.parametrize("n", [3, 6, 8])
-@pytest.mark.parametrize("L", [1, 2, 5, 16, 20])
+@pytest.mark.parametrize("n", [3, 6, 8, 16])
+@pytest.mark.parametrize("L", [1, 2, 5, 16, 20, 33])
 def test_cr_twins_match_serial_twins(L, n):
     """The CR pair against the serial pair on the same factors and
     right-hand sides, and the operators against their definition."""
@@ -99,3 +100,23 @@ def test_cr_twins_match_serial_twins(L, n):
     # ys of either backward sweep feeds either forward sweep
     np.testing.assert_allclose(ck.chain_forward_ref(Ls, CUs, ys, droot).numpy(),
                                dls_s.numpy(), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape, launch", [
+    ((128, 16, 6), (128, 2864, 0)),     # pruned: 16 groups of 8 lanes, one round
+    ((256, 20, 8), (160, 6048, 0)),     # sdunes
+    ((4, 130, 16), (704, 142496, 0)),   # 3 rounds of 44 groups of 16, in shared memory
+    ((2, 240, 16), (960, 0, 65280)),    # past 227 KB: the global scratch, 4 rounds
+])
+def test_sweep_launch(shape, launch):
+    """The CR sweeps' launch (threads, shared bytes, scratch floats a
+    chain), which csrc/chain_cr.cu's sweep_threads / sweep_smem_bytes make
+    and the wrappers size the scratch by; chip_smoke.py holds the two
+    against each other on the card."""
+    S, L, n = shape
+    assert cr.sweep_launch(L, n) == launch
+    threads, smem, scratch = launch
+    assert threads % 32 == 0 and threads <= 1024
+    assert (smem == 0) == (scratch > 0) and smem <= 227 * 1024
+    sc = cr._scratch(S, L, n, torch.device("cpu"))
+    assert (sc is None) if scratch == 0 else sc.shape == (S, scratch)

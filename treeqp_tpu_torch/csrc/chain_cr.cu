@@ -13,19 +13,71 @@
 // independent n x n compositions. A and B depend only on the factors and
 // are built once per factorization (chain_cr_precompute).
 //
-// Layout for this card, not the Pallas lane layout:
-// - precompute: one thread per (scenario, j, column k), two triangular
-//   solves against L_j (column k of A_j and of B_j);
-// - sweeps: one block per scenario. The operators and vectors of the
-//   chain stay in shared memory, double-buffered: a level reads one buffer
-//   and writes the other, then __syncthreads(). Threads take the (j, row)
-//   pairs; entries past the end of the chain are zero, as in the Pallas
-//   kernels' _doubling_suffix / _doubling_prefix. Any L (the caller passes
-//   a global scratch for the buffers when they exceed the 227 KB of shared
-//   memory one block may take), n <= 16.
-// Sums run in index order, like the plain twins (up to FMA contraction).
+// chain_cr_precompute keeps its first design: one thread per (scenario, j,
+// column k), two triangular solves against L_j with loops to a runtime n,
+// the blocks read straight from global memory (neighbouring threads n^2
+// floats apart). Its redesign is still to come.
+//
+// The sweeps. What bounds them on the card: latency. A sweep moves each
+// chain's operators once (S L n^2 f32, 0.3-1 MB a launch) and does about
+// 2 L n^3 log2(L) flops a chain, microseconds below the card's byte and
+// FP32 rates. Its critical path is one n-row triangular solve (n rounds of
+// a division and a shuffle) and ceil(log2 L) dependent levels of n-term
+// dot products, each closed by block barriers. Design:
+// - One block a chain, a group of G = tq::lanes(n) lanes a chain node (8
+//   for n <= 8, 16 for n <= 16), lane i owning row i. The kernels are
+//   instantiated per G, so every loop over rows, columns or m runs to a
+//   compile-time bound under an i < n / m < n mask and unrolls. A block
+//   holds P groups (whole warps, at most 1024 threads); a longer chain's
+//   groups take nodes j, j + P, j + 2P, .. in rounds, ascending for the
+//   suffix scan and descending for the prefix scan, so that no round
+//   overwrites a node that a later round of the same level still reads.
+// - Before any arithmetic, every copy of the chain's operators (Abwd or
+//   Bfwd, L n^2 contiguous floats) and of CUs_0 (bwd) into shared memory is
+//   started by cp.async (tq::stage_async: 16-byte copies where the source
+//   and its copy share their offset within 16 bytes, 4-byte ones at the
+//   ends). While they fly, each group loads its node's row (bwd) or column
+//   (fwd) of Ls_j and right-hand side into registers and solves b_j =
+//   Ls_j^-1 r_j or c_j = Ls_j^-T y_j in shuffles (tq_lanes.cuh's lane_ltrsv
+//   / lane_uttrsv), every j at once; group 0 of the forward sweep adds the
+//   root term B_0 droot, its row loaded beside the factor's. One wait, one
+//   barrier.
+// - A doubling level: lane (j, i) keeps row i of its operator M_j and its
+//   entry v_i in registers across the levels (one round; a longer chain
+//   reloads them each round), reads its partner q = j +- h's M_q and v_q
+//   from shared memory as broadcasts within the group (16-byte reads where
+//   n % 4 == 0 and the operators are 16-byte aligned), and forms vn_i = v_i
+//   + M_j[i,:] v_q and, below the last level, Mn_j[i,:] = M_j[i,:] M_q (no
+//   change where q leaves the chain, Mn_j = 0 there); a barrier, the
+//   write-back of its row and v_i, a barrier. The operators are
+//   single-buffered, so a chain of L (n^2 + n) floats within the 227 KB
+//   one block may take stays in shared memory (S = 4, L = 130, n = 16: 139
+//   KB); only a longer chain's operators and vectors go to the caller's
+//   global scratch (ops/chain_cr.py's sweep_launch). The last level writes
+//   nothing back: each lane writes its entry of the result once (n
+//   contiguous floats a node), and group 0 of the backward sweep forms
+//   radd0 = CUs_0 y_0 from shuffles of y_0.
+// Every sum runs in the order of the per-thread form (tq_dense.cuh's
+// ltrsv_inplace / uttrsv_inplace for the solves, m ascending for the
+// levels' and the root term's dot products, k ascending for radd0), each
+// product folded in by one FMA as nvcc contracts those loops, and the
+// divisions are true divisions. No tensor cores: wgmma needs 64-row tiles
+// and would pad n = 6 to 64, and TF32 mma would change the bits of every
+// sum.
+// What still holds a sweep back: at L <= 20, n <= 8 a launch takes ~5 us
+// in a CUDA graph on an H100, against ~3 us for chains of one or two
+// nodes; the rest is the staging's global round trip, the n division
+// rounds and the levels' barriers. A long, wide chain is bound by shared memory instead: each
+// lane reads its partner's whole block a level (n^2 floats, n^2 / 4
+// 16-byte reads), so one block's L G lanes take about L G n^2 / 32 bank
+// cycles a level, the row write-back meets bank conflicts where n is a
+// multiple of 8, and a chain of more than 1024 / G nodes runs its levels
+// in rounds on the one SM that holds it.
 
-#include "tq_dense.cuh"
+#include <cstdint>
+
+#include "tq_lanes.cuh"
+
 
 namespace {
 
@@ -58,142 +110,325 @@ __global__ void chain_cr_precompute_kernel(const float* __restrict__ Ls,
   for (int i = 0; i < n; ++i) Bfwd[sj * nn + i * n + k] = -v[i];
 }
 
-// One doubling level over the (j, row) pairs: with the partner p(j) = j + h
-// (suffix) or j - h (prefix),
-//   vn_j = v_j + M_j v_{p(j)},  Mn_j = M_j M_{p(j)}
-// where p(j) lies in the chain, else vn_j = v_j, Mn_j = 0. The operator is
-// not composed on the last level (``last``): nothing reads it after.
-__device__ inline void doubling_level(const float* __restrict__ M,
-                                      float* __restrict__ Mn,
-                                      const float* __restrict__ v,
-                                      float* __restrict__ vn, int L, int n, int h,
-                                      bool suffix, bool last) {
+// ---------------------------------------------------------------------------
+// The sweeps
+
+constexpr int kMaxThreads = 1024;  // a sweep block's threads, at most
+
+// Shared memory of a sweep block, in floats: the chain's operators as
+// stage_async fills them (L n^2 rounded up to 4, and 4 for their offset
+// within 16 bytes), its vectors (L n rounded up to 4), then CUs_0 as the
+// operators (read by the backward sweep's radd0).
+__host__ __device__ inline size_t op_floats(int L, int n) {
+  return (((size_t)L * n * n + 3) & ~(size_t)3) + 4;
+}
+__host__ __device__ inline size_t vec_floats(int L, int n) {
+  return ((size_t)L * n + 3) & ~(size_t)3;
+}
+inline size_t sweep_smem_bytes(int L, int n) {
+  return (op_floats(L, n) + vec_floats(L, n) + op_floats(1, n)) * sizeof(float);
+}
+
+// Threads of a sweep block: P groups of G lanes, the chain's L nodes in
+// ceil(L G / 1024) rounds, P rounded up to whole warps.
+inline int sweep_threads(int L, int n) {
+  const int G = tq::lanes(n), per = 32 / G;
+  const int rounds = (L * G + kMaxThreads - 1) / kMaxThreads;
+  const int P = ((L + rounds - 1) / rounds + per - 1) / per * per;
+  return P * G;
+}
+
+// The doubling levels of one chain: M [L, n, n] and v [L, n], its operators
+// and vectors (shared memory or the scratch), updated in place; kSuffix:
+// the partner of node j is j + h (bwd), else j - h (fwd). Every thread
+// calls ``emit(j, y)`` once a round with its entry y of the result at node
+// j (no node where j >= L; the round of node 0 where j equals the thread's
+// group).
+template <int G, bool kQuad, bool kSuffix, typename Emit>
+__device__ __forceinline__ void doubling_scan(float* M, float* v, int L, int n, Emit emit) {
+  constexpr int N = G;
+  const int i = threadIdx.x % G, g = threadIdx.x / G, P = blockDim.x / G;
+  const int rounds = (L + P - 1) / P;
   const int nn = n * n;
-  for (int p = threadIdx.x; p < L * n; p += blockDim.x) {
-    const int j = p / n, i = p % n;
-    const int q = suffix ? j + h : j - h;
-    const float* Mji = M + j * nn + i * n;
-    if (q >= 0 && q < L) {
-      float acc = 0.f;
-      for (int m = 0; m < n; ++m) acc += Mji[m] * v[q * n + m];
-      vn[p] = v[p] + acc;
-      if (!last) {
-        const float* Mq = M + q * nn;
-        for (int k = 0; k < n; ++k) {
-          float c = 0.f;
-          for (int m = 0; m < n; ++m) c += Mji[m] * Mq[m * n + k];
-          Mn[j * nn + i * n + k] = c;
+  float Mrow[N], vi = 0.f;  // the lane's row of M_j and entry of v_j
+  auto load = [&](int j) {
+    const bool in = j < L && i < n;
+    const float* Mj = M + j * nn + i * n;
+#pragma unroll
+    for (int k = 0; k < N; ++k) Mrow[k] = 0.f;
+    if (in) {
+      if constexpr (kQuad) {
+#pragma unroll
+        for (int k = 0; k < N; k += 4) {
+          if (k < n) {
+            const float4 t = *reinterpret_cast<const float4*>(Mj + k);
+            Mrow[k] = t.x;
+            Mrow[k + 1] = t.y;
+            Mrow[k + 2] = t.z;
+            Mrow[k + 3] = t.w;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < N; ++k)
+          if (k < n) Mrow[k] = Mj[k];
+      }
+    }
+    vi = in ? v[j * n + i] : 0.f;
+  };
+  if (rounds == 1) load(g);
+  if (L == 1) {
+    emit(g, vi);
+    return;
+  }
+  for (int h = 1; h < L; h *= 2) {
+    const bool last = 2 * h >= L;
+    for (int r = 0; r < rounds; ++r) {
+      const int j = (kSuffix ? r : rounds - 1 - r) * P + g;
+      if (rounds > 1) load(j);
+      const int q = kSuffix ? j + h : j - h;
+      float vn = vi, Mn[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) Mn[k] = 0.f;
+      if (j < L && q >= 0 && q < L) {
+        const float* vq = v + q * n;
+        float acc = 0.f;
+        if constexpr (kQuad) {
+#pragma unroll
+          for (int m = 0; m < N; m += 4) {
+            if (m < n) {
+              const float4 t = *reinterpret_cast<const float4*>(vq + m);
+              acc = __fmaf_rn(Mrow[m], t.x, acc);
+              acc = __fmaf_rn(Mrow[m + 1], t.y, acc);
+              acc = __fmaf_rn(Mrow[m + 2], t.z, acc);
+              acc = __fmaf_rn(Mrow[m + 3], t.w, acc);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int m = 0; m < N; ++m)
+            if (m < n) acc = __fmaf_rn(Mrow[m], vq[m], acc);
+        }
+        vn = __fadd_rn(vi, acc);
+        if (!last) {
+          const float* Mq = M + q * nn;
+#pragma unroll
+          for (int m = 0; m < N; ++m) {
+            if (m < n) {
+              const float a = Mrow[m];
+              const float* row = Mq + m * n;
+              if constexpr (kQuad) {
+#pragma unroll
+                for (int k = 0; k < N; k += 4) {
+                  if (k < n) {
+                    const float4 t = *reinterpret_cast<const float4*>(row + k);
+                    Mn[k] = __fmaf_rn(a, t.x, Mn[k]);
+                    Mn[k + 1] = __fmaf_rn(a, t.y, Mn[k + 1]);
+                    Mn[k + 2] = __fmaf_rn(a, t.z, Mn[k + 2]);
+                    Mn[k + 3] = __fmaf_rn(a, t.w, Mn[k + 3]);
+                  }
+                }
+              } else {
+#pragma unroll
+                for (int k = 0; k < N; ++k)
+                  if (k < n) Mn[k] = __fmaf_rn(a, row[k], Mn[k]);
+              }
+            }
+          }
         }
       }
-    } else {
-      vn[p] = v[p];
-      if (!last)
-        for (int k = 0; k < n; ++k) Mn[j * nn + i * n + k] = 0.f;
+      if (last) {
+        emit(j, vn);
+        continue;
+      }
+      __syncthreads();  // every read of this round is done
+      if (j < L && i < n) {
+        v[j * n + i] = vn;
+        float* Mj = M + j * nn + i * n;
+        if constexpr (kQuad) {
+#pragma unroll
+          for (int k = 0; k < N; k += 4)
+            if (k < n)
+              *reinterpret_cast<float4*>(Mj + k) = make_float4(Mn[k], Mn[k + 1], Mn[k + 2], Mn[k + 3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < N; ++k)
+            if (k < n) Mj[k] = Mn[k];
+        }
+      }
+      vi = vn;
+#pragma unroll
+      for (int k = 0; k < N; ++k) Mrow[k] = Mn[k];
+      __syncthreads();  // the level's operators are written
     }
   }
 }
 
-// The scan of one chain, with its operators [L, n, n] at the start of
-// ``buf`` and its vectors after the two operator buffers; returns the
-// vector buffer that holds the result.
-__device__ inline float* doubling_scan(float* buf, int L, int n, bool suffix) {
-  const int nn = n * n;
-  float* M = buf;
-  float* Mn = buf + (size_t)L * nn;
-  float* v = Mn + (size_t)L * nn;
-  float* vn = v + (size_t)L * n;
-  for (int h = 1; h < L; h *= 2) {
-    doubling_level(M, Mn, v, vn, L, n, h, suffix, 2 * h >= L);
-    __syncthreads();
-    float* t = M;
-    M = Mn;
-    Mn = t;
-    t = v;
-    v = vn;
-    vn = t;
+// Where the backward sweep finds CUs_0 of the chain at CU0: its copy in
+// shared memory (as stage_async places it), or CU0 itself beside a scratch.
+template <bool kScratch>
+__device__ __forceinline__ const float* cu0_copy(const float* CU0, int L, int n) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (kScratch) return CU0;
+  return reinterpret_cast<const float*>(
+      reinterpret_cast<const char*>(smem + op_floats(L, n) + vec_floats(L, n)) +
+      ((uintptr_t)CU0 & 15));
+}
+
+// The chain's operators (and CUs_0 for the backward sweep, CU0 not null)
+// on their way to shared memory, or copied into the scratch: sets M and v.
+template <bool kScratch>
+__device__ __forceinline__ void stage_chain(const float* op, const float* CU0, float* scratch,
+                                            int L, int n, float*& M, float*& v) {
+  extern __shared__ __align__(16) float smem[];
+  const size_t chain = (size_t)L * n * n;
+  if constexpr (kScratch) {
+    M = scratch + (size_t)blockIdx.x * (chain + (size_t)L * n);
+    v = M + chain;
+    for (size_t e = threadIdx.x; e < chain; e += blockDim.x) M[e] = op[e];
+  } else {
+    M = const_cast<float*>(tq::stage_async(smem, op, chain));
+    v = smem + op_floats(L, n);
+    if (CU0 != nullptr) tq::stage_async(v + vec_floats(L, n), CU0, (size_t)n * n);
+    tq::cp_async_commit();
   }
-  return v;
 }
 
-__device__ inline float* block_buffer(float* scratch, size_t per) {
-  extern __shared__ float smem[];
-  return scratch != nullptr ? scratch + (size_t)blockIdx.x * per : smem;
-}
-
-__global__ void chain_solve_bwd_cr_kernel(
+template <int G, bool kQuad, bool kScratch>
+__global__ void __launch_bounds__(kMaxThreads) chain_solve_bwd_cr_kernel(
     const float* __restrict__ Ls, const float* __restrict__ CUs,
     const float* __restrict__ Abwd, const float* __restrict__ res,
-    float* __restrict__ ys, float* __restrict__ radd0, float* scratch, int L,
-    int n) {
+    float* __restrict__ ys, float* __restrict__ radd0, float* scratch, int L, int n) {
+  constexpr int N = G;
   const int s = blockIdx.x;
-  const size_t nn = (size_t)n * n;
-  const size_t chain = (size_t)L * nn, vec = (size_t)L * n;
-  float* buf = block_buffer(scratch, 2 * (chain + vec));
-  float* v = buf + 2 * chain;
-  for (size_t e = threadIdx.x; e < chain; e += blockDim.x) buf[e] = Abwd[s * chain + e];
-  // b_j = L_j^-1 r_j, independent over j
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
-    float* bj = v + (size_t)j * n;
-    for (int i = 0; i < n; ++i) bj[i] = res[s * vec + (size_t)j * n + i];
-    tq::ltrsv_inplace(Ls + s * chain + j * nn, bj, n);
+  const int i = threadIdx.x % G, g = threadIdx.x / G, P = blockDim.x / G;
+  const size_t nn = (size_t)n * n, chain = (size_t)L * nn, vec = (size_t)L * n;
+  float *M, *v;
+  stage_chain<kScratch>(Abwd + s * chain, CUs + s * chain, scratch, L, n, M, v);
+  // b_j = Ls_j^-1 res_j, a group a node (a group past the chain solves its
+  // last node and keeps nothing)
+  for (int j0 = 0; j0 < L; j0 += P) {
+    const int j = j0 + g, jl = j < L ? j : L - 1;
+    const float* Lr = Ls + s * chain + jl * nn + (size_t)i * n;
+    float Lrow[N], diag = 1.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const bool in = i < n && k <= i;
+      Lrow[k] = in ? Lr[k] : 0.f;
+      if (in && k == i) diag = Lrow[k];
+    }
+    const float r = i < n ? res[s * vec + jl * n + i] : 0.f;
+    const float b = tq::lane_ltrsv<N, G>(Lrow, diag, r, i, n, [](int, float) {});
+    if (j < L && i < n) v[j * n + i] = b;
   }
+  if constexpr (!kScratch) tq::cp_async_wait<0>();
   __syncthreads();
-  const float* y = doubling_scan(buf, L, n, true);
-  for (size_t p = threadIdx.x; p < vec; p += blockDim.x) ys[s * vec + p] = y[p];
-  // radd0 = CU_0 y_0
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float acc = 0.f;
-    for (int k = 0; k < n; ++k) acc += CUs[s * chain + i * n + k] * y[k];
-    radd0[(size_t)s * n + i] = acc;
-  }
+  doubling_scan<G, kQuad, true>(M, v, L, n, [&](int j, float y) {
+    if (j < L && i < n) ys[s * vec + j * n + i] = y;
+    if (j == g && threadIdx.x < 32) {  // the warp of node 0: radd0 = CUs_0 y_0
+      const float* C0 = cu0_copy<kScratch>(CUs + s * chain, L, n);
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        if (k < n) {
+          const float yk = __shfl_sync(tq::kFull, y, k, G);
+          if (i < n) acc = __fmaf_rn(C0[i * n + k], yk, acc);
+        }
+      }
+      if (g == 0 && i < n) radd0[(size_t)s * n + i] = acc;
+    }
+  });
 }
 
-__global__ void chain_forward_cr_kernel(
+template <int G, bool kQuad, bool kScratch>
+__global__ void __launch_bounds__(kMaxThreads) chain_forward_cr_kernel(
     const float* __restrict__ Ls, const float* __restrict__ Bfwd,
     const float* __restrict__ ys, const float* __restrict__ droot,
     float* __restrict__ dls, float* scratch, int L, int n) {
+  constexpr int N = G;
   const int s = blockIdx.x;
-  const size_t nn = (size_t)n * n;
-  const size_t chain = (size_t)L * nn, vec = (size_t)L * n;
-  float* buf = block_buffer(scratch, 2 * (chain + vec));
-  float* v = buf + 2 * chain;
-  for (size_t e = threadIdx.x; e < chain; e += blockDim.x) buf[e] = Bfwd[s * chain + e];
-  // c_j = L_j^-T y_j, independent over j
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
-    float* cj = v + (size_t)j * n;
-    for (int i = 0; i < n; ++i) cj[i] = ys[s * vec + (size_t)j * n + i];
-    tq::uttrsv_inplace(Ls + s * chain + j * nn, cj, n);
+  const int i = threadIdx.x % G, g = threadIdx.x / G, P = blockDim.x / G;
+  const size_t nn = (size_t)n * n, chain = (size_t)L * nn, vec = (size_t)L * n;
+  float *M, *v;
+  stage_chain<kScratch>(Bfwd + s * chain, nullptr, scratch, L, n, M, v);
+  // c_j = Ls_j^-T ys_j, a group a node, and c_0 += B_0 droot
+  for (int j0 = 0; j0 < L; j0 += P) {
+    const int j = j0 + g, jl = j < L ? j : L - 1;
+    const float* Lc = Ls + s * chain + jl * nn + i;
+    float Lcol[N], diag = 1.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const bool in = i < n && k >= i && k < n;
+      Lcol[k] = in ? Lc[k * n] : 0.f;
+      if (in && k == i) diag = Lcol[k];
+    }
+    const float t = i < n ? ys[s * vec + jl * n + i] : 0.f;
+    float root = 0.f;  // row i of B_0 droot
+    if (j == 0 && i < n) {
+      const float* B0 = Bfwd + s * chain + (size_t)i * n;
+      const float* dr = droot + (size_t)s * n;
+#pragma unroll
+      for (int m = 0; m < N; ++m)
+        if (m < n) root = __fmaf_rn(B0[m], dr[m], root);
+    }
+    float z[N] = {};
+    float c = tq::lane_uttrsv<N, G>(Lcol, diag, t, z, i, n);
+    if (j == 0) c = __fadd_rn(c, root);
+    if (j < L && i < n) v[j * n + i] = c;
   }
+  if constexpr (!kScratch) tq::cp_async_wait<0>();
   __syncthreads();
-  // the root term: c_0 += B_0 droot
-  if (threadIdx.x < n) {
-    float acc = 0.f;
-    for (int m = 0; m < n; ++m) acc += buf[threadIdx.x * n + m] * droot[(size_t)s * n + m];
-    v[threadIdx.x] += acc;
-  }
-  __syncthreads();
-  const float* d = doubling_scan(buf, L, n, false);
-  for (size_t p = threadIdx.x; p < vec; p += blockDim.x) dls[s * vec + p] = d[p];
+  doubling_scan<G, kQuad, false>(M, v, L, n, [&](int j, float d) {
+    if (j < L && i < n) dls[s * vec + j * n + i] = d;
+  });
 }
 
-// threads of a sweep block: the (j, row) pairs, whole warps, at most 1024
-int sweep_threads(int L, int n) {
-  const int pairs = L * n;
-  const int t = (pairs + 31) / 32 * 32;
-  return t < 1024 ? t : 1024;
-}
-
-// dynamic shared memory of a sweep block, or 0 when the buffers go to the
-// caller's scratch; sets the opt-in above 48 KB
+// Opt the kernel in to ``bytes`` of dynamic shared memory, once for each new
+// high-water mark (``opted``, the kernel's own).
 template <typename K>
-int sweep_smem(K kernel, int L, int n, const float* scratch) {
-  if (scratch != nullptr) return 0;
-  const int bytes = 2 * (L * n * n + L * n) * (int)sizeof(float);
-  if (bytes > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  }
-  return bytes;
+cudaError_t opt_in(K kernel, size_t bytes, size_t& opted) {
+  if (bytes <= opted) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) opted = bytes;
+  return e;
 }
+
+template <int G, bool kQuad, bool kScratch>
+int launch_bwd(const float* Ls, const float* CUs, const float* Abwd, const float* res,
+               float* ys, float* radd0, float* scratch, int S, int L, int n, cudaStream_t st) {
+  const size_t bytes = kScratch ? 0 : sweep_smem_bytes(L, n);
+  static size_t opted = 48 * 1024;
+  const cudaError_t e = opt_in(chain_solve_bwd_cr_kernel<G, kQuad, kScratch>, bytes, opted);
+  if (e != cudaSuccess) return (int)e;
+  chain_solve_bwd_cr_kernel<G, kQuad, kScratch><<<S, sweep_threads(L, n), bytes, st>>>(
+      Ls, CUs, Abwd, res, ys, radd0, scratch, L, n);
+  return (int)cudaGetLastError();
+}
+
+template <int G, bool kQuad, bool kScratch>
+int launch_fwd(const float* Ls, const float* Bfwd, const float* ys, const float* droot,
+               float* dls, float* scratch, int S, int L, int n, cudaStream_t st) {
+  const size_t bytes = kScratch ? 0 : sweep_smem_bytes(L, n);
+  static size_t opted = 48 * 1024;
+  const cudaError_t e = opt_in(chain_forward_cr_kernel<G, kQuad, kScratch>, bytes, opted);
+  if (e != cudaSuccess) return (int)e;
+  chain_forward_cr_kernel<G, kQuad, kScratch><<<S, sweep_threads(L, n), bytes, st>>>(
+      Ls, Bfwd, ys, droot, dls, scratch, L, n);
+  return (int)cudaGetLastError();
+}
+
+// The form of a sweep (in a function with n and scratch): 16-byte reads of
+// the operators where n % 4 == 0 and they start 16-byte aligned (then every
+// chain's and row's do), the global scratch where the caller passes one.
+#define TQ_CR_DISPATCH(LAUNCH, op, ...)                                             \
+  if (scratch != nullptr)                                                           \
+    return n <= 8 ? LAUNCH<8, false, true>(__VA_ARGS__)                             \
+                  : LAUNCH<16, false, true>(__VA_ARGS__);                           \
+  if (n % 4 == 0 && ((uintptr_t)(op) & 15) == 0)                                    \
+    return n <= 8 ? LAUNCH<8, true, false>(__VA_ARGS__)                             \
+                  : LAUNCH<16, true, false>(__VA_ARGS__);                           \
+  return n <= 8 ? LAUNCH<8, false, false>(__VA_ARGS__) : LAUNCH<16, false, false>(__VA_ARGS__)
 
 }  // namespace
 
@@ -212,18 +447,23 @@ extern "C" int tq_chain_solve_bwd_cr(const float* Ls, const float* CUs,
                                      const float* Abwd, const float* res, float* ys,
                                      float* radd0, float* scratch, int S, int L, int n,
                                      void* stream) {
-  const int smem = sweep_smem(chain_solve_bwd_cr_kernel, L, n, scratch);
-  chain_solve_bwd_cr_kernel<<<S, sweep_threads(L, n), smem, (cudaStream_t)stream>>>(
-      Ls, CUs, Abwd, res, ys, radd0, scratch, L, n);
-  return (int)cudaGetLastError();
+  TQ_CR_DISPATCH(launch_bwd, Abwd, Ls, CUs, Abwd, res, ys, radd0, scratch, S, L, n,
+                 (cudaStream_t)stream);
 }
 
 // Ls, Bfwd, ys, droot, dls, scratch (NULL: shared memory), S, L, n, stream
 extern "C" int tq_chain_forward_cr(const float* Ls, const float* Bfwd, const float* ys,
                                    const float* droot, float* dls, float* scratch,
                                    int S, int L, int n, void* stream) {
-  const int smem = sweep_smem(chain_forward_cr_kernel, L, n, scratch);
-  chain_forward_cr_kernel<<<S, sweep_threads(L, n), smem, (cudaStream_t)stream>>>(
-      Ls, Bfwd, ys, droot, dls, scratch, L, n);
-  return (int)cudaGetLastError();
+  TQ_CR_DISPATCH(launch_fwd, Bfwd, Ls, Bfwd, ys, droot, dls, scratch, S, L, n,
+                 (cudaStream_t)stream);
+}
+
+// L, n, out: out[0] the threads of a sweep block, out[1] its dynamic shared
+// memory in bytes when the chain stays in shared memory (ops/chain_cr.py's
+// sweep_launch mirrors both)
+extern "C" int tq_chain_cr_sweep_launch(int L, int n, int* out) {
+  out[0] = sweep_threads(L, n);
+  out[1] = (int)sweep_smem_bytes(L, n);
+  return 0;
 }

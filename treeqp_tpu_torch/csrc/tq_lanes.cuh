@@ -1,12 +1,12 @@
 // Pieces of the lane-group kernels (chain_factor.cu, chain_blocks_factor.cu,
 // chain_sweeps.cu, chain_full_solve.cu, newton_iter.cu, admm_identify.cu,
-// ric_chain.cu, chain_eval_df.cu, chain_apply_df.cu): the
+// ric_chain.cu, chain_eval_df.cu, chain_apply_df.cu, chain_cr.cu): the
 // cp.async copies of the chain kernels' shared-memory rings and tiles, the broadcast
 // lane's true division, the step of the banded backward block Cholesky
 // that both chain factor kernels run, a group of lanes per chain with lane
-// i owning row i of the step's n x n block, and the two solve sweeps of the
-// chain factors that chain_sweeps.cu, chain_full_solve.cu and newton_iter.cu
-// run.
+// i owning row i of the step's n x n block, the lane groups' triangular
+// solves of one factor block, and the two solve sweeps of the chain factors
+// that chain_sweeps.cu, chain_full_solve.cu and newton_iter.cu run.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -168,6 +168,57 @@ __device__ __forceinline__ void factor_step(float (&a)[N], float (&u)[N], float 
   }
 }
 
+// The triangular solves of one n x n factor L_j (n <= N) on a group of G
+// lanes, lane i owning row i, that the sweeps below and chain_cr.cu's
+// cyclic-reduction sweeps run. Each sum runs in the order of
+// tq_dense.cuh's ltrsv_inplace / uttrsv_inplace, each product folded in by
+// one FMA, and the divisions are true divisions (``quotient``).
+//
+// lane_ltrsv: lane i's entry of y = L_j^-1 t. Lrow holds row i of L_j (the
+// entries left of the diagonal are read), diag its diagonal (1 past the
+// last row), acc t_i. For k = 0 .. n-1 lane k divides, __shfl_sync
+// broadcasts y_k and lanes i > k fold it in, so row i meets its products in
+// ascending k; ``each(k, y_k)`` sees every entry in every lane.
+template <int N, int G, typename Each>
+__device__ __forceinline__ float lane_ltrsv(const float (&Lrow)[N], float diag, float acc, int i,
+                                            int n, Each each) {
+  float y = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (k < n) {
+      const float yk = __shfl_sync(kFull, quotient(acc, diag, i == k), k, G);
+      if (i > k) acc = __fmaf_rn(-Lrow[k], yk, acc);
+      each(k, yk);
+      if (i == k) y = yk;
+    }
+  }
+  return y;
+}
+
+// lane_uttrsv: lane i's entry of z = L_j^-T t. Lcol holds column i of L_j
+// (the entries below the diagonal are read), diag its diagonal, acc t_i.
+// For k = n-1 .. 0 every lane folds in the entries solved so far, m = k+1
+// .. n-1 ascending, lane k's fold (its own column) divides, and
+// __shfl_sync broadcasts z_k into z, which ends holding every entry in
+// every lane.
+template <int N, int G>
+__device__ __forceinline__ float lane_uttrsv(const float (&Lcol)[N], float diag, float acc,
+                                             float (&z)[N], int i, int n) {
+  float x = 0.f;
+#pragma unroll
+  for (int k = N - 1; k >= 0; --k) {
+    if (k < n) {
+      float a = acc;
+#pragma unroll
+      for (int m = k + 1; m < N; ++m)
+        if (m < n) a = __fmaf_rn(-Lcol[m], z[m], a);
+      z[k] = __shfl_sync(kFull, quotient(a, diag, i == k), k, G);
+      if (i == k) x = z[k];
+    }
+  }
+  return x;
+}
+
 // ---------------------------------------------------------------------------
 // The two solve sweeps of the chain factors Ls, CUs [S, L, n, n], a group of
 // G lanes per chain (G = lanes(n)), lane i owning row i of the step's
@@ -277,16 +328,10 @@ __device__ __forceinline__ float sweep_bwd(const SweepGroup<G>& g, int L, int n,
     float acc = i < n ? st[2 * g.nn + i] - radd : 0.f;
     __syncwarp();  // the stage is read: refill it kSweepStages steps ahead
     g.fetch(t + kSweepStages, L - 1 - t - kSweepStages, L, n, vec16);
-    float racc = 0.f, y = 0.f;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      if (k < n) {
-        const float yk = __shfl_sync(kFull, quotient(acc, diag, i == k), k, G);
-        if (i > k) acc = __fmaf_rn(-Lrow[k], yk, acc);
-        racc = __fmaf_rn(Crow[k], yk, racc);
-        if (i == k) y = yk;
-      }
-    }
+    float racc = 0.f;
+    const float y = lane_ltrsv<N, G>(Lrow, diag, acc, i, n, [&](int k, float yk) {
+      racc = __fmaf_rn(Crow[k], yk, racc);
+    });
     radd = racc;
     emit(L - 1 - t, y);
   }
@@ -323,20 +368,7 @@ __device__ __forceinline__ void sweep_fwd(const SweepGroup<G>& g, const float* d
 #pragma unroll
     for (int k = 0; k < N; ++k)
       if (k < n) acc = __fmaf_rn(Ccol[k], z[k], acc);
-    acc = v - acc;
-    float dl = 0.f;
-#pragma unroll
-    for (int k = N - 1; k >= 0; --k) {
-      if (k < n) {
-        float a = acc;
-#pragma unroll
-        for (int m = k + 1; m < N; ++m)
-          if (m < n) a = __fmaf_rn(-Lcol[m], z[m], a);
-        z[k] = __shfl_sync(kFull, quotient(a, diag, i == k), k, G);
-        if (i == k) dl = z[k];
-      }
-    }
-    emit(j, dl);
+    emit(j, lane_uttrsv<N, G>(Lcol, diag, v - acc, z, i, n));
   }
 }
 

@@ -108,6 +108,8 @@ _SIGNATURES = {
     "tq_chain_solve_bwd_cr": [_P] * 7 + [_I] * 3 + [_P],
     # Ls, Bfwd, ys, droot, dls, scratch, S, L, n, stream
     "tq_chain_forward_cr": [_P] * 6 + [_I] * 3 + [_P],
+    # L, n, out (2 ints: a sweep block's threads and shared memory)
+    "tq_chain_cr_sweep_launch": [_I, _I, _P],
 }
 
 # functions that return something other than a launch's error code

@@ -24,7 +24,8 @@ Layout is the port's chain layout (``chain_kernels``): factors ``Ls``,
 ``chain_forward`` directly. Each wrapper launches its CUDA kernel
 (``csrc/chain_cr.cu``) on CUDA tensors and runs its plain PyTorch twin
 (``*_ref``, the same doubling, not the serial sweep) on CPU tensors. All
-f32, like the Pallas kernels.
+f32, like the Pallas kernels. The sweeps run a lane group a chain node,
+the chain in one block's shared memory (``sweep_launch``).
 """
 
 from __future__ import annotations
@@ -35,11 +36,13 @@ from treeqp_tpu_torch.ops import _build, _dense
 from treeqp_tpu_torch.ops.chain_kernels import _chain_shape_check
 
 __all__ = ["chain_cr_precompute", "chain_cr_precompute_ref", "chain_solve_bwd_cr",
-           "chain_solve_bwd_cr_ref", "chain_forward_cr", "chain_forward_cr_ref"]
+           "chain_solve_bwd_cr_ref", "chain_forward_cr", "chain_forward_cr_ref", "sweep_launch"]
 
 # the shared memory one thread block may take on the card (227 KB with the
-# opt-in); a sweep whose buffers need more gets a global scratch
+# opt-in); a sweep whose chain needs more gets a global scratch
 _MAX_SMEM = 227 * 1024
+# a sweep block's threads, at most
+_MAX_THREADS = 1024
 
 
 def chain_cr_precompute_ref(Ls, CUs):
@@ -106,11 +109,35 @@ def chain_solve_bwd_cr_ref(Ls, CUs, Abwd, res):
     return ys, _dense.mv(CUs[:, 0], ys[:, 0])
 
 
-def _scratch(S, L, n, dev):
-    """A sweep's global scratch when its buffers exceed a block's shared
-    memory, else None."""
-    floats = 2 * (L * n * n + L * n)
+def _round4(x):
+    return (x + 3) // 4 * 4
+
+
+def sweep_launch(L, n):
+    """The launch of a CR sweep on chains of L nodes of n rows, as
+    ``csrc/chain_cr.cu`` makes it: (threads a block, dynamic shared memory
+    in bytes, scratch floats a chain). A chain takes one block and each
+    node a group of G = 8 (n <= 8) or 16 lanes; P groups a block, whole
+    warps, the nodes in ceil(L G / 1024) rounds. The chain's operators
+    (padded for their 16-byte copies), vectors and CUs_0 stay in shared
+    memory up to 227 KB; a longer chain's operators and vectors go to a
+    global scratch of L (n^2 + n) floats a chain, and the block takes no
+    shared memory."""
+    G = 8 if n <= 8 else 16
+    per = 32 // G
+    rounds = -(-L * G // _MAX_THREADS)
+    P = -(-(-(-L // rounds)) // per) * per
+    floats = (_round4(L * n * n) + 4) + _round4(L * n) + (_round4(n * n) + 4)
     if floats * 4 <= _MAX_SMEM:
+        return P * G, floats * 4, 0
+    return P * G, 0, L * (n * n + n)
+
+
+def _scratch(S, L, n, dev):
+    """A sweep's global scratch when its chain exceeds a block's shared
+    memory, else None."""
+    floats = sweep_launch(L, n)[2]
+    if floats == 0:
         return None
     return torch.empty((S, floats), dtype=torch.float32, device=dev)
 
