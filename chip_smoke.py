@@ -178,11 +178,15 @@ Phases (any failure exits non-zero):
    8, S=256, L=20, n=8) and at S=4, L=130, n=16 (a chain of three rounds
    of lane groups, in shared memory), with the serial sweeps timed at each
    as in section 2 (kernel, plain twin, bound, library call, and in a CUDA
-   graph); both CR sweeps also held to their twins and the CR pair to the
-   serial kernels at ``CR_EDGES`` (seeded by ``cr_operands``; S=2, L=240,
-   n=16 the global-scratch path), every shape's launch (threads, shared
-   memory) held to ``chain_cr.sweep_launch``; the three timed at the
-   pruned tree's shape, the two sweeps also in a CUDA graph, beside the
+   graph) and the precompute in a CUDA graph; all three kernels also held
+   to their twins and the CR pair to the serial kernels at ``CR_EDGES``
+   (seeded by ``cr_operands``; S=2, L=240, n=16 the sweeps'
+   global-scratch path), the precompute timed there in a CUDA graph, every
+   shape's sweep launch (threads, shared memory) held to
+   ``chain_cr.sweep_launch`` and precompute launch (threads, shared memory)
+   to ``chain_cr.precompute_launch``; the
+   three timed at the pruned tree's shape, all three also in a CUDA graph
+   (the precompute's other shapes in its row's description), beside the
    library call (batched ``torch.linalg.solve_triangular`` on each
    chain's factor as one matrix, also timed beside chain_solve_bwd and
    chain_forward), then that script's loop of CR and serial pairs as their
@@ -403,12 +407,13 @@ JAY_BACKWARD = 1e-5
 CR_PAIR_RTOL = 2e-4
 CR_SEED = 8
 CR_LOOP = 4
-# the CR sweeps' kernel edges (S, L, n), seeded by cr_operands: one node;
-# two nodes of one row; an odd n, whose chains start off 16 bytes (4-byte
-# copies), and L no power of two; 16 lanes a node and L no power of two;
-# a chain past the 227 KB of shared memory one block may take (the global
-# scratch). Held to the twins (SOLVE_RTOL) and the serial kernels
-# (CR_PAIR_RTOL)
+# the CR kernels' edges (S, L, n), seeded by cr_operands: one node; two
+# nodes of one row; an odd n, whose chains (and the precompute's node
+# blocks) start off 16 bytes (4-byte copies), and L no power of two; 16
+# lanes a node and L no power of two; a chain past the 227 KB of shared
+# memory one sweep block may take (the global scratch). The precompute's
+# blocks cross chain boundaries at each. Held to the twins (FACTOR_RTOL,
+# SOLVE_RTOL) and the serial kernels (CR_PAIR_RTOL)
 CR_EDGES = ((3, 1, 6), (5, 2, 1), (5, 17, 5), (3, 33, 16), (2, 240, 16))
 # the MPC re-embedding path (slice 8) on the pruned headline tree: warm
 # requests follow the closed loop (the plant driven by each solution's first
@@ -3334,27 +3339,32 @@ def main():
                   f"library call {graph_ms(torch, lib_fn):.4f} ms on {card}")
         cr_rows[tag]["ms"] = {
             "pre": cuda_ms(torch, lambda: ccr.chain_cr_precompute(Ls_, CUs_), 20),
+            "pre_graph": graph_ms(torch, lambda: ccr.chain_cr_precompute(Ls_, CUs_)),
             "bwd": cuda_ms(torch, lambda: ccr.chain_solve_bwd_cr(Ls_, CUs_, Ab, res_), 20),
             "fwd": cuda_ms(torch, lambda: ccr.chain_forward_cr(Ls_, CUs_, Bf, ys_c, dr_), 20),
             "sbwd": serial["chain_solve_bwd"]["ms"], "sfwd": serial["chain_forward"]["ms"]}
         c = cr_rows[tag]
-        print(f"CR sweeps ({tag}: S={S_} L={L_} n={n_}): precompute {c['ms']['pre']:.4f} ms, "
-              f"bwd {c['ms']['bwd']:.4f}, fwd {c['ms']['fwd']:.4f} (serial bwd "
+        print(f"CR sweeps ({tag}: S={S_} L={L_} n={n_}): precompute {c['ms']['pre']:.4f} ms "
+              f"({c['ms']['pre_graph']:.4f} in a CUDA graph, launch "
+              f"{ccr.precompute_launch(n_)}), bwd {c['ms']['bwd']:.4f}, fwd "
+              f"{c['ms']['fwd']:.4f} (serial bwd "
               f"{c['ms']['sbwd']:.4f}, fwd {c['ms']['sfwd']:.4f}, pair "
               f"{c['ms']['sbwd'] + c['ms']['sfwd']:.4f}); |diff| to the twins "
               f"{c['pre']:.3e} / {c['bwd']:.3e} / {c['fwd']:.3e}, CR pair vs serial kernels "
               f"{c['pair']:.3e} (max |dl| "
               f"{float(ref[2].abs().max()):.3e}) on {card}")
 
-    # the sweeps at their kernel edges: against their twins, the CR pair
+    # the three kernels at their edges: against their twins, the CR pair
     # against the serial kernels; and the launch of every shape here
     # (threads, shared memory) against ops/chain_cr.py's sweep_launch, which
-    # sizes the scratch
-    edge_err = dict(bwd=0.0, fwd=0.0, pair=0.0)
+    # sizes the scratch, and precompute_launch
+    edge_err = dict(pre=0.0, bwd=0.0, fwd=0.0, pair=0.0)
     for k, (S_, L_, n_) in enumerate(CR_EDGES):
         Ls_, CUs_, res_, dr_ = cr_operands(torch, S_, L_, n_, CR_SEED + k, dev)
         what = f"S={S_} L={L_} n={n_}"
         Ab, Bf = ccr.chain_cr_precompute(Ls_, CUs_)
+        e_pre = compare(torch, f"chain_cr_precompute ({what})", [Ab, Bf],
+                        ccr.chain_cr_precompute_ref(Ls_, CUs_), FACTOR_RTOL)
         ys_r, radd_r = ccr.chain_solve_bwd_cr_ref(Ls_, CUs_, Ab, res_)
         ys_c, radd_c = ccr.chain_solve_bwd_cr(Ls_, CUs_, Ab, res_)
         d_c = ccr.chain_forward_cr(Ls_, CUs_, Bf, ys_c, dr_)
@@ -3368,10 +3378,13 @@ def main():
         torch.cuda.synchronize()
         e_p = compare(torch, f"CR pair vs serial kernels ({what})", [ys_c, radd_c, d_c],
                       [ys_s, radd_s, d_s], CR_PAIR_RTOL)
-        for key, e in (("bwd", e_b), ("fwd", e_f), ("pair", e_p)):
+        for key, e in (("pre", e_pre), ("bwd", e_b), ("fwd", e_f), ("pair", e_p)):
             edge_err[key] = max(edge_err[key], e)
-        print(f"CR sweeps ({what}, {ccr.sweep_launch(L_, n_)}): |diff| to the twins {e_b:.3e} / "
-              f"{e_f:.3e}, CR pair vs serial kernels {e_p:.3e}")
+        print(f"CR kernels ({what}; precompute launch {ccr.precompute_launch(n_)}, "
+              f"sweeps {ccr.sweep_launch(L_, n_)}): |diff| to the twins {e_pre:.3e} / {e_b:.3e} / "
+              f"{e_f:.3e}, CR pair vs serial kernels {e_p:.3e}; precompute "
+              f"{graph_ms(torch, lambda: ccr.chain_cr_precompute(Ls_, CUs_)):.4f} ms in a CUDA "
+              f"graph on {card}")
     for L_, n_ in sorted({(L_, n_) for _, L_, n_ in CR_EDGES}
                          | {tuple(v[0].shape[1:3]) for v in cr_in.values()}):
         threads, smem, scratch = ccr.sweep_launch(L_, n_)
@@ -3381,6 +3394,13 @@ def main():
             fail(f"CR sweeps (L={L_}, n={n_}): the kernel launches {got[0]} threads with "
                  f"{got[1]} B of shared memory, sweep_launch says {threads}, {smem} B, "
                  f"scratch {scratch}")
+    for n_ in sorted({n_ for _, _, n_ in CR_EDGES} | {v[0].shape[2] for v in cr_in.values()}):
+        got = _build.int_array((0, 0))
+        _build.lib().tq_chain_cr_precompute_launch(n_, got)
+        if (got[0], got[1]) != ccr.precompute_launch(n_):
+            fail(f"chain_cr_precompute (n={n_}): the kernel launches {got[0]} threads with "
+                 f"{got[1]} B of shared memory; precompute_launch says "
+                 f"{ccr.precompute_launch(n_)}")
 
     # the JSON rows at the pruned tree's shape (rows 2 and 3's), the other
     # shapes in their descriptions
@@ -3390,16 +3410,18 @@ def main():
     ys_p = ccr.chain_solve_bwd_cr_ref(Ls_, CUs_, Ab, res_)[0]
     lib_bwd, lib_fwd, lib_err = sweep_library(Ls_, CUs_, res_, ys_p, dr_)
     others = lambda part: "; ".join(
-        f"{tag} {cr_rows[tag]['ms'][part]:.4f} ms (|diff| {cr_rows[tag][part]:.3e}, CR pair vs "
-        f"serial {cr_rows[tag]['pair']:.3e})" for tag in ("random", "sdunes", "long"))
-    record_graph("chain_cr_precompute", "chain_cr.cu", "treeqp_tpu/ops/chain_cr.py:68",
-                 max(r["pre"] for r in cr_rows.values()),
-                 lambda: ccr.chain_cr_precompute(Ls_, CUs_),
-                 lambda: ccr.chain_cr_precompute_ref(Ls_, CUs_),
-                 f"Ls {tuple(Ls_.shape)}; {others('pre')}", (Ls_, CUs_),
-                 S_ * cr_ops(L_, n_, "pre"))
+        f"{tag} {cr_rows[tag]['ms'][part]:.4f} ms"
+        + (f" ({cr_rows[tag]['ms']['pre_graph']:.4f} in a graph)" if part == "pre" else "")
+        + f" (|diff| {cr_rows[tag][part]:.3e}, CR pair vs serial {cr_rows[tag]['pair']:.3e})"
+        for tag in ("random", "sdunes", "long"))
     edges = lambda part: (f"CR_EDGES |diff| {edge_err[part]:.3e} (CR pair vs serial "
                           f"{edge_err['pair']:.3e})")
+    record_graph("chain_cr_precompute", "chain_cr.cu", "treeqp_tpu/ops/chain_cr.py:68",
+                 max([r["pre"] for r in cr_rows.values()] + [edge_err["pre"]]),
+                 lambda: ccr.chain_cr_precompute(Ls_, CUs_),
+                 lambda: ccr.chain_cr_precompute_ref(Ls_, CUs_),
+                 f"Ls {tuple(Ls_.shape)}; {others('pre')}; {edges('pre')}", (Ls_, CUs_),
+                 S_ * cr_ops(L_, n_, "pre"))
     lib_note = "batched solve_triangular on each chain's [L n]^2 factor"
     record_graph("chain_solve_bwd_cr", "chain_cr.cu", "treeqp_tpu/ops/chain_cr.py:132",
                  max([r["bwd"] for r in cr_rows.values()] + [edge_err["bwd"]]),

@@ -26,7 +26,9 @@ eagerly (a Python loop of launches) is timed too. Shapes:
   n=8), its first factorization, the first column of its first solve.
 
 Prints us per pair, the speedup of serial over CR, the precompute's time
-and the CR pair's largest difference from the serial pair. Needs CUDA;
+(alone, and in a CUDA graph of PRE_CALLS launches, with the CR route's
+precompute + pair beside the serial pair) and the CR pair's largest
+difference from the serial pair. Needs CUDA;
 imports nothing of JAX.
 """
 
@@ -38,6 +40,9 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from prof_common import card as card_name  # noqa: E402
+
+# precompute launches captured in one CUDA graph to time one
+PRE_CALLS = 20
 
 
 def capture_calls(mod, names, fn):
@@ -169,9 +174,16 @@ def main():
                   f"pair in a CUDA graph, {out[kind][1]:.2f} us launched eagerly "
                   f"(loop {args.loop}, min of {args.nrep}) on {card}")
         pre = event_ms(lambda: cr.chain_cr_precompute(Ls, CUs), 20) * 1e3
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(PRE_CALLS):
+                cr.chain_cr_precompute(Ls, CUs)
+        pre_g = event_ms(g.replay, args.nrep) / PRE_CALLS * 1e3
         print(f"{name}: speedup serial/cr {out['serial'][0] / out['cr'][0]:.2f}x in a graph, "
               f"{out['serial'][1] / out['cr'][1]:.2f}x eager; chain_cr_precompute "
-              f"{pre:.2f} us once per factorization; CR pair vs serial max |diff| {diff:.3e} "
+              f"{pre:.2f} us once per factorization ({pre_g:.2f} us in a graph: the CR route, "
+              f"precompute + pair, {pre_g + out['cr'][0]:.2f} us in a graph against the serial "
+              f"pair's {out['serial'][0]:.2f}); CR pair vs serial max |diff| {diff:.3e} "
               f"(max |dl| {top:.3e}) on {card}")
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The serial chain kernels (``chain_factor``, ``csrc/chain_factor.cu``;
 the sweeps ``chain_solve_bwd`` and ``chain_forward``,
-``csrc/chain_sweeps.cu``), the cyclic-reduction sweeps
-(``chain_solve_bwd_cr`` and ``chain_forward_cr``, ``csrc/chain_cr.cu``)
+``csrc/chain_sweeps.cu``), the cyclic-reduction kernels
+(``chain_cr_precompute``, ``chain_solve_bwd_cr`` and ``chain_forward_cr``,
+``csrc/chain_cr.cu``)
 and ``df_reduce_flat`` (``csrc/df_reduce.cu``) against other checkouts',
 on one card.
 
@@ -27,18 +28,24 @@ from the plain twins (held to ``chip_smoke.FACTOR_RTOL`` /
 ``SOLVE_RTOL``), and whether each library's outputs (Ls, CUs, schur0; ys,
 radd0, dls) equal the package's bit for bit (``torch.equal``); per shape
 also ``torch.linalg.cholesky_ex``'s ms on each chain as one matrix
-(``chip_smoke.chain_blocks_matrix``), alone and in a graph. Then the CR
-sweeps on ``chain_cr_precompute``'s operands (the package's kernel) at
-those five shapes and at ``chip_smoke.CR_EDGES`` (``cr_operands``): each
-library's ms alone and in a graph (the scratch as each library's own rule
-sizes it: ``tq_chain_cr_sweep_launch`` where the library has it, else
-double buffers of 2 L (n^2 + n) floats a chain past 227 KB), the largest
+(``chip_smoke.chain_blocks_matrix``), alone and in a graph. Then
+``chain_cr_precompute`` at those five shapes and at ``chip_smoke.CR_EDGES``
+(``cr_operands``): each library's ms alone and in a graph, each held to
+the twin (``FACTOR_RTOL``) and
+its Abwd, Bfwd to the package's bit for bit, beside two batched
+``torch.linalg.solve_triangular`` calls (A's and B's: a reference, since
+two calls are no library yardstick). Then the CR sweeps on the package's
+precompute operands at the same shapes: each library's ms alone and in a
+graph (the scratch as each library's own rule sizes it:
+``tq_chain_cr_sweep_launch`` where the library has it, else double
+buffers of 2 L (n^2 + n) floats a chain past 227 KB), the largest
 difference from the twins (``SOLVE_RTOL``) and whether ys, radd0 and dls
 equal the package's bit for bit, beside batched
 ``torch.linalg.solve_triangular`` on each chain's factor as one matrix
-(``chip_smoke.chain_factor_matrix``), and each library's FFMA / FMUL /
-FADD counts of the two kernels (``sass_opcodes.opcode_counts``). Then
-df_reduce_flat at n = 26,624 (the bench path's directional derivative) and
+(``chip_smoke.chain_factor_matrix``); and each library's SASS opcode
+counts of the three CR kernels (``sass_opcodes.opcode_counts``: FFMA /
+FMUL / FADD, LDL / STL) and the precompute's ptxas registers and spills.
+Then df_reduce_flat at n = 26,624 (the bench path's directional derivative) and
 n = 2^20 + 3, seeded: each library's ms alone and in a graph beside
 ``torch.sum``'s, each result held bit for bit to the twin. Exits non-zero
 if a launch fails or a result leaves its tolerance. Needs CUDA and nvcc;
@@ -188,10 +195,45 @@ def main():
                 print(f"{tag}: package bit for bit equal to {name}: chain_factor "
                       f"{all(same[:3])} (Ls, CUs, schur0 {same[:3]}), sweeps {all(same[3:])}")
 
-    # the CR sweeps at the five shapes and CR_EDGES
+    # chain_cr_precompute at the five shapes and CR_EDGES
     cr_ops = dict(ops)
     for k, (S, L, n) in enumerate(CR_EDGES):
         cr_ops[f"edge S={S} L={L} n={n}"] = cr_operands(torch, S, L, n, CR_SEED + k, dev)
+    pre_equal = True
+    for tag, (Ls, CUs, _, _) in cr_ops.items():
+        S, L, n, _ = Ls.shape
+        ref = ccr.chain_cr_precompute_ref(Ls, CUs)
+        threads, smem = ccr.precompute_launch(n)
+        outs, line = {}, []
+        for name, lib in libs.items():
+            Ab, Bf = torch.empty((S, L, n, n), **f32), torch.empty((S, L, n, n), **f32)
+
+            def pre(lib=lib, Ab=Ab, Bf=Bf, name=name):
+                _build.check(lib.tq_chain_cr_precompute(
+                    Ls.data_ptr(), CUs.data_ptr(), Ab.data_ptr(), Bf.data_ptr(), S, L, n,
+                    st()), f"{name} precompute")
+            pre()
+            torch.cuda.synchronize()
+            e = check(name, f"{tag} precompute", (Ab, Bf), ref, FACTOR_RTOL)
+            outs[name] = (Ab, Bf)
+            t = timed(pre)
+            line.append(f"{name} {t[0]:.4f} ms in a graph, {t[1]:.4f} alone (|diff| {e:.3e})")
+        Lh, Cn = Ls[:, :-1].contiguous(), CUs[:, 1:].contiguous()
+        LT, CT = Ls.mT.contiguous(), CUs.mT.contiguous()
+        t_l = timed(lambda: (torch.linalg.solve_triangular(Lh, Cn, upper=False) if L > 1
+                             else None, torch.linalg.solve_triangular(LT, CT, upper=True)))
+        same = {name: torch.equal(outs[name][0], outs["package"][0])
+                and torch.equal(outs[name][1], outs["package"][1]) for name in outs}
+        pre_equal = pre_equal and all(same.values())
+        print(f"{tag} (S={S}, L={L}, n={n}) chain_cr_precompute (package launch: {threads} "
+              f"threads, {smem} B): "
+              + "; ".join(line) + f"; two batched solve_triangular (A, B) {t_l[0]:.4f} ms in "
+              f"a graph, {t_l[1]:.4f} alone on {card}")
+        print(f"{tag}: Abwd, Bfwd bit for bit the package's: {same}")
+    print(f"chain_cr_precompute: package bit for bit equal to every other library at every "
+          f"shape: {pre_equal}")
+
+    # the CR sweeps at the five shapes and CR_EDGES
     all_equal = True
     for tag, (Ls, CUs, res, droot) in cr_ops.items():
         S, L, n, _ = Ls.shape
@@ -244,9 +286,18 @@ def main():
     print(f"CR sweeps: package bit for bit equal to every other library at every shape: "
           f"{all_equal}")
     for name, (_, path) in built.items():
-        for kernel, (counts, _) in opcode_counts(path, ("chain_solve_bwd_cr",
+        for kernel, (counts, _) in opcode_counts(path, ("chain_cr_precompute",
+                                                        "chain_solve_bwd_cr",
                                                         "chain_forward_cr")).items():
             print(f"SASS {name} {kernel}: {counts}")
+        report = Path(str(path) + ".ptxas.txt")
+        if report.exists():
+            lines = report.read_text().splitlines()
+            for i, text in enumerate(lines):
+                if "chain_cr_precompute" in text and "Compiling entry" in text:
+                    notes = [u.split(":", 1)[-1].strip() for u in lines[i + 1:i + 6]
+                             if "spill" in u or "Used" in u][:2]
+                    print(f"ptxas {name} {text.split(chr(39))[1]}: {'; '.join(notes)}")
 
     rng = np.random.default_rng(18)
     for n in REDUCE_SIZES:

@@ -7,8 +7,8 @@ them) on the factors of the JAX ``chain_factor``, moved from its lane
 layout [L, n, n, S_pad] to the port's [S, L, n, n]; and, torch only, the
 CR twins against the serial twins (chain_solve_bwd_ref, chain_forward_ref)
 and the operators against their definition in f64, over chain lengths
-that are and are not powers of two; and the sweeps' launch shape
-(``sweep_launch``)."""
+that are and are not powers of two and at the CUDA kernels' edges; and
+the launch shapes (``precompute_launch``, ``sweep_launch``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -85,10 +85,7 @@ def test_cr_twins_match_serial_twins(L, n):
     Ls, CUs = port_factors(S, L, n)
     res, droot = (torch.tensor(v) for v in rhs(S, L, n))
     Ab, Bf = cr.chain_cr_precompute(Ls, CUs)
-    L64, CU64 = Ls.double(), CUs.double()
-    A_def = torch.zeros_like(CU64)
-    A_def[:, :-1] = -torch.linalg.solve_triangular(L64[:, :-1], CU64[:, 1:], upper=False)
-    B_def = -torch.linalg.solve_triangular(L64.mT, CU64.mT, upper=True)
+    A_def, B_def = precompute_definition(Ls, CUs)
     assert_close(Ab.double(), A_def, FACTOR_RTOL, "Abwd")
     assert_close(Bf.double(), B_def, FACTOR_RTOL, "Bfwd")
     ys_s, radd_s = ck.chain_solve_bwd_ref(Ls, CUs, res)
@@ -100,6 +97,52 @@ def test_cr_twins_match_serial_twins(L, n):
     # ys of either backward sweep feeds either forward sweep
     np.testing.assert_allclose(ck.chain_forward_ref(Ls, CUs, ys, droot).numpy(),
                                dls_s.numpy(), rtol=0, atol=ATOL)
+
+
+def precompute_definition(Ls, CUs):
+    """Abwd, Bfwd of chain_cr_precompute by their definition, in f64."""
+    L64, CU64 = Ls.double(), CUs.double()
+    A_def = torch.zeros_like(CU64)
+    A_def[:, :-1] = -torch.linalg.solve_triangular(L64[:, :-1], CU64[:, 1:], upper=False)
+    return A_def, -torch.linalg.solve_triangular(L64.mT, CU64.mT, upper=True)
+
+
+# chip_smoke.py's CR_EDGES (S, L, n): one node, n = 1, odd n, 16 lanes a
+# node, the longest chain
+@pytest.mark.parametrize("shape", [(3, 1, 6), (5, 2, 1), (5, 17, 5), (3, 33, 16),
+                                   (2, 240, 16)])
+def test_precompute_twin_at_kernel_edges(shape):
+    """The precompute twin (what the card's kernel is held to) against the
+    operators' definition at the CUDA kernels' edges."""
+    Ls, CUs = port_factors(*shape)
+    Ab, Bf = cr.chain_cr_precompute(Ls, CUs)
+    A_def, B_def = precompute_definition(Ls, CUs)
+    assert_close(Ab.double(), A_def, FACTOR_RTOL, "Abwd")
+    assert_close(Bf.double(), B_def, FACTOR_RTOL, "Bfwd")
+    assert torch.equal(Ab[:, -1], torch.zeros_like(Ab[:, -1]))
+
+
+@pytest.mark.parametrize("shape, launch", [
+    ((128, 16, 6), (64, 592)),     # pruned: 4 nodes a block, 4 x 36 floats + 16 B
+    ((256, 16, 8), (64, 1040)),    # random
+    ((256, 20, 8), (64, 1040)),    # sdunes
+    ((4, 130, 16), (64, 2064)),    # 2 nodes of 16 + 16 lanes
+    ((3, 1, 6), (64, 592)),        # CR_EDGES
+    ((5, 2, 1), (64, 32)),
+    ((5, 17, 5), (64, 416)),
+    ((3, 33, 16), (64, 2064)),
+    ((2, 240, 16), (64, 2064)),
+])
+def test_precompute_launch(shape, launch):
+    """The precompute's block (threads, shared bytes), which chip_smoke.py
+    holds to the kernel's tq_chain_cr_precompute_launch on the card: one
+    warp of A's lane groups and one of B's, 32 / G nodes whose Ls blocks
+    are staged as one range, 16 bytes more for its offset; no opt-in."""
+    S, L, n = shape
+    assert cr.precompute_launch(n) == launch
+    threads, smem = launch
+    G = 8 if n <= 8 else 16
+    assert threads == 2 * 32 and smem == 32 // G * n * n * 4 + 16 <= 48 * 1024
 
 
 @pytest.mark.parametrize("shape, launch", [

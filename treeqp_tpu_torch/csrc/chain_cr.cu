@@ -13,10 +13,58 @@
 // independent n x n compositions. A and B depend only on the factors and
 // are built once per factorization (chain_cr_precompute).
 //
-// chain_cr_precompute keeps its first design: one thread per (scenario, j,
-// column k), two triangular solves against L_j with loops to a runtime n,
-// the blocks read straight from global memory (neighbouring threads n^2
-// floats apart). Its redesign is still to come.
+// chain_cr_precompute. What bounds it on the card: latency. It moves each
+// node's blocks once (Ls_j, CUs_j in, Abwd_j, Bfwd_j out: 4 S L n^2
+// floats, 1.2 MB at the pruned shape, microseconds below the card's byte
+// rate) and does 2 n triangular solves a node, far below its FP32 rate; a
+// node's critical path is one n-row solve, n true divisions and the FMAs
+// of its longest row in series. Design:
+// - The precompute has no recurrence, so no block a chain: a block takes P
+//   = 32 / G consecutive nodes t = s L + j of the flat [S L, n, n] layout,
+//   across chain boundaries, so no chain is too long for it.
+// - A node gets 2 G lanes, G = tq::lanes(n) (8 for n <= 8, 16 for n <=
+//   16): lane k of its A group solves column k of Abwd_j, lane k of its B
+//   group column k of Bfwd_j; lanes k >= n idle. The block's A groups fill
+//   its first P G threads and its B groups the rest, whole warps each, so a
+//   node's two dependency chains run side by side in different warps, with
+//   no divergence. The kernel is instantiated per G, so every loop over
+//   rows and m runs to the compile-time G under an i < n / m < n mask and
+//   unrolls: the lane's column stays in registers. One column a lane, not
+//   a row a lane: the n columns are independent, so no shuffle is needed.
+// - Before any arithmetic, the block's P n^2 floats of Ls start on their
+//   way to shared memory as one range (tq::stage_async: 16-byte copies but
+//   for an odd n's ragged ends). The 32 / G groups of a warp read the same
+//   entry of as many nodes, n^2 floats apart: 4-way bank conflicts at n =
+//   8, 2-way at n = 16, but only in the triangle's loads before the chain
+//   (regions padded to G mod 32 floats a node, free of them, measured
+//   0.0001-0.0003 ms faster at n = 8 and slower at every other n on an
+//   H100; PERF.md). While the copies fly, each lane loads its column k
+//   of CUs_{j+1} (A) or row k of CUs_j (B) straight from global memory
+//   into registers: each CU entry is read once, by one lane, so a copy in
+//   shared memory would buy nothing but a second trip (and B's rows, n
+//   floats apart a lane, bank conflicts). One
+//   wait, one barrier, no further barrier. Node j = L - 1 loads nothing
+//   for A and writes +0 (A_{L-1} = 0), so no CU block past the tensor's
+//   last node is read.
+// - After the barrier each lane loads the lower triangle of Ls_j into
+//   registers (n (n + 1) / 2 broadcasts, 136 floats at n = 16) before any
+//   arithmetic: both solves read just those entries, and the dependent
+//   chain of FMAs and divisions then waits on no load (read from shared
+//   memory inside the chain, the loads doubled its time at n = 16).
+// - Every element keeps the one-thread order of tq_dense.cuh's
+//   ltrsv_inplace (A: rows ascending, products m = 0 .. i-1) and
+//   uttrsv_inplace (B: rows descending, products m = i+1 .. n-1), each
+//   product folded in by one FMA as nvcc contracts `acc -= L v`, true
+//   divisions, the result negated on store: bit for bit the thread-per-
+//   column kernel it replaces.
+// - Stores: a group writes row i of its node's result as n contiguous
+//   floats, lane k entry k. (Staging the result in shared memory for
+//   16-byte stores of the node's n^2 contiguous floats measured no faster
+//   on an H100 at any shape; PERF.md.)
+// No tensor cores, as for the sweeps below. What bounds it now: a launch
+// in a CUDA graph takes ~2.2 us on an H100 at n = 1; the rest, ~2-3 us
+// more at n = 8 and n = 16, is the chain of divisions and FMAs (B's row i folds
+// the newest v_{i+1} first, so its row's FMAs wait in series).
 //
 // The sweeps. What bounds them on the card: latency. A sweep moves each
 // chain's operators once (S L n^2 f32, 0.3-1 MB a launch) and does about
@@ -81,33 +129,90 @@
 
 namespace {
 
-constexpr int kThreadsPre = 128;
+// A precompute block: P = 32 / G nodes, one warp of A's lanes and one of B's.
+constexpr int kPreThreads = 64;
+__host__ __device__ constexpr int pre_nodes(int n) { return 32 / tq::lanes(n); }
 
-__global__ void chain_cr_precompute_kernel(const float* __restrict__ Ls,
-                                           const float* __restrict__ CUs,
-                                           float* __restrict__ Abwd,
-                                           float* __restrict__ Bfwd, int S, int L,
-                                           int n) {
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long)S * L * n) return;
-  const int k = (int)(t % n);
-  const long sj = t / n;  // s * L + j
-  const int j = (int)(sj % L);
-  const size_t nn = (size_t)n * n;
-  const float* Lj = Ls + sj * nn;
-  float v[tq::kMaxN];
-  // column k of A_j = -L_j^-1 CU_{j+1}
-  if (j < L - 1) {
-    for (int i = 0; i < n; ++i) v[i] = CUs[(sj + 1) * nn + i * n + k];
-    tq::ltrsv_inplace(Lj, v, n);
-    for (int i = 0; i < n; ++i) Abwd[sj * nn + i * n + k] = -v[i];
-  } else {
-    for (int i = 0; i < n; ++i) Abwd[sj * nn + i * n + k] = 0.f;
+// Shared memory of a precompute block, in bytes: its Ls blocks, one range
+// at its source's offset within 16 bytes (tq::stage_async).
+inline size_t pre_smem_bytes(int n) { return (size_t)pre_nodes(n) * n * n * sizeof(float) + 16; }
+
+// Where row i of a lower triangle starts in its row-major packing.
+__host__ __device__ constexpr int tri(int i) { return i * (i + 1) / 2; }
+
+template <int G>
+__global__ void __launch_bounds__(kPreThreads) chain_cr_precompute_kernel(
+    const float* __restrict__ Ls, const float* __restrict__ CUs, float* __restrict__ Abwd,
+    float* __restrict__ Bfwd, long T, int L, int n) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int N = G, P = 32 / G;
+  const int nn = n * n;
+  const long t0 = (long)blockIdx.x * P;
+  const int cnt = T - t0 < P ? (int)(T - t0) : P;
+  const float* Lb = tq::stage_async(smem, Ls + t0 * nn, (size_t)cnt * nn);
+  tq::cp_async_commit();
+  // the thread's side (A: the first P G threads), node t and column k
+  const bool bside = threadIdx.x >= P * G;
+  const int lane = threadIdx.x - (bside ? P * G : 0), p = lane / G, k = lane % G;
+  const long t = t0 + p;
+  const bool node = p < cnt, zero = !bside && t % L == L - 1;  // A_{L-1} = 0
+  // column k of CUs_{t+1} (A) or row k of CUs_t (B), zeros past row n
+  const float* C = CUs + (bside ? t * nn + k * n : (t + 1) * nn + k);
+  const int step = bside ? 1 : n;
+  const bool load = node && k < n && !zero;
+  float v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = load && i < n ? C[i * step] : 0.f;
+  tq::cp_async_wait<0>();
+  __syncthreads();
+  if (node) {
+    // Ls_t's lower triangle into registers, row i at tri(i), before any
+    // arithmetic: no load waits inside the chain of FMAs and divisions
+    const float* Lj = Lb + p * nn;
+    float Lt[tri(N)];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int m = 0; m <= i; ++m) Lt[tri(i) + m] = i < n ? Lj[i * n + m] : 1.f;
+    if (!bside) {  // Ls_t v = c: ltrsv_inplace's order
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        if (i < n) {
+          float acc = v[i];
+#pragma unroll
+          for (int m = 0; m < i; ++m) acc = __fmaf_rn(-Lt[tri(i) + m], v[m], acc);
+          v[i] = tq::quotient(acc, Lt[tri(i) + i]);
+        }
+      }
+    } else {  // Ls_t' v = c: uttrsv_inplace's order
+#pragma unroll
+      for (int i = N - 1; i >= 0; --i) {
+        if (i < n) {
+          float acc = v[i];
+#pragma unroll
+          for (int m = i + 1; m < N; ++m)
+            if (m < n) acc = __fmaf_rn(-Lt[tri(m) + i], v[m], acc);
+          v[i] = tq::quotient(acc, Lt[tri(i) + i]);
+        }
+      }
+    }
   }
-  // column k of B_j = -L_j^-T CU_j': row k of CU_j
-  for (int i = 0; i < n; ++i) v[i] = CUs[sj * nn + k * n + i];
-  tq::uttrsv_inplace(Lj, v, n);
-  for (int i = 0; i < n; ++i) Bfwd[sj * nn + i * n + k] = -v[i];
+  float* out = (bside ? Bfwd : Abwd) + t * nn;
+  if (node && k < n) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (i < n) out[i * n + k] = zero ? 0.f : -v[i];
+  }
+}
+
+template <int G>
+int launch_pre(const float* Ls, const float* CUs, float* Abwd, float* Bfwd, long T, int L,
+               int n, cudaStream_t st) {
+  constexpr int P = 32 / G;
+  const long blocks = (T + P - 1) / P;
+  chain_cr_precompute_kernel<G><<<(unsigned)blocks, kPreThreads, pre_smem_bytes(n), st>>>(
+      Ls, CUs, Abwd, Bfwd, T, L, n);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -435,11 +540,18 @@ int launch_fwd(const float* Ls, const float* Bfwd, const float* ys, const float*
 // Ls, CUs, Abwd, Bfwd, S, L, n, stream
 extern "C" int tq_chain_cr_precompute(const float* Ls, const float* CUs, float* Abwd,
                                       float* Bfwd, int S, int L, int n, void* stream) {
-  const long threads = (long)S * L * n;
-  const int blocks = (int)((threads + kThreadsPre - 1) / kThreadsPre);
-  chain_cr_precompute_kernel<<<blocks, kThreadsPre, 0, (cudaStream_t)stream>>>(
-      Ls, CUs, Abwd, Bfwd, S, L, n);
-  return (int)cudaGetLastError();
+  const long T = (long)S * L;
+  const auto st = (cudaStream_t)stream;
+  return tq::lanes(n) == 8 ? launch_pre<8>(Ls, CUs, Abwd, Bfwd, T, L, n, st)
+                           : launch_pre<16>(Ls, CUs, Abwd, Bfwd, T, L, n, st);
+}
+
+// n, out: out[0] the threads of a precompute block, out[1] its dynamic
+// shared memory in bytes (ops/chain_cr.py's precompute_launch mirrors both)
+extern "C" int tq_chain_cr_precompute_launch(int n, int* out) {
+  out[0] = kPreThreads;
+  out[1] = (int)pre_smem_bytes(n);
+  return 0;
 }
 
 // Ls, CUs, Abwd, res, ys, radd0, scratch (NULL: shared memory), S, L, n, stream

@@ -104,6 +104,8 @@ _SIGNATURES = {
     # the cyclic-reduction variants of the chain sweeps
     # Ls, CUs, Abwd, Bfwd, S, L, n, stream
     "tq_chain_cr_precompute": [_P] * 4 + [_I] * 3 + [_P],
+    # n, out (2 ints: a precompute block's threads and shared memory)
+    "tq_chain_cr_precompute_launch": [_I, _P],
     # Ls, CUs, Abwd, res, ys, radd0, scratch, S, L, n, stream
     "tq_chain_solve_bwd_cr": [_P] * 7 + [_I] * 3 + [_P],
     # Ls, Bfwd, ys, droot, dls, scratch, S, L, n, stream

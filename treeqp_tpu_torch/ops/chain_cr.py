@@ -24,8 +24,10 @@ Layout is the port's chain layout (``chain_kernels``): factors ``Ls``,
 ``chain_forward`` directly. Each wrapper launches its CUDA kernel
 (``csrc/chain_cr.cu``) on CUDA tensors and runs its plain PyTorch twin
 (``*_ref``, the same doubling, not the serial sweep) on CPU tensors. All
-f32, like the Pallas kernels. The sweeps run a lane group a chain node,
-the chain in one block's shared memory (``sweep_launch``).
+f32, like the Pallas kernels. The precompute runs flat ranges of nodes a
+block, a node's A and B columns on lanes of their own
+(``precompute_launch``); the sweeps a lane group a chain node, the chain
+in one block's shared memory (``sweep_launch``).
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ import torch
 from treeqp_tpu_torch.ops import _build, _dense
 from treeqp_tpu_torch.ops.chain_kernels import _chain_shape_check
 
-__all__ = ["chain_cr_precompute", "chain_cr_precompute_ref", "chain_solve_bwd_cr",
-           "chain_solve_bwd_cr_ref", "chain_forward_cr", "chain_forward_cr_ref", "sweep_launch"]
+__all__ = ["chain_cr_precompute", "chain_cr_precompute_ref", "precompute_launch",
+           "chain_solve_bwd_cr", "chain_solve_bwd_cr_ref", "chain_forward_cr",
+           "chain_forward_cr_ref", "sweep_launch"]
 
 # the shared memory one thread block may take on the card (227 KB with the
 # opt-in); a sweep whose chain needs more gets a global scratch
@@ -51,6 +54,15 @@ def chain_cr_precompute_ref(Ls, CUs):
     Abwd[:, :-1] = -_dense.ltrsv_mat(Ls[:, :-1], CUs[:, 1:])
     Bfwd = -_dense.uttrsv_mat(Ls, CUs.mT.contiguous())
     return Abwd, Bfwd
+
+
+def precompute_launch(n):
+    """The block of ``chain_cr_precompute`` at n rows: (threads, dynamic
+    shared memory in bytes), what ``csrc/chain_cr.cu`` launches with. A
+    block takes P = 32 / G consecutive nodes of the flat S L range (G = 8
+    for n <= 8, else 16), one warp of A's column groups and one of B's, and
+    stages their P n^2 floats of Ls as one range (16 bytes for its offset)."""
+    return 64, 32 // (8 if n <= 8 else 16) * n * n * 4 + 16
 
 
 def chain_cr_precompute(Ls, CUs):
