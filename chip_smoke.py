@@ -204,14 +204,36 @@ Phases (any failure exits non-zero):
    KKT < 1e-8 on the eliminated problem, x[1:] and u within 1e-6 of the
    solve without elimination, its iterations, launches and time printed;
    and the instance rebuilt through the three LTV setters from flat
-   arrays, every field equal.
+   arrays, every field equal;
+11. the JAX package's default solver options (slice 23): path G,
+   ``tdunes_solve`` on section 6's two general C/D trees at the depth Nr=3
+   (64 scenarios, 1173 nodes; at the full depth both packages stall at
+   these options) at general_cd_bench's CPU options
+   (``models.GENERAL_CD_CPU_OPTS``: f64 factors, the plain tree Cholesky
+   with the on-the-fly Levenberg-Marquardt shift, no coarse phase), each a
+   cold request and a warm chain of four (b + 1e-6 (k + 1) from the
+   previous duals and working sets); path B, the bench path (bench.py's options)
+   with ``reg_type="on_the_fly"`` on the headline tree, cold and warm
+   requests, its iterations beside section 3's; paths P, the portable
+   backend (``chain_backend="xla"``): ``tdunes_solve`` on section 5's
+   pruned tree at generic_bench.speed_opts(on_tpu=False),
+   ``tdunes_ms_solve`` on scen1024_bench's spring_mass_chain(4,4,5,20) at
+   its CPU options and ``sdunes_solve`` on section 8's tree at
+   sdunes_bench._sdunes_opts(on_tpu=False); every request certified
+   (status 0, stationarity below tol, KKT < 1e-8) with its iterations and
+   time printed; and the MPC state of tests/test_torch_qp_mpc.py that
+   stalls both packages (quadcopter(2,2,6) pruned to 3 scenarios, x0 +
+   0.05 N(0, I)) at ``models.GENERIC_SPEED_OPTS`` with reg_type "always"
+   and "on_the_fly", on the card and on the CPU, the two held to the same
+   status and iterations.
 
 The kernel launch counts are set to 0 before each path (one-phase,
 two-phase, bench, bench handover, two-norm, 1024 scenarios, generic split,
 generic crown, generic cross-check, general C/D qpgen, general C/D mixed,
 IPM paths A, B and C; the sdunes cold solve, each boot request's
 bootstrap and its sdunes solve apart, sdunes_f32, tdunes_ms_f32; the CR
-loop; the MPC re-embedding path)
+loop; the MPC re-embedding path; G qpgen, G mixed, bench on-the-fly, P
+generic, P multistage, P sdunes)
 and read after it; every kernel must launch on a path that runs it, the
 multistage paths launch none of the generic solver's kernels, the generic
 split path none of the multistage solver's, the crown path only
@@ -224,7 +246,12 @@ before section 8 launches chain_full_solve_mat or jay_cr_solve, and each
 sdunes solve launches chain_factor once an iteration and both of them once
 a coarse iteration and 1 + its refinement steps times a final iteration,
 and no other kernel; no path but section 9's launches a CR kernel, and the
-MPC path launches the five generic kernels and no other. Prints the JSON
+MPC path launches the five generic kernels and no other; the G paths
+launch admm_identify and no other kernel, the bench on-the-fly path the
+chain kernels of the coarse loop (chain_eval, crown_eval,
+chain_blocks_factor_lanes), the chain sweeps chain_solve_bwd and
+chain_forward, the five kernels of the high-precision phase and no other,
+and the P paths no kernel. Prints the JSON
 summary of all 28 kernels (rows chain_factor, chain_solve_bwd,
 chain_forward, crown_factor, crown_solve, crown_blocks_factor,
 df_reduce_flat, chain_blocks_factor, chain_blocks_factor_lanes,
@@ -420,6 +447,26 @@ CR_EDGES = ((3, 1, 6), (5, 2, 1), (5, 17, 5), (3, 33, 16), (2, 240, 16))
 # control); x[1:] and u within MPC_GAP of the solve without the elimination
 N_REQUESTS_MPC = 4
 MPC_GAP = 1e-6
+# section 11 (the JAX package's default options): the benches' CPU options
+# (on_tpu=False) run the portable backend, chain_backend "xla":
+# generic_bench.speed_opts(on_tpu=False), scen1024_bench.py:43-50 and
+# sdunes_bench._sdunes_opts(on_tpu=False)
+GENERIC_CPU_OPTS = dict(stage_solver="clipping", tol=TOL, max_iter=120, factor_dtype="same",
+                        refine_steps=0, refine_safeguard=False, chain_backend="xla",
+                        reg_type="on_the_fly", reg_value=1e-6, f32_phase_tol=0.0,
+                        df64_phase=False)
+SCEN1024_CPU_OPTS = {**GENERIC_CPU_OPTS, "max_iter": 150}
+SCEN1024 = (4, 4, 5, 20)  # scen1024_bench's spring_mass_chain: 1024 scenarios
+SDUNES_CPU_OPTS = dict(tol=TOL, max_iter=150, factor_dtype="same", refine_steps=0,
+                       f32_phase_tol=0.0, chain_backend="xla", reg_type="always",
+                       reg_value=1e-6)
+# bench.py's options with the JAX package's default regularization
+BENCH_OTF_OPTS = {**BENCH_OPTS, "reg_type": "on_the_fly"}
+N_REQUESTS_DEF = 4  # general C/D warm requests at the CPU options
+# the depth of those requests: 64 scenarios, 1173 nodes. At Nr=4 (4437
+# nodes) the CPU options stall at max_iter in both packages (the JAX
+# package on the CPU: status 1 after 150 iterations, error 0.51)
+CD_DEF_NR = 3
 
 
 def fail(msg):
@@ -1123,7 +1170,8 @@ def main():
     import treeqp_tpu_torch  # noqa: F401  (pins full-precision f32)
     from treeqp_tpu_torch.core.kkt import max_kkt_residual
     from treeqp_tpu_torch.core.qp_data import QP_FIELDS
-    from treeqp_tpu_torch.models import (GENERAL_CD_OPTS, GENERIC_SPEED_OPTS, IPM_OPTS,
+    from treeqp_tpu_torch.models import (GENERAL_CD_CPU_OPTS, GENERAL_CD_OPTS,
+                                         GENERIC_SPEED_OPTS, IPM_OPTS,
                                          SDUNES_BOOT_OPTS, SDUNES_OPTS, asym_tree,
                                          general_cd, pruned, quadcopter, spring_mass_chain)
     from treeqp_tpu_torch.ops import _build
@@ -3557,6 +3605,143 @@ def main():
     print(f"LTV setters: A, B, b, Q, R, q, r and the bounds of the {qg.topo.Nn}-node tree "
           f"rebuilt from flat arrays, every field equal")
     print(f"sections 9-10 (slice 8): {time.perf_counter() - t_slice8:.1f} s on {card}")
+
+    # ---- 11. the JAX package's default solver options (slice 23): general
+    # C/D at general_cd_bench's CPU options (path G), the bench path with
+    # the on-the-fly shift (path B), each solver on the portable backend
+    # (paths P: no kernel), and the open MPC question of section 10
+    t_slice23 = time.perf_counter()
+    all_names = tuple(k.__name__ for k in kernels)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def g_request(q, lam0, ws0, o, what):
+        """One tdunes_solve request, certified: status 0, stationarity below
+        the options' tol, KKT < 1e-8, finite output of the right shape."""
+        n0 = {k.__name__: k.launches for k in kernels}
+        out, t_ms = timed(lambda: td.tdunes_solve(q, lam0, o, stage_ws=ws0))
+        kkt, info = max_kkt_residual(q, out), out.info
+        if info["status"] != td.TDUNES_OPTIMAL or not info["error"] < o.tol or not kkt < TOL:
+            fail(f"{what}: status {info['status']} error {info['error']} kkt {kkt}")
+        if tuple(out.x.shape) != (q.topo.Nn, q.topo.nxm) or not all(
+                bool(torch.isfinite(v).all()) for v in (out.x, out.u, out.lam, out.mu_d)):
+            fail(f"{what}: output of the wrong shape or not finite")
+        launched = {k.__name__: k.launches - n0[k.__name__] for k in kernels
+                    if k.launches > n0[k.__name__]}
+        print(f"{what}: iter {info['iter']}, error {info['error']:.3e}, kkt {kkt:.3e}, "
+              f"{t_ms:.1f} ms, launches {launched} on {card}")
+        return out, t_ms
+
+    optsgc = td.TdunesOpts(**GENERAL_CD_CPU_OPTS)
+
+    def general_cpu_opts(q, o, mode):
+        """A cold request and a warm chain of N_REQUESTS_DEF requests (b +
+        1e-6 (k + 1), from the previous duals and working sets)."""
+        first, t_cold = g_request(q, None, None, o, f"G {mode} cold request")
+        prev, rows = first, []
+        for k in range(N_REQUESTS_DEF):
+            prev, t_ms = g_request(q.replace(b=q.b + CD_DB * (k + 1)), prev.lam,
+                                   prev.info["qpgen_ws"], o, f"G {mode} warm request {k}")
+            rows.append((prev.info["iter"], t_ms))
+        print(f"G {mode} ({q.topo.Nn} nodes) at general_cd_bench's CPU options: cold "
+              f"{first.info['iter']} iterations, {t_cold:.1f} ms; warm iterations "
+              f"{[r[0] for r in rows]}, ms {[round(r[1], 1) for r in rows]} on {card}")
+        return first
+    for mode in ("qpgen", "mixed"):
+        q_def = general_cd(mode, Nr=CD_DEF_NR, device=dev)
+        drive(f"G {mode}", admm_name,
+              lambda: general_cpu_opts(q_def, dataclasses.replace(optsgc, stage_solver=mode),
+                                       mode),
+              forbid=tuple(n for n in all_names if n != "admm_identify"))
+
+    # B: bench.py's options with reg_type "on_the_fly": the chain kernels,
+    # the crown's plain tree Cholesky, the three-call solve, the coarse
+    # phase's per-kernel loop and ms_df64's kernels
+    optsbo = td.TdunesOpts(**BENCH_OTF_OPTS)
+    b_needs = ("chain_eval", "crown_eval", "chain_blocks_factor_lanes", "chain_solve_bwd",
+               "chain_forward") + df_kernels
+    tbo = drive("bench on-the-fly", b_needs,
+                lambda: requests(optsbo, 2, ("cold", "warm"), None, "bench-path on-the-fly"),
+                forbid=tuple(n for n in all_names if n not in b_needs))
+    print(f"B: bench path with reg_type on_the_fly, iterations cold {tbo['cold'][1]} "
+          f"(coarse {tbo['cold'][2]}), warm {tbo['warm'][1]} (coarse {tbo['warm'][2]}); at "
+          f"reg_type always (section 3) cold {tb['cold'][1][:2]} (coarse "
+          f"{tb['cold'][2][:2]}), warm {tb['warm'][1][:2]}; {tbo['cold'][0]:.1f} vs "
+          f"{tb['cold'][0]:.1f} ms a cold request on {card}")
+
+    # P: the portable backend, no kernel launch; each the plain baseline of
+    # its solver, certified
+    optsp = td.TdunesOpts(**GENERIC_CPU_OPTS)
+
+    def p_generic():
+        g_request(qg, None, None, optsp, "P tdunes_solve (first, warm-up)")
+        return g_request(qg, None, None, optsp,
+                         f"P tdunes_solve, quadcopter({MD},{NR},{NH}) pruned to {GEN_SCEN} "
+                         f"scenarios, generic_bench's CPU options")
+    drive("P generic", (), p_generic, forbid=all_names)
+
+    q1k_cpu = spring_mass_chain(*SCEN1024, device="cpu")[0]
+    q1k, ms1k = q1k_cpu.to(dev), tm.split_multistage(q1k_cpu).to(dev)
+    opts1k = td.TdunesOpts(**SCEN1024_CPU_OPTS)
+
+    def p_multistage():
+        for what in ("first, warm-up", "again"):
+            (cro, cho, info), t_ms = timed(lambda: tm.tdunes_ms_solve(ms1k, None, None, opts1k))
+            out = tm.merge_output(ms1k, cro, cho, info)
+            kkt = max_kkt_residual(q1k, out)
+            if info["status"] != td.TDUNES_OPTIMAL or not info["error"] < TOL \
+                    or not kkt < TOL or not bool(torch.isfinite(out.lam).all()):
+                fail(f"P tdunes_ms_solve: status {info['status']} error {info['error']} "
+                     f"kkt {kkt}")
+            print(f"P tdunes_ms_solve ({what}), spring_mass_chain{SCEN1024} "
+                  f"({q1k.topo.Nn} nodes), scen1024_bench's CPU options: iter "
+                  f"{info['iter']}, kkt {kkt:.3e}, {t_ms:.1f} ms on {card}")
+        return info
+    drive("P multistage", (), p_multistage, forbid=all_names)
+    optssp = sd.SdunesOpts(**SDUNES_CPU_OPTS)
+
+    def p_sdunes():
+        for what in ("first, warm-up", "again"):
+            (sol, lam, mu, info), t_ms = timed(lambda: sd.sdunes_solve(sqp, None, None, optssp))
+            out = sd.scenario_output(sqp, sol, lam, mu, info)
+            kkt = max_kkt_residual(qb, out)
+            if info["status"] != td.TDUNES_OPTIMAL or not info["error"] < TOL \
+                    or not kkt < TOL:
+                fail(f"P sdunes_solve: status {info['status']} error {info['error']} "
+                     f"kkt {kkt}")
+            print(f"P sdunes_solve ({what}), box-only spring_mass_chain(4,4,4,20), "
+                  f"sdunes_bench's CPU options: iter {info['iter']}, kkt {kkt:.3e}, "
+                  f"{t_ms:.1f} ms on {card}")
+        return info
+    drive("P sdunes", (), p_sdunes, forbid=all_names)
+
+    # the open MPC question: the state that stalls both packages at reg_type
+    # "always" (tests/test_torch_qp_mpc.py), with the on-the-fly shift, on
+    # the card and through the plain path on the CPU
+    q_mpc_cpu = pruned(quadcopter(2, 2, 6, device="cpu").qp, 3)
+    x_mpc = quadcopter(2, 2, 6, device="cpu").x0
+    rng_mpc = np.random.default_rng(0)
+    x_mpc = [x_mpc + 0.05 * rng_mpc.standard_normal(x_mpc.shape) for _ in range(2)][1]
+    q_mpc_cpu = q_mpc_cpu.set_x0(x_mpc)
+    q_mpc = q_mpc_cpu.to(dev)
+    for reg in ("always", "on_the_fly"):
+        o = td.TdunesOpts(**{**GENERIC_SPEED_OPTS, "reg_type": reg})
+        out, t_ms = timed(lambda: td.tdunes_solve(q_mpc, None, o))
+        out_c = td.tdunes_solve(q_mpc_cpu, None, o)
+        kkt, kkt_c = max_kkt_residual(q_mpc, out), max_kkt_residual(q_mpc_cpu, out_c)
+        print(f"MPC jump state (quadcopter(2,2,6) pruned to 3, x0 + 0.05 N(0, I), seed 0, "
+              f"second draw), reg_type {reg}: card status {out.info['status']} iter "
+              f"{out.info['iter']} kkt {kkt:.3e} ({t_ms:.1f} ms), CPU status "
+              f"{out_c.info['status']} iter {out_c.info['iter']} kkt {kkt_c:.3e} on {card}")
+        if not math.isfinite(kkt) or (out.info["status"], out.info["iter"]) != (
+                out_c.info["status"], out_c.info["iter"]):
+            fail(f"MPC jump state, reg_type {reg}: the card and the CPU disagree")
+    print(f"section 11 (slice 23): {time.perf_counter() - t_slice23:.1f} s on {card}")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"(build {t_build:.1f} s) on {card}")

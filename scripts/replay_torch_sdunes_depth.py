@@ -192,7 +192,7 @@ def port_step(sqp, opts, carry, noise=None, kernels=None):
         for sw in swaps:
             stack.enter_context(sw)
         lam, mu, err, status, ls_it, _, noimp, boost, shift, _ = sd._sd_iteration(
-            sqp, opts, sd._sd_consts(sqp), T(c["lam"]), T(c["mu"]), int(c["status"]),
+            sqp, opts, sd._sd_consts(sqp, opts), T(c["lam"]), T(c["mu"]), int(c["status"]),
             int(c["ls_it"]), T(c["best"]), int(c["noimp"]), T(c["boost"]))
     return dict(lam=lam.double().numpy(), mu=mu.double().numpy(), err=float(err),
                 status=status, ls_it=ls_it, noimp=noimp, boost=float(boost),
@@ -205,7 +205,8 @@ def active_count(sqp, carry):
     """(clipped x, clipped u) at a carry's point, in the port."""
     c = dict(zip(CARRY, carry))
     T = lambda a: torch.from_numpy(np.array(a)).to(sqp.b.dtype)
-    sol = sd._stage_solve(sqp, T(c["mu"]), T(c["lam"]), sd._sd_consts(sqp)["cmask"])
+    cmask = sd._coupling_masks(sqp.meta, sqp.b.dtype, sqp.b.device)
+    sol = sd._stage_solve(sqp, T(c["mu"]), T(c["lam"]), cmask)
     return int((sol["qt"] == 0).sum()), int((sol["rt"] == 0).sum())
 
 

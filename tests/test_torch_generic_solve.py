@@ -159,17 +159,38 @@ def test_pruning_matches_jax(kw):
     dict(record_history=True), dict(axis_name="scen"),
     pytest.param(dict(stage_solver="qpgen"), id="stage_solver")])
 def test_options_outside_the_slice_raise(over):
-    """The options the port does not implement raise; stage_solver, outside
-    slice 4, is ported since slice 5 and now solves (the general stage
-    QPs on a tree with bounds only, certified by the oracle)."""
+    """The options outside slice 4. axis_name (multi-device) still raises.
+    chain_backend="xla", reg_type="on_the_fly" and factor_dtype="same" (the
+    JAX package's defaults) take the plain tree Cholesky, record_history
+    the kernels: each solves the two-phase request and agrees with the JAX
+    package's solve in iterations, x, u and lambda, certified by both
+    oracles; the history records the same iterations and line searches as
+    JAX's. stage_solver, outside slice 4, is ported since slice 5 and
+    solves (the general stage QPs on a tree with bounds only, certified by
+    the oracle)."""
     qp = port_qp("pruned")
     opts = td.TdunesOpts(**{**SPEED, **over})
+    if "axis_name" in over:
+        with pytest.raises(NotImplementedError):
+            tdunes_solve(qp, None, opts)
+        return
     if "stage_solver" in over:
         out = tdunes_solve(qp, None, opts)
         assert out.info["status"] == 0 and max_kkt_residual(qp, out) < 1e-8
         return
-    with pytest.raises(NotImplementedError):
-        tdunes_solve(qp, None, opts)
+    info = check_agree("pruned", "two_phase", **over)
+    info_j = solve_both("pruned", "two_phase", **over)[1].info
+    assert info["iter"] == int(info_j["iter"])
+    if "record_history" in over:
+        err, ls = info["err_hist"].numpy(), info["ls_hist"].numpy()
+        err_j, ls_j = np.asarray(info_j["err_hist"]), np.asarray(info_j["ls_hist"])
+        assert err.shape == ls.shape == (SPEED["max_iter"],)
+        np.testing.assert_array_equal(np.isnan(err), np.isnan(err_j))
+        np.testing.assert_array_equal(ls, ls_j)
+        # the coarse phase records nothing; the last entry is the converged error
+        last = info["iter"]
+        assert np.isnan(err[:info["iter_f32"]]).all() and np.isnan(err[last + 1:]).all()
+        assert err[last] == info["error"] < SPEED["tol"]
 
 
 def test_stage_ws_and_non_diagonal_weights_raise():

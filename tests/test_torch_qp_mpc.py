@@ -5,8 +5,8 @@ on x0-eliminated trees.
 The same numpy inputs go through both packages on spring_mass_chain(2, 3,
 2, 6) with general rows and a root S, and on quadcopter(2, 2, 6) (its
 leaves have no controls): every field equal within 1e-15. The solves run
-``models.GENERIC_SPEED_OPTS`` on both sides (the port raises on JAX's
-default options), the JAX side on its XLA chain backend, and are held to
+``models.GENERIC_SPEED_OPTS`` on both sides (the options of the chip
+smoke's MPC path), the JAX side on its XLA chain backend, and are held to
 the ROADMAP bars (iterations within one, x and u within 1e-7)."""
 
 import dataclasses
@@ -209,6 +209,29 @@ def test_large_attitude_jumps_stall_in_both_packages():
     assert max_kkt_residual(qp.set_x0(x), out) > 1.0
     out_i = ipm_solve(qp.set_x0(x), ipm.IpmOpts(**{**models.IPM_OPTS["cd"], "max_iter": 100}))
     assert out_i.info["status"] == 0 and max_kkt_residual(qp.set_x0(x), out_i) < 1e-8
+
+
+def test_large_attitude_jumps_stall_with_the_on_the_fly_shift_too():
+    """The same state with the JAX package's default regularization,
+    reg_type "on_the_fly" (the Levenberg-Marquardt shift escalated on the
+    blocks whose pivots fall to reg_tol): both packages still stall at
+    max_iter with the same KKT residual (> 1), and their iterates agree
+    within 1e-4 (f32 factors on both sides: the JAX side's XLA tree
+    Cholesky, the port's plain tree Cholesky). The shift does not reach the
+    random jump states either."""
+    qj, qp, x0 = quadcopter_pruned()
+    rng = np.random.default_rng(0)
+    x = [x0 + 0.05 * rng.standard_normal(x0.shape) for _ in range(2)][1]
+    opts = {**OPTS, "reg_type": "on_the_fly"}
+    out_j = jtd.tdunes_solve(qj.set_x0(x), None,
+                             jtd.TdunesOpts(**{**opts, "chain_backend": "xla"}))
+    out = tdunes_solve(qp.set_x0(x), None, td.TdunesOpts(**opts))
+    assert int(out_j.info["status"]) == out.info["status"] == td.TDUNES_MAX_ITER
+    assert int(out_j.info["iter"]) == out.info["iter"] == OPTS["max_iter"]
+    kkt, kkt_j = max_kkt_residual(qp.set_x0(x), out), float(jax_kkt(qj.set_x0(x), out_j))
+    assert kkt > 1.0 and abs(kkt - kkt_j) <= 1e-6 * kkt_j
+    assert float(np.max(np.abs(np.asarray(out_j.x) - out.x.numpy()))) <= 1e-4
+    assert float(np.max(np.abs(np.asarray(out_j.u) - out.u.numpy()))) <= 1e-4
 
 
 def test_quadcopter_plant_matches_jax():

@@ -220,7 +220,27 @@ def test_warm_start_resumes(f32_phase_tol):
 @pytest.mark.parametrize("field,value", [("chain_backend", "xla"), ("factor_dtype", "same"),
                                          ("axis_name", "scen")])
 def test_unported_options_raise(field, value):
-    _, _, _, sqp = instance()
-    opts = sd.SdunesOpts(**{**models.SDUNES_OPTS, field: value})
-    with pytest.raises(NotImplementedError):
-        sd.sdunes_solve(sqp, None, None, opts)
+    """axis_name (multi-device) still raises. chain_backend="xla" and
+    factor_dtype="same" (the JAX package's defaults; the latter on the
+    portable backend, as with the chain kernels both packages refuse f64
+    factors, test_torch_default_opts.py) solve the instance cold, in the
+    JAX package's iterations, with the same trajectories and tree duals
+    (within 1e-7 / 1e-6), certified by the oracle."""
+    qp_j, qp, sqp_j, sqp = instance()
+    over = {field: value}
+    if field == "factor_dtype":
+        over["chain_backend"] = "xla"
+    opts = {**models.SDUNES_OPTS, **over}
+    if field == "axis_name":
+        with pytest.raises(NotImplementedError):
+            sd.sdunes_solve(sqp, None, None, sd.SdunesOpts(**opts))
+        return
+    sol_j, lam_j, mu_j, info_j = jsd.sdunes_solve(sqp_j, None, None, jsd.SdunesOpts(**opts))
+    sol, lam, mu, info = sd.sdunes_solve(sqp, None, None, sd.SdunesOpts(**opts))
+    assert int(info_j["status"]) == 0 and info["status"] == 0
+    assert int(info_j["iter"]) == info["iter"]
+    out = sd.scenario_output(sqp, sol, lam, mu, info)
+    assert max_kkt_residual(qp, out) < 1e-8
+    out_j = jsd.scenario_output(sqp_j, sol_j, lam_j, mu_j, info_j)
+    for f, tol in (("x", 1e-7), ("u", 1e-7), ("lam", 1e-6)):
+        assert np.abs(getattr(out, f).numpy() - np.asarray(getattr(out_j, f))).max() <= tol, f

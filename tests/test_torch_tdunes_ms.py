@@ -16,6 +16,7 @@ from treeqp_tpu.solvers import tdunes_multistage as jtm
 
 from treeqp_tpu_torch import convert
 from treeqp_tpu_torch.core.kkt import max_kkt_residual
+from treeqp_tpu_torch.ops import chain_kernels as ck
 from treeqp_tpu_torch.solvers import tdunes as td
 from treeqp_tpu_torch.solvers import tdunes_multistage as tm
 
@@ -48,11 +49,13 @@ def solve_both_cached(name, **overrides):
     return solve_both(name, **overrides)
 
 
-def solve_both(name, **overrides):
+def solve_both(name, jax_overrides=None, **overrides):
+    """The JAX and port solves of one case with SLICE and ``overrides``;
+    ``jax_overrides`` change the JAX side's options only."""
     qp_j = CASES[name]()
     ms_j = jtm.split_multistage(qp_j)
     cro, cho, info_j = jtm.tdunes_ms_solve(
-        ms_j, None, None, jtd.TdunesOpts(**{**SLICE, **overrides}))
+        ms_j, None, None, jtd.TdunesOpts(**{**SLICE, **overrides, **(jax_overrides or {})}))
     out_j = jtm.merge_output(ms_j, cro, cho, info_j)
     qp = convert.qp_from_numpy(convert.qp_arrays(qp_j), convert.topo_from(qp_j.topo),
                                device="cpu")
@@ -175,13 +178,57 @@ def test_armijo_batch_takes_the_first_accepted_step(accept_at, dtype):
 
 @pytest.mark.parametrize("override", [
     dict(axis_name="scen"), dict(chain_backend="xla"),
-    dict(factor_dtype="same"), dict(reg_type="on_the_fly"),
+    dict(factor_dtype="same", chain_backend="xla"), dict(reg_type="on_the_fly"),
     pytest.param(dict(stage_solver="qpgen"), id="stage_solver"),
     pytest.param(dict(stage_solver="dense"), id="stage_solver_dense"),
     pytest.param(dict(stage_solver="boxqp"), id="stage_solver_boxqp")],
     ids=lambda o: next(iter(o)))
-def test_options_outside_the_slice_raise(override):
+def test_options_outside_the_slice_raise(override, monkeypatch):
+    """The options outside slice 1. axis_name (multi-device) still raises
+    NotImplementedError, and a stage solver other than clipping the
+    ValueError of the JAX package's own assert. chain_backend="xla",
+    factor_dtype="same" (on the portable backend: with the chain kernels
+    both packages refuse f64 factors, test_torch_default_opts.py) and
+    reg_type="on_the_fly" (the chain kernels, the crown's plain tree
+    Cholesky between their sweeps) solve, and agree with the JAX package's
+    solve in iterations, x, u and lambda, certified by both oracles. The
+    on-the-fly case is held against JAX's portable backend: the chain
+    kernels do not shift their pivots, the portable chain factor shifts
+    those at or below reg_tol, so the two agree where no chain pivot falls
+    there, which the case asserts."""
     ms = port_ms("quadcopter")
     opts = dataclasses.replace(td.TdunesOpts(**SLICE), **override)
-    with pytest.raises(NotImplementedError):
-        tm.tdunes_ms_solve(ms, None, None, opts)
+    if "axis_name" in override:
+        with pytest.raises(NotImplementedError):
+            tm.tdunes_ms_solve(ms, None, None, opts)
+        return
+    if "stage_solver" in override:
+        with pytest.raises(ValueError, match="supports only the clipping"):
+            tm.tdunes_ms_solve(ms, None, None, opts)
+        return
+    pivots = []
+    real = ck.chain_blocks_factor
+
+    def recorded(*args):
+        out = real(*args)
+        pivots.append(float(torch.diagonal(out[0], dim1=-2, dim2=-1).min()))
+        return out
+
+    monkeypatch.setattr(ck, "chain_blocks_factor", recorded)
+    jax_over = dict(chain_backend="xla") if "reg_type" in override else None
+    qp_j, out_j, info_j, qp, out, info = solve_both("quadcopter", jax_over, **override)
+    assert int(info_j["status"]) == 0 and info["status"] == 0
+    assert int(info_j["iter"]) == info["iter"]
+    kkt_j, kkt = float(jax_kkt(qp_j, out_j)), max_kkt_residual(qp, out)
+    assert kkt_j < 1e-8 and kkt < 1e-8
+    out_jt = out.replace(**{f: torch.tensor(v) for f, v in
+                            convert.out_to_numpy(out_j).items()})
+    assert abs(max_kkt_residual(qp, out_jt) - kkt_j) <= 1e-12
+    a, b = convert.out_to_numpy(out), convert.out_to_numpy(out_j)
+    assert np.max(np.abs(a["x"] - b["x"])) <= X_TOL
+    assert np.max(np.abs(a["u"] - b["u"])) <= U_TOL
+    assert np.max(np.abs(a["lam"] - b["lam"])) <= LAM_TOL
+    if "reg_type" in override:
+        assert pivots and min(pivots) > opts.reg_tol
+    else:
+        assert not pivots

@@ -29,6 +29,7 @@ from treeqp_tpu_torch.utils.tree import TreeStructure
 __all__ = ["BenchmarkModel", "quadcopter", "linearize", "discretize", "GENERIC_SPEED_OPTS",
            "asym_tree", "pruned", "spring_mass_dynamics", "spring_mass_chain",
            "with_general_rows", "with_sparse_rows", "general_cd", "GENERAL_CD_OPTS",
+           "GENERAL_CD_CPU_OPTS",
            "IPM_OPTS", "SDUNES_OPTS", "SDUNES_BOOT_OPTS"]
 
 # the generic-tree solver's options, generic_bench.speed_opts(on_tpu=True),
@@ -49,6 +50,14 @@ GENERAL_CD_OPTS = dict(stage_solver="qpgen", tol=2.5e-9, max_iter=150,
                        qpgen_factor_dtype="float32", qpgen_iters=100,
                        chain_backend="pallas", reg_type="always", reg_value=1e-6,
                        f32_phase_tol=1e-4, f32_patience=3)
+# the same modes at general_cd_bench's CPU options (on_tpu=False): f64
+# factors, no refinement, the plain tree Cholesky (chain_backend "xla") with
+# the on-the-fly Levenberg-Marquardt shift, no coarse phase
+GENERAL_CD_CPU_OPTS = dict(stage_solver="qpgen", tol=2.5e-9, max_iter=150,
+                           factor_dtype="same", refine_steps=0, refine_safeguard=False,
+                           qpgen_factor_dtype="same", qpgen_iters=100,
+                           chain_backend="xla", reg_type="on_the_fly", reg_value=1e-6,
+                           f32_phase_tol=0.0, f32_patience=3)
 
 # the IPM's main paths, as IpmOpts fields: "cd", general_cd_bench's ipm_ms
 # mode at its TPU options (general_cd_bench.py:137-140) on general_cd("qpgen"),

@@ -30,7 +30,7 @@ import torch
 
 from treeqp_tpu_torch.ops import _build, _dense
 
-__all__ = ["jay_cr_solve", "jay_cr_solve_ref"]
+__all__ = ["jay_cr_solve", "jay_cr_solve_ref", "jay_supported"]
 
 PIVOT_FLOOR = 1e-12
 MAX_B = 16
@@ -127,6 +127,12 @@ def _scratch_floats(P, b):
     return n
 
 
+def jay_supported(P: int, b: int) -> bool:
+    """The kernel takes the system: any number of blocks, blocks of size
+    b <= 16 (the Pallas kernel's caps on P and b are not carried over)."""
+    return P >= 1 and 0 < b <= MAX_B
+
+
 def jay_cr_solve(diag, off, rhs, shift=None, reg_tol: float = -1.0):
     """Solve the SPD block-tridiagonal system by cyclic reduction in one
     launch.
@@ -140,7 +146,7 @@ def jay_cr_solve(diag, off, rhs, shift=None, reg_tol: float = -1.0):
     name = "jay_cr_solve"
     P, b, _ = diag.shape
     dev = diag.device
-    if not (P >= 1 and 0 < b <= MAX_B):
+    if not jay_supported(P, b):
         raise ValueError(f"{name}: unsupported shape P={P} b={b}")
     for arg, t, shape in (("diag", diag, (P, b, b)), ("off", off, (P - 1, b, b)),
                           ("rhs", rhs, (P, b))):

@@ -27,6 +27,13 @@ JAX loop's:
   phase start reused from the coarse phase (the handover) when its
   active-set pattern equals this phase's first.
 
+That is the kernel route, ``chain_backend="pallas"`` (the JAX package's
+``fused_eval``, which there also needs a TPU). With ``chain_backend="xla"``
+the evaluation, the Hessian action and the sums are the multistage loop's
+plain f64 PyTorch, and the factorize and the solve are its plain route;
+the Armijo rule, the f32 steps and the factor reuse stay as above. The
+factor and solve follow ``tdunes_multistage``'s routes in both.
+
 The error is taken on the f64 residuals; the JAX phase takes it on the hi
 words, which differ from them below 2^-24 relative.
 """
@@ -122,25 +129,44 @@ def ms_newton_loop_df(ms: tm.MultistageQP, lam0_crown, lam0_chain,
     meta = ms.meta
     prep_cr = td._get_prep(meta.crown_topo)
     f32, f64 = torch.float32, torch.float64
-    dd = make_dd(ms, prep_cr)
+    fused_eval = opts.chain_backend == "pallas"
     # the factorize and the solve run in f32, as the coarse phase's
     ctx = tm._solve_ctx(ms, prep_cr)
     nrxm32 = ctx["nrxm_cr"].to(f32)
     ctx = dict(ctx, dt=f32, nrxm_cr=nrxm32)
+    rid = ctx["rid"]
+    if fused_eval:
+        dd = make_dd(ms, prep_cr)
+        stage_solve = lambda lc, lh: df_stage_solve(dd, prep_cr, lc, lh)
+        residuals = lambda cr, ch: df_residuals(dd, cr, ch)
+        dual_value = lambda lc, lh, cr, ch: df_dual_value(cr, ch)
+        apply_M = lambda cr, ch, dcr, dch: df_apply_M(dd, prep_cr, cr, ch, dcr, dch)
+        total = df_reduce_flat
+    else:
+        crown_data = td._stage_data(ms.crown, opts, prep_cr)
+        stage_solve = lambda lc, lh: tm._ms_stage_solve(ms, crown_data, lc, lh, opts,
+                                                        prep_cr, rid)
+        residuals = lambda cr, ch: (td._dual_residual(ms.crown, cr, prep_cr),
+                                    tm._chain_residual(ms, ch, cr["x"], cr["u"], rid))
+        dual_value = lambda lc, lh, cr, ch: tm._ms_dual_value(ms, crown_data, lc, lh,
+                                                              cr, ch, opts)
+        apply_M = lambda cr, ch, dcr, dch: tm._ms_apply_M(ms, cr, ch, dcr.to(f64),
+                                                          dch.to(f64), prep_cr, rid)
+        total = torch.sum
 
     def active_sig(cr, ch):
         return (cr["qtilde"], cr["rtilde"], ch["qt"], ch["rt"])
 
     def factorize(cr, ch):
         return tm._ms_factorize(ms, *(v.to(f32) for v in active_sig(cr, ch)), opts,
-                                prep_cr, ctx, lanes=True)
+                                prep_cr, ctx, lanes=fused_eval)
 
     lam_cr = lam0_crown.to(f64) * ctx["nrxm_cr"].to(f64)
     lam_ch = lam0_chain.to(f64)
-    cr, ch = df_stage_solve(dd, prep_cr, lam_cr, lam_ch)
-    res_cr, res_ch = df_residuals(dd, cr, ch)
+    cr, ch = stage_solve(lam_cr, lam_ch)
+    res_cr, res_ch = residuals(cr, ch)
     err = tm._error_of(opts, res_cr, res_ch)
-    f0 = df_dual_value(cr, ch)
+    f0 = dual_value(lam_cr, lam_ch, cr, ch)
     sig = active_sig(cr, ch)
     if handover is not None and tm._pattern_equal(sig, handover[1]):
         fact = handover[0]
@@ -152,10 +178,10 @@ def ms_newton_loop_df(ms: tm.MultistageQP, lam0_crown, lam0_chain,
         if not (opts.reuse_factorization and tm._sets_equal(active_sig(cr, ch), sig)):
             fact = factorize(cr, ch)
         sig = active_sig(cr, ch)
-        solve = tm._make_ms_solve(fact, meta, prep_cr, f32, nrxm32)
+        solve = tm._make_ms_solve(fact, meta, prep_cr, f32, nrxm32, opts, rid)
 
         def refine_resid(dcr, dch):
-            mcr, mch = df_apply_M(dd, prep_cr, cr, ch, dcr, dch)
+            mcr, mch = apply_M(cr, ch, dcr, dch)
             return res_cr - mcr, res_ch - mch
 
         # f32 in / f32 out; the refinement residual in f64
@@ -183,8 +209,7 @@ def ms_newton_loop_df(ms: tm.MultistageQP, lam0_crown, lam0_chain,
             dcr, dch = best
 
         # Armijo on f = -g, the directional derivative summed in f64
-        dot = -df_reduce_flat(torch.cat([(res_cr * dcr).reshape(-1),
-                                         (res_ch * dch).reshape(-1)]))
+        dot = -total(torch.cat([(res_cr * dcr).reshape(-1), (res_ch * dch).reshape(-1)]))
 
         def lam_at(tau):
             t = tau.to(f64)
@@ -192,8 +217,8 @@ def ms_newton_loop_df(ms: tm.MultistageQP, lam0_crown, lam0_chain,
 
         def f_at(tau):
             lc, lh = lam_at(tau)
-            cr2, ch2 = df_stage_solve(dd, prep_cr, lc, lh)
-            return df_dual_value(cr2, ch2), (cr2, ch2)
+            cr2, ch2 = stage_solve(lc, lh)
+            return dual_value(lc, lh, cr2, ch2), (cr2, ch2)
 
         f1, rest1 = f_at(one)
         tau, f_t, (cr_t, ch_t), ls_it, acc = tm._armijo(
@@ -208,6 +233,6 @@ def ms_newton_loop_df(ms: tm.MultistageQP, lam0_crown, lam0_chain,
         else:
             status = TDUNES_NOT_DESCENT
         it += 1
-        res_cr, res_ch = df_residuals(dd, cr, ch)
+        res_cr, res_ch = residuals(cr, ch)
         err = tm._error_of(opts, res_cr, res_ch)
     return lam_cr, lam_ch, it, status, ls_it, cr, ch, err

@@ -73,7 +73,8 @@ def sd_newton_loop_df(sqp: sd.ScenarioQP, lam0, mu0, opts: sd.SdunesOpts, it0: i
         D, Ssub = sd._banded_blocks(sqp32.A, sqp32.B, qt_b, rt_b)
         Uown = sd._coupling_columns(sqp32.B, rt_b, meta)
         fact = sd._sd_factor(D, Ssub, opts)
-        Z = sd._sd_full_solve(fact, torch.cat([r_mu.to(f32)[..., None], Uown], dim=-1))
+        Z = sd._sd_full_solve(fact, torch.cat([r_mu.to(f32)[..., None], Uown], dim=-1),
+                              opts)
         z_mu, Zu = Z[..., 0], Z[..., 1:]
         Gram = torch.einsum("skxl,skxm->slm", Uown, Zu)
         diag, off, _, _ = sd._jay_blocks(rt_b, Gram, cmask32, meta)
@@ -93,7 +94,7 @@ def sd_newton_loop_df(sqp: sd.ScenarioQP, lam0, mu0, opts: sd.SdunesOpts, it0: i
         for _ in range(max(opts.refine_steps, 1)):
             # refinement against the exact f64 dual Hessian
             Amu, Al = sd._sd_apply_M(sqp, sol, cmask, dm32, dmu.to(f64), dlam_flat, AT, BT)
-            z2 = sd._sd_full_solve(fact, (r_mu - Amu).to(f32)[..., None])[..., 0]
+            z2 = sd._sd_full_solve(fact, (r_mu - Amu).to(f32)[..., None], opts)[..., 0]
             cmu, cl = schur_solve((rl_full - Al).to(f32), z2)
             dmu = dmu + cmu
             dlam_flat = dlam_flat + cl

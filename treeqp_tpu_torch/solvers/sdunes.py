@@ -11,24 +11,30 @@ uniform nx / nu, diagonal weights, bounds only, x0 fixed by equal bounds.
 
 One Newton iteration: batched clipping stage solves and residuals in the
 data dtype; the banded per-scenario mu-systems built, Jacobi-equilibrated
-and factorized in f32 (``ops.chain_kernels.chain_factor`` in reversed
-stage order, no crown coupling); ONE multi-right-hand-side full solve
-``Z = Mmm^-1 [r_mu | U]`` (``ops.chain_kernels.chain_full_solve_mat``);
-the Schur complement onto lam (the block-tridiagonal "Jay" system) solved
-by cyclic reduction (``ops.jay_kernel.jay_cr_solve``); iterative
-refinement against the exact data-dtype dual Hessian (``_sd_apply_M``);
-an Armijo step on the dual function with the gradient fallback and the
-stall-triggered Levenberg-Marquardt shift of a cold start. The JAX version
-is one jitted ``while_loop``; here the loops are Python control flow, one
-host read per decision.
+and factorized at the factor dtype (``tdunes_multistage._chain_factor`` in
+reversed stage order, no crown coupling); ONE multi-right-hand-side full
+solve ``Z = Mmm^-1 [r_mu | U]``; the Schur complement onto lam (the
+block-tridiagonal "Jay" system) solved by cyclic reduction; with f32
+factors, iterative refinement against the exact data-dtype dual Hessian
+(``_sd_apply_M``); an Armijo step on the dual function with the gradient
+fallback and the stall-triggered Levenberg-Marquardt shift of a cold
+start. With ``chain_backend="pallas"`` (f32 factors) the factor, the full
+solve and the Jay solve are the CUDA kernels ``ops.chain_kernels.chain_factor``,
+``chain_full_solve_mat`` and ``ops.jay_kernel.jay_cr_solve``; with
+``chain_backend="xla"`` they are plain PyTorch at the factor dtype (the
+chain factor with the regularized block Cholesky, the sweeps, and
+``ops.tridiag.tridiag_cr_solve``). The JAX version is one jitted
+``while_loop``; here the loops are Python control flow, one host read per
+decision.
 
 ``sdunes_solve`` runs the two-phase schedule of the tdunes solvers: with
 ``f32_phase_tol > 0`` a coarse all-f32 phase (stall exit after 3
 iterations without progress), then the f64 phase, or with ``df64_phase``
-``solvers.sd_df64``'s final phase (native f64 here). Ported: f64 or f32
-data with ``factor_dtype="float32"`` and ``chain_backend="pallas"`` (the
-kernels); ``factor_dtype="same"``, ``chain_backend="xla"`` and
-``axis_name`` raise ``NotImplementedError``.
+``solvers.sd_df64``'s final phase (native f64 here); both need f64 data and
+f32 factors. Every option the JAX package takes: the kernels or the plain
+route, factors in f32 or in the data dtype. As in the JAX package the
+chain kernels with factors in the data dtype raise ``ValueError``;
+``axis_name`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,6 +47,9 @@ import torch
 from treeqp_tpu_torch.core.qp_data import TreeQPIn, TreeQPOut
 from treeqp_tpu_torch.ops import chain_kernels as ck
 from treeqp_tpu_torch.ops import jay_kernel as jk
+from treeqp_tpu_torch.ops.tridiag import tridiag_cr_solve
+from treeqp_tpu_torch.solvers import tdunes as td
+from treeqp_tpu_torch.solvers import tdunes_multistage as tm
 from treeqp_tpu_torch.solvers.tdunes import (
     TDUNES_OPTIMAL, TDUNES_MAX_ITER, TDUNES_NOT_DESCENT)
 from treeqp_tpu_torch.utils.tree import TreeStructure
@@ -294,34 +303,42 @@ def _jay_blocks(rt, Gram, cmask, meta: _ScenMeta):
 
 
 def _jay_solve(diag, off, rhs, opts: SdunesOpts, extra_shift=None):
-    """Solve the Jay system by Jacobi-equilibrated cyclic reduction in f32
-    (``ops.jay_kernel.jay_cr_solve``), in rhs's dtype times the scale. The
-    Levenberg-Marquardt shift acts at the original scale (reg_value scJ^2
-    after equilibration); ``extra_shift`` (0-dim) is added to the diagonal
-    unconditionally (the stall escalation)."""
+    """Solve the Jay system by Jacobi-equilibrated cyclic reduction at the
+    factor dtype (f32 with ``factor_dtype="float32"``, else rhs's), in
+    rhs's dtype times the scale: ``ops.jay_kernel.jay_cr_solve`` with
+    ``chain_backend="pallas"`` where the kernel takes the block size, else
+    ``ops.tridiag.tridiag_cr_solve``. The Levenberg-Marquardt shift acts at
+    the original scale (reg_value scJ^2 after equilibration);
+    ``extra_shift`` (0-dim) is added to the diagonal unconditionally (the
+    stall escalation)."""
     out_dt = rhs.dtype
-    f32 = torch.float32
+    fdt = td._factor_dtype(opts, out_dt)
     if extra_shift is not None:
         diag = diag + extra_shift.to(diag.dtype) * torch.eye(
             diag.shape[-1], dtype=diag.dtype, device=diag.device)
     scJ = torch.rsqrt(torch.clamp(torch.diagonal(diag, dim1=1, dim2=2), min=1e-12))
-    dg = (diag * scJ[:, :, None] * scJ[:, None, :]).to(f32).contiguous()
-    of = (off * scJ[1:, :, None] * scJ[:-1, None, :]).to(f32).contiguous()
-    r = (rhs * scJ).to(f32).contiguous()
-    shift = ((opts.reg_value * scJ * scJ).to(f32).contiguous()
+    dg = (diag * scJ[:, :, None] * scJ[:, None, :]).to(fdt).contiguous()
+    of = (off * scJ[1:, :, None] * scJ[:-1, None, :]).to(fdt).contiguous()
+    r = (rhs * scJ).to(fdt).contiguous()
+    shift = ((opts.reg_value * scJ * scJ).to(fdt).contiguous()
              if opts.reg_type != "none" else None)
     reg_tol = opts.reg_tol if opts.reg_type == "on_the_fly" else -1.0
-    x = jk.jay_cr_solve(dg, of, r, shift=shift, reg_tol=reg_tol)
+    if opts.chain_backend == "pallas" and jk.jay_supported(*dg.shape[:2]):
+        x = jk.jay_cr_solve(dg, of, r, shift=shift, reg_tol=reg_tol)
+    else:
+        x = tridiag_cr_solve(dg, of, r, shift=shift, reg_tol=reg_tol)
     return x.to(out_dt) * scJ
 
 
 def _sd_factor(D, Ssub, opts: SdunesOpts, extra_shift=None):
     """Equilibrate the per-scenario banded mu-systems and factor them with
-    ``chain_factor`` (f32): the reversed stage order maps the forward
-    banded Cholesky onto the chains' backward one, with no crown coupling
-    (Ut_0 = 0). The shift on a zero-curvature row acts on the raw diagonal
-    (the original scale); ``extra_shift`` (0-dim) is added unconditionally.
-    Returns dict(Ls, CUs, sc)."""
+    ``tdunes_multistage._chain_factor`` (``chain_factor`` with
+    ``chain_backend="pallas"``, else plain with the regularized block
+    Cholesky of ``opts.reg_type``): the reversed stage order maps the
+    forward banded Cholesky onto the chains' backward one, with no crown
+    coupling (Ut_0 = 0). The shift on a zero-curvature row acts on the raw
+    diagonal (the original scale); ``extra_shift`` (0-dim) is added
+    unconditionally. Returns dict(Ls, CUs, sc)."""
     eye = torch.eye(D.shape[-1], dtype=D.dtype, device=D.device)
     dg = torch.diagonal(D, dim1=2, dim2=3)
     if extra_shift is not None:
@@ -336,19 +353,32 @@ def _sd_factor(D, Ssub, opts: SdunesOpts, extra_shift=None):
     sc = torch.rsqrt(torch.clamp(dg, min=1e-12))
     Ds = D * sc[..., :, None] * sc[..., None, :]
     Ss = Ssub * sc[:, 1:, :, None] * sc[:, :-1, None, :]
-    Wc = torch.flip(Ds, (1,)).to(torch.float32).contiguous()
-    Ut = torch.cat([torch.zeros_like(Ss[:, :1]), torch.flip(Ss, (1,))],
-                   dim=1).to(torch.float32).contiguous()
-    Ls, CUs, _ = ck.chain_factor(Wc, Ut)
+    Wc = torch.flip(Ds, (1,))
+    Ut = torch.cat([torch.zeros_like(Ss[:, :1]), torch.flip(Ss, (1,))], dim=1)
+    Ls, CUs, _ = tm._chain_factor(Wc, Ut, opts)
     return dict(Ls=Ls, CUs=CUs, sc=sc)
 
 
-def _sd_full_solve(fact, rhs):
-    """Mmm^-1 rhs for rhs [Ns, Nh, nx, m] (any dtype; solved in f32 by one
-    ``chain_full_solve_mat`` launch), in rhs's dtype times the scale."""
-    sc = fact["sc"]
-    r = (rhs * sc[..., None]).to(torch.float32)
-    z = ck.chain_full_solve_mat(fact["Ls"], fact["CUs"], torch.flip(r, (1,)).contiguous())
+def _sd_full_solve(fact, rhs, opts: SdunesOpts):
+    """Mmm^-1 rhs for rhs [Ns, Nh, nx, m] (any dtype; solved at the
+    factors' dtype: one ``chain_full_solve_mat`` launch with
+    ``chain_backend="pallas"``, else the plain backward and forward
+    sweeps), in rhs's dtype times the scale."""
+    sc, Ls, CUs = fact["sc"], fact["Ls"], fact["CUs"]
+    rr = torch.flip((rhs * sc[..., None]).to(Ls.dtype), (1,))
+    if opts.chain_backend == "pallas":
+        z = ck.chain_full_solve_mat(Ls, CUs, rr.contiguous())
+    else:
+        z = torch.empty_like(rr)
+        acc = torch.zeros_like(rr[:, 0])
+        for j in range(Ls.shape[1] - 1, -1, -1):
+            z[:, j] = torch.linalg.solve_triangular(Ls[:, j], rr[:, j] - acc, upper=False)
+            acc = CUs[:, j] @ z[:, j]
+        zp = torch.zeros_like(rr[:, 0])
+        for j in range(Ls.shape[1]):
+            zp = torch.linalg.solve_triangular(Ls[:, j].mT, z[:, j] - CUs[:, j].mT @ zp,
+                                               upper=True)
+            z[:, j] = zp
     return torch.flip(z, (1,)).to(rhs.dtype) * sc[..., None]
 
 
@@ -416,42 +446,44 @@ def _armijo(f_at, f0, dot, tau0, f1, opts, slack):
     return tau, i, acc
 
 
-def _sd_consts(sqp: ScenarioQP):
+def _sd_consts(sqp: ScenarioQP, opts: SdunesOpts):
     """What every iteration of ``_sd_newton_loop`` reads besides its carry:
-    the coupling masks and the dynamics in f32 (the blocks) and transposed
-    (the refinement's Hessian action)."""
+    the coupling masks, the dynamics at the factor dtype (the blocks) and
+    transposed (the refinement's Hessian action)."""
     cmask = _coupling_masks(sqp.meta, sqp.b.dtype, sqp.b.device)
+    bdt = td._factor_dtype(opts, sqp.b.dtype)
     return dict(cmask=cmask, dm=_dmask(cmask, sqp.meta, sqp.r.shape[-1]),
-                A_b=sqp.A.to(torch.float32), B_b=sqp.B.to(torch.float32),
+                A_b=sqp.A.to(bdt), B_b=sqp.B.to(bdt),
                 AT=sqp.A.transpose(2, 3), BT=sqp.B.transpose(2, 3))
 
 
 def _sd_newton_step(sqp: ScenarioQP, opts: SdunesOpts, c, lam, mu, status, sol, r_mu,
                     r_lam, boost):
     """One Newton step from (lam, mu) with the stage solution ``sol`` and
-    residuals there: blocks and factorization in f32 (``boost`` added to
-    every factorization), one full solve of [r_mu | U], the Jay solve,
-    ``refine_steps`` refinement passes (each one full solve and one Jay
-    solve) against the exact Hessian, then the Armijo search (noise slack
-    2^-45 |f0| in f64, 2^-18 in f32) or the gradient fallback. ``c`` is
-    ``_sd_consts(sqp)``. Returns (lam, mu, status, ls_it)."""
+    residuals there: blocks and factorization at the factor dtype
+    (``boost`` added to every factorization), one full solve of
+    [r_mu | U], the Jay solve, with f32 factors ``refine_steps``
+    refinement passes (each one full solve and one Jay solve) against the
+    exact Hessian, then the Armijo search (noise slack 2^-45 |f0| in f64,
+    2^-18 in f32) or the gradient fallback. ``c`` is ``_sd_consts(sqp,
+    opts)``. Returns (lam, mu, status, ls_it)."""
     meta = sqp.meta
     Ns, Nr = meta.Ns, meta.Nr
     nu = sqp.r.shape[-1]
     nl = Nr * nu
     dt, dev = sqp.b.dtype, sqp.b.device
-    f32 = torch.float32
     cmask, dm = c["cmask"], c["dm"]
 
     def f_at(mu_t, lam_t):
         return _dual_value(sqp, _stage_solve(sqp, mu_t, lam_t, cmask), mu_t)
 
-    qt_b, rt_b = sol["qt"].to(f32), sol["rt"].to(f32)
+    bdt = c["A_b"].dtype
+    qt_b, rt_b = sol["qt"].to(bdt), sol["rt"].to(bdt)
     D, Ssub = _banded_blocks(c["A_b"], c["B_b"], qt_b, rt_b)
     Uown = _coupling_columns(c["B_b"], rt_b, meta)
     fact = _sd_factor(D, Ssub, opts, extra_shift=boost)
     # ONE multi-RHS full solve: [r_mu | U] -> [z_mu | Z_u]
-    Z = _sd_full_solve(fact, torch.cat([r_mu.to(f32)[..., None], Uown], dim=-1))
+    Z = _sd_full_solve(fact, torch.cat([r_mu.to(bdt)[..., None], Uown], dim=-1), opts)
     z_mu, Zu = Z[..., 0], Z[..., 1:]
     Gram = torch.einsum("skxl,skxm->slm", Uown, Zu)
     diag, off, _, _ = _jay_blocks(rt_b, Gram, cmask, meta)
@@ -461,19 +493,19 @@ def _sd_newton_step(sqp: ScenarioQP, opts: SdunesOpts, c, lam, mu, status, sol, 
     def schur_solve(e_l, z_mu_):
         """Direction from a mu-space solve z_mu_ = Mmm^-1 e_mu."""
         if Ns > 1:
-            Kv = torch.einsum("skxl,skx->sl", Uown, z_mu_.to(f32))
-            rl = (e_l.to(f32) - (Kv[:-1] - Kv[1:])) * dm.to(f32)
+            Kv = torch.einsum("skxl,skx->sl", Uown, z_mu_.to(bdt))
+            rl = (e_l.to(bdt) - (Kv[:-1] - Kv[1:])) * dm.to(bdt)
             dl = _jay_solve(diag, off, rl, opts, extra_shift=boost).to(dt) * dm
         else:
             dl = torch.zeros((1, nl), dtype=dt, device=dev)
         dmu_ = z_mu_.to(dt) - torch.einsum(
-            "skxl,sl->skx", Zu, _coef_of(dl, Ns).to(f32)).to(dt)
+            "skxl,sl->skx", Zu, _coef_of(dl, Ns).to(bdt)).to(dt)
         return dmu_, dl
 
     dmu, dlam_flat = schur_solve(rl_full, z_mu)
-    for _ in range(max(opts.refine_steps, 0)):
+    for _ in range(max(opts.refine_steps, 0) if opts.factor_dtype == "float32" else 0):
         Amu, Al = _sd_apply_M(sqp, sol, cmask, dm, dmu, dlam_flat, c["AT"], c["BT"])
-        z2 = _sd_full_solve(fact, (r_mu - Amu)[..., None])[..., 0]
+        z2 = _sd_full_solve(fact, (r_mu - Amu)[..., None], opts)[..., 0]
         cmu, cl = schur_solve(rl_full - Al, z2)
         dmu = dmu + cmu
         dlam_flat = dlam_flat + cl
@@ -544,7 +576,7 @@ def _sd_newton_loop(sqp: ScenarioQP, lam0, mu0, opts: SdunesOpts, it0: int,
     adds the coarse phase's stall exit. Returns (lam, mu, it, err, status,
     ls_it)."""
     dt, dev = sqp.b.dtype, sqp.b.device
-    c = _sd_consts(sqp)
+    c = _sd_consts(sqp, opts)
     lam, mu, it = lam0, mu0, it0
     inf = torch.full((), float("inf"), dtype=dt, device=dev)
     err, best, boost = inf, inf, torch.zeros((), dtype=dt, device=dev)
@@ -560,15 +592,16 @@ def _sd_newton_loop(sqp: ScenarioQP, lam0, mu0, opts: SdunesOpts, it0: int,
 
 
 def _check_opts(opts: SdunesOpts):
-    """Raise on options this port does not implement yet."""
-    later = "is not ported yet (ROADMAP.md, port queue)"
-    for bad, what in (
-            (opts.chain_backend != "pallas",
-             f"chain_backend={opts.chain_backend!r} (the unfused banded sweeps)"),
-            (opts.factor_dtype != "float32", f"factor_dtype={opts.factor_dtype!r}"),
-            (opts.axis_name is not None, "axis_name (multi-device)")):
-        if bad:
-            raise NotImplementedError(f"{what} {later}")
+    """Raise on options ``sdunes_solve`` does not take: ``axis_name``
+    (multi-device, not ported yet), the chain kernels with factors in the
+    data dtype (they are f32 only; the JAX package's raise too), an
+    unknown regularization or termination."""
+    if opts.axis_name is not None:
+        raise NotImplementedError(
+            "axis_name (multi-device) is not ported yet (ROADMAP.md, port queue)")
+    if opts.chain_backend == "pallas" and opts.factor_dtype != "float32":
+        raise ValueError("chain_backend='pallas' needs factor_dtype='float32' "
+                         "(the chain kernels are f32)")
     if opts.reg_type not in ("none", "always", "on_the_fly"):
         raise ValueError(f"reg_type={opts.reg_type!r}")
     if opts.termination not in ("infnorm", "twonorm", "sumsquared"):
@@ -582,9 +615,10 @@ def sdunes_solve(sqp: ScenarioQP, lam0=None, mu0=None, opts: SdunesOpts = Sdunes
     ``lam0`` [max(Ns-1, 1), Nr, nu] / ``mu0`` [Ns, Nh, nx] warm-start the
     duals (zeros when None). The stall escalation is a cold-start
     globalization: it stays on only when the caller passes no duals. With
-    ``f32_phase_tol > 0`` (f64 data) a coarse all-f32 phase runs to
-    f32_phase_tol or a 3-iteration stall first; then the f64 phase, or with
-    ``df64_phase`` ``sd_df64.sd_newton_loop_df``.
+    ``f32_phase_tol > 0`` (f64 data, f32 factors) a coarse all-f32 phase
+    runs to f32_phase_tol or a 3-iteration stall first; then the f64 phase,
+    or with ``df64_phase`` (f64 data, f32 factors)
+    ``sd_df64.sd_newton_loop_df``.
 
     Returns (sol dict of [Ns, Nh+1] trajectories, lam, mu, info);
     ``info["iter"]`` counts the Newton steps of both phases,
@@ -604,7 +638,8 @@ def sdunes_solve(sqp: ScenarioQP, lam0=None, mu0=None, opts: SdunesOpts = Sdunes
 
     it0 = 0
     f32 = torch.float32
-    if opts.f32_phase_tol > 0 and dt == torch.float64:
+    f32_factors = opts.factor_dtype == "float32"
+    if opts.f32_phase_tol > 0 and dt == torch.float64 and f32_factors:
         optsA = dataclasses.replace(opts, refine_steps=0,
                                     tol=max(opts.f32_phase_tol, opts.tol))
         lamA, muA, it0, *_ = _sd_newton_loop(sqp.to(dtype=f32), lam0.to(f32), mu0.to(f32),
@@ -613,7 +648,7 @@ def sdunes_solve(sqp: ScenarioQP, lam0=None, mu0=None, opts: SdunesOpts = Sdunes
         # expected noise near the f32 residual floor, not a failure
         lam0, mu0 = lamA.to(dt), muA.to(dt)
 
-    if opts.df64_phase and dt == torch.float64:
+    if opts.df64_phase and dt == torch.float64 and f32_factors:
         from treeqp_tpu_torch.solvers.sd_df64 import sd_newton_loop_df
         lam, mu, it, _, status, ls_it = sd_newton_loop_df(sqp, lam0, mu0, opts, it0)
     else:

@@ -27,11 +27,16 @@ Cholesky. The stage QPs (``stage_solver``):
 In ``tdunes_solve`` the stage solves, the Hessian blocks, the Jacobi
 equilibration, the refinement's Hessian action and the line search are
 eager PyTorch, as the JAX package leaves them to XLA; the ADMM loop of the
-general stage QPs is the CUDA kernel of ``ops/qpgen_lanes.py``, the tree
-Cholesky and its solves the CUDA kernels of ``ops/crown_kernels.py``
-(``crown_factor``, ``crown_solve``) and, on multistage-shaped trees,
-``ops/chain_kernels.py`` (``chain_factor``, ``chain_solve_bwd``,
-``chain_forward``).
+general stage QPs is the CUDA kernel of ``ops/qpgen_lanes.py``. The tree
+Cholesky and its solves take one of two routes, chosen by the options
+alone as the JAX package chooses them: with ``chain_backend="pallas"``, f32
+factors and a static regularization (``reg_type`` "always" or "none") the
+CUDA kernels of ``ops/crown_kernels.py`` (``crown_factor``,
+``crown_solve``) and, on multistage-shaped trees, ``ops/chain_kernels.py``
+(``chain_factor``, ``chain_solve_bwd``, ``chain_forward``); otherwise the
+plain level-synchronous tree Cholesky at the factor dtype, with the
+regularized block Cholesky ``_reg_cholesky`` (none, always, or the
+on-the-fly Levenberg-Marquardt cascade).
 """
 
 from __future__ import annotations
@@ -63,9 +68,9 @@ class TdunesOpts:
     """Solver options: the same fields and defaults as
     ``treeqp_tpu.solvers.tdunes.TdunesOpts`` (reference
     treeqp_tdunes_opts_t, dual_Newton_tree.h:67-87), so that one dict builds
-    both. The JAX docstrings describe each field; the port implements the
-    subsets ``tdunes_solve`` and ``tdunes_multistage.tdunes_ms_solve``
-    document and raises ``NotImplementedError`` on the rest."""
+    both. The JAX docstrings describe each field; ``tdunes_solve`` and
+    ``tdunes_multistage.tdunes_ms_solve`` take every field but
+    ``axis_name`` (multi-device), which raises ``NotImplementedError``."""
 
     max_iter: int = 100
     termination: str = "infnorm"  # infnorm | twonorm | sumsquared
@@ -130,6 +135,18 @@ class _Prep:
                        if len(self.stages[s]) > 0]
         self._tensors = {}
         self._masks = {}
+        self._levels_on = {}
+
+    def levels_on(self, device) -> list:
+        """``levels`` as (groups, their dad groups, their slots there) long
+        tensors on ``device`` (cached): the plain tree Cholesky's schedule."""
+        device = torch.device(device)
+        hit = self._levels_on.get(device)
+        if hit is None:
+            lng = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.long, device=device)
+            hit = [(lng(g), lng(self.gdad[g]), lng(self.gslot[g])) for g in self.levels]
+            self._levels_on[device] = hit
+        return hit
 
     def on(self, device) -> dict:
         """The index arrays as long tensors on ``device`` (cached)."""
@@ -272,11 +289,12 @@ def _bmv_t(M, v):
 
 
 def _cholesky(M):
-    """Lower Cholesky factors of a batch of SPD matrices, NaN where a
-    factorization fails (XLA's convention, which the guards downstream read;
-    ``torch.linalg.cholesky`` would raise instead)."""
+    """Lower Cholesky factors of a batch of SPD matrices, with NaN in the
+    lower triangle where a factorization fails (XLA's convention, which the
+    guards downstream read; ``torch.linalg.cholesky`` would raise instead,
+    and ``cholesky_ex`` leaves a partial factor)."""
     L, info = torch.linalg.cholesky_ex(M)
-    return torch.where(info[..., None, None] > 0, torch.nan, L)
+    return torch.where(info[..., None, None] > 0, torch.full_like(L, torch.nan).tril(), L)
 
 
 def _dense_H(qp: TreeQPIn, prep: _Prep):
@@ -814,14 +832,22 @@ def _residual_error(res, opts: TdunesOpts):
     return torch.sqrt(sq) if opts.termination == "twonorm" else sq
 
 
-def _build_dual_hessian(qp: TreeQPIn, sol, data, opts: TdunesOpts, prep: _Prep):
+def _factor_dtype(opts, dt):
+    """The dtype of the dual-Hessian blocks and their factors: f32 with
+    ``factor_dtype="float32"``, else the data dtype ``dt``."""
+    return torch.float32 if opts.factor_dtype == "float32" else dt
+
+
+def _build_dual_hessian(qp: TreeQPIn, sol, data, opts: TdunesOpts, prep: _Prep,
+                        dtype=torch.float32):
     """The lambda-group blocks W [NpG, G, G] and parent couplings Ut
     [NpG, nxm, G] of M = J P J' (build_dual_problem,
     dual_Newton_tree.c:551-615, with the clipping vtable
     dual_Newton_tree_clipping.c:264-355 or the dense elimination matrices
     P of the other stage solvers, dual_Newton_tree_qpoases.c), built
-    directly in f32: they feed only the f32 factorization."""
-    dt = torch.float32
+    directly in ``dtype``, the factor dtype (``_factor_dtype``): they feed
+    only the factorization."""
+    dt = dtype
     t = prep.on(qp.device)
     NpG, G, nxm, K = prep.NpG, prep.G, prep.nxm, prep.K
     kv = t["kvalid"].to(dt)[:, :, None, None]
@@ -879,23 +905,114 @@ def _split_index(prep: _Prep, split, device) -> dict:
     return hit
 
 
-def _tree_chol_factor(W, Ut, opts: TdunesOpts, prep: _Prep):
-    """Tree-structured block Cholesky of the equilibrated f32 blocks
-    (backward half of calculate_delta_lambda, dual_Newton_tree.c:668-735).
+def _reg_cholesky(W, opts):
+    """Regularized Cholesky of a batch of blocks [..., n, n]
+    (treeqp_dpotrf_l_with_reg_opts, dual_Newton_common.c:35-123), the JAX
+    package's ``_reg_cholesky``: ``reg_type`` "none" factors W, "always"
+    W + reg_value I, and "on_the_fly" escalates the Levenberg-Marquardt
+    shift (x1, x1e3, x1e6) on each block that is bad, i.e. whose factor
+    failed, is not finite or has a pivot at or below ``reg_tol``. All four
+    factorizations of the cascade run batched and the choice is a select
+    per block, with no host read. A factorization that fails is NaN (the
+    JAX package's convention; ``_cholesky``)."""
+    if opts.reg_type == "none":
+        return _cholesky(W)
+    eye = torch.eye(W.shape[-1], dtype=W.dtype, device=W.device)
+    if opts.reg_type == "always":
+        return _cholesky(W + opts.reg_value * eye)
+    shifts = torch.tensor([0.0, 1.0, 1e3, 1e6], dtype=W.dtype, device=W.device)
+    Ls = _cholesky(W + (shifts * opts.reg_value)[(slice(None),) + (None,) * W.dim()] * eye)
 
-    On a multistage-shaped tree (``_split_sched``) the chain levels go
-    through ``chain_factor`` (blocks [nxm, nxm], the LM shift pre-added),
-    their Schur blocks into the crown groups they hang from, and the
-    crown's groups alone through ``crown_factor``; on any other tree the
-    whole tree goes through ``crown_factor``. The JAX package runs the
-    split's crown in
-    XLA and chooses between the paths by a TPU memory estimate; here
-    every path is the kernels. Returns the stored factors for
-    ``_tree_chol_solve``."""
+    def bad(L):
+        piv = torch.diagonal(L, dim1=-2, dim2=-1)
+        # NaN-safe: a NaN pivot compares false
+        return ~torch.isfinite(L).all(-1).all(-1) | ~(piv > opts.reg_tol).all(-1)
+
+    L = Ls[0]
+    for k in range(1, 4):
+        L = torch.where(bad(L)[..., None, None], Ls[k], L)
+    return L
+
+
+def _tri_solve(L, b, trans=False):
+    """L y = b (or L' y = b) for batched lower-triangular L; b [..., n]."""
+    return torch.linalg.solve_triangular(L.mT if trans else L, b[..., None],
+                                         upper=trans)[..., 0]
+
+
+def _plain_tree_factor(W, Ut, opts: TdunesOpts, prep: _Prep):
+    """The plain level-synchronous tree Cholesky (dual_Newton_tree.c:668-735,
+    the JAX package's ``_tree_chol_factor`` on its plain routes) at the
+    blocks' dtype: per backward level, batched over its groups, the
+    regularized factor of W, the parent coupling CholUt = Ut L^-T, and the
+    Schur update CholUt CholUt' written into the parent group's diagonal
+    block at the group's slot (one group per (dad, slot), so an indexed
+    write); the root group last. Returns dict(kind="plain", CholW,
+    CholUt); the kernel routes' factors carry no ``kind``."""
+    nxm, K, NpG = prep.nxm, prep.K, prep.NpG
+    W = W.clone()
+    Wv = W.view(NpG, K, nxm, K, nxm)
+    CholW = torch.zeros_like(W)
+    CholUt = torch.zeros_like(Ut)
+    for g, dad, slot in prep.levels_on(W.device):
+        Lb = _reg_cholesky(W[g], opts)
+        CUb = torch.linalg.solve_triangular(Lb.mT, Ut[g], upper=True, left=False)
+        Wv[dad, slot, :, slot, :] -= CUb @ CUb.mT
+        CholW[g], CholUt[g] = Lb, CUb
+    CholW[:1] = _reg_cholesky(W[:1], opts)
+    return dict(kind="plain", CholW=CholW, CholUt=CholUt)
+
+
+def _plain_tree_solve(fact, rg, prep: _Prep):
+    """Solve with ``_plain_tree_factor``'s factors at their dtype: the
+    backward right-hand-side sweep, the root solve and the forward
+    substitution (dual_Newton_tree.c:745-775). Returns dlam [NpG, G]."""
+    CholW, CholUt = fact["CholW"], fact["CholUt"]
+    nxm, K, NpG = prep.nxm, prep.K, prep.NpG
+    rd = rg.to(CholW.dtype).clone()
+    ys = torch.zeros_like(rd)
+    levels = prep.levels_on(rd.device)
+    for g, dad, slot in levels:
+        yb = _tri_solve(CholW[g], rd[g])
+        rd.view(NpG, K, nxm)[dad, slot] -= _bmv(CholUt[g], yb)
+        ys[g] = yb
+    dlam = torch.zeros_like(rd)
+    dlam[:1] = _tri_solve(CholW[:1], _tri_solve(CholW[:1], rd[:1]), trans=True)
+    for g, dad, slot in reversed(levels):
+        dp = dlam.view(NpG, K, nxm)[dad, slot]
+        dlam[g] = _tri_solve(CholW[g], ys[g] - _bmv_t(CholUt[g], dp), trans=True)
+    return dlam
+
+
+def _tree_kernels(opts) -> bool:
+    """The tree Cholesky runs on the CUDA kernels: ``chain_backend="pallas"``,
+    f32 factors and a static regularization, the options of the JAX
+    package's ``crown_supported`` (the kernels' shape limits are
+    ``crown_kernels.crown_supported``'s)."""
+    return (opts.chain_backend == "pallas" and opts.factor_dtype == "float32"
+            and opts.reg_type in ("always", "none"))
+
+
+def _tree_chol_factor(W, Ut, opts: TdunesOpts, prep: _Prep):
+    """Tree-structured block Cholesky of the equilibrated blocks (backward
+    half of calculate_delta_lambda, dual_Newton_tree.c:668-735).
+
+    With the kernels' options (``crown_kernels.crown_supported``) on a
+    multistage-shaped tree (``_split_sched``) the chain levels go through
+    ``chain_factor`` (blocks [nxm, nxm], the LM shift pre-added), their
+    Schur blocks into the crown groups they hang from, and the crown's
+    groups alone through ``crown_factor``; on any other tree the whole
+    tree goes through ``crown_factor``. The JAX package runs the split's
+    crown in XLA and chooses between the paths by a TPU memory estimate;
+    here both are the kernels. With other options the plain tree Cholesky
+    (``_plain_tree_factor``) at the blocks' dtype. Returns the stored
+    factors for ``_tree_chol_solve``."""
     from treeqp_tpu_torch.ops import chain_kernels as ck
     from treeqp_tpu_torch.ops import crown_kernels as ckr
+    if not (_tree_kernels(opts) and ckr.crown_supported(prep, opts)):
+        return _plain_tree_factor(W, Ut, opts, prep)
     reg = opts.reg_value if opts.reg_type == "always" else 0.0
-    W, Ut = W.contiguous(), Ut.contiguous()
+    W, Ut = W.to(torch.float32).contiguous(), Ut.to(torch.float32).contiguous()
     split = _split_sched(prep)
     if split is None:
         CholW, CholUt = ckr.crown_factor(W, Ut, prep, reg=reg)
@@ -912,19 +1029,21 @@ def _tree_chol_factor(W, Ut, opts: TdunesOpts, prep: _Prep):
 
 
 def _tree_chol_solve(fact, rg, prep: _Prep):
-    """Solve M dlam = rg with ``_tree_chol_factor``'s factors, in f32:
-    on the split path the chain backward sweeps, their right-hand-side
-    updates into the crown, the crown solve, and the chain forward sweeps
-    from the crown's direction at each chain's edge
+    """Solve M dlam = rg with ``_tree_chol_factor``'s factors, at their
+    dtype: the plain solve (``_plain_tree_solve``), the crown kernel's
+    solve, or on the split path the chain backward sweeps, their
+    right-hand-side updates into the crown, the crown solve, and the chain
+    forward sweeps from the crown's direction at each chain's edge
     (dual_Newton_tree.c:745-775). Returns dlam [NpG, G] in rg's dtype."""
     from treeqp_tpu_torch.ops import chain_kernels as ck
     from treeqp_tpu_torch.ops import crown_kernels as ckr
     out_dt = rg.dtype
+    if fact.get("kind") == "plain":
+        return _plain_tree_solve(fact, rg, prep).to(out_dt)
     rd = rg.to(torch.float32).contiguous()
-    split = _split_sched(prep)
-    if split is None:
+    if "Ls" not in fact:
         return ckr.crown_solve(fact["CholW"], fact["CholUt"], rd, prep).to(out_dt)
-    sp = _split_index(prep, split, rg.device)
+    sp = _split_index(prep, _split_sched(prep), rg.device)
     nxm, K, Nc = prep.nxm, prep.K, sp["Nc"]
     ys, radd0 = ck.chain_solve_bwd(fact["Ls"], fact["CUs"],
                                    rd[sp["chain"], :nxm].contiguous())
@@ -985,12 +1104,13 @@ def _apply_M_nodes(qp: TreeQPIn, sol, data, d_nodes, opts: TdunesOpts, prep: _Pr
 
 def _newton_direction(W, Ut, rg, opts: TdunesOpts, prep: _Prep, qp, sol, data):
     """Factor + solve (calculate_delta_lambda) with Jacobi equilibration;
-    with ``refine_steps`` > 0, plain or safeguarded iterative refinement of
-    the f32-factored direction against the exact data-dtype Hessian
-    action."""
+    with ``refine_steps`` > 0 and f32 factors, plain or safeguarded
+    iterative refinement of the f32-factored direction against the exact
+    data-dtype Hessian action (none with factors in the data dtype, as in
+    the JAX package)."""
     sW, fact = _newton_factor(W, Ut, opts, prep)
     dlam_g = _newton_solve(sW, fact, rg, prep)
-    if opts.refine_steps == 0:
+    if opts.refine_steps == 0 or opts.factor_dtype != "float32":
         return dlam_g
     nrxm = _masks(qp, prep)[2]
 
@@ -1053,7 +1173,7 @@ def _line_search(qp: TreeQPIn, lam, dlam_nodes, sol0, dlam_g, rg, data,
 
 
 def _td_newton_loop(qp: TreeQPIn, lam0, opts: TdunesOpts, it0: int,
-                    patience: int = 0, ws0=None, data=None):
+                    patience: int = 0, ws0=None, data=None, hist=None):
     """One dual-Newton loop at the dtype of ``qp``'s data, counting
     iterations from ``it0``: per iteration the stage solve and the dual
     residual at lam, the termination test, then (unless converged) the
@@ -1065,8 +1185,11 @@ def _td_newton_loop(qp: TreeQPIn, lam0, opts: TdunesOpts, it0: int,
     search's trial solves (the qpOASES hotstart,
     dual_Newton_tree_qpoases.c:312-356), starting from ``ws0`` (default:
     empty sets). ``data``: ``_stage_data`` of ``qp``, if the caller has
-    it. Returns (lam, it, err, status, ls_it, ws); err is a 0-dim tensor,
-    ws None for the other stage solvers."""
+    it. ``hist``: (err_hist, ls_hist) tensors of length ``max_iter`` into
+    which each pass records its error and line-search count at the index of
+    its iteration (``record_history``). Returns (lam, it, err, status,
+    ls_it, ws); err is a 0-dim tensor, ws None for the other stage
+    solvers."""
     prep = _get_prep(qp.topo)
     dt = qp.dtype
     nrxm = _masks(qp, prep)[2]
@@ -1092,8 +1215,10 @@ def _td_newton_loop(qp: TreeQPIn, lam0, opts: TdunesOpts, it0: int,
         noimp = 0 if bool(err < 0.9 * best) else noimp + 1
         best = torch.minimum(best, err)
         if bool(err < opts.tol):
+            if hist is not None:
+                hist[0][it], hist[1][it] = err, ls_it
             break
-        W, Ut = _build_dual_hessian(qp, sol, data, opts, prep)
+        W, Ut = _build_dual_hessian(qp, sol, data, opts, prep, _factor_dtype(opts, dt))
         rg = _nodes_to_group_mm(res, prep)
         dlam_g = _newton_direction(W, Ut, rg, opts, prep, qp, sol, data)
         dlam_nodes = _group_to_nodes_mm(dlam_g, prep, dt) * nrxm
@@ -1103,12 +1228,16 @@ def _td_newton_loop(qp: TreeQPIn, lam0, opts: TdunesOpts, it0: int,
             lam = lam_new
         else:
             status = TDUNES_NOT_DESCENT
+        if hist is not None:
+            hist[0][it], hist[1][it] = err, ls_it
         it += 1
     return lam, it, err, status, ls_it, ws
 
 
 def _check_generic(qp: TreeQPIn, opts: TdunesOpts):
-    """Raise on options ``tdunes_solve`` does not implement yet."""
+    """Raise on options ``tdunes_solve`` does not take: an unknown or
+    inapplicable stage solver, ``axis_name`` (multi-device, not ported
+    yet), and on the kernel route a tree outside the kernels' shapes."""
     if opts.stage_solver not in STAGE_SOLVERS:
         raise ValueError(f"stage_solver={opts.stage_solver!r} (one of {STAGE_SOLVERS})")
     if opts.stage_solver == "clipping" and not clipping_applicable(qp):
@@ -1116,18 +1245,13 @@ def _check_generic(qp: TreeQPIn, opts: TdunesOpts):
             "clipping stage solver not applicable (needs diagonal Q/R, zero "
             "S, nc=0) (cf. stage_qp_clipping_is_applicable)")
     later = "is not ported yet (ROADMAP.md, port queue)"
+    if opts.axis_name is not None:
+        raise NotImplementedError(f"axis_name (multi-device) {later}")
     prep = _get_prep(qp.topo)
-    for bad, what in (
-            (opts.chain_backend != "pallas",
-             f"chain_backend={opts.chain_backend!r} (the unfused tree Cholesky)"),
-            (opts.factor_dtype != "float32", f"factor_dtype={opts.factor_dtype!r}"),
-            (opts.reg_type not in ("always", "none"), f"reg_type={opts.reg_type!r}"),
-            (opts.record_history, "record_history"),
-            (opts.axis_name is not None, "axis_name (multi-device)"),
-            (not (0 < prep.NpG and prep.G <= 64 and prep.nxm <= 16),
-             f"a tree with {prep.NpG} lambda-groups of dim {prep.G}")):
-        if bad:
-            raise NotImplementedError(f"{what} {later}")
+    if _tree_kernels(opts) and not (0 < prep.NpG and prep.G <= 64 and prep.nxm <= 16):
+        raise NotImplementedError(
+            f"the tree-Cholesky kernels on a tree with {prep.NpG} lambda-groups "
+            f"of dim {prep.G} {later}")
 
 
 def tdunes_solve(qp: TreeQPIn, lam0=None, opts: TdunesOpts = TdunesOpts(),
@@ -1136,15 +1260,17 @@ def tdunes_solve(qp: TreeQPIn, lam0=None, opts: TdunesOpts = TdunesOpts(),
     (``treeqp_tdunes_solve``, dual_Newton_tree.c:1104-1263), on any tree
     topology, on the device of ``qp``'s tensors.
 
-    ``lam0`` [Nn, nxm] warm-starts the duals (zeros when None). Ported:
-    every stage solver (clipping, dense, boxqp, qpgen, mixed) with f32
-    factors on the tree-Cholesky kernels (``factor_dtype="float32"``,
-    ``chain_backend="pallas"``, a static regularization), one- and
-    two-phase (``f32_phase_tol > 0`` with f64 data: a coarse phase with
-    everything in f32 down to f32_phase_tol or a stall of ``f32_patience``
-    iterations, then the data-dtype phase with refinement), plain or
-    safeguarded refinement, sequential or batched Armijo, all three
-    terminations. The other options raise ``NotImplementedError``.
+    ``lam0`` [Nn, nxm] warm-starts the duals (zeros when None). Every
+    option of ``TdunesOpts`` but ``axis_name``: every stage solver
+    (clipping, dense, boxqp, qpgen, mixed), the factors in f32 or in the
+    data dtype, the tree Cholesky on the kernels (``chain_backend="pallas"``,
+    f32 factors, ``reg_type`` "always" or "none") or plain (any other
+    options, ``reg_type="on_the_fly"`` among them), one- and two-phase
+    (``f32_phase_tol > 0`` with f64 data and f32 factors: a coarse phase
+    with everything in f32 down to f32_phase_tol or a stall of
+    ``f32_patience`` iterations, then the data-dtype phase with
+    refinement), plain or safeguarded refinement (f32 factors only),
+    sequential or batched Armijo, all three terminations.
 
     ``stage_ws``: the qpgen working sets of a previous solve
     (``info["qpgen_ws"]``), the qpOASES hotstart across MPC steps
@@ -1157,7 +1283,11 @@ def tdunes_solve(qp: TreeQPIn, lam0=None, opts: TdunesOpts = TdunesOpts(),
     ``info["iter_f32"]`` counts the coarse iterations, ``info["iter"]``
     both phases; qpgen and mixed add ``qpgen_res`` (the general stage QPs'
     KKT guard at the solution) and ``qpgen_ws`` (their final working
-    sets), boxqp adds ``boxqp_res``.
+    sets), boxqp adds ``boxqp_res``. With ``record_history`` the data-dtype
+    phase records each iteration's error and line-search count in
+    ``info["err_hist"]`` / ``info["ls_hist"]`` (tensors of length
+    ``max_iter`` at the index of the iteration, NaN / -1 elsewhere; the
+    coarse phase records nothing).
     """
     s = opts.stage_solver
     if s == "mixed" and opts.node_solver is None:
@@ -1175,10 +1305,11 @@ def tdunes_solve(qp: TreeQPIn, lam0=None, opts: TdunesOpts = TdunesOpts(),
     ws_in = None if stage_ws is None else tuple(w.to(dt) for w in stage_ws)
 
     it0 = 0
-    if opts.f32_phase_tol > 0 and dt == torch.float64:
+    if opts.f32_phase_tol > 0 and dt == torch.float64 and opts.factor_dtype == "float32":
         f32 = torch.float32
         optsA = dataclasses.replace(opts, refine_steps=0,
-                                    tol=max(opts.f32_phase_tol, opts.tol))
+                                    tol=max(opts.f32_phase_tol, opts.tol),
+                                    record_history=False)
         lamA, it0, _, _, _, wsA = _td_newton_loop(qp.to(dtype=f32), lam0.to(f32), optsA, 0,
                                                   patience=opts.f32_patience)
         # the coarse phase's status is dropped: a not-descent there is
@@ -1188,14 +1319,20 @@ def tdunes_solve(qp: TreeQPIn, lam0=None, opts: TdunesOpts = TdunesOpts(),
             ws_in = tuple(w.to(dt) for w in wsA)
 
     data = _stage_data(qp, opts, prep)
+    hist = None
+    if opts.record_history:
+        hist = (torch.full((opts.max_iter,), math.nan, dtype=dt, device=qp.device),
+                torch.full((opts.max_iter,), -1, dtype=torch.int32, device=qp.device))
     lam, it, _, status, ls_it, ws_f = _td_newton_loop(qp, lam0, opts, it0, ws0=ws_in,
-                                                      data=data)
+                                                      data=data, hist=hist)
     # final stage solve + multiplier recovery (dual_Newton_tree.c:1235-1247)
     sol = _stage_solve(qp, lam, data, opts, prep, inner_ws=ws_f)
     err = float(_residual_error(_dual_residual(qp, sol, prep), opts))
     if status == TDUNES_OPTIMAL and err >= opts.tol:
         status = TDUNES_MAX_ITER
     info = dict(iter=it, status=status, error=err, ls_iter=ls_it, iter_f32=it0)
+    if hist is not None:
+        info["err_hist"], info["ls_hist"] = hist
     mu_d = torch.zeros((topo.Nn, topo.ncm), dtype=dt, device=qp.device)
     if s == "clipping":
         # mu = Q .* (xUnc - x) (stage_qp_clipping_export_mu)

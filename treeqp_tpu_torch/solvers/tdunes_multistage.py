@@ -9,12 +9,12 @@ reference ``setup_multistage_tree`` tree.c:247-280) splits into:
   stacked ``[S, L, ...]`` tensors.
 
 One Newton iteration of the f64 phase evaluates the stage QPs and the dual
-residual in the data dtype (f64), factorizes the dual Hessian in f32 (two
-kernels: ``ops.chain_kernels.chain_blocks_factor`` and
-``ops.crown_kernels.crown_blocks_factor``), solves the Newton system in f32
-(``ops.system_kernels.system_solve``), restores an f64-quality direction
-by iterative refinement against the f64 Hessian action, and takes an
-Armijo step on the dual function.
+residual in the data dtype (f64), factorizes the dual Hessian in f32 (at
+the bench's options two kernels: ``ops.chain_kernels.chain_blocks_factor``
+and ``ops.crown_kernels.crown_blocks_factor``), solves the Newton system in
+f32 (``ops.system_kernels.system_solve``), restores an f64-quality
+direction by iterative refinement against the f64 Hessian action, and
+takes an Armijo step on the dual function.
 
 The two-phase solve (``f32_phase_tol > 0``) first runs a coarse phase with
 everything in f32: with inf-norm termination one launch of
@@ -32,13 +32,23 @@ The JAX version is one jitted ``while_loop``; here the loop is Python
 control flow, so each termination test, Armijo acceptance and
 factorization-reuse comparison reads a scalar back to the host.
 
-Ported: the one- and two-phase solves (f64 data, f32 factors, with or
-without ``df64_phase``) on one device, with the fused kernels (``chain_backend ==
-"pallas"``, ``factor_dtype == "float32"``, a static regularization), the
-sequential and batched Armijo searches, the full-step restart, the
-coarse phase's stall exit, the reuse of the factorization on an unchanged
-active set, and both refinement variants. The other options raise
-``NotImplementedError``.
+Every option the JAX package takes, on one device: the one- and two-phase
+solves (with or without ``df64_phase``), the sequential and batched Armijo
+searches, the full-step restart, the coarse phase's stall exit, the reuse
+of the factorization on an unchanged active set and both refinement
+variants, on the route the JAX package chooses by the options alone. With
+``chain_backend="pallas"`` and f32 factors the chain side runs on the
+kernels above; the crown side, the fused system solve and the fused
+iteration also need a static regularization (``reg_type`` "always" or
+"none"): under ``reg_type="on_the_fly"`` the crown is factored and solved
+by the plain tree Cholesky between the chain kernels' sweeps (three calls
+a solve), and the coarse phase is the per-kernel loop. With
+``chain_backend="xla"`` every step is plain PyTorch: the chain blocks built
+op by op, the banded chain factor and sweeps with the regularized block
+Cholesky, the plain tree Cholesky of the crown. Like the JAX package's,
+the solver takes only the clipping stage solver and rejects the chain
+kernels with factors in the data dtype (``ValueError``); ``axis_name``
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -237,6 +247,79 @@ def _chain_dual_terms(ms: MultistageQP, ch, lam_ch):
     return torch.sum(tx) + torch.sum(tu)
 
 
+def _chain_blocks(ms: MultistageQP, ch, qt_crown, rt_crown, rid, dtype):
+    """Dual-Hessian chain blocks built op by op in ``dtype`` (the JAX
+    package's ``_chain_blocks``): Wc [S, L, nx, nx] = A_j qt_p A_j' + B_j
+    rt_p B_j' + diag(qt_j) and Utc [S, L, nx, nx] = -qt_p A_j' (p the parent
+    of node j: the chain's crown root at j = 0)."""
+    qt_p = torch.cat([qt_crown[rid][:, None], ch["qt"][:, :-1]], dim=1).to(dtype)
+    rt_p = torch.cat([rt_crown[rid][:, None], ch["rt"][:, :-1]], dim=1).to(dtype)
+    A, B = ms.A.to(dtype), ms.B.to(dtype)
+    AB = torch.cat([A, B], dim=3)
+    Wc = torch.einsum("slin,sln,sljn->slij", AB, torch.cat([qt_p, rt_p], dim=2), AB)
+    Wc = Wc + torch.diag_embed(ch["qt"].to(dtype))
+    return Wc, -(qt_p[..., :, None] * A.transpose(2, 3))
+
+
+def _chain_factor(Wc, Utc, opts):
+    """Banded backward block Cholesky of each chain, j = L-1 .. 0 (the
+    reference's per-scenario reverse Cholesky,
+    dual_Newton_scenarios.c:590-689): ``chain_factor`` with
+    ``chain_backend="pallas"`` (f32 factors, no LM shift), else plain at the
+    factor dtype with ``tdunes._reg_cholesky`` on each block. Returns (Ls,
+    CUs [S, L, n, n], schur0 [S, n, n] in Wc's dtype)."""
+    out_dt = Wc.dtype
+    fdt = td._factor_dtype(opts, out_dt)
+    Wc, Utc = Wc.to(fdt), Utc.to(fdt)
+    if opts.chain_backend == "pallas":
+        Ls, CUs, schur0 = ck.chain_factor(Wc.contiguous(), Utc.contiguous())
+        return Ls, CUs, schur0.to(out_dt)
+    S, L, n, _ = Wc.shape
+    Ls, CUs = torch.empty_like(Wc), torch.empty_like(Wc)
+    schur = torch.zeros((S, n, n), dtype=fdt, device=Wc.device)
+    for j in range(L - 1, -1, -1):
+        Lb = td._reg_cholesky(Wc[:, j] - schur, opts)
+        CU = torch.linalg.solve_triangular(Lb.mT, Utc[:, j], upper=True, left=False)
+        Ls[:, j], CUs[:, j] = Lb, CU
+        schur = CU @ CU.mT
+    return Ls, CUs, schur.to(out_dt)
+
+
+def _chain_solve_bwd(Ls, CUs, res_ch, opts):
+    """Right-hand-side backward sweep with ``_chain_factor``'s factors, at
+    their dtype: y_j = L_j^-1 (r_j - CU_{j+1} y_{j+1}) for j = L-1 .. 0
+    (``chain_solve_bwd`` with ``chain_backend="pallas"``). Returns (ys, the
+    update radd0 [S, n] of each chain's crown-parent right-hand side in
+    res_ch's dtype)."""
+    out_dt = res_ch.dtype
+    r = res_ch.to(Ls.dtype)
+    if opts.chain_backend == "pallas":
+        ys, radd0 = ck.chain_solve_bwd(Ls, CUs, r.contiguous())
+        return ys, radd0.to(out_dt)
+    ys = torch.empty_like(r)
+    radd = torch.zeros_like(r[:, 0])
+    for j in range(Ls.shape[1] - 1, -1, -1):
+        ys[:, j] = td._tri_solve(Ls[:, j], r[:, j] - radd)
+        radd = td._bmv(CUs[:, j], ys[:, j])
+    return ys, radd.to(out_dt)
+
+
+def _chain_forward(Ls, CUs, ys, droot, opts):
+    """Forward substitution down each chain, j = 0 .. L-1: dl_j = L_j^-T (y_j
+    - CU_j' dl_{j-1}) from dl_{-1} = droot [S, n], the crown's direction at
+    each chain's edge (``chain_forward`` with ``chain_backend="pallas"``).
+    Returns dls [S, L, n] in droot's dtype."""
+    out_dt = droot.dtype
+    dp = droot.to(Ls.dtype)
+    if opts.chain_backend == "pallas":
+        return ck.chain_forward(Ls, CUs, ys, dp.contiguous()).to(out_dt)
+    dls = torch.empty_like(ys)
+    for j in range(Ls.shape[1]):
+        dp = td._tri_solve(Ls[:, j], ys[:, j] - td._bmv_t(CUs[:, j], dp), trans=True)
+        dls[:, j] = dp
+    return dls.to(out_dt)
+
+
 # ---------------------------------------------------------------------------
 # full solve
 
@@ -345,7 +428,7 @@ def _factor_inputs(qtilde_cr, rtilde_cr, qt_ch, rt_ch, prep_cr, ctx, lanes=False
     dtype)."""
     f32 = torch.float32
     prep = prep_cr
-    rid, g_of, rows = ctx["rid"], ctx["g_of"], ctx["rows"]
+    g_of, rows = ctx["g_of"], ctx["rows"]
     t = prep.on(qtilde_cr.device)
     kv = t["kvalid"]
     # analytic diagonal of the crown W blocks (the only crown-block
@@ -362,72 +445,144 @@ def _factor_inputs(qtilde_cr, rtilde_cr, qt_ch, rt_ch, prep_cr, ctx, lanes=False
     sUt = sW[t["gdad_safe"][:, None], t["gslot_cols"]]
     s_node = td._group_to_nodes_mm(sW, prep, ctx["dt"]) * ctx["nrxm_cr"]
 
+    chain = _chain_inputs(qtilde_cr, rtilde_cr, qt_ch, rt_ch, sW[g_of[:, None], rows], ctx,
+                          lanes)
+    return dict(chain=chain, crown=(ABk, ztp, dvals, sW, sUt), s_node=s_node)
+
+
+def _chain_inputs(qtilde_cr, rtilde_cr, qt_ch, rt_ch, s_root, ctx, lanes=False):
+    """The f32 operands of ``chain_blocks_factor`` (ABt, ztp, qtc, s_root),
+    or with ``lanes`` of ``chain_blocks_factor_lanes`` (ABt, qt, rt,
+    ztp_root, s_root); ``s_root`` [S, nxm] the crown's Jacobi scales at
+    the chain roots' lambdas."""
+    f32 = torch.float32
+    rid = ctx["rid"]
     ztp_root = torch.cat([qtilde_cr[rid], rtilde_cr[rid]], dim=-1).to(f32)
-    s_root = sW[g_of[:, None], rows]
+    s_root = s_root.to(f32)
     qt32 = qt_ch.to(f32).contiguous()
     if lanes:
-        chain = (ctx["ABt"], qt32, rt_ch.to(f32).contiguous(), ztp_root, s_root)
-    else:
-        ztp_ch = torch.cat([qt_ch, rt_ch], dim=-1).to(f32)
-        ztp_c = torch.cat([ztp_root[:, None], ztp_ch[:, :-1]], dim=1)
-        chain = (ctx["ABt"], ztp_c, qt32, s_root)
-    return dict(chain=chain, crown=(ABk, ztp, dvals, sW, sUt), s_node=s_node)
+        return (ctx["ABt"], qt32, rt_ch.to(f32).contiguous(), ztp_root, s_root)
+    ztp_ch = torch.cat([qt_ch, rt_ch], dim=-1).to(f32)
+    ztp_c = torch.cat([ztp_root[:, None], ztp_ch[:, :-1]], dim=1)
+    return (ctx["ABt"], ztp_c, qt32, s_root)
+
+
+def _fused_chain(opts) -> bool:
+    """The chain side of the factorize is one kernel
+    (``chain_blocks_factor(_lanes)``): the JAX package's ``fused_chain``,
+    ``chain_backend="pallas"`` with f32 factors (the stage solver is
+    clipping)."""
+    return opts.chain_backend == "pallas" and opts.factor_dtype == "float32"
+
+
+def _solve_backends(prep_cr, meta, opts):
+    """(crown_kernels, fused): whether the crown's factor and solve are the
+    crown kernels (``crown_kernels.crown_supported``), and whether the whole
+    Newton solve is one ``system_solve`` (``system_kernels.system_supported``),
+    as the JAX package's ``_solve_backends`` decides them. Both need
+    ``chain_backend="pallas"``, f32 factors and a static
+    regularization."""
+    if not (td._tree_kernels(opts) and ckr.crown_supported(prep_cr, opts)):
+        return False, False
+    return True, sk.system_supported(prep_cr, meta, opts)
 
 
 def _ms_factorize(ms, qtilde_cr, rtilde_cr, qt_ch, rt_ch, opts, prep_cr, ctx,
                   lanes=False):
-    """Factorize the crown+chains dual Hessian in f32: blocks + Jacobi
-    equilibration + chain factorization (one kernel; with ``lanes`` the
-    variant that reads the chain evaluation's qt/rt directly), then the
-    crown blocks with the chain Schur term + crown factorization (one
-    kernel)."""
-    inp = _factor_inputs(qtilde_cr, rtilde_cr, qt_ch, rt_ch, prep_cr, ctx, lanes)
-    chain_factor = ck.chain_blocks_factor_lanes if lanes else ck.chain_blocks_factor
-    Ls, CUs, schur0, sc = chain_factor(*inp["chain"])
-    Wadd = -_schur_scatter(schur0, ctx["g_of"], ctx["slot"], prep_cr,
-                           prep_cr.nxm)
-    reg = opts.reg_value if opts.reg_type == "always" else 0.0
-    CholW, CholUt = ckr.crown_blocks_factor(*inp["crown"], Wadd, prep_cr,
-                                            reg=reg)
-    return dict(Ls=Ls, CUs=CUs, CholW=CholW, CholUt=CholUt,
-                s_node=inp["s_node"], sc=sc)
+    """Factorize the crown+chains dual Hessian: blocks, Jacobi
+    equilibration and factorization of each side, by the JAX package's four
+    branches. The chain side is one kernel (``chain_blocks_factor``, or with
+    ``lanes`` the variant that reads the chain evaluation's qt/rt directly)
+    where ``_fused_chain``, else ``_chain_blocks`` and ``_chain_factor``;
+    the crown side is one kernel with the chain Schur term
+    (``crown_blocks_factor``) where the chain side is fused and the crown
+    kernels apply, else the crown's blocks built at the factor dtype, the
+    chain Schur blocks subtracted, and ``tdunes._tree_chol_factor``.
+    Returns dict(Ls, CUs, CholW, CholUt, s_node, sc), with kind="plain"
+    where the crown's factors are the plain tree Cholesky's."""
+    fused_chain = _fused_chain(opts)
+    fused_crown = fused_chain and _solve_backends(prep_cr, ms.meta, opts)[0]
+    rid, g_of, rows = ctx["rid"], ctx["g_of"], ctx["rows"]
+    fdt = td._factor_dtype(opts, ms.q.dtype)
+    if fused_crown:
+        inp = _factor_inputs(qtilde_cr, rtilde_cr, qt_ch, rt_ch, prep_cr, ctx, lanes)
+        sW, s_node = inp["crown"][3], inp["s_node"]
+    else:
+        W, Ut = td._build_dual_hessian(ms.crown, dict(qtilde=qtilde_cr, rtilde=rtilde_cr),
+                                       None, opts, prep_cr, dtype=fdt)
+        sW, W, Ut = td._equilibrate(W, Ut, prep_cr)
+        s_node = td._group_to_nodes_mm(sW, prep_cr, ctx["dt"]) * ctx["nrxm_cr"]
+    if fused_chain:
+        chain = (inp["chain"] if fused_crown else _chain_inputs(
+            qtilde_cr, rtilde_cr, qt_ch, rt_ch, sW[g_of[:, None], rows], ctx, lanes))
+        chain_factor = ck.chain_blocks_factor_lanes if lanes else ck.chain_blocks_factor
+        Ls, CUs, schur0, sc = chain_factor(*chain)
+    else:
+        Wc, Utc = _chain_blocks(ms, dict(qt=qt_ch, rt=rt_ch), qtilde_cr, rtilde_cr, rid, fdt)
+        sc = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(Wc, dim1=2, dim2=3), min=1e-12))
+        scp = torch.cat([sW[g_of[:, None], rows][:, None].to(sc.dtype), sc[:, :-1]], dim=1)
+        Ls, CUs, schur0 = _chain_factor(Wc * sc[..., :, None] * sc[..., None, :],
+                                        Utc * scp[..., :, None] * sc[..., None, :], opts)
+    if fused_crown:
+        Wadd = -_schur_scatter(schur0, g_of, ctx["slot"], prep_cr, prep_cr.nxm)
+        reg = opts.reg_value if opts.reg_type == "always" else 0.0
+        CholW, CholUt = ckr.crown_blocks_factor(*inp["crown"], Wadd, prep_cr, reg=reg)
+        crown = dict(CholW=CholW, CholUt=CholUt)
+    else:
+        W = W - _schur_scatter(schur0.to(W.dtype), g_of, ctx["slot"], prep_cr, prep_cr.nxm)
+        crown = td._tree_chol_factor(W, Ut, opts, prep_cr)
+    return dict(Ls=Ls, CUs=CUs, s_node=s_node, sc=sc, **crown)
 
 
-def _make_ms_solve(fact, meta, prep_cr, dt, nrxm_cr):
-    """solve(rcr, rch) -> (dcr, dch) with the stored f32 factors: the whole
-    three-sweep solve is one system_solve call."""
-    s_node, sc = fact["s_node"], fact["sc"]
+def _make_ms_solve(fact, meta, prep_cr, dt, nrxm_cr, opts, rid):
+    """solve(rcr, rch) -> (dcr, dch) with the stored factors, in the JAX
+    package's three forms (``_solve_backends``): one ``system_solve`` call;
+    or three calls, the chain backward sweeps (``_chain_solve_bwd``), the
+    crown's solve (``tdunes._tree_chol_solve``: the crown kernel or plain)
+    and the chain forward sweeps (``_chain_forward``), joined at the chain
+    roots; ``dt`` is the dtype of the crown direction."""
+    s_node, sc, Ls, CUs = fact["s_node"], fact["sc"], fact["Ls"], fact["CUs"]
+    # the crown's factors (with kind "plain" from the plain tree Cholesky)
+    crown = {k: fact[k] for k in ("kind", "CholW", "CholUt") if k in fact}
+    if _solve_backends(prep_cr, meta, opts)[1]:
+        def solve(rcr, rch):
+            rcr_s, rch_s = rcr * s_node, rch * sc
+            rg = td._nodes_to_group_mm(rcr_s, prep_cr)
+            dg, dch_s = sk.system_solve(Ls, CUs, crown["CholW"], crown["CholUt"],
+                                        rg, rch_s, prep_cr, meta.root_ids)
+            dcr_s = td._group_to_nodes_mm(dg, prep_cr, dt) * nrxm_cr
+            return dcr_s * s_node, dch_s.to(dt) * sc
+        return solve
+
+    t = prep_cr.on(Ls.device)
+    dad, slot = t["group_of_node"][rid], t["node_cols"][rid]
 
     def solve(rcr, rch):
         rcr_s, rch_s = rcr * s_node, rch * sc
+        ys, radd0 = _chain_solve_bwd(Ls, CUs, rch_s, opts)
         rg = td._nodes_to_group_mm(rcr_s, prep_cr)
-        dg, dch_s = sk.system_solve(
-            fact["Ls"], fact["CUs"], fact["CholW"], fact["CholUt"],
-            rg, rch_s, prep_cr, meta.root_ids)
+        rg[dad[:, None], slot] -= radd0.to(rg.dtype)
+        dg = td._tree_chol_solve(crown, rg, prep_cr)
         dcr_s = td._group_to_nodes_mm(dg, prep_cr, dt) * nrxm_cr
-        return dcr_s * s_node, dch_s.to(dt) * sc
+        dch_s = _chain_forward(Ls, CUs, ys, dcr_s[rid], opts)
+        return dcr_s * s_node, dch_s * sc
     return solve
 
 
 def _check_opts(ms: MultistageQP, opts: TdunesOpts):
-    """Raise on options this port does not implement yet."""
-    later = "is not ported yet (ROADMAP.md, port queue)"
+    """Raise on options the multistage solver does not take, as the JAX
+    package does: a stage solver other than clipping, the chain kernels
+    (``chain_backend="pallas"``) with factors in the data dtype (they are
+    f32 only), and ``axis_name`` (multi-device, not ported yet)."""
     if opts.stage_solver != "clipping":
-        raise NotImplementedError(f"stage_solver={opts.stage_solver!r} {later}")
+        raise ValueError("the multistage solver supports only the clipping stage "
+                         f"solver, not stage_solver={opts.stage_solver!r}")
+    if opts.chain_backend == "pallas" and opts.factor_dtype != "float32":
+        raise ValueError("chain_backend='pallas' needs factor_dtype='float32' "
+                         "(the chain kernels are f32)")
     if opts.axis_name is not None:
-        raise NotImplementedError(f"axis_name (multi-device) {later}")
-    if opts.chain_backend != "pallas":
         raise NotImplementedError(
-            f"chain_backend={opts.chain_backend!r} (unfused path) {later}")
-    prep_cr = td._get_prep(ms.meta.crown_topo)
-    if not sk.system_supported(prep_cr, ms.meta, opts):
-        raise NotImplementedError(
-            "the fused kernels need factor_dtype='float32', reg_type "
-            f"'always' or 'none', and crown blocks of dim <= 64; other "
-            f"settings {later}")
-    if opts.f32_phase_tol > 0 and not ik.iter_supported(prep_cr, ms.meta, opts):
-        raise NotImplementedError(
-            f"the coarse phase on chains whose [x, u] width differs from the crown's {later}")
+            "axis_name (multi-device) is not ported yet (ROADMAP.md, port queue)")
 
 
 def _sets_equal(a, b) -> bool:
@@ -458,9 +613,11 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
     """The dual-Newton loop in the dtype of ``ms``'s data, counting
     iterations from ``it0``.
 
-    With f32 data (the coarse phase's per-kernel loop) the stage
+    With f32 data, ``chain_backend="pallas"`` and f32 factors (the coarse
+    phase's per-kernel loop, the JAX package's ``fused_eval``) the stage
     evaluations are the chain_eval and crown_eval kernels and the
-    factorize reads their active sets directly (chain_blocks_factor_lanes).
+    factorize reads their active sets directly (chain_blocks_factor_lanes);
+    otherwise they are plain PyTorch in the data dtype.
     ``patience > 0`` adds the coarse phase's stall exit: stop once the
     error has not improved by 10% for ``patience`` consecutive iterations.
 
@@ -473,7 +630,7 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
     crown_data = td._stage_data(ms.crown, opts, prep_cr)
     ctx = _solve_ctx(ms, prep_cr)
     rid, nrxm_cr = ctx["rid"], ctx["nrxm_cr"]
-    fused_eval = dt == torch.float32
+    fused_eval = dt == torch.float32 and _fused_chain(opts)
     if fused_eval:
         data_ch, data_cr = _eval_data(ms, prep_cr)
 
@@ -515,7 +672,7 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
             fact = fact_prev
         else:
             fact = factorize(cr, ch)
-        solve = _make_ms_solve(fact, meta, prep_cr, dt, nrxm_cr)
+        solve = _make_ms_solve(fact, meta, prep_cr, dt, nrxm_cr, opts, rid)
 
         def newton_resnorm(dcr, dch):
             mcr, mch = _ms_apply_M(ms, cr, ch, dcr, dch, prep_cr, rid)
@@ -598,8 +755,12 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
 
 def _mega_applicable(prep_cr, meta, opts) -> bool:
     """The coarse phase runs on the fused iteration kernel
-    (ops/iter_kernel.py): inf-norm termination, no refinement."""
-    return (opts.termination == "infnorm" and opts.refine_steps == 0
+    (ops/iter_kernel.py), as the JAX package's ``_mega_applicable`` decides:
+    ``chain_backend="pallas"``, f32 factors, inf-norm termination, no
+    refinement, and the fused system solve's options
+    (``iter_kernel.iter_supported``)."""
+    return (opts.chain_backend == "pallas" and opts.factor_dtype == "float32"
+            and opts.termination == "infnorm" and opts.refine_steps == 0
             and ik.iter_supported(prep_cr, meta, opts))
 
 
@@ -721,7 +882,7 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
 
     it0 = 0
     handover = None  # (fact, sets) of the coarse phase's last factorization
-    if opts.f32_phase_tol > 0 and dt == torch.float64:
+    if opts.f32_phase_tol > 0 and dt == torch.float64 and opts.factor_dtype == "float32":
         f32 = torch.float32
         ms32 = ms.to(dtype=f32)
         opts32 = dataclasses.replace(
