@@ -225,7 +225,33 @@ Phases (any failure exits non-zero):
    stalls both packages (quadcopter(2,2,6) pruned to 3 scenarios, x0 +
    0.05 N(0, I)) at ``models.GENERIC_SPEED_OPTS`` with reg_type "always"
    and "on_the_fly", on the card and on the CPU, the two held to the same
-   status and iterations.
+   status and iterations;
+12. the surfaces (slice 24), every instance written with the port's
+   ``tree_qp_to_json``: (a) ``interfaces.cli.solve_request`` in process on
+   the card, each request certified (status 0, KKT < 1e-8, the expected
+   dispatch) and held against the solver called directly with the options
+   the CLI builds (iterations equal, x and u within SURF_GAP): the headline
+   tree with clipping (tdunes_ms) cold and warm (the cold response's
+   ``init.lam0_tree``, x0 scaled as section 3 scales it), section 7's
+   box-only tree through hpipm (hpipm_ms) and ipm with ``multistage:
+   false``, section 11's general C/D tree (Nr=CD_DEF_NR; stage solver
+   qpgen) cold and warm, section 8's tree through sdunes; each request's
+   iterations, solver_time, interface_time and JSON size printed; (b) the
+   server (``--serve``, no ``--device``) as a child process: its handshake,
+   the headline and general C/D requests cold and N_SERVE_REPEATS times
+   more, each response held to (a)'s, the child on the card by its own
+   /proc entry (a /dev/nvidia* file open or libcuda mapped) and by
+   nvidia-smi (its pid among the compute apps, or, where nvidia-smi reports
+   pids of another namespace, one compute app more than before it started),
+   ``quit`` and exit 0, no compute app left of it, each request's wall
+   time from write to response printed; (c) the one-shot file mode (``python3 -m
+   treeqp_tpu_torch.interfaces.cli qp.json -o out.json``) on
+   spring_mass_chain(1,2,1,4); (d) ``treeqp_cpp_demo`` built by the port's
+   Makefile (target ``demo``) and run on that tree with (c)'s solution as
+   xopt / uopt, N_DEMO_WARM warm solves on the card; (e) ``utils.profiling.profile_ms_phases`` on the
+   headline at bench.py's options, its phase iterations within one of
+   section 3's cold bench-path solve, and ``profile_tdunes_ops`` on section
+   5's pruned tree at ``models.GENERIC_SPEED_OPTS``.
 
 The kernel launch counts are set to 0 before each path (one-phase,
 two-phase, bench, bench handover, two-norm, 1024 scenarios, generic split,
@@ -233,10 +259,10 @@ generic crown, generic cross-check, general C/D qpgen, general C/D mixed,
 IPM paths A, B and C; the sdunes cold solve, each boot request's
 bootstrap and its sdunes solve apart, sdunes_f32, tdunes_ms_f32; the CR
 loop; the MPC re-embedding path; G qpgen, G mixed, bench on-the-fly, P
-generic, P multistage, P sdunes)
-and read after it; every kernel must launch on a path that runs it, the
-multistage paths launch none of the generic solver's kernels, the generic
-split path none of the multistage solver's, the crown path only
+generic, P multistage, P sdunes; the seven in-process requests and the
+two profilers of section 12) and read after it; every kernel must launch
+on a path that runs it, the multistage paths launch none of the generic
+solver's kernels, the generic split path none of the multistage solver's, the crown path only
 crown_factor and crown_solve, no path before section 6 launches
 admm_identify, and the general C/D paths launch it and the five generic
 kernels and none of the multistage solver's; no path before section 7
@@ -251,8 +277,12 @@ launch admm_identify and no other kernel, the bench on-the-fly path the
 chain kernels of the coarse loop (chain_eval, crown_eval,
 chain_blocks_factor_lanes), the chain sweeps chain_solve_bwd and
 chain_forward, the five kernels of the high-precision phase and no other,
-and the P paths no kernel. Prints the JSON
-summary of all 28 kernels (rows chain_factor, chain_solve_bwd,
+and the P paths no kernel; section 12's general C/D requests launch
+admm_identify and no other kernel, its other requests none,
+profile_ms_phases the coarse loop's and the high-precision phase's
+kernels (and chain_factor, its factorization's chain Cholesky) and no
+other, profile_tdunes_ops the five generic kernels and no other. Prints
+the JSON summary of all 28 kernels (rows chain_factor, chain_solve_bwd,
 chain_forward, crown_factor, crown_solve, crown_blocks_factor,
 df_reduce_flat, chain_blocks_factor, chain_blocks_factor_lanes,
 system_solve, jay_cr_solve, chain_solve_bwd_cr and chain_forward_cr also
@@ -267,6 +297,7 @@ Imports nothing of JAX.
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -467,6 +498,19 @@ N_REQUESTS_DEF = 4  # general C/D warm requests at the CPU options
 # nodes) the CPU options stall at max_iter in both packages (the JAX
 # package on the CPU: status 1 after 150 iterations, error 0.51)
 CD_DEF_NR = 3
+# section 12 (the surfaces): the headline's request options (clipping: the
+# multistage dispatch), the general C/D request's (GENERAL_CD_CPU_OPTS'
+# maxit and tol), the demo's (treeqp_cpp_demo.cpp) for the one-shot file
+# mode, the server's repeats of each request after the cold one, the
+# demo's warm solves, where the section writes its files, and the gap of
+# x and u between a request and its direct call
+SURF_HEAD_OPTS = dict(solver="tdunes", clipping=True)
+SURF_CD_OPTS = dict(solver="tdunes", maxit=150, stationarityTolerance=2.5e-9)
+SURF_DEMO_OPTS = dict(solver="tdunes", maxit=200, stationarityTolerance=1e-12)
+N_SERVE_REPEATS = 3
+N_DEMO_WARM = 20
+SURF_DIR = ROOT / "build" / "treeqp_tpu_torch" / "surfaces"
+SURF_GAP = 1e-7
 
 
 def fail(msg):
@@ -2318,8 +2362,11 @@ def main():
                              "chain_blocks_factor"), two_phase)
 
     # the bench path: bench.py's options, the coarse phase then ms_df64's
+    bench_head = {}  # the cold headline solve's info, for section 12's profiler
+
     def bench_path():
         cro, cho, info = headline(optsb, "bench-path headline solve", same_iters=True)
+        bench_head.update(info)
         if info["iter_f32"] < 1 or info["iter"] <= info["iter_f32"]:
             fail(f"bench-path headline solve: phases {info}")
         return requests(optsb, N_REQUESTS_B, ("cold", "warm"),
@@ -3742,6 +3789,243 @@ def main():
                 out_c.info["status"], out_c.info["iter"]):
             fail(f"MPC jump state, reg_type {reg}: the card and the CPU disagree")
     print(f"section 11 (slice 23): {time.perf_counter() - t_slice23:.1f} s on {card}")
+
+    # ---- 12. the surfaces (slice 24): the JSON front-end in process, the
+    # solve server and the one-shot file mode as child processes, the C++
+    # demo, the profiler
+    t_slice24 = time.perf_counter()
+    from treeqp_tpu_torch.core.json_io import load_tree_qp_json, tree_qp_to_json
+    from treeqp_tpu_torch.interfaces import cli
+    from treeqp_tpu_torch.utils import profiling
+    SURF_DIR.mkdir(parents=True, exist_ok=True)
+
+    def surface_request(name, j, init, expect, direct, needs=()):
+        """(a) One in-process ``solve_request`` on the card, its launches
+        counted (``needs`` and no other kernel), certified (status 0, KKT <
+        1e-8, the expected dispatch) and held against ``direct(qp)``, the
+        solver called directly on the same data with the options the CLI
+        builds: iterations equal, x and u within SURF_GAP."""
+        resp = drive(f"S {name}", needs, lambda: cli.solve_request(j, init, device=dev),
+                     forbid=tuple(n for n in all_names if n not in needs))
+        info = resp["info"]
+        if info["solver"] != expect or info["status"] != 0 or not info["kkt_tol"] < TOL:
+            fail(f"S {name}: {info}")
+        qpd, _ = load_tree_qp_json(j, device=dev)
+        if init and "x0" in init:
+            qpd = qpd.set_x0(np.asarray(init["x0"], dtype=np.float64))
+        out = direct(qpd)
+        gap = 0.0
+        for k in ("x", "u"):
+            h = getattr(out, k).cpu().numpy()
+            dk = [h[i, :n] for i, n in enumerate(getattr(qpd.topo, "n" + k))]
+            gap = max(gap, float(np.abs(np.concatenate([nd[k] for nd in resp["nodes"]])
+                                        - np.concatenate(dk)).max()))
+        if out.info["iter"] != info["num_iter"] or not gap <= SURF_GAP:
+            fail(f"S {name}: {info['num_iter']} iterations against the direct call's "
+                 f"{out.info['iter']}, max |dx|, |du| {gap:.3e}")
+        mb = len(json.dumps(j)) / 1e6
+        print(f"S {name}: {info['solver']}, iter {info['num_iter']}, kkt {info['kkt_tol']:.3e}, "
+              f"solver_time {info['solver_time'] * 1e3:.2f} ms, interface_time "
+              f"{info['interface_time'] * 1e3:.2f} ms, JSON {mb:.2f} MB; the direct call "
+              f"{out.info['iter']} iterations, max |dx|, |du| {gap:.2e} on {card}")
+        return resp
+
+    def ms_direct(solve):
+        def run(q):
+            msd = tm.split_multistage(q)
+            return tm.merge_output(msd, *solve(msd))
+        return run
+
+    # the headline tree, clipping: tdunes_ms, cold, then warm from the
+    # response's duals at x0 scaled as section 3 scales it
+    j_head = tree_qp_to_json(qp, options=SURF_HEAD_OPTS)
+    o_head = td.TdunesOpts(stage_solver="clipping")
+    head = surface_request("headline cold", j_head, None, "tdunes_ms",
+                           ms_direct(lambda m: tm.tdunes_ms_solve(m, None, None, o_head)))
+    init_head = dict(x0=(facs[0] * quad.x0).tolist(), lam0_tree=head["init"]["lam0_tree"])
+
+    def head_warm(q):
+        msd = tm.split_multistage(q)
+        lam0 = torch.as_tensor(cli._lam_tree_to_nodes(
+            np.asarray(init_head["lam0_tree"]), q.topo), device=dev)
+        return tm.merge_output(msd, *tm.tdunes_ms_solve(msd, *tm.split_duals(msd, lam0), o_head))
+    surface_request("headline warm", j_head, init_head, "tdunes_ms", head_warm)
+    # section 7's box-only tree through the IPM family
+    o_ipm = ipm.IpmOpts()
+    surface_request("box-only hpipm", tree_qp_to_json(qb, options=dict(solver="hpipm")), None,
+                    "hpipm_ms", ms_direct(lambda m: ims.ipm_ms_solve(m, o_ipm)))
+    surface_request("box-only ipm", tree_qp_to_json(
+        qb, options=dict(solver="ipm", multistage=False)), None, "ipm",
+        lambda q: ipm.ipm_solve(q, o_ipm))
+    # section 11's general C/D tree: the stage solver resolves to qpgen
+    q_surf_cd = general_cd("qpgen", Nr=CD_DEF_NR, device=dev)
+    j_cd = tree_qp_to_json(q_surf_cd, options=SURF_CD_OPTS)
+    o_cd = td.TdunesOpts(max_iter=150, tol=2.5e-9, stage_solver="qpgen")
+    if cli._pick_stage_solver(q_surf_cd, SURF_CD_OPTS) != "qpgen":
+        fail("the general C/D request does not resolve to the qpgen stage solver")
+    cd = surface_request("general C/D cold", j_cd, None, "tdunes",
+                         lambda q: td.tdunes_solve(q, None, o_cd), needs=admm_name)
+    init_cd = dict(lam0_tree=cd["init"]["lam0_tree"])
+    surface_request("general C/D warm", j_cd, init_cd, "tdunes", lambda q: td.tdunes_solve(
+        q, torch.as_tensor(cli._lam_tree_to_nodes(np.asarray(init_cd["lam0_tree"]), q.topo),
+                           device=dev), o_cd), needs=admm_name)
+    # section 8's tree through sdunes
+    def sd_direct(q):
+        sq = sd.scenario_data(q)
+        return sd.scenario_output(sq, *sd.sdunes_solve(sq, None, None, sd.SdunesOpts()))
+    surface_request("box-only sdunes", tree_qp_to_json(qb, options=dict(solver="sdunes")),
+                    None, "sdunes", sd_direct)
+
+    # (b) the solve server as a child process on the card (no --device)
+    def compute_apps():
+        return subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                              capture_output=True, text=True, check=True).stdout.split()
+
+    def on_card(pid):
+        """The child's own witness: its open files include a /dev/nvidia*
+        device, or its memory maps list libcuda."""
+        fds = Path(f"/proc/{pid}/fd")
+        devs = set()
+        for fd in fds.iterdir():
+            try:
+                devs.add(os.readlink(fd))
+            except OSError:
+                pass
+        nv = sorted(d for d in devs if d.startswith("/dev/nvidia"))
+        cuda = "libcuda" in Path(f"/proc/{pid}/maps").read_text()
+        return nv, cuda
+
+    def serve_child():
+        """The headline and general C/D requests, each cold and then
+        N_SERVE_REPEATS times more, through one server child; each response
+        held to (a)'s, the child seen on the card, quit, exit 0. The child is
+        on the card when its own /proc entry shows a /dev/nvidia* file or
+        libcuda mapped, and nvidia-smi lists it: by its pid, or, where
+        nvidia-smi reports pids of another namespace (every process as pid
+        1), as one compute app more than before it started, gone once it has
+        quit."""
+        apps0 = compute_apps()
+        err_log = SURF_DIR / "serve.stderr.txt"
+        with open(err_log, "w") as err:
+            child = subprocess.Popen([sys.executable, "-m", "treeqp_tpu_torch.interfaces.cli",
+                                      "--serve"], cwd=ROOT, stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            t0 = time.perf_counter()
+            hello = child.stdout.readline()
+            if json.loads(hello or "null") != {"ready": True}:
+                fail(f"server handshake {hello!r}; stderr: {err_log.read_text()[-2000:]}")
+            print(f"server: handshake after {time.perf_counter() - t0:.2f} s on {card}")
+            seen = False
+            for name, j, ref in (("headline", j_head, head), ("general C/D", j_cd, cd)):
+                walls = []
+                for k in range(1 + N_SERVE_REPEATS):
+                    t0 = time.perf_counter()
+                    child.stdin.write(json.dumps(dict(qp=j)) + "\n")
+                    child.stdin.flush()
+                    line = child.stdout.readline()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    resp = json.loads(line or "null")
+                    if not isinstance(resp, dict) or "error" in resp:
+                        fail(f"server {name} request {k}: {line[:500]!r}; stderr: "
+                             f"{err_log.read_text()[-2000:]}")
+                    gap = float(np.abs(np.concatenate([nd["x"] for nd in resp["nodes"]])
+                                       - np.concatenate([nd["x"] for nd in ref["nodes"]])).max())
+                    if resp["info"]["num_iter"] != ref["info"]["num_iter"] or not gap <= SURF_GAP:
+                        fail(f"server {name} request {k}: {resp['info']['num_iter']} iterations "
+                             f"against {ref['info']['num_iter']} in process, max |dx| {gap:.3e}")
+                    if not seen:
+                        apps = compute_apps()
+                        nv, cuda = on_card(child.pid)
+                        print(f"nvidia-smi compute apps {apps} (before the server {apps0}), "
+                              f"server pid {child.pid}; its /dev/nvidia files {nv}, "
+                              f"libcuda mapped: {cuda}")
+                        if not (nv or cuda):
+                            fail(f"the server child {child.pid} holds no /dev/nvidia* file "
+                                 f"and maps no libcuda")
+                        if str(child.pid) not in apps and not (
+                                str(child.pid) not in apps0 and len(apps) == len(apps0) + 1):
+                            fail(f"the server child {child.pid} is not on the card ({apps})")
+                        seen = True
+                print(f"server {name}: iter {resp['info']['num_iter']}, wall from write to "
+                      f"response {[round(w, 1) for w in walls]} ms (cold, then "
+                      f"{N_SERVE_REPEATS} repeats), solver_time "
+                      f"{resp['info']['solver_time'] * 1e3:.2f} ms, interface_time "
+                      f"{resp['info']['interface_time'] * 1e3:.2f} ms on {card}")
+            child.stdin.write(json.dumps({"cmd": "quit"}) + "\n")
+            child.stdin.flush()
+            rc = child.wait(timeout=60)
+            if rc != 0:
+                fail(f"the server exited {rc}: {err_log.read_text()[-2000:]}")
+            apps = compute_apps()
+            print(f"server quit, exit 0; nvidia-smi compute apps {apps}")
+            if len(apps) != len(apps0):
+                fail(f"a compute app outlived the server: {apps} against {apps0}")
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    serve_child()
+
+    # (c) the one-shot file mode on a small tree, (d) the C++ demo on it
+    q_small = spring_mass_chain(1, 2, 1, 4, device="cpu")[0]
+    j_small = tree_qp_to_json(q_small, options=SURF_DEMO_OPTS)
+    (SURF_DIR / "small.json").write_text(json.dumps(j_small))
+    t0 = time.perf_counter()
+    res = subprocess.run(["python3", "-m", "treeqp_tpu_torch.interfaces.cli",
+                          str(SURF_DIR / "small.json"), "-o", str(SURF_DIR / "small_out.json")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"one-shot file mode exited {res.returncode}: {res.stderr[-2000:]}")
+    small = json.loads((SURF_DIR / "small_out.json").read_text())
+    if (small["info"]["status"] != 0 or small["info"]["solver"] != "tdunes"
+            or len(small["nodes"]) != q_small.topo.Nn or len(small["edges"]) != q_small.topo.Nn - 1
+            or not {"x", "u", "mu_x", "mu_u", "mu_d"} <= set(small["nodes"][0])):
+        fail(f"one-shot file mode wrote {small['info']}")
+    print(f"one-shot file mode: {res.stdout.strip()} ({time.perf_counter() - t0:.1f} s with "
+          f"the process start) on {card}")
+    demo = ROOT / "build" / "treeqp_tpu_torch" / "treeqp_cpp_demo"
+    subprocess.run(["make", "-C", str(ROOT / "treeqp_tpu_torch" / "interfaces" / "cpp"),
+                    f"BUILD={demo.parent}", "demo"], check=True, timeout=300)
+    j_demo = {k: v for k, v in j_small.items() if k != "options"}
+    for nd, sol in zip(j_demo["nodes"], small["nodes"]):
+        nd["xopt"], nd["uopt"] = sol["x"], sol["u"]
+    (SURF_DIR / "demo.json").write_text(json.dumps(j_demo))
+    t0 = time.perf_counter()
+    res = subprocess.run([str(demo), str(SURF_DIR / "demo.json"), str(N_DEMO_WARM), "cuda"],
+                         cwd=ROOT, env=dict(os.environ, TREEQP_ROOT=str(ROOT)),
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"treeqp_cpp_demo exited {res.returncode}: {res.stdout} {res.stderr[-2000:]}")
+    for line in res.stdout.splitlines():
+        print(f"treeqp_cpp_demo: {line}")
+    print(f"treeqp_cpp_demo: {time.perf_counter() - t0:.1f} s with the server start on {card}")
+
+    # (e) the profiler: profile_ms_phases on the headline at bench.py's
+    # options, profile_tdunes_ops on section 5's pruned tree
+    prof_needs = ("chain_eval", "crown_eval", "chain_blocks_factor_lanes",
+                  "crown_blocks_factor", "system_solve") + df_kernels
+    prof = drive("S profile_ms_phases", prof_needs,
+                 lambda: profiling.profile_ms_phases(ms, optsb),
+                 forbid=tuple(n for n in all_names if n not in prof_needs + ("chain_factor",)))
+    if not all(v > 0 for v in prof.values()):
+        fail(f"profile_ms_phases: {prof}")
+    hi_iters = bench_head["iter"] - bench_head["iter_f32"]
+    if abs(prof["f32_phase_iters"] - bench_head["iter_f32"]) > 1 \
+            or abs(prof["df64_phase_iters"] - hi_iters) > 1:
+        fail(f"profile_ms_phases' phases {prof} against the bench solve's {bench_head}")
+    print(f"profile_ms_phases (headline, bench.py's options): "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in prof.items())
+          + f"; the bench solve's phases {bench_head['iter_f32']} + {hi_iters} on {card}")
+    prof_g = drive("S profile_tdunes_ops", generic_names,
+                   lambda: profiling.profile_tdunes_ops(qg, optsg),
+                   forbid=tuple(n for n in all_names if n not in generic_names))
+    if not all(v > 0 for v in prof_g.values()):
+        fail(f"profile_tdunes_ops: {prof_g}")
+    print(f"profile_tdunes_ops (pruned, GENERIC_SPEED_OPTS): "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in prof_g.items()) + f" on {card}")
+    print(f"section 12 (slice 24): {time.perf_counter() - t_slice24:.1f} s on {card}")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"(build {t_build:.1f} s) on {card}")

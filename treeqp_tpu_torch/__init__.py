@@ -31,6 +31,7 @@ from treeqp_tpu_torch.solvers.ipm_multistage import ipm_ms_solve  # noqa: E402
 from treeqp_tpu_torch.solvers.sdunes import (  # noqa: E402
     SdunesOpts, sdunes_solve, scenario_data, scenario_duals_from_tree, scenario_output)
 from treeqp_tpu_torch.core.soft import soften_bounds, recover_soft  # noqa: E402
+from treeqp_tpu_torch.core.json_io import load_tree_qp_file, load_tree_qp_json  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -59,4 +60,6 @@ __all__ = [
     "scenario_output",
     "soften_bounds",
     "recover_soft",
+    "load_tree_qp_file",
+    "load_tree_qp_json",
 ]

@@ -70,7 +70,7 @@ from treeqp_tpu_torch.ops import iter_kernel as ik
 from treeqp_tpu_torch.ops import system_kernels as sk
 
 __all__ = ["MultistageQP", "split_multistage", "tdunes_ms_solve",
-           "merge_output", "chain_node_ids"]
+           "merge_output", "chain_node_ids", "split_duals", "multistage_applicable"]
 
 CHAIN_FIELDS = ("Qd", "Rd", "q", "r", "xmin", "xmax", "umin", "umax",
                 "A", "B", "b")
@@ -134,6 +134,27 @@ def chain_node_ids(meta) -> np.ndarray:
     return np.stack([np.arange(int(ss[meta.Nr + 1 + j]),
                                int(ss[meta.Nr + 2 + j]))
                      for j in range(meta.L)], axis=1).astype(np.int64)
+
+
+def split_duals(ms: MultistageQP, lam_nodes):
+    """Split a full-tree dual warm start [Nn, nxm] into the crown+chain
+    layout (lam0_crown [Ncrown, nxm_cr], lam0_chain [S, L, nx]) — the
+    multistage counterpart of treeqp_tdunes_set_dual_initialization. On
+    ``lam_nodes``'s device."""
+    meta = ms.meta
+    lam_nodes = torch.as_tensor(lam_nodes)
+    ids = torch.as_tensor(chain_node_ids(meta), device=lam_nodes.device)
+    lam_cr = lam_nodes[: meta.crown_topo.Nn, : meta.crown_topo.nxm]
+    lam_ch = lam_nodes[ids][:, :, : ms.q.shape[-1]]
+    return lam_cr, lam_ch
+
+
+def multistage_applicable(qp: TreeQPIn) -> bool:
+    """True when the crown+chains speed path applies: multistage scenario
+    tree (setup_multistage_tree shape) with clipping-class data."""
+    if qp.topo.multistage_params is None:
+        return False
+    return td.clipping_applicable(qp)
 
 
 def _ms_meta(topo: TreeStructure) -> _MsMeta:

@@ -2,10 +2,10 @@
 
 Copied from ``treeqp_tpu/utils/tree.py`` (numpy only, no framework): the
 JAX package's module cannot be imported here because importing anything
-under ``treeqp_tpu`` runs its ``__init__``, which imports jax. The one
-difference is ``from_nkids``, which always takes the pure-Python builder
-(the JAX package may use its native C graph builder; both give the same
-parent vector).
+under ``treeqp_tpu`` runs its ``__init__``, which imports jax. As there,
+``from_nkids`` builds the parent vector with the native host library
+(the port's own copy, ``utils/native.py``) where it loads and with the
+Python loop otherwise; both give the same parent vector.
 
 TPU-native re-design of the reference topology layer
 (``treeqp/utils/tree.{h,c}`` — ``struct node`` at tree.h:41-51, ``tree_create``
@@ -265,9 +265,17 @@ class TreeStructure:
         """Build from children counts, mirroring ``tree_create`` (tree.c:171-243).
 
         Children of node i are the next unassigned nodes, giving the same
-        BFS / stage-contiguous numbering as the reference.
+        BFS / stage-contiguous numbering as the reference. Uses the native
+        host library (libtreeqp_host, ``utils/native.py``) when it loads.
         """
         Nn = len(nk)
+        from treeqp_tpu_torch.utils import native
+
+        nat = native.build_topology(nk) if Nn > 1 else None
+        if nat is not None:
+            parent = nat[0].tolist()
+            parent[0] = -1
+            return cls.from_parent(parent, nx, nu, nc)
         parent = [-1] * Nn
         next_free = 1
         for i in range(Nn):
