@@ -251,7 +251,44 @@ Phases (any failure exits non-zero):
    xopt / uopt, N_DEMO_WARM warm solves on the card; (e) ``utils.profiling.profile_ms_phases`` on the
    headline at bench.py's options, its phase iterations within one of
    section 3's cold bench-path solve, and ``profile_tdunes_ops`` on section
-   5's pruned tree at ``models.GENERIC_SPEED_OPTS``.
+   5's pruned tree at ``models.GENERIC_SPEED_OPTS``;
+13. the multi-device solve: the chain-side kernels of the
+   three sharded paths (chain_blocks_factor, chain_solve_bwd,
+   chain_forward; ric_chain_factor with dense hbar, ric_chain_bwd,
+   ric_chain_fwd; chain_factor, chain_full_solve_mat) held against their
+   twins at the ranks' local chain counts (SHARD_S_LOCAL: the headline's
+   256 chains over 2 and 4 ranks; the crown side is replicated at the
+   shapes of sections 2, 7 and 8); then ``parallel.shard_solver``'s
+   ``tdunes_ms_solve_shmap`` on the headline at bench.py's options (under
+   an axis: no fused iteration, df64 phase or fused system solve),
+   ``ipm_ms_solve_shmap`` on section 6's general C/D tree at path A's
+   options and ``sdunes_solve_shmap`` on section 8's tree cold and from
+   the bootstrap's duals, over groups of 1, 2 and 4 ranks that share the
+   card (``launcher.run_ranks`` of ``timed_shard_cases``: spawned ranks,
+   gloo, the collectives staged through host memory), each certified by
+   both oracles (the port's ``max_kkt_residual`` and ``kkt_numpy``,
+   < 1e-8), x, u, lam within SHARD_GAP of the 1-rank group's and its
+   iterations equal to that group's (the psums' partial sums and the
+   batched PyTorch ops round by the ranks' chain count, and two of these
+   solves stop where such bits decide: IPM path A within one iteration,
+   x, u, lam compared at equal counts only; cold sdunes at any count, its
+   converged solution held), the cold sdunes solve of every group
+   engaging the stall escalation and the bootstrapped one not
+   (``info["stall_boosts"]``), the 1-rank
+   group's IPM and cold sdunes solves the one-device solves of sections 7
+   and 8 (the same iterations, x, u, lam within SHARD_GAP), the
+   replicated outputs equal on every rank, the
+   collective bytes per iteration printed (tdunes_ms' per f32 iteration
+   beside the model's ``sharding.model_bytes_per_iter``, at most twice
+   it), wall (tdunes_ms also profiled device) time, and each rank's
+   launches (tdunes_ms rows chain_blocks_factor,
+   crown_blocks_factor, chain_solve_bwd, chain_forward and crown_solve,
+   ipm_ms the three chain Riccati kernels, sdunes chain_factor,
+   chain_full_solve_mat and jay_cr_solve, each on every rank, and no
+   other); last the witness that the cold sdunes count follows rounding
+   on one device too: section 8's cold solve with Qd scaled by 1 + k 2^-52
+   (SHARD_WITNESS_ULPS), each count printed. A failure in any rank exits
+   non-zero.
 
 The kernel launch counts are set to 0 before each path (one-phase,
 two-phase, bench, bench handover, two-norm, 1024 scenarios, generic split,
@@ -260,7 +297,8 @@ IPM paths A, B and C; the sdunes cold solve, each boot request's
 bootstrap and its sdunes solve apart, sdunes_f32, tdunes_ms_f32; the CR
 loop; the MPC re-embedding path; G qpgen, G mixed, bench on-the-fly, P
 generic, P multistage, P sdunes; the seven in-process requests and the
-two profilers of section 12) and read after it; every kernel must launch
+two profilers of section 12; in each rank, every sharded solve of
+section 13) and read after it; every kernel must launch
 on a path that runs it, the multistage paths launch none of the generic
 solver's kernels, the generic split path none of the multistage solver's, the crown path only
 crown_factor and crown_solve, no path before section 6 launches
@@ -511,6 +549,17 @@ N_SERVE_REPEATS = 3
 N_DEMO_WARM = 20
 SURF_DIR = ROOT / "build" / "treeqp_tpu_torch" / "surfaces"
 SURF_GAP = 1e-7
+# section 13 (the multi-device solve): the group sizes on the one card, the
+# gaps allowed against the 1-rank group, the timed repeats of the tdunes_ms solve,
+# the ranks' local chain counts at which the chain kernels are held to
+# their twins, the seed of those operands, and the ulps by which the
+# one-device witness scales sdunes' Qd
+SHARD_WORLDS = (1, 2, 4)
+SHARD_GAP = dict(x=1e-7, u=1e-7, lam=1e-6)
+SHARD_REPEATS = 2
+SHARD_S_LOCAL = (128, 64)
+SHARD_SEED = 250
+SHARD_WITNESS_ULPS = (1, 2, 4)
 
 
 def fail(msg):
@@ -618,6 +667,217 @@ def nbytes(torch, *objs):
 
 
 # operation counts of the dense block routines (an FMA counts two)
+def kkt_numpy(qp, out):
+    """The max-norm KKT residual of ``out`` on the host in numpy, a second
+    oracle beside the port's ``max_kkt_residual`` (the same families and
+    conventions, core/kkt.py, written apart from it)."""
+    import numpy as np
+    h = lambda t: t.detach().cpu().double().numpy()
+    topo = qp.topo
+    xm, um, cm = (np.asarray(m, dtype=float) for m in (topo.x_mask, topo.u_mask, topo.c_mask))
+    nr = np.asarray(topo.nonroot_x_mask, dtype=float)
+    par = np.asarray(topo.parent_np)
+    kid = np.nonzero(par >= 0)[0]
+    Q, R, S, C, D, A, B = (h(getattr(qp, f)) for f in ("Q", "R", "S", "C", "D", "A", "B"))
+    x, u, lam = h(out.x) * xm, h(out.u) * um, h(out.lam) * nr
+    mux, muu, mud = h(out.mu_x) * xm, h(out.mu_u) * um, h(out.mu_d) * cm
+    mv = lambda M, v: np.einsum("nij,nj->ni", M, v)
+    mtv = lambda M, v: np.einsum("nji,nj->ni", M, v)
+    stx = mv(Q, x) + h(qp.q) + mtv(S, u) + mux + mtv(C, mud) - lam
+    stu = mv(R, u) + h(qp.r) + mv(S, x) + muu + mtv(D, mud)
+    np.add.at(stx, par[kid], mtv(A[kid], lam[kid]))
+    np.add.at(stu, par[kid], mtv(B[kid], lam[kid]))
+    dyn = np.zeros_like(x)
+    dyn[kid] = mv(A[kid], x[par[kid]]) + mv(B[kid], u[par[kid]]) + h(qp.b)[kid] - x[kid]
+    parts = [stx * xm, stu * um, dyn * nr]
+    for z, lo, hi, mu, m in ((x, qp.xmin, qp.xmax, mux, xm), (u, qp.umin, qp.umax, muu, um),
+                             (mv(C, x) + mv(D, u), qp.dmin, qp.dmax, mud, cm)):
+        lo, hi = h(lo), h(hi)
+        parts.append((np.maximum(z - hi, 0.0) + np.maximum(lo - z, 0.0)) * m)
+        parts.append(np.where(mu > 0, mu * (z - hi), mu * (lo - z)) * m)
+    return float(max(np.abs(v).max() for v in parts))
+
+
+def kernel_wrappers():
+    """{name: wrapper} of every CUDA kernel wrapper of the port (each counts
+    its launches in its ``launches`` attribute)."""
+    from treeqp_tpu_torch.ops import (chain_cr, chain_kernels, crown_kernels, crown_riccati,
+                                      df_eval_kernels, df_reduce, iter_kernel, jay_kernel,
+                                      qpgen_lanes, riccati_kernels, system_kernels)
+    out = {}
+    for mod in (chain_kernels, crown_kernels, system_kernels, iter_kernel, df_eval_kernels,
+                df_reduce, qpgen_lanes, riccati_kernels, crown_riccati, jay_kernel, chain_cr):
+        for v in vars(mod).values():
+            if callable(v) and hasattr(v, "launches"):
+                out[v.__name__] = v
+    return out
+
+
+def timed_shard_cases(mesh, cases, timing):
+    """Section 13's rank function (``launcher.run_ranks`` spawns it on
+    every rank): each ``ShardCase`` solved on ``mesh`` with every kernel's
+    launch count set to 0 just before the solve and read just after, then
+    ``repeats`` more solves timed on the host clock and, with ``profile``,
+    one under torch.profiler for its device kernel time (``timing``: a
+    (repeats, profile) pair per case). Returns per case dict(out=the
+    solver's outputs on the CPU, launches, wall_s, walls_s, device_ms or
+    None)."""
+    import torch
+    from treeqp_tpu_torch.parallel.shard_solver import cpu_outputs, rank_call
+    wrappers = kernel_wrappers()
+    res = []
+    for case, (repeats, profile) in zip(cases, timing):
+        call = rank_call(case, mesh)
+        for f in wrappers.values():
+            f.launches = 0
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize(mesh.device)
+        wall = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in wrappers.items()}
+        walls = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize(mesh.device)
+            walls.append(time.perf_counter() - t0)
+        dev_ms = None
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as trace
+            with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize(mesh.device)
+            dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        res.append(dict(out=cpu_outputs(out), launches=launches, wall_s=wall, walls_s=walls,
+                        device_ms=dev_ms))
+    return res
+
+
+def sharded_solves(torch, card, runs, worlds, paths=None):
+    """Section 13's solves: each run of ``runs`` (dict(name, case: a
+    ShardCase, qp: the whole tree on the CPU for both oracles, needs:
+    kernels every rank must launch, allowed: the kernels it may launch,
+    model: the communication model's bytes per f32 iteration or None,
+    repeats / profile: the timed repeats and whether to profile one solve
+    (default 0 / False), iter_slack: how far its iterations may lie from
+    the reference group's (default 0, None: any), converged: whether its
+    x, u, lam are held to the reference group's at any count, escalates:
+    True / False where every group's solve must / must not engage sdunes'
+    stall escalation (``info["stall_boosts"]``), one_device: the one-device
+    solve of the same route (its TreeQPOut) or None)) over groups of each
+    size of ``worlds`` (the first, one rank, is the reference group), all
+    runs of a size in one group on the card (``launcher.run_ranks`` of
+    ``timed_shard_cases``). Each is certified (status 0, both oracles' KKT
+    < TOL), takes the reference group's iterations within ``iter_slack``,
+    has x, u, lam within SHARD_GAP of that group's (at the same count, or
+    with ``converged``) and the escalation ``escalates`` asks for; the
+    reference group takes ``one_device``'s iterations with x, u, lam within
+    SHARD_GAP of its (on one rank every collective is the identity); its
+    kernel launches on every rank are held to ``needs`` / ``allowed`` and
+    recorded in ``paths``, and it is printed: iterations, KKT, gaps,
+    collective bytes beside the model, wall (median of the timed repeats)
+    and the profiled device time where the run asks for it, the launches of
+    each rank. Returns {(name, world): summary}."""
+    from treeqp_tpu_torch import merge_output
+    from treeqp_tpu_torch.solvers import sdunes as sd
+    from treeqp_tpu_torch.core.kkt import max_kkt_residual
+    from treeqp_tpu_torch.parallel.launcher import run_ranks
+    from treeqp_tpu_torch.parallel.shard_solver import merge_ranks
+
+    def tree_out(run, r):
+        if "sol" in r:
+            return sd.scenario_output(run["case"].data, r["sol"], r["lam"], r["mu"], r["info"])
+        return merge_output(run["case"].data, r["crown"], r["chain"], r["info"])
+
+    cases = [run["case"] for run in runs]
+    timing = [(run.get("repeats", 0), run.get("profile", False)) for run in runs]
+    ref, summary = {}, {}
+    for world in worlds:
+        t0 = time.perf_counter()
+        per_rank = run_ranks(world, timed_shard_cases, cases, timing)
+        res = merge_ranks(cases, [[c["out"] for c in pr] for pr in per_rank])
+        print(f"sharded group of {world} rank(s) on the card: {len(runs)} runs in "
+              f"{time.perf_counter() - t0:.1f} s with the spawn")
+        for i, (run, r) in enumerate(zip(runs, res)):
+            for key in ("launches", "wall_s", "walls_s", "device_ms"):
+                r[key] = [pr[i][key] for pr in per_rank]
+            name, info = run["name"], r["info"]
+            out = tree_out(run, r)
+            kkt, kkt_np = max_kkt_residual(run["qp"], out), kkt_numpy(run["qp"], out)
+            what = f"sharded {name}, {world} rank(s)"
+            if info["status"] != 0 or not kkt < TOL or not kkt_np < TOL:
+                fail(f"{what}: status {info['status']} KKT {kkt} (port) {kkt_np} (numpy)")
+            if world == worlds[0]:
+                ref[name] = (info["iter"], out)
+                one = run.get("one_device")
+                if one is not None:
+                    gaps1 = {f: float((getattr(out, f) - getattr(one, f).cpu()).abs().max())
+                             for f in ("x", "u", "lam")}
+                    print(f"{what} against the one-device solve: iter {info['iter']} and "
+                          f"{one.info['iter']}, " + ", ".join(f"|d{f}| {v:.2e}"
+                                                         for f, v in gaps1.items()))
+                    if info["iter"] != one.info["iter"] or any(
+                            gaps1[f] > SHARD_GAP[f] for f in gaps1):
+                        fail(f"{what}: not the one-device solve")
+            gaps = {f: float((getattr(out, f) - getattr(ref[name][1], f)).abs().max())
+                    for f in ("x", "u", "lam")}
+            same = info["iter"] == ref[name][0]
+            slack = run.get("iter_slack", 0)
+            if (slack is not None and abs(info["iter"] - ref[name][0]) > slack) or (
+                    (same or run.get("converged")) and any(
+                        gaps[f] > SHARD_GAP[f] for f in gaps)):
+                fail(f"{what}: iter {info['iter']} gaps {gaps} against {worlds[0]} rank(s)' "
+                     f"{ref[name][0]} iterations")
+            if "escalates" in run and (info["stall_boosts"] > 0) != run["escalates"]:
+                fail(f"{what}: the stall escalation engaged at {info['stall_boosts']} "
+                     f"iterations, expected " + ("some" if run["escalates"] else "none"))
+            comm = r["comm"][0]
+            if any(c != comm for c in r["comm"]):
+                fail(f"{what}: the ranks counted different collectives {r['comm']}")
+            line = (f"{what}: status 0, iter {info['iter']}"
+                    + (f" ({info['iter_f32']} f32)" if "iter_f32" in info else "")
+                    + (f", the stall escalation engaged at {info['stall_boosts']} iterations"
+                       if "stall_boosts" in info else "")
+                    + f", KKT {kkt:.2e} (port oracle) {kkt_np:.2e} (numpy oracle); against "
+                    f"{worlds[0]} rank(s): "
+                    + ("the same iterations, " if same else f"{ref[name][0]} iterations, ")
+                    + ", ".join(f"|d{f}| {v:.2e}" for f, v in gaps.items())
+                    + ("" if same or run.get("converged") else " (not held: other counts)")
+                    + f"; collectives {comm['calls']} calls, {comm['bytes']} bytes a solve, "
+                    f"{comm['bytes_per_iter']:.0f} an iteration, largest {comm['max_call']}")
+            if run["model"] is not None:
+                per_f32 = comm["bytes_per_iter_f32"]
+                line += (f", {per_f32:.0f} an f32 iteration beside the model's {run['model']} "
+                         f"({per_f32 / run['model']:.2f}x)")
+                if not 0 < per_f32 <= 2 * run["model"]:
+                    fail(f"{what}: {per_f32} collective bytes an f32 iteration, more than "
+                         f"twice the model's {run['model']}")
+            walls = [statistics.median(w or [w0]) * 1e3
+                     for w, w0 in zip(r["walls_s"], r["wall_s"])]
+            dev_ms = [d for d in r["device_ms"] if d is not None]
+            line += (f"; wall {max(walls):.1f} ms (slowest rank, "
+                     + (f"median of {len(r['walls_s'][0])} repeats; first solve "
+                        f"{max(r['wall_s']) * 1e3:.1f} ms), " if r["walls_s"][0]
+                        else "the counted solve's), ")
+                     + (f"device kernels {max(dev_ms):.1f} ms (busiest rank, profiled)"
+                        if dev_ms else "device time not measured") + f" on {card}")
+            print(line)
+            for rank, launches in enumerate(r["launches"]):
+                got = {k: v for k, v in launches.items() if v}
+                print(f"  rank {rank}: launches {got}")
+                missing = [k for k in run["needs"] if not launches[k]]
+                extra = [k for k in got if k not in run["allowed"]]
+                if missing or extra:
+                    fail(f"{what}, rank {rank}: did not launch {missing}, launched {extra}")
+                if paths is not None:
+                    paths[f"{what}, rank {rank}"] = launches
+            summary[(name, world)] = dict(iter=info["iter"], comm=comm, wall_ms=max(walls),
+                                          device_ms=max(dev_ms) if dev_ms else None)
+    return summary
+
+
 def chol_ops(n):
     return n ** 3 / 3
 
@@ -3242,10 +3502,11 @@ def main():
 
     # the cold headline solve (the card's first sdunes solve ran in the capture)
     def sd_cold():
-        _, info, kkt, t_ms = sd_solve(sqp, None, None, opts_sd, qb, "sdunes cold solve")
+        out, info, kkt, t_ms = sd_solve(sqp, None, None, opts_sd, qb, "sdunes cold solve")
         sd_line("sdunes cold solve", info, kkt, t_ms, info["launches"],
                 f", {t_ms / info['iter']:.2f} ms an iteration")
-    drive("sdunes cold", sd_three, sd_cold, forbid=sd_forbid, sd_path=True)
+        return out
+    out_sd_cold = drive("sdunes cold", sd_three, sd_cold, forbid=sd_forbid, sd_path=True)
 
     # sdunes_boot (and _df64): each request bootstraps through
     # tdunes_ms_solve at tol 1e-4, merge_output and the exact scenario duals
@@ -4026,6 +4287,116 @@ def main():
     print(f"profile_tdunes_ops (pruned, GENERIC_SPEED_OPTS): "
           + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in prof_g.items()) + f" on {card}")
     print(f"section 12 (slice 24): {time.perf_counter() - t_slice24:.1f} s on {card}")
+
+    # ---- 13. the multi-device solve: the chain-side kernels of
+    # the three sharded paths at the ranks' local chain counts against their
+    # twins (the crown side is replicated at the shapes of sections 2, 7 and
+    # 8), then tdunes_ms, ipm_ms and sdunes over groups of 1, 2 and 4 ranks
+    # that share the card (gloo)
+    t_shard = time.perf_counter()
+    from treeqp_tpu_torch.parallel.shard_solver import ShardCase
+    from treeqp_tpu_torch.parallel.sharding import model_bytes_per_iter
+    sm_a = msa.meta
+    nz_a = sm_a.nx + sm_a.nu
+    errs_l = {}
+    for k, S_l in enumerate(SHARD_S_LOCAL):
+        rng_l = np.random.default_rng(SHARD_SEED + k)
+        g32 = lambda *sh: torch.tensor(rng_l.standard_normal(sh), dtype=f32, device=dev)
+        blk = block_operands(torch, S_l, meta.L, meta.nx, meta.nx + meta.nu, SHARD_SEED + k,
+                             dev)[0]
+        got_b, ref_b = ck.chain_blocks_factor(*blk), ck.chain_blocks_factor_ref(*blk)
+        res_l, droot_l = g32(S_l, meta.L, meta.nx), g32(S_l, meta.nx)
+        got_s = ck.chain_solve_bwd(got_b[0], got_b[1], res_l)
+        ref_s = ck.chain_solve_bwd_ref(got_b[0], got_b[1], res_l)
+        got_f = ck.chain_forward(got_b[0], got_b[1], got_s[0], droot_l)
+        ref_f = ck.chain_forward_ref(got_b[0], got_b[1], got_s[0], droot_l)
+        hbar_l, AB_l = ric_operands(torch, S_l, sm_a.L, sm_a.nx, nz_a, True, SHARD_SEED + k, dev)
+        got_r, w_r = rk.ric_chain_factor(hbar_l, AB_l, reg=RIC_REG)
+        ref_r, wref_r = rk.ric_chain_factor_ref(hbar_l, AB_l, reg=RIC_REG)
+        rg_l, rb_l, zr_l = ric_rhs(torch, S_l, sm_a.L, sm_a.nx, nz_a, SHARD_SEED + k, dev)
+        got_rb = rk.ric_chain_bwd(ref_r, rg_l, rb_l)
+        ref_rb = rk.ric_chain_bwd_ref(ref_r, rg_l, rb_l)
+        got_rf = rk.ric_chain_fwd(ref_r, ref_rb[0], ref_rb[1], rb_l, zr_l)
+        ref_rf = rk.ric_chain_fwd_ref(ref_r, ref_rb[0], ref_rb[1], rb_l, zr_l)
+        Ls_l, CUs_l, rhs_l = full_operands(torch, S_l, sm.Nh, sm.nx, 1 + nl, SHARD_SEED + k, dev)
+        got_m = ck.chain_full_solve_mat(Ls_l, CUs_l, rhs_l)
+        ref_m = ck.chain_full_solve_mat_ref(Ls_l, CUs_l, rhs_l)
+        Bw = rng_l.standard_normal((S_l, sm.Nh, sm.nx, sm.nx))
+        Wc_l = torch.tensor(Bw @ np.swapaxes(Bw, -1, -2) / sm.nx + 4.0 * np.eye(sm.nx),
+                            dtype=f32, device=dev)
+        Ut_l = 0.3 * g32(S_l, sm.Nh, sm.nx, sm.nx)
+        got_c, ref_c = ck.chain_factor(Wc_l, Ut_l), ck.chain_factor_ref(Wc_l, Ut_l)
+        torch.cuda.synchronize()
+        pick = lambda f, w: [f[q] for q in ("P", "Luu", "K", "Mxu")] + [w]
+        for name, got_k, ref_k, rtol in (
+                ("chain_blocks_factor", got_b, ref_b, FACTOR_RTOL),
+                ("chain_solve_bwd", got_s, ref_s, SOLVE_RTOL),
+                ("chain_forward", [got_f], [ref_f], SOLVE_RTOL),
+                ("ric_chain_factor", pick(got_r, w_r), pick(ref_r, wref_r), FACTOR_RTOL),
+                ("ric_chain_bwd", got_rb, ref_rb, SOLVE_RTOL),
+                ("ric_chain_fwd", got_rf, ref_rf, SOLVE_RTOL),
+                ("chain_full_solve_mat", [got_m], [ref_m], SOLVE_RTOL),
+                ("chain_factor", got_c, ref_c, FACTOR_RTOL)):
+            errs_l[(name, S_l)] = compare(torch, f"{name} at S={S_l} chains (a rank's share)",
+                                          got_k, ref_k, rtol)
+    print(f"chain-side kernels at the ranks' local chain counts S in {SHARD_S_LOCAL} (headline "
+          f"L={meta.L}, nx={meta.nx}; IPM path A L={sm_a.L}, nz={nz_a}, dense hbar; sdunes "
+          f"Nh={sm.Nh}, n={sm.nx}, m={1 + nl}), max |diff| to the twin: "
+          + ", ".join(f"{n} S={S_l} {e:.2e}" for (n, S_l), e in errs_l.items()))
+
+    # sdunes_boot's duals for the unperturbed tree, from the one-device
+    # bootstrap on the card
+    cro_bt, cho_bt, info_bt = tm.tdunes_ms_solve(msb, None, None, opts_boot)
+    if info_bt["status"] != td.TDUNES_OPTIMAL:
+        fail(f"sharded sdunes: the bootstrap ended {info_bt}")
+    boot_duals = tuple(v.cpu() for v in sd.scenario_duals_from_tree(
+        sqp, None, tm.merge_output(msb, cro_bt, cho_bt, info_bt)))
+    ms_need = ("chain_blocks_factor", "crown_blocks_factor", "chain_solve_bwd",
+               "chain_forward", "crown_solve")
+    ipm_need = ("ric_chain_factor", "ric_chain_bwd", "ric_chain_fwd")
+    sd_need = ("chain_factor", "chain_full_solve_mat", "jay_cr_solve")
+    sqp_cpu = sd.scenario_data(qb_cpu)
+    # the device time of the tdunes_ms run only: a trace of the IPM's and
+    # sdunes' ~10^5 launches a solve takes minutes. One rank is the
+    # one-device solve of sections 7 and 8; on more, the psums' partial
+    # sums and the batched PyTorch ops round by the ranks' chain counts,
+    # and two of these solves stop where such bits decide. IPM path A's
+    # res4 crosses tol at its 28th / 29th iteration (section 7; one step
+    # moves u by ~8e-5), so its groups may lie one step apart and are
+    # compared only at the same count; the cold sdunes depth follows the
+    # rounding of its first iterates (the witness below), so its groups
+    # are held to the same converged solution and to the stall escalation
+    # of a cold start (JAX's zero-filling wrapper would turn it off), not
+    # to the same count
+    shard_runs = [
+        dict(name="tdunes_ms (headline, bench.py's options)", qp=qp_cpu,
+             case=ShardCase("tdunes_ms", ms_cpu, optsb), repeats=SHARD_REPEATS, profile=True,
+             needs=ms_need, allowed=ms_need,
+             model=model_bytes_per_iter(meta.S, meta.nx, meta.nu)),
+        dict(name="ipm_ms (general C/D, path A's options)", qp=qa_cpu,
+             case=ShardCase("ipm_ms", msa_cpu, opts_ipm["cd"]), needs=ipm_need,
+             allowed=ipm_need, model=None, iter_slack=1, one_device=out_a),
+        dict(name="sdunes cold", qp=qb_cpu, case=ShardCase("sdunes", sqp_cpu, opts_sd),
+             needs=sd_need, allowed=sd_need, model=None, iter_slack=None, converged=True,
+             escalates=True, one_device=out_sd_cold),
+        dict(name="sdunes bootstrapped", qp=qb_cpu,
+             case=ShardCase("sdunes", sqp_cpu, opts_sd, start=boot_duals), needs=sd_need,
+             allowed=sd_need, model=None, escalates=False)]
+    sharded_solves(torch, card, shard_runs, SHARD_WORLDS, paths=paths)
+
+    # the witness that the cold sdunes count follows rounding on one device
+    # too: the one-device cold solve of the same tree with its stage
+    # weights Qd scaled by 1 + k 2^-52 (k ulps; the tree's q, r and b are 0)
+    counts = [(0, out_sd_cold.info["iter"], out_sd_cold.info["stall_boosts"])]
+    for k in SHARD_WITNESS_ULPS:
+        sqp_k = sqp.replace(Qd=sqp.Qd * (1.0 + k * 2.0 ** -52))
+        info_k = sd.sdunes_solve(sqp_k, None, None, opts_sd)[3]
+        if info_k["status"] != td.TDUNES_OPTIMAL or info_k["stall_boosts"] <= 0:
+            fail(f"sdunes cold, Qd scaled by 1 + {k} 2^-52: {info_k}")
+        counts.append((k, info_k["iter"], info_k["stall_boosts"]))
+    print("sdunes cold on one device, Qd scaled by 1 + k 2^-52: " + ", ".join(
+        f"k={k}: {it} iterations (escalation at {nb})" for k, it, nb in counts) + f" on {card}")
+    print(f"section 13 (the multi-device solve): {time.perf_counter() - t_shard:.1f} s on {card}")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"(build {t_build:.1f} s) on {card}")

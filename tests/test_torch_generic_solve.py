@@ -159,8 +159,9 @@ def test_pruning_matches_jax(kw):
     dict(record_history=True), dict(axis_name="scen"),
     pytest.param(dict(stage_solver="qpgen"), id="stage_solver")])
 def test_options_outside_the_slice_raise(over):
-    """The options outside slice 4. axis_name (multi-device) still raises.
-    chain_backend="xla", reg_type="on_the_fly" and factor_dtype="same" (the
+    """The options outside slice 4. axis_name is not read by the generic
+    solver, as in the JAX package: the solve with it is the solve without
+    it, bit for bit. chain_backend="xla", reg_type="on_the_fly" and factor_dtype="same" (the
     JAX package's defaults) take the plain tree Cholesky, record_history
     the kernels: each solves the two-phase request and agrees with the JAX
     package's solve in iterations, x, u and lambda, certified by both
@@ -171,8 +172,10 @@ def test_options_outside_the_slice_raise(over):
     qp = port_qp("pruned")
     opts = td.TdunesOpts(**{**SPEED, **over})
     if "axis_name" in over:
-        with pytest.raises(NotImplementedError):
-            tdunes_solve(qp, None, opts)
+        out = tdunes_solve(qp, None, opts)
+        ref = tdunes_solve(qp, None, td.TdunesOpts(**SPEED))
+        assert out.info["status"] == 0 and out.info["iter"] == ref.info["iter"]
+        assert torch.equal(out.x, ref.x) and torch.equal(out.lam, ref.lam)
         return
     if "stage_solver" in over:
         out = tdunes_solve(qp, None, opts)

@@ -154,9 +154,14 @@ def test_nan_direction_exits_as_min_step():
 
 
 def test_axis_name_is_not_ported():
+    """The generic IPM does not read axis_name, as in the JAX package (the
+    sharded IPM is ipm_ms_solve's): the solve with it is the solve without
+    it, bit for bit."""
     _, qp = instance()
-    with pytest.raises(NotImplementedError):
-        ipm_solve(qp, IpmOpts(axis_name="scen"))
+    out = ipm_solve(qp, IpmOpts(axis_name="scen"))
+    ref = ipm_solve(qp, IpmOpts())
+    assert out.info["status"] == 0 and out.info["iter"] == ref.info["iter"]
+    assert torch.equal(out.x, ref.x) and torch.equal(out.u, ref.u)
 
 
 # ---------------------------------------------------------------------------

@@ -220,7 +220,9 @@ def test_warm_start_resumes(f32_phase_tol):
 @pytest.mark.parametrize("field,value", [("chain_backend", "xla"), ("factor_dtype", "same"),
                                          ("axis_name", "scen")])
 def test_unported_options_raise(field, value):
-    """axis_name (multi-device) still raises. chain_backend="xla" and
+    """axis_name with no process group registered under it raises
+    (LookupError; the sharded solve is tests/test_torch_shard_solver.py's).
+    chain_backend="xla" and
     factor_dtype="same" (the JAX package's defaults; the latter on the
     portable backend, as with the chain kernels both packages refuse f64
     factors, test_torch_default_opts.py) solve the instance cold, in the
@@ -232,7 +234,7 @@ def test_unported_options_raise(field, value):
         over["chain_backend"] = "xla"
     opts = {**models.SDUNES_OPTS, **over}
     if field == "axis_name":
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(LookupError, match="no process group"):
             sd.sdunes_solve(sqp, None, None, sd.SdunesOpts(**opts))
         return
     sol_j, lam_j, mu_j, info_j = jsd.sdunes_solve(sqp_j, None, None, jsd.SdunesOpts(**opts))

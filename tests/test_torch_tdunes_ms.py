@@ -184,8 +184,9 @@ def test_armijo_batch_takes_the_first_accepted_step(accept_at, dtype):
     pytest.param(dict(stage_solver="boxqp"), id="stage_solver_boxqp")],
     ids=lambda o: next(iter(o)))
 def test_options_outside_the_slice_raise(override, monkeypatch):
-    """The options outside slice 1. axis_name (multi-device) still raises
-    NotImplementedError, and a stage solver other than clipping the
+    """The options outside slice 1. axis_name with no process group
+    registered under it raises LookupError (the sharded solve is
+    tests/test_torch_shard_solver.py's), and a stage solver other than clipping the
     ValueError of the JAX package's own assert. chain_backend="xla",
     factor_dtype="same" (on the portable backend: with the chain kernels
     both packages refuse f64 factors, test_torch_default_opts.py) and
@@ -199,7 +200,7 @@ def test_options_outside_the_slice_raise(override, monkeypatch):
     ms = port_ms("quadcopter")
     opts = dataclasses.replace(td.TdunesOpts(**SLICE), **override)
     if "axis_name" in override:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(LookupError, match="no process group"):
             tm.tdunes_ms_solve(ms, None, None, opts)
         return
     if "stage_solver" in override:

@@ -30,7 +30,8 @@ in f32 or f64, as XLA runs it in JAX).
 JAX's ``lax.while_loop`` is a Python loop here with one host read per
 iteration (the termination test, the step-failure flag, the barrier for
 the stall counter); the best iterate is kept on the host's side of that
-read. ``axis_name`` (multi-device) raises ``NotImplementedError``.
+read. As in the JAX package, ``ipm_solve`` does not read ``axis_name``:
+the multi-device IPM is ``ipm_multistage.ipm_ms_solve``'s.
 """
 
 from __future__ import annotations
@@ -58,7 +59,8 @@ class IpmOpts:
     """Options: the same fields and defaults as
     ``treeqp_tpu.solvers.ipm.IpmOpts`` (cf. treeqp_hpipm_opts_t,
     hpipm_tree.c:82-106), so that one dict builds both; the JAX docstring
-    describes each field. ``axis_name`` is not ported (multi-device)."""
+    describes each field. ``axis_name`` names the scenario axis of a
+    sharded ``ipm_ms_solve`` (``parallel.sharding``)."""
 
     max_iter: int = 30
     tol: float = 1e-10  # applied to all four residuals (res_g/b/d/m)
@@ -78,9 +80,6 @@ class IpmOpts:
 
 
 def _check_opts(opts: IpmOpts):
-    if opts.axis_name is not None:
-        raise NotImplementedError("axis_name (the multi-device IPM) is not ported "
-                                  "yet (ROADMAP.md, port queue)")
     if opts.factor_dtype not in ("same", "float32"):
         raise ValueError(f"factor_dtype={opts.factor_dtype!r}")
     if opts.chain_backend not in ("xla", "pallas"):

@@ -19,8 +19,16 @@ with general rows the crown runs the plain ``ipm._riccati_factor`` /
 ``_riccati_solve`` in f32. The f64 phase and ``chain_backend="xla"`` run
 the plain batched sweeps below (``_chain_riccati_*``) and the plain crown
 recursion, as XLA runs them in JAX. The JAX one-hot matmul forms of the
-index operations (TPU only) and the explicit-SPMD shard context are not
-carried over: ``axis_name`` raises ``NotImplementedError``.
+index operations (TPU only) are not carried over.
+
+With ``axis_name`` set the solver runs on one rank of a sharded solve (the
+JAX package's ``_IpmShard`` under ``shard_map``): ``ms`` holds the rank's
+chains (``parallel.sharding.shard_multistage``), the crown replicated;
+the chain roots' Riccati terms W0 [S, nz, nz] (per factorization) and w0
+[S, nz] (per solve) and the boundary forms c0 [S, nz] of the residuals
+and the KKT action are all-gathered, the chain sections' sums reduced,
+res4 max-reduced and the step length min-reduced, and the NaN guard
+agreed on, so every host decision reads a value all ranks share.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 from treeqp_tpu_torch.ops import crown_riccati as crk
 from treeqp_tpu_torch.ops import riccati_kernels as rk
+from treeqp_tpu_torch.parallel import sharding
 from treeqp_tpu_torch.solvers.ipm import (
     IpmOpts, _INF_THRESH, _bmv, _check_opts, _cholesky, _chol_solve, _get_ipm_prep,
     _ipm_loop, _kid_sum, _max_step, _riccati_factor, _riccati_solve)
@@ -132,7 +141,14 @@ def ipm_ms_solve(ms: MultistageQP, opts: IpmOpts = IpmOpts(), ws=None):
     (``merge_output`` gives the full-tree TreeQPOut); with general rows
     both dicts carry ``mu_d``. ``ws``: an optional (crown_out, chain_out)
     warm start pair, ``mu_d`` included where present. info = dict(iter,
-    iter_f32 (the f32-factored phase's share), status, res4 (tensor [4]))."""
+    iter_f32 (the f32-factored phase's share), status, res4 (tensor [4])).
+
+    With ``opts.axis_name`` set, one rank of a sharded solve (the module
+    docstring; ``parallel.shard_solver.ipm_ms_solve_shmap``): ``ms`` and the
+    chain half of ``ws`` hold the rank's chains, the chain outputs are the
+    rank's, the rest is the same on every rank, and ``info["comm"]`` counts
+    the collectives (``bytes``, ``calls``, ``max_call``,
+    ``bytes_per_iter``)."""
     _check_opts(opts)
     meta = ms.meta
     qp = ms.crown
@@ -143,7 +159,11 @@ def ipm_ms_solve(ms: MultistageQP, opts: IpmOpts = IpmOpts(), ws=None):
     Nc, nxm, num = topo.Nn, topo.nxm, topo.num
     nz = nxm + num
     S, L = ms.q.shape[:2]
+    # the crown side scatters all S chain roots (``rid``), the chain side
+    # reads this rank's (``rid_l``)
     rid = torch.as_tensor(np.asarray(meta.root_ids), dtype=torch.long, device=dev)
+    shard = sharding.shard_for(opts.axis_name, S)
+    rid_l = shard.slice_s(rid)
     par = prep.par_on(dev)
     t = lambda m: torch.as_tensor(m, dtype=dt, device=dev)
 
@@ -151,7 +171,7 @@ def ipm_ms_solve(ms: MultistageQP, opts: IpmOpts = IpmOpts(), ws=None):
     zmask_cr = torch.cat([xm, um], dim=1)
     # chain masks from the full topology (identity-padded weights cannot
     # tell padding apart)
-    ids = torch.as_tensor(chain_node_ids(meta), device=dev)
+    ids = shard.slice_s(torch.as_tensor(chain_node_ids(meta), device=dev))
     full = meta.full_topo
     xmask_ch, umask_ch = t(full.x_mask)[ids], t(full.u_mask)[ids]
     zmask_ch = torch.cat([xmask_ch, umask_ch], dim=2)
@@ -195,11 +215,11 @@ def ipm_ms_solve(ms: MultistageQP, opts: IpmOpts = IpmOpts(), ws=None):
 
     def sum_split(per_tag):
         """A per-section scalar summed as JAX sums it: the crown sections,
-        then the chain sections, then the two."""
+        then the chain sections (over every rank's chains), then the two."""
         t_cr = sum(per_tag(tag) for tag in TAGS if tag not in _CHAIN_TAGS)
         t_ch = sum((per_tag(tag) for tag in TAGS if tag in _CHAIN_TAGS),
                    start=torch.zeros((), dtype=dt, device=dev))
-        return t_cr + t_ch
+        return t_cr + shard.psum(t_ch)  # the crown terms replicated, the chains sharded
 
     n_ineq = torch.clamp(sum_split(lambda tag: SEC[tag][2].sum() + SEC[tag][3].sum()),
                          min=1.0)
@@ -220,14 +240,15 @@ def ipm_ms_solve(ms: MultistageQP, opts: IpmOpts = IpmOpts(), ws=None):
         lamn = lam_cr * nrxm
         r_cr = torch.cat([r_cr[:, :nxm] - lamn, r_cr[:, nxm:]], dim=1)
         r_cr = r_cr + _kid_sum(_bmv(AB_cr.mT, lamn), topo)
-        # chain-root lambdas pull on their crown parents
-        return root_add(r_cr, _bmv(AB_ch[:, 0].mT, lam_ch[:, 0])) * zmask_cr
+        # chain-root lambdas pull on their crown parents (all-gathered
+        # boundary form [S, nz])
+        return root_add(r_cr, shard.gather_s(_bmv(AB_ch[:, 0].mT, lam_ch[:, 0]))) * zmask_cr
 
     def dyn(z_cr, z_ch, b_cr=0.0, b_ch=0.0):
         """A z_parent + b - z over the crown (masked by nrxm) and the
         chains."""
         r_cr = (_bmv(AB_cr, z_cr[par]) + b_cr - z_cr[:, :nxm]) * nrxm
-        zp = torch.cat([z_cr[rid][:, None], z_ch[:, :-1]], dim=1)
+        zp = torch.cat([z_cr[rid_l][:, None], z_ch[:, :-1]], dim=1)
         return r_cr, _bmv(AB_ch, zp) + b_ch - z_ch[:, :, :nxm]
 
     def residuals(st):
@@ -253,9 +274,10 @@ def ipm_ms_solve(ms: MultistageQP, opts: IpmOpts = IpmOpts(), ws=None):
 
     def res4_of(rg_cr, rg_ch, rb_cr, rb_ch, rd, rm):
         mx = lambda *a: torch.stack([v.abs().max() for v in a]).max()
-        return torch.stack([mx(rg_cr, rg_ch), mx(rb_cr, rb_ch),
-                            mx(*[v for tag in TAGS for v in rd[tag]]),
-                            mx(*[v for tag in TAGS for v in rm[tag]])])
+        # the crown terms replicated, so the max over ranks is the global one
+        return shard.pmax(torch.stack([mx(rg_cr, rg_ch), mx(rb_cr, rb_ch),
+                                       mx(*[v for tag in TAGS for v in rd[tag]]),
+                                       mx(*[v for tag in TAGS for v in rm[tag]])]))
 
     def kkt_rhs(rg, rd_pair, rm_pair, s_lo, s_hi, l_lo, l_hi, mlo, mhi):
         """Eliminate (ds, dl) per section, elementwise in the section's row
@@ -301,14 +323,14 @@ def ipm_ms_solve(ms: MultistageQP, opts: IpmOpts = IpmOpts(), ws=None):
         def one_solve(rhs_cr_, rhs_ch_, rb_cr_, rb_ch_):
             bwd = rk.ric_chain_bwd if chain_k else _chain_riccati_bwd
             p_ch, k_ch, w0 = bwd(fact_ch, rhs_ch_, rb_ch_)
-            wsum0 = _scatter_rows(w0, rid, Nc)
+            wsum0 = _scatter_rows(shard.gather_s(w0), rid, Nc)  # [S, nz] boundary vector
             if crown_k:
                 dz_cr, dlam_cr = crk.crown_ric_solve(fact_cr, rhs_cr_, rb_cr_, wsum0, prep)
             else:
                 dz_cr, dlam_cr = _riccati_solve(qp, fact_cr, rhs_cr_, rb_cr_, prep,
                                                 wsum0=wsum0)
             fwd = rk.ric_chain_fwd if chain_k else _chain_riccati_fwd
-            dz_ch, dlam_ch = fwd(fact_ch, p_ch, k_ch, rb_ch_, dz_cr[rid])
+            dz_ch, dlam_ch = fwd(fact_ch, p_ch, k_ch, rb_ch_, dz_cr[rid_l])
             out = rhs_cr_.dtype
             return dz_cr.to(out), dz_ch.to(out), dlam_cr.to(out), dlam_ch.to(out)
 
@@ -404,7 +426,9 @@ def ipm_ms_solve(ms: MultistageQP, opts: IpmOpts = IpmOpts(), ws=None):
         else:
             fact_ch = _chain_riccati_factor(hbar_ch, AB_ch, opts, fdt)
             W0ch = fact_ch["W0"]
-        Wsum0 = _scatter_rows(W0ch, rid, Nc)
+        # the chain roots' Riccati terms: the boundary tensor of the
+        # scenario decomposition ([S, nz, nz] a factorization)
+        Wsum0 = _scatter_rows(shard.gather_s(W0ch), rid, Nc)
         if crown_k:
             fact_cr = crk.crown_ric_factor(hbar_cr.to(f32).contiguous(), AB_cr32, Wsum0,
                                            prep, nxm, reg=opts.reg_eps)
@@ -429,7 +453,7 @@ def ipm_ms_solve(ms: MultistageQP, opts: IpmOpts = IpmOpts(), ws=None):
             a = steps[0]
             for s_ in steps[1:]:
                 a = torch.minimum(a, s_)
-            return a
+            return shard.pmin(a)
 
         def mu_of(stx):
             return sum_split(lambda tag: (
@@ -467,6 +491,7 @@ def ipm_ms_solve(ms: MultistageQP, opts: IpmOpts = IpmOpts(), ws=None):
         # NaN guard (cf. ipm_solve): exit as MIN_STEP with the last finite
         # iterate, the direction zeroed too
         ok = ~(torch.isnan(alpha) | torch.isnan(dzc.sum()) | torch.isnan(dzh.sum()))
+        ok = shard.all_true(ok)  # the guard must not diverge across ranks
         alpha = torch.where(ok, alpha, 0.0)
         san = lambda v: torch.where(ok, v, 0.0)
         st2 = dict(z_cr=st["z_cr"] + alpha * san(dzc), z_ch=st["z_ch"] + alpha * san(dzh),
@@ -499,4 +524,6 @@ def ipm_ms_solve(ms: MultistageQP, opts: IpmOpts = IpmOpts(), ws=None):
         crown_out["mu_d"] = (st["lhi_crg"] - st["llo_crg"]) * cm_cr
         chain_out["mu_d"] = (st["lhi_chg"] - st["llo_chg"]) * cm_ch
     info = dict(iter=it, iter_f32=it_f32, status=status, res4=res4)
+    if opts.axis_name is not None:
+        info["comm"] = shard.summary(it)
     return crown_out, chain_out, info

@@ -33,8 +33,20 @@ iterations without progress), then the f64 phase, or with ``df64_phase``
 ``solvers.sd_df64``'s final phase (native f64 here); both need f64 data and
 f32 factors. Every option the JAX package takes: the kernels or the plain
 route, factors in f32 or in the data dtype. As in the JAX package the
-chain kernels with factors in the data dtype raise ``ValueError``;
-``axis_name`` raises ``NotImplementedError``.
+chain kernels with factors in the data dtype raise ``ValueError``.
+
+With ``axis_name`` set the solver runs on one rank of a sharded solve (the
+JAX package's ``_SdShard`` under ``shard_map``): the scenario arrays hold
+the rank's scenarios (``parallel.sharding.shard_scenarios``), the
+non-anticipativity multipliers lambda and the Jay system stay replicated.
+The control rows u[:, :Nr] of the coupling residual, the Jay system's
+Gram blocks [Ns, nl, nl] and rt rows, its right-hand side's Kv rows and
+the refinement's kv and rt rows are all-gathered; the lambda pulls act on
+the rank's rows in the one-device order and the coupling coefficients are
+formed globally and sliced; the dual value, the error and the line-search
+scalars are reduced, so every host decision reads a value all ranks
+share. The high-precision ``df64_phase`` is
+bypassed under an axis, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from treeqp_tpu_torch.core.qp_data import TreeQPIn, TreeQPOut
 from treeqp_tpu_torch.ops import chain_kernels as ck
 from treeqp_tpu_torch.ops import jay_kernel as jk
 from treeqp_tpu_torch.ops.tridiag import tridiag_cr_solve
+from treeqp_tpu_torch.parallel import sharding
 from treeqp_tpu_torch.solvers import tdunes as td
 from treeqp_tpu_torch.solvers import tdunes_multistage as tm
 from treeqp_tpu_torch.solvers.tdunes import (
@@ -196,10 +209,14 @@ def _dmask(cmask, meta: _ScenMeta, nu: int):
     return torch.zeros((1, nl), dtype=cmask.dtype, device=cmask.device)
 
 
-def _stage_solve(sqp: ScenarioQP, mu, lam, cmask):
+def _stage_solve(sqp: ScenarioQP, mu, lam, cmask, shard=sharding.ONE_DEVICE):
     """Batched clipping stage solves of all [Ns, Nh+1] scenario stages:
     hmod_x[s,k] = -q + mu[s,k] - A[s,k]'mu[s,k+1]      (mu[s,0] := 0)
-    hmod_u[s,k] = -r - B[s,k]'mu[s,k+1] - lam[s,k] + lam[s-1,k]."""
+    hmod_u[s,k] = -r - B[s,k]'mu[s,k+1] - lam[s,k] + lam[s-1,k].
+    The rank's scenarios (from ``shard.start``), each pulled by the
+    replicated lam in the one-device solve's order (its own pair's, then
+    the previous one's), so that the rank's rows are the one-device
+    solve's bit for bit."""
     Ns, Nr = sqp.meta.Ns, sqp.meta.Nr
     Atmu = torch.einsum("skji,skj->ski", sqp.A, mu)  # A_k' mu_{k+1} at stage k
     Btmu = torch.einsum("skji,skj->ski", sqp.B, mu)
@@ -210,8 +227,11 @@ def _stage_solve(sqp: ScenarioQP, mu, lam, cmask):
     rmod[:, :-1] -= Btmu
     if Ns > 1:
         lm = lam * cmask[..., None]
-        rmod[:-1, :Nr] -= lm
-        rmod[1:, :Nr] += lm
+        lo = shard.start
+        hi = lo + sqp.b.shape[0]
+        own, prev = min(hi, Ns - 1), max(lo, 1)  # rows with a pair of their own / before
+        rmod[:own - lo, :Nr] -= lm[lo:own]
+        rmod[prev - lo:, :Nr] += lm[prev - 1:hi - 1]
     Qinv, Rinv = 1.0 / sqp.Qd, 1.0 / sqp.Rd
     xUnc, uUnc = Qinv * qmod, Rinv * rmod
     x = torch.clamp(xUnc, sqp.xmin, sqp.xmax)
@@ -221,36 +241,41 @@ def _stage_solve(sqp: ScenarioQP, mu, lam, cmask):
     return dict(qmod=qmod, rmod=rmod, x=x, u=u, xUnc=xUnc, uUnc=uUnc, qt=qt, rt=rt)
 
 
-def _residuals(sqp: ScenarioQP, sol, cmask):
+def _residuals(sqp: ScenarioQP, sol, cmask, shard=sharding.ONE_DEVICE):
     """r_mu[s,k] = A x_k + B u_k + b - x_{k+1};  r_lam = u_s - u_{s+1} on
-    the coupled stages ([1, Nr, nu] zeros when Ns == 1)."""
+    the coupled stages ([1, Nr, nu] zeros when Ns == 1). r_mu is the
+    rank's; the coupling rows u[:, :Nr] are all-gathered (``shard``), so
+    r_lam is replicated."""
     x, u = sol["x"], sol["u"]
     r_mu = (torch.einsum("skij,skj->ski", sqp.A, x[:, :-1])
             + torch.einsum("skij,skj->ski", sqp.B, u[:, :-1]) + sqp.b - x[:, 1:])
     Nr = sqp.meta.Nr
     if sqp.meta.Ns > 1:
-        r_lam = (u[:-1, :Nr] - u[1:, :Nr]) * cmask[..., None]
+        u_c = shard.gather_s(u[:, :Nr])
+        r_lam = (u_c[:-1] - u_c[1:]) * cmask[..., None]
     else:
         r_lam = torch.zeros((1, Nr, u.shape[-1]), dtype=u.dtype, device=u.device)
     return r_mu, r_lam
 
 
-def _dual_value(sqp: ScenarioQP, sol, mu):
+def _dual_value(sqp: ScenarioQP, sol, mu, shard=sharding.ONE_DEVICE):
     """f = -g: over the scenario stages -1/2 z'Hz + hmod'z, minus sum b'mu
-    (the coupling constraints have no constant term)."""
+    (the coupling constraints have no constant term); every term is a
+    scenario's, summed over the ranks (``shard``)."""
     x, u = sol["x"], sol["u"]
     quad = torch.sum(x * sqp.Qd * x) + torch.sum(u * sqp.Rd * u)
     lin = torch.sum(sol["qmod"] * x) + torch.sum(sol["rmod"] * u)
-    return -0.5 * quad + lin - torch.sum(sqp.b * mu)
+    return shard.psum(-0.5 * quad + lin - torch.sum(sqp.b * mu))
 
 
-def _error_of(opts: SdunesOpts, r_mu, r_lam):
+def _error_of(opts: SdunesOpts, r_mu, r_lam, shard=sharding.ONE_DEVICE):
     """The termination measure of the dual residuals (0-dim tensor); a tree
-    without couplings (Nr == 0) has an empty r_lam."""
+    without couplings (Nr == 0) has an empty r_lam. r_mu is the rank's
+    (reduced over the ranks, ``shard``), r_lam replicated."""
     if opts.termination == "infnorm":
-        e = r_mu.abs().max()
+        e = shard.pmax(r_mu.abs().max())
         return torch.maximum(e, r_lam.abs().max()) if r_lam.numel() else e
-    sq = torch.sum(r_mu**2) + torch.sum(r_lam**2)
+    sq = shard.psum(torch.sum(r_mu**2)) + torch.sum(r_lam**2)
     return torch.sqrt(sq) if opts.termination == "twonorm" else sq
 
 
@@ -382,12 +407,15 @@ def _sd_full_solve(fact, rhs, opts: SdunesOpts):
     return torch.flip(z, (1,)).to(rhs.dtype) * sc[..., None]
 
 
-def _sd_apply_M(sqp: ScenarioQP, sol, cmask, dm, dmu, dlam_flat, AT=None, BT=None):
+def _sd_apply_M(sqp: ScenarioQP, sol, cmask, dm, dmu, dlam_flat, AT=None, BT=None,
+                shard=sharding.ONE_DEVICE):
     """Exact data-dtype action of the full dual Hessian on (dmu, dlam):
     Mmm dmu (banded) + Mml dlam, and Mlm dmu + Mll dlam, applied in factored
     form (matvecs, no materialized blocks). The coupling coefficients are
     formed in ``dlam_flat * dm``'s dtype (f32 in the high-precision phase,
-    as the JAX package's). Returns (A [Ns, Nh, nx], Al [Ns-1, Nr nu])."""
+    as the JAX package's). Returns (A [Ns, Nh, nx], Al [Ns-1, Nr nu]): A
+    the rank's; the rt and kv coupling rows are all-gathered (``shard``),
+    so Al is replicated."""
     Ns, Nr = sqp.meta.Ns, sqp.meta.Nr
     nu = sqp.r.shape[-1]
     nl = Nr * nu
@@ -405,14 +433,15 @@ def _sd_apply_M(sqp: ScenarioQP, sol, cmask, dm, dmu, dlam_flat, AT=None, BT=Non
     u[:, :-1] -= t0[:, 1:]
     A = A + qt_c * u
     if Ns > 1:
-        rt_l = sol["rt"][:, :Nr].reshape(Ns, nl)
+        rt_l = shard.gather_s(sol["rt"][:, :Nr]).reshape(Ns, nl)
         dl = dlam_flat * dm
         coef = torch.zeros((Ns, nl), dtype=dl.dtype, device=dl.device)
         coef[:-1] += dl
         coef[1:] -= dl
+        coef = shard.slice_s(coef)
         A[:, :Nr] += torch.einsum("skij,skj->ski", sqp.B[:, :Nr],
-                                  rt[:, :Nr] * coef.reshape(Ns, Nr, nu))
-        kv = (rt[:, :Nr] * r[:, :Nr]).reshape(Ns, nl)
+                                  rt[:, :Nr] * coef.reshape(-1, Nr, nu))
+        kv = shard.gather_s((rt[:, :Nr] * r[:, :Nr]).reshape(-1, nl))
         Al = (rt_l[:-1] + rt_l[1:]) * dl
         if Ns > 2:
             Al[1:] -= rt_l[1:-1] * dl[:-1]
@@ -458,7 +487,7 @@ def _sd_consts(sqp: ScenarioQP, opts: SdunesOpts):
 
 
 def _sd_newton_step(sqp: ScenarioQP, opts: SdunesOpts, c, lam, mu, status, sol, r_mu,
-                    r_lam, boost):
+                    r_lam, boost, shard=sharding.ONE_DEVICE):
     """One Newton step from (lam, mu) with the stage solution ``sol`` and
     residuals there: blocks and factorization at the factor dtype
     (``boost`` added to every factorization), one full solve of
@@ -466,16 +495,18 @@ def _sd_newton_step(sqp: ScenarioQP, opts: SdunesOpts, c, lam, mu, status, sol, 
     refinement passes (each one full solve and one Jay solve) against the
     exact Hessian, then the Armijo search (noise slack 2^-45 |f0| in f64,
     2^-18 in f32) or the gradient fallback. ``c`` is ``_sd_consts(sqp,
-    opts)``. Returns (lam, mu, status, ls_it)."""
+    opts)``; ``shard`` the solve's shard context
+    (``parallel.sharding.shard_for``). Returns (lam, mu, status, ls_it)."""
     meta = sqp.meta
     Ns, Nr = meta.Ns, meta.Nr
     nu = sqp.r.shape[-1]
     nl = Nr * nu
     dt, dev = sqp.b.dtype, sqp.b.device
     cmask, dm = c["cmask"], c["dm"]
+    gather, psum = shard.gather_s, shard.psum  # over every rank's scenarios
 
     def f_at(mu_t, lam_t):
-        return _dual_value(sqp, _stage_solve(sqp, mu_t, lam_t, cmask), mu_t)
+        return _dual_value(sqp, _stage_solve(sqp, mu_t, lam_t, cmask, shard), mu_t, shard)
 
     bdt = c["A_b"].dtype
     qt_b, rt_b = sol["qt"].to(bdt), sol["rt"].to(bdt)
@@ -485,26 +516,28 @@ def _sd_newton_step(sqp: ScenarioQP, opts: SdunesOpts, c, lam, mu, status, sol, 
     # ONE multi-RHS full solve: [r_mu | U] -> [z_mu | Z_u]
     Z = _sd_full_solve(fact, torch.cat([r_mu.to(bdt)[..., None], Uown], dim=-1), opts)
     z_mu, Zu = Z[..., 0], Z[..., 1:]
-    Gram = torch.einsum("skxl,skxm->slm", Uown, Zu)
-    diag, off, _, _ = _jay_blocks(rt_b, Gram, cmask, meta)
+    # the Jay system's Gram blocks: the boundary tensor of the scenario
+    # decomposition ([Ns, nl, nl] a factorization), with its rt rows
+    Gram = gather(torch.einsum("skxl,skxm->slm", Uown, Zu))
+    diag, off, _, _ = _jay_blocks(gather(rt_b[:, :Nr]), Gram, cmask, meta)
     rl_full = (r_lam.reshape(Ns - 1, nl) * dm if Ns > 1
                else torch.zeros((1, nl), dtype=dt, device=dev))
 
     def schur_solve(e_l, z_mu_):
         """Direction from a mu-space solve z_mu_ = Mmm^-1 e_mu."""
         if Ns > 1:
-            Kv = torch.einsum("skxl,skx->sl", Uown, z_mu_.to(bdt))
+            Kv = gather(torch.einsum("skxl,skx->sl", Uown, z_mu_.to(bdt)))  # [Ns, nl] rows
             rl = (e_l.to(bdt) - (Kv[:-1] - Kv[1:])) * dm.to(bdt)
             dl = _jay_solve(diag, off, rl, opts, extra_shift=boost).to(dt) * dm
         else:
             dl = torch.zeros((1, nl), dtype=dt, device=dev)
-        dmu_ = z_mu_.to(dt) - torch.einsum(
-            "skxl,sl->skx", Zu, _coef_of(dl, Ns).to(bdt)).to(dt)
+        coef = shard.slice_s(_coef_of(dl, Ns))
+        dmu_ = z_mu_.to(dt) - torch.einsum("skxl,sl->skx", Zu, coef.to(bdt)).to(dt)
         return dmu_, dl
 
     dmu, dlam_flat = schur_solve(rl_full, z_mu)
     for _ in range(max(opts.refine_steps, 0) if opts.factor_dtype == "float32" else 0):
-        Amu, Al = _sd_apply_M(sqp, sol, cmask, dm, dmu, dlam_flat, c["AT"], c["BT"])
+        Amu, Al = _sd_apply_M(sqp, sol, cmask, dm, dmu, dlam_flat, c["AT"], c["BT"], shard)
         z2 = _sd_full_solve(fact, (r_mu - Amu)[..., None], opts)[..., 0]
         cmu, cl = schur_solve(rl_full - Al, z2)
         dmu = dmu + cmu
@@ -512,9 +545,9 @@ def _sd_newton_step(sqp: ScenarioQP, opts: SdunesOpts, c, lam, mu, status, sol, 
     dlam = dlam_flat.reshape(max(Ns - 1, 1), Nr, nu) * cmask[..., None]
 
     # Armijo on f = -g over (lam, mu) jointly, with the noise slack
-    dot = -(torch.sum(r_mu * dmu) + torch.sum(r_lam * dlam))
+    dot = -(psum(torch.sum(r_mu * dmu)) + torch.sum(r_lam * dlam))
     descent_ok = bool(dot < 1e-10)  # the JAX package's documented < 0 deviation
-    f0 = _dual_value(sqp, sol, mu)
+    f0 = _dual_value(sqp, sol, mu, shard)
     eta = (2.0 ** -45 if dt == torch.float64 else 2.0 ** -18) * torch.abs(f0)
     one = torch.ones((), dtype=dt, device=dev)
     tau, ls_it, acc = _armijo(lambda t: f_at(mu + t * dmu, lam + t * dlam), f0, dot,
@@ -524,12 +557,13 @@ def _sd_newton_step(sqp: ScenarioQP, opts: SdunesOpts, c, lam, mu, status, sol, 
         if not descent_ok or not acc:
             # a curvature-scaled gradient step: (r_lam, r_mu) is always
             # an ascent direction of g
-            L_est = torch.diagonal(D, dim1=2, dim2=3).abs().max().to(dt)
+            # D is the rank's, the Jay diagonal replicated
+            L_est = shard.pmax(torch.diagonal(D, dim1=2, dim2=3).abs().max().to(dt))
             if Ns > 1:
                 L_est = torch.maximum(
                     L_est, torch.diagonal(diag, dim1=1, dim2=2).abs().max().to(dt))
             t0 = 1.0 / torch.clamp(L_est, min=1e-12)
-            dot_g = -(torch.sum(r_mu * r_mu) + torch.sum(r_lam * r_lam))
+            dot_g = -(psum(torch.sum(r_mu * r_mu)) + torch.sum(r_lam * r_lam))
             fg = lambda t: f_at(mu + t * r_mu, lam + t * r_lam)
             tau_g, ls_g, _ = _armijo(fg, f0, dot_g, t0, fg(t0), opts, 0.0)
             lam2, mu2 = lam + tau_g * r_lam, mu + tau_g * r_mu
@@ -539,23 +573,31 @@ def _sd_newton_step(sqp: ScenarioQP, opts: SdunesOpts, c, lam, mu, status, sol, 
     return lam2, mu2, status, ls_it
 
 
+def _escalates(opts: SdunesOpts, noimp: int, err) -> bool:
+    """Whether the stall escalation engages at an iteration: on the O(1)
+    cold-start plateau only (``stall_boost_after`` iterations without a
+    10% improvement and the error above 1e-2)."""
+    return (opts.stall_boost_after > 0 and noimp >= opts.stall_boost_after
+            and bool(err > 1e-2))
+
+
 def _sd_iteration(sqp: ScenarioQP, opts: SdunesOpts, c, lam, mu, status, ls_it, best,
-                  noimp, boost):
+                  noimp, boost, shard=sharding.ONE_DEVICE):
     """One pass of the loop body from its carry (the JAX loop's ``body``):
     the stage solution and error at (lam, mu), the stall bookkeeping
     (``best``, ``noimp``, the escalation ``boost``), then a Newton step
     unless the error is below tol. Returns (lam, mu, err, status, ls_it,
     best, noimp, boost, shift_now, stepped)."""
     dt, dev = sqp.b.dtype, sqp.b.device
-    sol = _stage_solve(sqp, mu, lam, c["cmask"])
-    r_mu, r_lam = _residuals(sqp, sol, c["cmask"])
-    err = _error_of(opts, r_mu, r_lam)
+    sol = _stage_solve(sqp, mu, lam, c["cmask"], shard)
+    r_mu, r_lam = _residuals(sqp, sol, c["cmask"], shard)
+    err = _error_of(opts, r_mu, r_lam, shard)
     noimp = 0 if bool(err < 0.9 * best) else noimp + 1
     best = torch.minimum(best, err)
     if opts.stall_boost_after > 0:
-        # the shift engages on the O(1) cold-start plateau only, and
-        # decays once Newton makes progress so that the tail is exact
-        if noimp >= opts.stall_boost_after and bool(err > 1e-2):
+        # the shift engages on the plateau, and decays once Newton makes
+        # progress so that the tail is exact
+        if _escalates(opts, noimp, err):
             boost = torch.full((), opts.reg_value, dtype=dt, device=dev)
         else:
             boost = 0.1 * boost
@@ -564,41 +606,38 @@ def _sd_iteration(sqp: ScenarioQP, opts: SdunesOpts, c, lam, mu, status, ls_it, 
     stepped = not bool(err < opts.tol)
     if stepped:
         lam, mu, status, ls_it = _sd_newton_step(sqp, opts, c, lam, mu, status, sol, r_mu,
-                                                 r_lam, shift_now)
+                                                 r_lam, shift_now, shard)
     return lam, mu, err, status, ls_it, best, noimp, boost, shift_now, stepped
 
 
 def _sd_newton_loop(sqp: ScenarioQP, lam0, mu0, opts: SdunesOpts, it0: int,
-                    patience: int = 0):
+                    patience: int = 0, shard=sharding.ONE_DEVICE):
     """The sdunes dual-Newton loop at the dtype of ``sqp``'s data, counting
     Newton steps from ``it0``: ``_sd_iteration`` until the error is below
     tol, the status is not optimal or max_iter is reached. ``patience > 0``
     adds the coarse phase's stall exit. Returns (lam, mu, it, err, status,
-    ls_it)."""
+    ls_it, boosts: the iterations at which the stall escalation engaged)."""
     dt, dev = sqp.b.dtype, sqp.b.device
     c = _sd_consts(sqp, opts)
     lam, mu, it = lam0, mu0, it0
     inf = torch.full((), float("inf"), dtype=dt, device=dev)
     err, best, boost = inf, inf, torch.zeros((), dtype=dt, device=dev)
-    status, ls_it, noimp = TDUNES_OPTIMAL, 0, 0
+    status, ls_it, noimp, boosts = TDUNES_OPTIMAL, 0, 0, 0
     while (bool(err >= opts.tol) and status == TDUNES_OPTIMAL and it < opts.max_iter
            and (patience <= 0 or noimp < patience)):
         lam, mu, err, status, ls_it, best, noimp, boost, _, stepped = _sd_iteration(
-            sqp, opts, c, lam, mu, status, ls_it, best, noimp, boost)
+            sqp, opts, c, lam, mu, status, ls_it, best, noimp, boost, shard)
+        boosts += _escalates(opts, noimp, err)
         if not stepped:
             break
         it += 1
-    return lam, mu, it, err, status, ls_it
+    return lam, mu, it, err, status, ls_it, boosts
 
 
 def _check_opts(opts: SdunesOpts):
-    """Raise on options ``sdunes_solve`` does not take: ``axis_name``
-    (multi-device, not ported yet), the chain kernels with factors in the
-    data dtype (they are f32 only; the JAX package's raise too), an
-    unknown regularization or termination."""
-    if opts.axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (multi-device) is not ported yet (ROADMAP.md, port queue)")
+    """Raise on options ``sdunes_solve`` does not take: the chain kernels
+    with factors in the data dtype (they are f32 only; the JAX package's
+    raise too), an unknown regularization or termination."""
     if opts.chain_backend == "pallas" and opts.factor_dtype != "float32":
         raise ValueError("chain_backend='pallas' needs factor_dtype='float32' "
                          "(the chain kernels are f32)")
@@ -622,43 +661,60 @@ def sdunes_solve(sqp: ScenarioQP, lam0=None, mu0=None, opts: SdunesOpts = Sdunes
 
     Returns (sol dict of [Ns, Nh+1] trajectories, lam, mu, info);
     ``info["iter"]`` counts the Newton steps of both phases,
-    ``info["iter_f32"]`` the coarse phase's."""
+    ``info["iter_f32"]`` the coarse phase's, ``info["stall_boosts"]`` the
+    iterations at which the stall escalation engaged (0 on a warm start).
+
+    With ``opts.axis_name`` set, one rank of a sharded solve (the module
+    docstring; ``parallel.shard_solver.sdunes_solve_shmap``): ``sqp`` and
+    ``mu0`` hold the rank's scenarios, ``lam0`` all couplings; ``sol`` and
+    ``mu`` come out the rank's, ``lam`` and ``info`` the same on every
+    rank, and ``info["comm"]`` counts the collectives (``bytes``,
+    ``calls``, ``max_call``, ``bytes_per_iter``). A cold start (no duals)
+    keeps the stall escalation, as on one device."""
     _check_opts(opts)
     meta = sqp.meta
     Ns, Nh, Nr = meta.Ns, meta.Nh, meta.Nr
     nx, nu = sqp.b.shape[-1], sqp.r.shape[-1]
     dt, dev = sqp.b.dtype, sqp.b.device
+    S_loc = sqp.b.shape[0]
+    shard = sharding.shard_for(opts.axis_name, S_loc)
     cmask = _coupling_masks(meta, dt, dev)
     if (lam0 is not None or mu0 is not None) and opts.stall_boost_after:
         opts = dataclasses.replace(opts, stall_boost_after=0)
     if mu0 is None:
-        mu0 = torch.zeros((Ns, Nh, nx), dtype=dt, device=dev)
+        mu0 = torch.zeros((S_loc, Nh, nx), dtype=dt, device=dev)
     if lam0 is None:
         lam0 = torch.zeros((max(Ns - 1, 1), Nr, nu), dtype=dt, device=dev)
 
-    it0 = 0
+    it0, boosts = 0, 0
     f32 = torch.float32
     f32_factors = opts.factor_dtype == "float32"
     if opts.f32_phase_tol > 0 and dt == torch.float64 and f32_factors:
         optsA = dataclasses.replace(opts, refine_steps=0,
                                     tol=max(opts.f32_phase_tol, opts.tol))
-        lamA, muA, it0, *_ = _sd_newton_loop(sqp.to(dtype=f32), lam0.to(f32), mu0.to(f32),
-                                             optsA, it0, patience=3)
+        lamA, muA, it0, _, _, _, boosts = _sd_newton_loop(
+            sqp.to(dtype=f32), lam0.to(f32), mu0.to(f32), optsA, it0, patience=3,
+            shard=shard)
         # the coarse phase's status is dropped: a not-descent there is
         # expected noise near the f32 residual floor, not a failure
         lam0, mu0 = lamA.to(dt), muA.to(dt)
 
-    if opts.df64_phase and dt == torch.float64 and f32_factors:
+    if opts.df64_phase and dt == torch.float64 and f32_factors and opts.axis_name is None:
         from treeqp_tpu_torch.solvers.sd_df64 import sd_newton_loop_df
         lam, mu, it, _, status, ls_it = sd_newton_loop_df(sqp, lam0, mu0, opts, it0)
     else:
-        lam, mu, it, _, status, ls_it = _sd_newton_loop(sqp, lam0, mu0, opts, it0)
+        lam, mu, it, _, status, ls_it, boosts_hi = _sd_newton_loop(sqp, lam0, mu0, opts, it0,
+                                                                   shard=shard)
+        boosts += boosts_hi
 
-    sol = _stage_solve(sqp, mu, lam, cmask)
-    err = float(_error_of(opts, *_residuals(sqp, sol, cmask)))
+    sol = _stage_solve(sqp, mu, lam, cmask, shard)
+    err = float(_error_of(opts, *_residuals(sqp, sol, cmask, shard), shard))
     if status == TDUNES_OPTIMAL and not err < opts.tol:
         status = TDUNES_MAX_ITER
-    info = dict(iter=it, status=status, error=err, ls_iter=ls_it, iter_f32=it0)
+    info = dict(iter=it, status=status, error=err, ls_iter=ls_it, iter_f32=it0,
+                stall_boosts=boosts)
+    if opts.axis_name is not None:
+        info["comm"] = shard.summary(it)
     return sol, lam, mu, info
 
 

@@ -69,8 +69,10 @@ class TdunesOpts:
     ``treeqp_tpu.solvers.tdunes.TdunesOpts`` (reference
     treeqp_tdunes_opts_t, dual_Newton_tree.h:67-87), so that one dict builds
     both. The JAX docstrings describe each field; ``tdunes_solve`` and
-    ``tdunes_multistage.tdunes_ms_solve`` take every field but
-    ``axis_name`` (multi-device), which raises ``NotImplementedError``."""
+    ``tdunes_multistage.tdunes_ms_solve`` take every field. ``axis_name``
+    names the scenario axis of a sharded ``tdunes_ms_solve``
+    (``parallel.sharding``); ``tdunes_solve`` does not read it, as in the
+    JAX package."""
 
     max_iter: int = 100
     termination: str = "infnorm"  # infnorm | twonorm | sumsquared
@@ -1236,8 +1238,9 @@ def _td_newton_loop(qp: TreeQPIn, lam0, opts: TdunesOpts, it0: int,
 
 def _check_generic(qp: TreeQPIn, opts: TdunesOpts):
     """Raise on options ``tdunes_solve`` does not take: an unknown or
-    inapplicable stage solver, ``axis_name`` (multi-device, not ported
-    yet), and on the kernel route a tree outside the kernels' shapes."""
+    inapplicable stage solver, and on the kernel route a tree outside the
+    kernels' shapes. ``axis_name`` is not read (the JAX package's
+    ``tdunes_solve`` does not read it either)."""
     if opts.stage_solver not in STAGE_SOLVERS:
         raise ValueError(f"stage_solver={opts.stage_solver!r} (one of {STAGE_SOLVERS})")
     if opts.stage_solver == "clipping" and not clipping_applicable(qp):
@@ -1245,8 +1248,6 @@ def _check_generic(qp: TreeQPIn, opts: TdunesOpts):
             "clipping stage solver not applicable (needs diagonal Q/R, zero "
             "S, nc=0) (cf. stage_qp_clipping_is_applicable)")
     later = "is not ported yet (ROADMAP.md, port queue)"
-    if opts.axis_name is not None:
-        raise NotImplementedError(f"axis_name (multi-device) {later}")
     prep = _get_prep(qp.topo)
     if _tree_kernels(opts) and not (0 < prep.NpG and prep.G <= 64 and prep.nxm <= 16):
         raise NotImplementedError(
@@ -1261,7 +1262,7 @@ def tdunes_solve(qp: TreeQPIn, lam0=None, opts: TdunesOpts = TdunesOpts(),
     topology, on the device of ``qp``'s tensors.
 
     ``lam0`` [Nn, nxm] warm-starts the duals (zeros when None). Every
-    option of ``TdunesOpts`` but ``axis_name``: every stage solver
+    option of ``TdunesOpts`` (``axis_name`` is not read): every stage solver
     (clipping, dense, boxqp, qpgen, mixed), the factors in f32 or in the
     data dtype, the tree Cholesky on the kernels (``chain_backend="pallas"``,
     f32 factors, ``reg_type`` "always" or "none") or plain (any other

@@ -47,8 +47,25 @@ a solve), and the coarse phase is the per-kernel loop. With
 op by op, the banded chain factor and sweeps with the regularized block
 Cholesky, the plain tree Cholesky of the crown. Like the JAX package's,
 the solver takes only the clipping stage solver and rejects the chain
-kernels with factors in the data dtype (``ValueError``); ``axis_name``
-raises ``NotImplementedError``.
+kernels with factors in the data dtype (``ValueError``).
+
+With ``axis_name`` set the solver runs on one rank of a sharded solve, as
+the JAX package's does under ``shard_map``: ``ms`` holds the rank's chains
+(``parallel.sharding.shard_multistage``), the crown and ``meta`` whole,
+and every byte that crosses ranks goes through the
+``parallel.sharding.Shard`` the solver makes from the process group
+registered under that name (without an axis the same code runs with
+``sharding.ONE_DEVICE``, whose collectives are the identity): the chain roots'
+contributions to the crown, the chain Schur complements and the solve's
+right-hand side at the chain roots are all-gathered, the dual value, the
+error and the line-search scalars reduced, the factorization-reuse test
+agreed on. Every host decision reads such a reduced value, so all ranks
+take the same branches. Under an axis the route is the JAX package's:
+no fused iteration, no high-precision ``df64_phase``, no fused system
+solve and no fused chain evaluation; the chain kernels
+(``chain_blocks_factor``, ``chain_solve_bwd``, ``chain_forward``) run on
+the rank's chains and the crown kernels (``crown_blocks_factor``,
+``crown_solve``) on the replicated crown.
 """
 
 from __future__ import annotations
@@ -68,6 +85,7 @@ from treeqp_tpu_torch.ops import chain_kernels as ck
 from treeqp_tpu_torch.ops import crown_kernels as ckr
 from treeqp_tpu_torch.ops import iter_kernel as ik
 from treeqp_tpu_torch.ops import system_kernels as sk
+from treeqp_tpu_torch.parallel import sharding
 
 __all__ = ["MultistageQP", "split_multistage", "tdunes_ms_solve",
            "merge_output", "chain_node_ids", "split_duals", "multistage_applicable"]
@@ -238,12 +256,15 @@ def _chain_stage_solve(ms: MultistageQP, lam_ch):
     return dict(qmod=qmod, rmod=rmod, x=x, u=u, xUnc=xUnc, uUnc=uUnc, qt=qt, rt=rt)
 
 
-def _chain_root_contrib(ms: MultistageQP, lam_ch, rid):
+def _chain_root_contrib(ms: MultistageQP, lam_ch, rid, shard=sharding.ONE_DEVICE):
     """-A0'lam0 / -B0'lam0 terms to inject into the crown stage-Nr nodes'
-    modified gradients, in crown [Ncrown, nxm/num] layout."""
+    modified gradients, in crown [Ncrown, nxm/num] layout: every rank's
+    chains' terms all-gathered (``shard``), scattered to the chain roots
+    ``rid`` (all S of them)."""
     nx = ms.A.shape[-1]
     AB0 = torch.cat([ms.A, ms.B], dim=3)[:, 0]
-    cqr = torch.einsum("sjn,sj->sn", AB0, lam_ch[:, 0])
+    # [S, nxm + num] boundary form
+    cqr = shard.gather_s(torch.einsum("sjn,sj->sn", AB0, lam_ch[:, 0]))
     Ncrown = ms.meta.crown_topo.Nn
     extra = torch.zeros((Ncrown, cqr.shape[-1]), dtype=cqr.dtype, device=cqr.device)
     extra[rid] = cqr
@@ -259,13 +280,13 @@ def _chain_residual(ms: MultistageQP, ch, x_crown, u_crown, rid):
     return torch.einsum("slij,slj->sli", AB, zp) + ms.b - ch["x"]
 
 
-def _chain_dual_terms(ms: MultistageQP, ch, lam_ch):
+def _chain_dual_terms(ms: MultistageQP, ch, lam_ch, shard=sharding.ONE_DEVICE):
     """Chain contribution to f = -g: per node -1/2 x'Qx + qmod'x (+u terms),
-    minus sum over chain edges b'lam."""
+    minus sum over chain edges b'lam (over every rank's chains)."""
     x, u = ch["x"], ch["u"]
     tx = x * (ch["qmod"] - 0.5 * ms.Qd * x) - ms.b * lam_ch
     tu = u * (ch["rmod"] - 0.5 * ms.Rd * u)
-    return torch.sum(tx) + torch.sum(tu)
+    return shard.psum(torch.sum(tx) + torch.sum(tu))
 
 
 def _chain_blocks(ms: MultistageQP, ch, qt_crown, rt_crown, rid, dtype):
@@ -306,23 +327,24 @@ def _chain_factor(Wc, Utc, opts):
     return Ls, CUs, schur.to(out_dt)
 
 
-def _chain_solve_bwd(Ls, CUs, res_ch, opts):
+def _chain_solve_bwd(Ls, CUs, res_ch, opts, shard=sharding.ONE_DEVICE):
     """Right-hand-side backward sweep with ``_chain_factor``'s factors, at
     their dtype: y_j = L_j^-1 (r_j - CU_{j+1} y_{j+1}) for j = L-1 .. 0
     (``chain_solve_bwd`` with ``chain_backend="pallas"``). Returns (ys, the
     update radd0 [S, n] of each chain's crown-parent right-hand side in
-    res_ch's dtype)."""
+    res_ch's dtype, all-gathered from every rank's chains at the factors'
+    dtype)."""
     out_dt = res_ch.dtype
     r = res_ch.to(Ls.dtype)
     if opts.chain_backend == "pallas":
-        ys, radd0 = ck.chain_solve_bwd(Ls, CUs, r.contiguous())
-        return ys, radd0.to(out_dt)
-    ys = torch.empty_like(r)
-    radd = torch.zeros_like(r[:, 0])
-    for j in range(Ls.shape[1] - 1, -1, -1):
-        ys[:, j] = td._tri_solve(Ls[:, j], r[:, j] - radd)
-        radd = td._bmv(CUs[:, j], ys[:, j])
-    return ys, radd.to(out_dt)
+        ys, radd = ck.chain_solve_bwd(Ls, CUs, r.contiguous())
+    else:
+        ys = torch.empty_like(r)
+        radd = torch.zeros_like(r[:, 0])
+        for j in range(Ls.shape[1] - 1, -1, -1):
+            ys[:, j] = td._tri_solve(Ls[:, j], r[:, j] - radd)
+            radd = td._bmv(CUs[:, j], ys[:, j])
+    return ys, shard.gather_s(radd).to(out_dt)  # [S, n] boundary form
 
 
 def _chain_forward(Ls, CUs, ys, droot, opts):
@@ -346,18 +368,20 @@ def _chain_forward(Ls, CUs, ys, droot, opts):
 
 
 def _ms_stage_solve(ms: MultistageQP, crown_data, lam_cr, lam_ch, opts,
-                    prep_cr, rid):
+                    prep_cr, rid, shard=sharding.ONE_DEVICE):
     ch = _chain_stage_solve(ms, lam_ch)
-    extra_q, extra_r = _chain_root_contrib(ms, lam_ch, rid)
+    extra_q, extra_r = _chain_root_contrib(ms, lam_ch, rid, shard)
     cr = td._stage_solve(ms.crown, lam_cr, crown_data, opts, prep_cr,
                          extra_q, extra_r)
     return cr, ch
 
 
-def _ms_apply_M(ms: MultistageQP, cr, ch, dlam_cr, dlam_ch, prep_cr, rid):
+def _ms_apply_M(ms: MultistageQP, cr, ch, dlam_cr, dlam_ch, prep_cr, rid,
+                shard=sharding.ONE_DEVICE):
     """Apply the exact dual Hessian M = J P J' to a direction, in the data
     dtype. Used for iterative refinement of f32-factored Newton solves:
-    M d = -(linearized dynamics residual of the linear stage response)."""
+    M d = -(linearized dynamics residual of the linear stage response).
+    ``rid``: all S chain roots; this rank's chains are ``shard``'s."""
     qp = ms.crown
     xm, um, nrxm = td._masks(qp, prep_cr)
     par = prep_cr.on(qp.device)["par"]
@@ -365,7 +389,7 @@ def _ms_apply_M(ms: MultistageQP, cr, ch, dlam_cr, dlam_ch, prep_cr, rid):
     nxc = qp.A.shape[-1]
     ABr = torch.cat([qp.A, qp.B], dim=2)
     sum_AB = td._kid_sum(torch.einsum("nji,nj->ni", ABr, dlam_cr), prep_cr)
-    eq, er = _chain_root_contrib(ms, dlam_ch, rid)
+    eq, er = _chain_root_contrib(ms, dlam_ch, rid, shard)
     xl = cr["qtilde"] * (dlam_cr - sum_AB[..., :nxc] - eq) * xm
     ul = cr["rtilde"] * (-sum_AB[..., nxc:] - er) * um
     # chain linear stage response
@@ -381,16 +405,18 @@ def _ms_apply_M(ms: MultistageQP, cr, ch, dlam_cr, dlam_ch, prep_cr, rid):
     # linearized residuals
     zpr = torch.cat([xl[par], ul[par]], dim=1)
     res_cr = (torch.einsum("nij,nj->ni", ABr, zpr) - xl) * nrxm
-    xp = torch.cat([xl[rid][:, None], xlc[:, :-1]], dim=1)
-    up = torch.cat([ul[rid][:, None], ulc[:, :-1]], dim=1)
+    rid_ch = shard.slice_s(rid)
+    xp = torch.cat([xl[rid_ch][:, None], xlc[:, :-1]], dim=1)
+    up = torch.cat([ul[rid_ch][:, None], ulc[:, :-1]], dim=1)
     zpc = torch.cat([xp, up], dim=2)
     res_ch = torch.einsum("slij,slj->sli", torch.cat([ms.A, ms.B], dim=3), zpc) - xlc
     return -res_cr, -res_ch
 
 
-def _ms_dual_value(ms, crown_data, lam_cr, lam_ch, cr, ch, opts):
+def _ms_dual_value(ms, crown_data, lam_cr, lam_ch, cr, ch, opts, shard=sharding.ONE_DEVICE):
+    # the crown term replicated, the chains' summed over the ranks
     return (td._dual_value(ms.crown, lam_cr, cr, crown_data, opts)
-            + _chain_dual_terms(ms, ch, lam_ch))
+            + _chain_dual_terms(ms, ch, lam_ch, shard))
 
 
 def _schur_scatter(schur0, g_of, slot, prep, nxm):
@@ -404,14 +430,17 @@ def _schur_scatter(schur0, g_of, slot, prep, nxm):
     return out.view(NpG, K * nxm, K * nxm)
 
 
-def _solve_ctx(ms: MultistageQP, prep_cr) -> dict:
+def _solve_ctx(ms: MultistageQP, prep_cr, shard=sharding.ONE_DEVICE) -> dict:
     """Per-solve constants of the factorize: the chain-root index tensors,
     the crown nonroot mask, and the loop-invariant f32 dynamics operands
-    of the two factor kernels."""
+    of the two factor kernels. ``rid``, ``g_of``, ``slot`` and ``rows`` are
+    the chain side's (this rank's chains, ``shard``); ``rid_g`` (all S
+    chain roots), ``g_of_g`` and ``slot_g`` the crown side's."""
     meta = ms.meta
     dev, dt = ms.q.device, ms.q.dtype
     t = prep_cr.on(dev)
-    rid = np.asarray(meta.root_ids)
+    rid_g = np.asarray(meta.root_ids)
+    rid = shard.slice_s(rid_g)
     nxm = meta.crown_topo.nxm
     # crown-group position of each chain root's lambda-edge: the Schur
     # complement of chain j=0 lands on the diagonal block of the crown group
@@ -423,6 +452,8 @@ def _solve_ctx(ms: MultistageQP, prep_cr) -> dict:
     return dict(
         rid=lng(rid), g_of=lng(prep_cr.group_of_node[rid]), slot=lng(slot),
         rows=lng(slot[:, None] * nxm + np.arange(nxm)[None, :]),
+        rid_g=lng(rid_g), g_of_g=lng(prep_cr.group_of_node[rid_g]),
+        slot_g=lng(prep_cr.slot_of_node[rid_g]),
         dt=dt, nrxm_cr=td._masks(ms.crown, prep_cr)[2],
         ABt=torch.cat([ms.A, ms.B], dim=3).to(f32).contiguous(),
         ABk=torch.where(t["kvalid"][:, :, None, None],
@@ -501,15 +532,16 @@ def _solve_backends(prep_cr, meta, opts):
     crown kernels (``crown_kernels.crown_supported``), and whether the whole
     Newton solve is one ``system_solve`` (``system_kernels.system_supported``),
     as the JAX package's ``_solve_backends`` decides them. Both need
-    ``chain_backend="pallas"``, f32 factors and a static
-    regularization."""
+    ``chain_backend="pallas"``, f32 factors and a static regularization;
+    the fused solve also one device (no ``axis_name``: it needs every
+    chain)."""
     if not (td._tree_kernels(opts) and ckr.crown_supported(prep_cr, opts)):
         return False, False
-    return True, sk.system_supported(prep_cr, meta, opts)
+    return True, opts.axis_name is None and sk.system_supported(prep_cr, meta, opts)
 
 
 def _ms_factorize(ms, qtilde_cr, rtilde_cr, qt_ch, rt_ch, opts, prep_cr, ctx,
-                  lanes=False):
+                  lanes=False, shard=sharding.ONE_DEVICE):
     """Factorize the crown+chains dual Hessian: blocks, Jacobi
     equilibration and factorization of each side, by the JAX package's four
     branches. The chain side is one kernel (``chain_blocks_factor``, or with
@@ -519,8 +551,9 @@ def _ms_factorize(ms, qtilde_cr, rtilde_cr, qt_ch, rt_ch, opts, prep_cr, ctx,
     (``crown_blocks_factor``) where the chain side is fused and the crown
     kernels apply, else the crown's blocks built at the factor dtype, the
     chain Schur blocks subtracted, and ``tdunes._tree_chol_factor``.
-    Returns dict(Ls, CUs, CholW, CholUt, s_node, sc), with kind="plain"
-    where the crown's factors are the plain tree Cholesky's."""
+    The chain Schur complements of every rank are all-gathered
+    (``shard``) before the crown's scatter. Returns dict(Ls, CUs, CholW, CholUt, s_node, sc), with
+    kind="plain" where the crown's factors are the plain tree Cholesky's."""
     fused_chain = _fused_chain(opts)
     fused_crown = fused_chain and _solve_backends(prep_cr, ms.meta, opts)[0]
     rid, g_of, rows = ctx["rid"], ctx["g_of"], ctx["rows"]
@@ -544,24 +577,28 @@ def _ms_factorize(ms, qtilde_cr, rtilde_cr, qt_ch, rt_ch, opts, prep_cr, ctx,
         scp = torch.cat([sW[g_of[:, None], rows][:, None].to(sc.dtype), sc[:, :-1]], dim=1)
         Ls, CUs, schur0 = _chain_factor(Wc * sc[..., :, None] * sc[..., None, :],
                                         Utc * scp[..., :, None] * sc[..., None, :], opts)
+    schur0 = shard.gather_s(schur0)  # [S, nx, nx] boundary form
     if fused_crown:
-        Wadd = -_schur_scatter(schur0, g_of, ctx["slot"], prep_cr, prep_cr.nxm)
+        Wadd = -_schur_scatter(schur0, ctx["g_of_g"], ctx["slot_g"], prep_cr, prep_cr.nxm)
         reg = opts.reg_value if opts.reg_type == "always" else 0.0
         CholW, CholUt = ckr.crown_blocks_factor(*inp["crown"], Wadd, prep_cr, reg=reg)
         crown = dict(CholW=CholW, CholUt=CholUt)
     else:
-        W = W - _schur_scatter(schur0.to(W.dtype), g_of, ctx["slot"], prep_cr, prep_cr.nxm)
+        W = W - _schur_scatter(schur0.to(W.dtype), ctx["g_of_g"], ctx["slot_g"], prep_cr,
+                               prep_cr.nxm)
         crown = td._tree_chol_factor(W, Ut, opts, prep_cr)
     return dict(Ls=Ls, CUs=CUs, s_node=s_node, sc=sc, **crown)
 
 
-def _make_ms_solve(fact, meta, prep_cr, dt, nrxm_cr, opts, rid):
+def _make_ms_solve(fact, meta, prep_cr, dt, nrxm_cr, opts, rid, shard=sharding.ONE_DEVICE):
     """solve(rcr, rch) -> (dcr, dch) with the stored factors, in the JAX
     package's three forms (``_solve_backends``): one ``system_solve`` call;
     or three calls, the chain backward sweeps (``_chain_solve_bwd``), the
     crown's solve (``tdunes._tree_chol_solve``: the crown kernel or plain)
     and the chain forward sweeps (``_chain_forward``), joined at the chain
-    roots; ``dt`` is the dtype of the crown direction."""
+    roots (``rid``, all S; every rank's right-hand-side updates are
+    all-gathered, ``shard``); ``dt`` is the dtype of the crown
+    direction."""
     s_node, sc, Ls, CUs = fact["s_node"], fact["sc"], fact["Ls"], fact["CUs"]
     # the crown's factors (with kind "plain" from the plain tree Cholesky)
     crown = {k: fact[k] for k in ("kind", "CholW", "CholUt") if k in fact}
@@ -577,40 +614,39 @@ def _make_ms_solve(fact, meta, prep_cr, dt, nrxm_cr, opts, rid):
 
     t = prep_cr.on(Ls.device)
     dad, slot = t["group_of_node"][rid], t["node_cols"][rid]
+    rid_ch = shard.slice_s(rid)
 
     def solve(rcr, rch):
         rcr_s, rch_s = rcr * s_node, rch * sc
-        ys, radd0 = _chain_solve_bwd(Ls, CUs, rch_s, opts)
+        ys, radd0 = _chain_solve_bwd(Ls, CUs, rch_s, opts, shard)
         rg = td._nodes_to_group_mm(rcr_s, prep_cr)
         rg[dad[:, None], slot] -= radd0.to(rg.dtype)
         dg = td._tree_chol_solve(crown, rg, prep_cr)
         dcr_s = td._group_to_nodes_mm(dg, prep_cr, dt) * nrxm_cr
-        dch_s = _chain_forward(Ls, CUs, ys, dcr_s[rid], opts)
+        dch_s = _chain_forward(Ls, CUs, ys, dcr_s[rid_ch], opts)
         return dcr_s * s_node, dch_s * sc
     return solve
 
 
 def _check_opts(ms: MultistageQP, opts: TdunesOpts):
     """Raise on options the multistage solver does not take, as the JAX
-    package does: a stage solver other than clipping, the chain kernels
+    package does: a stage solver other than clipping and the chain kernels
     (``chain_backend="pallas"``) with factors in the data dtype (they are
-    f32 only), and ``axis_name`` (multi-device, not ported yet)."""
+    f32 only)."""
     if opts.stage_solver != "clipping":
         raise ValueError("the multistage solver supports only the clipping stage "
                          f"solver, not stage_solver={opts.stage_solver!r}")
     if opts.chain_backend == "pallas" and opts.factor_dtype != "float32":
         raise ValueError("chain_backend='pallas' needs factor_dtype='float32' "
                          "(the chain kernels are f32)")
-    if opts.axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (multi-device) is not ported yet (ROADMAP.md, port queue)")
 
 
-def _sets_equal(a, b) -> bool:
+def _sets_equal(a, b, shard=sharding.ONE_DEVICE) -> bool:
     # With clipping, the masked inverses are Qinv-or-0: exact equality is
     # active-set-pattern equality, and equal patterns give bitwise-identical
-    # factorization inputs.
-    return all(torch.equal(x, y) for x, y in zip(a, b))
+    # factorization inputs. All ranks agree: the factorize this test skips
+    # holds a collective.
+    return shard.all_true(all(torch.equal(x, y) for x, y in zip(a, b)))
 
 
 def _pattern_equal(a, b) -> bool:
@@ -621,16 +657,18 @@ def _pattern_equal(a, b) -> bool:
     return all(torch.equal(x != 0, y != 0) for x, y in zip(a, b))
 
 
-def _error_of(opts, res_cr, res_ch):
-    """The termination measure of the dual residuals (0-dim tensor)."""
+def _error_of(opts, res_cr, res_ch, shard=sharding.ONE_DEVICE):
+    """The termination measure of the dual residuals (0-dim tensor), over
+    every rank's chains."""
     if opts.termination == "infnorm":
-        return torch.maximum(res_cr.abs().max(), res_ch.abs().max())
-    sq = torch.sum(res_cr**2) + torch.sum(res_ch**2)
+        return torch.maximum(res_cr.abs().max(), shard.pmax(res_ch.abs().max()))
+    sq = torch.sum(res_cr**2) + shard.psum(torch.sum(res_ch**2))
     return torch.sqrt(sq) if opts.termination == "twonorm" else sq
 
 
 def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
-                    opts: TdunesOpts, it0: int = 0, patience: int = 0):
+                    opts: TdunesOpts, it0: int = 0, patience: int = 0,
+                    shard=sharding.ONE_DEVICE):
     """The dual-Newton loop in the dtype of ``ms``'s data, counting
     iterations from ``it0``.
 
@@ -641,6 +679,8 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
     otherwise they are plain PyTorch in the data dtype.
     ``patience > 0`` adds the coarse phase's stall exit: stop once the
     error has not improved by 10% for ``patience`` consecutive iterations.
+    ``shard``: the solve's shard context (``parallel.sharding.shard_for``;
+    no fused chain evaluation under an axis).
 
     Returns (lam_cr, lam_ch, it, status, ls_it, cr, ch, err, handover); err
     is a 0-dim tensor, handover the (fact, sets) of the last step's
@@ -649,9 +689,10 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
     prep_cr = td._get_prep(meta.crown_topo)
     dt = ms.q.dtype
     crown_data = td._stage_data(ms.crown, opts, prep_cr)
-    ctx = _solve_ctx(ms, prep_cr)
-    rid, nrxm_cr = ctx["rid"], ctx["nrxm_cr"]
-    fused_eval = dt == torch.float32 and _fused_chain(opts)
+    ctx = _solve_ctx(ms, prep_cr, shard)
+    # the crown side scatters all S chain roots, the chain side reads its own
+    rid_g, rid, nrxm_cr = ctx["rid_g"], ctx["rid"], ctx["nrxm_cr"]
+    fused_eval = dt == torch.float32 and _fused_chain(opts) and opts.axis_name is None
     if fused_eval:
         data_ch, data_cr = _eval_data(ms, prep_cr)
 
@@ -661,12 +702,12 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
             extra = torch.zeros_like(data_cr["ABt"][:, 0])
             extra[rid] = ch["cqr"]
             return ckr.crown_eval(data_cr, lam_cr, extra, prep_cr), ch
-        return _ms_stage_solve(ms, crown_data, lam_cr, lam_ch, opts, prep_cr, rid)
+        return _ms_stage_solve(ms, crown_data, lam_cr, lam_ch, opts, prep_cr, rid_g, shard)
 
     def dual_value(lam_cr, lam_ch, cr, ch):
         if fused_eval:
             return cr["fcr"].sum() + ch["fch"].sum()
-        return _ms_dual_value(ms, crown_data, lam_cr, lam_ch, cr, ch, opts)
+        return _ms_dual_value(ms, crown_data, lam_cr, lam_ch, cr, ch, opts, shard)
 
     def residuals_of(cr, ch):
         if fused_eval:
@@ -681,7 +722,7 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
 
     def factorize(cr, ch):
         return _ms_factorize(ms, cr["qtilde"], cr["rtilde"], ch["qt"],
-                             ch["rt"], opts, prep_cr, ctx, lanes=fused_eval)
+                             ch["rt"], opts, prep_cr, ctx, lanes=fused_eval, shard=shard)
 
     def active_sig(cr, ch):
         return (cr["qtilde"], cr["rtilde"], ch["qt"], ch["rt"])
@@ -689,21 +730,24 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
     def newton_step(lam_cr, lam_ch, status, restart, f0, cr, ch, res_cr,
                     res_ch, fact_prev, sig_prev):
         sig = active_sig(cr, ch)
-        if opts.reuse_factorization and _sets_equal(sig, sig_prev):
+        if opts.reuse_factorization and _sets_equal(sig, sig_prev, shard):
             fact = fact_prev
         else:
             fact = factorize(cr, ch)
-        solve = _make_ms_solve(fact, meta, prep_cr, dt, nrxm_cr, opts, rid)
+        solve = _make_ms_solve(fact, meta, prep_cr, dt, nrxm_cr, opts, rid_g, shard)
+
+        def chain_sum(v):  # over every rank's chains
+            return shard.psum(torch.sum(v))
 
         def newton_resnorm(dcr, dch):
-            mcr, mch = _ms_apply_M(ms, cr, ch, dcr, dch, prep_cr, rid)
-            n = float(torch.sum((res_cr - mcr) ** 2) + torch.sum((res_ch - mch) ** 2))
+            mcr, mch = _ms_apply_M(ms, cr, ch, dcr, dch, prep_cr, rid_g, shard)
+            n = float(torch.sum((res_cr - mcr) ** 2) + chain_sum((res_ch - mch) ** 2))
             return n, mcr, mch
 
         dlam_cr, dlam_ch = solve(res_cr, res_ch)
         if opts.refine_steps > 0 and not opts.refine_safeguard:
             for _ in range(opts.refine_steps):
-                mcr, mch = _ms_apply_M(ms, cr, ch, dlam_cr, dlam_ch, prep_cr, rid)
+                mcr, mch = _ms_apply_M(ms, cr, ch, dlam_cr, dlam_ch, prep_cr, rid_g, shard)
                 ccr, cch = solve(res_cr - mcr, res_ch - mch)
                 dlam_cr = dlam_cr + ccr
                 dlam_ch = dlam_ch + cch
@@ -722,7 +766,7 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
             dlam_cr, dlam_ch = best_cr, best_ch
 
         # --- Armijo line search on f = -g over (crown, chain) jointly
-        dot = -(torch.sum(res_cr * dlam_cr) + torch.sum(res_ch * dlam_ch))
+        dot = -(torch.sum(res_cr * dlam_cr) + chain_sum(res_ch * dlam_ch))
 
         def f_at(tau):
             lc = lam_cr + tau * dlam_cr
@@ -753,7 +797,7 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
     lam_cr, lam_ch = lam0_crown, lam0_chain
     cr, ch = stage_solve(lam_cr, lam_ch)
     res_cr, res_ch = residuals_of(cr, ch)
-    err = _error_of(opts, res_cr, res_ch)
+    err = _error_of(opts, res_cr, res_ch, shard)
     f0 = dual_value(lam_cr, lam_ch, cr, ch)
     # the initial factorization matches cr/ch's active set, so the first
     # step's reuse-compare is a true hit and uses exactly this one
@@ -768,7 +812,7 @@ def _ms_newton_loop(ms: MultistageQP, lam0_crown, lam0_chain,
                         res_ch, fact, sig)
         it += 1
         res_cr, res_ch = residuals_of(cr, ch)
-        err = _error_of(opts, res_cr, res_ch)
+        err = _error_of(opts, res_cr, res_ch, shard)
         noimp = 0 if bool(err < 0.9 * best) else noimp + 1
         best = torch.minimum(best, err)
     return lam_cr, lam_ch, it, status, ls_it, cr, ch, err, (fact, sig)
@@ -778,9 +822,10 @@ def _mega_applicable(prep_cr, meta, opts) -> bool:
     """The coarse phase runs on the fused iteration kernel
     (ops/iter_kernel.py), as the JAX package's ``_mega_applicable`` decides:
     ``chain_backend="pallas"``, f32 factors, inf-norm termination, no
-    refinement, and the fused system solve's options
-    (``iter_kernel.iter_supported``)."""
-    return (opts.chain_backend == "pallas" and opts.factor_dtype == "float32"
+    refinement, one device (no ``axis_name``) and the fused system solve's
+    options (``iter_kernel.iter_supported``)."""
+    return (opts.axis_name is None and opts.chain_backend == "pallas"
+            and opts.factor_dtype == "float32"
             and opts.termination == "infnorm" and opts.refine_steps == 0
             and ik.iter_supported(prep_cr, meta, opts))
 
@@ -883,7 +928,15 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
     phase before it. ``info["iter_f32"]`` counts the coarse iterations,
     ``info["iter"]`` both phases. General C/D rows (``ms.C`` not None) are
     refused: the multistage dual Newton needs clipping stage QPs; such
-    trees go to ``ipm_ms_solve``."""
+    trees go to ``ipm_ms_solve``.
+
+    With ``opts.axis_name`` set this is one rank of a sharded solve (see
+    the module docstring; ``parallel.shard_solver.tdunes_ms_solve_shmap``):
+    ``ms`` and ``lam0_chain`` hold the rank's chains, the crown outputs and
+    ``info`` come out the same on every rank, the chain outputs are the
+    rank's, and ``info["comm"]`` counts the collectives (``bytes``,
+    ``calls``, ``max_call``, ``bytes_per_iter``, and ``bytes_f32`` /
+    ``bytes_per_iter_f32`` of the coarse phase)."""
     if ms.C is not None:
         raise ValueError("the multistage dual Newton needs nc = 0 (general C/D "
                          "rows: use ipm_ms_solve)")
@@ -891,6 +944,7 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
     meta = ms.meta
     prep_cr = td._get_prep(meta.crown_topo)
     dt, dev = ms.q.dtype, ms.q.device
+    shard = sharding.shard_for(opts.axis_name, ms.q.shape[0])
     crown_data = td._stage_data(ms.crown, opts, prep_cr)
     xm_cr, um_cr, nrxm_cr = td._masks(ms.crown, prep_cr)
 
@@ -916,7 +970,7 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
         else:
             lam_cr32, lam_ch32, it0, *_, handover = _ms_newton_loop(
                 ms32, lam0_crown.to(f32), lam0_chain.to(f32), opts32, it0,
-                patience=opts.f32_patience)
+                patience=opts.f32_patience, shard=shard)
         # the coarse phase's status is dropped: a not-descent there is
         # expected noise near the f32 residual floor, not a failure
         lam0_crown, lam0_chain = lam_cr32.to(dt), lam_ch32.to(dt)
@@ -927,8 +981,9 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
         lam_cr, lam_ch, it, status, ls_it, cr, ch, err = ms_newton_loop_df(
             ms, lam0_crown, lam0_chain, opts, it0, handover=handover)
     else:
+        bytes_f32 = shard.bytes
         lam_cr, lam_ch, it, status, ls_it, cr, ch, err, _ = _ms_newton_loop(
-            ms, lam0_crown, lam0_chain, opts, it0)
+            ms, lam0_crown, lam0_chain, opts, it0, shard=shard)
     err = float(err)
     if status == TDUNES_OPTIMAL and err >= opts.tol:
         status = TDUNES_MAX_ITER
@@ -940,6 +995,9 @@ def tdunes_ms_solve(ms: MultistageQP, lam0_crown=None, lam0_chain=None,
                      mu_x=ms.Qd * (ch["xUnc"] - ch["x"]),
                      mu_u=ms.Rd * (ch["uUnc"] - ch["u"]))
     info = dict(iter=it, status=status, error=err, ls_iter=ls_it, iter_f32=it0)
+    if opts.axis_name is not None:
+        info["comm"] = dict(shard.summary(it), bytes_f32=bytes_f32,
+                            bytes_per_iter_f32=bytes_f32 / max(it0, 1))
     return crown_out, chain_out, info
 
 
