@@ -287,8 +287,31 @@ Phases (any failure exits non-zero):
    chain_full_solve_mat and jay_cr_solve, each on every rank, and no
    other); last the witness that the cold sdunes count follows rounding
    on one device too: section 8's cold solve with Qd scaled by 1 + k 2^-52
-   (SHARD_WITNESS_ULPS), each count printed. A failure in any rank exits
-   non-zero.
+   (SHARD_WITNESS_ULPS), each count printed; and IPM path A on 4 ranks
+   again with max_iter the 1-rank group's count, its x, u, lam held within
+   SHARD_GAP of that group's at the same count. A failure in any rank
+   exits non-zero;
+14. the examples and the model families (slice 26): ``examples_torch/``'s
+   thesis_example and spring_mass through their ``main(device="cuda")``
+   (the latter on a data.c / x0.txt that ``write_spring_mass_data``
+   writes in the reference's format under build/: spring_mass_chain(2, 3,
+   2, 10)'s realizations behind a nominal one), each passing its own
+   asserts on the card; then ``models.crane`` and ``models.linear_chain``
+   at FAMILY_SHAPE (md=4, Nr=4, Nh=50: the reference grid's largest tree,
+   12117 nodes, 256 scenarios, chains of L=46 nodes below the crown's
+   leaves, 47 with their roots; nx=4, nu=1 and nx=8, nu=3): on the
+   crane, chain_blocks_factor_lanes, crown_blocks_factor,
+   newton_iter (iter mode; the active sets equal away from a bound),
+   chain_eval_df (bit for bit) and chain_apply_df against their twins on
+   the operands of their first calls in a cold solve; on each tree
+   ``tdunes_ms_solve`` at bench.py's options cold and FAMILY_STEPS
+   closed-loop steps (``family_ms_loop``: the first control to the plant,
+   the next state on the root, warm from the last duals), ``ipm_ms_solve``
+   at ``IPM_OPTS["box"]`` and ``sdunes_solve`` at ``SDUNES_OPTS`` warm from
+   the IPM's duals, each certified (status 0, the port's KKT < 1e-8), the
+   three solutions' x and u within MPC_GAP, iterations, ms, the rows
+   launched and the cold and last warm tdunes_ms solves' device time
+   against wall time (torch.profiler) printed.
 
 The kernel launch counts are set to 0 before each path (one-phase,
 two-phase, bench, bench handover, two-norm, 1024 scenarios, generic split,
@@ -298,7 +321,8 @@ bootstrap and its sdunes solve apart, sdunes_f32, tdunes_ms_f32; the CR
 loop; the MPC re-embedding path; G qpgen, G mixed, bench on-the-fly, P
 generic, P multistage, P sdunes; the seven in-process requests and the
 two profilers of section 12; in each rank, every sharded solve of
-section 13) and read after it; every kernel must launch
+section 13; the two examples; each family's tdunes_ms, ipm_ms and sdunes
+paths) and read after it; every kernel must launch
 on a path that runs it, the multistage paths launch none of the generic
 solver's kernels, the generic split path none of the multistage solver's, the crown path only
 crown_factor and crown_solve, no path before section 6 launches
@@ -319,7 +343,14 @@ and the P paths no kernel; section 12's general C/D requests launch
 admm_identify and no other kernel, its other requests none,
 profile_ms_phases the coarse loop's and the high-precision phase's
 kernels (and chain_factor, its factorization's chain Cholesky) and no
-other, profile_tdunes_ops the five generic kernels and no other. Prints
+other, profile_tdunes_ops the five generic kernels and no other; the
+examples launch none; the families' tdunes_ms paths launch the bench
+path's kernels (newton_iter, chain_blocks_factor_lanes,
+crown_blocks_factor, system_solve and the high-precision phase's five)
+and none of the generic, IPM, sdunes or CR kernels, their ipm_ms paths
+the five Riccati kernels and none of the dual Newton's, their sdunes paths
+chain_factor, chain_full_solve_mat and jay_cr_solve and none of the
+multistage solver's. Prints
 the JSON summary of all 28 kernels (rows chain_factor, chain_solve_bwd,
 chain_forward, crown_factor, crown_solve, crown_blocks_factor,
 df_reduce_flat, chain_blocks_factor, chain_blocks_factor_lanes,
@@ -560,6 +591,18 @@ SHARD_REPEATS = 2
 SHARD_S_LOCAL = (128, 64)
 SHARD_SEED = 250
 SHARD_WITNESS_ULPS = (1, 2, 4)
+# section 14 (the examples and the model families): the reference grid's
+# largest tree (experiment_grid.FULL_GRID's crane point, md=4, Nr=4, Nh=50:
+# 12117 nodes, 256 scenarios, chains of L = Nh - Nr = 46 nodes below the
+# crown's 256 leaves), the crane at its widths and the linear chain at its
+# generator's (nm=4, nu_count=3), and the closed-loop steps after the cold
+# solve
+FAMILIES = ("crane", "linear_chain")
+FAMILY_SHAPE = dict(md=4, Nr=4, Nh=50)
+# the spring constant of the written spring-mass instance's nominal
+# realization, spring_mass_chain's default k_nominal
+SPRING_K = 2.0
+FAMILY_STEPS = 3
 
 
 def fail(msg):
@@ -766,13 +809,18 @@ def sharded_solves(torch, card, runs, worlds, paths=None):
     x, u, lam are held to the reference group's at any count, escalates:
     True / False where every group's solve must / must not engage sdunes'
     stall escalation (``info["stall_boosts"]``), one_device: the one-device
-    solve of the same route (its TreeQPOut) or None)) over groups of each
-    size of ``worlds`` (the first, one rank, is the reference group), all
-    runs of a size in one group on the card (``launcher.run_ranks`` of
-    ``timed_shard_cases``). Each is certified (status 0, both oracles' KKT
-    < TOL), takes the reference group's iterations within ``iter_slack``,
-    has x, u, lam within SHARD_GAP of that group's (at the same count, or
-    with ``converged``) and the escalation ``escalates`` asks for; the
+    solve of the same route (its TreeQPOut) or None, worlds: the group
+    sizes it runs in (default all of ``worlds``), capped_by: the name of an
+    earlier run whose reference-group iterations become this run's
+    max_iter and whose reference-group solution it is held to at that
+    count) over groups of each size of ``worlds`` (the first, one rank, is
+    the reference group), all runs of a size in one group on the card
+    (``launcher.run_ranks`` of ``timed_shard_cases``). Each is certified
+    (status 0, both oracles' KKT < TOL; a capped run stops at its cap and
+    is held by its gaps instead), takes the reference group's iterations
+    within ``iter_slack``, has x, u, lam within SHARD_GAP of that group's
+    (at the same count, or with ``converged``) and the escalation
+    ``escalates`` asks for; the
     reference group takes ``one_device``'s iterations with x, u, lam within
     SHARD_GAP of its (on one rank every collective is the identity); its
     kernel launches on every rank are held to ``needs`` / ``allowed`` and
@@ -791,23 +839,33 @@ def sharded_solves(torch, card, runs, worlds, paths=None):
             return sd.scenario_output(run["case"].data, r["sol"], r["lam"], r["mu"], r["info"])
         return merge_output(run["case"].data, r["crown"], r["chain"], r["info"])
 
-    cases = [run["case"] for run in runs]
-    timing = [(run.get("repeats", 0), run.get("profile", False)) for run in runs]
+    def case_of(run):
+        if "capped_by" not in run:
+            return run["case"]
+        cap = ref[run["capped_by"]][0]
+        return dataclasses.replace(run["case"], opts=dataclasses.replace(run["case"].opts,
+                                                                         max_iter=cap))
+
     ref, summary = {}, {}
     for world in worlds:
+        todo = [run for run in runs if world in run.get("worlds", worlds)]
+        cases = [case_of(run) for run in todo]
+        timing = [(run.get("repeats", 0), run.get("profile", False)) for run in todo]
         t0 = time.perf_counter()
         per_rank = run_ranks(world, timed_shard_cases, cases, timing)
         res = merge_ranks(cases, [[c["out"] for c in pr] for pr in per_rank])
-        print(f"sharded group of {world} rank(s) on the card: {len(runs)} runs in "
+        print(f"sharded group of {world} rank(s) on the card: {len(todo)} runs in "
               f"{time.perf_counter() - t0:.1f} s with the spawn")
-        for i, (run, r) in enumerate(zip(runs, res)):
+        for i, (run, r) in enumerate(zip(todo, res)):
             for key in ("launches", "wall_s", "walls_s", "device_ms"):
                 r[key] = [pr[i][key] for pr in per_rank]
             name, info = run["name"], r["info"]
+            capped = "capped_by" in run
+            ref_name = run["capped_by"] if capped else name
             out = tree_out(run, r)
             kkt, kkt_np = max_kkt_residual(run["qp"], out), kkt_numpy(run["qp"], out)
             what = f"sharded {name}, {world} rank(s)"
-            if info["status"] != 0 or not kkt < TOL or not kkt_np < TOL:
+            if not capped and (info["status"] != 0 or not kkt < TOL or not kkt_np < TOL):
                 fail(f"{what}: status {info['status']} KKT {kkt} (port) {kkt_np} (numpy)")
             if world == worlds[0]:
                 ref[name] = (info["iter"], out)
@@ -821,28 +879,31 @@ def sharded_solves(torch, card, runs, worlds, paths=None):
                     if info["iter"] != one.info["iter"] or any(
                             gaps1[f] > SHARD_GAP[f] for f in gaps1):
                         fail(f"{what}: not the one-device solve")
-            gaps = {f: float((getattr(out, f) - getattr(ref[name][1], f)).abs().max())
+            ref_iter, ref_out = ref[ref_name]
+            gaps = {f: float((getattr(out, f) - getattr(ref_out, f)).abs().max())
                     for f in ("x", "u", "lam")}
-            same = info["iter"] == ref[name][0]
+            same = info["iter"] == ref_iter
             slack = run.get("iter_slack", 0)
-            if (slack is not None and abs(info["iter"] - ref[name][0]) > slack) or (
+            if (slack is not None and abs(info["iter"] - ref_iter) > slack) or (
                     (same or run.get("converged")) and any(
                         gaps[f] > SHARD_GAP[f] for f in gaps)):
                 fail(f"{what}: iter {info['iter']} gaps {gaps} against {worlds[0]} rank(s)' "
-                     f"{ref[name][0]} iterations")
+                     f"{ref_iter} iterations")
             if "escalates" in run and (info["stall_boosts"] > 0) != run["escalates"]:
                 fail(f"{what}: the stall escalation engaged at {info['stall_boosts']} "
                      f"iterations, expected " + ("some" if run["escalates"] else "none"))
             comm = r["comm"][0]
             if any(c != comm for c in r["comm"]):
                 fail(f"{what}: the ranks counted different collectives {r['comm']}")
-            line = (f"{what}: status 0, iter {info['iter']}"
+            line = (f"{what}: status {info['status']}, iter {info['iter']}"
+                    + (f" (max_iter {ref_iter}, {ref_name}'s at {worlds[0]} rank(s))"
+                       if capped else "")
                     + (f" ({info['iter_f32']} f32)" if "iter_f32" in info else "")
                     + (f", the stall escalation engaged at {info['stall_boosts']} iterations"
                        if "stall_boosts" in info else "")
                     + f", KKT {kkt:.2e} (port oracle) {kkt_np:.2e} (numpy oracle); against "
                     f"{worlds[0]} rank(s): "
-                    + ("the same iterations, " if same else f"{ref[name][0]} iterations, ")
+                    + ("the same iterations, " if same else f"{ref_iter} iterations, ")
                     + ", ".join(f"|d{f}| {v:.2e}" for f, v in gaps.items())
                     + ("" if same or run.get("converged") else " (not held: other counts)")
                     + f"; collectives {comm['calls']} calls, {comm['bytes']} bytes a solve, "
@@ -1446,6 +1507,142 @@ def ric_chain_ldl(torch, hbar, AB, reg, rg, rb, z_root):
               for a, b in zip(got, rk.ric_chain_fwd_ref(fact, p, k, rb, z_root)))
     return (lambda: torch.linalg.ldl_factor_ex(M), lambda: torch.linalg.ldl_solve(LD, piv, v),
             int(info.abs().max()), err)
+
+
+def profiled(torch, fn):
+    """(wall ms, device kernel ms, kernel launches) of one synchronized fn()
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall, sum(e.time_range.elapsed_us() for e in kern) / 1e3, len(kern)
+
+
+def write_c_arrays(path, scalars, arrays):
+    """Write ``int name = v;`` and ``double name[] = {...};`` declarations
+    (the code-generated data.c format), each double with 17 significant
+    digits so that ``ref_data.parse_c_arrays`` reads back the same
+    numbers."""
+    import numpy as np
+    lines = [f"int {k} = {int(v)};" for k, v in scalars.items()]
+    for k, v in arrays.items():
+        vals = ", ".join(f"{x:.17g}" for x in np.asarray(v, np.float64).reshape(-1))
+        lines.append(f"double {k}[] = {{{vals}}};")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_spring_mass_data(data_dir):
+    """Write an instance in the format of the reference's spring_mass_utils
+    (data.c and x0.txt, what ``models.spring_mass_qp`` reads): the default
+    ``spring_mass_chain``'s realizations (k = SPRING_K -+ 1) behind a
+    nominal one at SPRING_K (the realization spring_mass_qp drops), its
+    weights, bounds and x0; data.c's shapes, md=3, Nr=2, Nh=10, NX=4, NU=1.
+    Returns the directory."""
+    import numpy as np
+    from treeqp_tpu_torch.models import spring_mass_chain, spring_mass_dynamics
+    from treeqp_tpu_torch.utils.printing import write_vector_txt
+    nm, nx, nu = 2, 4, 1
+    x0 = spring_mass_chain(device="cpu")[1]
+    ks = np.linspace(SPRING_K - 1.0, SPRING_K + 1.0, 3)
+    AB = [spring_mass_dynamics(nm, k, 0.1) for k in (SPRING_K, *ks)]
+    col = lambda M: M.T.ravel()  # column-major, as data.c stores matrices
+    dQ = np.ones(nx)
+    dQ[:nm] = 10.0
+    xmax = np.full(nx, 1e12)
+    xmax[:nm] = 1.2
+    write_c_arrays(os.path.join(data_dir, "data.c"), dict(Nh=10, Nr=2, md=3, NX=nx, NU=nu),
+                   dict(A=np.concatenate([col(a) for a, _ in AB]),
+                        B=np.concatenate([col(b) for _, b in AB]),
+                        b=np.zeros(len(AB) * nx), dQ=dQ, q=np.zeros(nx), dP=10.0 * dQ,
+                        p=np.zeros(nx), dR=0.1 * np.ones(nu), r=np.zeros(nu),
+                        xmin=np.full(nx, -1e12), xmax=xmax, umin=-np.ones(nu),
+                        umax=np.ones(nu)))
+    write_vector_txt(x0, os.path.join(data_dir, "x0.txt"))
+    return data_dir
+
+
+def family_model(name, device="cpu"):
+    """``models.crane`` or ``models.linear_chain`` at FAMILY_SHAPE (the
+    generator's default widths), made on ``device``."""
+    from treeqp_tpu_torch import models
+    return getattr(models, name)(**FAMILY_SHAPE, device=device)
+
+
+def family_ms_loop(torch, model, qp, ms, opts, steps, what):
+    """``tdunes_ms_solve`` on (qp, ms) cold, then ``steps`` closed-loop
+    steps as the MPC path takes them: the first control of the last
+    solution to the model's plant (``BenchmarkModel.simulate``), the next
+    state set on the root (the crown's root bound rows), the solve warm from
+    the last duals. Each solve certified: status 0, stationarity below TOL,
+    the port's KKT < TOL. Returns one dict a solve (iter, iter_f32, kkt,
+    ms: host milliseconds of the synchronized solve, out: its TreeQPOut,
+    args: the solve's (ms, lam0_crown, lam0_chain))."""
+    from treeqp_tpu_torch.core.kkt import max_kkt_residual
+    from treeqp_tpu_torch.solvers import tdunes_multistage as tm
+    rows, x, start, nu0 = [], model.x0, (None, None), qp.topo.nu[0]
+    for k in range(steps + 1):
+        if k:
+            x = model.simulate(x, rows[-1]["out"].u[0, :nu0].cpu().numpy())
+            qp, ms = qp.set_x0(x), dataclasses.replace(ms, crown=ms.crown.set_x0(x))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cro, cho, info = tm.tdunes_ms_solve(ms, *start, opts)
+        out = tm.merge_output(ms, cro, cho, info)
+        torch.cuda.synchronize()
+        t_ms = (time.perf_counter() - t0) * 1e3
+        kkt = max_kkt_residual(qp, out)
+        step = "cold solve" if k == 0 else f"closed-loop step {k} (warm)"
+        if info["status"] != 0 or not info["error"] < TOL or not kkt < TOL:
+            fail(f"{what} {step}: status {info['status']} error {info['error']} kkt {kkt}")
+        rows.append(dict(iter=info["iter"], iter_f32=info["iter_f32"], kkt=kkt, ms=t_ms,
+                         out=out, args=(ms, *start)))
+        start = (cro["lam"], cho["lam"])
+    return rows
+
+
+def family_ipm(torch, qp, ms, opts, what):
+    """``ipm_ms_solve`` on (qp, ms), certified (status 0, the port's KKT <
+    TOL). Returns (out, iterations, kkt, host ms)."""
+    from treeqp_tpu_torch.core.kkt import max_kkt_residual
+    from treeqp_tpu_torch.solvers import ipm_multistage as ims
+    from treeqp_tpu_torch.solvers import tdunes_multistage as tm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cro, cho, info = ims.ipm_ms_solve(ms, opts)
+    out = tm.merge_output(ms, cro, cho, info)
+    torch.cuda.synchronize()
+    t_ms = (time.perf_counter() - t0) * 1e3
+    kkt = max_kkt_residual(qp, out)
+    if info["status"] != 0 or not kkt < TOL:
+        fail(f"{what}: status {info['status']} kkt {kkt}")
+    return out, info["iter"], kkt, t_ms
+
+
+def family_sdunes(torch, qp, start, opts, what):
+    """``sdunes_solve`` on the scenario form of ``qp``, warm from the
+    scenario duals of the tree solution ``start`` (``scenario_duals_from_tree``),
+    certified (status 0, the port's KKT < TOL). Returns (out, iterations,
+    kkt, host ms)."""
+    from treeqp_tpu_torch.core.kkt import max_kkt_residual
+    from treeqp_tpu_torch.solvers import sdunes as sd
+    sqp = sd.scenario_data(qp)
+    lam0, mu0 = sd.scenario_duals_from_tree(sqp, start.lam, start)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol, lam, mu, info = sd.sdunes_solve(sqp, lam0, mu0, opts)
+    out = sd.scenario_output(sqp, sol, lam, mu, info)
+    torch.cuda.synchronize()
+    t_ms = (time.perf_counter() - t0) * 1e3
+    kkt = max_kkt_residual(qp, out)
+    if info["status"] != 0 or not kkt < TOL:
+        fail(f"{what}: status {info['status']} kkt {kkt}")
+    return out, info["iter"], kkt, t_ms
 
 
 def perturbed(qp, ms, fac):
@@ -4381,7 +4578,13 @@ def main():
              escalates=True, one_device=out_sd_cold),
         dict(name="sdunes bootstrapped", qp=qb_cpu,
              case=ShardCase("sdunes", sqp_cpu, opts_sd, start=boot_duals), needs=sd_need,
-             allowed=sd_need, model=None, escalates=False)]
+             allowed=sd_need, model=None, escalates=False),
+        # path A on the most ranks held to the 1-rank solve at an equal
+        # count: max_iter set to the 1-rank group's iterations
+        dict(name="ipm_ms (path A, the 1-rank count)", qp=qa_cpu,
+             case=ShardCase("ipm_ms", msa_cpu, opts_ipm["cd"]), needs=ipm_need,
+             allowed=ipm_need, model=None, worlds=SHARD_WORLDS[-1:],
+             capped_by="ipm_ms (general C/D, path A's options)")]
     sharded_solves(torch, card, shard_runs, SHARD_WORLDS, paths=paths)
 
     # the witness that the cold sdunes count follows rounding on one device
@@ -4397,6 +4600,144 @@ def main():
     print("sdunes cold on one device, Qd scaled by 1 + k 2^-52: " + ", ".join(
         f"k={k}: {it} iterations (escalation at {nb})" for k, it, nb in counts) + f" on {card}")
     print(f"section 13 (the multi-device solve): {time.perf_counter() - t_shard:.1f} s on {card}")
+
+    # ---- 14. the examples and the model families (slice 26): both examples
+    # through their main(device="cuda") on the card (their options route to
+    # the plain paths: no kernel may launch), then the crane and the linear
+    # chain at the reference grid's largest tree on the kernel options:
+    # tdunes_ms cold and along the closed loop, ipm_ms, and sdunes warm from
+    # the IPM's duals, the three solutions held together
+    t_slice26 = time.perf_counter()
+    import importlib.util
+    import tempfile
+
+    def example(name):
+        spec = importlib.util.spec_from_file_location(
+            f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    ex_dir = ROOT / "build" / "treeqp_tpu_torch"
+    ex_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ex_dir) as sm_dir:
+        write_spring_mass_data(sm_dir)  # data.c / x0.txt in the reference's format
+        for name, kw in (("thesis_example", {}), ("spring_mass", dict(data_dir=sm_dir))):
+            t0 = time.perf_counter()
+            res = drive(f"{name} example", (), lambda: example(name).main(device="cuda", **kw),
+                        forbid=all_names)
+            off = [k for k, o in res.items() if o.x.device.type != "cuda"]
+            if off:
+                fail(f"{name} example: {off} solved off the card")
+            print(f"{name} example on the card: " + ", ".join(
+                f"{k} {o.info['iter']} iterations" for k, o in res.items())
+                + f", its asserts passed, no kernel launched, in "
+                f"{time.perf_counter() - t0:.1f} s on {card}")
+
+    opts_fam_ipm = ipm.IpmOpts(**IPM_OPTS["box"])
+    fam_ms_needs = ("newton_iter", "chain_blocks_factor_lanes", "crown_blocks_factor",
+                    "system_solve") + df_kernels
+
+    def ran(path):
+        return [n for n in all_names if paths[path][n]]
+
+    def family_checks(qf, msf):
+        """The five kernels of the bench path held against their twins on
+        the operands of their first calls in a cold solve of this tree
+        (newton_iter's first "iter" mode call; the high-precision phase's
+        first point for chain_eval_df and chain_apply_df)."""
+        got, _ = capture(((ck, ("chain_blocks_factor_lanes",)), (ckr, ("crown_blocks_factor",)),
+                          (ik, ("newton_iter",)), (dek, ("chain_eval_df", "chain_apply_df"))),
+                         lambda: tm.tdunes_ms_solve(msf, None, None, optsb))
+        firsts = {n: calls[0] for n, calls in got.items() if n != "newton_iter"}
+        firsts["newton_iter"] = next(c for c in got.get("newton_iter", [])
+                                     if c[1].get("mode", "iter") == "iter")
+        if set(firsts) != {"chain_blocks_factor_lanes", "crown_blocks_factor", "newton_iter",
+                           "chain_eval_df", "chain_apply_df"}:
+            fail(f"family kernel checks: captured only {sorted(firsts)}")
+        errs = {}
+        for name, mod, rtol in (("chain_blocks_factor_lanes", ck, FACTOR_RTOL),
+                                ("crown_blocks_factor", ckr, FACTOR_RTOL)):
+            a, k = firsts[name]
+            errs[name] = compare(torch, f"{name} (crane)", getattr(mod, name)(*a, **k),
+                                 getattr(mod, name + "_ref")(*a, **k), rtol)
+        a, k = firsts["newton_iter"]
+        i_got, i_ref = ik.newton_iter(*a, **k), ik.newton_iter_ref(*a, **k)
+        torch.cuda.synchronize()
+        errs["newton_iter"] = compare(torch, "newton_iter(iter) (crane)", iter_outputs(i_got),
+                                      iter_outputs(i_ref), SOLVE_RTOL)
+        dch_, dcr_ = a[0], a[1]
+        near_ = dict(
+            qt=near_bound(torch, i_ref["xUnc"], dch_["xmin"], dch_["xmax"],
+                          torch.ones_like(dch_["xmin"])),
+            rt=near_bound(torch, i_ref["uUnc"], dch_["umin"], dch_["umax"],
+                          torch.ones_like(dch_["umin"])),
+            qtilde=near_bound(torch, i_ref["cxUnc"], dcr_["xmin"], dcr_["xmax"], dcr_["xm"]),
+            rtilde=near_bound(torch, i_ref["cuUnc"], dcr_["umin"], dcr_["umax"], dcr_["um"]))
+        exempt_ = compare_sets(torch, "newton_iter(iter) (crane)", i_got, i_ref, set_keys, near_)
+        ekeys = ("x", "u", "qt", "rt", "xUnc", "uUnc", "res_part", "cqr", "fch")
+        a, k = firsts["chain_eval_df"]
+        errs["chain_eval_df"] = bit_exact(
+            torch, "chain_eval_df (crane)", floats(dek.chain_eval_df(*a, **k), ekeys),
+            floats(dek.chain_eval_df_ref(*a, **k), ekeys))
+        akeys_ = ("xl", "ul", "res_part", "cqr")
+        a, k = firsts["chain_apply_df"]
+        errs["chain_apply_df"] = compare(
+            torch, "chain_apply_df (crane)", floats(dek.chain_apply_df(*a, **k), akeys_),
+            floats(dek.chain_apply_df_ref(*a, **k), akeys_), DF_RTOL)
+        m_ = msf.meta
+        print(f"crane kernels against their twins at its shapes (S={m_.S}, L={m_.L}, "
+              f"nx={m_.nx}, nu={m_.nu}, crown {m_.crown_topo.Nn} nodes; chain_node_launch "
+              f"{ck.chain_node_launch(m_.S, m_.L, m_.nx, m_.nu, 8)}): max |diff| "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f" (FACTOR_RTOL, SOLVE_RTOL, bit for bit, DF_RTOL); newton_iter's active sets "
+              f"equal ({exempt_} components exempt near a bound) on {card}")
+
+    for fam in FAMILIES:
+        model = family_model(fam)
+        qf, msf = model.qp.to(dev), tm.split_multistage(model.qp).to(dev)
+        mf = msf.meta
+        print(f"{fam}{tuple(FAMILY_SHAPE.values())}: {qf.topo.Nn} nodes, S={mf.S} L={mf.L} "
+              f"nx={mf.nx} nu={mf.nu}, crown {mf.crown_topo.Nn} nodes, x0 {model.x0.tolist()}")
+        if (qf.topo.Nn, mf.S, mf.L) != (12117, 256, 46):
+            fail(f"{fam}: not the reference grid's largest tree")
+        if fam == "crane":
+            family_checks(qf, msf)
+        loop = drive(f"{fam} tdunes_ms", fam_ms_needs, lambda: family_ms_loop(
+            torch, model, qf, msf, optsb, FAMILY_STEPS, f"{fam} tdunes_ms"))
+        walls = {}
+        for what, r in (("cold", loop[0]), ("warm", loop[-1])):
+            walls[what] = profiled(torch, lambda: tm.tdunes_ms_solve(*r["args"], optsb))
+        out_i, it_i, kkt_i, t_i = drive(
+            f"{fam} ipm_ms", ipm_names, lambda: family_ipm(torch, qf, msf, opts_fam_ipm,
+                                                           f"{fam} ipm_ms"),
+            forbid=tdunes_names, ipm_path=True)
+        out_s, it_s, kkt_s, t_s = drive(
+            f"{fam} sdunes", sd_three, lambda: family_sdunes(torch, qf, out_i, opts_sd,
+                                                             f"{fam} sdunes"),
+            forbid=sd_forbid, sd_path=True)
+        cold = loop[0]["out"]
+        gaps = {f"{n} {f}": float((getattr(o, f) - getattr(cold, f)).abs().max())
+                for n, o in (("ipm_ms", out_i), ("sdunes", out_s)) for f in ("x", "u")}
+        if max(gaps.values()) > MPC_GAP:
+            fail(f"{fam}: the three solvers disagree: {gaps}")
+        line = (f"{fam} tdunes_ms at bench.py's options: cold iter {loop[0]['iter']} "
+                f"({loop[0]['iter_f32']} coarse) {loop[0]['ms']:.1f} ms, closed-loop steps "
+                + ", ".join(f"iter {r['iter']} ({r['iter_f32']} coarse) {r['ms']:.1f} ms"
+                            for r in loop[1:])
+                + f", KKT <= {max(r['kkt'] for r in loop):.2e}; profiled cold / warm: wall "
+                f"{walls['cold'][0]:.1f} / {walls['warm'][0]:.1f} ms, device kernels "
+                f"{walls['cold'][1]:.2f} / {walls['warm'][1]:.2f} ms (busy "
+                f"{100 * walls['cold'][1] / walls['cold'][0]:.1f} / "
+                f"{100 * walls['warm'][1] / walls['warm'][0]:.1f}%); launched "
+                f"{ran(f'{fam} tdunes_ms')}; "
+                f"ipm_ms iter {it_i} KKT {kkt_i:.2e} {t_i:.1f} ms, launched "
+                f"{ran(f'{fam} ipm_ms')}; sdunes warm from the IPM's duals iter {it_s} "
+                f"KKT {kkt_s:.2e} {t_s:.1f} ms, launched {ran(f'{fam} sdunes')}; against the "
+                f"cold tdunes_ms solve " + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps.items())
+                + f" on {card}")
+        print(line)
+    print(f"section 14 (slice 26): {time.perf_counter() - t_slice26:.1f} s on {card}")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"(build {t_build:.1f} s) on {card}")

@@ -4,7 +4,8 @@ the demo built with g++ drives the port's solve server through
 generated dataset that carries the JAX package's solution as xopt / uopt,
 and checks it to 1e-8 and the KKT residual to 1e-10; the port's Makefile
 builds the demo and the host library; without a card the default device
-fails cleanly."""
+fails cleanly; ``SolverSession`` leaves the host's SIGPIPE handler
+installed and a dead server child raises instead of signalling."""
 
 import json
 import os
@@ -87,3 +88,93 @@ def test_makefile_builds_into_build_dir(tmp_path):
                          text=True, timeout=TIMEOUT)
     assert res.returncode == 0, res.stderr
     assert (tmp_path / "libtreeqp_host.so").exists() and (tmp_path / "treeqp_cpp_demo").exists()
+
+
+# A host that installs its own SIGPIPE handler, then drives a SolverSession:
+# the handler must be the one installed after Start() and after Stop(), and
+# (with the "dead" argument, against a server that closes its stdin) a
+# request must raise the documented runtime_error without a SIGPIPE reaching
+# the host.
+HOST_SRC = r"""
+#include <signal.h>
+#include <cstdio>
+#include <cstring>
+#include <stdexcept>
+#include "treeqp_cpp.hpp"
+
+static volatile sig_atomic_t host_sigpipes = 0;
+static void host_handler(int) { host_sigpipes = host_sigpipes + 1; }
+
+static bool host_handler_installed() {
+  struct sigaction now;
+  sigaction(SIGPIPE, nullptr, &now);
+  return !(now.sa_flags & SA_SIGINFO) && now.sa_handler == host_handler;
+}
+
+int main(int argc, char** argv) {
+  struct sigaction sa;
+  std::memset(&sa, 0, sizeof sa);
+  sa.sa_handler = host_handler;
+  sigemptyset(&sa.sa_mask);
+  sigaction(SIGPIPE, &sa, nullptr);
+  const bool dead = argc > 1 && std::strcmp(argv[1], "dead") == 0;
+  treeqp::SolverSession session("cpu");
+  session.Start();
+  std::printf("after Start: %d\n", host_handler_installed());
+  if (dead) {
+    try {
+      treeqp::Json req = treeqp::Json::Object();
+      req["cmd"] = treeqp::Json(std::string("ping"));
+      session.Request(req);
+      std::printf("no error\n");
+    } catch (const std::runtime_error& e) {
+      std::printf("error: %s\n", e.what());
+    }
+    sigset_t pending;
+    sigpending(&pending);
+    std::printf("pending: %d\n", sigismember(&pending, SIGPIPE));
+  }
+  session.Stop();
+  std::printf("after Stop: %d\n", host_handler_installed());
+  std::printf("host SIGPIPEs: %d\n", (int)host_sigpipes);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def sigpipe_host(tmp_path_factory):
+    d = tmp_path_factory.mktemp("sigpipe")
+    (d / "host.cpp").write_text(HOST_SRC)
+    subprocess.run(["g++", "-O2", "-std=c++17", "-Wall", "-Werror", f"-I{CPP}", "-o",
+                    str(d / "host"), str(d / "host.cpp")], check=True, timeout=TIMEOUT)
+    return d / "host"
+
+
+def test_session_keeps_the_host_sigpipe_handler(sigpipe_host):
+    """A host's own SIGPIPE handler, installed before SolverSession::Start(),
+    is still the installed one after Start() (the port's server child up on
+    the CPU) and after Stop()."""
+    env = dict(os.environ, TREEQP_ROOT=str(ROOT), TREEQP_PYTHON=sys.executable,
+               OMP_NUM_THREADS="1")
+    res = subprocess.run([str(sigpipe_host)], env=env, capture_output=True, text=True,
+                         timeout=TIMEOUT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.splitlines() == ["after Start: 1", "after Stop: 1", "host SIGPIPEs: 0"]
+
+
+def test_dead_server_raises_without_sigpipe(sigpipe_host, tmp_path):
+    """A server child that has closed its stdin after its handshake: the
+    request's write fails with the documented runtime_error, no SIGPIPE
+    reaches the host's handler or stays pending, and the host's handler is
+    still installed."""
+    fake = tmp_path / "fake_server"
+    fake.write_text("#!/bin/sh\nexec 0<&-\necho '{\"ready\": true}'\n")
+    fake.chmod(0o755)
+    env = dict(os.environ, TREEQP_ROOT=str(ROOT), TREEQP_PYTHON=str(fake))
+    res = subprocess.run([str(sigpipe_host), "dead"], env=env, capture_output=True,
+                         text=True, timeout=TIMEOUT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.splitlines() == [
+        "after Start: 1", "error: treeqp: server write failed", "pending: 0",
+        "after Stop: 1", "host SIGPIPEs: 0"]

@@ -61,12 +61,13 @@ _REG_MAP = {
 }
 
 
-def resolve_device(name) -> torch.device:
+def resolve_device(name, prog="treeqp-solve-torch") -> torch.device:
     """The torch device of ``--device``; a CUDA device that is not there is
-    an error (``SystemExit`` with a message), never a fallback to the CPU."""
+    an error (``SystemExit`` with a message naming ``prog``), never a
+    fallback to the CPU."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"treeqp-solve-torch: --device {name} but no CUDA device is "
+        raise SystemExit(f"{prog}: --device {name} but no CUDA device is "
                          "available (pass --device cpu to solve on the CPU)")
     return dev
 

@@ -29,14 +29,17 @@
 #define TREEQP_TORCH_CPP_HPP_
 
 #include <fcntl.h>
+#include <pthread.h>
 #include <signal.h>
 #include <sys/wait.h>
 #include <unistd.h>
 
+#include <cerrno>
 #include <cmath>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <ctime>
 #include <fstream>
 #include <map>
 #include <memory>
@@ -535,10 +538,6 @@ class SolverSession {
   // current directory) must contain the treeqp_tpu_torch package.
   void Start() {
     if (running()) return;
-    // If the server child dies, the next write() would raise SIGPIPE whose
-    // default action kills the embedding host; ignore it so the failure
-    // surfaces as the documented runtime_error in Request()/Stop().
-    signal(SIGPIPE, SIG_IGN);
     int to_child[2], from_child[2];
     if (pipe(to_child) != 0 || pipe(from_child) != 0)
       throw std::runtime_error("treeqp: pipe() failed");
@@ -574,7 +573,7 @@ class SolverSession {
   void Stop() {
     if (!running()) return;
     std::string quit = "{\"cmd\":\"quit\"}\n";
-    (void)!write(in_fd_, quit.data(), quit.size());
+    (void)WriteToServer(quit.data(), quit.size());
     close(in_fd_);
     if (out_) fclose(out_);
     int status = 0;
@@ -591,7 +590,7 @@ class SolverSession {
     line += '\n';
     size_t off = 0;
     while (off < line.size()) {
-      ssize_t n = write(in_fd_, line.data() + off, line.size() - off);
+      ssize_t n = WriteToServer(line.data() + off, line.size() - off);
       if (n <= 0) { Stop(); throw std::runtime_error("treeqp: server write failed"); }
       off += (size_t)n;
     }
@@ -602,6 +601,35 @@ class SolverSession {
   }
 
  private:
+  // write() to the server's stdin pipe without raising SIGPIPE. If the
+  // child has died, write() raises SIGPIPE, whose default action kills the
+  // embedding host; the session must not change the host's process-wide
+  // disposition either. So SIGPIPE is blocked on this thread for the call
+  // alone, a SIGPIPE the call raised is consumed before the old mask comes
+  // back (one already pending stays pending), and the failure surfaces as
+  // EPIPE: the documented runtime_error of Request() and Stop().
+  ssize_t WriteToServer(const char* data, size_t size) {
+    sigset_t pipe_only, old_mask, pending;
+    sigemptyset(&pipe_only);
+    sigaddset(&pipe_only, SIGPIPE);
+    pthread_sigmask(SIG_BLOCK, &pipe_only, &old_mask);
+    sigpending(&pending);
+    const bool was_pending = sigismember(&pending, SIGPIPE);
+    ssize_t n;
+    do {
+      n = write(in_fd_, data, size);
+    } while (n < 0 && errno == EINTR);
+    const int err = errno;
+    if (n < 0 && err == EPIPE && !was_pending) {
+      const struct timespec zero = {0, 0};
+      while (sigtimedwait(&pipe_only, nullptr, &zero) < 0 && errno == EINTR) {
+      }
+    }
+    pthread_sigmask(SIG_SETMASK, &old_mask, nullptr);
+    errno = err;
+    return n;
+  }
+
   std::string ReadLine() {
     std::string s;
     char buf[1 << 16];

@@ -2,31 +2,46 @@
 generic-tree solver's instances and options of ``benchmarks/generic_bench.py``,
 ``benchmarks/fault_tolerance.py`` and ``benchmarks/general_cd_bench.py``.
 
-Two families are ported. The quadcopter: attitude model with uncertain mass
-(8-12 kg), Ts=0.05 (benchmark/quadcopter/dynamics_quadcopter_mpc.m +
-default params), linearized around hover with ``torch.autograd`` (in place
-of jax.jacobian / CasADi, common/linearize_model.m) and exactly discretized
-with the augmented matrix exponential (common/discretize_model.m). The
-spring-mass chain (numpy RK4), with the general constraint rows of the
-general C/D trees; the IPM's and sdunes' options of their benches. Model
-construction is host-side work: it runs in f64 on the CPU, and the
-returned QP is moved to the requested device at the end. The quadcopter
-comes with its nonlinear plant simulator (RK4, the true mass drawn from
-the seed); the crane and the linear chain are not ported yet.
+Every family is ported. ``spring_mass_qp`` loads the reference's own
+instance (examples/spring_mass_utils/data.c and x0.txt; md=3, Nr=2, Nh=10,
+NX=4, NU=1). The quadcopter: attitude model with uncertain mass (8-12 kg),
+Ts=0.05 (benchmark/quadcopter/dynamics_quadcopter_mpc.m + default params),
+linearized around hover with ``torch.autograd`` (in place of jax.jacobian
+/ CasADi, common/linearize_model.m) and exactly discretized with the
+augmented matrix exponential (common/discretize_model.m). The overhead
+crane, uncertain friction b in [0.1, 0.3], Ts=0.2
+(benchmark/crane/dynamics_crane.m), and the linear chain, nm masses on
+springs with nu actuated, uncertain spring constant k in [4, 8]
+(benchmark/linear_chain/initialize_linear_chain.m), linearized and
+discretized the same way. The spring-mass chain (numpy RK4), with the
+general constraint rows of the general C/D trees; the IPM's and sdunes'
+options of their benches. Model construction is host-side work: it runs
+in f64 on the CPU, and the returned QP is moved to the requested device at
+the end. The quadcopter, the crane and the linear chain come with their
+nonlinear plant simulators (RK4 at the true parameter drawn from the
+seed).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable
 
 import numpy as np
 import torch
 
 from treeqp_tpu_torch.core.qp_data import TreeQPIn
+from treeqp_tpu_torch.utils.ref_data import parse_c_arrays, read_txt_vector
 from treeqp_tpu_torch.utils.tree import TreeStructure
 
-__all__ = ["BenchmarkModel", "quadcopter", "linearize", "discretize", "GENERIC_SPEED_OPTS",
+# the reference's spring_mass example data (data.c, x0.txt), looked for in
+# a checkout of the reference at reference/ beside the package
+SPRING_MASS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                               "reference", "examples", "spring_mass_utils")
+
+__all__ = ["BenchmarkModel", "SPRING_MASS_DIR", "spring_mass_qp", "quadcopter", "crane",
+           "linear_chain", "linearize", "discretize", "GENERIC_SPEED_OPTS",
            "asym_tree", "pruned", "spring_mass_dynamics", "spring_mass_chain",
            "with_general_rows", "with_sparse_rows", "general_cd", "GENERAL_CD_OPTS",
            "GENERAL_CD_CPU_OPTS",
@@ -82,10 +97,56 @@ SDUNES_BOOT_OPTS = dict(stage_solver="clipping", tol=1e-4, max_iter=120,
                         f32_phase_tol=1e-4, df64_phase=True)
 
 
+def _col_major(flat: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """Unstack [k*rows*cols] column-major chunks into [k, rows, cols]."""
+    return flat.reshape(-1, cols, rows).transpose(0, 2, 1)
+
+
+def spring_mass_qp(data_dir: str = SPRING_MASS_DIR, xmax1: float = 0.2,
+                   x0_from_file: bool = True, device="cuda"):
+    """The spring_mass.c robust-MPC tree QP (reference spring_mass.c:125-227)
+    from its code-generated instance: ``data_dir``'s data.c (and x0.txt with
+    ``x0_from_file``, else x0 = 0). Drops the first (nominal) dynamics
+    realization as spring_mass.c:226 does and sets xmax[1] to ``xmax1``
+    (spring_mass.c:126) so that state constraints are active at the
+    solution; ``xmax1=None`` keeps data.c's bound (the instance of
+    spring_mass_dual_newton_scenarios.c). The same data as
+    ``benchmarks.models.spring_mass_qp``, made on ``device``. A missing file
+    raises, naming its path. Returns (qp, x0)."""
+    paths = [f"{data_dir}/data.c"] + ([f"{data_dir}/x0.txt"] if x0_from_file else [])
+    for path in paths:
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"spring_mass_qp: no reference data file {path}")
+    d = parse_c_arrays(paths[0])
+    Nh, Nr, md = int(d["Nh"]), int(d["Nr"]), int(d["md"])
+    NX, NU = int(d["NX"]), int(d["NU"])
+
+    A = _col_major(d["A"], NX, NX)[1:]  # drop the nominal realization
+    B = _col_major(d["B"], NX, NU)[1:]
+    b = d["b"].reshape(-1, NX)[1:]
+
+    xmax = d["xmax"].copy()
+    if xmax1 is not None:
+        xmax[1] = xmax1
+
+    x0 = read_txt_vector(paths[1]) if x0_from_file else np.zeros(NX)
+
+    topo = TreeStructure.multistage(md=md, Nr=Nr, Nh=Nh, nx=NX, nu=NU)
+    qp = TreeQPIn.lti_diag_weights(
+        topo, A, B, b,
+        dQ=d["dQ"], dq=d["q"], dP=d["dP"], dp=d["p"], dR=d["dR"], dr=d["r"],
+        xmin=d["xmin"], xmax=xmax, umin=d["umin"], umax=d["umax"], x0=x0,
+        scale_by_stage=True, device=device)
+    return qp, x0
+
+
+def _f64(v):
+    return torch.as_tensor(np.asarray(v, np.float64))
+
+
 def linearize(rhs, xlin, ulin):
     """Jacobians (A, B) of a continuous-time rhs at a point, f64 on the CPU."""
-    x = torch.as_tensor(np.asarray(xlin, np.float64))
-    u = torch.as_tensor(np.asarray(ulin, np.float64))
+    x, u = _f64(xlin), _f64(ulin)
     jac = torch.autograd.functional.jacobian
     A = jac(lambda xx: rhs(xx, u), x)
     B = jac(lambda uu: rhs(x, uu), u)
@@ -204,12 +265,122 @@ def quadcopter(md=4, Nr=4, Nh=20, x0=None, seed=0, device="cuda"):
 
     def simulate(x, u):
         # plant input = hover speed + delta (MPC controls deltas around hover)
-        f64 = lambda v: torch.as_tensor(np.asarray(v, np.float64))
-        return rk4_step(rhs_sim, f64(x), f64(u) + w_h, par_sim["Ts"], 5).numpy()
+        return rk4_step(rhs_sim, _f64(x), _f64(u) + w_h, par_sim["Ts"], 5).numpy()
 
     return BenchmarkModel(qp=qp, x0=np.asarray(x0), xref=np.zeros((1, nx)),
                           weights=dict(dQ=dQ, dR=dR, dP=dP), Ts=par_sim["Ts"],
                           simulate=simulate)
+
+
+def _linear_models(rhs_of, params, nx, nu, Ts):
+    """Each parameter's rhs linearized at the origin and discretized:
+    stacked (A, B) [len(params), nx, nx / nu]."""
+    AB = [discretize(*linearize(rhs_of(p), np.zeros(nx), np.zeros(nu)), Ts) for p in params]
+    return np.stack([ab[0] for ab in AB]), np.stack([ab[1] for ab in AB])
+
+
+def _crane_rhs(b, g=9.81):
+    def rhs(x, u):
+        p, v, phi, omega = x.unbind()
+        a = u[0]
+        return torch.stack([v, a, omega,
+                            -g * torch.sin(phi) - a * torch.cos(phi) - b * omega])
+
+    return rhs
+
+
+def crane(md=3, Nr=2, Nh=10, x0=None, sim_b=None, seed=0, device="cuda"):
+    """Overhead crane robust-MPC tree QP, uncertain friction b in [0.1, 0.3]
+    (initialize_crane.m; md realizations linspace over the range). nx=4
+    (position, velocity, angle, angular velocity), nu=1 (the trolley's
+    acceleration), Ts=0.2; the reference xref = [0.2, 0, 0, 0] folded into
+    the linear terms. The same data and plant as ``benchmarks.models.crane``
+    for the same arguments: ``simulate`` integrates the nonlinear model (RK4,
+    5 substeps, f64 on the CPU) at the true friction, ``sim_b`` or drawn
+    from ``seed``. The QP's tensors are made on ``device``."""
+    nx, nu = 4, 1
+    Ts = 0.2
+    bs = np.linspace(0.1, 0.3, md) if md > 1 else np.array([0.2])
+    A, B = _linear_models(_crane_rhs, bs, nx, nu, Ts)
+    bvec = np.zeros((md, nx))
+
+    inf = 1e12
+    dQ = np.array([10.0, 1, 1, 1])
+    dR = np.array([0.1])
+    xmin = np.array([-inf, -0.2, -inf, -0.4])
+    xmax = -xmin
+    xref = np.array([0.2, 0, 0, 0])
+    if x0 is None:
+        x0 = np.zeros(nx)
+
+    topo = TreeStructure.multistage(md=md, Nr=Nr, Nh=Nh, nx=nx, nu=nu)
+    qp = TreeQPIn.lti_diag_weights(
+        topo, A, B, bvec, dQ=dQ, dq=-dQ * xref, dP=dQ, dp=-dQ * xref,
+        dR=dR, dr=np.zeros(nu), xmin=xmin, xmax=xmax,
+        umin=[-0.5], umax=[0.5], x0=x0, device=device)
+
+    b_sim = sim_b if sim_b is not None else float(
+        np.random.default_rng(seed).uniform(0.1, 0.3))
+    rhs_sim = _crane_rhs(b_sim)
+
+    def simulate(x, u):
+        return rk4_step(rhs_sim, _f64(x), _f64(u), Ts, 5).numpy()
+
+    return BenchmarkModel(qp=qp, x0=np.asarray(x0), xref=xref[None],
+                          weights=dict(dQ=dQ, dR=dR, dP=dQ), Ts=Ts, simulate=simulate)
+
+
+def _linear_chain_rhs(nm, nu_count, k):
+    T = (np.diag(-2.0 * np.ones(nm)) + np.diag(np.ones(nm - 1), -1)
+         + np.diag(np.ones(nm - 1), 1))
+    # the controls act as velocity inputs on the first nu_count masses
+    Bv = np.zeros((nm, nu_count))
+    for i in range(nu_count):
+        Bv[i, i] = 1.0
+    Tk, Bt = _f64(k * T), _f64(Bv)
+
+    def rhs(x, u):
+        return torch.cat([x[nm:], Tk @ x[:nm] + Bt @ u])
+
+    return rhs
+
+
+def linear_chain(nm=4, nu_count=3, md=3, Nr=2, Nh=10, sim_k=None, seed=0, device="cuda"):
+    """Chain of ``nm`` masses on springs, ``nu_count`` of them actuated,
+    uncertain spring constant k in [4, 8] (initialize_linear_chain.m; md
+    realizations linspace over the range). nx = 2 nm, nu = nu_count,
+    Ts=0.05; x0 at rest but for velocity 2.0 on the first uncontrolled
+    mass. The same data and plant as ``benchmarks.models.linear_chain`` for
+    the same arguments: ``simulate`` integrates the model (RK4, 5 substeps,
+    f64 on the CPU) at the true constant, ``sim_k`` or drawn from ``seed``.
+    The QP's tensors are made on ``device``."""
+    nx = 2 * nm
+    Ts = 0.05
+    ks = np.linspace(4.0, 8.0, md) if md > 1 else np.array([6.0])
+    A, B = _linear_models(lambda k: _linear_chain_rhs(nm, nu_count, k), ks, nx, nu_count, Ts)
+    bvec = np.zeros((md, nx))
+
+    x0 = np.zeros(nx)
+    x0[nm + min(nu_count, nm - 1)] = 2.0  # initial velocity on an uncontrolled mass
+
+    topo = TreeStructure.multistage(md=md, Nr=Nr, Nh=Nh, nx=nx, nu=nu_count)
+    qp = TreeQPIn.lti_diag_weights(
+        topo, A, B, bvec, dQ=10 * np.ones(nx), dq=np.zeros(nx),
+        dP=10 * np.ones(nx), dp=np.zeros(nx),
+        dR=np.ones(nu_count), dr=np.zeros(nu_count),
+        xmin=-2.0 * np.ones(nx), xmax=2.0 * np.ones(nx),
+        umin=-2.0 * np.ones(nu_count), umax=2.0 * np.ones(nu_count), x0=x0, device=device)
+
+    k_sim = sim_k if sim_k is not None else float(
+        np.random.default_rng(seed).uniform(4.0, 8.0))
+    rhs_sim = _linear_chain_rhs(nm, nu_count, k_sim)
+
+    def simulate(x, u):
+        return rk4_step(rhs_sim, _f64(x), _f64(u), Ts, 5).numpy()
+
+    return BenchmarkModel(qp=qp, x0=x0, xref=np.zeros((1, nx)),
+                          weights=dict(dQ=10 * np.ones(nx), dR=np.ones(nu_count),
+                                       dP=10 * np.ones(nx)), Ts=Ts, simulate=simulate)
 
 
 def pruned(qp, nscen, seed=0):
