@@ -130,7 +130,8 @@ Phases (any failure exits non-zero):
    CROWN_RIC_EDGES (seeded whole trees, ``ric_crown_operands``);
    ric_chain_bwd, and ric_chain_fwd on its outputs, held against their
    twins at RIC_EDGES (both hbar forms, seeded right-hand sides
-   ``ric_rhs``); path
+   ``ric_rhs``); ric_chain_factor and crown_ric_factor at nz = 33 (past
+   the kernels' 32) refused before any launch, naming the bound; path
    A's chain kernels beside theirs, ``ldl_factor_ex`` of each chain's KKT
    matrix (``ric_chain_matrix``, batched [256, 272, 272]) for
    ric_chain_factor and ``ldl_solve`` with its factors
@@ -311,7 +312,20 @@ Phases (any failure exits non-zero):
    the IPM's duals, each certified (status 0, the port's KKT < 1e-8), the
    three solutions' x and u within MPC_GAP, iterations, ms, the rows
    launched and the cold and last warm tdunes_ms solves' device time
-   against wall time (torch.profiler) printed.
+   against wall time (torch.profiler) printed;
+15. the reference's largest linear chain: ``models.linear_chain``
+   at LC8 (nm=8, nu_count=7 at FAMILY_SHAPE: nx=16, nu=7, nz=23, the
+   first instance past the Riccati kernels' 16-row instantiations; 12117
+   nodes, crown groups G = 64) through ``tdunes_ms_solve`` at bench.py's
+   options cold and FAMILY_STEPS closed-loop steps, ``ipm_ms_solve`` and
+   ``ipm_solve`` (the whole tree) at ``IPM_OPTS["box"]`` with the five
+   Riccati twins counted (none may run on either), and ``sdunes_solve``
+   warm from the IPM's duals, each certified, the four solutions' x and u
+   within MPC_GAP; then the five Riccati kernels against their twins on
+   the operands of each IPM's first f32 iteration (the chain kernels and
+   the 341-node crown from ipm_ms, the crown kernels on the whole tree from
+   ipm_solve), each timed alone and in a CUDA graph beside its plain twin,
+   its bound and its ``ldl_*`` yardstick (none for the 12117-node crown).
 
 The kernel launch counts are set to 0 before each path (one-phase,
 two-phase, bench, bench handover, two-norm, 1024 scenarios, generic split,
@@ -322,7 +336,8 @@ loop; the MPC re-embedding path; G qpgen, G mixed, bench on-the-fly, P
 generic, P multistage, P sdunes; the seven in-process requests and the
 two profilers of section 12; in each rank, every sharded solve of
 section 13; the two examples; each family's tdunes_ms, ipm_ms and sdunes
-paths) and read after it; every kernel must launch
+paths; section 15's tdunes_ms, ipm_ms, ipm and sdunes paths) and read
+after it; every kernel must launch
 on a path that runs it, the multistage paths launch none of the generic
 solver's kernels, the generic split path none of the multistage solver's, the crown path only
 crown_factor and crown_solve, no path before section 6 launches
@@ -350,7 +365,9 @@ crown_blocks_factor, system_solve and the high-precision phase's five)
 and none of the generic, IPM, sdunes or CR kernels, their ipm_ms paths
 the five Riccati kernels and none of the dual Newton's, their sdunes paths
 chain_factor, chain_full_solve_mat and jay_cr_solve and none of the
-multistage solver's. Prints
+multistage solver's; section 15's paths as the families', its ipm path
+the two crown Riccati kernels and no other, its sdunes path no
+jay_cr_solve (Jay blocks of Nr nu = 28, past the kernel's 16). Prints
 the JSON summary of all 28 kernels (rows chain_factor, chain_solve_bwd,
 chain_forward, crown_factor, crown_solve, crown_blocks_factor,
 df_reduce_flat, chain_blocks_factor, chain_blocks_factor_lanes,
@@ -461,24 +478,37 @@ ADMM_EDGES = ((37, 1, 1), (37, 16, 16), (37, 9, 9), (37, 17, 9), (37, 32, 16))
 # (nx = 16, 3 kids: the crown solved in one block)
 ITER_EDGES = (("quadcopter", (4, 5, 8)), ("spring_mass_chain", (8, 2, 2, 6)),
               ("spring_mass_chain", (4, 3, 1, 5)), ("spring_mass_chain", (8, 3, 1, 4)))
-# ric_chain_factor's kernel edges (8 or 16 lanes a chain, one instantiation
-# per nz, a 3-stage ring), held against the twin on seeded operands with
-# diagonal and dense hbar: (S, L, nx, nz): one stage, nz 8 and 9 on either
-# side of the lane switch, nz = 16 with nx = 15, nz = 2, a long chain; S = 5
-# is no multiple of the chains a warp holds
+# ric_chain_factor's kernel edges (8, 16 or 32 lanes a chain, one
+# instantiation per nz up to 16 and one for 16 < nz <= 32, a 3-stage ring),
+# held against the twin on seeded operands with diagonal and dense hbar:
+# (S, L, nx, nz): one stage, nz 8 and 9 on either side of the lane switch,
+# nz = 16 with nx = 15, nz = 2, a long chain; S = 5 is no multiple of the
+# chains a warp holds; then the wide instantiation: nz = 17 (the first
+# past 16), nz = 23 in one stage with nx = 22, with the reference's largest
+# linear chain's nx = 16 and at its chain length L = 46, with nx = 2 (a
+# wide nu), nz = 32 with nx = 31 and with nx = 4 in two stages (fewer than
+# the rings hold)
 RIC_EDGES = ((5, 1, 8, 9), (5, 7, 7, 8), (5, 7, 8, 9), (5, 7, 15, 16), (5, 7, 1, 2),
-             (4, 40, 8, 9))
+             (4, 40, 8, 9), (5, 7, 16, 17), (5, 1, 22, 23), (5, 7, 16, 23), (3, 46, 16, 23),
+             (5, 7, 2, 23), (5, 7, 31, 32), (5, 2, 4, 32))
 RIC_REG = 1e-8  # the Levenberg-Marquardt shift of Muu at those edges
-# crown_ric_factor's and crown_ric_solve's kernel edges (a group of 8 or 16
-# lanes a single-kid run, one instantiation per nz, one block or one
-# cluster), held against the twins on seeded operands of whole multistage
-# trees (ric_crown_operands): (md, Nr, Nh, nx, nu, reg): nz = 2, nz = 16
-# with nx = 8 and with nx = 15, a 1024-node level (more runs than the
-# cluster's groups), a deep tree of single-kid runs, a chain (the root's
-# only kid), reg > 0
+# crown_ric_factor's and crown_ric_solve's kernel edges (a group of 8, 16
+# or 32 lanes a single-kid run, one instantiation per nz up to 16 and one
+# for 16 < nz <= 32, one block or one cluster), held against the twins on
+# seeded operands of whole multistage trees (ric_crown_operands): (md, Nr,
+# Nh, nx, nu, reg): nz = 2, nz = 16 with nx = 8 and with nx = 15, a
+# 1024-node level (more runs than the cluster's groups), a deep tree of
+# single-kid runs, a chain (the root's only kid), reg > 0; then the wide
+# instantiation: nz = 17, nz = 23 with nx = 22 and with nx = 2, nz = 32
+# with nx = 31, a 64-run phase at nz = 23 with reg > 0 (past one block's
+# 32 runs: the cluster, a group a warp), a deep tree of single-kid runs and
+# a chain at nz = 23, and 256-run phases at nz = 32 (the cluster's groups
+# striding over them)
 CROWN_RIC_EDGES = ((3, 2, 3, 1, 1, 0.0), (3, 2, 3, 8, 8, 0.0), (3, 2, 3, 15, 1, 0.0),
                    (4, 5, 5, 8, 1, 0.0), (2, 2, 12, 4, 2, 0.0), (2, 0, 6, 4, 1, 0.0),
-                   (3, 2, 4, 6, 3, 1e-3))
+                   (3, 2, 4, 6, 3, 1e-3), (3, 2, 3, 16, 1, 0.0), (3, 2, 3, 22, 1, 0.0),
+                   (3, 2, 3, 2, 21, 0.0), (3, 2, 3, 31, 1, 0.0), (4, 3, 5, 16, 7, 1e-3),
+                   (2, 2, 12, 16, 7, 0.0), (2, 0, 6, 8, 15, 0.0), (4, 4, 5, 4, 28, 0.0))
 # chain_full_solve_mat's kernel edges (a group of 8 or 16 lanes a chain and
 # column, a 3-stage ring), held against the twin on seeded factors
 # (full_operands): (S, L, n, m) with n 1, 8, 9, 16 (either side of the lane
@@ -603,6 +633,13 @@ FAMILY_SHAPE = dict(md=4, Nr=4, Nh=50)
 # realization, spring_mass_chain's default k_nominal
 SPRING_K = 2.0
 FAMILY_STEPS = 3
+# section 15: the reference's largest linear chain (treeqp_performance_plot's
+# nm = 8, nu = 7: nx = 16, nz = 23) on the reference grid's largest tree,
+# the first instance past the Riccati kernels' 16-row instantiations; its
+# chain kernels' library yardsticks are timed on the calls that check them
+# (cuSOLVER's sytrf runs matrix by matrix: seconds at 256 chains of
+# [1794]^2)
+LC8 = dict(nm=8, nu_count=7, **FAMILY_SHAPE)
 
 
 def fail(msg):
@@ -1490,19 +1527,34 @@ def ric_chain_vector(torch, rg, rb, z_root, AB, x=None):
     return x[:, :L * nz].reshape(S, L, nz), x[:, L * nz:].reshape(S, L, nx)
 
 
-def ric_chain_ldl(torch, hbar, AB, reg, rg, rb, z_root):
+def ric_chain_ldl(torch, hbar, AB, reg, rg, rb, z_root, first_ms=None):
     """The library calls of rows 22-24 on one set of chain operands:
     (ldl_factor_ex of ``ric_chain_matrix``, ldl_solve with its factors and
     ``ric_chain_vector``'s right-hand side) as calls without arguments,
     ldl_factor_ex's largest info, and the solve's largest distance to the
-    twins' ric_chain_fwd after ric_chain_bwd."""
+    twins' ric_chain_fwd after ric_chain_bwd. With a dict ``first_ms``,
+    the CUDA-event ms of these first two calls go into it ("factor",
+    "solve"): at shapes where a call takes seconds, that is its timing."""
     from treeqp_tpu_torch.ops import riccati_kernels as rk
     M = ric_chain_matrix(torch, hbar, AB, reg)
-    LD, piv, info = torch.linalg.ldl_factor_ex(M)
     v = ric_chain_vector(torch, rg, rb, z_root, AB)
     fact = rk.ric_chain_factor_ref(hbar, AB, reg)[0]
     p, k, _ = rk.ric_chain_bwd_ref(fact, rg, rb)
-    got = ric_chain_vector(torch, rg, rb, z_root, AB, x=torch.linalg.ldl_solve(LD, piv, v))
+
+    def call(key, fn):
+        if first_ms is None:
+            return fn()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        res = fn()
+        b.record()
+        b.synchronize()
+        first_ms[key] = a.elapsed_time(b)
+        return res
+    LD, piv, info = call("factor", lambda: torch.linalg.ldl_factor_ex(M))
+    got = ric_chain_vector(torch, rg, rb, z_root, AB,
+                           x=call("solve", lambda: torch.linalg.ldl_solve(LD, piv, v)))
     err = max(float((a - b).abs().max())
               for a, b in zip(got, rk.ric_chain_fwd_ref(fact, p, k, rb, z_root)))
     return (lambda: torch.linalg.ldl_factor_ex(M), lambda: torch.linalg.ldl_solve(LD, piv, v),
@@ -1607,15 +1659,21 @@ def family_ms_loop(torch, model, qp, ms, opts, steps, what):
 
 
 def family_ipm(torch, qp, ms, opts, what):
-    """``ipm_ms_solve`` on (qp, ms), certified (status 0, the port's KKT <
-    TOL). Returns (out, iterations, kkt, host ms)."""
+    """``ipm_ms_solve`` on (qp, ms), or ``ipm_solve`` on the whole tree qp
+    where ms is None, certified (status 0, the port's KKT < TOL). Returns
+    (out, iterations, kkt, host ms)."""
     from treeqp_tpu_torch.core.kkt import max_kkt_residual
+    from treeqp_tpu_torch.solvers import ipm
     from treeqp_tpu_torch.solvers import ipm_multistage as ims
     from treeqp_tpu_torch.solvers import tdunes_multistage as tm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cro, cho, info = ims.ipm_ms_solve(ms, opts)
-    out = tm.merge_output(ms, cro, cho, info)
+    if ms is None:
+        out = ipm.ipm_solve(qp, opts)
+        info = out.info
+    else:
+        cro, cho, info = ims.ipm_ms_solve(ms, opts)
+        out = tm.merge_output(ms, cro, cho, info)
     torch.cuda.synchronize()
     t_ms = (time.perf_counter() - t0) * 1e3
     kkt = max_kkt_residual(qp, out)
@@ -3266,6 +3324,24 @@ def main():
     print(f"crown_ric_factor, crown_ric_solve at their kernels' edges {CROWN_RIC_EDGES} (md, "
           f"Nr, Nh, nx, nu, reg): max |diff| to the twins "
           f"{crown_edge_err['crown_ric_factor']:.3e}, {crown_edge_err['crown_ric_solve']:.3e}")
+    # past the kernels' widest stage (nz = 33) both wrappers raise before
+    # any launch, naming the bound, and fall back to no twin
+    hb_33, AB_33 = ric_operands(torch, 2, 2, 32, 33, False, 0, dev)
+    crown_33 = ric_crown_operands(torch, 2, 1, 2, 32, 1, 0, dev)
+    before_33 = (rk.ric_chain_factor.launches, crk.crown_ric_factor.launches)
+    for name, fn in (("ric_chain_factor", lambda: rk.ric_chain_factor(hb_33, AB_33)),
+                     ("crown_ric_factor", lambda: crk.crown_ric_factor(
+                         *crown_33[:3], crown_33[6], 32))):
+        try:
+            fn()
+            fail(f"{name} took nz = 33, past its kernel's 32")
+        except ValueError as e:
+            if "nz <= 32" not in str(e):
+                fail(f"{name} at nz = 33 raised without naming the bound: {e}")
+    if (rk.ric_chain_factor.launches, crk.crown_ric_factor.launches) != before_33:
+        fail("a Riccati wrapper launched its kernel at nz = 33")
+    print("ric_chain_factor, crown_ric_factor at nz = 33: refused before any launch, naming "
+          "nz <= 32")
     # the library calls of rows 22-24 at path A: ldl_factor_ex of each
     # chain's KKT matrix (ric_chain_matrix) for ric_chain_factor, and
     # ldl_solve with its factors for ric_chain_bwd and ric_chain_fwd
@@ -4738,6 +4814,174 @@ def main():
                 + f" on {card}")
         print(line)
     print(f"section 14 (slice 26): {time.perf_counter() - t_slice26:.1f} s on {card}")
+
+    # ---- 15. the reference's largest linear chain: LC8 at the
+    # reference grid's largest tree, nz = 23, through every solver: the
+    # multistage IPM on the chain Riccati kernels' 32-lane instantiation, the
+    # tree IPM on the crown Riccati kernels' (no plain twin may run on
+    # either), tdunes_ms cold and along the closed loop (the crown's groups
+    # 4 x 16 = 64 rows wide), sdunes warm from the IPM; then the five
+    # Riccati kernels against their twins and timed at the instance's shapes
+    t_lc8 = time.perf_counter()
+    from treeqp_tpu_torch import models as tmodels
+    lc8 = tmodels.linear_chain(**LC8, device="cpu")
+    ql8, ms8 = lc8.qp.to(dev), tm.split_multistage(lc8.qp).to(dev)
+    m8 = ms8.meta
+    prep8 = td._get_prep(m8.crown_topo)
+    G8 = ckr._get_sched(prep8).G
+    print(f"linear_chain{tuple(LC8.values())}: {ql8.topo.Nn} nodes, S={m8.S} L={m8.L} "
+          f"nx={m8.nx} nu={m8.nu} (nz={m8.nx + m8.nu}), crown {m8.crown_topo.Nn} nodes of "
+          f"groups G={G8} (crown_solve_core on one block past 32), iter_supported "
+          f"{ik.iter_supported(prep8, m8, optsb)}, chain_eval_df launch "
+          f"{ck.chain_node_launch(m8.S, m8.L, m8.nx, m8.nu, 8)}, chain_apply_df launch "
+          f"{ck.chain_node_launch(m8.S, m8.L, m8.nx, m8.nu, 8, apply=True)} (chains, blocks, "
+          f"threads, staged, shared bytes)")
+    if (ql8.topo.Nn, m8.S, m8.L, m8.nx, m8.nu, m8.crown_topo.Nn) != (12117, 256, 46, 16, 7, 341):
+        fail("linear_chain(nm=8, nu_count=7): not the reference's largest linear chain on the "
+             "reference grid's largest tree")
+    if not ik.iter_supported(prep8, m8, optsb):
+        fail("linear_chain(nm=8, nu_count=7): the fused iteration does not apply")
+    twin_fns = ((rk, ("ric_chain_factor_ref", "ric_chain_bwd_ref", "ric_chain_fwd_ref")),
+                (crk, ("crown_ric_factor_ref", "crown_ric_solve_ref")))
+
+    def no_twins(what, fn):
+        """fn() with the five Riccati twins recording their calls (capture);
+        fails if any ran."""
+        calls, res = capture(twin_fns, fn)
+        if calls:
+            fail(f"{what}: plain Riccati twins ran: { {n: len(c) for n, c in calls.items()} }")
+        return res
+
+    loop8 = drive("lc8 tdunes_ms", fam_ms_needs, lambda: family_ms_loop(
+        torch, lc8, ql8, ms8, optsb, FAMILY_STEPS, "lc8 tdunes_ms"))
+    walls8 = {what: profiled(torch, lambda r=r: tm.tdunes_ms_solve(*r["args"], optsb))
+              for what, r in (("cold", loop8[0]), ("warm", loop8[-1]))}
+    ipm8 = {}
+    for key, ms_arg, needs, forbid in (
+            ("ipm_ms", ms8, ipm_names, tdunes_names),
+            ("ipm", None, ipm_names[3:], tdunes_names + ipm_names[:3])):
+        ipm8[key] = drive(f"lc8 {key}", needs, lambda ms_arg=ms_arg, key=key: no_twins(
+            f"lc8 {key}", lambda: family_ipm(torch, ql8, ms_arg, opts_fam_ipm, f"lc8 {key}")),
+            forbid=forbid, ipm_path=True)
+        ipm8[key] = ipm8[key] + (profiled(torch, lambda ms_arg=ms_arg: family_ipm(
+            torch, ql8, ms_arg, opts_fam_ipm, f"lc8 {key} (profiled)")),)
+    # sdunes' Jay blocks are Nr nu = 28 wide here, past jay_cr_solve's 16:
+    # the plain cyclic reduction (ops/tridiag.py) solves them, as the JAX
+    # package's XLA one does past its kernel's 8, and the kernel may not run
+    jay8 = jk.jay_supported(m8.S - 1, LC8["Nr"] * m8.nu)
+    sd8 = drive("lc8 sdunes", sd_three if jay8 else sd_three[:2], lambda: family_sdunes(
+        torch, ql8, ipm8["ipm_ms"][0], opts_sd, "lc8 sdunes"),
+        forbid=sd_forbid + (() if jay8 else ("jay_cr_solve",)), sd_path=True)
+    cold8 = loop8[0]["out"]
+    gaps8 = {f"{n} {f}": float((getattr(o, f) - getattr(cold8, f)).abs().max())
+             for n, o in (("ipm_ms", ipm8["ipm_ms"][0]), ("ipm", ipm8["ipm"][0]),
+                          ("sdunes", sd8[0])) for f in ("x", "u")}
+    if max(gaps8.values()) > MPC_GAP:
+        fail(f"linear_chain(nm=8, nu_count=7): the four solvers disagree: {gaps8}")
+    print(f"lc8 tdunes_ms at bench.py's options: cold iter {loop8[0]['iter']} "
+          f"({loop8[0]['iter_f32']} coarse) {loop8[0]['ms']:.1f} ms, closed-loop steps "
+          + ", ".join(f"iter {r['iter']} ({r['iter_f32']} coarse) {r['ms']:.1f} ms"
+                      for r in loop8[1:])
+          + f", KKT <= {max(r['kkt'] for r in loop8):.2e}; profiled cold / warm: wall "
+          f"{walls8['cold'][0]:.1f} / {walls8['warm'][0]:.1f} ms, device kernels "
+          f"{walls8['cold'][1]:.2f} / {walls8['warm'][1]:.2f} ms ({walls8['cold'][2]} / "
+          f"{walls8['warm'][2]} launches); launched {ran('lc8 tdunes_ms')} on {card}")
+    for key, (out_, it_, kkt_, t_, prof_) in ipm8.items():
+        print(f"lc8 {key} at IPM_OPTS['box']: iter {it_} ({out_.info['iter_f32']} f32), KKT "
+              f"{kkt_:.2e}, {t_:.1f} ms; profiled: wall {prof_[0]:.1f} ms, device kernels "
+              f"{prof_[1]:.2f} ms ({prof_[2]} launches); launched {ran(f'lc8 {key}')}; no "
+              f"plain Riccati twin ran on {card}")
+    print(f"lc8 sdunes warm from the IPM's duals: iter {sd8[1]} KKT {sd8[2]:.2e} "
+          f"{sd8[3]:.1f} ms, launched {ran('lc8 sdunes')} (Jay blocks of "
+          f"{LC8['Nr'] * m8.nu}: jay_cr_solve {'taken' if jay8 else 'past its 16'}); against "
+          f"the cold tdunes_ms solve "
+          + ", ".join(f"|d{k}| {v:.2e}" for k, v in gaps8.items()) + f" on {card}")
+
+    # the five Riccati kernels on the operands of their first f32 iteration
+    # on this tree: the chain kernels and the crown kernels on the 341-node
+    # crown (ipm_ms), the crown kernels on the whole 12117-node tree (ipm)
+    one8 = ipm.IpmOpts(**{**IPM_OPTS["box"], "max_iter": 1})
+    got8 = {}
+    for key, fn in (("ipm_ms", lambda: ims.ipm_ms_solve(ms8, one8)),
+                    ("ipm", lambda: ipm.ipm_solve(ql8, one8))):
+        calls8, _ = capture(((rk, ipm_names[:3]), (crk, ipm_names[3:])), fn)
+        got8[key] = {n: c[0] for n, c in calls8.items()}
+    (hb8, AB8), kw8 = got8["ipm_ms"]["ric_chain_factor"]
+    reg8 = kw8.get("reg", 0.0)
+    (fact8, rg8, rb8), _ = got8["ipm_ms"]["ric_chain_bwd"]
+    (_, p8, k8, rbf8, zr8), _ = got8["ipm_ms"]["ric_chain_fwd"]
+    rg8, rb8, rbf8, zr8 = (v.to(f32).contiguous() for v in (rg8, rb8, rbf8, zr8))
+    S8, L8, nx8, nz8 = AB8.shape
+    lib8 = {}
+    _, _, info8, err8 = ric_chain_ldl(torch, hb8, AB8, reg8, rg8, rb8, zr8, first_ms=lib8)
+    rows8 = [("ric_chain_factor", lambda: rk.ric_chain_factor(hb8, AB8, **kw8),
+              lambda: rk.ric_chain_factor_ref(hb8, AB8, **kw8), FACTOR_RTOL, (hb8, AB8),
+              S8 * L8 * stage_ops(nx8, nz8, "factor"), lib8["factor"],
+              f"ldl_factor_ex of the {S8} chains' [{L8 * (nx8 + nz8)}]^2 KKT matrices, info "
+              f"max {info8}"),
+             ("ric_chain_bwd", lambda: rk.ric_chain_bwd(fact8, rg8, rb8),
+              lambda: rk.ric_chain_bwd_ref(fact8, rg8, rb8), SOLVE_RTOL,
+              ([fact8[k] for k in ("P", "Luu", "Mxu", "AB")], rg8, rb8),
+              S8 * L8 * stage_ops(nx8, nz8, "bwd"), lib8["solve"],
+              f"ldl_solve with its factors, for bwd + fwd, |diff| to the twins {err8:.3e}"),
+             ("ric_chain_fwd", lambda: rk.ric_chain_fwd(fact8, p8, k8, rbf8, zr8),
+              lambda: rk.ric_chain_fwd_ref(fact8, p8, k8, rbf8, zr8), SOLVE_RTOL,
+              ([fact8[k] for k in ("P", "K", "AB")], p8, k8, rbf8, zr8),
+              S8 * L8 * stage_ops(nx8, nz8, "fwd"), lib8["solve"],
+              "ldl_solve with its factors, for bwd + fwd")]
+    for key in ("ipm_ms", "ipm"):
+        (hbc, ABc, W0c, prepc, nxc), kwc = got8[key]["crown_ric_factor"]
+        (factc, rgc, rbc, w0c, _), _ = got8[key]["crown_ric_solve"]
+        rgc, rbc, w0c = (v.to(f32).contiguous() for v in (rgc, rbc, w0c))
+        schedc = crk._get_sched(prepc)
+        Ncc, nzc = hbc.shape
+        lib_fc = lib_sc = None
+        lib_note = (f"none: the dense KKT matrix of {Ncc} nodes would hold "
+                    f"{(Ncc * nzc + (Ncc - 1) * nxc) ** 2 * 4 / 1e9:.0f} GB")
+        if key == "ipm_ms":
+            M_c = ric_crown_matrix(torch, hbc, ABc, W0c, prepc, nxc, kwc.get("reg", 0.0))
+            LD_c, piv_c, info_c8 = torch.linalg.ldl_factor_ex(M_c)
+            v_c = ric_crown_vector(torch, rgc, rbc, w0c)
+            lib_fc = cuda_ms(torch, lambda: torch.linalg.ldl_factor_ex(M_c), 1)
+            lib_sc = cuda_ms(torch, lambda: torch.linalg.ldl_solve(LD_c, piv_c, v_c), 1)
+            lib_note = (f"ldl_factor_ex / ldl_solve of the [{M_c.shape[0]}]^2 KKT matrix, "
+                        f"info {int(info_c8)}")
+            del M_c, LD_c
+        where = f"{key}: {Ncc} nodes, {schedc.n_ph} phases of runs, launch " \
+                f"{crk._ric_launch(schedc, nzc)}"
+        rows8 += [
+            ("crown_ric_factor", lambda a=(hbc, ABc, W0c, prepc, nxc), k=kwc:
+             crk.crown_ric_factor(*a, **k),
+             lambda a=(hbc, ABc, W0c, prepc, nxc), k=kwc: crk.crown_ric_factor_ref(*a, **k),
+             FACTOR_RTOL, (hbc, ABc, W0c, [schedc.on(dev)[q] for q in (
+                 "kid_ptr", "kid_idx", "ph_ptr", "run_ptr", "run_node")]),
+             Ncc * (stage_ops(nxc, nzc, "factor") + nzc * nzc), lib_fc, f"{where}; {lib_note}"),
+            ("crown_ric_solve", lambda a=(factc, rgc, rbc, w0c, prepc):
+             crk.crown_ric_solve(*a),
+             lambda a=(factc, rgc, rbc, w0c, prepc): crk.crown_ric_solve_ref(*a),
+             SOLVE_RTOL, ([factc[q] for q in ("P", "Luu", "K", "Mxu", "AB")], rgc, rbc, w0c,
+                          [schedc.on(dev)[q] for q in ("kid_ptr", "kid_idx", "par", "ph_ptr",
+                                                       "run_ptr", "run_node")]),
+             Ncc * (stage_ops(nxc, nzc, "bwd") + stage_ops(nxc, nzc, "fwd") + nzc)
+             + chol_ops(nxc) + 4 * nxc * nxc, lib_sc, f"{where}; {lib_note}")]
+    pick8 = lambda r: ([r[0][q] for q in ("P", "Luu", "K", "Mxu")] + list(r[1:])
+                       if isinstance(r, tuple) and isinstance(r[0], dict) else
+                       [r[q] for q in ("P", "Luu", "K", "Mxu")] if isinstance(r, dict) else r)
+    for name, fn, ref_fn, rtol, inputs, ops_, lib_t, note in rows8:
+        err_ = compare(torch, f"{name} (lc8, nz={nz8})", pick8(fn()), pick8(ref_fn()), rtol)
+        t_alone, t_graph = cuda_ms(torch, fn, 20), graph_ms(torch, fn)
+        t_plain = cuda_ms(torch, ref_fn, 2)
+        moved = nbytes(torch, inputs, fn())
+        t_bytes, t_ops = moved / PEAK_BYTES, ops_ / PEAK_FLOPS[False]
+        lib_s = "none" if lib_t is None else f"{lib_t:.4f} ms alone"
+        print(f"{name} at nz={nz8} (lc8; {note}): {t_alone:.4f} ms alone, {t_graph:.4f} ms in "
+              f"a CUDA graph, plain twin {t_plain:.4f} ms, bound "
+              f"{max(t_bytes, t_ops) * 1e3:.6f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}: {moved} B, {ops_:.4g} FP32 "
+              f"ops), library call {lib_s}, max |diff| to the twin "
+              f"{err_:.3e}, launches on the lc8 paths "
+              f"{sum(paths[p_][name] for p_ in paths if p_.startswith('lc8'))} on {card}")
+    print(f"section 15 (the largest linear chain): {time.perf_counter() - t_lc8:.1f} s on {card}")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"(build {t_build:.1f} s) on {card}")

@@ -188,8 +188,8 @@ def main():
         out = [(name, lib, crk._ric_launch(sched, nz) if new else (one_block_threads(sched),),
                 new) for name, (lib, new) in libs.items()]
         pk = libs["package"][0]
-        per_warp = 32 // (8 if nz <= 8 else 16)
-        cap = min(crk._RIC_WARPS, crk._BLOCK_SMEM // (4 * crk._ric_floats(nz) * per_warp))
+        per_warp = 32 // crk._ric_lanes(nz)
+        cap = min(crk._ric_warps(nz), crk._BLOCK_SMEM // (4 * crk._ric_floats(nz) * per_warp))
         w = sched.run_width
         for blocks in (1, 8, 16):
             out.append((f"package {blocks} block{'s' if blocks > 1 else ''}", pk,

@@ -2,6 +2,9 @@
 (chain_blocks_factor_ref, what the wrapper runs on CPU tensors) against the
 JAX Pallas kernel (interpret mode) on the same operands."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +20,33 @@ from treeqp_tpu_torch.solvers import tdunes as td
 from treeqp_tpu_torch.solvers import tdunes_multistage as tm
 
 torch.set_num_threads(1)
+
+_JITTED = {}
+
+
+def _static_key(v):
+    """A cache key for a static argument: its value where hashable, a numpy
+    array's bytes, else the object itself by identity (the cache keeps it
+    alive)."""
+    if isinstance(v, np.ndarray):
+        return ("ndarray", v.dtype.str, v.shape, v.tobytes())
+    try:
+        hash(v)
+        return v
+    except TypeError:
+        return ("id", id(v))
+
+
+def jax_ref(fn, *args, **static):
+    """The JAX reference fn(*args, **static) under one ``jax.jit`` per (fn,
+    static) for the test process: ``args`` (arrays, and pytrees of them) are
+    traced, ``static`` bound. Tests that call an interpret-mode Pallas
+    reference at equal shapes then share its trace, lowering and compile,
+    which take 10-60 s on the CPU against milliseconds of running."""
+    key = (fn, tuple((k, _static_key(v)) for k, v in sorted(static.items())))
+    if key not in _JITTED:
+        _JITTED[key] = (jax.jit(functools.partial(fn, **static)), static)
+    return _JITTED[key][0](*args)
 
 CASES = {
     "quadcopter": lambda: jmodels.quadcopter(2, 2, 6).qp,
@@ -69,8 +99,8 @@ def test_chain_blocks_factor_matches_pallas(name, point):
     _, _, _, inp = factor_inputs(name, point)
     ABt, ztp, qtc, s_root = inp["chain"]
     Ls, CUs, schur0, sc = ck.chain_blocks_factor_ref(ABt, ztp, qtc, s_root)
-    jLs, jCUs, jschur0, jsc = jck.chain_blocks_factor(
-        *(jnp.asarray(t.numpy()) for t in (ABt, ztp, qtc, s_root)))
+    jLs, jCUs, jschur0, jsc = jax_ref(
+        jck.chain_blocks_factor, *(jnp.asarray(t.numpy()) for t in (ABt, ztp, qtc, s_root)))
     S = ABt.shape[0]
     lanes = lambda v: np.transpose(np.asarray(v)[..., :S], (3, 0, 1, 2))
     assert_close(Ls, lanes(jLs), RTOL, "Ls")

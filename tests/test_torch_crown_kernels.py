@@ -13,7 +13,7 @@ from treeqp_tpu.solvers import tdunes as jtd
 from treeqp_tpu.utils.tree import TreeStructure as JTree
 
 import chip_smoke
-from test_torch_chain_kernels import assert_close, factor_inputs
+from test_torch_chain_kernels import assert_close, factor_inputs, jax_ref
 from treeqp_tpu_torch import models
 from treeqp_tpu_torch.ops import chain_kernels as ck
 from treeqp_tpu_torch.ops import crown_kernels as ckr
@@ -51,8 +51,8 @@ def crown_operands(name, point):
 def test_crown_blocks_factor_matches_pallas(name, point):
     ms, prep, args = crown_operands(name, point)
     CholW, CholUt = ckr.crown_blocks_factor_ref(*args, prep, reg=REG)
-    jW, jU = jckr.crown_blocks_factor(*(jnp.asarray(t.numpy()) for t in args),
-                                      jax_prep(ms.meta.crown_topo), reg=REG)
+    jW, jU = jax_ref(jckr.crown_blocks_factor, *(jnp.asarray(t.numpy()) for t in args),
+                     prep=jax_prep(ms.meta.crown_topo), reg=REG)
     lanes = lambda v: np.transpose(np.asarray(v)[..., :prep.NpG], (2, 0, 1))
     assert_close(CholW, lanes(jW), RTOL, "CholW")
     assert_close(CholUt, lanes(jU), RTOL, "CholUt")

@@ -15,7 +15,7 @@ from treeqp_tpu.ops import crown_kernels as jckr
 from treeqp_tpu.solvers import tdunes as jtd
 from treeqp_tpu.solvers import tdunes_multistage as jtm
 
-from test_torch_chain_kernels import CASES, POINTS, assert_close
+from test_torch_chain_kernels import CASES, POINTS, assert_close, jax_ref
 from treeqp_tpu_torch import convert
 from treeqp_tpu_torch.ops import chain_kernels as ck
 from treeqp_tpu_torch.ops import crown_kernels as ckr
@@ -108,7 +108,7 @@ def test_chain_eval_matches_pallas(name, point):
     c = path_case(name, point)
     d = c["data_ch"]
     out = ck.chain_eval_ref(d, c["lam_ch"])
-    jout = jck.chain_eval(c["jdata_ch"], jnp.asarray(c["lam_ch"].numpy()))
+    jout = jax_ref(jck.chain_eval, c["jdata_ch"], jnp.asarray(c["lam_ch"].numpy()))
     S = c["ms"].meta.S
     ones = torch.ones_like
     assert_margin(out["xUnc"], lanes_to_chains(jout["xUnc"], S), d["xmin"],
@@ -136,8 +136,8 @@ def test_crown_eval_matches_pallas(name, point):
     NPc = c["jdata_cr"]["ABt"].shape[-1]
     jextra = np.zeros((extra.shape[1], NPc), np.float32)
     jextra[:, :Nn] = extra.numpy().T
-    jout = jckr.crown_eval(c["jdata_cr"], jnp.asarray(c["lam_cr"].numpy()),
-                           jnp.asarray(jextra))
+    jout = jax_ref(jckr.crown_eval, c["jdata_cr"], jnp.asarray(c["lam_cr"].numpy()),
+                   jnp.asarray(jextra))
     node = lambda v: np.asarray(v)[:, :Nn].T
     assert_margin(out["xUnc"], node(jout["xUnc"]), d["xmin"], d["xmax"], d["xm"], "x")
     assert_margin(out["uUnc"], node(jout["uUnc"]), d["umin"], d["umax"], d["um"], "u")
@@ -165,10 +165,10 @@ def test_chain_blocks_factor_lanes_matches_pallas(name, point):
     args = tm._factor_inputs(cr["qtilde"], cr["rtilde"], ch["qt"], ch["rt"],
                              c["prep"], ctx, lanes=True)["chain"]
     Ls, CUs, schur0, sc = ck.chain_blocks_factor_lanes_ref(*args)
-    jch = jck.chain_eval(c["jdata_ch"], jnp.asarray(c["lam_ch"].numpy()))
-    jLs, jCUs, jschur0, jsc = jck.chain_blocks_factor_lanes(
-        c["jdata_ch"]["ABt"], jch["qt"], jch["rt"], jnp.asarray(args[3].numpy()),
-        jnp.asarray(args[4].numpy()))
+    jch = jax_ref(jck.chain_eval, c["jdata_ch"], jnp.asarray(c["lam_ch"].numpy()))
+    jLs, jCUs, jschur0, jsc = jax_ref(
+        jck.chain_blocks_factor_lanes, c["jdata_ch"]["ABt"], jch["qt"], jch["rt"],
+        jnp.asarray(args[3].numpy()), jnp.asarray(args[4].numpy()))
     S = c["ms"].meta.S
     lanes4 = lambda v: np.transpose(np.asarray(v)[..., :S], (3, 0, 1, 2))
     assert_close(Ls, lanes4(jLs), FACTOR_RTOL, "Ls")

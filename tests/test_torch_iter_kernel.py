@@ -17,7 +17,7 @@ from treeqp_tpu.ops import crown_kernels as jckr
 from treeqp_tpu.ops import iter_kernel as jik
 
 from benchmarks import models as jmodels
-from test_torch_chain_kernels import CASES, POINTS, assert_close
+from test_torch_chain_kernels import CASES, POINTS, assert_close, jax_ref
 from test_torch_eval_kernels import (EVAL_RTOL, TWO_PHASE, assert_margin, eval_case,
                                      lanes_to_chains, path_case, split_case)
 from test_torch_system_kernels import jax_layout
@@ -94,21 +94,22 @@ def test_newton_iter_matches_pallas(mode, name, point):
     ms, Nn = c["ms"], c["data_cr"]["ABt"].shape[0]
     out = ik.newton_iter_ref(c["data_ch"], c["data_cr"], fact, state, c["prep"],
                              ms.meta.root_ids, mode=mode)
-    jout = jik.newton_iter(c["jdata_ch"], c["jdata_cr"], jfact, jstate, c["jprep"],
-                           ms.meta.root_ids, c["ms_j"].meta, mode=mode)
+    jout = jax_ref(jik.newton_iter, c["jdata_ch"], c["jdata_cr"], jfact, jstate,
+                   prep=c["jprep"], root_ids=ms.meta.root_ids, meta=c["ms_j"].meta, mode=mode)
     S = ms.meta.S
     chains = lambda v: lanes_to_chains(v, S)
     nodes = lambda v: np.asarray(v)[:, :Nn].T
     # the trial point and the active sets there, by both sides' standalone
     # evaluations (which the eval-kernel tests hold equal)
-    jch = jck.chain_eval(c["jdata_ch"], jnp.asarray(chains(jout["lam2_ch"])))
+    jch = jax_ref(jck.chain_eval, c["jdata_ch"], jnp.asarray(chains(jout["lam2_ch"])))
     d = c["data_ch"]
     ones = torch.ones_like
     assert_margin(out["xUnc"], chains(jch["xUnc"]), d["xmin"], d["xmax"], ones(d["xmin"]), "x")
     assert_margin(out["uUnc"], chains(jch["uUnc"]), d["umin"], d["umax"], ones(d["umin"]), "u")
     extra = torch.zeros_like(c["data_cr"]["ABt"][:, 0])
     extra[torch.as_tensor(ms.meta.root_ids)] = torch.as_tensor(np.array(jch["cqr"]))
-    jcr = jckr.crown_eval(c["jdata_cr"], jout["lam2_cr"], lanes(extra, jout["lam2_cr"].shape[-1]))
+    jcr = jax_ref(jckr.crown_eval, c["jdata_cr"], jout["lam2_cr"],
+                  lanes(extra, jout["lam2_cr"].shape[-1]))
     d = c["data_cr"]
     assert_margin(out["cxUnc"], nodes(jcr["xUnc"]), d["xmin"], d["xmax"], d["xm"], "crown x")
     assert_margin(out["cuUnc"], nodes(jcr["uUnc"]), d["umin"], d["umax"], d["um"], "crown u")

@@ -4,16 +4,20 @@ crown_ric_factor, crown_ric_solve; what the wrappers run on CPU tensors)
 against the JAX Pallas kernels in interpret mode, on the same numpy-seeded
 f32 operands: diagonal and dense (general-row) stage Hessians, a case with
 S > 128 (two lane tiles of the TPU kernels), and the crown of a multistage
-tree with the chains' boundary terms at its chain roots."""
+tree with the chains' boundary terms at its chain roots. Past nz = 16 (the
+CUDA kernels' 32-lane instantiation) also against JAX's XLA Riccati, the
+path JAX takes there at chain_backend "xla" and, for the crown, always."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from benchmarks import models as jmodels
 from treeqp_tpu.ops import crown_riccati as jcr
 from treeqp_tpu.ops import riccati_kernels as jrk
 from treeqp_tpu.solvers import ipm as jipm
+from treeqp_tpu.solvers import ipm_multistage as jims
 from treeqp_tpu.utils.tree import TreeStructure as JTree
 
 import chip_smoke
@@ -28,17 +32,24 @@ torch.set_num_threads(1)
 # f32 on both sides, the same per-element order, FMA-free on the CPU:
 # factors to 1e-5 x max(1, max|ref|), solves to 1e-4 (ROADMAP tolerances)
 FACTOR_RTOL, SOLVE_RTOL = 1e-5, 1e-4
-# (S, L, nx, nz, dense); the last five at the CUDA kernels' edges
+# (S, L, nx, nz, dense); then six at the CUDA kernels' edges
 # (chip_smoke.RIC_EDGES): nz 8 and 9 on either side of their 8 / 16-lane
 # switch, nz = 16 with nx = 15 in one stage and with nu = 2, two stages
 # (fewer than the rings hold), S = 5 no multiple of the chains a warp
-# holds, both hbar forms
+# holds, both hbar forms; and nz = 23 with nx = 16 (the reference's largest
+# linear chain), the 32-lane instantiation
 CHAIN_CASES = {"diag": (5, 4, 4, 5, False), "dense": (5, 4, 4, 5, True),
                "diag_two_controls": (3, 3, 3, 5, False),
                "dense_S144": (144, 2, 2, 3, True),
                "diag_nz8": (5, 3, 7, 8, False), "dense_nz9": (5, 3, 8, 9, True),
                "dense_nz16_nx15_L1": (5, 1, 15, 16, True),
-               "diag_L2": (5, 2, 4, 5, False), "dense_nz16_nu2": (5, 3, 14, 16, True)}
+               "diag_L2": (5, 2, 4, 5, False), "dense_nz16_nu2": (5, 3, 14, 16, True),
+               "diag_nz23": (5, 3, 16, 23, False)}
+# past nz = 16 against JAX's XLA chain Riccati (ipm_multistage's
+# _chain_riccati_*): dense at nz = 23 (nx = 16), nz = 32 with nx = 31
+# and, dense, with nx = 4 (a wide nu)
+XLA_CHAIN_CASES = {"dense_nz23": (5, 4, 16, 23, True), "diag_nz32": (5, 3, 31, 32, False),
+                   "dense_nz32_nx4": (3, 3, 4, 32, True)}
 
 
 def close(got, ref, rtol, what):
@@ -100,6 +111,27 @@ def test_ric_chain_sweeps_match_pallas(chain_case):
     dz, dl = rk.ric_chain_fwd(fact, p, k, rb, zr)
     close(dz, ref["dz"], SOLVE_RTOL, "dz")
     close(dl, ref["dl"], SOLVE_RTOL, "dl")
+
+
+@pytest.mark.parametrize("case", sorted(XLA_CHAIN_CASES))
+def test_ric_chain_twins_match_xla(case):
+    """The chain twins against JAX's XLA chain Riccati in f32 past nz = 16:
+    factors to FACTOR_RTOL, the sweeps to SOLVE_RTOL."""
+    S, L, nx, nz, dense = XLA_CHAIN_CASES[case]
+    hb, AB, rg, rb, zr = chain_operands(S, L, nx, nz, dense, seed=3)
+    fj = jims._chain_riccati_factor(jnp.asarray(hb), jnp.asarray(AB), jipm.IpmOpts())
+    pj, kj, w0j = jims._chain_riccati_bwd(fj, jnp.asarray(rg), jnp.asarray(rb))
+    dzj, dlj = jims._chain_riccati_fwd(fj, pj, kj, jnp.asarray(rb), jnp.asarray(zr))
+    t = torch.tensor
+    fact, W0 = rk.ric_chain_factor(t(hb), t(AB), jipm.IpmOpts().reg_eps)
+    for k in ("P", "Luu", "K", "Mxu"):
+        close(fact[k], fj[k], FACTOR_RTOL, k)
+    close(W0, fj["W0"], FACTOR_RTOL, "W0")
+    p, k, w0 = rk.ric_chain_bwd(fact, t(rg), t(rb))
+    dz, dl = rk.ric_chain_fwd(fact, p, k, t(rb), t(zr))
+    for name, got, ref in (("p", p, pj), ("k", k, kj), ("w0", w0, w0j), ("dz", dz, dzj),
+                           ("dl", dl, dlj)):
+        close(got, ref, SOLVE_RTOL, name)
 
 
 def test_ric_chain_twins_solve_the_chain_system():
@@ -175,6 +207,56 @@ def test_crown_ric_solve_matches_pallas(crown_case, tag):
     dz, dl = crk.crown_ric_solve(fact, rg, rb, w0, c["prep"])
     close(dz, c["dz"], SOLVE_RTOL, "dz")
     close(dl, c["dl"], SOLVE_RTOL, "dl")
+
+
+def test_crown_ric_twins_match_xla_nz23():
+    """The crown twins at nz = 23 against JAX's XLA tree Riccati
+    (ipm._riccati_factor / _riccati_solve in f32, what JAX runs above nz =
+    16) on the linear chain of nm = 8, nu = 7 (md=3, Nr=2, Nh=3: 22 nodes),
+    its leaves carrying chain boundary terms: factors to FACTOR_RTOL, dz and
+    dlam to SOLVE_RTOL."""
+    qp_j = jmodels.linear_chain(nm=8, nu_count=7, md=3, Nr=2, Nh=3).qp
+    topo = qp_j.topo
+    Nc, nx, nz = topo.Nn, topo.nxm, topo.nxm + topo.num
+    rng = np.random.default_rng(5)
+    hb = (1.0 + rng.random((Nc, nz))).astype(np.float32)
+    AB = np.concatenate([np.asarray(qp_j.A), np.asarray(qp_j.B)], axis=2).astype(np.float32)
+    W0 = np.zeros((Nc, nz, nz), np.float32)
+    w0 = np.zeros((Nc, nz), np.float32)
+    leaves = np.nonzero(topo.stage == topo.Nh)[0]
+    X = rng.standard_normal((len(leaves), 3, nz))
+    W0[leaves] = np.einsum("lci,lcj->lij", X, X)
+    w0[leaves] = rng.standard_normal((len(leaves), nz))
+    rg = rng.standard_normal((Nc, nz)).astype(np.float32)
+    rb = rng.standard_normal((Nc, nx)).astype(np.float32)
+    rb[0] = 0.0
+    jprep = jipm._get_ipm_prep(topo)
+    fj = jipm._riccati_factor(qp_j, jnp.asarray(np.einsum("ni,ij->nij", hb, np.eye(nz))),
+                              jprep, jipm.IpmOpts(), fdt=jnp.float32, Wsum0=jnp.asarray(W0))
+    dzj, dlj = jipm._riccati_solve(qp_j, fj, jnp.asarray(rg), jnp.asarray(rb), jprep,
+                                   wsum0=jnp.asarray(w0))
+    prep = ipm._get_ipm_prep(convert.topo_from(topo))
+    t = torch.tensor
+    fact = crk.crown_ric_factor(t(hb), t(AB), t(W0), prep, nx)
+    for k in ("P", "Luu", "K", "Mxu"):
+        close(fact[k], np.asarray(fj[k])[:Nc], FACTOR_RTOL, k)
+    dz, dl = crk.crown_ric_solve(fact, t(rg), t(rb), t(w0), prep)
+    close(dz, dzj, SOLVE_RTOL, "dz")
+    close(dl, dlj, SOLVE_RTOL, "dl")
+
+
+def test_wrappers_take_nz_up_to_32():
+    """The shape checks the wrappers run before a launch (on CUDA tensors
+    only): nz = 32 passes, nz = 33 raises, naming the bound 32."""
+    assert rk._MAX_NZ == 32
+    rk._check_dims("ric_chain_factor", 2, 3, 31, 32)
+    with pytest.raises(ValueError, match="nz <= 32"):
+        rk._check_dims("ric_chain_factor", 2, 3, 31, 33)
+    sched = crk._get_sched(ipm._get_ipm_prep(TreeStructure.multistage(2, 1, 2, 31, 1)))
+    Nc = len(sched.par)
+    crk._check("crown_ric_factor", sched, Nc, 31, 32)
+    with pytest.raises(ValueError, match="nz <= 32"):
+        crk._check("crown_ric_solve", sched, Nc, 31, 33)
 
 
 def test_crown_schedule_lists_each_node_once(crown_case):
@@ -256,13 +338,14 @@ def test_crown_schedule_runs(crown_case):
 
 def test_ric_launch_shape():
     """_ric_launch: a group a run of the widest phase in one round where a
-    block's threads (16 warps) and shared memory (227 KB) allow; one block
-    up to 32 runs, one cluster of 16 blocks beyond, striding over wider
-    phases."""
+    block's threads (16 warps; 8 for the 32-lane groups past nz = 16) and
+    shared memory (227 KB) allow; one block up to 32 runs, one cluster of
+    16 blocks beyond, striding over wider phases."""
     prep = lambda md, Nr, Nh, nx, nu: ipm._get_ipm_prep(
         TreeStructure.multistage(md, Nr, Nh, nx, nu))
     got = {key: crk._ric_launch(crk._get_sched(prep(*key)), key[3] + key[4])
-           for key in [(4, 4, 4, 8, 1), (4, 4, 20, 8, 1), (4, 3, 7, 8, 1)]
+           for key in [(4, 4, 4, 8, 1), (4, 4, 20, 8, 1), (4, 3, 7, 8, 1), (4, 4, 4, 16, 7),
+                       (4, 4, 50, 16, 7)]
            + [e[:5] for e in chip_smoke.CROWN_RIC_EDGES]}
     # IPM path B's crown and path C's trees (nz = 9: 16 lanes a run)
     assert got[(4, 4, 4, 8, 1)] == (16, 8)
@@ -277,16 +360,33 @@ def test_ric_launch_shape():
     assert got[(2, 2, 12, 4, 2)] == (1, 1)
     assert got[(2, 0, 6, 4, 1)] == (1, 1)
     assert got[(3, 2, 4, 6, 3)] == (1, 5)
+    # past nz = 16 (a group a warp, 8 warps a block): the linear chain of
+    # nm = 8, nu = 7 on the reference grid's largest tree, its 341-node crown
+    # and the whole 12117-node tree (256 runs each: two rounds); the
+    # edges nz = 17, 23 and 32 (9 runs, past one block's 8 groups), 64 runs
+    # at nz = 23, a deep tree of 4 runs (one block), and 256 runs at nz =
+    # 32, where the shared memory of 45 KB a group leaves 5 warps a block
+    assert got[(4, 4, 4, 16, 7)] == (16, 8)
+    assert got[(4, 4, 50, 16, 7)] == (16, 8)
+    assert got[(3, 2, 3, 16, 1)] == (16, 1)
+    assert got[(3, 2, 3, 22, 1)] == (16, 1)
+    assert got[(3, 2, 3, 31, 1)] == (16, 1)
+    assert got[(4, 3, 5, 16, 7)] == (16, 4)
+    assert got[(2, 2, 12, 16, 7)] == (1, 4)
+    assert got[(4, 4, 5, 4, 28)] == (16, 5)
     for (md, Nr, Nh, nx, nu), (blocks, warps) in got.items():
         nz = nx + nu
-        per_warp = 32 // (8 if nz <= 8 else 16)
+        per_warp = 32 // (8 if nz <= 8 else 16 if nz <= 16 else 32)
+        max_warps = 16 if nz <= 16 else 8
         width = crk._get_sched(prep(md, Nr, Nh, nx, nu)).run_width
-        assert blocks in (1, 16) and 1 <= warps <= 16
+        assert blocks in (1, 16) and 1 <= warps <= max_warps
         # the groups' shared memory (the most any nx < nz needs) fits a block
         assert warps * per_warp * crk._ric_floats(nz) * 4 <= 227 * 1024
         # one round where the limits allow, one block only up to 32 runs
-        assert blocks * warps * per_warp >= min(width, blocks * 16 * per_warp)
-        assert (blocks == 1) == (width <= 32)
+        # that one block's groups take at once
+        cap = min(max_warps, 227 * 1024 // (4 * crk._ric_floats(nz) * per_warp))
+        assert blocks * warps * per_warp >= min(width, blocks * cap * per_warp)
+        assert (blocks == 1) == (width <= min(32, cap * per_warp))
 
 
 def crown_kkt_operands(md, Nr, Nh, nx, nu, seed):

@@ -12,7 +12,7 @@ from treeqp_tpu.ops import crown_kernels as jckr
 from treeqp_tpu.ops import system_kernels as jsk
 
 import chip_smoke
-from test_torch_chain_kernels import CASES, POINTS, assert_close, factor_inputs
+from test_torch_chain_kernels import CASES, POINTS, assert_close, factor_inputs, jax_ref
 from test_torch_crown_kernels import REG, jax_prep
 from treeqp_tpu_torch.ops import chain_kernels as ck
 from treeqp_tpu_torch.ops import crown_kernels as ckr
@@ -79,10 +79,9 @@ def test_system_solve_matches_pallas(name, point):
     dg, dch = sk.system_solve_ref(*args, prep, root_ids)
     jprep = jax_prep(topo)
     factors = jax_layout(*args[:4], jprep)
-    jdg, jdch = jsk.system_solve(*(jnp.asarray(f) for f in factors),
-                                 jnp.asarray(args[4].numpy()),
-                                 jnp.asarray(args[5].numpy()), jprep,
-                                 root_ids)
+    jdg, jdch = jax_ref(jsk.system_solve, *(jnp.asarray(f) for f in factors),
+                        jnp.asarray(args[4].numpy()), jnp.asarray(args[5].numpy()),
+                        prep=jprep, root_ids=np.asarray(root_ids))
     assert_close(dg, jdg, RTOL, "dg")
     assert_close(dch, jdch, RTOL, "dch")
 

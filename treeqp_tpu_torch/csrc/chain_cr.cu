@@ -488,23 +488,12 @@ __global__ void __launch_bounds__(kMaxThreads) chain_forward_cr_kernel(
   });
 }
 
-// Opt the kernel in to ``bytes`` of dynamic shared memory, once for each new
-// high-water mark (``opted``, the kernel's own).
-template <typename K>
-cudaError_t opt_in(K kernel, size_t bytes, size_t& opted) {
-  if (bytes <= opted) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) opted = bytes;
-  return e;
-}
-
 template <int G, bool kQuad, bool kScratch>
 int launch_bwd(const float* Ls, const float* CUs, const float* Abwd, const float* res,
                float* ys, float* radd0, float* scratch, int S, int L, int n, cudaStream_t st) {
   const size_t bytes = kScratch ? 0 : sweep_smem_bytes(L, n);
-  static size_t opted = 48 * 1024;
-  const cudaError_t e = opt_in(chain_solve_bwd_cr_kernel<G, kQuad, kScratch>, bytes, opted);
+  static size_t opted = tq::kDefaultSmem;
+  const cudaError_t e = tq::opt_in(chain_solve_bwd_cr_kernel<G, kQuad, kScratch>, bytes, opted);
   if (e != cudaSuccess) return (int)e;
   chain_solve_bwd_cr_kernel<G, kQuad, kScratch><<<S, sweep_threads(L, n), bytes, st>>>(
       Ls, CUs, Abwd, res, ys, radd0, scratch, L, n);
@@ -515,8 +504,8 @@ template <int G, bool kQuad, bool kScratch>
 int launch_fwd(const float* Ls, const float* Bfwd, const float* ys, const float* droot,
                float* dls, float* scratch, int S, int L, int n, cudaStream_t st) {
   const size_t bytes = kScratch ? 0 : sweep_smem_bytes(L, n);
-  static size_t opted = 48 * 1024;
-  const cudaError_t e = opt_in(chain_forward_cr_kernel<G, kQuad, kScratch>, bytes, opted);
+  static size_t opted = tq::kDefaultSmem;
+  const cudaError_t e = tq::opt_in(chain_forward_cr_kernel<G, kQuad, kScratch>, bytes, opted);
   if (e != cudaSuccess) return (int)e;
   chain_forward_cr_kernel<G, kQuad, kScratch><<<S, sweep_threads(L, n), bytes, st>>>(
       Ls, Bfwd, ys, droot, dls, scratch, L, n);

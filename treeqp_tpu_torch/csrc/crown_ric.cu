@@ -40,11 +40,15 @@
 // ~1300 dependent FMAs (factor) in one thread with M and T in local memory,
 // then one thread a parent summing its kids' 81-float W in series, two
 // barriers a level (0.58 ms at 341 nodes, 4.5 ms at 4437). Design:
-// - A group of G = tq::lanes(nz) lanes takes a run, lane i owning row i of
-//   the stage (8 lanes for nz <= 8, 16 for nz <= 16; nz a template
-//   parameter, 2 .. 16). The stages are tq_riccati.cuh's
-//   ric_stage_factor_lanes, ric_stage_bwd_lanes and ric_stage_fwd_lanes,
-//   the chain kernels' (ric_chain.cu), their shuffles on the group's lanes.
+// - A group of G = tq::ric_lanes(nz) lanes takes a run, lane i owning row i
+//   of the stage (8 lanes for nz <= 8, 16 for nz <= 16, a warp for nz <=
+//   32; one instantiation per nz = 2 .. 16, nz a template parameter, and
+//   one for 16 < nz <= 32 with nz at run time: tq_riccati.cuh's kRicWide,
+//   built by crown_ric_wide.cu; its blocks hold at most 8 warps, for the
+//   registers of its 32-entry rows, max_threads). The stages are
+//   tq_riccati.cuh's ric_stage_factor_lanes, ric_stage_bwd_lanes and
+//   ric_stage_fwd_lanes, the chain kernels' (ric_chain.cu), their shuffles
+//   on the group's lanes.
 // - The team is one cluster of blocks (the cluster's barrier, release /
 //   acquire) or, where the widest phase is narrow, one block
 //   (__syncthreads); crown_riccati._ric_launch sizes it, and one kernel
@@ -71,14 +75,18 @@
 // 0 a sum starts from), the kid sums 0 + W_kid1 + ... and every other add
 // rounded on its own, rsqrtf pivots and true divisions: bit for bit those
 // kernels. No tensor cores: a stage is a dependent factorization and
-// product chain of nz <= 16 rows; wgmma needs 64-row tiles.
+// product chain of nz <= 32 rows; wgmma needs 64-row tiles.
 
 #include "tq_crown.cuh"
 #include "tq_riccati.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 512;  // 128 registers a thread
+// A block's threads: 512 (128 registers a thread) up to nz = 16, 256 (255
+// registers, the most a thread may have) for the wide instantiation
+__host__ __device__ constexpr int max_threads(int NZ) {
+  return NZ <= tq::kRicNarrow ? 512 : 256;
+}
 constexpr int kFactorStages = 3;  // the factor's ring
 constexpr int kSolveStages = 4;   // the solve's rings
 
@@ -151,12 +159,6 @@ __host__ __device__ inline int solve_group_floats(int nx, int nz) {
   return kSolveStages * (b > f ? b : f);
 }
 
-// The lanes of the group that owns this thread, as a warp mask.
-template <int G>
-__device__ __forceinline__ unsigned group_mask() {
-  return ((1u << G) - 1) << (threadIdx.x % 32 / G * G);
-}
-
 // The blocks that share the phases and the barrier between them: one
 // cluster of ``blocks`` blocks or one block, chosen at launch
 // (tq_crown.cuh).
@@ -218,11 +220,11 @@ struct Walk {
 // product one FMA, true divisions.
 template <int NZ, int G>
 __device__ __forceinline__ void root_lanes(const float* P, const float* K, float pi, float ki,
-                                           int nx, int i, unsigned mask, float* sL, float* dz,
-                                           float* dl) {
+                                           int nx, int nz, int i, unsigned mask, float* sL,
+                                           float* dz, float* dl) {
   const int r = i < nx ? i : -1;  // row of P_0 and L (-1 past nx - 1)
-  const int u = i - nx;           // row of K_0 on lanes nx .. NZ-1
-  const bool urow = u >= 0 && u < NZ - nx;
+  const int u = i - nx;           // row of K_0 on lanes nx .. nz-1
+  const bool urow = u >= 0 && u < nz - nx;
   // lane x's row of P_0 (l becomes its row of L), lane nx + u's row of K_0
   float l[NZ], row[NZ];
 #pragma unroll
@@ -297,10 +299,10 @@ __device__ __forceinline__ void root_lanes(const float* P, const float* K, float
 }
 
 template <int NZ>
-__device__ __forceinline__ void factor(const Team& team, const FactorOps& ops, int nx, int n_ph,
-                                       float reg) {
-  constexpr int G = tq::lanes(NZ);
-  constexpr int nz = NZ, nn = NZ * NZ;
+__device__ __forceinline__ void factor(const Team& team, const FactorOps& ops, int nx, int nz_,
+                                       int n_ph, float reg) {
+  constexpr int G = tq::ric_lanes(NZ);
+  const int nz = tq::ric_nz<NZ>(nz_), nn = nz * nz;
   extern __shared__ __align__(16) float smem[];
   const float* hbar = arg<const float>(ops.p[0]);
   const float* AB = arg<const float>(ops.p[1]);
@@ -317,7 +319,7 @@ __device__ __forceinline__ void factor(const Team& team, const FactorOps& ops, i
   const int* run_node = arg<const int>(ops.p[17]);
   const int nu = nz - nx;
   const int i = threadIdx.x % G, q = threadIdx.x / G;
-  const unsigned mask = group_mask<G>();
+  const unsigned mask = tq::group_mask<G>();
   const int g = q * team.blocks + team.rank, groups = team.blocks * (blockDim.x / G);
   const int stf = factor_stage_floats(nx, nz);
   float* ring = smem + (size_t)q * factor_group_floats(nx, nz);
@@ -369,28 +371,33 @@ __device__ __forceinline__ void factor(const Team& team, const FactorOps& ops, i
             for (int kq = k0; kq < k1; ++kq) {
               const float* Wk = Wc + (size_t)kid_idx[kq] * nn + i * nz;
 #pragma unroll
-              for (int c = 0; c < NZ; ++c) s[c] = __fadd_rn(s[c], Wk[c]);
+              for (int c = 0; c < NZ; ++c)
+                if (c < nz) s[c] = __fadd_rn(s[c], Wk[c]);
             }
 #pragma unroll
-            for (int c = 0; c < NZ; ++c) a[c] = __fadd_rn(W0[i * nz + c], s[c]);
+            for (int c = 0; c < NZ; ++c)
+              if (c < nz) a[c] = __fadd_rn(W0[i * nz + c], s[c]);
           } else {
 #pragma unroll
-            for (int c = 0; c < NZ; ++c) a[c] = W0[i * nz + c];
+            for (int c = 0; c < NZ; ++c)
+              if (c < nz) a[c] = W0[i * nz + c];
           }
         } else {
 #pragma unroll
-          for (int c = 0; c < NZ; ++c) a[c] = __fadd_rn(W0[i * nz + c], __fadd_rn(0.f, w[c]));
+          for (int c = 0; c < NZ; ++c)
+            if (c < nz) a[c] = __fadd_rn(W0[i * nz + c], __fadd_rn(0.f, w[c]));
         }
 #pragma unroll
         for (int c = 0; c < NZ; ++c)
           if (c == i) a[c] = __fadd_rn(a[c], hb[i]);
       }
-      tq::ric_stage_factor_lanes<NZ, G>(a, ABn, nx, i, reg, work, true, P + n * nx * nx,
+      tq::ric_stage_factor_lanes<NZ, G>(a, ABn, nx, nz, i, reg, work, true, P + n * nx * nx,
                                         Lu + n * nu * nu, K + n * nu * nx, Mxu + n * nx * nu,
                                         w, mask);
       if (row && cw.e == cw.last()) {
 #pragma unroll
-        for (int c = 0; c < NZ; ++c) Wc[n * nn + i * nz + c] = w[c];
+        for (int c = 0; c < NZ; ++c)
+          if (c < nz) Wc[n * nn + i * nz + c] = w[c];
       }
       __syncwarp(mask);  // the stage and the work areas are read: refill
     }
@@ -400,9 +407,10 @@ __device__ __forceinline__ void factor(const Team& team, const FactorOps& ops, i
 }
 
 template <int NZ>
-__device__ __forceinline__ void solve(const Team& team, const SolveOps& ops, int nx, int n_ph) {
-  constexpr int G = tq::lanes(NZ);
-  constexpr int nz = NZ;
+__device__ __forceinline__ void solve(const Team& team, const SolveOps& ops, int nx, int nz_,
+                                      int n_ph) {
+  constexpr int G = tq::ric_lanes(NZ);
+  const int nz = tq::ric_nz<NZ>(nz_);
   extern __shared__ __align__(16) float smem[];
   const float* P = arg<const float>(ops.p[0]);
   const float* Lu = arg<const float>(ops.p[1]);
@@ -425,7 +433,7 @@ __device__ __forceinline__ void solve(const Team& team, const SolveOps& ops, int
   const int* run_node = arg<const int>(ops.p[23]);
   const int nu = nz - nx;
   const int i = threadIdx.x % G, q = threadIdx.x / G;
-  const unsigned mask = group_mask<G>();
+  const unsigned mask = tq::group_mask<G>();
   const int g = q * team.blocks + team.rank, groups = team.blocks * (blockDim.x / G);
   float* ring = smem + (size_t)q * solve_group_floats(nx, nz);
 
@@ -477,7 +485,7 @@ __device__ __forceinline__ void solve(const Team& team, const SolveOps& ops, int
         m = __fadd_rn(st[ob.rg + i], ws);
       }
       w = tq::ric_stage_bwd_lanes<NZ, G>(m, st + ob.P, st + ob.Lu, st + ob.Mxu, st + ob.AB,
-                                         st + ob.rb, nx, i, pi, ki, mask);
+                                         st + ob.rb, nx, nz, i, pi, ki, mask);
       if (i < nx) p[n * nx + i] = pi;
       else if (i < nz) k[n * nu + i - nx] = ki;
       if (i < nz && cw.e == cw.last()) wv[n * nz + i] = w;
@@ -490,7 +498,7 @@ __device__ __forceinline__ void solve(const Team& team, const SolveOps& ops, int
 
   // the root: its run is the last phase's only one, group 0's, whose last
   // backward step left p_0 and k_0 in pi and ki; L goes through its ring
-  if (g == 0) root_lanes<NZ, G>(P, K, pi, ki, nx, i, mask, ring, dz, dl);
+  if (g == 0) root_lanes<NZ, G>(P, K, pi, ki, nx, nz, i, mask, ring, dz, dl);
   __syncwarp(mask);
 
   // forward sweep, phases in reverse from the one below the root's; the
@@ -528,7 +536,7 @@ __device__ __forceinline__ void solve(const Team& team, const SolveOps& ops, int
       if (cv.e == cv.first()) z = i < nz ? dz[(size_t)par[n] * nz + i] : 0.f;
       float dli;
       z = tq::ric_stage_fwd_lanes<NZ, G>(z, st + of.P, st + of.K, st + of.AB, st + of.rb,
-                                         st + of.p, st + of.k, nx, i, dli, mask);
+                                         st + of.p, st + of.k, nx, nz, i, dli, mask);
       if (i < nz) dz[n * nz + i] = z;
       if (i < nx) dl[n * nx + i] = dli;
       __syncwarp(mask);  // the stage is read: refill it
@@ -539,49 +547,77 @@ __device__ __forceinline__ void solve(const Team& team, const SolveOps& ops, int
 }
 
 template <int NZ>
-__global__ void __launch_bounds__(kMaxThreads)
-    crown_ric_factor_kernel(const FactorOps ops, int nx, int n_ph, float reg, int blocks) {
-  factor<NZ>(Team(blocks), ops, nx, n_ph, reg);
+__global__ void __launch_bounds__(max_threads(NZ))
+    crown_ric_factor_kernel(const FactorOps ops, int nx, int nz, int n_ph, float reg,
+                            int blocks) {
+  factor<NZ>(Team(blocks), ops, nx, nz, n_ph, reg);
 }
 
 template <int NZ>
-__global__ void __launch_bounds__(kMaxThreads)
-    crown_ric_solve_kernel(const SolveOps ops, int nx, int n_ph, int blocks) {
-  solve<NZ>(Team(blocks), ops, nx, n_ph);
+__global__ void __launch_bounds__(max_threads(NZ))
+    crown_ric_solve_kernel(const SolveOps ops, int nx, int nz, int n_ph, int blocks) {
+  solve<NZ>(Team(blocks), ops, nx, nz, n_ph);
 }
 
-// Launch ``kernel`` on one cluster of ``blocks`` blocks (one block: no
-// cluster) of 32 warps threads with ``bytes`` of dynamic shared memory
-// (tq::launch_team).
-template <typename... Args>
-int launch(void (*kernel)(Args...), int nx, int nz, int n_ph, int blocks, int warps,
-           size_t bytes, tq::TeamLimits& lim, cudaStream_t st, Args... args) {
-  if (nx < 1 || nx >= nz || n_ph < 1 || warps < 1 || 32 * warps > kMaxThreads)
-    return (int)cudaErrorInvalidValue;
+// Launch ``kernel`` (instantiated for NZ) on one cluster of ``blocks``
+// blocks (one block: no cluster) of 32 warps threads with ``bytes`` of
+// dynamic shared memory (tq::launch_team).
+template <int NZ, typename... Args>
+int launch(void (*kernel)(Args...), int n_ph, int blocks, int warps, size_t bytes,
+           tq::TeamLimits& lim, cudaStream_t st, Args... args) {
+  if (n_ph < 1 || warps < 1 || 32 * warps > max_threads(NZ)) return (int)cudaErrorInvalidValue;
   return tq::launch_team(kernel, blocks, 32 * warps, bytes, lim, st, args...);
 }
 
 template <int NZ>
-int launch_factor(const FactorOps& ops, int nx, int n_ph, float reg, int blocks, int warps,
-                  cudaStream_t st) {
+int launch_factor(const FactorOps& ops, int nx, int nz, int n_ph, float reg, int blocks,
+                  int warps, cudaStream_t st) {
   static tq::TeamLimits lim;
   const size_t bytes =
-      (size_t)warps * (32 / tq::lanes(NZ)) * factor_group_floats(nx, NZ) * sizeof(float);
-  return launch(crown_ric_factor_kernel<NZ>, nx, NZ, n_ph, blocks, warps, bytes, lim, st, ops,
-                nx, n_ph, reg, blocks);
+      (size_t)warps * (32 / tq::ric_lanes(NZ)) * factor_group_floats(nx, nz) * sizeof(float);
+  return launch<NZ>(crown_ric_factor_kernel<NZ>, n_ph, blocks, warps, bytes, lim, st, ops, nx,
+                    nz, n_ph, reg, blocks);
 }
 
 template <int NZ>
-int launch_solve(const SolveOps& ops, int nx, int n_ph, int blocks, int warps,
+int launch_solve(const SolveOps& ops, int nx, int nz, int n_ph, int blocks, int warps,
                  cudaStream_t st) {
   static tq::TeamLimits lim;
   const size_t bytes =
-      (size_t)warps * (32 / tq::lanes(NZ)) * solve_group_floats(nx, NZ) * sizeof(float);
-  return launch(crown_ric_solve_kernel<NZ>, nx, NZ, n_ph, blocks, warps, bytes, lim, st, ops,
-                nx, n_ph, blocks);
+      (size_t)warps * (32 / tq::ric_lanes(NZ)) * solve_group_floats(nx, nz) * sizeof(float);
+  return launch<NZ>(crown_ric_solve_kernel<NZ>, n_ph, blocks, warps, bytes, lim, st, ops, nx,
+                    nz, n_ph, blocks);
 }
 
 }  // namespace
+
+// The entry points. crown_ric_wide.cu builds this file again with
+// TQ_RIC_WIDE defined, for the 32-lane instantiation alone (the _wide
+// functions, which the entry points call for 16 < nz <= 32 once they have
+// checked the shape): a translation unit of its own, which nvcc compiles
+// beside this one's 15 narrow instantiations.
+#ifdef TQ_RIC_WIDE
+
+extern "C" int tq_crown_ric_factor_wide(const void* const* p, int nx, int nz, int n_ph,
+                                        float reg, int blocks, int warps, void* stream) {
+  FactorOps ops;
+  for (int i = 0; i < 18; ++i) ops.p[i] = p[i];
+  return launch_factor<tq::kRicWide>(ops, nx, nz, n_ph, reg, blocks, warps,
+                                     (cudaStream_t)stream);
+}
+
+extern "C" int tq_crown_ric_solve_wide(const void* const* p, int nx, int nz, int n_ph,
+                                       int blocks, int warps, void* stream) {
+  SolveOps ops;
+  for (int i = 0; i < 24; ++i) ops.p[i] = p[i];
+  return launch_solve<tq::kRicWide>(ops, nx, nz, n_ph, blocks, warps, (cudaStream_t)stream);
+}
+
+#else
+
+extern "C" int tq_crown_ric_factor_wide(const void* const*, int, int, int, float, int, int,
+                                        void*);
+extern "C" int tq_crown_ric_solve_wide(const void* const*, int, int, int, int, int, void*);
 
 // pointers (FactorOps), Nc, nx, nz, n_ph (phases of runs), reg, blocks
 // (one cluster of 2 .. 16 blocks, or one block), warps a block, stream
@@ -591,15 +627,12 @@ extern "C" int tq_crown_ric_factor(const void* const* p, int Nc, int nx, int nz,
   for (int i = 0; i < 18; ++i) ops.p[i] = p[i];
   const cudaStream_t st = (cudaStream_t)stream;
   if (Nc < 1) return (int)cudaErrorInvalidValue;
-  switch (nz) {
 #define TQ_RIC(NZ_) \
   case NZ_:         \
-    return launch_factor<NZ_>(ops, nx, n_ph, reg, blocks, warps, st);
-    TQ_RIC(2) TQ_RIC(3) TQ_RIC(4) TQ_RIC(5) TQ_RIC(6) TQ_RIC(7) TQ_RIC(8) TQ_RIC(9)
-    TQ_RIC(10) TQ_RIC(11) TQ_RIC(12) TQ_RIC(13) TQ_RIC(14) TQ_RIC(15) TQ_RIC(16)
+    return launch_factor<NZ_>(ops, nx, nz, n_ph, reg, blocks, warps, st);
+  TQ_RIC_SWITCH(nx, nz, TQ_RIC,
+                tq_crown_ric_factor_wide(p, nx, nz, n_ph, reg, blocks, warps, stream))
 #undef TQ_RIC
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 // pointers (SolveOps), Nc, nx, nz, n_ph, blocks, warps, stream
@@ -609,13 +642,11 @@ extern "C" int tq_crown_ric_solve(const void* const* p, int Nc, int nx, int nz, 
   for (int i = 0; i < 24; ++i) ops.p[i] = p[i];
   const cudaStream_t st = (cudaStream_t)stream;
   if (Nc < 1) return (int)cudaErrorInvalidValue;
-  switch (nz) {
 #define TQ_RIC(NZ_) \
   case NZ_:         \
-    return launch_solve<NZ_>(ops, nx, n_ph, blocks, warps, st);
-    TQ_RIC(2) TQ_RIC(3) TQ_RIC(4) TQ_RIC(5) TQ_RIC(6) TQ_RIC(7) TQ_RIC(8) TQ_RIC(9)
-    TQ_RIC(10) TQ_RIC(11) TQ_RIC(12) TQ_RIC(13) TQ_RIC(14) TQ_RIC(15) TQ_RIC(16)
+    return launch_solve<NZ_>(ops, nx, nz, n_ph, blocks, warps, st);
+  TQ_RIC_SWITCH(nx, nz, TQ_RIC, tq_crown_ric_solve_wide(p, nx, nz, n_ph, blocks, warps, stream))
 #undef TQ_RIC
-  }
-  return (int)cudaErrorInvalidValue;
 }
+
+#endif  // TQ_RIC_WIDE

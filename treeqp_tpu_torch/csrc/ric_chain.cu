@@ -22,9 +22,11 @@
 // ric_chain_factor. The thread-per-chain kernel this replaces ran ~1300
 // dependent FMAs a stage in one thread with W and T in local memory (S = 256
 // chains on two SMs, 3.2 ms). Design:
-// - A group of G lanes takes a chain: G = 8 for nz <= 8, 16 for nz <= 16
-//   (tq::lanes), 32 / G chains a warp and one warp a block. nz is a
-//   template parameter (one instantiation per nz = 2 .. 16), nx is not.
+// - A group of G lanes takes a chain: G = 8 for nz <= 8, 16 for nz <= 16,
+//   32 for nz <= 32 (tq::ric_lanes), 32 / G chains a warp and one warp a
+//   block. One instantiation per nz = 2 .. 16, nz a template parameter,
+//   and one for 16 < nz <= 32 (tq_riccati.cuh's kRicWide, nz at run time,
+//   built by ric_chain_wide.cu); nx is a run-time value.
 // - Lane i owns row i of the stage's M = hbar_j + W in registers; the
 //   stage is tq_riccati.cuh's ric_stage_factor_lanes (the crown's
 //   crown_ric_factor runs it too): Lu right-looking by shuffles, K by
@@ -40,14 +42,14 @@
 // their own (__fadd_rn, __fmul_rn), with rsqrtf and true divisions: the
 // results are the thread-per-chain kernel's bit for bit, whatever the
 // compiler contracts. No tensor cores: a stage is a dependent factorization
-// and product chain of nz <= 16 blocks; wgmma needs 64-row tiles.
+// and product chain of nz <= 32 blocks; wgmma needs 64-row tiles.
 //
 // ric_chain_bwd. The thread-per-chain kernel this replaces ran ~150
 // dependent FMAs a stage at nz = 9 in one thread, its operands read from
 // global memory and v, y in local memory (S = 256 chains on two SMs, 0.38
 // ms). Design:
-// - The layout of ric_chain_factor: G = tq::lanes(nz) lanes a chain, 32 / G
-//   chains a warp, one warp a block, nz a template parameter (2 .. 16).
+// - The layout of ric_chain_factor: G = tq::ric_lanes(nz) lanes a chain,
+//   32 / G chains a warp, one warp a block, the same instantiations.
 // - Each stage's [P_j | Lu_j | Mxu_j | AB_j | rg_j | rb_j] (164 floats at
 //   nx = 8, nz = 9) streams through a ring of kBwdStages stages of shared
 //   memory per chain with cp.async, up to kBwdStages - 1 stages ahead.
@@ -60,14 +62,14 @@
 //   w0 row i.
 // Bit for bit the thread-per-chain kernel.
 // No tensor cores: a stage is a dependent solve and product chain of
-// nz <= 16 rows.
+// nz <= 32 rows.
 //
 // ric_chain_fwd. The thread-per-chain kernel this replaces ran ~150
 // dependent FMAs a stage at nz = 9 in one thread, P_j, K_j and AB_j read
 // from global memory and dx in local memory (S = 256 chains on two SMs,
 // 0.26 ms in a CUDA graph). Design:
-// - The layout of ric_chain_bwd: G = tq::lanes(nz) lanes a chain, 32 / G
-//   chains a warp, one warp a block, nz a template parameter (2 .. 16).
+// - The layout of ric_chain_bwd: G = tq::ric_lanes(nz) lanes a chain,
+//   32 / G chains a warp, one warp a block, the same instantiations.
 // - Each stage's [P_j | K_j | AB_j | rb_j | p_j | k_j] (161 floats at
 //   nx = 8, nz = 9) streams through a ring of kBwdStages stages of shared
 //   memory per chain with cp.async, up to kBwdStages - 1 stages ahead.
@@ -79,7 +81,7 @@
 // - Lane i writes dz_j row i and keeps it as the next stage's zp; lane x
 //   writes dl_j row x.
 // Bit for bit the thread-per-chain kernel.
-// No tensor cores: a stage is a dependent product chain of nz <= 16 rows.
+// No tensor cores: a stage is a dependent product chain of nz <= 32 rows.
 
 #include "tq_lanes.cuh"
 #include "tq_riccati.cuh"
@@ -97,19 +99,19 @@ __host__ __device__ inline int ric_stage_floats(int nx, int nz, int dense) {
   return (nx * nz + (dense ? nz * nz : nz) + 3) & ~3;
 }
 
-// A chain's shared memory: the ring, then five NZ x NZ work areas
+// A chain's shared memory: the ring, then five nz x nz work areas
 // (M, Lu, K, T = Mxx + Mxu K, P AB).
-__host__ __device__ inline int ric_chain_floats(int NZ, int nx, int dense) {
-  return kStages * ric_stage_floats(nx, NZ, dense) + 5 * NZ * NZ;
+__host__ __device__ inline int ric_chain_floats(int nz, int nx, int dense) {
+  return kStages * ric_stage_floats(nx, nz, dense) + 5 * nz * nz;
 }
 
 template <int NZ>
 __global__ void __launch_bounds__(32) ric_chain_factor_kernel(
     const float* __restrict__ hbar, const float* __restrict__ AB, float* __restrict__ P,
     float* __restrict__ Lu, float* __restrict__ K, float* __restrict__ Mxu,
-    float* __restrict__ W0, int S, int L, int nx, int dense, float reg) {
-  constexpr int G = tq::lanes(NZ);
-  constexpr int nz = NZ;
+    float* __restrict__ W0, int S, int L, int nx, int nz_, int dense, float reg) {
+  constexpr int G = tq::ric_lanes(NZ);
+  const int nz = tq::ric_nz<NZ>(nz_);
   extern __shared__ __align__(16) float smem[];
   const int nu = nz - nx;
   const int i = threadIdx.x % G, q = threadIdx.x / G;
@@ -118,7 +120,7 @@ __global__ void __launch_bounds__(32) ric_chain_factor_kernel(
   const size_t sl = live ? s : S - 1;  // a group past the last chain stores nothing
   const int stf = ric_stage_floats(nx, nz, dense);
   const int hbf = dense ? nz * nz : nz;
-  float* ring = smem + (size_t)q * ric_chain_floats(NZ, nx, dense);
+  float* ring = smem + (size_t)q * ric_chain_floats(nz, nx, dense);
   float* work = ring + kStages * stf;  // the stage's five work areas
   const float* ABc = AB + sl * L * nx * nz;
   const float* hbc = hbar + sl * L * hbf;
@@ -151,11 +153,11 @@ __global__ void __launch_bounds__(32) ric_chain_factor_kernel(
     float a[NZ];
 #pragma unroll
     for (int c = 0; c < NZ; ++c) {
-      if (!row) a[c] = 0.f;
+      if (!row || c >= nz) a[c] = 0.f;
       else if (dense) a[c] = __fadd_rn(w[c], hb[i * nz + c]);
       else a[c] = c == i ? __fadd_rn(w[c], hb[i]) : w[c];
     }
-    tq::ric_stage_factor_lanes<NZ, G>(a, ABj, nx, i, reg, work, live, P + sj * nx * nx,
+    tq::ric_stage_factor_lanes<NZ, G>(a, ABj, nx, nz, i, reg, work, live, P + sj * nx * nx,
                                       Lu + sj * nu * nu, K + sj * nu * nx, Mxu + sj * nx * nu,
                                       w);
     __syncwarp();  // the stage and the work areas are read: refill
@@ -163,18 +165,22 @@ __global__ void __launch_bounds__(32) ric_chain_factor_kernel(
   tq::cp_async_wait<0>();
   if (live && row) {
 #pragma unroll
-    for (int c = 0; c < NZ; ++c) W0[sl * nz * nz + i * nz + c] = w[c];
+    for (int c = 0; c < NZ; ++c)
+      if (c < nz) W0[sl * nz * nz + i * nz + c] = w[c];
   }
 }
 
 template <int NZ>
 int launch_factor(const float* hbar, const float* AB, float* P, float* Lu, float* K,
-                  float* Mxu, float* W0, int S, int L, int nx, int dense, float reg,
+                  float* Mxu, float* W0, int S, int L, int nx, int nz, int dense, float reg,
                   cudaStream_t st) {
-  constexpr int chains = 32 / tq::lanes(NZ);
-  const size_t bytes = (size_t)chains * ric_chain_floats(NZ, nx, dense) * sizeof(float);
+  static size_t opted = tq::kDefaultSmem;  // only the wide rings pass it
+  constexpr int chains = 32 / tq::ric_lanes(NZ);
+  const size_t bytes = (size_t)chains * ric_chain_floats(nz, nx, dense) * sizeof(float);
+  const cudaError_t e = tq::opt_in(ric_chain_factor_kernel<NZ>, bytes, opted);
+  if (e != cudaSuccess) return (int)e;
   ric_chain_factor_kernel<NZ><<<(S + chains - 1) / chains, 32, bytes, st>>>(
-      hbar, AB, P, Lu, K, Mxu, W0, S, L, nx, dense, reg);
+      hbar, AB, P, Lu, K, Mxu, W0, S, L, nx, nz, dense, reg);
   return (int)cudaGetLastError();
 }
 
@@ -207,9 +213,10 @@ struct BwdStage {
 
 // operands: P, Lu, Mxu, AB, rg, rb, p, k, w0
 template <int NZ>
-__global__ void __launch_bounds__(32) ric_chain_bwd_kernel(Ops9 ops, int S, int L, int nx) {
-  constexpr int G = tq::lanes(NZ);
-  constexpr int nz = NZ;
+__global__ void __launch_bounds__(32) ric_chain_bwd_kernel(Ops9 ops, int S, int L, int nx,
+                                                           int nz_) {
+  constexpr int G = tq::ric_lanes(NZ);
+  const int nz = tq::ric_nz<NZ>(nz_);
   extern __shared__ __align__(16) float smem[];
   const float* P = static_cast<const float*>(ops.p[0]);
   const float* Lu = static_cast<const float*>(ops.p[1]);
@@ -254,7 +261,7 @@ __global__ void __launch_bounds__(32) ric_chain_bwd_kernel(Ops9 ops, int S, int 
     const float m = i < nz ? __fadd_rn(st[o.rg + i], w) : 0.f;
     float pi = 0.f, ki = 0.f;
     w = tq::ric_stage_bwd_lanes<NZ, G>(m, st + o.P, st + o.Lu, st + o.Mxu, st + o.AB,
-                                       st + o.rb, nx, i, pi, ki);
+                                       st + o.rb, nx, nz, i, pi, ki);
     if (live) {
       if (i < nx) p[sj * nx + i] = pi;
       else if (i < nz) k[sj * nu + i - nx] = ki;
@@ -266,10 +273,13 @@ __global__ void __launch_bounds__(32) ric_chain_bwd_kernel(Ops9 ops, int S, int 
 }
 
 template <int NZ>
-int launch_bwd(Ops9 ops, int S, int L, int nx, cudaStream_t st) {
-  constexpr int chains = 32 / tq::lanes(NZ);
-  const size_t bytes = (size_t)chains * kBwdStages * BwdStage(nx, NZ).floats * sizeof(float);
-  ric_chain_bwd_kernel<NZ><<<(S + chains - 1) / chains, 32, bytes, st>>>(ops, S, L, nx);
+int launch_bwd(Ops9 ops, int S, int L, int nx, int nz, cudaStream_t st) {
+  static size_t opted = tq::kDefaultSmem;  // only the wide rings pass it
+  constexpr int chains = 32 / tq::ric_lanes(NZ);
+  const size_t bytes = (size_t)chains * kBwdStages * BwdStage(nx, nz).floats * sizeof(float);
+  const cudaError_t e = tq::opt_in(ric_chain_bwd_kernel<NZ>, bytes, opted);
+  if (e != cudaSuccess) return (int)e;
+  ric_chain_bwd_kernel<NZ><<<(S + chains - 1) / chains, 32, bytes, st>>>(ops, S, L, nx, nz);
   return (int)cudaGetLastError();
 }
 
@@ -294,9 +304,10 @@ struct FwdStage {
 
 // operands: P, K, AB, rb, p, k, z_root, dz, dl
 template <int NZ>
-__global__ void __launch_bounds__(32) ric_chain_fwd_kernel(Ops9 ops, int S, int L, int nx) {
-  constexpr int G = tq::lanes(NZ);
-  constexpr int nz = NZ;
+__global__ void __launch_bounds__(32) ric_chain_fwd_kernel(Ops9 ops, int S, int L, int nx,
+                                                           int nz_) {
+  constexpr int G = tq::ric_lanes(NZ);
+  const int nz = tq::ric_nz<NZ>(nz_);
   extern __shared__ __align__(16) float smem[];
   const float* P = static_cast<const float*>(ops.p[0]);
   const float* K = static_cast<const float*>(ops.p[1]);
@@ -340,7 +351,7 @@ __global__ void __launch_bounds__(32) ric_chain_fwd_kernel(Ops9 ops, int S, int 
     const float* st = ring + (t % kBwdStages) * o.floats;
     float dli;
     z = tq::ric_stage_fwd_lanes<NZ, G>(z, st + o.P, st + o.K, st + o.AB, st + o.rb, st + o.p,
-                                       st + o.k, nx, i, dli);
+                                       st + o.k, nx, nz, i, dli);
     if (live) {
       if (i < nz) dz[sj * nz + i] = z;
       if (i < nx) dl[sj * nx + i] = dli;
@@ -351,10 +362,13 @@ __global__ void __launch_bounds__(32) ric_chain_fwd_kernel(Ops9 ops, int S, int 
 }
 
 template <int NZ>
-int launch_fwd(Ops9 ops, int S, int L, int nx, cudaStream_t st) {
-  constexpr int chains = 32 / tq::lanes(NZ);
-  const size_t bytes = (size_t)chains * kBwdStages * FwdStage(nx, NZ).floats * sizeof(float);
-  ric_chain_fwd_kernel<NZ><<<(S + chains - 1) / chains, 32, bytes, st>>>(ops, S, L, nx);
+int launch_fwd(Ops9 ops, int S, int L, int nx, int nz, cudaStream_t st) {
+  static size_t opted = tq::kDefaultSmem;  // only the wide rings pass it
+  constexpr int chains = 32 / tq::ric_lanes(NZ);
+  const size_t bytes = (size_t)chains * kBwdStages * FwdStage(nx, nz).floats * sizeof(float);
+  const cudaError_t e = tq::opt_in(ric_chain_fwd_kernel<NZ>, bytes, opted);
+  if (e != cudaSuccess) return (int)e;
+  ric_chain_fwd_kernel<NZ><<<(S + chains - 1) / chains, 32, bytes, st>>>(ops, S, L, nx, nz);
   return (int)cudaGetLastError();
 }
 
@@ -366,21 +380,52 @@ Ops9 ops9(const void* const* p) {
 
 }  // namespace
 
+// The entry points. ric_chain_wide.cu builds this file again with
+// TQ_RIC_WIDE defined, for the 32-lane instantiation alone (the _wide
+// functions, which the entry points call for 16 < nz <= 32 once they have
+// checked the shape): a translation unit of its own, which nvcc compiles
+// beside this one's 15 narrow instantiations.
+#ifdef TQ_RIC_WIDE
+
+extern "C" int tq_ric_chain_factor_wide(const float* hbar, const float* AB, float* P,
+                                        float* Lu, float* K, float* Mxu, float* W0, int S,
+                                        int L, int nx, int nz, int dense, float reg,
+                                        void* stream) {
+  return launch_factor<tq::kRicWide>(hbar, AB, P, Lu, K, Mxu, W0, S, L, nx, nz, dense, reg,
+                                     (cudaStream_t)stream);
+}
+
+extern "C" int tq_ric_chain_bwd_wide(const void* const* p, int S, int L, int nx, int nz,
+                                     void* stream) {
+  return launch_bwd<tq::kRicWide>(ops9(p), S, L, nx, nz, (cudaStream_t)stream);
+}
+
+extern "C" int tq_ric_chain_fwd_wide(const void* const* p, int S, int L, int nx, int nz,
+                                     void* stream) {
+  return launch_fwd<tq::kRicWide>(ops9(p), S, L, nx, nz, (cudaStream_t)stream);
+}
+
+#else
+
+extern "C" int tq_ric_chain_factor_wide(const float*, const float*, float*, float*, float*,
+                                        float*, float*, int, int, int, int, int, float,
+                                        void*);
+extern "C" int tq_ric_chain_bwd_wide(const void* const*, int, int, int, int, void*);
+extern "C" int tq_ric_chain_fwd_wide(const void* const*, int, int, int, int, void*);
+
 // hbar, AB, P, Lu, K, Mxu, W0, S, L, nx, nz, dense, reg, stream
 extern "C" int tq_ric_chain_factor(const float* hbar, const float* AB, float* P,
                                    float* Lu, float* K, float* Mxu, float* W0, int S,
                                    int L, int nx, int nz, int dense, float reg,
                                    void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (nz) {
 #define TQ_RIC(NZ_) \
   case NZ_:         \
-    return launch_factor<NZ_>(hbar, AB, P, Lu, K, Mxu, W0, S, L, nx, dense, reg, st);
-    TQ_RIC(2) TQ_RIC(3) TQ_RIC(4) TQ_RIC(5) TQ_RIC(6) TQ_RIC(7) TQ_RIC(8) TQ_RIC(9)
-    TQ_RIC(10) TQ_RIC(11) TQ_RIC(12) TQ_RIC(13) TQ_RIC(14) TQ_RIC(15) TQ_RIC(16)
+    return launch_factor<NZ_>(hbar, AB, P, Lu, K, Mxu, W0, S, L, nx, nz, dense, reg, st);
+  TQ_RIC_SWITCH(nx, nz, TQ_RIC,
+                tq_ric_chain_factor_wide(hbar, AB, P, Lu, K, Mxu, W0, S, L, nx, nz, dense,
+                                         reg, stream))
 #undef TQ_RIC
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 // pointers (P, Lu, Mxu, AB, rg, rb, p, k, w0), S, L, nx, nz, stream
@@ -388,15 +433,11 @@ extern "C" int tq_ric_chain_bwd(const void* const* p, int S, int L, int nx, int 
                                 void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const Ops9 ops = ops9(p);
-  switch (nz) {
 #define TQ_RIC(NZ_) \
   case NZ_:         \
-    return launch_bwd<NZ_>(ops, S, L, nx, st);
-    TQ_RIC(2) TQ_RIC(3) TQ_RIC(4) TQ_RIC(5) TQ_RIC(6) TQ_RIC(7) TQ_RIC(8) TQ_RIC(9)
-    TQ_RIC(10) TQ_RIC(11) TQ_RIC(12) TQ_RIC(13) TQ_RIC(14) TQ_RIC(15) TQ_RIC(16)
+    return launch_bwd<NZ_>(ops, S, L, nx, nz, st);
+  TQ_RIC_SWITCH(nx, nz, TQ_RIC, tq_ric_chain_bwd_wide(p, S, L, nx, nz, stream))
 #undef TQ_RIC
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 // pointers (P, K, AB, rb, p, k, z_root, dz, dl), S, L, nx, nz, stream
@@ -404,13 +445,11 @@ extern "C" int tq_ric_chain_fwd(const void* const* p, int S, int L, int nx, int 
                                 void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const Ops9 ops = ops9(p);
-  switch (nz) {
 #define TQ_RIC(NZ_) \
   case NZ_:         \
-    return launch_fwd<NZ_>(ops, S, L, nx, st);
-    TQ_RIC(2) TQ_RIC(3) TQ_RIC(4) TQ_RIC(5) TQ_RIC(6) TQ_RIC(7) TQ_RIC(8) TQ_RIC(9)
-    TQ_RIC(10) TQ_RIC(11) TQ_RIC(12) TQ_RIC(13) TQ_RIC(14) TQ_RIC(15) TQ_RIC(16)
+    return launch_fwd<NZ_>(ops, S, L, nx, nz, st);
+  TQ_RIC_SWITCH(nx, nz, TQ_RIC, tq_ric_chain_fwd_wide(p, S, L, nx, nz, stream))
 #undef TQ_RIC
-  }
-  return (int)cudaErrorInvalidValue;
 }
+
+#endif  // TQ_RIC_WIDE

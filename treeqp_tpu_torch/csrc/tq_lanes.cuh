@@ -70,6 +70,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The dynamic shared memory every kernel may take without opting in.
+constexpr size_t kDefaultSmem = 48 * 1024;
+
+// Opt ``kernel`` in to ``bytes`` of dynamic shared memory, once for each new
+// high-water mark (``opted``, the kernel's own, from kDefaultSmem).
+template <typename K>
+cudaError_t opt_in(K kernel, size_t bytes, size_t& opted) {
+  if (bytes <= opted) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) opted = bytes;
+  return e;
+}
+
 // Lanes a chain: 8 for n <= 8, 16 for n <= 16.
 __host__ __device__ constexpr int lanes(int N) { return N <= 8 ? 8 : 16; }
 

@@ -179,14 +179,16 @@ def crown_ric_factor_ref(hbar, AB, Wsum0, prep, nx, reg=0.0):
 
 def _check(name, sched, Nc, nx, nz):
     if not (Nc == len(sched.par) and 0 < nx < nz <= _MAX_NZ):
-        raise ValueError(f"{name}: unsupported shape Nc={Nc} nx={nx} nz={nz}")
+        raise ValueError(f"{name}: unsupported shape Nc={Nc} nx={nx} nz={nz} (the kernel "
+                         f"takes the schedule's {len(sched.par)} nodes and 0 < nx < nz <= "
+                         f"{_MAX_NZ})")
 
 
-# the kernels' launch (csrc/crown_ric.cu): a group of 8 (nz <= 8) or 16
-# lanes a run, blocks of at most _RIC_WARPS warps (128 registers a thread)
-# whose groups' shared memory fits _BLOCK_SMEM, on one cluster of
-# _RIC_CLUSTER blocks (Hopper's largest, not portable) or in one block
-_RIC_WARPS = 16
+# the kernels' launch (csrc/crown_ric.cu): a group of 8 (nz <= 8), 16 (nz
+# <= 16) or 32 lanes a run, blocks of at most _ric_warps(nz) warps (16: 128
+# registers a thread; 8 for the 32-lane instantiation, 255 a thread) whose
+# groups' shared memory fits _BLOCK_SMEM, on one cluster of _RIC_CLUSTER
+# blocks (Hopper's largest, not portable) or in one block
 _RIC_CLUSTER = 16
 _BLOCK_SMEM = 227 * 1024
 _RIC_ONE_BLOCK = 32  # the widest phase one block takes
@@ -206,6 +208,18 @@ def _ric_floats(nz) -> int:
     return max(factor, 4 * max(bwd, fwd))
 
 
+def _ric_lanes(nz) -> int:
+    """Lanes a group of either kernel at nz (csrc/tq_riccati.cuh's
+    ric_lanes)."""
+    return 8 if nz <= 8 else 16 if nz <= 16 else 32
+
+
+def _ric_warps(nz) -> int:
+    """The most warps a block of either kernel at nz (crown_ric.cu's
+    max_threads / 32)."""
+    return 16 if nz <= 16 else 8
+
+
 def _ric_launch(sched, nz) -> tuple[int, int]:
     """(blocks, warps a block) of both kernels: a group a run of the widest
     phase in one round where the blocks' threads and shared memory allow;
@@ -213,8 +227,8 @@ def _ric_launch(sched, nz) -> tuple[int, int]:
     barrier costs less than the cluster's), else one cluster whose groups
     the phases' runs take interleaved over its blocks (16 blocks rather
     than 8 spread a 256-run phase's stages over twice the SMs)."""
-    per_warp = 32 // (8 if nz <= 8 else 16)
-    cap = min(_RIC_WARPS, _BLOCK_SMEM // (4 * _ric_floats(nz) * per_warp))
+    per_warp = 32 // _ric_lanes(nz)
+    cap = min(_ric_warps(nz), _BLOCK_SMEM // (4 * _ric_floats(nz) * per_warp))
     width = sched.run_width
     if width <= min(_RIC_ONE_BLOCK, cap * per_warp):
         return 1, -(-width // per_warp)

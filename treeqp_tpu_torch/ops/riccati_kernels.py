@@ -3,9 +3,10 @@ right-hand-side sweep and forward sweep.
 
 Port of ``ric_chain_factor``, ``ric_chain_bwd`` and ``ric_chain_fwd`` in
 ``treeqp_tpu/ops/riccati_kernels.py``. Each wrapper launches its CUDA
-kernel (``csrc/ric_chain.cu``, one thread per scenario chain running the
-whole length-L sweep) on CUDA tensors and runs its plain PyTorch twin
-(``*_ref``) on CPU tensors. All are f32, like the Pallas kernels. For
+kernel (``csrc/ric_chain.cu``, a group of 8, 16 or 32 lanes per scenario
+chain running the whole length-L sweep, at nz <= 32) on CUDA tensors and
+runs its plain PyTorch twin (``*_ref``, any nz) on CPU tensors. All are
+f32, like the Pallas kernels. For
 j = L-1 .. 0 (j = 0 the chain node next to the crown):
 
     factor:  M_j = hbar_j + W,  Lu_j = chol(Muu_j + reg I) (pivot floor
@@ -33,7 +34,9 @@ __all__ = ["ric_chain_factor", "ric_chain_factor_ref", "ric_chain_bwd",
            "ric_chain_bwd_ref", "ric_chain_fwd", "ric_chain_fwd_ref",
            "stage_factor", "stage_bwd", "stage_fwd"]
 
-_MAX_NZ = 16  # csrc/tq_riccati.cuh's per-thread block bound
+# the widest stage the CUDA kernels take (csrc/tq_riccati.cuh's kRicWide: a
+# warp a stage, lane i row i); the wrappers raise past it, before any launch
+_MAX_NZ = 32
 
 
 # ---------------------------------------------------------------------------
@@ -96,7 +99,8 @@ def ric_chain_factor_ref(hbar, AB, reg=0.0):
 
 def _check_dims(name, S, L, nx, nz):
     if not (S > 0 and L > 0 and 0 < nx < nz <= _MAX_NZ):
-        raise ValueError(f"{name}: unsupported shape S={S} L={L} nx={nx} nz={nz}")
+        raise ValueError(f"{name}: unsupported shape S={S} L={L} nx={nx} nz={nz} (the "
+                         f"kernel takes S, L > 0 and 0 < nx < nz <= {_MAX_NZ})")
 
 
 def ric_chain_factor(hbar, AB, reg=0.0):
